@@ -1,0 +1,381 @@
+"""Paged KV cache: a shared page pool + per-slot page tables.
+
+Counterpart of `cake_tpu/models/llama/paged.py`, restricted to the
+f32/bf16 pool and the two steps of the mixed-batch serving path
+(`decode_step_ragged_paged`, `mixed_step_paged`). Layout as there:
+
+  pool k/v: [L, N_pages, page, KV, hd]   (page = tokens per page)
+  table:    [slots, max_pages] int32      (page ids; -1 = unmapped)
+
+Page j of a slot covers absolute positions [j*page, (j+1)*page). The
+JAX steps donate the cache and return a new one; here the pool and the
+table are updated IN PLACE (the steps run under torch.inference_mode)
+and the same cache object is returned, so the signatures match.
+
+Attention impl (`attn`): "kernel" = the CUDA kernels of
+`ops/ragged_paged_attention.py` (raises on a CPU tensor); "plain" = their
+plain PyTorch folds; "auto" = the kernel for CUDA tensors and the plain
+fold for CPU tensors. The JAX package's "fold" maps to "plain".
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.model import block_skeleton, layer_params
+from cake_tpu_torch.ops.norms import rms_norm
+from cake_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_attention, ragged_paged_attention_mixed,
+    ragged_paged_attention_mixed_plain, ragged_paged_attention_plain,
+)
+from cake_tpu_torch.ops.rope import apply_rope, rope_rows_per_row
+
+ATTN_IMPLS = ("auto", "plain", "kernel")
+
+
+class PagedKVCache:
+    """Device state of the paged cache: the pools and the page table.
+    The free list stays host-side in the allocator."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 table: torch.Tensor):
+        self.k = k            # [L, N_pages, page, KV, hd]
+        self.v = v            # [L, N_pages, page, KV, hd]
+        self.table = table    # [slots, max_pages] int32, -1 = unmapped
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def max_pages(self) -> int:
+        return self.table.shape[1]
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.table.shape[1] * self.k.shape[2]
+
+    @classmethod
+    def create(cls, config: LlamaConfig, slots: int, n_pages: int,
+               page_size: int, max_seq_len: int, dtype=torch.bfloat16,
+               device="cuda") -> "PagedKVCache":
+        if max_seq_len % page_size:
+            raise ValueError(
+                f"page_size {page_size} must divide max_seq_len "
+                f"{max_seq_len}")
+        L = config.num_hidden_layers
+        KV = config.num_key_value_heads
+        hd = config.head_dim
+        shape = (L, n_pages, page_size, KV, hd)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            table=torch.full((slots, max_seq_len // page_size), -1,
+                             dtype=torch.int32, device=device),
+        )
+
+    def memory_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v))
+
+
+class PageAllocator:
+    """Host-side free list with per-page refcounts. The engine calls it
+    at admission and retire; the device steps see only the table.
+
+    The invariant `free_pages + live_pages == n_pages` holds after every
+    operation; double-frees and foreign page ids raise instead of
+    silently corrupting the pool."""
+
+    def __init__(self, n_pages: int, page_size: int):
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+        # page id -> refcount, for every currently-allocated page
+        self._refs: dict = {}
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_pages(self) -> int:
+        """Distinct pages currently allocated (each counted once however
+        many holders share it)."""
+        return len(self._refs)
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    def alloc(self, n_tokens: int) -> Optional[List[int]]:
+        """Pages covering n_tokens (each at refcount 1), or None when the
+        pool is exhausted (the caller keeps the request queued)."""
+        need = self.pages_for(n_tokens)
+        if need > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(need)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def retain(self, pages: List[int]) -> None:
+        """Add one reference to each (already-live) page; retaining a
+        free or foreign page raises before the table can alias it."""
+        for p in pages:
+            if self._refs.get(p, 0) < 1:
+                raise ValueError(
+                    f"retain of page {p} which is not allocated "
+                    f"(refcount 0) — the mapping would alias freed "
+                    "storage")
+        for p in pages:
+            self._refs[p] += 1
+
+    def release(self, pages: List[int]) -> None:
+        """Drop one reference per page; a page returns to the free list
+        only at refcount 0. Raises on foreign ids and double-frees."""
+        for p in pages:
+            if not 0 <= p < self.n_pages:
+                raise ValueError(
+                    f"release of foreign page id {p!r} (pool has pages "
+                    f"0..{self.n_pages - 1})")
+        for p in pages:
+            n = self._refs.get(p, 0)
+            if n <= 0:
+                raise ValueError(
+                    f"double-free of page {p} (refcount already 0)")
+            if n == 1:
+                del self._refs[p]
+                self._free.append(p)
+            else:
+                self._refs[p] = n - 1
+
+
+def table_set_slot(table: torch.Tensor, slot: int,
+                   pages: List[int]) -> torch.Tensor:
+    """Map `slot` to `pages` in place (one small host-to-device copy);
+    returns the table."""
+    row = torch.full((table.shape[1],), -1, dtype=torch.int32)
+    row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    table[slot] = row.to(table.device)
+    return table
+
+
+# -- pool writers (one layer's pool [N_pages, page, KV, hd], in place) --------
+#
+# A step's write targets are the same for every layer, so the steps compute
+# them once (`_window_targets` / `_decode_targets`, one host sync for the
+# boolean selection) and every layer scatters through them.
+
+
+def _window_targets(pos, q_len, active, table, P: int, C: int):
+    """(row, col, page, offset) index tensors of the positions a mixed
+    step writes: real columns (< q_len) of active rows whose position
+    lands on a mapped page inside the table. The rest are dropped, as
+    the JAX writers drop them with mode="drop"."""
+    max_pages = table.shape[1]
+    cols = torch.arange(C, device=table.device)
+    positions = pos[:, None].long() + cols[None, :]              # [B, C]
+    pidx = positions // P
+    pages = torch.gather(table, 1, pidx.clamp(max=max_pages - 1))
+    valid = ((cols[None, :] < q_len[:, None]) & active[:, None]
+             & (pidx < max_pages) & (pages >= 0))
+    rows, cs = valid.nonzero(as_tuple=True)
+    return rows, cs, pages[rows, cs].long(), positions[rows, cs] % P
+
+
+def _decode_targets(pos, active, table, P: int):
+    """Write targets of a decode step: each active row's token at pos,
+    unless its page is unmapped (the page index clamps into the table,
+    as JAX's gather does)."""
+    B = pos.shape[0]
+    rows = torch.arange(B, device=table.device)
+    pidx = (pos.long() // P).clamp(max=table.shape[1] - 1)
+    pages = table[rows, pidx]
+    rows = (active & (pages >= 0)).nonzero(as_tuple=True)[0]
+    return (rows, torch.zeros_like(rows), pages[rows].long(),
+            pos.long()[rows] % P)
+
+
+def _scatter(pool_k, pool_v, k, v, targets):
+    rows, cols, pages, offs = targets
+    pool_k[pages, offs] = k[rows, cols].to(pool_k.dtype)
+    pool_v[pages, offs] = v[rows, cols].to(pool_v.dtype)
+
+
+def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table):
+    """Every row writes its q_len-token window at absolute position
+    pos[b] into its own pages. k/v: [B, C, KV, hd]; pos/q_len: [B];
+    active: [B] bool; table: [slots(=B), max_pages]. Padding columns,
+    inactive rows and positions on unmapped pages are dropped."""
+    _scatter(pool_k, pool_v, k, v, _window_targets(
+        pos, q_len, active, table, pool_k.shape[1], k.shape[1]))
+    return pool_k, pool_v
+
+
+def update_pool_per_row(pool_k, pool_v, k, v, pos, active, table):
+    """Write one decode token per row into its page. k/v: [B, 1, KV, hd];
+    pos: [B]; active: [B] bool. Inactive rows and rows whose position
+    lands on an unmapped page are dropped."""
+    _scatter(pool_k, pool_v, k, v,
+             _decode_targets(pos, active, table, pool_k.shape[1]))
+    return pool_k, pool_v
+
+
+# -- attention over the pages ---------------------------------------------------
+
+
+def _check_impl(impl: str, q: torch.Tensor) -> None:
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown paged_attn impl {impl!r} "
+                         f"(have {ATTN_IMPLS})")
+    if impl == "kernel" and not q.is_cuda:
+        raise ValueError(
+            "paged_attn='kernel' needs CUDA tensors: the ragged "
+            "paged-attention kernels run only on the card (use 'plain' "
+            "or 'auto' on the CPU)")
+
+
+def paged_attention(q, pool_k, pool_v, table, pos, *, impl: str = "auto"):
+    """Ragged decode attention over paged KV. q: [B, 1, H, hd] (rope
+    applied; the current token's KV written); pool_k/v: [N, P, KV, hd];
+    table: [B, max_pages]; pos: [B]. Returns [B, 1, H, hd]."""
+    _check_impl(impl, q)
+    if impl == "plain":
+        return ragged_paged_attention_plain(q, pool_k, pool_v, table, pos)
+    return ragged_paged_attention(q, pool_k, pool_v, table, pos)
+
+
+def paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
+                          impl: str = "auto"):
+    """Mixed ragged attention over paged KV: decode rows (q_len=1) and
+    prefill-chunk rows in one batch. q: [B, C, H, hd]; pos: [B] position
+    of each row's first query; q_len: [B] (0 = idle row). Columns past
+    q_len come back as zeros. Returns [B, C, H, hd]."""
+    _check_impl(impl, q)
+    if impl == "plain":
+        return ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table,
+                                                  pos, q_len)
+    return ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos,
+                                        q_len)
+
+
+# -- model-level steps ------------------------------------------------------
+
+
+def run_blocks_ragged_paged(blocks, x, cache: PagedKVCache, pos, active,
+                            rope_c, rope_s, config: LlamaConfig,
+                            attn: str = "auto"):
+    """Every block over the page pool: write the token, attend the
+    pages. x: [B, 1, D]; pos/active: [B]."""
+    targets = _decode_targets(pos, active, cache.table, cache.page_size)
+    for i in range(cache.k.shape[0]):
+        pk, pv = cache.k[i], cache.v[i]
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            _scatter(pk, pv, k, v, targets)
+            return paged_attention(q, pk, pv, cache.table, pos,
+                                   impl=attn), None
+
+        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
+    return x, cache
+
+
+def forward_ragged_paged(params, tokens, cache: PagedKVCache, pos,
+                         active, rope, config: LlamaConfig,
+                         attn: str = "auto"):
+    """One decode token per row over a paged cache. tokens: [B, 1];
+    pos: [B] int32; active: [B] bool. Returns ([B, V] f32 logits,
+    cache)."""
+    x = params["embed"][tokens.long()]
+    rope_c, rope_s = rope_rows_per_row(rope.cos, rope.sin, pos.long())
+    x, cache = run_blocks_ragged_paged(params["blocks"], x, cache, pos,
+                                       active, rope_c, rope_s, config,
+                                       attn=attn)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    logits = (x[:, -1] @ params["lm_head"]).float()
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step_ragged_paged(params, tokens, pos, active,
+                             cache: PagedKVCache, rope,
+                             config: LlamaConfig, attn: str = "auto"):
+    """The engine's pure-decode step over the page pool: each active row
+    writes its token's KV at pos and attends its pages (the pool is
+    updated in place, where JAX donated it)."""
+    return forward_ragged_paged(params, tokens, cache, pos, active,
+                                rope, config, attn=attn)
+
+
+def run_blocks_mixed_paged(blocks, x, cache: PagedKVCache, pos, q_len,
+                           active, rope_c, rope_s, config: LlamaConfig,
+                           attn: str = "auto"):
+    """Every block over a mixed batch of per-row windows: write each
+    row's window into its pages, attend everything written through the
+    table. x: [B, C, D]; rope_c/rope_s: [B, C, hd//2]."""
+    targets = _window_targets(pos, q_len, active, cache.table,
+                              cache.page_size, x.shape[1])
+    for i in range(cache.k.shape[0]):
+        pk, pv = cache.k[i], cache.v[i]
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            _scatter(pk, pv, k, v, targets)
+            return paged_attention_mixed(q, pk, pv, cache.table, pos,
+                                         q_len, impl=attn), None
+
+        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
+    return x, cache
+
+
+def _mixed_windows_trunk(params, tokens, pos, q_len, active,
+                         cache: PagedKVCache, rope, config: LlamaConfig,
+                         attn: str):
+    """Embed, per-row per-column rope, the blocks, final norm."""
+    C = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    # query i of row b sits at pos[b] + i (clamped into the table for
+    # padding columns past the window, whose values nothing reads)
+    T = rope.cos.shape[0]
+    cols = torch.arange(C, device=tokens.device)
+    pos_grid = (pos[:, None].long() + cols[None, :]).clamp(max=T - 1)
+    rope_c = rope.cos[pos_grid]                              # [B, C, hd/2]
+    rope_s = rope.sin[pos_grid]
+    x, cache = run_blocks_mixed_paged(params["blocks"], x, cache, pos,
+                                      q_len, active, rope_c, rope_s,
+                                      config, attn=attn)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return x, cache
+
+
+@torch.inference_mode()
+def mixed_step_paged(params, tokens, pos, q_len, active,
+                     cache: PagedKVCache, rope, config: LlamaConfig,
+                     attn: str = "auto"):
+    """ONE step over a mixed batch of row descriptors: a decode row
+    carries (pos = current position, q_len = 1), a prefill-chunk row
+    (pos = window start, q_len = real window tokens), an idle row
+    (q_len = 0, active = False) touches nothing.
+
+    tokens: [B, C] right-padded windows; pos/q_len: [B] int32; active:
+    [B] bool. Returns ([B, V] f32 logits of each row's LAST real token,
+    cache); the pool is updated in place."""
+    B = tokens.shape[0]
+    x, cache = _mixed_windows_trunk(params, tokens, pos, q_len, active,
+                                    cache, rope, config, attn)
+    last = (q_len.long().clamp(min=1) - 1)
+    h = x[torch.arange(B, device=x.device), last]
+    logits = (h @ params["lm_head"]).float()
+    return logits, cache

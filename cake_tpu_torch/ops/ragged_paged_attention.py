@@ -1,0 +1,289 @@
+"""Ragged paged attention: the CUDA kernels, their wrappers, and their
+plain PyTorch versions.
+
+Counterpart of `cake_tpu/ops/ragged_paged_attention.py`
+(`ragged_paged_attention` and `ragged_paged_attention_mixed`, whose
+Pallas bodies are `_rpa_kernel` and `_rpa_mixed_kernel`). On the card
+both run as hand-written CUDA C++ for Hopper
+(`csrc/ragged_paged_attention.cu`), compiled with nvcc for sm_90a at
+first use into `cake_tpu_torch/_build/` and bound with ctypes.
+
+Each wrapper takes tensors on one device: a CUDA tensor launches the
+kernel (or raises on a shape the kernel cannot take); a CPU tensor runs
+the plain version, the online-softmax fold over every table column
+that `cake_tpu/models/llama/paged.py` calls `impl="fold"`. There is no
+fallback from a CUDA tensor to the plain version.
+
+Layout contract (the JAX package's): pool [N_pages, page, KV, hd],
+table [B, max_pages] int32 with -1 = unmapped, pos [B] = absolute
+position of each row's first query; the queries' KV is already written.
+
+`LAUNCHES` counts kernel launches and plain-version calls by name, so a
+run can show which path its attention took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from cake_tpu_torch.ops.attention import (
+    NEG_INF, merge_attention_stats, partial_attention_stats,
+)
+
+KERNELS = ("rpa_decode", "rpa_mixed")
+LAUNCHES = {"rpa_decode": 0, "rpa_mixed": 0,
+            "rpa_decode_plain": 0, "rpa_mixed_plain": 0}
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "ragged_paged_attention.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+_lib_lock = threading.Lock()
+# {"seconds", "ptxas"} of this process's build; empty until built
+BUILD_INFO: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
+            "ragged paged-attention kernels build from source at first "
+            "use")
+    return found
+
+
+def build_library() -> str:
+    """Compile csrc/ragged_paged_attention.cu into _build/ (once per
+    source content) and return the shared library's path."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"librpa_{digest}.so")
+    if os.path.exists(out):
+        BUILD_INFO.setdefault("seconds", 0.0)
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                           f"{SOURCE}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      ptxas=proc.stderr)
+    return out
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_library())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.rpa_decode.argtypes = [p, p, p, p, p, p] + [i] * 7 + [
+                f, i, i, p]
+            lib.rpa_mixed.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [
+                f, i, i, p]
+            lib.rpa_decode.restype = i
+            lib.rpa_mixed.restype = i
+            for fn in (lib.rpa_max_group, lib.rpa_max_head_dim):
+                fn.argtypes = []
+                fn.restype = i
+            _lib = lib
+        return _lib
+
+
+def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None):
+    """Hopper gate: what the kernel takes, checked before launch."""
+    lib = _library()
+    B, C, H, hd = q.shape
+    N, P, KV, hd_k = pool_k.shape
+    tensors = [q, pool_k, pool_v, table, pos] + (
+        [q_len] if q_len is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("ragged paged attention: all tensors must be on "
+                         "one CUDA device")
+    if pool_v.shape != pool_k.shape or hd_k != hd:
+        raise ValueError(f"pool shapes {tuple(pool_k.shape)} / "
+                         f"{tuple(pool_v.shape)} do not match q {q.shape}")
+    if H % KV or H // KV > lib.rpa_max_group():
+        raise ValueError(
+            f"H={H}, KV={KV}: the kernel takes KV dividing H with at "
+            f"most {lib.rpa_max_group()} query heads per kv head")
+    if hd > lib.rpa_max_head_dim():
+        raise ValueError(f"head_dim {hd} > {lib.rpa_max_head_dim()}: the "
+                         "kernel keeps two head dims per thread")
+    if q.dtype not in _DTYPE_CODES or pool_k.dtype not in _DTYPE_CODES \
+            or pool_v.dtype != pool_k.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, pool {pool_k.dtype}: the "
+                         "kernel takes float32 and bfloat16")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32 or (
+            q_len is not None and q_len.dtype != torch.int32):
+        raise ValueError("table, pos and q_len must be int32")
+    if table.shape[0] != B or pos.shape != (B,):
+        raise ValueError(f"table {tuple(table.shape)} / pos "
+                         f"{tuple(pos.shape)} do not match B={B}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ragged paged attention takes contiguous tensors")
+
+
+def _launch(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
+                           scale: Optional[float] = None):
+    """Ragged decode attention over a paged pool.
+
+    q [B, 1, H, hd]; pool_k/v [N, P, KV, hd]; table [B, max_pages] int32;
+    pos [B] int32 (position of the current token, its KV written).
+    Returns [B, 1, H, hd] in q.dtype; a row with no live page gives 0.
+    """
+    B, S, H, hd = q.shape
+    if S != 1:
+        raise ValueError(f"decode kernel takes one query per row, got S={S}")
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if not q.is_cuda:
+        return ragged_paged_attention_plain(q, pool_k, pool_v, table, pos,
+                                            scale=scale)
+    _check_cuda_args(q, pool_k, pool_v, table, pos)
+    N, P, KV, _ = pool_k.shape
+    out = torch.empty_like(q)
+    lib = _library()
+    rc = lib.rpa_decode(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, H, KV, hd, P, N, table.shape[1], float(scale),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launch("rpa_decode", rc)
+    return out
+
+
+def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
+                                 scale: Optional[float] = None):
+    """Mixed ragged attention: decode rows (q_len=1) and prefill-chunk
+    rows (q_len up to C, at any page offset) in one launch.
+
+    q [B, C, H, hd]; q_len [B] int32 (0 = idle row). Query column i of
+    row b sits at pos[b] + i and attends slots <= pos[b] + i. Columns
+    >= q_len and idle rows give 0. Returns [B, C, H, hd] in q.dtype.
+    """
+    B, C, H, hd = q.shape
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if not q.is_cuda:
+        return ragged_paged_attention_mixed_plain(
+            q, pool_k, pool_v, table, pos, q_len, scale=scale)
+    _check_cuda_args(q, pool_k, pool_v, table, pos, q_len)
+    N, P, KV, _ = pool_k.shape
+    out = torch.empty_like(q)
+    lib = _library()
+    rc = lib.rpa_mixed(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), q_len.data_ptr(), out.data_ptr(),
+        B, C, H, KV, hd, P, N, table.shape[1], float(scale),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launch("rpa_mixed", rc)
+    return out
+
+
+# -- plain versions: the online-softmax fold over every table column ----------
+
+
+def _fold(q, pool_k, pool_v, table, valid_fn, scale):
+    """Fold every table column j into running (m, l, o) stats: gather
+    page j of each row (unmapped ids read zeros), mask with
+    valid_fn(j, mapped) -> bool [B, C, P], merge. Returns [B, C, H, hd]."""
+    B, C, H, hd = q.shape
+    N, P, KV, _ = pool_k.shape
+    G = H // KV
+    m = torch.full((B, KV, G, C, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, C, 1), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, KV, G, C, hd), dtype=torch.float32, device=q.device)
+    for j in range(table.shape[1]):
+        pages = table[:, j].long()
+        mapped = pages >= 0
+        idx = pages.clamp(min=0)
+        keep = mapped[:, None, None, None]
+        zero = torch.zeros((), dtype=pool_k.dtype, device=q.device)
+        kj = torch.where(keep, pool_k[idx], zero)         # [B, P, KV, hd]
+        vj = torch.where(keep, pool_v[idx], zero)
+        valid = valid_fn(j, mapped)[:, None, None, :, :]  # [B,1,1,C,P]
+        mj, lj, oj = partial_attention_stats(q, kj, vj, valid, scale=scale)
+        m_new = torch.maximum(m, mj)
+        a_old = torch.exp(m - m_new)
+        a_new = torch.exp(mj - m_new)
+        m, l, o = m_new, a_old * l + a_new * lj, a_old * o + a_new * oj
+    out = merge_attention_stats([(m, l, o)])          # [B, KV, G, C, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd)
+
+
+def ragged_paged_attention_plain(q, pool_k, pool_v, table, pos, *,
+                                 scale: Optional[float] = None):
+    """Plain version of `ragged_paged_attention` (the JAX package's
+    `paged_attention` fold): slot j*P + t attends iff <= pos and its
+    page is mapped."""
+    LAUNCHES["rpa_decode_plain"] += 1
+    P = pool_k.shape[1]
+    t = torch.arange(P, device=q.device)
+
+    def valid(j, mapped):
+        ok = (j * P + t)[None, :] <= pos[:, None].long()
+        return (ok & mapped[:, None])[:, None, :]          # [B, 1, P]
+
+    out = _fold(q, pool_k, pool_v, table, valid, scale)
+    return out.to(q.dtype)
+
+
+def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
+                                       *, scale: Optional[float] = None):
+    """Plain version of `ragged_paged_attention_mixed` (the JAX
+    package's `paged_attention_mixed` fold): query i of row b attends
+    slot j*P + t iff <= pos[b] + i and its page is mapped. Columns
+    >= q_len are zeroed, as the kernel writes them."""
+    LAUNCHES["rpa_mixed_plain"] += 1
+    B, C = q.shape[:2]
+    P = pool_k.shape[1]
+    t = torch.arange(P, device=q.device)
+    qi = torch.arange(C, device=q.device)
+    horizon = pos[:, None].long() + qi[None, :]                 # [B, C]
+
+    def valid(j, mapped):
+        ok = (j * P + t)[None, None, :] <= horizon[:, :, None]
+        return ok & mapped[:, None, None]                      # [B, C, P]
+
+    out = _fold(q, pool_k, pool_v, table, valid, scale)
+    real = qi[None, :] < q_len[:, None].long()
+    return (out * real[:, :, None, None]).to(q.dtype)

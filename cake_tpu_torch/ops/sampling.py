@@ -1,0 +1,153 @@
+"""Token sampling: argmax / temperature / top-k / top-p + repeat penalty.
+
+Counterpart of `cake_tpu/ops/sampling.py`. Token history is a fixed
+[B, repeat_last_n] ring buffer (pad slots = -1). Randomness comes from
+one `torch.Generator` per row, so a row's stream is independent of the
+other rows in the batch; the streams differ from JAX's threefry keys,
+so tests hold sampled paths by distribution and greedy paths by
+identity.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 1.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    repeat_penalty: float = 1.1
+    repeat_last_n: int = 128
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature is None or self.temperature <= 0.0
+
+
+def _recent_hits(logits, recent_tokens):
+    """[B, V] bool: token v appears in row b's ring (-1 = empty)."""
+    V = logits.shape[1]
+    valid = recent_tokens >= 0
+    ids = recent_tokens.clamp(0, V - 1).long()
+    hits = torch.zeros(logits.shape, dtype=torch.int32,
+                       device=logits.device)
+    hits.scatter_add_(1, ids, valid.to(torch.int32))
+    return hits > 0
+
+
+def apply_repeat_penalty(logits, recent_tokens, penalty: float):
+    """Penalise recently-generated tokens: positive logits are divided
+    by the penalty, negative ones multiplied.
+
+    logits:        [B, V] f32
+    recent_tokens: [B, N] int, -1 marks empty ring-buffer slots
+    """
+    if penalty == 1.0:
+        return logits
+    hit = _recent_hits(logits, recent_tokens)
+    penalised = torch.where(logits >= 0.0, logits / penalty,
+                            logits * penalty)
+    return torch.where(hit, penalised, logits)
+
+
+def _apply_repeat_penalty_per_row(logits, recent_tokens, penalty):
+    """Like `apply_repeat_penalty` but penalty is a [B] tensor."""
+    hit = _recent_hits(logits, recent_tokens)
+    pen = penalty[:, None]
+    penalised = torch.where(logits >= 0.0, logits / pen, logits * pen)
+    return torch.where(hit, penalised, logits)
+
+
+def _mask_top_k(logits, k: int):
+    """Keep only the k largest logits per row."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, torch.full_like(logits, -torch.inf),
+                       logits)
+
+
+def _mask_top_p(logits, p):
+    """Nucleus filtering: keep the smallest set of tokens whose
+    cumulative probability exceeds p; the top token always survives.
+    p: a float, or a [B] tensor of per-row thresholds."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    if isinstance(p, torch.Tensor):
+        p = p.clamp(0.0, 1.0)[:, None]
+    # keep entries where the cumulative mass *before* them is < p
+    keep = (cum - probs) < p
+    keep[..., 0] = True
+    kth = torch.where(keep, sorted_logits,
+                      torch.full_like(sorted_logits, torch.inf))
+    kth = kth.amin(dim=-1, keepdim=True)
+    return torch.where(logits < kth, torch.full_like(logits, -torch.inf),
+                       logits)
+
+
+def update_ring_per_row(recent_tokens, new_tokens, steps):
+    """Per-row ring push: row b writes at slot steps[b] % N. Returns a
+    new ring; the input is not modified."""
+    B, N = recent_tokens.shape
+    out = recent_tokens.clone()
+    rows = torch.arange(B, device=recent_tokens.device)
+    out[rows, steps.long() % N] = new_tokens.to(out.dtype)
+    return out
+
+
+def sample_tokens_ragged(generators: Sequence[Optional[torch.Generator]],
+                         logits, recent_tokens, temperature, top_p,
+                         repeat_penalty, top_k: Optional[int] = None,
+                         n_top: int = 0):
+    """Batched sampling with PER-ROW options (continuous batching: each
+    slot carries its own request's temperature/top_p/repeat_penalty).
+
+    generators:      [B] torch.Generators on logits' device; a row with
+                     None is not sampled (it takes the argmax) and its
+                     stream is untouched
+    logits:          [B, V]
+    recent_tokens:   [B, N] ring buffers (-1 = empty)
+    temperature:     [B] f32; <= 0 means greedy for that row
+    top_p:           [B] f32; >= 1 disables nucleus filtering for that row
+    repeat_penalty:  [B] f32; 1.0 disables
+    top_k:           engine-wide k
+    n_top:           also return the n most probable alternatives per row
+    Returns ([B] int64 ids, [B] f32 logprobs, [B, n_top] top ids,
+    [B, n_top] f32 top logprobs). The logprob is the chosen token's under
+    the post-penalty distribution (temperature/top-p are sampling
+    transforms and do not change it).
+    """
+    logits = logits.float()
+    logits = _apply_repeat_penalty_per_row(logits, recent_tokens,
+                                           repeat_penalty)
+    ids = logits.argmax(dim=-1)
+    temps = temperature.tolist()
+    rows = [b for b, g in enumerate(generators)
+            if g is not None and temps[b] > 0.0]
+    if rows:
+        sel = torch.tensor(rows, device=logits.device)
+        scaled = logits[sel] / temperature[sel][:, None]
+        if top_k is not None:
+            scaled = _mask_top_k(scaled, top_k)
+        probs = torch.softmax(_mask_top_p(scaled, top_p[sel]), dim=-1)
+        for i, b in enumerate(rows):
+            # exponential race: argmax(p / E) with E ~ Exp(1) draws
+            # index i with probability p_i (the Gumbel-max trick)
+            e = torch.empty_like(probs[i]).exponential_(
+                generator=generators[b])
+            ids[b] = torch.argmax(probs[i] / e)
+    lp = torch.log_softmax(logits, dim=-1)
+    chosen_lp = lp.gather(1, ids[:, None])[:, 0]
+    B = logits.shape[0]
+    if n_top > 0:
+        top_lps, top_ids = torch.topk(lp, n_top, dim=-1)
+    else:
+        top_ids = torch.zeros((B, 0), dtype=torch.int64,
+                              device=logits.device)
+        top_lps = torch.zeros((B, 0), dtype=torch.float32,
+                              device=logits.device)
+    return ids, chosen_lp, top_ids, top_lps

@@ -51,6 +51,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-second cases (2-process serving, big meshes); "
         "deselect with -m 'not slow' for the fast lane")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips "
+        "where torch.cuda.is_available() is False")
 
 
 @pytest.fixture(scope="session")

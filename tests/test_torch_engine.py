@@ -1,0 +1,237 @@
+"""The port's paged continuous-batching engine and HTTP front door.
+
+Greedy streams at f32 params and f32 KV are token-identical to the JAX
+`InferenceEngine(kv_pages=24, kv_page_size=16, paged_attn="fold",
+prefill_chunk=8, mixed_batch="on")` on tests/test_mixed_batch.py's
+prompts, every page returns to the pool after retirement, and the
+`start(...)` server answers buffered, SSE and health requests.
+"""
+
+import json
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from cake_tpu.models.llama.config import LlamaConfig as JConfig
+from cake_tpu.models.llama.generator import ByteTokenizer as JByteTok
+from cake_tpu.models.llama.params import init_params as j_init
+from cake_tpu.ops.sampling import SamplingConfig as JSampling
+from cake_tpu.serve.engine import InferenceEngine as JEngine
+from cake_tpu_torch.api.server import start
+from cake_tpu_torch.args import Args
+from cake_tpu_torch.master import Master, TextModel
+from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.models.llama.generator import ByteTokenizer
+from cake_tpu_torch.models.llama.params import params_from_numpy
+from cake_tpu_torch.ops.sampling import SamplingConfig
+from cake_tpu_torch.serve.engine import InferenceEngine
+
+T = 64
+PAGE = 16
+PROMPTS = [[5] * 9, [11] * 14, [3, 7, 9]]
+
+
+@pytest.fixture(scope="module")
+def models():
+    jc = JConfig.tiny(num_hidden_layers=2)
+    jp = j_init(jc, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jc, jp, LlamaConfig.tiny(num_hidden_layers=2), tp
+
+
+def _run_tokens(eng, penalty, max_new=8):
+    with eng:
+        hs = [eng.submit(p, max_new_tokens=max_new, temperature=0.0,
+                         repeat_penalty=penalty) for p in PROMPTS]
+        assert all(h.wait(timeout=300) for h in hs)
+        return [list(h._req.out_tokens) for h in hs]
+
+
+@pytest.mark.parametrize("penalty", [1.0, 1.1])
+def test_greedy_streams_token_identical_to_jax_engine(models, penalty):
+    """Three slots, the 14-token prompt walking two mixed windows, with
+    and without the repeat-penalty ring."""
+    jc, jp, tc, tp = models
+    jeng = JEngine(jc, jp, JByteTok(jc.vocab_size), max_slots=3,
+                   max_seq_len=T,
+                   sampling=JSampling(temperature=0.0,
+                                      repeat_penalty=penalty),
+                   cache_dtype=jnp.float32, kv_pages=24, kv_page_size=PAGE,
+                   paged_attn="fold", prefill_chunk=8, mixed_batch="on")
+    want = _run_tokens(jeng, penalty)
+    teng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu", max_slots=3,
+        max_seq_len=T,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=penalty),
+        cache_dtype=torch.float32, kv_pages=24, kv_page_size=PAGE,
+        paged_attn="auto", prefill_chunk=8, mixed_batch="on")
+    got = _run_tokens(teng, penalty)
+    assert got == want
+    assert teng._pager.free_pages == 24
+    assert teng._pager.live_pages == 0
+    assert (teng.cache.table == -1).all()     # retired rows read no pages
+    assert teng._mixed_pending == {}
+    assert teng.stats.requests_completed == len(PROMPTS)
+
+
+def test_page_starved_admission_waits_then_completes(models):
+    """A pool too small for every request at once: admissions requeue
+    until pages free up, and every stream still completes."""
+    _, _, tc, tp = models
+    eng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu", max_slots=3,
+        max_seq_len=T, sampling=SamplingConfig(temperature=0.0),
+        cache_dtype=torch.float32, kv_pages=3, kv_page_size=PAGE,
+        prefill_chunk=8)
+    with eng:
+        # 20 + 6 tokens = 2 pages each: one resident stream at a time
+        hs = [eng.submit([4] * 20, max_new_tokens=6) for _ in range(3)]
+        assert all(h.wait(timeout=300) for h in hs)
+    for h in hs:
+        toks = h._req.out_tokens
+        assert h._req.error is None
+        assert len(toks) == 6 or toks[-1] in tc.eos_token_ids
+    assert eng._pager.free_pages == 3
+
+
+def test_concurrent_submitters_and_cancel_conserve_pages(models):
+    """Many handler threads submit at once (switch interval shortened to
+    provoke interleavings) while one stream is cancelled mid-flight:
+    every request ends, the cancelled one early, and every page returns."""
+    import sys
+    import threading
+
+    _, _, tc, tp = models
+    eng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu", max_slots=3,
+        max_seq_len=T, sampling=SamplingConfig(temperature=0.0),
+        cache_dtype=torch.float32, kv_pages=12, kv_page_size=PAGE,
+        prefill_chunk=8)
+    handles, lock = [], threading.Lock()
+
+    def client(i):
+        h = eng.submit([3 + i] * (5 + i), max_new_tokens=4)
+        with lock:
+            handles.append(h)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with eng:
+            victim = eng.submit([9] * 12, max_new_tokens=40)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(12)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 60
+            while not victim._req.out_tokens and time.monotonic() < deadline:
+                time.sleep(0.001)
+            eng.cancel(victim)           # mid-stream, while others submit
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+            assert victim.wait(timeout=120)
+            assert all(h.wait(timeout=300) for h in handles)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(handles) == 12
+    assert len(victim._req.out_tokens) < 40
+    assert all(h._req.error is None for h in handles)
+    assert eng._pager.free_pages == 12 and eng._pager.live_pages == 0
+    assert (eng.cache.table == -1).all()
+    assert eng._mixed_pending == {} and eng.active == 0
+
+
+def test_engine_validates_its_configuration(models):
+    _, _, tc, tp = models
+    kw = dict(device="cpu", max_seq_len=T, kv_page_size=PAGE)
+    tok = ByteTokenizer(tc.vocab_size)
+    with pytest.raises(NotImplementedError, match="kv_pages"):
+        InferenceEngine(tc, tp, tok, **kw)
+    with pytest.raises(NotImplementedError, match="mixed-batch off"):
+        InferenceEngine(tc, tp, tok, kv_pages=4, mixed_batch="off", **kw)
+    with pytest.raises(ValueError, match="paged-attn"):
+        InferenceEngine(tc, tp, tok, kv_pages=4, paged_attn="fold", **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        InferenceEngine(tc, tp, tok, kv_pages=4, paged_attn="kernel", **kw)
+    eng = InferenceEngine(tc, tp, tok, kv_pages=2, **kw)
+    with pytest.raises(ValueError, match="kv pages"):
+        eng.submit([1] * 20, max_new_tokens=40)
+
+
+def test_entry_points_without_device_refuse_the_cpu(models):
+    """No CUDA here: the default device="cuda" raises instead of
+    silently running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    _, _, tc, tp = models
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(tc, tp, ByteTokenizer(tc.vocab_size), kv_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Master(Args(), TextModel(tc, tp, ByteTokenizer(tc.vocab_size)))
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+def test_http_round_trip_buffered_sse_and_health(models):
+    _, _, tc, tp = models
+    args = Args(max_slots=2, max_seq_len=256, kv_pages=16,
+                kv_page_size=PAGE, prefill_chunk=32, temperature=0.0,
+                sample_len=6)
+    master = Master(args, TextModel(tc, tp, ByteTokenizer(tc.vocab_size)),
+                    device="cpu")
+    engine = master.make_engine()
+    httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    msgs = [{"role": "user", "content": "hi"}]
+    try:
+        with _post(base + "/api/v1/chat/completions",
+                   {"messages": msgs, "max_tokens": 5, "logprobs": True,
+                    "top_logprobs": 2}) as r:
+            doc = json.loads(r.read())
+        assert doc["object"] == "chat.completion"
+        choice = doc["choices"][0]
+        assert choice["finish_reason"] == "stop"
+        lp = choice["logprobs"]["content"]
+        assert 1 <= len(lp) <= 5 and len(lp[0]["top_logprobs"]) == 2
+        buffered_text = choice["message"]["content"]
+
+        with _post(base + "/v1/chat/completions",
+                   {"messages": msgs, "max_tokens": 5,
+                    "stream": True}) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            lines = [ln for ln in r.read().decode().split("\n") if ln]
+        assert lines[-1] == "data: [DONE]"
+        chunks = [json.loads(ln[6:]) for ln in lines[:-1]]
+        assert chunks[-1]["choices"][0]["finish_reason"] == "stop"
+        streamed = "".join(c["choices"][0]["delta"].get("content", "")
+                           for c in chunks)
+        assert streamed == buffered_text       # greedy: the same stream
+
+        with urllib.request.urlopen(base + "/api/v1/health") as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok"
+        assert health["requests_completed"] == 2
+        assert health["pages_free"] == health["pages_total"] == 16
+        with urllib.request.urlopen(base + "/v1/models") as r:
+            assert json.loads(r.read())["data"][0]["id"] == "cake-tpu"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base + "/api/v1/chat/completions",
+                  {"messages": [{"role": "user", "content": "x" * 300}]})
+        assert e.value.code == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
