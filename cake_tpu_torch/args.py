@@ -1,18 +1,28 @@
-"""Serving arguments (the fields of `cake_tpu/args.py:Args` that the
-port's Master and engine read; same names and defaults, except that the
-paged KV pool is on by default, being the port's only engine).
+"""Command-line arguments (the fields of `cake_tpu/args.py:Args` that the
+port implements; same names and defaults, except that the paged KV pool
+is on by default, being the port's only serving engine).
+
+`parse_args` builds one flag per field, as the JAX package does
+(`--max-seq-len`, `--flash-attention/--no-flash-attention`, ...); a flag
+of the JAX package that the port does not implement yet is rejected by
+argparse, never accepted and ignored.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import argparse
+from dataclasses import dataclass, fields
 from typing import Optional
 
 
 @dataclass
 class Args:
+    model: str = ""                     # model directory ("" = tiny random)
+    api: Optional[str] = None           # REST bind address; None = one-shot
+    prompt: str = "Why is the sky blue?"
+    system_prompt: str = "You are a helpful AI assistant."
     seed: int = 299792458
-    sample_len: int = 100               # default max_tokens per request
+    sample_len: int = 100               # tokens per generation / request
     temperature: float = 1.0
     top_p: Optional[float] = None
     top_k: Optional[int] = None
@@ -20,14 +30,19 @@ class Args:
     repeat_penalty: Optional[float] = None
     repeat_last_n: int = 128
     dtype: str = "bf16"                 # f32 | bf16 | f16 (weights)
-    kv_dtype: Optional[str] = None      # KV pool dtype; None = dtype
+    kv_dtype: Optional[str] = None      # KV cache/pool dtype; None = dtype
+    cpu: bool = False                   # run on the CPU (plain kernels)
+    device_idx: int = 0                 # cuda:<device_idx> otherwise
     max_seq_len: int = 4096
     max_slots: int = 8                  # continuous-batching decode slots
-    # admit prompts in fixed windows of N tokens (None = 256, capped at
-    # max_seq_len); must divide max_seq_len
+    # prefill prompts in fixed windows of N tokens. Generator: None =
+    # whole-prompt prefill; engine: None = 256, capped at max_seq_len.
+    # Must divide max_seq_len
     prefill_chunk: Optional[int] = None
-    # paged KV pool: N pages of kv_page_size tokens; admission is gated
-    # by free pages (the port's engine is paged only)
+    # flash-attention kernels for prefill; None = on iff the device is CUDA
+    flash_attention: Optional[bool] = None
+    # paged KV pool of the --api engine: N pages of kv_page_size tokens;
+    # admission is gated by free pages (the port's engine is paged only)
     kv_pages: Optional[int] = 512
     kv_page_size: int = 128
     # attention over the pages: "kernel" = the CUDA kernels, "plain" =
@@ -35,3 +50,28 @@ class Args:
     paged_attn: str = "auto"
     # token-level continuous batching (the port has only "auto"/"on")
     mixed_batch: str = "auto"
+
+
+_PARSERS = {"str": str, "int": int, "float": float,
+            "Optional[str]": str, "Optional[int]": int,
+            "Optional[float]": float}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="cake_tpu_torch.cli",
+        description="Llama text generation and serving on PyTorch/CUDA")
+    for f in fields(Args):
+        name = "--" + f.name.replace("_", "-")
+        if f.type in ("bool", "Optional[bool]"):
+            parser.add_argument(name, action=argparse.BooleanOptionalAction,
+                                default=f.default)
+        else:
+            parser.add_argument(name, type=_PARSERS[f.type],
+                                default=f.default)
+    return parser
+
+
+def parse_args(argv=None) -> Args:
+    """Parse argv (sys.argv[1:] when None) into Args."""
+    return Args(**vars(build_parser().parse_args(argv)))

@@ -1,0 +1,90 @@
+"""Context: process-wide state built once from Args.
+
+Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
+`Context.from_args`, `load_text_model`), for one device: the dtype, the
+device (`cuda:<device_idx>`, or the CPU with `--cpu`), the model config
+and the text generator. Topologies, quantization, sequence parallelism
+and speculation are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from cake_tpu_torch.args import Args
+from cake_tpu_torch.models.llama.config import LlamaConfig, load_config
+from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
+
+log = logging.getLogger(__name__)
+
+
+def _resolve_flash(args: Args, device: torch.device) -> bool:
+    """--flash-attention / --no-flash-attention; default on iff the
+    device is CUDA (on the CPU the wrappers would run their plain
+    versions, which the einsum path already is)."""
+    if args.flash_attention is not None:
+        return args.flash_attention
+    return device.type == "cuda"
+
+
+@dataclass
+class Context:
+    args: Args
+    dtype: torch.dtype
+    device: torch.device
+    llama_config: Optional[LlamaConfig] = None
+
+    @classmethod
+    def from_args(cls, args: Args) -> "Context":
+        """Resolve dtype and device (a CUDA device without a card raises)
+        and read `<model>/config.json` when there is one."""
+        dtype = resolve_dtype(args.dtype)
+        device = resolve_device(
+            "cpu" if args.cpu else f"cuda:{args.device_idx}")
+        llama_config = None
+        if args.model and os.path.exists(
+                os.path.join(args.model, "config.json")):
+            llama_config = dataclasses.replace(
+                load_config(args.model),
+                use_flash_attention=_resolve_flash(args, device))
+        log.info("context: device=%s dtype=%s", device, args.dtype)
+        return cls(args=args, dtype=dtype, device=device,
+                   llama_config=llama_config)
+
+    def load_text_model(self):
+        """Build the LlamaGenerator: the model's config, weights and
+        tokenizer, or without --model the tiny config with random
+        weights and the byte tokenizer."""
+        from cake_tpu_torch.models import load_text_params
+        from cake_tpu_torch.models.llama.generator import (
+            ByteTokenizer, LlamaGenerator, load_tokenizer,
+        )
+        from cake_tpu_torch.ops.sampling import SamplingConfig
+
+        a = self.args
+        cfg = self.llama_config or dataclasses.replace(
+            LlamaConfig.tiny(),
+            use_flash_attention=_resolve_flash(a, self.device))
+        if a.model and os.path.exists(os.path.join(a.model,
+                                                   "tokenizer.json")):
+            tokenizer = load_tokenizer(a.model)
+        else:
+            tokenizer = ByteTokenizer(cfg.vocab_size)
+        params = load_text_params(cfg, a.model, self.dtype, self.device)
+        sampling = SamplingConfig(
+            temperature=a.temperature, top_k=a.top_k, top_p=a.top_p,
+            repeat_penalty=(1.1 if a.repeat_penalty is None
+                            else a.repeat_penalty),
+            repeat_last_n=a.repeat_last_n)
+        kv_dtype = resolve_dtype(a.kv_dtype) if a.kv_dtype else self.dtype
+        return LlamaGenerator(
+            cfg, params, tokenizer,
+            max_seq_len=min(a.max_seq_len, cfg.max_position_embeddings),
+            sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
+            prefill_chunk=a.prefill_chunk, device=self.device)

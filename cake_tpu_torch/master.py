@@ -1,65 +1,58 @@
-"""Master: holds the loaded text model and builds the serving engine.
+"""Master: drives the text generator and builds the serving engine.
 
-Counterpart of `cake_tpu/master.py` (`Master`, `make_engine`), text
-serving only. The JAX Master drives a `LlamaGenerator`; the port has no
-sequential generator yet, so the Master holds a `TextModel` (config,
-params, tokenizer) and serves through the paged engine. Loading real
-weights: `load_config`, `load_params_from_hf` and `load_tokenizer`
-(models/llama/) build the TextModel.
+Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
+`generate_text`, `run`, `reset`, `add_message`), text only.
+`generate_text` streams each token through a callback and times the
+tokens after the first, so the prefill does not skew tokens/s;
+`make_engine` builds the paged continuous-batching engine over the
+generator's config, params and tokenizer for the REST server.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import logging
+import time
+from typing import Callable, Optional
 
 from cake_tpu_torch.args import Args
-from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.ops.sampling import SamplingConfig
-from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
+from cake_tpu_torch.models import Token
+from cake_tpu_torch.models.chat import Message
 
-
-class TextModel(NamedTuple):
-    config: LlamaConfig
-    params: dict
-    tokenizer: object
+log = logging.getLogger(__name__)
 
 
 class Master:
-    """Drives the text model: `make_engine` builds the continuous-batching
-    engine the REST server serves through."""
+    """Drives a text generator (`models/llama/generator.LlamaGenerator`)."""
 
-    def __init__(self, args: Args, text_model: Optional[TextModel] = None,
-                 device="cuda"):
+    def __init__(self, args: Args, text_generator=None):
         self.args = args
-        self.device = resolve_device(device)
-        self.llm = text_model
+        self.llm = text_generator
+        self.tokens_per_s: float = 0.0
 
-    def sampling(self) -> SamplingConfig:
-        a = self.args
-        return SamplingConfig(
-            temperature=a.temperature, top_k=a.top_k, top_p=a.top_p,
-            repeat_penalty=(1.1 if a.repeat_penalty is None
-                            else a.repeat_penalty),
-            repeat_last_n=a.repeat_last_n)
+    @classmethod
+    def from_args(cls, args: Args) -> "Master":
+        from cake_tpu_torch.context import Context
+        return cls(args, text_generator=Context.from_args(args)
+                   .load_text_model())
 
     def make_engine(self, max_slots: Optional[int] = None,
                     **engine_kwargs):
         """Build the paged continuous-batching engine over the loaded
-        model's params (no weight copy; the engine allocates its own KV
-        pool). engine_kwargs pass through to InferenceEngine."""
+        generator's params (no weight copy; the engine allocates its own
+        KV pool) on the generator's device. engine_kwargs pass through
+        to InferenceEngine."""
         if self.llm is None:
-            raise RuntimeError("no text model loaded")
+            raise RuntimeError("no text generator loaded")
         from cake_tpu_torch.serve.engine import InferenceEngine
         a = self.args
         g = self.llm
         kw = dict(
-            device=self.device,
+            device=g.device,
             max_slots=max_slots or a.max_slots,
-            max_seq_len=min(a.max_seq_len,
-                            g.config.max_position_embeddings),
-            sampling=self.sampling(),
+            max_seq_len=g.max_seq_len,
+            sampling=g.sampling,
             seed=a.seed,
-            cache_dtype=resolve_dtype(a.kv_dtype or a.dtype),
+            cache_dtype=g.cache.k.dtype,     # follows --kv-dtype
             prefill_chunk=a.prefill_chunk,
             kv_pages=a.kv_pages,
             kv_page_size=a.kv_page_size,
@@ -68,3 +61,50 @@ class Master:
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+
+    # -- text ----------------------------------------------------------------
+
+    def reset(self) -> None:
+        if self.llm is not None:
+            self.llm.reset()
+
+    def add_message(self, message: Message) -> None:
+        self.llm.add_message(message)
+
+    def generate_text(self, stream: Callable[[Token], None],
+                      sample_len: Optional[int] = None) -> str:
+        """Generate up to sample_len tokens, streaming each through
+        `stream`. tokens_per_s counts from the first token on, so the
+        prefill is not in it."""
+        sample_len = sample_len or self.args.sample_len
+        pieces = []
+        start = time.perf_counter()
+        generated = 0
+        for index in range(sample_len):
+            token = self.llm.next_token(index)
+            if index == 0:
+                start = time.perf_counter()
+            else:
+                generated += 1
+            if token.is_end_of_stream:
+                if token.text:
+                    # EOS carries the flushed UTF-8 tail
+                    pieces.append(token.text)
+                    stream(token)
+                break
+            pieces.append(token.text)
+            stream(token)
+        dt = time.perf_counter() - start
+        self.tokens_per_s = generated / dt if dt > 0 else 0.0
+        log.info("%d tokens generated (%.2f token/s)",
+                 generated + 1, self.tokens_per_s)
+        return "".join(pieces)
+
+    def run(self) -> None:
+        """One-shot generation of the command line: the system prompt and
+        the prompt, streamed to stdout."""
+        self.add_message(Message.system(self.args.system_prompt))
+        self.add_message(Message.user(self.args.prompt))
+        print(f"[{self.args.system_prompt}] {self.args.prompt}\n")
+        self.generate_text(lambda t: print(t.text, end="", flush=True))
+        print()

@@ -1,7 +1,8 @@
 """Llama model hyperparameters, deserialised from HF `config.json`.
 
-Counterpart of `cake_tpu/models/llama/config.py`, copied without its
-JAX-side knobs. The runtime context window is a separate knob
+Counterpart of `cake_tpu/models/llama/config.py`, copied with the one
+kernel knob the port reads (`use_flash_attention`) and without the
+JAX-side rest. The runtime context window is a separate knob
 (`Args.max_seq_len`), not part of the model config.
 """
 
@@ -56,6 +57,10 @@ class LlamaConfig:
     # QKV projection bias (Qwen2-family; HF "attention_bias" / implied by
     # model_type qwen2) — adds bq/bk/bv leaves to every block
     attention_bias: bool = False
+    # Prefill attention through the flash kernels (ops/flash_attention.py)
+    # instead of the masked einsum. Off by default; the Context turns it
+    # on when the device is CUDA.
+    use_flash_attention: bool = False
 
     @property
     def head_dim(self) -> int:

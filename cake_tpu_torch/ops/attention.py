@@ -1,8 +1,10 @@
 """Attention: grouped-query attention with softmax in f32.
 
 Counterpart of `cake_tpu/ops/attention.py` (`gqa_attention`,
-`causal_mask`) plus the port's own copy of the online-softmax stats
-pair from `cake_tpu/parallel/context_parallel.py`
+`causal_mask`, and the dense-cache masks `decode_mask` and
+`uniform_forward_mask`; the ring-cache masks are not ported) plus the
+port's own copy of the online-softmax stats pair from
+`cake_tpu/parallel/context_parallel.py`
 (`partial_attention_stats`, `merge_attention_stats`), which the paged
 folds use. GQA groups the query heads of each kv head instead of
 materialising a repeated K/V.
@@ -58,6 +60,27 @@ def causal_mask(seq_len: int, device="cpu") -> torch.Tensor:
     """[S, S] lower-triangular causal mask."""
     i = torch.arange(seq_len, device=device)
     return i[None, :] <= i[:, None]
+
+
+def decode_mask(pos: int, seq_len: int, max_seq_len: int, window=None,
+                device="cpu") -> torch.Tensor:
+    """[S, T] mask for cached attention: query i (at absolute pos + i)
+    may attend cache slots j <= pos + i, and with a sliding window also
+    j > pos + i - window (at most `window` most-recent positions)."""
+    qi = torch.arange(seq_len, device=device)[:, None] + pos
+    kj = torch.arange(max_seq_len, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m &= kj > qi - window
+    return m
+
+
+def uniform_forward_mask(pos: int, seq_len: int, max_seq_len: int, window,
+                         device="cpu") -> torch.Tensor:
+    """The mask of a uniform-position forward over the dense cache:
+    `decode_mask` over [S, T], windowed for sliding-window models."""
+    return decode_mask(pos, seq_len, max_seq_len, window=window,
+                       device=device)
 
 
 def partial_attention_stats(q, k, v, valid, *, scale: float | None = None):

@@ -6,7 +6,8 @@ Counterpart of `cake_tpu/ops/ragged_paged_attention.py`
 Pallas bodies are `_rpa_kernel` and `_rpa_mixed_kernel`). On the card
 both run as hand-written CUDA C++ for Hopper
 (`csrc/ragged_paged_attention.cu`), compiled with nvcc for sm_90a at
-first use into `cake_tpu_torch/_build/` and bound with ctypes.
+first use into `cake_tpu_torch/_build/` and bound with ctypes
+(utils/cuda_build.py).
 
 Each wrapper takes tensors on one device: a CUDA tensor launches the
 kernel (or raises on a shape the kernel cannot take); a CPU tensor runs
@@ -25,13 +26,6 @@ run can show which path its attention took.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from typing import Optional
 
 import torch
@@ -39,22 +33,13 @@ import torch
 from cake_tpu_torch.ops.attention import (
     NEG_INF, merge_attention_stats, partial_attention_stats,
 )
+from cake_tpu_torch.utils.cuda_build import CudaLibrary
 
 KERNELS = ("rpa_decode", "rpa_mixed")
 LAUNCHES = {"rpa_decode": 0, "rpa_mixed": 0,
             "rpa_decode_plain": 0, "rpa_mixed_plain": 0}
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "ragged_paged_attention.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-_lib_lock = threading.Lock()
-# {"seconds", "ptxas"} of this process's build; empty until built
-BUILD_INFO: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -62,66 +47,24 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
-            "ragged paged-attention kernels build from source at first "
-            "use")
-    return found
+def _bind(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rpa_decode.argtypes = [p, p, p, p, p, p] + [i] * 7 + [f, i, i, p]
+    lib.rpa_mixed.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [f, i, i, p]
+    lib.rpa_decode.restype = i
+    lib.rpa_mixed.restype = i
+    for fn in (lib.rpa_max_group, lib.rpa_max_head_dim):
+        fn.argtypes = []
+        fn.restype = i
 
 
-def build_library() -> str:
-    """Compile csrc/ragged_paged_attention.cu into _build/ (once per
-    source content) and return the shared library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"librpa_{digest}.so")
-    if os.path.exists(out):
-        BUILD_INFO.setdefault("seconds", 0.0)
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                           f"{SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr)
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.rpa_decode.argtypes = [p, p, p, p, p, p] + [i] * 7 + [
-                f, i, i, p]
-            lib.rpa_mixed.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [
-                f, i, i, p]
-            lib.rpa_decode.restype = i
-            lib.rpa_mixed.restype = i
-            for fn in (lib.rpa_max_group, lib.rpa_max_head_dim):
-                fn.argtypes = []
-                fn.restype = i
-            _lib = lib
-        return _lib
+LIBRARY = CudaLibrary("ragged_paged_attention.cu", _bind)
+SOURCE = LIBRARY.source
 
 
 def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None):
     """Hopper gate: what the kernel takes, checked before launch."""
-    lib = _library()
+    lib = LIBRARY.get()
     B, C, H, hd = q.shape
     N, P, KV, hd_k = pool_k.shape
     tensors = [q, pool_k, pool_v, table, pos] + (
@@ -178,7 +121,7 @@ def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
     _check_cuda_args(q, pool_k, pool_v, table, pos)
     N, P, KV, _ = pool_k.shape
     out = torch.empty_like(q)
-    lib = _library()
+    lib = LIBRARY.get()
     rc = lib.rpa_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(),
@@ -207,7 +150,7 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
     _check_cuda_args(q, pool_k, pool_v, table, pos, q_len)
     N, P, KV, _ = pool_k.shape
     out = torch.empty_like(q)
-    lib = _library()
+    lib = LIBRARY.get()
     rc = lib.rpa_mixed(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         table.data_ptr(), pos.data_ptr(), q_len.data_ptr(), out.data_ptr(),

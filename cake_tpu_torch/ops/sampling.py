@@ -2,10 +2,11 @@
 
 Counterpart of `cake_tpu/ops/sampling.py`. Token history is a fixed
 [B, repeat_last_n] ring buffer (pad slots = -1). Randomness comes from
-one `torch.Generator` per row, so a row's stream is independent of the
-other rows in the batch; the streams differ from JAX's threefry keys,
-so tests hold sampled paths by distribution and greedy paths by
-identity.
+`torch.Generator`s: one per stream for `sample_tokens` (the sequential
+generator), one per row for `sample_tokens_ragged` (the engine, so a
+row's stream is independent of the other rows in the batch). The
+streams differ from JAX's threefry keys, so tests hold sampled paths
+by support and greedy paths by identity.
 """
 
 from __future__ import annotations
@@ -89,6 +90,39 @@ def _mask_top_p(logits, p):
                        logits)
 
 
+def _exponential_race(probs, generator):
+    """One index per row drawn with probability probs[row]: argmax of
+    p / E with E ~ Exp(1) (the Gumbel-max trick)."""
+    e = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / e, dim=-1)
+
+
+def sample_tokens(generator: Optional[torch.Generator], logits,
+                  recent_tokens, config: SamplingConfig):
+    """Sample next token ids for one stream of rows: logits [B, V] ->
+    [B] int64. Greedy configs take the argmax and leave `generator`
+    untouched; otherwise temperature, top-k and top-p shape the
+    distribution and `generator` (on logits' device) draws from it."""
+    logits = apply_repeat_penalty(logits.float(), recent_tokens,
+                                  config.repeat_penalty)
+    if config.greedy:
+        return logits.argmax(dim=-1)
+    logits = logits / config.temperature
+    if config.top_k is not None:
+        logits = _mask_top_k(logits, config.top_k)
+    if config.top_p is not None:
+        logits = _mask_top_p(logits, config.top_p)
+    return _exponential_race(torch.softmax(logits, dim=-1), generator)
+
+
+def update_ring(recent_tokens, new_tokens, step: int):
+    """Push new tokens into the [B, N] ring at slot step % N. Returns a
+    new ring; the input is not modified."""
+    out = recent_tokens.clone()
+    out[:, step % out.shape[1]] = new_tokens.to(out.dtype)
+    return out
+
+
 def update_ring_per_row(recent_tokens, new_tokens, steps):
     """Per-row ring push: row b writes at slot steps[b] % N. Returns a
     new ring; the input is not modified."""
@@ -135,11 +169,7 @@ def sample_tokens_ragged(generators: Sequence[Optional[torch.Generator]],
             scaled = _mask_top_k(scaled, top_k)
         probs = torch.softmax(_mask_top_p(scaled, top_p[sel]), dim=-1)
         for i, b in enumerate(rows):
-            # exponential race: argmax(p / E) with E ~ Exp(1) draws
-            # index i with probability p_i (the Gumbel-max trick)
-            e = torch.empty_like(probs[i]).exponential_(
-                generator=generators[b])
-            ids[b] = torch.argmax(probs[i] / e)
+            ids[b] = _exponential_race(probs[i], generators[b])
     lp = torch.log_softmax(logits, dim=-1)
     chosen_lp = lp.gather(1, ids[:, None])[:, 0]
     B = logits.shape[0]

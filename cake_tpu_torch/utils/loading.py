@@ -53,6 +53,17 @@ class StTensor:
         return t.view(_ST_DTYPES[self.st_dtype][1])
 
 
+def has_weights(model_dir: Optional[str]) -> bool:
+    """True when model_dir holds weights in a layout `load_weights` reads:
+    an indexed or single-file directory, or a direct .safetensors path."""
+    if not model_dir:
+        return False
+    if os.path.isfile(model_dir) and model_dir.endswith(".safetensors"):
+        return True
+    return (os.path.exists(os.path.join(model_dir, SINGLE_FILE))
+            or os.path.exists(os.path.join(model_dir, INDEX_FILE)))
+
+
 def load_weight_index(model_dir: str) -> Dict[str, str]:
     """tensor name -> safetensors filename."""
     if os.path.isfile(model_dir):  # direct .safetensors file

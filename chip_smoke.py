@@ -2,19 +2,32 @@
 
     python3 chip_smoke.py                 # every phase, one H100
     python3 chip_smoke.py --phases kernels,step
+    python3 chip_smoke.py --phases device,generate --profile
 
 Phases, in order (any failure exits non-zero):
-  device   CUDA present; card name and power limit; kernel build time.
-  kernels  each ragged paged-attention kernel against its plain PyTorch
-           version at the serving shapes (H=32, KV=8, hd=128, 128-token
-           pages, 16 table columns, B=8, C=64), f32 and bf16 pools; its
-           time, the plain version's, the bound and the yardstick SDPA.
-  step     mixed_step_paged + decode_step_ragged_paged at Llama-3-8B
-           width (2 layers, f32 weights and KV): kernel vs plain logits
-           and pools.
-  serve    32-layer Llama-3-8B-width bf16 server (random weights) behind
-           the HTTP API: concurrent chat requests, buffered and SSE; both
-           kernels must have run and the plain folds must not.
+  device    CUDA present; card name and power limit; both kernel
+            libraries built from csrc/ (one nvcc each, in parallel).
+  kernels   each CUDA kernel against its plain PyTorch version, f32 and
+            bf16: the ragged paged-attention pair at the serving shapes
+            (H=32, KV=8, hd=128, 128-token pages, 16 table columns, B=8,
+            C=64) and the flash pair at the prefill shapes (S=T=1024
+            causal, plus window and non-causal cases; a 256-token chunk at
+            pos 1280 of a 4096-slot cache with a NaN tail, plus one at an
+            unaligned pos); times, the plain version's, the bound and the
+            yardstick SDPA.
+  step      at Llama-3-8B width (2 layers, f32 weights and KV), kernel vs
+            plain: mixed_step_paged + decode_step_ragged_paged logits and
+            pools; dense prefill, prefill_chunk and decode_step logits and
+            caches with flash on vs off.
+  generate  32-layer Llama-3-8B-width bf16 weights (random), sequential
+            generator behind Master.generate_text: a ~1000-token prompt
+            (bucket 1024, one flash_attn launch per layer) and a
+            ~1500-token prompt in 256-token windows (six flash_attn_cached
+            launches per layer), 32 greedy tokens each; then the
+            `python3 -m cake_tpu_torch.cli` one-shot command on the card.
+  serve     the same weights behind the HTTP API: concurrent chat
+            requests, buffered and SSE, through the paged engine; both
+            ragged kernels must have run and the plain folds must not.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -32,14 +45,20 @@ import threading
 import time
 import urllib.request
 
-PHASES = ("device", "kernels", "step", "serve")
+PHASES = ("device", "kernels", "step", "generate", "serve")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # FMA-pipe f32; bf16 TC
-REPLACES = {
-    "rpa_decode": "cake_tpu/ops/ragged_paged_attention.py:65",
-    "rpa_mixed": "cake_tpu/ops/ragged_paged_attention.py:391",
+# kernel -> (its source, the TPU kernel it replaces)
+KERNELS = {
+    "rpa_decode": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                   "cake_tpu/ops/ragged_paged_attention.py:65"),
+    "rpa_mixed": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                  "cake_tpu/ops/ragged_paged_attention.py:391"),
+    "flash_attn": ("cake_tpu_torch/csrc/flash_attention.cu",
+                   "cake_tpu/ops/flash_attention.py:74"),
+    "flash_attn_cached": ("cake_tpu_torch/csrc/flash_attention.cu",
+                          "cake_tpu/ops/flash_attention.py:125"),
 }
-SOURCE = "cake_tpu_torch/csrc/ragged_paged_attention.cu"
 TOL = {"float32": dict(atol=1e-4, rtol=0.0),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
@@ -55,7 +74,9 @@ def fail(msg: str) -> None:
 # -- phase: device -------------------------------------------------------------
 
 
-def phase_device(torch, rpa) -> str:
+def phase_device(torch, rpa, fa) -> str:
+    from cake_tpu_torch.utils import cuda_build
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs "
              "an NVIDIA card")
@@ -68,12 +89,16 @@ def phase_device(torch, rpa) -> str:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    rpa._library()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {rpa.BUILD_INFO.get('seconds', 0.0):.2f} s)")
-    for line in rpa.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    cuda_build.build_libraries([rpa.SOURCE, fa.SOURCE])   # nvcc in parallel
+    rpa.LIBRARY.get()
+    fa.LIBRARY.get()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s for both libraries")
+    for src in (rpa.SOURCE, fa.SOURCE):
+        info = cuda_build.BUILD_INFO.get(src, {})
+        log(f"  {os.path.basename(src)}: nvcc {info.get('seconds', 0.0):.2f} s")
+        for line in info.get("ptxas", "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
     return card
 
 
@@ -190,9 +215,35 @@ def _sdpa_yardstick(torch, q, pool_k, pool_v, table, pos, q_len):
                                                   enable_gqa=True)
 
 
-def phase_kernels(torch, rpa) -> dict:
+def _measure(torch, label, dname, got, want, kern, plain, lib, nbytes,
+             ops) -> dict:
+    """Hold one kernel output against its plain version, then time the
+    kernel, the plain version and the yardstick on the same inputs."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        fail(f"{label} {dname}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL[dname]):
+        fail(f"{label} {dname}: max |kernel - plain| = {err:.3e} over "
+             f"tolerance {TOL[dname]}")
+    ms = _time_ms(torch, kern)
+    plain_ms = _time_ms(torch, plain, reps=20)
+    lib_ms = _time_ms(torch, lib)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dname] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=lib_ms, bytes=nbytes, ops=ops)
+    log(f"{label} {dname}: max_abs_err {err:.3e} (tol {TOL[dname]}); "
+        f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: {nbytes} B, "
+        f"{ops} ops)")
+    return rec
+
+
+def _rpa_kernels(torch, rpa, report) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    report = {}
     for name, mixed in (("rpa_decode", False), ("rpa_mixed", True)):
         kern = (rpa.ragged_paged_attention_mixed if mixed
                 else rpa.ragged_paged_attention)
@@ -204,46 +255,128 @@ def phase_kernels(torch, rpa) -> dict:
                                                      mixed)
             args = (q, pk, pv, table, pos) + ((ql,) if mixed else ())
             got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.isfinite(got.float()).all():
-                fail(f"{name} {dname}: non-finite output")
-            if not torch.allclose(got.float(), want.float(), **TOL[dname]):
-                fail(f"{name} {dname}: max |kernel - plain| = {err:.3e} "
-                     f"over tolerance {TOL[dname]}")
             # the dead row (and the mixed case's idle row) must come
             # back as exact zeros
             for dead in ((4, 3) if mixed else (7,)):
                 if got[dead].abs().max().item() != 0.0:
                     fail(f"{name} {dname}: dead row {dead} is not zero")
-            ms = _time_ms(torch, lambda: kern(*args))
-            plain_ms = _time_ms(torch, lambda: plain(*args), reps=20)
-            lib_ms = _time_ms(torch, _sdpa_yardstick(torch, *args[:5],
-                                                     ql))
             nbytes, ops = _work(q, pk, table, pos, ql, pk.element_size())
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dname] * 1e3
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations",
-                       library_ms=lib_ms, bytes=nbytes, ops=ops)
-            log(f"{name} {dname}: max_abs_err {err:.3e} "
-                f"(tol {TOL[dname]}); {ms:.4f} ms kernel, "
-                f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, bound "
-                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
-                f"{nbytes} B, {ops} ops)")
-            report[(name, dname)] = rec
+            report[(name, dname)] = _measure(
+                torch, name, dname, got, plain(*args),
+                lambda: kern(*args), lambda: plain(*args),
+                _sdpa_yardstick(torch, *args[:5], ql), nbytes, ops)
+
+
+# (label, kernel, shapes, options, the case the kernel table reports).
+# B=1, H=32, KV=8, hd=128: Llama-3-8B prefill of one prompt.
+FLASH_CASES = (
+    ("flash_attn causal S=T=1024", "flash_attn",
+     dict(S=1024, T=1024, pos=None), dict(), True),
+    ("flash_attn window 256 S=T=1024", "flash_attn",
+     dict(S=1024, T=1024, pos=None), dict(window=256), False),
+    ("flash_attn non-causal S=256 T=1024", "flash_attn",
+     dict(S=256, T=1024, pos=None), dict(causal=False), False),
+    ("flash_attn_cached S=256 pos=1280 T=4096 NaN tail",
+     "flash_attn_cached", dict(S=256, T=4096, pos=1280), dict(), True),
+    ("flash_attn_cached S=256 pos=1301 T=4096 window 700 NaN tail",
+     "flash_attn_cached", dict(S=256, T=4096, pos=1301), dict(window=700),
+     False),
+)
+
+
+def _flash_work(B, S, T, H, KV, hd, pos, causal, window, elem_bytes):
+    """(bytes, operations) of one flash call on these shapes: q read and
+    the output written once, every key some query attends read once (k
+    and v), 4*hd operations per attended (query head, key) pair."""
+    base = 0 if pos is None else pos
+    pairs = 0
+    for i in range(S):
+        qp = base + i
+        hi = qp + 1 if causal else T
+        lo = max(0, qp - window + 1) if window else 0
+        pairs += hi - lo
+    first_lo = max(0, base - window + 1) if window else 0
+    keys = (base + S if causal else T) - first_lo
+    nbytes = (2 * B * S * H * hd + 2 * B * keys * KV * hd) * elem_bytes
+    return nbytes, 4 * hd * pairs * B * H
+
+
+def _flash_sdpa(torch, q, k, v, pos, causal, window):
+    """One `scaled_dot_product_attention(enable_gqa=True)` call on the
+    same q/k/v (a cached case's k/v cut at the frontier, whose NaN tail
+    SDPA would carry into 0 * NaN); a yardstick only, the port never
+    calls it. Returns a closure timing just that call."""
+    import torch.nn.functional as F
+    S = q.shape[1]
+    if pos is not None:
+        k, v = k[:, :pos + S], v[:, :pos + S]
+    qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if not causal:
+        return lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                      enable_gqa=True)
+    if pos is None and window is None and k.shape[1] == S:
+        return lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, enable_gqa=True)
+    qp = (0 if pos is None else pos) + torch.arange(S, device=q.device)
+    kp = torch.arange(k.shape[1], device=q.device)
+    mask = kp[None, :] <= qp[:, None]
+    if window is not None:
+        mask &= kp[None, :] > qp[:, None] - window
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _flash_kernels(torch, fa, report) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    B, H, KV, hd = 1, 32, 8, 128
+    for label, name, shp, kw, main_case in FLASH_CASES:
+        S, T, pos = shp["S"], shp["T"], shp["pos"]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                            dtype=dtype)
+            k = torch.randn((B, T, KV, hd), generator=gen, device="cuda",
+                            dtype=dtype)
+            v = torch.randn((B, T, KV, hd), generator=gen, device="cuda",
+                            dtype=dtype)
+            if pos is None:
+                args = (q, k, v)
+                kern, plain = fa.flash_attention, fa.flash_attention_plain
+            else:
+                # slots at or past the frontier hold garbage: NaN here
+                k[:, pos + S:] = float("nan")
+                v[:, pos + S:] = float("nan")
+                args = (q, k, v, pos)
+                kern = fa.flash_attention_cached
+                plain = fa.flash_attention_cached_plain
+            causal = kw.get("causal", True)
+            window = kw.get("window")
+            nbytes, ops = _flash_work(B, S, T, H, KV, hd, pos, causal,
+                                      window, q.element_size())
+            rec = _measure(
+                torch, label, dname, kern(*args, **kw), plain(*args, **kw),
+                lambda: kern(*args, **kw), lambda: plain(*args, **kw),
+                _flash_sdpa(torch, q, k, v, pos, causal, window), nbytes,
+                ops)
+            if main_case:
+                report[(name, dname)] = rec
+
+
+def phase_kernels(torch, rpa, fa) -> dict:
+    report = {}
+    _rpa_kernels(torch, rpa, report)
+    _flash_kernels(torch, fa, report)
     return report
 
 
 # -- phase: step ---------------------------------------------------------------
 
 
-def phase_step(torch) -> None:
-    """mixed_step_paged then decode_step_ragged_paged at 8B width (2
-    layers, f32), attn='kernel' vs attn='plain' from identical pools."""
+def phase_step(torch, fa) -> None:
+    """At 8B width (2 layers, f32): mixed_step_paged then
+    decode_step_ragged_paged, attn='kernel' vs attn='plain' from identical
+    pools; then the dense prefill, prefill_chunk and decode_step with
+    flash on (the CUDA kernels) vs off (the masked einsum)."""
     import dataclasses
 
     from cake_tpu_torch.models.llama.config import LlamaConfig
@@ -302,8 +435,62 @@ def phase_step(torch) -> None:
     log(f"step pools: layer 0 identical, max |kernel - plain| = {perr:.3e}")
     if perr > 1e-4:
         fail(f"step: pools differ by {perr:.3e} (tol 1e-4)")
-    del params, out, base
+    del out, base
+    _dense_step(torch, fa, cfg, params, rope, gen)
+    del params
     torch.cuda.empty_cache()
+
+
+def _dense_step(torch, fa, cfg, params, rope, gen) -> None:
+    """A 256-token prompt (prefill: flash_attn), a 128-token window at
+    pos 256 (prefill_chunk: flash_attn_cached), one decode step at 384,
+    flash on vs off over identical inputs."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama import model as dm
+    from cake_tpu_torch.models.llama.cache import KVCache
+
+    dev = "cuda"
+    T = rope.cos.shape[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device=dev, dtype=torch.int32)
+    window = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                           device=dev, dtype=torch.int32)
+    token = window[:, :1]
+    out = {}
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, use_flash_attention=flash)
+        cache = KVCache.create(c, 1, T, dtype=torch.float32, device=dev)
+        fa.reset_launch_counts()
+        lp, _ = dm.prefill(params, prompt, torch.tensor([256], device=dev),
+                           cache, rope, c)
+        lc, _ = dm.prefill_chunk(params, window, 256,
+                                 torch.tensor([127], device=dev), cache,
+                                 rope, c)
+        ld, _ = dm.decode_step(params, token, 384, cache, rope, c)
+        torch.cuda.synchronize()
+        out[flash] = (lp, lc, ld, cache, dict(fa.LAUNCHES))
+    for flash, n in ((True, cfg.num_hidden_layers), (False, 0)):
+        got = out[flash][4]
+        if (got["flash_attn"], got["flash_attn_cached"]) != (n, n) or (
+                got["flash_attn_plain"] or got["flash_attn_cached_plain"]):
+            fail(f"step dense (flash {flash}): launches {got}, expected "
+                 f"{n} of each kernel and no plain call")
+    for i, what in enumerate(("prefill", "prefill_chunk", "decode_step")):
+        a, b = out[True][i], out[False][i]
+        err = (a - b).abs().max().item()
+        log(f"step dense {what} logits: max |flash - einsum| = {err:.3e}")
+        if not torch.isfinite(a).all() or err > 1e-3:
+            fail(f"step dense {what}: logits differ by {err:.3e} (tol 1e-3)")
+    ck, cp = out[True][3], out[False][3]
+    if not (torch.equal(ck.k[0], cp.k[0]) and torch.equal(ck.v[0], cp.v[0])):
+        fail("step dense: layer-0 caches differ between flash and einsum")
+    cerr = max((ck.k - cp.k).abs().max().item(),
+               (ck.v - cp.v).abs().max().item())
+    log(f"step dense caches: layer 0 identical, max |flash - einsum| = "
+        f"{cerr:.3e}")
+    if cerr > 1e-4:
+        fail(f"step dense: caches differ by {cerr:.3e} (tol 1e-4)")
 
 
 # -- phase: serve --------------------------------------------------------------
@@ -318,9 +505,15 @@ def _post(url, body, timeout=600):
 
 def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
     """Print the kernels that took the most device time in a profiled
-    window, and the device's busy share of the window's wall time."""
+    window, and the device's busy share of the window's wall time. Only
+    kernel rows count: an operator row (aten::mm, ...) carries the time
+    of the kernels it launched again."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0:
@@ -333,28 +526,164 @@ def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
             f" {n:7d}x {name[:90]}")
 
 
-def phase_serve(torch, rpa, profile: bool = False) -> dict:
-    from cake_tpu_torch.api.server import start
-    from cake_tpu_torch.args import Args
-    from cake_tpu_torch.master import Master, TextModel
+def _big_params(torch):
+    """Llama-3-8B width and depth, random bf16 weights from a seed, made
+    once for the generate and serve phases."""
     from cake_tpu_torch.models.llama.config import LlamaConfig
-    from cake_tpu_torch.models.llama.generator import ByteTokenizer
     from cake_tpu_torch.models.llama.params import init_params
 
-    dev = "cuda"
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"serve: 32-layer 8B-width bf16 params on the card in "
+    log(f"32-layer 8B-width bf16 params on the card in "
         f"{time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    return cfg, params
+
+
+def _profiled(torch, profile: bool, label: str, fn):
+    """fn() under torch.profiler when asked (printing where the device
+    time went); returns fn's result."""
+    if not profile:
+        return fn()
+    from torch.profiler import ProfilerActivity
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        out = fn()
+        torch.cuda.synchronize()
+    log(f"profile of {label}:")
+    _device_time_table(prof, time.perf_counter() - t0)
+    return out
+
+
+def _prompt_of(tokenizer, n_tokens: int, system: str) -> str:
+    """A user message whose chat rendering (Llama-3 template, with the
+    system message) encodes to exactly n_tokens byte tokens."""
+    from cake_tpu_torch.models.chat import History, Message
+
+    h = History("llama3")
+    h.add_message(Message.system(system))
+    h.add_message(Message.user(""))
+    overhead = len(tokenizer.encode(h.render()))
+    if n_tokens < overhead:
+        fail(f"a {n_tokens}-token prompt is shorter than its template "
+             f"({overhead} tokens)")
+    words = " ".join(f"w{i}" for i in range(n_tokens))
+    return words[:n_tokens - overhead]
+
+
+def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
+    """The slice's path: Master.generate_text over the sequential
+    generator at full width and depth, bf16, greedy. Run A: a prompt of
+    1000 tokens, bucket 1024 (one flash_attn per layer). Run B: 1500
+    tokens in 256-token windows (six flash_attn_cached per layer). Then
+    the one-shot command line, in its own process on the card."""
+    import dataclasses
+
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    dev = "cuda"
+    fcfg = dataclasses.replace(cfg, use_flash_attention=True)
+    tok = ByteTokenizer(cfg.vocab_size)
+    system = "You are a helpful AI assistant."
+    n_new = 32
+
+    def master(prefill_chunk=None):
+        gen = LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
+                             sampling=SamplingConfig(temperature=0.0),
+                             cache_dtype=torch.bfloat16,
+                             prefill_chunk=prefill_chunk, device=dev)
+        return Master(Args(sample_len=n_new, system_prompt=system),
+                      text_generator=gen)
+
+    def run(m, n_prompt):
+        g = m.llm
+        m.add_message(Message.system(system))
+        m.add_message(Message.user(_prompt_of(tok, n_prompt, system)))
+        timing = {}
+        prefill_prompt = g._prefill_prompt
+
+        def timed_prefill():
+            t0 = time.perf_counter()
+            logits = prefill_prompt()
+            torch.cuda.synchronize()
+            timing["prefill_s"] = time.perf_counter() - t0
+            return logits
+
+        g._prefill_prompt = timed_prefill
+        t0 = time.perf_counter()
+
+        def on_token(t):
+            timing.setdefault("ttft_s", time.perf_counter() - t0)
+
+        m.generate_text(on_token)
+        timing.update(prompt=g._prompt_len, tokens=len(g.tokens),
+                      tok_s=m.tokens_per_s,
+                      eos=g.tokens[-1] in cfg.eos_token_ids)
+        return timing
+
+    # warm-up: cuBLAS handles and the kernel library, off the counts
+    run(master(), 300)
+    fa.reset_launch_counts()
+    a = _profiled(torch, profile, "generate run A",
+                  lambda: run(master(), 1000))
+    counts_a = dict(fa.LAUNCHES)
+    b = run(master(prefill_chunk=256), 1500)
+    counts = dict(fa.LAUNCHES)
+    L = cfg.num_hidden_layers
+    for label, t in (("A (bucket 1024)", a), ("B (256-token windows)", b)):
+        log(f"generate {label}: prompt {t['prompt']} tokens, TTFT "
+            f"{t['ttft_s']:.3f} s, prefill {t['prefill_s']:.3f} s, "
+            f"{t['tokens']} tokens, decode {t['tok_s']:.1f} tok/s")
+        if t["tokens"] != n_new and not t["eos"]:
+            fail(f"generate {label}: {t['tokens']} tokens, expected {n_new}")
+    log(f"generate: launches {counts} (after run A: {counts_a})")
+    want = {"flash_attn": L, "flash_attn_cached": 6 * L,
+            "flash_attn_plain": 0, "flash_attn_cached_plain": 0}
+    if counts != want or counts_a["flash_attn_cached"] != 0:
+        fail(f"generate: launches {counts}, expected {want}")
+
+    cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--prompt",
+           "Why is the sky blue?", "--sample-len", "8"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600)
+    log(f"generate: `{' '.join(cmd[1:])}` exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; stdout tail "
+        f"{r.stdout.strip().splitlines()[-1:]!r}")
+    if r.returncode != 0:
+        fail(f"generate: the command line failed:\n{r.stderr[-3000:]}")
+    return counts
+
+
+def phase_serve(torch, rpa, cfg, params, profile: bool = False) -> dict:
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    dev = "cuda"
     args = Args(max_slots=8, max_seq_len=2048, kv_pages=128,
                 kv_page_size=128, prefill_chunk=64, temperature=0.0,
                 sample_len=32, dtype="bf16")
-    master = Master(args, text_model=TextModel(
-        cfg, params, ByteTokenizer(cfg.vocab_size)), device=dev)
+    gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
+                         max_seq_len=2048,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.bfloat16, device=dev)
+    master = Master(args, text_generator=gen)
     engine = master.make_engine()
     httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
     url = (f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -403,25 +732,18 @@ def phase_serve(torch, rpa, profile: bool = False) -> dict:
         except Exception as e:   # noqa: BLE001
             results[i] = dict(status=-1, error=repr(e))
 
-    prof = None
-    if profile:
-        from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA])
-        prof.__enter__()
+    def drive():
+        t_serve = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        return time.perf_counter() - t_serve
+
     rpa.reset_launch_counts()
-    t_serve = time.perf_counter()
-    threads = [threading.Thread(target=one, args=(i,))
-               for i in range(len(prompts))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    wall = time.perf_counter() - t_serve
-    if prof is not None:
-        torch.cuda.synchronize()
-        prof.__exit__(None, None, None)
-        _device_time_table(prof, wall)
+    wall = _profiled(torch, profile, "serve", drive)
     counts = dict(rpa.LAUNCHES)
     stats = engine.stats
     retired = list(engine.retired)
@@ -459,8 +781,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase with torch.profiler and "
-                         "print where the device time went")
+                    help="trace generate run A and the serve phase with "
+                         "torch.profiler and print where the device time "
+                         "went")
     a = ap.parse_args(argv)
     phases = [p for p in a.phases.split(",") if p]
     bad = set(phases) - set(PHASES)
@@ -473,6 +796,7 @@ def main(argv=None) -> int:
              "an NVIDIA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        import cake_tpu_torch.ops.flash_attention as fa
         import cake_tpu_torch.ops.ragged_paged_attention as rpa
     except ImportError as e:
         fail(f"cake_tpu_torch is not importable next to this script "
@@ -480,28 +804,38 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_device(torch, rpa)
-    kern = phase_kernels(torch, rpa) if "kernels" in phases else {}
+    card = phase_device(torch, rpa, fa)
+    kern = phase_kernels(torch, rpa, fa) if "kernels" in phases else {}
     if "step" in phases:
-        phase_step(torch)
-    counts = (phase_serve(torch, rpa, profile=a.profile)
-              if "serve" in phases else {})
+        phase_step(torch, fa)
+    # launch counts of each path, read right after it ran (null in the
+    # kernels line, not 0, when its phase did not run)
+    counts = {}
+    if "generate" in phases or "serve" in phases:
+        cfg, params = _big_params(torch)
+        if "generate" in phases:
+            counts.update(phase_generate(torch, fa, cfg, params,
+                                         profile=a.profile))
+        if "serve" in phases:
+            counts.update(phase_serve(torch, rpa, cfg, params,
+                                      profile=a.profile))
 
     rows = []
-    for name in rpa.KERNELS:
+    for name, (source, replaces) in KERNELS.items():
         rec = kern.get((name, "bfloat16"), {})
         f32 = kern.get((name, "float32"), {})
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            # null, not 0, when the serve phase (the main path) did not run
-            "replaces": REPLACES[name], "launches": counts.get(name),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(name),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"),
             "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms"),
-            "ms_f32": f32.get("ms"),
+            "ms_f32": f32.get("ms"), "plain_ms_f32": f32.get("plain_ms"),
+            "bound_ms_f32": f32.get("bound_ms"),
+            "library_ms_f32": f32.get("library_ms"),
         })
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

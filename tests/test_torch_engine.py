@@ -26,9 +26,11 @@ from cake_tpu.ops.sampling import SamplingConfig as JSampling
 from cake_tpu.serve.engine import InferenceEngine as JEngine
 from cake_tpu_torch.api.server import start
 from cake_tpu_torch.args import Args
-from cake_tpu_torch.master import Master, TextModel
+from cake_tpu_torch.master import Master
 from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.models.llama.generator import ByteTokenizer
+from cake_tpu_torch.models.llama.generator import (
+    ByteTokenizer, LlamaGenerator,
+)
 from cake_tpu_torch.models.llama.params import params_from_numpy
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve.engine import InferenceEngine
@@ -175,7 +177,9 @@ def test_entry_points_without_device_refuse_the_cpu(models):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(tc, tp, ByteTokenizer(tc.vocab_size), kv_pages=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Master(Args(), TextModel(tc, tp, ByteTokenizer(tc.vocab_size)))
+        LlamaGenerator(tc, tp, ByteTokenizer(tc.vocab_size))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Master.from_args(Args())
 
 
 def _post(url, body):
@@ -190,8 +194,11 @@ def test_http_round_trip_buffered_sse_and_health(models):
     args = Args(max_slots=2, max_seq_len=256, kv_pages=16,
                 kv_page_size=PAGE, prefill_chunk=32, temperature=0.0,
                 sample_len=6)
-    master = Master(args, TextModel(tc, tp, ByteTokenizer(tc.vocab_size)),
-                    device="cpu")
+    gen = LlamaGenerator(tc, tp, ByteTokenizer(tc.vocab_size),
+                         max_seq_len=256,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.bfloat16, device="cpu")
+    master = Master(args, text_generator=gen)
     engine = master.make_engine()
     httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
