@@ -3,9 +3,10 @@ port implements; same names and defaults, except that the paged KV pool
 is on by default, being the port's only serving engine).
 
 `parse_args` builds one flag per field, as the JAX package does
-(`--max-seq-len`, `--flash-attention/--no-flash-attention`, ...); a flag
-of the JAX package that the port does not implement yet is rejected by
-argparse, never accepted and ignored.
+(`--max-seq-len`, `--flash-attention/--no-flash-attention`, ...), and
+validates the result (`Args.validate`, the JAX package's rules for the
+fields the port has); a flag of the JAX package that the port does not
+implement yet is rejected by argparse, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from __future__ import annotations
 import argparse
 from dataclasses import dataclass, fields
 from typing import Optional
+
+from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
+from cake_tpu_torch.utils.devices import resolve_dtype
 
 
 @dataclass
@@ -30,7 +34,9 @@ class Args:
     repeat_penalty: Optional[float] = None
     repeat_last_n: int = 128
     dtype: str = "bf16"                 # f32 | bf16 | f16 (weights)
-    kv_dtype: Optional[str] = None      # KV cache/pool dtype; None = dtype
+    # KV cache/pool dtype; None = dtype. int8/int4 quantize the paged
+    # pool (the generator's dense cache keeps the compute dtype)
+    kv_dtype: Optional[str] = None
     cpu: bool = False                   # run on the CPU (plain kernels)
     device_idx: int = 0                 # cuda:<device_idx> otherwise
     max_seq_len: int = 4096
@@ -50,6 +56,27 @@ class Args:
     paged_attn: str = "auto"
     # token-level continuous batching (the port has only "auto"/"on")
     mixed_batch: str = "auto"
+
+    def validate(self) -> "Args":
+        """The JAX package's `Args.validate` rules for --kv-dtype: int8
+        and int4 need the paged pool, and int4 an even page size; any
+        other name must be a dtype. Returns self."""
+        if self.kv_dtype in QUANTIZED_CACHES:
+            if not self.kv_pages:
+                raise ValueError(
+                    f"--kv-dtype {self.kv_dtype} requires --kv-pages: "
+                    "quantized KV pages live in the paged pool "
+                    "(cake_tpu/kv)")
+            if self.kv_dtype == "int4" and self.kv_page_size % 2:
+                # two int4 values nibble-pack into one byte along the
+                # page's token axis, so a page must split evenly
+                raise ValueError(
+                    f"--kv-dtype int4 requires an even --kv-page-size "
+                    f"(got {self.kv_page_size}): pages nibble-pack "
+                    "token pairs (cake_tpu/kv/quantized_pool)")
+        elif self.kv_dtype is not None:
+            resolve_dtype(self.kv_dtype)
+        return self
 
 
 _PARSERS = {"str": str, "int": int, "float": float,
@@ -73,5 +100,5 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> Args:
-    """Parse argv (sys.argv[1:] when None) into Args."""
-    return Args(**vars(build_parser().parse_args(argv)))
+    """Parse argv (sys.argv[1:] when None) into validated Args."""
+    return Args(**vars(build_parser().parse_args(argv))).validate()

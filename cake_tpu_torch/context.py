@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from cake_tpu_torch.args import Args
+from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
 from cake_tpu_torch.models.llama.config import LlamaConfig, load_config
 from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
 
@@ -82,7 +83,15 @@ class Context:
             repeat_penalty=(1.1 if a.repeat_penalty is None
                             else a.repeat_penalty),
             repeat_last_n=a.repeat_last_n)
-        kv_dtype = resolve_dtype(a.kv_dtype) if a.kv_dtype else self.dtype
+        if a.kv_dtype in QUANTIZED_CACHES:
+            # int8/int4 KV is the paged engine's quantized pool
+            # (master.make_engine passes --kv-dtype through): the
+            # generator's dense cache keeps the compute dtype, having no
+            # per-page scales. The JAX context does this for int8 only.
+            kv_dtype = self.dtype
+        else:
+            kv_dtype = (resolve_dtype(a.kv_dtype) if a.kv_dtype
+                        else self.dtype)
         return LlamaGenerator(
             cfg, params, tokenizer,
             max_seq_len=min(a.max_seq_len, cfg.max_position_embeddings),

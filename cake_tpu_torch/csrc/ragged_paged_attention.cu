@@ -1,30 +1,48 @@
-// Ragged paged attention for Hopper (sm_90a): decode and mixed steps.
+// Ragged paged attention for Hopper (sm_90a): decode and mixed steps, over
+// f32/bf16 pages and over int8 and nibble-packed int4 pages with scales.
 //
 // Replaces the TPU kernels in cake_tpu/ops/ragged_paged_attention.py:
-//   rpa_decode  <- _rpa_kernel        (via ragged_paged_attention)
-//   rpa_mixed   <- _rpa_mixed_kernel  (via ragged_paged_attention_mixed)
-// Both compute, per row b of a continuous batch, attention of the row's
+//   rpa_decode     <- _rpa_kernel           (via ragged_paged_attention)
+//   rpa_mixed      <- _rpa_mixed_kernel     (via ragged_paged_attention_mixed)
+//   rpa_decode_q8  <- _rpa_kernel_q8        (int8 pages)
+//   rpa_mixed_q8   <- _rpa_mixed_kernel_q8  (int8 pages)
+//   rpa_decode_q4  <- _rpa_kernel_q4 + _unpack_nibbles  (int4 pages)
+//   rpa_mixed_q4   <- _rpa_mixed_kernel_q4 + _unpack_nibbles
+// All compute, per row b of a continuous batch, attention of the row's
 // queries against its KV history, read page by page from a shared pool
-// [N, P, KV, hd] through table[b, :] (-1 = unmapped page), with an f32
-// online softmax. Query column i of row b sits at absolute position
-// pos[b] + i and attends slots <= pos[b] + i. Decode rows carry one
-// query; mixed rows carry q_len[b] of C columns (0 = idle row).
+// through table[b, :] (-1 = unmapped page), with an f32 online softmax.
+// Query column i of row b sits at absolute position pos[b] + i and attends
+// slots <= pos[b] + i. Decode rows carry one query; mixed rows carry
+// q_len[b] of C columns (0 = idle row). One source, one template: the
+// page element type picks how a slot is read.
+//   float / bf16:  pool [N, P, KV, hd]
+//   int8:          pool [N, P, KV, hd] int8, scale [N, KV] f32
+//   uint8 (int4):  pool [N, P/2, KV, hd]; token t < P/2 is the low nibble
+//                  of packed row t, token t + P/2 the high nibble of the
+//                  same row, both biased by +8; scale [N, KV] f32
+// A quantized slot is dequantized as it is staged (int value * the page's
+// scale for that kv head, in f32), which is the function the TPU kernels
+// compute by scaling the dot outputs instead, up to f32 rounding order.
 //
 // What bounds it on this card: the bytes of the live K/V pages. A row
-// at position p reads 2 * (p + 1) * KV * hd elements once; the dots
-// do 4 * hd flops per (query head, slot) — about G / 2 flops per byte
-// for a bf16 pool (G = H / KV query heads per kv head), far below the
-// ~295 flops/byte where the H100's tensor cores would bound it. So the
-// floor is live K/V bytes / 3.35 TB/s.
+// at position p reads 2 * (p + 1) * KV * hd elements once (4, 2, 1 or
+// 0.5 bytes each) plus 8 * KV bytes of scales per live page; the dots
+// do 4 * hd flops per (query head, slot) -- about G / 2 flops per byte
+// for a bf16 pool (G = H / KV query heads per kv head), 2G for int4,
+// still below the ~295 flops/byte where the H100's tensor cores would
+// bound it. So the floor is live K/V bytes / 3.35 TB/s.
 //
 // What the design does about it:
 //   * one CTA per (row, kv head[, query tile]) reads its own pos and
 //     table row and walks only the LIVE pages j < ceil((last + 1) / P),
 //     where last is the position of its last real query; unmapped ids
-//     are skipped outright, never clamped to page 0;
+//     are skipped outright, never clamped to page 0, so page 0's scale
+//     cannot leak into a quantized row;
 //   * within a page only slots up to `last` are fetched, 32 tokens at a
 //     time, into shared memory (K rows padded by one float so the score
-//     loop is free of bank conflicts), converted to f32 on load;
+//     loop is free of bank conflicts), converted to f32 on load; an int4
+//     slot picks its nibble by its own index, so a 32-slot tile may
+//     straddle the two packed halves (P/2 need not be a multiple of 32);
 //   * the G query heads of the kv head (times the tile's query columns)
 //     are scored against each staged tile, so a page is fetched once
 //     per kv head for all of its query heads (GQA without repeat);
@@ -40,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
@@ -52,6 +72,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -74,13 +95,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 struct Args {
   const void* q;       // [B, C, H, hd]
-  const void* k;       // [N, P, KV, hd]
-  const void* v;       // [N, P, KV, hd]
+  const void* k;       // [N, P, KV, hd] ([N, P/2, KV, hd] packed int4)
+  const void* v;       // as k
+  const float* sk;     // [N, KV] scales of k pages (int8/int4), else null
+  const float* sv;     // [N, KV] scales of v pages (int8/int4), else null
   const int* table;    // [B, max_pages]
   const int* pos;      // [B]
   const int* qlen;     // [B], nullptr for decode (one query per row)
   void* out;           // [B, C, H, hd]
-  int B, C, H, KV, hd, P, N, max_pages;
+  int B, C, H, KV, hd, P, N, max_pages;  // P: real tokens per page
   int q_cols;          // query columns per CTA
   float scale;
 };
@@ -90,10 +113,29 @@ size_t smem_bytes(int hd) {
                                   kRows * hd + kRows * kTile + 3 * kRows);
 }
 
+// Slot t of page `page`, kv head `kv`, head dim d, as f32 (not yet scaled).
+template <typename TKV>
+__device__ __forceinline__ float load_slot(const TKV* p, const Args& a,
+                                           int page, int t, int kv, int d) {
+  return to_f(p[(((size_t)page * a.P + t) * a.KV + kv) * a.hd + d]);
+}
+// Nibble-packed int4: token t < P/2 in the low nibble of packed row t,
+// token t + P/2 in the high nibble of the same row, +8 bias.
+__device__ __forceinline__ float load_slot(const uint8_t* p, const Args& a,
+                                           int page, int t, int kv, int d) {
+  const int half = a.P >> 1;
+  const bool hi = t >= half;
+  const uint8_t b =
+      p[(((size_t)page * half + (hi ? t - half : t)) * a.KV + kv) * a.hd + d];
+  return (float)((hi ? b >> 4 : b & 0xF) - 8);
+}
+
 // One CTA: kv head `kv` of row `b`, query columns [c0, c0 + q_cols).
 // Row r of the CTA is query column c0 + r / G, query head kv * G + r % G.
 template <typename TQ, typename TKV>
 __device__ void rpa_cta(const Args& a, int b, int kv, int c0) {
+  constexpr bool kQuant =
+      std::is_same<TKV, int8_t>::value || std::is_same<TKV, uint8_t>::value;
   extern __shared__ float smem[];
   const int G = a.H / a.KV;
   const int hd = a.hd;
@@ -138,22 +180,30 @@ __device__ void rpa_cta(const Args& a, int b, int kv, int c0) {
   for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.f;
   __syncthreads();
 
-  const size_t tok_stride = (size_t)a.KV * hd;
   for (int j = 0; j < n_pages; ++j) {
     const int page = a.table[(size_t)b * a.max_pages + j];
     if (page < 0 || page >= a.N) continue;  // unmapped: nothing to read
+    // a quantized page carries one scale per kv head for all its slots
+    float sk = 1.f, sv = 1.f;
+    if constexpr (kQuant) {
+      sk = a.sk[(size_t)page * a.KV + kv];
+      sv = a.sv[(size_t)page * a.KV + kv];
+    }
     for (int t0 = 0; t0 < a.P; t0 += kTile) {
       const int base = j * a.P + t0;        // absolute slot of row 0
       if (base > last) break;
       const int nt = min(min(kTile, a.P - t0), last - base + 1);
       // stage K/V slots [t0, t0 + nt) of this page for kv head `kv`
-      const size_t src0 =
-          ((size_t)page * a.P + t0) * tok_stride + (size_t)kv * hd;
       for (int i = tid; i < nt * hd; i += kThreads) {
         const int t = i / hd, d = i - t * hd;
-        const size_t s = src0 + (size_t)t * tok_stride + d;
-        k_s[t * ldk + d] = to_f(kp[s]);
-        v_s[t * hd + d] = to_f(vp[s]);
+        float kx = load_slot(kp, a, page, t0 + t, kv, d);
+        float vx = load_slot(vp, a, page, t0 + t, kv, d);
+        if constexpr (kQuant) {
+          kx *= sk;
+          vx *= sv;
+        }
+        k_s[t * ldk + d] = kx;
+        v_s[t * hd + d] = vx;
       }
       __syncthreads();
       // scores: one (row, slot) per thread per pass, masked slots skipped
@@ -243,24 +293,26 @@ __global__ void __launch_bounds__(kThreads) rpa_mixed_kernel(Args a) {
 
 typedef void (*KernelFn)(Args);
 
-// dtype codes: 0 = float32, 1 = bfloat16
-KernelFn pick(bool mixed, int q_dtype, int kv_dtype) {
-  const int key = q_dtype * 2 + kv_dtype;
-  if (mixed) {
-    switch (key) {
-      case 0: return rpa_mixed_kernel<float, float>;
-      case 1: return rpa_mixed_kernel<float, __nv_bfloat16>;
-      case 2: return rpa_mixed_kernel<__nv_bfloat16, float>;
-      case 3: return rpa_mixed_kernel<__nv_bfloat16, __nv_bfloat16>;
-    }
-  } else {
-    switch (key) {
-      case 0: return rpa_decode_kernel<float, float>;
-      case 1: return rpa_decode_kernel<float, __nv_bfloat16>;
-      case 2: return rpa_decode_kernel<__nv_bfloat16, float>;
-      case 3: return rpa_decode_kernel<__nv_bfloat16, __nv_bfloat16>;
-    }
+// kv dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4
+template <typename TQ>
+KernelFn pick_kv(bool mixed, int kv_dtype) {
+  switch (kv_dtype) {
+    case 0: return mixed ? &rpa_mixed_kernel<TQ, float>
+                         : &rpa_decode_kernel<TQ, float>;
+    case 1: return mixed ? &rpa_mixed_kernel<TQ, __nv_bfloat16>
+                         : &rpa_decode_kernel<TQ, __nv_bfloat16>;
+    case 2: return mixed ? &rpa_mixed_kernel<TQ, int8_t>
+                         : &rpa_decode_kernel<TQ, int8_t>;
+    case 3: return mixed ? &rpa_mixed_kernel<TQ, uint8_t>
+                         : &rpa_decode_kernel<TQ, uint8_t>;
   }
+  return nullptr;
+}
+
+// q dtype codes: 0 = float32, 1 = bfloat16
+KernelFn pick(bool mixed, int q_dtype, int kv_dtype) {
+  if (q_dtype == 0) return pick_kv<float>(mixed, kv_dtype);
+  if (q_dtype == 1) return pick_kv<__nv_bfloat16>(mixed, kv_dtype);
   return nullptr;
 }
 
@@ -284,6 +336,12 @@ bool shape_ok(int H, int KV, int hd) {
          hd <= kMaxHd;
 }
 
+// quantized pages need both scale arrays; packed int4 pages an even P
+bool pool_ok(int kv_dtype, const float* sk, const float* sv, int P) {
+  if (kv_dtype < 2) return true;
+  return sk != nullptr && sv != nullptr && (kv_dtype != 3 || P % 2 == 0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -292,29 +350,33 @@ extern "C" {
 int rpa_max_group() { return kRows; }
 int rpa_max_head_dim() { return kMaxHd; }
 
-// Decode: q/out [B, 1, H, hd]. Returns cudaGetLastError() of the launch.
-int rpa_decode(const void* q, const void* k, const void* v,
-               const int* table, const int* pos, void* out, int B, int H,
-               int KV, int hd, int P, int N, int max_pages, float scale,
-               int q_dtype, int kv_dtype, void* stream) {
-  if (!shape_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+// Decode: q/out [B, 1, H, hd]; sk/sv null unless the pages are quantized;
+// P counts real tokens per page. Returns cudaGetLastError() of the launch.
+int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
+               const float* sv, const int* table, const int* pos, void* out,
+               int B, int H, int KV, int hd, int P, int N, int max_pages,
+               float scale, int q_dtype, int kv_dtype, void* stream) {
+  if (!shape_ok(H, KV, hd) || !pool_ok(kv_dtype, sk, sv, P))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  Args a{q, k, v, table, pos, nullptr, out,
+  Args a{q, k, v, sk, sv, table, pos, nullptr, out,
          B, 1, H, KV, hd, P, N, max_pages, 1, scale};
   return launch(false, a, q_dtype, kv_dtype, dim3(KV, B, 1),
                 static_cast<cudaStream_t>(stream));
 }
 
-// Mixed: q/out [B, C, H, hd], q_len [B]. Returns cudaGetLastError().
-int rpa_mixed(const void* q, const void* k, const void* v,
-              const int* table, const int* pos, const int* q_len,
-              void* out, int B, int C, int H, int KV, int hd, int P, int N,
-              int max_pages, float scale, int q_dtype, int kv_dtype,
-              void* stream) {
-  if (!shape_ok(H, KV, hd)) return (int)cudaErrorInvalidValue;
+// Mixed: q/out [B, C, H, hd], q_len [B]; scales and P as rpa_decode.
+// Returns cudaGetLastError().
+int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
+              const float* sv, const int* table, const int* pos,
+              const int* q_len, void* out, int B, int C, int H, int KV,
+              int hd, int P, int N, int max_pages, float scale, int q_dtype,
+              int kv_dtype, void* stream) {
+  if (!shape_ok(H, KV, hd) || !pool_ok(kv_dtype, sk, sv, P))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0) return 0;
   const int q_cols = kRows / (H / KV);
-  Args a{q, k, v, table, pos, q_len, out,
+  Args a{q, k, v, sk, sv, table, pos, q_len, out,
          B, C, H, KV, hd, P, N, max_pages, q_cols, scale};
   const int tiles = (C + q_cols - 1) / q_cols;
   return launch(true, a, q_dtype, kv_dtype, dim3(KV, B, tiles),

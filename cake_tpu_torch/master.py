@@ -52,7 +52,10 @@ class Master:
             max_seq_len=g.max_seq_len,
             sampling=g.sampling,
             seed=a.seed,
-            cache_dtype=g.cache.k.dtype,     # follows --kv-dtype
+            # the generator's cache dtype (a float --kv-dtype); an
+            # int8/int4 --kv-dtype quantizes the engine's pool instead
+            cache_dtype=g.cache.k.dtype,
+            kv_dtype=a.kv_dtype,
             prefill_chunk=a.prefill_chunk,
             kv_pages=a.kv_pages,
             kv_page_size=a.kv_page_size,

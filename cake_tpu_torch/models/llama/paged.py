@@ -1,11 +1,17 @@
 """Paged KV cache: a shared page pool + per-slot page tables.
 
-Counterpart of `cake_tpu/models/llama/paged.py`, restricted to the
-f32/bf16 pool and the two steps of the mixed-batch serving path
-(`decode_step_ragged_paged`, `mixed_step_paged`). Layout as there:
+Counterpart of `cake_tpu/models/llama/paged.py`, restricted to the two
+steps of the mixed-batch serving path (`decode_step_ragged_paged`,
+`mixed_step_paged`). Layout as there:
 
   pool k/v: [L, N_pages, page, KV, hd]   (page = tokens per page)
   table:    [slots, max_pages] int32      (page ids; -1 = unmapped)
+
+The pool is f32/bf16 (`PagedKVCache`), or int8 / nibble-packed int4 with
+per-page scales (`kv/quantized_pool.py`: `QuantizedPagedKVCache`,
+`Int4PagedKVCache`). The steps read one layer's pool leaves through
+`cache.layer(i)`, which all three caches have, and the writers and the
+attention dispatch on the leaf type, as the JAX package's do.
 
 Page j of a slot covers absolute positions [j*page, (j+1)*page). The
 JAX steps donate the cache and return a new one; here the pool and the
@@ -24,6 +30,10 @@ from typing import List, Optional
 
 import torch
 
+from cake_tpu_torch.kv.quantized_pool import (
+    Int4Pool, QuantPool, _pool_page, decode_targets, qupdate_pool_per_row,
+    qwrite_windows_pages, window_page_targets,
+)
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import block_skeleton, layer_params
 from cake_tpu_torch.ops.norms import rms_norm
@@ -61,6 +71,15 @@ class PagedKVCache:
     @property
     def max_seq_len(self) -> int:
         return self.table.shape[1] * self.k.shape[2]
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+    def layer(self, i: int):
+        """Layer i's (k, v) pools [N_pages, page, KV, hd]: views, so a
+        writer updates the cache in place."""
+        return self.k[i], self.v[i]
 
     @classmethod
     def create(cls, config: LlamaConfig, slots: int, n_pages: int,
@@ -169,11 +188,15 @@ def table_set_slot(table: torch.Tensor, slot: int,
     return table
 
 
-# -- pool writers (one layer's pool [N_pages, page, KV, hd], in place) --------
+# -- pool writers (one layer's pool leaves, in place) -------------------------
 #
 # A step's write targets are the same for every layer, so the steps compute
-# them once (`_window_targets` / `_decode_targets`, one host sync for the
-# boolean selection) and every layer scatters through them.
+# them once (`step_write_targets`: one host sync for the boolean selection)
+# and every layer writes through them.
+
+
+def _quantized(pool) -> bool:
+    return isinstance(pool, (QuantPool, Int4Pool))
 
 
 def _window_targets(pos, q_len, active, table, P: int, C: int):
@@ -192,17 +215,17 @@ def _window_targets(pos, q_len, active, table, P: int, C: int):
     return rows, cs, pages[rows, cs].long(), positions[rows, cs] % P
 
 
-def _decode_targets(pos, active, table, P: int):
-    """Write targets of a decode step: each active row's token at pos,
-    unless its page is unmapped (the page index clamps into the table,
-    as JAX's gather does)."""
-    B = pos.shape[0]
-    rows = torch.arange(B, device=table.device)
-    pidx = (pos.long() // P).clamp(max=table.shape[1] - 1)
-    pages = table[rows, pidx]
-    rows = (active & (pages >= 0)).nonzero(as_tuple=True)[0]
-    return (rows, torch.zeros_like(rows), pages[rows].long(),
-            pos.long()[rows] % P)
+def step_write_targets(cache, pos, active, q_len=None, C: int = 1):
+    """The write targets of one step, shared by every layer: a decode
+    step's (q_len None) tokens, or a mixed step's windows of C columns.
+    For a quantized pool, a window write touches whole pages
+    (`window_page_targets`)."""
+    P = cache.page_size
+    if q_len is None:
+        return decode_targets(pos, active, cache.table, P)
+    if _quantized(cache.k):
+        return window_page_targets(pos, q_len, active, cache.table, P, C)
+    return _window_targets(pos, q_len, active, cache.table, P, C)
 
 
 def _scatter(pool_k, pool_v, k, v, targets):
@@ -211,22 +234,42 @@ def _scatter(pool_k, pool_v, k, v, targets):
     pool_v[pages, offs] = v[rows, cols].to(pool_v.dtype)
 
 
-def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table):
+def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table,
+                        targets=None):
     """Every row writes its q_len-token window at absolute position
     pos[b] into its own pages. k/v: [B, C, KV, hd]; pos/q_len: [B];
     active: [B] bool; table: [slots(=B), max_pages]. Padding columns,
-    inactive rows and positions on unmapped pages are dropped."""
-    _scatter(pool_k, pool_v, k, v, _window_targets(
-        pos, q_len, active, table, pool_k.shape[1], k.shape[1]))
+    inactive rows and positions on unmapped pages are dropped. A
+    quantized pool quantizes on write (`qwrite_windows_pages`).
+    `targets` come from `step_write_targets`; computed here when not
+    given."""
+    if _quantized(pool_k):
+        if targets is None:
+            targets = window_page_targets(pos, q_len, active, table,
+                                          _pool_page(pool_k), k.shape[1])
+        return (qwrite_windows_pages(pool_k, k, pos, q_len, active, table,
+                                     targets),
+                qwrite_windows_pages(pool_v, v, pos, q_len, active, table,
+                                     targets))
+    if targets is None:
+        targets = _window_targets(pos, q_len, active, table,
+                                  pool_k.shape[1], k.shape[1])
+    _scatter(pool_k, pool_v, k, v, targets)
     return pool_k, pool_v
 
 
-def update_pool_per_row(pool_k, pool_v, k, v, pos, active, table):
+def update_pool_per_row(pool_k, pool_v, k, v, pos, active, table,
+                        targets=None):
     """Write one decode token per row into its page. k/v: [B, 1, KV, hd];
     pos: [B]; active: [B] bool. Inactive rows and rows whose position
-    lands on an unmapped page are dropped."""
-    _scatter(pool_k, pool_v, k, v,
-             _decode_targets(pos, active, table, pool_k.shape[1]))
+    lands on an unmapped page are dropped. A quantized pool re-quantizes
+    the written page (`qupdate_pool_per_row`)."""
+    if _quantized(pool_k):
+        return (qupdate_pool_per_row(pool_k, k, pos, active, table, targets),
+                qupdate_pool_per_row(pool_v, v, pos, active, table, targets))
+    if targets is None:
+        targets = decode_targets(pos, active, table, pool_k.shape[1])
+    _scatter(pool_k, pool_v, k, v, targets)
     return pool_k, pool_v
 
 
@@ -244,14 +287,26 @@ def _check_impl(impl: str, q: torch.Tensor) -> None:
             "or 'auto' on the CPU)")
 
 
+def _attn_args(pool_k, pool_v):
+    """The kernels' page arguments for a layer's pool leaves: the raw
+    pools, plus scales and packing for quantized ones."""
+    if not _quantized(pool_k):
+        return (pool_k, pool_v), {}
+    return (pool_k.q, pool_v.q), dict(
+        scale_k=pool_k.scale, scale_v=pool_v.scale,
+        packed4=isinstance(pool_k, Int4Pool))
+
+
 def paged_attention(q, pool_k, pool_v, table, pos, *, impl: str = "auto"):
     """Ragged decode attention over paged KV. q: [B, 1, H, hd] (rope
-    applied; the current token's KV written); pool_k/v: [N, P, KV, hd];
-    table: [B, max_pages]; pos: [B]. Returns [B, 1, H, hd]."""
+    applied; the current token's KV written); pool_k/v: one layer's
+    pools [N, P, KV, hd] or quantized pool leaves; table: [B, max_pages];
+    pos: [B]. Returns [B, 1, H, hd]."""
     _check_impl(impl, q)
-    if impl == "plain":
-        return ragged_paged_attention_plain(q, pool_k, pool_v, table, pos)
-    return ragged_paged_attention(q, pool_k, pool_v, table, pos)
+    pools, quant = _attn_args(pool_k, pool_v)
+    fn = (ragged_paged_attention_plain if impl == "plain"
+          else ragged_paged_attention)
+    return fn(q, *pools, table, pos, **quant)
 
 
 def paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
@@ -261,11 +316,10 @@ def paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
     of each row's first query; q_len: [B] (0 = idle row). Columns past
     q_len come back as zeros. Returns [B, C, H, hd]."""
     _check_impl(impl, q)
-    if impl == "plain":
-        return ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table,
-                                                  pos, q_len)
-    return ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos,
-                                        q_len)
+    pools, quant = _attn_args(pool_k, pool_v)
+    fn = (ragged_paged_attention_mixed_plain if impl == "plain"
+          else ragged_paged_attention_mixed)
+    return fn(q, *pools, table, pos, q_len, **quant)
 
 
 # -- model-level steps ------------------------------------------------------
@@ -276,14 +330,15 @@ def run_blocks_ragged_paged(blocks, x, cache: PagedKVCache, pos, active,
                             attn: str = "auto"):
     """Every block over the page pool: write the token, attend the
     pages. x: [B, 1, D]; pos/active: [B]."""
-    targets = _decode_targets(pos, active, cache.table, cache.page_size)
-    for i in range(cache.k.shape[0]):
-        pk, pv = cache.k[i], cache.v[i]
+    targets = step_write_targets(cache, pos, active)
+    for i in range(cache.num_layers):
+        pk, pv = cache.layer(i)
 
         def attn_fn(q, k, v):
             q = apply_rope(q, rope_c, rope_s)
             k = apply_rope(k, rope_c, rope_s)
-            _scatter(pk, pv, k, v, targets)
+            update_pool_per_row(pk, pv, k, v, pos, active, cache.table,
+                                targets)
             return paged_attention(q, pk, pv, cache.table, pos,
                                    impl=attn), None
 
@@ -324,15 +379,15 @@ def run_blocks_mixed_paged(blocks, x, cache: PagedKVCache, pos, q_len,
     """Every block over a mixed batch of per-row windows: write each
     row's window into its pages, attend everything written through the
     table. x: [B, C, D]; rope_c/rope_s: [B, C, hd//2]."""
-    targets = _window_targets(pos, q_len, active, cache.table,
-                              cache.page_size, x.shape[1])
-    for i in range(cache.k.shape[0]):
-        pk, pv = cache.k[i], cache.v[i]
+    targets = step_write_targets(cache, pos, active, q_len, x.shape[1])
+    for i in range(cache.num_layers):
+        pk, pv = cache.layer(i)
 
         def attn_fn(q, k, v):
             q = apply_rope(q, rope_c, rope_s)
             k = apply_rope(k, rope_c, rope_s)
-            _scatter(pk, pv, k, v, targets)
+            write_windows_pages(pk, pv, k, v, pos, q_len, active,
+                                cache.table, targets)
             return paged_attention_mixed(q, pk, pv, cache.table, pos,
                                          q_len, impl=attn), None
 

@@ -3,8 +3,10 @@ plain PyTorch versions.
 
 Counterpart of `cake_tpu/ops/ragged_paged_attention.py`
 (`ragged_paged_attention` and `ragged_paged_attention_mixed`, whose
-Pallas bodies are `_rpa_kernel` and `_rpa_mixed_kernel`). On the card
-both run as hand-written CUDA C++ for Hopper
+Pallas bodies are `_rpa_kernel` and `_rpa_mixed_kernel`, and over
+quantized pages `_rpa_kernel_q8` / `_rpa_mixed_kernel_q8` (int8) and
+`_rpa_kernel_q4` / `_rpa_mixed_kernel_q4` (nibble-packed int4)). On the
+card all six run as hand-written CUDA C++ for Hopper
 (`csrc/ragged_paged_attention.cu`), compiled with nvcc for sm_90a at
 first use into `cake_tpu_torch/_build/` and bound with ctypes
 (utils/cuda_build.py).
@@ -12,12 +14,16 @@ first use into `cake_tpu_torch/_build/` and bound with ctypes
 Each wrapper takes tensors on one device: a CUDA tensor launches the
 kernel (or raises on a shape the kernel cannot take); a CPU tensor runs
 the plain version, the online-softmax fold over every table column
-that `cake_tpu/models/llama/paged.py` calls `impl="fold"`. There is no
-fallback from a CUDA tensor to the plain version.
+that `cake_tpu/models/llama/paged.py` calls `impl="fold"` (over
+quantized pages it dequantizes each page, `dequantize_pages(...,
+fill_zero=True)`, and casts it to q's dtype, as that fold does). There
+is no fallback from a CUDA tensor to the plain version.
 
-Layout contract (the JAX package's): pool [N_pages, page, KV, hd],
-table [B, max_pages] int32 with -1 = unmapped, pos [B] = absolute
-position of each row's first query; the queries' KV is already written.
+Layout contract (the JAX package's): pool [N_pages, page, KV, hd] (a
+nibble-packed int4 pool [N_pages, page//2, KV, hd] uint8), per-page
+scales [N_pages, KV] f32 for int8/int4 pools, table [B, max_pages]
+int32 with -1 = unmapped, pos [B] = absolute position of each row's
+first query; the queries' KV is already written.
 
 `LAUNCHES` counts kernel launches and plain-version calls by name, so a
 run can show which path its attention took.
@@ -30,16 +36,22 @@ from typing import Optional
 
 import torch
 
+from cake_tpu_torch.kv.quantized_pool import (
+    Int4Pool, QuantPool, _pool_page, dequantize_pages,
+)
 from cake_tpu_torch.ops.attention import (
     NEG_INF, merge_attention_stats, partial_attention_stats,
 )
 from cake_tpu_torch.utils.cuda_build import CudaLibrary
 
-KERNELS = ("rpa_decode", "rpa_mixed")
-LAUNCHES = {"rpa_decode": 0, "rpa_mixed": 0,
-            "rpa_decode_plain": 0, "rpa_mixed_plain": 0}
+KERNELS = ("rpa_decode", "rpa_mixed", "rpa_decode_q8", "rpa_mixed_q8",
+           "rpa_decode_q4", "rpa_mixed_q4")
+LAUNCHES = {name + suffix: 0 for name in KERNELS for suffix in ("", "_plain")}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# page storage: f32, bf16, int8 (+ scales), nibble-packed int4 (+ scales)
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.uint8: 3}
 
 
 def reset_launch_counts() -> None:
@@ -49,8 +61,8 @@ def reset_launch_counts() -> None:
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rpa_decode.argtypes = [p, p, p, p, p, p] + [i] * 7 + [f, i, i, p]
-    lib.rpa_mixed.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [f, i, i, p]
+    lib.rpa_decode.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p]
+    lib.rpa_mixed.argtypes = [p] * 9 + [i] * 8 + [f, i, i, p]
     lib.rpa_decode.restype = i
     lib.rpa_mixed.restype = i
     for fn in (lib.rpa_max_group, lib.rpa_max_head_dim):
@@ -62,13 +74,30 @@ LIBRARY = CudaLibrary("ragged_paged_attention.cu", _bind)
 SOURCE = LIBRARY.source
 
 
-def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None):
+def kernel_name(base: str, scale_k=None, packed4: bool = False) -> str:
+    """The kernel that serves a pool: `base` for f32/bf16 pages, `_q8`
+    for int8 and `_q4` for nibble-packed int4 pages."""
+    if scale_k is None:
+        return base
+    return base + ("_q4" if packed4 else "_q8")
+
+
+def _check_quant_args(scale_k, scale_v, packed4):
+    if packed4 and scale_k is None:
+        raise ValueError("packed4 pools require scale_k/scale_v")
+    if (scale_k is None) != (scale_v is None):
+        raise ValueError("scale_k and scale_v come together")
+
+
+def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None,
+                     scale_k=None, scale_v=None, packed4=False):
     """Hopper gate: what the kernel takes, checked before launch."""
     lib = LIBRARY.get()
     B, C, H, hd = q.shape
-    N, P, KV, hd_k = pool_k.shape
+    N, rows, KV, hd_k = pool_k.shape
+    scales = [] if scale_k is None else [scale_k, scale_v]
     tensors = [q, pool_k, pool_v, table, pos] + (
-        [q_len] if q_len is not None else [])
+        [q_len] if q_len is not None else []) + scales
     if any(t.device != q.device for t in tensors):
         raise ValueError("ragged paged attention: all tensors must be on "
                          "one CUDA device")
@@ -82,10 +111,23 @@ def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None):
     if hd > lib.rpa_max_head_dim():
         raise ValueError(f"head_dim {hd} > {lib.rpa_max_head_dim()}: the "
                          "kernel keeps two head dims per thread")
-    if q.dtype not in _DTYPE_CODES or pool_k.dtype not in _DTYPE_CODES \
-            or pool_v.dtype != pool_k.dtype:
-        raise ValueError(f"dtypes q {q.dtype}, pool {pool_k.dtype}: the "
-                         "kernel takes float32 and bfloat16")
+    if q.dtype not in _Q_CODES:
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes float32 "
+                         "and bfloat16 queries")
+    want = ((torch.float32, torch.bfloat16) if scale_k is None
+            else (torch.uint8,) if packed4 else (torch.int8,))
+    if pool_k.dtype not in want or pool_v.dtype != pool_k.dtype:
+        kind = ("f32/bf16 pages" if scale_k is None else
+                "nibble-packed int4 pages (uint8)" if packed4 else
+                "int8 pages")
+        raise ValueError(f"pool dtype {pool_k.dtype}: {kind} must be "
+                         f"{' or '.join(str(d) for d in want)}")
+    # (an int4 page is even by construction: the packed axis holds its
+    # page // 2 rows, and the kernel reads 2 * rows tokens per page)
+    for s in scales:
+        if s.dtype != torch.float32 or tuple(s.shape) != (N, KV):
+            raise ValueError(f"page scales {s.dtype} {tuple(s.shape)}: "
+                             f"must be float32 [{N}, {KV}]")
     if table.dtype != torch.int32 or pos.dtype != torch.int32 or (
             q_len is not None and q_len.dtype != torch.int32):
         raise ValueError("table, pos and q_len must be int32")
@@ -102,74 +144,116 @@ def _launch(name, rc):
     LAUNCHES[name] += 1
 
 
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           scale_k=None, scale_v=None,
+                           packed4: bool = False):
     """Ragged decode attention over a paged pool.
 
-    q [B, 1, H, hd]; pool_k/v [N, P, KV, hd]; table [B, max_pages] int32;
-    pos [B] int32 (position of the current token, its KV written).
-    Returns [B, 1, H, hd] in q.dtype; a row with no live page gives 0.
+    q [B, 1, H, hd]; pool_k/v [N, P, KV, hd] (f32/bf16, or int8 with
+    scale_k/scale_v [N, KV] f32, or with packed4 uint8 [N, P//2, KV, hd]
+    nibble-packed int4 with scales); table [B, max_pages] int32; pos [B]
+    int32 (position of the current token, its KV written). Returns
+    [B, 1, H, hd] in q.dtype; a row with no live page gives 0.
     """
     B, S, H, hd = q.shape
     if S != 1:
         raise ValueError(f"decode kernel takes one query per row, got S={S}")
+    _check_quant_args(scale_k, scale_v, packed4)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    quant = dict(scale_k=scale_k, scale_v=scale_v, packed4=packed4)
     if not q.is_cuda:
         return ragged_paged_attention_plain(q, pool_k, pool_v, table, pos,
-                                            scale=scale)
-    _check_cuda_args(q, pool_k, pool_v, table, pos)
-    N, P, KV, _ = pool_k.shape
+                                            scale=scale, **quant)
+    _check_cuda_args(q, pool_k, pool_v, table, pos, **quant)
+    N, rows, KV, _ = pool_k.shape
     out = torch.empty_like(q)
     lib = LIBRARY.get()
     rc = lib.rpa_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, H, KV, hd, P, N, table.shape[1], float(scale),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, H, KV, hd, rows * (2 if packed4 else 1), N,
+        table.shape[1], float(scale), _Q_CODES[q.dtype],
+        _KV_CODES[pool_k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _launch("rpa_decode", rc)
+    _launch(kernel_name("rpa_decode", scale_k, packed4), rc)
     return out
 
 
 def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 scale_k=None, scale_v=None,
+                                 packed4: bool = False):
     """Mixed ragged attention: decode rows (q_len=1) and prefill-chunk
     rows (q_len up to C, at any page offset) in one launch.
 
-    q [B, C, H, hd]; q_len [B] int32 (0 = idle row). Query column i of
-    row b sits at pos[b] + i and attends slots <= pos[b] + i. Columns
-    >= q_len and idle rows give 0. Returns [B, C, H, hd] in q.dtype.
+    q [B, C, H, hd]; q_len [B] int32 (0 = idle row); pools and scales as
+    `ragged_paged_attention`. Query column i of row b sits at
+    pos[b] + i and attends slots <= pos[b] + i. Columns >= q_len and
+    idle rows give 0. Returns [B, C, H, hd] in q.dtype.
     """
     B, C, H, hd = q.shape
+    _check_quant_args(scale_k, scale_v, packed4)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    quant = dict(scale_k=scale_k, scale_v=scale_v, packed4=packed4)
     if not q.is_cuda:
         return ragged_paged_attention_mixed_plain(
-            q, pool_k, pool_v, table, pos, q_len, scale=scale)
-    _check_cuda_args(q, pool_k, pool_v, table, pos, q_len)
-    N, P, KV, _ = pool_k.shape
+            q, pool_k, pool_v, table, pos, q_len, scale=scale, **quant)
+    _check_cuda_args(q, pool_k, pool_v, table, pos, q_len, **quant)
+    N, rows, KV, _ = pool_k.shape
     out = torch.empty_like(q)
     lib = LIBRARY.get()
     rc = lib.rpa_mixed(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), pos.data_ptr(), q_len.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, P, N, table.shape[1], float(scale),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
+        q_len.data_ptr(), out.data_ptr(), B, C, H, KV, hd,
+        rows * (2 if packed4 else 1), N, table.shape[1], float(scale),
+        _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _launch("rpa_mixed", rc)
+    _launch(kernel_name("rpa_mixed", scale_k, packed4), rc)
     return out
 
 
 # -- plain versions: the online-softmax fold over every table column ----------
 
 
-def _fold(q, pool_k, pool_v, table, valid_fn, scale):
-    """Fold every table column j into running (m, l, o) stats: gather
-    page j of each row (unmapped ids read zeros), mask with
+def _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4):
+    """(read, P): read(pages, mapped) gives table column j's K/V pages
+    [B, P, KV, hd] (unmapped pages as zeros), P the real tokens per page.
+    Quantized pages are dequantized in f32 and cast to q's dtype."""
+    if scale_k is None:
+        zero = torch.zeros((), dtype=pool_k.dtype, device=q.device)
+
+        def read(pages, mapped):
+            idx = pages.clamp(min=0)
+            keep = mapped[:, None, None, None]
+            return (torch.where(keep, pool_k[idx], zero),
+                    torch.where(keep, pool_v[idx], zero))
+
+        return read, pool_k.shape[1]
+    cls = Int4Pool if packed4 else QuantPool
+    pk, pv = cls(pool_k, scale_k), cls(pool_v, scale_v)
+    N = pool_k.shape[0]
+
+    def read(pages, mapped):
+        idx = torch.where(mapped, pages, torch.full_like(pages, N))
+        return (dequantize_pages(pk, idx, fill_zero=True).to(q.dtype),
+                dequantize_pages(pv, idx, fill_zero=True).to(q.dtype))
+
+    return read, _pool_page(pk)
+
+
+def _fold(q, read, KV, table, valid_fn, scale):
+    """Fold every table column j into running (m, l, o) stats: read page
+    j of each row (unmapped ids read zeros), mask with
     valid_fn(j, mapped) -> bool [B, C, P], merge. Returns [B, C, H, hd]."""
     B, C, H, hd = q.shape
-    N, P, KV, _ = pool_k.shape
     G = H // KV
     m = torch.full((B, KV, G, C, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -178,11 +262,7 @@ def _fold(q, pool_k, pool_v, table, valid_fn, scale):
     for j in range(table.shape[1]):
         pages = table[:, j].long()
         mapped = pages >= 0
-        idx = pages.clamp(min=0)
-        keep = mapped[:, None, None, None]
-        zero = torch.zeros((), dtype=pool_k.dtype, device=q.device)
-        kj = torch.where(keep, pool_k[idx], zero)         # [B, P, KV, hd]
-        vj = torch.where(keep, pool_v[idx], zero)
+        kj, vj = read(pages, mapped)                      # [B, P, KV, hd]
         valid = valid_fn(j, mapped)[:, None, None, :, :]  # [B,1,1,C,P]
         mj, lj, oj = partial_attention_stats(q, kj, vj, valid, scale=scale)
         m_new = torch.maximum(m, mj)
@@ -194,31 +274,37 @@ def _fold(q, pool_k, pool_v, table, valid_fn, scale):
 
 
 def ragged_paged_attention_plain(q, pool_k, pool_v, table, pos, *,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 scale_k=None, scale_v=None,
+                                 packed4: bool = False):
     """Plain version of `ragged_paged_attention` (the JAX package's
     `paged_attention` fold): slot j*P + t attends iff <= pos and its
     page is mapped."""
-    LAUNCHES["rpa_decode_plain"] += 1
-    P = pool_k.shape[1]
+    _check_quant_args(scale_k, scale_v, packed4)
+    LAUNCHES[kernel_name("rpa_decode", scale_k, packed4) + "_plain"] += 1
+    read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     t = torch.arange(P, device=q.device)
 
     def valid(j, mapped):
         ok = (j * P + t)[None, :] <= pos[:, None].long()
         return (ok & mapped[:, None])[:, None, :]          # [B, 1, P]
 
-    out = _fold(q, pool_k, pool_v, table, valid, scale)
+    out = _fold(q, read, pool_k.shape[2], table, valid, scale)
     return out.to(q.dtype)
 
 
 def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
-                                       *, scale: Optional[float] = None):
+                                       *, scale: Optional[float] = None,
+                                       scale_k=None, scale_v=None,
+                                       packed4: bool = False):
     """Plain version of `ragged_paged_attention_mixed` (the JAX
     package's `paged_attention_mixed` fold): query i of row b attends
     slot j*P + t iff <= pos[b] + i and its page is mapped. Columns
     >= q_len are zeroed, as the kernel writes them."""
-    LAUNCHES["rpa_mixed_plain"] += 1
+    _check_quant_args(scale_k, scale_v, packed4)
+    LAUNCHES[kernel_name("rpa_mixed", scale_k, packed4) + "_plain"] += 1
+    read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     B, C = q.shape[:2]
-    P = pool_k.shape[1]
     t = torch.arange(P, device=q.device)
     qi = torch.arange(C, device=q.device)
     horizon = pos[:, None].long() + qi[None, :]                 # [B, C]
@@ -227,6 +313,6 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
         ok = (j * P + t)[None, None, :] <= horizon[:, :, None]
         return ok & mapped[:, None, None]                      # [B, C, P]
 
-    out = _fold(q, pool_k, pool_v, table, valid, scale)
+    out = _fold(q, read, pool_k.shape[2], table, valid, scale)
     real = qi[None, :] < q_len[:, None].long()
     return (out * real[:, :, None, None]).to(q.dtype)

@@ -18,8 +18,9 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
 
 Device work happens only on the engine thread, under
 torch.inference_mode(). Not ported yet: decode-scan bursts, prefix
-sharing, SLO scheduling, speculation, KV tiers, fault injection and
-recovery, the journal, autotune, multi-host, and the metrics planes.
+sharing, SLO scheduling, speculation, the host KV tier, fault
+injection and recovery, the journal, autotune, multi-host, and the
+metrics planes.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cake_tpu_torch.kv.quantized_pool import (
+    QUANTIZED_CACHES, reset_page_scales,
+)
 from cake_tpu_torch.models.chat import History, Message
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import (
@@ -48,7 +52,7 @@ from cake_tpu_torch.native.scheduler import make_scheduler
 from cake_tpu_torch.ops.sampling import (
     SamplingConfig, sample_tokens_ragged, update_ring_per_row,
 )
-from cake_tpu_torch.utils.devices import resolve_device
+from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
 
@@ -166,6 +170,7 @@ class InferenceEngine:
         kv_page_size: int = 128,
         paged_attn: Optional[str] = None,
         mixed_batch: Optional[str] = None,
+        kv_dtype: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -211,11 +216,17 @@ class InferenceEngine:
                              else min(256, max_seq_len))
         self.rope = RopeTables.create(config, max_seq_len,
                                       device=self.device)
-        self._pool_dtype = cache_dtype
+        # --kv-dtype: "int8"/"int4" select the quantized page pools (int8
+        # pages or nibble-packed int4 pages + per-page, per-kv-head f32
+        # scales); another name is a plain pool dtype; None keeps
+        # cache_dtype
+        self._quant_cache = QUANTIZED_CACHES.get(kv_dtype)
+        self.kv_quant = self._quant_cache is not None
+        self._pool_dtype = (resolve_dtype(kv_dtype)
+                            if kv_dtype is not None and not self.kv_quant
+                            else cache_dtype)
         self._pager = PageAllocator(kv_pages, kv_page_size)
-        self.cache = PagedKVCache.create(
-            config, max_slots, kv_pages, kv_page_size, max_seq_len,
-            dtype=cache_dtype, device=self.device)
+        self.cache = self._new_cache(kv_pages, kv_page_size)
         self._slot_pages: dict = {}
         # slot -> in-flight prefill progress (req, ids, next window offset)
         self._mixed_pending: dict = {}
@@ -223,8 +234,8 @@ class InferenceEngine:
         self._page_starved = False
         log.info("paged KV: %d pages x %d tokens, %s attention, %s storage "
                  "(%.2f GiB pool) on %s", kv_pages, kv_page_size, impl,
-                 cache_dtype, self.cache.memory_bytes() / 2**30,
-                 self.device)
+                 kv_dtype + "+scales" if self.kv_quant else self._pool_dtype,
+                 self.cache.memory_bytes() / 2**30, self.device)
 
         self.scheduler = make_scheduler(max_slots, max_queue)
         self.stats = EngineStats()
@@ -426,13 +437,23 @@ class InferenceEngine:
                 self._fail_all(e)
                 self._reset_after_error()
 
+    def _new_cache(self, n_pages: int, page_size: int):
+        """An empty pool of the configured storage: int8 or int4 pages
+        with scales, or f32/bf16 pages."""
+        if self.kv_quant:
+            return self._quant_cache.create(
+                self.config, self.max_slots, n_pages, page_size,
+                self.max_seq_len, device=self.device)
+        return PagedKVCache.create(
+            self.config, self.max_slots, n_pages, page_size,
+            self.max_seq_len, dtype=self._pool_dtype, device=self.device)
+
     def _reset_after_error(self) -> None:
         """A failed step may leave the pool half-written: rebuild the
-        pool, the allocator and every per-slot mirror."""
-        self.cache = PagedKVCache.create(
-            self.config, self.max_slots, self.cache.n_pages,
-            self.cache.page_size, self.max_seq_len, dtype=self._pool_dtype,
-            device=self.device)
+        pool (of the same storage), the allocator and every per-slot
+        mirror."""
+        self.cache = self._new_cache(self.cache.n_pages,
+                                     self.cache.page_size)
         self._pager = PageAllocator(self.cache.n_pages, self.cache.page_size)
         self._slot_pages = {}
         self._mixed_pending = {}
@@ -474,6 +495,9 @@ class InferenceEngine:
             return self._requeue_for_pages(req, slot, starved=True)
         self._slot_pages[slot] = pages
         table_set_slot(self.cache.table, slot, pages)
+        if self.kv_quant:
+            # fresh pages must not inherit a previous occupant's scales
+            reset_page_scales(self.cache, pages)
         if req.rid == blocked:
             self._page_blocked_rid = None
         return True

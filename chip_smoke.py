@@ -8,17 +8,18 @@ Phases, in order (any failure exits non-zero):
   device    CUDA present; card name and power limit; both kernel
             libraries built from csrc/ (one nvcc each, in parallel).
   kernels   each CUDA kernel against its plain PyTorch version, f32 and
-            bf16: the ragged paged-attention pair at the serving shapes
-            (H=32, KV=8, hd=128, 128-token pages, 16 table columns, B=8,
-            C=64) and the flash pair at the prefill shapes (S=T=1024
-            causal, plus window and non-causal cases; a 256-token chunk at
-            pos 1280 of a 4096-slot cache with a NaN tail, plus one at an
-            unaligned pos); times, the plain version's, the bound and the
-            yardstick SDPA.
-  step      at Llama-3-8B width (2 layers, f32 weights and KV), kernel vs
-            plain: mixed_step_paged + decode_step_ragged_paged logits and
-            pools; dense prefill, prefill_chunk and decode_step logits and
-            caches with flash on vs off.
+            bf16 queries: the ragged paged-attention kernels at the serving
+            shapes (H=32, KV=8, hd=128, 128-token pages, 16 table columns,
+            B=8, C=64) over f32/bf16 pages and over int8 and int4 pages
+            written by the port's qwrite_prompt_pages, and the flash pair
+            at the prefill shapes (S=T=1024 causal, plus window and
+            non-causal cases; a 256-token chunk at pos 1280 of a 4096-slot
+            cache with a NaN tail, plus one at an unaligned pos); times,
+            the plain version's, the bound and the yardstick SDPA.
+  step      at Llama-3-8B width (2 layers, f32 weights), kernel vs plain:
+            mixed_step_paged + decode_step_ragged_paged logits and pools
+            over f32, int8 and int4 pools; dense prefill, prefill_chunk
+            and decode_step logits and caches with flash on vs off.
   generate  32-layer Llama-3-8B-width bf16 weights (random), sequential
             generator behind Master.generate_text: a ~1000-token prompt
             (bucket 1024, one flash_attn launch per layer) and a
@@ -26,8 +27,9 @@ Phases, in order (any failure exits non-zero):
             launches per layer), 32 greedy tokens each; then the
             `python3 -m cake_tpu_torch.cli` one-shot command on the card.
   serve     the same weights behind the HTTP API: concurrent chat
-            requests, buffered and SSE, through the paged engine; both
-            ragged kernels must have run and the plain folds must not.
+            requests, buffered and SSE, through the paged engine, over a
+            bf16 pool, then --kv-dtype int8, then int4; each run's two
+            ragged kernels must have run and no plain fold.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -54,6 +56,14 @@ KERNELS = {
                    "cake_tpu/ops/ragged_paged_attention.py:65"),
     "rpa_mixed": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
                   "cake_tpu/ops/ragged_paged_attention.py:391"),
+    "rpa_decode_q8": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                      "cake_tpu/ops/ragged_paged_attention.py:141"),
+    "rpa_mixed_q8": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                     "cake_tpu/ops/ragged_paged_attention.py:479"),
+    "rpa_decode_q4": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                      "cake_tpu/ops/ragged_paged_attention.py:223"),
+    "rpa_mixed_q4": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                     "cake_tpu/ops/ragged_paged_attention.py:557"),
     "flash_attn": ("cake_tpu_torch/csrc/flash_attention.cu",
                    "cake_tpu/ops/flash_attention.py:74"),
     "flash_attn_cached": ("cake_tpu_torch/csrc/flash_attention.cu",
@@ -122,17 +132,40 @@ def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _kernel_case(torch, dtype, gen, mixed: bool):
+def _kernel_case(torch, dtype, gen, mixed: bool, fmt=None):
     """Serving-shape inputs: ragged positions, page boundaries, an
     unmapped hole, a dead row; for the mixed kernel decode rows, chunk
-    rows at odd page offsets and an idle (q_len = 0) row."""
+    rows at odd page offsets and an idle (q_len = 0) row. Pages are in
+    q's dtype, or with fmt "int8"/"int4" written from a normal draw by
+    the port's qwrite_prompt_pages (the kernel's scale arguments go in
+    the returned kwargs)."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, qwrite_prompt_pages,
+    )
+
     dev = "cuda"
     B, H, KV, hd, P, MP, N = 8, 32, 8, 128, 128, 16, 128
     C = 64 if mixed else 1
-    pool_k = torch.randn((N, P, KV, hd), generator=gen, device=dev,
-                         dtype=dtype)
-    pool_v = torch.randn((N, P, KV, hd), generator=gen, device=dev,
-                         dtype=dtype)
+    kw = {}
+    if fmt is None:
+        pool_k = torch.randn((N, P, KV, hd), generator=gen, device=dev,
+                             dtype=dtype)
+        pool_v = torch.randn((N, P, KV, hd), generator=gen, device=dev,
+                             dtype=dtype)
+    else:
+        cls, rows = ((Int4Pool, P // 2) if fmt == "int4"
+                     else (QuantPool, P))
+        every = torch.arange(N, dtype=torch.int32, device=dev)
+        pools = []
+        for _ in range(2):
+            pool = cls(torch.zeros((N, rows, KV, hd), device=dev,
+                                   dtype=(torch.uint8 if fmt == "int4"
+                                          else torch.int8)),
+                       torch.zeros((N, KV), device=dev))
+            vals = torch.randn((1, N * P, KV, hd), generator=gen, device=dev)
+            pools.append(qwrite_prompt_pages(pool, vals, every))
+        (pool_k, sk), (pool_v, sv) = pools
+        kw = dict(scale_k=sk, scale_v=sv, packed4=fmt == "int4")
     q = torch.randn((B, C, H, hd), generator=gen, device=dev, dtype=dtype)
     perm = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
     table = perm.reshape(B, MP).clone()
@@ -148,21 +181,23 @@ def _kernel_case(torch, dtype, gen, mixed: bool):
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     ql_t = (torch.tensor(q_len, dtype=torch.int32, device=dev)
             if mixed else None)
-    return q, pool_k, pool_v, table, pos_t, ql_t
+    return q, pool_k, pool_v, table, pos_t, ql_t, kw
 
 
-def _work(q, pool_k, table, pos, q_len, elem_bytes):
+def _work(q, P, KV, table, pos, q_len, elem_bytes, page_bytes=0):
     """(bytes, operations) the function needs on these inputs: every
-    live, mapped K/V slot and the table entries of the live range read
-    once; q read only for the query columns that attend to a slot (the
-    output is zero elsewhere, whatever q holds); the whole output
-    written once; 4*hd operations per (query head, attended slot)."""
+    live, mapped K/V slot (elem_bytes per element) and the table entries
+    of the live range read once, plus page_bytes per live mapped page
+    (the scales of quantized pages); q read only for the query columns
+    that attend to a slot (the output is zero elsewhere, whatever q
+    holds); the whole output written once; 4*hd operations per (query
+    head, attended slot)."""
     B, C, H, hd = q.shape
-    _, P, KV, _ = pool_k.shape
     tab = table.tolist()
     pos_l = pos.tolist()
     ql = q_len.tolist() if q_len is not None else [1] * B
     kv_slots = 0
+    live_pages = 0
     attended = 0
     q_cols = 0
     table_entries = 0
@@ -177,18 +212,19 @@ def _work(q, pool_k, table, pos, q_len, elem_bytes):
             if tab[b][j] < 0:
                 continue
             lo = j * P
+            live_pages += 1
             kv_slots += min(P, last - lo + 1)
             for i in range(ql[b]):
                 per_col[i] += max(0, min(P, pos_l[b] + i - lo + 1))
         attended += sum(per_col)
         q_cols += sum(1 for n in per_col if n > 0)
     row_bytes = H * hd * q.element_size()
-    nbytes = (2 * kv_slots * KV * hd * elem_bytes
+    nbytes = (2 * kv_slots * KV * hd * elem_bytes + live_pages * page_bytes
               + q_cols * row_bytes + B * C * row_bytes
               + table_entries * 4
               + 4 * B * (2 if q_len is not None else 1))
     ops = 4 * hd * attended * (H // KV) * KV
-    return nbytes, ops
+    return int(nbytes), ops
 
 
 def _sdpa_yardstick(torch, q, pool_k, pool_v, table, pos, q_len):
@@ -242,29 +278,57 @@ def _measure(torch, label, dname, got, want, kern, plain, lib, nbytes,
     return rec
 
 
+# bytes per K/V element of a quantized page; each live page also reads
+# its k and v scales, 2 * 4 bytes per kv head
+_ELEM_BYTES = {"int8": 1.0, "int4": 0.5}
+
+
 def _rpa_kernels(torch, rpa, report) -> None:
+    """The ragged kernels over f32/bf16 pages, then over int8 and int4
+    pages. The quantized cases' yardstick is SDPA over the same live
+    pages dequantized to q's dtype ahead of the call: it reads 2x (int8)
+    or 4x (int4) the page bytes of a bf16 pool and dequantizes nothing."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, dequantize_pages,
+    )
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for name, mixed in (("rpa_decode", False), ("rpa_mixed", True)):
-        kern = (rpa.ragged_paged_attention_mixed if mixed
-                else rpa.ragged_paged_attention)
-        plain = (rpa.ragged_paged_attention_mixed_plain if mixed
-                 else rpa.ragged_paged_attention_plain)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            q, pk, pv, table, pos, ql = _kernel_case(torch, dtype, gen,
-                                                     mixed)
-            args = (q, pk, pv, table, pos) + ((ql,) if mixed else ())
-            got = kern(*args)
-            # the dead row (and the mixed case's idle row) must come
-            # back as exact zeros
-            for dead in ((4, 3) if mixed else (7,)):
-                if got[dead].abs().max().item() != 0.0:
-                    fail(f"{name} {dname}: dead row {dead} is not zero")
-            nbytes, ops = _work(q, pk, table, pos, ql, pk.element_size())
-            report[(name, dname)] = _measure(
-                torch, name, dname, got, plain(*args),
-                lambda: kern(*args), lambda: plain(*args),
-                _sdpa_yardstick(torch, *args[:5], ql), nbytes, ops)
+    for fmt in (None, "int8", "int4"):
+        for base, mixed in (("rpa_decode", False), ("rpa_mixed", True)):
+            kern = (rpa.ragged_paged_attention_mixed if mixed
+                    else rpa.ragged_paged_attention)
+            plain = (rpa.ragged_paged_attention_mixed_plain if mixed
+                     else rpa.ragged_paged_attention_plain)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[-1]
+                q, pk, pv, table, pos, ql, kw = _kernel_case(
+                    torch, dtype, gen, mixed, fmt)
+                name = rpa.kernel_name(base, kw.get("scale_k"),
+                                       kw.get("packed4", False))
+                args = (q, pk, pv, table, pos) + ((ql,) if mixed else ())
+                got = kern(*args, **kw)
+                # the dead row (and the mixed case's idle row) must come
+                # back as exact zeros
+                for dead in ((4, 3) if mixed else (7,)):
+                    if got[dead].abs().max().item() != 0.0:
+                        fail(f"{name} {dname}: dead row {dead} is not zero")
+                if fmt is None:
+                    dk, dv = pk, pv
+                    nbytes, ops = _work(q, pk.shape[1], pk.shape[2], table,
+                                        pos, ql, pk.element_size())
+                else:
+                    cls = Int4Pool if fmt == "int4" else QuantPool
+                    every = torch.arange(pk.shape[0], device="cuda")
+                    dk, dv = (dequantize_pages(cls(x, kw[s]), every).to(
+                        dtype) for x, s in ((pk, "scale_k"), (pv, "scale_v")))
+                    KV = pk.shape[2]
+                    nbytes, ops = _work(q, dk.shape[1], KV, table, pos, ql,
+                                        _ELEM_BYTES[fmt], 8 * KV)
+                report[(name, dname)] = _measure(
+                    torch, name, dname, got, plain(*args, **kw),
+                    lambda: kern(*args, **kw), lambda: plain(*args, **kw),
+                    _sdpa_yardstick(torch, q, dk, dv, table, pos, ql),
+                    nbytes, ops)
 
 
 # (label, kernel, shapes, options, the case the kernel table reports).
@@ -372,7 +436,7 @@ def phase_kernels(torch, rpa, fa) -> dict:
 # -- phase: step ---------------------------------------------------------------
 
 
-def phase_step(torch, fa) -> None:
+def phase_step(torch, rpa, fa) -> None:
     """At 8B width (2 layers, f32): mixed_step_paged then
     decode_step_ragged_paged, attn='kernel' vs attn='plain' from identical
     pools; then the dense prefill, prefill_chunk and decode_step with
@@ -436,8 +500,96 @@ def phase_step(torch, fa) -> None:
     if perr > 1e-4:
         fail(f"step: pools differ by {perr:.3e} (tol 1e-4)")
     del out, base
+    _quant_steps(torch, rpa, cfg, params, rope, gen)
     _dense_step(torch, fa, cfg, params, rope, gen)
     del params
+    torch.cuda.empty_cache()
+
+
+# logits tolerance of the quantized steps, kernel vs plain: f32 queries
+# and the same dequantized pages, so the attention differs only in
+# summation order; but layer 1 quantizes K/V that inherit layer 0's
+# differences, and a value that lands on a rounding edge moves by one
+# step (1/127 or 1/7 of its page's amax)
+QSTEP_TOL = {"int8": 1e-3, "int4": 1e-2}
+
+
+def _quant_steps(torch, rpa, cfg, params, rope, gen) -> None:
+    """The 8B-width 2-layer mixed and decode steps over an int8 and an
+    int4 pool, kernel vs plain from identical pools (every page of every
+    layer written by qwrite_prompt_pages from a normal draw)."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        QUANTIZED_CACHES, qwrite_prompt_pages,
+    )
+    from cake_tpu_torch.models.llama.paged import (
+        decode_step_ragged_paged, mixed_step_paged, table_set_slot,
+    )
+
+    dev = "cuda"
+    B, C, P, T, N = 4, 64, 128, 1024, 32
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    tokens = torch.randint(0, cfg.vocab_size, (B, C), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.tensor([300, 100, 5, 0], dtype=torch.int32, device=dev)
+    q_len = torch.tensor([1, 64, 37, 0], dtype=torch.int32, device=dev)
+    active = q_len > 0
+    rows = active.nonzero().flatten()
+    every = torch.arange(N, dtype=torch.int32, device=dev)
+    for fmt, cls in QUANTIZED_CACHES.items():
+        base = cls.create(cfg, B, N, P, T, device=dev)
+        for slot in range(B):
+            table_set_slot(base.table, slot, list(range(slot * 8,
+                                                        slot * 8 + 8)))
+        for i in range(L):
+            for leaf in base.layer(i):
+                vals = torch.randn((1, N * P, KV, hd), generator=gen,
+                                   device=dev)
+                qwrite_prompt_pages(leaf, vals, every)
+        out = {}
+        for attn in ("kernel", "plain"):
+            cache = cls(*(type(h)(h.q.clone(), h.scale.clone())
+                          for h in (base.k, base.v)), base.table.clone())
+            rpa.reset_launch_counts()
+            lm, _ = mixed_step_paged(params, tokens, pos, q_len, active,
+                                     cache, rope, cfg, attn=attn)
+            dpos = pos + q_len.clamp(min=1)
+            ld, _ = decode_step_ragged_paged(params, tokens[:, :1], dpos,
+                                             active, cache, rope, cfg,
+                                             attn=attn)
+            torch.cuda.synchronize()
+            out[attn] = (lm, ld, cache, dict(rpa.LAUNCHES))
+        (lm_k, ld_k, ck, nk), (lm_p, ld_p, cp, np_) = out["kernel"], \
+            out["plain"]
+        suffix = "_q4" if fmt == "int4" else "_q8"
+        for attn, n, plain_n in (("kernel", nk, 0), ("plain", np_, L)):
+            for b in ("rpa_mixed", "rpa_decode"):
+                got = (n[b + suffix], n[b + suffix + "_plain"])
+                want = (L - plain_n, plain_n)
+                if got != want:
+                    fail(f"step {fmt} ({attn}): {b}{suffix} launches/plain "
+                         f"{got}, expected {want}")
+        for what, a, b in (("mixed", lm_k, lm_p), ("decode", ld_k, ld_p)):
+            err = (a[rows] - b[rows]).abs().max().item()
+            log(f"step {fmt} {what} logits: max |kernel - plain| = "
+                f"{err:.3e} (tol {QSTEP_TOL[fmt]})")
+            if not torch.isfinite(a[rows]).all() or err > QSTEP_TOL[fmt]:
+                fail(f"step {fmt} {what}: logits differ by {err:.3e}")
+        if not all(torch.equal(x.q[0], y.q[0]) and torch.equal(
+                x.scale[0], y.scale[0]) for x, y in ((ck.k, cp.k),
+                                                     (ck.v, cp.v))):
+            fail(f"step {fmt}: layer-0 pools differ between kernel and plain")
+        steps = 0
+        for x, y in ((ck.k, cp.k), (ck.v, cp.v)):
+            a, b = x.q.int(), y.q.int()
+            if fmt == "int4":     # compare each nibble
+                a = torch.cat([a & 0xF, a >> 4])
+                b = torch.cat([b & 0xF, b >> 4])
+            steps = max(steps, (a - b).abs().max().item())
+        log(f"step {fmt} pools: layer 0 identical, largest difference "
+            f"{steps} quantization step(s)")
+        if steps > 1:
+            fail(f"step {fmt}: pools differ by {steps} steps (tol 1)")
+        del out, base
     torch.cuda.empty_cache()
 
 
@@ -666,7 +818,13 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     return counts
 
 
-def phase_serve(torch, rpa, cfg, params, profile: bool = False) -> dict:
+def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
+                profile: bool = False) -> dict:
+    """Six concurrent chats (three SSE) of 32 greedy tokens through the
+    HTTP API and the paged engine, over a bf16 pool or with kv_dtype
+    "int8"/"int4" a quantized one. Returns the launch counts of the two
+    kernels that pool's attention runs, read right after the run, and
+    the pool's GiB."""
     from cake_tpu_torch.api.server import start
     from cake_tpu_torch.args import Args
     from cake_tpu_torch.master import Master
@@ -678,7 +836,8 @@ def phase_serve(torch, rpa, cfg, params, profile: bool = False) -> dict:
     dev = "cuda"
     args = Args(max_slots=8, max_seq_len=2048, kv_pages=128,
                 kv_page_size=128, prefill_chunk=64, temperature=0.0,
-                sample_len=32, dtype="bf16")
+                sample_len=32, dtype="bf16", kv_dtype=kv_dtype).validate()
+    label = f"serve ({kv_dtype or 'bf16'} pool)"
     gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
                          max_seq_len=2048,
                          sampling=SamplingConfig(temperature=0.0),
@@ -743,37 +902,44 @@ def phase_serve(torch, rpa, cfg, params, profile: bool = False) -> dict:
         return time.perf_counter() - t_serve
 
     rpa.reset_launch_counts()
-    wall = _profiled(torch, profile, "serve", drive)
+    wall = _profiled(torch, profile, label, drive)
     counts = dict(rpa.LAUNCHES)
     stats = engine.stats
     retired = list(engine.retired)
     httpd.shutdown()
     httpd.server_close()
     engine.stop()
-    log(f"serve: launches {counts}")
+    gib = engine.cache.memory_bytes() / 2**30
+    log(f"{label}: launches {counts}")
     for i, r in enumerate(results):
-        log(f"serve request {i}: {r}")
+        log(f"{label} request {i}: {r}")
         if r is None or r.get("status") != 200:
-            fail(f"serve request {i} failed: {r}")
+            fail(f"{label} request {i} failed: {r}")
     n_tok = [len(r.out_tokens) for r in retired]
     ttfts = [r.first_token_t - r.submit_t for r in retired]
-    log(f"serve: {len(retired)} requests retired, generated tokens "
+    log(f"{label}: {len(retired)} requests retired, generated tokens "
         f"{n_tok}; TTFT p50 {statistics.median(ttfts):.3f} s; aggregate "
         f"decode {stats.decode_tokens_per_s:.1f} tok/s over "
         f"{stats.decode_time_s:.2f} s of decode; {stats.steps} engine "
-        f"steps; wall {wall:.2f} s; "
+        f"steps; wall {wall:.2f} s; pool {gib:.3f} GiB; "
         f"pool pages free {engine._pager.free_pages}/{engine.cache.n_pages}")
     if len(retired) != len(prompts) or any(n != 32 for n in n_tok):
-        fail(f"serve: expected {len(prompts)} requests of 32 tokens, got "
+        fail(f"{label}: expected {len(prompts)} requests of 32 tokens, got "
              f"{n_tok}")
     if engine._pager.free_pages != engine.cache.n_pages:
-        fail("serve: pages leaked after every request retired")
-    for k in rpa.KERNELS:
+        fail(f"{label}: pages leaked after every request retired")
+    suffix = {"int8": "_q8", "int4": "_q4"}.get(kv_dtype, "")
+    served = [b + suffix for b in ("rpa_decode", "rpa_mixed")]
+    for k in served:
         if counts[k] <= 0:
-            fail(f"serve: kernel {k} was never launched on the served path")
-        if counts[k + "_plain"] != 0:
-            fail(f"serve: plain fold {k}_plain ran on the served path")
-    return counts
+            fail(f"{label}: kernel {k} was never launched on the served "
+                 "path")
+    ran_plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    if ran_plain:
+        fail(f"{label}: plain folds ran on the served path: {ran_plain}")
+    del engine, master, gen, httpd
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in served}, gib
 
 
 def main(argv=None) -> int:
@@ -781,7 +947,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace generate run A and the serve phase with "
+                    help="trace generate run A and the serve runs with "
                          "torch.profiler and print where the device time "
                          "went")
     a = ap.parse_args(argv)
@@ -807,7 +973,7 @@ def main(argv=None) -> int:
     card = phase_device(torch, rpa, fa)
     kern = phase_kernels(torch, rpa, fa) if "kernels" in phases else {}
     if "step" in phases:
-        phase_step(torch, fa)
+        phase_step(torch, rpa, fa)
     # launch counts of each path, read right after it ran (null in the
     # kernels line, not 0, when its phase did not run)
     counts = {}
@@ -817,8 +983,14 @@ def main(argv=None) -> int:
             counts.update(phase_generate(torch, fa, cfg, params,
                                          profile=a.profile))
         if "serve" in phases:
-            counts.update(phase_serve(torch, rpa, cfg, params,
-                                      profile=a.profile))
+            pools = {}
+            for kv in (None, "int8", "int4"):
+                got, pools[kv or "bf16"] = phase_serve(
+                    torch, rpa, cfg, params, kv_dtype=kv,
+                    profile=a.profile)
+                counts.update(got)
+            log("serve pools (128 pages x 128 tokens, 32 layers): "
+                + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

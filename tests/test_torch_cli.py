@@ -92,3 +92,55 @@ def test_model_dir_config_without_weights_uses_random_init(tmp_path):
     engine = master.make_engine()
     assert engine.device.type == "cpu"
     assert engine.cache.k.dtype == torch.float32
+
+
+def test_kv_dtype_rules_match_the_jax_args():
+    """int8/int4 need the paged pool, int4 an even page size (with the
+    JAX package's message); another name must be a dtype."""
+    for name in ("int8", "int4", "f32", "bf16"):
+        assert parse_args(["--kv-dtype", name]).kv_dtype == name
+    bad = [dict(kv_dtype="int4", kv_pages=8, kv_page_size=7),
+           dict(kv_dtype="int8", kv_pages=None),
+           dict(kv_dtype="int4", kv_pages=0)]
+    for kw in bad:
+        with pytest.raises(ValueError) as theirs:
+            JArgs(**kw).validate()
+        with pytest.raises(ValueError) as ours:
+            Args(**kw).validate()
+        assert str(ours.value) == str(theirs.value)
+    with pytest.raises(ValueError, match="unknown dtype"):
+        parse_args(["--kv-dtype", "int3"])
+    with pytest.raises(ValueError, match="even --kv-page-size"):
+        cli.main(["--cpu", "--kv-dtype", "int4", "--kv-page-size", "9"])
+
+
+def test_int4_kv_keeps_the_generators_compute_dtype():
+    """Deliberate divergence: under --kv-dtype int8 or int4 the
+    generator's dense cache keeps the compute dtype (the quantized pool
+    is the engine's). The JAX context special-cases int8 only, so its
+    int4 reaches resolve_kv_dtype, which raises."""
+    from cake_tpu.utils.devices import resolve_kv_dtype
+    with pytest.raises(ValueError):
+        resolve_kv_dtype("int4")
+    for name in ("int8", "int4"):
+        gen = Master.from_args(Args(cpu=True, kv_dtype=name)).llm
+        assert gen.cache.k.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_make_engine_passes_the_kv_dtype(kv_dtype):
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4PagedKVCache, QuantizedPagedKVCache,
+    )
+    master = Master.from_args(Args(cpu=True, kv_dtype=kv_dtype,
+                                   max_seq_len=128, kv_pages=8,
+                                   kv_page_size=16))
+    engine = master.make_engine(max_slots=2)
+    want = Int4PagedKVCache if kv_dtype == "int4" else \
+        QuantizedPagedKVCache
+    assert type(engine.cache) is want and engine.kv_quant
+    assert engine.cache.page_size == 16 and engine.cache.n_pages == 8
+    with engine:
+        h = engine.submit([3] * 12, max_new_tokens=3, temperature=0.0)
+        assert h.wait(timeout=120) and h._req.error is None
+    assert engine._pager.free_pages == 8

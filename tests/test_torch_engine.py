@@ -242,3 +242,77 @@ def test_http_round_trip_buffered_sse_and_health(models):
         httpd.shutdown()
         httpd.server_close()
         engine.stop()
+
+
+# -- int8 / int4 KV pages -------------------------------------------------------
+
+QPROMPTS = [[5] * 20, [9] * 20, [11] * 14]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_greedy_streams_token_identical_to_jax_engine(models,
+                                                                kv_dtype):
+    """The same engine over int8 / int4 pages: greedy streams identical
+    to the JAX engine at the same --kv-dtype (fold), on repetitive
+    prompts where the tiny random model's argmax is decisive (as
+    tests/test_kv_tier.py chooses them), and every page returns."""
+    jc, jp, tc, tp = models
+    common = dict(max_slots=3, max_seq_len=T, kv_pages=24,
+                  kv_page_size=PAGE, prefill_chunk=8, mixed_batch="on",
+                  kv_dtype=kv_dtype)
+    jeng = JEngine(jc, jp, JByteTok(jc.vocab_size),
+                   sampling=JSampling(temperature=0.0, repeat_penalty=1.0),
+                   cache_dtype=jnp.float32, paged_attn="fold", **common)
+    teng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu",
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+        cache_dtype=torch.float32, paged_attn="auto", **common)
+    runs = []
+    for eng in (jeng, teng):
+        with eng:
+            hs = [eng.submit(p, max_new_tokens=8) for p in QPROMPTS]
+            assert all(h.wait(timeout=300) for h in hs)
+        runs.append([list(h._req.out_tokens) for h in hs])
+    assert runs[1] == runs[0]
+    want = torch.uint8 if kv_dtype == "int4" else torch.int8
+    assert teng.cache.k.q.dtype == want and teng.kv_quant
+    assert teng._pager.free_pages == 24 and teng._pager.live_pages == 0
+
+
+def test_quantized_pool_is_rebuilt_quantized_after_a_failed_step(
+        models, monkeypatch):
+    """A step that raises fails its requests with a retryable error and
+    rebuilds the pool with the same int4 storage; the next request is
+    served from it and every page returns."""
+    from cake_tpu_torch.kv.quantized_pool import Int4PagedKVCache
+    from cake_tpu_torch.serve import engine as engine_mod
+    from cake_tpu_torch.serve.errors import EngineRequestError
+
+    _, _, tc, tp = models
+    eng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu", max_slots=2,
+        max_seq_len=T, sampling=SamplingConfig(temperature=0.0),
+        cache_dtype=torch.float32, kv_pages=8, kv_page_size=PAGE,
+        prefill_chunk=8, kv_dtype="int4")
+    real_step = engine_mod.mixed_step_paged
+    calls = []
+
+    def failing_once(*a, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected step failure")
+        return real_step(*a, **kw)
+
+    monkeypatch.setattr(engine_mod, "mixed_step_paged", failing_once)
+    first_cache = eng.cache
+    with eng:
+        h = eng.submit([4] * 10, max_new_tokens=3)
+        assert h.wait(timeout=300)
+        assert isinstance(h._req.error, EngineRequestError)
+        h2 = eng.submit([4] * 10, max_new_tokens=3)
+        assert h2.wait(timeout=300)
+    assert h2._req.error is None and len(h2._req.out_tokens) == 3
+    assert eng.cache is not first_cache
+    assert isinstance(eng.cache, Int4PagedKVCache)
+    assert eng.cache.k.q.dtype == torch.uint8
+    assert eng._pager.free_pages == 8

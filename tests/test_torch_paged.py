@@ -213,3 +213,98 @@ def test_moe_router_leaf_is_refused(tiny):
             dict(tp, blocks=blocks), torch.zeros((1, 1), dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=bool),
             cache, RopeTables.create(tc, 64), tc)
+
+
+# -- int8 / int4 pools ----------------------------------------------------------
+
+
+def _qcaches(jc, tc, rng, fmt, B=3, N=12, T=64):
+    """JAX and port quantized caches holding the same pages: every page
+    of every layer written fresh by the JAX prompt writer."""
+    from cake_tpu.kv import quantized_pool as jq
+    from cake_tpu_torch.kv import quantized_pool as tq
+    jcls, tcls = ((jq.Int4PagedKVCache, tq.Int4PagedKVCache) if fmt == "int4"
+                  else (jq.QuantizedPagedKVCache, tq.QuantizedPagedKVCache))
+    jcache = jcls.create(jc, B, N, P, T)
+    tcache = tcls.create(tc, B, N, P, T, device="cpu")
+    table = np.array([[0, 1, 2, -1], [3, 4, -1, -1], [5, 6, 7, 8]],
+                     np.int32)
+    every = jnp.arange(N, dtype=jnp.int32)
+    halves = []
+    for jpool, tpool in ((jcache.k, tcache.k), (jcache.v, tcache.v)):
+        qs, ss = [], []
+        for i in range(jc.num_hidden_layers):
+            leaf = type(jpool)(q=jpool.q[i], scale=jpool.scale[i])
+            vals = rng.normal(size=(1, N * P, jc.num_key_value_heads,
+                                    jc.head_dim)).astype(np.float32)
+            leaf = jax.jit(jq.qwrite_prompt_pages)(leaf, jnp.asarray(vals),
+                                                   every)
+            qs.append(leaf.q)
+            ss.append(leaf.scale)
+        jpool = jpool._replace(q=jnp.stack(qs), scale=jnp.stack(ss))
+        tpool.q.copy_(torch.from_numpy(np.array(jpool.q)))
+        tpool.scale.copy_(torch.from_numpy(np.array(jpool.scale)))
+        halves.append(jpool)
+    jcache = jcache._replace(k=halves[0], v=halves[1],
+                             table=jnp.asarray(table))
+    tcache.table.copy_(torch.from_numpy(table))
+    return jcache, tcache
+
+
+def _check_q(jl, jcache, tl, tcache, rows, tol):
+    """Logits within `tol`; the pools within one quantization step of
+    JAX's (their k/v inputs come out of matmuls that differ from JAX's
+    in the last ulp, which can move a value across a rounding edge) and
+    the scales within f32 rounding."""
+    np.testing.assert_allclose(tl.numpy()[rows], np.asarray(jl)[rows],
+                               **tol)
+    for tp, jp in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+        dq = np.abs(tp.q.numpy().astype(np.int32)
+                    - np.asarray(jp.q).astype(np.int32))
+        if tp.q.dtype == torch.uint8:       # compare each nibble
+            dq = np.maximum(np.abs((tp.q.numpy() & 0xF).astype(np.int32)
+                                   - (np.asarray(jp.q) & 0xF)),
+                            np.abs((tp.q.numpy() >> 4).astype(np.int32)
+                                   - (np.asarray(jp.q) >> 4)))
+        assert dq.max() <= 1
+        np.testing.assert_allclose(tp.scale.numpy(), np.asarray(jp.scale),
+                                   rtol=1e-5, atol=0)
+
+
+QLOGITS = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_steps_match_jax(tiny, fmt):
+    """A mixed step (a decode row, a chunk straddling a page edge, an
+    idle row) then a decode step (a page edge), over int8 and int4
+    pools, against the JAX steps at the same kv dtype (fold)."""
+    jc, jp, tc, tp = tiny
+    rng = np.random.default_rng(4)
+    jcache, tcache = _qcaches(jc, tc, rng, fmt)
+    jrope, trope = JRope.create(jc, 64), RopeTables.create(tc, 64)
+    C = 8
+    tokens = rng.integers(0, 256, size=(3, C)).astype(np.int32)
+    pos = np.array([20, 13, 0], np.int32)
+    qlen = np.array([1, 8, 0], np.int32)
+    active = qlen > 0
+    jl, jcache = jpg.mixed_step_paged(
+        jp, *(jnp.asarray(x) for x in (tokens, pos, qlen, active)), jcache,
+        jrope, jc, attn="fold")
+    rpa.reset_launch_counts()
+    tl, tcache = tpg.mixed_step_paged(
+        tp, *(torch.from_numpy(x) for x in (tokens, pos, qlen, active)),
+        tcache, trope, tc)
+    name = "rpa_mixed_q4_plain" if fmt == "int4" else "rpa_mixed_q8_plain"
+    assert rpa.LAUNCHES[name] == tc.num_hidden_layers
+    _check_q(jl, jcache, tl, tcache, [0, 1], QLOGITS)
+
+    dpos = np.array([21, P, 0], np.int32)
+    dtok = tokens[:, :1]
+    jl, jcache = jpg.decode_step_ragged_paged(
+        jp, jnp.asarray(dtok), jnp.asarray(dpos), jnp.asarray(active),
+        jcache, jrope, jc, attn="fold")
+    tl, tcache = tpg.decode_step_ragged_paged(
+        tp, torch.from_numpy(dtok), torch.from_numpy(dpos),
+        torch.from_numpy(active), tcache, trope, tc, attn="plain")
+    _check_q(jl, jcache, tl, tcache, [0, 1], QLOGITS)

@@ -197,8 +197,23 @@ def test_cpu_wrappers_run_plain_versions_and_count():
     rpa.reset_launch_counts()
     paged_attention(q[:, :1], pk, pv, table, pos)
     paged_attention_mixed(q, pk, pv, table, pos, qlen, impl="plain")
-    assert rpa.LAUNCHES == {"rpa_decode": 0, "rpa_mixed": 0,
-                            "rpa_decode_plain": 1, "rpa_mixed_plain": 1}
+    want = dict.fromkeys(rpa.LAUNCHES, 0)
+    assert rpa.LAUNCHES == dict(want, rpa_decode_plain=1, rpa_mixed_plain=1)
+    # quantized pages count under their own kernels' plain names
+    rpa.reset_launch_counts()
+    scales = torch.ones((N_PAGES, 2))
+    i8 = pk.to(torch.int8)
+    rpa.ragged_paged_attention(q[:, :1], i8, i8, table, pos,
+                               scale_k=scales, scale_v=scales)
+    u8 = i8[:, :P // 2].to(torch.uint8)
+    rpa.ragged_paged_attention_mixed(q, u8, u8, table, pos, qlen,
+                                     scale_k=scales, scale_v=scales,
+                                     packed4=True)
+    assert rpa.LAUNCHES == dict(want, rpa_decode_q8_plain=1,
+                                rpa_mixed_q4_plain=1)
+    with pytest.raises(ValueError, match="packed4 pools require"):
+        rpa.ragged_paged_attention(q[:, :1], u8, u8, table, pos,
+                                   packed4=True)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention(q[:, :1], pk, pv, table, pos, impl="kernel")
     with pytest.raises(ValueError, match="unknown paged_attn"):
@@ -236,3 +251,248 @@ def test_cuda_kernels_match_plain_versions(dtype):
     want = rpa.ragged_paged_attention_mixed_plain(qm, pk, pv, table, pos,
                                                   qlen)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# -- int8 / int4 pages --------------------------------------------------------
+#
+# The port's plain versions over quantized pages (each page dequantized in
+# f32 and folded, as the JAX fold does) against the JAX Pallas bodies
+# `_rpa_kernel_q8` / `_rpa_mixed_kernel_q8` / `_rpa_kernel_q4` /
+# `_rpa_mixed_kernel_q4` in interpret mode, which scale the dot outputs
+# instead: 2e-5 at f32, real query columns only. The pools are written by
+# the JAX package's own prompt writer, so every page has its own scales.
+
+QFORMATS = ("q8", "q4")
+
+
+def _qpools(rng, fmt, KV, hd):
+    """(k, v) as numpy (q, scale) pairs, written by qwrite_prompt_pages
+    (jitted, as the JAX engine runs it)."""
+    import jax
+    import jax.numpy as jnp
+    from cake_tpu.kv.quantized_pool import (
+        Int4Pool, QuantPool, qwrite_prompt_pages,
+    )
+
+    def one():
+        if fmt == "q8":
+            pool = QuantPool(q=jnp.zeros((N_PAGES, P, KV, hd), jnp.int8),
+                             scale=jnp.zeros((N_PAGES, KV), jnp.float32))
+        else:
+            pool = Int4Pool(q=jnp.zeros((N_PAGES, P // 2, KV, hd),
+                                        jnp.uint8),
+                            scale=jnp.zeros((N_PAGES, KV), jnp.float32))
+        vals = rng.normal(size=(1, N_PAGES * P, KV, hd)).astype(np.float32)
+        pool = jax.jit(qwrite_prompt_pages)(
+            pool, jnp.asarray(vals), jnp.arange(N_PAGES, dtype=jnp.int32))
+        return np.array(pool.q), np.array(pool.scale)
+
+    return one(), one()
+
+
+def _q_parity(fmt, q, pk, pv, table, pos, qlen=None, tol=ATTN):
+    """Port plain version vs the JAX Pallas body (interpret) on real
+    columns; returns the port's output."""
+    j_rpa, j_rpa_mixed = _j_kernels()
+    kw = dict(packed4=fmt == "q4")
+    rest = (table, pos) if qlen is None else (table, pos, qlen)
+    want = np.asarray((j_rpa if qlen is None else j_rpa_mixed)(
+        *_j(q, pk[0], pv[0], *rest), scale_k=_j(pk[1])[0],
+        scale_v=_j(pv[1])[0], interpret=True, **kw))
+    tk, tv = _t(*pk), _t(*pv)
+    fn = (rpa.ragged_paged_attention if qlen is None
+          else rpa.ragged_paged_attention_mixed)
+    rpa.reset_launch_counts()
+    got = fn(*_t(q), tk[0], tv[0], *_t(*rest), scale_k=tk[1],
+             scale_v=tv[1], **kw).numpy()
+    base = "rpa_decode" if qlen is None else "rpa_mixed"
+    assert rpa.LAUNCHES[f"{base}_{fmt}_plain"] == 1
+    n_real = np.ones(len(pos), int) if qlen is None else qlen
+    for b, n in enumerate(n_real):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], **tol)
+        assert not got[b, n:].any()
+    return got
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_decode_plain_matches_jax_kernel_page_boundaries(fmt):
+    """Page-edge positions: the live page count flips at
+    ceil((pos+1)/P) in real tokens, with scales following the pages."""
+    rng = np.random.default_rng(20)
+    pk, pv = _qpools(rng, fmt, KV=2, hd=16)
+    q = rng.normal(size=(4, 1, 4, 16)).astype(np.float32)
+    table = np.asarray([[3, 6, 0, 10, 5]] * 4, np.int32)
+    pos = np.asarray([P - 1, P, 2 * P - 1, 2 * P], np.int32)
+    _q_parity(fmt, q, pk, pv, table, pos)
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
+@pytest.mark.parametrize("H,KV", [(8, 2), (6, 3), (4, 4)])
+def test_quant_decode_plain_matches_jax_kernel_gqa(fmt, H, KV):
+    """Each query group reads its own kv head's scale."""
+    rng = np.random.default_rng(21)
+    pk, pv = _qpools(rng, fmt, KV=KV, hd=16)
+    q = rng.normal(size=(2, 1, H, 16)).astype(np.float32)
+    table = np.asarray([[9, 1, 6, -1, -1], [0, 5, -1, -1, -1]], np.int32)
+    pos = np.asarray([2 * P + 3, P + 6], np.int32)
+    _q_parity(fmt, q, pk, pv, table, pos)
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_decode_plain_matches_jax_kernel_unmapped_holes(fmt):
+    """-1 holes inside the live range (page 0's scale must not leak in)
+    and a fully unmapped row, which gives zeros."""
+    rng = np.random.default_rng(22)
+    pk, pv = _qpools(rng, fmt, KV=2, hd=16)
+    q = rng.normal(size=(3, 1, 4, 16)).astype(np.float32)
+    table = np.asarray([[4, -1, 11, 3, -1], [-1, 2, 7, -1, -1],
+                        [-1, -1, -1, -1, -1]], np.int32)
+    pos = np.asarray([3 * P + 2, 2 * P + 1, P + 4], np.int32)
+    got = _q_parity(fmt, q, pk, pv, table, pos)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_mixed_plain_matches_jax_kernel_offsets_and_holes(fmt):
+    """A decode row, a chunk straddling a page edge at an odd offset (for
+    int4 the straddle crosses the packed low/high nibble halves), a
+    chunk behind an unmapped hole, and an idle (q_len=0) row."""
+    rng = np.random.default_rng(23)
+    pk, pv = _qpools(rng, fmt, KV=2, hd=16)
+    q = rng.normal(size=(4, 6, 4, 16)).astype(np.float32)
+    table = np.asarray([[7, 2, 9, -1, -1], [4, 11, 3, -1, -1],
+                        [-1, 8, 5, -1, -1], [-1, -1, -1, -1, -1]], np.int32)
+    pos = np.asarray([2 * P + 5, P + 3, P + 2, 0], np.int32)
+    qlen = np.asarray([1, 6, 4, 0], np.int32)
+    _q_parity(fmt, q, pk, pv, table, pos, qlen)
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
+@pytest.mark.parametrize("H,KV", [(8, 2), (6, 3), (4, 4)])
+def test_quant_mixed_plain_matches_jax_kernel_gqa(fmt, H, KV):
+    rng = np.random.default_rng(24)
+    pk, pv = _qpools(rng, fmt, KV=KV, hd=16)
+    q = rng.normal(size=(2, 5, H, 16)).astype(np.float32)
+    table = np.asarray([[9, 1, 6, -1, -1], [0, 5, 2, -1, -1]], np.int32)
+    pos = np.asarray([2 * P + 3, P + 6], np.int32)
+    qlen = np.asarray([1, 5], np.int32)
+    _q_parity(fmt, q, pk, pv, table, pos, qlen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quant_kernels_match_plain_versions(dtype):
+    """The four quantized CUDA kernels (int8 and int4 pages, decode and
+    mixed) against their plain versions on the card, at 128-token pages
+    with a hole and a dead row. f32 queries: atol 1e-4 (summation
+    order); bf16 queries: atol/rtol 2e-2 (the plain version also rounds
+    the dequantized K/V and p to bf16, as the JAX fold does; the kernel
+    keeps them in f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, qwrite_prompt_pages,
+    )
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=0.0) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    N, Pg, KV, hd, H = 32, 128, 8, 128, 32
+    table = torch.randperm(N, generator=g, device="cuda").to(
+        torch.int32).reshape(4, 8).contiguous()
+    table[1, 1] = -1
+    table[3] = -1
+    pos = torch.tensor([0, 300, 1023, 129], dtype=torch.int32,
+                       device="cuda")
+    qlen = torch.tensor([1, 64, 0, 17], dtype=torch.int32, device="cuda")
+    q1 = torch.randn((4, 1, H, hd), generator=g, device="cuda", dtype=dt)
+    qm = torch.randn((4, 64, H, hd), generator=g, device="cuda", dtype=dt)
+    every = torch.arange(N, dtype=torch.int32, device="cuda")
+    for cls, store, packed4 in ((QuantPool, torch.int8, False),
+                                (Int4Pool, torch.uint8, True)):
+        rows = Pg // 2 if packed4 else Pg
+        pools = []
+        for _ in range(2):
+            pool = cls(torch.zeros((N, rows, KV, hd), dtype=store,
+                                   device="cuda"),
+                       torch.zeros((N, KV), device="cuda"))
+            vals = torch.randn((1, N * Pg, KV, hd), generator=g,
+                               device="cuda")
+            pools.append(qwrite_prompt_pages(pool, vals, every))
+        (kq, ks), (vq, vs) = pools
+        kw = dict(scale_k=ks, scale_v=vs, packed4=packed4)
+        got = rpa.ragged_paged_attention(q1, kq, vq, table, pos, **kw)
+        want = rpa.ragged_paged_attention_plain(q1, kq, vq, table, pos, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert not got[3].any()
+        got = rpa.ragged_paged_attention_mixed(qm, kq, vq, table, pos, qlen,
+                                               **kw)
+        want = rpa.ragged_paged_attention_mixed_plain(qm, kq, vq, table, pos,
+                                                      qlen, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        with pytest.raises(ValueError, match="pool dtype"):
+            rpa.ragged_paged_attention(q1, kq.float(), vq.float(), table,
+                                       pos, **kw)
+
+
+def test_tpu_scale_budget_is_not_a_hopper_limit(monkeypatch):
+    """Divergence of the gate: on a TPU the quantized kernels refuse a
+    pool whose whole [N, KV] f32 scale arrays would overflow their SMEM
+    budget (`_SCALE_SMEM_BUDGET`) and JAX falls back to the fold. The
+    CUDA kernels read each live page's scales from device memory, so the
+    port has no such limit: its wrappers take that pool (the plain
+    version here; the CUDA kernels in the `cuda` case below)."""
+    import jax
+    from cake_tpu.ops import ragged_paged_attention as jrpa
+    N = 4200                    # 2 * 4 * N * KV bytes of scales > 256 KB
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert 2 * 4 * N * 8 > jrpa._SCALE_SMEM_BUDGET
+    assert not jrpa.ragged_paged_supported(128, 32, 8, 128, quantized=True,
+                                           n_pages=N)
+    rng = np.random.default_rng(40)
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(N, 2, 2, 16),
+                                       dtype=np.int8))
+    scales = torch.from_numpy(rng.random((N, 2)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(1, 1, 4, 16)).astype(np.float32))
+    table = torch.tensor([[N - 1, 7]], dtype=torch.int32)
+    out = rpa.ragged_paged_attention(q, q8, q8, table,
+                                     torch.tensor([3], dtype=torch.int32),
+                                     scale_k=scales, scale_v=scales)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_cuda_quant_kernels_take_pools_past_the_tpu_scale_budget():
+    """The int8 and int4 CUDA kernels over a 4200-page pool (scales past
+    the TPU kernels' SMEM budget), rows reading its last pages, against
+    their plain versions (f32 queries, atol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    N, Pg, KV, hd, H = 4200, 16, 8, 128, 32
+    table = torch.tensor([[N - 1, N - 2, 5], [17, N - 3, -1]],
+                         dtype=torch.int32, device="cuda")
+    pos = torch.tensor([40, 20], dtype=torch.int32, device="cuda")
+    qlen = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
+    q = torch.randn((2, 8, H, hd), generator=g, device="cuda")
+    for store, rows, packed4 in ((torch.int8, Pg, False),
+                                 (torch.uint8, Pg // 2, True)):
+        lo, hi = (0, 256) if packed4 else (-127, 128)
+        pk, pv = (torch.randint(lo, hi, (N, rows, KV, hd), generator=g,
+                                device="cuda", dtype=torch.int32).to(store)
+                  for _ in range(2))
+        sk = torch.rand((N, KV), generator=g, device="cuda") / 64
+        sv = torch.rand((N, KV), generator=g, device="cuda") / 64
+        kw = dict(scale_k=sk, scale_v=sv, packed4=packed4)
+        got = rpa.ragged_paged_attention(q[:, :1].contiguous(), pk, pv,
+                                         table, pos, **kw)
+        want = rpa.ragged_paged_attention_plain(q[:, :1].contiguous(), pk,
+                                                pv, table, pos, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0.0)
+        got = rpa.ragged_paged_attention_mixed(q, pk, pv, table, pos, qlen,
+                                               **kw)
+        want = rpa.ragged_paged_attention_mixed_plain(q, pk, pv, table, pos,
+                                                      qlen, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0.0)
