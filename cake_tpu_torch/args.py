@@ -5,8 +5,10 @@ is on by default, being the port's only serving engine).
 `parse_args` builds one flag per field, as the JAX package does
 (`--max-seq-len`, `--flash-attention/--no-flash-attention`, ...), and
 validates the result (`Args.validate`, the JAX package's rules for the
-fields the port has); a flag of the JAX package that the port does not
-implement yet is rejected by argparse, never accepted and ignored.
+fields the port has, `--quant none|int8|int4` among them); a flag of the
+JAX package that the port does not implement yet (`--topology`, `--sp`,
+the speculative-decoding flags, ...) is rejected by argparse, never
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class Args:
     repeat_penalty: Optional[float] = None
     repeat_last_n: int = 128
     dtype: str = "bf16"                 # f32 | bf16 | f16 (weights)
+    # weight-only quantization: none | int8 (per-channel) | int4
+    # (group-wise, nibble-packed; the int4 matmul kernel at decode shapes)
+    quant: str = "none"
     # KV cache/pool dtype; None = dtype. int8/int4 quantize the paged
     # pool (the generator's dense cache keeps the compute dtype)
     kv_dtype: Optional[str] = None
@@ -58,9 +63,12 @@ class Args:
     mixed_batch: str = "auto"
 
     def validate(self) -> "Args":
-        """The JAX package's `Args.validate` rules for --kv-dtype: int8
-        and int4 need the paged pool, and int4 an even page size; any
-        other name must be a dtype. Returns self."""
+        """The JAX package's `Args.validate` rules: --quant is none,
+        int8 or int4; --kv-dtype int8 and int4 need the paged pool, and
+        int4 an even page size; any other name must be a dtype. Returns
+        self."""
+        if self.quant not in ("none", "int8", "int4"):
+            raise ValueError(f"unsupported quant {self.quant!r}")
         if self.kv_dtype in QUANTIZED_CACHES:
             if not self.kv_pages:
                 raise ValueError(

@@ -1,10 +1,11 @@
 """Context: process-wide state built once from Args.
 
 Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
-`Context.from_args`, `load_text_model`), for one device: the dtype, the
-device (`cuda:<device_idx>`, or the CPU with `--cpu`), the model config
-and the text generator. Topologies, quantization, sequence parallelism
-and speculation are not ported.
+`Context.from_args`, `load_text_model`, `_maybe_quantize`), for one
+device: the dtype, the device (`cuda:<device_idx>`, or the CPU with
+`--cpu`), the model config and the text generator, its weights
+quantized with `--quant int8|int4`. Topologies, sequence parallelism
+(`--sp`) and speculation are not ported.
 """
 
 from __future__ import annotations
@@ -58,6 +59,23 @@ class Context:
         return cls(args=args, dtype=dtype, device=device,
                    llama_config=llama_config)
 
+    def _maybe_quantize(self, params):
+        """Apply --quant to a parameter dict without holding two trees:
+        both settings quantize leaf by leaf, dropping each full-precision
+        leaf as its quantized copy lands (eager PyTorch has no donation;
+        the JAX context donates the int8 tree and goes leaf by leaf for
+        int4, to the same bytes and scales)."""
+        a = self.args
+        if a.quant not in ("int8", "int4"):
+            return params
+        from cake_tpu_torch.ops.quant import quantize_params_leafwise
+
+        params = quantize_params_leafwise(
+            params, bits=8 if a.quant == "int8" else 4)
+        log.info("weights quantized to %s (weight-only, %s)", a.quant,
+                 "per-channel" if a.quant == "int8" else "group-wise")
+        return params
+
     def load_text_model(self):
         """Build the LlamaGenerator: the model's config, weights and
         tokenizer, or without --model the tiny config with random
@@ -77,7 +95,8 @@ class Context:
             tokenizer = load_tokenizer(a.model)
         else:
             tokenizer = ByteTokenizer(cfg.vocab_size)
-        params = load_text_params(cfg, a.model, self.dtype, self.device)
+        params = self._maybe_quantize(
+            load_text_params(cfg, a.model, self.dtype, self.device))
         sampling = SamplingConfig(
             temperature=a.temperature, top_k=a.top_k, top_p=a.top_p,
             repeat_penalty=(1.1 if a.repeat_penalty is None

@@ -6,8 +6,11 @@ Counterpart of `cake_tpu/models/llama/model.py` (`RopeTables`,
 ring and ragged variants are not ported). Block semantics:
   x = x + attn(rms_norm(x))        # input_layernorm -> GQA+RoPE -> o_proj
   x = x + mlp(rms_norm(x))         # post_attention_layernorm -> SwiGLU
-Plain weight GEMMs stay torch.matmul (cuBLAS on the card), as the JAX
-package left them to XLA outside its Pallas kernels. The layer scan is a
+Every weight product goes through `ops/quant.qmatmul`: a plain tensor
+stays torch.matmul (cuBLAS on the card), as the JAX package left it to
+XLA outside its Pallas kernels; an int8 `QTensor` is the per-channel
+product in plain PyTorch; an int4 one takes the int4 matmul kernel at
+decode shapes and the dequantize route above them. The layer scan is a
 Python loop; the cache is written in place and returned, where JAX
 donated it. The paged steps (models/llama/paged.py) build on
 `block_skeleton` too.
@@ -34,6 +37,7 @@ from cake_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_cached,
 )
 from cake_tpu_torch.ops.norms import rms_norm
+from cake_tpu_torch.ops.quant import QTensor, qmatmul
 from cake_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
 
 
@@ -50,8 +54,11 @@ class RopeTables(NamedTuple):
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer i's leaves of the stacked block dict (views, no copy)."""
-    return {k: v[i] for k, v in blocks.items()}
+    """Layer i's leaves of the stacked block dict (views, no copy). A
+    quantized leaf is sliced in q and in scale (indexing the NamedTuple
+    itself would pick one of its fields)."""
+    return {k: (v.layer(i) if isinstance(v, QTensor) else v[i])
+            for k, v in blocks.items()}
 
 
 def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
@@ -70,20 +77,20 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
     KV = lp["wk"].shape[-1] // hd
 
     h = rms_norm(x, lp["attn_norm"], config.rms_norm_eps)
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = qmatmul(h, lp["wq"])
+    k = qmatmul(h, lp["wk"])
+    v = qmatmul(h, lp["wv"])
     if "bq" in lp:  # Qwen2-family QKV bias (config.attention_bias)
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
     attn, extras = attn_fn(q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
                            v.reshape(B, S, KV, hd))
-    x = x + attn.reshape(B, S, H * hd) @ lp["wo"]
+    x = x + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps)
-    gate = F.silu(h @ lp["w_gate"])
-    x = x + (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = F.silu(qmatmul(h, lp["w_gate"]))
+    x = x + qmatmul(gate * qmatmul(h, lp["w_up"]), lp["w_down"])
     return x, extras
 
 
@@ -154,7 +161,7 @@ def forward(params, tokens, cache: KVCache, pos, rope: RopeTables,
         last = x[:, -1]
     else:
         last = x[torch.arange(B, device=x.device), last_idx.long()]
-    return (last @ params["lm_head"]).float(), cache
+    return qmatmul(last, params["lm_head"]).float(), cache
 
 
 @torch.inference_mode()
@@ -163,7 +170,7 @@ def forward_logits_all(params, tokens, cache: KVCache, pos,
     """Logits at every position [B, S, V] f32 (the scoring path)."""
     x, cache = forward(params, tokens, cache, pos, rope, config,
                        return_hidden=True)
-    return (x @ params["lm_head"]).float(), cache
+    return qmatmul(x, params["lm_head"]).float(), cache
 
 
 @torch.inference_mode()

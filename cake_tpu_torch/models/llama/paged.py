@@ -37,6 +37,7 @@ from cake_tpu_torch.kv.quantized_pool import (
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import block_skeleton, layer_params
 from cake_tpu_torch.ops.norms import rms_norm
+from cake_tpu_torch.ops.quant import qmatmul
 from cake_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_mixed,
     ragged_paged_attention_mixed_plain, ragged_paged_attention_plain,
@@ -358,7 +359,7 @@ def forward_ragged_paged(params, tokens, cache: PagedKVCache, pos,
                                        active, rope_c, rope_s, config,
                                        attn=attn)
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    logits = (x[:, -1] @ params["lm_head"]).float()
+    logits = qmatmul(x[:, -1], params["lm_head"]).float()
     return logits, cache
 
 
@@ -432,5 +433,5 @@ def mixed_step_paged(params, tokens, pos, q_len, active,
                                     cache, rope, config, attn)
     last = (q_len.long().clamp(min=1) - 1)
     h = x[torch.arange(B, device=x.device), last]
-    logits = (h @ params["lm_head"]).float()
+    logits = qmatmul(h, params["lm_head"]).float()
     return logits, cache

@@ -8,6 +8,9 @@ transposed from HF's [out, in] at load:
   {"embed": [V, D], "final_norm": [D], "lm_head": [D, V],
    "blocks": {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
               "w_gate", "w_up", "w_down"[, "bq", "bk", "bv"]}}
+
+With weight quantization (ops/quant.py) the seven block matmul weights
+and the lm_head are `QTensor` nodes (q, scale) instead of tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.ops.quant import _BLOCK_CONTRACT, QTensor, pick_group
 from cake_tpu_torch.utils.devices import resolve_device
 
 
@@ -66,25 +70,110 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
+                          device="cuda", dtype=torch.bfloat16,
+                          bits: int = 8) -> Dict:
+    """Random quantized params drawn directly on `device` (int8
+    per-channel or int4 group-wise), in the structure of
+    `quantize_params(init_params(...), bits=bits)` without the
+    full-precision tree ever existing. Benchmarks and smoke runs do not
+    depend on weight values, so random codes and constant scales serve:
+    at bits=4 random bytes ARE the packed group-halves stream (each
+    nibble a uniform int4), and the scale 1/(qmax*sqrt(fan_in)) gives the
+    dequantized weights about init_params' spread. The lm_head is int8
+    at both settings, as quantize_params leaves it."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    dev = resolve_device(device)
+    c = config
+    L, D, F = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+    H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+
+    def qleaf(shape, contract_dims, fan_in, leaf_bits=bits):
+        qmax = 127 if leaf_bits == 8 else 7
+        if leaf_bits == 4:
+            cd = contract_dims[0]
+            g = pick_group(shape[cd])
+            q = torch.randint(
+                0, 256, shape[:cd] + (shape[cd] // 2,) + shape[cd + 1:],
+                generator=generator, device=dev, dtype=torch.uint8)
+            scale_shape = shape[:cd] + (shape[cd] // g,) + shape[cd + 1:]
+        else:
+            q = torch.randint(-qmax, qmax + 1, shape, generator=generator,
+                              device=dev, dtype=torch.int8)
+            scale_shape = tuple(s for i, s in enumerate(shape)
+                                if i not in contract_dims)
+        scale = torch.full(scale_shape, 1.0 / (qmax * math.sqrt(fan_in)),
+                           dtype=torch.float32, device=dev)
+        return QTensor(q=q, scale=scale)
+
+    def w(shape, fan_in):
+        t = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+        return t.mul_(1.0 / math.sqrt(fan_in))
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=dtype)
+
+    with torch.no_grad():
+        blocks = {
+            "attn_norm": ones((L, D)),
+            "wq": qleaf((L, D, H * hd), _BLOCK_CONTRACT["wq"], D),
+            "wk": qleaf((L, D, KV * hd), _BLOCK_CONTRACT["wk"], D),
+            "wv": qleaf((L, D, KV * hd), _BLOCK_CONTRACT["wv"], D),
+            "wo": qleaf((L, H * hd, D), _BLOCK_CONTRACT["wo"], H * hd),
+            "mlp_norm": ones((L, D)),
+            "w_gate": qleaf((L, D, F), _BLOCK_CONTRACT["w_gate"], D),
+            "w_up": qleaf((L, D, F), _BLOCK_CONTRACT["w_up"], D),
+            "w_down": qleaf((L, F, D), _BLOCK_CONTRACT["w_down"], F),
+        }
+        if c.attention_bias:
+            # full precision, as quantize_params leaves them
+            blocks["bq"] = w((L, H * hd), D)
+            blocks["bk"] = w((L, KV * hd), D)
+            blocks["bv"] = w((L, KV * hd), D)
+        return {
+            "embed": w((c.vocab_size, D), D),
+            "blocks": blocks,
+            "final_norm": ones((D,)),
+            "lm_head": qleaf((D, c.vocab_size), (0,), D, leaf_bits=8),
+        }
+
+
+def params_bytes(params) -> int:
+    """Bytes of every tensor in a parameter dict, QTensor nodes
+    included."""
+    if isinstance(params, dict):
+        return sum(params_bytes(v) for v in params.values())
+    if isinstance(params, QTensor):
+        return params_bytes(params.q) + params_bytes(params.scale)
+    return params.numel() * params.element_size()
+
+
 def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     """The port's params from a JAX param pytree converted to numpy
     (`jax.tree.map(np.asarray, params)`): the same nested dict, each
     leaf a tensor of `dtype` on `device`. Leaves in bfloat16 (an
-    ml_dtypes numpy dtype torch cannot read) cross via their bits."""
+    ml_dtypes numpy dtype torch cannot read) cross via their bits. A
+    quantized node (any NamedTuple with fields q and scale, as the JAX
+    package's QTensor arrives) becomes the port's QTensor: q keeps its
+    int8/uint8 bytes and scale stays f32."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def leaf(a, keep_dtype=False):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(np.array(a).view(np.int16))
             t = t.view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))
-        return t.to(device=dev, dtype=dtype)
+        return t.to(device=dev, dtype=None if keep_dtype else dtype)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if getattr(node, "_fields", None) == ("q", "scale"):
+            return QTensor(q=leaf(node.q, keep_dtype=True),
+                           scale=leaf(node.scale, keep_dtype=True))
         return leaf(node)
 
     return walk(tree)

@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases device,generate --profile
 
 Phases, in order (any failure exits non-zero):
-  device    CUDA present; card name and power limit; both kernel
+  device    CUDA present; card name and power limit; the three kernel
             libraries built from csrc/ (one nvcc each, in parallel).
   kernels   each CUDA kernel against its plain PyTorch version, f32 and
             bf16 queries: the ragged paged-attention kernels at the serving
@@ -15,21 +15,35 @@ Phases, in order (any failure exits non-zero):
             at the prefill shapes (S=T=1024 causal, plus window and
             non-causal cases; a 256-token chunk at pos 1280 of a 4096-slot
             cache with a NaN tail, plus one at an unaligned pos); times,
-            the plain version's, the bound and the yardstick SDPA.
+            the plain version's, the bound and the yardstick SDPA. Then
+            the int4 matmul against its plain version at the four
+            Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x,
+            weights from quantize_group of seeded normals, plus a
+            tiny-config shape; its yardstick is torch.matmul over the
+            weight dequantized ahead of time.
   step      at Llama-3-8B width (2 layers, f32 weights), kernel vs plain:
             mixed_step_paged + decode_step_ragged_paged logits and pools
             over f32, int8 and int4 pools; dense prefill, prefill_chunk
-            and decode_step logits and caches with flash on vs off.
+            and decode_step logits and caches with flash on vs off; with
+            int4 weights (quantize_params on the card) the dense and the
+            paged decode step, kernel vs plain logits, and one prefill
+            (M > 64) down the dequantize route.
   generate  32-layer Llama-3-8B-width bf16 weights (random), sequential
             generator behind Master.generate_text: a ~1000-token prompt
             (bucket 1024, one flash_attn launch per layer) and a
             ~1500-token prompt in 256-token windows (six flash_attn_cached
             launches per layer), 32 greedy tokens each; then the
             `python3 -m cake_tpu_torch.cli` one-shot command on the card.
+            Then 32-layer int4 weights (init_params_quantized, bits=4)
+            behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
+            launches per decode step and no plain call; a few tokens
+            with int8 weights; and the command line with --quant int4.
   serve     the same weights behind the HTTP API: concurrent chat
             requests, buffered and SSE, through the paged engine, over a
             bf16 pool, then --kv-dtype int8, then int4; each run's two
-            ragged kernels must have run and no plain fold.
+            ragged kernels must have run and no plain fold. Then the
+            int4 weights over the bf16 pool: 224 int4_matmul launches
+            per decode step.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -68,6 +82,8 @@ KERNELS = {
                    "cake_tpu/ops/flash_attention.py:74"),
     "flash_attn_cached": ("cake_tpu_torch/csrc/flash_attention.cu",
                           "cake_tpu/ops/flash_attention.py:125"),
+    "int4_matmul": ("cake_tpu_torch/csrc/int4_matmul.cu",
+                    "cake_tpu/ops/int4_matmul.py:73"),
 }
 TOL = {"float32": dict(atol=1e-4, rtol=0.0),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -84,7 +100,7 @@ def fail(msg: str) -> None:
 # -- phase: device -------------------------------------------------------------
 
 
-def phase_device(torch, rpa, fa) -> str:
+def phase_device(torch, *ops) -> str:
     from cake_tpu_torch.utils import cuda_build
 
     if not torch.cuda.is_available():
@@ -99,11 +115,13 @@ def phase_device(torch, rpa, fa) -> str:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cuda_build.build_libraries([rpa.SOURCE, fa.SOURCE])   # nvcc in parallel
-    rpa.LIBRARY.get()
-    fa.LIBRARY.get()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s for both libraries")
-    for src in (rpa.SOURCE, fa.SOURCE):
+    sources = [op.SOURCE for op in ops]
+    cuda_build.build_libraries(sources)                   # nvcc in parallel
+    for op in ops:
+        op.LIBRARY.get()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s for the "
+        f"{len(ops)} libraries")
+    for src in sources:
         info = cuda_build.BUILD_INFO.get(src, {})
         log(f"  {os.path.basename(src)}: nvcc {info.get('seconds', 0.0):.2f} s")
         for line in info.get("ptxas", "").splitlines():
@@ -426,17 +444,183 @@ def _flash_kernels(torch, fa, report) -> None:
                 report[(name, dname)] = rec
 
 
-def phase_kernels(torch, rpa, fa) -> dict:
+# (In, Out) of the Llama-3-8B block weights: wq/wo, wk/wv, w_gate/w_up,
+# w_down; g = 128. The kernel table reports w_gate/w_up at M = 1 (the
+# generator's decode step)
+INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+INT4_MAIN = (1, 4096, 14336)
+# int4_matmul against its plain version: the same products summed in f32
+# in another order (for bf16 x every product is exact in f32), so at f32
+# the difference stays under 1e-5 of the largest output; at bf16 the two
+# f32 sums round to bf16 apart by at most one unit, 2^-7 relative
+INT4_ATOL_OF_MAX = 1e-5
+INT4_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+
+
+def _stream_ms(torch, fns, reps: int = 30, rounds: int = 5):
+    """(device ms, eager ms) of one call, each the median over `rounds`
+    of the mean of `reps` back-to-back calls cycling through `fns`: the
+    same function over copies of its weight that together exceed the L2
+    cache, so each call streams its weight from device memory as a
+    layer's does in a decode step. Device: the calls captured once into
+    a CUDA graph and replayed, so no host time lies between the
+    launches; eager: the calls made from Python, where a product of a
+    few microseconds waits for its wrapper."""
+    def burst():
+        for i in range(reps):
+            fns[i % len(fns)]()
+
+    def timed(fn):
+        times = []
+        for _ in range(rounds):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        return statistics.median(times)
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    eager = timed(burst)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up on the capture's own stream
+        burst()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        burst()
+    graph.replay()
+    torch.cuda.synchronize()
+    device = timed(graph.replay)
+    del graph
+    return device, eager
+
+
+def _copies(t, nbytes: int):
+    """t and enough clones of it to hold 100 MB, twice the L2 cache."""
+    n = max(2, -(-100_000_000 // max(nbytes, 1)))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def _int4_kernels(torch, i4, report) -> None:
+    from cake_tpu_torch.ops.quant import group_size, quantize_group
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    shapes = [(m, i, o) for (i, o) in INT4_SHAPES for m in (1, 8, 64)]
+    shapes.append((2, 64, 32))         # the tiny config's wk/wv, g = 64
+    weights = {}
+    for M, In, Out in shapes:
+        if (In, Out) not in weights:
+            w = torch.randn((In, Out), generator=gen, device="cuda")
+            weights[(In, Out)] = quantize_group(w * In ** -0.5, 0)
+            del w
+        qt = weights[(In, Out)]
+        g = group_size(qt)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn((M, In), generator=gen, device="cuda").to(dtype)
+            got = i4.int4_matmul(x, qt.q, qt.scale, g=g)
+            again = i4.int4_matmul(x, qt.q, qt.scale, g=g)
+            want = i4.int4_matmul_plain(x, qt.q, qt.scale, g=g)
+            torch.cuda.synchronize()
+            label = f"int4_matmul M={M} In={In} Out={Out} g={g} {dname}"
+            if not torch.isfinite(got.float()).all():
+                fail(f"{label}: non-finite output")
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches on the same inputs differ")
+            err = (got.float() - want.float()).abs().max().item()
+            atol = INT4_ATOL_OF_MAX * want.float().abs().max().item()
+            if not torch.allclose(got.float(), want.float(), atol=atol,
+                                  rtol=INT4_RTOL[dname]):
+                fail(f"{label}: max |kernel - plain| = {err:.3e} over "
+                     f"atol {atol:.3e} rtol {INT4_RTOL[dname]}")
+            if In < 1024:
+                log(f"{label}: max_abs_err {err:.3e} (atol {atol:.3e})")
+                continue
+            wbytes = qt.q.numel() + 4 * qt.scale.numel()
+            nbytes = wbytes + (M * In + M * Out) * x.element_size()
+            ops = 2 * M * In * Out
+            qs = _copies(qt.q, wbytes)
+            ss = [qt.scale.clone() for _ in qs]
+            ms, eager_ms = _stream_ms(torch, [
+                (lambda q=q, s=s: i4.int4_matmul(x, q, s, g=g))
+                for q, s in zip(qs, ss)])
+            plain_ms = _time_ms(
+                torch, lambda: i4.int4_matmul_plain(x, qt.q, qt.scale, g=g),
+                reps=5, warmup=1)
+            # yardstick: one torch.matmul over the weight dequantized to
+            # x's dtype ahead of time (4x or 8x the bytes, no unpacking)
+            wd = (i4.unpack_int4(qt.q, g).to(dtype).reshape(In // g, g, Out)
+                  * qt.scale[:, None, :].to(dtype)).reshape(In, Out)
+            wds = _copies(wd, wd.numel() * wd.element_size())
+            lib_ms, lib_eager_ms = _stream_ms(
+                torch, [(lambda w=w: torch.matmul(x, w)) for w in wds])
+            del qs, ss, wd, wds
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dname] * 1e3
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       library_ms=lib_ms, bytes=nbytes, ops=ops,
+                       eager_ms=eager_ms, library_eager_ms=lib_eager_ms)
+            log(f"{label}: max_abs_err {err:.3e} (atol {atol:.3e}, rtol "
+                f"{INT4_RTOL[dname]}); {ms:.4f} ms kernel ({eager_ms:.4f} "
+                f"eager), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms matmul of "
+                f"the dequantized weight ({lib_eager_ms:.4f} eager), bound "
+                f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {nbytes} B, "
+                f"{ops} ops)")
+            if (M, In, Out) == INT4_MAIN:
+                report[("int4_matmul", dname)] = rec
+    torch.cuda.empty_cache()
+
+
+def int4_sweep(torch, i4, targets) -> None:
+    """Device time of int4_matmul (graph replay, bf16 x, M = 1 and 8) at
+    the four Llama-3-8B weight shapes for each value of TARGET_BLOCKS,
+    the block count its split over the group axis aims at."""
+    from cake_tpu_torch.ops.quant import group_size, quantize_group
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    for In, Out in INT4_SHAPES:
+        w = torch.randn((In, Out), generator=gen, device="cuda")
+        qt = quantize_group(w * In ** -0.5, 0)
+        del w
+        g = group_size(qt)
+        wbytes = qt.q.numel() + 4 * qt.scale.numel()
+        qs = _copies(qt.q, wbytes)
+        ss = [qt.scale.clone() for _ in qs]
+        for M in (1, 8):
+            x = torch.randn((M, In), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            cells = []
+            for target in targets:
+                i4.TARGET_BLOCKS = target
+                ms, _ = _stream_ms(torch, [
+                    (lambda q=q, s=s: i4.int4_matmul(x, q, s, g=g))
+                    for q, s in zip(qs, ss)])
+                cells.append(f"{target}: {ms:.4f} ms "
+                             f"({i4.split_groups(M, In // g, Out)} splits)")
+            log(f"int4 sweep M={M} In={In} Out={Out}: " + ", ".join(cells))
+
+
+def phase_kernels(torch, rpa, fa, i4) -> dict:
     report = {}
     _rpa_kernels(torch, rpa, report)
     _flash_kernels(torch, fa, report)
+    _int4_kernels(torch, i4, report)
     return report
 
 
 # -- phase: step ---------------------------------------------------------------
 
 
-def phase_step(torch, rpa, fa) -> None:
+def phase_step(torch, rpa, fa, i4) -> None:
     """At 8B width (2 layers, f32): mixed_step_paged then
     decode_step_ragged_paged, attn='kernel' vs attn='plain' from identical
     pools; then the dense prefill, prefill_chunk and decode_step with
@@ -502,6 +686,7 @@ def phase_step(torch, rpa, fa) -> None:
     del out, base
     _quant_steps(torch, rpa, cfg, params, rope, gen)
     _dense_step(torch, fa, cfg, params, rope, gen)
+    _int4_steps(torch, i4, cfg, params, rope, gen)
     del params
     torch.cuda.empty_cache()
 
@@ -643,6 +828,127 @@ def _dense_step(torch, fa, cfg, params, rope, gen) -> None:
         f"{cerr:.3e}")
     if cerr > 1e-4:
         fail(f"step dense: caches differ by {cerr:.3e} (tol 1e-4)")
+
+
+class _plain_int4:
+    """Inside the block, `int4_matmul` is its plain version even for CUDA
+    tensors (the wrapper itself never takes it for one): the reference
+    side of a kernel-vs-plain comparison of whole steps."""
+
+    def __init__(self, i4):
+        self.i4 = i4
+
+    def __enter__(self):
+        self.kernel = self.i4.int4_matmul
+        self.i4.int4_matmul = self.i4.int4_matmul_plain
+
+    def __exit__(self, *exc):
+        self.i4.int4_matmul = self.kernel
+
+
+def _int4_steps(torch, i4, cfg, params, rope, gen) -> None:
+    """int4 weights at 8B width, 2 layers, f32 activations: the f32 tree
+    quantized on the card by quantize_params (bits=4); a dense decode
+    step and a paged decode step of 4 rows, kernel vs plain logits; then
+    a 256-token prefill, whose M > 64 products take the dequantize
+    route."""
+    import contextlib
+
+    from cake_tpu_torch.models.llama import model as dm
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.models.llama.paged import (
+        PagedKVCache, decode_step_ragged_paged, table_set_slot,
+    )
+    from cake_tpu_torch.ops.quant import quantize_params
+
+    dev = "cuda"
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    qparams = quantize_params(params, bits=4)
+    torch.cuda.synchronize()
+    log(f"step int4: quantize_params(bits=4) of the 2-layer f32 tree on the "
+        f"card: peak {(torch.cuda.max_memory_allocated() - before) / 2**30:.2f}"
+        f" GiB above the {before / 2**30:.2f} GiB already held")
+    T = rope.cos.shape[0]
+    B, P = 4, 128
+    prompt = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                           device=dev, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    pos = torch.tensor([300, 100, 5, 640], dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    base_k = torch.randn((L, 32, P, cfg.num_key_value_heads, cfg.head_dim),
+                         generator=gen, device=dev)
+    base_v = torch.randn(base_k.shape, generator=gen, device=dev)
+    out = {}
+    for route in ("kernel", "plain"):
+        ctx = _plain_int4(i4) if route == "plain" else contextlib.nullcontext()
+        dense = KVCache.create(cfg, 1, T, dtype=torch.float32, device=dev)
+        dense.k.normal_(generator=torch.Generator(device=dev).manual_seed(5))
+        dense.v.normal_(generator=torch.Generator(device=dev).manual_seed(6))
+        paged = PagedKVCache.create(cfg, B, 32, P, T, dtype=torch.float32,
+                                    device=dev)
+        paged.k.copy_(base_k)
+        paged.v.copy_(base_v)
+        for slot in range(B):
+            table_set_slot(paged.table, slot,
+                           list(range(slot * 8, slot * 8 + 8)))
+        i4.reset_launch_counts()
+        with ctx:
+            ld, _ = dm.decode_step(qparams, toks[:1], 384, dense, rope, cfg)
+            lp, _ = decode_step_ragged_paged(qparams, toks, pos, active,
+                                             paged, rope, cfg)
+        torch.cuda.synchronize()
+        out[route] = (ld, lp, dict(i4.LAUNCHES))
+    for route, want in (("kernel", (14 * L, 0)), ("plain", (0, 14 * L))):
+        n = out[route][2]
+        if (n["int4_matmul"], n["int4_matmul_plain"]) != want:
+            fail(f"step int4 ({route}): launches {n}, expected {want}")
+    for i, what in enumerate(("dense decode_step", "paged decode step")):
+        a, b = out["kernel"][i], out["plain"][i]
+        err = (a - b).abs().max().item()
+        log(f"step int4 {what} logits: max |kernel - plain| = {err:.3e}")
+        if not torch.isfinite(a).all() or err > 1e-3:
+            fail(f"step int4 {what}: logits differ by {err:.3e} (tol 1e-3)")
+    # the same weights dequantized ahead of time into plain f32 tensors:
+    # the reference of the dequantize route (same function, other
+    # summation order)
+    from cake_tpu_torch.ops.quant import (
+        QTensor, dequantize_group, is_groupwise,
+    )
+
+    def dequantized(w):
+        if not isinstance(w, QTensor):
+            return w
+        if not is_groupwise(w):
+            return w.q.float() * w.scale
+        return dequantize_group(w, torch.float32)
+
+    dq = {k: dequantized(v) for k, v in qparams.items() if k != "blocks"}
+    dq["blocks"] = {k: dequantized(v) for k, v in qparams["blocks"].items()}
+    logits = []
+    i4.reset_launch_counts()
+    for tree in (qparams, dq, params):
+        cache = KVCache.create(cfg, 1, T, dtype=torch.float32, device=dev)
+        lg, _ = dm.prefill(tree, prompt, torch.tensor([256], device=dev),
+                           cache, rope, cfg)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    if sum(i4.LAUNCHES.values()) != 0:
+        fail(f"step int4 prefill: an M = 256 product reached int4_matmul "
+             f"({i4.LAUNCHES}); it takes the dequantize route")
+    lq, ld, lf = logits
+    err = (lq - ld).abs().max().item()
+    log(f"step int4 prefill (M = 256, dequantize route): max |QTensor - "
+        f"weights dequantized ahead| = {err:.3e}; against the f32 weights "
+        f"the int4 rounding moves the logits by {(lq - lf).std().item():.3e}"
+        f" rms (their spread {lf.std().item():.3e})")
+    if not torch.isfinite(lq).all() or err > 1e-3:
+        fail(f"step int4 prefill: logits differ by {err:.3e} (tol 1e-3)")
+    del dq, logits
+    del qparams, out, base_k, base_v
+    torch.cuda.empty_cache()
 
 
 # -- phase: serve --------------------------------------------------------------
@@ -818,13 +1124,121 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     return counts
 
 
+def phase_generate_quant(torch, i4, cfg) -> dict:
+    """The weight-quantized path: Master.generate_text over 32-layer
+    8B-width int4 weights (init_params_quantized, bits=4), a 300-token
+    prompt (prefill: the dequantize route) and 32 greedy tokens (decode:
+    7 int4_matmul launches per layer and step, no plain call); the same
+    with int8 weights for 4 tokens; then the command line with --quant
+    int4 in its own process (the tiny model: context._maybe_quantize and
+    the gate's small shapes on the card). Returns the int4 params and the
+    int4 run's launch counts."""
+    import dataclasses
+
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.models.llama.params import (
+        init_params_quantized, params_bytes,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    dev = "cuda"
+    fcfg = dataclasses.replace(cfg, use_flash_attention=True)
+    tok = ByteTokenizer(cfg.vocab_size)
+    system = "You are a helpful AI assistant."
+    L = cfg.num_hidden_layers
+
+    def run(params, quant, n_new):
+        gen = LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
+                             sampling=SamplingConfig(temperature=0.0),
+                             cache_dtype=torch.bfloat16, device=dev)
+        m = Master(Args(sample_len=n_new, system_prompt=system, quant=quant),
+                   text_generator=gen)
+        m.add_message(Message.system(system))
+        m.add_message(Message.user(_prompt_of(tok, 300, system)))
+        t0 = time.perf_counter()
+        timing = {}
+        m.generate_text(
+            lambda t: timing.setdefault("ttft_s", time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        g = m.llm
+        timing.update(prompt=g._prompt_len, tokens=len(g.tokens),
+                      tok_s=m.tokens_per_s,
+                      eos=g.tokens[-1] in cfg.eos_token_ids)
+        return timing
+
+    def made(bits):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = init_params_quantized(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+            dtype=torch.bfloat16, bits=bits)
+        torch.cuda.synchronize()
+        log(f"generate int{bits}: 32-layer 8B-width params on the card in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{params_bytes(params) / 2**30:.3f} GiB of tensors, peak "
+            f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.3f} GiB "
+            "while making them")
+        return params
+
+    q4 = made(4)
+    run(q4, "int4", 4)            # warm-up, off the counts
+    i4.reset_launch_counts()
+    t = run(q4, "int4", 32)
+    counts = dict(i4.LAUNCHES)
+    log(f"generate int4: prompt {t['prompt']} tokens, TTFT {t['ttft_s']:.3f} "
+        f"s, {t['tokens']} tokens, decode {t['tok_s']:.1f} tok/s; launches "
+        f"{counts}")
+    if t["tokens"] != 32 and not t["eos"]:
+        fail(f"generate int4: {t['tokens']} tokens, expected 32")
+    # token 1 comes from the prefill (M = its bucket > 64: the dequantize
+    # route), every later one from a decode step
+    want = 7 * L * (t["tokens"] - 1)
+    if counts != {"int4_matmul": want, "int4_matmul_plain": 0}:
+        fail(f"generate int4: launches {counts}, expected {want} (7 x {L} "
+             "per decode step) and no plain call")
+
+    q8 = made(8)
+    i4.reset_launch_counts()
+    t8 = run(q8, "int8", 4)
+    log(f"generate int8: prompt {t8['prompt']} tokens, TTFT "
+        f"{t8['ttft_s']:.3f} s, {t8['tokens']} tokens, decode "
+        f"{t8['tok_s']:.1f} tok/s (plain PyTorch: each weight is converted "
+        "to the activation dtype before its product)")
+    if t8["tokens"] != 4 and not t8["eos"]:
+        fail(f"generate int8: {t8['tokens']} tokens, expected 4")
+    if sum(i4.LAUNCHES.values()) != 0:
+        fail(f"generate int8: int4_matmul ran ({i4.LAUNCHES})")
+    del q8
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--quant", "int4",
+           "--prompt", "Why is the sky blue?", "--sample-len", "8"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600)
+    log(f"generate int4: `{' '.join(cmd[1:])}` exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; stdout tail "
+        f"{r.stdout.strip().splitlines()[-1:]!r}")
+    if r.returncode != 0 or "weights quantized to int4" not in r.stderr:
+        fail(f"generate int4: the command line failed:\n{r.stderr[-3000:]}")
+    return q4, counts
+
+
 def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
-                profile: bool = False) -> dict:
+                profile: bool = False, i4=None) -> dict:
     """Six concurrent chats (three SSE) of 32 greedy tokens through the
     HTTP API and the paged engine, over a bf16 pool or with kv_dtype
     "int8"/"int4" a quantized one. Returns the launch counts of the two
     kernels that pool's attention runs, read right after the run, and
-    the pool's GiB."""
+    the pool's GiB. With `i4` (the int4 matmul module) `params` hold int4
+    weights: its launches are counted and returned too, 7 per layer and
+    decode step (a mixed step's 8 x 64 rows take the dequantize route)."""
     from cake_tpu_torch.api.server import start
     from cake_tpu_torch.args import Args
     from cake_tpu_torch.master import Master
@@ -837,7 +1251,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     args = Args(max_slots=8, max_seq_len=2048, kv_pages=128,
                 kv_page_size=128, prefill_chunk=64, temperature=0.0,
                 sample_len=32, dtype="bf16", kv_dtype=kv_dtype).validate()
-    label = f"serve ({kv_dtype or 'bf16'} pool)"
+    label = f"serve ({kv_dtype or 'bf16'} pool{', int4 weights' if i4 else ''})"
     gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
                          max_seq_len=2048,
                          sampling=SamplingConfig(temperature=0.0),
@@ -902,8 +1316,12 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
         return time.perf_counter() - t_serve
 
     rpa.reset_launch_counts()
+    if i4 is not None:
+        i4.reset_launch_counts()
     wall = _profiled(torch, profile, label, drive)
     counts = dict(rpa.LAUNCHES)
+    if i4 is not None:
+        counts.update(i4.LAUNCHES)
     stats = engine.stats
     retired = list(engine.retired)
     httpd.shutdown()
@@ -937,6 +1355,13 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     ran_plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
     if ran_plain:
         fail(f"{label}: plain folds ran on the served path: {ran_plain}")
+    if i4 is not None:
+        served.append("int4_matmul")
+        L = cfg.num_hidden_layers
+        want = 7 * counts["rpa_decode" + suffix]     # 32 per decode step
+        if counts["int4_matmul"] != want or want <= 0:
+            fail(f"{label}: {counts['int4_matmul']} int4_matmul launches, "
+                 f"expected {want} (7 x {L} per decode step)")
     del engine, master, gen, httpd
     torch.cuda.empty_cache()
     return {k: counts[k] for k in served}, gib
@@ -950,6 +1375,10 @@ def main(argv=None) -> int:
                     help="trace generate run A and the serve runs with "
                          "torch.profiler and print where the device time "
                          "went")
+    ap.add_argument("--int4-sweep", default="",
+                    help="comma list of TARGET_BLOCKS values: time "
+                         "int4_matmul at each and exit (a tuning aid, not "
+                         "part of the smoke)")
     a = ap.parse_args(argv)
     phases = [p for p in a.phases.split(",") if p]
     bad = set(phases) - set(PHASES)
@@ -963,6 +1392,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import cake_tpu_torch.ops.flash_attention as fa
+        import cake_tpu_torch.ops.int4_matmul as i4
         import cake_tpu_torch.ops.ragged_paged_attention as rpa
     except ImportError as e:
         fail(f"cake_tpu_torch is not importable next to this script "
@@ -970,10 +1400,16 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_device(torch, rpa, fa)
-    kern = phase_kernels(torch, rpa, fa) if "kernels" in phases else {}
+    if a.int4_sweep:
+        log(phase_device(torch, i4))
+        default = i4.TARGET_BLOCKS
+        int4_sweep(torch, i4, [int(t) for t in a.int4_sweep.split(",")])
+        i4.TARGET_BLOCKS = default
+        return 0
+    card = phase_device(torch, rpa, fa, i4)
+    kern = phase_kernels(torch, rpa, fa, i4) if "kernels" in phases else {}
     if "step" in phases:
-        phase_step(torch, rpa, fa)
+        phase_step(torch, rpa, fa, i4)
     # launch counts of each path, read right after it ran (null in the
     # kernels line, not 0, when its phase did not run)
     counts = {}
@@ -991,6 +1427,26 @@ def main(argv=None) -> int:
                 counts.update(got)
             log("serve pools (128 pages x 128 tokens, 32 layers): "
                 + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
+        # the weight-quantized path, after the bf16 tree is dropped
+        del params
+        torch.cuda.empty_cache()
+        q4 = None
+        if "generate" in phases:
+            q4, got = phase_generate_quant(torch, i4, cfg)
+            counts["int4_matmul"] = got["int4_matmul"]
+        if "serve" in phases:
+            if q4 is None:
+                from cake_tpu_torch.models.llama.params import (
+                    init_params_quantized,
+                )
+                q4 = init_params_quantized(
+                    cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=torch.bfloat16, bits=4)
+            got, _ = phase_serve(torch, rpa, cfg, q4, profile=a.profile,
+                                 i4=i4)
+            # the ragged kernels' counts stay those of the bf16-weight run
+            counts["int4_matmul"] = (counts.get("int4_matmul", 0)
+                                     + got["int4_matmul"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1008,6 +1464,10 @@ def main(argv=None) -> int:
             "ms_f32": f32.get("ms"), "plain_ms_f32": f32.get("plain_ms"),
             "bound_ms_f32": f32.get("bound_ms"),
             "library_ms_f32": f32.get("library_ms"),
+            # calls made from the host (int4_matmul only: its products are a
+            # few microseconds, shorter than their Python wrapper)
+            "eager_ms": rec.get("eager_ms"),
+            "library_eager_ms": rec.get("library_eager_ms"),
         })
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

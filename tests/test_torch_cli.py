@@ -4,7 +4,9 @@ One-shot generation runs on the CPU with --cpu (the tiny config with
 random weights when there is no --model); without --cpu and without a
 card it raises instead of running on the CPU. The flags it has keep the
 JAX package's names and defaults, and a flag it does not implement is
-rejected.
+rejected. `--quant int8|int4` quantizes the loaded weights in the
+context; on the CPU the int4 decode products run int4_matmul's plain
+version.
 """
 
 import dataclasses
@@ -19,6 +21,8 @@ from cake_tpu_torch import cli
 from cake_tpu_torch.args import Args, parse_args
 from cake_tpu_torch.master import Master
 from cake_tpu_torch.ops import flash_attention as fa
+from cake_tpu_torch.ops import int4_matmul as i4
+from cake_tpu_torch.ops.quant import QTensor, is_groupwise
 
 
 def test_cli_generates_on_the_cpu(capsys):
@@ -74,8 +78,66 @@ def test_flags_keep_the_jax_names_and_defaults():
                     "--kv-dtype", "f32", "--device-idx", "1"])
     assert (a.max_seq_len, a.top_p, a.kv_dtype, a.device_idx) == (
         128, 0.9, "f32", 1)
+    assert parse_args(["--quant", "int8"]).quant == "int8"
     with pytest.raises(SystemExit):
-        parse_args(["--quant", "int8"])      # not ported: rejected
+        parse_args(["--spec-draft", "dir"])  # not ported: rejected
+
+
+@pytest.mark.parametrize("quant", ["int4", "int8"])
+def test_cli_quant_generates_on_the_cpu(capsys, quant):
+    """--quant through args -> context -> generator: the block weights
+    and the lm_head are QTensors (the lm_head int8 at both settings), and
+    each int4 decode step runs seven plain int4 products per layer."""
+    i4.reset_launch_counts()
+    assert cli.main(["--cpu", "--quant", quant, "--prompt", "hi",
+                     "--sample-len", "4"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "[You are a helpful AI assistant.] hi\n")
+    gen = Master.from_args(Args(cpu=True, quant=quant)).llm
+    blocks = gen.params["blocks"]
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        assert isinstance(blocks[k], QTensor)
+        assert is_groupwise(blocks[k]) == (quant == "int4")
+    assert isinstance(gen.params["lm_head"], QTensor)
+    assert not is_groupwise(gen.params["lm_head"])
+    assert isinstance(gen.params["embed"], torch.Tensor)
+    assert isinstance(blocks["attn_norm"], torch.Tensor)
+    L = gen.config.num_hidden_layers
+    # 4 tokens: one from the prefill (a 128-token bucket, M > 64), three
+    # from decode steps, unless the random model stops early
+    n = i4.LAUNCHES["int4_matmul_plain"]
+    if quant == "int4":
+        assert n > 0 and n % (7 * L) == 0 and n <= 3 * 7 * L
+    else:
+        assert n == 0
+    assert i4.LAUNCHES["int4_matmul"] == 0
+
+
+def test_quant_rule_matches_the_jax_args():
+    for name in ("none", "int8", "int4"):
+        assert Args(quant=name).validate().quant == name
+        assert JArgs(quant=name).validate().quant == name
+    for name in ("int3", "int2", "fp8"):
+        with pytest.raises(ValueError) as theirs:
+            JArgs(quant=name).validate()
+        with pytest.raises(ValueError) as ours:
+            Args(quant=name).validate()
+        assert str(ours.value) == str(theirs.value)
+    with pytest.raises(ValueError, match="unsupported quant"):
+        cli.main(["--cpu", "--quant", "int3"])
+
+
+def test_quant_engine_serves_from_the_masters_quantized_params():
+    master = Master.from_args(Args(cpu=True, quant="int4", max_seq_len=128,
+                                   kv_pages=8, kv_page_size=16))
+    engine = master.make_engine(max_slots=2)
+    assert engine.params is master.llm.params
+    i4.reset_launch_counts()
+    with engine:
+        h = engine.submit([3] * 12, max_new_tokens=3, temperature=0.0)
+        assert h.wait(timeout=120) and h._req.error is None
+    assert engine._pager.free_pages == 8
+    assert i4.LAUNCHES["int4_matmul_plain"] > 0
 
 
 def test_model_dir_config_without_weights_uses_random_init(tmp_path):

@@ -6,10 +6,15 @@ logits (1e-4) and caches (1e-5), with `use_flash_attention` off (the
 masked einsum on both sides) and on (JAX through its Pallas kernels in
 interpret mode, the port through the kernels' plain versions on the
 CPU), with and without a sliding window. `update_layer_cache` clamps
-its start as `lax.dynamic_update_slice` does.
+its start as `lax.dynamic_update_slice` does. With int4 and int8 weights
+carried over from `quantize_params` (hidden 128, intermediate 256, so
+JAX's decode products reach its Pallas kernel, interpreted) the same
+three steps give JAX's logits within 1e-3: the int4 kernel's f32 sums
+run in another order than the port's plain version.
 """
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -23,11 +28,13 @@ from cake_tpu.models.llama.cache import KVCache as JCache
 from cake_tpu.models.llama.cache import update_layer_cache as j_update
 from cake_tpu.models.llama.config import LlamaConfig as JConfig
 from cake_tpu.models.llama.params import init_params as j_init
+from cake_tpu.ops.quant import quantize_params as j_quantize_params
 from cake_tpu_torch.models.llama import model as tm
 from cake_tpu_torch.models.llama.cache import KVCache, update_layer_cache
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.params import params_from_numpy
 from cake_tpu_torch.ops import flash_attention as fa
+from cake_tpu_torch.ops import int4_matmul as i4
 
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 CACHE = dict(atol=1e-5, rtol=1e-5)
@@ -156,6 +163,55 @@ def test_chunked_prefill_with_kv_dtype_unlike_q_takes_einsum(params):
                                  tm.RopeTables.create(tc, T), tc)
     assert torch.isfinite(logits).all()
     assert fa.LAUNCHES["flash_attn_cached_plain"] == 0
+
+
+QCFG = dict(num_hidden_layers=L, hidden_size=128, intermediate_size=256)
+QLOGITS = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_weights_steps_match_jax(bits):
+    """prefill (M = 64 rows), a 16-token prefill_chunk and two decode
+    steps over int4 / int8 weights: JAX's logits within 1e-3 and its
+    caches within 1e-4; int4 decode products go through int4_matmul (its
+    plain version here), seven per layer and step."""
+    jc, tc = JConfig.tiny(**QCFG), LlamaConfig.tiny(**QCFG)
+    jp = jax.jit(partial(j_quantize_params, bits=bits))(
+        j_init(jc, jax.random.PRNGKey(1), dtype=jnp.float32))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    jrope, trope = _ropes(jc, tc)
+    jcache, tcache = _caches(jc, tc, 2)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, 256, size=(2, 32)).astype(np.int32)
+    plen = np.array([32, 20], np.int32)
+    i4.reset_launch_counts()
+    jl, jcache = jm.prefill(jp, jnp.asarray(toks), jnp.asarray(plen),
+                            jcache, jrope, jc)
+    tl, tcache = tm.prefill(tp, torch.from_numpy(toks),
+                            torch.from_numpy(plen), tcache, trope, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **QLOGITS)
+    win = rng.integers(0, 256, size=(2, 16)).astype(np.int32)
+    last = np.array([15, 15], np.int32)
+    jl, jcache = jm.prefill_chunk(jp, jnp.asarray(win), jnp.int32(32),
+                                  jnp.asarray(last), jcache, jrope, jc)
+    tl, tcache = tm.prefill_chunk(tp, torch.from_numpy(win), 32,
+                                  torch.from_numpy(last), tcache, trope, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **QLOGITS)
+    before = i4.LAUNCHES["int4_matmul_plain"]
+    for pos in (48, 49):
+        tok = rng.integers(0, 256, size=(2, 1)).astype(np.int32)
+        jl, jcache = jm.decode_step(jp, jnp.asarray(tok), jnp.int32(pos),
+                                    jcache, jrope, jc)
+        tl, tcache = tm.decode_step(tp, torch.from_numpy(tok), pos, tcache,
+                                    trope, tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **QLOGITS)
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k),
+                               atol=1e-4, rtol=1e-4)
+    # the 2 x 32 prefill and the 2 x 16 window are M <= 64 too
+    want = 7 * L * 2 if bits == 4 else 0
+    assert i4.LAUNCHES["int4_matmul_plain"] - before == want
+    assert (before > 0) == (bits == 4)
+    assert i4.LAUNCHES["int4_matmul"] == 0
 
 
 @pytest.mark.parametrize("pos", [-30, -3, 0, 7, 11, 14, 20])

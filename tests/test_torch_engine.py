@@ -9,6 +9,7 @@ prompts, every page returns to the pool after retirement, and the
 
 import json
 import time
+from functools import partial
 import urllib.error
 import urllib.request
 
@@ -22,6 +23,7 @@ import torch
 from cake_tpu.models.llama.config import LlamaConfig as JConfig
 from cake_tpu.models.llama.generator import ByteTokenizer as JByteTok
 from cake_tpu.models.llama.params import init_params as j_init
+from cake_tpu.ops.quant import quantize_params as j_quantize_params
 from cake_tpu.ops.sampling import SamplingConfig as JSampling
 from cake_tpu.serve.engine import InferenceEngine as JEngine
 from cake_tpu_torch.api.server import start
@@ -32,6 +34,7 @@ from cake_tpu_torch.models.llama.generator import (
     ByteTokenizer, LlamaGenerator,
 )
 from cake_tpu_torch.models.llama.params import params_from_numpy
+from cake_tpu_torch.ops import int4_matmul as i4
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve.engine import InferenceEngine
 
@@ -277,6 +280,48 @@ def test_quantized_greedy_streams_token_identical_to_jax_engine(models,
     want = torch.uint8 if kv_dtype == "int4" else torch.int8
     assert teng.cache.k.q.dtype == want and teng.kv_quant
     assert teng._pager.free_pages == 24 and teng._pager.live_pages == 0
+
+
+@pytest.mark.parametrize("quant,kv_dtype", [("int4", None), ("int8", None),
+                                            ("int4", "int4")])
+def test_quantized_weights_greedy_streams_token_identical_to_jax_engine(
+        quant, kv_dtype):
+    """int4 / int8 weights quantized by the JAX package and carried over
+    (hidden 128, intermediate 256: the JAX engine's 3 x 8 mixed steps and
+    3-row decode steps reach its Pallas kernel, interpreted), over f32
+    pages, and int4 weights over int4 pages: greedy streams identical to
+    the JAX engine's, every page returned, and the port's int4 products
+    all decode-shaped (int4_matmul's plain version on the CPU)."""
+    cfg = dict(num_hidden_layers=2, hidden_size=128, intermediate_size=256)
+    jc, tc = JConfig.tiny(**cfg), LlamaConfig.tiny(**cfg)
+    jp = jax.jit(partial(j_quantize_params, bits=int(quant[3:])))(
+        j_init(jc, jax.random.PRNGKey(4), dtype=jnp.float32))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    common = dict(max_slots=3, max_seq_len=T, kv_pages=24,
+                  kv_page_size=PAGE, prefill_chunk=8, mixed_batch="on",
+                  kv_dtype=kv_dtype)
+    jeng = JEngine(jc, jp, JByteTok(jc.vocab_size),
+                   sampling=JSampling(temperature=0.0, repeat_penalty=1.0),
+                   cache_dtype=jnp.float32, paged_attn="fold", **common)
+    teng = InferenceEngine(
+        tc, tp, ByteTokenizer(tc.vocab_size), device="cpu",
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+        cache_dtype=torch.float32, paged_attn="auto", **common)
+    runs = []
+    i4.reset_launch_counts()
+    for eng in (jeng, teng):
+        with eng:
+            hs = [eng.submit(p, max_new_tokens=8) for p in QPROMPTS]
+            assert all(h.wait(timeout=300) for h in hs)
+        runs.append([list(h._req.out_tokens) for h in hs])
+    assert runs[1] == runs[0]
+    assert teng._pager.free_pages == 24 and teng._pager.live_pages == 0
+    n = i4.LAUNCHES["int4_matmul_plain"]
+    if quant == "int4":
+        assert n == 14 * teng.stats.steps and n > 0
+    else:
+        assert n == 0
+    assert i4.LAUNCHES["int4_matmul"] == 0
 
 
 def test_quantized_pool_is_rebuilt_quantized_after_a_failed_step(

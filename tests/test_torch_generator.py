@@ -11,6 +11,7 @@ are held by support: each lies inside the top-k set.
 """
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from cake_tpu.models.llama import generator as jgen
 from cake_tpu.models.llama.config import LlamaConfig as JConfig
 from cake_tpu.models.llama.params import init_params as j_init
 from cake_tpu.ops import sampling as jsmp
+from cake_tpu.ops.quant import quantize_params as j_quantize_params
 from cake_tpu_torch.args import Args
 from cake_tpu_torch.master import Master
 from cake_tpu_torch.models.chat import Message
@@ -33,6 +35,7 @@ from cake_tpu_torch.models.llama import generator as tgen
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.params import params_from_numpy
 from cake_tpu_torch.ops import flash_attention as fa
+from cake_tpu_torch.ops import int4_matmul as i4
 from cake_tpu_torch.ops import sampling as tsmp
 
 MAX_SEQ = 256
@@ -97,6 +100,43 @@ def test_greedy_tokens_identical_to_jax_generator(params, flash,
         assert fa.LAUNCHES["flash_attn_plain"] == L
     else:
         assert sum(fa.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("prefill_chunk", [None, 16])
+def test_quantized_greedy_tokens_identical_to_jax_generator(bits,
+                                                            prefill_chunk):
+    """int4 / int8 weights quantized by the JAX package and carried
+    over, f32 activations and cache (hidden 128 and intermediate 256, so
+    JAX's decode products reach its Pallas kernel): the same greedy
+    stream; the port's int4 decode products run int4_matmul's plain
+    version, seven per layer and step."""
+    cfg = dict(num_hidden_layers=L, hidden_size=128, intermediate_size=256)
+    jc, tc = JConfig.tiny(**cfg), LlamaConfig.tiny(**cfg)
+    jp = jax.jit(partial(j_quantize_params, bits=bits))(
+        j_init(jc, jax.random.PRNGKey(3), dtype=jnp.float32))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    j = jgen.LlamaGenerator(
+        jc, jp, jgen.ByteTokenizer(jc.vocab_size), max_seq_len=MAX_SEQ,
+        sampling=jsmp.SamplingConfig(temperature=0.0, repeat_penalty=1.1),
+        cache_dtype=jnp.float32, prefill_chunk=prefill_chunk)
+    t = tgen.LlamaGenerator(
+        tc, tp, tgen.ByteTokenizer(tc.vocab_size), max_seq_len=MAX_SEQ,
+        sampling=tsmp.SamplingConfig(temperature=0.0, repeat_penalty=1.1),
+        cache_dtype=torch.float32, prefill_chunk=prefill_chunk,
+        device="cpu")
+    prompt = "Why is the sky blue? Answer in one word."
+    want = _stream(j, JMessage, prompt)
+    i4.reset_launch_counts()
+    got = _stream(t, Message, prompt)
+    assert got == want
+    decode_steps = len(got) - 1
+    windows = -(-t._prompt_len // 16) if prefill_chunk else 0
+    if bits == 4:      # a 16-token window is decode-shaped (M <= 64) too
+        assert i4.LAUNCHES["int4_matmul_plain"] == 7 * L * (
+            decode_steps + windows)
+    else:
+        assert i4.LAUNCHES["int4_matmul_plain"] == 0
 
 
 def test_reset_replays_the_same_greedy_stream(params):

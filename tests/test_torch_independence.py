@@ -52,6 +52,8 @@ def test_package_imports_with_jax_unavailable():
         "import cake_tpu_torch.models.llama.paged\n"
         "import cake_tpu_torch.ops.ragged_paged_attention\n"
         "import cake_tpu_torch.models.llama.params\n"
+        "import cake_tpu_torch.ops.int4_matmul, cake_tpu_torch.ops.quant\n"
+        "import cake_tpu_torch.context, cake_tpu_torch.cli\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'cake_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

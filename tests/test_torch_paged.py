@@ -7,6 +7,8 @@ pools (JAX attn="fold"; the port's "auto", which is the plain fold on
 CPU tensors).
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -18,10 +20,12 @@ from cake_tpu.models.llama import paged as jpg
 from cake_tpu.models.llama.config import LlamaConfig as JConfig
 from cake_tpu.models.llama.model import RopeTables as JRope
 from cake_tpu.models.llama.params import init_params as j_init
+from cake_tpu.ops.quant import quantize_params as j_quantize_params
 from cake_tpu_torch.models.llama import paged as tpg
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import RopeTables
 from cake_tpu_torch.models.llama.params import params_from_numpy
+from cake_tpu_torch.ops import int4_matmul as i4
 from cake_tpu_torch.ops import ragged_paged_attention as rpa
 
 LOGITS = dict(atol=1e-4, rtol=1e-4)
@@ -213,6 +217,55 @@ def test_moe_router_leaf_is_refused(tiny):
             dict(tp, blocks=blocks), torch.zeros((1, 1), dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=bool),
             cache, RopeTables.create(tc, 64), tc)
+
+
+# -- int4 / int8 weights --------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_weights_steps_match_jax(bits):
+    """The mixed step (3 x 8 rows) and the decode step (3 rows) over
+    int4 / int8 weights quantized by the JAX package (hidden 128,
+    intermediate 256: JAX's products reach its Pallas kernel,
+    interpreted), f32 pools: JAX's logits within 1e-3 (the f32 sums of
+    the int4 product run in another order), pools within 1e-4."""
+    cfg = dict(num_hidden_layers=2, hidden_size=128, intermediate_size=256)
+    jc, tc = JConfig.tiny(**cfg), LlamaConfig.tiny(**cfg)
+    jp = jax.jit(partial(j_quantize_params, bits=bits))(
+        j_init(jc, jax.random.PRNGKey(2), dtype=jnp.float32))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(5)
+    jcache, tcache = _caches(jc, tc, rng)
+    jrope, trope = JRope.create(jc, 64), RopeTables.create(tc, 64)
+    tokens = rng.integers(0, 256, size=(3, 8)).astype(np.int32)
+    pos = np.array([20, 13, 0], np.int32)
+    qlen = np.array([1, 8, 0], np.int32)
+    active = qlen > 0
+    tol = dict(atol=1e-3, rtol=1e-3)
+    i4.reset_launch_counts()
+    jl, jcache = jpg.mixed_step_paged(
+        jp, *(jnp.asarray(x) for x in (tokens, pos, qlen, active)), jcache,
+        jrope, jc, attn="fold")
+    tl, tcache = tpg.mixed_step_paged(
+        tp, *(torch.from_numpy(x) for x in (tokens, pos, qlen, active)),
+        tcache, trope, tc)
+    np.testing.assert_allclose(tl.numpy()[[0, 1]], np.asarray(jl)[[0, 1]],
+                               **tol)
+    dpos = np.array([21, 21, 0], np.int32)
+    jl, jcache = jpg.decode_step_ragged_paged(
+        jp, jnp.asarray(tokens[:, :1]), jnp.asarray(dpos),
+        jnp.asarray(active), jcache, jrope, jc, attn="fold")
+    tl, tcache = tpg.decode_step_ragged_paged(
+        tp, torch.from_numpy(tokens[:, :1]), torch.from_numpy(dpos),
+        torch.from_numpy(active), tcache, trope, tc)
+    np.testing.assert_allclose(tl.numpy()[[0, 1]], np.asarray(jl)[[0, 1]],
+                               **tol)
+    for a, b in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)
+    # both steps are decode-shaped (24 and 3 rows): seven products a layer
+    assert i4.LAUNCHES["int4_matmul_plain"] == (28 if bits == 4 else 0)
+    assert i4.LAUNCHES["int4_matmul"] == 0
 
 
 # -- int8 / int4 pools ----------------------------------------------------------

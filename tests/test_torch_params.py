@@ -55,6 +55,35 @@ def test_params_from_numpy_round_trip(bias):
         np.testing.assert_array_equal(t.numpy(), a, err_msg=str(k))
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_params_from_numpy_carries_a_quantized_tree(bits):
+    """A tree from the JAX package's init_params_quantized: every QTensor
+    node becomes the port's, q in its int8 / packed uint8 bytes and scale
+    in f32 whatever `dtype` asks of the other leaves."""
+    from cake_tpu.models.llama.params import init_params_quantized as j_iq
+    from cake_tpu.ops.quant import QTensor as JQTensor
+    from cake_tpu_torch.ops.quant import QTensor, is_groupwise
+
+    jc = JConfig.tiny(num_hidden_layers=2, attention_bias=True)
+    jp = jax.tree.map(np.asarray, j_iq(jc, jax.random.PRNGKey(0),
+                                       dtype=jnp.float32, bits=bits))
+    tp = params_from_numpy(jp, device="cpu", dtype=torch.bfloat16)
+    for k, v in jp["blocks"].items():
+        t = tp["blocks"][k]
+        if isinstance(v, JQTensor):
+            assert isinstance(t, QTensor) and is_groupwise(t) == (bits == 4)
+            assert t.q.dtype == (torch.uint8 if bits == 4 else torch.int8)
+            assert t.scale.dtype == torch.float32
+            np.testing.assert_array_equal(t.q.numpy(), v.q)
+            np.testing.assert_array_equal(t.scale.numpy(), v.scale)
+        else:
+            assert t.dtype == torch.bfloat16
+    lm = tp["lm_head"]
+    assert isinstance(lm, QTensor) and lm.q.dtype == torch.int8
+    np.testing.assert_array_equal(lm.q.numpy(), jp["lm_head"].q)
+    assert tp["embed"].dtype == torch.bfloat16
+
+
 def test_params_from_numpy_bf16_leaves_cross_by_bits():
     jp = jax.tree.map(np.asarray, j_init(JConfig.tiny(num_hidden_layers=1),
                                          jax.random.PRNGKey(1)))
