@@ -32,7 +32,40 @@
 // still below the ~295 flops/byte where the H100's tensor cores would
 // bound it. So the floor is live K/V bytes / 3.35 TB/s.
 //
-// What the design does about it:
+// rpa_decode over f32/bf16 pages -- rpa_split + rpa_merge, a flash-decoding
+// design, because one CTA per (row, kv head) gave 64 CTAs on 132 SMs at
+// B = 8 and the longest row's serial page walk set the time:
+//   * the grid is (KV x head groups, B, splits); split s covers table
+//     columns [s * pps, (s + 1) * pps) of its row, a head group up to four
+//     of the kv head's G query heads (G = 4 for Llama-3: one group; a
+//     larger G reads each page once per group). The wrapper picks pps and the
+//     split count from shapes alone (B, KV, max_pages, P, the SM count),
+//     never from pos or table, so the call reads nothing back to the host
+//     and captures into a CUDA graph. A split past its row's live range, or
+//     whose pages are all unmapped, writes m = -inf, l = 0 and exits;
+//   * inside a CTA, live slot rows (hd contiguous elements of one kv head)
+//     reach shared memory by cp.async in 16-byte pieces (narrower when a
+//     row's bytes are not a multiple of 16) through a ring of three stages
+//     of 32 slots, so two tiles' copies are in flight while one computes;
+//     only slots up to pos are fetched;
+//   * the group's query rows live in registers, pre-scaled to log2 units;
+//     warp w takes slots 8w .. 8w + 7 of each tile, its lanes split hd
+//     (lane owns dims lane + 32 i), dots reduce by warp shuffles, and each
+//     warp keeps its own online softmax (m, l, acc) in registers; the
+//     inner loops are branch-free (selects mask the slots past the live
+//     count), so their 32 dot-and-shuffle chains interleave -- with
+//     per-slot branches each chain's latency was exposed and a 32-slot
+//     tile cost ~9 us; at the end the four warps merge in warp order
+//     through shared memory and the split writes its f32 partial
+//     (m, l, acc[heads, hd]) to scratch the wrapper allocated;
+//   * rpa_merge folds a (row, kv head)'s splits in split order, normalises,
+//     and writes zeros where the total l is 0 (dead row, every page
+//     unmapped): the same bits every run, no atomics;
+//   * p stays f32 for p v, as in rpa_cta.
+// The slot reader has load_slot's shape, so the int8/int4 decode can move
+// onto this body next.
+//
+// rpa_cta, which every mixed kernel and the int8/int4 decode still run:
 //   * one CTA per (row, kv head[, query tile]) reads its own pos and
 //     table row and walks only the LIVE pages j < ceil((last + 1) / P),
 //     where last is the position of its last real query; unmapped ids
@@ -50,9 +83,7 @@
 //     hold NaN, and 0 * NaN is NaN;
 //   * a query with no attended slot (dead row, all pages unmapped,
 //     q_len = 0, padding column) writes zeros.
-// Scalar f32 FMAs, no TMA, no tensor cores: a first kernel that is
-// right. At B = 8 the decode grid is B * KV = 64 CTAs on 132 SMs;
-// splitting the page loop across CTAs is later work.
+// Scalar f32 FMAs, no TMA, no tensor cores: a first kernel that is right.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +137,10 @@ struct Args {
   int B, C, H, KV, hd, P, N, max_pages;  // P: real tokens per page
   int q_cols;          // query columns per CTA
   float scale;
+  int pps;             // rpa_split: table columns per split
+  int splits;          // rpa_split: splits per (row, kv head)
+  float* part;         // rpa_split: [B, KV, splits, G, 2] (m, l), then
+                       // [B, KV, splits, G, hd] acc
 };
 
 size_t smem_bytes(int hd) {
@@ -291,16 +326,357 @@ __global__ void __launch_bounds__(kThreads) rpa_mixed_kernel(Args a) {
   rpa_cta<TQ, TKV>(a, blockIdx.y, blockIdx.x, blockIdx.z * a.q_cols);
 }
 
+// -- rpa_split / rpa_merge: the split decode body (f32 / bf16 pages) ---------
+
+constexpr int kSplitTile = 32;                          // slots a ring stage
+constexpr int kSplitStages = 3;
+constexpr int kSlotsPerWarp = kSplitTile / (kThreads / 32);   // 8
+constexpr int kSplitHeads = 4;     // query heads a CTA: G > 4 takes
+                                   // ceil(G / 4) CTAs, each reading the pages
+
+// Slot t of page `page`, kv head `kv`: its hd contiguous elements (the
+// indexing of load_slot, a whole row at a time).
+template <typename TKV>
+__device__ __forceinline__ const TKV* slot_row(const TKV* p, const Args& a,
+                                               int page, int t, int kv) {
+  return p + (((size_t)page * a.P + t) * a.KV + kv) * a.hd;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copy one piece of `bytes` (16, 8 or 4 by cp.async; 2 by a plain load).
+__device__ __forceinline__ void copy_piece(char* dst, const char* src,
+                                           int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)), "l"(src));
+  else
+    *reinterpret_cast<uint16_t*>(dst) =
+        *reinterpret_cast<const uint16_t*>(src);
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The ring (three stages of K and V tiles), reused after the page walk for
+// the four warps' (m, l, acc) of the in-CTA merge.
+size_t split_smem_bytes(int hd, int elem_bytes) {
+  const size_t ring = (size_t)kSplitStages * 2 * kSplitTile * hd * elem_bytes;
+  const size_t merge =
+      sizeof(float) * (kThreads / 32) * kSplitHeads * (hd + 2);
+  return ring > merge ? ring : merge;
+}
+
+// One split of one (kv head, row) for one group of up to kSplitHeads of the
+// kv head's G query heads: table columns [s * pps, (s + 1) * pps) of the
+// live range. Writes the group's f32 partial (m, l) and acc[., hd], m in
+// log2 units (scores are pre-scaled by log2 e). kD: head dims a lane owns
+// (hd <= 32 kD). The inner loops carry no branch (a slot past the tile's
+// live count is masked by selects, its v replaced by 0 before the product),
+// so the compiler can interleave their independent chains.
+template <typename TQ, typename TKV, int kD>
+__global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
+  extern __shared__ float4 smem4[];
+  char* ring = reinterpret_cast<char*>(smem4);
+  const int G = a.H / a.KV;
+  const int n_hg = (G + kSplitHeads - 1) / kSplitHeads;
+  const int kv = blockIdx.x / n_hg, g0 = (blockIdx.x % n_hg) * kSplitHeads;
+  const int gn = min(kSplitHeads, G - g0);      // query heads of this CTA
+  const int b = blockIdx.y, s = blockIdx.z;
+  const int hd = a.hd;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row_bytes = hd * (int)sizeof(TKV);
+  const int stage_bytes = 2 * kSplitTile * row_bytes;
+  const TKV* kp = static_cast<const TKV*>(a.k);
+  const TKV* vp = static_cast<const TKV*>(a.v);
+
+  const int pos = a.pos[b];
+  const int n_live = pos < 0 ? 0 : min(a.max_pages, pos / a.P + 1);
+  const int j1 = min((s + 1) * a.pps, n_live);
+  const size_t cell = ((size_t)b * a.KV + kv) * a.splits + s;
+  float* ml = a.part + (cell * G + g0) * 2;
+  float* acc_out =
+      a.part + (size_t)a.B * a.KV * a.splits * G * 2 + (cell * G + g0) * hd;
+
+  // the split's live tiles in order: (column j, first slot t0) of a mapped
+  // page with t0 below the page's live slot count; unmapped ids (-1, or
+  // >= N) are skipped before any load
+  auto next = [&](int& j, int& t0, int& page) {
+    for (; j < j1; ++j, t0 = 0) {
+      page = a.table[(size_t)b * a.max_pages + j];
+      if (page >= 0 && page < a.N && t0 < min(a.P, pos - j * a.P + 1))
+        return true;
+    }
+    return false;
+  };
+  int cj = s * a.pps, ct = 0, cpage = -1;
+  bool c_ok = next(cj, ct, cpage);
+  if (!c_ok) {                  // nothing live here: an empty partial
+    if (tid < gn) {
+      ml[2 * tid] = kNegInf;
+      ml[2 * tid + 1] = 0.f;
+    }
+    return;
+  }
+
+  int pj = cj, pt = ct, ppage = cpage, fetched = 0;
+  bool p_ok = true;
+  auto fetch = [&]() {          // the producer's tile into the next stage
+    char* st = ring + (fetched % kSplitStages) * stage_bytes;
+    const int nt = min(kSplitTile, min(a.P, pos - pj * a.P + 1) - pt);
+    const int pieces = row_bytes / vec;
+    for (int i = tid; i < 2 * nt * pieces; i += kThreads) {
+      const int r = i / pieces, c = i - r * pieces;
+      const bool is_v = r >= nt;                  // rows [0, nt) K, then V
+      const int t = is_v ? r - nt : r;
+      const char* src = reinterpret_cast<const char*>(
+          slot_row(is_v ? vp : kp, a, ppage, pt + t, kv));
+      copy_piece(st + (is_v ? kSplitTile * row_bytes : 0) + t * row_bytes +
+                     c * vec,
+                 src + c * vec, vec);
+    }
+    ++fetched;
+    pt += kSplitTile;
+    p_ok = next(pj, pt, ppage);
+  };
+  for (int i = 0; i < kSplitStages - 1; ++i) {
+    if (p_ok) fetch();
+    cp_commit();
+  }
+
+  // the group's query rows in registers, lane owning dims lane + 32 i; a
+  // lane past hd reads dim hd - 1 against a zero q (and its acc is never
+  // written out)
+  const float sl2 = a.scale * 1.4426950408889634f;
+  const TQ* q =
+      static_cast<const TQ*>(a.q) + ((size_t)b * a.H + kv * G + g0) * hd;
+  float qr[kSplitHeads][kD], acc[kSplitHeads][kD];
+  float m[kSplitHeads], l[kSplitHeads];
+  int dl[kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) dl[i] = min(lane + 32 * i, hd - 1);
+#pragma unroll
+  for (int g = 0; g < kSplitHeads; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      acc[g][i] = 0.f;
+      qr[g][i] = g < gn && lane + 32 * i < hd
+                    ? to_f(q[min(g, gn - 1) * hd + dl[i]]) * sl2
+                    : 0.f;
+    }
+  }
+
+  for (int it = 0; c_ok; ++it) {
+    cp_wait<kSplitStages - 2>();   // tile `it` has landed
+    __syncthreads();               // and every warp is done with tile it - 1
+    if (p_ok) fetch();             // into tile it - 1's stage
+    cp_commit();
+    const char* st = ring + (it % kSplitStages) * stage_bytes;
+    const TKV* ks = reinterpret_cast<const TKV*>(st);
+    const TKV* vs = reinterpret_cast<const TKV*>(st + kSplitTile * row_bytes);
+    const int nt = min(kSplitTile, min(a.P, pos - cj * a.P + 1) - ct);
+    const int u0 = warp * kSlotsPerWarp;
+    const int nu = min(kSlotsPerWarp, nt - u0);   // live slots of the warp
+    if (nu > 0) {                  // warp-uniform
+      float sc[kSlotsPerWarp][kSplitHeads];
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u) {
+        const TKV* kr = ks + (u0 + u) * hd;
+#pragma unroll
+        for (int g = 0; g < kSplitHeads; ++g) sc[u][g] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kD; ++i) {
+          const float kx = to_f(kr[dl[i]]);
+#pragma unroll
+          for (int g = 0; g < kSplitHeads; ++g)
+            sc[u][g] = fmaf(qr[g][i], kx, sc[u][g]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u)
+#pragma unroll
+        for (int g = 0; g < kSplitHeads; ++g) sc[u][g] = warp_sum(sc[u][g]);
+      // online softmax over the warp's live slots of this tile; a slot past
+      // nu (past pos, or past the page) gets p = 0 and a v of 0
+#pragma unroll
+      for (int g = 0; g < kSplitHeads; ++g) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int u = 0; u < kSlotsPerWarp; ++u)
+          mx = fmaxf(mx, u < nu ? sc[u][g] : kNegInf);
+        const float mn = fmaxf(m[g], mx);
+        const float al = exp2f(m[g] - mn);
+        m[g] = mn;
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < kSlotsPerWarp; ++u) {
+          const float p = u < nu ? exp2f(sc[u][g] - mn) : 0.f;
+          sc[u][g] = p;
+          ps += p;
+        }
+        l[g] = l[g] * al + ps;
+#pragma unroll
+        for (int i = 0; i < kD; ++i) acc[g][i] *= al;
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u) {
+        const TKV* vr = vs + (u0 + u) * hd;
+#pragma unroll
+        for (int i = 0; i < kD; ++i) {
+          const float vx = u < nu ? to_f(vr[dl[i]]) : 0.f;
+#pragma unroll
+          for (int g = 0; g < kSplitHeads; ++g)
+            acc[g][i] = fmaf(sc[u][g], vx, acc[g][i]);
+        }
+      }
+    }
+    ct += kSplitTile;
+    c_ok = next(cj, ct, cpage);
+  }
+
+  // merge the four warps' stats in warp order through shared memory
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  constexpr int kW = kThreads / 32;
+  float* wm = reinterpret_cast<float*>(ring);     // [4][kSplitHeads]
+  float* wl = wm + kW * kSplitHeads;              // [4][kSplitHeads]
+  float* wacc = wl + kW * kSplitHeads;            // [4][kSplitHeads][hd]
+#pragma unroll
+  for (int g = 0; g < kSplitHeads; ++g) {
+    if (lane == 0) {
+      wm[warp * kSplitHeads + g] = m[g];
+      wl[warp * kSplitHeads + g] = l[g];
+    }
+#pragma unroll
+    for (int i = 0; i < kD; ++i)
+      if (lane + 32 * i < hd)
+        wacc[(warp * kSplitHeads + g) * hd + lane + 32 * i] = acc[g][i];
+  }
+  __syncthreads();
+  for (int i = tid; i < gn * hd; i += kThreads) {
+    const int g = i / hd, d = i - g * hd;
+    float M = kNegInf;
+    for (int w = 0; w < kW; ++w) M = fmaxf(M, wm[w * kSplitHeads + g]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < kW; ++w) {
+      const float e = exp2f(wm[w * kSplitHeads + g] - M);
+      L += e * wl[w * kSplitHeads + g];
+      A += e * wacc[(w * kSplitHeads + g) * hd + d];
+    }
+    acc_out[i] = A;
+    if (d == 0) {
+      ml[2 * g] = M;
+      ml[2 * g + 1] = L;
+    }
+  }
+}
+
+// Fold the splits of one (kv head, row) in split order and normalise; a
+// total l of 0 (dead row, every page unmapped) writes zeros.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads) rpa_merge_kernel(Args a) {
+  const int kv = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.KV;
+  const int hd = a.hd;
+  const int S = a.splits;
+  const size_t cell = ((size_t)b * a.KV + kv) * S;
+  const float* ml = a.part + cell * G * 2;
+  const float* acc =
+      a.part + (size_t)a.B * a.KV * S * G * 2 + cell * G * hd;
+  TQ* out = static_cast<TQ*>(a.out) + ((size_t)b * a.H + kv * G) * hd;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i - g * hd;
+    float M = kNegInf;
+    for (int s = 0; s < S; ++s) M = fmaxf(M, ml[(s * G + g) * 2]);
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float ls = ml[(s * G + g) * 2 + 1];
+      if (ls > 0.f) {             // an empty split wrote no acc
+        const float e = exp2f(ml[(s * G + g) * 2] - M);
+        L += e * ls;
+        A += e * acc[((size_t)s * G + g) * hd + d];
+      }
+    }
+    out[i] = from_f<TQ>(L > 0.f ? A / L : 0.f);
+  }
+}
+
 typedef void (*KernelFn)(Args);
+typedef void (*SplitFn)(Args, int);
+
+template <typename TQ, typename TKV>
+SplitFn pick_split_d(int hd) {
+  return hd <= 128 ? &rpa_split_kernel<TQ, TKV, 4>
+                   : &rpa_split_kernel<TQ, TKV, 8>;
+}
+
+template <typename TQ>
+SplitFn pick_split_kv(int kv_dtype, int hd) {
+  if (kv_dtype == 0) return pick_split_d<TQ, float>(hd);
+  if (kv_dtype == 1) return pick_split_d<TQ, __nv_bfloat16>(hd);
+  return nullptr;
+}
+
+// rpa_split then rpa_merge on one stream: f32/bf16 queries over f32/bf16
+// pages.
+int launch_split(const Args& a, int q_dtype, int kv_dtype,
+                 cudaStream_t stream) {
+  const int G = a.H / a.KV;
+  const int n_hg = (G + kSplitHeads - 1) / kSplitHeads;
+  SplitFn fn = q_dtype == 0   ? pick_split_kv<float>(kv_dtype, a.hd)
+               : q_dtype == 1 ? pick_split_kv<__nv_bfloat16>(kv_dtype, a.hd)
+                              : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  KernelFn merge = q_dtype == 0 ? &rpa_merge_kernel<float>
+                                : &rpa_merge_kernel<__nv_bfloat16>;
+  const int elem = kv_dtype == 0 ? 4 : 2;
+  // the widest piece that divides a slot row's bytes and both pools'
+  // alignment (16, 8, 4; a bf16 row of odd hd goes 2 bytes at a time)
+  const uintptr_t any =
+      (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)(a.hd * elem);
+  int vec = 2;
+  for (int v = 16; v >= 4; v >>= 1)
+    if (any % v == 0) {
+      vec = v;
+      break;
+    }
+  const size_t smem = split_smem_bytes(a.hd, elem);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<dim3(a.KV * n_hg, a.B, a.splits), kThreads, smem, stream>>>(a, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  merge<<<dim3(a.KV, a.B), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // kv dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4
+// (the decode over 0 and 1 is rpa_split, launched by launch_split)
 template <typename TQ>
 KernelFn pick_kv(bool mixed, int kv_dtype) {
   switch (kv_dtype) {
-    case 0: return mixed ? &rpa_mixed_kernel<TQ, float>
-                         : &rpa_decode_kernel<TQ, float>;
-    case 1: return mixed ? &rpa_mixed_kernel<TQ, __nv_bfloat16>
-                         : &rpa_decode_kernel<TQ, __nv_bfloat16>;
+    case 0: return mixed ? &rpa_mixed_kernel<TQ, float> : nullptr;
+    case 1: return mixed ? &rpa_mixed_kernel<TQ, __nv_bfloat16> : nullptr;
     case 2: return mixed ? &rpa_mixed_kernel<TQ, int8_t>
                          : &rpa_decode_kernel<TQ, int8_t>;
     case 3: return mixed ? &rpa_mixed_kernel<TQ, uint8_t>
@@ -351,16 +727,28 @@ int rpa_max_group() { return kRows; }
 int rpa_max_head_dim() { return kMaxHd; }
 
 // Decode: q/out [B, 1, H, hd]; sk/sv null unless the pages are quantized;
-// P counts real tokens per page. Returns cudaGetLastError() of the launch.
+// P counts real tokens per page. f32/bf16 pages run rpa_split over
+// `splits` splits of `pps` table columns (splits * pps >= max_pages) and
+// rpa_merge, with `part` f32 scratch of B * KV * splits * G * (hd + 2)
+// floats; int8/int4 pages run rpa_cta and ignore the three. Returns
+// cudaGetLastError() of the launches.
 int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
                const float* sv, const int* table, const int* pos, void* out,
                int B, int H, int KV, int hd, int P, int N, int max_pages,
-               float scale, int q_dtype, int kv_dtype, void* stream) {
+               float scale, int q_dtype, int kv_dtype, int pps, int splits,
+               float* part, void* stream) {
   if (!shape_ok(H, KV, hd) || !pool_ok(kv_dtype, sk, sv, P))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   Args a{q, k, v, sk, sv, table, pos, nullptr, out,
-         B, 1, H, KV, hd, P, N, max_pages, 1, scale};
+         B, 1, H, KV, hd, P, N, max_pages, 1, scale, pps, splits, part};
+  if (kv_dtype < 2) {
+    if (part == nullptr || pps < 1 || splits < 1 ||
+        (long long)pps * splits < max_pages || splits > 65535)
+      return (int)cudaErrorInvalidValue;
+    return launch_split(a, q_dtype, kv_dtype,
+                        static_cast<cudaStream_t>(stream));
+  }
   return launch(false, a, q_dtype, kv_dtype, dim3(KV, B, 1),
                 static_cast<cudaStream_t>(stream));
 }

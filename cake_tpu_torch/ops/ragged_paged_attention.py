@@ -26,7 +26,10 @@ int32 with -1 = unmapped, pos [B] = absolute position of each row's
 first query; the queries' KV is already written.
 
 `LAUNCHES` counts kernel launches and plain-version calls by name, so a
-run can show which path its attention took.
+run can show which path its attention took. The decode over f32/bf16
+pages is two launches (`rpa_split`, then `rpa_merge`) counted as one
+call: its page loop is split across CTAs by `split_plan`, which the
+plain version follows.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def reset_launch_counts() -> None:
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rpa_decode.argtypes = [p] * 8 + [i] * 7 + [f, i, i, p]
+    lib.rpa_decode.argtypes = [p] * 8 + [i] * 7 + [f, i, i, i, i, p, p]
     lib.rpa_mixed.argtypes = [p] * 9 + [i] * 8 + [f, i, i, p]
     lib.rpa_decode.restype = i
     lib.rpa_mixed.restype = i
@@ -72,6 +75,43 @@ def _bind(lib) -> None:
 
 LIBRARY = CudaLibrary("ragged_paged_attention.cu", _bind)
 SOURCE = LIBRARY.source
+
+
+# SMs of the card a plain version on the CPU plans for (an H100's); on a
+# CUDA device the plan reads the device's own count
+CPU_SM_COUNT = 132
+# a split covers at most this many slots, so a long row is spread over
+# more CTAs than the floor of two an SM asks for
+SPLIT_SLOTS = 128
+_SM_COUNTS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count split_plan plans for: the card's, read once per
+    device; CPU_SM_COUNT for a CPU tensor."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_SM_COUNT
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+def split_plan(B: int, KV: int, max_pages: int, P: int,
+               n_sm: int) -> tuple[int, int]:
+    """(splits, pages per split) of the decode's page loop, from shapes
+    alone: enough splits that B * KV * splits CTAs give every SM two when
+    the rows are long, and no split longer than SPLIT_SLOTS slots. Split
+    s covers table columns [s * pps, (s + 1) * pps); every column lies in
+    exactly one split."""
+    if max_pages < 1:
+        return 1, 1
+    want = -(-2 * n_sm // max(1, B * KV))
+    pps = max(1, min(-(-max_pages // want), SPLIT_SLOTS // P))
+    return -(-max_pages // pps), pps
 
 
 def kernel_name(base: str, scale_k=None, packed4: bool = False) -> str:
@@ -172,15 +212,21 @@ def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
                                             scale=scale, **quant)
     _check_cuda_args(q, pool_k, pool_v, table, pos, **quant)
     N, rows, KV, _ = pool_k.shape
+    P = rows * (2 if packed4 else 1)
+    max_pages = table.shape[1]
     out = torch.empty_like(q)
+    splits, pps, part = 0, 0, None
+    if scale_k is None:         # rpa_split + rpa_merge: f32 partials
+        splits, pps = split_plan(B, KV, max_pages, P, sm_count(q.device))
+        part = torch.empty(B * KV * splits * (H // KV) * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     lib = LIBRARY.get()
     rc = lib.rpa_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, KV, hd, rows * (2 if packed4 else 1), N,
-        table.shape[1], float(scale), _Q_CODES[q.dtype],
-        _KV_CODES[pool_k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), B, H, KV, hd, P, N, max_pages, float(scale),
+        _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], pps, splits,
+        _ptr(part), torch.cuda.current_stream(q.device).cuda_stream)
     _launch(kernel_name("rpa_decode", scale_k, packed4), rc)
     return out
 
@@ -249,27 +295,37 @@ def _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4):
     return read, _pool_page(pk)
 
 
-def _fold(q, read, KV, table, valid_fn, scale):
-    """Fold every table column j into running (m, l, o) stats: read page
+def _fold(q, read, KV, table, valid_fn, scale, pps=None):
+    """Fold the table columns j into running (m, l, o) stats: read page
     j of each row (unmapped ids read zeros), mask with
-    valid_fn(j, mapped) -> bool [B, C, P], merge. Returns [B, C, H, hd]."""
+    valid_fn(j, mapped) -> bool [B, C, P]. With `pps` each run of pps
+    columns folds into stats of its own, as a split of the kernel does;
+    the splits' stats then merge in order. Returns [B, C, H, hd]."""
     B, C, H, hd = q.shape
     G = H // KV
-    m = torch.full((B, KV, G, C, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, KV, G, C, 1), dtype=torch.float32, device=q.device)
-    o = torch.zeros((B, KV, G, C, hd), dtype=torch.float32, device=q.device)
-    for j in range(table.shape[1]):
-        pages = table[:, j].long()
-        mapped = pages >= 0
-        kj, vj = read(pages, mapped)                      # [B, P, KV, hd]
-        valid = valid_fn(j, mapped)[:, None, None, :, :]  # [B,1,1,C,P]
-        mj, lj, oj = partial_attention_stats(q, kj, vj, valid, scale=scale)
-        m_new = torch.maximum(m, mj)
-        a_old = torch.exp(m - m_new)
-        a_new = torch.exp(mj - m_new)
-        m, l, o = m_new, a_old * l + a_new * lj, a_old * o + a_new * oj
-    out = merge_attention_stats([(m, l, o)])          # [B, KV, G, C, hd]
+    n_cols = table.shape[1]
+    pps = pps or max(1, n_cols)
+    splits = []
+    for j0 in range(0, max(1, n_cols), pps):
+        m = torch.full((B, KV, G, C, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, C, 1), dtype=torch.float32,
+                        device=q.device)
+        o = torch.zeros((B, KV, G, C, hd), dtype=torch.float32,
+                        device=q.device)
+        for j in range(j0, min(j0 + pps, n_cols)):
+            pages = table[:, j].long()
+            mapped = pages >= 0
+            kj, vj = read(pages, mapped)                      # [B, P, KV, hd]
+            valid = valid_fn(j, mapped)[:, None, None, :, :]  # [B,1,1,C,P]
+            mj, lj, oj = partial_attention_stats(q, kj, vj, valid,
+                                                 scale=scale)
+            m_new = torch.maximum(m, mj)
+            a_old = torch.exp(m - m_new)
+            a_new = torch.exp(mj - m_new)
+            m, l, o = m_new, a_old * l + a_new * lj, a_old * o + a_new * oj
+        splits.append((m, l, o))
+    out = merge_attention_stats(splits)               # [B, KV, G, C, hd]
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd)
 
 
@@ -279,17 +335,23 @@ def ragged_paged_attention_plain(q, pool_k, pool_v, table, pos, *,
                                  packed4: bool = False):
     """Plain version of `ragged_paged_attention` (the JAX package's
     `paged_attention` fold): slot j*P + t attends iff <= pos and its
-    page is mapped."""
+    page is mapped. Over f32/bf16 pages the columns fold in the kernel's
+    splits (`split_plan`), whose stats then merge in split order."""
     _check_quant_args(scale_k, scale_v, packed4)
     LAUNCHES[kernel_name("rpa_decode", scale_k, packed4) + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     t = torch.arange(P, device=q.device)
+    KV = pool_k.shape[2]
+    pps = None
+    if scale_k is None:
+        _, pps = split_plan(q.shape[0], KV, table.shape[1], P,
+                            sm_count(q.device))
 
     def valid(j, mapped):
         ok = (j * P + t)[None, :] <= pos[:, None].long()
         return (ok & mapped[:, None])[:, None, :]          # [B, 1, P]
 
-    out = _fold(q, read, pool_k.shape[2], table, valid, scale)
+    out = _fold(q, read, KV, table, valid, scale, pps)
     return out.to(q.dtype)
 
 

@@ -3,6 +3,8 @@
     python3 chip_smoke.py                 # every phase, one H100
     python3 chip_smoke.py --phases kernels,step
     python3 chip_smoke.py --phases device,generate --profile
+    python3 chip_smoke.py --phases device,kernels --kernels rpa_decode,flash_attn \
+        --tree DIR            # the same cases over the package in DIR
 
 Phases, in order (any failure exits non-zero):
   device    CUDA present; card name and power limit; the three kernel
@@ -14,8 +16,14 @@ Phases, in order (any failure exits non-zero):
             written by the port's qwrite_prompt_pages, and the flash pair
             at the prefill shapes (S=T=1024 causal, plus window and
             non-causal cases; a 256-token chunk at pos 1280 of a 4096-slot
-            cache with a NaN tail, plus one at an unaligned pos); times,
-            the plain version's, the bound and the yardstick SDPA. Then
+            cache with a NaN tail, plus one at an unaligned pos); device
+            times from a replayed CUDA graph of 30 calls (rpa_decode's
+            cycling through pool copies larger than L2) with the
+            host-launched time beside them, the plain version's time,
+            the bound and the yardstick SDPA timed the same way;
+            rpa_decode and flash_attn must give the same bits twice.
+            Two more rpa_decode cases show its split: B = 8 with one row
+            at pos 8191 (64 table columns), B = 32 rows up to 2047. Then
             the int4 matmul against its plain version at the four
             Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x,
             weights from quantize_group of seeded normals, plus a
@@ -269,30 +277,40 @@ def _sdpa_yardstick(torch, q, pool_k, pool_v, table, pos, q_len):
                                                   enable_gqa=True)
 
 
-def _measure(torch, label, dname, got, want, kern, plain, lib, nbytes,
-             ops) -> dict:
-    """Hold one kernel output against its plain version, then time the
-    kernel, the plain version and the yardstick on the same inputs."""
+def _measure(torch, label, dname, got, want, kerns, plain, libs, nbytes,
+             ops, again=None) -> dict:
+    """Hold one kernel output against its plain version (and, given
+    `again`, a second launch on the same inputs against the first, bit
+    for bit), then time the kernel, the plain version and the yardstick
+    on the same inputs. kerns / libs: the kernel's and the yardstick's
+    calls, one per copy of the inputs where a copy is cycled through (see
+    _stream_ms): device time by graph replay, the host-launched time
+    beside it. The plain version is timed from the host (milliseconds)."""
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         fail(f"{label} {dname}: non-finite output")
+    if again is not None and not torch.equal(got, again):
+        fail(f"{label} {dname}: two launches on the same inputs differ")
     err = (got.float() - want.float()).abs().max().item()
     if not torch.allclose(got.float(), want.float(), **TOL[dname]):
         fail(f"{label} {dname}: max |kernel - plain| = {err:.3e} over "
              f"tolerance {TOL[dname]}")
-    ms = _time_ms(torch, kern)
-    plain_ms = _time_ms(torch, plain, reps=20)
-    lib_ms = _time_ms(torch, lib)
+    ms, eager_ms = _stream_ms(torch, kerns)
+    plain_ms = _time_ms(torch, plain, reps=10, warmup=1)
+    lib_ms, lib_eager_ms = _stream_ms(torch, libs)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dname] * 1e3
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=lib_ms, bytes=nbytes, ops=ops)
-    log(f"{label} {dname}: max_abs_err {err:.3e} (tol {TOL[dname]}); "
-        f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, "
-        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: {nbytes} B, "
-        f"{ops} ops)")
+               library_ms=lib_ms, bytes=nbytes, ops=ops, eager_ms=eager_ms,
+               library_eager_ms=lib_eager_ms)
+    log(f"{label} {dname}: max_abs_err {err:.3e} (tol {TOL[dname]}"
+        f"{', same bits twice' if again is not None else ''}); "
+        f"{ms:.4f} ms kernel ({eager_ms:.4f} eager), {plain_ms:.4f} ms plain, "
+        f"{lib_ms:.4f} ms sdpa ({lib_eager_ms:.4f} eager), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {nbytes} B, {ops} "
+        f"ops); {rec['bound_ms'] and ms / rec['bound_ms']:.1f}x bound")
     return rec
 
 
@@ -301,11 +319,14 @@ def _measure(torch, label, dname, got, want, kern, plain, lib, nbytes,
 _ELEM_BYTES = {"int8": 1.0, "int4": 0.5}
 
 
-def _rpa_kernels(torch, rpa, report) -> None:
+def _rpa_kernels(torch, rpa, report, only=None) -> None:
     """The ragged kernels over f32/bf16 pages, then over int8 and int4
     pages. The quantized cases' yardstick is SDPA over the same live
     pages dequantized to q's dtype ahead of the call: it reads 2x (int8)
-    or 4x (int4) the page bytes of a bf16 pool and dequantizes nothing."""
+    or 4x (int4) the page bytes of a bf16 pool and dequantizes nothing.
+    rpa_decode cycles through pool copies larger than L2 (a served
+    decode step finds each layer's pool cold) and must give the same
+    bits twice. `only`: the kernel names to run (None: all)."""
     from cake_tpu_torch.kv.quantized_pool import (
         Int4Pool, QuantPool, dequantize_pages,
     )
@@ -323,6 +344,8 @@ def _rpa_kernels(torch, rpa, report) -> None:
                     torch, dtype, gen, mixed, fmt)
                 name = rpa.kernel_name(base, kw.get("scale_k"),
                                        kw.get("packed4", False))
+                if only is not None and name not in only:
+                    continue
                 args = (q, pk, pv, table, pos) + ((ql,) if mixed else ())
                 got = kern(*args, **kw)
                 # the dead row (and the mixed case's idle row) must come
@@ -342,11 +365,71 @@ def _rpa_kernels(torch, rpa, report) -> None:
                     KV = pk.shape[2]
                     nbytes, ops = _work(q, dk.shape[1], KV, table, pos, ql,
                                         _ELEM_BYTES[fmt], 8 * KV)
+                pools = [(pk, pv, dk, dv)]
+                if name == "rpa_decode":
+                    pools += [(a, b, a, b) for a, b in zip(
+                        _copies(pk, 2 * pk.numel() * pk.element_size())[1:],
+                        _copies(pv, 2 * pv.numel() * pv.element_size())[1:])]
+                rest = args[3:]
                 report[(name, dname)] = _measure(
                     torch, name, dname, got, plain(*args, **kw),
-                    lambda: kern(*args, **kw), lambda: plain(*args, **kw),
-                    _sdpa_yardstick(torch, q, dk, dv, table, pos, ql),
-                    nbytes, ops)
+                    [(lambda a=a, b=b: kern(q, a, b, *rest, **kw))
+                     for a, b, _, _ in pools],
+                    lambda: plain(*args, **kw),
+                    [_sdpa_yardstick(torch, q, c, d, table, pos, ql)
+                     for _, _, c, d in pools],
+                    nbytes, ops,
+                    again=kern(*args, **kw) if name == "rpa_decode" else None)
+                del pools
+    torch.cuda.empty_cache()
+
+
+def _split_cases(torch, rpa) -> None:
+    """Two logged decode cases that show the split of rpa_decode (bf16,
+    128-token pages, H=32, KV=8, hd=128; pools cycled past L2): B = 8
+    with one row at pos 8191 (64 table columns) beside rows at
+    0..2047, and B = 32 rows at mixed positions up to 2047. Each against
+    its plain version, with the plan, device time, bound and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    H, KV, hd, P, dtype = 32, 8, 128, 128, torch.bfloat16
+    cases = (
+        ("B=8 one row at 8191", 8, 64,
+         [8191, 0, 127, 500, 1000, 1500, 2047, 300]),
+        ("B=32 mixed up to 2047", 32, 16,
+         [int(x) for x in torch.randint(0, 2048, (32,), generator=gen,
+                                        device="cuda").tolist()]),
+    )
+    for label, B, MP, pos_l in cases:
+        N = 256
+        pk = torch.randn((N, P, KV, hd), generator=gen, device="cuda",
+                         dtype=dtype)
+        pv = torch.randn((N, P, KV, hd), generator=gen, device="cuda",
+                         dtype=dtype)
+        table = torch.randint(0, N, (B, MP), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, 1, H, hd), generator=gen, device="cuda",
+                        dtype=dtype)
+        args = (q, pk, pv, table, pos)
+        got = rpa.ragged_paged_attention(*args)
+        pools = [(pk, pv)] + list(zip(
+            _copies(pk, 2 * pk.numel() * pk.element_size())[1:],
+            _copies(pv, 2 * pv.numel() * pv.element_size())[1:]))
+        nbytes, ops = _work(q, P, KV, table, pos, None, pk.element_size())
+        plan = (rpa.split_plan(B, KV, MP, P, rpa.sm_count("cuda"))
+                if hasattr(rpa, "split_plan") else "none")
+        log(f"rpa_decode split case {label}: plan (splits, pages a split) "
+            f"{plan}")
+        _measure(torch, f"rpa_decode {label}", "bfloat16", got,
+                 rpa.ragged_paged_attention_plain(*args),
+                 [(lambda a=a, b=b: rpa.ragged_paged_attention(
+                     q, a, b, table, pos)) for a, b in pools],
+                 lambda: rpa.ragged_paged_attention_plain(*args),
+                 [_sdpa_yardstick(torch, q, a, b, table, pos, None)
+                  for a, b in pools], nbytes, ops,
+                 again=rpa.ragged_paged_attention(*args))
+        del pools, pk, pv
+        torch.cuda.empty_cache()
 
 
 # (label, kernel, shapes, options, the case the kernel table reports).
@@ -408,10 +491,12 @@ def _flash_sdpa(torch, q, k, v, pos, causal, window):
                                                   enable_gqa=True)
 
 
-def _flash_kernels(torch, fa, report) -> None:
+def _flash_kernels(torch, fa, report, only=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     B, H, KV, hd = 1, 32, 8, 128
     for label, name, shp, kw, main_case in FLASH_CASES:
+        if only is not None and name not in only:
+            continue
         S, T, pos = shp["S"], shp["T"], shp["pos"]
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -437,9 +522,9 @@ def _flash_kernels(torch, fa, report) -> None:
                                       window, q.element_size())
             rec = _measure(
                 torch, label, dname, kern(*args, **kw), plain(*args, **kw),
-                lambda: kern(*args, **kw), lambda: plain(*args, **kw),
-                _flash_sdpa(torch, q, k, v, pos, causal, window), nbytes,
-                ops)
+                [lambda: kern(*args, **kw)], lambda: plain(*args, **kw),
+                [_flash_sdpa(torch, q, k, v, pos, causal, window)], nbytes,
+                ops, again=kern(*args, **kw) if name == "flash_attn" else None)
             if main_case:
                 report[(name, dname)] = rec
 
@@ -609,11 +694,16 @@ def int4_sweep(torch, i4, targets) -> None:
             log(f"int4 sweep M={M} In={In} Out={Out}: " + ", ".join(cells))
 
 
-def phase_kernels(torch, rpa, fa, i4) -> dict:
+def phase_kernels(torch, rpa, fa, i4, only=None) -> dict:
+    """Every kernel against its plain version, timed; `only` restricts
+    the phase to some kernel names (with rpa_decode, its split cases)."""
     report = {}
-    _rpa_kernels(torch, rpa, report)
-    _flash_kernels(torch, fa, report)
-    _int4_kernels(torch, i4, report)
+    _rpa_kernels(torch, rpa, report, only)
+    if only is None or "rpa_decode" in only:
+        _split_cases(torch, rpa)
+    _flash_kernels(torch, fa, report, only)
+    if only is None or "int4_matmul" in only:
+        _int4_kernels(torch, i4, report)
     return report
 
 
@@ -1375,6 +1465,13 @@ def main(argv=None) -> int:
                     help="trace generate run A and the serve runs with "
                          "torch.profiler and print where the device time "
                          "went")
+    ap.add_argument("--kernels", default="",
+                    help="comma list of kernel names: the kernels phase "
+                         "runs only these (a parent-against-change aid)")
+    ap.add_argument("--tree", default="",
+                    help="import cake_tpu_torch from this directory (for "
+                         "example a parent commit unpacked with git "
+                         "archive) instead of the one beside this script")
     ap.add_argument("--int4-sweep", default="",
                     help="comma list of TARGET_BLOCKS values: time "
                          "int4_matmul at each and exit (a tuning aid, not "
@@ -1389,7 +1486,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs "
              "an NVIDIA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    tree = os.path.abspath(a.tree) if a.tree else \
+        os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, tree)
+    log(f"cake_tpu_torch from {tree}")
     try:
         import cake_tpu_torch.ops.flash_attention as fa
         import cake_tpu_torch.ops.int4_matmul as i4
@@ -1407,7 +1507,9 @@ def main(argv=None) -> int:
         i4.TARGET_BLOCKS = default
         return 0
     card = phase_device(torch, rpa, fa, i4)
-    kern = phase_kernels(torch, rpa, fa, i4) if "kernels" in phases else {}
+    only = set(a.kernels.split(",")) - {""} or None
+    kern = (phase_kernels(torch, rpa, fa, i4, only) if "kernels" in phases
+            else {})
     if "step" in phases:
         phase_step(torch, rpa, fa, i4)
     # launch counts of each path, read right after it ran (null in the
@@ -1464,8 +1566,8 @@ def main(argv=None) -> int:
             "ms_f32": f32.get("ms"), "plain_ms_f32": f32.get("plain_ms"),
             "bound_ms_f32": f32.get("bound_ms"),
             "library_ms_f32": f32.get("library_ms"),
-            # calls made from the host (int4_matmul only: its products are a
-            # few microseconds, shorter than their Python wrapper)
+            # `ms` is device time (a CUDA graph of back-to-back calls,
+            # replayed); these are the same calls made from the host
             "eager_ms": rec.get("eager_ms"),
             "library_eager_ms": rec.get("library_eager_ms"),
         })

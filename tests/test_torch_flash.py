@@ -161,9 +161,11 @@ def test_wrappers_validate_their_options():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_kernels_match_plain_versions(dtype):
     """Each CUDA kernel against its plain version on the card (f32 atol
-    1e-4; bf16/f16 atol/rtol 2e-2 for output rounding and summation
-    order): ragged S, a window, non-causal, the tiny head dim, and the
-    cached kernel with a NaN tail and pos inside a key tile."""
+    1e-4; bf16/f16 atol/rtol 2e-2: output rounding, summation order, and
+    p rounded to the value dtype before p @ v in the tensor-core body, as
+    in the Pallas kernel): ragged S, a window, non-causal, the tiny head
+    dim, and the cached kernel with a NaN tail and pos inside a key tile;
+    two launches of flash_attn give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
                     "or interpret mode")
@@ -176,15 +178,28 @@ def test_cuda_kernels_match_plain_versions(dtype):
         return torch.randn(shape, generator=g, device="cuda", dtype=dt)
 
     fa.reset_launch_counts()
-    for B, S, T, H, KV, hd, kw in (
-            (2, 200, 200, 32, 8, 128, dict()),
-            (1, 333, 333, 32, 8, 128, dict(window=50)),
-            (1, 64, 96, 32, 8, 128, dict(causal=False)),
-            (2, 37, 37, 4, 2, 16, dict())):
+    cases = [(2, 200, 200, 32, 8, 128, dict()),
+             (1, 333, 333, 32, 8, 128, dict(window=50)),
+             (1, 64, 96, 32, 8, 128, dict(causal=False)),
+             (2, 37, 37, 4, 2, 16, dict())]
+    if dtype != "float32":
+        # the tensor-core body: G of 1 to 32 (64 / G query positions a
+        # CTA), head dims 16 to 128 (20 is zero-padded to 32 in shared
+        # memory and copied in 8-byte pieces), S off the 64-row tile, a
+        # window, non-causal with S < T
+        cases += [(1, 150, 150, 8, 8, 64, dict()),
+                  (1, 97, 97, 16, 8, 20, dict()),
+                  (1, 130, 130, 32, 4, 128, dict(window=70)),
+                  (1, 45, 200, 32, 1, 64, dict(causal=False)),
+                  (2, 77, 77, 32, 1, 16, dict()),
+                  (1, 300, 300, 12, 4, 20, dict(window=33))]
+    for B, S, T, H, KV, hd, kw in cases:
         q, k, v = rnd(B, S, H, hd), rnd(B, T, KV, hd), rnd(B, T, KV, hd)
         got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(got, again)
     S, T, pos = 96, 512, 133
     q, kc, vc = rnd(1, S, 32, 128), rnd(1, T, 8, 128), rnd(1, T, 8, 128)
     kc[:, pos + S:] = float("nan")
@@ -194,5 +209,5 @@ def test_cuda_kernels_match_plain_versions(dtype):
         want = fa.flash_attention_cached_plain(q, kc, vc, pos, **kw)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), want.float(), **tol)
-    assert fa.LAUNCHES["flash_attn"] == 4
+    assert fa.LAUNCHES["flash_attn"] == 2 * len(cases)
     assert fa.LAUNCHES["flash_attn_cached"] == 2

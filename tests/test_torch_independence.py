@@ -1,5 +1,5 @@
 """The port stands alone: no file of `cake_tpu_torch/`, nor
-`chip_smoke.py`, imports jax or the JAX package, and the package
+`chip_smoke.py` or `kernel_ablation.py`, imports jax or the JAX package, and the package
 imports with jax made unimportable."""
 
 import ast
@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "cake_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "kernel_ablation.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "cake_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

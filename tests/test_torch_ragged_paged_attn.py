@@ -7,6 +7,10 @@ shape the engine produces: ragged positions, page boundaries, unmapped
 holes, GQA group sizes 4/2/1, idle (q_len=0) rows and a bf16 pool. The
 mixed kernel is compared on real query columns only (padding columns
 are garbage in JAX and zeros in the port). Tolerance: 2e-5 at f32.
+The decode's plain version folds the table columns in the splits of
+the CUDA kernel's plan (`split_plan`) and merges them in order, so the
+parity cases around split boundaries pin that merge against the JAX
+kernel at several groupings.
 
 The CUDA kernels themselves build and run only on a card: the `cuda`
 case holds each against its plain version there and skips elsewhere.
@@ -109,6 +113,59 @@ def test_decode_plain_matches_jax_kernel_gqa(H, KV):
     table = np.asarray([[9, 1, 6, -1, -1], [0, 5, -1, -1, -1]], np.int32)
     pos = np.asarray([2 * P + 3, P + 6], np.int32)
     _decode_parity(q, pk, pv, table, pos)
+
+
+@pytest.mark.parametrize("B,KV,max_pages,P,n_sm", [
+    (8, 8, 16, 128, 132),     # the serving shapes: a split a page
+    (8, 8, 64, 128, 132),     # one long row's table: 64 splits
+    (32, 8, 16, 128, 132),    # many rows
+    (1, 1, 1, 128, 132),      # one page
+    (3, 2, 5, 8, 132),        # the tiny config: a split per column
+    (6, 2, 6, 8, 12),         # a split boundary at column 3
+    (2, 8, 7, 16, 132),       # ragged last split
+    (64, 8, 128, 16, 8),      # more CTAs than the target already
+    (8, 8, 64, 16, 132),      # short pages: SPLIT_SLOTS bounds a split
+])
+def test_split_plan_covers_every_column_once(B, KV, max_pages, P, n_sm):
+    """The decode's split plan, from shapes alone: every table column in
+    exactly one split, splits of whole columns (so on page boundaries),
+    1 <= splits <= max_pages, no split past SPLIT_SLOTS slots unless a
+    page alone is longer, and at least one CTA an SM where the columns
+    allow it (the plan aims at two)."""
+    splits, pps = rpa.split_plan(B, KV, max_pages, P, n_sm)
+    assert 1 <= splits <= max_pages and pps >= 1
+    cols = [j for s in range(splits)
+            for j in range(s * pps, min((s + 1) * pps, max_pages))]
+    assert cols == list(range(max_pages))
+    assert (splits - 1) * pps < max_pages <= splits * pps
+    assert pps * P <= max(P, rpa.SPLIT_SLOTS)
+    assert B * KV * splits >= min(n_sm, B * KV * max_pages)
+
+
+# rows around the split boundaries of a 6-column table at G = 2: a live
+# range ending on the last slot of a split and on the first of the next,
+# -1 holes at a boundary, pos = 0, a row with every page unmapped
+SPLIT_TABLE = [[3, 6, 0, 10, 5, 1], [4, 11, -1, -1, 2, 9],
+               [7, 8, 9, 1, 2, 3], [-1, -1, -1, -1, -1, -1],
+               [5, 2, 8, 11, 0, 6], [9, 10, 4, 7, 3, 1]]
+SPLIT_POS = [2 * P - 1, 5 * P + 3, 0, 3 * P + 1, 3 * P - 1, 2 * P]
+
+
+@pytest.mark.parametrize("n_sm,pps", [(132, 1), (18, 2), (12, 3), (6, 6)])
+def test_decode_plain_matches_jax_kernel_split_boundaries(monkeypatch, n_sm,
+                                                          pps):
+    """The plain version folds the kernel's splits and merges them in
+    order; at every grouping it agrees with the JAX kernel (f32, the
+    file's tolerance), and the dead row is exactly zero."""
+    monkeypatch.setattr(rpa, "CPU_SM_COUNT", n_sm)
+    table = np.asarray(SPLIT_TABLE, np.int32)
+    pos = np.asarray(SPLIT_POS, np.int32)
+    assert rpa.split_plan(len(pos), 2, table.shape[1], P, n_sm)[1] == pps
+    rng = np.random.default_rng(30 + pps)
+    pk, pv = _pool(rng, KV=2, hd=16)
+    q = rng.normal(size=(len(pos), 1, 4, 16)).astype(np.float32)
+    got = _decode_parity(q, pk, pv, table, pos)
+    assert not got[3].any()
 
 
 def test_decode_plain_matches_jax_kernel_bf16_pool():
@@ -245,12 +302,56 @@ def test_cuda_kernels_match_plain_versions(dtype):
     got = rpa.ragged_paged_attention(q1, pk, pv, table, pos)
     want = rpa.ragged_paged_attention_plain(q1, pk, pv, table, pos)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert not got[3].any()
     qlen = torch.tensor([1, 64, 0, 17], dtype=torch.int32, device="cuda")
     qm = torch.randn((4, 64, H, hd), generator=g, device="cuda", dtype=dt)
     got = rpa.ragged_paged_attention_mixed(qm, pk, pv, table, pos, qlen)
     want = rpa.ragged_paged_attention_mixed_plain(qm, pk, pv, table, pos,
                                                   qlen)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_decode_long_rows_and_boundaries(dtype):
+    """rpa_decode's split body and merge against the plain version on
+    the card: a row of 8192 slots (64 table columns) beside short ones;
+    rows ending on the last slot of a split and on the first of the
+    next, a -1 hole at a split boundary, pos = 0, a dead row (exactly
+    zero); G = 16 and head dims whose slot rows are not 16-byte
+    multiples (narrower copies); two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=0.0) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    Pg, MP = 128, 64
+    for B, H, KV, hd in ((6, 32, 8, 128), (6, 32, 2, 20), (6, 8, 8, 17),
+                         (6, 16, 4, 256)):
+        N = 96
+        pk = torch.randn((N, Pg, KV, hd), generator=g, device="cuda",
+                         dtype=dt)
+        pv = torch.randn((N, Pg, KV, hd), generator=g, device="cuda",
+                         dtype=dt)
+        table = torch.randint(0, N, (B, MP), generator=g, device="cuda",
+                              dtype=torch.int32)
+        splits, pps = rpa.split_plan(B, KV, MP, Pg, rpa.sm_count("cuda"))
+        assert splits > 1
+        table[2, pps] = -1          # a hole at the first split boundary
+        table[2, pps - 1] = -1
+        table[5] = -1               # a dead row
+        pos = torch.tensor([8191, pps * Pg - 1, 2 * pps * Pg + 7, 0,
+                            pps * Pg, 3000], dtype=torch.int32,
+                           device="cuda")
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda", dtype=dt)
+        got = rpa.ragged_paged_attention(q, pk, pv, table, pos)
+        again = rpa.ragged_paged_attention(q, pk, pv, table, pos)
+        want = rpa.ragged_paged_attention_plain(q, pk, pv, table, pos)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(got, again)
+        assert not got[5].any()
 
 
 # -- int8 / int4 pages --------------------------------------------------------
