@@ -37,35 +37,31 @@
 //   * tiles run longest first (the causal tail tiles start while the SMs
 //     are empty).
 //
-// flash_tc -- flash_attn over bf16/f16 (the prefill path), FlashAttention-2
-// shaped, on the tensor cores:
-//   * four warps, 16 query rows each (64 rows a CTA: 16 positions at
-//     G = 4, 2 at G = 32); key tiles of 64;
-//   * q, K and V reach shared memory by cp.async in 16-byte pieces (8 or 4
-//     when a row's bytes or a pointer are not 16-aligned), K/V through a
-//     ring of two stages, so the next tile's copies are in flight while the
-//     current one computes; rows are 272 bytes apart, so the eight 16-byte
-//     rows an ldmatrix phase reads fall in distinct banks; the head dim is
-//     a compile-time 64 or 128, a smaller one zero-padded in shared memory
-//     (zero q/k columns leave the scores as they are; padded v columns are
-//     never written out), so the fragment loops unroll with no guard;
-//   * q is loaded once into registers as mma A fragments; S = q k^T and
-//     O += p v run on mma.sync.m16n8k16 (bf16/f16 in, f32 accumulate), v
-//     read with ldmatrix.trans; a k-block's fragments are all loaded before
-//     its products, which are plain (not volatile) asm the compiler may
-//     interleave; the online softmax runs on the accumulator
-//     fragments (row max by quad shuffles, rescale by exp(m_old - m_new));
-//     p is rounded to the value dtype in registers to feed p v, as the
-//     Pallas kernel's p.astype(v.dtype), while l sums the f32 p;
+// flash_tc -- both kernels over bf16/f16, FlashAttention-2 shaped, on the
+// tensor cores (the tile loop, fragments and staging are tc_attention.cuh's,
+// shared with the ragged mixed kernel):
+//   * 16 query rows a warp; flash_attn runs four warps (64 rows a CTA: 16
+//     positions at G = 4, 2 at G = 32, two CTAs an SM), flash_attn_cached
+//     the warps the wrapper asks for (8 by default: 128 rows, one CTA an
+//     SM, so each K/V tile fetched from L2 serves twice the rows); key
+//     tiles of 64 through a two-stage cp.async ring; q loaded once into
+//     registers as mma A fragments;
 //   * the mask is evaluated only on edge tiles (the diagonal, the window
-//     floor, the ragged end); interior tiles skip it.
-// Left for later: wgmma/TMA, a persistent schedule, and flash_attn_cached on
-// this body.
+//     floor, the ragged end); interior tiles skip it. Rows sit at absolute
+//     positions qbase + c0 + r / G, so the cached kernel's query offset, a
+//     window floor off the 64-key grid and the frontier (hi never passes
+//     qbase + S) need nothing more;
+//   * key splits (flash_attn_cached): the wrapper plans the split count
+//     from shapes and the SM count alone (ops/flash_attention.py
+//     flash_split_plan); split s of a (query tile, kv head) walks tiles
+//     [s n / splits, (s + 1) n / splits) of its n key tiles and writes f32
+//     partials, and flash_merge folds them in split order.
+// Left for later: wgmma/TMA and a persistent schedule.
 //
 // flash_cta -- f32 q/k/v (tensor cores would need TF32, which breaks the
-// 1e-4 f32 parity) and flash_attn_cached for every dtype: scalar f32 FMAs.
-// A warp owns 8 rows and a lane one key of a 32-key tile for the scores;
-// a thread owns one head dim for p @ v; tiles converted to f32 on load.
+// 1e-4 f32 parity): scalar f32 FMAs. A warp owns 8 rows and a lane one key
+// of a 32-key tile for the scores; a thread owns one head dim for p @ v;
+// tiles converted to f32 on load.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,6 +69,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -125,6 +123,8 @@ struct Args {
   int causal;       // 0 = every key
   int window;       // 0 = no window
   float scale;
+  int splits;       // flash_tc: key splits per (query tile, kv head)
+  float* part;      // flash_tc with splits > 1: f32 partials (tc_attention.cuh)
 };
 
 // Shared memory of one CTA, in bytes (all f32): K tile [kTile][hd + 4]
@@ -295,120 +295,21 @@ __device__ void flash_cta(const Args& a, int tile, int kv, int b) {
 
 // -- flash_tc: the tensor-core body (bf16 / f16) ------------------------------
 
-constexpr int kTcRows = 64;               // query rows per CTA, 16 per warp
-constexpr int kTcKeys = 64;               // keys per tile
-constexpr int kTcLd = 128 + 8;            // row stride in elements: 272 B
-constexpr int kTcStages = 2;              // K/V ring depth
-
-// q tile, then per stage a K tile and a V tile, [64][kTcLd] 2-byte
-// elements each: 87 040 bytes (two CTAs an SM).
-constexpr size_t kTcSmem =
-    2 * (size_t)kTcLd * (kTcRows + 2 * kTcStages * kTcKeys);
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (16, 8 or 4) from global to shared memory asynchronously;
-// with ok false the destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes, bool ok) {
-  const int n = ok ? bytes : 0;
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "r"(n));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b on one m16n8k16 tile, f32 accumulate.
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values rounded to T and packed, the lower column in the low half.
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-// Stage n_rows rows of hd elements into dst (row stride kTcLd) by cp.async
-// in `vec`-byte pieces; rows >= n_valid are zero-filled. row(r) is the
-// global address of row r (called only for valid rows).
-template <typename T, typename RowFn>
-__device__ __forceinline__ void stage_rows(T* dst, int n_rows, int n_valid,
-                                           int hd, int vec, RowFn row) {
-  const int pieces = hd * (int)sizeof(T) / vec;
-  if (kThreads % pieces == 0) {   // a fixed piece per thread, rows strided
-    const int c = threadIdx.x % pieces, step = kThreads / pieces;
-    for (int r = threadIdx.x / pieces; r < n_rows; r += step) {
-      const bool ok = r < n_valid;
-      cp_async(reinterpret_cast<char*>(dst + r * kTcLd) + c * vec,
-               reinterpret_cast<const char*>(row(ok ? r : 0)) + c * vec,
-               vec, ok);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < n_rows * pieces; i += kThreads) {
-    const int r = i / pieces, c = i - r * pieces;
-    const bool ok = r < n_valid;
-    const char* src =
-        reinterpret_cast<const char*>(row(ok ? r : 0)) + c * vec;
-    cp_async(reinterpret_cast<char*>(dst + r * kTcLd) + c * vec, src, vec,
-             ok);
-  }
-}
-
 // kHd: the head dim padded to 64 or 128 (compile-time, so the fragment
 // loops unroll without guards; zero columns cost work, not accuracy).
-template <typename T, int kHd>
-__device__ void flash_tc(const Args& a, int tile, int kv, int b, int vec) {
+// kW: warps, 16 query rows each. `split` of a.splits: the CTA walks only
+// its share of the key tiles [lo, hi) and, with a.part set, writes f32
+// partials for flash_merge instead of the output.
+template <typename T, int kHd, int kW>
+__device__ void flash_tc(const Args& a, int tile, int kv, int b, int split,
+                         int vec) {
+  constexpr int kThr = 32 * kW;
+  constexpr int kRowsTc = 16 * kW;
   extern __shared__ float4 smem4[];
-  T* q_s = reinterpret_cast<T*>(smem4);            // [64][kTcLd]
-  T* ring = q_s + kTcRows * kTcLd;                 // stage s: K, then V
+  T* q_s = reinterpret_cast<T*>(smem4);            // [kRowsTc][kLd]
+  T* ring = q_s + kRowsTc * tc::kLd;               // stage s: K, then V
   const int G = a.H / a.KV;
   const int hd = a.hd;
-  constexpr int hdp = kHd;                         // zero-padded
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -422,172 +323,101 @@ __device__ void flash_tc(const Args& a, int tile, int kv, int b, int vec) {
   const int rows = cols * G;
   const int first = a.qbase + c0;
   const int last = a.qbase + c0 + cols - 1;
+  // keys [lo, hi) cover every key some row of this CTA attends; a cached
+  // window's hi stays below the frontier qbase + S
   const int hi = a.causal ? min(a.T, last + 1) : a.T;
   const int lo = a.window > 0 ? max(0, first - a.window + 1) : 0;
-  const int n_tiles = (hi - lo + kTcKeys - 1) / kTcKeys;
+  const int n_all = (hi - lo + tc::kKeys - 1) / tc::kKeys;
+  // this split's tiles [it0, it0 + n_tiles): n_all shared out evenly
+  const int splits = max(1, a.splits);
+  const int it0 = (int)((long long)split * n_all / splits);
+  const int n_tiles = (int)((long long)(split + 1) * n_all / splits) - it0;
 
-  // the pad columns [hd, hdp) of every tile are zero and stay so (the
-  // copies below write only columns < hd)
-  if (hdp > hd) {
-    const int w = hdp - hd;
-    for (int i = tid; i < (kTcRows + 2 * kTcStages * kTcKeys) * w;
-         i += kThreads)
-      q_s[(i / w) * kTcLd + hd + i % w] = from_f<T>(0.f);
+  // this thread's two rows: r0 = 16 warp + lane / 4 and r0 + 8
+  const int r0 = warp * 16 + (lane >> 2);
+  const size_t prow = (size_t)a.B * a.S * a.H;     // partial rows
+  auto qrow = [&](int r) {                         // [B, S, H] row index
+    return ((size_t)b * a.S + c0 + r / G) * a.H + kv * G + r % G;
+  };
+  tc::State<kHd> st;
+  st.init();
+  if (n_tiles <= 0) {           // an empty split: l = 0, skipped by the merge
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + half * 8;
+      if (r < rows)
+        tc::store_partial<kHd>(st, half,
+                               a.part + ((size_t)split * prow + qrow(r)) * 2,
+                               a.part + 2 * splits * prow +
+                                   ((size_t)split * prow + qrow(r)) * hd,
+                               hd, lane);
+    }
+    return;
   }
-  stage_rows(q_s, kTcRows, rows, hd, vec, [&](int r) {
-    return q + (((size_t)b * a.S + c0 + r / G) * a.H + kv * G + r % G) * hd;
+
+  tc::zero_pad_columns<T, kHd>(q_s, kRowsTc + 2 * tc::kStages * tc::kKeys,
+                               hd, kThr);
+  tc::stage_rows(q_s, kRowsTc, hd, vec, kThr, q, [&](int r) -> const T* {
+    return r < rows ? q + qrow(r) * hd : nullptr;
   });
   const size_t tok = (size_t)a.KV * hd;
   const T* k0 = kp + (size_t)b * a.T * tok + (size_t)kv * hd;
   const T* v0 = vp + (size_t)b * a.T * tok + (size_t)kv * hd;
-  auto load_tile = [&](int it) {
-    T* ks = ring + (it % kTcStages) * 2 * kTcKeys * kTcLd;
-    const int t0 = lo + it * kTcKeys;
-    const int nt = min(kTcKeys, hi - t0);
-    stage_rows(ks, kTcKeys, nt, hd, vec,
-               [&](int r) { return k0 + (size_t)(t0 + r) * tok; });
-    stage_rows(ks + kTcKeys * kTcLd, kTcKeys, nt, hd, vec,
-               [&](int r) { return v0 + (size_t)(t0 + r) * tok; });
+  auto load_tile = [&](int j) {
+    T* ks = ring + (j % tc::kStages) * 2 * tc::kKeys * tc::kLd;
+    const int t0 = lo + (it0 + j) * tc::kKeys;
+    tc::stage_kv(ks, ks + tc::kKeys * tc::kLd, k0, v0, hd, vec, kThr,
+                 [&](int r) -> long long {
+                   return t0 + r < hi ? (long long)(t0 + r) * (long long)tok
+                                      : -1;
+                 });
   };
   load_tile(0);
-  cp_commit();                  // group 0: q and tile 0
+  tc::cp_commit();              // group 0: q and tile 0
   if (n_tiles > 1) load_tile(1);
-  cp_commit();                  // group 1: tile 1 (or nothing)
+  tc::cp_commit();              // group 1: tile 1 (or nothing)
 
-  // this thread's two rows: r0 = 16 warp + lane / 4 and r0 + 8
-  const int r0 = warp * 16 + (lane >> 2);
   const int pos0 = a.qbase + c0 + r0 / G;
   const int pos1 = a.qbase + c0 + (r0 + 8) / G;
-  const float sl2 = a.scale * 1.4426950408889634f;   // scores in log2 units
+  const float sl2 = a.scale * tc::kLog2e;         // scores in log2 units
   uint32_t qf[kHd / 16][4];
-  float o[kHd / 8][4];
-#pragma unroll
-  for (int n = 0; n < kHd / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_wait_1();                // every group but the newest has landed
+  for (int j = 0; j < n_tiles; ++j) {
+    tc::cp_wait_1();            // every group but the newest has landed
     __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk)
-        ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * kTcLd + kk * 16 +
-                            (lane >> 4) * 8);
-    }
-    const T* ks = ring + (it % kTcStages) * 2 * kTcKeys * kTcLd;
-    const T* vs = ks + kTcKeys * kTcLd;
-    const int t0 = lo + it * kTcKeys;
-
-    // S = q k^T: eight n-tiles of 8 keys
-    float s[kTcKeys / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTcKeys / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    // (each k-block's K fragments are loaded before its products, so the
-    // shared-memory latency overlaps the tensor-core work)
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk) {
-      uint32_t bk[kTcKeys / 16][4];
-#pragma unroll
-      for (int np = 0; np < kTcKeys / 16; ++np)
-        ldsm_x4(bk[np], ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                 kTcLd + kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < kTcKeys / 16; ++np) {
-        mma16816<T>(s[2 * np], qf[kk], bk[np][0], bk[np][1]);
-        mma16816<T>(s[2 * np + 1], qf[kk], bk[np][2], bk[np][3]);
-      }
-    }
-
+    if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
+    const T* ks = ring + (j % tc::kStages) * 2 * tc::kKeys * tc::kLd;
+    const int t0 = lo + (it0 + j) * tc::kKeys;
     // mask only the edge tiles: an interior tile's keys are attended by
     // every row of the CTA
     const bool interior =
-        t0 + kTcKeys <= hi && (!a.causal || t0 + kTcKeys - 1 <= first) &&
+        t0 + tc::kKeys <= hi && (!a.causal || t0 + tc::kKeys - 1 <= first) &&
         (a.window <= 0 || t0 > last - a.window);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < kTcKeys / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + n * 8 + 2 * (lane & 3) + (e & 1);
-        const int qp = e < 2 ? pos0 : pos1;
-        const bool ok = interior ||
-                        (key < hi && (!a.causal || key <= qp) &&
-                         (a.window <= 0 || key > qp - a.window));
-        const float x = ok ? s[n][e] * sl2 : kNegInf;
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kTcKeys / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[n][e];
-        const float p = x == kNegInf ? 0.f : exp2f(x - (e < 2 ? mn0 : mn1));
-        s[n][e] = p;
-        if (e < 2) ps0 += p; else ps1 += p;
-      }
-    }
-    l0 = l0 * al0 + ps0;        // this thread's columns; quads sum at the end
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int n = 0; n < kHd / 8; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
-    }
-
-    // O += p v: p from the score fragments, rounded to T; v by ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      uint32_t bv[kHd / 16][4];
-#pragma unroll
-      for (int np = 0; np < kHd / 16; ++np)
-        ldsm_x4_t(bv[np], vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   kTcLd + np * 16 + ((lane >> 4) & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < kHd / 16; ++np) {
-        mma16816<T>(o[2 * np], pa, bv[np][0], bv[np][1]);
-        mma16816<T>(o[2 * np + 1], pa, bv[np][2], bv[np][3]);
-      }
-    }
+    if (warp * 16 < rows)       // a warp of padding rows only idles
+      tc::tile_step<T, kHd>(
+          qf, ks, ks + tc::kKeys * tc::kLd, st, sl2, interior, lane,
+          [&](int jj, int half) {
+            const int key = t0 + jj;
+            const int qp = half ? pos1 : pos0;
+            return key < hi && (!a.causal || key <= qp) &&
+                   (a.window <= 0 || key > qp - a.window);
+          });
     __syncthreads();            // every warp is done with this stage
-    if (it + kTcStages < n_tiles) load_tile(it + kTcStages);
-    cp_commit();
+    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);
+    tc::cp_commit();
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // normalise; a row that attended nothing writes 0
+  st.finish();
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + half * 8;
     if (r >= rows) continue;
-    const float l = half ? l1 : l0;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = out + (((size_t)b * a.S + c0 + r / G) * a.H + kv * G + r % G) * hd;
-#pragma unroll
-    for (int n = 0; n < kHd / 8; ++n) {
-      const int d = n * 8 + 2 * (lane & 3);
-      if (d < hd)
-        *reinterpret_cast<uint32_t*>(orow + d) =
-            pack2<T>(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    if (a.part == nullptr) {    // normalise; a row that attended nothing: 0
+      tc::store_row<T, kHd>(st, half, out + qrow(r) * hd, hd, lane, false);
+    } else {
+      const size_t pr = (size_t)split * prow + qrow(r);
+      tc::store_partial<kHd>(st, half, a.part + pr * 2,
+                             a.part + 2 * splits * prow + pr * hd, hd, lane);
     }
   }
 }
@@ -599,16 +429,32 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(Args a) {
   flash_cta<T>(a, gridDim.x - 1 - blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-template <typename T, int kHd>
-__global__ void __launch_bounds__(kThreads, 2)
+// blockIdx.x runs over (query tile, split), the last tile first.
+template <typename T, int kHd, int kW>
+__global__ void __launch_bounds__(32 * kW, kW == 4 ? 2 : 1)
     flash_attn_tc_kernel(Args a, int vec) {
-  flash_tc<T, kHd>(a, gridDim.x - 1 - blockIdx.x, blockIdx.y, blockIdx.z,
-                   vec);
+  const int splits = max(1, a.splits);
+  const int n_q = gridDim.x / splits;
+  flash_tc<T, kHd, kW>(a, n_q - 1 - (int)blockIdx.x / splits, blockIdx.y,
+                       blockIdx.z, (int)blockIdx.x % splits, vec);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_attn_cached_kernel(Args a) {
   flash_cta<T>(a, gridDim.x - 1 - blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+// Fold a.splits partials of every [B, S, H] row in split order; a thread
+// per two head dims of a row.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_merge_kernel(Args a) {
+  const int rows = a.B * a.S * a.H;
+  int r, d;
+  if (!tc::merge_thread(rows, a.hd, r, d)) return;
+  const float2 o =
+      tc::merge_split_stats(a.part, a.splits, rows, r, a.hd, d, a.splits);
+  *reinterpret_cast<uint32_t*>(static_cast<T*>(a.out) + (size_t)r * a.hd +
+                               d) = tc::pack2<T>(o.x, o.y);
 }
 
 typedef void (*KernelFn)(Args);
@@ -630,19 +476,15 @@ KernelFn pick(bool cached, int dtype) {
   return nullptr;
 }
 
+template <typename T, int kW>
+TcKernelFn pick_tc(bool wide) {
+  return wide ? flash_attn_tc_kernel<T, 128, kW>
+              : flash_attn_tc_kernel<T, 64, kW>;
+}
+
 bool shape_ok(int S, int T, int H, int KV, int hd) {
   return S >= 1 && T >= S && KV > 0 && H % KV == 0 && H / KV <= kRows &&
          hd >= 4 && hd <= kMaxHd && hd % 4 == 0;
-}
-
-// Raise a kernel's dynamic shared memory limit (once per kernel).
-template <typename Fn>
-int allow_smem(Fn fn, size_t smem, bool& done) {
-  if (done || smem <= 48 * 1024) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = e == cudaSuccess;
-  return (int)e;
 }
 
 // The widest cp.async piece (16, 8 or 4 bytes) that divides a row of hd
@@ -655,28 +497,44 @@ int copy_bytes(const Args& a) {
   return 0;
 }
 
-int launch(bool cached, Args a, int dtype, cudaStream_t stream) {
+// bf16/f16 with a usable copy width run flash_tc (kW warps, a.splits key
+// splits, then flash_merge when a.splits > 1); f32 runs flash_cta.
+int launch(bool cached, Args a, int dtype, int warps, cudaStream_t stream) {
   if (!shape_ok(a.S, a.T, a.H, a.KV, a.hd)) return (int)cudaErrorInvalidValue;
   KernelFn fn = pick(cached, dtype);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.splits > 1 && (a.part == nullptr || dtype == 0))
+    return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
   const int G = a.H / a.KV;
   const int vec = copy_bytes(a);
-  if (!cached && dtype != 0 && vec != 0) {
-    static bool done[4] = {false, false, false, false};
+  if (dtype != 0 && vec != 0) {
+    if (warps != 4 && warps != 8) return (int)cudaErrorInvalidValue;
     const bool wide = a.hd > 64;
-    TcKernelFn tc =
-        dtype == 1 ? (wide ? flash_attn_tc_kernel<__nv_bfloat16, 128>
-                           : flash_attn_tc_kernel<__nv_bfloat16, 64>)
-                   : (wide ? flash_attn_tc_kernel<__half, 128>
-                           : flash_attn_tc_kernel<__half, 64>);
-    const int e = allow_smem(tc, kTcSmem, done[2 * (dtype - 1) + wide]);
-    if (e != 0) return e;
-    a.q_cols = kTcRows / G;
+    TcKernelFn body =
+        warps == 4 ? (dtype == 1 ? pick_tc<__nv_bfloat16, 4>(wide)
+                                 : pick_tc<__half, 4>(wide))
+                   : (dtype == 1 ? pick_tc<__nv_bfloat16, 8>(wide)
+                                 : pick_tc<__half, 8>(wide));
+    const size_t smem = tc::smem_bytes(16 * warps);
+    cudaError_t e = cudaFuncSetAttribute(
+        (const void*)body, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    a.q_cols = 16 * warps / G;
+    const int splits = max(1, a.splits);
     const int tiles = (a.S + a.q_cols - 1) / a.q_cols;
-    tc<<<dim3(tiles, a.KV, a.B), kThreads, kTcSmem, stream>>>(a, vec);
+    const dim3 grid(tiles * splits, a.KV, a.B);
+    body<<<grid, 32 * warps, smem, stream>>>(a, vec);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return (int)e;
+    const unsigned blocks = tc::merge_blocks((size_t)a.B * a.S * a.H, a.hd);
+    KernelFn merge = dtype == 1 ? flash_merge_kernel<__nv_bfloat16>
+                                : flash_merge_kernel<__half>;
+    merge<<<blocks, 256, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
+  if (a.splits > 1) return (int)cudaErrorInvalidValue;   // flash_cta: one
   a.q_cols = kRows / G;
   const size_t smem = smem_bytes(a.hd);
   if (smem > 48 * 1024) {
@@ -701,17 +559,24 @@ int flash_attn(const void* q, const void* k, const void* v, void* out, int B,
                float scale, int dtype, void* stream) {
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, B, S, T, H, KV, hd, 0, 0, causal, window, scale};
-  return launch(false, a, dtype, static_cast<cudaStream_t>(stream));
+  return launch(false, a, dtype, 4, static_cast<cudaStream_t>(stream));
 }
 
 // Window at absolute position pos against a cache k/v [B, T, KV, hd]
-// whose slots < pos + S are written (0 <= pos <= T - S).
+// whose slots < pos + S are written (0 <= pos <= T - S). bf16/f16 run
+// flash_tc with `warps` (4 or 8) warps a CTA over `splits` key splits;
+// splits > 1 needs `part`, f32 scratch of splits * B * S * H * (hd + 2)
+// floats, and launches flash_merge after it (bf16/f16 only). f32 runs
+// flash_cta (splits 1). Returns cudaGetLastError() of the launches.
 int flash_attn_cached(const void* q, const void* k, const void* v, void* out,
                       int B, int S, int T, int H, int KV, int hd, int pos,
-                      int window, float scale, int dtype, void* stream) {
-  if (pos < 0 || pos > T - S) return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, S, T, H, KV, hd, 0, pos, 1, window, scale};
-  return launch(true, a, dtype, static_cast<cudaStream_t>(stream));
+                      int window, float scale, int dtype, int warps,
+                      int splits, float* part, void* stream) {
+  if (pos < 0 || pos > T - S || splits < 1 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, out, B, S, T, H, KV, hd, 0, pos, 1, window, scale,
+         splits, part};
+  return launch(true, a, dtype, warps, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -65,7 +65,31 @@
 // The slot reader has load_slot's shape, so the int8/int4 decode can move
 // onto this body next.
 //
-// rpa_cta, which every mixed kernel and the int8/int4 decode still run:
+// rpa_mixed over bf16 q and bf16 pages (hd <= 128) -- rpa_mixed_tc (+
+// rpa_mixed_merge), because a chunk row carries C x G query rows a kv
+// head, the shape of flash_tc's tensor-core tiles, and the scalar rpa_cta
+// left one decode row at pos 2047 walking 16 pages alone:
+//   * one CTA per (kv head x 64-row query tile, row, split): 16 columns x
+//     G = 4 heads, the rows laid out as rpa_cta's; the tile loop is
+//     tc_attention.cuh's (mma.sync m16n8k16, 64-slot key tiles through a
+//     two-stage cp.async ring, online softmax on the fragments, p rounded
+//     to bf16 for p v as the Pallas kernel rounds it, l summing the f32 p);
+//   * a slot row's address comes from table[b, slot / P], looked up per
+//     row, so a key tile may straddle pages of any size; unmapped pages
+//     and slots past the CTA's last query are zero-filled and masked by a
+//     64-bit live mask a ring stage (never clamped to page 0, never read);
+//     a warp whose rows are all padding (a decode row fills 4 of 64) skips
+//     its products but keeps to the copies and barriers;
+//   * splits by pages: the wrapper picks (splits, pages a split) from
+//     shapes and the SM count alone (mixed_split_plan), so the call reads
+//     nothing back to the host and captures into a CUDA graph; a split
+//     writes f32 partials of its real rows, and rpa_mixed_merge folds, per
+//     column, the splits holding its slots in split order (the same bits
+//     every run) and writes zeros for padding columns, idle and dead rows.
+//     With one split the CTA writes the output itself.
+//
+// rpa_cta, which the other mixed pairs (f32 q or pages, hd > 128, int8
+// and int4 pages) and the int8/int4 decode still run:
 //   * one CTA per (row, kv head[, query tile]) reads its own pos and
 //     table row and walks only the LIVE pages j < ceil((last + 1) / P),
 //     where last is the position of its last real query; unmapped ids
@@ -90,6 +114,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -617,6 +643,193 @@ __global__ void __launch_bounds__(kThreads) rpa_merge_kernel(Args a) {
   }
 }
 
+// -- rpa_mixed_tc: the mixed body over bf16 pages, on the tensor cores -----
+
+constexpr int kMixRows = 64;       // query rows a CTA: 4 warps x 16
+// q tile and the K/V ring (tc_attention.cuh), then a 64-bit live-slot mask
+// per ring stage
+constexpr size_t kMixSmem =
+    tc::smem_bytes(kMixRows) + tc::kStages * 2 * sizeof(uint32_t);
+
+// One CTA: kv head `kv` of row `b`, query columns [c0, c0 + q_cols) (row r
+// is column c0 + r / G, query head kv * G + r % G, as in rpa_cta), the
+// row's slots [s * pps * P, (s + 1) * pps * P) of split s. Slot rows reach
+// shared memory through table[b, slot / P], looked up per row, so a 64-slot
+// tile may straddle pages of any size; a slot of an unmapped page (or past
+// the CTA's last query) is zero-filled, never read, and masked by the
+// tile's live mask. Without partials (one split) the CTA writes its
+// columns' output, zeros for padding columns and idle rows; with them it
+// writes f32 partials of its real rows and rpa_mixed_merge writes the rest.
+template <int kHd>
+__global__ void __launch_bounds__(kThreads, 2)
+    rpa_mixed_tc_kernel(Args a, int vec) {
+  using T = __nv_bfloat16;
+  extern __shared__ float4 smem4[];
+  T* q_s = reinterpret_cast<T*>(smem4);                // [64][kLd]
+  T* ring = q_s + kMixRows * tc::kLd;                  // stage s: K, then V
+  uint32_t* live_s = reinterpret_cast<uint32_t*>(
+      ring + tc::kStages * 2 * tc::kKeys * tc::kLd);   // [kStages][2]
+  const int G = a.H / a.KV;
+  const int hd = a.hd;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_q = (a.C + a.q_cols - 1) / a.q_cols;
+  const int kv = blockIdx.x / n_q, c0 = (blockIdx.x % n_q) * a.q_cols;
+  const int b = blockIdx.y, s = blockIdx.z;
+  const T* q = static_cast<const T*>(a.q);
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
+
+  const int pos = a.pos[b];
+  const int cols = min(a.q_cols, a.C - c0);
+  const int real = max(0, min(cols, a.qlen[b] - c0));  // real query columns
+  const int rows = real * G;
+  const int first = pos + c0;                // position of the first column
+  const int last = pos + c0 + real - 1;      // and of the last real one
+  const int span = a.pps * a.P;              // slots a split
+  const int k_lo = s * span;
+  const int k_hi = min(min(last + 1, k_lo + span), a.max_pages * a.P);
+  const bool split = a.part != nullptr;
+  auto orow = [&](int r) {                   // [B, C, H] row index
+    return ((size_t)b * a.C + c0 + r / G) * a.H + kv * G + r % G;
+  };
+  if (rows == 0 || k_lo >= k_hi) {
+    // nothing to attend: without partials the tile's columns are zeros; a
+    // split writes nothing (the merge reads only splits holding a column's
+    // slots)
+    if (!split)
+      for (int i = tid; i < cols * G * hd; i += kThreads)
+        out[orow(i / hd) * hd + i % hd] = __float2bfloat16(0.f);
+    return;
+  }
+  const int n_tiles = (k_hi - k_lo + tc::kKeys - 1) / tc::kKeys;
+
+  tc::zero_pad_columns<T, kHd>(q_s, kMixRows + 2 * tc::kStages * tc::kKeys,
+                               hd, kThreads);
+  tc::stage_rows(q_s, kMixRows, hd, vec, kThreads, q,
+                 [&](int r) -> const T* {
+                   return r < rows ? q + orow(r) * hd : nullptr;
+                 });
+  const int* trow = a.table + (size_t)b * a.max_pages;
+  // slot `key` of the row -> element offset of its K/V row in the pools,
+  // or -1 (past the split's live slots, or an unmapped page)
+  auto slot = [&](int key) -> long long {
+    if (key >= k_hi) return -1;
+    const int j = key / a.P;
+    const int page = trow[j];
+    if (page < 0 || page >= a.N) return -1;
+    return (((long long)page * a.P + (key - j * a.P)) * a.KV + kv) * hd;
+  };
+  auto load_tile = [&](int j) {
+    const int sg = j % tc::kStages;
+    T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
+    const int t0 = k_lo + j * tc::kKeys;
+    tc::stage_kv(ks, ks + tc::kKeys * tc::kLd, kp, vp, hd, vec, kThreads,
+                 [&](int r) { return slot(t0 + r); });
+    if (warp < 2) {             // which of the tile's 64 slots are live
+      const unsigned m = __ballot_sync(0xffffffffu, slot(t0 + tid) >= 0);
+      if (lane == 0) live_s[sg * 2 + warp] = m;
+    }
+  };
+  load_tile(0);
+  tc::cp_commit();              // group 0: q and tile 0
+  if (n_tiles > 1) load_tile(1);
+  tc::cp_commit();              // group 1: tile 1 (or nothing)
+
+  // this thread's two rows: r0 = 16 warp + lane / 4 and r0 + 8; a warp
+  // past the real rows (a decode row fills 4 of 64) skips its products but
+  // takes part in the copies and barriers
+  const int r0 = warp * 16 + (lane >> 2);
+  const int pos0 = first + r0 / G, pos1 = first + (r0 + 8) / G;
+  const float sl2 = a.scale * tc::kLog2e;
+  const bool active = warp * 16 < rows;
+  uint32_t qf[kHd / 16][4];
+  tc::State<kHd> st;
+  st.init();
+  for (int j = 0; j < n_tiles; ++j) {
+    tc::cp_wait_1();            // every group but the newest has landed
+    __syncthreads();
+    const int sg = j % tc::kStages;
+    const T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
+    const int t0 = k_lo + j * tc::kKeys;
+    const unsigned long long live =
+        live_s[sg * 2] | ((unsigned long long)live_s[sg * 2 + 1] << 32);
+    if (active) {
+      if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
+      // interior: every slot live and at or before every row's position
+      const bool interior = live == ~0ull && t0 + tc::kKeys - 1 <= first;
+      tc::tile_step<T, kHd>(
+          qf, ks, ks + tc::kKeys * tc::kLd, st, sl2, interior, lane,
+          [&](int jj, int half) {
+            return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
+          });
+    }
+    __syncthreads();            // every warp is done with this stage
+    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);
+    tc::cp_commit();
+  }
+
+  st.finish();
+  const size_t prow = (size_t)a.B * a.C * a.H;   // partial rows
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + half * 8;
+    if (split) {
+      if (r < rows) {
+        const size_t pr = (size_t)s * prow + orow(r);
+        tc::store_partial<kHd>(st, half, a.part + pr * 2,
+                               a.part + 2 * (size_t)a.splits * prow + pr * hd,
+                               hd, lane);
+      }
+    } else if (r < cols * G) {  // padding columns write zeros
+      tc::store_row<T, kHd>(st, half, out + orow(r) * hd, hd, lane,
+                            r >= rows);
+    }
+  }
+}
+
+// Fold the splits of every [B, C, H] row in split order and normalise:
+// column c of row b reads the splits that hold its slots (s * pps * P <=
+// pos + c); a padding column, an idle row, or a total l of 0 writes zeros.
+__global__ void __launch_bounds__(256) rpa_mixed_merge_kernel(Args a) {
+  const int rows = a.B * a.C * a.H;
+  int r, d;
+  if (!tc::merge_thread(rows, a.hd, r, d)) return;
+  const int b = r / (a.C * a.H);
+  const int c = r / a.H - b * a.C;
+  const int key = a.pos[b] + c;              // the column's last slot
+  const int n_live = c < a.qlen[b] && key >= 0
+                         ? min(a.splits, key / (a.pps * a.P) + 1)
+                         : 0;
+  const float2 o =
+      tc::merge_split_stats(a.part, a.splits, rows, r, a.hd, d, n_live);
+  *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) +
+                               (size_t)r * a.hd + d) =
+      tc::pack2<__nv_bfloat16>(o.x, o.y);
+}
+
+// rpa_mixed_tc (then rpa_mixed_merge with more than one split): bf16 q
+// over bf16 pages, hd <= 128, rows of hd * 2 bytes in `vec`-byte pieces.
+int launch_mixed_tc(Args a, int vec, cudaStream_t stream) {
+  typedef void (*TcFn)(Args, int);
+  TcFn fn = a.hd > 64 ? &rpa_mixed_tc_kernel<128> : &rpa_mixed_tc_kernel<64>;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMixSmem);
+  if (e != cudaSuccess) return (int)e;
+  a.q_cols = kMixRows / (a.H / a.KV);
+  const int n_q = (a.C + a.q_cols - 1) / a.q_cols;
+  const dim3 grid(a.KV * n_q, a.B, a.splits);
+  fn<<<grid, kThreads, kMixSmem, stream>>>(a, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.part == nullptr) return (int)e;
+  const unsigned blocks = tc::merge_blocks((size_t)a.B * a.C * a.H, a.hd);
+  rpa_mixed_merge_kernel<<<blocks, 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 typedef void (*KernelFn)(Args);
 typedef void (*SplitFn)(Args, int);
 
@@ -754,15 +967,35 @@ int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
 }
 
 // Mixed: q/out [B, C, H, hd], q_len [B]; scales and P as rpa_decode.
-// Returns cudaGetLastError().
+// With tc set (bf16 q over bf16 pages, hd <= 128, rows and pointers 4-byte
+// aligned, else an error) it runs rpa_mixed_tc over `splits` splits of
+// `pps` table columns (splits * pps >= max_pages) and, with splits > 1,
+// rpa_mixed_merge, with `part` f32 scratch of splits * B * C * H * (hd + 2)
+// floats; without tc, rpa_cta, which ignores the three. Returns
+// cudaGetLastError() of the launches.
 int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
               const float* sv, const int* table, const int* pos,
               const int* q_len, void* out, int B, int C, int H, int KV,
               int hd, int P, int N, int max_pages, float scale, int q_dtype,
-              int kv_dtype, void* stream) {
+              int kv_dtype, int tc, int pps, int splits, float* part,
+              void* stream) {
   if (!shape_ok(H, KV, hd) || !pool_ok(kv_dtype, sk, sv, P))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0) return 0;
+  if (tc) {
+    const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                          (uintptr_t)(hd * 2);
+    int vec = 0;
+    for (int w = 16; w >= 4 && vec == 0; w >>= 1)
+      if (any % w == 0) vec = w;
+    if (q_dtype != 1 || kv_dtype != 1 || hd > 128 || vec == 0 || pps < 1 ||
+        splits < 1 || splits > 65535 || (long long)pps * splits < max_pages ||
+        (splits > 1) != (part != nullptr))
+      return (int)cudaErrorInvalidValue;
+    Args a{q, k, v, sk, sv, table, pos, q_len, out,
+           B, C, H, KV, hd, P, N, max_pages, 0, scale, pps, splits, part};
+    return launch_mixed_tc(a, vec, static_cast<cudaStream_t>(stream));
+  }
   const int q_cols = kRows / (H / KV);
   Args a{q, k, v, sk, sv, table, pos, q_len, out,
          B, C, H, KV, hd, P, N, max_pages, q_cols, scale};

@@ -17,7 +17,9 @@ Layout (the JAX package's): q [B, S, H, hd], k/v [B, T, KV, hd], output
 [B, S, H, hd] in q's dtype; query head h reads kv head h // (H // KV).
 
 `LAUNCHES` counts kernel launches and plain-version calls by name, so a
-run can show which path its attention took.
+run can show which path its attention took. `flash_attn_cached` over
+bf16/f16 may be two launches (the key splits of `flash_split_plan`,
+then their in-order merge), counted as one call.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from cake_tpu_torch.ops.attention import NEG_INF
 from cake_tpu_torch.utils.cuda_build import CudaLibrary
+from cake_tpu_torch.utils.devices import device_sm_count
 
 KERNELS = ("flash_attn", "flash_attn_cached")
 LAUNCHES = {"flash_attn": 0, "flash_attn_cached": 0,
@@ -39,6 +42,11 @@ LAUNCHES = {"flash_attn": 0, "flash_attn_cached": 0,
 MAX_GROUP = 32
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# flash_attn_cached's tensor-core body: warps a CTA (16 query rows each;
+# 4 or 8) and the most key splits of a (query tile, kv head)
+CACHED_WARPS = 8
+MAX_KEY_SPLITS = 16
+KEY_TILE = 64
 
 
 def reset_launch_counts() -> None:
@@ -48,8 +56,10 @@ def reset_launch_counts() -> None:
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attn.argtypes = [p, p, p, p] + [i] * 8 + [f, i, p]
+    lib.flash_attn_cached.argtypes = [p, p, p, p] + [i] * 8 + [
+        f, i, i, i, p, p]
     for fn in (lib.flash_attn, lib.flash_attn_cached):
-        fn.argtypes = [p, p, p, p] + [i] * 8 + [f, i, p]
         fn.restype = i
 
 
@@ -68,6 +78,22 @@ def flash_supported(S: int, T: int, H: int, KV: int, hd: int,
     return (S >= 1 and T >= S and KV >= 1 and H % KV == 0
             and H // KV <= MAX_GROUP and 4 <= hd <= MAX_HEAD_DIM
             and hd % 4 == 0 and (dtype is None or dtype in _DTYPE_CODES))
+
+
+def flash_split_plan(B: int, S: int, T: int, H: int, KV: int, n_sm: int,
+                     warps: int) -> int:
+    """Key splits of flash_attn_cached's tensor-core body, from shapes and
+    the SM count alone (never pos, so a captured call replays at any
+    position): as many as keep B x KV x query tiles x splits CTAs within
+    one wave of the card (two CTAs an SM at 4 warps, one at 8), at most
+    MAX_KEY_SPLITS, and at most half the 64-key tiles of a T-slot cache.
+    Split s of a CTA's n key tiles walks [s n // splits, (s + 1) n //
+    splits)."""
+    q_cols = max(1, 16 * warps // (H // KV))
+    ctas = B * KV * -(-S // q_cols)
+    want = (2 if warps == 4 else 1) * n_sm // max(1, ctas)
+    cap = max(1, -(-T // KEY_TILE) // 2)
+    return max(1, min(want, MAX_KEY_SPLITS, cap))
 
 
 def _check_cuda_args(q, k, v):
@@ -162,10 +188,20 @@ def flash_attention_cached(q, k_cache, v_cache, pos, *,
     _check_cuda_args(q, k_cache, v_cache)
     KV = k_cache.shape[2]
     out = torch.empty_like(q)
+    splits, part = 1, None
+    aligned = (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 4 == 0
+    if q.dtype != torch.float32 and aligned:   # flash_tc: f32 partials
+        splits = flash_split_plan(B, S, T, H, KV, device_sm_count(q.device),
+                                  CACHED_WARPS)
+        if splits > 1:
+            part = torch.empty(splits * B * S * H * (hd + 2),
+                               dtype=torch.float32, device=q.device)
     rc = LIBRARY.get().flash_attn_cached(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         out.data_ptr(), B, S, T, H, KV, hd, pos, w, float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], CACHED_WARPS, splits,
+        None if part is None else part.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _launch("flash_attn_cached", rc)
     return out
 

@@ -29,7 +29,10 @@ first query; the queries' KV is already written.
 run can show which path its attention took. The decode over f32/bf16
 pages is two launches (`rpa_split`, then `rpa_merge`) counted as one
 call: its page loop is split across CTAs by `split_plan`, which the
-plain version follows.
+plain version follows. The mixed step over bf16 queries and bf16 pages
+runs the tensor-core body `rpa_mixed_tc`, split by `mixed_split_plan`
+(plus `rpa_mixed_merge` when it splits), again one call; its plain
+version folds those splits over f32/bf16 pages.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from cake_tpu_torch.ops.attention import (
     NEG_INF, merge_attention_stats, partial_attention_stats,
 )
 from cake_tpu_torch.utils.cuda_build import CudaLibrary
+from cake_tpu_torch.utils.devices import device_sm_count
 
 KERNELS = ("rpa_decode", "rpa_mixed", "rpa_decode_q8", "rpa_mixed_q8",
            "rpa_decode_q4", "rpa_mixed_q4")
@@ -65,7 +69,7 @@ def reset_launch_counts() -> None:
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rpa_decode.argtypes = [p] * 8 + [i] * 7 + [f, i, i, i, i, p, p]
-    lib.rpa_mixed.argtypes = [p] * 9 + [i] * 8 + [f, i, i, p]
+    lib.rpa_mixed.argtypes = [p] * 9 + [i] * 8 + [f, i, i, i, i, i, p, p]
     lib.rpa_decode.restype = i
     lib.rpa_mixed.restype = i
     for fn in (lib.rpa_max_group, lib.rpa_max_head_dim):
@@ -83,21 +87,19 @@ CPU_SM_COUNT = 132
 # a split covers at most this many slots, so a long row is spread over
 # more CTAs than the floor of two an SM asks for
 SPLIT_SLOTS = 128
-_SM_COUNTS: dict = {}
+# a split of the mixed kernel covers at least this many slots (four of its
+# 64-slot key tiles), and its f32 partials take at most this much scratch
+MIXED_MIN_SLOTS = 256
+MIXED_SCRATCH_BYTES = 64 << 20
 
 
 def sm_count(device) -> int:
-    """The SM count split_plan plans for: the card's, read once per
+    """The SM count the split plans plan for: the card's, read once per
     device; CPU_SM_COUNT for a CPU tensor."""
     device = torch.device(device)
     if device.type != "cuda":
         return CPU_SM_COUNT
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNTS:
-        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNTS[idx]
+    return device_sm_count(device)
 
 
 def split_plan(B: int, KV: int, max_pages: int, P: int,
@@ -112,6 +114,35 @@ def split_plan(B: int, KV: int, max_pages: int, P: int,
     want = -(-2 * n_sm // max(1, B * KV))
     pps = max(1, min(-(-max_pages // want), SPLIT_SLOTS // P))
     return -(-max_pages // pps), pps
+
+
+def mixed_split_plan(B: int, C: int, H: int, KV: int, hd: int,
+                     max_pages: int, P: int, n_sm: int) -> tuple[int, int]:
+    """(splits, pages per split) of the mixed step's page loop, from
+    shapes alone (never pos, q_len or the table, so the call captures
+    into a CUDA graph): enough splits that one long row's kv heads take
+    two CTAs an SM, no split shorter than MIXED_MIN_SLOTS slots, and the
+    f32 partials (splits x B x C x H x (hd + 2) floats) within
+    MIXED_SCRATCH_BYTES. Split s covers table columns [s * pps,
+    (s + 1) * pps); every column lies in exactly one split."""
+    if max_pages < 1:
+        return 1, 1
+    want = -(-2 * n_sm // max(1, B * KV))
+    pps = max(-(-max_pages // want), -(-MIXED_MIN_SLOTS // P))
+    cap = max(1, MIXED_SCRATCH_BYTES // max(1, 4 * B * C * H * (hd + 2)))
+    pps = max(pps, -(-max_pages // cap))
+    return -(-max_pages // pps), pps
+
+
+def mixed_takes_tc(q, pool_k, pool_v, scale_k=None) -> bool:
+    """Whether rpa_mixed runs its tensor-core body (rpa_mixed_tc): bf16
+    queries over bf16 pages, head dim even and at most 128, q and the
+    pools 4-byte aligned. Every other pair runs rpa_cta, unsplit."""
+    hd = q.shape[-1]
+    aligned = (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % 4
+    return (scale_k is None and q.dtype == torch.bfloat16
+            and pool_k.dtype == torch.bfloat16 and hd <= 128
+            and hd % 2 == 0 and aligned == 0)
 
 
 def kernel_name(base: str, scale_k=None, packed4: bool = False) -> str:
@@ -253,15 +284,24 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
             q, pool_k, pool_v, table, pos, q_len, scale=scale, **quant)
     _check_cuda_args(q, pool_k, pool_v, table, pos, q_len, **quant)
     N, rows, KV, _ = pool_k.shape
+    max_pages = table.shape[1]
     out = torch.empty_like(q)
+    tc = mixed_takes_tc(q, pool_k, pool_v, scale_k)
+    splits, pps, part = 1, max(1, max_pages), None
+    if tc:                      # rpa_mixed_tc (+ rpa_mixed_merge): f32 partials
+        splits, pps = mixed_split_plan(B, C, H, KV, hd, max_pages, rows,
+                                       sm_count(q.device))
+        if splits > 1:
+            part = torch.empty(splits * B * C * H * (hd + 2),
+                               dtype=torch.float32, device=q.device)
     lib = LIBRARY.get()
     rc = lib.rpa_mixed(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
         q_len.data_ptr(), out.data_ptr(), B, C, H, KV, hd,
-        rows * (2 if packed4 else 1), N, table.shape[1], float(scale),
-        _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        rows * (2 if packed4 else 1), N, max_pages, float(scale),
+        _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], int(tc), pps, splits,
+        _ptr(part), torch.cuda.current_stream(q.device).cuda_stream)
     _launch(kernel_name("rpa_mixed", scale_k, packed4), rc)
     return out
 
@@ -317,7 +357,13 @@ def _fold(q, read, KV, table, valid_fn, scale, pps=None):
             pages = table[:, j].long()
             mapped = pages >= 0
             kj, vj = read(pages, mapped)                      # [B, P, KV, hd]
-            valid = valid_fn(j, mapped)[:, None, None, :, :]  # [B,1,1,C,P]
+            ok = valid_fn(j, mapped)                          # [B, C, P]
+            # a slot no query attends may hold stale garbage (NaN) that
+            # the kernels never read: p is 0 there, and 0 * NaN is NaN
+            vj = torch.where(ok.any(dim=1)[:, :, None, None], vj,
+                             torch.zeros((), dtype=vj.dtype,
+                                         device=vj.device))
+            valid = ok[:, None, None, :, :]                   # [B,1,1,C,P]
             mj, lj, oj = partial_attention_stats(q, kj, vj, valid,
                                                  scale=scale)
             m_new = torch.maximum(m, mj)
@@ -362,7 +408,11 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
     """Plain version of `ragged_paged_attention_mixed` (the JAX
     package's `paged_attention_mixed` fold): query i of row b attends
     slot j*P + t iff <= pos[b] + i and its page is mapped. Columns
-    >= q_len are zeroed, as the kernel writes them."""
+    >= q_len attend nothing and give zeros, as the kernel writes them
+    (so a stale slot past a row's last query is never read). Over
+    f32/bf16 pages the columns fold in the splits of `mixed_split_plan`,
+    whose stats then merge in split order, as the tensor-core kernel's
+    do."""
     _check_quant_args(scale_k, scale_v, packed4)
     LAUNCHES[kernel_name("rpa_mixed", scale_k, packed4) + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
@@ -370,11 +420,16 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
     t = torch.arange(P, device=q.device)
     qi = torch.arange(C, device=q.device)
     horizon = pos[:, None].long() + qi[None, :]                 # [B, C]
+    real = qi[None, :] < q_len[:, None].long()                 # [B, C]
 
     def valid(j, mapped):
         ok = (j * P + t)[None, None, :] <= horizon[:, :, None]
-        return ok & mapped[:, None, None]                      # [B, C, P]
+        return ok & mapped[:, None, None] & real[:, :, None]   # [B, C, P]
 
-    out = _fold(q, read, pool_k.shape[2], table, valid, scale)
-    real = qi[None, :] < q_len[:, None].long()
-    return (out * real[:, :, None, None]).to(q.dtype)
+    KV = pool_k.shape[2]
+    pps = None
+    if scale_k is None:
+        _, pps = mixed_split_plan(B, C, q.shape[2], KV, q.shape[3],
+                                  table.shape[1], P, sm_count(q.device))
+    out = _fold(q, read, KV, table, valid, scale, pps)
+    return out.to(q.dtype)

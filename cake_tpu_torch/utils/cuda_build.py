@@ -2,9 +2,10 @@
 
 Each `csrc/*.cu` file has a plain C interface. nvcc compiles it for
 sm_90a into `cake_tpu_torch/_build/lib<stem>_<hash>.so`, one library per
-source content (an edited source rebuilds, an unchanged one is reused),
-and ctypes loads it. `build_libraries` starts one nvcc per missing
-library, all at once, and waits for them all.
+content of the source and the shared `csrc/*.cuh` headers (an edit
+rebuilds, an unchanged tree is reused), and ctypes loads it.
+`build_libraries` starts one nvcc per missing library, all at once, and
+waits for them all.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC_DIR)
 
 # source path -> {"seconds", "ptxas"} of this process's build; a library
 # found already built records 0 seconds and no ptxas report
@@ -43,9 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library of `source`'s current content is built."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Where the library of `source`'s current content (and the shared
+    headers') is built."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [source] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

@@ -35,3 +35,18 @@ def resolve_dtype(name) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unknown dtype {name!r} (have "
                          f"{sorted(set(_DTYPES))})") from None
+
+
+_SM_COUNTS: dict = {}
+
+
+def device_sm_count(device) -> int:
+    """The SM count of a CUDA device, read once per device index (the
+    kernels' split plans use it)."""
+    device = torch.device(device)
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]

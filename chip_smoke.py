@@ -21,7 +21,8 @@ Phases, in order (any failure exits non-zero):
             cycling through pool copies larger than L2) with the
             host-launched time beside them, the plain version's time,
             the bound and the yardstick SDPA timed the same way;
-            rpa_decode and flash_attn must give the same bits twice.
+            rpa_decode, rpa_mixed and the flash pair must give the same
+            bits twice.
             Two more rpa_decode cases show its split: B = 8 with one row
             at pos 8191 (64 table columns), B = 32 rows up to 2047. Then
             the int4 matmul against its plain version at the four
@@ -62,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,9 +134,12 @@ def phase_device(torch, *ops) -> str:
     for src in sources:
         info = cuda_build.BUILD_INFO.get(src, {})
         log(f"  {os.path.basename(src)}: nvcc {info.get('seconds', 0.0):.2f} s")
+        entry = ""
         for line in info.get("ptxas", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"    ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
     return card
 
 
@@ -379,7 +384,16 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
                     [_sdpa_yardstick(torch, q, c, d, table, pos, ql)
                      for _, _, c, d in pools],
                     nbytes, ops,
-                    again=kern(*args, **kw) if name == "rpa_decode" else None)
+                    again=(kern(*args, **kw)
+                           if name in ("rpa_decode", "rpa_mixed") else None))
+                if name == "rpa_mixed" and hasattr(rpa, "mixed_split_plan"):
+                    tc = rpa.mixed_takes_tc(q, pk, pv, kw.get("scale_k"))
+                    plan = rpa.mixed_split_plan(
+                        *q.shape[:3], pk.shape[2], q.shape[3], table.shape[1],
+                        pk.shape[1], rpa.sm_count("cuda"))
+                    log(f"rpa_mixed {dname}: "
+                        + (f"tensor-core body, plan (splits, pages a split) "
+                           f"{plan}" if tc else "rpa_cta"))
                 del pools
     torch.cuda.empty_cache()
 
@@ -524,7 +538,14 @@ def _flash_kernels(torch, fa, report, only=None) -> None:
                 torch, label, dname, kern(*args, **kw), plain(*args, **kw),
                 [lambda: kern(*args, **kw)], lambda: plain(*args, **kw),
                 [_flash_sdpa(torch, q, k, v, pos, causal, window)], nbytes,
-                ops, again=kern(*args, **kw) if name == "flash_attn" else None)
+                ops, again=kern(*args, **kw))
+            if pos is not None and hasattr(fa, "flash_split_plan") and \
+                    dtype != torch.float32:
+                n_sm = fa.device_sm_count("cuda")
+                splits = fa.flash_split_plan(B, S, T, H, KV, n_sm,
+                                             fa.CACHED_WARPS)
+                log(f"{label} {dname}: tensor-core body, {fa.CACHED_WARPS} "
+                    f"warps a CTA, {splits} key splits on {n_sm} SMs")
             if main_case:
                 report[(name, dname)] = rec
 
@@ -1051,9 +1072,13 @@ def _post(url, body, timeout=600):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
+_PORT_KERNEL = re.compile(r"\(anonymous namespace\)::(rpa_|flash_|int4_)")
+
+
 def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
     """Print the kernels that took the most device time in a profiled
-    window, and the device's busy share of the window's wall time. Only
+    window, then the port's own kernels (csrc/) ranked below them, and
+    the device's busy share of the window's wall time. Only
     kernel rows count: an operator row (aten::mm, ...) carries the time
     of the kernels it launched again."""
     from torch.autograd import DeviceType
@@ -1069,9 +1094,10 @@ def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
     busy = sum(t for t, _, _ in rows) / 1e3
     log(f"profile: device busy {busy:.1f} ms of {wall_s * 1e3:.1f} ms wall "
         f"({100 * busy / max(wall_s * 1e3, 1e-9):.1f}% busy)")
-    for t, n, name in sorted(rows, reverse=True)[:top]:
-        log(f"profile: {t / 1e3:10.2f} ms {100 * t / 1e3 / max(busy, 1e-9):5.1f}%"
-            f" {n:7d}x {name[:90]}")
+    for i, (t, n, name) in enumerate(sorted(rows, reverse=True)):
+        if i < top or _PORT_KERNEL.search(name):
+            log(f"profile: {t / 1e3:10.2f} ms "
+                f"{100 * t / 1e3 / max(busy, 1e-9):5.1f}% {n:7d}x {name[:90]}")
 
 
 def _big_params(torch):
@@ -1154,7 +1180,7 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
         return Master(Args(sample_len=n_new, system_prompt=system),
                       text_generator=gen)
 
-    def run(m, n_prompt):
+    def run(m, n_prompt, prefill_label=None):
         g = m.llm
         m.add_message(Message.system(system))
         m.add_message(Message.user(_prompt_of(tok, n_prompt, system)))
@@ -1168,7 +1194,8 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
             timing["prefill_s"] = time.perf_counter() - t0
             return logits
 
-        g._prefill_prompt = timed_prefill
+        g._prefill_prompt = timed_prefill if prefill_label is None else \
+            (lambda: _profiled(torch, profile, prefill_label, timed_prefill))
         t0 = time.perf_counter()
 
         def on_token(t):
@@ -1186,7 +1213,7 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     a = _profiled(torch, profile, "generate run A",
                   lambda: run(master(), 1000))
     counts_a = dict(fa.LAUNCHES)
-    b = run(master(prefill_chunk=256), 1500)
+    b = run(master(prefill_chunk=256), 1500, "generate run B's prefill")
     counts = dict(fa.LAUNCHES)
     L = cfg.num_hidden_layers
     for label, t in (("A (bucket 1024)", a), ("B (256-token windows)", b)):
@@ -1196,6 +1223,13 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
         if t["tokens"] != n_new and not t["eos"]:
             fail(f"generate {label}: {t['tokens']} tokens, expected {n_new}")
     log(f"generate: launches {counts} (after run A: {counts_a})")
+    if hasattr(fa, "flash_split_plan"):
+        splits = fa.flash_split_plan(
+            1, 256, 4096, cfg.num_attention_heads, cfg.num_key_value_heads,
+            fa.device_sm_count("cuda"), fa.CACHED_WARPS)
+        log(f"generate B: flash_attn_cached over bf16 runs the tensor-core "
+            f"body at {fa.CACHED_WARPS} warps a CTA, {splits} key splits "
+            "a 256-token window")
     want = {"flash_attn": L, "flash_attn_cached": 6 * L,
             "flash_attn_plain": 0, "flash_attn_cached_plain": 0}
     if counts != want or counts_a["flash_attn_cached"] != 0:
@@ -1409,6 +1443,12 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     if i4 is not None:
         i4.reset_launch_counts()
     wall = _profiled(torch, profile, label, drive)
+    # an SSE client reads its last chunk before the engine releases the
+    # request's pages and retires it, so wait for the engine to retire
+    # every request before reading its records
+    deadline = time.monotonic() + 30.0
+    while len(engine.retired) < len(prompts) and time.monotonic() < deadline:
+        time.sleep(0.01)
     counts = dict(rpa.LAUNCHES)
     if i4 is not None:
         counts.update(i4.LAUNCHES)
@@ -1419,6 +1459,13 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     engine.stop()
     gib = engine.cache.memory_bytes() / 2**30
     log(f"{label}: launches {counts}")
+    if kv_dtype is None and hasattr(rpa, "mixed_split_plan"):
+        plan = rpa.mixed_split_plan(
+            8, 64, cfg.num_attention_heads, cfg.num_key_value_heads,
+            cfg.head_dim, 2048 // 128, 128, rpa.sm_count("cuda"))
+        log(f"{label}: rpa_mixed over the bf16 pool runs the tensor-core "
+            f"body, plan (splits, pages a split) {plan} at B = 8, C = 64, "
+            "16 table columns")
     for i, r in enumerate(results):
         log(f"{label} request {i}: {r}")
         if r is None or r.get("status") != 200:
@@ -1462,7 +1509,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace generate run A and the serve runs with "
+                    help="trace generate run A, run B's prefill and the "
+                         "serve runs with "
                          "torch.profiler and print where the device time "
                          "went")
     ap.add_argument("--kernels", default="",

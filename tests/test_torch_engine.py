@@ -230,6 +230,13 @@ def test_http_round_trip_buffered_sse_and_health(models):
                            for c in chunks)
         assert streamed == buffered_text       # greedy: the same stream
 
+        # the engine sends a request's final chunk before it releases the
+        # request's pages and counts it completed (the JAX engine's
+        # order), so wait until both are retired before reading health
+        deadline = time.monotonic() + 10.0
+        while (engine.stats.requests_completed < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         with urllib.request.urlopen(base + "/api/v1/health") as r:
             health = json.loads(r.read())
         assert health["status"] == "ok"

@@ -157,6 +157,61 @@ def test_wrappers_validate_their_options():
         fa.flash_attention_cached(q, k, v, 1)
 
 
+def _cached_key_splits(S, H, KV, pos, window, warps, splits):
+    """The key ranges flash_tc's splits walk (csrc/flash_attention.cu:
+    a CTA's keys [lo, hi) from its first position's window floor to its
+    last position, in 64-key tiles, split s taking tiles
+    [s n // splits, (s + 1) n // splits)), per query tile: yields
+    (first, last, lo, hi, [(start, end) of each split])."""
+    q_cols = max(1, 16 * warps // (H // KV))
+    for c0 in range(0, S, q_cols):
+        first, last = pos + c0, pos + min(S, c0 + q_cols) - 1
+        hi = last + 1
+        lo = max(0, first - window + 1) if window else 0
+        n = -(-(hi - lo) // fa.KEY_TILE)
+        yield first, last, lo, hi, [
+            (lo + (s * n // splits) * fa.KEY_TILE,
+             min(hi, lo + ((s + 1) * n // splits) * fa.KEY_TILE))
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,pos,window,warps,n_sm", [
+    (1, 256, 4096, 32, 8, 1280, None, 8, 132),   # generate run B's window
+    (1, 256, 4096, 32, 8, 1301, 700, 8, 132),    # unaligned pos, a window
+    (1, 256, 4096, 32, 8, 0, None, 4, 132),      # pos 0, four warps
+    (2, 1, 700, 32, 8, 650, None, 8, 132),       # S = 1
+    (1, 200, 1000, 32, 8, 800, None, 8, 132),    # pos + S = T
+    (1, 100, 600, 8, 8, 300, 65, 8, 132),        # G = 1, window off 64
+    (1, 50, 900, 32, 1, 777, None, 4, 132),      # G = 32
+    (4, 2048, 8192, 32, 8, 4096, None, 8, 132),  # enough CTAs: one split
+    (1, 64, 64, 4, 2, 0, None, 8, 8),            # a one-tile cache
+])
+def test_flash_cached_splits_cover_every_key_once(B, S, T, H, KV, pos,
+                                                  window, warps, n_sm):
+    """flash_split_plan reads shapes only; under its split count every
+    key a query of a CTA attends lies in exactly one split of that CTA,
+    every split lies below the frontier pos + S, and the CTAs stay
+    within one wave of the card unless one split each already exceeds
+    it."""
+    splits = fa.flash_split_plan(B, S, T, H, KV, n_sm, warps)
+    assert 1 <= splits <= fa.MAX_KEY_SPLITS
+    assert splits <= max(1, -(-T // fa.KEY_TILE) // 2)
+    q_cols = max(1, 16 * warps // (H // KV))
+    ctas = B * KV * -(-S // q_cols)
+    assert ctas * splits <= max(ctas, (2 if warps == 4 else 1) * n_sm)
+    for first, last, lo, hi, ranges in _cached_key_splits(
+            S, H, KV, pos, window, warps, splits):
+        assert hi <= pos + S and ranges[0][0] == lo
+        assert all(a <= b for a, b in ranges)
+        for (_, b0), (a1, _) in zip(ranges, ranges[1:]):
+            assert b0 == a1          # contiguous, no overlap
+        assert ranges[-1][1] == hi
+        for qp in range(first, last + 1):
+            keys = range(max(0, qp - window + 1) if window else 0, qp + 1)
+            for key in (keys[0], keys[-1]):
+                assert sum(a <= key < b for a, b in ranges) == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_kernels_match_plain_versions(dtype):
@@ -211,3 +266,82 @@ def test_cuda_kernels_match_plain_versions(dtype):
         torch.testing.assert_close(got.float(), want.float(), **tol)
     assert fa.LAUNCHES["flash_attn"] == 2 * len(cases)
     assert fa.LAUNCHES["flash_attn_cached"] == 2
+
+
+def _graph_replay(fn):
+    """fn() run eagerly and from a captured CUDA graph: (eager, replayed)
+    outputs. The call must read nothing back to the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = fn()
+    replayed.zero_()                 # the replay, not the capture, fills it
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, replayed
+
+
+# (B, S, T, H, KV, hd, pos, window): pos 0, an unaligned pos, S = 1,
+# pos + S = T, a window of 700, G = 1 / 4 / 32, hd 64 / 128 / 80 (padded
+# to 128 in shared memory)
+CACHED_TC_CASES = [
+    (1, 128, 512, 32, 8, 128, 0, None),
+    (1, 256, 2048, 32, 8, 128, 1301, None),
+    (2, 1, 700, 32, 8, 128, 650, None),
+    (1, 200, 1000, 32, 8, 128, 800, None),
+    (1, 256, 4096, 32, 8, 128, 1301, 700),
+    (1, 100, 600, 8, 8, 64, 300, None),
+    (1, 50, 900, 32, 1, 128, 777, None),
+    (1, 150, 1200, 16, 4, 80, 999, None),
+    (2, 96, 800, 8, 2, 64, 333, 130),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_cached_tensor_core_body_matches_plain(dtype, monkeypatch):
+    """flash_attn_cached over bf16/f16 runs flash_tc: against its plain
+    version (atol/rtol 2e-2: p rounded to the value dtype before p v,
+    output rounding) on every CACHED_TC_CASES shape with NaN in every
+    slot at or past the frontier, at 8 and 4 warps a CTA and at the
+    planned key splits, one split and three; two launches give the same
+    bits, one call counts one launch, and a call captured in a CUDA
+    graph replays to the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    plan = fa.flash_split_plan
+    for B, S, T, H, KV, hd, pos, window in CACHED_TC_CASES:
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda", dtype=dt)
+        kc = torch.randn((B, T, KV, hd), generator=g, device="cuda",
+                         dtype=dt)
+        vc = torch.randn((B, T, KV, hd), generator=g, device="cuda",
+                         dtype=dt)
+        kc[:, pos + S:] = float("nan")
+        vc[:, pos + S:] = float("nan")
+        want = fa.flash_attention_cached_plain(q, kc, vc, pos, window=window)
+        for warps, splits in ((8, None), (4, None), (8, 1), (4, 3)):
+            monkeypatch.setattr(fa, "CACHED_WARPS", warps)
+            monkeypatch.setattr(fa, "flash_split_plan", plan if splits is None
+                                else (lambda *a, n=splits: n))
+            fa.reset_launch_counts()
+            got = fa.flash_attention_cached(q, kc, vc, pos, window=window)
+            again = fa.flash_attention_cached(q, kc, vc, pos, window=window)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_attn_cached"] == 2
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+            assert torch.equal(got, again)
+    monkeypatch.setattr(fa, "CACHED_WARPS", 8)
+    monkeypatch.setattr(fa, "flash_split_plan", plan)
+    eager, replayed = _graph_replay(
+        lambda: fa.flash_attention_cached(q, kc, vc, pos, window=window))
+    assert torch.equal(eager, replayed)

@@ -168,6 +168,68 @@ def test_decode_plain_matches_jax_kernel_split_boundaries(monkeypatch, n_sm,
     assert not got[3].any()
 
 
+@pytest.mark.parametrize("B,C,H,KV,hd,max_pages,P,n_sm", [
+    (8, 64, 32, 8, 128, 16, 128, 132),   # the serving shapes: 4 splits
+    (1, 64, 32, 8, 128, 16, 128, 132),   # one row: splits of 2 pages
+    (8, 64, 32, 8, 128, 132, 16, 132),   # 16-token pages, a long table
+    (32, 512, 32, 8, 128, 64, 128, 132),  # big chunks: the scratch cap
+    (3, 5, 4, 2, 16, 5, 8, 132),         # the tiny config: one split
+    (6, 5, 4, 2, 16, 6, 8, 12),          # few SMs
+    (2, 1, 64, 8, 256, 7, 16, 132),      # C = 1, hd 256
+    (4, 64, 32, 8, 128, 1, 128, 132),    # one page
+])
+def test_mixed_split_plan_covers_every_column_once(B, C, H, KV, hd,
+                                                   max_pages, P, n_sm):
+    """The mixed step's split plan, from shapes alone: every table
+    column in exactly one split, splits of whole columns (so on page
+    boundaries), 1 <= splits <= max_pages, no split shorter than
+    MIXED_MIN_SLOTS unless the table is, the partials within
+    MIXED_SCRATCH_BYTES unless one split exceeds it alone, and a long
+    row's kv heads on at least two CTAs an SM where the slots allow."""
+    splits, pps = rpa.mixed_split_plan(B, C, H, KV, hd, max_pages, P, n_sm)
+    assert 1 <= splits <= max_pages and pps >= 1
+    cols = [j for s in range(splits)
+            for j in range(s * pps, min((s + 1) * pps, max_pages))]
+    assert cols == list(range(max_pages))
+    assert (splits - 1) * pps < max_pages <= splits * pps
+    assert pps * P >= min(rpa.MIXED_MIN_SLOTS, max_pages * P)
+    part = 4 * splits * B * C * H * (hd + 2)
+    assert splits == 1 or part <= rpa.MIXED_SCRATCH_BYTES
+    by_slots = -(-max_pages * P // rpa.MIXED_MIN_SLOTS)
+    if part <= rpa.MIXED_SCRATCH_BYTES // 2:
+        assert B * KV * splits >= min(2 * n_sm, B * KV * by_slots)
+
+
+# chunk and decode rows around the split boundaries of the 6-column
+# SPLIT_TABLE at G = 2: a window straddling a page (and split) boundary,
+# a decode row past -1 holes, a window from pos 0, a dead row, an idle
+# (q_len = 0) row, a window starting on a boundary
+MIXED_SPLIT_POS = [2 * P - 3, 5 * P + 3, 0, 3 * P + 1, 3 * P - 1, 2 * P]
+MIXED_SPLIT_QLEN = [5, 1, 5, 3, 0, 4]
+
+
+@pytest.mark.parametrize("n_sm,pps", [(132, 1), (18, 2), (12, 3), (6, 6)])
+def test_mixed_plain_matches_jax_kernel_split_boundaries(monkeypatch, n_sm,
+                                                         pps):
+    """The mixed plain version folds the splits of mixed_split_plan and
+    merges them in order; at every grouping it agrees with the JAX
+    kernel on the real columns (f32, the file's tolerance), padding
+    columns, the idle row and the dead row are exactly zero."""
+    monkeypatch.setattr(rpa, "CPU_SM_COUNT", n_sm)
+    monkeypatch.setattr(rpa, "MIXED_MIN_SLOTS", P)
+    table = np.asarray(SPLIT_TABLE, np.int32)
+    pos = np.asarray(MIXED_SPLIT_POS, np.int32)
+    qlen = np.asarray(MIXED_SPLIT_QLEN, np.int32)
+    C = 5
+    assert rpa.mixed_split_plan(len(pos), C, 4, 2, 16, table.shape[1], P,
+                                n_sm)[1] == pps
+    rng = np.random.default_rng(40 + pps)
+    pk, pv = _pool(rng, KV=2, hd=16)
+    q = rng.normal(size=(len(pos), C, 4, 16)).astype(np.float32)
+    got = _mixed_parity(q, pk, pv, table, pos, qlen)
+    assert not got[3].any()
+
+
 def test_decode_plain_matches_jax_kernel_bf16_pool():
     """bf16 pool + bf16 queries (the serving dtype), at bf16 resolution."""
     rng = np.random.default_rng(4)
@@ -352,6 +414,122 @@ def test_cuda_split_decode_long_rows_and_boundaries(dtype):
         torch.testing.assert_close(got.float(), want.float(), **tol)
         assert torch.equal(got, again)
         assert not got[5].any()
+
+
+def _graph_replay(fn):
+    """fn() run eagerly and from a captured CUDA graph: (eager, replayed)
+    outputs. The call must read nothing back to the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = fn()
+    replayed.zero_()                 # the replay, not the capture, fills it
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, replayed
+
+
+# (page size, H, KV, hd): P 16 and 128, G = 1, 2, 4, 8, 16, hd 64 and 128
+MIXED_TC_CASES = [(16, 32, 8, 128), (128, 32, 8, 128), (16, 8, 8, 64),
+                  (128, 16, 8, 64), (16, 32, 4, 128), (128, 32, 2, 64)]
+# rows: idle (q_len 0), a decode row at 2047 (long enough to split), a
+# 37-column chunk at an odd page offset, a 64-column chunk straddling key
+# tiles from just below a page edge with a -1 hole, a dead row, a decode
+# row at pos 0
+MIXED_TC_POS = lambda P: [100, 2047, 5 * P + 7, 3 * P - 5, 64, 0]  # noqa
+MIXED_TC_QLEN = [0, 1, 37, 64, 64, 1]
+
+
+def _mixed_tc_inputs(g, P, H, KV, hd, dt, C=64):
+    """Pools whose every page belongs to one row (a permuted table), with
+    NaN in each row's slots past its last query and in unused pages."""
+    pos_l, ql = MIXED_TC_POS(P), MIXED_TC_QLEN
+    B = len(pos_l)
+    MP = -(-(2048 + C) // P)
+    N = B * MP + 4
+    pk = torch.randn((N, P, KV, hd), generator=g, device="cuda", dtype=dt)
+    pv = torch.randn((N, P, KV, hd), generator=g, device="cuda", dtype=dt)
+    table = torch.randperm(N, generator=g, device="cuda")[:B * MP].to(
+        torch.int32).reshape(B, MP).contiguous()
+    stale = torch.ones((N, P), dtype=torch.bool, device="cuda")
+    for b in range(B):
+        last = pos_l[b] + max(ql[b], 1) - 1
+        for j in range(MP):
+            live = min(P, max(0, last - j * P + 1))
+            stale[table[b, j], :live] = False
+    pk[stale] = float("nan")
+    pv[stale] = float("nan")
+    table[3, 1] = -1                 # an unmapped hole inside a chunk's range
+    table[4] = -1                    # a dead row
+    q = torch.randn((B, C, H, hd), generator=g, device="cuda", dtype=dt)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    qlen = torch.tensor(ql, dtype=torch.int32, device="cuda")
+    return q, pk, pv, table, pos, qlen
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_tensor_core_body_matches_plain():
+    """rpa_mixed over bf16 pages runs rpa_mixed_tc (split by pages and
+    merged in order): against its plain version (atol/rtol 2e-2: p
+    rounded to bf16 before p v, output rounding) for every
+    MIXED_TC_CASES pair of page size, grouping and head dim, with NaN in
+    every stale slot; padding columns, the idle and the dead row exactly
+    zero; two launches give the same bits; one call counts one launch;
+    a call captured in a CUDA graph replays to the same bits. hd 256 and
+    an f32 pool still take rpa_cta and match at their tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for P, H, KV, hd in MIXED_TC_CASES:
+        args = _mixed_tc_inputs(g, P, H, KV, hd, torch.bfloat16)
+        q, pk, table = args[0], args[1], args[3]
+        assert rpa.mixed_takes_tc(q, pk, args[2])
+        B, C = q.shape[:2]
+        splits, _ = rpa.mixed_split_plan(B, C, H, KV, hd, table.shape[1], P,
+                                         rpa.sm_count("cuda"))
+        assert splits > 1
+        rpa.reset_launch_counts()
+        got = rpa.ragged_paged_attention_mixed(*args)
+        again = rpa.ragged_paged_attention_mixed(*args)
+        torch.cuda.synchronize()
+        assert rpa.LAUNCHES["rpa_mixed"] == 2
+        want = rpa.ragged_paged_attention_mixed_plain(*args)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert torch.equal(got, again)
+        for b, n in enumerate(MIXED_TC_QLEN):
+            assert not got[b, n:].any()
+        assert not got[4].any()
+    eager, replayed = _graph_replay(
+        lambda: rpa.ragged_paged_attention_mixed(*args))
+    assert torch.equal(eager, replayed)
+    # one split: the body writes the output itself (a short table)
+    q, pk, pv, table, pos, qlen = args
+    short = table[:, :2].contiguous()
+    pos_s = torch.clamp(pos, max=P - 1)
+    assert rpa.mixed_split_plan(B, C, H, KV, hd, 2, P, 132)[0] == 1
+    got = rpa.ragged_paged_attention_mixed(q, pk, pv, short, pos_s, qlen)
+    want = rpa.ragged_paged_attention_mixed_plain(q, pk, pv, short, pos_s,
+                                                  qlen)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    # hd 256 (bf16) and an f32 pool keep rpa_cta
+    for P, H, KV, hd, dt, tol in ((128, 16, 4, 256, torch.bfloat16, 2e-2),
+                                  (16, 32, 8, 128, torch.float32, 1e-4)):
+        args = _mixed_tc_inputs(g, P, H, KV, hd, dt)
+        assert not rpa.mixed_takes_tc(*args[:3])
+        got = rpa.ragged_paged_attention_mixed(*args)
+        want = rpa.ragged_paged_attention_mixed_plain(*args)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol if dt != torch.float32 else 0.0)
+        assert not got[4].any() and not got[0].any()
 
 
 # -- int8 / int4 pages --------------------------------------------------------
