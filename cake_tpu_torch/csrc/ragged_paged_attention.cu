@@ -20,9 +20,10 @@
 //   uint8 (int4):  pool [N, P/2, KV, hd]; token t < P/2 is the low nibble
 //                  of packed row t, token t + P/2 the high nibble of the
 //                  same row, both biased by +8; scale [N, KV] f32
-// A quantized slot is dequantized as it is staged (int value * the page's
-// scale for that kv head, in f32), which is the function the TPU kernels
-// compute by scaling the dot outputs instead, up to f32 rounding order.
+// A quantized slot stands for int value * the page's scale for that kv
+// head, in f32. rpa_split scales the dot outputs and p, as the TPU kernels
+// do; rpa_cta dequantizes each slot as it is staged, the same function up
+// to f32 rounding order.
 //
 // What bounds it on this card: the bytes of the live K/V pages. A row
 // at position p reads 2 * (p + 1) * KV * hd elements once (4, 2, 1 or
@@ -32,9 +33,10 @@
 // still below the ~295 flops/byte where the H100's tensor cores would
 // bound it. So the floor is live K/V bytes / 3.35 TB/s.
 //
-// rpa_decode over f32/bf16 pages -- rpa_split + rpa_merge, a flash-decoding
-// design, because one CTA per (row, kv head) gave 64 CTAs on 132 SMs at
-// B = 8 and the longest row's serial page walk set the time:
+// rpa_decode over every pool (f32, bf16, int8, packed int4) -- rpa_split +
+// rpa_merge, a flash-decoding design, because one CTA per (row, kv head)
+// gave 64 CTAs on 132 SMs at B = 8 and the longest row's serial page walk
+// set the time:
 //   * the grid is (KV x head groups, B, splits); split s covers table
 //     columns [s * pps, (s + 1) * pps) of its row, a head group up to four
 //     of the kv head's G query heads (G = 4 for Llama-3: one group; a
@@ -45,25 +47,40 @@
 //     whose pages are all unmapped, writes m = -inf, l = 0 and exits;
 //   * inside a CTA, live slot rows (hd contiguous elements of one kv head)
 //     reach shared memory by cp.async in 16-byte pieces (narrower when a
-//     row's bytes are not a multiple of 16) through a ring of three stages
-//     of 32 slots, so two tiles' copies are in flight while one computes;
-//     only slots up to pos are fetched;
+//     row's bytes are not a multiple of 16, down to single bytes for an
+//     odd hd over int8/int4 pages) through a ring of three stages of 32
+//     rows, so two tiles' copies are in flight while one computes; only
+//     rows holding slots up to pos are fetched. A tile never straddles
+//     pages, so a quantized tile has one scale a kv head, read from device
+//     memory for the consumer's (mapped) page only: page 0's scale never
+//     leaks into a row through an unmapped id;
+//   * a packed int4 row r holds tokens r and r + P/2, so a tile of up to
+//     32 packed rows is staged once and consumed twice, the low nibbles as
+//     tokens r0 + u and the high nibbles as tokens P/2 + r0 + u, each pass
+//     with its own live count against pos (P/2 need not be a multiple of
+//     32); every packed byte is read once, half a byte an element;
 //   * the group's query rows live in registers, pre-scaled to log2 units;
 //     warp w takes slots 8w .. 8w + 7 of each tile, its lanes split hd
-//     (lane owns dims lane + 32 i), dots reduce by warp shuffles, and each
-//     warp keeps its own online softmax (m, l, acc) in registers; the
-//     inner loops are branch-free (selects mask the slots past the live
-//     count), so their 32 dot-and-shuffle chains interleave -- with
-//     per-slot branches each chain's latency was exposed and a 32-slot
-//     tile cost ~9 us; at the end the four warps merge in warp order
-//     through shared memory and the split writes its f32 partial
-//     (m, l, acc[heads, hd]) to scratch the wrapper allocated;
-//   * rpa_merge folds a (row, kv head)'s splits in split order, normalises,
-//     and writes zeros where the total l is 0 (dead row, every page
-//     unmapped): the same bits every run, no atomics;
-//   * p stays f32 for p v, as in rpa_cta.
-// The slot reader has load_slot's shape, so the int8/int4 decode can move
-// onto this body next.
+//     (lane owns dims lane + 32 i), dots reduce by warp shuffles (then
+//     times the page's k scale), and each warp keeps its own online
+//     softmax (m, l, acc) in registers; the inner loops are branch-free
+//     (selects mask the slots past the live count), so their 32
+//     dot-and-shuffle chains interleave -- with per-slot branches each
+//     chain's latency was exposed and a 32-slot tile cost ~9 us; at the
+//     end the four warps merge in warp order through shared memory and
+//     the split writes its f32 partial (m, l, acc[heads, hd]) to scratch
+//     the wrapper allocated;
+//   * the split's table columns (and a quantized pool's scales for its
+//     mapped pages) are staged in shared memory once, so the page walk
+//     never waits on a global load of the table between tiles;
+//   * rpa_merge folds a query row's live splits (from pos, never past
+//     them) in split order, a thread an output element, normalises, and
+//     writes zeros where the total l is 0 (dead row, every page unmapped):
+//     the same bits every run, no atomics;
+//   * p stays f32 for p v, as in rpa_cta and the Pallas bodies; over
+//     quantized pages p v multiplies p by the page's v scale in the FMA
+//     only, and l sums the unscaled p (what _rpa_kernel_q8/_q4 compute by
+//     scaling the dot outputs).
 //
 // rpa_mixed over bf16 q and bf16 pages (hd <= 128) -- rpa_mixed_tc (+
 // rpa_mixed_merge), because a chunk row carries C x G query rows a kv
@@ -89,7 +106,7 @@
 //     With one split the CTA writes the output itself.
 //
 // rpa_cta, which the other mixed pairs (f32 q or pages, hd > 128, int8
-// and int4 pages) and the int8/int4 decode still run:
+// and int4 pages) still run (no decode runs it):
 //   * one CTA per (row, kv head[, query tile]) reads its own pos and
 //     table row and walks only the LIVE pages j < ceil((last + 1) / P),
 //     where last is the position of its last real query; unmapped ids
@@ -218,7 +235,7 @@ __device__ void rpa_cta(const Args& a, int b, int kv, int c0) {
   TQ* out = static_cast<TQ*>(a.out);
 
   const int pos = a.pos[b];
-  const int qlen = a.qlen ? a.qlen[b] : 1;
+  const int qlen = a.qlen[b];
   const int cols = min(a.q_cols, a.C - c0);
   const int real = max(0, min(cols, qlen - c0));  // real query columns
   const int rows = real * G;
@@ -343,36 +360,44 @@ __device__ void rpa_cta(const Args& a, int b, int kv, int c0) {
 }
 
 template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) rpa_decode_kernel(Args a) {
-  rpa_cta<TQ, TKV>(a, blockIdx.y, blockIdx.x, 0);
-}
-
-template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads) rpa_mixed_kernel(Args a) {
   rpa_cta<TQ, TKV>(a, blockIdx.y, blockIdx.x, blockIdx.z * a.q_cols);
 }
 
-// -- rpa_split / rpa_merge: the split decode body (f32 / bf16 pages) ---------
+// -- rpa_split / rpa_merge: the split decode body (every pool) ---------------
 
-constexpr int kSplitTile = 32;                          // slots a ring stage
+constexpr int kSplitTile = 32;                          // rows a ring stage
 constexpr int kSplitStages = 3;
 constexpr int kSlotsPerWarp = kSplitTile / (kThreads / 32);   // 8
 constexpr int kSplitHeads = 4;     // query heads a CTA: G > 4 takes
                                    // ceil(G / 4) CTAs, each reading the pages
 
-// Slot t of page `page`, kv head `kv`: its hd contiguous elements (the
-// indexing of load_slot, a whole row at a time).
+// Slot row t of page `page`, kv head `kv`: its hd contiguous elements (the
+// indexing of load_slot, a whole row at a time; a packed int4 page has
+// P/2 rows, row t holding tokens t and t + P/2).
 template <typename TKV>
 __device__ __forceinline__ const TKV* slot_row(const TKV* p, const Args& a,
                                                int page, int t, int kv) {
-  return p + (((size_t)page * a.P + t) * a.KV + kv) * a.hd;
+  const int rows = std::is_same<TKV, uint8_t>::value ? a.P >> 1 : a.P;
+  return p + (((size_t)page * rows + t) * a.KV + kv) * a.hd;
+}
+
+// Element x of a staged slot row as f32, not yet scaled: a packed int4 byte
+// gives its low (kHigh = 0) or high (kHigh = 1) nibble less the +8 bias.
+template <int kHigh, typename TKV>
+__device__ __forceinline__ float kv_f(TKV x) {
+  if constexpr (std::is_same<TKV, uint8_t>::value)
+    return (float)(((kHigh ? x >> 4 : x) & 0xF) - 8);
+  else
+    return to_f(x);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Copy one piece of `bytes` (16, 8 or 4 by cp.async; 2 by a plain load).
+// Copy one piece of `bytes` (16, 8 or 4 by cp.async; 2 or 1 by a plain
+// load).
 __device__ __forceinline__ void copy_piece(char* dst, const char* src,
                                            int bytes) {
   if (bytes == 16)
@@ -384,9 +409,11 @@ __device__ __forceinline__ void copy_piece(char* dst, const char* src,
   else if (bytes == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                      smem_addr(dst)), "l"(src));
-  else
+  else if (bytes == 2)
     *reinterpret_cast<uint16_t*>(dst) =
         *reinterpret_cast<const uint16_t*>(src);
+  else
+    *dst = *src;
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -396,24 +423,96 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The ring (three stages of K and V tiles), reused after the page walk for
-// the four warps' (m, l, acc) of the in-CTA merge.
-size_t split_smem_bytes(int hd, int elem_bytes) {
+// A split's shared memory: the ring (three stages of K and V tiles),
+// reused after the page walk for the four warps' (m, l, acc) of the in-CTA
+// merge, then at split_table_offset the split's pps table columns (int) and
+// their pages' k and v scales (f32).
+__host__ __device__ __forceinline__ size_t split_table_offset(int hd,
+                                                              int elem_bytes) {
   const size_t ring = (size_t)kSplitStages * 2 * kSplitTile * hd * elem_bytes;
   const size_t merge =
       sizeof(float) * (kThreads / 32) * kSplitHeads * (hd + 2);
-  return ring > merge ? ring : merge;
+  return ((ring > merge ? ring : merge) + 15) / 16 * 16;
+}
+size_t split_smem_bytes(int hd, int elem_bytes, int pps) {
+  return split_table_offset(hd, elem_bytes) + (size_t)pps * 12;
+}
+
+// One warp's share of a staged tile: K rows ks and V rows vs (hd elements
+// each) of its kSlotsPerWarp slots, the first nu live, folded into the
+// warp's online softmax (m, l, acc). sk / sv: the page's scales for the kv
+// head (1 for f32/bf16 pages): the dot is scaled by sk after the shuffle
+// sum, p by sv in the p v FMA only (l sums the unscaled p). The loops
+// carry no branch: a slot past nu gets p = 0 and a v of 0.
+template <int kHigh, typename TKV, int kD>
+__device__ __forceinline__ void split_tile(
+    const TKV* ks, const TKV* vs, int hd, int nu, float sk, float sv,
+    const int (&dl)[kD], const float (&qr)[kSplitHeads][kD],
+    float (&m)[kSplitHeads], float (&l)[kSplitHeads],
+    float (&acc)[kSplitHeads][kD]) {
+  float sc[kSlotsPerWarp][kSplitHeads];
+#pragma unroll
+  for (int u = 0; u < kSlotsPerWarp; ++u) {
+    const TKV* kr = ks + u * hd;
+#pragma unroll
+    for (int g = 0; g < kSplitHeads; ++g) sc[u][g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      const float kx = kv_f<kHigh>(kr[dl[i]]);
+#pragma unroll
+      for (int g = 0; g < kSplitHeads; ++g)
+        sc[u][g] = fmaf(qr[g][i], kx, sc[u][g]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kSlotsPerWarp; ++u)
+#pragma unroll
+    for (int g = 0; g < kSplitHeads; ++g)
+      sc[u][g] = warp_sum(sc[u][g]) * sk;
+  // online softmax over the warp's live slots of this tile
+#pragma unroll
+  for (int g = 0; g < kSplitHeads; ++g) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int u = 0; u < kSlotsPerWarp; ++u)
+      mx = fmaxf(mx, u < nu ? sc[u][g] : kNegInf);
+    const float mn = fmaxf(m[g], mx);
+    const float al = exp2f(m[g] - mn);
+    m[g] = mn;
+    float ps = 0.f;
+#pragma unroll
+    for (int u = 0; u < kSlotsPerWarp; ++u) {
+      const float p = u < nu ? exp2f(sc[u][g] - mn) : 0.f;
+      ps += p;
+      sc[u][g] = p * sv;
+    }
+    l[g] = l[g] * al + ps;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) acc[g][i] *= al;
+  }
+#pragma unroll
+  for (int u = 0; u < kSlotsPerWarp; ++u) {
+    const TKV* vr = vs + u * hd;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      const float vx = u < nu ? kv_f<kHigh>(vr[dl[i]]) : 0.f;
+#pragma unroll
+      for (int g = 0; g < kSplitHeads; ++g)
+        acc[g][i] = fmaf(sc[u][g], vx, acc[g][i]);
+    }
+  }
 }
 
 // One split of one (kv head, row) for one group of up to kSplitHeads of the
 // kv head's G query heads: table columns [s * pps, (s + 1) * pps) of the
 // live range. Writes the group's f32 partial (m, l) and acc[., hd], m in
 // log2 units (scores are pre-scaled by log2 e). kD: head dims a lane owns
-// (hd <= 32 kD). The inner loops carry no branch (a slot past the tile's
-// live count is masked by selects, its v replaced by 0 before the product),
-// so the compiler can interleave their independent chains.
+// (hd <= 32 kD). TKV: the page element (float, bf16, int8, or uint8 for
+// packed int4, whose tiles are packed rows consumed once a nibble).
 template <typename TQ, typename TKV, int kD>
 __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
+  constexpr bool kQuant = sizeof(TKV) == 1;
+  constexpr bool kPacked = std::is_same<TKV, uint8_t>::value;
   extern __shared__ float4 smem4[];
   char* ring = reinterpret_cast<char*>(smem4);
   const int G = a.H / a.KV;
@@ -427,35 +526,59 @@ __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
   const int warp = tid >> 5;
   const int row_bytes = hd * (int)sizeof(TKV);
   const int stage_bytes = 2 * kSplitTile * row_bytes;
+  const int page_rows = kPacked ? a.P >> 1 : a.P;   // slot rows a page
   const TKV* kp = static_cast<const TKV*>(a.k);
   const TKV* vp = static_cast<const TKV*>(a.v);
 
+  const int j0 = s * a.pps;
+  const int nj = max(0, min(a.pps, a.max_pages - j0));   // columns a split
+  int* pages_s = reinterpret_cast<int*>(
+      ring + split_table_offset(hd, (int)sizeof(TKV)));  // [pps]
+  float* sk_s = reinterpret_cast<float*>(pages_s + a.pps);  // [pps]
+  float* sv_s = sk_s + a.pps;                               // [pps]
+  // the split's table columns, loaded once beside pos (the page walk reads
+  // them from shared memory); unmapped ids (-1, or >= N) become -1
+  for (int t = tid; t < nj; t += kThreads) {
+    const int page = a.table[(size_t)b * a.max_pages + j0 + t];
+    pages_s[t] = page >= 0 && page < a.N ? page : -1;
+  }
   const int pos = a.pos[b];
   const int n_live = pos < 0 ? 0 : min(a.max_pages, pos / a.P + 1);
-  const int j1 = min((s + 1) * a.pps, n_live);
+  const int j1 = min(j0 + nj, n_live);
   const size_t cell = ((size_t)b * a.KV + kv) * a.splits + s;
   float* ml = a.part + (cell * G + g0) * 2;
   float* acc_out =
       a.part + (size_t)a.B * a.KV * a.splits * G * 2 + (cell * G + g0) * hd;
-
-  // the split's live tiles in order: (column j, first slot t0) of a mapped
-  // page with t0 below the page's live slot count; unmapped ids (-1, or
-  // >= N) are skipped before any load
-  auto next = [&](int& j, int& t0, int& page) {
-    for (; j < j1; ++j, t0 = 0) {
-      page = a.table[(size_t)b * a.max_pages + j];
-      if (page >= 0 && page < a.N && t0 < min(a.P, pos - j * a.P + 1))
-        return true;
-    }
-    return false;
-  };
-  int cj = s * a.pps, ct = 0, cpage = -1;
-  bool c_ok = next(cj, ct, cpage);
-  if (!c_ok) {                  // nothing live here: an empty partial
+  // live tokens of table column j, and the slot rows that hold them (a
+  // packed row r holds tokens r and r + P/2: min(P/2, live) rows)
+  auto live = [&](int j) { return min(a.P, pos - j * a.P + 1); };
+  auto live_rows = [&](int j) { return min(page_rows, pos - j * a.P + 1); };
+  auto write_empty = [&]() {    // nothing live here: an empty partial
     if (tid < gn) {
       ml[2 * tid] = kNegInf;
       ml[2 * tid + 1] = 0.f;
     }
+  };
+  if (j0 >= j1) {               // past the row's live range (uniform)
+    write_empty();
+    return;
+  }
+  __syncthreads();
+
+  // the split's live tiles in order: (column j, first row t0) of a mapped
+  // page with t0 below the page's live row count; unmapped ids are
+  // skipped before any load
+  auto next = [&](int& j, int& t0, int& page) {
+    for (; j < j1; ++j, t0 = 0) {
+      page = pages_s[j - j0];
+      if (page >= 0 && t0 < live_rows(j)) return true;
+    }
+    return false;
+  };
+  int cj = j0, ct = 0, cpage = -1;
+  bool c_ok = next(cj, ct, cpage);
+  if (!c_ok) {                  // every live page unmapped
+    write_empty();
     return;
   }
 
@@ -463,7 +586,7 @@ __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
   bool p_ok = true;
   auto fetch = [&]() {          // the producer's tile into the next stage
     char* st = ring + (fetched % kSplitStages) * stage_bytes;
-    const int nt = min(kSplitTile, min(a.P, pos - pj * a.P + 1) - pt);
+    const int nt = min(kSplitTile, live_rows(pj) - pt);
     const int pieces = row_bytes / vec;
     for (int i = tid; i < 2 * nt * pieces; i += kThreads) {
       const int r = i / pieces, c = i - r * pieces;
@@ -483,6 +606,16 @@ __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
     if (p_ok) fetch();
     cp_commit();
   }
+  // a quantized page's scales for this kv head, read while the first
+  // tiles are in flight and only for mapped pages, so page 0's scale never
+  // reaches a row through an unmapped id (the loop's barrier publishes
+  // them)
+  if (kQuant)
+    for (int t = tid; t < j1 - j0; t += kThreads)
+      if (pages_s[t] >= 0) {
+        sk_s[t] = a.sk[(size_t)pages_s[t] * a.KV + kv];
+        sv_s[t] = a.sv[(size_t)pages_s[t] * a.KV + kv];
+      }
 
   // the group's query rows in registers, lane owning dims lane + 32 i; a
   // lane past hd reads dim hd - 1 against a zero q (and its acc is never
@@ -513,65 +646,24 @@ __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
     __syncthreads();               // and every warp is done with tile it - 1
     if (p_ok) fetch();             // into tile it - 1's stage
     cp_commit();
-    const char* st = ring + (it % kSplitStages) * stage_bytes;
-    const TKV* ks = reinterpret_cast<const TKV*>(st);
-    const TKV* vs = reinterpret_cast<const TKV*>(st + kSplitTile * row_bytes);
-    const int nt = min(kSplitTile, min(a.P, pos - cj * a.P + 1) - ct);
-    const int u0 = warp * kSlotsPerWarp;
-    const int nu = min(kSlotsPerWarp, nt - u0);   // live slots of the warp
-    if (nu > 0) {                  // warp-uniform
-      float sc[kSlotsPerWarp][kSplitHeads];
-#pragma unroll
-      for (int u = 0; u < kSlotsPerWarp; ++u) {
-        const TKV* kr = ks + (u0 + u) * hd;
-#pragma unroll
-        for (int g = 0; g < kSplitHeads; ++g) sc[u][g] = 0.f;
-#pragma unroll
-        for (int i = 0; i < kD; ++i) {
-          const float kx = to_f(kr[dl[i]]);
-#pragma unroll
-          for (int g = 0; g < kSplitHeads; ++g)
-            sc[u][g] = fmaf(qr[g][i], kx, sc[u][g]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSlotsPerWarp; ++u)
-#pragma unroll
-        for (int g = 0; g < kSplitHeads; ++g) sc[u][g] = warp_sum(sc[u][g]);
-      // online softmax over the warp's live slots of this tile; a slot past
-      // nu (past pos, or past the page) gets p = 0 and a v of 0
-#pragma unroll
-      for (int g = 0; g < kSplitHeads; ++g) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int u = 0; u < kSlotsPerWarp; ++u)
-          mx = fmaxf(mx, u < nu ? sc[u][g] : kNegInf);
-        const float mn = fmaxf(m[g], mx);
-        const float al = exp2f(m[g] - mn);
-        m[g] = mn;
-        float ps = 0.f;
-#pragma unroll
-        for (int u = 0; u < kSlotsPerWarp; ++u) {
-          const float p = u < nu ? exp2f(sc[u][g] - mn) : 0.f;
-          sc[u][g] = p;
-          ps += p;
-        }
-        l[g] = l[g] * al + ps;
-#pragma unroll
-        for (int i = 0; i < kD; ++i) acc[g][i] *= al;
-      }
-#pragma unroll
-      for (int u = 0; u < kSlotsPerWarp; ++u) {
-        const TKV* vr = vs + (u0 + u) * hd;
-#pragma unroll
-        for (int i = 0; i < kD; ++i) {
-          const float vx = u < nu ? to_f(vr[dl[i]]) : 0.f;
-#pragma unroll
-          for (int g = 0; g < kSplitHeads; ++g)
-            acc[g][i] = fmaf(sc[u][g], vx, acc[g][i]);
-        }
-      }
+    float sk = 1.f, sv = 1.f;      // one scale a kv head for the tile's page
+    if (kQuant) {
+      sk = sk_s[cj - j0];
+      sv = sv_s[cj - j0];
     }
+    const int u0 = warp * kSlotsPerWarp;
+    const char* st = ring + (it % kSplitStages) * stage_bytes;
+    const TKV* ks = reinterpret_cast<const TKV*>(st) + u0 * hd;
+    const TKV* vs =
+        reinterpret_cast<const TKV*>(st + kSplitTile * row_bytes) + u0 * hd;
+    const int nt = min(kSplitTile, live_rows(cj) - ct);
+    const int nu = min(kSlotsPerWarp, nt - u0);   // live slots of the warp
+    // a packed tile's high nibbles: tokens P/2 + ct + u0 + u
+    const int nu_hi = min(nu, live(cj) - page_rows - ct - u0);
+    if (nu > 0)                    // warp-uniform
+      split_tile<0, TKV, kD>(ks, vs, hd, nu, sk, sv, dl, qr, m, l, acc);
+    if (kPacked && nu_hi > 0)
+      split_tile<1, TKV, kD>(ks, vs, hd, nu_hi, sk, sv, dl, qr, m, l, acc);
     ct += kSplitTile;
     c_ok = next(cj, ct, cpage);
   }
@@ -613,34 +705,45 @@ __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
   }
 }
 
-// Fold the splits of one (kv head, row) in split order and normalise; a
-// total l of 0 (dead row, every page unmapped) writes zeros.
+// Fold the splits of every [B, H] query row in split order and normalise, a
+// thread per output element (B * H * hd of them). Only the splits that hold
+// the row's live table columns are read (the rest wrote l = 0), and a
+// split with l = 0 is skipped; a total l of 0 (dead row, every page
+// unmapped) writes zeros. The same bits every run, no atomics.
 template <typename TQ>
-__global__ void __launch_bounds__(kThreads) rpa_merge_kernel(Args a) {
-  const int kv = blockIdx.x, b = blockIdx.y;
-  const int G = a.H / a.KV;
+__global__ void __launch_bounds__(256) rpa_merge_kernel(Args a) {
   const int hd = a.hd;
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= a.B * a.H * hd) return;
+  const int row = i / hd, d = i - row * hd;       // row = b * H + h
+  const int b = row / a.H, h = row - b * a.H;
+  const int G = a.H / a.KV;
+  const int kv = h / G, g = h - kv * G;
   const int S = a.splits;
+  const int pos = a.pos[b];
+  const int n_pages = pos < 0 ? 0 : min(a.max_pages, pos / a.P + 1);
+  const int n_live = min(S, (n_pages + a.pps - 1) / a.pps);
   const size_t cell = ((size_t)b * a.KV + kv) * S;
-  const float* ml = a.part + cell * G * 2;
+  const float* ml = a.part + (cell * G + g) * 2;  // split s at + s * G * 2
   const float* acc =
-      a.part + (size_t)a.B * a.KV * S * G * 2 + cell * G * hd;
-  TQ* out = static_cast<TQ*>(a.out) + ((size_t)b * a.H + kv * G) * hd;
-  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i - g * hd;
-    float M = kNegInf;
-    for (int s = 0; s < S; ++s) M = fmaxf(M, ml[(s * G + g) * 2]);
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float ls = ml[(s * G + g) * 2 + 1];
-      if (ls > 0.f) {             // an empty split wrote no acc
-        const float e = exp2f(ml[(s * G + g) * 2] - M);
-        L += e * ls;
-        A += e * acc[((size_t)s * G + g) * hd + d];
-      }
-    }
-    out[i] = from_f<TQ>(L > 0.f ? A / L : 0.f);
+      a.part + (size_t)a.B * a.KV * S * G * 2 + (cell * G + g) * hd + d;
+  float M = kNegInf;
+#pragma unroll 4
+  for (int s = 0; s < n_live; ++s) {
+    const float2 x = *reinterpret_cast<const float2*>(ml + s * G * 2);
+    if (x.y > 0.f) M = fmaxf(M, x.x);
   }
+  float L = 0.f, A = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_live; ++s) {
+    const float2 x = *reinterpret_cast<const float2*>(ml + s * G * 2);
+    if (x.y > 0.f) {            // an empty split wrote no acc
+      const float e = exp2f(x.x - M);
+      L += e * x.y;
+      A += e * acc[(size_t)s * G * hd];
+    }
+  }
+  static_cast<TQ*>(a.out)[i] = from_f<TQ>(L > 0.f ? A / L : 0.f);
 }
 
 // -- rpa_mixed_tc: the mixed body over bf16 pages, on the tensor cores -----
@@ -843,11 +946,12 @@ template <typename TQ>
 SplitFn pick_split_kv(int kv_dtype, int hd) {
   if (kv_dtype == 0) return pick_split_d<TQ, float>(hd);
   if (kv_dtype == 1) return pick_split_d<TQ, __nv_bfloat16>(hd);
+  if (kv_dtype == 2) return pick_split_d<TQ, int8_t>(hd);
+  if (kv_dtype == 3) return pick_split_d<TQ, uint8_t>(hd);
   return nullptr;
 }
 
-// rpa_split then rpa_merge on one stream: f32/bf16 queries over f32/bf16
-// pages.
+// rpa_split then rpa_merge on one stream: f32/bf16 queries over any pool.
 int launch_split(const Args& a, int q_dtype, int kv_dtype,
                  cudaStream_t stream) {
   const int G = a.H / a.KV;
@@ -858,18 +962,19 @@ int launch_split(const Args& a, int q_dtype, int kv_dtype,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   KernelFn merge = q_dtype == 0 ? &rpa_merge_kernel<float>
                                 : &rpa_merge_kernel<__nv_bfloat16>;
-  const int elem = kv_dtype == 0 ? 4 : 2;
+  const int elem = kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1;
   // the widest piece that divides a slot row's bytes and both pools'
-  // alignment (16, 8, 4; a bf16 row of odd hd goes 2 bytes at a time)
+  // alignment (16, 8, 4, 2; an int8/int4 row of odd hd goes a byte at a
+  // time)
   const uintptr_t any =
       (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)(a.hd * elem);
-  int vec = 2;
-  for (int v = 16; v >= 4; v >>= 1)
+  int vec = 1;
+  for (int v = 16; v >= 2; v >>= 1)
     if (any % v == 0) {
       vec = v;
       break;
     }
-  const size_t smem = split_smem_bytes(a.hd, elem);
+  const size_t smem = split_smem_bytes(a.hd, elem, a.pps);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -879,35 +984,30 @@ int launch_split(const Args& a, int q_dtype, int kv_dtype,
   fn<<<dim3(a.KV * n_hg, a.B, a.splits), kThreads, smem, stream>>>(a, vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  merge<<<dim3(a.KV, a.B), kThreads, 0, stream>>>(a);
+  const int outs = a.B * a.H * a.hd;
+  merge<<<(outs + 255) / 256, 256, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // kv dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4
-// (the decode over 0 and 1 is rpa_split, launched by launch_split)
+// (rpa_cta for the mixed pairs rpa_mixed_tc does not take)
 template <typename TQ>
-KernelFn pick_kv(bool mixed, int kv_dtype) {
+KernelFn pick_mixed_kv(int kv_dtype) {
   switch (kv_dtype) {
-    case 0: return mixed ? &rpa_mixed_kernel<TQ, float> : nullptr;
-    case 1: return mixed ? &rpa_mixed_kernel<TQ, __nv_bfloat16> : nullptr;
-    case 2: return mixed ? &rpa_mixed_kernel<TQ, int8_t>
-                         : &rpa_decode_kernel<TQ, int8_t>;
-    case 3: return mixed ? &rpa_mixed_kernel<TQ, uint8_t>
-                         : &rpa_decode_kernel<TQ, uint8_t>;
+    case 0: return &rpa_mixed_kernel<TQ, float>;
+    case 1: return &rpa_mixed_kernel<TQ, __nv_bfloat16>;
+    case 2: return &rpa_mixed_kernel<TQ, int8_t>;
+    case 3: return &rpa_mixed_kernel<TQ, uint8_t>;
   }
   return nullptr;
 }
 
 // q dtype codes: 0 = float32, 1 = bfloat16
-KernelFn pick(bool mixed, int q_dtype, int kv_dtype) {
-  if (q_dtype == 0) return pick_kv<float>(mixed, kv_dtype);
-  if (q_dtype == 1) return pick_kv<__nv_bfloat16>(mixed, kv_dtype);
-  return nullptr;
-}
-
-int launch(bool mixed, const Args& a, int q_dtype, int kv_dtype,
-           dim3 grid, cudaStream_t stream) {
-  KernelFn fn = pick(mixed, q_dtype, kv_dtype);
+int launch_mixed_cta(const Args& a, int q_dtype, int kv_dtype, dim3 grid,
+                     cudaStream_t stream) {
+  KernelFn fn = q_dtype == 0   ? pick_mixed_kv<float>(kv_dtype)
+                : q_dtype == 1 ? pick_mixed_kv<__nv_bfloat16>(kv_dtype)
+                               : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(a.hd);
   if (smem > 48 * 1024) {
@@ -940,11 +1040,10 @@ int rpa_max_group() { return kRows; }
 int rpa_max_head_dim() { return kMaxHd; }
 
 // Decode: q/out [B, 1, H, hd]; sk/sv null unless the pages are quantized;
-// P counts real tokens per page. f32/bf16 pages run rpa_split over
-// `splits` splits of `pps` table columns (splits * pps >= max_pages) and
-// rpa_merge, with `part` f32 scratch of B * KV * splits * G * (hd + 2)
-// floats; int8/int4 pages run rpa_cta and ignore the three. Returns
-// cudaGetLastError() of the launches.
+// P counts real tokens per page. Every pool runs rpa_split over `splits`
+// splits of `pps` table columns (splits * pps >= max_pages) and rpa_merge,
+// with `part` f32 scratch of B * KV * splits * G * (hd + 2) floats.
+// Returns cudaGetLastError() of the launches.
 int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
                const float* sv, const int* table, const int* pos, void* out,
                int B, int H, int KV, int hd, int P, int N, int max_pages,
@@ -955,15 +1054,10 @@ int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
   if (B == 0) return 0;
   Args a{q, k, v, sk, sv, table, pos, nullptr, out,
          B, 1, H, KV, hd, P, N, max_pages, 1, scale, pps, splits, part};
-  if (kv_dtype < 2) {
-    if (part == nullptr || pps < 1 || splits < 1 ||
-        (long long)pps * splits < max_pages || splits > 65535)
-      return (int)cudaErrorInvalidValue;
-    return launch_split(a, q_dtype, kv_dtype,
-                        static_cast<cudaStream_t>(stream));
-  }
-  return launch(false, a, q_dtype, kv_dtype, dim3(KV, B, 1),
-                static_cast<cudaStream_t>(stream));
+  if (part == nullptr || pps < 1 || splits < 1 ||
+      (long long)pps * splits < max_pages || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_split(a, q_dtype, kv_dtype, static_cast<cudaStream_t>(stream));
 }
 
 // Mixed: q/out [B, C, H, hd], q_len [B]; scales and P as rpa_decode.
@@ -1000,8 +1094,8 @@ int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
   Args a{q, k, v, sk, sv, table, pos, q_len, out,
          B, C, H, KV, hd, P, N, max_pages, q_cols, scale};
   const int tiles = (C + q_cols - 1) / q_cols;
-  return launch(true, a, q_dtype, kv_dtype, dim3(KV, B, tiles),
-                static_cast<cudaStream_t>(stream));
+  return launch_mixed_cta(a, q_dtype, kv_dtype, dim3(KV, B, tiles),
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,13 +26,14 @@ int32 with -1 = unmapped, pos [B] = absolute position of each row's
 first query; the queries' KV is already written.
 
 `LAUNCHES` counts kernel launches and plain-version calls by name, so a
-run can show which path its attention took. The decode over f32/bf16
-pages is two launches (`rpa_split`, then `rpa_merge`) counted as one
-call: its page loop is split across CTAs by `split_plan`, which the
-plain version follows. The mixed step over bf16 queries and bf16 pages
-runs the tensor-core body `rpa_mixed_tc`, split by `mixed_split_plan`
-(plus `rpa_mixed_merge` when it splits), again one call; its plain
-version folds those splits over f32/bf16 pages.
+run can show which path its attention took. The decode over every pool
+(f32/bf16, int8, nibble-packed int4) is two launches (`rpa_split`, then
+`rpa_merge`) counted as one call: its page loop is split across CTAs by
+`split_plan`, which the plain version follows. The mixed step over bf16
+queries and bf16 pages runs the tensor-core body `rpa_mixed_tc`, split
+by `mixed_split_plan` (plus `rpa_mixed_merge` when it splits), again one
+call; its plain version folds those splits over f32/bf16 pages. The
+other mixed pairs run the scalar `rpa_cta`, unsplit.
 """
 
 from __future__ import annotations
@@ -246,18 +247,17 @@ def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
     P = rows * (2 if packed4 else 1)
     max_pages = table.shape[1]
     out = torch.empty_like(q)
-    splits, pps, part = 0, 0, None
-    if scale_k is None:         # rpa_split + rpa_merge: f32 partials
-        splits, pps = split_plan(B, KV, max_pages, P, sm_count(q.device))
-        part = torch.empty(B * KV * splits * (H // KV) * (hd + 2),
-                           dtype=torch.float32, device=q.device)
+    # rpa_split + rpa_merge over every pool: f32 partials a split
+    splits, pps = split_plan(B, KV, max_pages, P, sm_count(q.device))
+    part = torch.empty(B * KV * splits * (H // KV) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
     lib = LIBRARY.get()
     rc = lib.rpa_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
         out.data_ptr(), B, H, KV, hd, P, N, max_pages, float(scale),
         _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], pps, splits,
-        _ptr(part), torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _launch(kernel_name("rpa_decode", scale_k, packed4), rc)
     return out
 
@@ -381,17 +381,14 @@ def ragged_paged_attention_plain(q, pool_k, pool_v, table, pos, *,
                                  packed4: bool = False):
     """Plain version of `ragged_paged_attention` (the JAX package's
     `paged_attention` fold): slot j*P + t attends iff <= pos and its
-    page is mapped. Over f32/bf16 pages the columns fold in the kernel's
-    splits (`split_plan`), whose stats then merge in split order."""
+    page is mapped. The columns fold in the kernel's splits
+    (`split_plan`), whose stats then merge in split order."""
     _check_quant_args(scale_k, scale_v, packed4)
     LAUNCHES[kernel_name("rpa_decode", scale_k, packed4) + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     t = torch.arange(P, device=q.device)
     KV = pool_k.shape[2]
-    pps = None
-    if scale_k is None:
-        _, pps = split_plan(q.shape[0], KV, table.shape[1], P,
-                            sm_count(q.device))
+    _, pps = split_plan(q.shape[0], KV, table.shape[1], P, sm_count(q.device))
 
     def valid(j, mapped):
         ok = (j * P + t)[None, :] <= pos[:, None].long()

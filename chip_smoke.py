@@ -17,14 +17,15 @@ Phases, in order (any failure exits non-zero):
             at the prefill shapes (S=T=1024 causal, plus window and
             non-causal cases; a 256-token chunk at pos 1280 of a 4096-slot
             cache with a NaN tail, plus one at an unaligned pos); device
-            times from a replayed CUDA graph of 30 calls (rpa_decode's
-            cycling through pool copies larger than L2) with the
-            host-launched time beside them, the plain version's time,
-            the bound and the yardstick SDPA timed the same way;
-            rpa_decode, rpa_mixed and the flash pair must give the same
+            times from a replayed CUDA graph of 30 calls (the three
+            decode kernels' cycling through pool copies larger than L2)
+            with the host-launched time beside them, the plain version's
+            time, the bound and the yardstick SDPA timed the same way;
+            every ragged kernel and the flash pair must give the same
             bits twice.
-            Two more rpa_decode cases show its split: B = 8 with one row
-            at pos 8191 (64 table columns), B = 32 rows up to 2047. Then
+            More decode cases show the split body: B = 8 with one row
+            at pos 8191 (64 table columns) over a bf16, an int8 and an
+            int4 pool, B = 32 rows up to 2047 over bf16. Then
             the int4 matmul against its plain version at the four
             Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x,
             weights from quantize_group of seeded normals, plus a
@@ -170,33 +171,10 @@ def _kernel_case(torch, dtype, gen, mixed: bool, fmt=None):
     q's dtype, or with fmt "int8"/"int4" written from a normal draw by
     the port's qwrite_prompt_pages (the kernel's scale arguments go in
     the returned kwargs)."""
-    from cake_tpu_torch.kv.quantized_pool import (
-        Int4Pool, QuantPool, qwrite_prompt_pages,
-    )
-
     dev = "cuda"
     B, H, KV, hd, P, MP, N = 8, 32, 8, 128, 128, 16, 128
     C = 64 if mixed else 1
-    kw = {}
-    if fmt is None:
-        pool_k = torch.randn((N, P, KV, hd), generator=gen, device=dev,
-                             dtype=dtype)
-        pool_v = torch.randn((N, P, KV, hd), generator=gen, device=dev,
-                             dtype=dtype)
-    else:
-        cls, rows = ((Int4Pool, P // 2) if fmt == "int4"
-                     else (QuantPool, P))
-        every = torch.arange(N, dtype=torch.int32, device=dev)
-        pools = []
-        for _ in range(2):
-            pool = cls(torch.zeros((N, rows, KV, hd), device=dev,
-                                   dtype=(torch.uint8 if fmt == "int4"
-                                          else torch.int8)),
-                       torch.zeros((N, KV), device=dev))
-            vals = torch.randn((1, N * P, KV, hd), generator=gen, device=dev)
-            pools.append(qwrite_prompt_pages(pool, vals, every))
-        (pool_k, sk), (pool_v, sv) = pools
-        kw = dict(scale_k=sk, scale_v=sv, packed4=fmt == "int4")
+    pool_k, pool_v, kw = _pools(torch, gen, fmt, dtype, N, P, KV, hd)
     q = torch.randn((B, C, H, hd), generator=gen, device=dev, dtype=dtype)
     perm = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
     table = perm.reshape(B, MP).clone()
@@ -213,6 +191,81 @@ def _kernel_case(torch, dtype, gen, mixed: bool, fmt=None):
     ql_t = (torch.tensor(q_len, dtype=torch.int32, device=dev)
             if mixed else None)
     return q, pool_k, pool_v, table, pos_t, ql_t, kw
+
+
+def _pools(torch, gen, fmt, dtype, N, P, KV, hd):
+    """(pool_k, pool_v, kw): normal draws in `dtype`, or with fmt
+    "int8"/"int4" normal draws written by the port's qwrite_prompt_pages
+    (the kernel's scale arguments go in kw)."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, qwrite_prompt_pages,
+    )
+
+    dev = "cuda"
+    if fmt is None:
+        return tuple(torch.randn((N, P, KV, hd), generator=gen, device=dev,
+                                 dtype=dtype) for _ in range(2)) + ({},)
+    cls, rows = (Int4Pool, P // 2) if fmt == "int4" else (QuantPool, P)
+    every = torch.arange(N, dtype=torch.int32, device=dev)
+    pools = []
+    for _ in range(2):
+        pool = cls(torch.zeros((N, rows, KV, hd), device=dev,
+                               dtype=(torch.uint8 if fmt == "int4"
+                                      else torch.int8)),
+                   torch.zeros((N, KV), device=dev))
+        vals = torch.randn((1, N * P, KV, hd), generator=gen, device=dev)
+        pools.append(qwrite_prompt_pages(pool, vals, every))
+        del vals
+    (pool_k, sk), (pool_v, sv) = pools
+    return pool_k, pool_v, dict(scale_k=sk, scale_v=sv,
+                                packed4=fmt == "int4")
+
+
+def _dequantized(torch, pool_k, pool_v, kw, dtype):
+    """A quantized pool pair's pages dequantized to `dtype` ahead of
+    time (the SDPA yardstick's K/V); f32/bf16 pools as they are."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, dequantize_pages,
+    )
+
+    if not kw:
+        return pool_k, pool_v
+    cls = Int4Pool if kw["packed4"] else QuantPool
+    every = torch.arange(pool_k.shape[0], device=pool_k.device)
+    return tuple(dequantize_pages(cls(x, kw[s]), every).to(dtype)
+                 for x, s in ((pool_k, "scale_k"), (pool_v, "scale_v")))
+
+
+def _cold_copies(torch, pool_k, pool_v, kw):
+    """[(pool_k, pool_v, kw)] copies of a pool pair (scales cloned with
+    their pages) that together exceed the L2 cache twice over, so a
+    replayed burst of calls cycling through them finds each copy's pages
+    cold, as a served decode step finds each layer's pool."""
+    nbytes = 2 * pool_k.numel() * pool_k.element_size()
+    out = [(pool_k, pool_v, kw)]
+    for a, b in zip(_copies(pool_k, nbytes)[1:], _copies(pool_v, nbytes)[1:]):
+        out.append((a, b, {k: (v.clone() if torch.is_tensor(v) else v)
+                           for k, v in kw.items()}))
+    return out
+
+
+def _decode_pools(torch, pool_k, pool_v, kw, dtype):
+    """(kernel pools, SDPA pools) of a decode case, each cycled past L2:
+    [(pool_k, pool_v, kw)] for the kernel, [(k, v)] for the yardstick
+    (a quantized pool's pages dequantized to `dtype` ahead of time)."""
+    kpools = _cold_copies(torch, pool_k, pool_v, kw)
+    if not kw:
+        return kpools, [(a, b) for a, b, _ in kpools]
+    dk, dv = _dequantized(torch, pool_k, pool_v, kw, dtype)
+    return kpools, [(a, b) for a, b, _ in _cold_copies(torch, dk, dv, {})]
+
+
+def _elem_bytes(fmt, pool_k):
+    """(bytes a K/V element, bytes a live page adds: its k and v scales,
+    4 each a kv head) of a pool stored as fmt (None: q's dtype)."""
+    if fmt is None:
+        return pool_k.element_size(), 0
+    return _ELEM_BYTES[fmt], 8 * pool_k.shape[2]
 
 
 def _work(q, P, KV, table, pos, q_len, elem_bytes, page_bytes=0):
@@ -329,13 +382,10 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
     pages. The quantized cases' yardstick is SDPA over the same live
     pages dequantized to q's dtype ahead of the call: it reads 2x (int8)
     or 4x (int4) the page bytes of a bf16 pool and dequantizes nothing.
-    rpa_decode cycles through pool copies larger than L2 (a served
-    decode step finds each layer's pool cold) and must give the same
-    bits twice. `only`: the kernel names to run (None: all)."""
-    from cake_tpu_torch.kv.quantized_pool import (
-        Int4Pool, QuantPool, dequantize_pages,
-    )
-
+    The decode kernels (every pool) cycle through pool copies larger than
+    L2, and SDPA through copies of its own pages (a served decode step
+    finds each layer's pool cold). Every kernel must give the same bits
+    twice. `only`: the kernel names to run (None: all)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     for fmt in (None, "int8", "int4"):
         for base, mixed in (("rpa_decode", False), ("rpa_mixed", True)):
@@ -358,34 +408,28 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
                 for dead in ((4, 3) if mixed else (7,)):
                     if got[dead].abs().max().item() != 0.0:
                         fail(f"{name} {dname}: dead row {dead} is not zero")
-                if fmt is None:
-                    dk, dv = pk, pv
-                    nbytes, ops = _work(q, pk.shape[1], pk.shape[2], table,
-                                        pos, ql, pk.element_size())
+                KV = pk.shape[2]
+                P = pk.shape[1] * (2 if fmt == "int4" else 1)
+                nbytes, ops = _work(q, P, KV, table, pos, ql,
+                                    *_elem_bytes(fmt, pk))
+                if mixed:
+                    kpools = [(pk, pv, kw)]
+                    dpools = [_dequantized(torch, pk, pv, kw, dtype)]
                 else:
-                    cls = Int4Pool if fmt == "int4" else QuantPool
-                    every = torch.arange(pk.shape[0], device="cuda")
-                    dk, dv = (dequantize_pages(cls(x, kw[s]), every).to(
-                        dtype) for x, s in ((pk, "scale_k"), (pv, "scale_v")))
-                    KV = pk.shape[2]
-                    nbytes, ops = _work(q, dk.shape[1], KV, table, pos, ql,
-                                        _ELEM_BYTES[fmt], 8 * KV)
-                pools = [(pk, pv, dk, dv)]
-                if name == "rpa_decode":
-                    pools += [(a, b, a, b) for a, b in zip(
-                        _copies(pk, 2 * pk.numel() * pk.element_size())[1:],
-                        _copies(pv, 2 * pv.numel() * pv.element_size())[1:])]
+                    kpools, dpools = _decode_pools(torch, pk, pv, kw, dtype)
+                    plan = rpa.split_plan(q.shape[0], KV, table.shape[1], P,
+                                          rpa.sm_count("cuda"))
+                    log(f"{name} {dname}: split plan (splits, pages a "
+                        f"split) {plan}; {len(kpools)} pool copies")
                 rest = args[3:]
                 report[(name, dname)] = _measure(
                     torch, name, dname, got, plain(*args, **kw),
-                    [(lambda a=a, b=b: kern(q, a, b, *rest, **kw))
-                     for a, b, _, _ in pools],
+                    [(lambda a=a, b=b, k=k: kern(q, a, b, *rest, **k))
+                     for a, b, k in kpools],
                     lambda: plain(*args, **kw),
                     [_sdpa_yardstick(torch, q, c, d, table, pos, ql)
-                     for _, _, c, d in pools],
-                    nbytes, ops,
-                    again=(kern(*args, **kw)
-                           if name in ("rpa_decode", "rpa_mixed") else None))
+                     for c, d in dpools],
+                    nbytes, ops, again=kern(*args, **kw))
                 if name == "rpa_mixed" and hasattr(rpa, "mixed_split_plan"):
                     tc = rpa.mixed_takes_tc(q, pk, pv, kw.get("scale_k"))
                     plan = rpa.mixed_split_plan(
@@ -394,55 +438,58 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
                     log(f"rpa_mixed {dname}: "
                         + (f"tensor-core body, plan (splits, pages a split) "
                            f"{plan}" if tc else "rpa_cta"))
-                del pools
+                del kpools, dpools
     torch.cuda.empty_cache()
 
 
-def _split_cases(torch, rpa) -> None:
-    """Two logged decode cases that show the split of rpa_decode (bf16,
+def _split_cases(torch, rpa, only=None) -> None:
+    """Decode cases that show the split of rpa_decode (bf16 queries,
     128-token pages, H=32, KV=8, hd=128; pools cycled past L2): B = 8
-    with one row at pos 8191 (64 table columns) beside rows at
-    0..2047, and B = 32 rows at mixed positions up to 2047. Each against
-    its plain version, with the plan, device time, bound and SDPA."""
+    with one row at pos 8191 (64 table columns) beside rows at 0..2047,
+    over a bf16, an int8 and an int4 pool (rpa_decode, rpa_decode_q8,
+    rpa_decode_q4), and B = 32 rows at mixed positions up to 2047 over
+    a bf16 pool. Each against its plain version, with the plan, device
+    time, bound and SDPA (over the pages dequantized to bf16 for the
+    quantized pools). `only`: the kernel names to run (None: all)."""
     gen = torch.Generator(device="cuda").manual_seed(777)
     H, KV, hd, P, dtype = 32, 8, 128, 128, torch.bfloat16
+    long_row = [8191, 0, 127, 500, 1000, 1500, 2047, 300]
     cases = (
-        ("B=8 one row at 8191", 8, 64,
-         [8191, 0, 127, 500, 1000, 1500, 2047, 300]),
+        ("B=8 one row at 8191", 8, 64, long_row, None),
         ("B=32 mixed up to 2047", 32, 16,
          [int(x) for x in torch.randint(0, 2048, (32,), generator=gen,
-                                        device="cuda").tolist()]),
+                                        device="cuda").tolist()], None),
+        ("B=8 one row at 8191", 8, 64, long_row, "int8"),
+        ("B=8 one row at 8191", 8, 64, long_row, "int4"),
     )
-    for label, B, MP, pos_l in cases:
+    for label, B, MP, pos_l, fmt in cases:
+        name = "rpa_decode" + {"int8": "_q8", "int4": "_q4"}.get(fmt, "")
+        if only is not None and name not in only:
+            continue
         N = 256
-        pk = torch.randn((N, P, KV, hd), generator=gen, device="cuda",
-                         dtype=dtype)
-        pv = torch.randn((N, P, KV, hd), generator=gen, device="cuda",
-                         dtype=dtype)
+        pk, pv, kw = _pools(torch, gen, fmt, dtype, N, P, KV, hd)
         table = torch.randint(0, N, (B, MP), generator=gen, device="cuda",
                               dtype=torch.int32)
         pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
         q = torch.randn((B, 1, H, hd), generator=gen, device="cuda",
                         dtype=dtype)
         args = (q, pk, pv, table, pos)
-        got = rpa.ragged_paged_attention(*args)
-        pools = [(pk, pv)] + list(zip(
-            _copies(pk, 2 * pk.numel() * pk.element_size())[1:],
-            _copies(pv, 2 * pv.numel() * pv.element_size())[1:]))
-        nbytes, ops = _work(q, P, KV, table, pos, None, pk.element_size())
+        got = rpa.ragged_paged_attention(*args, **kw)
+        kpools, dpools = _decode_pools(torch, pk, pv, kw, dtype)
+        nbytes, ops = _work(q, P, KV, table, pos, None, *_elem_bytes(fmt, pk))
         plan = (rpa.split_plan(B, KV, MP, P, rpa.sm_count("cuda"))
                 if hasattr(rpa, "split_plan") else "none")
-        log(f"rpa_decode split case {label}: plan (splits, pages a split) "
+        log(f"{name} split case {label}: plan (splits, pages a split) "
             f"{plan}")
-        _measure(torch, f"rpa_decode {label}", "bfloat16", got,
-                 rpa.ragged_paged_attention_plain(*args),
-                 [(lambda a=a, b=b: rpa.ragged_paged_attention(
-                     q, a, b, table, pos)) for a, b in pools],
-                 lambda: rpa.ragged_paged_attention_plain(*args),
+        _measure(torch, f"{name} {label}", "bfloat16", got,
+                 rpa.ragged_paged_attention_plain(*args, **kw),
+                 [(lambda a=a, b=b, k=k: rpa.ragged_paged_attention(
+                     q, a, b, table, pos, **k)) for a, b, k in kpools],
+                 lambda: rpa.ragged_paged_attention_plain(*args, **kw),
                  [_sdpa_yardstick(torch, q, a, b, table, pos, None)
-                  for a, b in pools], nbytes, ops,
-                 again=rpa.ragged_paged_attention(*args))
-        del pools, pk, pv
+                  for a, b in dpools], nbytes, ops,
+                 again=rpa.ragged_paged_attention(*args, **kw))
+        del kpools, dpools, pk, pv
         torch.cuda.empty_cache()
 
 
@@ -717,11 +764,11 @@ def int4_sweep(torch, i4, targets) -> None:
 
 def phase_kernels(torch, rpa, fa, i4, only=None) -> dict:
     """Every kernel against its plain version, timed; `only` restricts
-    the phase to some kernel names (with rpa_decode, its split cases)."""
+    the phase to some kernel names (with a decode kernel, its split
+    cases)."""
     report = {}
     _rpa_kernels(torch, rpa, report, only)
-    if only is None or "rpa_decode" in only:
-        _split_cases(torch, rpa)
+    _split_cases(torch, rpa, only)
     _flash_kernels(torch, fa, report, only)
     if only is None or "int4_matmul" in only:
         _int4_kernels(torch, i4, report)

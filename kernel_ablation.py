@@ -1,6 +1,7 @@
 """Ablation timing of the redesigned attention kernels on the card.
 
     python3 kernel_ablation.py
+    python3 kernel_ablation.py --cases rpa_decode_q8,rpa_decode_q4
 
 Builds patched copies of the sources in `cake_tpu_torch/csrc/`
 (`flash_attention.cu`, `ragged_paged_attention.cu` and the tensor-core
@@ -12,17 +13,20 @@ all in parallel), and times each variant the way `chip_smoke.py` times
 the kernels (a replayed CUDA graph of 30 calls) at the kernel table's
 shapes, bf16: `flash_attn` causal over S = T = 1024, `flash_attn_cached`
 over S = 256 at pos 1280 of a 4096-slot cache, `rpa_decode` over the
-table's ragged decode case at two split lengths, `rpa_mixed` over the
-table's mixed case. The unpatched build also times the two split bodies
+table's ragged decode case at two split lengths, `rpa_decode_q8` and
+`rpa_decode_q4` over the same case's int8 and int4 pools (the same split
+body), `rpa_mixed` over the table's mixed case. The unpatched build also times the two split bodies
 at other plans (`flash_attn_cached` at 4 and 8 warps a CTA and 1 to 6
 key splits; `rpa_mixed` unsplit and at its plan). A variant's outputs
 are wrong by design; only its time is read: the time a part removes is
-what that part costs. Imports nothing of JAX or `cake_tpu`; needs one
-NVIDIA card.
+what that part costs. `--cases` keeps only the variants, cases and plan
+sweeps of the kernels it names (and builds only those libraries).
+Imports nothing of JAX or `cake_tpu`; needs one NVIDIA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -34,12 +38,14 @@ sys.path.insert(0, ROOT)
 
 FA, RPA, TC = "flash_attention.cu", "ragged_paged_attention.cu", \
     "tc_attention.cuh"
+# the three decode kernels: one split body over bf16, int8 and int4 pages
+RPA_DECODES = ("rpa_decode", "rpa_decode_q8", "rpa_decode_q4")
 LOOP_LOADS = ("    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);",
               "")
 # variant -> ({file: [(text, replacement), ...]}, cases timed); {} = as is
 VARIANTS = {
     "as is": ({}, ("flash_attn", "flash_attn_cached", "rpa_decode",
-                   "rpa_mixed")),
+                   "rpa_decode_q8", "rpa_decode_q4", "rpa_mixed")),
     "tc: without the p.v mma": ({TC: [
         ("mma16816<T>(st.o[2 * np], pa, bv[np][0], bv[np][1]);", ""),
         ("mma16816<T>(st.o[2 * np + 1], pa, bv[np][2], bv[np][3]);", "")]},
@@ -71,27 +77,27 @@ VARIANTS = {
         ("  rpa_mixed_merge_kernel<<<blocks, 256, 0, stream>>>(a);", "")]},
         ("rpa_mixed",)),
     "rpa_decode: without the tile's compute": ({RPA: [
-        ("if (nu > 0) {                  // warp-uniform", "if (nu < 0) {")]},
-        ("rpa_decode",)),
+        ("if (nu > 0)                    // warp-uniform", "if (nu < 0)"),
+        ("if (kPacked && nu_hi > 0)", "if (false)")]}, RPA_DECODES),
     "rpa_decode: without the loop's loads": ({RPA: [
         ("if (p_ok) fetch();             // into tile it - 1's stage",
-         "if (false) fetch();")]}, ("rpa_decode",)),
+         "if (false) fetch();")]}, RPA_DECODES),
     "rpa_decode: without warp_sum": ({RPA: [
-        ("sc[u][g] = warp_sum(sc[u][g]);", "sc[u][g] = sc[u][g];")]},
+        ("sc[u][g] = warp_sum(sc[u][g]) * sk;", "sc[u][g] = sc[u][g] * sk;")]},
         ("rpa_decode",)),
     "rpa_decode: without exp2f": ({RPA: [
         ("const float p = u < nu ? exp2f(sc[u][g] - mn) : 0.f;",
          "const float p = u < nu ? (sc[u][g] - mn) : 0.f;")]},
         ("rpa_decode",)),
     "rpa_decode: without the p.v FMAs": ({RPA: [
-        ("            acc[g][i] = fmaf(sc[u][g], vx, acc[g][i]);",
-         "            acc[g][i] += vx;")]}, ("rpa_decode",)),
+        ("acc[g][i] = fmaf(sc[u][g], vx, acc[g][i]);",
+         "acc[g][i] += vx;")]}, ("rpa_decode",)),
     "rpa_decode: merge launch only": ({RPA: [
         ("  fn<<<dim3(a.KV * n_hg, a.B, a.splits), kThreads, smem, "
-         "stream>>>(a, vec);", "")]}, ("rpa_decode",)),
+         "stream>>>(a, vec);", "")]}, RPA_DECODES),
     "rpa_decode: split launch only": ({RPA: [
-        ("  merge<<<dim3(a.KV, a.B), kThreads, 0, stream>>>(a);", "")]},
-        ("rpa_decode",)),
+        ("  merge<<<(outs + 255) / 256, 256, 0, stream>>>(a);", "")]},
+        RPA_DECODES),
     "rpa_decode: 64-slot ring stages": ({RPA: [
         ("constexpr int kSplitTile = 32;", "constexpr int kSplitTile = 64;")]},
         ("rpa_decode",)),
@@ -115,14 +121,14 @@ def _sources(patches):
     return out
 
 
-def _build(out_dir):
+def _build(out_dir, variants):
     """One nvcc per (variant, library) its cases need, all started at
     once, each variant's patched sources in a directory of its own (so
     its patched header is the one included); {variant: {file: CDLL}}."""
     from cake_tpu_torch.utils import cuda_build
 
     procs = []
-    for i, (name, (patches, cases)) in enumerate(VARIANTS.items()):
+    for i, (name, (patches, cases)) in enumerate(variants.items()):
         vdir = os.path.join(out_dir, f"v{i}")
         os.makedirs(vdir, exist_ok=True)
         for fname, text in _sources(patches).items():
@@ -146,7 +152,15 @@ def _build(out_dir):
     return libs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cases", default="",
+                    help="comma list of kernel names (default: all)")
+    want = set(ap.parse_args(argv).cases.split(",")) - {""}
+    variants = {name: (patches, tuple(c for c in cases
+                                      if not want or c in want))
+                for name, (patches, cases) in VARIANTS.items()}
+    variants = {k: v for k, v in variants.items() if v[1]}
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ablation: needs an NVIDIA card")
@@ -156,7 +170,7 @@ def main() -> int:
     from cake_tpu_torch.utils.cuda_build import BUILD_DIR
 
     t0 = time.perf_counter()
-    libs = _build(os.path.join(BUILD_DIR, "ablation"))
+    libs = _build(os.path.join(BUILD_DIR, "ablation"), variants)
     print(f"kernel_ablation: {sum(len(v) for v in libs.values())} libraries "
           f"of {len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -178,12 +192,19 @@ def main() -> int:
     mix = cs._kernel_case(torch, torch.bfloat16,
                           torch.Generator(device="cuda").manual_seed(1234),
                           True, None)[:6]
+    q8, q4 = (cs._kernel_case(torch, torch.bfloat16,
+                              torch.Generator(device="cuda").manual_seed(1234),
+                              False, fmt) for fmt in ("int8", "int4"))
     calls = {
         "flash_attn": lambda: fa.flash_attention(q, k, v),
         "flash_attn_cached": lambda: fa.flash_attention_cached(cq, ck, cv,
                                                                1280),
         "rpa_decode": lambda: rpa.ragged_paged_attention(*dec),
         "rpa_mixed": lambda: rpa.ragged_paged_attention_mixed(*mix),
+        "rpa_decode_q8": lambda: rpa.ragged_paged_attention(*q8[:5],
+                                                            **q8[6]),
+        "rpa_decode_q4": lambda: rpa.ragged_paged_attention(*q4[:5],
+                                                            **q4[6]),
     }
 
     def timed(label, case):
@@ -193,7 +214,7 @@ def main() -> int:
     default_slots = rpa.SPLIT_SLOTS
     plan, warps0 = fa.flash_split_plan, fa.CACHED_WARPS
     mixed_plan = rpa.mixed_split_plan
-    for name, (_, cases) in VARIANTS.items():
+    for name, (_, cases) in variants.items():
         lib = libs[name]
         if FA in lib:
             fa._bind(lib[FA])
@@ -212,18 +233,20 @@ def main() -> int:
         if name != "as is":
             continue
         # the split bodies at other plans than their own
-        for warps in (4, 8):
-            fa.CACHED_WARPS = warps
-            for n in (1, 2, 3, 4, 6):
-                fa.flash_split_plan = lambda *a, n=n: n
-                timed(f"as is, flash_attn_cached at {warps} warps and {n} "
-                      "key splits", "flash_attn_cached")
-        fa.CACHED_WARPS, fa.flash_split_plan = warps0, plan
-        for label, fn in (("unsplit", lambda *a: (1, a[5])),
-                          ("at its plan", mixed_plan)):
-            rpa.mixed_split_plan = fn
-            timed(f"as is, rpa_mixed {label}", "rpa_mixed")
-        rpa.mixed_split_plan = mixed_plan
+        if "flash_attn_cached" in cases:
+            for warps in (4, 8):
+                fa.CACHED_WARPS = warps
+                for n in (1, 2, 3, 4, 6):
+                    fa.flash_split_plan = lambda *a, n=n: n
+                    timed(f"as is, flash_attn_cached at {warps} warps and "
+                          f"{n} key splits", "flash_attn_cached")
+            fa.CACHED_WARPS, fa.flash_split_plan = warps0, plan
+        if "rpa_mixed" in cases:
+            for label, fn in (("unsplit", lambda *a: (1, a[5])),
+                              ("at its plan", mixed_plan)):
+                rpa.mixed_split_plan = fn
+                timed(f"as is, rpa_mixed {label}", "rpa_mixed")
+            rpa.mixed_split_plan = mixed_plan
     return 0
 
 

@@ -151,20 +151,31 @@ SPLIT_TABLE = [[3, 6, 0, 10, 5, 1], [4, 11, -1, -1, 2, 9],
 SPLIT_POS = [2 * P - 1, 5 * P + 3, 0, 3 * P + 1, 3 * P - 1, 2 * P]
 
 
-@pytest.mark.parametrize("n_sm,pps", [(132, 1), (18, 2), (12, 3), (6, 6)])
+SPLIT_GROUPINGS = [(132, 1), (18, 2), (12, 3), (6, 6)]
+
+
+@pytest.mark.parametrize("n_sm,pps,fmt", [
+    pytest.param(n_sm, pps, fmt,
+                 id=f"{n_sm}-{pps}" + ("" if fmt == "f32" else f"-{fmt}"))
+    for fmt in ("f32", "q8", "q4") for n_sm, pps in SPLIT_GROUPINGS])
 def test_decode_plain_matches_jax_kernel_split_boundaries(monkeypatch, n_sm,
-                                                          pps):
+                                                          pps, fmt):
     """The plain version folds the kernel's splits and merges them in
-    order; at every grouping it agrees with the JAX kernel (f32, the
-    file's tolerance), and the dead row is exactly zero."""
+    order, over f32 pages and over int8 (q8) and int4 (q4) pages written
+    by the JAX package's qwrite_prompt_pages; at every grouping it agrees
+    with the JAX kernel (`_rpa_kernel`, `_rpa_kernel_q8`, `_rpa_kernel_q4`
+    in interpret mode; f32, the file's tolerance), and the dead row is
+    exactly zero."""
     monkeypatch.setattr(rpa, "CPU_SM_COUNT", n_sm)
     table = np.asarray(SPLIT_TABLE, np.int32)
     pos = np.asarray(SPLIT_POS, np.int32)
     assert rpa.split_plan(len(pos), 2, table.shape[1], P, n_sm)[1] == pps
     rng = np.random.default_rng(30 + pps)
-    pk, pv = _pool(rng, KV=2, hd=16)
+    pk, pv = (_pool(rng, KV=2, hd=16) if fmt == "f32"
+              else _qpools(rng, fmt, KV=2, hd=16))
     q = rng.normal(size=(len(pos), 1, 4, 16)).astype(np.float32)
-    got = _decode_parity(q, pk, pv, table, pos)
+    got = (_decode_parity(q, pk, pv, table, pos) if fmt == "f32"
+           else _q_parity(fmt, q, pk, pv, table, pos))
     assert not got[3].any()
 
 
@@ -632,6 +643,30 @@ def test_quant_decode_plain_matches_jax_kernel_unmapped_holes(fmt):
 
 
 @pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_decode_plain_matches_jax_kernel_hole_at_split_boundary(
+        monkeypatch, fmt):
+    """Splits of three columns (n_sm = 12) over a quantized pool, with
+    -1 holes on both sides of the split boundary (columns 2 and 3): a row
+    ending in the hole, a row whose whole first split is unmapped, a row
+    whose second split is unmapped up to its last page, and a row that
+    ends on the boundary's first slot. Each agrees with the JAX kernel
+    (2e-5); an empty split adds nothing, and no unmapped id's scale
+    (page 0's, were it clamped) reaches a row."""
+    monkeypatch.setattr(rpa, "CPU_SM_COUNT", 12)
+    table = np.asarray([[3, 6, -1, -1, 5, 1], [-1, -1, -1, 10, 2, 9],
+                        [7, 8, 9, -1, -1, 3], [5, 2, -1, -1, 0, 6],
+                        [9, 10, 4, 7, 3, 1], [0, 0, -1, -1, 0, 0]],
+                       np.int32)
+    pos = np.asarray([3 * P + 4, 4 * P + 2, 5 * P + 1, 3 * P, 3 * P,
+                      4 * P + 7], np.int32)
+    assert rpa.split_plan(len(pos), 2, table.shape[1], P, 12) == (2, 3)
+    rng = np.random.default_rng(25)
+    pk, pv = _qpools(rng, fmt, KV=2, hd=16)
+    q = rng.normal(size=(len(pos), 1, 4, 16)).astype(np.float32)
+    _q_parity(fmt, q, pk, pv, table, pos)
+
+
+@pytest.mark.parametrize("fmt", QFORMATS)
 def test_quant_mixed_plain_matches_jax_kernel_offsets_and_holes(fmt):
     """A decode row, a chunk straddling a page edge at an odd offset (for
     int4 the straddle crosses the packed low/high nibble halves), a
@@ -713,6 +748,73 @@ def test_cuda_quant_kernels_match_plain_versions(dtype):
         with pytest.raises(ValueError, match="pool dtype"):
             rpa.ragged_paged_attention(q1, kq.float(), vq.float(), table,
                                        pos, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quant_split_decode_long_rows_and_boundaries(dtype):
+    """rpa_decode_q8 / rpa_decode_q4 run the split body (rpa_split +
+    rpa_merge) over int8 and nibble-packed int4 pages: against their
+    plain versions (f32 queries atol 1e-4; bf16 atol/rtol 2e-2, the
+    plain version rounding the dequantized K/V to bf16) at 16-, 48- and
+    128-token pages (P/2 = 8, 24, 64 packed rows: a tile of packed rows
+    is consumed as low, then high nibbles); a row at pos 8191 beside
+    short ones, rows ending on the last slot of a split and on the first
+    of the next, -1 holes on both sides of a split boundary, pos = 0, a
+    dead row (exactly zero); G = 1, 4 and 16, head dims 17 and 20 (slot
+    rows of odd and 4-byte multiples, copied in 1- and 4-byte pieces),
+    128 and 256. Two launches give the same bits, one call counts one
+    launch, and a call captured in a CUDA graph replays to the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=0.0) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, N = 6, 96
+    for store, packed4 in ((torch.int8, False), (torch.uint8, True)):
+        name = "rpa_decode_q4" if packed4 else "rpa_decode_q8"
+        lo, hi = (0, 256) if packed4 else (-127, 128)
+        for Pg in (16, 48, 128):
+            MP = -(-8192 // Pg)
+            for H, KV, hd in ((32, 8, 128), (32, 2, 20), (8, 8, 17),
+                              (16, 4, 256)):
+                rows = Pg // 2 if packed4 else Pg
+                pk, pv = (torch.randint(lo, hi, (N, rows, KV, hd),
+                                        generator=g, device="cuda",
+                                        dtype=torch.int32).to(store)
+                          for _ in range(2))
+                sk = torch.rand((N, KV), generator=g, device="cuda") / 64
+                sv = torch.rand((N, KV), generator=g, device="cuda") / 64
+                kw = dict(scale_k=sk, scale_v=sv, packed4=packed4)
+                table = torch.randint(0, N, (B, MP), generator=g,
+                                      device="cuda", dtype=torch.int32)
+                splits, pps = rpa.split_plan(B, KV, MP, Pg,
+                                             rpa.sm_count("cuda"))
+                assert splits > 1
+                table[2, pps] = -1      # holes on both sides of a boundary
+                table[2, pps - 1] = -1
+                table[5] = -1           # a dead row
+                pos = torch.tensor([8191, pps * Pg - 1, 2 * pps * Pg + 7, 0,
+                                    pps * Pg, 3000], dtype=torch.int32,
+                                   device="cuda")
+                q = torch.randn((B, 1, H, hd), generator=g, device="cuda",
+                                dtype=dt)
+                args = (q, pk, pv, table, pos)
+                rpa.reset_launch_counts()
+                got = rpa.ragged_paged_attention(*args, **kw)
+                again = rpa.ragged_paged_attention(*args, **kw)
+                torch.cuda.synchronize()
+                assert rpa.LAUNCHES[name] == 2
+                want = rpa.ragged_paged_attention_plain(*args, **kw)
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                assert torch.equal(got, again)
+                assert not got[5].any()
+        eager, replayed = _graph_replay(
+            lambda: rpa.ragged_paged_attention(*args, **kw))
+        assert torch.equal(eager, replayed)
 
 
 def test_tpu_scale_budget_is_not_a_hopper_limit(monkeypatch):
