@@ -22,8 +22,10 @@
 //                  same row, both biased by +8; scale [N, KV] f32
 // A quantized slot stands for int value * the page's scale for that kv
 // head, in f32. rpa_split scales the dot outputs and p, as the TPU kernels
-// do; rpa_cta dequantizes each slot as it is staged, the same function up
-// to f32 rounding order.
+// do; rpa_mixed_tc multiplies exact-integer K/V tiles' scores by each
+// key's k scale and p by its v scale; rpa_cta dequantizes each slot as it
+// is staged: the same function up to rounding order (and, in rpa_mixed_tc,
+// p times the v scale rounded to bf16 for p v).
 //
 // What bounds it on this card: the bytes of the live K/V pages. A row
 // at position p reads 2 * (p + 1) * KV * hd elements once (4, 2, 1 or
@@ -82,21 +84,39 @@
 //     only, and l sums the unscaled p (what _rpa_kernel_q8/_q4 compute by
 //     scaling the dot outputs).
 //
-// rpa_mixed over bf16 q and bf16 pages (hd <= 128) -- rpa_mixed_tc (+
-// rpa_mixed_merge), because a chunk row carries C x G query rows a kv
-// head, the shape of flash_tc's tensor-core tiles, and the scalar rpa_cta
-// left one decode row at pos 2047 walking 16 pages alone:
+// rpa_mixed over bf16 q and bf16, int8 or packed int4 pages (hd <= 128,
+// rows 4-byte aligned) -- rpa_mixed_tc (+ rpa_mixed_merge), because a
+// chunk row carries C x G query rows a kv head, the shape of flash_tc's
+// tensor-core tiles, and the scalar rpa_cta left one decode row at pos
+// 2047 walking 16 pages alone:
 //   * one CTA per (kv head x 64-row query tile, row, split): 16 columns x
 //     G = 4 heads, the rows laid out as rpa_cta's; the tile loop is
-//     tc_attention.cuh's (mma.sync m16n8k16, 64-slot key tiles through a
-//     two-stage cp.async ring, online softmax on the fragments, p rounded
-//     to bf16 for p v as the Pallas kernel rounds it, l summing the f32 p);
+//     tc_attention.cuh's (mma.sync m16n8k16, 64-slot key tiles, online
+//     softmax on the fragments, p rounded to bf16 for p v as the Pallas
+//     kernel rounds it, l summing the f32 p);
 //   * a slot row's address comes from table[b, slot / P], looked up per
 //     row, so a key tile may straddle pages of any size; unmapped pages
 //     and slots past the CTA's last query are zero-filled and masked by a
 //     64-bit live mask a ring stage (never clamped to page 0, never read);
 //     a warp whose rows are all padding (a decode row fills 4 of 64) skips
 //     its products but keeps to the copies and barriers;
+//   * bf16 pages reach the tile by cp.async through a two-stage ring.
+//     int8 and packed int4 pages cannot (cp.async copies bytes, and the
+//     products want bf16): their raw slot rows (hd bytes; an int4 slot's
+//     packed row, t mod P/2, with a per-slot high-nibble bit, so a tile may
+//     straddle P/2) go through a two-stage ring of their own, and each
+//     stage is converted once, by the whole CTA, into one bf16 tile: every
+//     int8 value and every unbiased nibble is exact in bf16, so K and V
+//     enter the tensor cores without their scales and unrounded. Each
+//     key's k and v scales are staged beside its row (zero for an unmapped
+//     page, whose scale is never read): S is multiplied by the key's k
+//     scale before the row max, and p by its v scale before it is rounded
+//     to bf16 for p v, while l sums the unscaled f32 p (the split decode
+//     body's scheme on fragments; the Pallas bodies keep that p in f32). A
+//     packed row holds two of a page's tokens, so each tile reads the
+//     packed rows of its own slots: a page's packed bytes are read twice
+//     (the second time mostly from L2), the price of tiles that may
+//     straddle P/2 and pages;
 //   * splits by pages: the wrapper picks (splits, pages a split) from
 //     shapes and the SM count alone (mixed_split_plan), so the call reads
 //     nothing back to the host and captures into a CUDA graph; a split
@@ -105,8 +125,8 @@
 //     every run) and writes zeros for padding columns, idle and dead rows.
 //     With one split the CTA writes the output itself.
 //
-// rpa_cta, which the other mixed pairs (f32 q or pages, hd > 128, int8
-// and int4 pages) still run (no decode runs it):
+// rpa_cta, which the other mixed pairs (f32 q or pages, hd > 128, rows
+// that are not 4-byte multiples) still run (no decode runs it):
 //   * one CTA per (row, kv head[, query tile]) reads its own pos and
 //     table row and walks only the LIVE pages j < ceil((last + 1) / P),
 //     where last is the position of its last real query; unmapped ids
@@ -746,13 +766,57 @@ __global__ void __launch_bounds__(256) rpa_merge_kernel(Args a) {
   static_cast<TQ*>(a.out)[i] = from_f<TQ>(L > 0.f ? A / L : 0.f);
 }
 
-// -- rpa_mixed_tc: the mixed body over bf16 pages, on the tensor cores -----
+// -- rpa_mixed_tc: the mixed body on the tensor cores -----------------------
 
 constexpr int kMixRows = 64;       // query rows a CTA: 4 warps x 16
-// q tile and the K/V ring (tc_attention.cuh), then a 64-bit live-slot mask
-// per ring stage
-constexpr size_t kMixSmem =
-    tc::smem_bytes(kMixRows) + tc::kStages * 2 * sizeof(uint32_t);
+constexpr int kRawStages = 2;      // quantized pages: stages of raw slot rows
+
+// Shared memory of rpa_mixed_tc over pages of TKV.
+//   bf16: the q tile and the K/V ring (tc_attention.cuh), then a 64-bit
+//   live-slot mask per ring stage.
+//   int8 / packed int4: the q tile, one bf16 K/V tile (the converted
+//   stage), its keys' scales (k scale x sl2, v scale), then kRawStages
+//   stages of raw slot rows (64 K rows, then 64 V rows, of kHd bytes),
+//   each with its keys' k and v scales and its live and high-nibble masks.
+template <int kHd>
+__host__ __device__ constexpr int raw_stage_bytes() {
+  return 2 * tc::kKeys * kHd + 2 * tc::kKeys * (int)sizeof(float) +
+         4 * (int)sizeof(uint32_t);
+}
+template <int kHd, typename TKV>
+constexpr size_t mixed_smem() {
+  if constexpr (sizeof(TKV) == 2)
+    return tc::smem_bytes(kMixRows) + tc::kStages * 2 * sizeof(uint32_t);
+  else
+    return 2 * (size_t)tc::kLd * (kMixRows + 2 * tc::kKeys) +
+           2 * tc::kKeys * sizeof(float) +
+           (size_t)kRawStages * raw_stage_bytes<kHd>();
+}
+
+// Four int8 values, or four int4 nibbles less their +8 bias (the high
+// nibbles with hi), of a 32-bit word, as four exact bf16 (two bf16x2, the
+// lower element in the low half): each byte goes into the low mantissa
+// byte of 2^23, the bias is subtracted in f32 (exact for integers this
+// small), and a small integer's f32 has zero low 16 bits, so its upper
+// half is its bf16. Integer and f32 adds only: no conversion instruction.
+template <typename TKV>
+__device__ __forceinline__ uint2 int4x_to_bf16(uint32_t w, bool hi) {
+  float bias;
+  if constexpr (std::is_same<TKV, uint8_t>::value) {
+    w = (hi ? w >> 4 : w) & 0x0F0F0F0Fu;
+    bias = 8388616.f;            // 2^23 + 8
+  } else {
+    w ^= 0x80808080u;            // int8 x -> unsigned x + 128
+    bias = 8388736.f;            // 2^23 + 128
+  }
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | i)) - bias);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
 
 // One CTA: kv head `kv` of row `b`, query columns [c0, c0 + q_cols) (row r
 // is column c0 + r / G, query head kv * G + r % G, as in rpa_cta), the
@@ -763,15 +827,24 @@ constexpr size_t kMixSmem =
 // tile's live mask. Without partials (one split) the CTA writes its
 // columns' output, zeros for padding columns and idle rows; with them it
 // writes f32 partials of its real rows and rpa_mixed_merge writes the rest.
-template <int kHd>
+// TKV: bf16 pages, staged as they are through a two-stage ring; int8, or
+// uint8 for packed int4 (slot t of a page is packed row t mod P/2, its high
+// nibble iff t >= P/2, so a tile may straddle P/2), whose raw rows go
+// through a ring of their own and are converted a stage at a time into the
+// bf16 tile the products read, as exact integers; each key's k and v
+// scales (a zero for an unmapped page, whose scale is never read) are
+// staged beside its row and applied on the fragments (tile_step's
+// KeyScales).
+template <int kHd, typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
     rpa_mixed_tc_kernel(Args a, int vec) {
   using T = __nv_bfloat16;
+  constexpr bool kQuant = sizeof(TKV) == 1;
+  constexpr bool kPacked = std::is_same<TKV, uint8_t>::value;
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);                // [64][kLd]
-  T* ring = q_s + kMixRows * tc::kLd;                  // stage s: K, then V
-  uint32_t* live_s = reinterpret_cast<uint32_t*>(
-      ring + tc::kStages * 2 * tc::kKeys * tc::kLd);   // [kStages][2]
+  // bf16: the ring, stage s: K, then V; quantized: the converted K, V tile
+  T* ring = q_s + kMixRows * tc::kLd;
   const int G = a.H / a.KV;
   const int hd = a.hd;
   const int tid = threadIdx.x;
@@ -781,8 +854,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kv = blockIdx.x / n_q, c0 = (blockIdx.x % n_q) * a.q_cols;
   const int b = blockIdx.y, s = blockIdx.z;
   const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
+  const TKV* kp = static_cast<const TKV*>(a.k);
+  const TKV* vp = static_cast<const TKV*>(a.v);
   T* out = static_cast<T*>(a.out);
 
   const int pos = a.pos[b];
@@ -809,37 +882,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   const int n_tiles = (k_hi - k_lo + tc::kKeys - 1) / tc::kKeys;
 
-  tc::zero_pad_columns<T, kHd>(q_s, kMixRows + 2 * tc::kStages * tc::kKeys,
-                               hd, kThreads);
+  tc::zero_pad_columns<T, kHd>(
+      q_s, kMixRows + 2 * (kQuant ? 1 : tc::kStages) * tc::kKeys, hd,
+      kThreads);
   tc::stage_rows(q_s, kMixRows, hd, vec, kThreads, q,
                  [&](int r) -> const T* {
                    return r < rows ? q + orow(r) * hd : nullptr;
                  });
   const int* trow = a.table + (size_t)b * a.max_pages;
-  // slot `key` of the row -> element offset of its K/V row in the pools,
-  // or -1 (past the split's live slots, or an unmapped page)
-  auto slot = [&](int key) -> long long {
-    if (key >= k_hi) return -1;
-    const int j = key / a.P;
-    const int page = trow[j];
-    if (page < 0 || page >= a.N) return -1;
-    return (((long long)page * a.P + (key - j * a.P)) * a.KV + kv) * hd;
-  };
-  auto load_tile = [&](int j) {
-    const int sg = j % tc::kStages;
-    T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
-    const int t0 = k_lo + j * tc::kKeys;
-    tc::stage_kv(ks, ks + tc::kKeys * tc::kLd, kp, vp, hd, vec, kThreads,
-                 [&](int r) { return slot(t0 + r); });
-    if (warp < 2) {             // which of the tile's 64 slots are live
-      const unsigned m = __ballot_sync(0xffffffffu, slot(t0 + tid) >= 0);
-      if (lane == 0) live_s[sg * 2 + warp] = m;
-    }
-  };
-  load_tile(0);
-  tc::cp_commit();              // group 0: q and tile 0
-  if (n_tiles > 1) load_tile(1);
-  tc::cp_commit();              // group 1: tile 1 (or nothing)
 
   // this thread's two rows: r0 = 16 warp + lane / 4 and r0 + 8; a warp
   // past the real rows (a decode row fills 4 of 64) skips its products but
@@ -851,27 +901,178 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint32_t qf[kHd / 16][4];
   tc::State<kHd> st;
   st.init();
-  for (int j = 0; j < n_tiles; ++j) {
-    tc::cp_wait_1();            // every group but the newest has landed
-    __syncthreads();
-    const int sg = j % tc::kStages;
-    const T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
-    const int t0 = k_lo + j * tc::kKeys;
-    const unsigned long long live =
-        live_s[sg * 2] | ((unsigned long long)live_s[sg * 2 + 1] << 32);
-    if (active) {
-      if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
-      // interior: every slot live and at or before every row's position
-      const bool interior = live == ~0ull && t0 + tc::kKeys - 1 <= first;
-      tc::tile_step<T, kHd>(
-          qf, ks, ks + tc::kKeys * tc::kLd, st, sl2, interior, lane,
-          [&](int jj, int half) {
-            return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
-          });
+
+  if constexpr (!kQuant) {
+    uint32_t* live_s = reinterpret_cast<uint32_t*>(
+        ring + tc::kStages * 2 * tc::kKeys * tc::kLd);   // [kStages][2]
+    // slot `key` of the row -> element offset of its K/V row in the pools,
+    // or -1 (past the split's live slots, or an unmapped page)
+    auto slot = [&](int key) -> long long {
+      if (key >= k_hi) return -1;
+      const int j = key / a.P;
+      const int page = trow[j];
+      if (page < 0 || page >= a.N) return -1;
+      return (((long long)page * a.P + (key - j * a.P)) * a.KV + kv) * hd;
+    };
+    auto load_tile = [&](int j) {
+      const int sg = j % tc::kStages;
+      T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
+      const int t0 = k_lo + j * tc::kKeys;
+      tc::stage_kv(ks, ks + tc::kKeys * tc::kLd, kp, vp, hd, vec, kThreads,
+                   [&](int r) { return slot(t0 + r); });
+      if (warp < 2) {             // which of the tile's 64 slots are live
+        const unsigned m = __ballot_sync(0xffffffffu, slot(t0 + tid) >= 0);
+        if (lane == 0) live_s[sg * 2 + warp] = m;
+      }
+    };
+    load_tile(0);
+    tc::cp_commit();              // group 0: q and tile 0
+    if (n_tiles > 1) load_tile(1);
+    tc::cp_commit();              // group 1: tile 1 (or nothing)
+
+    for (int j = 0; j < n_tiles; ++j) {
+      tc::cp_wait_1();            // every group but the newest has landed
+      __syncthreads();
+      const int sg = j % tc::kStages;
+      const T* ks = ring + sg * 2 * tc::kKeys * tc::kLd;
+      const int t0 = k_lo + j * tc::kKeys;
+      const unsigned long long live =
+          live_s[sg * 2] | ((unsigned long long)live_s[sg * 2 + 1] << 32);
+      if (active) {
+        if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
+        // interior: every slot live and at or before every row's position
+        const bool interior = live == ~0ull && t0 + tc::kKeys - 1 <= first;
+        tc::tile_step<T, kHd>(
+            qf, ks, ks + tc::kKeys * tc::kLd, st, sl2, interior, lane,
+            [&](int jj, int half) {
+              return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
+            });
+      }
+      __syncthreads();            // every warp is done with this stage
+      if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);
+      tc::cp_commit();
     }
-    __syncthreads();            // every warp is done with this stage
-    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);
-    tc::cp_commit();
+  } else {
+    constexpr int kRaw = 2 * tc::kKeys * kHd;         // a stage's K, V rows
+    constexpr int kStage = raw_stage_bytes<kHd>();
+    float* sk_t = reinterpret_cast<float*>(ring + 2 * tc::kKeys * tc::kLd);
+    float* sv_t = sk_t + tc::kKeys;                   // the tile's scales
+    char* raw = reinterpret_cast<char*>(sv_t + tc::kKeys);
+    const int prow = a.P >> 1;                        // packed rows a page
+    // row r of tile j: byte offset of its slot's K/V row in the pools, or
+    // -1 (past the split's live slots, or an unmapped page); page: its
+    // page, hi: whether its token is a packed row's high nibble
+    auto slot = [&](int j, int r, int& page, bool& hi) -> long long {
+      hi = false;
+      const int key = k_lo + j * tc::kKeys + r;
+      if (key >= k_hi) return -1;
+      const int jp = key / a.P;
+      page = trow[jp];
+      if (page < 0 || page >= a.N) return -1;
+      int t = key - jp * a.P;
+      if (kPacked) {
+        hi = t >= prow;
+        t -= hi ? prow : 0;
+      }
+      return (((long long)page * (kPacked ? prow : a.P) + t) * a.KV + kv) *
+             hd;
+    };
+    auto load_tile = [&](int j) {
+      char* stg = raw + (j % kRawStages) * kStage;
+      float* sc = reinterpret_cast<float*>(stg + kRaw);    // sk[64], sv[64]
+      uint32_t* masks = reinterpret_cast<uint32_t*>(sc + 2 * tc::kKeys);
+      tc::stage_kv<TKV, kHd>(reinterpret_cast<TKV*>(stg),
+                             reinterpret_cast<TKV*>(stg + tc::kKeys * kHd),
+                             kp, vp, hd, vec, kThreads, [&](int r) {
+                               int page;
+                               bool hi;
+                               return slot(j, r, page, hi);
+                             });
+      if (warp < 2) {             // the 64 slots' scales, live and hi masks
+        int page = 0;
+        bool hi;
+        const bool ok = slot(j, tid, page, hi) >= 0;
+        const size_t at = ok ? (size_t)page * a.KV + kv : 0;
+        tc::cp_async(sc + tid, a.sk + at, 4, ok);    // unmapped: 0, unread
+        tc::cp_async(sc + tc::kKeys + tid, a.sv + at, 4, ok);
+        const unsigned m = __ballot_sync(0xffffffffu, ok);
+        const unsigned h = __ballot_sync(0xffffffffu, hi);
+        if (lane == 0) {
+          masks[warp] = m;
+          masks[2 + warp] = h;
+        }
+      }
+    };
+    // stage `stg`'s raw rows into the bf16 tile (K rows, then V) and its
+    // scales (k's times sl2). At hd = kHd a thread converts 8-byte chunks,
+    // a compile-time count of them in one unrolled block (so their shared
+    // loads overlap: a loop of dependent load-convert-store steps waits
+    // on each load), storing 16 bytes (a row's consecutive chunks go to
+    // consecutive banks); other head dims go a 32-bit word at a time.
+    auto convert = [&](const char* stg, unsigned long long hi) {
+      auto nib = [&](int r) { return (hi >> (r & (tc::kKeys - 1))) & 1ull; };
+      if (hd == kHd) {
+        constexpr int kChunks = kHd / 8;              // 8-byte chunks a row
+#pragma unroll
+        for (int i = 0; i < 2 * tc::kKeys * kChunks / kThreads; ++i) {
+          const int r = i * (kThreads / kChunks) + tid / kChunks;
+          const int c = tid % kChunks;
+          const uint2 w =
+              *reinterpret_cast<const uint2*>(stg + r * kHd + 8 * c);
+          const uint2 lo = int4x_to_bf16<TKV>(w.x, nib(r));
+          const uint2 up = int4x_to_bf16<TKV>(w.y, nib(r));
+          *reinterpret_cast<uint4*>(ring + r * tc::kLd + 8 * c) =
+              make_uint4(lo.x, lo.y, up.x, up.y);
+        }
+      } else {
+        const int words = hd >> 2;
+        for (int i = tid; i < 2 * tc::kKeys * words; i += kThreads) {
+          const int r = i / words, c = i - r * words;
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(stg + r * kHd + 4 * c);
+          *reinterpret_cast<uint2*>(ring + r * tc::kLd + 4 * c) =
+              int4x_to_bf16<TKV>(w, nib(r));
+        }
+      }
+      if (tid < tc::kKeys) {
+        const float* sc = reinterpret_cast<const float*>(stg + kRaw);
+        sk_t[tid] = sc[tid] * sl2;
+        sv_t[tid] = sc[tc::kKeys + tid];
+      }
+    };
+    load_tile(0);
+    tc::cp_commit();              // group 0: q and tile 0
+    for (int i = 1; i < kRawStages; ++i) {
+      if (i < n_tiles) load_tile(i);
+      tc::cp_commit();            // group i: tile i (or nothing)
+    }
+
+    for (int j = 0; j < n_tiles; ++j) {
+      cp_wait<kRawStages - 1>();  // tile j has landed
+      __syncthreads();            // and every warp is done with tile j - 1
+      const char* stg = raw + (j % kRawStages) * kStage;
+      const uint32_t* masks =
+          reinterpret_cast<const uint32_t*>(stg + kRaw) + 2 * tc::kKeys;
+      const unsigned long long live =
+          masks[0] | ((unsigned long long)masks[1] << 32);
+      const unsigned long long hi =
+          kPacked ? masks[2] | ((unsigned long long)masks[3] << 32) : 0ull;
+      convert(stg, hi);
+      __syncthreads();            // the tile is converted, its stage free
+      if (j + kRawStages < n_tiles) load_tile(j + kRawStages);
+      tc::cp_commit();
+      if (active) {
+        if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
+        const int t0 = k_lo + j * tc::kKeys;
+        const bool interior = live == ~0ull && t0 + tc::kKeys - 1 <= first;
+        tc::tile_step<T, kHd>(
+            qf, ring, ring + tc::kKeys * tc::kLd, st, sl2, interior, lane,
+            [&](int jj, int half) {
+              return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
+            },
+            tc::KeyScales{sk_t, sv_t});
+      }
+    }
   }
 
   st.finish();
@@ -914,18 +1115,35 @@ __global__ void __launch_bounds__(256) rpa_mixed_merge_kernel(Args a) {
 }
 
 // rpa_mixed_tc (then rpa_mixed_merge with more than one split): bf16 q
-// over bf16 pages, hd <= 128, rows of hd * 2 bytes in `vec`-byte pieces.
-int launch_mixed_tc(Args a, int vec, cudaStream_t stream) {
-  typedef void (*TcFn)(Args, int);
-  TcFn fn = a.hd > 64 ? &rpa_mixed_tc_kernel<128> : &rpa_mixed_tc_kernel<64>;
+// over bf16, int8 or packed int4 pages (kv dtype codes 1, 2, 3), hd <= 128,
+// rows of q and pages in `vec`-byte pieces.
+typedef void (*TcFn)(Args, int);
+template <typename TKV>
+void pick_mixed_tc(int hd, TcFn& fn, size_t& smem) {
+  if (hd > 64) {
+    fn = &rpa_mixed_tc_kernel<128, TKV>;
+    smem = mixed_smem<128, TKV>();
+  } else {
+    fn = &rpa_mixed_tc_kernel<64, TKV>;
+    smem = mixed_smem<64, TKV>();
+  }
+}
+
+int launch_mixed_tc(Args a, int kv_dtype, int vec, cudaStream_t stream) {
+  TcFn fn = nullptr;
+  size_t smem = 0;
+  if (kv_dtype == 1) pick_mixed_tc<__nv_bfloat16>(a.hd, fn, smem);
+  if (kv_dtype == 2) pick_mixed_tc<int8_t>(a.hd, fn, smem);
+  if (kv_dtype == 3) pick_mixed_tc<uint8_t>(a.hd, fn, smem);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMixSmem);
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   a.q_cols = kMixRows / (a.H / a.KV);
   const int n_q = (a.C + a.q_cols - 1) / a.q_cols;
   const dim3 grid(a.KV * n_q, a.B, a.splits);
-  fn<<<grid, kThreads, kMixSmem, stream>>>(a, vec);
+  fn<<<grid, kThreads, smem, stream>>>(a, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.part == nullptr) return (int)e;
   const unsigned blocks = tc::merge_blocks((size_t)a.B * a.C * a.H, a.hd);
@@ -1061,11 +1279,12 @@ int rpa_decode(const void* q, const void* k, const void* v, const float* sk,
 }
 
 // Mixed: q/out [B, C, H, hd], q_len [B]; scales and P as rpa_decode.
-// With tc set (bf16 q over bf16 pages, hd <= 128, rows and pointers 4-byte
-// aligned, else an error) it runs rpa_mixed_tc over `splits` splits of
-// `pps` table columns (splits * pps >= max_pages) and, with splits > 1,
-// rpa_mixed_merge, with `part` f32 scratch of splits * B * C * H * (hd + 2)
-// floats; without tc, rpa_cta, which ignores the three. Returns
+// With tc set (bf16 q over bf16, int8 or packed int4 pages, hd <= 128, q
+// and page rows and pointers 4-byte aligned, else an error) it runs
+// rpa_mixed_tc over `splits` splits of `pps` table columns (splits * pps
+// >= max_pages) and, with splits > 1, rpa_mixed_merge, with `part` f32
+// scratch of splits * B * C * H * (hd + 2) floats; without tc, rpa_cta,
+// which ignores the three. Returns
 // cudaGetLastError() of the launches.
 int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
               const float* sv, const int* table, const int* pos,
@@ -1077,18 +1296,20 @@ int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0) return 0;
   if (tc) {
+    const int elem = kv_dtype == 1 ? 2 : 1;    // bytes a page element
     const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                          (uintptr_t)(hd * 2);
+                          (uintptr_t)(hd * 2) | (uintptr_t)(hd * elem);
     int vec = 0;
     for (int w = 16; w >= 4 && vec == 0; w >>= 1)
       if (any % w == 0) vec = w;
-    if (q_dtype != 1 || kv_dtype != 1 || hd > 128 || vec == 0 || pps < 1 ||
+    if (q_dtype != 1 || kv_dtype < 1 || hd > 128 || vec == 0 || pps < 1 ||
         splits < 1 || splits > 65535 || (long long)pps * splits < max_pages ||
         (splits > 1) != (part != nullptr))
       return (int)cudaErrorInvalidValue;
     Args a{q, k, v, sk, sv, table, pos, q_len, out,
            B, C, H, KV, hd, P, N, max_pages, 0, scale, pps, splits, part};
-    return launch_mixed_tc(a, vec, static_cast<cudaStream_t>(stream));
+    return launch_mixed_tc(a, kv_dtype, vec,
+                           static_cast<cudaStream_t>(stream));
   }
   const int q_cols = kRows / (H / KV);
   Args a{q, k, v, sk, sv, table, pos, q_len, out,

@@ -20,7 +20,12 @@
 // log2 units). p is rounded to the value dtype in registers to feed p v,
 // as the Pallas kernels' p.astype(v.dtype), while l sums the f32 p. A
 // masked key gets p = 0 exactly; every staged key row is finite or a
-// zero pad, so no p meets a non-finite value.
+// zero pad, so no p meets a non-finite value. Over quantized pages
+// (rpa_mixed_tc over int8/int4) the K/V tiles hold the pages' exact
+// integers and KeyScales carries each key's scales: S is multiplied by
+// the key's k scale before the row max, and p by its v scale before it
+// is rounded for p v (l still sums the unscaled f32 p). NoScales, the
+// default, compiles to the unscaled step.
 //
 // Split partials: a CTA that covers only part of a row's keys writes its
 // f32 (m, l) and unnormalised acc; merge_split_stats folds the splits in
@@ -153,11 +158,12 @@ __device__ __forceinline__ void stage_rows(T* dst, int n_rows, int hd,
     one(i / pieces, i % pieces);
 }
 
-// Stage kKeys key rows of K into ks and of V into vs: off(r) is key row
-// r's element offset into k and v (the same in both), or -1 for a row to
-// zero-fill. A thread keeps one piece of the row across its rows when the
-// pieces divide the threads, so each row's offset is found once a thread.
-template <typename T, typename OffFn>
+// Stage kKeys key rows of K into ks and of V into vs (rows kDst elements
+// apart): off(r) is key row r's element offset into k and v (the same in
+// both), or -1 for a row to zero-fill. A thread keeps one piece of the row
+// across its rows when the pieces divide the threads, so each row's offset
+// is found once a thread.
+template <typename T, int kDst = kLd, typename OffFn>
 __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* k,
                                          const T* v, int hd, int vec,
                                          int nthreads, OffFn off) {
@@ -165,7 +171,7 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* k,
   auto one = [&](int r, int c, long long o) {
     const bool ok = o >= 0;
     const size_t at = ok ? (size_t)o : 0;
-    const int dst = r * kLd * (int)sizeof(T) + c * vec;
+    const int dst = r * kDst * (int)sizeof(T) + c * vec;
     cp_async(reinterpret_cast<char*>(ks) + dst,
              reinterpret_cast<const char*>(k + at) + c * vec, vec, ok);
     cp_async(reinterpret_cast<char*>(vs) + dst,
@@ -214,15 +220,36 @@ __device__ __forceinline__ void load_q(uint32_t (&qf)[kHd / 16][4],
                         (lane >> 4) * 8);
 }
 
+// Per-key scales of a tile (see above). NoScales: pages in the compute
+// dtype, nothing to scale.
+struct NoScales {
+  static constexpr bool kOn = false;
+};
+// KeyScales: sk[j] = key j's k scale times the softmax scale in log2
+// units (it replaces sl2), sv[j] its v scale; kKeys each, in shared memory.
+struct KeyScales {
+  static constexpr bool kOn = true;
+  const float* sk;
+  const float* sv;
+  __device__ __forceinline__ float2 k(int j) const {
+    return *reinterpret_cast<const float2*>(sk + j);
+  }
+  __device__ __forceinline__ float2 v(int j) const {
+    return *reinterpret_cast<const float2*>(sv + j);
+  }
+};
+
 // One key tile of the online softmax. ok(j, half) says whether key j of
 // the tile (0..63) is attended by this thread's row of that half; it is
 // not asked on an interior tile, every key of which every row attends.
-// sl2: the softmax scale times log2 e.
-template <typename T, int kHd, typename Ok>
+// sl2: the softmax scale times log2 e. sc: the keys' scales (KeyScales
+// over quantized pages).
+template <typename T, int kHd, typename Ok, typename Sc = NoScales>
 __device__ __forceinline__ void tile_step(const uint32_t (&qf)[kHd / 16][4],
                                           const T* ks, const T* vs,
                                           State<kHd>& st, float sl2,
-                                          bool interior, int lane, Ok ok) {
+                                          bool interior, int lane, Ok ok,
+                                          Sc sc = Sc()) {
   // S = q k^T: eight n-tiles of 8 keys
   float s[kKeys / 8][4];
 #pragma unroll
@@ -244,11 +271,18 @@ __device__ __forceinline__ void tile_step(const uint32_t (&qf)[kHd / 16][4],
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int n = 0; n < kKeys / 8; ++n) {
+    // the score scale of this thread's two keys of the n-tile
+    float f0 = sl2, f1 = sl2;
+    if constexpr (Sc::kOn) {
+      const float2 f = sc.k(n * 8 + 2 * (lane & 3));
+      f0 = f.x;
+      f1 = f.y;
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = n * 8 + 2 * (lane & 3) + (e & 1);
       const bool keep = interior || ok(j, e >> 1);
-      const float x = keep ? s[n][e] * sl2 : kNegInf;
+      const float x = keep ? s[n][e] * (e & 1 ? f1 : f0) : kNegInf;
       s[n][e] = x;
       if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
     }
@@ -282,9 +316,19 @@ __device__ __forceinline__ void tile_step(const uint32_t (&qf)[kHd / 16][4],
     st.o[n][3] *= al1;
   }
 
-  // O += p v: p from the score fragments, rounded to T; v by ldmatrix.trans
+  // O += p v: p from the score fragments (times each key's v scale over
+  // quantized pages), rounded to T; v by ldmatrix.trans
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
+    if constexpr (Sc::kOn) {
+      const float2 v0 = sc.v(kk * 16 + 2 * (lane & 3));
+      const float2 v1 = sc.v(kk * 16 + 8 + 2 * (lane & 3));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[2 * kk][e] *= e & 1 ? v0.y : v0.x;
+        s[2 * kk + 1][e] *= e & 1 ? v1.y : v1.x;
+      }
+    }
     const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
                             pack2<T>(s[2 * kk][2], s[2 * kk][3]),
                             pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),

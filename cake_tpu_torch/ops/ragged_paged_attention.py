@@ -30,10 +30,12 @@ run can show which path its attention took. The decode over every pool
 (f32/bf16, int8, nibble-packed int4) is two launches (`rpa_split`, then
 `rpa_merge`) counted as one call: its page loop is split across CTAs by
 `split_plan`, which the plain version follows. The mixed step over bf16
-queries and bf16 pages runs the tensor-core body `rpa_mixed_tc`, split
-by `mixed_split_plan` (plus `rpa_mixed_merge` when it splits), again one
-call; its plain version folds those splits over f32/bf16 pages. The
-other mixed pairs run the scalar `rpa_cta`, unsplit.
+queries and bf16, int8 or nibble-packed int4 pages runs the tensor-core
+body `rpa_mixed_tc`, split by `mixed_split_plan` (plus `rpa_mixed_merge`
+when it splits), again one call; its plain version folds those splits
+over every pool. The other mixed pairs (f32 queries or pages, head dim
+above 128, rows that are not 4-byte multiples) run the scalar `rpa_cta`,
+unsplit.
 """
 
 from __future__ import annotations
@@ -137,13 +139,18 @@ def mixed_split_plan(B: int, C: int, H: int, KV: int, hd: int,
 
 def mixed_takes_tc(q, pool_k, pool_v, scale_k=None) -> bool:
     """Whether rpa_mixed runs its tensor-core body (rpa_mixed_tc): bf16
-    queries over bf16 pages, head dim even and at most 128, q and the
-    pools 4-byte aligned. Every other pair runs rpa_cta, unsplit."""
+    queries over bf16 pages, or (with scales) over int8 or nibble-packed
+    int4 (uint8) pages; head dim at most 128; q and the pools 4-byte
+    aligned and their slot rows (hd elements of q's or the pool's type)
+    4-byte multiples, the least piece cp.async copies. Reads only dtypes,
+    shapes and pointers. Every other pair runs rpa_cta, unsplit."""
     hd = q.shape[-1]
-    aligned = (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()) % 4
-    return (scale_k is None and q.dtype == torch.bfloat16
-            and pool_k.dtype == torch.bfloat16 and hd <= 128
-            and hd % 2 == 0 and aligned == 0)
+    pages = ((torch.bfloat16,) if scale_k is None
+             else (torch.int8, torch.uint8))
+    aligned = (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()
+               | 2 * hd | hd * pool_k.element_size()) % 4
+    return (q.dtype == torch.bfloat16 and pool_k.dtype in pages
+            and hd <= 128 and aligned == 0)
 
 
 def kernel_name(base: str, scale_k=None, packed4: bool = False) -> str:
@@ -284,12 +291,13 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
             q, pool_k, pool_v, table, pos, q_len, scale=scale, **quant)
     _check_cuda_args(q, pool_k, pool_v, table, pos, q_len, **quant)
     N, rows, KV, _ = pool_k.shape
+    P = rows * (2 if packed4 else 1)          # real tokens a page
     max_pages = table.shape[1]
     out = torch.empty_like(q)
     tc = mixed_takes_tc(q, pool_k, pool_v, scale_k)
     splits, pps, part = 1, max(1, max_pages), None
     if tc:                      # rpa_mixed_tc (+ rpa_mixed_merge): f32 partials
-        splits, pps = mixed_split_plan(B, C, H, KV, hd, max_pages, rows,
+        splits, pps = mixed_split_plan(B, C, H, KV, hd, max_pages, P,
                                        sm_count(q.device))
         if splits > 1:
             part = torch.empty(splits * B * C * H * (hd + 2),
@@ -298,8 +306,8 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
     rc = lib.rpa_mixed(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         _ptr(scale_k), _ptr(scale_v), table.data_ptr(), pos.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), B, C, H, KV, hd,
-        rows * (2 if packed4 else 1), N, max_pages, float(scale),
+        q_len.data_ptr(), out.data_ptr(), B, C, H, KV, hd, P, N,
+        max_pages, float(scale),
         _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], int(tc), pps, splits,
         _ptr(part), torch.cuda.current_stream(q.device).cuda_stream)
     _launch(kernel_name("rpa_mixed", scale_k, packed4), rc)
@@ -406,10 +414,10 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
     package's `paged_attention_mixed` fold): query i of row b attends
     slot j*P + t iff <= pos[b] + i and its page is mapped. Columns
     >= q_len attend nothing and give zeros, as the kernel writes them
-    (so a stale slot past a row's last query is never read). Over
-    f32/bf16 pages the columns fold in the splits of `mixed_split_plan`,
-    whose stats then merge in split order, as the tensor-core kernel's
-    do."""
+    (so a stale slot past a row's last query is never read). The
+    columns fold in the splits of `mixed_split_plan` (planned with the
+    real page size P, also over packed int4 pages), whose stats then
+    merge in split order, as the tensor-core kernel's do."""
     _check_quant_args(scale_k, scale_v, packed4)
     LAUNCHES[kernel_name("rpa_mixed", scale_k, packed4) + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
@@ -424,9 +432,7 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
         return ok & mapped[:, None, None] & real[:, :, None]   # [B, C, P]
 
     KV = pool_k.shape[2]
-    pps = None
-    if scale_k is None:
-        _, pps = mixed_split_plan(B, C, q.shape[2], KV, q.shape[3],
-                                  table.shape[1], P, sm_count(q.device))
+    _, pps = mixed_split_plan(B, C, q.shape[2], KV, q.shape[3],
+                              table.shape[1], P, sm_count(q.device))
     out = _fold(q, read, KV, table, valid, scale, pps)
     return out.to(q.dtype)

@@ -22,7 +22,8 @@ Phases, in order (any failure exits non-zero):
             with the host-launched time beside them, the plain version's
             time, the bound and the yardstick SDPA timed the same way;
             every ragged kernel and the flash pair must give the same
-            bits twice.
+            bits twice; each mixed case logs the body it ran (the
+            tensor-core body or rpa_cta) and its split plan.
             More decode cases show the split body: B = 8 with one row
             at pos 8191 (64 table columns) over a bf16, an int8 and an
             int4 pool, B = 32 rows up to 2047 over bf16. Then
@@ -430,16 +431,21 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
                     [_sdpa_yardstick(torch, q, c, d, table, pos, ql)
                      for c, d in dpools],
                     nbytes, ops, again=kern(*args, **kw))
-                if name == "rpa_mixed" and hasattr(rpa, "mixed_split_plan"):
-                    tc = rpa.mixed_takes_tc(q, pk, pv, kw.get("scale_k"))
-                    plan = rpa.mixed_split_plan(
-                        *q.shape[:3], pk.shape[2], q.shape[3], table.shape[1],
-                        pk.shape[1], rpa.sm_count("cuda"))
-                    log(f"rpa_mixed {dname}: "
-                        + (f"tensor-core body, plan (splits, pages a split) "
-                           f"{plan}" if tc else "rpa_cta"))
+                if mixed and hasattr(rpa, "mixed_split_plan"):
+                    log(f"{name} {dname}: "
+                        + _mixed_body(rpa, q, pk, pv, kw, table.shape[1], P))
                 del kpools, dpools
     torch.cuda.empty_cache()
+
+
+def _mixed_body(rpa, q, pool_k, pool_v, kw, max_pages, P) -> str:
+    """Which body the package's mixed wrapper launches for these inputs,
+    and its split plan (planned with the real page size P)."""
+    if not rpa.mixed_takes_tc(q, pool_k, pool_v, kw.get("scale_k")):
+        return "rpa_cta"
+    plan = rpa.mixed_split_plan(*q.shape[:3], pool_k.shape[2], q.shape[3],
+                                max_pages, P, rpa.sm_count("cuda"))
+    return f"tensor-core body, plan (splits, pages a split) {plan}"
 
 
 def _split_cases(torch, rpa, only=None) -> None:
@@ -1506,13 +1512,21 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     engine.stop()
     gib = engine.cache.memory_bytes() / 2**30
     log(f"{label}: launches {counts}")
-    if kv_dtype is None and hasattr(rpa, "mixed_split_plan"):
-        plan = rpa.mixed_split_plan(
-            8, 64, cfg.num_attention_heads, cfg.num_key_value_heads,
-            cfg.head_dim, 2048 // 128, 128, rpa.sm_count("cuda"))
-        log(f"{label}: rpa_mixed over the bf16 pool runs the tensor-core "
-            f"body, plan (splits, pages a split) {plan} at B = 8, C = 64, "
-            "16 table columns")
+    suffix = {"int8": "_q8", "int4": "_q4"}.get(kv_dtype, "")
+    if hasattr(rpa, "mixed_split_plan"):
+        # the served shapes' mixed body, asked of the wrapper's gate on
+        # small tensors of the served dtypes
+        H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        store = {"int8": torch.int8, "int4": torch.uint8}.get(
+            kv_dtype, torch.bfloat16)
+        pool = torch.zeros((1, 64 if kv_dtype == "int4" else 128, KV, hd),
+                           dtype=store, device=dev)
+        kw = ({} if kv_dtype is None
+              else dict(scale_k=torch.ones((1, KV), device=dev)))
+        q = torch.zeros((8, 64, H, hd), dtype=torch.bfloat16, device=dev)
+        log(f"{label}: rpa_mixed{suffix} at B = 8, C = 64, 16 table "
+            f"columns: {_mixed_body(rpa, q, pool, pool, kw, 16, 128)}")
     for i, r in enumerate(results):
         log(f"{label} request {i}: {r}")
         if r is None or r.get("status") != 200:
@@ -1530,7 +1544,6 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
              f"{n_tok}")
     if engine._pager.free_pages != engine.cache.n_pages:
         fail(f"{label}: pages leaked after every request retired")
-    suffix = {"int8": "_q8", "int4": "_q4"}.get(kv_dtype, "")
     served = [b + suffix for b in ("rpa_decode", "rpa_mixed")]
     for k in served:
         if counts[k] <= 0:

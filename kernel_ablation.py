@@ -15,11 +15,15 @@ shapes, bf16: `flash_attn` causal over S = T = 1024, `flash_attn_cached`
 over S = 256 at pos 1280 of a 4096-slot cache, `rpa_decode` over the
 table's ragged decode case at two split lengths, `rpa_decode_q8` and
 `rpa_decode_q4` over the same case's int8 and int4 pools (the same split
-body), `rpa_mixed` over the table's mixed case. The unpatched build also times the two split bodies
-at other plans (`flash_attn_cached` at 4 and 8 warps a CTA and 1 to 6
-key splits; `rpa_mixed` unsplit and at its plan). A variant's outputs
-are wrong by design; only its time is read: the time a part removes is
-what that part costs. `--cases` keeps only the variants, cases and plan
+body), `rpa_mixed` over the table's mixed case, `rpa_mixed_q8` and
+`rpa_mixed_q4` over its int8 and int4 pools (the same tensor-core body,
+whose raw rows are converted to bf16 a stage at a time; one variant
+drops that conversion pass, another gives its raw ring three stages).
+The unpatched build also times the two split bodies at other plans
+(`flash_attn_cached` at 4 and 8 warps a CTA and 1 to 6 key splits; the
+three mixed kernels unsplit and at their plan). A variant's outputs are
+wrong by design; only its time is read: the time a part removes is what
+that part costs. `--cases` keeps only the variants, cases and plan
 sweeps of the kernels it names (and builds only those libraries).
 Imports nothing of JAX or `cake_tpu`; needs one NVIDIA card.
 """
@@ -40,30 +44,39 @@ FA, RPA, TC = "flash_attention.cu", "ragged_paged_attention.cu", \
     "tc_attention.cuh"
 # the three decode kernels: one split body over bf16, int8 and int4 pages
 RPA_DECODES = ("rpa_decode", "rpa_decode_q8", "rpa_decode_q4")
+# the three mixed kernels: one tensor-core body over bf16, int8 and int4
+RPA_MIXED = ("rpa_mixed", "rpa_mixed_q8", "rpa_mixed_q4")
+RPA_MIXED_Q = RPA_MIXED[1:]
+TC_CASES = ("flash_attn", "flash_attn_cached") + RPA_MIXED
 LOOP_LOADS = ("    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);",
               "")
 # variant -> ({file: [(text, replacement), ...]}, cases timed); {} = as is
 VARIANTS = {
-    "as is": ({}, ("flash_attn", "flash_attn_cached", "rpa_decode",
-                   "rpa_decode_q8", "rpa_decode_q4", "rpa_mixed")),
+    "as is": ({}, ("flash_attn", "flash_attn_cached") + RPA_DECODES
+              + RPA_MIXED),
     "tc: without the p.v mma": ({TC: [
         ("mma16816<T>(st.o[2 * np], pa, bv[np][0], bv[np][1]);", ""),
         ("mma16816<T>(st.o[2 * np + 1], pa, bv[np][2], bv[np][3]);", "")]},
-        ("flash_attn", "flash_attn_cached", "rpa_mixed")),
+        TC_CASES),
     "tc: without the q.k mma": ({TC: [
         ("mma16816<T>(s[2 * np], qf[kk], bk[np][0], bk[np][1]);", ""),
         ("mma16816<T>(s[2 * np + 1], qf[kk], bk[np][2], bk[np][3]);", "")]},
-        ("flash_attn", "flash_attn_cached", "rpa_mixed")),
-    "tc: without the loop's loads": ({FA: [LOOP_LOADS], RPA: [LOOP_LOADS]},
-                                     ("flash_attn", "flash_attn_cached",
-                                      "rpa_mixed")),
+        TC_CASES),
+    "tc: without the loop's loads": ({FA: [LOOP_LOADS], RPA: [
+        LOOP_LOADS,
+        ("      if (j + kRawStages < n_tiles) load_tile(j + kRawStages);",
+         "")]}, TC_CASES),
     "tc: without exp2f": ({TC: [
         ("exp2f(x - (e < 2 ? mn0 : mn1))", "(x - (e < 2 ? mn0 : mn1))")]},
-        ("flash_attn", "flash_attn_cached", "rpa_mixed")),
+        TC_CASES),
     "tc: without the mask": ({TC: [
         ("const bool keep = interior || ok(j, e >> 1);",
-         "const bool keep = true || ok(j, e >> 1);")]},
-        ("flash_attn", "flash_attn_cached", "rpa_mixed")),
+         "const bool keep = true || ok(j, e >> 1);")]}, TC_CASES),
+    "rpa_mixed_q: without the int -> bf16 conversion pass": ({RPA: [
+        ("      convert(stg, hi);", "")]}, RPA_MIXED_Q),
+    "rpa_mixed_q: three raw stages": ({RPA: [
+        ("constexpr int kRawStages = 2;", "constexpr int kRawStages = 3;")]},
+        RPA_MIXED_Q),
     "flash_attn_cached: merge launch only": ({FA: [
         ("    body<<<grid, 32 * warps, smem, stream>>>(a, vec);", "")]},
         ("flash_attn_cached",)),
@@ -71,11 +84,11 @@ VARIANTS = {
         ("    merge<<<blocks, 256, 0, stream>>>(a);", "")]},
         ("flash_attn_cached",)),
     "rpa_mixed: merge launch only": ({RPA: [
-        ("  fn<<<grid, kThreads, kMixSmem, stream>>>(a, vec);", "")]},
-        ("rpa_mixed",)),
+        ("  fn<<<grid, kThreads, smem, stream>>>(a, vec);", "")]},
+        RPA_MIXED),
     "rpa_mixed: split launch only": ({RPA: [
         ("  rpa_mixed_merge_kernel<<<blocks, 256, 0, stream>>>(a);", "")]},
-        ("rpa_mixed",)),
+        RPA_MIXED),
     "rpa_decode: without the tile's compute": ({RPA: [
         ("if (nu > 0)                    // warp-uniform", "if (nu < 0)"),
         ("if (kPacked && nu_hi > 0)", "if (false)")]}, RPA_DECODES),
@@ -192,9 +205,12 @@ def main(argv=None) -> int:
     mix = cs._kernel_case(torch, torch.bfloat16,
                           torch.Generator(device="cuda").manual_seed(1234),
                           True, None)[:6]
-    q8, q4 = (cs._kernel_case(torch, torch.bfloat16,
-                              torch.Generator(device="cuda").manual_seed(1234),
-                              False, fmt) for fmt in ("int8", "int4"))
+    q8, q4, m8, m4 = (
+        cs._kernel_case(torch, torch.bfloat16,
+                        torch.Generator(device="cuda").manual_seed(1234),
+                        mixed, fmt)
+        for mixed, fmt in ((False, "int8"), (False, "int4"), (True, "int8"),
+                           (True, "int4")))
     calls = {
         "flash_attn": lambda: fa.flash_attention(q, k, v),
         "flash_attn_cached": lambda: fa.flash_attention_cached(cq, ck, cv,
@@ -205,6 +221,10 @@ def main(argv=None) -> int:
                                                             **q8[6]),
         "rpa_decode_q4": lambda: rpa.ragged_paged_attention(*q4[:5],
                                                             **q4[6]),
+        "rpa_mixed_q8": lambda: rpa.ragged_paged_attention_mixed(*m8[:6],
+                                                                 **m8[6]),
+        "rpa_mixed_q4": lambda: rpa.ragged_paged_attention_mixed(*m4[:6],
+                                                                 **m4[6]),
     }
 
     def timed(label, case):
@@ -241,11 +261,11 @@ def main(argv=None) -> int:
                     timed(f"as is, flash_attn_cached at {warps} warps and "
                           f"{n} key splits", "flash_attn_cached")
             fa.CACHED_WARPS, fa.flash_split_plan = warps0, plan
-        if "rpa_mixed" in cases:
+        for case in (c for c in RPA_MIXED if c in cases):
             for label, fn in (("unsplit", lambda *a: (1, a[5])),
                               ("at its plan", mixed_plan)):
                 rpa.mixed_split_plan = fn
-                timed(f"as is, rpa_mixed {label}", "rpa_mixed")
+                timed(f"as is, {case} {label}", case)
             rpa.mixed_split_plan = mixed_plan
     return 0
 

@@ -693,15 +693,90 @@ def test_quant_mixed_plain_matches_jax_kernel_gqa(fmt, H, KV):
     _q_parity(fmt, q, pk, pv, table, pos, qlen)
 
 
+# chunk and decode rows around the split boundaries of a 6-column table
+# over quantized pages at G = 2 (P = 8, so an int4 page's high nibbles hold
+# its slots 4..7): -1 holes on both sides of the boundary at column 3; a
+# 7-column chunk from slot 18 straddling page 2's P/2 (slot 20) and the
+# page (and split) edge at slot 24; a row whose first three columns (its
+# whole first split at every grouping) are unmapped; an idle row; a decode
+# row on the first slot past the boundary; a dead row
+QMIXED_SPLIT_TABLE = [[3, 6, -1, -1, 5, 1], [4, 11, 7, 8, 2, 9],
+                      [-1, -1, -1, 10, 2, 9], [5, 2, 8, 11, 0, 6],
+                      [9, 10, 4, 7, 3, 1], [-1, -1, -1, -1, -1, -1]]
+QMIXED_SPLIT_POS = [4 * P + 2, 2 * P + 2, 4 * P + 1, 3 * P - 1, 3 * P, P + 1]
+QMIXED_SPLIT_QLEN = [5, 7, 3, 0, 1, 2]
+
+
+@pytest.mark.parametrize("n_sm,pps", [(132, 1), (18, 2), (12, 3)])
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_mixed_plain_matches_jax_kernel_split_boundaries(monkeypatch,
+                                                               fmt, n_sm,
+                                                               pps):
+    """The mixed plain version over int8 (q8) and packed int4 (q4) pages
+    folds the splits of mixed_split_plan, planned with the real page size,
+    and merges them in order; at every grouping it agrees with the JAX
+    kernel (`_rpa_mixed_kernel_q8` / `_q4` in interpret mode; f32, the
+    file's tolerance) on the real columns, and padding columns, the idle
+    and the dead row are exactly zero."""
+    monkeypatch.setattr(rpa, "CPU_SM_COUNT", n_sm)
+    monkeypatch.setattr(rpa, "MIXED_MIN_SLOTS", P)
+    table = np.asarray(QMIXED_SPLIT_TABLE, np.int32)
+    pos = np.asarray(QMIXED_SPLIT_POS, np.int32)
+    qlen = np.asarray(QMIXED_SPLIT_QLEN, np.int32)
+    C = 7
+    assert rpa.mixed_split_plan(len(pos), C, 4, 2, 16, table.shape[1], P,
+                                n_sm)[1] == pps
+    rng = np.random.default_rng(50 + pps)
+    pk, pv = _qpools(rng, fmt, KV=2, hd=16)
+    q = rng.normal(size=(len(pos), C, 4, 16)).astype(np.float32)
+    got = _q_parity(fmt, q, pk, pv, table, pos, qlen)
+    assert not got[3].any() and not got[5].any()
+
+
+# (q dtype, page dtype, head dim, byte offset of the pools) -> whether
+# rpa_mixed runs the tensor-core body
+TC_GATE = {
+    "bf16_pages": ("bfloat16", "bfloat16", 128, 0, True),
+    "int8_pages": ("bfloat16", "int8", 128, 0, True),
+    "int4_pages": ("bfloat16", "uint8", 128, 0, True),
+    "int8_hd_20": ("bfloat16", "int8", 20, 0, True),
+    "f32_q_int8": ("float32", "int8", 128, 0, False),
+    "f32_q_int4": ("float32", "uint8", 128, 0, False),
+    "int8_hd_256": ("bfloat16", "int8", 256, 0, False),
+    "int4_hd_256": ("bfloat16", "uint8", 256, 0, False),
+    "int8_rows_18_bytes": ("bfloat16", "int8", 18, 0, False),
+    "int4_rows_6_bytes": ("bfloat16", "uint8", 6, 0, False),
+    "int8_pool_at_2_bytes": ("bfloat16", "int8", 128, 2, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_GATE))
+def test_mixed_takes_tc_gate(case):
+    """The tensor-core gate reads only dtypes, shapes and pointers (CPU
+    tensors here): bf16 queries over bf16, int8 and packed int4 pages
+    with hd <= 128 and 4-byte aligned rows take rpa_mixed_tc; f32
+    queries over quantized pages, hd > 128, page rows that are not
+    4-byte multiples and pools off a 4-byte boundary keep rpa_cta."""
+    qdt, pdt, hd, off, want = TC_GATE[case]
+    q = torch.zeros((2, 3, 4, hd), dtype=getattr(torch, qdt))
+    n = 5 * 4 * 2 * hd
+    buf = torch.zeros(n + off, dtype=getattr(torch, pdt))
+    pool = buf[off:].view(5, 4, 2, hd)
+    scale = None if pdt == "bfloat16" else torch.ones((5, 2))
+    assert (pool.data_ptr() % 4 == 0) == (off == 0)
+    assert rpa.mixed_takes_tc(q, pool, pool, scale) is want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_quant_kernels_match_plain_versions(dtype):
     """The four quantized CUDA kernels (int8 and int4 pages, decode and
     mixed) against their plain versions on the card, at 128-token pages
     with a hole and a dead row. f32 queries: atol 1e-4 (summation
-    order); bf16 queries: atol/rtol 2e-2 (the plain version also rounds
-    the dequantized K/V and p to bf16, as the JAX fold does; the kernel
-    keeps them in f32)."""
+    order); bf16 queries: atol/rtol 2e-2 (the plain version rounds the
+    dequantized K/V and p to bf16, as the JAX fold does; the decode
+    kernel keeps them in f32, and the mixed kernel, the tensor-core body,
+    keeps K/V exact and rounds p times the v scale to bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
                     "or interpret mode")
@@ -748,6 +823,108 @@ def test_cuda_quant_kernels_match_plain_versions(dtype):
         with pytest.raises(ValueError, match="pool dtype"):
             rpa.ragged_paged_attention(q1, kq.float(), vq.float(), table,
                                        pos, **kw)
+
+
+def _mixed_tc_qinputs(g, P, H, KV, hd, fmt, C=64):
+    """((q, pool_k, pool_v, table, pos, q_len), scale kwargs): the
+    MIXED_TC rows at bf16 over an int8 (q8) or packed int4 (q4) pool
+    written by the port's qwrite_prompt_pages from normal draws. Page 0
+    is in no table and its k and v scales are NaN, so a -1 read as page
+    0 would show."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        Int4Pool, QuantPool, qwrite_prompt_pages,
+    )
+    pos_l, ql = MIXED_TC_POS(P), MIXED_TC_QLEN
+    B = len(pos_l)
+    MP = -(-(2048 + C) // P)
+    N = B * MP + 4
+    packed = fmt == "q4"
+    cls, store, rows = ((Int4Pool, torch.uint8, P // 2) if packed
+                        else (QuantPool, torch.int8, P))
+    every = torch.arange(N, dtype=torch.int32, device="cuda")
+    pools = []
+    for _ in range(2):
+        pool = cls(torch.zeros((N, rows, KV, hd), dtype=store,
+                               device="cuda"),
+                   torch.zeros((N, KV), device="cuda"))
+        vals = torch.randn((1, N * P, KV, hd), generator=g, device="cuda")
+        pools.append(qwrite_prompt_pages(pool, vals, every))
+    (pk, sk), (pv, sv) = pools
+    sk[0] = float("nan")
+    sv[0] = float("nan")
+    table = (torch.randperm(N - 1, generator=g, device="cuda")[:B * MP]
+             + 1).to(torch.int32).reshape(B, MP).contiguous()
+    table[3, 1] = -1                 # an unmapped hole inside a chunk's range
+    table[4] = -1                    # a dead row
+    q = torch.randn((B, C, H, hd), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    qlen = torch.tensor(ql, dtype=torch.int32, device="cuda")
+    return (q, pk, pv, table, pos, qlen), dict(scale_k=sk, scale_v=sv,
+                                               packed4=packed)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_mixed_tensor_core_body_matches_plain():
+    """rpa_mixed_q8 / rpa_mixed_q4 over bf16 queries run rpa_mixed_tc
+    (raw int8 / packed int4 rows converted to exact bf16 integers in
+    shared memory, scales applied per key on the fragments, split by
+    pages and merged in order): against their plain versions (atol/rtol
+    2e-2: p times the v scale rounded to bf16 before p v, the plain
+    version's K/V rounded to bf16, output rounding) for every
+    MIXED_TC_CASES pair and a head dim of 20 (zero-padded columns), with
+    page 0's scales NaN and page 0 in no table; padding columns, the
+    idle and the dead row exactly zero; two launches give the same bits;
+    one call counts one launch; a call captured in a CUDA graph replays
+    to the same bits. f32 queries over an int8 pool, hd 256 and rows of
+    18 bytes still take rpa_cta and match at their tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "or interpret mode")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for fmt in QFORMATS:
+        name = f"rpa_mixed_{fmt}"
+        for P, H, KV, hd in MIXED_TC_CASES + [(16, 8, 2, 20)]:
+            args, kw = _mixed_tc_qinputs(g, P, H, KV, hd, fmt)
+            q, pk, pv, table = args[:4]
+            assert rpa.mixed_takes_tc(q, pk, pv, kw["scale_k"])
+            B, C = q.shape[:2]
+            splits, _ = rpa.mixed_split_plan(B, C, H, KV, hd, table.shape[1],
+                                             P, rpa.sm_count("cuda"))
+            assert splits > 1
+            rpa.reset_launch_counts()
+            got = rpa.ragged_paged_attention_mixed(*args, **kw)
+            again = rpa.ragged_paged_attention_mixed(*args, **kw)
+            torch.cuda.synchronize()
+            assert rpa.LAUNCHES[name] == 2
+            want = rpa.ragged_paged_attention_mixed_plain(*args, **kw)
+            assert torch.isfinite(got.float()).all()
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+            assert torch.equal(got, again)
+            for b, n in enumerate(MIXED_TC_QLEN):
+                assert not got[b, n:].any()
+            assert not got[4].any()
+        eager, replayed = _graph_replay(
+            lambda: rpa.ragged_paged_attention_mixed(*args, **kw))
+        assert torch.equal(eager, replayed)
+    # f32 q over an int8 pool, hd 256 and 18-byte rows keep rpa_cta
+    for P, H, KV, hd, fmt, f32 in ((16, 32, 8, 128, "q8", True),
+                                   (128, 16, 4, 256, "q8", False),
+                                   (16, 8, 2, 18, "q8", False),
+                                   (16, 8, 2, 18, "q4", False)):
+        args, kw = _mixed_tc_qinputs(g, P, H, KV, hd, fmt)
+        if f32:
+            args = (args[0].float(),) + args[1:]
+        assert not rpa.mixed_takes_tc(*args[:3], kw["scale_k"])
+        rpa.reset_launch_counts()
+        got = rpa.ragged_paged_attention_mixed(*args, **kw)
+        want = rpa.ragged_paged_attention_mixed_plain(*args, **kw)
+        assert rpa.LAUNCHES[f"rpa_mixed_{fmt}"] == 1
+        tol = dict(atol=1e-4, rtol=0.0) if f32 else dict(atol=2e-2,
+                                                         rtol=2e-2)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert not got[4].any() and not got[0].any()
 
 
 @pytest.mark.cuda
