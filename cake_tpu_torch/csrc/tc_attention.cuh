@@ -1,5 +1,7 @@
 // Tensor-core attention pieces shared by flash_tc (flash_attention.cu) and
-// rpa_mixed_tc (ragged_paged_attention.cu), for Hopper (sm_90a).
+// rpa_mixed_tc (ragged_paged_attention.cu), for Hopper (sm_90a); the
+// int4 matmul's tensor-core body (int4_matmul.cu) uses the cp.async,
+// ldmatrix and mma.sync wrappers.
 //
 // A CTA holds up to 16 * warps query rows, 16 a warp, and walks keys in
 // tiles of kKeys = 64 staged in shared memory by cp.async through a ring
@@ -85,6 +87,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {

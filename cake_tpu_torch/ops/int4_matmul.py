@@ -6,6 +6,11 @@ Counterpart of `cake_tpu/ops/int4_matmul.py` (`pack_int4`, `unpack_int4`,
 On the card the product runs as hand-written CUDA C++ for Hopper
 (`csrc/int4_matmul.cu`), compiled with nvcc for sm_90a at first use into
 `cake_tpu_torch/_build/` and bound with ctypes (utils/cuda_build.py).
+One launch a product: bf16/f16 x runs the tensor-core body (`takes_tc`),
+f32 x the CUDA-core body; both cut the group axis into the ranks of a
+thread-block cluster (`split_plan`) that sum their partials in rank order
+over the cluster's shared memory, so no scratch is allocated and the same
+inputs give the same bits.
 
 Storage layout ("group-halves", produced by ops.quant.quantize_group): a
 weight [In, Out] is grouped into G = In/g row groups; within group gi,
@@ -32,6 +37,7 @@ import ctypes
 import torch
 
 from cake_tpu_torch.utils.cuda_build import CudaLibrary
+from cake_tpu_torch.utils.devices import device_sm_count
 
 # decode/matvec shapes only; larger M takes the dequantize route
 MAX_KERNEL_M = 64
@@ -40,13 +46,18 @@ KERNELS = ("int4_matmul",)
 LAUNCHES = {"int4_matmul": 0, "int4_matmul_plain": 0}
 
 # the kernel's limits and tiling (csrc/int4_matmul.cu: kMaxGroup, kMaxM,
-# kMTile, kColsPerBlock, kChunk; its launcher refuses a shape beyond them)
+# kTcCols / kColsPerBlock, kMTile, kChunk, kMaxSplits; its launcher
+# refuses a shape or plan beyond them)
 MAX_GROUP = 256
+COLS_PER_CTA = 256
 M_TILE = 8
-COLS_PER_BLOCK = 256
 OUT_MULTIPLE = 16
-# blocks the split over the group axis aims at: two on each of the 132 SMs
-TARGET_BLOCKS = 264
+MAX_SPLITS = 16         # CTAs of a cluster (Hopper's largest)
+# the tensor-core body takes bf16/f16 x with g a multiple of TC_GROUP_MULTIPLE
+# (a k16 step is eight packed rows) and at least TC_MIN_M rows; f32 x and
+# the rest run the CUDA-core body (one row of x: the faster on an H100)
+TC_GROUP_MULTIPLE = 16
+TC_MIN_M = 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -57,7 +68,7 @@ def reset_launch_counts() -> None:
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int4_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.int4_matmul.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.int4_matmul.restype = i
 
 
@@ -106,15 +117,39 @@ def kernel_supported(m: int, in_dim: int, g: int, out: int) -> bool:
             and out >= OUT_MULTIPLE and out % OUT_MULTIPLE == 0)
 
 
-def split_groups(m: int, n_groups: int, out: int) -> int:
-    """How many blocks share one output tile's walk over the group axis.
-    Output tiles alone (COLS_PER_BLOCK columns by M_TILE rows) are too
-    few to fill the card at decode shapes, so the group axis is cut into
-    this many contiguous ranges, each a block writing an f32 partial
-    that a second kernel sums in range order (no float atomics: the same
-    inputs give the same bits). 1 = the blocks write the output itself."""
-    tiles = -(-out // COLS_PER_BLOCK) * -(-m // M_TILE)
-    want = max(1, min(n_groups, -(-TARGET_BLOCKS // tiles)))
+def takes_tc(m: int, g: int, dtype: torch.dtype) -> bool:
+    """Whether a product runs the tensor-core body (bf16/f16 x, g a
+    multiple of TC_GROUP_MULTIPLE, m >= TC_MIN_M) rather than the
+    CUDA-core body (f32 x: tensor cores would round x to tf32). Shapes and
+    dtype only."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and g % TC_GROUP_MULTIPLE == 0 and m >= TC_MIN_M)
+
+
+def ctas_per_sm(m: int, tc: bool) -> int:
+    """CTAs of a body one SM holds at once at g = 128 (shared memory and
+    registers, csrc/int4_matmul.cu): two of the CUDA-core body and of the
+    tensor-core body up to 32 rows; one past 32 (256 threads of 192
+    registers)."""
+    return 1 if tc and m > 32 else 2
+
+
+def split_plan(m: int, n_groups: int, out: int, tc: bool, n_sm: int) -> int:
+    """How many CTAs share one output tile's walk over the group axis:
+    the ranks of one thread-block cluster, at most MAX_SPLITS. Output tiles
+    alone (COLS_PER_CTA columns; the CUDA-core body also tiles M by
+    M_TILE) are too few CTAs to fill the card at decode shapes, so the
+    group axis is cut into as many contiguous ranges as keep every CTA
+    resident at once (`ctas_per_sm` on each of n_sm SMs: a second wave
+    would double the time of the CTAs in it); the ranks sum their
+    partials over the cluster's shared memory in rank order (no float
+    atomics: the same inputs give the same bits). Range r covers groups
+    [r * per, min(n_groups, (r + 1) * per)), per = ceil(n_groups /
+    splits), and no range is empty. Shapes and the SM count only, so a
+    call captures into a CUDA graph."""
+    tiles = -(-out // COLS_PER_CTA) * (1 if tc else -(-m // M_TILE))
+    fit = ctas_per_sm(m, tc) * n_sm // tiles
+    want = max(1, min(MAX_SPLITS, n_groups, fit))
     per = -(-n_groups // want)
     return -(-n_groups // per)        # no empty range
 
@@ -171,25 +206,25 @@ def _current_stream(device) -> int:
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 *, g: int) -> torch.Tensor:
     """x [M, In] @ packed-int4 [In/2, Out] with group scales [G, Out];
-    f32 accumulation; returns [M, Out] in x.dtype."""
+    f32 accumulation; returns [M, Out] in x.dtype. On the card: one launch
+    (`takes_tc` picks the body, `split_plan` the cluster)."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scale, g=g)
     M, In, Out = _check_shapes(x, packed, scale, g)
     _check_cuda_args(x, packed, scale, g, M, In, Out)
     x = x.contiguous()           # a row sliced out of [B, S, D] is strided
+    if x.data_ptr() % 16:        # ... or starts off a 16-byte boundary
+        x = x.clone()
     p_ptr, s_ptr = packed.data_ptr(), scale.data_ptr()
     if p_ptr % 16 or s_ptr % 16:
         raise ValueError("int4_matmul: packed and scale must be 16-byte "
                          "aligned (the kernel copies 16-byte pieces)")
-    splits = split_groups(M, In // g, Out)
+    tc = takes_tc(M, g, x.dtype)
+    splits = split_plan(M, In // g, Out, tc, device_sm_count(x.device))
     out = torch.empty((M, Out), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, M, Out), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     rc = LIBRARY.get().int4_matmul(
-        x.data_ptr(), p_ptr, s_ptr, out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        M, In, Out, g, splits, _DTYPE_CODES[x.dtype],
-        _current_stream(x.device))
+        x.data_ptr(), p_ptr, s_ptr, out.data_ptr(), M, In, Out, g, splits,
+        _DTYPE_CODES[x.dtype], int(tc), _current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"int4_matmul launch failed: CUDA error {rc}")
     LAUNCHES["int4_matmul"] += 1

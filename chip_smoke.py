@@ -28,10 +28,14 @@ Phases, in order (any failure exits non-zero):
             at pos 8191 (64 table columns) over a bf16, an int8 and an
             int4 pool, B = 32 rows up to 2047 over bf16. Then
             the int4 matmul against its plain version at the four
-            Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x,
-            weights from quantize_group of seeded normals, plus a
-            tiny-config shape; its yardstick is torch.matmul over the
-            weight dequantized ahead of time.
+            Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x
+            (and f16 over w_gate/w_up, the table's row), weights from
+            quantize_group of seeded normals, plus a tiny-config shape:
+            one launch counted a product, the same bits twice, the body
+            and cluster plan logged; its yardstick is torch.matmul over
+            the weight dequantized ahead of time. The kernels line
+            carries M = 1 in row 9's numbers and M = 8 and 64 beside
+            them ("m8", "m64").
   step      at Llama-3-8B width (2 layers, f32 weights), kernel vs plain:
             mixed_step_paged + decode_step_ragged_paged logits and pools
             over f32, int8 and int4 pools; dense prefill, prefill_chunk
@@ -54,7 +58,8 @@ Phases, in order (any failure exits non-zero):
             bf16 pool, then --kv-dtype int8, then int4; each run's two
             ragged kernels must have run and no plain fold. Then the
             int4 weights over the bf16 pool: 224 int4_matmul launches
-            per decode step.
+            per decode step (with --profile, their launches and device
+            time).
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -75,7 +80,8 @@ import urllib.request
 
 PHASES = ("device", "kernels", "step", "generate", "serve")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # FMA-pipe f32; bf16 TC
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
+            "float16": 989e12}
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "rpa_decode": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -604,16 +610,20 @@ def _flash_kernels(torch, fa, report, only=None) -> None:
 
 
 # (In, Out) of the Llama-3-8B block weights: wq/wo, wk/wv, w_gate/w_up,
-# w_down; g = 128. The kernel table reports w_gate/w_up at M = 1 (the
-# generator's decode step)
+# w_down; g = 128. The kernel table reports w_gate/w_up (INT4_MAIN) at
+# each of INT4_MS
 INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
-INT4_MAIN = (1, 4096, 14336)
+INT4_MAIN = (4096, 14336)
 # int4_matmul against its plain version: the same products summed in f32
-# in another order (for bf16 x every product is exact in f32), so at f32
-# the difference stays under 1e-5 of the largest output; at bf16 the two
-# f32 sums round to bf16 apart by at most one unit, 2^-7 relative
+# in another order (for bf16 and f16 x every product is exact in f32), so
+# at f32 the difference stays under 1e-5 of the largest output; at bf16 and
+# f16 the two f32 sums round apart by at most one unit, 2^-7 and 2^-10
+# relative
 INT4_ATOL_OF_MAX = 1e-5
-INT4_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+INT4_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# the M of the kernel table's row 9: the generator's decode step, the served
+# decode launch, the largest the gate takes
+INT4_MS = (1, 8, 64)
 
 
 def _stream_ms(torch, fns, reps: int = 30, rounds: int = 5):
@@ -667,11 +677,24 @@ def _copies(t, nbytes: int):
     return [t] + [t.clone() for _ in range(n - 1)]
 
 
+def _int4_plan(torch, i4, M, In, Out, g, dtype) -> str:
+    """The body and split plan a product runs (a tree without the
+    tensor-core body says so)."""
+    if not hasattr(i4, "split_plan"):
+        return "CUDA-core body, split + sum kernel"
+    from cake_tpu_torch.utils.devices import device_sm_count
+
+    tc = i4.takes_tc(M, g, dtype)
+    s = i4.split_plan(M, In // g, Out, tc, device_sm_count("cuda"))
+    return (f"{'tensor-core' if tc else 'CUDA-core'} body, clusters of "
+            f"{s} over {In // g} groups")
+
+
 def _int4_kernels(torch, i4, report) -> None:
     from cake_tpu_torch.ops.quant import group_size, quantize_group
 
     gen = torch.Generator(device="cuda").manual_seed(99)
-    shapes = [(m, i, o) for (i, o) in INT4_SHAPES for m in (1, 8, 64)]
+    shapes = [(m, i, o) for (i, o) in INT4_SHAPES for m in INT4_MS]
     shapes.append((2, 64, 32))         # the tiny config's wk/wv, g = 64
     weights = {}
     for M, In, Out in shapes:
@@ -681,14 +704,21 @@ def _int4_kernels(torch, i4, report) -> None:
             del w
         qt = weights[(In, Out)]
         g = group_size(qt)
-        for dtype in (torch.float32, torch.bfloat16):
+        main = (In, Out) == INT4_MAIN
+        dtypes = (torch.float32, torch.bfloat16) + ((torch.float16,)
+                                                    if main else ())
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             x = torch.randn((M, In), generator=gen, device="cuda").to(dtype)
+            n0 = i4.LAUNCHES["int4_matmul"]
             got = i4.int4_matmul(x, qt.q, qt.scale, g=g)
+            launches = i4.LAUNCHES["int4_matmul"] - n0
             again = i4.int4_matmul(x, qt.q, qt.scale, g=g)
             want = i4.int4_matmul_plain(x, qt.q, qt.scale, g=g)
             torch.cuda.synchronize()
             label = f"int4_matmul M={M} In={In} Out={Out} g={g} {dname}"
+            if launches != 1:
+                fail(f"{label}: {launches} launches counted for one product")
             if not torch.isfinite(got.float()).all():
                 fail(f"{label}: non-finite output")
             if not torch.equal(got, again):
@@ -699,8 +729,10 @@ def _int4_kernels(torch, i4, report) -> None:
                                   rtol=INT4_RTOL[dname]):
                 fail(f"{label}: max |kernel - plain| = {err:.3e} over "
                      f"atol {atol:.3e} rtol {INT4_RTOL[dname]}")
+            plan = _int4_plan(torch, i4, M, In, Out, g, dtype)
             if In < 1024:
-                log(f"{label}: max_abs_err {err:.3e} (atol {atol:.3e})")
+                log(f"{label}: max_abs_err {err:.3e} (atol {atol:.3e}); "
+                    f"{plan}")
                 continue
             wbytes = qt.q.numel() + 4 * qt.scale.numel()
             nbytes = wbytes + (M * In + M * Out) * x.element_size()
@@ -733,39 +765,53 @@ def _int4_kernels(torch, i4, report) -> None:
                 f"eager), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms matmul of "
                 f"the dequantized weight ({lib_eager_ms:.4f} eager), bound "
                 f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {nbytes} B, "
-                f"{ops} ops)")
-            if (M, In, Out) == INT4_MAIN:
-                report[("int4_matmul", dname)] = rec
+                f"{ops} ops), x{ms / rec['bound_ms']:.1f} bound; {plan}")
+            if main:
+                report[("int4_matmul", dname, M)] = rec
     torch.cuda.empty_cache()
 
 
-def int4_sweep(torch, i4, targets) -> None:
-    """Device time of int4_matmul (graph replay, bf16 x, M = 1 and 8) at
-    the four Llama-3-8B weight shapes for each value of TARGET_BLOCKS,
-    the block count its split over the group axis aims at."""
+def int4_sweep(torch, i4, splits) -> None:
+    """Device time of int4_matmul (graph replay, bf16 x, each of INT4_MS)
+    at the four Llama-3-8B weight shapes: the plan's own clusters, then
+    each cluster size in `splits` (cut to one with no empty range); at
+    M = 1 for both bodies (TC_MIN_M 1: tensor cores, 2: CUDA cores)."""
     from cake_tpu_torch.ops.quant import group_size, quantize_group
+    from cake_tpu_torch.utils.devices import device_sm_count
 
+    plan, tc_min = i4.split_plan, i4.TC_MIN_M
+    n_sm = device_sm_count("cuda")
     gen = torch.Generator(device="cuda").manual_seed(99)
     for In, Out in INT4_SHAPES:
         w = torch.randn((In, Out), generator=gen, device="cuda")
         qt = quantize_group(w * In ** -0.5, 0)
         del w
         g = group_size(qt)
+        G = In // g
         wbytes = qt.q.numel() + 4 * qt.scale.numel()
         qs = _copies(qt.q, wbytes)
         ss = [qt.scale.clone() for _ in qs]
-        for M in (1, 8):
+        for M in INT4_MS:
             x = torch.randn((M, In), generator=gen,
                             device="cuda").to(torch.bfloat16)
             cells = []
-            for target in targets:
-                i4.TARGET_BLOCKS = target
-                ms, _ = _stream_ms(torch, [
-                    (lambda q=q, s=s: i4.int4_matmul(x, q, s, g=g))
-                    for q, s in zip(qs, ss)])
-                cells.append(f"{target}: {ms:.4f} ms "
-                             f"({i4.split_groups(M, In // g, Out)} splits)")
+            for body in ((1, 2) if M == 1 else (tc_min,)):
+                i4.TC_MIN_M = body
+                tc = i4.takes_tc(M, g, x.dtype)
+                for n in [None] + list(splits):
+                    fixed = -(-G // -(-G // min(n, G))) if n else None
+                    i4.split_plan = plan if n is None else (
+                        lambda *a, f=fixed: f)
+                    ms, _ = _stream_ms(torch, [
+                        (lambda q=q, s=s: i4.int4_matmul(x, q, s, g=g))
+                        for q, s in zip(qs, ss)])
+                    used = fixed or plan(M, G, Out, tc, n_sm)
+                    cells.append(f"{'tc' if tc else 'core'} {used}"
+                                 f"{'' if n else ' (plan)'}: {ms:.4f} ms")
+            i4.split_plan, i4.TC_MIN_M = plan, tc_min
             log(f"int4 sweep M={M} In={In} Out={Out}: " + ", ".join(cells))
+        del qs, ss
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(torch, rpa, fa, i4, only=None) -> dict:
@@ -1128,7 +1174,7 @@ def _post(url, body, timeout=600):
 _PORT_KERNEL = re.compile(r"\(anonymous namespace\)::(rpa_|flash_|int4_)")
 
 
-def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
+def _device_time_table(prof, wall_s: float, top: int = 12) -> list:
     """Print the kernels that took the most device time in a profiled
     window, then the port's own kernels (csrc/) ranked below them, and
     the device's busy share of the window's wall time. Only
@@ -1151,6 +1197,7 @@ def _device_time_table(prof, wall_s: float, top: int = 12) -> None:
         if i < top or _PORT_KERNEL.search(name):
             log(f"profile: {t / 1e3:10.2f} ms "
                 f"{100 * t / 1e3 / max(busy, 1e-9):5.1f}% {n:7d}x {name[:90]}")
+    return rows
 
 
 def _big_params(torch):
@@ -1170,9 +1217,10 @@ def _big_params(torch):
     return cfg, params
 
 
-def _profiled(torch, profile: bool, label: str, fn):
+def _profiled(torch, profile: bool, label: str, fn, rows=None):
     """fn() under torch.profiler when asked (printing where the device
-    time went); returns fn's result."""
+    time went, and appending its (device us, count, kernel) rows to
+    `rows`); returns fn's result."""
     if not profile:
         return fn()
     from torch.profiler import ProfilerActivity
@@ -1183,7 +1231,9 @@ def _profiled(torch, profile: bool, label: str, fn):
         out = fn()
         torch.cuda.synchronize()
     log(f"profile of {label}:")
-    _device_time_table(prof, time.perf_counter() - t0)
+    table = _device_time_table(prof, time.perf_counter() - t0)
+    if rows is not None:
+        rows.extend(table)
     return out
 
 
@@ -1495,7 +1545,8 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     rpa.reset_launch_counts()
     if i4 is not None:
         i4.reset_launch_counts()
-    wall = _profiled(torch, profile, label, drive)
+    prof_rows = []
+    wall = _profiled(torch, profile, label, drive, prof_rows)
     # an SSE client reads its last chunk before the engine releases the
     # request's pages and retires it, so wait for the engine to retire
     # every request before reading its records
@@ -1554,6 +1605,11 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
         fail(f"{label}: plain folds ran on the served path: {ran_plain}")
     if i4 is not None:
         served.append("int4_matmul")
+        mine = [(t, n) for t, n, name in prof_rows if "::int4_" in name]
+        if mine:
+            log(f"{label}: int4_matmul kernels {sum(n for _, n in mine)} "
+                f"launches, {sum(t for t, _ in mine) / 1e3:.2f} ms of "
+                f"device time (profiled)")
         L = cfg.num_hidden_layers
         want = 7 * counts["rpa_decode" + suffix]     # 32 per decode step
         if counts["int4_matmul"] != want or want <= 0:
@@ -1581,9 +1637,9 @@ def main(argv=None) -> int:
                          "example a parent commit unpacked with git "
                          "archive) instead of the one beside this script")
     ap.add_argument("--int4-sweep", default="",
-                    help="comma list of TARGET_BLOCKS values: time "
-                         "int4_matmul at each and exit (a tuning aid, not "
-                         "part of the smoke)")
+                    help="comma list of cluster sizes (ranges of the group "
+                         "axis): time int4_matmul at each and exit (a "
+                         "tuning aid, not part of the smoke)")
     a = ap.parse_args(argv)
     phases = [p for p in a.phases.split(",") if p]
     bad = set(phases) - set(PHASES)
@@ -1610,9 +1666,7 @@ def main(argv=None) -> int:
 
     if a.int4_sweep:
         log(phase_device(torch, i4))
-        default = i4.TARGET_BLOCKS
         int4_sweep(torch, i4, [int(t) for t in a.int4_sweep.split(",")])
-        i4.TARGET_BLOCKS = default
         return 0
     card = phase_device(torch, rpa, fa, i4)
     only = set(a.kernels.split(",")) - {""} or None
@@ -1662,6 +1716,16 @@ def main(argv=None) -> int:
     for name, (source, replaces) in KERNELS.items():
         rec = kern.get((name, "bfloat16"), {})
         f32 = kern.get((name, "float32"), {})
+        extra = {}
+        if name == "int4_matmul":
+            # the top-level numbers are M = 1's; M = 8 and 64 ride beside
+            rec = kern.get((name, "bfloat16", 1), {})
+            f32 = kern.get((name, "float32", 1), {})
+            extra = {f"m{m}": {
+                k: kern.get((name, "bfloat16", m), {}).get(k)
+                for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "max_abs_err")}
+                for m in INT4_MS[1:]}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(name),
@@ -1678,6 +1742,7 @@ def main(argv=None) -> int:
             # replayed); these are the same calls made from the host
             "eager_ms": rec.get("eager_ms"),
             "library_eager_ms": rec.get("library_eager_ms"),
+            **extra,
         })
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""Ablation timing of the redesigned attention kernels on the card.
+"""Ablation timing of the redesigned kernels on the card.
 
     python3 kernel_ablation.py
     python3 kernel_ablation.py --cases rpa_decode_q8,rpa_decode_q4
@@ -19,9 +19,17 @@ body), `rpa_mixed` over the table's mixed case, `rpa_mixed_q8` and
 `rpa_mixed_q4` over its int8 and int4 pools (the same tensor-core body,
 whose raw rows are converted to bf16 a stage at a time; one variant
 drops that conversion pass, another gives its raw ring three stages).
+`int4_matmul` runs bf16 x over a [4096, 14336] weight (cycling copies
+past the L2 cache) at M = 1, 8 and 64 and over a [14336, 4096] one at
+M = 1 and 8 (one row on the CUDA-core body, the rest on the tensor-core
+body: variants
+without the nibble conversion, without the loop's loads, the ring alone
+(no products, so no conversion either), at most two CTAs an SM, and in
+natural column order with byte loads).
 The unpatched build also times the two split bodies at other plans
 (`flash_attn_cached` at 4 and 8 warps a CTA and 1 to 6 key splits; the
-three mixed kernels unsplit and at their plan). A variant's outputs are
+three mixed kernels unsplit and at their plan; `int4_matmul` in one
+range of the group axis, and at M = 1 on its tensor-core body). A variant's outputs are
 wrong by design; only its time is read: the time a part removes is what
 that part costs. `--cases` keeps only the variants, cases and plan
 sweeps of the kernels it names (and builds only those libraries).
@@ -42,6 +50,11 @@ sys.path.insert(0, ROOT)
 
 FA, RPA, TC = "flash_attention.cu", "ragged_paged_attention.cu", \
     "tc_attention.cuh"
+INT4 = "int4_matmul.cu"
+# int4_matmul bf16 over w_gate/w_up [4096, 14336] at the table's three M,
+# and over w_down [14336, 4096] (16 column tiles: clusters of 16) at two
+INT4_CASES = ("int4_matmul_m1", "int4_matmul_m8", "int4_matmul_m64",
+              "int4_matmul_down_m1", "int4_matmul_down_m8")
 # the three decode kernels: one split body over bf16, int8 and int4 pages
 RPA_DECODES = ("rpa_decode", "rpa_decode_q8", "rpa_decode_q4")
 # the three mixed kernels: one tensor-core body over bf16, int8 and int4
@@ -53,7 +66,32 @@ LOOP_LOADS = ("    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);",
 # variant -> ({file: [(text, replacement), ...]}, cases timed); {} = as is
 VARIANTS = {
     "as is": ({}, ("flash_attn", "flash_attn_cached") + RPA_DECODES
-              + RPA_MIXED),
+              + RPA_MIXED + INT4_CASES),
+    "int4: without the nibble conversion": ({INT4: [
+        ("af[t][0] = nibbles_to_pair<T>(p0);", "af[t][0] = p0;"),
+        ("af[t][1] = nibbles_to_pair<T>(p1);", "af[t][1] = p1;"),
+        ("af[t][2] = nibbles_to_pair<T>(p0 >> 4);", "af[t][2] = p0 >> 4;"),
+        ("af[t][3] = nibbles_to_pair<T>(p1 >> 4);", "af[t][3] = p1 >> 4;")]},
+        INT4_CASES),
+    "int4: without the loop's loads": ({INT4: [
+        ("    if (nxt < n_groups) start_group(g_begin + nxt, nxt % stages);",
+         "")]}, INT4_CASES),
+    "int4: the ring alone (no products, so no conversion or loads from shared memory)": ({INT4: [
+        ("tc::mma16816<T>(part[t][0], af[t], b[0], b[1]);", "(void)0;"),
+        ("tc::mma16816<T>(part[t][n], af[t], b[0], b[1]);", "(void)0;"),
+        ("tc::mma16816<T>(part[t][n + 1], af[t], b[2], b[3]);",
+         "(void)0;")]},
+        INT4_CASES),
+    "int4: at most two CTAs an SM (shared memory padded to 100 KB)": ({
+        INT4: [("    const size_t smem = tc_smem_bytes(g, nt, stages);",
+                "    const size_t smem = tc_smem_bytes(g, nt, stages) > 100000"
+                " ? tc_smem_bytes(g, nt, stages) : 100000;"),
+               ("  const size_t smem = core_smem_bytes(g, mt);",
+                "  const size_t smem = core_smem_bytes(g, mt) > 100000 ?"
+                " core_smem_bytes(g, mt) : 100000;")]}, INT4_CASES),
+    "int4: natural column order, byte loads": ({INT4: [
+        ("constexpr bool kWordLoads = true;",
+         "constexpr bool kWordLoads = false;")]}, INT4_CASES),
     "tc: without the p.v mma": ({TC: [
         ("mma16816<T>(st.o[2 * np], pa, bv[np][0], bv[np][1]);", ""),
         ("mma16816<T>(st.o[2 * np + 1], pa, bv[np][2], bv[np][3]);", "")]},
@@ -122,7 +160,7 @@ def _sources(patches):
     from cake_tpu_torch.utils.cuda_build import CSRC_DIR
 
     out = {}
-    for name in (FA, RPA, TC):
+    for name in (FA, RPA, TC, INT4):
         with open(os.path.join(CSRC_DIR, name)) as f:
             text = f.read()
         for old, new in patches.get(name, []):
@@ -148,7 +186,8 @@ def _build(out_dir, variants):
             with open(os.path.join(vdir, fname), "w") as f:
                 f.write(text)
         need = {FA for c in cases if c.startswith("flash")} | {
-            RPA for c in cases if c.startswith("rpa")}
+            RPA for c in cases if c.startswith("rpa")} | {
+            INT4 for c in cases if c.startswith("int4")}
         for fname in sorted(need):
             lib = os.path.join(vdir, fname.replace(".cu", ".so"))
             procs.append((name, fname, lib, subprocess.Popen(
@@ -179,7 +218,9 @@ def main(argv=None) -> int:
         raise SystemExit("kernel_ablation: needs an NVIDIA card")
     import chip_smoke as cs
     import cake_tpu_torch.ops.flash_attention as fa
+    import cake_tpu_torch.ops.int4_matmul as i4
     import cake_tpu_torch.ops.ragged_paged_attention as rpa
+    from cake_tpu_torch.ops.quant import group_size, quantize_group
     from cake_tpu_torch.utils.cuda_build import BUILD_DIR
 
     t0 = time.perf_counter()
@@ -211,6 +252,18 @@ def main(argv=None) -> int:
                         mixed, fmt)
         for mixed, fmt in ((False, "int8"), (False, "int4"), (True, "int8"),
                            (True, "int4")))
+    int4_calls = {}
+    for In, Out, tag, ms in ((4096, 14336, "", (1, 8, 64)),
+                             (14336, 4096, "down_", (1, 8))):
+        w4 = quantize_group(torch.randn((In, Out), generator=gen,
+                                        device="cuda") * In ** -0.5, 0)
+        q4s = cs._copies(w4.q, w4.q.numel() + 4 * w4.scale.numel())
+        s4s = [w4.scale.clone() for _ in q4s]
+        for m in ms:           # cycling weight copies past the L2 cache
+            x = rnd(m, In)
+            int4_calls[f"int4_matmul_{tag}m{m}"] = [
+                (lambda x=x, q=q, s=s, g=group_size(w4):
+                 i4.int4_matmul(x, q, s, g=g)) for q, s in zip(q4s, s4s)]
     calls = {
         "flash_attn": lambda: fa.flash_attention(q, k, v),
         "flash_attn_cached": lambda: fa.flash_attention_cached(cq, ck, cv,
@@ -226,9 +279,11 @@ def main(argv=None) -> int:
         "rpa_mixed_q4": lambda: rpa.ragged_paged_attention_mixed(*m4[:6],
                                                                  **m4[6]),
     }
+    calls.update(int4_calls)
 
     def timed(label, case):
-        ms, _ = cs._stream_ms(torch, [calls[case]])
+        fns = calls[case]
+        ms, _ = cs._stream_ms(torch, fns if isinstance(fns, list) else [fns])
         print(f"kernel_ablation: {label}: {ms * 1e3:.1f} us", flush=True)
 
     default_slots = rpa.SPLIT_SLOTS
@@ -242,6 +297,9 @@ def main(argv=None) -> int:
         if RPA in lib:
             rpa._bind(lib[RPA])
             rpa.LIBRARY._lib = lib[RPA]
+        if INT4 in lib:
+            i4._bind(lib[INT4])
+            i4.LIBRARY._lib = lib[INT4]
         for case in cases:
             if case != "rpa_decode":
                 timed(f"{name}, {case}", case)
@@ -261,6 +319,18 @@ def main(argv=None) -> int:
                     timed(f"as is, flash_attn_cached at {warps} warps and "
                           f"{n} key splits", "flash_attn_cached")
             fa.CACHED_WARPS, fa.flash_split_plan = warps0, plan
+        # int4_matmul in one range of the group axis (no cluster), and at
+        # M = 1 on the CUDA-core body
+        plan, tc_min = i4.split_plan, i4.TC_MIN_M
+        for case in (c for c in INT4_CASES if c in cases):
+            i4.split_plan = lambda *a: 1
+            timed(f"as is, {case} in one split (no cluster)", case)
+            i4.split_plan = plan
+        for case in (c for c in ("int4_matmul_m1", "int4_matmul_down_m1")
+                     if c in cases):
+            i4.TC_MIN_M = 1
+            timed(f"as is, {case} on the tensor-core body", case)
+            i4.TC_MIN_M = tc_min
         for case in (c for c in RPA_MIXED if c in cases):
             for label, fn in (("unsplit", lambda *a: (1, a[5])),
                               ("at its plan", mixed_plan)):

@@ -136,15 +136,56 @@ def test_hopper_gate_refuses(m, in_dim, g, out):
     assert not ti.kernel_supported(m, in_dim, g, out)
 
 
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("tc", [True, False])
 @pytest.mark.parametrize("m,G,out", [(1, 32, 4096), (8, 32, 14336),
                                      (1, 112, 4096), (64, 32, 1024),
                                      (1, 1, 32), (3, 2, 128)])
-def test_split_groups_covers_the_group_axis(m, G, out):
-    """The ranges of the split are non-empty and cover every group (what
-    the launcher checks before it starts the blocks)."""
-    s = ti.split_groups(m, G, out)
-    per = -(-G // s)
-    assert 1 <= s <= G and (s - 1) * per < G <= s * per
+def test_split_groups_covers_the_group_axis(m, G, out, tc):
+    """The split plan's ranges of the group axis (one cluster of at most
+    MAX_SPLITS CTAs per output tile) are non-empty and cover every group
+    (what the launcher checks before it starts the cluster)."""
+    for n_sm in (H100_SMS, 16, 1000):
+        s = ti.split_plan(m, G, out, tc, n_sm)
+        per = -(-G // s)
+        assert 1 <= s <= min(G, ti.MAX_SPLITS)
+        assert (s - 1) * per < G <= s * per
+        assert [min(G, (r + 1) * per) - r * per for r in range(s)] == \
+            [per] * (s - 1) + [G - (s - 1) * per]
+
+
+@pytest.mark.parametrize("m,g,dtype,tc", [
+    (8, 128, torch.bfloat16, True), (64, 64, torch.float16, True),
+    (2, 256, torch.float16, True), (33, 16, torch.bfloat16, True),
+    (8, 128, torch.float32, False),     # tensor cores would round x to tf32
+    (8, 8, torch.bfloat16, False),      # g not a whole number of k16 steps
+    (1, 128, torch.bfloat16, False),    # one row: the CUDA-core body
+    (1, 32, torch.float32, False),
+])
+def test_the_body_follows_dtype_and_group(m, g, dtype, tc):
+    """bf16/f16 x of two rows or more with g a multiple of 16 take the
+    tensor-core body; f32 x, odd groups and one row the CUDA-core body:
+    shapes and dtype only."""
+    assert ti.takes_tc(m, g, dtype) is tc
+
+
+def test_split_plan_fills_one_wave_at_llama3_8b_shapes():
+    """At decode shapes the output tiles alone are a few dozen CTAs; the
+    plan's clusters add ranges of the group axis while every CTA stays
+    resident at once (`ctas_per_sm` an SM), up to MAX_SPLITS."""
+    n_sm = H100_SMS
+    for m in (1, 8, 64):
+        for In, Out in ((4096, 14336), (14336, 4096), (4096, 4096),
+                        (4096, 1024)):
+            for tc in (True, False):
+                s = ti.split_plan(m, In // 128, Out, tc, n_sm)
+                tiles = -(-Out // ti.COLS_PER_CTA) * (
+                    1 if tc else -(-m // ti.M_TILE))
+                slots = ti.ctas_per_sm(m, tc) * n_sm
+                assert tiles * s <= max(slots, tiles)
+                assert s == ti.MAX_SPLITS or tiles * (s + 1) > slots
 
 
 def test_wrapper_checks_shapes_on_any_device():
@@ -162,30 +203,53 @@ def _cuda_or_skip():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
 
 
+# (M, In, Out, g) at the Llama-3-8B weight shapes: every M of the body's
+# tiles and their edges, each Out, In and g at least once
+LARGE = [(1, 4096, 1024, 64), (2, 4096, 4096, 128), (7, 4096, 14336, 128),
+         (8, 14336, 4096, 256), (9, 4096, 14336, 256), (17, 14336, 1024, 64),
+         (63, 4096, 4096, 64), (64, 4096, 14336, 128), (64, 14336, 4096, 128)]
+# kernel vs plain: at f32 only the order of the f32 sum differs (<= 1e-5 of
+# the largest output); at bf16 and f16 one rounding of the output (2^-7,
+# 2^-10 relative)
+CUDA_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+             torch.float16: 2.0 ** -10}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_kernel_matches_the_plain_version(dtype):
-    """Kernel vs plain on the card: at f32 only the order of the f32 sum
-    differs (<= 1e-5 of the largest output); at bf16 one rounding of the
-    output (2^-7 relative)."""
+    """Kernel vs plain on the card, one launch a product: the same bits
+    twice and from a replayed CUDA graph of the call, within CUDA_RTOL."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for M, In, Out, g in CASES + [(m, i, o, g) for m, i, o, g in HOPPER_ONLY]:
+    for M, In, Out, g in (CASES + [(m, i, o, g) for m, i, o, g in HOPPER_ONLY]
+                          + LARGE):
         w = torch.randn((In, Out), generator=gen, device="cuda")
         x = torch.randn((M, In), generator=gen, device="cuda").to(dtype)
         qt = quantize_group(w, 0, group=g)
         g = 2 * qt.q.shape[0] // qt.scale.shape[0]
         ti.reset_launch_counts()
         got = ti.int4_matmul(x, qt.q, qt.scale, g=g)
+        assert ti.LAUNCHES == {"int4_matmul": 1, "int4_matmul_plain": 0}
         again = ti.int4_matmul(x, qt.q, qt.scale, g=g)
         torch.cuda.synchronize()
         assert ti.LAUNCHES == {"int4_matmul": 2, "int4_matmul_plain": 0}
-        assert torch.equal(got, again)        # no atomics: same bits
+        assert torch.equal(got, again), (M, In, Out, g)   # no atomics
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=side):
+            replayed = ti.int4_matmul(x, qt.q, qt.scale, g=g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, replayed), (M, In, Out, g)
         want = ti.int4_matmul_plain(x, qt.q, qt.scale, g=g)
         atol = 1e-5 * want.float().abs().max().item()
-        rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-        assert torch.allclose(got.float(), want.float(), rtol=rtol,
-                              atol=atol), (M, In, Out, g)
+        assert torch.allclose(got.float(), want.float(),
+                              rtol=CUDA_RTOL[dtype], atol=atol), \
+            (M, In, Out, g, (got.float() - want.float()).abs().max().item())
+        del graph
 
 
 @pytest.mark.cuda
