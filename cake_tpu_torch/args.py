@@ -50,6 +50,10 @@ class Args:
     # whole-prompt prefill; engine: None = 256, capped at max_seq_len.
     # Must divide max_seq_len
     prefill_chunk: Optional[int] = None
+    # engine: when no request is queued and no prompt is mid-prefill,
+    # decode N tokens per host round trip (N replays of the captured
+    # decode step on the card); 1 = step by step
+    decode_scan: int = 1
     # flash-attention kernels for prefill; None = on iff the device is CUDA
     flash_attention: Optional[bool] = None
     # paged KV pool of the --api engine: N pages of kv_page_size tokens;
@@ -64,11 +68,13 @@ class Args:
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --kv-dtype int8 and int4 need the paged pool, and
-        int4 an even page size; any other name must be a dtype. Returns
-        self."""
+        int8 or int4; --decode-scan is at least 1; --kv-dtype int8 and
+        int4 need the paged pool, and int4 an even page size; any other
+        name must be a dtype. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
+        if self.decode_scan < 1:
+            raise ValueError("--decode-scan must be >= 1")
         if self.kv_dtype in QUANTIZED_CACHES:
             if not self.kv_pages:
                 raise ValueError(

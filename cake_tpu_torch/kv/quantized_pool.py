@@ -26,11 +26,14 @@ f32 reciprocal; so does the code here (`* (1.0 / qmax)`: the scale may
 differ by an ulp from an op-by-op `amax / qmax`).
 
 Where the JAX writers are pure and drop out-of-bounds page ids with
-mode="drop", these write the pool in place and touch only the pages they
-write. A step's write targets are the same for every layer, so the
-steps compute them once (`decode_targets`, `window_page_targets`: one
-host sync for the boolean selection) and every layer's writer reuses
-them.
+mode="drop", these write the pool in place. The window writers touch
+only the pages they write (`window_page_targets`: one host sync for the
+boolean selection); the decode writer has one target per row, and a row
+it drops goes to the sink page past the real ones (`decode_targets`: no
+host sync, so the decode step captures into a CUDA graph), which every
+cache allocates and no table maps. A step's write targets are the same
+for every layer, so the steps compute them once and every layer's
+writer reuses them.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ _EPS = 1e-8
 
 
 class QuantPool(NamedTuple):
-    """One int8 page pool half (k or v): values + per-page scales.
+    """One int8 page pool half (k or v): values + per-page scales (a
+    cache's pools hold one more page than it has: the sink).
 
     q:     int8, [(L,) N_pages, page, KV, hd]
     scale: f32,  [(L,) N_pages, KV]
@@ -125,24 +129,39 @@ def _scatter_q(pool, idx: torch.Tensor, qw: torch.Tensor,
 class _QuantizedCache:
     """A paged cache whose k/v pools are quantized: the property surface
     of `models/llama/paged.PagedKVCache` (page_size counts REAL tokens),
-    with the pools updated in place."""
+    with the pools updated in place. The constructor takes the whole
+    storage, the sink page included; `k` and `v` are views of the real
+    pages, and `layer(i)` gives the steps a layer's whole storage."""
 
     pool_type = QuantPool
     _tokens_per_row = 1
     _storage = torch.int8
 
     def __init__(self, k, v, table: torch.Tensor):
-        self.k = k            # pool_type, q [L, N_pages, rows, KV, hd]
-        self.v = v
+        self.k_store = k      # pool_type, q [L, N_pages + 1, rows, KV, hd]
+        self.v_store = v
         self.table = table    # [slots, max_pages] int32, -1 = unmapped
+
+    def _real(self, pool):
+        return self.pool_type(pool.q[:, :-1], pool.scale[:, :-1])
+
+    @property
+    def k(self):
+        """The real pages' values and scales (views)."""
+        return self._real(self.k_store)
+
+    @property
+    def v(self):
+        return self._real(self.v_store)
 
     @property
     def page_size(self) -> int:
-        return self.k.q.shape[2] * self._tokens_per_row
+        return self.k_store.q.shape[2] * self._tokens_per_row
 
     @property
     def n_pages(self) -> int:
-        return self.k.q.shape[1]
+        """Real pages (the sink past them not counted)."""
+        return self.k_store.q.shape[1] - 1
 
     @property
     def max_pages(self) -> int:
@@ -154,14 +173,18 @@ class _QuantizedCache:
 
     @property
     def num_layers(self) -> int:
-        return self.k.q.shape[0]
+        return self.k_store.q.shape[0]
 
     def layer(self, i: int):
-        """Layer i's (k, v) pool leaves: views of the stacked pools, so a
-        writer updates the cache in place."""
-        cls = self.pool_type
-        return (cls(self.k.q[i], self.k.scale[i]),
-                cls(self.v.q[i], self.v.scale[i]))
+        """Layer i's (k, v) pool leaves, the sink last: views of the
+        stacked pools, so a writer updates the cache in place."""
+        cls, k, v = self.pool_type, self.k_store, self.v_store
+        return cls(k.q[i], k.scale[i]), cls(v.q[i], v.scale[i])
+
+    def clone(self):
+        return type(self)(*(self.pool_type(h.q.clone(), h.scale.clone())
+                            for h in (self.k_store, self.v_store)),
+                          self.table.clone())
 
     @classmethod
     def create(cls, config, slots: int, n_pages: int, page_size: int,
@@ -177,8 +200,9 @@ class _QuantizedCache:
         L = config.num_hidden_layers
         KV = config.num_key_value_heads
         hd = config.head_dim
-        shape = (L, n_pages, page_size // cls._tokens_per_row, KV, hd)
-        sshape = (L, n_pages, KV)
+        # one page past the real ones: the decode writers' sink
+        shape = (L, n_pages + 1, page_size // cls._tokens_per_row, KV, hd)
+        sshape = (L, n_pages + 1, KV)
 
         def half():
             return cls.pool_type(
@@ -191,9 +215,10 @@ class _QuantizedCache:
                               dtype=torch.int32, device=device))
 
     def memory_bytes(self) -> int:
-        """Storage bytes: the quantized pools plus their f32 scales."""
+        """Storage bytes: the quantized pools plus their f32 scales, the
+        sink page included."""
         return sum(t.numel() * t.element_size()
-                   for t in (*self.k, *self.v))
+                   for t in (*self.k_store, *self.v_store))
 
 
 class QuantizedPagedKVCache(_QuantizedCache):
@@ -282,17 +307,20 @@ def reset_page_scales(cache, pages):
 # -- write targets (computed once per step, shared by every layer) -----------
 
 
-def decode_targets(pos, active, table, P: int):
-    """(rows, cols, pages, offsets) of a decode step's writes: each
-    active row's token at pos, unless its page is unmapped (the page
-    index clamps into the table, as JAX's gather does)."""
+def decode_targets(pos, active, table, P: int, sink: int):
+    """(rows, cols, pages, offsets) of a decode step's writes, one per
+    row: each active row's token at pos on its page (the page index
+    clamps into the table, as JAX's gather does); an inactive row, or one
+    whose page is unmapped, targets page `sink` instead (the pool's page
+    past the real ones), where JAX's scatter drops it. Fixed shapes and
+    no host sync."""
     B = pos.shape[0]
     rows = torch.arange(B, device=table.device)
     pidx = (pos.long() // P).clamp(max=table.shape[1] - 1)
-    pages = table[rows, pidx]
-    rows = (active & (pages >= 0)).nonzero(as_tuple=True)[0]
-    return (rows, torch.zeros_like(rows), pages[rows].long(),
-            pos.long()[rows] % P)
+    pages = table[rows, pidx].long()
+    keep = active & (pages >= 0)
+    pages = torch.where(keep, pages, torch.full_like(pages, sink))
+    return rows, torch.zeros_like(rows), pages, pos.long() % P
 
 
 class WindowTargets(NamedTuple):
@@ -378,13 +406,14 @@ def qupdate_pool_per_row(pool, vals: torch.Tensor, pos, active, table,
     """Each active row's decode token ([B, 1, KV, hd]) lands in ONE
     page: read that page and its scale, grow the scale to cover the
     token, re-quantize the residents by old/new, write the token, store
-    the page. Distinct rows own distinct pages. `targets` are
-    `decode_targets(...)`, computed here when not given. Returns the
-    pool."""
+    the page. Distinct rows own distinct pages; the rows dropped go
+    through the same round trip on the pool's last page, the sink.
+    `targets` are `decode_targets(...)`, computed here when not given.
+    Returns the pool."""
     P = _pool_page(pool)
     qmax = _pool_qmax(pool)
     if targets is None:
-        targets = decode_targets(pos, active, table, P)
+        targets = decode_targets(pos, active, table, P, pool.q.shape[0] - 1)
     rows, _, pages, offs = targets
     qs = _gather_q(pool, pages)                         # [n, P, KV, hd]
     ss = pool.scale[pages]                              # [n, KV]

@@ -61,6 +61,7 @@ class Master:
             kv_page_size=a.kv_page_size,
             paged_attn=a.paged_attn,
             mixed_batch=a.mixed_batch,
+            decode_scan_steps=a.decode_scan,
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)

@@ -4,8 +4,15 @@ Counterpart of `cake_tpu/models/llama/paged.py`, restricted to the two
 steps of the mixed-batch serving path (`decode_step_ragged_paged`,
 `mixed_step_paged`). Layout as there:
 
-  pool k/v: [L, N_pages, page, KV, hd]   (page = tokens per page)
-  table:    [slots, max_pages] int32      (page ids; -1 = unmapped)
+  pool k/v: [L, N_pages + 1, page, KV, hd]   (page = tokens per page)
+  table:    [slots, max_pages] int32          (page ids; -1 = unmapped)
+
+The page past the last real one is the decode writers' sink: a row the
+step drops (inactive, or on an unmapped page) writes there, where JAX's
+scatter drops its out-of-bounds index with mode="drop". No table maps
+it, no kernel reads it, and the allocator and `n_pages` count only the
+real pages; it keeps the decode step free of data-dependent shapes, so
+the step captures into a CUDA graph (serve/graphs.py).
 
 The pool is f32/bf16 (`PagedKVCache`), or int8 / nibble-packed int4 with
 per-page scales (`kv/quantized_pool.py`: `QuantizedPagedKVCache`,
@@ -49,21 +56,35 @@ ATTN_IMPLS = ("auto", "plain", "kernel")
 
 class PagedKVCache:
     """Device state of the paged cache: the pools and the page table.
-    The free list stays host-side in the allocator."""
+    The free list stays host-side in the allocator.
+
+    The constructor takes the whole storage, the sink page included
+    ([L, N_pages + 1, page, KV, hd]); `k` and `v` are views of the real
+    pages, and `layer(i)` gives the steps a layer's whole storage."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
                  table: torch.Tensor):
-        self.k = k            # [L, N_pages, page, KV, hd]
-        self.v = v            # [L, N_pages, page, KV, hd]
+        self.k_store = k      # [L, N_pages + 1, page, KV, hd] (+ the sink)
+        self.v_store = v
         self.table = table    # [slots, max_pages] int32, -1 = unmapped
 
     @property
+    def k(self) -> torch.Tensor:
+        """The real pages [L, N_pages, page, KV, hd] (a view)."""
+        return self.k_store[:, :-1]
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.v_store[:, :-1]
+
+    @property
     def page_size(self) -> int:
-        return self.k.shape[2]
+        return self.k_store.shape[2]
 
     @property
     def n_pages(self) -> int:
-        return self.k.shape[1]
+        """Real pages (the sink past them not counted)."""
+        return self.k_store.shape[1] - 1
 
     @property
     def max_pages(self) -> int:
@@ -71,16 +92,20 @@ class PagedKVCache:
 
     @property
     def max_seq_len(self) -> int:
-        return self.table.shape[1] * self.k.shape[2]
+        return self.table.shape[1] * self.page_size
 
     @property
     def num_layers(self) -> int:
-        return self.k.shape[0]
+        return self.k_store.shape[0]
 
     def layer(self, i: int):
-        """Layer i's (k, v) pools [N_pages, page, KV, hd]: views, so a
-        writer updates the cache in place."""
-        return self.k[i], self.v[i]
+        """Layer i's (k, v) pools [N_pages + 1, page, KV, hd], the sink
+        last: views, so a writer updates the cache in place."""
+        return self.k_store[i], self.v_store[i]
+
+    def clone(self) -> "PagedKVCache":
+        return PagedKVCache(self.k_store.clone(), self.v_store.clone(),
+                            self.table.clone())
 
     @classmethod
     def create(cls, config: LlamaConfig, slots: int, n_pages: int,
@@ -93,7 +118,7 @@ class PagedKVCache:
         L = config.num_hidden_layers
         KV = config.num_key_value_heads
         hd = config.head_dim
-        shape = (L, n_pages, page_size, KV, hd)
+        shape = (L, n_pages + 1, page_size, KV, hd)        # + the sink
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -102,7 +127,9 @@ class PagedKVCache:
         )
 
     def memory_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v))
+        """Storage bytes, the sink page included."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k_store, self.v_store))
 
 
 class PageAllocator:
@@ -181,19 +208,24 @@ class PageAllocator:
 
 def table_set_slot(table: torch.Tensor, slot: int,
                    pages: List[int]) -> torch.Tensor:
-    """Map `slot` to `pages` in place (one small host-to-device copy);
-    returns the table."""
+    """Map `slot` to `pages` in place (one small host-to-device copy, from
+    pinned memory on the card so that the host does not wait for the
+    stream); returns the table."""
     row = torch.full((table.shape[1],), -1, dtype=torch.int32)
     row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
-    table[slot] = row.to(table.device)
+    if table.is_cuda:
+        row = row.pin_memory()
+    table[slot].copy_(row, non_blocking=True)
     return table
 
 
 # -- pool writers (one layer's pool leaves, in place) -------------------------
 #
 # A step's write targets are the same for every layer, so the steps compute
-# them once (`step_write_targets`: one host sync for the boolean selection)
-# and every layer writes through them.
+# them once (`step_write_targets`) and every layer writes through them. A
+# decode step's targets have a fixed shape (one per row, dropped rows on
+# the sink page); a mixed step's select their positions with one host
+# sync.
 
 
 def _quantized(pool) -> bool:
@@ -223,7 +255,7 @@ def step_write_targets(cache, pos, active, q_len=None, C: int = 1):
     (`window_page_targets`)."""
     P = cache.page_size
     if q_len is None:
-        return decode_targets(pos, active, cache.table, P)
+        return decode_targets(pos, active, cache.table, P, cache.n_pages)
     if _quantized(cache.k):
         return window_page_targets(pos, q_len, active, cache.table, P, C)
     return _window_targets(pos, q_len, active, cache.table, P, C)
@@ -262,14 +294,16 @@ def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table,
 def update_pool_per_row(pool_k, pool_v, k, v, pos, active, table,
                         targets=None):
     """Write one decode token per row into its page. k/v: [B, 1, KV, hd];
-    pos: [B]; active: [B] bool. Inactive rows and rows whose position
-    lands on an unmapped page are dropped. A quantized pool re-quantizes
-    the written page (`qupdate_pool_per_row`)."""
+    pos: [B]; active: [B] bool; the pools' last page is the sink.
+    Inactive rows and rows whose position lands on an unmapped page are
+    dropped onto the sink. A quantized pool re-quantizes the written page
+    (`qupdate_pool_per_row`)."""
     if _quantized(pool_k):
         return (qupdate_pool_per_row(pool_k, k, pos, active, table, targets),
                 qupdate_pool_per_row(pool_v, v, pos, active, table, targets))
     if targets is None:
-        targets = decode_targets(pos, active, table, pool_k.shape[1])
+        targets = decode_targets(pos, active, table, pool_k.shape[1],
+                                 pool_k.shape[0] - 1)
     _scatter(pool_k, pool_v, k, v, targets)
     return pool_k, pool_v
 

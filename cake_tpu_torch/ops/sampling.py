@@ -1,18 +1,22 @@
 """Token sampling: argmax / temperature / top-k / top-p + repeat penalty.
 
 Counterpart of `cake_tpu/ops/sampling.py`. Token history is a fixed
-[B, repeat_last_n] ring buffer (pad slots = -1). Randomness comes from
-`torch.Generator`s: one per stream for `sample_tokens` (the sequential
-generator), one per row for `sample_tokens_ragged` (the engine, so a
-row's stream is independent of the other rows in the batch). The
-streams differ from JAX's threefry keys, so tests hold sampled paths
-by support and greedy paths by identity.
+[B, repeat_last_n] ring buffer (pad slots = -1). The sequential
+generator draws from one `torch.Generator` a stream (`sample_tokens`).
+The engine's rows draw from counter-based streams instead
+(`sample_tokens_ragged`, `masked_sample`): row b's uniforms at a step
+are a hash of (seed[b], counter[b], token id) in integer tensor ops, so
+a row's draw depends only on its own state, the state is two device
+tensors that advance only where the row is live (as the JAX engine
+advances its keys), and the CUDA graph of the decode step holds it. The
+streams differ from JAX's threefry keys, so tests hold sampled paths by
+support and greedy paths by identity.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -97,6 +101,46 @@ def _exponential_race(probs, generator):
     return torch.argmax(probs / e, dim=-1)
 
 
+# -- the engine's counter-based streams -----------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant:
+    c is split into 16-bit halves so that no product leaves int64 (the
+    CPU and the card then give the same bits)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def hash32(x):
+    """A 32-bit integer mixer (Wellons' lowbias32) over int64 tensors
+    holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def random_bits(seeds, counters, n: int):
+    """[B, n] int64 hash bits in [0, 2**32): row b's n draws at its
+    counter, a function of (seeds[b], counters[b], column) alone."""
+    key = hash32((hash32((seeds.long() & _M32) ^ 0x5BD1E995)
+                  + counters.long()) & _M32)
+    col = torch.arange(1, n + 1, device=seeds.device, dtype=torch.int64)
+    h = hash32((key[:, None] + col[None, :] * 0x9E3779B9) & _M32)
+    return hash32(h ^ key[:, None])
+
+
+def exponentials(seeds, counters, n: int):
+    """[B, n] f32 Exp(1) draws from the rows' streams: 24 bits of each
+    hash as a uniform in (0, 1), then -log."""
+    u = ((random_bits(seeds, counters, n) >> 8).float() + 0.5) * 2.0 ** -24
+    return -torch.log(u)
+
+
 def sample_tokens(generator: Optional[torch.Generator], logits,
                   recent_tokens, config: SamplingConfig):
     """Sample next token ids for one stream of rows: logits [B, V] ->
@@ -133,16 +177,16 @@ def update_ring_per_row(recent_tokens, new_tokens, steps):
     return out
 
 
-def sample_tokens_ragged(generators: Sequence[Optional[torch.Generator]],
-                         logits, recent_tokens, temperature, top_p,
-                         repeat_penalty, top_k: Optional[int] = None,
-                         n_top: int = 0):
+def sample_tokens_ragged(seeds, counters, logits, recent_tokens,
+                         temperature, top_p, repeat_penalty,
+                         top_k: Optional[int] = None, n_top: int = 0):
     """Batched sampling with PER-ROW options (continuous batching: each
     slot carries its own request's temperature/top_p/repeat_penalty).
+    Fixed shapes and no host sync: every row is computed, and a greedy
+    row takes the argmax.
 
-    generators:      [B] torch.Generators on logits' device; a row with
-                     None is not sampled (it takes the argmax) and its
-                     stream is untouched
+    seeds, counters: [B] int64 each row's random stream and its position
+                     in it (`exponentials`); read, not advanced
     logits:          [B, V]
     recent_tokens:   [B, N] ring buffers (-1 = empty)
     temperature:     [B] f32; <= 0 means greedy for that row
@@ -158,18 +202,15 @@ def sample_tokens_ragged(generators: Sequence[Optional[torch.Generator]],
     logits = logits.float()
     logits = _apply_repeat_penalty_per_row(logits, recent_tokens,
                                            repeat_penalty)
-    ids = logits.argmax(dim=-1)
-    temps = temperature.tolist()
-    rows = [b for b, g in enumerate(generators)
-            if g is not None and temps[b] > 0.0]
-    if rows:
-        sel = torch.tensor(rows, device=logits.device)
-        scaled = logits[sel] / temperature[sel][:, None]
-        if top_k is not None:
-            scaled = _mask_top_k(scaled, top_k)
-        probs = torch.softmax(_mask_top_p(scaled, top_p[sel]), dim=-1)
-        for i, b in enumerate(rows):
-            ids[b] = _exponential_race(probs[i], generators[b])
+    greedy = temperature <= 0.0
+    argmax_ids = logits.argmax(dim=-1)
+    safe_t = torch.where(greedy, torch.ones_like(temperature), temperature)
+    scaled = logits / safe_t[:, None]
+    if top_k is not None:
+        scaled = _mask_top_k(scaled, top_k)
+    probs = torch.softmax(_mask_top_p(scaled, top_p), dim=-1)
+    e = exponentials(seeds, counters, logits.shape[1])
+    ids = torch.where(greedy, argmax_ids, torch.argmax(probs / e, dim=-1))
     lp = torch.log_softmax(logits, dim=-1)
     chosen_lp = lp.gather(1, ids[:, None])[:, 0]
     B = logits.shape[0]
@@ -181,3 +222,21 @@ def sample_tokens_ragged(generators: Sequence[Optional[torch.Generator]],
         top_lps = torch.zeros((B, 0), dtype=torch.float32,
                               device=logits.device)
     return ids, chosen_lp, top_ids, top_lps
+
+
+def masked_sample(live, seeds, counters, logits, ring, steps, temperature,
+                  top_p, repeat_penalty, *, top_k: Optional[int] = None,
+                  n_top: int = 0):
+    """ONE per-row sample with a masked state advance, the engine's
+    sampling semantics (the JAX engine's `_masked_sample`): rows outside
+    `live` keep their counter and ring. The eager steps and the captured
+    decode step both go through it. Returns (next ids [B], counters,
+    ring, logprobs [B], top ids [B, n_top], top logprobs [B, n_top]);
+    the inputs are not modified."""
+    nxt, lp, top_ids, top_lps = sample_tokens_ragged(
+        seeds, counters, logits, ring, temperature, top_p, repeat_penalty,
+        top_k=top_k, n_top=n_top)
+    counters = torch.where(live, counters + 1, counters)
+    ring = torch.where(live[:, None], update_ring_per_row(ring, nxt, steps),
+                       ring)
+    return nxt, counters, ring, lp, top_ids, top_lps

@@ -9,18 +9,25 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
   * admissions map their pages and join the very next device step as
     prefill-chunk rows beside the decode rows (`mixed_step_paged`), in
     fixed C-token windows; when no prompt is mid-prefill the engine runs
-    the cheaper C=1 step (`decode_step_ragged_paged`);
-  * every slot carries its own position, torch.Generator, repeat-penalty
-    ring and sampling options, so a row's output depends only on its own
-    request (ops/sampling.sample_tokens_ragged);
+    the cheaper C=1 decode step (`forward_ragged_paged` + sampling);
+  * every slot carries its own position, random stream (a seed and a
+    counter on the device), repeat-penalty ring and sampling options,
+    so a row's output depends only on its own request
+    (ops/sampling.masked_sample);
   * tokens stream to per-request callbacks from the engine thread;
     EOS / max-token retirement releases the slot's pages.
 
+The decode step, its sampling and its carry run through
+`serve/graphs.DecodeRunner`: on CUDA always as a captured CUDA graph
+(there is no eager decode step on the card), on the CPU eagerly.
+`decode_scan_steps` K > 1 (--decode-scan) runs K steps a host round
+trip while nobody waits and no prompt is mid-prefill, in double-buffered
+bursts with the JAX engine's row rules (`_decode_burst`).
+
 Device work happens only on the engine thread, under
-torch.inference_mode(). Not ported yet: decode-scan bursts, prefix
-sharing, SLO scheduling, speculation, the host KV tier, fault
-injection and recovery, the journal, autotune, multi-host, and the
-metrics planes.
+torch.inference_mode(). Not ported yet: prefix sharing, SLO scheduling,
+speculation, the host KV tier, fault injection and recovery, the
+journal, autotune, multi-host, and the metrics planes.
 """
 
 from __future__ import annotations
@@ -45,13 +52,12 @@ from cake_tpu_torch.models.llama.generator import (
 )
 from cake_tpu_torch.models.llama.model import RopeTables
 from cake_tpu_torch.models.llama.paged import (
-    ATTN_IMPLS, PageAllocator, PagedKVCache, decode_step_ragged_paged,
-    mixed_step_paged, table_set_slot,
+    ATTN_IMPLS, PageAllocator, PagedKVCache, mixed_step_paged,
+    table_set_slot,
 )
 from cake_tpu_torch.native.scheduler import make_scheduler
-from cake_tpu_torch.ops.sampling import (
-    SamplingConfig, sample_tokens_ragged, update_ring_per_row,
-)
+from cake_tpu_torch.ops.sampling import SamplingConfig, masked_sample
+from cake_tpu_torch.serve.graphs import DecodeRunner
 from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
 
 log = logging.getLogger(__name__)
@@ -171,6 +177,7 @@ class InferenceEngine:
         paged_attn: Optional[str] = None,
         mixed_batch: Optional[str] = None,
         kv_dtype: Optional[str] = None,
+        decode_scan_steps: int = 1,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -197,6 +204,9 @@ class InferenceEngine:
             raise ValueError("--paged-attn kernel needs a CUDA device: the "
                              "ragged paged-attention kernels run only on "
                              "the card")
+        if decode_scan_steps < 1:
+            raise ValueError(
+                f"--decode-scan must be >= 1, got {decode_scan_steps}")
         if prefill_chunk is not None and (
                 prefill_chunk < 1 or max_seq_len % prefill_chunk != 0):
             raise ValueError(
@@ -210,6 +220,8 @@ class InferenceEngine:
         self.defaults = sampling or SamplingConfig()
         self.n_top = top_logprobs_cap
         self.paged_attn = impl
+        # decode steps a host round trip (bursts of the captured step)
+        self._decode_scan = decode_scan_steps
         # fixed mixed-chunk width: prompts walk the mixed step C tokens
         # per iteration
         self._mixed_chunk = (prefill_chunk if prefill_chunk is not None
@@ -251,10 +263,9 @@ class InferenceEngine:
         self._top_p = np.ones(B, np.float32)
         self._penalty = np.full(B, self.defaults.repeat_penalty,
                                 np.float32)
-        self._ring = self._fresh_ring()
         self._seed = seed
         self._reset_count = 0
-        self._gens = self._slot_generators()
+        self._fresh_sampling_state()
         self._slot_req: List[Optional[_Request]] = [None] * B
 
         self._next_rid = 1
@@ -266,17 +277,21 @@ class InferenceEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
-    def _fresh_ring(self) -> torch.Tensor:
-        return torch.full((self.max_slots, self.defaults.repeat_last_n), -1,
-                          dtype=torch.int64, device=self.device)
-
-    def _slot_generators(self) -> List[torch.Generator]:
-        """One generator per slot, so a row's stream is independent of
-        the other rows; the reset counter keeps a post-error rebuild from
-        replaying consumed streams."""
+    def _fresh_sampling_state(self) -> None:
+        """The device state of the rows' sampling, updated in place from
+        here on: the repeat-penalty rings, and one random stream per slot
+        (a seed and a counter), so a row's draws are independent of the
+        other rows; the reset count keeps a post-error rebuild from
+        replaying consumed streams. The decode runner holds these
+        tensors, so a new set drops it."""
+        B, dev = self.max_slots, self.device
+        self._ring = torch.full((B, self.defaults.repeat_last_n), -1,
+                                dtype=torch.int64, device=dev)
         base = self._seed * 1_000_003 + self._reset_count * 65_537
-        return [torch.Generator(device=self.device).manual_seed(base + b)
-                for b in range(self.max_slots)]
+        self._seeds = torch.tensor([base + b for b in range(B)],
+                                   dtype=torch.int64, device=dev)
+        self._counters = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._runner: Optional[DecodeRunner] = None
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -450,8 +465,8 @@ class InferenceEngine:
 
     def _reset_after_error(self) -> None:
         """A failed step may leave the pool half-written: rebuild the
-        pool (of the same storage), the allocator and every per-slot
-        mirror."""
+        pool (of the same storage), the allocator, every per-slot mirror
+        and the sampling state, and drop the decode runner."""
         self.cache = self._new_cache(self.cache.n_pages,
                                      self.cache.page_size)
         self._pager = PageAllocator(self.cache.n_pages, self.cache.page_size)
@@ -461,9 +476,9 @@ class InferenceEngine:
         self._pos[:] = 0
         self._last_tok[:] = 0
         self._steps[:] = 0
-        self._ring = self._fresh_ring()
         self._reset_count += 1
-        self._gens = self._slot_generators()
+        # the runner's graphs captured the old pool: capture anew
+        self._fresh_sampling_state()
 
     # -- pages ----------------------------------------------------------------
 
@@ -530,8 +545,13 @@ class InferenceEngine:
         for rid, slot in prefill_plan:
             self._mixed_admit(rid, slot)
         if not self._mixed_pending:
+            # pure decode: K-step bursts while nothing is admitting
             if decode_plan:
-                self._do_decode(decode_plan)
+                n = self._scan_steps_for(decode_plan)
+                if n > 1:
+                    self._decode_burst(decode_plan, n)
+                else:
+                    self._do_decode(decode_plan)
             return
         self._mixed_dispatch(decode_plan)
 
@@ -646,34 +666,176 @@ class InferenceEngine:
         return (list(zip(tids[slot].tolist(), tlps[slot].tolist()))
                 if tids.size else [])
 
+    # -- the decode step and its bursts ---------------------------------------
+
+    def _decode_runner(self) -> DecodeRunner:
+        if self._runner is None:
+            self._runner = DecodeRunner(
+                self.params, self.cache, self.rope, self.config,
+                attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
+                counters=self._counters, max_steps=self._decode_scan,
+                n_top_cap=self.n_top, top_k=self.defaults.top_k)
+        return self._runner
+
+    def _dispatch_scan(self, rows, n: int, n_top: int, budget,
+                       fresh: bool):
+        """Dispatch n decode steps of the runner (no fetch). fresh: load
+        the carry from the host mirrors; otherwise chain from the
+        previous burst's carry on the device."""
+        runner = self._decode_runner()
+        if fresh:
+            live = np.zeros(self.max_slots, bool)
+            live[rows] = True
+            runner.load(n_top, self._last_tok,
+                        np.minimum(self._pos, self.max_seq_len - 1), live,
+                        self._steps, self._temp, self._top_p,
+                        self._penalty)
+        return runner.run(n, budget, n_top)
+
     def _do_decode(self, decode_plan) -> None:
+        """One decode step of every planned row (a burst of one)."""
         t0 = time.perf_counter()
         rows = [s for _, s in decode_plan]
-        nxt, lp, tids, tlps = self._decode_device(
-            rows, n_top=self._n_top_for(rows))
+        budget = self._scan_budget(decode_plan, 1)
+        handle = self._dispatch_scan(rows, 1, self._n_top_for(rows), budget,
+                                     fresh=True)
+        fetched = DecodeRunner.fetch(handle)
         self.stats.steps += 1
         self.stats.decode_time_s += time.perf_counter() - t0
+        self._complete_scan(decode_plan, 1, fetched, budget)
+
+    def _scan_steps_for(self, decode_plan) -> int:
+        """Steps a burst when multi-step decode is safe right now: nobody
+        queued (a waiting request must not see its admission delayed by a
+        whole burst) and K more writes fit every row's window. Rows with
+        under K tokens of budget are fine (the step freezes each row at
+        its budget); only when EVERY row is on its last token is one step
+        the cheaper dispatch."""
+        n = self._decode_scan
+        if n <= 1 or self.scheduler.queue_depth > 0:
+            return 1
+        max_left = 0
+        for _, slot in decode_plan:
+            req = self._slot_req[slot]
+            if req is None:
+                return 1
+            max_left = max(max_left,
+                           req.max_new_tokens - len(req.out_tokens))
+            if self._pos[slot] + n >= self.max_seq_len:
+                return 1
+        return n if max_left > 1 else 1
+
+    def _scan_budget(self, decode_plan, n: int,
+                     shipped: Optional[dict] = None) -> np.ndarray:
+        """Per-row token allowance for one n-step burst: the request's
+        remaining max_new_tokens, minus tokens already dispatched in
+        not-yet-fetched bursts (`shipped`), capped at n. A row with 0
+        allowance is frozen by the step."""
+        budget = np.zeros(self.max_slots, np.int64)
+        for _, slot in decode_plan:
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            left = req.max_new_tokens - len(req.out_tokens)
+            if shipped:
+                left -= shipped.get(slot, 0)
+            budget[slot] = max(0, min(n, left))
+        return budget
+
+    def _host_attention_pending(self) -> bool:
+        """Something on the host side needs the run loop back: stop,
+        admissions waiting, or cancellations."""
+        with self._rid_lock:
+            cancels = bool(self._cancel_q)
+        return (self._stop.is_set() or self.scheduler.queue_depth > 0
+                or cancels)
+
+    def _drive_burst(self, dispatch, complete, can_chain) -> None:
+        """The double-buffered dispatch/fetch loop: dispatch burst k+1
+        (chained from k's carry on the device) BEFORE completing k, so
+        k's copy to the host and its emits overlap k+1's device work.
+        dispatch(state) -> (devs, state'); complete(devs) fetches and
+        emits one burst; can_chain(n_inflight) gates a dispatch after
+        the host-attention gate."""
+        inflight: list = []
+        state = None
+        while True:
+            chain = (not self._host_attention_pending()
+                     and can_chain(len(inflight)))
+            if chain:
+                devs, state = dispatch(state)
+                inflight.append(devs)
+            if not inflight:
+                break
+            if not chain or len(inflight) >= 2:
+                complete(inflight.pop(0))
+
+    def _decode_burst(self, decode_plan, n: int) -> None:
+        """Chained n-step bursts while nothing needs the host: each
+        dispatch is chained on the device from the previous burst's
+        carry, and `shipped` projects the stale host mirrors past the
+        bursts not yet fetched (budgets and the window guard). The
+        decode time is counted as each burst is fetched, before its
+        tokens are emitted, so a reader who sees a request retire also
+        sees the time that produced its tokens."""
+        clock = [time.perf_counter()]
+        rows = [s for _, s in decode_plan]
+        n_top = self._n_top_for(rows)
+        shipped: dict = {}
+
+        def can_chain(_n_inflight) -> bool:
+            return (self._scan_budget(decode_plan, n, shipped).any()
+                    and all(self._pos[s] + shipped.get(s, 0) + n
+                            < self.max_seq_len for s in rows))
+
+        def dispatch(state):
+            budget = self._scan_budget(decode_plan, n, shipped)
+            handle = self._dispatch_scan(rows, n, n_top, budget,
+                                         fresh=state is None)
+            for _, slot in decode_plan:
+                shipped[slot] = shipped.get(slot, 0) + int(budget[slot])
+            self.stats.steps += n
+            return (handle, budget), True
+
+        def complete(devs):
+            handle, budget = devs
+            fetched = DecodeRunner.fetch(handle)
+            now = time.perf_counter()
+            self.stats.decode_time_s += now - clock[0]
+            clock[0] = now
+            self._complete_scan(decode_plan, n, fetched, budget)
+            for _, slot in decode_plan:
+                shipped[slot] = shipped.get(slot, 0) - int(budget[slot])
+
+        self._drive_burst(dispatch, complete, can_chain)
+        self.stats.decode_time_s += time.perf_counter() - clock[0]
+
+    def _complete_scan(self, decode_plan, n: int, fetched, budget) -> None:
+        """Emit one fetched burst's tokens and advance the host mirrors.
+        A row emits min(its budget, EOS cut) tokens, where the step froze
+        it, so the mirrors advance by the emitted count."""
+        toks, lps, tops_i, tops_l = fetched
         for rid, slot in decode_plan:
             req = self._slot_req[slot]
             if req is None or req.rid != rid:
                 continue
-            self._emit(req, int(nxt[slot]), logprob=float(lp[slot]),
-                       top=self._top(tids, tlps, slot))
-
-    def _decode_device(self, rows, n_top: int) -> tuple:
-        """One ragged decode step + sample for the given slot rows."""
-        active = np.zeros(self.max_slots, bool)
-        active[rows] = True
-        tok_d, pos_d, act_d = self._device_rows(
-            self._last_tok[:, None], np.minimum(self._pos,
-                                                self.max_seq_len - 1),
-            active=active)
-        logits, self.cache = decode_step_ragged_paged(
-            self.params, tok_d, pos_d, act_d, self.cache, self.rope,
-            self.config, attn=self.paged_attn)
-        out = self._sample_rows(logits, rows=rows, n_top=n_top)
-        self._pos += active  # only active rows advanced
-        return out
+            pos0 = int(self._pos[slot])
+            emitted = 0
+            for j in range(int(budget[slot])):
+                # per-token position so _emit's cap check sees the value a
+                # single step would have had
+                self._pos[slot] = pos0 + j + 1
+                emitted = j + 1
+                self._last_tok[slot] = toks[slot, j]
+                self._emit(req, int(toks[slot, j]),
+                           logprob=float(lps[slot, j]),
+                           top=(list(zip(tops_i[slot, j].tolist(),
+                                         tops_l[slot, j].tolist()))
+                                if tops_i.size else []))
+                if req.done.is_set():
+                    break            # EOS/budget: the step froze it here too
+            self._steps[slot] += emitted
+            self._pos[slot] = pos0 + emitted
 
     # -- sampling ---------------------------------------------------------------
 
@@ -685,26 +847,23 @@ class InferenceEngine:
         return 0
 
     def _sample_rows(self, logits, rows: List[int], n_top: int) -> tuple:
-        """Sample all B rows; advance generators and rings only for
-        `rows` (an inactive slot's stream is untouched). Returns host
-        arrays (next ids, logprobs, top ids, top logprobs)."""
+        """The mixed step's sampling: all B rows; counters and rings
+        advance only for `rows` (an inactive slot's stream is untouched).
+        Returns host arrays (next ids, logprobs, top ids, top logprobs)."""
         B = self.max_slots
         in_rows = np.zeros(B, bool)
         in_rows[rows] = True
         dev = self.device
-        gens = [self._gens[b] if in_rows[b] else None for b in range(B)]
-        nxt, lp, top_ids, top_lps = sample_tokens_ragged(
-            gens, logits, self._ring,
+        nxt, counters, ring, lp, top_ids, top_lps = masked_sample(
+            torch.as_tensor(in_rows, device=dev), self._seeds,
+            self._counters, logits, self._ring,
+            torch.as_tensor(self._steps, device=dev),
             torch.as_tensor(self._temp, device=dev),
             torch.as_tensor(self._top_p, device=dev),
             torch.as_tensor(self._penalty, device=dev),
             top_k=self.defaults.top_k, n_top=n_top)
-        mask = torch.as_tensor(in_rows, device=dev)[:, None]
-        self._ring = torch.where(
-            mask, update_ring_per_row(self._ring, nxt,
-                                      torch.as_tensor(self._steps,
-                                                      device=dev)),
-            self._ring)
+        self._counters.copy_(counters)
+        self._ring.copy_(ring)
         nxt_h = nxt.cpu().numpy()
         for r in rows:
             self._steps[r] += 1

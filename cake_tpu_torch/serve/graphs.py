@@ -1,0 +1,247 @@
+"""The engine's pure-decode step, with sampling and the carry update, as
+one CUDA graph replayed K times a burst.
+
+Counterpart of the JAX engine's `make_decode_scan` (a jitted
+`lax.scan` of K ragged decode steps and their sampling): where JAX
+compiles the step once and runs K of them in one program, the runner
+captures ONE step over static buffers and replays it K times; each
+replay updates the carry in place and writes its outputs into column
+`col` of [B, K] burst buffers. The step is `forward_ragged_paged` plus
+`ops/sampling.masked_sample`, the same functions the eager path runs,
+with the JAX scan body's row rules:
+
+  * a row is live while it was active at the burst's start, has emitted
+    fewer than budget[b] tokens in this burst, and has not sampled an
+    EOS id; a frozen row writes no page (its write goes to the pool's
+    sink page), and keeps its counter, ring, token, position and step;
+  * the carry (token, position, step, live) stays on the card between
+    bursts, so burst k + 1 chains from burst k's end with no host round
+    trip; the host only writes the next budget.
+
+On the CPU the same step runs eagerly (`replay` calls it), which is how
+the tests drive the runner. On CUDA the step is captured on the first
+burst of each `n_top` variant (0, or the engine's top-logprobs cap, as
+JAX compiles two), after a warm-up on a side stream with every row
+frozen, so the warm-up changes no state the engine keeps. The pool,
+the table, the rope tables, the weights, the ring and the random
+streams live outside the graph's memory pool and are updated in place.
+
+Kernel launch counts (the `LAUNCHES` dicts of the kernel modules) are
+bumped in Python, which a replay never runs: the runner records each
+counter's increase during capture, takes it back out (a capture
+launches nothing), and adds it once per replay.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cake_tpu_torch.models.llama.paged import forward_ragged_paged
+from cake_tpu_torch.ops import flash_attention, int4_matmul
+from cake_tpu_torch.ops import ragged_paged_attention
+from cake_tpu_torch.ops.sampling import masked_sample
+
+# the kernel modules' launch counters
+COUNTERS = (ragged_paged_attention.LAUNCHES, int4_matmul.LAUNCHES,
+            flash_attention.LAUNCHES)
+
+
+def _snapshot() -> List[dict]:
+    return [dict(c) for c in COUNTERS]
+
+
+def _increase(before: List[dict]) -> List[dict]:
+    return [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+            for c, b in zip(COUNTERS, before)]
+
+
+def _add(delta: List[dict], times: int) -> None:
+    for c, d in zip(COUNTERS, delta):
+        for k, n in d.items():
+            c[k] += n * times
+
+
+class BurstHandle(NamedTuple):
+    """One dispatched burst: its step count, its n_top, and the host
+    copies of its outputs, ready once `event` has passed (None on the
+    CPU)."""
+
+    n: int
+    n_top: int
+    host: Tuple[torch.Tensor, ...]
+    event: Optional[torch.cuda.Event]
+
+
+class DecodeRunner:
+    """Static buffers, the captured step per `n_top` variant, and the
+    burst protocol: `load` (a fresh burst from the host mirrors), then
+    `run` (K replays, outputs copied to host behind an event; chained
+    bursts call `run` again without `load`), then `fetch`."""
+
+    def __init__(self, params, cache, rope, config, *, attn: str,
+                 ring: torch.Tensor, seeds: torch.Tensor,
+                 counters: torch.Tensor, max_steps: int, n_top_cap: int,
+                 top_k: Optional[int]):
+        dev = ring.device
+        B = ring.shape[0]
+        self.device = dev
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config, self.attn, self.top_k = config, attn, top_k
+        self.ring, self.seeds, self.counters = ring, seeds, counters
+        self.B = B
+
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        # the carry
+        self.tok = zeros(B, dtype=torch.int64)
+        self.pos = zeros(B, dtype=torch.int32)
+        self.live = zeros(B, dtype=torch.bool)
+        self.steps = zeros(B, dtype=torch.int64)
+        # per burst
+        self.steps_in = zeros(B, dtype=torch.int64)
+        self.budget = zeros(B, dtype=torch.int64)
+        self.col = zeros(1, dtype=torch.int64)
+        # per request, fixed while a burst chain runs
+        self.temp = zeros(B, dtype=torch.float32)
+        self.top_p = zeros(B, dtype=torch.float32)
+        self.penalty = zeros(B, dtype=torch.float32)
+        self.eos = torch.tensor(list(config.eos_token_ids) or [-1],
+                                dtype=torch.int64, device=dev)
+        # the last step's logits (what a comparison of two runs reads)
+        self.logits = zeros(B, config.vocab_size, dtype=torch.float32)
+        # each replay's outputs, in its column
+        self.out = (zeros(B, max_steps, dtype=torch.int64),
+                    zeros(B, max_steps, dtype=torch.float32),
+                    zeros(B, max_steps, n_top_cap, dtype=torch.int64),
+                    zeros(B, max_steps, n_top_cap, dtype=torch.float32))
+        self._cuda = dev.type == "cuda"
+        # two host copies of the outputs, used in turn (double buffering)
+        self._host = [tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=self._cuda)
+                            for t in self.out) for _ in range(2)]
+        self._turn = 0
+        self._graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, list]] = {}
+
+    # -- the step ---------------------------------------------------------------
+
+    def step(self, n_top: int) -> None:
+        """One decode step over the static buffers, in place (the JAX
+        scan body)."""
+        live = self.live & ((self.steps - self.steps_in) < self.budget)
+        logits, _ = forward_ragged_paged(
+            self.params, self.tok[:, None], self.cache, self.pos, live,
+            self.rope, self.config, attn=self.attn)
+        nxt, counters, ring, lp, t_i, t_l = masked_sample(
+            live, self.seeds, self.counters, logits, self.ring, self.steps,
+            self.temp, self.top_p, self.penalty, top_k=self.top_k,
+            n_top=n_top)
+        self.logits.copy_(logits)
+        self.counters.copy_(counters)
+        self.ring.copy_(ring)
+        self.tok.copy_(torch.where(live, nxt, self.tok))
+        self.pos.add_(live.to(torch.int32))
+        self.steps.add_(live.to(torch.int64))
+        eos = (nxt[:, None] == self.eos[None, :]).any(dim=-1)
+        self.live.copy_(live & ~eos)
+        tok_o, lp_o, ti_o, tl_o = self.out
+        tok_o.index_copy_(1, self.col, nxt[:, None])
+        lp_o.index_copy_(1, self.col, lp[:, None])
+        if n_top:
+            ti_o.index_copy_(1, self.col, t_i[:, None])
+            tl_o.index_copy_(1, self.col, t_l[:, None])
+        self.col.add_(1)
+
+    def _graph(self, n_top: int):
+        """The captured step of this variant, captured at first use: a
+        warm-up on a side stream with every row frozen (budget 0: the
+        writes land on the sink page and the carry, counters and ring
+        keep their values), then the capture."""
+        got = self._graphs.get(n_top)
+        if got is not None:
+            return got
+        self.live.zero_()
+        self.budget.zero_()
+        self.col.zero_()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.step(n_top)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = _snapshot()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.step(n_top)
+        delta = _increase(before)
+        _add(delta, -1)              # the capture launched nothing
+        self._graphs[n_top] = got = (graph, delta)
+        return got
+
+    def replay(self, n_top: int) -> None:
+        """One step: the graph's replay on CUDA (its kernels' launches
+        counted), the eager step on the CPU."""
+        if not self._cuda:
+            self.step(n_top)
+            return
+        graph, delta = self._graph(n_top)
+        graph.replay()
+        _add(delta, 1)
+
+    # -- the burst protocol -------------------------------------------------------
+
+    def _put(self, dst: torch.Tensor, values) -> None:
+        """Host values into a device buffer; on the card from pinned
+        memory, so the host does not wait for the stream."""
+        src = torch.as_tensor(np.asarray(values)).to(dst.dtype)
+        if self._cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def load(self, n_top: int, tok, pos, live, steps, temp, top_p,
+             penalty) -> None:
+        """Start a burst chain from the host mirrors ([B] each)."""
+        if self._cuda:
+            self._graph(n_top)       # before the carry: warm-up clears it
+        for dst, v in ((self.tok, tok), (self.pos, pos), (self.live, live),
+                       (self.steps, steps), (self.temp, temp),
+                       (self.top_p, top_p), (self.penalty, penalty)):
+            self._put(dst, v)
+
+    def begin(self, budget) -> None:
+        """Open a burst: row b may emit budget[b] more tokens, written
+        from column 0 of the output buffers."""
+        self._put(self.budget, budget)
+        self.steps_in.copy_(self.steps)
+        self.col.zero_()
+
+    def run(self, n: int, budget, n_top: int) -> BurstHandle:
+        """n steps (n <= max_steps) from the carry on the card, row b emitting at
+        most budget[b] tokens; the outputs' copy to the host is
+        dispatched, not waited for."""
+        self.begin(budget)
+        for _ in range(n):
+            self.replay(n_top)
+        host = self._host[self._turn]
+        self._turn ^= 1
+        for h, o in zip(host, self.out):
+            h.copy_(o, non_blocking=True)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return BurstHandle(n, n_top, host, event)
+
+    @staticmethod
+    def fetch(handle: BurstHandle) -> tuple:
+        """The burst's outputs as host arrays: tokens and logprobs
+        [B, n], top ids and logprobs [B, n, n_top]."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        n, k = handle.n, handle.n_top
+        tok, lp, ti, tl = handle.host
+        return (tok[:, :n].numpy().copy(), lp[:, :n].numpy().copy(),
+                ti[:, :n, :k].numpy().copy(), tl[:, :n, :k].numpy().copy())

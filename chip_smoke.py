@@ -3,6 +3,7 @@
     python3 chip_smoke.py                 # every phase, one H100
     python3 chip_smoke.py --phases kernels,step
     python3 chip_smoke.py --phases device,generate --profile
+    python3 chip_smoke.py --phases device,serve --tree DIR  # a parent's serve
     python3 chip_smoke.py --phases device,kernels --kernels rpa_decode,flash_attn \
         --tree DIR            # the same cases over the package in DIR
 
@@ -42,7 +43,15 @@ Phases, in order (any failure exits non-zero):
             and decode_step logits and caches with flash on vs off; with
             int4 weights (quantize_params on the card) the dense and the
             paged decode step, kernel vs plain logits, and one prefill
-            (M > 64) down the dequantize route.
+            (M > 64) down the dequantize route. Then at full width and
+            depth (the 32-layer random bf16 weights, and later int4
+            weights) the engine's decode step as serve/graphs.DecodeRunner
+            runs it: K = 4 replays of the captured CUDA graph against the
+            same step run 4 times eagerly from identical pools, over a
+            bf16, an int8 and an int4 pool (int4 weights: bf16 pool);
+            identical tokens, byte-identical pages, the last step's
+            logits' difference (0 expected), 4 x 32 decode launches a
+            side, the replay's device ms and the eager step's host ms.
   generate  32-layer Llama-3-8B-width bf16 weights (random), sequential
             generator behind Master.generate_text: a ~1000-token prompt
             (bucket 1024, one flash_attn launch per layer) and a
@@ -53,13 +62,19 @@ Phases, in order (any failure exits non-zero):
             behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
             launches per decode step and no plain call; a few tokens
             with int8 weights; and the command line with --quant int4.
-  serve     the same weights behind the HTTP API: concurrent chat
-            requests, buffered and SSE, through the paged engine, over a
-            bf16 pool, then --kv-dtype int8, then int4; each run's two
-            ragged kernels must have run and no plain fold. Then the
-            int4 weights over the bf16 pool: 224 int4_matmul launches
-            per decode step (with --profile, their launches and device
-            time).
+  serve     the same weights behind the HTTP API: six concurrent chat
+            requests (three SSE) of 32 tokens through the paged engine,
+            over a bf16 pool at --decode-scan 1 and 4, then int8 and int4
+            pools at 4, then int4 weights over a bf16 pool at 4. Each
+            configuration drives the chats three times through one
+            engine (cold, warm, warm under torch.profiler) and prints
+            decode tok/s, TTFT p50, the served wall and (profiled) the
+            device's busy share; its kernels must have run (replays of
+            the captured decode step counted) and no plain version; int4
+            weights: 7 int4_matmul launches per rpa_decode launch. A
+            tree without the captured step (--tree of a parent) serves
+            at --decode-scan 1 only. A `serve` JSON line holds the
+            drives' records.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -68,6 +83,7 @@ The line before last is a JSON `kernels` record; the last line is
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -867,8 +883,7 @@ def phase_step(torch, rpa, fa, i4) -> None:
     active = q_len > 0
     out = {}
     for attn in ("kernel", "plain"):
-        cache = PagedKVCache(base.k.clone(), base.v.clone(),
-                             base.table.clone())
+        cache = base.clone()
         lm, _ = mixed_step_paged(params, tokens, pos, q_len, active,
                                  cache, rope, cfg, attn=attn)
         dpos = pos + q_len.clamp(min=1) - 1 + 1
@@ -942,8 +957,7 @@ def _quant_steps(torch, rpa, cfg, params, rope, gen) -> None:
                 qwrite_prompt_pages(leaf, vals, every)
         out = {}
         for attn in ("kernel", "plain"):
-            cache = cls(*(type(h)(h.q.clone(), h.scale.clone())
-                          for h in (base.k, base.v)), base.table.clone())
+            cache = base.clone()
             rpa.reset_launch_counts()
             lm, _ = mixed_step_paged(params, tokens, pos, q_len, active,
                                      cache, rope, cfg, attn=attn)
@@ -1159,6 +1173,127 @@ def _int4_steps(torch, i4, cfg, params, rope, gen) -> None:
     del dq, logits
     del qparams, out, base_k, base_v
     torch.cuda.empty_cache()
+
+
+# logits of the captured step against the same step run eagerly: the
+# same kernels on the same inputs in the same order, so 0 is expected
+GRAPH_TOL = 0.0
+
+
+def _graph_steps(torch, rpa, i4, cfg, params,
+                 int4_weights: bool = False) -> None:
+    """The engine's decode step at full width and depth: K = 4 replays of
+    the captured step (`serve/graphs.DecodeRunner`) against the same
+    step run 4 times eagerly, from identical pools: bf16 weights over a
+    bf16, an int8 and an int4 pool, int4 weights over a bf16 pool. Eight slots of 16 pages: six live rows at ragged
+    positions (one with a budget of 2, so it freezes mid-burst), one
+    inactive mapped row, one unmapped. Greedy tokens must be identical,
+    the real pages byte-identical and the last step's logits within
+    GRAPH_TOL; each side launches 4 x L decode kernels (7 x 4 x L int4
+    products with int4 weights) and no plain version."""
+    import numpy as np
+
+    from cake_tpu_torch.kv.quantized_pool import (
+        QUANTIZED_CACHES, qwrite_prompt_pages,
+    )
+    from cake_tpu_torch.models.llama.model import RopeTables
+    from cake_tpu_torch.models.llama.paged import (
+        PagedKVCache, table_set_slot,
+    )
+    from cake_tpu_torch.serve.graphs import DecodeRunner
+
+    dev = "cuda"
+    B, P, T, N, K = 8, 128, 2048, 128, 4
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rope = RopeTables.create(cfg, T, device=dev)
+    pos = np.array([100, 400, 1000, 1500, 129, 7, 300, 0])
+    live = np.array([True] * 6 + [False, False])
+    budget = np.array([K, K, K, K, 2, K, K, K])
+    toks = np.arange(B) * 1009 % cfg.vocab_size
+    label = "int4 weights" if int4_weights else "bf16 weights"
+    for kv in ((None,) if int4_weights else (None, "int8", "int4")):
+        if kv is None:
+            base = PagedKVCache.create(cfg, B, N, P, T, dtype=torch.bfloat16,
+                                       device=dev)
+            base.k.normal_(generator=gen)
+            base.v.normal_(generator=gen)
+        else:
+            base = QUANTIZED_CACHES[kv].create(cfg, B, N, P, T, device=dev)
+            every = torch.arange(N, dtype=torch.int32, device=dev)
+            for i in range(L):
+                for leaf in base.layer(i):
+                    vals = torch.randn((1, N * P, KV, hd), generator=gen,
+                                       device=dev)
+                    qwrite_prompt_pages(leaf, vals, every)
+        for b in range(B - 1):                  # slot 7: every page unmapped
+            table_set_slot(base.table, b, list(range(16 * b, 16 * b + 16)))
+        runs = {}
+        for mode in ("graph", "eager"):
+            cache = base.clone()
+            runner = DecodeRunner(
+                params, cache, rope, cfg, attn="kernel",
+                ring=torch.full((B, 128), -1, dtype=torch.int64, device=dev),
+                seeds=torch.arange(B, device=dev),
+                counters=torch.zeros(B, dtype=torch.int64, device=dev),
+                max_steps=K, n_top_cap=20, top_k=None)
+            runner.load(0, toks, pos, live, np.zeros(B, np.int64),
+                        np.zeros(B, np.float32), np.ones(B, np.float32),
+                        np.full(B, 1.1, np.float32))
+            torch.cuda.synchronize()
+            rpa.reset_launch_counts()
+            i4.reset_launch_counts()
+            if mode == "graph":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                handle = runner.run(K, budget, 0)
+                b.record()
+                out = DecodeRunner.fetch(handle)[0]
+                ms = a.elapsed_time(b) / K
+            else:
+                runner.begin(budget)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(K):
+                    runner.step(0)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / K
+                out = runner.out[0][:, :K].cpu().numpy()
+            counts = {**rpa.LAUNCHES, **i4.LAUNCHES}
+            runs[mode] = (out, runner.logits.clone(), cache, counts, ms)
+            del runner
+        (tg, lg, cg, ng, ms_g), (te, le, ce, ne, ms_e) = (runs["graph"],
+                                                          runs["eager"])
+        name = f"{label}, {kv or 'bf16'} pool"
+        rows = torch.as_tensor(np.flatnonzero(live & (budget == K)),
+                               device=dev)
+        err = (lg[rows] - le[rows]).abs().max().item()
+        log(f"step graph ({name}): {K} replays {ms_g:.3f} ms a step "
+            f"(device, CUDA events), eager step {ms_e:.3f} ms (host, "
+            f"synchronized); tokens {tg[live].tolist()}; last step's logits "
+            f"max |graph - eager| = {err:.3e} (tol {GRAPH_TOL})")
+        if not np.array_equal(tg, te):
+            fail(f"step graph ({name}): tokens differ:\n{tg}\n{te}")
+        if not torch.isfinite(lg[rows]).all() or err > GRAPH_TOL:
+            fail(f"step graph ({name}): logits differ by {err:.3e}")
+        pages = ((cg.k, ce.k), (cg.v, ce.v))
+        if kv is not None:
+            pages = tuple((x, y) for a, b in pages for x, y in zip(a, b))
+        if not all(torch.equal(x, y) for x, y in pages):
+            fail(f"step graph ({name}): the written pages differ")
+        suffix = {"int8": "_q8", "int4": "_q4"}.get(kv, "")
+        want = {"rpa_decode" + suffix: K * L}
+        if int4_weights:
+            want["int4_matmul"] = 7 * K * L
+        for mode, n in (("graph", ng), ("eager", ne)):
+            got = {k: n[k] for k in want}
+            plain = {k: v for k, v in n.items() if k.endswith("_plain") and v}
+            if got != want or plain:
+                fail(f"step graph ({name}, {mode}): launches {got}, plain "
+                     f"{plain}; expected {want} and no plain call")
+        del runs, base, cg, ce
+        torch.cuda.empty_cache()
 
 
 # -- phase: serve --------------------------------------------------------------
@@ -1457,15 +1592,27 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
     return q4, counts
 
 
-def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
-                profile: bool = False, i4=None) -> dict:
+# the serve phase's three drives of the same six chats through one engine
+SERVE_DRIVES = ("cold", "warm", "profiled")
+
+
+def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
+                decode_scan: int = 1) -> tuple:
     """Six concurrent chats (three SSE) of 32 greedy tokens through the
     HTTP API and the paged engine, over a bf16 pool or with kv_dtype
-    "int8"/"int4" a quantized one. Returns the launch counts of the two
-    kernels that pool's attention runs, read right after the run, and
-    the pool's GiB. With `i4` (the int4 matmul module) `params` hold int4
-    weights: its launches are counted and returned too, 7 per layer and
-    decode step (a mixed step's 8 x 64 rows take the dequantize route)."""
+    "int8"/"int4" a quantized one, at --decode-scan `decode_scan` (the
+    option left out for a tree whose Args lack it). Three drives of the
+    same chats through one engine: cold (the first, which captures the
+    decode graphs), warm, and warm under torch.profiler (the device's
+    busy share of the drive's wall). Each prints decode tok/s (the
+    engine's tokens over its decode time in the drive), TTFT p50 and the
+    served wall. Returns (launch counts of the kernels the path runs,
+    read after the three drives; the pool's GiB; the drives' records).
+    With `i4` (the int4 matmul module) `params` hold int4 weights: its
+    launches are counted too, 7 per layer and decode step (a mixed
+    step's 8 x 64 rows take the dequantize route)."""
+    import dataclasses
+
     from cake_tpu_torch.api.server import start
     from cake_tpu_torch.args import Args
     from cake_tpu_torch.master import Master
@@ -1475,10 +1622,17 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     from cake_tpu_torch.ops.sampling import SamplingConfig
 
     dev = "cuda"
+    scan = ({"decode_scan": decode_scan}
+            if "decode_scan" in {f.name for f in dataclasses.fields(Args)}
+            else {})
+    if decode_scan != 1 and not scan:
+        fail("this tree's Args have no decode_scan")
     args = Args(max_slots=8, max_seq_len=2048, kv_pages=128,
                 kv_page_size=128, prefill_chunk=64, temperature=0.0,
-                sample_len=32, dtype="bf16", kv_dtype=kv_dtype).validate()
-    label = f"serve ({kv_dtype or 'bf16'} pool{', int4 weights' if i4 else ''})"
+                sample_len=32, dtype="bf16", kv_dtype=kv_dtype,
+                **scan).validate()
+    label = (f"serve ({kv_dtype or 'bf16'} pool"
+             f"{', int4 weights' if i4 else ''}, decode_scan {decode_scan})")
     gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
                          max_seq_len=2048,
                          sampling=SamplingConfig(temperature=0.0),
@@ -1545,24 +1699,57 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
     rpa.reset_launch_counts()
     if i4 is not None:
         i4.reset_launch_counts()
-    prof_rows = []
-    wall = _profiled(torch, profile, label, drive, prof_rows)
-    # an SSE client reads its last chunk before the engine releases the
-    # request's pages and retires it, so wait for the engine to retire
-    # every request before reading its records
-    deadline = time.monotonic() + 30.0
-    while len(engine.retired) < len(prompts) and time.monotonic() < deadline:
-        time.sleep(0.01)
+    stats = engine.stats
+    records = []
+    for run in SERVE_DRIVES:
+        results[:] = [None] * len(prompts)
+        tok0, dec0, steps0 = (stats.tokens_generated, stats.decode_time_s,
+                              stats.steps)
+        n0 = len(engine.retired)
+        prof_rows = []
+        wall = _profiled(torch, run == "profiled", f"{label} [{run}]", drive,
+                         prof_rows)
+        # an SSE client reads its last chunk before the engine releases
+        # the request's pages and retires it, so wait for the engine to
+        # retire every request before reading its records
+        deadline = time.monotonic() + 30.0
+        while (len(engine.retired) < n0 + len(prompts)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        for i, r in enumerate(results):
+            if r is None or r.get("status") != 200:
+                fail(f"{label} [{run}] request {i} failed: {r}")
+        retired = list(engine.retired)[n0:]
+        n_tok = [len(r.out_tokens) for r in retired]
+        if len(retired) != len(prompts) or any(n != 32 for n in n_tok):
+            fail(f"{label} [{run}]: expected {len(prompts)} requests of 32 "
+                 f"tokens, got {n_tok}")
+        dec = stats.decode_time_s - dec0
+        rec = dict(
+            label=label, run=run, wall_s=wall,
+            decode_tok_s=(stats.tokens_generated - tok0) / dec if dec else 0,
+            ttft_p50_s=statistics.median(r.first_token_t - r.submit_t
+                                         for r in retired),
+            steps=stats.steps - steps0,
+            busy=(sum(t for t, _, _ in prof_rows) / 1e6 / wall
+                  if prof_rows else None))
+        records.append(rec)
+        log(f"{label} [{run}]: decode {rec['decode_tok_s']:.1f} tok/s, TTFT "
+            f"p50 {rec['ttft_p50_s']:.3f} s, wall {wall:.2f} s, "
+            f"{rec['steps']} engine steps"
+            + (f", device busy {100 * rec['busy']:.1f}%"
+               if rec["busy"] is not None else ""))
     counts = dict(rpa.LAUNCHES)
     if i4 is not None:
         counts.update(i4.LAUNCHES)
-    stats = engine.stats
-    retired = list(engine.retired)
+    mine = [(t, n) for t, n, name in prof_rows if "::int4_" in name]
     httpd.shutdown()
     httpd.server_close()
     engine.stop()
     gib = engine.cache.memory_bytes() / 2**30
-    log(f"{label}: launches {counts}")
+    log(f"{label}: launches {counts}; pool {gib:.3f} GiB (the sink page "
+        f"included); pool pages free {engine._pager.free_pages}/"
+        f"{engine.cache.n_pages}")
     suffix = {"int8": "_q8", "int4": "_q4"}.get(kv_dtype, "")
     if hasattr(rpa, "mixed_split_plan"):
         # the served shapes' mixed body, asked of the wrapper's gate on
@@ -1578,21 +1765,6 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
         q = torch.zeros((8, 64, H, hd), dtype=torch.bfloat16, device=dev)
         log(f"{label}: rpa_mixed{suffix} at B = 8, C = 64, 16 table "
             f"columns: {_mixed_body(rpa, q, pool, pool, kw, 16, 128)}")
-    for i, r in enumerate(results):
-        log(f"{label} request {i}: {r}")
-        if r is None or r.get("status") != 200:
-            fail(f"{label} request {i} failed: {r}")
-    n_tok = [len(r.out_tokens) for r in retired]
-    ttfts = [r.first_token_t - r.submit_t for r in retired]
-    log(f"{label}: {len(retired)} requests retired, generated tokens "
-        f"{n_tok}; TTFT p50 {statistics.median(ttfts):.3f} s; aggregate "
-        f"decode {stats.decode_tokens_per_s:.1f} tok/s over "
-        f"{stats.decode_time_s:.2f} s of decode; {stats.steps} engine "
-        f"steps; wall {wall:.2f} s; pool {gib:.3f} GiB; "
-        f"pool pages free {engine._pager.free_pages}/{engine.cache.n_pages}")
-    if len(retired) != len(prompts) or any(n != 32 for n in n_tok):
-        fail(f"{label}: expected {len(prompts)} requests of 32 tokens, got "
-             f"{n_tok}")
     if engine._pager.free_pages != engine.cache.n_pages:
         fail(f"{label}: pages leaked after every request retired")
     served = [b + suffix for b in ("rpa_decode", "rpa_mixed")]
@@ -1605,11 +1777,10 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
         fail(f"{label}: plain folds ran on the served path: {ran_plain}")
     if i4 is not None:
         served.append("int4_matmul")
-        mine = [(t, n) for t, n, name in prof_rows if "::int4_" in name]
         if mine:
             log(f"{label}: int4_matmul kernels {sum(n for _, n in mine)} "
                 f"launches, {sum(t for t, _ in mine) / 1e3:.2f} ms of "
-                f"device time (profiled)")
+                f"device time (profiled drive)")
         L = cfg.num_hidden_layers
         want = 7 * counts["rpa_decode" + suffix]     # 32 per decode step
         if counts["int4_matmul"] != want or want <= 0:
@@ -1617,7 +1788,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None,
                  f"expected {want} (7 x {L} per decode step)")
     del engine, master, gen, httpd
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in served}, gib
+    return {k: counts[k] for k in served}, gib, records
 
 
 def main(argv=None) -> int:
@@ -1625,10 +1796,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace generate run A, run B's prefill and the "
-                         "serve runs with "
+                    help="trace generate run A and run B's prefill with "
                          "torch.profiler and print where the device time "
-                         "went")
+                         "went (the serve phase always profiles its third "
+                         "drive)")
     ap.add_argument("--kernels", default="",
                     help="comma list of kernel names: the kernels phase "
                          "runs only these (a parent-against-change aid)")
@@ -1674,22 +1845,32 @@ def main(argv=None) -> int:
             else {})
     if "step" in phases:
         phase_step(torch, rpa, fa, i4)
+    # the captured decode step and --decode-scan exist in this tree (a
+    # parent tree without them serves at decode_scan 1 only)
+    graphs = importlib.util.find_spec("cake_tpu_torch.serve.graphs")
+    scans = (1, 4) if graphs else (1,)
     # launch counts of each path, read right after it ran (null in the
     # kernels line, not 0, when its phase did not run)
     counts = {}
-    if "generate" in phases or "serve" in phases:
+    serve_records = []
+    if {"step", "generate", "serve"} & set(phases):
         cfg, params = _big_params(torch)
+        if "step" in phases and graphs:
+            _graph_steps(torch, rpa, i4, cfg, params)
         if "generate" in phases:
             counts.update(phase_generate(torch, fa, cfg, params,
                                          profile=a.profile))
         if "serve" in phases:
             pools = {}
-            for kv in (None, "int8", "int4"):
-                got, pools[kv or "bf16"] = phase_serve(
-                    torch, rpa, cfg, params, kv_dtype=kv,
-                    profile=a.profile)
+            runs = [(None, k) for k in scans] + [
+                (kv, scans[-1]) for kv in ("int8", "int4")]
+            for kv, k in runs:
+                got, pools[kv or "bf16"], recs = phase_serve(
+                    torch, rpa, cfg, params, kv_dtype=kv, decode_scan=k)
                 counts.update(got)
-            log("serve pools (128 pages x 128 tokens, 32 layers): "
+                serve_records += recs
+            log("serve pools (128 pages x 128 tokens + the sink, 32 "
+                "layers): "
                 + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
         # the weight-quantized path, after the bf16 tree is dropped
         del params
@@ -1698,19 +1879,30 @@ def main(argv=None) -> int:
         if "generate" in phases:
             q4, got = phase_generate_quant(torch, i4, cfg)
             counts["int4_matmul"] = got["int4_matmul"]
+        if q4 is None and ("serve" in phases
+                           or ("step" in phases and graphs)):
+            from cake_tpu_torch.models.llama.params import (
+                init_params_quantized,
+            )
+            q4 = init_params_quantized(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda", dtype=torch.bfloat16, bits=4)
+        if "step" in phases and graphs:
+            _graph_steps(torch, rpa, i4, cfg, q4, int4_weights=True)
         if "serve" in phases:
-            if q4 is None:
-                from cake_tpu_torch.models.llama.params import (
-                    init_params_quantized,
-                )
-                q4 = init_params_quantized(
-                    cfg, torch.Generator(device="cuda").manual_seed(0),
-                    device="cuda", dtype=torch.bfloat16, bits=4)
-            got, _ = phase_serve(torch, rpa, cfg, q4, profile=a.profile,
-                                 i4=i4)
+            got, _, recs = phase_serve(torch, rpa, cfg, q4, i4=i4,
+                                       decode_scan=scans[-1])
+            serve_records += recs
             # the ragged kernels' counts stay those of the bf16-weight run
             counts["int4_matmul"] = (counts.get("int4_matmul", 0)
                                      + got["int4_matmul"])
+    for r in serve_records:
+        busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
+        log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
+            f"{r['decode_tok_s']:8.1f} tok/s  TTFT p50 {r['ttft_p50_s']:.3f} s"
+            f"  wall {r['wall_s']:6.2f} s  busy {busy}")
+    if serve_records:
+        print(json.dumps({"serve": serve_records}), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -141,7 +141,8 @@ def test_update_ring_per_row_matches_jax():
 
 def test_sample_tokens_ragged_greedy_identical_to_jax():
     """Greedy rows pick identical ids with identical logprobs and top-N;
-    a sampled row draws from its own generator, inside its top-p set."""
+    a sampled row draws from its own counter-based stream, inside its
+    top-p set."""
     rng = np.random.default_rng(5)
     logits = rng.normal(size=(4, 64)).astype(np.float32) * 4
     ring = rng.integers(-1, 64, size=(4, 8)).astype(np.int32)
@@ -152,9 +153,9 @@ def test_sample_tokens_ragged_greedy_identical_to_jax():
     j_ids, j_lp, j_ti, j_tl = j_samp.sample_tokens_ragged(
         keys, jnp.asarray(logits), jnp.asarray(ring), jnp.asarray(temp),
         jnp.asarray(top_p), jnp.asarray(pen), n_top=3)
-    gens = [torch.Generator().manual_seed(b) for b in range(4)]
+    seeds, counters = torch.arange(4), torch.zeros(4, dtype=torch.int64)
     t_ids, t_lp, t_ti, t_tl = t_samp.sample_tokens_ragged(
-        gens, torch.from_numpy(logits), torch.from_numpy(ring),
+        seeds, counters, torch.from_numpy(logits), torch.from_numpy(ring),
         torch.from_numpy(temp), torch.from_numpy(top_p),
         torch.from_numpy(pen), n_top=3)
     np.testing.assert_array_equal(t_ids[:3].numpy(), np.asarray(j_ids)[:3])

@@ -56,6 +56,13 @@ def _torch_pool(jpool):
                scale=torch.from_numpy(np.array(jpool.scale)))
 
 
+def _with_sink(tpool):
+    """The pool with one more (zero) page past the real ones: the decode
+    writer's sink."""
+    return type(tpool)(*(torch.cat([t, torch.zeros_like(t[:1])])
+                         for t in tpool))
+
+
 def _same(tpool, jpool):
     np.testing.assert_array_equal(tpool.q.numpy(), np.asarray(jpool.q))
     np.testing.assert_array_equal(tpool.scale.numpy(),
@@ -116,8 +123,11 @@ def test_update_pool_per_row_bit_identical(fmt):
     pos = np.array([P, 2 * P - 3, P + 1, 5], np.int32)
     active = np.array([True, True, True, False])
     jp2 = j_update(jpool, *_j(vals, pos, active, table))
-    tp2 = tq.qupdate_pool_per_row(tpool, *_t(vals, pos, active, table))
-    _same(tp2, jp2)
+    # the port's pool carries the sink page past the real ones, where the
+    # rows JAX drops (the unmapped page, the inactive row) land
+    tp2 = tq.qupdate_pool_per_row(_with_sink(tpool),
+                                  *_t(vals, pos, active, table))
+    _same(type(tp2)(tp2.q[:N], tp2.scale[:N]), jp2)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -238,8 +248,11 @@ def test_caches_match_jax_shapes_and_bytes(fmt):
     assert str(tc.k.q.dtype).split(".")[-1] == jc.k.q.dtype.name
     assert tuple(tc.k.scale.shape) == tuple(jc.k.scale.shape)
     np.testing.assert_array_equal(tc.table.numpy(), np.asarray(jc.table))
-    assert tc.memory_bytes() == jc.memory_bytes()
-    assert tc.memory_bytes() == N * tq.page_bytes(cfg_t, P, fmt)
+    # the storage holds one more page than JAX's, the sink
+    assert tc.memory_bytes() == (jc.memory_bytes()
+                                 + tq.page_bytes(cfg_t, P, fmt))
+    assert tc.memory_bytes() == (N + 1) * tq.page_bytes(cfg_t, P, fmt)
+    assert tuple(tc.layer(0)[0].q.shape)[0] == N + 1
     with pytest.raises(ValueError, match="must divide"):
         tcls.create(cfg_t, 1, N, P, 4 * P + 1, device="cpu")
     if fmt == "int4":
