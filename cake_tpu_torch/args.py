@@ -63,18 +63,32 @@ class Args:
     # attention over the pages: "kernel" = the CUDA kernels, "plain" =
     # their PyTorch folds, "auto" = kernel on CUDA tensors, plain on CPU
     paged_attn: str = "auto"
-    # token-level continuous batching (the port has only "auto"/"on")
+    # --mixed-batch: token-level continuous batching of the paged engine;
+    # "auto"/"on" = admissions' prefill windows join the next mixed step
+    # beside the decode rows, "off" = the phase-split loop (prefill each
+    # admission alone, then decode)
     mixed_batch: str = "auto"
+    # --auto-prefix: the API engine prefills each distinct system
+    # prompt's rendered head once, rounded down to a page, into shared
+    # pool pages mapped read-only (refcounted) at the head of every
+    # matching slot's table row, so conversations sharing it prefill
+    # only their own turns
+    auto_prefix: bool = False
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --decode-scan is at least 1; --kv-dtype int8 and
+        int8 or int4; --decode-scan is at least 1; --mixed-batch is auto,
+        on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
         name must be a dtype. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         if self.decode_scan < 1:
             raise ValueError("--decode-scan must be >= 1")
+        if self.mixed_batch not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unsupported mixed_batch '{self.mixed_batch}' "
+                "(choose auto, on or off)")
         if self.kv_dtype in QUANTIZED_CACHES:
             if not self.kv_pages:
                 raise ValueError(

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from cake_tpu_torch.utils.devices import resolve_dtype
+from cake_tpu_torch.utils.devices import resolve_dtype, to_device
 
 # symmetric int8 range and the amax floor
 _QMAX = 127.0
@@ -297,10 +297,12 @@ def reset_page_scales(cache, pages):
     fresh page's first incremental write sets its own scale instead of
     inheriting a previous occupant's amax (which would quantize a new
     request's small values to ~0). Returns the cache."""
-    idx = torch.as_tensor(list(pages), dtype=torch.long,
-                          device=cache.k.scale.device)
-    cache.k.scale[:, idx] = 0.0
-    cache.v.scale[:, idx] = 0.0
+    idx = to_device(torch.tensor(list(pages), dtype=torch.long),
+                    cache.k.scale.device)
+    # index_fill_, not `[:, idx] = 0.0`: a scalar set through an index
+    # copies the scalar up from the host and waits for the stream
+    cache.k.scale.index_fill_(1, idx, 0.0)
+    cache.v.scale.index_fill_(1, idx, 0.0)
     return cache
 
 
@@ -321,6 +323,17 @@ def decode_targets(pos, active, table, P: int, sink: int):
     keep = active & (pages >= 0)
     pages = torch.where(keep, pages, torch.full_like(pages, sink))
     return rows, torch.zeros_like(rows), pages, pos.long() % P
+
+
+def prompt_targets(table_row, S: int, P: int):
+    """(windows, pages) of an S-token prompt write at position 0: the
+    windows j (positions [jP, (j+1)P)) whose page table_row[j] is
+    mapped, and those pages; unmapped windows write nothing. A row on
+    the device costs one wait for the stream: the prefills compute the
+    targets on the host (`models/llama/paged.py`)."""
+    pages = table_row[:-(-S // P)].long()
+    win = (pages >= 0).nonzero(as_tuple=True)[0]
+    return win, pages[win]
 
 
 class WindowTargets(NamedTuple):
@@ -375,14 +388,16 @@ def window_page_targets(pos, q_len, active, table, P: int,
 
 
 def qwrite_prompt_pages(pool, vals: torch.Tensor, table_row: torch.Tensor,
-                        n_real=None):
+                        n_real=None, targets=None):
     """Page-ALIGNED prompt windows [1, S, KV, hd] fully overwrite their
     pages, so each window quantizes fresh (scale from its own amax) and
     both q and scale are stored in one write; unmapped windows write
     nothing. Positions >= n_real (bucket padding) are zeroed before
     quantization so their garbage cannot raise a page's scale for the
-    page's whole life. Returns the pool."""
-    N, P = pool.q.shape[0], _pool_page(pool)
+    page's whole life. `targets` are `prompt_targets(...)` (a prefill
+    computes them once for every layer), computed here when not given.
+    Returns the pool."""
+    P = _pool_page(pool)
     S = vals.shape[1]
     KV, hd = vals.shape[2], vals.shape[3]
     if n_real is not None:
@@ -393,11 +408,12 @@ def qwrite_prompt_pages(pool, vals: torch.Tensor, table_row: torch.Tensor,
     pad = n_win * P - S
     if pad:
         vals = torch.nn.functional.pad(vals, (0, 0, 0, 0, 0, pad))
-    pages = table_row[:n_win].long()
+    if targets is None:
+        targets = prompt_targets(table_row, S, P)
+    win, pages = targets
     w = vals[0].reshape(n_win, P, KV, hd)
     q, scale = _quantize_windows(w, _pool_qmax(pool))
-    keep = (pages >= 0) & (pages < N)
-    _scatter_q(pool, pages[keep], q[keep], scale[keep])
+    _scatter_q(pool, pages, q[win], scale[win])
     return pool
 
 
@@ -446,7 +462,8 @@ def _window_pages_rmw(pool, vals: torch.Tensor, tg: WindowTargets) -> None:
                       device=vals.device)
     msk = torch.zeros((T, P), dtype=torch.bool, device=vals.device)
     buf[tg.dst, tg.offs] = vals[tg.rows, tg.cols].float()
-    msk[tg.dst, tg.offs] = True
+    msk.index_put_((tg.dst, tg.offs),      # a device value: no host wait
+                   torch.ones((), dtype=torch.bool, device=vals.device))
     amax = torch.where(msk[..., None, None], buf.abs(),
                        torch.zeros_like(buf)).amax(dim=(-3, -1))
     need = amax.clamp(min=_EPS) * (1.0 / qmax)

@@ -62,6 +62,7 @@ class Master:
             paged_attn=a.paged_attn,
             mixed_batch=a.mixed_batch,
             decode_scan_steps=a.decode_scan,
+            auto_prefix_system=a.auto_prefix,
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)

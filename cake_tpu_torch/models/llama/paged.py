@@ -1,8 +1,12 @@
 """Paged KV cache: a shared page pool + per-slot page tables.
 
-Counterpart of `cake_tpu/models/llama/paged.py`, restricted to the two
-steps of the mixed-batch serving path (`decode_step_ragged_paged`,
-`mixed_step_paged`). Layout as there:
+Counterpart of `cake_tpu/models/llama/paged.py`: the two steps of the
+mixed-batch serving path (`decode_step_ragged_paged`,
+`mixed_step_paged`), and the phase-split and shared-prefix prefills
+(`prefill_slot_paged`, `prefill_prefix_pages`,
+`prefill_slot_paged_prefixed`, `prefill_slot_paged_chunk`) with their
+one-slot writers (`write_prompt_pages`, `write_window_pages`). Layout as
+there:
 
   pool k/v: [L, N_pages + 1, page, KV, hd]   (page = tokens per page)
   table:    [slots, max_pages] int32          (page ids; -1 = unmapped)
@@ -26,9 +30,12 @@ table are updated IN PLACE (the steps run under torch.inference_mode)
 and the same cache object is returned, so the signatures match.
 
 Attention impl (`attn`): "kernel" = the CUDA kernels of
-`ops/ragged_paged_attention.py` (raises on a CPU tensor); "plain" = their
-plain PyTorch folds; "auto" = the kernel for CUDA tensors and the plain
-fold for CPU tensors. The JAX package's "fold" maps to "plain".
+`ops/ragged_paged_attention.py` for the steps and of
+`ops/flash_attention.py` for the prefills (raises on a CPU tensor, and
+on a shape outside a kernel's gate); "plain" = the steps' plain PyTorch
+folds and the prefills' masked `gqa_attention` einsum; "auto" = the
+kernel for CUDA tensors and plain for CPU tensors. The JAX package's
+"fold" maps to "plain", its "pallas" to "kernel".
 """
 
 from __future__ import annotations
@@ -38,18 +45,24 @@ from typing import List, Optional
 import torch
 
 from cake_tpu_torch.kv.quantized_pool import (
-    Int4Pool, QuantPool, _pool_page, decode_targets, qupdate_pool_per_row,
+    Int4Pool, QuantPool, _pool_page, decode_targets, dequantize_pages,
+    prompt_targets, qupdate_pool_per_row, qwrite_prompt_pages,
     qwrite_windows_pages, window_page_targets,
 )
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import block_skeleton, layer_params
+from cake_tpu_torch.ops.attention import causal_mask, gqa_attention
+from cake_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_cached,
+)
 from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import qmatmul
 from cake_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention, ragged_paged_attention_mixed,
     ragged_paged_attention_mixed_plain, ragged_paged_attention_plain,
 )
-from cake_tpu_torch.ops.rope import apply_rope, rope_rows_per_row
+from cake_tpu_torch.ops.rope import apply_rope, rope_rows, rope_rows_per_row
+from cake_tpu_torch.utils.devices import to_device
 
 ATTN_IMPLS = ("auto", "plain", "kernel")
 
@@ -248,17 +261,20 @@ def _window_targets(pos, q_len, active, table, P: int, C: int):
     return rows, cs, pages[rows, cs].long(), positions[rows, cs] % P
 
 
-def step_write_targets(cache, pos, active, q_len=None, C: int = 1):
+def step_write_targets(cache, pos, active, q_len=None, C: int = 1,
+                       table=None):
     """The write targets of one step, shared by every layer: a decode
     step's (q_len None) tokens, or a mixed step's windows of C columns.
     For a quantized pool, a window write touches whole pages
-    (`window_page_targets`)."""
+    (`window_page_targets`). `table`: the rows the step writes through
+    (cache.table when not given)."""
     P = cache.page_size
+    table = cache.table if table is None else table
     if q_len is None:
-        return decode_targets(pos, active, cache.table, P, cache.n_pages)
+        return decode_targets(pos, active, table, P, cache.n_pages)
     if _quantized(cache.k):
-        return window_page_targets(pos, q_len, active, cache.table, P, C)
-    return _window_targets(pos, q_len, active, cache.table, P, C)
+        return window_page_targets(pos, q_len, active, table, P, C)
+    return _window_targets(pos, q_len, active, table, P, C)
 
 
 def _scatter(pool_k, pool_v, k, v, targets):
@@ -291,6 +307,85 @@ def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table,
     return pool_k, pool_v
 
 
+def _page_of(pool) -> int:
+    """Tokens per page of one layer's pool leaf."""
+    return _pool_page(pool) if _quantized(pool) else pool.shape[1]
+
+
+def _one_window(pos0: int, C: int, n_real, quantized: bool, device):
+    """(pos, q_len, active) of one slot's C-token window at pos0 as the
+    batched writers take them: an f32/bf16 pool writes every column
+    (JAX's window writer writes the padding too), a quantized pool only
+    the n_real real ones."""
+    n = C if n_real is None or not quantized else int(n_real)
+    return (torch.tensor([int(pos0)], device=device),
+            torch.tensor([n], device=device),
+            torch.ones(1, dtype=torch.bool, device=device))
+
+
+def _host_row(table_row, row):
+    """A slot's table row on the host, for the write targets: the
+    caller's list of its pages padded with -1 (no wait for the stream),
+    or, when the caller passes none, `table_row` read back."""
+    if row is None:
+        return table_row.cpu()
+    out = torch.full(table_row.shape, -1, dtype=torch.int32)
+    out[:len(row)] = torch.tensor(list(row), dtype=torch.int32)
+    return out
+
+
+def _on(targets, device):
+    """Write targets computed on the host, moved to `device`
+    (`to_device`: the host does not wait for the stream)."""
+    moved = [to_device(t, device) for t in targets]
+    return targets._make(moved) if hasattr(targets, "_make") else \
+        tuple(moved)
+
+
+def write_prompt_pages(pool_k, pool_v, k, v, table_row, n_real=None,
+                       targets=None):
+    """Scatter a prompt window's KV ([1, S, KV, hd], starting at position
+    0) into one slot's pages (one layer's pool leaves, in place). The
+    window is zero-padded to whole pages; window j goes to page
+    table_row[j] whole, padding included (dead data that decode
+    overwrites before it is attended). Unmapped windows (-1) write
+    nothing: no page 0, no sink. A quantized pool quantizes each window
+    fresh (`qwrite_prompt_pages`), where `n_real` keeps the bucket
+    padding out of the page scales. `targets` come from
+    `prompt_targets`; computed here when not given."""
+    if targets is None:
+        targets = prompt_targets(table_row, k.shape[1], _page_of(pool_k))
+    if _quantized(pool_k):
+        return (qwrite_prompt_pages(pool_k, k, table_row, n_real, targets),
+                qwrite_prompt_pages(pool_v, v, table_row, n_real, targets))
+    P = pool_k.shape[1]
+    S, KV, hd = k.shape[1], k.shape[2], k.shape[3]
+    n_win = -(-S // P)
+    pad = n_win * P - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    win, pages = targets
+    pool_k[pages] = k[0].reshape(n_win, P, KV, hd)[win].to(pool_k.dtype)
+    pool_v[pages] = v[0].reshape(n_win, P, KV, hd)[win].to(pool_v.dtype)
+    return pool_k, pool_v
+
+
+def write_window_pages(pool_k, pool_v, k, v, table_row, pos0,
+                       n_real=None):
+    """Scatter one prefill window's KV ([1, C, KV, hd]) at absolute
+    position pos0 (any in-page offset) into one slot's pages, in place:
+    the one-row case of `write_windows_pages`. Positions on unmapped
+    pages or past the table write nothing, as JAX's mode="drop" drops
+    them. An f32/bf16 pool writes the padding columns that land on
+    mapped pages, as JAX does; a quantized pool read-modify-writes the
+    pages the n_real real columns touch."""
+    pos, q_len, active = _one_window(pos0, k.shape[1], n_real,
+                                     _quantized(pool_k), table_row.device)
+    return write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active,
+                               table_row[None])
+
+
 def update_pool_per_row(pool_k, pool_v, k, v, pos, active, table,
                         targets=None):
     """Write one decode token per row into its page. k/v: [B, 1, KV, hd];
@@ -317,9 +412,9 @@ def _check_impl(impl: str, q: torch.Tensor) -> None:
                          f"(have {ATTN_IMPLS})")
     if impl == "kernel" and not q.is_cuda:
         raise ValueError(
-            "paged_attn='kernel' needs CUDA tensors: the ragged "
-            "paged-attention kernels run only on the card (use 'plain' "
-            "or 'auto' on the CPU)")
+            "paged_attn='kernel' needs CUDA tensors: the paged-attention "
+            "and flash kernels run only on the card (use 'plain' or "
+            "'auto' on the CPU)")
 
 
 def _attn_args(pool_k, pool_v):
@@ -469,3 +564,213 @@ def mixed_step_paged(params, tokens, pos, q_len, active,
     h = x[torch.arange(B, device=x.device), last]
     logits = qmatmul(h, params["lm_head"]).float()
     return logits, cache
+
+
+# -- phase-split and shared-prefix prefills (one slot, B = 1) -----------------
+#
+# The JAX package's jitted prefills, run eagerly: a Python loop over the
+# layers, the pool written in place. Each writes one slot's (or one
+# prefix's) pages, through write targets computed once a call (one host
+# sync, not one a layer), and attends with the flash kernels ("kernel")
+# or the masked einsum ("plain"); on the card a shape outside
+# `flash_supported` raises in the wrapper instead of falling back.
+
+
+def _use_flash(attn: str, x: torch.Tensor) -> bool:
+    """Whether a prefill attends with the flash kernels: "kernel", or
+    "auto" on a CUDA tensor."""
+    _check_impl(attn, x)
+    return attn == "kernel" or (attn == "auto" and x.is_cuda)
+
+
+def _gather_pages(pool, pages, dtype):
+    """Pages `pages` ([n] ids, -1 = unmapped) of one layer's pool leaf as
+    a position-ordered [1, n * P, KV, hd] view in `dtype`; unmapped pages
+    read as zeros (a quantized pool dequantizes on the gather)."""
+    if _quantized(pool):
+        kv = dequantize_pages(pool, pages.long(), fill_zero=True)
+    else:
+        mapped = (pages >= 0)[:, None, None, None]
+        kv = torch.where(mapped, pool[pages.long().clamp(min=0)],
+                         torch.zeros((), dtype=pool.dtype,
+                                     device=pool.device))
+    n, P, KV, hd = kv.shape
+    return kv.reshape(1, n * P, KV, hd).to(dtype)
+
+
+def _last_logits(params, x, n_real: int, config: LlamaConfig):
+    """Final norm and lm_head at the window's last real token ([1, V]
+    f32)."""
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return qmatmul(x[:, n_real - 1], params["lm_head"]).float()
+
+
+def _prompt_prefill_blocks(params, tokens, table_row, cache, rope,
+                           config: LlamaConfig, attn: str, n_real=None,
+                           row=None):
+    """Every block over a window at position 0 whose KV goes whole to the
+    pages of `table_row` (`write_prompt_pages`), attending the window
+    itself: causal `flash_attention`, or the einsum under a causal
+    mask. Returns the hidden state [1, S, D]."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    rope_c, rope_s = rope_rows(rope.cos, rope.sin, 0, S)
+    flash = _use_flash(attn, x)
+    mask = None if flash else causal_mask(S, device=x.device)
+    targets = _on(prompt_targets(_host_row(table_row, row), S,
+                                 cache.page_size), x.device)
+    for i in range(cache.num_layers):
+        pk, pv = cache.layer(i)
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            write_prompt_pages(pk, pv, k, v, table_row, n_real, targets)
+            if flash:
+                return flash_attention(q, k, v, causal=True), None
+            return gqa_attention(q, k, v, mask=mask), None
+
+        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
+                              attn_fn)
+    return x
+
+
+@torch.inference_mode()
+def prefill_prefix_pages(params, tokens, table_row, cache: PagedKVCache,
+                         rope, config: LlamaConfig, attn: str = "auto",
+                         row=None):
+    """Prefill a registered prefix once into its own pool pages.
+
+    tokens: [1, S], S page-aligned (the engine rounds a registration down
+    to a page); table_row: [max_pages] int32 mapping the prefix's pages
+    (a standalone row, no engine slot; the engine later maps the same
+    pages at the head of every matching slot's row). Causal prefill at
+    position 0 with each layer's KV written to those pages; no logits
+    (the next token comes from each request's suffix). Returns the
+    cache.
+
+    row (here and in the slot prefills): the caller's host list of the
+    row's pages, from which the write targets are computed without a
+    wait for the stream; when not given, the row is read back from the
+    device."""
+    _prompt_prefill_blocks(params, tokens, table_row, cache, rope, config,
+                           attn, row=row)
+    return cache
+
+
+@torch.inference_mode()
+def prefill_slot_paged(params, tokens, prompt_len, slot,
+                       cache: PagedKVCache, rope, config: LlamaConfig,
+                       attn: str = "auto", row=None):
+    """A whole right-padded prompt bucket at position 0 into slot
+    `slot`'s pages: causal prefill over the fresh window (no page reads),
+    each layer's KV written through the slot's table row. tokens: [1, S];
+    prompt_len: the real token count (an int or a [1] tensor). Returns
+    ([1, V] f32 logits at prompt_len - 1, cache)."""
+    n = int(prompt_len)
+    x = _prompt_prefill_blocks(params, tokens, cache.table[int(slot)],
+                               cache, rope, config, attn, n_real=n,
+                               row=row)
+    return _last_logits(params, x, n, config), cache
+
+
+@torch.inference_mode()
+def prefill_slot_paged_prefixed(params, tokens, suffix_len, slot,
+                                cache: PagedKVCache, rope,
+                                config: LlamaConfig, n_prefix: int,
+                                attn: str = "auto", row=None):
+    """The suffix window of a prompt whose first n_prefix tokens are a
+    registered prefix, already mapped (shared, read-only) at the head of
+    slot `slot`'s table row. The window's KV goes only to the row's pages
+    after the shared ones; attention reads the shared pages (gathered,
+    dequantized for a quantized pool) followed by the window, at
+    pos = n_prefix: `flash_attention_cached`, or the einsum under the
+    same mask. tokens: [1, S] right-padded suffix; suffix_len: its real
+    length. Returns ([1, V] f32 logits at suffix_len - 1, cache)."""
+    S = tokens.shape[1]
+    n = int(suffix_len)
+    P = cache.page_size
+    n_pp = n_prefix // P
+    T = n_prefix + S
+    x = params["embed"][tokens.long()]
+    rope_c, rope_s = rope_rows(rope.cos, rope.sin, n_prefix, S)
+    table_row = cache.table[int(slot)]
+    prefix_pages = table_row[:n_pp].clamp(min=0)
+    suffix_row = table_row[n_pp:]
+    flash = _use_flash(attn, x)
+    qpos = n_prefix + torch.arange(S, device=x.device)
+    mask = (None if flash else
+            torch.arange(T, device=x.device)[None, :] <= qpos[:, None])
+    targets = _on(prompt_targets(_host_row(table_row, row)[n_pp:], S, P),
+                  x.device)
+    for i in range(cache.num_layers):
+        pk, pv = cache.layer(i)
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            # the shared pages, read before the suffix write (the two
+            # sets of pages are disjoint)
+            kp = _gather_pages(pk, prefix_pages, q.dtype)
+            vp = _gather_pages(pv, prefix_pages, q.dtype)
+            write_prompt_pages(pk, pv, k, v, suffix_row, n, targets)
+            k_full = torch.cat([kp, k.to(q.dtype)], dim=1)
+            v_full = torch.cat([vp, v.to(q.dtype)], dim=1)
+            if flash:
+                return flash_attention_cached(q, k_full, v_full,
+                                              n_prefix), None
+            return gqa_attention(q, k_full, v_full, mask=mask), None
+
+        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
+                              attn_fn)
+    return _last_logits(params, x, n, config), cache
+
+
+@torch.inference_mode()
+def prefill_slot_paged_chunk(params, tokens, n_real, slot, pos0,
+                             cache: PagedKVCache, rope,
+                             config: LlamaConfig, attn: str = "auto",
+                             row=None):
+    """One C-token prefill window at absolute position pos0 into slot
+    `slot`'s pages (pos0 anywhere in a page). The window's KV goes
+    through the batched writer at one row (as `write_window_pages`
+    writes it); then the slot's whole row is gathered
+    in position order (unmapped pages as zeros; a shared prefix at the
+    row head and earlier windows included) and the window attends it at
+    pos0: `flash_attention_cached`, or the einsum under
+    kj <= pos0 + qi. tokens: [1, C]; n_real: real tokens in the window.
+    Returns ([1, V] f32 logits at n_real - 1, cache)."""
+    C = tokens.shape[1]
+    n = int(n_real)
+    pos0 = int(pos0)
+    T = cache.max_seq_len
+    x = params["embed"][tokens.long()]
+    rope_c, rope_s = rope_rows(rope.cos, rope.sin, pos0, C)
+    table_row = cache.table[int(slot)]
+    flash = _use_flash(attn, x)
+    qpos = pos0 + torch.arange(C, device=x.device)
+    mask = (None if flash else
+            torch.arange(T, device=x.device)[None, :] <= qpos[:, None])
+    pos, q_len, active = _one_window(pos0, C, n, _quantized(cache.k),
+                                     "cpu")
+    targets = _on(step_write_targets(
+        cache, pos, active, q_len, C,
+        table=_host_row(table_row, row)[None]), x.device)
+    for i in range(cache.num_layers):
+        pk, pv = cache.layer(i)
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            write_windows_pages(pk, pv, k, v, pos, q_len, active,
+                                table_row[None], targets)
+            k_full = _gather_pages(pk, table_row, q.dtype)
+            v_full = _gather_pages(pv, table_row, q.dtype)
+            if flash:
+                return flash_attention_cached(q, k_full, v_full,
+                                              pos0), None
+            return gqa_attention(q, k_full, v_full, mask=mask), None
+
+        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
+                              attn_fn)
+    return _last_logits(params, x, n, config), cache

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV pool.
 
 Counterpart of `cake_tpu/serve/engine.py`, restricted to its
-`--kv-pages` + mixed-batch path:
+`--kv-pages` engine:
 
   * a fixed pool of B decode slots shares ONE paged KV cache; the page
     allocator gates admission, and a slot maps its positions to pages
@@ -15,7 +15,17 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     so a row's output depends only on its own request
     (ops/sampling.masked_sample);
   * tokens stream to per-request callbacks from the engine thread;
-    EOS / max-token retirement releases the slot's pages.
+    EOS / max-token retirement releases the slot's pages;
+  * `--mixed-batch off` keeps the phase-split loop instead: each
+    admission prefills alone (`prefill_slot_paged`, or C-token windows
+    with --prefill-chunk), its first token sampled on the slot's own
+    stream, PREFILL_FLUSH admissions a host round trip, then the planned
+    rows decode;
+  * shared prefixes (`register_prefix`, or `auto_prefix_system`: each
+    distinct system prompt's rendered head) prefill once into pool pages
+    (`prefill_prefix_pages`); a prompt that starts with one maps those
+    pages, refcounted and read-only, at the head of its table row and
+    prefills only its suffix.
 
 The decode step, its sampling and its carry run through
 `serve/graphs.DecodeRunner`: on CUDA always as a captured CUDA graph
@@ -25,9 +35,11 @@ trip while nobody waits and no prompt is mid-prefill, in double-buffered
 bursts with the JAX engine's row rules (`_decode_burst`).
 
 Device work happens only on the engine thread, under
-torch.inference_mode(). Not ported yet: prefix sharing, SLO scheduling,
-speculation, the host KV tier, fault injection and recovery, the
-journal, autotune, multi-host, and the metrics planes.
+torch.inference_mode(); commands from other threads (a prefix
+registration from an HTTP handler) run there between iterations
+(`_run_on_engine_thread`). Not ported yet: SLO scheduling, speculation,
+the host KV tier, fault injection and recovery, the journal, autotune,
+multi-host, and the metrics planes.
 """
 
 from __future__ import annotations
@@ -45,20 +57,23 @@ import torch
 from cake_tpu_torch.kv.quantized_pool import (
     QUANTIZED_CACHES, reset_page_scales,
 )
-from cake_tpu_torch.models.chat import History, Message
+from cake_tpu_torch.models.chat import BEGIN_OF_TEXT, History, Message
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import (
-    encode_text, incremental_decode,
+    bucket_length, chunk_windows, encode_text, incremental_decode,
 )
 from cake_tpu_torch.models.llama.model import RopeTables
 from cake_tpu_torch.models.llama.paged import (
     ATTN_IMPLS, PageAllocator, PagedKVCache, mixed_step_paged,
-    table_set_slot,
+    prefill_prefix_pages, prefill_slot_paged, prefill_slot_paged_chunk,
+    prefill_slot_paged_prefixed, table_set_slot,
 )
 from cake_tpu_torch.native.scheduler import make_scheduler
 from cake_tpu_torch.ops.sampling import SamplingConfig, masked_sample
 from cake_tpu_torch.serve.graphs import DecodeRunner
-from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
+from cake_tpu_torch.utils.devices import (
+    resolve_device, resolve_dtype, to_device,
+)
 
 log = logging.getLogger(__name__)
 
@@ -138,6 +153,7 @@ class EngineStats:
     prefill_time_s: float = 0.0
     errors: int = 0
     last_error: str = ""
+    prefix_hits: int = 0     # prefills served from a registered prefix
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -178,6 +194,8 @@ class InferenceEngine:
         mixed_batch: Optional[str] = None,
         kv_dtype: Optional[str] = None,
         decode_scan_steps: int = 1,
+        auto_prefix_system: bool = False,
+        max_auto_prefixes: int = 8,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -192,10 +210,6 @@ class InferenceEngine:
         if mb not in ("auto", "on", "off"):
             raise ValueError(
                 f"--mixed-batch must be auto, on or off, got {mb!r}")
-        if mb == "off":
-            raise NotImplementedError(
-                "--mixed-batch off (the phase-split prefill loop) is not "
-                "ported to cake_tpu_torch yet")
         impl = paged_attn or "auto"
         if impl not in ATTN_IMPLS:
             raise ValueError(
@@ -222,6 +236,13 @@ class InferenceEngine:
         self.paged_attn = impl
         # decode steps a host round trip (bursts of the captured step)
         self._decode_scan = decode_scan_steps
+        # --mixed-batch off: the phase-split loop (whole-prompt or
+        # C-token-window prefills, then decode)
+        self._mixed = mb != "off"
+        # the phase-split prefill's window (None = whole-prompt buckets);
+        # it also decides which prefix hits can be served
+        # (_prefix_window_plan), on both loops, as in JAX
+        self.prefill_chunk = prefill_chunk
         # fixed mixed-chunk width: prompts walk the mixed step C tokens
         # per iteration
         self._mixed_chunk = (prefill_chunk if prefill_chunk is not None
@@ -240,6 +261,11 @@ class InferenceEngine:
         self._pager = PageAllocator(kv_pages, kv_page_size)
         self.cache = self._new_cache(kv_pages, kv_page_size)
         self._slot_pages: dict = {}
+        # slot -> count of SHARED prefix pages at the head of its row
+        # (the pages themselves ride _slot_pages for the refcounted
+        # release)
+        self._slot_prefix_pages: dict = {}
+        self._prefix_pages_shared = 0
         # slot -> in-flight prefill progress (req, ids, next window offset)
         self._mixed_pending: dict = {}
         self._page_blocked_rid: Optional[int] = None
@@ -273,6 +299,18 @@ class InferenceEngine:
         self._requests: dict = {}
         # rids whose callers gave up: drained by the ENGINE thread
         self._cancel_q: List[int] = []
+        # (fn, result box, done event): run on the engine thread
+        self._cmd_q: list = []
+        # registered prefixes: id -> (token ids, pool pages)
+        self._prefixes: dict = {}
+        self._next_prefix_id = 1
+        # auto_prefix_system: chat() registers each distinct system
+        # prompt's rendered head once, FIFO-capped at max_auto_prefixes;
+        # head str -> prefix id | None (registration in flight) | -1
+        # (a head too short or too long to share, negative-cached)
+        self._auto_prefix = auto_prefix_system
+        self._max_auto = max_auto_prefixes
+        self._auto_pids: dict = {}
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -309,6 +347,7 @@ class InferenceEngine:
             self._thread.join(timeout)
             self._thread = None
         self._drain_cancellations()
+        self._fail_pending_commands()
 
     def __enter__(self):
         return self.start()
@@ -379,11 +418,71 @@ class InferenceEngine:
         return RequestHandle(req, self.tokenizer, self.config.eos_token_ids)
 
     def chat(self, messages: Sequence[Message], **kw) -> RequestHandle:
-        """Render a chat history through the model's template and submit."""
+        """Render a chat history through the model's template and submit.
+
+        With auto_prefix_system on, the system message's rendered head is
+        prefilled once into shared pages per distinct system prompt, so
+        every conversation sharing it prefills only its own turns."""
         hist = History(self.config.chat_template)
         for m in messages:
             hist.add_message(m)
+        if (self._auto_prefix and messages
+                and messages[0].role.value == "system"
+                and hist.template == "llama3"):
+            # the head below is the llama3 system block; other templates
+            # have no standalone shared head
+            self._auto_register_system(messages[0])
         return self.submit(encode_text(self.tokenizer, hist.render()), **kw)
+
+    def _auto_register_system(self, system_msg: Message) -> None:
+        head = BEGIN_OF_TEXT + History.encode_message(system_msg)
+        evict = None
+        with self._rid_lock:
+            if head in self._auto_pids:
+                pid = self._auto_pids[head]
+                if pid is None or pid < 0 or pid in self._prefixes:
+                    return   # in flight, negative-cached, or live
+                # a stale head -> pid: the registry was cleared under a
+                # finished registration (_reset_after_error racing a
+                # handler thread); register it again
+                del self._auto_pids[head]
+            if len(self._auto_pids) >= self._max_auto:
+                # evict the oldest finished registration (in-flight
+                # reservations, None, are skipped)
+                for k, pid in list(self._auto_pids.items()):
+                    if pid is not None:
+                        del self._auto_pids[k]
+                        evict = pid
+                        break
+                else:
+                    return    # every entry is in flight
+            self._auto_pids[head] = None   # reserve before the prefill
+        if evict is not None and evict >= 0:
+            # outside the lock: the engine thread may need _rid_lock
+            try:
+                self.unregister_prefix(evict)
+            except Exception:  # noqa: BLE001
+                log.exception("auto-prefix eviction failed")
+        try:
+            ids = encode_text(self.tokenizer, head)
+            # page-granular sharing: a head shorter than one page has
+            # nothing to share (register_prefix would refuse it)
+            min_len = max(8, self._pager.page_size)
+            if len(ids) < min_len or len(ids) >= self.max_seq_len - 1:
+                with self._rid_lock:
+                    self._auto_pids[head] = -1
+                return
+            pid = self.register_prefix(ids)
+        except Exception:  # noqa: BLE001
+            # the reference's documented behaviour: a failed registration
+            # is logged and the request is served whole
+            log.exception("auto prefix registration failed; serving "
+                          "without prefix cache")
+            with self._rid_lock:
+                self._auto_pids.pop(head, None)
+        else:
+            with self._rid_lock:
+                self._auto_pids[head] = pid
 
     def cancel(self, handle: RequestHandle) -> None:
         """Abandon a request (e.g. the streaming client disconnected):
@@ -408,6 +507,164 @@ class InferenceEngine:
             req.finish_t = time.perf_counter()
             req.done.set()
 
+    # -- shared prefixes --------------------------------------------------------
+
+    def register_prefix(self, prefix_ids: Sequence[int]) -> int:
+        """Prefill a shared prompt head (e.g. the rendered system prompt)
+        once into pool pages. Later prompts that start with it map those
+        pages at the head of their table rows and prefill only their
+        suffix. The head is rounded down to a page; the remainder joins
+        each suffix. Returns a prefix id (for unregister_prefix). Runs on
+        the engine thread when it is running (the pool and the table
+        have one writer)."""
+        ids = list(prefix_ids)
+        if not ids:
+            raise ValueError("empty prefix")
+        if len(ids) >= self.max_seq_len - 1:
+            raise ValueError(
+                f"prefix length {len(ids)} leaves no room for a suffix "
+                f"(max_seq_len {self.max_seq_len})")
+        P = self._pager.page_size
+        if len(ids) < P:
+            raise ValueError(
+                f"paged prefix sharing is page-granular: the prefix "
+                f"({len(ids)} tokens) is shorter than one kv page "
+                f"({P} tokens), so there is nothing to share "
+                "(lower --kv-page-size or skip registration)")
+        if self._thread is not None and self._thread.is_alive():
+            return self._run_on_engine_thread(
+                lambda: self._register_prefix_paged(ids))
+        return self._register_prefix_paged(ids)
+
+    def _register_prefix_paged(self, ids: List[int]) -> int:
+        """Round the prefix down to a page, allocate its pages, prefill
+        it into them (`prefill_prefix_pages`) and record the page list;
+        the pages go back to the pool if the prefill fails."""
+        P = self._pager.page_size
+        aligned = (len(ids) // P) * P
+        p_ids = ids[:aligned]
+        n_pp = aligned // P
+        pages = self._pager.alloc(aligned)
+        if pages is None:
+            raise ValueError(
+                f"kv page pool cannot hold the prefix: needs {n_pp} "
+                f"pages, {self._pager.free_pages} free (raise "
+                "--kv-pages, or register before taking load)")
+        with self._rid_lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+        row = torch.full((self.cache.max_pages,), -1, dtype=torch.int32)
+        row[:n_pp] = torch.tensor(pages, dtype=torch.int32)
+        try:
+            self.cache = prefill_prefix_pages(
+                self.params, self._tokens(p_ids), to_device(row, self.device),
+                self.cache, self.rope, self.config, attn=self.paged_attn,
+                row=pages)
+        except Exception:
+            self._pager.release(pages)
+            raise
+        with self._rid_lock:
+            self._prefixes[pid] = (p_ids, pages)
+        log.info("registered paged prefix %d: %d tokens in %d shared "
+                 "pages (%d trailing tokens fall to each suffix)",
+                 pid, aligned, n_pp, len(ids) - aligned)
+        return pid
+
+    def unregister_prefix(self, prefix_id: int) -> None:
+        """Drop a registration: the registry's page references go;
+        slots still decoding on those pages hold their own, so the pages
+        outlive it until the last such request retires."""
+        if self._thread is not None and self._thread.is_alive():
+            self._run_on_engine_thread(
+                lambda: self._unregister_paged_sync(prefix_id))
+            return
+        self._unregister_paged_sync(prefix_id)
+
+    def _unregister_paged_sync(self, prefix_id: int) -> None:
+        with self._rid_lock:
+            entry = self._prefixes.pop(prefix_id, None)
+        if entry is not None:
+            self._pager.release(entry[1])
+
+    def _match_prefix(self, ids: List[int]):
+        """Longest registered prefix that is a proper head of `ids`:
+        (pid, (p_ids, pages)) or None."""
+        best = None
+        with self._rid_lock:
+            entries = list(self._prefixes.items())
+        for pid, entry in entries:
+            n = len(entry[0])
+            if n < len(ids) and ids[:n] == entry[0]:
+                if best is None or n > len(best[1][0]):
+                    best = (pid, entry)
+        return best
+
+    def _match_and_validate_prefix(self, ids: List[int]):
+        """(pid, (p_ids, pages)) of the longest matching prefix that can
+        serve this prompt (`_prefix_window_plan`), or None. Returns the
+        entry, not just the pid, so a concurrent eviction cannot turn a
+        later lookup into a KeyError."""
+        hit = self._match_prefix(ids)
+        if hit is None or self._prefix_window_plan(hit[1][0], ids) is None:
+            return None
+        return hit
+
+    def _prefix_window_plan(self, p_ids: List[int], ids: List[int]):
+        """(chunk_suffix, C_or_bucket) for a prefix-hit prefill, or None
+        when the suffix's windows (--prefill-chunk, when the suffix is
+        longer than C) or its padded bucket would run past max_seq_len
+        after the prefix. The JAX engine's rule, applied on both loops."""
+        C = self.prefill_chunk
+        suffix = ids[len(p_ids):]
+        if C and len(suffix) > C:
+            n_win = -(-len(suffix) // C)
+            if len(p_ids) + n_win * C <= self.max_seq_len:
+                return (True, C)
+            return None
+        bucket = bucket_length(len(suffix), self.max_seq_len)
+        if len(p_ids) + bucket > self.max_seq_len:
+            return None
+        return (False, bucket)
+
+    # -- commands on the engine thread ------------------------------------------
+
+    def _run_on_engine_thread(self, fn, timeout: float = 300.0):
+        """Run fn on the engine thread between iterations and return its
+        result (or raise its error)."""
+        if self._thread is None or not self._thread.is_alive():
+            raise RuntimeError("engine not running: start() first")
+        box: dict = {}
+        ev = threading.Event()
+        with self._rid_lock:
+            self._cmd_q.append((fn, box, ev))
+        self._wake.set()
+        if not ev.wait(timeout):
+            raise TimeoutError("engine thread did not run the command "
+                               f"within {timeout:.0f}s")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _drain_commands(self) -> None:
+        with self._rid_lock:
+            cmds, self._cmd_q = self._cmd_q, []
+        for fn, box, ev in cmds:
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001
+                box["error"] = e
+            finally:
+                ev.set()
+
+    def _fail_pending_commands(self) -> None:
+        """Engine exit: release command waiters with an error instead of
+        letting them time out against a dead thread."""
+        with self._rid_lock:
+            cmds, self._cmd_q = self._cmd_q, []
+        for _fn, box, ev in cmds:
+            box["error"] = RuntimeError("engine stopped")
+            ev.set()
+
     @property
     def queue_depth(self) -> int:
         return self.scheduler.queue_depth
@@ -426,10 +683,12 @@ class InferenceEngine:
                 self._run_loop()
         finally:
             self._drain_cancellations()
+            self._fail_pending_commands()
 
     def _run_loop(self) -> None:
         while not self._stop.is_set():
             self._drain_cancellations()
+            self._drain_commands()
             prefill_plan, decode_plan = self.scheduler.plan()
             if not prefill_plan and not decode_plan:
                 self._wake.wait(timeout=0.05)
@@ -444,7 +703,10 @@ class InferenceEngine:
                     self._wake.wait(timeout=0.02)
                     self._wake.clear()
             try:
-                self._do_mixed(prefill_plan, decode_plan)
+                if self._mixed:
+                    self._do_mixed(prefill_plan, decode_plan)
+                else:
+                    self._do_phases(prefill_plan, decode_plan)
             except Exception as e:  # noqa: BLE001
                 log.exception("engine iteration failed")
                 self.stats.errors += 1
@@ -466,11 +728,19 @@ class InferenceEngine:
     def _reset_after_error(self) -> None:
         """A failed step may leave the pool half-written: rebuild the
         pool (of the same storage), the allocator, every per-slot mirror
-        and the sampling state, and drop the decode runner."""
+        and the sampling state, and drop the decode runner. Registered
+        prefixes lived in the old pool's pages, so the registry is
+        cleared too; auto-prefix heads register again on their next
+        request."""
         self.cache = self._new_cache(self.cache.n_pages,
                                      self.cache.page_size)
         self._pager = PageAllocator(self.cache.n_pages, self.cache.page_size)
         self._slot_pages = {}
+        self._slot_prefix_pages = {}
+        self._prefix_pages_shared = 0
+        with self._rid_lock:
+            self._prefixes.clear()
+            self._auto_pids.clear()
         self._mixed_pending = {}
         self._page_blocked_rid = None
         self._pos[:] = 0
@@ -483,10 +753,12 @@ class InferenceEngine:
     # -- pages ----------------------------------------------------------------
 
     def _release_slot_pages(self, slot: int) -> None:
-        """Release a slot's pages (idempotent: every teardown path pops
-        the same entry) and drop any prefill still pending for it. The
-        slot's table row is unmapped too: a decode step still passes the
-        idle row's stale position, and an unmapped row reads no pages."""
+        """Refcounted release of a slot's pages (idempotent: every
+        teardown path pops the same entry); shared prefix pages drop to
+        the registry's reference instead of being freed. Any prefill
+        still pending for the slot is dropped. The slot's table row is
+        unmapped too: a decode step still passes the idle row's stale
+        position, and an unmapped row reads no pages."""
         if slot < 0:
             return
         self._mixed_pending.pop(slot, None)
@@ -494,24 +766,45 @@ class InferenceEngine:
         if pages:
             self._pager.release(pages)
             table_set_slot(self.cache.table, slot, [])
+        self._prefix_pages_shared -= self._slot_prefix_pages.pop(slot, 0)
 
-    def _alloc_slot_pages(self, req: _Request, slot: int) -> bool:
+    def _alloc_slot_pages(self, req: _Request, slot: int,
+                          hit=None) -> bool:
         """Admission by pages: map the slot's table row when the pool
         covers prompt + budget, else requeue the request. A page-starved
         request becomes the blocking head: younger requests requeue
-        behind it instead of being admitted past it."""
+        behind it instead of being admitted past it.
+
+        hit: a validated prefix match (pid, (p_ids, pages)) from
+        _match_and_validate_prefix: the slot then allocates only suffix
+        + budget pages and maps the shared pages, retained, at the head
+        of its row."""
         blocked = self._page_blocked_rid
         if blocked is not None and blocked not in self._requests:
             blocked = self._page_blocked_rid = None     # cancelled/failed
         if blocked is not None and req.rid != blocked:
             return self._requeue_for_pages(req, slot, starved=False)
-        pages = self._pager.alloc(len(req.prompt_ids) + req.max_new_tokens)
+        prefix_pages: List[int] = []
+        n_prefix = 0
+        if hit is not None:
+            p_ids, prefix_pages = hit[1]
+            n_prefix = len(p_ids)
+        pages = self._pager.alloc(len(req.prompt_ids) - n_prefix
+                                  + req.max_new_tokens)
         if pages is None:
             return self._requeue_for_pages(req, slot, starved=True)
-        self._slot_pages[slot] = pages
-        table_set_slot(self.cache.table, slot, pages)
+        if prefix_pages:
+            # retain AFTER the alloc: a requeued admission leaves no
+            # reference behind
+            self._pager.retain(prefix_pages)
+            self._slot_prefix_pages[slot] = len(prefix_pages)
+            self._prefix_pages_shared += len(prefix_pages)
+        row = list(prefix_pages) + pages
+        self._slot_pages[slot] = row
+        table_set_slot(self.cache.table, slot, row)
         if self.kv_quant:
-            # fresh pages must not inherit a previous occupant's scales
+            # the slot's own fresh pages must not inherit a previous
+            # occupant's scales; the shared pages keep theirs
             reset_page_scales(self.cache, pages)
         if req.rid == blocked:
             self._page_blocked_rid = None
@@ -565,16 +858,23 @@ class InferenceEngine:
             return
         req.slot = slot
         self._slot_req[slot] = req
-        if not self._alloc_slot_pages(req, slot):
+        hit = self._match_and_validate_prefix(req.prompt_ids)
+        if not self._alloc_slot_pages(req, slot, hit):
             return   # pool exhausted: requeued (or failed) inside
+        off = 0
+        if hit is not None:
+            # the shared pages are mapped at the row head: the windows
+            # start after them
+            off = len(hit[1][0])
+            self.stats.prefix_hits += 1
         self._temp[slot] = req.temperature
         self._top_p[slot] = req.top_p
         self._penalty[slot] = req.repeat_penalty
         self._ring[slot] = -1          # a fresh repeat-penalty ring
         self._steps[slot] = 0
-        self._pos[slot] = 0
+        self._pos[slot] = off
         self._mixed_pending[slot] = {"req": req, "ids": req.prompt_ids,
-                                     "off": 0}
+                                     "off": off}
 
     def _device_rows(self, tokens, pos, qlen=None, active=None):
         dev = self.device
@@ -666,6 +966,160 @@ class InferenceEngine:
         return (list(zip(tids[slot].tolist(), tlps[slot].tolist()))
                 if tids.size else [])
 
+    # -- the phase-split loop (--mixed-batch off) ---------------------------------
+
+    def _do_phases(self, prefill_plan, decode_plan) -> None:
+        """One iteration of the phase-split loop: the admissions prefill
+        (PREFILL_FLUSH a host round trip), then the rows planned to
+        decode take their step or burst."""
+        if prefill_plan:
+            self._do_prefill_batch(prefill_plan)
+        if decode_plan:
+            n = self._scan_steps_for(decode_plan)
+            if n > 1:
+                self._decode_burst(decode_plan, n)
+            else:
+                self._do_decode(decode_plan)
+
+    def _do_prefill(self, rid: int, slot: int):
+        """Dispatch one admission's prefill and first-token sample, with
+        no fetch: returns (req, t0, slot, device sample) for
+        _do_prefill_batch, which fetches a group's first tokens in one
+        host round trip; None when the request was cancelled or
+        requeued."""
+        req = self._requests.get(rid)
+        if req is None:  # cancelled between plan and here
+            self.scheduler.cancel(rid)
+            return None
+        t0 = time.perf_counter()
+        req.slot = slot
+        self._slot_req[slot] = req
+        ids = req.prompt_ids
+        # match BEFORE page admission: a hit changes the allocation
+        hit = self._match_and_validate_prefix(ids)
+        if not self._alloc_slot_pages(req, slot, hit):
+            return None   # pool exhausted: requeued (or failed) inside
+        n_top = self._n_top_for([slot])
+        if hit is not None:
+            out = self._prefixed_prefill_device(ids, slot, req, hit[1],
+                                                n_top)
+            self.stats.prefix_hits += 1
+        else:
+            out = self._prefill_device(ids, slot, req, n_top)
+        return (req, t0, slot, out)
+
+    # admissions a first-token fetch in _do_prefill_batch: each group's
+    # prefills and samples are dispatched back to back with no wait for
+    # the stream (tokens, write targets and sampling inputs go up from
+    # pinned memory; the targets come from the host's copy of the row),
+    # then fetched together, so early arrivals of a wave stream their
+    # first token after a few prefills instead of after the whole wave
+    PREFILL_FLUSH = 4
+
+    def _do_prefill_batch(self, prefill_plan) -> None:
+        """Admit a wave with one first-token fetch per PREFILL_FLUSH
+        admissions."""
+        pend: list = []
+
+        def flush():
+            hosts = self._fetch_samples([dev for (_, _, _, dev) in pend])
+            # one wall interval a group: its admissions overlap
+            self.stats.prefill_time_s += time.perf_counter() - pend[0][1]
+            for (req, _t0, slot, _), host in zip(pend, hosts):
+                self._advance_mirrors([slot], host[0])
+                first, first_lp, tids, tlps = host
+                self._emit(req, int(first[slot]),
+                           logprob=float(first_lp[slot]),
+                           top=self._top(tids, tlps, slot))
+            pend.clear()
+
+        for rid, slot in prefill_plan:
+            p = self._do_prefill(rid, slot)
+            if p is not None:
+                pend.append(p)
+            if len(pend) >= self.PREFILL_FLUSH:
+                flush()
+        if pend:
+            flush()
+
+    def _prefill_device(self, ids, slot: int, req: _Request, n_top: int):
+        """Prefill one slot, whole-prompt or in --prefill-chunk windows
+        (prompts longer than C), and sample its first token."""
+        C = self.prefill_chunk
+        if C and len(ids) > C:
+            logits = self._prefill_chunked(ids, slot, C)
+        else:
+            logits = self._prefill_raw(ids, slot)
+        return self._finish_prefill(logits, slot, len(ids), req, n_top)
+
+    def _tokens(self, ids) -> torch.Tensor:
+        """A prefill window's tokens [1, S] on the engine's device, with
+        no wait for the stream."""
+        return to_device(torch.tensor([list(ids)], dtype=torch.int32),
+                         self.device)
+
+    def _prefill_raw(self, ids, slot: int):
+        """Whole-prompt prefill of the prompt's bucket."""
+        bucket = bucket_length(len(ids), self.max_seq_len)
+        padded = list(ids) + [0] * (bucket - len(ids))
+        logits, self.cache = prefill_slot_paged(
+            self.params, self._tokens(padded), len(ids), slot, self.cache,
+            self.rope, self.config, attn=self.paged_attn,
+            row=self._slot_pages[slot])
+        return logits
+
+    def _prefill_chunked(self, ids: List[int], slot: int, C: int,
+                         pos0: int = 0):
+        """Walk a prompt (or a prefix hit's suffix, from absolute
+        position pos0) through the slot's pages in C-token windows."""
+        logits = None
+        for window, n_real, start in chunk_windows(ids, C):
+            logits, self.cache = prefill_slot_paged_chunk(
+                self.params, self._tokens(window), n_real, slot,
+                pos0 + start, self.cache, self.rope, self.config,
+                attn=self.paged_attn, row=self._slot_pages[slot])
+        return logits
+
+    def _prefixed_prefill_device(self, ids, slot: int, req: _Request,
+                                 entry, n_top: int):
+        """A prefix hit's prefill: the shared pages are already mapped at
+        the head of the slot's row (_alloc_slot_pages), so only the
+        suffix runs, as one window (`prefill_slot_paged_prefixed`) or in
+        --prefill-chunk windows from pos0 = n_prefix (which attend the
+        shared pages through the table); then the first token."""
+        p_ids = entry[0]
+        plan = self._prefix_window_plan(p_ids, ids)
+        if plan is None:  # validated at the match
+            raise RuntimeError(
+                f"prefix no longer serves a prompt of len {len(ids)}")
+        chunk_suffix, width = plan
+        suffix = list(ids[len(p_ids):])
+        if chunk_suffix:
+            logits = self._prefill_chunked(suffix, slot, width,
+                                           pos0=len(p_ids))
+        else:
+            padded = suffix + [0] * (width - len(suffix))
+            logits, self.cache = prefill_slot_paged_prefixed(
+                self.params, self._tokens(padded), len(suffix), slot,
+                self.cache, self.rope, self.config, n_prefix=len(p_ids),
+                attn=self.paged_attn, row=self._slot_pages[slot])
+        return self._finish_prefill(logits, slot, len(ids), req, n_top)
+
+    def _finish_prefill(self, logits, slot: int, prompt_len: int,
+                        req: _Request, n_top: int):
+        """Set the slot's sampling state and sample its first token on
+        its own stream. Returns the device sample (_do_prefill_batch
+        fetches it and moves the slot's mirrors)."""
+        self._pos[slot] = prompt_len
+        self._temp[slot] = req.temperature
+        self._top_p[slot] = req.top_p
+        self._penalty[slot] = req.repeat_penalty
+        self._ring[slot] = -1          # a fresh repeat-penalty ring
+        self._steps[slot] = 0
+        return self._sample_rows(
+            logits.expand(self.max_slots, logits.shape[-1]), rows=[slot],
+            n_top=n_top, defer=True)
+
     # -- the decode step and its bursts ---------------------------------------
 
     def _decode_runner(self) -> DecodeRunner:
@@ -744,11 +1198,11 @@ class InferenceEngine:
 
     def _host_attention_pending(self) -> bool:
         """Something on the host side needs the run loop back: stop,
-        admissions waiting, or cancellations."""
+        admissions waiting, cancellations, or commands."""
         with self._rid_lock:
-            cancels = bool(self._cancel_q)
+            pending = bool(self._cancel_q) or bool(self._cmd_q)
         return (self._stop.is_set() or self.scheduler.queue_depth > 0
-                or cancels)
+                or pending)
 
     def _drive_burst(self, dispatch, complete, can_chain) -> None:
         """The double-buffered dispatch/fetch loop: dispatch burst k+1
@@ -846,30 +1300,55 @@ class InferenceEngine:
                 return self.n_top
         return 0
 
-    def _sample_rows(self, logits, rows: List[int], n_top: int) -> tuple:
-        """The mixed step's sampling: all B rows; counters and rings
+    def _sample_rows(self, logits, rows: List[int], n_top: int,
+                     defer: bool = False) -> tuple:
+        """The eager steps' sampling: all B rows; counters and rings
         advance only for `rows` (an inactive slot's stream is untouched).
-        Returns host arrays (next ids, logprobs, top ids, top logprobs)."""
+        Returns host arrays (next ids, logprobs, top ids, top logprobs),
+        the host mirrors of `rows` moved; with defer, the device tensors
+        (`_fetch_samples`, then `_advance_mirrors`)."""
         B = self.max_slots
         in_rows = np.zeros(B, bool)
         in_rows[rows] = True
-        dev = self.device
+        def dev(a):   # no wait for the stream: a group dispatches whole
+            return to_device(torch.from_numpy(a), self.device)
+
         nxt, counters, ring, lp, top_ids, top_lps = masked_sample(
-            torch.as_tensor(in_rows, device=dev), self._seeds,
-            self._counters, logits, self._ring,
-            torch.as_tensor(self._steps, device=dev),
-            torch.as_tensor(self._temp, device=dev),
-            torch.as_tensor(self._top_p, device=dev),
-            torch.as_tensor(self._penalty, device=dev),
-            top_k=self.defaults.top_k, n_top=n_top)
+            dev(in_rows), self._seeds, self._counters, logits, self._ring,
+            dev(self._steps), dev(self._temp), dev(self._top_p),
+            dev(self._penalty), top_k=self.defaults.top_k, n_top=n_top)
         self._counters.copy_(counters)
         self._ring.copy_(ring)
-        nxt_h = nxt.cpu().numpy()
+        dev = (nxt, lp, top_ids, top_lps)
+        if defer:
+            return dev
+        host, = self._fetch_samples([dev])
+        self._advance_mirrors(rows, host[0])
+        return host
+
+    def _advance_mirrors(self, rows: List[int], nxt_h) -> None:
         for r in rows:
             self._steps[r] += 1
             self._last_tok[r] = nxt_h[r]
-        return (nxt_h, lp.cpu().numpy(), top_ids.cpu().numpy(),
-                top_lps.cpu().numpy())
+
+    @staticmethod
+    def _fetch_samples(devs: list) -> list:
+        """Device sample tuples as host arrays, with one wait for the
+        stream (copies into pinned memory on the card)."""
+        if not devs:
+            return []
+        flat = [t for dev in devs for t in dev]
+        if flat[0].is_cuda:
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in flat]
+            for h, t in zip(host, flat):
+                h.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(flat[0].device).synchronize()
+        else:
+            host = flat
+        arrays = [h.numpy() for h in host]
+        k = len(devs[0])
+        return [tuple(arrays[i:i + k]) for i in range(0, len(arrays), k)]
 
     # -- token plumbing -------------------------------------------------------
 

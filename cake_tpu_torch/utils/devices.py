@@ -50,3 +50,14 @@ def device_sm_count(device) -> int:
         _SM_COUNTS[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _SM_COUNTS[idx]
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on `device`. To a card it goes from pinned memory
+    with non_blocking, so the host does not wait for the stream (the
+    caching host allocator holds the pinned copy until the transfer is
+    done); on the CPU it is `t` itself."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

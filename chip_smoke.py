@@ -75,6 +75,22 @@ Phases, in order (any failure exits non-zero):
             tree without the captured step (--tree of a parent) serves
             at --decode-scan 1 only. A `serve` JSON line holds the
             drives' records.
+  prefix    shared-prefix pages and the phase-split prefill at the same
+            width and depth, over a bf16 and an int8 pool: the prefix's
+            prefill into its 5 pages, a suffix after it and a window of a
+            row that maps it, each with attn="kernel" (flash_attn,
+            flash_attn_cached: 32 launches a call) and attn="plain" from
+            one pool (layer 0's pages identical, logits and pages within
+            PREFIX_REL_TOL of their magnitude); then a warm-up chat and six
+            concurrent chats with one ~700-token system message through
+            the HTTP API with --auto-prefix at --mixed-batch auto and off
+            (--decode-scan 4), and the same chats without it: 6 prefix
+            hits a drive, fewer pages in use at peak than without, the
+            shared pages' bytes and scales unchanged, only the registry's
+            pages live at the end, flash launches on the served path and
+            no plain version; TTFT p50, decode tok/s and wall beside the
+            card's name and power limit. A `prefix` JSON line holds the
+            drives' records.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -94,7 +110,7 @@ import threading
 import time
 import urllib.request
 
-PHASES = ("device", "kernels", "step", "generate", "serve")
+PHASES = ("device", "kernels", "step", "generate", "serve", "prefix")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -535,6 +551,16 @@ FLASH_CASES = (
     ("flash_attn_cached S=256 pos=1301 T=4096 window 700 NaN tail",
      "flash_attn_cached", dict(S=256, T=4096, pos=1301), dict(window=700),
      False),
+    # the prefix phase's shapes: a 5-page prefix registration, the
+    # prefixed suffix window, and a chunk window over a slot's whole
+    # gathered row (max_seq_len 2048), whose unmapped pages read as zeros
+    ("flash_attn causal S=T=640 (prefix registration)", "flash_attn",
+     dict(S=640, T=640, pos=None), dict(), False),
+    ("flash_attn_cached S=128 pos=640 T=768 NaN tail (prefixed suffix)",
+     "flash_attn_cached", dict(S=128, T=768, pos=640), dict(), False),
+    ("flash_attn_cached S=64 pos=704 T=2048 zero tail (chunk window)",
+     "flash_attn_cached", dict(S=64, T=2048, pos=704, tail=0.0), dict(),
+     False),
 )
 
 
@@ -599,9 +625,10 @@ def _flash_kernels(torch, fa, report, only=None) -> None:
                 args = (q, k, v)
                 kern, plain = fa.flash_attention, fa.flash_attention_plain
             else:
-                # slots at or past the frontier hold garbage: NaN here
-                k[:, pos + S:] = float("nan")
-                v[:, pos + S:] = float("nan")
+                # slots at or past the frontier hold garbage (NaN), or
+                # the zeros of unmapped pages
+                k[:, pos + S:] = shp.get("tail", float("nan"))
+                v[:, pos + S:] = shp.get("tail", float("nan"))
                 args = (q, k, v, pos)
                 kern = fa.flash_attention_cached
                 plain = fa.flash_attention_cached_plain
@@ -1791,15 +1818,323 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
     return {k: counts[k] for k in served}, gib, records
 
 
+# -- phase: prefix -------------------------------------------------------------
+
+# kernel against plain at full depth, bf16: layer 0's pages are written
+# before any attention, so they must be byte-identical; past it the two
+# routes drift apart through 32 layers of bf16 rounding (flash rounds p
+# to bf16, as Pallas does; the einsum keeps it in f32), so logits and
+# pages are held to a share of their largest magnitude
+PREFIX_REL_TOL = 5e-2
+# the system message of the prefix phase's chats: its rendered Llama-3
+# head is 701 byte tokens, 5 shared pages of 128 after rounding down
+PREFIX_SYSTEM = ("You are a careful assistant for a team that shares one "
+                 "long system prompt. " * 8)[:630]
+# the prefix phase's device (a rehearsal on the CPU may set another)
+DEV = "cuda"
+PREFIX_USERS = ("Why is the sky blue?", "Name three colours.",
+                "Count to five.", "Tell me about pages.", "Hello there.",
+                "What is a prefix?")
+
+
+def _pool_leaves(cache):
+    return [t for pool in (cache.k, cache.v)
+            for t in (pool if isinstance(pool, tuple) else (pool,))]
+
+
+def _prefix_steps(torch, fa, cfg, params, kv_dtype) -> dict:
+    """The three prefills of the shared-prefix path at full width and
+    depth, each run with attn="kernel" and attn="plain" on clones of one
+    pool: the 640-token prefix into its 5 pages (prefill_prefix_pages,
+    flash_attn), a 100-token suffix after it in a 128 bucket
+    (prefill_slot_paged_prefixed at pos 640, flash_attn_cached) and a
+    64-token window at pos 704 of a row that maps the prefix
+    (prefill_slot_paged_chunk, flash_attn_cached over the gathered row).
+    The kernel side carries on to the next call."""
+    from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
+    from cake_tpu_torch.models.llama import paged as pg
+    from cake_tpu_torch.models.llama.model import RopeTables
+
+    dev, T, P = DEV, 2048, 128
+    L = cfg.num_hidden_layers
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rope = RopeTables.create(cfg, T, device=dev)
+    if kv_dtype is None:
+        cache = pg.PagedKVCache.create(cfg, 4, 32, P, T,
+                                       dtype=torch.bfloat16, device=dev)
+    else:
+        cache = QUANTIZED_CACHES[kv_dtype].create(cfg, 4, 32, P, T,
+                                                  device=dev)
+    ids = lambda n: torch.randint(0, cfg.vocab_size, (1, n), generator=gen,  # noqa: E731
+                                  device=dev, dtype=torch.int32)
+    prefix = ids(5 * P)
+    row = torch.full((T // P,), -1, dtype=torch.int32, device=dev)
+    row[:5] = torch.arange(5, dtype=torch.int32, device=dev)
+    table = torch.full_like(cache.table, -1)
+    table[0, :8] = torch.arange(8, dtype=torch.int32, device=dev)
+    table[1, :5] = torch.arange(5, dtype=torch.int32, device=dev)
+    table[1, 5:8] = torch.arange(8, 11, dtype=torch.int32, device=dev)
+    suffix = torch.cat([ids(100), torch.zeros((1, 28), dtype=torch.int32,
+                                              device=dev)], dim=1)
+    window = ids(64)
+    calls = (
+        ("prefill_prefix_pages", False,
+         lambda c, a: pg.prefill_prefix_pages(params, prefix, row, c, rope,
+                                              cfg, attn=a)),
+        ("prefill_slot_paged_prefixed", True,
+         lambda c, a: pg.prefill_slot_paged_prefixed(
+             params, suffix, 100, 0, c, rope, cfg, n_prefix=5 * P, attn=a)),
+        ("prefill_slot_paged_chunk", True,
+         lambda c, a: pg.prefill_slot_paged_chunk(
+             params, window, 64, 1, 5 * P + 64, c, rope, cfg, attn=a)),
+    )
+    label = f"prefix steps ({kv_dtype or 'bf16'} pool)"
+    counts = {}
+    for name, has_logits, fn in calls:
+        sides = {}
+        for attn in ("kernel", "plain"):
+            c = cache.clone()
+            fa.reset_launch_counts()
+            out = fn(c, attn)
+            torch.cuda.synchronize()
+            sides[attn] = ((out[0] if has_logits else None), c,
+                           dict(fa.LAUNCHES))
+        (lk, ck, nk), (lp, cp, npl) = sides["kernel"], sides["plain"]
+        kern = "flash_attn_cached" if has_logits else "flash_attn"
+        want = {kern: L}
+        got = {k: v for k, v in nk.items() if v}
+        if got != want or any(npl.values()):
+            fail(f"{label} {name}: kernel side launched {got}, plain side "
+                 f"{ {k: v for k, v in npl.items() if v} }; expected {want} "
+                 "and nothing on the plain side")
+        counts[kern] = counts.get(kern, 0) + L
+        msg = f"{label} {name}: {L} {kern} launches"
+        if has_logits:
+            err = (lk - lp).abs().max().item()
+            ref = lp.abs().max().item()
+            msg += (f"; logits max |kernel - plain| = {err:.3e} "
+                    f"({err / ref:.3e} of max |plain| {ref:.3e}, tol "
+                    f"{PREFIX_REL_TOL})")
+            if not torch.isfinite(lk).all() or err > PREFIX_REL_TOL * ref:
+                fail(msg)
+        pk, pp = _pool_leaves(ck), _pool_leaves(cp)
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(pk, pp)):
+            fail(f"{label} {name}: layer 0's pages differ between the "
+                 "kernel and the plain route")
+        perr = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(pk, pp))
+        pref = max(b.float().abs().max().item() for b in pp)
+        msg += (f"; pool layer 0 identical, max |kernel - plain| = "
+                f"{perr:.3e} ({perr / pref:.3e} of {pref:.3e}, tol "
+                f"{PREFIX_REL_TOL})")
+        log(msg)
+        if perr > PREFIX_REL_TOL * pref:
+            fail(msg)
+        cache = ck
+        if name == "prefill_prefix_pages":
+            cache.table.copy_(table)
+        del sides, cp
+    del cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _prefix_serve(torch, rpa, fa, cfg, params, kv_dtype, mixed: str,
+                  auto_prefix: bool, profile: bool = False) -> dict:
+    """One engine behind the HTTP API (the serve phase's Args, plus
+    --auto-prefix, --mixed-batch `mixed`, --decode-scan 4): a warm-up chat
+    with PREFIX_SYSTEM (it registers the head), then six concurrent chats
+    with the same system message and their own user turns, 32 greedy
+    tokens each, while a thread samples the pages in use (with `profile`,
+    under torch.profiler: the card's busy share of the drive). Returns
+    the drive's record."""
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    args = Args(max_slots=8, max_seq_len=2048, kv_pages=128,
+                kv_page_size=128, prefill_chunk=64, temperature=0.0,
+                sample_len=32, dtype="bf16", kv_dtype=kv_dtype,
+                decode_scan=4, mixed_batch=mixed,
+                auto_prefix=auto_prefix).validate()
+    label = (f"prefix serve ({kv_dtype or 'bf16'} pool, mixed-batch "
+             f"{mixed}, {'auto-prefix' if auto_prefix else 'no prefix'})")
+    gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
+                         max_seq_len=2048,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.bfloat16, device=DEV)
+    master = Master(args, text_generator=gen)
+    engine = master.make_engine()
+    httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
+    url = (f"http://127.0.0.1:{httpd.server_address[1]}"
+           "/api/v1/chat/completions")
+    errors = []
+
+    def chat(user):
+        body = {"messages": [{"role": "system", "content": PREFIX_SYSTEM},
+                             {"role": "user", "content": user}],
+                "max_tokens": 32, "temperature": 0.0}
+        try:
+            with _post(url, body) as r:
+                json.loads(r.read())
+                if r.status != 200:
+                    errors.append(r.status)
+        except Exception as e:   # noqa: BLE001
+            errors.append(repr(e))
+
+    def wait_retired(n):
+        deadline = time.monotonic() + 60.0
+        while len(engine.retired) < n and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+    stats = engine.stats
+    rpa.reset_launch_counts()
+    fa.reset_launch_counts()
+    chat("Warm up.")
+    wait_retired(1)
+    shared, before = [], []
+    if auto_prefix:
+        if (len(engine._prefixes) != 1
+                or any(p is None or p < 0
+                       for p in engine._auto_pids.values())):
+            fail(f"{label}: the system prompt's head did not register "
+                 f"(registry {list(engine._prefixes)}, heads "
+                 f"{list(engine._auto_pids.values())}): the auto-prefix "
+                 "registration failed and requests were served whole")
+        (_, shared), = engine._prefixes.values()
+        idx = torch.tensor(shared, device=DEV)
+        before = [t[:, idx].clone() for t in _pool_leaves(engine.cache)]
+    hits0, tok0, dec0 = (stats.prefix_hits, stats.tokens_generated,
+                         stats.decode_time_s)
+    n0 = len(engine.retired)
+    peak = [engine._pager.live_pages]
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], engine._pager.live_pages)
+            time.sleep(0.0005)
+
+    def drive():
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=chat, args=(u,))
+                   for u in PREFIX_USERS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        return time.perf_counter() - t0
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    prof_rows = []
+    wall = _profiled(torch, profile, label, drive, prof_rows)
+    wait_retired(n0 + len(PREFIX_USERS))
+    done.set()
+    sampler.join()
+    retired = list(engine.retired)[n0:]
+    n_tok = [len(r.out_tokens) for r in retired]
+    if errors or len(retired) != len(PREFIX_USERS) or any(
+            n != 32 for n in n_tok):
+        fail(f"{label}: errors {errors}, tokens {n_tok}")
+    dec = stats.decode_time_s - dec0
+    rec = dict(
+        label=label, kv_dtype=kv_dtype or "bf16", mixed=mixed,
+        auto_prefix=auto_prefix, wall_s=wall,
+        prefix_hits=stats.prefix_hits - hits0,
+        shared_pages=len(shared), peak_pages=peak[0],
+        decode_tok_s=(stats.tokens_generated - tok0) / dec if dec else 0,
+        ttft_p50_s=statistics.median(r.first_token_t - r.submit_t
+                                     for r in retired),
+        launches={k: v for c in (fa.LAUNCHES, rpa.LAUNCHES)
+                  for k, v in c.items() if v},
+        busy=(sum(t for t, _, _ in prof_rows) / 1e6 / wall
+              if prof_rows else None))
+    if auto_prefix:
+        after = [t[:, idx] for t in _pool_leaves(engine.cache)]
+        if not all(torch.equal(a, b) for a, b in zip(before, after)):
+            fail(f"{label}: a shared prefix page (or its scale) was "
+                 "written while serving")
+        if rec["prefix_hits"] != len(PREFIX_USERS):
+            fail(f"{label}: {rec['prefix_hits']} prefix hits, expected "
+                 f"{len(PREFIX_USERS)}")
+    httpd.shutdown()
+    httpd.server_close()
+    engine.stop()
+    live, registry = engine._pager.live_pages, len(shared)
+    if live != registry:
+        fail(f"{label}: {live} pages live after every request retired, "
+             f"the registry holds {registry}")
+    plain = {k: v for k, v in rec["launches"].items() if k.endswith("_plain")}
+    if plain:
+        fail(f"{label}: plain versions ran on the served path: {plain}")
+    log(f"{label}: {rec['prefix_hits']} prefix hits over "
+        f"{len(PREFIX_USERS)} chats ({len(shared)} shared pages), peak "
+        f"{rec['peak_pages']} pages in use, TTFT p50 "
+        f"{rec['ttft_p50_s']:.3f} s, decode {rec['decode_tok_s']:.1f} "
+        f"tok/s, wall {wall:.2f} s"
+        + (f", device busy {100 * rec['busy']:.1f}%"
+           if rec["busy"] is not None else "")
+        + f"; launches {rec['launches']}")
+    del engine, master, gen, httpd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_prefix(torch, rpa, fa, cfg, params, card: str,
+                 profile: bool = False) -> tuple:
+    """Shared-prefix pages and the phase-split prefill at Llama-3-8B width
+    and depth, over a bf16 and an int8 pool: the three prefills kernel
+    against plain (`_prefix_steps`), then the six chats with one system
+    message through the HTTP API at --mixed-batch auto and off with
+    --auto-prefix, against the same chats without it (each drive under
+    torch.profiler with `profile`). Returns (the flash launches of the
+    served drives, the drives' records)."""
+    served = {"flash_attn": 0, "flash_attn_cached": 0}
+    records = []
+    for kv in (None, "int8"):
+        _prefix_steps(torch, fa, cfg, params, kv)
+        recs = {(m, a): _prefix_serve(torch, rpa, fa, cfg, params, kv, m, a,
+                                      profile)
+                for m, a in (("auto", False), ("auto", True), ("off", True))}
+        base = recs[("auto", False)]["peak_pages"]
+        for (m, a), r in recs.items():
+            if a and not r["peak_pages"] < base:
+                fail(f"{r['label']}: peak {r['peak_pages']} pages, not "
+                     f"fewer than {base} without the prefix")
+            if a:
+                for k in served:
+                    served[k] += r["launches"].get(k, 0)
+        off = recs[("off", True)]["launches"]
+        if not (off.get("flash_attn", 0) > 0
+                and off.get("flash_attn_cached", 0) > 0):
+            fail(f"prefix ({kv or 'bf16'} pool): the mixed-batch off drive "
+                 f"launched {off}, expected flash_attn and "
+                 "flash_attn_cached")
+        records += list(recs.values())
+    for r in records:
+        busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
+        log(f"prefix summary: {r['label']:<58} hits {r['prefix_hits']}  "
+            f"peak pages {r['peak_pages']:3d}  TTFT p50 "
+            f"{r['ttft_p50_s']:.3f} s  decode {r['decode_tok_s']:7.1f} "
+            f"tok/s  wall {r['wall_s']:5.2f} s  busy {busy}  [{card}]")
+    return served, records
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
     ap.add_argument("--profile", action="store_true",
-                    help="trace generate run A and run B's prefill with "
-                         "torch.profiler and print where the device time "
-                         "went (the serve phase always profiles its third "
-                         "drive)")
+                    help="trace generate run A and run B's prefill, and the "
+                         "prefix phase's drives, with torch.profiler and "
+                         "print where the device time went (the serve phase "
+                         "always profiles its third drive)")
     ap.add_argument("--kernels", default="",
                     help="comma list of kernel names: the kernels phase "
                          "runs only these (a parent-against-change aid)")
@@ -1853,7 +2188,8 @@ def main(argv=None) -> int:
     # kernels line, not 0, when its phase did not run)
     counts = {}
     serve_records = []
-    if {"step", "generate", "serve"} & set(phases):
+    prefix_records = []
+    if {"step", "generate", "serve", "prefix"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -1872,6 +2208,13 @@ def main(argv=None) -> int:
             log("serve pools (128 pages x 128 tokens + the sink, 32 "
                 "layers): "
                 + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
+        if "prefix" in phases:
+            # the flash kernels' launches on the serve path join the
+            # generator's in the kernels line
+            served, prefix_records = phase_prefix(torch, rpa, fa, cfg,
+                                                  params, card, a.profile)
+            for k, n in served.items():
+                counts[k] = counts.get(k, 0) + n
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -1903,6 +2246,9 @@ def main(argv=None) -> int:
             f"  wall {r['wall_s']:6.2f} s  busy {busy}")
     if serve_records:
         print(json.dumps({"serve": serve_records}), flush=True)
+    if prefix_records:
+        print(json.dumps({"prefix": prefix_records, "card": card}),
+              flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -160,8 +160,11 @@ def test_engine_validates_its_configuration(models):
     tok = ByteTokenizer(tc.vocab_size)
     with pytest.raises(NotImplementedError, match="kv_pages"):
         InferenceEngine(tc, tp, tok, **kw)
-    with pytest.raises(NotImplementedError, match="mixed-batch off"):
-        InferenceEngine(tc, tp, tok, kv_pages=4, mixed_batch="off", **kw)
+    with pytest.raises(ValueError, match="--mixed-batch must be"):
+        InferenceEngine(tc, tp, tok, kv_pages=4, mixed_batch="no", **kw)
+    # the phase-split loop is ported: "off" builds it
+    assert not InferenceEngine(tc, tp, tok, kv_pages=4, mixed_batch="off",
+                               **kw)._mixed
     with pytest.raises(ValueError, match="paged-attn"):
         InferenceEngine(tc, tp, tok, kv_pages=4, paged_attn="fold", **kw)
     with pytest.raises(ValueError, match="CUDA device"):
