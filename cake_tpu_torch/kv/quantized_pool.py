@@ -26,14 +26,16 @@ f32 reciprocal; so does the code here (`* (1.0 / qmax)`: the scale may
 differ by an ulp from an op-by-op `amax / qmax`).
 
 Where the JAX writers are pure and drop out-of-bounds page ids with
-mode="drop", these write the pool in place. The window writers touch
-only the pages they write (`window_page_targets`: one host sync for the
-boolean selection); the decode writer has one target per row, and a row
-it drops goes to the sink page past the real ones (`decode_targets`: no
-host sync, so the decode step captures into a CUDA graph), which every
-cache allocates and no table maps. A step's write targets are the same
-for every layer, so the steps compute them once and every layer's
-writer reuses them.
+mode="drop", these write the pool in place, through targets of fixed
+shape: the decode writer has one target per row, the window writers
+JAX's W = ceil(C/P) + 1 window pages a row (`window_page_targets`), and
+what JAX drops goes to the sink page past the real ones, which every
+cache allocates and no table maps. No writer waits for the stream, so
+the decode and the mixed step capture into CUDA graphs. A step's write
+targets are the same for every layer, so the steps compute them once
+and every layer's writer reuses them. A window writer called without
+targets, on a leaf that may have no sink, stores only the touched pages
+(a boolean selection).
 """
 
 from __future__ import annotations
@@ -337,24 +339,31 @@ def prompt_targets(table_row, S: int, P: int):
 
 
 class WindowTargets(NamedTuple):
-    """The touched pages of a windowed write and where each written
-    position lands among them."""
+    """A windowed write's fixed-shape targets, JAX's: each row's W =
+    ceil(C/P) + 1 window pages (its window's first page onwards), and
+    where each of its C columns lands among them, in a buffer of W + 1
+    window pages a row whose last page (where the columns that write
+    nothing land) is dropped. The same for every layer of a step."""
 
-    pages: torch.Tensor   # [T] page ids touched by >= 1 position
-    rows: torch.Tensor    # [n] row of each written position
-    cols: torch.Tensor    # [n] its window column
-    dst: torch.Tensor     # [n] its touched page (index into `pages`)
-    offs: torch.Tensor    # [n] its slot within that page
+    pages: torch.Tensor   # [B, W] pages read back and stored; a page no
+    #                       position of the row writes is the sink
+    slots: torch.Tensor   # [B * C] each column's slot in the buffer:
+    #                       (b * (W + 1) + window page) * P + offset
+    mask: torch.Tensor    # [B, W, P] the slots a column writes
 
 
-def window_page_targets(pos, q_len, active, table, P: int,
-                        C: int) -> WindowTargets:
+def window_page_targets(pos, q_len, active, table, P: int, C: int,
+                        sink: int) -> WindowTargets:
     """Targets of every row's q_len-token window at absolute position
     pos[b]. A row's window spans at most ceil(C/P)+1 consecutive pages;
     a page is touched iff the row is active, q_len > 0, the page lies in
     [pos // P, (pos + q_len - 1) // P] inside the table, and it is
-    mapped. Padding columns (>= q_len), inactive rows and positions on
-    unmapped pages write nothing."""
+    mapped. Every other window page is page `sink`, never the row's own
+    page: a shared prefix page mapped there is neither read back nor
+    stored. Padding columns (>= q_len), inactive rows and positions past
+    the table or on unmapped pages write nothing (window page W, the
+    buffer page the writer drops, as JAX's does). Fixed shapes and no
+    host sync."""
     dev = table.device
     B = pos.shape[0]
     max_pages = table.shape[1]
@@ -372,16 +381,16 @@ def window_page_targets(pos, q_len, active, table, P: int,
                & (win_pidx <= ((pos + last_q) // P)[:, None])
                & (win_pidx < max_pages) & (pages >= 0))
     p_pages = torch.gather(table, 1, pidx.clamp(max=max_pages - 1))
-    wvalid = ((cols[None, :] < q_len[:, None]) & active[:, None]
-              & (pidx < max_pages) & (p_pages >= 0))
-    tb, tw = touched.nonzero(as_tuple=True)
-    slot = torch.full((B, W), -1, dtype=torch.long, device=dev)
-    slot[tb, tw] = torch.arange(tb.numel(), device=dev)
-    rows, cs = wvalid.nonzero(as_tuple=True)
-    return WindowTargets(
-        pages=pages[tb, tw].long(), rows=rows, cols=cs,
-        dst=slot[rows, pidx[rows, cs] - first[rows]],
-        offs=positions[rows, cs] % P)
+    valid = ((cols[None, :] < q_len[:, None]) & active[:, None]
+             & (pidx < max_pages) & (p_pages >= 0))
+    win = torch.where(valid, pidx - first[:, None], W)
+    rows = torch.arange(B, device=dev)[:, None]
+    slots = ((rows * (W + 1) + win) * P + positions % P).flatten()
+    mask = torch.zeros(B * (W + 1) * P, dtype=torch.bool, device=dev)
+    mask.index_fill_(0, slots, True)
+    return WindowTargets(pages=torch.where(touched, pages.long(), sink),
+                         slots=slots,
+                         mask=mask.view(B, W + 1, P)[:, :W].contiguous())
 
 
 # -- writers (one layer's pool leaf, in place) --------------------------------
@@ -445,25 +454,30 @@ def qupdate_pool_per_row(pool, vals: torch.Tensor, pos, active, table,
     return pool
 
 
-def _window_pages_rmw(pool, vals: torch.Tensor, tg: WindowTargets) -> None:
-    """The window writers' shared core over the touched pages: read
-    them back, place the window's values in page coordinates, grow each
-    scale to cover what lands on the page, re-quantize the residents,
-    overwrite the written slots, store the pages."""
-    if tg.pages.numel() == 0:
-        return
+def _window_pages_rmw(pool, vals: torch.Tensor, tg: WindowTargets,
+                      drop: bool = False) -> None:
+    """The window writers' shared core over each row's window pages
+    (vals [B, C, KV, hd]): read them back, place the window's values in
+    page coordinates (W + 1 pages a row, the last one, where the columns
+    that write nothing land, dropped), grow each scale to cover what
+    lands on the page, re-quantize the residents, overwrite the written
+    slots, store the pages. The sink's entries take the same round trip
+    (several rows may store it: nothing reads it); with `drop` the leaf
+    has no sink (tg.pages holds its page count there) and those entries
+    are not stored, JAX's mode="drop", through a boolean selection."""
     P = _pool_page(pool)
     qmax = _pool_qmax(pool)
-    KV, hd = vals.shape[-2], vals.shape[-1]
-    T = tg.pages.shape[0]
-    qs = _gather_q(pool, tg.pages)                 # [T, P, KV, hd]
-    ss = pool.scale[tg.pages]                      # [T, KV]
-    buf = torch.zeros((T, P, KV, hd), dtype=torch.float32,
+    B, KV, hd = vals.shape[0], vals.shape[-2], vals.shape[-1]
+    W = tg.pages.shape[1]
+    N = pool.q.shape[0]
+    idx = tg.pages.clamp(max=N - 1) if drop else tg.pages
+    qs = _gather_q(pool, idx)                      # [B, W, P, KV, hd]
+    ss = pool.scale[idx]                           # [B, W, KV]
+    buf = torch.zeros((B * (W + 1) * P, KV, hd), dtype=torch.float32,
                       device=vals.device)
-    msk = torch.zeros((T, P), dtype=torch.bool, device=vals.device)
-    buf[tg.dst, tg.offs] = vals[tg.rows, tg.cols].float()
-    msk.index_put_((tg.dst, tg.offs),      # a device value: no host wait
-                   torch.ones((), dtype=torch.bool, device=vals.device))
+    buf.index_copy_(0, tg.slots, vals.reshape(-1, KV, hd).float())
+    buf = buf.view(B, W + 1, P, KV, hd)[:, :W]
+    msk = tg.mask
     amax = torch.where(msk[..., None, None], buf.abs(),
                        torch.zeros_like(buf)).amax(dim=(-3, -1))
     need = amax.clamp(min=_EPS) * (1.0 / qmax)
@@ -474,25 +488,27 @@ def _window_pages_rmw(pool, vals: torch.Tensor, tg: WindowTargets) -> None:
     qt = (buf / new_s.clamp(min=_EPS)[..., None, :, None]).round().clamp(
         -qmax, qmax).to(torch.int8)
     qw = torch.where(msk[..., None, None], qt, qr)
-    _scatter_q(pool, tg.pages, qw, new_s)
+    if drop:
+        keep = tg.pages < N
+        _scatter_q(pool, tg.pages[keep], qw[keep], new_s[keep])
+    else:
+        _scatter_q(pool, tg.pages, qw, new_s)
 
 
 def qwrite_window_pages(pool, vals: torch.Tensor, table_row, pos0,
                         n_real=None):
     """One C-token window [1, C, KV, hd] at absolute position pos0 (any
-    in-page offset) into one slot's pages. Positions >= n_real (the
-    chunk path's bucket padding) neither write nor enter the amax, and
-    pages touched only by padding are left alone. Returns the pool."""
+    in-page offset) into one slot's pages: the one-row case of
+    `qwrite_windows_pages`. Positions >= n_real (the chunk path's bucket
+    padding) neither write nor enter the amax, and pages touched only by
+    padding are left alone. Returns the pool."""
     C = vals.shape[1]
     dev = table_row.device
     n = C if n_real is None else n_real
-    tg = window_page_targets(
-        torch.as_tensor([pos0], device=dev).reshape(1),
+    return qwrite_windows_pages(
+        pool, vals, torch.as_tensor([pos0], device=dev).reshape(1),
         torch.as_tensor([n], device=dev).reshape(1),
-        torch.ones(1, dtype=torch.bool, device=dev), table_row[None],
-        _pool_page(pool), C)
-    _window_pages_rmw(pool, vals, tg)
-    return pool
+        torch.ones(1, dtype=torch.bool, device=dev), table_row[None])
 
 
 def qwrite_windows_pages(pool, vals: torch.Tensor, pos, q_len, active,
@@ -500,10 +516,14 @@ def qwrite_windows_pages(pool, vals: torch.Tensor, pos, q_len, active,
     """The batched mixed writer: every row's q_len-token window
     ([B, C, KV, hd]) at its own offset, decode rows (q_len=1) included.
     Rows own disjoint pages, so the page round trips never collide.
-    `targets` are `window_page_targets(...)`, computed here when not
-    given. Returns the pool."""
-    if targets is None:
+    `targets` are `window_page_targets(...)` over the cache's sink (a
+    step computes them once for every layer); without them the writer
+    computes its own and stores only the touched pages, so a leaf
+    without a sink page is fine. Returns the pool."""
+    drop = targets is None
+    if drop:
         targets = window_page_targets(pos, q_len, active, table,
-                                      _pool_page(pool), vals.shape[1])
-    _window_pages_rmw(pool, vals, targets)
+                                      _pool_page(pool), vals.shape[1],
+                                      sink=pool.q.shape[0])
+    _window_pages_rmw(pool, vals, targets, drop)
     return pool

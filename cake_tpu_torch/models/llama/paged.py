@@ -11,12 +11,13 @@ there:
   pool k/v: [L, N_pages + 1, page, KV, hd]   (page = tokens per page)
   table:    [slots, max_pages] int32          (page ids; -1 = unmapped)
 
-The page past the last real one is the decode writers' sink: a row the
-step drops (inactive, or on an unmapped page) writes there, where JAX's
-scatter drops its out-of-bounds index with mode="drop". No table maps
-it, no kernel reads it, and the allocator and `n_pages` count only the
-real pages; it keeps the decode step free of data-dependent shapes, so
-the step captures into a CUDA graph (serve/graphs.py).
+The page past the last real one is the steps' sink: a position a step
+drops (an inactive row, a padding column, an unmapped page) writes
+there, where JAX's scatter drops its out-of-bounds index with
+mode="drop". No table maps it, no kernel reads it, and the allocator
+and `n_pages` count only the real pages; it keeps the decode and the
+mixed step free of data-dependent shapes, so both capture into CUDA
+graphs (serve/graphs.py).
 
 The pool is f32/bf16 (`PagedKVCache`), or int8 / nibble-packed int4 with
 per-page scales (`kv/quantized_pool.py`: `QuantizedPagedKVCache`,
@@ -235,46 +236,66 @@ def table_set_slot(table: torch.Tensor, slot: int,
 # -- pool writers (one layer's pool leaves, in place) -------------------------
 #
 # A step's write targets are the same for every layer, so the steps compute
-# them once (`step_write_targets`) and every layer writes through them. A
-# decode step's targets have a fixed shape (one per row, dropped rows on
-# the sink page); a mixed step's select their positions with one host
-# sync.
+# them once (`step_write_targets`) and every layer writes through them. They
+# have fixed shapes, one per row (a decode step) or per row and window
+# column (a mixed step), and what JAX's scatter drops with mode="drop" goes
+# to the pool's sink page instead: no step waits for the stream or has a
+# shape that depends on the data, so both capture into CUDA graphs
+# (serve/graphs.py). A writer called without targets, on a pool leaf that
+# may have no sink, drops those positions (`_drop`).
 
 
 def _quantized(pool) -> bool:
     return isinstance(pool, (QuantPool, Int4Pool))
 
 
-def _window_targets(pos, q_len, active, table, P: int, C: int):
-    """(row, col, page, offset) index tensors of the positions a mixed
-    step writes: real columns (< q_len) of active rows whose position
-    lands on a mapped page inside the table. The rest are dropped, as
-    the JAX writers drop them with mode="drop"."""
+def _window_targets(pos, q_len, active, table, P: int, C: int, sink: int):
+    """(rows [B, 1], cols [1, C], pages [B, C], offsets [B, C]): column c
+    of row b writes position pos[b] + c. What JAX drops (columns >=
+    q_len, so every column of a q_len = 0 row; inactive rows; positions
+    past the table or on an unmapped page) targets page `sink`. Several
+    dropped positions may share a sink slot, and which one lands there
+    is unspecified: harmless, since no table maps the sink and nothing
+    reads it."""
+    B = pos.shape[0]
     max_pages = table.shape[1]
     cols = torch.arange(C, device=table.device)
     positions = pos[:, None].long() + cols[None, :]              # [B, C]
     pidx = positions // P
-    pages = torch.gather(table, 1, pidx.clamp(max=max_pages - 1))
+    pages = torch.gather(table, 1, pidx.clamp(max=max_pages - 1)).long()
     valid = ((cols[None, :] < q_len[:, None]) & active[:, None]
              & (pidx < max_pages) & (pages >= 0))
-    rows, cs = valid.nonzero(as_tuple=True)
-    return rows, cs, pages[rows, cs].long(), positions[rows, cs] % P
+    return (torch.arange(B, device=table.device)[:, None], cols[None, :],
+            torch.where(valid, pages, sink), positions % P)
+
+
+def _drop(targets, sink: int):
+    """The targets that do not land on page `sink`, for a pool leaf
+    without one (`sink` past its last page): JAX's mode="drop". A
+    boolean selection, so on the card it waits for the stream; the steps
+    keep the sink instead."""
+    rows, cols, pages, offs = targets
+    keep = pages != sink
+    return (rows.expand(pages.shape)[keep], cols.expand(pages.shape)[keep],
+            pages[keep], offs[keep])
 
 
 def step_write_targets(cache, pos, active, q_len=None, C: int = 1,
                        table=None):
     """The write targets of one step, shared by every layer: a decode
-    step's (q_len None) tokens, or a mixed step's windows of C columns.
-    For a quantized pool, a window write touches whole pages
+    step's (q_len None) tokens, or a mixed step's windows of C columns,
+    with the cache's sink page (`n_pages`) where JAX drops. For a
+    quantized pool, a window write touches whole pages
     (`window_page_targets`). `table`: the rows the step writes through
     (cache.table when not given)."""
     P = cache.page_size
     table = cache.table if table is None else table
+    sink = cache.n_pages
     if q_len is None:
-        return decode_targets(pos, active, table, P, cache.n_pages)
+        return decode_targets(pos, active, table, P, sink)
     if _quantized(cache.k):
-        return window_page_targets(pos, q_len, active, table, P, C)
-    return _window_targets(pos, q_len, active, table, P, C)
+        return window_page_targets(pos, q_len, active, table, P, C, sink)
+    return _window_targets(pos, q_len, active, table, P, C, sink)
 
 
 def _scatter(pool_k, pool_v, k, v, targets):
@@ -288,21 +309,21 @@ def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table,
     """Every row writes its q_len-token window at absolute position
     pos[b] into its own pages. k/v: [B, C, KV, hd]; pos/q_len: [B];
     active: [B] bool; table: [slots(=B), max_pages]. Padding columns,
-    inactive rows and positions on unmapped pages are dropped. A
-    quantized pool quantizes on write (`qwrite_windows_pages`).
-    `targets` come from `step_write_targets`; computed here when not
-    given."""
+    inactive rows and positions on unmapped pages or past the table are
+    not written to the real pages. A quantized pool quantizes on write
+    (`qwrite_windows_pages`). `targets` come from `step_write_targets`
+    (the dropped positions on the sink page); without them the writer
+    computes its own and drops those positions."""
     if _quantized(pool_k):
-        if targets is None:
-            targets = window_page_targets(pos, q_len, active, table,
-                                          _pool_page(pool_k), k.shape[1])
         return (qwrite_windows_pages(pool_k, k, pos, q_len, active, table,
                                      targets),
                 qwrite_windows_pages(pool_v, v, pos, q_len, active, table,
                                      targets))
     if targets is None:
-        targets = _window_targets(pos, q_len, active, table,
-                                  pool_k.shape[1], k.shape[1])
+        sink = pool_k.shape[0]
+        targets = _drop(_window_targets(pos, q_len, active, table,
+                                        pool_k.shape[1], k.shape[1], sink),
+                        sink)
     _scatter(pool_k, pool_v, k, v, targets)
     return pool_k, pool_v
 

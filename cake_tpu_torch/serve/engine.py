@@ -7,9 +7,10 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     allocator gates admission, and a slot maps its positions to pages
     through its table row (models/llama/paged.py);
   * admissions map their pages and join the very next device step as
-    prefill-chunk rows beside the decode rows (`mixed_step_paged`), in
-    fixed C-token windows; when no prompt is mid-prefill the engine runs
-    the cheaper C=1 decode step (`forward_ragged_paged` + sampling);
+    prefill-chunk rows beside the decode rows (`mixed_step_paged` and
+    the emitting rows' sampling, over fixed [B, C] descriptors), in
+    C-token windows; when no prompt is mid-prefill the engine runs the
+    cheaper C=1 decode step (`forward_ragged_paged` + sampling);
   * every slot carries its own position, random stream (a seed and a
     counter on the device), repeat-penalty ring and sampling options,
     so a row's output depends only on its own request
@@ -27,12 +28,18 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     pages, refcounted and read-only, at the head of its table row and
     prefills only its suffix.
 
-The decode step, its sampling and its carry run through
-`serve/graphs.DecodeRunner`: on CUDA always as a captured CUDA graph
-(there is no eager decode step on the card), on the CPU eagerly.
-`decode_scan_steps` K > 1 (--decode-scan) runs K steps a host round
-trip while nobody waits and no prompt is mid-prefill, in double-buffered
-bursts with the JAX engine's row rules (`_decode_burst`).
+Both steps run as captured CUDA graphs on the card (there is no eager
+step there), and eagerly on the CPU: the decode step, its sampling and
+its carry through `serve/graphs.DecodeRunner`, the mixed step and its
+sampling through `serve/graphs.MixedRunner`. A mixed step's rows go up
+from pinned memory without a wait for the stream; a step in which no
+row emits (every row mid-prompt) fetches nothing, so a long prompt's
+chunk-only steps queue back to back, and only a step with a row that
+emits waits, once, for its outputs. A row leaving the mixed steps enters
+the decode graph from the host mirrors. `decode_scan_steps` K > 1
+(--decode-scan) runs K decode steps a host round trip while nobody
+waits and no prompt is mid-prefill, in double-buffered bursts with the
+JAX engine's row rules (`_decode_burst`).
 
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
@@ -70,7 +77,7 @@ from cake_tpu_torch.models.llama.paged import (
 )
 from cake_tpu_torch.native.scheduler import make_scheduler
 from cake_tpu_torch.ops.sampling import SamplingConfig, masked_sample
-from cake_tpu_torch.serve.graphs import DecodeRunner
+from cake_tpu_torch.serve.graphs import DecodeRunner, MixedRunner
 from cake_tpu_torch.utils.devices import (
     resolve_device, resolve_dtype, to_device,
 )
@@ -320,8 +327,8 @@ class InferenceEngine:
         here on: the repeat-penalty rings, and one random stream per slot
         (a seed and a counter), so a row's draws are independent of the
         other rows; the reset count keeps a post-error rebuild from
-        replaying consumed streams. The decode runner holds these
-        tensors, so a new set drops it."""
+        replaying consumed streams. The runners hold these tensors, so
+        a new set drops them."""
         B, dev = self.max_slots, self.device
         self._ring = torch.full((B, self.defaults.repeat_last_n), -1,
                                 dtype=torch.int64, device=dev)
@@ -330,6 +337,13 @@ class InferenceEngine:
                                    dtype=torch.int64, device=dev)
         self._counters = torch.zeros(B, dtype=torch.int64, device=dev)
         self._runner: Optional[DecodeRunner] = None
+        self._mixed_runner: Optional[MixedRunner] = None
+        # the two runners' graphs share one memory pool on the card
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        # mixed steps dispatched and not yet counted in the stats' times:
+        # [first dispatch's clock, chunk tokens, decode rows]
+        self._mixed_open: Optional[list] = None
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -728,7 +742,7 @@ class InferenceEngine:
     def _reset_after_error(self) -> None:
         """A failed step may leave the pool half-written: rebuild the
         pool (of the same storage), the allocator, every per-slot mirror
-        and the sampling state, and drop the decode runner. Registered
+        and the sampling state, and drop both runners. Registered
         prefixes lived in the old pool's pages, so the registry is
         cleared too; auto-prefix heads register again on their next
         request."""
@@ -747,7 +761,7 @@ class InferenceEngine:
         self._last_tok[:] = 0
         self._steps[:] = 0
         self._reset_count += 1
-        # the runner's graphs captured the old pool: capture anew
+        # the runners' graphs captured the old pool: capture anew
         self._fresh_sampling_state()
 
     # -- pages ----------------------------------------------------------------
@@ -838,6 +852,9 @@ class InferenceEngine:
         for rid, slot in prefill_plan:
             self._mixed_admit(rid, slot)
         if not self._mixed_pending:
+            # the last mixed step fetched, unless its prompts were
+            # cancelled mid-window: count what is still open
+            self._count_mixed_time()
             # pure decode: K-step bursts while nothing is admitting
             if decode_plan:
                 n = self._scan_steps_for(decode_plan)
@@ -876,20 +893,23 @@ class InferenceEngine:
         self._mixed_pending[slot] = {"req": req, "ids": req.prompt_ids,
                                      "off": off}
 
-    def _device_rows(self, tokens, pos, qlen=None, active=None):
-        dev = self.device
-        out = [torch.as_tensor(tokens, dtype=torch.int32, device=dev),
-               torch.as_tensor(pos, dtype=torch.int32, device=dev)]
-        if qlen is not None:
-            out.append(torch.as_tensor(qlen, dtype=torch.int32, device=dev))
-        out.append(torch.as_tensor(active, dtype=torch.bool, device=dev))
-        return out
+    def _mixed_step_runner(self) -> MixedRunner:
+        if self._mixed_runner is None:
+            self._mixed_runner = MixedRunner(
+                self.params, self.cache, self.rope, self.config,
+                attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
+                counters=self._counters, chunk=self._mixed_chunk,
+                n_top_cap=self.n_top, top_k=self.defaults.top_k,
+                step_fn=mixed_step_paged, pool=self._graph_pool)
+        return self._mixed_runner
 
     def _mixed_dispatch(self, decode_plan) -> None:
         """Build and run ONE mixed step: every decode row contributes its
         last token (q_len=1), every mid-prefill slot its next window;
         rows whose window ends their prompt sample their first token from
-        the same launch the decode rows sample their next."""
+        the same replay the decode rows sample their next. A step in
+        which no row emits (every row mid-prompt) fetches nothing: the
+        host goes on to build the next step, which queues behind it."""
         t0 = time.perf_counter()
         B, C = self.max_slots, self._mixed_chunk
         tokens = np.zeros((B, C), np.int64)
@@ -923,30 +943,32 @@ class InferenceEngine:
                 finished.append(slot)
         if not decode_rows and not chunk_rows:
             return
-        tok_d, pos_d, qlen_d, act_d = self._device_rows(tokens, pos, qlen,
-                                                        active)
-        logits, self.cache = mixed_step_paged(
-            self.params, tok_d, pos_d, qlen_d, act_d, self.cache, self.rope,
-            self.config, attn=self.paged_attn)
         emit_rows = decode_rows + finished
-        # advance the prefill frontiers BEFORE sampling/emit: a finishing
-        # row's _pos must read prompt-end when _emit checks the window cap
+        emit = np.zeros(B, bool)
+        emit[emit_rows] = True
+        handle = self._mixed_step_runner().run(
+            self._n_top_for(emit_rows) if emit_rows else None, tokens, pos,
+            qlen, active, emit, self._steps, self._temp, self._top_p,
+            self._penalty)
+        self.stats.steps += 1
+        # the step's wall is counted when outputs are fetched, over every
+        # step dispatched since the last fetch, split by token share
+        # between prefill and decode
+        if self._mixed_open is None:
+            self._mixed_open = [t0, 0, 0]
+        self._mixed_open[1] += int(sum(qlen[s] for s in chunk_rows))
+        self._mixed_open[2] += len(decode_rows)
+        # advance the prefill frontiers BEFORE emit: a finishing row's
+        # _pos must read prompt-end when _emit checks the window cap
         for slot in chunk_rows:
             p = self._mixed_pending[slot]
             p["off"] += int(qlen[slot])
             self._pos[slot] = p["off"]
-        nxt = lp = tids = tlps = None
-        if emit_rows:
-            nxt, lp, tids, tlps = self._sample_rows(
-                logits, rows=emit_rows, n_top=self._n_top_for(emit_rows))
-        self.stats.steps += 1
-        dt = time.perf_counter() - t0
-        # split the step wall by token share between prefill and decode
-        chunk_toks = int(sum(qlen[s] for s in chunk_rows))
-        pf = dt * chunk_toks / (chunk_toks + len(decode_rows))
-        self.stats.prefill_time_s += pf
-        self.stats.decode_time_s += dt - pf
-
+        if handle is None:
+            return
+        nxt, lp, tids, tlps = (a[:, 0] for a in MixedRunner.fetch(handle))
+        self._count_mixed_time()
+        self._advance_mirrors(emit_rows, nxt)
         for slot in decode_rows:
             req = self._slot_req[slot]
             if req is None:
@@ -960,6 +982,18 @@ class InferenceEngine:
                 continue
             self._emit(p["req"], int(nxt[slot]), logprob=float(lp[slot]),
                        top=self._top(tids, tlps, slot))
+
+    def _count_mixed_time(self) -> None:
+        """Add the wall since the first mixed step not yet counted to the
+        prefill and decode times, split by the steps' token shares."""
+        if self._mixed_open is None:
+            return
+        t0, chunk_toks, decode_toks = self._mixed_open
+        self._mixed_open = None
+        dt = time.perf_counter() - t0
+        pf = dt * chunk_toks / (chunk_toks + decode_toks)
+        self.stats.prefill_time_s += pf
+        self.stats.decode_time_s += dt - pf
 
     @staticmethod
     def _top(tids, tlps, slot) -> list:
@@ -1118,7 +1152,7 @@ class InferenceEngine:
         self._steps[slot] = 0
         return self._sample_rows(
             logits.expand(self.max_slots, logits.shape[-1]), rows=[slot],
-            n_top=n_top, defer=True)
+            n_top=n_top)
 
     # -- the decode step and its bursts ---------------------------------------
 
@@ -1128,7 +1162,8 @@ class InferenceEngine:
                 self.params, self.cache, self.rope, self.config,
                 attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
                 counters=self._counters, max_steps=self._decode_scan,
-                n_top_cap=self.n_top, top_k=self.defaults.top_k)
+                n_top_cap=self.n_top, top_k=self.defaults.top_k,
+                pool=self._graph_pool)
         return self._runner
 
     def _dispatch_scan(self, rows, n: int, n_top: int, budget,
@@ -1300,13 +1335,11 @@ class InferenceEngine:
                 return self.n_top
         return 0
 
-    def _sample_rows(self, logits, rows: List[int], n_top: int,
-                     defer: bool = False) -> tuple:
-        """The eager steps' sampling: all B rows; counters and rings
-        advance only for `rows` (an inactive slot's stream is untouched).
-        Returns host arrays (next ids, logprobs, top ids, top logprobs),
-        the host mirrors of `rows` moved; with defer, the device tensors
-        (`_fetch_samples`, then `_advance_mirrors`)."""
+    def _sample_rows(self, logits, rows: List[int], n_top: int) -> tuple:
+        """The phase-split prefills' sampling: all B rows; counters and
+        rings advance only for `rows` (an inactive slot's stream is
+        untouched). Returns the device tensors (next ids, logprobs, top
+        ids, top logprobs): `_fetch_samples`, then `_advance_mirrors`."""
         B = self.max_slots
         in_rows = np.zeros(B, bool)
         in_rows[rows] = True
@@ -1319,12 +1352,7 @@ class InferenceEngine:
             dev(self._penalty), top_k=self.defaults.top_k, n_top=n_top)
         self._counters.copy_(counters)
         self._ring.copy_(ring)
-        dev = (nxt, lp, top_ids, top_lps)
-        if defer:
-            return dev
-        host, = self._fetch_samples([dev])
-        self._advance_mirrors(rows, host[0])
-        return host
+        return nxt, lp, top_ids, top_lps
 
     def _advance_mirrors(self, rows: List[int], nxt_h) -> None:
         for r in rows:

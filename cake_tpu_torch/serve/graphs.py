@@ -1,14 +1,14 @@
-"""The engine's pure-decode step, with sampling and the carry update, as
-one CUDA graph replayed K times a burst.
+"""The engine's two device steps, each with its sampling, as CUDA graphs:
+the pure-decode step (`DecodeRunner`, replayed K times a burst) and the
+mixed step (`MixedRunner`, replayed once a mixed step).
 
-Counterpart of the JAX engine's `make_decode_scan` (a jitted
-`lax.scan` of K ragged decode steps and their sampling): where JAX
-compiles the step once and runs K of them in one program, the runner
+`DecodeRunner` is the counterpart of the JAX engine's `make_decode_scan`
+(a jitted `lax.scan` of K ragged decode steps and their sampling): where
+JAX compiles the step once and runs K of them in one program, the runner
 captures ONE step over static buffers and replays it K times; each
 replay updates the carry in place and writes its outputs into column
 `col` of [B, K] burst buffers. The step is `forward_ragged_paged` plus
-`ops/sampling.masked_sample`, the same functions the eager path runs,
-with the JAX scan body's row rules:
+`ops/sampling.masked_sample`, with the JAX scan body's row rules:
 
   * a row is live while it was active at the burst's start, has emitted
     fewer than budget[b] tokens in this burst, and has not sampled an
@@ -18,13 +18,26 @@ with the JAX scan body's row rules:
     bursts, so burst k + 1 chains from burst k's end with no host round
     trip; the host only writes the next budget.
 
-On the CPU the same step runs eagerly (`replay` calls it), which is how
-the tests drive the runner. On CUDA the step is captured on the first
-burst of each `n_top` variant (0, or the engine's top-logprobs cap, as
-JAX compiles two), after a warm-up on a side stream with every row
-frozen, so the warm-up changes no state the engine keeps. The pool,
-the table, the rope tables, the weights, the ring and the random
-streams live outside the graph's memory pool and are updated in place.
+`MixedRunner` is the counterpart of the JAX engine's jitted
+`_mixed_step_fn` (`mixed_step_paged` over fixed [B, C] descriptors) and
+the sampling of the rows that emit: `mixed_step_paged`, then
+`masked_sample` over the emit mask, which advances the random counters
+and the repeat-penalty rings of emitting rows only. A step in which no
+row emits (every row mid-prompt) is a variant without the sampling, as
+JAX skips its sampling program there, and copies nothing to the host.
+
+On the CPU the same steps run eagerly (`replay` calls them), which is
+how the tests drive the runners. On CUDA a step is captured at the first
+use of each variant (the decode step's `n_top`, 0 or the engine's
+top-logprobs cap, as JAX compiles two; the mixed step's also "no
+sampling"), on the engine thread, after a warm-up on a side stream with
+every row frozen or idle, so the warm-up's writes land on the sink page
+and it changes no state the engine keeps. The pool, the table, the rope
+tables, the weights, the ring and the random streams live outside the
+graphs' memory pool (which the engine's two runners share) and are
+updated in place; host values go up from pinned memory and outputs come
+down into pinned memory behind an event, so the host does not wait for
+the stream until it fetches.
 
 Kernel launch counts (the `LAUNCHES` dicts of the kernel modules) are
 bumped in Python, which a replay never runs: the runner records each
@@ -34,12 +47,14 @@ launches nothing), and adds it once per replay.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from cake_tpu_torch.models.llama.paged import forward_ragged_paged
+from cake_tpu_torch.models.llama.paged import (
+    forward_ragged_paged, mixed_step_paged,
+)
 from cake_tpu_torch.ops import flash_attention, int4_matmul
 from cake_tpu_torch.ops import ragged_paged_attention
 from cake_tpu_torch.ops.sampling import masked_sample
@@ -65,9 +80,9 @@ def _add(delta: List[dict], times: int) -> None:
 
 
 class BurstHandle(NamedTuple):
-    """One dispatched burst: its step count, its n_top, and the host
-    copies of its outputs, ready once `event` has passed (None on the
-    CPU)."""
+    """One dispatched burst or mixed step: its step count, its n_top, and
+    the host copies of its outputs, ready once `event` has passed (None
+    on the CPU)."""
 
     n: int
     n_top: int
@@ -75,7 +90,117 @@ class BurstHandle(NamedTuple):
     event: Optional[torch.cuda.Event]
 
 
-class DecodeRunner:
+class _Runner:
+    """What the two runners share: the engine's sampling state, the
+    outputs ([B, cols] ids and logprobs, [B, cols, n_top_cap] top ids and
+    logprobs) with two pinned host copies used in turn, the captured
+    step per variant, and the host-to-device puts. A subclass gives
+    `step(variant)` and `_idle()` (the buffers set so that a step changes
+    nothing the engine keeps)."""
+
+    def __init__(self, params, cache, rope, config, *, attn: str,
+                 ring: torch.Tensor, seeds: torch.Tensor,
+                 counters: torch.Tensor, cols: int, n_top_cap: int,
+                 top_k: Optional[int], pool=None):
+        dev = ring.device
+        self.device = dev
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config, self.attn, self.top_k = config, attn, top_k
+        self.ring, self.seeds, self.counters = ring, seeds, counters
+        self.B = B = ring.shape[0]
+        # the last step's logits (what a comparison of two runs reads)
+        self.logits = self._zeros(B, config.vocab_size, dtype=torch.float32)
+        self.out = (self._zeros(B, cols, dtype=torch.int64),
+                    self._zeros(B, cols, dtype=torch.float32),
+                    self._zeros(B, cols, n_top_cap, dtype=torch.int64),
+                    self._zeros(B, cols, n_top_cap, dtype=torch.float32))
+        self._cuda = dev.type == "cuda"
+        # two host copies of the outputs, used in turn (double buffering)
+        self._host = [tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=self._cuda)
+                            for t in self.out) for _ in range(2)]
+        self._turn = 0
+        self._pool = pool
+        self._graphs: dict = {}
+
+    def _zeros(self, *shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def step(self, variant) -> None:
+        raise NotImplementedError
+
+    def _idle(self) -> None:
+        raise NotImplementedError
+
+    def captured(self, variant):
+        """The captured step of this variant, captured at first use: a
+        warm-up on a side stream with the buffers idle (`_idle`: the
+        writes land on the sink page, and the counters and ring keep
+        their values), then the capture. Clears the per-step buffers."""
+        got = self._graphs.get(variant)
+        if got is not None:
+            return got
+        self._idle()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.step(variant)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = _snapshot()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            self.step(variant)
+        delta = _increase(before)
+        _add(delta, -1)              # the capture launched nothing
+        self._graphs[variant] = got = (graph, delta)
+        return got
+
+    def replay(self, variant) -> None:
+        """One step: the graph's replay on CUDA (its kernels' launches
+        counted), the eager step on the CPU."""
+        if not self._cuda:
+            self.step(variant)
+            return
+        graph, delta = self.captured(variant)
+        graph.replay()
+        _add(delta, 1)
+
+    def _put(self, dst: torch.Tensor, values) -> None:
+        """Host values into a device buffer; on the card from pinned
+        memory, so the host does not wait for the stream."""
+        src = torch.as_tensor(np.asarray(values)).to(dst.dtype)
+        if self._cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def download(self, n: int, n_top: int) -> BurstHandle:
+        """Dispatch the outputs' copy to the next host buffer, behind an
+        event on the card; not waited for."""
+        host = self._host[self._turn]
+        self._turn ^= 1
+        for h, o in zip(host, self.out):
+            h.copy_(o, non_blocking=True)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return BurstHandle(n, n_top, host, event)
+
+    @staticmethod
+    def fetch(handle: BurstHandle) -> tuple:
+        """The outputs as host arrays: tokens and logprobs [B, n], top
+        ids and logprobs [B, n, n_top]."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        n, k = handle.n, handle.n_top
+        tok, lp, ti, tl = handle.host
+        return (tok[:, :n].numpy().copy(), lp[:, :n].numpy().copy(),
+                ti[:, :n, :k].numpy().copy(), tl[:, :n, :k].numpy().copy())
+
+
+class DecodeRunner(_Runner):
     """Static buffers, the captured step per `n_top` variant, and the
     burst protocol: `load` (a fresh burst from the host mirrors), then
     `run` (K replays, outputs copied to host behind an event; chained
@@ -84,18 +209,11 @@ class DecodeRunner:
     def __init__(self, params, cache, rope, config, *, attn: str,
                  ring: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, max_steps: int, n_top_cap: int,
-                 top_k: Optional[int]):
-        dev = ring.device
-        B = ring.shape[0]
-        self.device = dev
-        self.params, self.cache, self.rope = params, cache, rope
-        self.config, self.attn, self.top_k = config, attn, top_k
-        self.ring, self.seeds, self.counters = ring, seeds, counters
-        self.B = B
-
-        def zeros(*shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
+                 top_k: Optional[int], pool=None):
+        super().__init__(params, cache, rope, config, attn=attn, ring=ring,
+                         seeds=seeds, counters=counters, cols=max_steps,
+                         n_top_cap=n_top_cap, top_k=top_k, pool=pool)
+        B, zeros = self.B, self._zeros
         # the carry
         self.tok = zeros(B, dtype=torch.int64)
         self.pos = zeros(B, dtype=torch.int32)
@@ -110,21 +228,7 @@ class DecodeRunner:
         self.top_p = zeros(B, dtype=torch.float32)
         self.penalty = zeros(B, dtype=torch.float32)
         self.eos = torch.tensor(list(config.eos_token_ids) or [-1],
-                                dtype=torch.int64, device=dev)
-        # the last step's logits (what a comparison of two runs reads)
-        self.logits = zeros(B, config.vocab_size, dtype=torch.float32)
-        # each replay's outputs, in its column
-        self.out = (zeros(B, max_steps, dtype=torch.int64),
-                    zeros(B, max_steps, dtype=torch.float32),
-                    zeros(B, max_steps, n_top_cap, dtype=torch.int64),
-                    zeros(B, max_steps, n_top_cap, dtype=torch.float32))
-        self._cuda = dev.type == "cuda"
-        # two host copies of the outputs, used in turn (double buffering)
-        self._host = [tuple(torch.empty(t.shape, dtype=t.dtype,
-                                        pin_memory=self._cuda)
-                            for t in self.out) for _ in range(2)]
-        self._turn = 0
-        self._graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, list]] = {}
+                                dtype=torch.int64, device=self.device)
 
     # -- the step ---------------------------------------------------------------
 
@@ -155,57 +259,19 @@ class DecodeRunner:
             tl_o.index_copy_(1, self.col, t_l[:, None])
         self.col.add_(1)
 
-    def _graph(self, n_top: int):
-        """The captured step of this variant, captured at first use: a
-        warm-up on a side stream with every row frozen (budget 0: the
-        writes land on the sink page and the carry, counters and ring
-        keep their values), then the capture."""
-        got = self._graphs.get(n_top)
-        if got is not None:
-            return got
+    def _idle(self) -> None:
+        """Every row frozen (budget 0), from column 0."""
         self.live.zero_()
         self.budget.zero_()
         self.col.zero_()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.step(n_top)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _snapshot()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.step(n_top)
-        delta = _increase(before)
-        _add(delta, -1)              # the capture launched nothing
-        self._graphs[n_top] = got = (graph, delta)
-        return got
-
-    def replay(self, n_top: int) -> None:
-        """One step: the graph's replay on CUDA (its kernels' launches
-        counted), the eager step on the CPU."""
-        if not self._cuda:
-            self.step(n_top)
-            return
-        graph, delta = self._graph(n_top)
-        graph.replay()
-        _add(delta, 1)
 
     # -- the burst protocol -------------------------------------------------------
-
-    def _put(self, dst: torch.Tensor, values) -> None:
-        """Host values into a device buffer; on the card from pinned
-        memory, so the host does not wait for the stream."""
-        src = torch.as_tensor(np.asarray(values)).to(dst.dtype)
-        if self._cuda:
-            src = src.pin_memory()
-        dst.copy_(src, non_blocking=True)
 
     def load(self, n_top: int, tok, pos, live, steps, temp, top_p,
              penalty) -> None:
         """Start a burst chain from the host mirrors ([B] each)."""
         if self._cuda:
-            self._graph(n_top)       # before the carry: warm-up clears it
+            self.captured(n_top)     # before the carry: warm-up clears it
         for dst, v in ((self.tok, tok), (self.pos, pos), (self.live, live),
                        (self.steps, steps), (self.temp, temp),
                        (self.top_p, top_p), (self.penalty, penalty)):
@@ -225,23 +291,89 @@ class DecodeRunner:
         self.begin(budget)
         for _ in range(n):
             self.replay(n_top)
-        host = self._host[self._turn]
-        self._turn ^= 1
-        for h, o in zip(host, self.out):
-            h.copy_(o, non_blocking=True)
-        event = None
-        if self._cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return BurstHandle(n, n_top, host, event)
+        return self.download(n, n_top)
 
-    @staticmethod
-    def fetch(handle: BurstHandle) -> tuple:
-        """The burst's outputs as host arrays: tokens and logprobs
-        [B, n], top ids and logprobs [B, n, n_top]."""
-        if handle.event is not None:
-            handle.event.synchronize()
-        n, k = handle.n, handle.n_top
-        tok, lp, ti, tl = handle.host
-        return (tok[:, :n].numpy().copy(), lp[:, :n].numpy().copy(),
-                ti[:, :n, :k].numpy().copy(), tl[:, :n, :k].numpy().copy())
+
+class MixedRunner(_Runner):
+    """Static [B, C] descriptors, the captured mixed step per sampling
+    variant (None: no row emits, no sampling; else n_top), and `run`:
+    the host rows up, one replay, and when a row emits the outputs'
+    copy to the host, then `fetch` ([B, 1] ids and logprobs).
+
+    step_fn: the mixed step (`paged.mixed_step_paged`); the engine
+    passes the one it imported."""
+
+    def __init__(self, params, cache, rope, config, *, attn: str,
+                 ring: torch.Tensor, seeds: torch.Tensor,
+                 counters: torch.Tensor, chunk: int, n_top_cap: int,
+                 top_k: Optional[int], step_fn=mixed_step_paged,
+                 pool=None):
+        super().__init__(params, cache, rope, config, attn=attn, ring=ring,
+                         seeds=seeds, counters=counters, cols=1,
+                         n_top_cap=n_top_cap, top_k=top_k, pool=pool)
+        B, zeros = self.B, self._zeros
+        self.step_fn = step_fn
+        # the step's rows
+        self.tokens = zeros(B, chunk, dtype=torch.int32)
+        self.pos = zeros(B, dtype=torch.int32)
+        self.q_len = zeros(B, dtype=torch.int32)
+        self.active = zeros(B, dtype=torch.bool)
+        # the sampling of the rows that emit
+        self.emit = zeros(B, dtype=torch.bool)
+        self.steps = zeros(B, dtype=torch.int64)
+        self.temp = zeros(B, dtype=torch.float32)
+        self.top_p = zeros(B, dtype=torch.float32)
+        self.penalty = zeros(B, dtype=torch.float32)
+
+    def step(self, n_top: Optional[int]) -> None:
+        """One mixed step over the static buffers, the pool written in
+        place; with `n_top` not None, then the emitting rows' sample (the
+        engine's eager `masked_sample` call, counters and rings advanced
+        for those rows only)."""
+        logits, _ = self.step_fn(
+            self.params, self.tokens, self.pos, self.q_len, self.active,
+            self.cache, self.rope, self.config, attn=self.attn)
+        self.logits.copy_(logits)
+        if n_top is None:
+            return
+        nxt, counters, ring, lp, t_i, t_l = masked_sample(
+            self.emit, self.seeds, self.counters, logits, self.ring,
+            self.steps, self.temp, self.top_p, self.penalty,
+            top_k=self.top_k, n_top=n_top)
+        self.counters.copy_(counters)
+        self.ring.copy_(ring)
+        tok_o, lp_o, ti_o, tl_o = self.out
+        tok_o[:, 0].copy_(nxt)
+        lp_o[:, 0].copy_(lp)
+        if n_top:
+            ti_o[:, 0, :n_top].copy_(t_i)
+            tl_o[:, 0, :n_top].copy_(t_l)
+
+    def _idle(self) -> None:
+        """Every row idle (q_len 0, inactive) and none emitting."""
+        self.q_len.zero_()
+        self.active.zero_()
+        self.emit.zero_()
+
+    def load(self, n_top: Optional[int], tokens, pos, q_len, active, emit,
+             steps, temp, top_p, penalty) -> None:
+        """The host rows (tokens [B, C], the rest [B]) into the static
+        buffers, after the variant's capture (whose warm-up clears
+        them)."""
+        if self._cuda:
+            self.captured(n_top)
+        for dst, v in ((self.tokens, tokens), (self.pos, pos),
+                       (self.q_len, q_len), (self.active, active),
+                       (self.emit, emit), (self.steps, steps),
+                       (self.temp, temp), (self.top_p, top_p),
+                       (self.penalty, penalty)):
+            self._put(dst, v)
+
+    def run(self, n_top: Optional[int], *rows) -> Optional[BurstHandle]:
+        """One mixed step of the host rows (`load`'s), sampling the emit
+        rows with `n_top` alternatives (None: no row emits). Returns the
+        handle of the outputs' copy to the host, dispatched and not
+        waited for, or None when nothing emits."""
+        self.load(n_top, *rows)
+        self.replay(n_top)
+        return None if n_top is None else self.download(1, n_top)

@@ -52,6 +52,17 @@ Phases, in order (any failure exits non-zero):
             identical tokens, byte-identical pages, the last step's
             logits' difference (0 expected), 4 x 32 decode launches a
             side, the replay's device ms and the eager step's host ms.
+            Then the engine's mixed step as serve/graphs.MixedRunner
+            runs it, at the same weights and pools (B = 8, C = 64):
+            4 replays of the captured step against the same 4 steps
+            run eagerly, with decode rows (one on an unmapped page),
+            chunk rows at in-page offsets, a chunk row after two shared
+            prefix pages and an idle row; identical tokens, byte-
+            identical real pages, the shared pages unchanged, logits
+            within GRAPH_TOL, 4 x 32 mixed-attention launches a side
+            (and no int4_matmul: the block products have 512 rows, the
+            lm_head is int8), a replay's device ms beside the step's
+            bound, and each pool's window writer's device ms a layer.
   generate  32-layer Llama-3-8B-width bf16 weights (random), sequential
             generator behind Master.generate_text: a ~1000-token prompt
             (bucket 1024, one flash_attn launch per layer) and a
@@ -70,7 +81,8 @@ Phases, in order (any failure exits non-zero):
             engine (cold, warm, warm under torch.profiler) and prints
             decode tok/s, TTFT p50, the served wall and (profiled) the
             device's busy share; its kernels must have run (replays of
-            the captured decode step counted) and no plain version; int4
+            the captured decode and mixed steps counted) and no plain
+            version; int4
             weights: 7 int4_matmul launches per rpa_decode launch. A
             tree without the captured step (--tree of a parent) serves
             at --decode-scan 1 only. A `serve` JSON line holds the
@@ -1323,6 +1335,223 @@ def _graph_steps(torch, rpa, i4, cfg, params,
         torch.cuda.empty_cache()
 
 
+def _mixed_step_bound(cfg, params, B, C, pos, q_len, kv_bytes_per_token):
+    """(bound ms, what bounds it, ms at all B x C columns) of one mixed
+    step: the larger of the bytes it must move over HBM_BYTES_PER_S
+    (every weight read once but the embedding, of which the step gathers
+    B x C rows; each row's KV history read once) and its operations over
+    the bf16 peak: 2 x (matmul weights) per real token (sum(q_len)), the
+    lm_head's 2 x D x V per row, and 4 x H x hd per (query, key) pair of
+    the attention."""
+    import torch
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        if isinstance(t, torch.Tensor):
+            return t.numel() * t.element_size()
+        return sum(nbytes(x) for x in t)        # a QTensor's (q, scale)
+
+    D, H, KV, hd = (cfg.hidden_size, cfg.num_attention_heads,
+                    cfg.num_key_value_heads, cfg.head_dim)
+    L, F, V = cfg.num_hidden_layers, cfg.intermediate_size, cfg.vocab_size
+    embed = params["embed"]
+    weights = nbytes(params) - nbytes(embed) + B * C * D * embed.element_size()
+    kv = sum(int(p) + int(n) for p, n in zip(pos, q_len) if n) \
+        * kv_bytes_per_token
+    per_token = L * (2 * D * H * hd + 2 * D * KV * hd + 3 * D * F)
+    pairs = sum(n * p + n * (n + 1) // 2 for p, n in zip(pos, q_len))
+    attn = 4 * H * hd * L
+
+    def ops(tokens, qk_pairs):
+        return 2 * per_token * tokens + 2 * B * D * V + attn * qk_pairs
+
+    t_bytes = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops(int(sum(q_len)), pairs) / PEAK_OPS["bfloat16"] * 1e3
+    all_cols = sum(C * p + C * (C + 1) // 2 for p in pos)
+    t_all = max(t_bytes,
+                ops(B * C, all_cols) / PEAK_OPS["bfloat16"] * 1e3)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", t_all)
+
+
+def _window_writer_ms(torch, cache, pos, q_len, active, C, KV,
+                      hd) -> float:
+    """Device ms of one layer's k-leaf window write at the step's rows
+    (`write_windows_pages` through the step's fixed-shape targets),
+    from a CUDA graph of 30 calls, replayed."""
+    from cake_tpu_torch.models.llama.paged import (
+        step_write_targets, write_windows_pages,
+    )
+
+    tg = step_write_targets(cache, pos, active, q_len, C)
+    vals = torch.randn((len(pos), C, KV, hd), device="cuda",
+                       dtype=torch.bfloat16)
+    pk, pv = cache.layer(0)
+
+    def one():
+        write_windows_pages(pk, pv, vals, vals, pos, q_len, active,
+                            cache.table, tg)
+
+    # a call writes both halves: half of it is one leaf's
+    return _stream_ms(torch, [one])[0] / 2
+
+
+def _mixed_graph_steps(torch, rpa, i4, cfg, params,
+                       int4_weights: bool = False) -> None:
+    """The engine's mixed step at full width and depth: 4 replays of the
+    captured step (`serve/graphs.MixedRunner`) against the same 4 steps
+    run eagerly, from identical pools: bf16 weights over a bf16, an int8
+    and an int4 pool, int4 weights over a bf16 pool. B = 8, C = 64,
+    128-token pages: decode rows (one on an unmapped page), chunk rows at
+    in-page offsets (one of 37 real tokens), a chunk row after two
+    shared prefix pages (which a decode row maps too), an idle row; the
+    decode rows emit every step, the chunk rows at the last. Greedy
+    tokens must be identical, the real pages byte-identical, the shared
+    pages (and scales) unchanged, the logits of the active rows within
+    GRAPH_TOL; each side launches 4 x L mixed-attention kernels and no
+    plain version (int4 weights: no int4_matmul either, as the block
+    products have B x C = 512 rows and take the dequantize route and the
+    lm_head is int8). Prints a replay's device ms beside the step's bound
+    and the eager step's host ms, and each quantized pool's window writer
+    device time a layer."""
+    import numpy as np
+
+    from cake_tpu_torch.kv.quantized_pool import (
+        QUANTIZED_CACHES, qwrite_prompt_pages,
+    )
+    from cake_tpu_torch.models.llama.model import RopeTables
+    from cake_tpu_torch.models.llama.paged import (
+        PagedKVCache, table_set_slot,
+    )
+    from cake_tpu_torch.serve.graphs import MixedRunner
+
+    dev = "cuda"
+    B, C, P, T, N, K = 8, 64, 128, 2048, 128, 4
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rope = RopeTables.create(cfg, T, device=dev)
+    shared = [126, 127]
+    tables = [list(range(16 * b, 16 * b + 16)) for b in range(B)]
+    tables[4] = shared + tables[4][2:]          # a chunk after the prefix
+    tables[5] = shared + tables[5][2:]          # a decode row on it too
+    tables[7] = [112, -1]                       # its page 1 unmapped
+    pos0 = np.array([1000, 129, 100, 300, 256, 700, 0, 200])
+    q_len = np.array([1, 1, 64, 37, 64, 1, 0, 1])
+    active = q_len > 0
+    decode = q_len == 1
+    rng = np.random.default_rng(12)
+    steps = []
+    for k in range(K):
+        tokens = rng.integers(0, cfg.vocab_size, size=(B, C))
+        pos = pos0 + k * q_len
+        emit = decode | (active & (k == K - 1))
+        steps.append((tokens, pos, q_len, active, emit,
+                      np.full(B, k, np.int64), np.zeros(B, np.float32),
+                      np.ones(B, np.float32), np.full(B, 1.1, np.float32)))
+    label = "int4 weights" if int4_weights else "bf16 weights"
+    for kv in ((None,) if int4_weights else (None, "int8", "int4")):
+        if kv is None:
+            base = PagedKVCache.create(cfg, B, N, P, T, dtype=torch.bfloat16,
+                                       device=dev)
+            base.k.normal_(generator=gen)
+            base.v.normal_(generator=gen)
+        else:
+            base = QUANTIZED_CACHES[kv].create(cfg, B, N, P, T, device=dev)
+            every = torch.arange(N, dtype=torch.int32, device=dev)
+            for i in range(L):
+                for leaf in base.layer(i):
+                    vals = torch.randn((1, N * P, KV, hd), generator=gen,
+                                       device=dev)
+                    qwrite_prompt_pages(leaf, vals, every)
+        for b in range(B):
+            table_set_slot(base.table, b, tables[b])
+        torch.cuda.synchronize()
+        runs = {}
+        for mode in ("graph", "eager"):
+            cache = base.clone()
+            runner = MixedRunner(
+                params, cache, rope, cfg, attn="kernel",
+                ring=torch.full((B, 128), -1, dtype=torch.int64, device=dev),
+                seeds=torch.arange(B, device=dev),
+                counters=torch.zeros(B, dtype=torch.int64, device=dev),
+                chunk=C, n_top_cap=20, top_k=None)
+            runner.captured(0)
+            torch.cuda.synchronize()
+            rpa.reset_launch_counts()
+            i4.reset_launch_counts()
+            toks, logits, ms = [], [], []
+            for rows in steps:
+                runner.load(0, *rows)
+                if mode == "graph":
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    runner.replay(0)
+                    b.record()
+                    out = MixedRunner.fetch(runner.download(1, 0))[0][:, 0]
+                    ms.append(a.elapsed_time(b))
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runner.step(0)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    out = runner.out[0][:, 0].clone().cpu().numpy()
+                toks.append(out)
+                logits.append(runner.logits.clone())
+            counts = {**rpa.LAUNCHES, **i4.LAUNCHES}
+            runs[mode] = (np.stack(toks), logits, cache, counts,
+                          statistics.median(ms))
+            del runner
+        (tg, lg, cg, ng, ms_g), (te, le, ce, ne, ms_e) = (runs["graph"],
+                                                          runs["eager"])
+        name = f"{label}, {kv or 'bf16'} pool"
+        rows = torch.as_tensor(np.flatnonzero(active), device=dev)
+        err = max((a[rows] - b[rows]).abs().max().item()
+                  for a, b in zip(lg, le))
+        kv_token = (2 * L * KV * hd
+                    * {"int8": 1.0, "int4": 0.5}.get(kv, 2.0))
+        bound, by, bound_all = _mixed_step_bound(
+            cfg, params, B, C, steps[0][1], q_len, kv_token)
+        log(f"mixed graph ({name}): {K} replays, {ms_g:.3f} ms a step "
+            f"(device, CUDA events, median), bound {bound:.3f} ms "
+            f"({by}; {bound_all:.3f} ms at all {B} x {C} columns), eager "
+            f"step {ms_e:.3f} ms (host, synchronized); emitted tokens "
+            f"{[t[e].tolist() for t, e in zip(tg, (s[4] for s in steps))]}"
+            f"; logits max |graph - eager| = {err:.3e} (tol {GRAPH_TOL})")
+        emitted = np.stack([s[4] for s in steps])
+        if not np.array_equal(tg[emitted], te[emitted]):
+            fail(f"mixed graph ({name}): tokens differ:\n{tg}\n{te}")
+        if not all(torch.isfinite(x[rows]).all() for x in lg) or \
+                err > GRAPH_TOL:
+            fail(f"mixed graph ({name}): logits differ by {err:.3e}")
+        halves = ((cg.k, ce.k, base.k), (cg.v, ce.v, base.v))
+        if kv is not None:
+            halves = tuple(z for h in halves for z in zip(*h))
+        if not all(torch.equal(x, y) for x, y, _ in halves):
+            fail(f"mixed graph ({name}): the written pages differ")
+        idx = torch.tensor(shared, device=dev)
+        if not all(torch.equal(x[:, idx], z[:, idx]) for x, _, z in halves):
+            fail(f"mixed graph ({name}): a shared prefix page was written")
+        suffix = {"int8": "_q8", "int4": "_q4"}.get(kv, "")
+        want = {"rpa_mixed" + suffix: K * L, "int4_matmul": 0}
+        for mode, n in (("graph", ng), ("eager", ne)):
+            got = {k: n.get(k, 0) for k in want}
+            plain = {k: v for k, v in n.items() if k.endswith("_plain") and v}
+            if got != want or plain:
+                fail(f"mixed graph ({name}, {mode}): launches {got}, plain "
+                     f"{plain}; expected {want} and no plain call")
+        wms = _window_writer_ms(torch, ce, *(torch.as_tensor(
+            x, device=dev) for x in (steps[0][1], q_len, active)), C,
+            KV, hd)
+        log(f"mixed graph ({name}): the fixed-shape window writer, "
+            f"{B} rows x {-(-C // P) + 1} pages: {wms:.4f} ms a layer's "
+            f"k or v leaf (device, a CUDA graph of 30 calls)")
+        del runs, base, cg, ce
+        torch.cuda.empty_cache()
+
+
 # -- phase: serve --------------------------------------------------------------
 
 
@@ -2184,6 +2413,11 @@ def main(argv=None) -> int:
     # parent tree without them serves at decode_scan 1 only)
     graphs = importlib.util.find_spec("cake_tpu_torch.serve.graphs")
     scans = (1, 4) if graphs else (1,)
+    # and the captured mixed step (a parent tree may have only the decode
+    # step's)
+    mixed_graph = graphs is not None and hasattr(
+        importlib.import_module("cake_tpu_torch.serve.graphs"),
+        "MixedRunner")
     # launch counts of each path, read right after it ran (null in the
     # kernels line, not 0, when its phase did not run)
     counts = {}
@@ -2193,6 +2427,8 @@ def main(argv=None) -> int:
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
+            if mixed_graph:
+                _mixed_graph_steps(torch, rpa, i4, cfg, params)
         if "generate" in phases:
             counts.update(phase_generate(torch, fa, cfg, params,
                                          profile=a.profile))
@@ -2232,6 +2468,9 @@ def main(argv=None) -> int:
                 device="cuda", dtype=torch.bfloat16, bits=4)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, q4, int4_weights=True)
+            if mixed_graph:
+                _mixed_graph_steps(torch, rpa, i4, cfg, q4,
+                                   int4_weights=True)
         if "serve" in phases:
             got, _, recs = phase_serve(torch, rpa, cfg, q4, i4=i4,
                                        decode_scan=scans[-1])
