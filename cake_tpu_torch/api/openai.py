@@ -25,7 +25,16 @@ def parse_chat_request(body: dict) -> tuple[List[Message], dict]:
         "top_p": body.get("top_p"),
         "logprobs": bool(body.get("logprobs", False)),
         "top_logprobs": body.get("top_logprobs"),
+        # SLO class (interactive | standard | batch); the body's
+        # "priority" wins over the x-cake-priority header (the handler
+        # merges them)
+        "priority": body.get("priority"),
     }
+    if opts["priority"] is not None:
+        from cake_tpu_torch.sched.classes import validate_priority
+        if not isinstance(opts["priority"], str):
+            raise ValueError("priority must be a string")
+        validate_priority(opts["priority"])   # unknown -> ValueError -> 400
     if opts["top_logprobs"] is not None:
         n = opts["top_logprobs"]
         if (not isinstance(n, int) or isinstance(n, bool)

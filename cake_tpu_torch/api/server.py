@@ -1,14 +1,23 @@
 """Threaded HTTP server exposing the OpenAI-compatible text API.
 
-Counterpart of `cake_tpu/api/server.py`, text routes only:
+Counterpart of `cake_tpu/api/server.py`, with its text and
+observability routes:
 
   POST /api/v1/chat/completions (and the /v1/chat/completions alias):
-       buffered JSON, or SSE `chat.completion.chunk`s with "stream": true
+       buffered JSON, or SSE `chat.completion.chunk`s with "stream": true;
+       the request's class in the body's "priority" or the
+       x-cake-priority header (the body wins; an unknown class is a 400)
   GET  /v1/models (and /api/v1/models), GET /api/v1/health
+  GET  /metrics and /api/v1/metrics: the Prometheus text exposition
+  GET  /api/v1/requests (?limit, ?rid, ?class, ?since): lifecycle traces
+  GET  /api/v1/steps (?limit): the step flight recorder
+  GET  /api/v1/events (?rid, ?type, ?since, ?limit): the event bus
 
 Every chat request goes through the continuous-batching engine, so N
-requests decode together; a full queue answers 429 + Retry-After, an
-engine failure 503 (retryable) or 500.
+requests decode together; a full queue or a shed request answers 429
+with the computed Retry-After, an engine failure 503 (retryable) or 500.
+Not ported yet: the profile, fleet, drain, anomalies, autotune, cluster
+and timeline routes.
 """
 
 from __future__ import annotations
@@ -25,10 +34,34 @@ from typing import Optional
 from cake_tpu_torch.api.openai import (
     chunk_response, completion_response, parse_chat_request,
 )
+from cake_tpu_torch.obs import metrics as obs_metrics
+from cake_tpu_torch.obs import steps as obs_steps
+from cake_tpu_torch.obs.events import EVENT_TYPES
+from cake_tpu_torch.sched import ShedError, validate_priority
 from cake_tpu_torch.serve.engine import QueueFullError
 from cake_tpu_torch.serve.errors import EngineRequestError
 
 log = logging.getLogger(__name__)
+
+# routes worth a per-route counter series; anything else collapses into
+# "other", so a 404 spray cannot grow the label set
+KNOWN_ROUTES = frozenset({
+    "/api/v1/chat/completions", "/v1/chat/completions",
+    "/api/v1/health", "/v1/models", "/api/v1/models", "/metrics",
+    "/api/v1/metrics", "/api/v1/requests", "/api/v1/steps",
+    "/api/v1/events",
+})
+
+
+class QueueFull(Exception):
+    """Admission refused: the queue is full, or (shed=True) load
+    shedding refused it; retry_after seconds ride the 429's
+    Retry-After."""
+
+    def __init__(self, retry_after: float = 1.0, shed: bool = False):
+        super().__init__("request shed" if shed else "queue full")
+        self.retry_after = retry_after
+        self.shed = shed
 
 # chat() return sentinel: the streaming client went away (handled; the
 # HTTP layer must not touch the dead socket again)
@@ -46,7 +79,25 @@ class ApiServer:
         self.model_name = model_name
         self.engine = engine
         self.started_at = int(time.time())  # /v1/models "created"
+        self._m_http = obs_metrics.counter(
+            "cake_http_requests_total",
+            "HTTP requests served, by route and status code",
+            labelnames=("route", "status"))
         engine.start()
+
+    def _count(self, path: str, code: int) -> None:
+        route = path.split("?", 1)[0]
+        if route not in KNOWN_ROUTES:
+            route = "other"
+        self._m_http.labels(route=route, status=str(code)).inc()
+
+    def _submit(self, messages, kw):
+        """engine.chat, its refusals as QueueFull (429)."""
+        try:
+            return self.engine.chat(messages, **kw)
+        except (QueueFullError, ShedError) as e:
+            raise QueueFull(getattr(e, "retry_after", 1.0),
+                            shed=isinstance(e, ShedError))
 
     def chat(self, body: dict, send_chunk=None,
              on_start=None) -> Optional[dict]:
@@ -63,6 +114,7 @@ class ApiServer:
             temperature=opts["temperature"],
             top_p=opts["top_p"],
             want_top_logprobs=n_top > 0,
+            priority=opts.get("priority"),
         )
         tok = self.engine.tokenizer
 
@@ -78,7 +130,7 @@ class ApiServer:
             return e
 
         if send_chunk is None:
-            h = self.engine.chat(messages, **kw)
+            h = self._submit(messages, kw)
             h.wait()
             text = h.text()   # raises the typed error if the engine failed
             lp = None
@@ -98,7 +150,7 @@ class ApiServer:
         # the engine snapshots the finalized-entry count at emit time, so
         # each chunk's logprob entries pair with the delta carrying them
         stream.wants_count = True
-        h = self.engine.chat(messages, stream=stream, **kw)
+        h = self._submit(messages, dict(kw, stream=stream))
         if on_start is not None:
             on_start()
         r = h._req
@@ -156,25 +208,116 @@ class ApiServer:
         return None
 
     def health(self) -> dict:
-        """/api/v1/health: engine occupancy, pool pages and throughput."""
+        """/api/v1/health: engine occupancy, per-class queue depths (SLO
+        scheduling on), pool pages, SLO accounting and throughput."""
         eng = self.engine
         st = eng.stats
-        return {
+        out = {
             "status": "ok",
             "model": self.model_name,
             "device": str(eng.device),
             "queue_depth": eng.queue_depth,
             "active_requests": eng.active,
             "decode_slots": eng.max_slots,
-            "page_size": eng.cache.page_size,
-            "pages_free": eng._pager.free_pages,
-            "pages_total": eng.cache.n_pages,
-            "paged_attn": eng.paged_attn,
-            "requests_completed": st.requests_completed,
-            "tokens_generated": st.tokens_generated,
-            "decode_tokens_per_s": round(st.decode_tokens_per_s, 2),
-            "errors": st.errors,
         }
+        depths = getattr(eng.scheduler, "class_depths", None)
+        if depths is not None:
+            out["queue_depth_by_class"] = depths()
+        out.update(
+            page_size=eng.cache.page_size,
+            pages_free=eng._pager.free_pages,
+            pages_total=eng.cache.n_pages,
+            paged_attn=eng.paged_attn,
+            slo=eng.slo.snapshot(),
+            requests_completed=st.requests_completed,
+            tokens_generated=st.tokens_generated,
+            decode_tokens_per_s=round(st.decode_tokens_per_s, 2),
+            errors=st.errors,
+        )
+        if depths is not None:
+            out["preemptions"] = st.preemptions
+            out["requests_shed"] = st.shed
+        return out
+
+    def metrics(self) -> str:
+        """Prometheus text exposition: the registry's families, with the
+        engine's aggregate counters synced at scrape time (one scrape =
+        one snapshot of EngineStats), as the JAX server renders them."""
+        m = obs_metrics
+        obs_steps.refresh_device_gauges()
+        eng = self.engine
+        st = eng.stats
+        for name, help_, val in (
+            ("cake_engine_queue_depth",
+             "Admission queue depth", eng.queue_depth),
+            ("cake_engine_active_requests",
+             "Requests holding a decode slot", eng.active),
+            ("cake_engine_decode_slots",
+             "Configured decode slots", eng.max_slots),
+            ("cake_engine_decode_tokens_per_second",
+             "Aggregate decode throughput",
+             round(st.decode_tokens_per_s, 2)),
+            ("cake_engine_trace_active_requests",
+             "Requests with an open lifecycle trace",
+             eng.tracer.active_count),
+        ):
+            m.gauge(name, help_).set(val)
+        for name, help_, val in (
+            ("cake_engine_requests_completed_total",
+             "Requests retired by the engine", st.requests_completed),
+            ("cake_engine_tokens_generated_total",
+             "Tokens generated across all requests", st.tokens_generated),
+            ("cake_engine_decode_steps_total",
+             "Batched decode steps dispatched", st.steps),
+            ("cake_engine_decode_seconds_total",
+             "Wall seconds inside decode dispatch",
+             round(st.decode_time_s, 4)),
+            ("cake_engine_prefill_seconds_total",
+             "Wall seconds inside prefill dispatch",
+             round(st.prefill_time_s, 4)),
+            ("cake_engine_prefix_hits_total",
+             "Prefills served from a registered prefix", st.prefix_hits),
+            ("cake_engine_errors_total",
+             "Engine iterations that failed and reset", st.errors),
+        ):
+            m.counter(name, help_).set_total(val)
+        eng._set_queue_gauges()
+        obs_steps.refresh_page_gauges(eng)
+        eng.slo.refresh_gauges()
+        return m.REGISTRY.render()
+
+    def requests(self, limit: Optional[int] = None,
+                 rid: Optional[int] = None, cls: Optional[str] = None,
+                 since: Optional[int] = None) -> dict:
+        """GET /api/v1/requests: lifecycle traces, active then finished,
+        newest first (oldest first with ?since=, a rid cursor); the
+        response's cursor is the largest rid returned."""
+        recs = self.engine.tracer.dump(limit, rid=rid, cls=cls,
+                                       since=since)
+        if recs:
+            cursor = max(r["rid"] for r in recs)
+        else:
+            cursor = since if since is not None else 0
+        return {"requests": recs, "cursor": cursor}
+
+    def events(self, rid: Optional[int] = None,
+               type: Optional[str] = None, since: Optional[int] = None,
+               limit: Optional[int] = None) -> dict:
+        """GET /api/v1/events: ascending seq, filtered; the cursor is
+        safe to pass back as ?since= (obs/events.EventBus.snapshot)."""
+        bus = self.engine.events
+        if bus is None:
+            return {"events": [], "cursor": 0,
+                    "note": "event bus disabled (--event-ring 0)"}
+        evs, cursor = bus.snapshot(rid=rid, type=type, since=since,
+                                   limit=limit)
+        return {"events": evs, "cursor": cursor}
+
+    def steps(self, limit: Optional[int] = None) -> dict:
+        """GET /api/v1/steps: newest step records first and the summary
+        (per-kind counts, captures, decode-side MFU / HBM share)."""
+        return {"steps": self.engine.flight.dump(limit),
+                "summary": self.engine.flight.summary()}
 
 
 def make_handler(api: ApiServer):
@@ -193,6 +336,34 @@ def make_handler(api: ApiServer):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
+            api._count(self.path, code)
+
+        def _retry_json(self, code: int, retry_after_s: float, obj: dict):
+            """_json with a Retry-After header (whole seconds, ceil'd,
+            floor 1), also in the body as retry_after_s."""
+            retry = max(1, int(-(-retry_after_s // 1)))
+            self._json(code, {**obj, "retry_after_s": retry},
+                       headers=[("Retry-After", str(retry))])
+
+        def _query(self) -> dict:
+            """The first value of each query parameter."""
+            if "?" not in self.path:
+                return {}
+            from urllib.parse import parse_qs
+            return {k: v[0] for k, v in
+                    parse_qs(self.path.split("?", 1)[1]).items() if v}
+
+        @staticmethod
+        def _int_arg(q: dict, key: str):
+            """An integer query parameter or None; a malformed one is a
+            400 (ignoring ?rid=abc would dump everything)."""
+            v = q.get(key)
+            if v is None:
+                return None
+            try:
+                return int(v)
+            except ValueError:
+                raise ValueError(f"?{key}= must be an integer, got {v!r}")
 
         def _read_body(self) -> dict:
             n = int(self.headers.get("Content-Length", 0))
@@ -207,6 +378,48 @@ def make_handler(api: ApiServer):
             route = self.path.split("?", 1)[0]
             if route == "/api/v1/health":
                 return self._json(200, api.health())
+            if route == "/api/v1/requests":
+                q = self._query()
+                try:
+                    cls = q.get("class")
+                    if cls is not None:
+                        validate_priority(cls)
+                    return self._json(200, api.requests(
+                        limit=self._int_arg(q, "limit"),
+                        rid=self._int_arg(q, "rid"), cls=cls,
+                        since=self._int_arg(q, "since")))
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+            if route == "/api/v1/events":
+                q = self._query()
+                try:
+                    t = q.get("type")
+                    if t is not None and t not in EVENT_TYPES:
+                        raise ValueError(
+                            f"unknown event type {t!r} (choose one of "
+                            f"{', '.join(EVENT_TYPES)})")
+                    return self._json(200, api.events(
+                        rid=self._int_arg(q, "rid"), type=t,
+                        since=self._int_arg(q, "since"),
+                        limit=self._int_arg(q, "limit")))
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+            if route == "/api/v1/steps":
+                try:
+                    return self._json(200, api.steps(
+                        self._int_arg(self._query(), "limit")))
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+            if route in ("/metrics", "/api/v1/metrics"):
+                data = api.metrics().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                api._count(self.path, 200)
+                return
             if route in ("/v1/models", "/api/v1/models"):
                 # OpenAI client compatibility: SDKs list models on init
                 return self._json(200, {
@@ -228,12 +441,15 @@ def make_handler(api: ApiServer):
             except ValueError as e:
                 if not self._stream_started:
                     self._json(400, {"error": str(e)})
-            except QueueFullError as e:
+            except QueueFull as e:
                 if not self._stream_started:
-                    retry = max(1, int(-(-e.retry_after // 1)))
-                    self._json(429, {"error": "queue full",
-                                     "retry_after_s": retry},
-                               headers=[("Retry-After", str(retry))])
+                    # 429 with the computed Retry-After: the seconds
+                    # until the class's backlog drains inside its SLO at
+                    # the measured rate (sched/shed.py), 1 s otherwise
+                    self._retry_json(429, e.retry_after, {
+                        "error": ("request shed: server saturated for "
+                                  "this priority class" if e.shed
+                                  else "queue full")})
             except EngineRequestError as e:
                 log.warning("engine failed request: %s", e)
                 if self._stream_started:
@@ -249,6 +465,12 @@ def make_handler(api: ApiServer):
                     self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
         def _chat(self, body: dict):
+            # x-cake-priority names the class for clients that cannot
+            # edit the body; a body "priority" wins (a JSON null counts
+            # as unset)
+            hdr = self.headers.get("x-cake-priority")
+            if hdr is not None and body.get("priority") is None:
+                body["priority"] = hdr
             if not body.get("stream"):
                 return self._json(200, api.chat(body))
 

@@ -74,17 +74,59 @@ class Args:
     # matching slot's table row, so conversations sharing it prefill
     # only their own turns
     auto_prefix: bool = False
+    # --trace-events PATH: append every request-lifecycle span as one
+    # JSON line (obs/tracing.py), beside the ring at GET /api/v1/requests
+    trace_events: Optional[str] = None
+    # --trace-ring N: finished request traces kept for GET /api/v1/requests
+    trace_ring: int = 256
+    # --step-log PATH: append one JSON line per engine step (the flight
+    # recorder, obs/steps.py), beside the ring at GET /api/v1/steps
+    step_log: Optional[str] = None
+    # --step-ring N: step records kept for GET /api/v1/steps
+    step_ring: int = 512
+    # --event-log PATH: append every serving event (obs/events.py) as one
+    # JSON line, beside the ring at GET /api/v1/events
+    event_log: Optional[str] = None
+    # --event-ring N: events kept for GET /api/v1/events; 0 disables the
+    # event bus
+    event_ring: int = 1024
+    # --slo-targets SPEC: per-class latency SLOs for attainment and
+    # goodput accounting (obs/slo.py), "interactive=ttft:0.1,e2e:2;..."
+    slo_targets: Optional[str] = None
+    # --priority-classes: SLO-aware scheduling (sched/): requests carry a
+    # class (interactive | standard | batch, the body's "priority" or the
+    # x-cake-priority header) and are admitted by class with
+    # anti-starvation aging instead of in arrival order
+    priority_classes: bool = False
+    # --preemption / --no-preemption: recompute-style preemption of the
+    # youngest lowest-class slot when a higher class is slot- or
+    # page-starved (needs --priority-classes); None = on with the classes
+    preemption: Optional[bool] = None
+    # --shed: per-class load shedding from the measured service rate and
+    # queue depth; a refused request gets 429 with a computed Retry-After
+    shed: bool = False
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --decode-scan is at least 1; --mixed-batch is auto,
-        on or off; --kv-dtype int8 and
+        int8 or int4; --decode-scan, --trace-ring and --step-ring are at
+        least 1, --event-ring at least 0; --slo-targets parses;
+        --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
         name must be a dtype. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        if self.decode_scan < 1:
-            raise ValueError("--decode-scan must be >= 1")
+        for knob in ("decode_scan", "trace_ring", "step_ring"):
+            if getattr(self, knob) < 1:
+                raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
+        if self.slo_targets:
+            # a malformed spec is a startup error, not a serving run
+            # silently accounting against the defaults
+            from cake_tpu_torch.obs.slo import parse_slo_targets
+            parse_slo_targets(self.slo_targets)
+        if self.event_ring < 0:
+            raise ValueError(
+                f"--event-ring {self.event_ring} must be >= 0 "
+                "(0 disables the event bus)")
         if self.mixed_batch not in ("auto", "on", "off"):
             raise ValueError(
                 f"unsupported mixed_batch '{self.mixed_batch}' "

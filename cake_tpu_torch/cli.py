@@ -30,6 +30,17 @@ def main(argv=None) -> int:
         from cake_tpu_torch.api.server import start
         start(master, address=args.api)
         return 0
+    if (args.step_log or args.event_log or args.slo_targets
+            or args.trace_events or args.priority_classes
+            or args.preemption or args.shed):
+        # the step recorder, the event bus, SLO accounting and the
+        # scheduler live in the serving engine: a one-shot generation
+        # has one request and records nothing
+        logging.getLogger(__name__).warning(
+            "--step-log / --event-log / --trace-events / --slo-targets / "
+            "--priority-classes / --preemption / --shed apply to engine "
+            "serving (--api); one-shot generation has a single request "
+            "and records nothing")
     master.run()
     return 0
 

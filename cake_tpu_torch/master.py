@@ -63,6 +63,17 @@ class Master:
             mixed_batch=a.mixed_batch,
             decode_scan_steps=a.decode_scan,
             auto_prefix_system=a.auto_prefix,
+            # the observability planes and the SLO scheduler
+            trace_events=a.trace_events,
+            trace_ring=a.trace_ring,
+            step_log=a.step_log,
+            step_ring=a.step_ring,
+            event_log=a.event_log,
+            event_ring=a.event_ring,
+            slo_targets=a.slo_targets,
+            priority_classes=a.priority_classes,
+            preemption=a.preemption,
+            shed=a.shed,
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)

@@ -26,7 +26,19 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     distinct system prompt's rendered head) prefill once into pool pages
     (`prefill_prefix_pages`); a prompt that starts with one maps those
     pages, refcounted and read-only, at the head of its table row and
-    prefills only its suffix.
+    prefills only its suffix;
+  * SLO scheduling (`priority_classes`, `preemption`, `shed`; sched/):
+    requests carry a class and are admitted by class with aging;
+    between iterations a starved higher class preempts the youngest
+    lowest-class slot (`_maybe_preempt`): its generated tokens fold into
+    its prompt, its pages go back through the refcounted allocator, and
+    it requeues with its seniority to re-prefill; shedding refuses an
+    arrival with a computed Retry-After;
+  * observability (obs/): a lifecycle trace per request (`tracer`), a
+    flight record per device step (`flight`, with the step's counted
+    FLOPs and bytes and its device time from CUDA events read at the
+    fetch that already happens), the event bus (`events`) and SLO
+    accounting (`slo`), all built from values the host already has.
 
 Both steps run as captured CUDA graphs on the card (there is no eager
 step there), and eagerly on the CPU: the decode step, its sampling and
@@ -44,9 +56,9 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: SLO scheduling, speculation,
-the host KV tier, fault injection and recovery, the journal, autotune,
-multi-host, and the metrics planes.
+(`_run_on_engine_thread`). Not ported yet: speculation, the host KV tier
+(so a preemption always takes the recompute fold), fault injection and
+recovery, the journal, autotune and multi-host.
 """
 
 from __future__ import annotations
@@ -75,14 +87,72 @@ from cake_tpu_torch.models.llama.paged import (
     prefill_prefix_pages, prefill_slot_paged, prefill_slot_paged_chunk,
     prefill_slot_paged_prefixed, table_set_slot,
 )
-from cake_tpu_torch.native.scheduler import make_scheduler
+from cake_tpu_torch.models.llama.params import params_bytes
+from cake_tpu_torch.obs import metrics as obs_metrics
+from cake_tpu_torch.obs import steps as obs_steps
+from cake_tpu_torch.obs.events import EventBus
+from cake_tpu_torch.obs.slo import SLOAccountant, parse_slo_targets
+from cake_tpu_torch.obs.tracing import RequestTracer
 from cake_tpu_torch.ops.sampling import SamplingConfig, masked_sample
-from cake_tpu_torch.serve.graphs import DecodeRunner, MixedRunner
+from cake_tpu_torch.sched import (
+    SchedConfig, ShedController, ShedError, make_scheduler,
+)
+from cake_tpu_torch.sched.classes import CLASS_RANK, validate_priority
+from cake_tpu_torch.serve.graphs import (
+    DecodeRunner, MixedRunner, elapsed_s, mark,
+)
 from cake_tpu_torch.utils.devices import (
     resolve_device, resolve_dtype, to_device,
 )
+from cake_tpu_torch.utils.profiling import StepStats
 
 log = logging.getLogger(__name__)
+
+# the metric families of the JAX engine (`cake_tpu/serve/engine.py`)
+# that apply to the paged engine, with the same names and help
+
+# paged-engine device-step wall latency (dispatch+fetch, sampling
+# included), split by path; bursts observe their per-step average
+_PAGED_ATTN_STEP = obs_metrics.histogram(
+    "cake_paged_attn_step_seconds",
+    "Paged-engine step wall latency by path (prefill|decode|mixed)",
+    labelnames=("path",))
+
+# page-granular prefix sharing: the gauge tracks how many pool pages are
+# currently backing more than their first mapping, the counters how
+# often and how many prompt tokens the sharing saved
+_PREFIX_PAGES_SHARED = obs_metrics.gauge(
+    "cake_prefix_pages_shared",
+    "Shared prefix pages currently mapped into admitted slots' table "
+    "rows (pool pages saved vs unshared admission)")
+_PREFIX_PAGED_HITS = obs_metrics.counter(
+    "cake_prefix_paged_hits_total",
+    "Paged prefills served from pool-resident shared prefix pages")
+_PREFIX_TOKENS_SAVED = obs_metrics.counter(
+    "cake_prefix_tokens_saved_total",
+    "Prompt tokens whose prefill was skipped via a cached prefix")
+
+# SLO scheduling: preemption/shed outcomes and per-class queue state
+_PREEMPTIONS = obs_metrics.counter(
+    "cake_preemptions_total",
+    "Decoding slots preempted for a starved higher priority class, by "
+    "trigger (slots = slot-starved, pages = kv-page-starved)",
+    labelnames=("reason",))
+_SHED_REQUESTS = obs_metrics.counter(
+    "cake_shed_requests_total",
+    "Requests rejected by per-class load shedding (HTTP 429 with a "
+    "computed Retry-After)",
+    labelnames=("class",))
+_QUEUE_DEPTH = obs_metrics.gauge(
+    "cake_queue_depth",
+    "Queued requests by priority class (SLO scheduler; refreshed at "
+    "submit, each engine iteration, and metrics scrape)",
+    labelnames=("class",))
+_SCHED_TTFT = obs_metrics.histogram(
+    "cake_sched_ttft_seconds",
+    "Submit-to-first-token latency by priority class (includes queue "
+    "wait and any preemption-induced requeues)",
+    labelnames=("class",))
 
 
 @dataclass
@@ -100,6 +170,10 @@ class _Request:
     stream_wants_count: bool = False
     # request asked for top-N alternatives (OpenAI top_logprobs)
     want_top: bool = False
+    # admission class, and how many times its slot was reclaimed for a
+    # higher class
+    priority: str = "standard"
+    preemptions: int = 0
     out_tokens: List[int] = field(default_factory=list)
     out_logprobs: List[float] = field(default_factory=list)
     # per emitted token: [(alt_token_id, alt_logprob), ...] top-N list
@@ -161,6 +235,8 @@ class EngineStats:
     errors: int = 0
     last_error: str = ""
     prefix_hits: int = 0     # prefills served from a registered prefix
+    preemptions: int = 0     # slots reclaimed for a starved higher class
+    shed: int = 0            # arrivals refused by load shedding
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -203,6 +279,17 @@ class InferenceEngine:
         decode_scan_steps: int = 1,
         auto_prefix_system: bool = False,
         max_auto_prefixes: int = 8,
+        trace_events: Optional[str] = None,
+        trace_ring: int = 256,
+        step_log: Optional[str] = None,
+        step_ring: int = 512,
+        event_log: Optional[str] = None,
+        event_ring: int = 1024,
+        slo_targets=None,
+        priority_classes: bool = False,
+        preemption: Optional[bool] = None,
+        shed: bool = False,
+        sched_config: Optional[SchedConfig] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -282,8 +369,66 @@ class InferenceEngine:
                  kv_dtype + "+scales" if self.kv_quant else self._pool_dtype,
                  self.cache.memory_bytes() / 2**30, self.device)
 
-        self.scheduler = make_scheduler(max_slots, max_queue)
+        # the step cost's constants (obs/steps.step_cost): the weights a
+        # forward pass reads at their stored size, the embedding left
+        # out (a pass gathers one row a token of it), and the pool's
+        # bytes a token (scales and the sink page's share included)
+        self._weight_bytes = (params_bytes(params)
+                              - params_bytes(params["embed"]))
+        self._embed_row_bytes = (params_bytes(params["embed"])
+                                 // config.vocab_size)
+        self._kv_bytes_per_token = self.cache.memory_bytes() / (
+            (self.cache.n_pages + 1) * self.cache.page_size)
+
+        # the event bus (obs/events.py): preemption, prefix hits,
+        # shedding and graph captures publish request-linked events
+        # (GET /api/v1/events; --event-log JSONL). --event-ring 0
+        # disables it: self.events is then None and every publish site
+        # costs one attribute test
+        self.events = (EventBus(capacity=event_ring, log_path=event_log)
+                       if event_ring > 0 else None)
+        # SLO attainment and goodput (obs/slo.py), fed from the tracer's
+        # finish seam, so verdicts use the original admission's clock
+        self.slo = SLOAccountant(
+            slo_targets if isinstance(slo_targets, dict)
+            else parse_slo_targets(slo_targets))
+        # SLO scheduling (sched/): priority-class queues with aging
+        # replace FIFO admission; preemption recompute-folds a lower-
+        # class slot back into the queue when a higher class is slot-
+        # or page-starved (None: on with the classes); shedding turns
+        # overload into 429s with a computed Retry-After. The FIFO
+        # stays the priority-free fallback.
+        self._sched_cfg = sched_config or SchedConfig()
+        self._slo = bool(priority_classes)
+        self._preemption = (self._slo if preemption is None
+                            else bool(preemption))
+        if self._preemption and not self._slo:
+            log.warning("--preemption requires --priority-classes; "
+                        "preemption disabled")
+            self._preemption = False
+        self._shed = ShedController(self._sched_cfg) if shed else None
+        # rank of a page-starved higher-class admission awaiting a
+        # victim; consumed at the top of the next iteration (a mid-wave
+        # preemption would leave already-planned decode rows writing
+        # through a released table row)
+        self._pending_page_preempt: Optional[int] = None
+        self.scheduler = make_scheduler(
+            max_slots, max_queue, priority_classes=self._slo,
+            config=self._sched_cfg)
         self.stats = EngineStats()
+        # request-lifecycle traces (obs/tracing.py), always on: spans at
+        # the submit, admission, first-token, emit, preemption, requeue
+        # and retire seams; --trace-events appends them as JSONL
+        self.tracer = RequestTracer(capacity=trace_ring,
+                                    events_path=trace_events,
+                                    slo=self.slo)
+        self._step_stats = StepStats(name="engine", window=100)
+        # the step flight recorder (obs/steps.py), always on: one record
+        # per device step at the step seams, GET /api/v1/steps and
+        # --step-log; MFU and HBM utilization against this card's peaks
+        self.flight = obs_steps.StepTelemetry(
+            impl=f"paged-{impl}", capacity=step_ring, log_path=step_log,
+            kind=obs_steps.device_kind(self.device), events=self.events)
         # the last retired requests, newest last (bench and smoke stats)
         self.retired: deque = deque(maxlen=1024)
 
@@ -341,9 +486,12 @@ class InferenceEngine:
         # the two runners' graphs share one memory pool on the card
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
-        # mixed steps dispatched and not yet counted in the stats' times:
-        # [first dispatch's clock, chunk tokens, decode rows]
+        # mixed steps dispatched and not yet counted in the stats' times
+        # nor recorded: [first dispatch's clock, chunk tokens, decode
+        # rows, the steps' pending flight records]
         self._mixed_open: Optional[list] = None
+        # a runner captured a graph for the step being dispatched
+        self._compiled_step = False
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -362,6 +510,12 @@ class InferenceEngine:
             self._thread = None
         self._drain_cancellations()
         self._fail_pending_commands()
+        # flush and fsync the optional JSONL logs (a later start reopens
+        # them on the next append)
+        self.tracer.close()
+        self.flight.close()
+        if self.events is not None:
+            self.events.close()
 
     def __enter__(self):
         return self.start()
@@ -381,15 +535,21 @@ class InferenceEngine:
         repeat_penalty: Optional[float] = None,
         stream: Optional[Callable[..., None]] = None,
         want_top_logprobs: bool = False,
+        priority: Optional[str] = None,
     ) -> RequestHandle:
         """Queue one generation. stream(text_delta, is_final) is called
         from the engine thread as tokens finalize; a callback with
         attribute `wants_count = True` instead gets (text_delta,
         is_final, n_done). The handle's wait()/text() is the blocking
-        interface."""
+        interface. priority: the request's class (interactive |
+        standard | batch; None = standard; an unknown one raises
+        ValueError); it orders admission under priority_classes and
+        labels the TTFT histogram always. Raises ShedError (shedding) or
+        QueueFullError, each with a Retry-After."""
         if self._stop.is_set():
             from cake_tpu_torch.serve.errors import EngineResetError
             raise EngineResetError("engine stopped")
+        cls = validate_priority(priority)
         ids = list(prompt_ids)
         if not ids:
             raise ValueError("empty prompt")
@@ -420,14 +580,45 @@ class InferenceEngine:
             stream=stream,
             stream_wants_count=bool(getattr(stream, "wants_count", False)),
             want_top=want_top_logprobs,
+            priority=cls,
             submit_t=time.perf_counter(),
         )
-        # register BEFORE scheduler.submit: the engine thread may plan
-        # the rid immediately, and an unknown rid counts as cancelled
+        if self._shed is not None:
+            # after every validation above: an invalid request gets its
+            # 400, never a 429 inviting a retry that cannot succeed
+            depth = (self.scheduler.depth_ahead(cls)
+                     if hasattr(self.scheduler, "depth_ahead")
+                     else self.scheduler.queue_depth)
+            dec = self._shed.decide(cls, depth)
+            if not dec.admit:
+                self.stats.shed += 1
+                _SHED_REQUESTS.labels(cls).inc()
+                if self.events is not None:
+                    self.events.publish(
+                        "shed", rid=rid, priority=cls,
+                        retry_after_s=round(dec.retry_after_s, 3),
+                        est_wait_s=(round(dec.est_wait_s, 3)
+                                    if dec.est_wait_s is not None
+                                    else None))
+                raise ShedError(cls, dec.retry_after_s,
+                                est_wait_s=dec.est_wait_s)
+        # register (and trace) BEFORE scheduler.submit: the engine
+        # thread may plan the rid immediately, and an unknown rid counts
+        # as cancelled
         self._requests[rid] = req
-        if not self.scheduler.submit(rid, len(ids), max_new):
+        self.tracer.admit(rid, len(ids), max_new, priority=cls)
+        ok = (self.scheduler.submit(rid, len(ids), max_new, priority=cls)
+              if self._slo else
+              self.scheduler.submit(rid, len(ids), max_new))
+        if not ok:
             self._requests.pop(rid, None)
-            raise QueueFullError()
+            self.tracer.drop(rid)
+            retry = 1.0
+            if self._shed is not None:
+                retry = self._shed.estimate_retry_after(
+                    cls, self.scheduler.queue_depth)
+            raise QueueFullError(retry_after=retry)
+        self._set_queue_gauges()
         self._wake.set()
         return RequestHandle(req, self.tokenizer, self.config.eos_token_ids)
 
@@ -519,6 +710,8 @@ class InferenceEngine:
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
             req.finish_t = time.perf_counter()
+            self.tracer.finish(rid, "cancelled",
+                               output_tokens=len(req.out_tokens))
             req.done.set()
 
     # -- shared prefixes --------------------------------------------------------
@@ -703,7 +896,15 @@ class InferenceEngine:
         while not self._stop.is_set():
             self._drain_cancellations()
             self._drain_commands()
+            if self._slo and self._preemption:
+                # between iterations only: every burst has been fetched
+                # and no step reads a table row this releases, except
+                # chunk-only mixed steps still on the stream, which the
+                # release and any re-allocation are ordered after
+                self._maybe_preempt()
             prefill_plan, decode_plan = self.scheduler.plan()
+            if self._slo:
+                self._set_queue_gauges()
             if not prefill_plan and not decode_plan:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -757,6 +958,8 @@ class InferenceEngine:
             self._auto_pids.clear()
         self._mixed_pending = {}
         self._page_blocked_rid = None
+        self._pending_page_preempt = None
+        _PREFIX_PAGES_SHARED.set(0)
         self._pos[:] = 0
         self._last_tok[:] = 0
         self._steps[:] = 0
@@ -780,7 +983,10 @@ class InferenceEngine:
         if pages:
             self._pager.release(pages)
             table_set_slot(self.cache.table, slot, [])
-        self._prefix_pages_shared -= self._slot_prefix_pages.pop(slot, 0)
+        n_shared = self._slot_prefix_pages.pop(slot, 0)
+        if n_shared:
+            self._prefix_pages_shared -= n_shared
+            _PREFIX_PAGES_SHARED.set(self._prefix_pages_shared)
 
     def _alloc_slot_pages(self, req: _Request, slot: int,
                           hit=None) -> bool:
@@ -792,12 +998,17 @@ class InferenceEngine:
         hit: a validated prefix match (pid, (p_ids, pages)) from
         _match_and_validate_prefix: the slot then allocates only suffix
         + budget pages and maps the shared pages, retained, at the head
-        of its row."""
+        of its row. Under priority classes a request that outranks the
+        blocking head may try the pool past it (an aged head's score is
+        the best, so it keeps first claim on freed pages)."""
         blocked = self._page_blocked_rid
         if blocked is not None and blocked not in self._requests:
             blocked = self._page_blocked_rid = None     # cancelled/failed
         if blocked is not None and req.rid != blocked:
-            return self._requeue_for_pages(req, slot, starved=False)
+            leapfrog = (self._slo
+                        and self.scheduler.outranks(req.rid, blocked))
+            if not leapfrog:
+                return self._requeue_for_pages(req, slot, starved=False)
         prefix_pages: List[int] = []
         n_prefix = 0
         if hit is not None:
@@ -813,6 +1024,7 @@ class InferenceEngine:
             self._pager.retain(prefix_pages)
             self._slot_prefix_pages[slot] = len(prefix_pages)
             self._prefix_pages_shared += len(prefix_pages)
+            _PREFIX_PAGES_SHARED.set(self._prefix_pages_shared)
         row = list(prefix_pages) + pages
         self._slot_pages[slot] = row
         table_set_slot(self.cache.table, slot, row)
@@ -831,16 +1043,101 @@ class InferenceEngine:
         self._page_starved = True
         if starved and self._page_blocked_rid is None:
             self._page_blocked_rid = req.rid
-        self.scheduler.cancel(req.rid)
-        if not self.scheduler.submit(req.rid, len(req.prompt_ids),
-                                     req.max_new_tokens):
+        # the folded shape (a preempted request re-prefills prompt +
+        # generated tokens for the rest of its budget)
+        n_prompt = len(req.prompt_ids) + len(req.out_tokens)
+        n_left = req.max_new_tokens - len(req.out_tokens)
+        if self._slo:
+            # requeue, not cancel + submit: the aging score keeps
+            # counting from the original admission
+            ok = self.scheduler.requeue(req.rid, n_prompt, n_left)
+        else:
+            self.scheduler.cancel(req.rid)
+            ok = self.scheduler.submit(req.rid, n_prompt, n_left)
+        if not ok:
             req.error = RuntimeError(
                 "kv page pool exhausted and admission queue full")
             self._requests.pop(req.rid, None)
             if self._page_blocked_rid == req.rid:
                 self._page_blocked_rid = None
+            self.tracer.finish(req.rid, "error", error=str(req.error))
             req.done.set()
+        else:
+            self.tracer.span(req.rid, "requeued")
+            if starved and self._slo and self._preemption:
+                # note the starved class for the top of the next
+                # iteration: preempting mid-wave would leave the planned
+                # decode rows writing through a released table row
+                r = CLASS_RANK[req.priority]
+                cur = self._pending_page_preempt
+                self._pending_page_preempt = (r if cur is None
+                                              else min(cur, r))
         return False
+
+    # -- SLO scheduling: preemption and queue gauges ----------------------------
+
+    def _set_queue_gauges(self) -> None:
+        depths = getattr(self.scheduler, "class_depths", None)
+        if depths is None:
+            return
+        for c, d in depths().items():
+            _QUEUE_DEPTH.labels(c).set(d)
+
+    def _maybe_preempt(self) -> None:
+        """Reclaim at most one slot an iteration for a starved higher
+        class: first for a page-starved admission noted last iteration
+        (reason "pages"), else for the best-scored waiting request when
+        every slot is taken (reason "slots"). The scheduler picks the
+        victim (the youngest slot of the worst class, preemption budget
+        respected); the recompute fold is `_preempt_slot`'s."""
+        pend, self._pending_page_preempt = self._pending_page_preempt, None
+        cands = []
+        if pend is not None:
+            cands = [(v, "pages")
+                     for v in self.scheduler.preemption_victims(pend)]
+        if not cands:
+            cands = [(v, "slots")
+                     for v in self.scheduler.slot_preemption_victims()]
+        for (rid, slot), reason in cands:
+            if self._preempt_slot(rid, slot, reason):
+                return
+
+    def _preempt_slot(self, rid: int, slot: int, reason: str) -> bool:
+        """Recompute-style preemption of one slot: the victim requeues
+        with its seniority as prompt + generated tokens for the rest of
+        its budget (its admission re-prefills that fold through the
+        mixed step, or the phase-split prefill, and the next greedy token
+        is the one an uninterrupted run emits), and its pages go back
+        through the refcounted allocator (shared prefix pages only drop
+        a reference). The JAX engine's host-tier spill of the victim's
+        pages is not ported."""
+        req = (self._slot_req[slot]
+               if 0 <= slot < self.max_slots else None)
+        if req is None or req.rid != rid or req.done.is_set():
+            return False
+        remaining = req.max_new_tokens - len(req.out_tokens)
+        if remaining <= 0:
+            return False    # retiring this iteration anyway
+        if not self.scheduler.requeue(
+                rid, len(req.prompt_ids) + len(req.out_tokens),
+                remaining, preempted=True):
+            return False
+        self._slot_req[slot] = None
+        req.slot = -1
+        req.preemptions += 1
+        self._release_slot_pages(slot)
+        self.stats.preemptions += 1
+        _PREEMPTIONS.labels(reason=reason).inc()
+        self.tracer.span(rid, "preempted", reason=reason,
+                         generated=len(req.out_tokens), spilled=False)
+        if self.events is not None:
+            self.events.publish("preempted", rid=rid, reason=reason,
+                                priority=req.priority,
+                                generated=len(req.out_tokens),
+                                spilled=False)
+        log.debug("preempted rid=%d (%s, %d tokens fold into the prompt)",
+                  rid, reason, len(req.out_tokens))
+        return True
 
     # -- steps ----------------------------------------------------------------
 
@@ -873,9 +1170,13 @@ class InferenceEngine:
         if req is None:  # cancelled between plan and here
             self.scheduler.cancel(rid)
             return
+        self.tracer.prefill_start(rid)
         req.slot = slot
         self._slot_req[slot] = req
-        hit = self._match_and_validate_prefix(req.prompt_ids)
+        # a preempted request re-prefills prompt + generated tokens, and
+        # its penalty ring is rebuilt over the generated ones
+        ids, prime = self._folded(req)
+        hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
             return   # pool exhausted: requeued (or failed) inside
         off = 0
@@ -884,14 +1185,45 @@ class InferenceEngine:
             # start after them
             off = len(hit[1][0])
             self.stats.prefix_hits += 1
+            _PREFIX_PAGED_HITS.inc()
+            _PREFIX_TOKENS_SAVED.inc(off)
+            if self.events is not None:
+                self.events.publish("prefix_hit", rid=rid, pid=hit[0],
+                                    tokens_saved=off)
         self._temp[slot] = req.temperature
         self._top_p[slot] = req.top_p
         self._penalty[slot] = req.repeat_penalty
-        self._ring[slot] = -1          # a fresh repeat-penalty ring
-        self._steps[slot] = 0
+        self._prime_ring(slot, prime)
         self._pos[slot] = off
-        self._mixed_pending[slot] = {"req": req, "ids": req.prompt_ids,
-                                     "off": off}
+        self._mixed_pending[slot] = {"req": req, "ids": ids, "off": off}
+
+    @staticmethod
+    def _folded(req: _Request):
+        """(ids to prefill, tokens to prime the penalty ring with): the
+        prompt, or after a preemption the prompt and the generated
+        tokens (the recompute fold)."""
+        if req.out_tokens:
+            return list(req.prompt_ids) + list(req.out_tokens), \
+                list(req.out_tokens)
+        return req.prompt_ids, []
+
+    def _prime_ring(self, slot: int, prime) -> None:
+        """Reset a slot's repeat-penalty ring and step counter, seeded
+        from `prime` (a preemption fold): each prior token at its step
+        index and the counter continuing from there, so later writes
+        land where an uninterrupted run's would. No wait for the stream:
+        a seeded row goes up from pinned memory."""
+        self._steps[slot] = 0
+        if not prime:
+            self._ring[slot] = -1
+            return
+        N = self._ring.shape[1]
+        row = torch.full((N,), -1, dtype=torch.int64)
+        start = max(0, len(prime) - N)
+        for i, t in enumerate(prime[start:], start=start):
+            row[i % N] = t
+        self._ring[slot].copy_(to_device(row, self.device))
+        self._steps[slot] = len(prime)
 
     def _mixed_step_runner(self) -> MixedRunner:
         if self._mixed_runner is None:
@@ -900,8 +1232,47 @@ class InferenceEngine:
                 attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
                 counters=self._counters, chunk=self._mixed_chunk,
                 n_top_cap=self.n_top, top_k=self.defaults.top_k,
-                step_fn=mixed_step_paged, pool=self._graph_pool)
+                step_fn=mixed_step_paged, pool=self._graph_pool,
+                on_capture=self._captured("mixed_step"))
         return self._mixed_runner
+
+    def _captured(self, fn_name: str):
+        """A runner's capture hook: the flight recorder counts the
+        capture as a compile of `fn_name`, and the step that caused it
+        is recorded as compiled."""
+        def hook(_variant, seconds: float) -> None:
+            self.flight.count_capture(fn_name, seconds)
+            self._compiled_step = True
+        return hook
+
+    def _took_capture(self) -> bool:
+        got, self._compiled_step = self._compiled_step, False
+        return got
+
+    def _cost(self, kind: str, rows: int, tokens: int, ctx_lens,
+              emit_rows: int, passes: int = 1) -> obs_steps.CostInfo:
+        """The step's counted FLOPs and bytes (obs/steps.step_cost)
+        from the engine's weight and pool sizes."""
+        return obs_steps.step_cost(
+            self.config, kind, rows, tokens, ctx_lens,
+            emit_rows=emit_rows, passes=passes,
+            weight_bytes=self._weight_bytes,
+            embed_row_bytes=self._embed_row_bytes,
+            kv_bytes_per_token=self._kv_bytes_per_token)
+
+    def _record(self, kind: str, *, rows: int, tokens: int, cost,
+                wall_s: float, dispatch_s: Optional[float] = None,
+                timing=None, compiled: bool = False, rids=(),
+                **split) -> None:
+        """One flight record: the step's device time from its timing
+        events (read without a wait; the wall when there are none), its
+        cost and the pool's occupancy; and the step-latency histogram
+        of its path."""
+        self.flight.record(
+            kind, rows=rows, tokens=tokens, dispatch_s=dispatch_s,
+            device_s=elapsed_s(timing), wall_s=wall_s, cost=cost,
+            compiled=compiled, pages_free=self._pager.free_pages,
+            pages_total=self.cache.n_pages, rids=list(rids), **split)
 
     def _mixed_dispatch(self, decode_plan) -> None:
         """Build and run ONE mixed step: every decode row contributes its
@@ -946,18 +1317,35 @@ class InferenceEngine:
         emit_rows = decode_rows + finished
         emit = np.zeros(B, bool)
         emit[emit_rows] = True
-        handle = self._mixed_step_runner().run(
+        runner = self._mixed_step_runner()
+        handle = runner.run(
             self._n_top_for(emit_rows) if emit_rows else None, tokens, pos,
             qlen, active, emit, self._steps, self._temp, self._top_p,
             self._penalty)
         self.stats.steps += 1
+        self._step_stats.step(bytes_out=len(emit_rows))
         # the step's wall is counted when outputs are fetched, over every
         # step dispatched since the last fetch, split by token share
-        # between prefill and decode
+        # between prefill and decode; so is its flight record, with the
+        # device time of its replay's timing events
         if self._mixed_open is None:
-            self._mixed_open = [t0, 0, 0]
+            self._mixed_open = [t0, 0, 0, []]
         self._mixed_open[1] += int(sum(qlen[s] for s in chunk_rows))
         self._mixed_open[2] += len(decode_rows)
+        n_rows = len(decode_rows) + len(chunk_rows)
+        self._mixed_open[3].append(dict(
+            t0=t0, dispatch_s=time.perf_counter() - t0,
+            timing=runner.timing, compiled=self._took_capture(),
+            rows=n_rows, tokens=len(emit_rows),
+            rows_decode=len(decode_rows), rows_prefill=len(chunk_rows),
+            rows_idle=B - n_rows,
+            rids=[self._slot_req[s].rid for s in decode_rows]
+            + [self._mixed_pending[s]["req"].rid for s in chunk_rows],
+            cost=self._cost(
+                "mixed", n_rows, len(emit_rows),
+                [(int(pos[s]), 1) for s in decode_rows]
+                + [(int(pos[s]), int(qlen[s])) for s in chunk_rows],
+                len(emit_rows))))
         # advance the prefill frontiers BEFORE emit: a finishing row's
         # _pos must read prompt-end when _emit checks the window cap
         for slot in chunk_rows:
@@ -985,15 +1373,30 @@ class InferenceEngine:
 
     def _count_mixed_time(self) -> None:
         """Add the wall since the first mixed step not yet counted to the
-        prefill and decode times, split by the steps' token shares."""
+        prefill and decode times, split by the steps' token shares, and
+        record each of those steps: its wall is its dispatch, the last
+        one's up to now (its fetch); its device time its timing events'
+        (read only when the stream has passed them)."""
         if self._mixed_open is None:
             return
-        t0, chunk_toks, decode_toks = self._mixed_open
+        t0, chunk_toks, decode_toks, steps = self._mixed_open
         self._mixed_open = None
-        dt = time.perf_counter() - t0
+        now = time.perf_counter()
+        dt = now - t0
         pf = dt * chunk_toks / (chunk_toks + decode_toks)
         self.stats.prefill_time_s += pf
         self.stats.decode_time_s += dt - pf
+        for i, st in enumerate(steps):
+            wall = (now - st["t0"] if i == len(steps) - 1
+                    else st["dispatch_s"])
+            _PAGED_ATTN_STEP.labels(path="mixed").observe(wall)
+            self._record("mixed", rows=st["rows"], tokens=st["tokens"],
+                         cost=st["cost"], wall_s=wall,
+                         dispatch_s=st["dispatch_s"], timing=st["timing"],
+                         compiled=st["compiled"], rids=st["rids"],
+                         rows_decode=st["rows_decode"],
+                         rows_prefill=st["rows_prefill"],
+                         rows_idle=st["rows_idle"])
 
     @staticmethod
     def _top(tids, tlps, slot) -> list:
@@ -1025,10 +1428,12 @@ class InferenceEngine:
         if req is None:  # cancelled between plan and here
             self.scheduler.cancel(rid)
             return None
+        self.tracer.prefill_start(rid)
         t0 = time.perf_counter()
         req.slot = slot
         self._slot_req[slot] = req
-        ids = req.prompt_ids
+        # a preempted request re-prefills prompt + generated tokens
+        ids, prime = self._folded(req)
         # match BEFORE page admission: a hit changes the allocation
         hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
@@ -1036,11 +1441,29 @@ class InferenceEngine:
         n_top = self._n_top_for([slot])
         if hit is not None:
             out = self._prefixed_prefill_device(ids, slot, req, hit[1],
-                                                n_top)
+                                                n_top, prime)
+            n_pre = len(hit[1][0])
             self.stats.prefix_hits += 1
+            _PREFIX_PAGED_HITS.inc()
+            _PREFIX_TOKENS_SAVED.inc(n_pre)
+            if self.events is not None:
+                self.events.publish("prefix_hit", rid=rid, pid=hit[0],
+                                    tokens_saved=n_pre)
         else:
-            out = self._prefill_device(ids, slot, req, n_top)
-        return (req, t0, slot, out)
+            out = self._prefill_device(ids, slot, req, n_top, prime)
+            n_pre = 0
+        return (req, t0, slot, out, self._prefill_runs(ids, n_pre))
+
+    def _prefill_runs(self, ids, n_prefix: int) -> list:
+        """(pos, n) of each window a phase-split prefill runs for `ids`
+        after `n_prefix` shared tokens (the step cost's runs; bucket
+        padding left out): one window, or --prefill-chunk windows when
+        the part to prefill is longer than the chunk."""
+        C = self.prefill_chunk
+        n = len(ids) - n_prefix
+        if not (C and n > C):
+            return [(n_prefix, n)]
+        return [(n_prefix + a, min(C, n - a)) for a in range(0, n, C)]
 
     # admissions a first-token fetch in _do_prefill_batch: each group's
     # prefills and samples are dispatched back to back with no wait for
@@ -1054,12 +1477,26 @@ class InferenceEngine:
         """Admit a wave with one first-token fetch per PREFILL_FLUSH
         admissions."""
         pend: list = []
+        timing = [None]
 
         def flush():
-            hosts = self._fetch_samples([dev for (_, _, _, dev) in pend])
+            end = mark(self.device)
+            hosts = self._fetch_samples([p[3] for p in pend])
             # one wall interval a group: its admissions overlap
-            self.stats.prefill_time_s += time.perf_counter() - pend[0][1]
-            for (req, _t0, slot, _), host in zip(pend, hosts):
+            dt = time.perf_counter() - pend[0][1]
+            self.stats.prefill_time_s += dt
+            _PAGED_ATTN_STEP.labels(path="prefill").observe(dt / len(pend))
+            # one record a group (per-admission walls would count the
+            # overlap several times), with the group's summed cost and
+            # the device time between the group's timing events
+            runs = [r for p in pend for r in p[4]]
+            self._record(
+                "prefill", rows=len(pend), tokens=len(pend),
+                cost=self._cost("prefill", len(pend), len(pend), runs,
+                                len(pend), passes=len(runs)),
+                wall_s=dt, timing=(timing[0], end) if end else None,
+                rids=[p[0].rid for p in pend])
+            for (req, _t0, slot, _, _), host in zip(pend, hosts):
                 self._advance_mirrors([slot], host[0])
                 first, first_lp, tids, tlps = host
                 self._emit(req, int(first[slot]),
@@ -1068,6 +1505,8 @@ class InferenceEngine:
             pend.clear()
 
         for rid, slot in prefill_plan:
+            if not pend:
+                timing[0] = mark(self.device)
             p = self._do_prefill(rid, slot)
             if p is not None:
                 pend.append(p)
@@ -1076,7 +1515,8 @@ class InferenceEngine:
         if pend:
             flush()
 
-    def _prefill_device(self, ids, slot: int, req: _Request, n_top: int):
+    def _prefill_device(self, ids, slot: int, req: _Request, n_top: int,
+                        prime=()):
         """Prefill one slot, whole-prompt or in --prefill-chunk windows
         (prompts longer than C), and sample its first token."""
         C = self.prefill_chunk
@@ -1084,7 +1524,8 @@ class InferenceEngine:
             logits = self._prefill_chunked(ids, slot, C)
         else:
             logits = self._prefill_raw(ids, slot)
-        return self._finish_prefill(logits, slot, len(ids), req, n_top)
+        return self._finish_prefill(logits, slot, len(ids), req, n_top,
+                                    prime)
 
     def _tokens(self, ids) -> torch.Tensor:
         """A prefill window's tokens [1, S] on the engine's device, with
@@ -1115,7 +1556,7 @@ class InferenceEngine:
         return logits
 
     def _prefixed_prefill_device(self, ids, slot: int, req: _Request,
-                                 entry, n_top: int):
+                                 entry, n_top: int, prime=()):
         """A prefix hit's prefill: the shared pages are already mapped at
         the head of the slot's row (_alloc_slot_pages), so only the
         suffix runs, as one window (`prefill_slot_paged_prefixed`) or in
@@ -1137,19 +1578,20 @@ class InferenceEngine:
                 self.params, self._tokens(padded), len(suffix), slot,
                 self.cache, self.rope, self.config, n_prefix=len(p_ids),
                 attn=self.paged_attn, row=self._slot_pages[slot])
-        return self._finish_prefill(logits, slot, len(ids), req, n_top)
+        return self._finish_prefill(logits, slot, len(ids), req, n_top,
+                                    prime)
 
     def _finish_prefill(self, logits, slot: int, prompt_len: int,
-                        req: _Request, n_top: int):
-        """Set the slot's sampling state and sample its first token on
-        its own stream. Returns the device sample (_do_prefill_batch
+                        req: _Request, n_top: int, prime=()):
+        """Set the slot's sampling state (its penalty ring primed with
+        a preemption fold's generated tokens) and sample its first token
+        on its own stream. Returns the device sample (_do_prefill_batch
         fetches it and moves the slot's mirrors)."""
         self._pos[slot] = prompt_len
         self._temp[slot] = req.temperature
         self._top_p[slot] = req.top_p
         self._penalty[slot] = req.repeat_penalty
-        self._ring[slot] = -1          # a fresh repeat-penalty ring
-        self._steps[slot] = 0
+        self._prime_ring(slot, prime)
         return self._sample_rows(
             logits.expand(self.max_slots, logits.shape[-1]), rows=[slot],
             n_top=n_top)
@@ -1163,7 +1605,8 @@ class InferenceEngine:
                 attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
                 counters=self._counters, max_steps=self._decode_scan,
                 n_top_cap=self.n_top, top_k=self.defaults.top_k,
-                pool=self._graph_pool)
+                pool=self._graph_pool,
+                on_capture=self._captured("decode_scan"))
         return self._runner
 
     def _dispatch_scan(self, rows, n: int, n_top: int, budget,
@@ -1188,10 +1631,15 @@ class InferenceEngine:
         budget = self._scan_budget(decode_plan, 1)
         handle = self._dispatch_scan(rows, 1, self._n_top_for(rows), budget,
                                      fresh=True)
+        disp = time.perf_counter() - t0
         fetched = DecodeRunner.fetch(handle)
         self.stats.steps += 1
-        self.stats.decode_time_s += time.perf_counter() - t0
-        self._complete_scan(decode_plan, 1, fetched, budget)
+        dt = time.perf_counter() - t0
+        self.stats.decode_time_s += dt
+        _PAGED_ATTN_STEP.labels(path="decode").observe(dt)
+        self._complete_scan(decode_plan, 1, fetched, budget,
+                            record=("decode", disp, dt, handle.timing,
+                                    self._took_capture()))
 
     def _scan_steps_for(self, decode_plan) -> int:
         """Steps a burst when multi-step decode is safe right now: nobody
@@ -1279,30 +1727,59 @@ class InferenceEngine:
 
         def dispatch(state):
             budget = self._scan_budget(decode_plan, n, shipped)
+            t0d = time.perf_counter()
             handle = self._dispatch_scan(rows, n, n_top, budget,
                                          fresh=state is None)
+            disp = time.perf_counter() - t0d
             for _, slot in decode_plan:
                 shipped[slot] = shipped.get(slot, 0) + int(budget[slot])
             self.stats.steps += n
-            return (handle, budget), True
+            return (handle, budget, disp, self._took_capture()), True
 
         def complete(devs):
-            handle, budget = devs
+            handle, budget, disp, compiled = devs
+            t0f = time.perf_counter()
             fetched = DecodeRunner.fetch(handle)
             now = time.perf_counter()
             self.stats.decode_time_s += now - clock[0]
             clock[0] = now
-            self._complete_scan(decode_plan, n, fetched, budget)
+            # one record a burst: its own dispatch wall, and the fetch
+            # wall beside it (the device time is its timing events')
+            self._complete_scan(decode_plan, n, fetched, budget,
+                                record=("decode_scan", disp,
+                                        disp + now - t0f, handle.timing,
+                                        compiled))
             for _, slot in decode_plan:
                 shipped[slot] = shipped.get(slot, 0) - int(budget[slot])
 
+        steps0 = self.stats.steps
+        t_burst = time.perf_counter()
         self._drive_burst(dispatch, complete, can_chain)
         self.stats.decode_time_s += time.perf_counter() - clock[0]
+        _PAGED_ATTN_STEP.labels(path="decode").observe(
+            (time.perf_counter() - t_burst)
+            / max(1, self.stats.steps - steps0))
 
-    def _complete_scan(self, decode_plan, n: int, fetched, budget) -> None:
-        """Emit one fetched burst's tokens and advance the host mirrors.
-        A row emits min(its budget, EOS cut) tokens, where the step froze
-        it, so the mirrors advance by the emitted count."""
+    def _complete_scan(self, decode_plan, n: int, fetched, budget,
+                       record=None) -> None:
+        """Record one fetched burst (record: its kind, dispatch wall,
+        wall and timing events, and whether it captured a graph), then
+        emit its tokens and advance the host mirrors. A row emits
+        min(its budget, EOS cut) tokens, where the step froze it, so the
+        mirrors advance by the emitted count."""
+        if record is not None:
+            kind, disp, wall, timing, compiled = record
+            live = [(rid, s) for rid, s in decode_plan if budget[s] > 0]
+            tokens = int(budget.sum())
+            self._record(
+                kind, rows=len(decode_plan), tokens=tokens,
+                cost=self._cost(
+                    kind, len(decode_plan), tokens,
+                    [(int(self._pos[s]) + j, 1) for _, s in live
+                     for j in range(int(budget[s]))], tokens, passes=n),
+                wall_s=wall, dispatch_s=disp, timing=timing,
+                compiled=compiled, rids=[r for r, _ in decode_plan])
+            self._step_stats.step(bytes_out=tokens)
         toks, lps, tops_i, tops_l = fetched
         for rid, slot in decode_plan:
             req = self._slot_req[slot]
@@ -1387,6 +1864,11 @@ class InferenceEngine:
         req.out_top.append(top or [])
         if not req.out_tokens:
             req.first_token_t = now
+            self.tracer.first_token(req.rid)
+            # per-class TTFT, queue wait and preemption requeues included
+            _SCHED_TTFT.labels(req.priority).observe(now - req.submit_t)
+        else:
+            self.tracer.token(req.rid)
         req.out_tokens.append(token_id)
         self.stats.tokens_generated += 1
         eos = token_id in self.config.eos_token_ids
@@ -1409,6 +1891,10 @@ class InferenceEngine:
             self._release_slot_pages(req.slot)
             self._requests.pop(req.rid, None)
             self.stats.requests_completed += 1
+            if self._shed is not None:
+                self._shed.observe_retire()
+            self.tracer.finish(req.rid, "retired",
+                               output_tokens=len(req.out_tokens))
             self.retired.append(req)
             req.done.set()
 
@@ -1432,4 +1918,6 @@ class InferenceEngine:
             if req.slot >= 0:
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
+            self.tracer.finish(rid, "error", error=str(err),
+                               output_tokens=len(req.out_tokens))
             req.done.set()

@@ -43,10 +43,17 @@ Kernel launch counts (the `LAUNCHES` dicts of the kernel modules) are
 bumped in Python, which a replay never runs: the runner records each
 counter's increase during capture, takes it back out (a capture
 launches nothing), and adds it once per replay.
+
+On the card a run records a timing event before its first replay and
+one after its last (`timing`): the engine reads their elapsed time for
+the step's flight record after a fetch has passed them, so timing adds
+no wait for the stream. `on_capture(variant, seconds)` is called once a
+capture (the flight recorder counts captures as JAX counts compiles).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -82,12 +89,32 @@ def _add(delta: List[dict], times: int) -> None:
 class BurstHandle(NamedTuple):
     """One dispatched burst or mixed step: its step count, its n_top, and
     the host copies of its outputs, ready once `event` has passed (None
-    on the CPU)."""
+    on the CPU); `timing` the (start, end) timing events around its
+    replays (None on the CPU)."""
 
     n: int
     n_top: int
     host: Tuple[torch.Tensor, ...]
     event: Optional[torch.cuda.Event]
+    timing: Optional[tuple] = None
+
+
+def mark(device) -> Optional[torch.cuda.Event]:
+    """A timing event recorded on the device's current stream (None on
+    the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def elapsed_s(timing) -> Optional[float]:
+    """Seconds between a run's timing events, or None (the CPU, or
+    events the stream has not passed yet: this never waits)."""
+    if timing is None or not timing[1].query():
+        return None
+    return timing[0].elapsed_time(timing[1]) / 1e3
 
 
 class _Runner:
@@ -101,7 +128,7 @@ class _Runner:
     def __init__(self, params, cache, rope, config, *, attn: str,
                  ring: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, cols: int, n_top_cap: int,
-                 top_k: Optional[int], pool=None):
+                 top_k: Optional[int], pool=None, on_capture=None):
         dev = ring.device
         self.device = dev
         self.params, self.cache, self.rope = params, cache, rope
@@ -122,6 +149,9 @@ class _Runner:
         self._turn = 0
         self._pool = pool
         self._graphs: dict = {}
+        self._on_capture = on_capture
+        # the last run's timing events (None on the CPU)
+        self.timing: Optional[tuple] = None
 
     def _zeros(self, *shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -140,6 +170,7 @@ class _Runner:
         got = self._graphs.get(variant)
         if got is not None:
             return got
+        t0 = time.perf_counter()
         self._idle()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -155,6 +186,8 @@ class _Runner:
         delta = _increase(before)
         _add(delta, -1)              # the capture launched nothing
         self._graphs[variant] = got = (graph, delta)
+        if self._on_capture is not None:
+            self._on_capture(variant, time.perf_counter() - t0)
         return got
 
     def replay(self, variant) -> None:
@@ -186,7 +219,7 @@ class _Runner:
         if self._cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return BurstHandle(n, n_top, host, event)
+        return BurstHandle(n, n_top, host, event, self.timing)
 
     @staticmethod
     def fetch(handle: BurstHandle) -> tuple:
@@ -209,10 +242,11 @@ class DecodeRunner(_Runner):
     def __init__(self, params, cache, rope, config, *, attn: str,
                  ring: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, max_steps: int, n_top_cap: int,
-                 top_k: Optional[int], pool=None):
+                 top_k: Optional[int], pool=None, on_capture=None):
         super().__init__(params, cache, rope, config, attn=attn, ring=ring,
                          seeds=seeds, counters=counters, cols=max_steps,
-                         n_top_cap=n_top_cap, top_k=top_k, pool=pool)
+                         n_top_cap=n_top_cap, top_k=top_k, pool=pool,
+                         on_capture=on_capture)
         B, zeros = self.B, self._zeros
         # the carry
         self.tok = zeros(B, dtype=torch.int64)
@@ -289,8 +323,10 @@ class DecodeRunner(_Runner):
         most budget[b] tokens; the outputs' copy to the host is
         dispatched, not waited for."""
         self.begin(budget)
+        start = mark(self.device)
         for _ in range(n):
             self.replay(n_top)
+        self.timing = (start, mark(self.device)) if self._cuda else None
         return self.download(n, n_top)
 
 
@@ -307,10 +343,11 @@ class MixedRunner(_Runner):
                  ring: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, chunk: int, n_top_cap: int,
                  top_k: Optional[int], step_fn=mixed_step_paged,
-                 pool=None):
+                 pool=None, on_capture=None):
         super().__init__(params, cache, rope, config, attn=attn, ring=ring,
                          seeds=seeds, counters=counters, cols=1,
-                         n_top_cap=n_top_cap, top_k=top_k, pool=pool)
+                         n_top_cap=n_top_cap, top_k=top_k, pool=pool,
+                         on_capture=on_capture)
         B, zeros = self.B, self._zeros
         self.step_fn = step_fn
         # the step's rows
@@ -373,7 +410,10 @@ class MixedRunner(_Runner):
         """One mixed step of the host rows (`load`'s), sampling the emit
         rows with `n_top` alternatives (None: no row emits). Returns the
         handle of the outputs' copy to the host, dispatched and not
-        waited for, or None when nothing emits."""
+        waited for, or None when nothing emits. `timing` holds the
+        replay's timing events either way."""
         self.load(n_top, *rows)
+        start = mark(self.device)
         self.replay(n_top)
+        self.timing = (start, mark(self.device)) if self._cuda else None
         return None if n_top is None else self.download(1, n_top)

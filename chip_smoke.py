@@ -103,6 +103,27 @@ Phases, in order (any failure exits non-zero):
             no plain version; TTFT p50, decode tok/s and wall beside the
             card's name and power limit. A `prefix` JSON line holds the
             drives' records.
+  sched     SLO scheduling and the observability core at the same width
+            and depth (bf16 weights, a 40-page bf16 pool, 8 slots, chunk
+            64, --decode-scan 4) through the HTTP API with
+            --priority-classes: round A, six batch chats of 512 + 256
+            tokens (6 pages each), then two interactive chats of 300 +
+            64 (3 pages), the second page-starved: exactly one "pages"
+            preemption; round B, eight batch chats of 128 + 64 fill the
+            slots, one interactive chat: exactly one "slots" preemption
+            (both read from /metrics). Every chat completes and the free
+            pages return to 40. The same arrivals without the classes
+            (the FIFO drive) give the interactive TTFT p50 beside the
+            classes' (printed). /api/v1/steps: every record's mfu in
+            (0, 1], its unclamped ratios at most 1.05, means per kind,
+            and the decode records' hbm_util within 30% of the step
+            phase's decode bound over its replay (same call). Each
+            preempted stream against the FIFO drive's: printed at bf16,
+            required token-identical at f32 (the same rounds at 8B
+            width, 4 layers, f32 weights and pool). Then a burst of 48
+            batch chats past the shed's depth (--shed, batch held to a
+            1 s queue-wait target): some get 429 with a Retry-After
+            above 0. A `sched` JSON line holds the phase's record.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -120,9 +141,11 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
-PHASES = ("device", "kernels", "step", "generate", "serve", "prefix")
+PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
+          "sched")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -1217,6 +1240,10 @@ def _int4_steps(torch, i4, cfg, params, rope, gen) -> None:
 # logits of the captured step against the same step run eagerly: the
 # same kernels on the same inputs in the same order, so 0 is expected
 GRAPH_TOL = 0.0
+# the decode graph's replay ms a step and the step's bound, by (weights,
+# pool), as the step phase measured them (the sched phase holds its
+# decode records' HBM share against bound / replay)
+GRAPH_REPLAY = {}
 
 
 def _graph_steps(torch, rpa, i4, cfg, params,
@@ -1305,6 +1332,13 @@ def _graph_steps(torch, rpa, i4, cfg, params,
         (tg, lg, cg, ng, ms_g), (te, le, ce, ne, ms_e) = (runs["graph"],
                                                           runs["eager"])
         name = f"{label}, {kv or 'bf16'} pool"
+        if kv is None:
+            bound = _mixed_step_bound(
+                cfg, params, B, 1, pos, live.astype(int),
+                2 * L * KV * hd * 2)[0]
+            GRAPH_REPLAY[label] = (ms_g, bound)
+            log(f"step graph ({name}): a decode step's bound {bound:.3f} "
+                f"ms (bytes), the replay {bound / ms_g:.3f} of it")
         rows = torch.as_tensor(np.flatnonzero(live & (budget == K)),
                                device=dev)
         err = (lg[rows] - le[rows]).abs().max().item()
@@ -2355,6 +2389,418 @@ def phase_prefix(torch, rpa, fa, cfg, params, card: str,
 
 
 
+# -- phase: sched --------------------------------------------------------------
+
+# the sched phase's pool: 40 pages of 128 tokens (+ the sink), 8 slots
+SCHED_PAGES = 40
+SCHED_LAYERS_F32 = 4       # the f32 identity drive's depth (8B width)
+# (round, class, prompt tokens, max tokens, how many); round A: six
+# batch chats of 6 pages each (36), then two interactive of 3 (the
+# second finds 4 free and must preempt one batch slot for "pages");
+# round B: eight batch chats fill every slot, one interactive preempts
+# for "slots"
+SCHED_ROUNDS = {
+    "A": (("batch", 512, 256, 6), ("interactive", 300, 64, 2)),
+    "B": (("batch", 128, 64, 8), ("interactive", 128, 32, 1)),
+}
+MFU_RAW_MAX = 1.05
+HBM_SHARE_TOL = 0.30       # decode records' HBM share against bound/replay
+
+
+def _metric(text: str, name: str, **labels) -> float:
+    """One sample of a Prometheus exposition (0 when absent)."""
+    want = ",".join(f'{k}="{v}"' for k, v in labels.items())
+    pat = re.escape(name) + (r"\{" + re.escape(want) + r"\}" if want
+                             else "") + r" (\S+)$"
+    m = re.search(pat, text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read()
+
+
+def _tagged_chat(tokenizer, tag: str, n_tokens: int) -> str:
+    """A user message (no system message) whose Llama-3 rendering encodes
+    to exactly n_tokens byte tokens, starting with `tag`."""
+    from cake_tpu_torch.models.chat import History, Message
+
+    h = History("llama3")
+    h.add_message(Message.user(""))
+    room = n_tokens - len(tokenizer.encode(h.render())) - len(tag) - 1
+    if room < 0:
+        fail(f"a {n_tokens}-token chat cannot hold its template and tag")
+    return f"{tag} " + "".join("abcdefgh"[i % 8] for i in range(room))
+
+
+class _SchedServer:
+    """One engine behind the HTTP API at the sched phase's geometry, and
+    the client side of the rounds: chats posted from threads with their
+    class in the body, each named by the tag its message starts with (the
+    same tags, so the same prompts, in every drive)."""
+
+    def __init__(self, torch, cfg, params, dtype, classes: bool,
+                 shed: bool = False, sched_config=None):
+        from cake_tpu_torch.api.server import start
+        from cake_tpu_torch.args import Args
+        from cake_tpu_torch.master import Master
+        from cake_tpu_torch.models.llama.generator import (
+            ByteTokenizer, LlamaGenerator,
+        )
+        from cake_tpu_torch.ops.sampling import SamplingConfig
+
+        args = Args(max_slots=8, max_seq_len=2048, kv_pages=SCHED_PAGES,
+                    kv_page_size=128, prefill_chunk=64, temperature=0.0,
+                    sample_len=32, decode_scan=4, step_ring=8192,
+                    priority_classes=classes, shed=shed).validate()
+        self.gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
+                                  max_seq_len=2048,
+                                  sampling=SamplingConfig(temperature=0.0),
+                                  cache_dtype=dtype, device=DEV)
+        self.master = Master(args, text_generator=self.gen)
+        kw = {"sched_config": sched_config} if sched_config else {}
+        self.engine = self.master.make_engine(**kw)
+        self.httpd = start(self.master, "127.0.0.1:0", block=False,
+                           engine=self.engine)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.threads, self.status, self._reqs = [], {}, {}
+
+    def post(self, system: str, cls: str, n_prompt: int, max_tokens: int):
+        user = _tagged_chat(self.engine.tokenizer, system, n_prompt)
+        body = {"messages": [{"role": "user", "content": user}],
+                "max_tokens": max_tokens, "temperature": 0.0,
+                "priority": cls}
+
+        def one():
+            try:
+                with _post(self.url + "/api/v1/chat/completions",
+                           body) as r:
+                    json.loads(r.read())
+                    self.status[system] = (r.status, None)
+            except urllib.error.HTTPError as e:
+                self.status[system] = (e.code,
+                                       e.headers.get("Retry-After"))
+            except Exception as e:   # noqa: BLE001
+                self.status[system] = (-1, repr(e))
+
+        t = threading.Thread(target=one)
+        t.start()
+        self.threads.append(t)
+
+    def request(self, system: str):
+        """The engine's request for a chat (live or retired), by its tag
+        (found once, then kept)."""
+        got = self._reqs.get(system)
+        if got is None:
+            key = f"\n\n{system} "
+            dec = self.engine.tokenizer.decode
+            for req in list(self.engine._requests.values()) + list(
+                    self.engine.retired):
+                if key in dec(req.prompt_ids[:160]):
+                    got = self._reqs[system] = req
+                    break
+        return got
+
+    def wait_tokens(self, systems, n: int, timeout: float = 120.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            reqs = [self.request(s) for s in systems]
+            if all(r is not None and len(r.out_tokens) >= n for r in reqs):
+                return
+            time.sleep(0.005)
+        fail(f"sched: {systems} did not reach {n} tokens")
+
+    def join(self):
+        for t in self.threads:
+            t.join(timeout=900)
+        self.threads = []
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.engine.stop()
+
+
+def _sched_round(srv: "_SchedServer", rnd: str, tag: str) -> dict:
+    """One round's arrivals: the batch chats together, then (once every
+    batch chat is decoding) the interactive ones one after the other,
+    each once the one before it has its first token. Returns system ->
+    (class, the request) after every chat has completed."""
+    (bcls, bp, bn, bk), (icls, ip, inn, ik) = SCHED_ROUNDS[rnd]
+    batch = [f"{rnd}b{i}" for i in range(bk)]
+    inter = [f"{rnd}i{i}" for i in range(ik)]
+    for sysmsg in batch:
+        srv.post(sysmsg, bcls, bp, bn)
+    srv.wait_tokens(batch, 8)
+    for sysmsg in inter:
+        srv.post(sysmsg, icls, ip, inn)
+        srv.wait_tokens([sysmsg], 1)
+    srv.join()
+    out = {}
+    for sysmsg, cls in [(b, bcls) for b in batch] + [(i, icls)
+                                                    for i in inter]:
+        code, err = srv.status.get(sysmsg, (None, None))
+        if code != 200:
+            fail(f"sched round {rnd} ({tag}): {sysmsg!r} got {code} {err}")
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            req = srv.request(sysmsg)
+            if req is not None and req.done.is_set():
+                break
+            time.sleep(0.005)
+        out[sysmsg] = (cls, req)
+    return out
+
+
+def _sched_drive(torch, cfg, params, dtype, classes: bool, tag: str):
+    """Rounds A and B through one server: returns (the rounds' requests,
+    the preemptions by round and reason read from /metrics, the server,
+    still open)."""
+    srv = _SchedServer(torch, cfg, params, dtype, classes)
+    rounds, preempted = {}, {}
+    for rnd in SCHED_ROUNDS:
+        before = _get(srv.url + "/metrics").decode()
+        rounds[rnd] = _sched_round(srv, rnd, tag)
+        after = _get(srv.url + "/metrics").decode()
+        preempted[rnd] = {
+            r: _metric(after, "cake_preemptions_total", reason=r)
+            - _metric(before, "cake_preemptions_total", reason=r)
+            for r in ("pages", "slots")}
+        free = srv.engine._pager.free_pages
+        if free != SCHED_PAGES:
+            fail(f"sched round {rnd} ({tag}): {free} of {SCHED_PAGES} "
+                 "pages free after every chat completed")
+    return rounds, preempted, srv
+
+
+def _sched_identity(rounds, fifo, label: str, card: str,
+                    required: bool) -> list:
+    """Each preempted stream against the same chat in the FIFO drive:
+    prints where each differs (if it does); with `required` a difference
+    fails. Returns the preempted chats' (system, tokens, preemptions)."""
+    victims = []
+    for rnd, chats in rounds.items():
+        for sysmsg, (cls, req) in chats.items():
+            want = fifo[rnd][sysmsg][1].out_tokens
+            if req.out_tokens != want:
+                k = next((i for i, (a, b) in enumerate(
+                    zip(req.out_tokens, want)) if a != b),
+                    min(len(req.out_tokens), len(want)))
+                msg = (f"sched identity ({label}): {sysmsg!r} "
+                       f"({'preempted' if req.preemptions else 'never preempted'}) "
+                       f"differs from the FIFO drive at token {k} of "
+                       f"{len(want)}")
+                if required:
+                    fail(msg)
+                log(msg + f" [{card}]")
+            if req.preemptions:
+                victims.append((sysmsg, len(req.out_tokens),
+                                req.preemptions,
+                                req.out_tokens == want))
+    for v in victims:
+        log(f"sched identity ({label}): victim {v[0]!r}: {v[1]} tokens, "
+            f"preempted {v[2]}x, identical to FIFO: {v[3]} [{card}]")
+    return victims
+
+
+def _sched_shed(torch, cfg, params, card: str) -> dict:
+    """A burst of batch chats past the shed's depth: a server with
+    --priority-classes --shed whose batch class holds a 1 s queue-wait
+    target; four warm-up chats one after the other, then a second's
+    pause, give the controller a measured rate of a few retirements a
+    second, then 48 batch chats arrive at once. Some must get 429 with a
+    Retry-After above 0 (and every other one 200)."""
+    from cake_tpu_torch.sched import SchedConfig
+    from cake_tpu_torch.sched.classes import DEFAULT_POLICIES, ClassPolicy
+
+    pol = tuple(ClassPolicy(p.name, p.rank, p.aging_s,
+                            1.0 if p.name == "batch" else p.target_wait_s)
+                for p in DEFAULT_POLICIES)
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, True, shed=True,
+                       sched_config=SchedConfig(policies=pol))
+    for i in range(4):
+        srv.post(f"W{i}", "batch", 160, 4)
+        srv.join()
+    time.sleep(1.0)
+    burst = [f"S{i}" for i in range(48)]
+    for sysmsg in burst:
+        srv.post(sysmsg, "batch", 160, 8)
+    srv.join()
+    codes = [srv.status[s] for s in burst]
+    shed = [ra for c, ra in codes if c == 429]
+    if not shed or any(c not in (200, 429) for c, _ in codes):
+        fail(f"sched shed: expected some 429s and otherwise 200, got "
+             f"{sorted(set(c for c, _ in codes))}")
+    if any(ra is None or float(ra) <= 0 for ra in shed):
+        fail(f"sched shed: 429 without a Retry-After above 0: {shed}")
+    evs = json.loads(_get(srv.url + "/api/v1/events?type=shed"))
+    text = _get(srv.url + "/metrics").decode()
+    n_metric = _metric(text, "cake_shed_requests_total", **{"class": "batch"})
+    rec = dict(admitted=len(codes) - len(shed), shed=len(shed),
+               retry_after_s=sorted(set(int(r) for r in shed)),
+               events=len(evs["events"]), metric=n_metric)
+    if rec["events"] != len(shed):
+        fail(f"sched shed: {len(shed)} 429s but {rec['events']} shed events")
+    log(f"sched shed: 48 batch chats at once: {rec['admitted']} admitted, "
+        f"{rec['shed']} shed with Retry-After {rec['retry_after_s']} s "
+        f"(cake_shed_requests_total{{class=batch}} {n_metric:.0f}) [{card}]")
+    srv.close()
+    return rec
+
+
+def _sched_steps(srv, card: str) -> dict:
+    """The classes drive's flight records through /api/v1/steps: every
+    record's mfu in (0, 1] and its unclamped ratios (the engine's own
+    records) at most MFU_RAW_MAX; mean mfu and hbm_util per kind; the
+    decode records' HBM share against the step phase's bound over its
+    replay (when the step phase ran in this call)."""
+    doc = json.loads(_get(srv.url + "/api/v1/steps?limit=8192"))
+    steps = doc["steps"]
+    raw = srv.engine.flight.records()
+    if not steps or len(raw) != len(steps):
+        fail(f"sched steps: {len(steps)} records served, {len(raw)} held")
+    bad = [s for s in steps if s["mfu"] is None or not 0 < s["mfu"] <= 1
+           or s["hbm_util"] is None or not 0 < s["hbm_util"] <= 1]
+    if bad:
+        fail(f"sched steps: {len(bad)} records with mfu or hbm_util "
+             f"outside (0, 1], e.g. {bad[0]}")
+    top = max(max(r.mfu_raw, r.hbm_raw) for r in raw)
+    if top > MFU_RAW_MAX:
+        fail(f"sched steps: an unclamped ratio of {top:.3f} (> "
+             f"{MFU_RAW_MAX}): the count or the clock is wrong")
+    kinds = {}
+    for s in steps:
+        if s["compiled"]:
+            continue
+        k = kinds.setdefault(s["kind"], {"n": 0, "mfu": 0.0, "hbm": 0.0,
+                                         "dev_ms": 0.0, "tokens": 0})
+        k["n"] += 1
+        k["mfu"] += s["mfu"]
+        k["hbm"] += s["hbm_util"]
+        k["dev_ms"] += s["device_s"] * 1e3
+        k["tokens"] += s["tokens"]
+    for name, k in sorted(kinds.items()):
+        k["mfu"] /= k["n"]
+        k["hbm"] /= k["n"]
+        k["dev_ms"] /= k["n"]
+        log(f"sched steps: {name:<12} {k['n']:4d} records, mean mfu "
+            f"{k['mfu']:.5f}, mean hbm_util {k['hbm']:.4f}, mean device "
+            f"{k['dev_ms']:.3f} ms [{card}]")
+    log(f"sched steps: largest unclamped ratio {top:.4f}; summary "
+        f"{json.dumps(doc['summary']['kinds'])}")
+    out = {"kinds": kinds, "raw_max": top}
+    rep = GRAPH_REPLAY.get("bf16 weights")
+    dec = [s for s in steps if s["kind"] in ("decode", "decode_scan")
+           and not s["compiled"]]
+    if dec:
+        share = statistics.mean(s["hbm_util"] for s in dec)
+        out["decode_hbm_util"] = share
+        if rep is None:
+            log(f"sched steps: decode hbm_util {share:.4f}; the step phase "
+                "did not run, so no bound/replay to hold it against")
+        else:
+            replay_ms, bound_ms = rep
+            want = bound_ms / replay_ms
+            out["bound_over_replay"] = want
+            log(f"sched steps: decode hbm_util {share:.4f} against the "
+                f"step phase's bound {bound_ms:.3f} ms over its replay "
+                f"{replay_ms:.3f} ms = {want:.4f} [{card}]")
+            if abs(share / want - 1) > HBM_SHARE_TOL:
+                fail(f"sched steps: decode hbm_util {share:.4f} is not "
+                     f"within {HBM_SHARE_TOL:.0%} of bound/replay "
+                     f"{want:.4f}")
+    return out
+
+
+def phase_sched(torch, rpa, cfg, params, card: str) -> tuple:
+    """SLO scheduling and the observability core through the front door
+    at Llama-3-8B width and depth, random bf16 weights: a 40-page bf16
+    pool, 8 slots, chunk 64, --decode-scan 4. Rounds A (page
+    preemption) and B (slot preemption) with --priority-classes, then
+    the same arrivals without (the FIFO drive): exactly one "pages" and
+    one "slots" preemption by /metrics, every chat completes, the free
+    pages back to 40; interactive TTFT p50 with and without classes;
+    /api/v1/steps records with mfu in (0, 1] (unclamped at most
+    MFU_RAW_MAX), means per kind, and the decode records' HBM share
+    against the step phase's bound over its replay. Each preempted
+    stream is compared token for token with the FIFO drive's: at bf16
+    printed, at f32 (the same rounds at 8B width, SCHED_LAYERS_F32
+    layers, f32 weights and pool) required. Then the shed burst.
+    Returns (the decode and mixed kernels' launches on the classes
+    drive, the phase's record)."""
+    from cake_tpu_torch.models.llama.params import init_params
+
+    t_phase = time.perf_counter()
+    rpa.reset_launch_counts()
+    rounds, preempted, srv = _sched_drive(torch, cfg, params,
+                                          torch.bfloat16, True, "bf16")
+    counts = dict(rpa.LAUNCHES)
+    steps = _sched_steps(srv, card)
+    srv.close()
+    want = {"A": {"pages": 1.0, "slots": 0.0},
+            "B": {"pages": 0.0, "slots": 1.0}}
+    if preempted != want:
+        fail(f"sched: preemptions by round and reason {preempted}, "
+             f"expected {want}")
+    for k in ("rpa_decode", "rpa_mixed"):
+        if counts.get(k, 0) <= 0:
+            fail(f"sched: kernel {k} was never launched on the drive")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    if plain:
+        fail(f"sched: plain versions ran on the drive: {plain}")
+    fifo, fifo_pre, fsrv = _sched_drive(torch, cfg, params, torch.bfloat16,
+                                        False, "bf16")
+    fsrv.close()
+    if any(v for r in fifo_pre.values() for v in r.values()):
+        fail(f"sched: the FIFO drive preempted: {fifo_pre}")
+    victims = _sched_identity(rounds, fifo, "bf16, 32 layers", card,
+                              required=False)
+
+    def ttft(rs, cls):
+        return statistics.median(
+            req.first_token_t - req.submit_t for r in rs.values()
+            for c, req in r.values() if c == cls)
+
+    rec = dict(preempted=preempted, launches=counts,
+               ttft_interactive_classes_s=ttft(rounds, "interactive"),
+               ttft_interactive_fifo_s=ttft(fifo, "interactive"),
+               ttft_batch_classes_s=ttft(rounds, "batch"),
+               ttft_batch_fifo_s=ttft(fifo, "batch"),
+               victims_bf16=victims, steps=steps)
+    log(f"sched: preemptions {preempted}; interactive TTFT p50 "
+        f"{rec['ttft_interactive_classes_s']:.3f} s with classes, "
+        f"{rec['ttft_interactive_fifo_s']:.3f} s FIFO; batch "
+        f"{rec['ttft_batch_classes_s']:.3f} / "
+        f"{rec['ttft_batch_fifo_s']:.3f} s; launches {counts} [{card}]")
+    # the fold's token identity at f32 (bf16 rounding makes the
+    # re-prefilled KV of the generated tokens differ from what the
+    # decode steps wrote, and 32 random layers turn that into greedy
+    # near-tie flips)
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, num_hidden_layers=SCHED_LAYERS_F32)
+    p32 = init_params(cfg32, torch.Generator(device=DEV).manual_seed(3),
+                      device=DEV, dtype=torch.float32)
+    r32, pre32, s32 = _sched_drive(torch, cfg32, p32, torch.float32, True,
+                                   "f32")
+    s32.close()
+    if pre32 != want:
+        fail(f"sched (f32): preemptions {pre32}, expected {want}")
+    f32, _, f32s = _sched_drive(torch, cfg32, p32, torch.float32, False,
+                                "f32")
+    f32s.close()
+    rec["victims_f32"] = _sched_identity(
+        r32, f32, f"f32, {SCHED_LAYERS_F32} layers", card, required=True)
+    if not rec["victims_f32"]:
+        fail("sched (f32): no preempted stream to compare")
+    del p32
+    torch.cuda.empty_cache()
+    rec["shed"] = _sched_shed(torch, cfg, params, card)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"sched: phase wall {rec['wall_s']:.1f} s [{card}]")
+    return {k: counts[k] for k in ("rpa_decode", "rpa_mixed")}, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2423,7 +2869,8 @@ def main(argv=None) -> int:
     counts = {}
     serve_records = []
     prefix_records = []
-    if {"step", "generate", "serve", "prefix"} & set(phases):
+    sched_record = None
+    if {"step", "generate", "serve", "prefix", "sched"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -2450,6 +2897,12 @@ def main(argv=None) -> int:
             served, prefix_records = phase_prefix(torch, rpa, fa, cfg,
                                                   params, card, a.profile)
             for k, n in served.items():
+                counts[k] = counts.get(k, 0) + n
+        if "sched" in phases:
+            # the scheduling drive's decode and mixed launches join the
+            # serve phase's in the kernels line
+            got, sched_record = phase_sched(torch, rpa, cfg, params, card)
+            for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
         # the weight-quantized path, after the bf16 tree is dropped
         del params
@@ -2487,6 +2940,9 @@ def main(argv=None) -> int:
         print(json.dumps({"serve": serve_records}), flush=True)
     if prefix_records:
         print(json.dumps({"prefix": prefix_records, "card": card}),
+              flush=True)
+    if sched_record is not None:
+        print(json.dumps({"sched": sched_record, "card": card}),
               flush=True)
 
     rows = []
