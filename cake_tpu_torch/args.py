@@ -18,7 +18,7 @@ from dataclasses import dataclass, fields
 from typing import Optional
 
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
-from cake_tpu_torch.utils.devices import resolve_dtype
+from cake_tpu_torch.utils.devices import resolve_kv_dtype
 
 
 @dataclass
@@ -40,7 +40,9 @@ class Args:
     # (group-wise, nibble-packed; the int4 matmul kernel at decode shapes)
     quant: str = "none"
     # KV cache/pool dtype; None = dtype. int8/int4 quantize the paged
-    # pool (the generator's dense cache keeps the compute dtype)
+    # pool (the generator's dense cache keeps the compute dtype);
+    # f8_e4m3/f8_e5m2 store the pool and the dense cache in fp8, upcast
+    # to the compute dtype on read
     kv_dtype: Optional[str] = None
     cpu: bool = False                   # run on the CPU (plain kernels)
     device_idx: int = 0                 # cuda:<device_idx> otherwise
@@ -60,6 +62,11 @@ class Args:
     # admission is gated by free pages (the port's engine is paged only)
     kv_pages: Optional[int] = 512
     kv_page_size: int = 128
+    # --kv-host-pages N: host-RAM spill tier for the paged pool
+    # (kv/host_tier.py), N pages of capacity: preemption victims', cold
+    # shared prefixes' and parked decode-resident streams' pages spill
+    # to pinned host memory and stream back bit for bit; None = off
+    kv_host_pages: Optional[int] = None
     # attention over the pages: "kernel" = the CUDA kernels, "plain" =
     # their PyTorch folds, "auto" = kernel on CUDA tensors, plain on CPU
     paged_attn: str = "auto"
@@ -112,7 +119,8 @@ class Args:
         least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
-        name must be a dtype. Returns self."""
+        name must be a dtype or an fp8 storage name; --kv-host-pages is
+        at least 1. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         for knob in ("decode_scan", "trace_ring", "step_ring"):
@@ -145,7 +153,10 @@ class Args:
                     f"(got {self.kv_page_size}): pages nibble-pack "
                     "token pairs (cake_tpu/kv/quantized_pool)")
         elif self.kv_dtype is not None:
-            resolve_dtype(self.kv_dtype)
+            resolve_kv_dtype(self.kv_dtype)
+        if self.kv_host_pages is not None and self.kv_host_pages < 1:
+            raise ValueError(
+                f"--kv-host-pages {self.kv_host_pages} must be >= 1")
         return self
 
 

@@ -21,7 +21,9 @@ import torch
 from cake_tpu_torch.args import Args
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
 from cake_tpu_torch.models.llama.config import LlamaConfig, load_config
-from cake_tpu_torch.utils.devices import resolve_device, resolve_dtype
+from cake_tpu_torch.utils.devices import (
+    resolve_device, resolve_dtype, resolve_kv_dtype,
+)
 
 log = logging.getLogger(__name__)
 
@@ -109,7 +111,7 @@ class Context:
             # per-page scales. The JAX context does this for int8 only.
             kv_dtype = self.dtype
         else:
-            kv_dtype = (resolve_dtype(a.kv_dtype) if a.kv_dtype
+            kv_dtype = (resolve_kv_dtype(a.kv_dtype) if a.kv_dtype
                         else self.dtype)
         return LlamaGenerator(
             cfg, params, tokenizer,

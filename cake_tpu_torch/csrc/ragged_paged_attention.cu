@@ -1,5 +1,6 @@
 // Ragged paged attention for Hopper (sm_90a): decode and mixed steps, over
-// f32/bf16 pages and over int8 and nibble-packed int4 pages with scales.
+// f32/bf16 and fp8 (e4m3, e5m2) pages and over int8 and nibble-packed int4
+// pages with scales.
 //
 // Replaces the TPU kernels in cake_tpu/ops/ragged_paged_attention.py:
 //   rpa_decode     <- _rpa_kernel           (via ragged_paged_attention)
@@ -8,6 +9,8 @@
 //   rpa_mixed_q8   <- _rpa_mixed_kernel_q8  (int8 pages)
 //   rpa_decode_q4  <- _rpa_kernel_q4 + _unpack_nibbles  (int4 pages)
 //   rpa_mixed_q4   <- _rpa_mixed_kernel_q4 + _unpack_nibbles
+//   rpa_decode_f8e4m3 / _f8e5m2 <- _rpa_kernel over fp8 pages
+//   rpa_mixed_f8e4m3 / _f8e5m2  <- _rpa_mixed_kernel over fp8 pages
 // All compute, per row b of a continuous batch, attention of the row's
 // queries against its KV history, read page by page from a shared pool
 // through table[b, :] (-1 = unmapped page), with an f32 online softmax.
@@ -20,6 +23,11 @@
 //   uint8 (int4):  pool [N, P/2, KV, hd]; token t < P/2 is the low nibble
 //                  of packed row t, token t + P/2 the high nibble of the
 //                  same row, both biased by +8; scale [N, KV] f32
+//   fp8 e4m3/e5m2: pool [N, P, KV, hd], no scales: every value is exact
+//                  in bf16 and f32, so a slot converts on load
+// What a page element is (scaled or not, nibble-packed or not, one byte
+// staged raw and converted) is PageTraits' to say, never its size: an fp8
+// page is one byte like an int8 one but has no scales to read.
 // A quantized slot stands for int value * the page's scale for that kv
 // head, in f32. rpa_split scales the dot outputs and p, as the TPU kernels
 // do; rpa_mixed_tc multiplies exact-integer K/V tiles' scores by each
@@ -147,6 +155,7 @@
 // Scalar f32 FMAs, no TMA, no tensor cores: a first kernel that is right.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -167,6 +176,26 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
+
+// What a page element of type TKV is. kScaled: int8 or packed int4 values
+// that stand for value * the page's scale (scale arrays present); kPacked:
+// two int4 tokens a byte; kRaw: one byte, staged raw by rpa_mixed_tc and
+// converted to its bf16 tile (int8, packed int4, fp8).
+template <typename TKV>
+struct PageTraits {
+  static constexpr bool kPacked = std::is_same<TKV, uint8_t>::value;
+  static constexpr bool kScaled =
+      std::is_same<TKV, int8_t>::value || kPacked;
+  static constexpr bool kFp8 = std::is_same<TKV, __nv_fp8_e4m3>::value ||
+                               std::is_same<TKV, __nv_fp8_e5m2>::value;
+  static constexpr bool kRaw = kScaled || kFp8;
+};
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -232,8 +261,7 @@ __device__ __forceinline__ float load_slot(const uint8_t* p, const Args& a,
 // Row r of the CTA is query column c0 + r / G, query head kv * G + r % G.
 template <typename TQ, typename TKV>
 __device__ void rpa_cta(const Args& a, int b, int kv, int c0) {
-  constexpr bool kQuant =
-      std::is_same<TKV, int8_t>::value || std::is_same<TKV, uint8_t>::value;
+  constexpr bool kQuant = PageTraits<TKV>::kScaled;
   extern __shared__ float smem[];
   const int G = a.H / a.KV;
   const int hd = a.hd;
@@ -531,8 +559,8 @@ __device__ __forceinline__ void split_tile(
 // packed int4, whose tiles are packed rows consumed once a nibble).
 template <typename TQ, typename TKV, int kD>
 __global__ void __launch_bounds__(kThreads) rpa_split_kernel(Args a, int vec) {
-  constexpr bool kQuant = sizeof(TKV) == 1;
-  constexpr bool kPacked = std::is_same<TKV, uint8_t>::value;
+  constexpr bool kQuant = PageTraits<TKV>::kScaled;
+  constexpr bool kPacked = PageTraits<TKV>::kPacked;
   extern __shared__ float4 smem4[];
   char* ring = reinterpret_cast<char*>(smem4);
   const int G = a.H / a.KV;
@@ -774,7 +802,7 @@ constexpr int kRawStages = 2;      // quantized pages: stages of raw slot rows
 // Shared memory of rpa_mixed_tc over pages of TKV.
 //   bf16: the q tile and the K/V ring (tc_attention.cuh), then a 64-bit
 //   live-slot mask per ring stage.
-//   int8 / packed int4: the q tile, one bf16 K/V tile (the converted
+//   int8 / packed int4 / fp8: the q tile, one bf16 K/V tile (the converted
 //   stage), its keys' scales (k scale x sl2, v scale), then kRawStages
 //   stages of raw slot rows (64 K rows, then 64 V rows, of kHd bytes),
 //   each with its keys' k and v scales and its live and high-nibble masks.
@@ -785,7 +813,7 @@ __host__ __device__ constexpr int raw_stage_bytes() {
 }
 template <int kHd, typename TKV>
 constexpr size_t mixed_smem() {
-  if constexpr (sizeof(TKV) == 2)
+  if constexpr (!PageTraits<TKV>::kRaw)
     return tc::smem_bytes(kMixRows) + tc::kStages * 2 * sizeof(uint32_t);
   else
     return 2 * (size_t)tc::kLd * (kMixRows + 2 * tc::kKeys) +
@@ -818,6 +846,36 @@ __device__ __forceinline__ uint2 int4x_to_bf16(uint32_t w, bool hi) {
                     __byte_perm(f[2], f[3], 0x7632));
 }
 
+// Four fp8 values of a 32-bit word as four bf16 (two bf16x2, the lower
+// element in the low half): two cvt.f16x2 from fp8x2, then to f32 and
+// bf16, each step exact (an fp8 value has at most 3 mantissa bits and
+// e5m2's exponent range is f16's). NaN stays NaN, e5m2's inf stays inf.
+template <typename TKV>
+__device__ __forceinline__ uint2 fp8x4_to_bf16(uint32_t w) {
+  constexpr __nv_fp8_interpretation_t kFmt =
+      std::is_same<TKV, __nv_fp8_e4m3>::value ? __NV_E4M3 : __NV_E5M2;
+  uint32_t out[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w >> (16 * i)), kFmt));
+    const float2 f = __half22float2(h);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    out[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return make_uint2(out[0], out[1]);
+}
+
+// Four raw one-byte page elements as four bf16: int8, int4 nibbles (hi:
+// the high ones) or fp8.
+template <typename TKV>
+__device__ __forceinline__ uint2 raw4_to_bf16(uint32_t w, bool hi) {
+  if constexpr (PageTraits<TKV>::kFp8)
+    return fp8x4_to_bf16<TKV>(w);
+  else
+    return int4x_to_bf16<TKV>(w, hi);
+}
+
 // One CTA: kv head `kv` of row `b`, query columns [c0, c0 + q_cols) (row r
 // is column c0 + r / G, query head kv * G + r % G, as in rpa_cta), the
 // row's slots [s * pps * P, (s + 1) * pps * P) of split s. Slot rows reach
@@ -829,18 +887,20 @@ __device__ __forceinline__ uint2 int4x_to_bf16(uint32_t w, bool hi) {
 // writes f32 partials of its real rows and rpa_mixed_merge writes the rest.
 // TKV: bf16 pages, staged as they are through a two-stage ring; int8, or
 // uint8 for packed int4 (slot t of a page is packed row t mod P/2, its high
-// nibble iff t >= P/2, so a tile may straddle P/2), whose raw rows go
-// through a ring of their own and are converted a stage at a time into the
-// bf16 tile the products read, as exact integers; each key's k and v
-// scales (a zero for an unmapped page, whose scale is never read) are
-// staged beside its row and applied on the fragments (tile_step's
-// KeyScales).
+// nibble iff t >= P/2, so a tile may straddle P/2), or fp8, whose raw rows
+// go through a ring of their own and are converted a stage at a time into
+// the bf16 tile the products read, exactly; over int8 and int4 each key's
+// k and v scales (a zero for an unmapped page, whose scale is never read)
+// are staged beside its row and applied on the fragments (tile_step's
+// KeyScales); fp8 has none, and its tile goes to the products as a bf16
+// page's does.
 template <int kHd, typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
     rpa_mixed_tc_kernel(Args a, int vec) {
   using T = __nv_bfloat16;
-  constexpr bool kQuant = sizeof(TKV) == 1;
-  constexpr bool kPacked = std::is_same<TKV, uint8_t>::value;
+  constexpr bool kQuant = PageTraits<TKV>::kRaw;      // staged raw
+  constexpr bool kScaled = PageTraits<TKV>::kScaled;
+  constexpr bool kPacked = PageTraits<TKV>::kPacked;
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);                // [64][kLd]
   // bf16: the ring, stage s: K, then V; quantized: the converted K, V tile
@@ -992,9 +1052,11 @@ __global__ void __launch_bounds__(kThreads, 2)
         int page = 0;
         bool hi;
         const bool ok = slot(j, tid, page, hi) >= 0;
-        const size_t at = ok ? (size_t)page * a.KV + kv : 0;
-        tc::cp_async(sc + tid, a.sk + at, 4, ok);    // unmapped: 0, unread
-        tc::cp_async(sc + tc::kKeys + tid, a.sv + at, 4, ok);
+        if constexpr (kScaled) {  // fp8 pages have no scales
+          const size_t at = ok ? (size_t)page * a.KV + kv : 0;
+          tc::cp_async(sc + tid, a.sk + at, 4, ok);  // unmapped: 0, unread
+          tc::cp_async(sc + tc::kKeys + tid, a.sv + at, 4, ok);
+        }
         const unsigned m = __ballot_sync(0xffffffffu, ok);
         const unsigned h = __ballot_sync(0xffffffffu, hi);
         if (lane == 0) {
@@ -1019,8 +1081,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int c = tid % kChunks;
           const uint2 w =
               *reinterpret_cast<const uint2*>(stg + r * kHd + 8 * c);
-          const uint2 lo = int4x_to_bf16<TKV>(w.x, nib(r));
-          const uint2 up = int4x_to_bf16<TKV>(w.y, nib(r));
+          const uint2 lo = raw4_to_bf16<TKV>(w.x, nib(r));
+          const uint2 up = raw4_to_bf16<TKV>(w.y, nib(r));
           *reinterpret_cast<uint4*>(ring + r * tc::kLd + 8 * c) =
               make_uint4(lo.x, lo.y, up.x, up.y);
         }
@@ -1031,10 +1093,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           const uint32_t w =
               *reinterpret_cast<const uint32_t*>(stg + r * kHd + 4 * c);
           *reinterpret_cast<uint2*>(ring + r * tc::kLd + 4 * c) =
-              int4x_to_bf16<TKV>(w, nib(r));
+              raw4_to_bf16<TKV>(w, nib(r));
         }
       }
-      if (tid < tc::kKeys) {
+      if (kScaled && tid < tc::kKeys) {
         const float* sc = reinterpret_cast<const float*>(stg + kRaw);
         sk_t[tid] = sc[tid] * sl2;
         sv_t[tid] = sc[tc::kKeys + tid];
@@ -1065,12 +1127,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (j == 0) tc::load_q<T, kHd>(qf, q_s, warp, lane);
         const int t0 = k_lo + j * tc::kKeys;
         const bool interior = live == ~0ull && t0 + tc::kKeys - 1 <= first;
-        tc::tile_step<T, kHd>(
-            qf, ring, ring + tc::kKeys * tc::kLd, st, sl2, interior, lane,
-            [&](int jj, int half) {
-              return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
-            },
-            tc::KeyScales{sk_t, sv_t});
+        auto ok = [&](int jj, int half) {
+          return ((live >> jj) & 1ull) && t0 + jj <= (half ? pos1 : pos0);
+        };
+        if constexpr (kScaled)
+          tc::tile_step<T, kHd>(qf, ring, ring + tc::kKeys * tc::kLd, st,
+                                sl2, interior, lane, ok,
+                                tc::KeyScales{sk_t, sv_t});
+        else
+          tc::tile_step<T, kHd>(qf, ring, ring + tc::kKeys * tc::kLd, st,
+                                sl2, interior, lane, ok);
       }
     }
   }
@@ -1115,8 +1181,8 @@ __global__ void __launch_bounds__(256) rpa_mixed_merge_kernel(Args a) {
 }
 
 // rpa_mixed_tc (then rpa_mixed_merge with more than one split): bf16 q
-// over bf16, int8 or packed int4 pages (kv dtype codes 1, 2, 3), hd <= 128,
-// rows of q and pages in `vec`-byte pieces.
+// over bf16, int8, packed int4, fp8 e4m3 or e5m2 pages (kv dtype codes 1
+// to 5), hd <= 128, rows of q and pages in `vec`-byte pieces.
 typedef void (*TcFn)(Args, int);
 template <typename TKV>
 void pick_mixed_tc(int hd, TcFn& fn, size_t& smem) {
@@ -1135,6 +1201,8 @@ int launch_mixed_tc(Args a, int kv_dtype, int vec, cudaStream_t stream) {
   if (kv_dtype == 1) pick_mixed_tc<__nv_bfloat16>(a.hd, fn, smem);
   if (kv_dtype == 2) pick_mixed_tc<int8_t>(a.hd, fn, smem);
   if (kv_dtype == 3) pick_mixed_tc<uint8_t>(a.hd, fn, smem);
+  if (kv_dtype == 4) pick_mixed_tc<__nv_fp8_e4m3>(a.hd, fn, smem);
+  if (kv_dtype == 5) pick_mixed_tc<__nv_fp8_e5m2>(a.hd, fn, smem);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1166,6 +1234,8 @@ SplitFn pick_split_kv(int kv_dtype, int hd) {
   if (kv_dtype == 1) return pick_split_d<TQ, __nv_bfloat16>(hd);
   if (kv_dtype == 2) return pick_split_d<TQ, int8_t>(hd);
   if (kv_dtype == 3) return pick_split_d<TQ, uint8_t>(hd);
+  if (kv_dtype == 4) return pick_split_d<TQ, __nv_fp8_e4m3>(hd);
+  if (kv_dtype == 5) return pick_split_d<TQ, __nv_fp8_e5m2>(hd);
   return nullptr;
 }
 
@@ -1207,8 +1277,9 @@ int launch_split(const Args& a, int q_dtype, int kv_dtype,
   return (int)cudaGetLastError();
 }
 
-// kv dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4
-// (rpa_cta for the mixed pairs rpa_mixed_tc does not take)
+// kv dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4,
+// 4 = fp8 e4m3, 5 = fp8 e5m2 (rpa_cta for the mixed pairs rpa_mixed_tc
+// does not take)
 template <typename TQ>
 KernelFn pick_mixed_kv(int kv_dtype) {
   switch (kv_dtype) {
@@ -1216,6 +1287,8 @@ KernelFn pick_mixed_kv(int kv_dtype) {
     case 1: return &rpa_mixed_kernel<TQ, __nv_bfloat16>;
     case 2: return &rpa_mixed_kernel<TQ, int8_t>;
     case 3: return &rpa_mixed_kernel<TQ, uint8_t>;
+    case 4: return &rpa_mixed_kernel<TQ, __nv_fp8_e4m3>;
+    case 5: return &rpa_mixed_kernel<TQ, __nv_fp8_e5m2>;
   }
   return nullptr;
 }
@@ -1243,9 +1316,10 @@ bool shape_ok(int H, int KV, int hd) {
          hd <= kMaxHd;
 }
 
-// quantized pages need both scale arrays; packed int4 pages an even P
+// quantized pages (codes 2, 3) need both scale arrays; packed int4 pages an
+// even P; f32, bf16 and fp8 pages take none
 bool pool_ok(int kv_dtype, const float* sk, const float* sv, int P) {
-  if (kv_dtype < 2) return true;
+  if (kv_dtype < 2 || kv_dtype > 3) return true;
   return sk != nullptr && sv != nullptr && (kv_dtype != 3 || P % 2 == 0);
 }
 
@@ -1297,6 +1371,7 @@ int rpa_mixed(const void* q, const void* k, const void* v, const float* sk,
   if (B == 0 || C == 0) return 0;
   if (tc) {
     const int elem = kv_dtype == 1 ? 2 : 1;    // bytes a page element
+                                               // (bf16 2; int8, int4, fp8 1)
     const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                           (uintptr_t)(hd * 2) | (uintptr_t)(hd * elem);
     int vec = 0;

@@ -1,5 +1,9 @@
 """KV tiers: int8 and int4 page pools with per-page scales
-(`quantized_pool.py`, counterpart of `cake_tpu/kv/quantized_pool.py`)."""
+(`quantized_pool.py`, counterpart of `cake_tpu/kv/quantized_pool.py`) and
+the host-RAM spill tier (`host_tier.py`, counterpart of
+`cake_tpu/kv/host_tier.py`)."""
+
+from cake_tpu_torch.kv.host_tier import HostTier, SpilledPages  # noqa: F401
 
 from cake_tpu_torch.kv.quantized_pool import (  # noqa: F401
     QUANTIZED_CACHES, Int4PagedKVCache, Int4Pool, QuantizedPagedKVCache,

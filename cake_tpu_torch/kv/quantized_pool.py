@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from cake_tpu_torch.utils.devices import resolve_dtype, to_device
+from cake_tpu_torch.utils.devices import resolve_kv_dtype, to_device
 
 # symmetric int8 range and the amax floor
 _QMAX = 127.0
@@ -252,7 +252,7 @@ def page_bytes(config, page_size: int, dtype=torch.float32) -> int:
     elif dtype == "int4":
         per = L * (page_size // 2) * KV * hd * 1 + L * KV * 4
     else:
-        per = L * page_size * KV * hd * resolve_dtype(dtype).itemsize
+        per = L * page_size * KV * hd * resolve_kv_dtype(dtype).itemsize
     return 2 * per          # k and v
 
 

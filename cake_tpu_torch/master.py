@@ -59,6 +59,8 @@ class Master:
             prefill_chunk=a.prefill_chunk,
             kv_pages=a.kv_pages,
             kv_page_size=a.kv_page_size,
+            # --kv-host-pages arms the host-RAM spill tier
+            kv_host_pages=a.kv_host_pages,
             paged_attn=a.paged_attn,
             mixed_batch=a.mixed_batch,
             decode_scan_steps=a.decode_scan,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from cake_tpu_torch.models.llama.config import LlamaConfig
+from cake_tpu_torch.utils.devices import to_storage
 
 
 class KVCache:
@@ -46,13 +47,15 @@ def update_layer_cache(k_cache, v_cache, new_k, new_v, pos: int):
     The start is read as `lax.dynamic_update_slice` reads it: a negative
     one counts from the end, then it is clamped into [0, S_max - S], so a
     window that would run past the cache is shifted back and written
-    whole, never dropped. Returns (k_cache, v_cache)."""
+    whole, never dropped. The window is cast to the cache's storage as
+    JAX casts it (`to_storage`: an fp8 cache gets XLA's bytes). Returns
+    (k_cache, v_cache)."""
     S, T = new_k.shape[1], k_cache.shape[1]
     if S > T:
         raise ValueError(f"a window of {S} tokens does not fit a cache of "
                          f"{T}")
     start = int(pos)
     start = min(max(start + T if start < 0 else start, 0), T - S)
-    k_cache[:, start:start + S] = new_k.to(k_cache.dtype)
-    v_cache[:, start:start + S] = new_v.to(v_cache.dtype)
+    k_cache[:, start:start + S] = to_storage(new_k, k_cache.dtype)
+    v_cache[:, start:start + S] = to_storage(new_v, v_cache.dtype)
     return k_cache, v_cache

@@ -63,7 +63,7 @@ from cake_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_mixed_plain, ragged_paged_attention_plain,
 )
 from cake_tpu_torch.ops.rope import apply_rope, rope_rows, rope_rows_per_row
-from cake_tpu_torch.utils.devices import to_device
+from cake_tpu_torch.utils.devices import put_rows, take_rows, to_device
 
 ATTN_IMPLS = ("auto", "plain", "kernel")
 
@@ -299,9 +299,12 @@ def step_write_targets(cache, pos, active, q_len=None, C: int = 1,
 
 
 def _scatter(pool_k, pool_v, k, v, targets):
+    """Each target's K/V cast to the pool's storage as JAX's
+    `.astype(pool.dtype)` casts it (`to_storage`: an fp8 pool gets
+    XLA's bytes, e4m3 overflow to NaN included)."""
     rows, cols, pages, offs = targets
-    pool_k[pages, offs] = k[rows, cols].to(pool_k.dtype)
-    pool_v[pages, offs] = v[rows, cols].to(pool_v.dtype)
+    put_rows(pool_k, (pages, offs), k[rows, cols])
+    put_rows(pool_v, (pages, offs), v[rows, cols])
 
 
 def write_windows_pages(pool_k, pool_v, k, v, pos, q_len, active, table,
@@ -387,8 +390,8 @@ def write_prompt_pages(pool_k, pool_v, k, v, table_row, n_real=None,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     win, pages = targets
-    pool_k[pages] = k[0].reshape(n_win, P, KV, hd)[win].to(pool_k.dtype)
-    pool_v[pages] = v[0].reshape(n_win, P, KV, hd)[win].to(pool_v.dtype)
+    put_rows(pool_k, pages, k[0].reshape(n_win, P, KV, hd)[win])
+    put_rows(pool_v, pages, v[0].reshape(n_win, P, KV, hd)[win])
     return pool_k, pool_v
 
 
@@ -607,14 +610,15 @@ def _use_flash(attn: str, x: torch.Tensor) -> bool:
 def _gather_pages(pool, pages, dtype):
     """Pages `pages` ([n] ids, -1 = unmapped) of one layer's pool leaf as
     a position-ordered [1, n * P, KV, hd] view in `dtype`; unmapped pages
-    read as zeros (a quantized pool dequantizes on the gather)."""
+    read as zeros (a quantized pool dequantizes on the gather, an fp8
+    pool is upcast to `dtype`, as JAX's `.astype(q.dtype)` does)."""
     if _quantized(pool):
         kv = dequantize_pages(pool, pages.long(), fill_zero=True)
     else:
         mapped = (pages >= 0)[:, None, None, None]
-        kv = torch.where(mapped, pool[pages.long().clamp(min=0)],
-                         torch.zeros((), dtype=pool.dtype,
-                                     device=pool.device))
+        kv = take_rows(pool, pages.long().clamp(min=0)).to(dtype)
+        kv = torch.where(mapped, kv,
+                         torch.zeros((), dtype=dtype, device=pool.device))
     n, P, KV, hd = kv.shape
     return kv.reshape(1, n * P, KV, hd).to(dtype)
 

@@ -12,8 +12,9 @@ The vocabulary is the JAX package's whole closed set (an unknown type
 raises at the publish site, because a misspelled type would silently
 vanish from every ``?type=`` filter), so a ``?type=`` filter accepts
 the same names on both servers. The port's engine publishes
-``preempted``, ``prefix_hit`` and ``shed``; the rest belong to planes
-not ported yet (KV tiers, recovery, autotune, the router, speculation).
+``preempted``, ``prefix_hit``, ``shed``, and through the host KV tier
+``kv_spill``, ``kv_restore`` and ``resident_spilled``; the rest belong
+to planes not ported yet (recovery, autotune, the router, speculation).
 
 Cost discipline: publishers hold ``events = None`` when the bus is
 disabled (``--event-ring 0``) and every call site guards ``if <bus> is

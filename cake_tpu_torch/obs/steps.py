@@ -145,8 +145,8 @@ _MIXED_ROWS = _m.counter(
 
 
 def refresh_page_gauges(engine) -> None:
-    """KV page-pool occupancy gauges of a paged engine, read at scrape
-    time (api/server.py)."""
+    """KV page-pool occupancy gauges of a paged engine and the KV tiers'
+    gauges, read at scrape time (api/server.py)."""
     try:
         _m.gauge("cake_engine_kv_pages_total",
                  "KV pages in the pool").set(engine.cache.n_pages)
@@ -157,6 +157,12 @@ def refresh_page_gauges(engine) -> None:
                  "slots' table rows (pool pages saved vs unshared "
                  "admission)").set(
             getattr(engine, "_prefix_pages_shared", 0))
+        # KV tiers (kv/host_tier.py owns the cake_kv_* gauges and their
+        # refresh: the device pool's bytes, and the host tier's pages
+        # and bytes when --kv-host-pages is set)
+        from cake_tpu_torch.kv import host_tier as kv_host_tier
+        kv_host_tier.refresh_gauges(engine.cache,
+                                    getattr(engine, "_host_tier", None))
     except Exception:  # noqa: BLE001 — telemetry must never fail serving
         log.debug("page gauge refresh failed", exc_info=True)
 

@@ -27,15 +27,24 @@ first query; the queries' KV is already written.
 
 `LAUNCHES` counts kernel launches and plain-version calls by name, so a
 run can show which path its attention took. The decode over every pool
-(f32/bf16, int8, nibble-packed int4) is two launches (`rpa_split`, then
-`rpa_merge`) counted as one call: its page loop is split across CTAs by
-`split_plan`, which the plain version follows. The mixed step over bf16
-queries and bf16, int8 or nibble-packed int4 pages runs the tensor-core
-body `rpa_mixed_tc`, split by `mixed_split_plan` (plus `rpa_mixed_merge`
-when it splits), again one call; its plain version folds those splits
-over every pool. The other mixed pairs (f32 queries or pages, head dim
-above 128, rows that are not 4-byte multiples) run the scalar `rpa_cta`,
-unsplit.
+(f32/bf16, fp8 e4m3/e5m2, int8, nibble-packed int4) is two launches
+(`rpa_split`, then `rpa_merge`) counted as one call: its page loop is
+split across CTAs by `split_plan`, which the plain version follows. The
+mixed step over bf16 queries and bf16, fp8, int8 or nibble-packed int4
+pages runs the tensor-core body `rpa_mixed_tc`, split by
+`mixed_split_plan` (plus `rpa_mixed_merge` when it splits), again one
+call; its plain version folds those splits over every pool. The other
+mixed pairs (f32 queries or pages, head dim above 128, rows that are
+not 4-byte multiples) run the scalar `rpa_cta`, unsplit.
+
+fp8 pages (`torch.float8_e4m3fn`, `torch.float8_e5m2`: the --kv-dtype
+f8_e4m3 / f8_e5m2 pools, which JAX runs through the same `_rpa_kernel`
+and `_rpa_mixed_kernel`) carry no scales: every e4m3 and e5m2 value is
+exact in bf16 and f32, so the kernels convert on load and the plain
+versions upcast a page to q's dtype on read, as JAX's fold does
+(`cake_tpu/parallel/context_parallel.py:partial_attention_stats`),
+rounding p to q's dtype for p v as that fold does. They count under
+names of their own (`rpa_decode_f8e4m3`, `rpa_mixed_f8e5m2`, ...).
 """
 
 from __future__ import annotations
@@ -52,16 +61,21 @@ from cake_tpu_torch.ops.attention import (
     NEG_INF, merge_attention_stats, partial_attention_stats,
 )
 from cake_tpu_torch.utils.cuda_build import CudaLibrary
-from cake_tpu_torch.utils.devices import device_sm_count
+from cake_tpu_torch.utils.devices import (
+    FP8_DTYPES, device_sm_count, take_rows,
+)
 
 KERNELS = ("rpa_decode", "rpa_mixed", "rpa_decode_q8", "rpa_mixed_q8",
-           "rpa_decode_q4", "rpa_mixed_q4")
+           "rpa_decode_q4", "rpa_mixed_q4", "rpa_decode_f8e4m3",
+           "rpa_mixed_f8e4m3", "rpa_decode_f8e5m2", "rpa_mixed_f8e5m2")
 LAUNCHES = {name + suffix: 0 for name in KERNELS for suffix in ("", "_plain")}
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# page storage: f32, bf16, int8 (+ scales), nibble-packed int4 (+ scales)
+# page storage: f32, bf16, int8 (+ scales), nibble-packed int4 (+ scales),
+# fp8 e4m3 and e5m2 (no scales; uint8 already means packed int4)
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-             torch.uint8: 3}
+             torch.uint8: 3, torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
+_FP8_SUFFIX = {torch.float8_e4m3fn: "_f8e4m3", torch.float8_e5m2: "_f8e5m2"}
 
 
 def reset_launch_counts() -> None:
@@ -139,13 +153,14 @@ def mixed_split_plan(B: int, C: int, H: int, KV: int, hd: int,
 
 def mixed_takes_tc(q, pool_k, pool_v, scale_k=None) -> bool:
     """Whether rpa_mixed runs its tensor-core body (rpa_mixed_tc): bf16
-    queries over bf16 pages, or (with scales) over int8 or nibble-packed
-    int4 (uint8) pages; head dim at most 128; q and the pools 4-byte
-    aligned and their slot rows (hd elements of q's or the pool's type)
-    4-byte multiples, the least piece cp.async copies. Reads only dtypes,
-    shapes and pointers. Every other pair runs rpa_cta, unsplit."""
+    queries over bf16 or fp8 (e4m3, e5m2) pages, or (with scales) over
+    int8 or nibble-packed int4 (uint8) pages; head dim at most 128; q and
+    the pools 4-byte aligned and their slot rows (hd elements of q's or
+    the pool's type) 4-byte multiples, the least piece cp.async copies.
+    Reads only dtypes, shapes and pointers. Every other pair runs
+    rpa_cta, unsplit."""
     hd = q.shape[-1]
-    pages = ((torch.bfloat16,) if scale_k is None
+    pages = ((torch.bfloat16,) + FP8_DTYPES if scale_k is None
              else (torch.int8, torch.uint8))
     aligned = (q.data_ptr() | pool_k.data_ptr() | pool_v.data_ptr()
                | 2 * hd | hd * pool_k.element_size()) % 4
@@ -153,11 +168,13 @@ def mixed_takes_tc(q, pool_k, pool_v, scale_k=None) -> bool:
             and hd <= 128 and aligned == 0)
 
 
-def kernel_name(base: str, scale_k=None, packed4: bool = False) -> str:
+def kernel_name(base: str, scale_k=None, packed4: bool = False,
+                kv_dtype=None) -> str:
     """The kernel that serves a pool: `base` for f32/bf16 pages, `_q8`
-    for int8 and `_q4` for nibble-packed int4 pages."""
+    for int8 and `_q4` for nibble-packed int4 pages, `_f8e4m3` and
+    `_f8e5m2` for fp8 pages (kv_dtype: the pool's dtype)."""
     if scale_k is None:
-        return base
+        return base + _FP8_SUFFIX.get(kv_dtype, "")
     return base + ("_q4" if packed4 else "_q8")
 
 
@@ -193,10 +210,10 @@ def _check_cuda_args(q, pool_k, pool_v, table, pos, q_len=None,
     if q.dtype not in _Q_CODES:
         raise ValueError(f"q dtype {q.dtype}: the kernel takes float32 "
                          "and bfloat16 queries")
-    want = ((torch.float32, torch.bfloat16) if scale_k is None
+    want = ((torch.float32, torch.bfloat16) + FP8_DTYPES if scale_k is None
             else (torch.uint8,) if packed4 else (torch.int8,))
     if pool_k.dtype not in want or pool_v.dtype != pool_k.dtype:
-        kind = ("f32/bf16 pages" if scale_k is None else
+        kind = ("f32/bf16/fp8 pages" if scale_k is None else
                 "nibble-packed int4 pages (uint8)" if packed4 else
                 "int8 pages")
         raise ValueError(f"pool dtype {pool_k.dtype}: {kind} must be "
@@ -265,7 +282,7 @@ def ragged_paged_attention(q, pool_k, pool_v, table, pos, *,
         out.data_ptr(), B, H, KV, hd, P, N, max_pages, float(scale),
         _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], pps, splits,
         part.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
-    _launch(kernel_name("rpa_decode", scale_k, packed4), rc)
+    _launch(kernel_name("rpa_decode", scale_k, packed4, pool_k.dtype), rc)
     return out
 
 
@@ -310,7 +327,7 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
         max_pages, float(scale),
         _Q_CODES[q.dtype], _KV_CODES[pool_k.dtype], int(tc), pps, splits,
         _ptr(part), torch.cuda.current_stream(q.device).cuda_stream)
-    _launch(kernel_name("rpa_mixed", scale_k, packed4), rc)
+    _launch(kernel_name("rpa_mixed", scale_k, packed4, pool_k.dtype), rc)
     return out
 
 
@@ -320,15 +337,17 @@ def ragged_paged_attention_mixed(q, pool_k, pool_v, table, pos, q_len, *,
 def _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4):
     """(read, P): read(pages, mapped) gives table column j's K/V pages
     [B, P, KV, hd] (unmapped pages as zeros), P the real tokens per page.
-    Quantized pages are dequantized in f32 and cast to q's dtype."""
+    Quantized pages are dequantized in f32 and cast to q's dtype; fp8
+    pages are upcast to q's dtype, as JAX's fold upcasts them."""
     if scale_k is None:
-        zero = torch.zeros((), dtype=pool_k.dtype, device=q.device)
+        dt = q.dtype if pool_k.dtype in FP8_DTYPES else pool_k.dtype
+        zero = torch.zeros((), dtype=dt, device=q.device)
 
         def read(pages, mapped):
             idx = pages.clamp(min=0)
             keep = mapped[:, None, None, None]
-            return (torch.where(keep, pool_k[idx], zero),
-                    torch.where(keep, pool_v[idx], zero))
+            return (torch.where(keep, take_rows(pool_k, idx).to(dt), zero),
+                    torch.where(keep, take_rows(pool_v, idx).to(dt), zero))
 
         return read, pool_k.shape[1]
     cls = Int4Pool if packed4 else QuantPool
@@ -392,7 +411,8 @@ def ragged_paged_attention_plain(q, pool_k, pool_v, table, pos, *,
     page is mapped. The columns fold in the kernel's splits
     (`split_plan`), whose stats then merge in split order."""
     _check_quant_args(scale_k, scale_v, packed4)
-    LAUNCHES[kernel_name("rpa_decode", scale_k, packed4) + "_plain"] += 1
+    LAUNCHES[kernel_name("rpa_decode", scale_k, packed4, pool_k.dtype)
+             + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     t = torch.arange(P, device=q.device)
     KV = pool_k.shape[2]
@@ -419,7 +439,8 @@ def ragged_paged_attention_mixed_plain(q, pool_k, pool_v, table, pos, q_len,
     real page size P, also over packed int4 pages), whose stats then
     merge in split order, as the tensor-core kernel's do."""
     _check_quant_args(scale_k, scale_v, packed4)
-    LAUNCHES[kernel_name("rpa_mixed", scale_k, packed4) + "_plain"] += 1
+    LAUNCHES[kernel_name("rpa_mixed", scale_k, packed4, pool_k.dtype)
+             + "_plain"] += 1
     read, P = _page_reader(q, pool_k, pool_v, scale_k, scale_v, packed4)
     B, C = q.shape[:2]
     t = torch.arange(P, device=q.device)

@@ -76,6 +76,23 @@ class SchedConfig:
     policies: Tuple[ClassPolicy, ...] = DEFAULT_POLICIES
     preempt_budget: int = 2
     shed_window_s: float = 30.0
+    # prefer SPILLING a preemption victim's KV pages to the host tier
+    # (when --kv-host-pages capacity is free) over the recompute fold:
+    # resume then restores pages instead of re-prefilling prompt +
+    # generated tokens (kv/host_tier.py). False forces the recompute
+    # fold even with a host tier configured.
+    spill_preempt: bool = True
+    # oversubscribe the KV pool: an admission the pool cannot cover
+    # (even after cold-prefix spills) may park decode-RESIDENT streams
+    # — LRU by admission — in the host tier instead of waiting for
+    # natural retirements (serve/engine._spill_resident_stream). False
+    # restricts host-tier spills to cold prefixes + preemption victims.
+    spill_resident: bool = True
+    # anti-thrash quantum for the resident spill: a stream may not be
+    # parked until it has decoded this many tokens since its latest
+    # admission, so two oversubscribed streams time-slice the pool in
+    # quantum-sized turns instead of ping-ponging one token per park.
+    resident_quantum: int = 8
 
     def policy(self, name: str) -> ClassPolicy:
         for p in self.policies:

@@ -30,10 +30,22 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
   * SLO scheduling (`priority_classes`, `preemption`, `shed`; sched/):
     requests carry a class and are admitted by class with aging;
     between iterations a starved higher class preempts the youngest
-    lowest-class slot (`_maybe_preempt`): its generated tokens fold into
-    its prompt, its pages go back through the refcounted allocator, and
-    it requeues with its seniority to re-prefill; shedding refuses an
-    arrival with a computed Retry-After;
+    lowest-class slot (`_maybe_preempt`): its pages go back through the
+    refcounted allocator and it requeues with its seniority, to resume
+    from its spilled pages (below) or re-prefill its prompt and
+    generated tokens (the recompute fold); shedding refuses an arrival
+    with a computed Retry-After;
+  * the host KV tier (`kv_host_pages`, --kv-host-pages; kv/host_tier.py):
+    a preemption victim's own pages spill to pinned host RAM and its
+    re-admission installs them and resumes decoding at the spilled
+    frontier, without a prefill (`_spill_victim_pages`,
+    `_restore_victim`); a cold shared prefix spills under page pressure
+    and streams back on its next hit (`_spill_cold_prefixes`,
+    `_restore_prefix`); an admission that still does not fit parks the
+    least recently admitted decoding stream (`_spill_resident_stream`).
+    A spill that fails is logged and counted, and the fold serves;
+  * fp8 pools (--kv-dtype f8_e4m3 | f8_e5m2) run the fp8 instantiations
+    of the paged-attention kernels, which convert a page on load;
   * observability (obs/): a lifecycle trace per request (`tracer`), a
     flight record per device step (`flight`, with the step's counted
     FLOPs and bytes and its device time from CUDA events read at the
@@ -56,9 +68,9 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: speculation, the host KV tier
-(so a preemption always takes the recompute fold), fault injection and
-recovery, the journal, autotune and multi-host.
+(`_run_on_engine_thread`). Not ported yet: speculation, fault injection
+and recovery, the journal, autotune, disaggregated prefill and
+multi-host.
 """
 
 from __future__ import annotations
@@ -73,8 +85,11 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cake_tpu_torch.kv.host_tier import (
+    HostTier, SpilledPages, note_resident_spill, pool_dtype_name,
+)
 from cake_tpu_torch.kv.quantized_pool import (
-    QUANTIZED_CACHES, reset_page_scales,
+    QUANTIZED_CACHES, page_bytes, reset_page_scales,
 )
 from cake_tpu_torch.models.chat import BEGIN_OF_TEXT, History, Message
 from cake_tpu_torch.models.llama.config import LlamaConfig
@@ -102,7 +117,7 @@ from cake_tpu_torch.serve.graphs import (
     DecodeRunner, MixedRunner, elapsed_s, mark,
 )
 from cake_tpu_torch.utils.devices import (
-    resolve_device, resolve_dtype, to_device,
+    resolve_device, resolve_kv_dtype, to_device,
 )
 from cake_tpu_torch.utils.profiling import StepStats
 
@@ -185,6 +200,15 @@ class _Request:
     first_token_t: float = 0.0
     finish_t: float = 0.0
     _pending_text: str = ""
+    # host tier: the admission installed the request's spilled pages
+    # (no prefill to run); the prefix hit the admission really mapped (a
+    # spilled prefix that could not come back downgrades it to None);
+    # the admission's LRU stamp and the tokens it had, for the resident
+    # spill's victim choice and anti-thrash quantum
+    _kv_restored: bool = False
+    _effective_hit: object = None
+    _admit_seq: int = 0
+    _resident_base: int = 0
 
 
 class RequestHandle:
@@ -237,6 +261,15 @@ class EngineStats:
     prefix_hits: int = 0     # prefills served from a registered prefix
     preemptions: int = 0     # slots reclaimed for a starved higher class
     shed: int = 0            # arrivals refused by load shedding
+    # host KV tier: spill/restore EVENTS (cake_kv_spill_total counts
+    # pages); resident spills are the subset that parked an actively
+    # decoding stream to admit a new one
+    kv_spills: int = 0
+    kv_restores: int = 0
+    kv_resident_spills: int = 0
+    # spills that failed (logged; the victim takes the recompute fold,
+    # a cold prefix stays on the device)
+    kv_spill_failures: int = 0
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -276,6 +309,7 @@ class InferenceEngine:
         paged_attn: Optional[str] = None,
         mixed_batch: Optional[str] = None,
         kv_dtype: Optional[str] = None,
+        kv_host_pages: Optional[int] = None,
         decode_scan_steps: int = 1,
         auto_prefix_system: bool = False,
         max_auto_prefixes: int = 8,
@@ -345,11 +379,11 @@ class InferenceEngine:
                                       device=self.device)
         # --kv-dtype: "int8"/"int4" select the quantized page pools (int8
         # pages or nibble-packed int4 pages + per-page, per-kv-head f32
-        # scales); another name is a plain pool dtype; None keeps
-        # cache_dtype
+        # scales); another name is a plain pool dtype, fp8 ("f8_e4m3",
+        # "f8_e5m2") included; None keeps cache_dtype
         self._quant_cache = QUANTIZED_CACHES.get(kv_dtype)
         self.kv_quant = self._quant_cache is not None
-        self._pool_dtype = (resolve_dtype(kv_dtype)
+        self._pool_dtype = (resolve_kv_dtype(kv_dtype)
                             if kv_dtype is not None and not self.kv_quant
                             else cache_dtype)
         self._pager = PageAllocator(kv_pages, kv_page_size)
@@ -387,6 +421,31 @@ class InferenceEngine:
         # costs one attribute test
         self.events = (EventBus(capacity=event_ring, log_path=event_log)
                        if event_ring > 0 else None)
+        # --kv-host-pages: the host-RAM spill tier behind the page
+        # allocator (kv/host_tier.py): preemption victims' own pages,
+        # cold shared prefixes' pages and parked decode-resident
+        # streams' pages spill to pinned host memory and stream back on
+        # demand, instead of being dropped and recomputed
+        self._host_tier: Optional[HostTier] = None
+        if kv_host_pages is not None:
+            self._host_tier = HostTier(
+                kv_host_pages,
+                page_bytes=page_bytes(
+                    config, kv_page_size,
+                    kv_dtype if self.kv_quant else self._pool_dtype),
+                events=self.events,
+                dtype_name=pool_dtype_name(self.cache))
+            log.info("kv host tier: %d pages (%.1f MiB capacity)",
+                     kv_host_pages,
+                     kv_host_pages * self._host_tier.page_bytes / 2**20)
+        # cold-prefix spill order: pid -> clock of its latest hit
+        self._prefix_last_hit: dict = {}
+        # resident spill: the admission stamp counter, this iteration's
+        # planned decode rows (slot -> rid, the only candidates), and
+        # whether an admission parked one (the plan is then re-validated)
+        self._admit_seq = 0
+        self._cur_decode: dict = {}
+        self._resident_parked = False
         # SLO attainment and goodput (obs/slo.py), fed from the tracer's
         # finish seam, so verdicts use the original admission's clock
         self.slo = SLOAccountant(
@@ -706,6 +765,10 @@ class InferenceEngine:
             if req is None:
                 continue
             self.scheduler.cancel(rid)
+            if self._host_tier is not None:
+                # a victim cancelled while parked leaves its spilled
+                # pages orphaned in the LRU: drop them now
+                self._host_tier.drop(("victim", rid))
             if req.slot >= 0 and self._slot_req[req.slot] is req:
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
@@ -760,6 +823,7 @@ class InferenceEngine:
         with self._rid_lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
+        self._prefix_last_hit[pid] = time.monotonic()
         row = torch.full((self.cache.max_pages,), -1, dtype=torch.int32)
         row[:n_pp] = torch.tensor(pages, dtype=torch.int32)
         try:
@@ -769,8 +833,11 @@ class InferenceEngine:
                 row=pages)
         except Exception:
             self._pager.release(pages)
+            self._prefix_last_hit.pop(pid, None)
             raise
         with self._rid_lock:
+            # (token ids, pool pages): pages None while the prefix is
+            # spilled to the host tier, under the key ("prefix", pid)
             self._prefixes[pid] = (p_ids, pages)
         log.info("registered paged prefix %d: %d tokens in %d shared "
                  "pages (%d trailing tokens fall to each suffix)",
@@ -790,12 +857,18 @@ class InferenceEngine:
     def _unregister_paged_sync(self, prefix_id: int) -> None:
         with self._rid_lock:
             entry = self._prefixes.pop(prefix_id, None)
+        self._prefix_last_hit.pop(prefix_id, None)
         if entry is not None:
-            self._pager.release(entry[1])
+            if entry[1] is not None:
+                self._pager.release(entry[1])
+            elif self._host_tier is not None:
+                # a spilled registration: its pages live in the host
+                # tier, not the pool; drop the host copy instead
+                self._host_tier.drop(("prefix", prefix_id))
 
     def _match_prefix(self, ids: List[int]):
         """Longest registered prefix that is a proper head of `ids`:
-        (pid, (p_ids, pages)) or None."""
+        (pid, (p_ids, pages)) or None (pages None: spilled)."""
         best = None
         with self._rid_lock:
             entries = list(self._prefixes.items())
@@ -808,12 +881,14 @@ class InferenceEngine:
 
     def _match_and_validate_prefix(self, ids: List[int]):
         """(pid, (p_ids, pages)) of the longest matching prefix that can
-        serve this prompt (`_prefix_window_plan`), or None. Returns the
-        entry, not just the pid, so a concurrent eviction cannot turn a
-        later lookup into a KeyError."""
+        serve this prompt (`_prefix_window_plan`), or None.
+        Returns the entry, not just the pid, so a concurrent eviction
+        cannot turn a later lookup into a KeyError. A hit stamps the
+        prefix's recency for the cold-prefix spill order."""
         hit = self._match_prefix(ids)
         if hit is None or self._prefix_window_plan(hit[1][0], ids) is None:
             return None
+        self._prefix_last_hit[hit[0]] = time.monotonic()
         return hit
 
     def _prefix_window_plan(self, p_ids: List[int], ids: List[int]):
@@ -903,6 +978,11 @@ class InferenceEngine:
                 # release and any re-allocation are ordered after
                 self._maybe_preempt()
             prefill_plan, decode_plan = self.scheduler.plan()
+            # this iteration's planned decode rows: the candidates of
+            # _spill_resident_stream (never same-wave admissions, whose
+            # prefill may still be in flight)
+            self._resident_parked = False
+            self._cur_decode = {s: r for r, s in decode_plan}
             if self._slo:
                 self._set_queue_gauges()
             if not prefill_plan and not decode_plan:
@@ -959,6 +1039,8 @@ class InferenceEngine:
         self._mixed_pending = {}
         self._page_blocked_rid = None
         self._pending_page_preempt = None
+        self._prefix_last_hit = {}
+        self._cur_decode = {}
         _PREFIX_PAGES_SHARED.set(0)
         self._pos[:] = 0
         self._last_tok[:] = 0
@@ -996,11 +1078,20 @@ class InferenceEngine:
         behind it instead of being admitted past it.
 
         hit: a validated prefix match (pid, (p_ids, pages)) from
-        _match_and_validate_prefix: the slot then allocates only suffix
-        + budget pages and maps the shared pages, retained, at the head
-        of its row. Under priority classes a request that outranks the
-        blocking head may try the pool past it (an aged head's score is
-        the best, so it keeps first claim on freed pages)."""
+        _match_and_validate_prefix: the slot then allocates only
+        suffix + budget pages and maps the shared pages, retained, at the
+        head of its row (a spilled prefix is restored first; when it
+        cannot be, the admission goes without it: req._effective_hit is
+        the hit really mapped). Under priority classes a request that
+        outranks the blocking head may try the pool past it (an aged
+        head's score is the best, so it keeps first claim on freed
+        pages).
+
+        With the host tier, a pool that cannot cover the admission first
+        spills cold prefixes, then parks decode-resident streams, before
+        the request requeues; and a spilled preemption victim whose entry
+        fits this admission's row has its pages installed
+        (`_restore_victim`), so it needs no prefill."""
         blocked = self._page_blocked_rid
         if blocked is not None and blocked not in self._requests:
             blocked = self._page_blocked_rid = None     # cancelled/failed
@@ -1011,13 +1102,52 @@ class InferenceEngine:
                 return self._requeue_for_pages(req, slot, starved=False)
         prefix_pages: List[int] = []
         n_prefix = 0
+        hit_pid = None
         if hit is not None:
+            hit_pid = hit[0]
             p_ids, prefix_pages = hit[1]
             n_prefix = len(p_ids)
-        pages = self._pager.alloc(len(req.prompt_ids) - n_prefix
-                                  + req.max_new_tokens)
+            if prefix_pages is None:
+                # the prefix was spilled to the host tier under page
+                # pressure: stream it back before mapping it
+                prefix_pages = self._restore_prefix(hit_pid)
+                if prefix_pages is None:
+                    # gone from the host too, or no room for it now:
+                    # this admission goes without the prefix
+                    hit = hit_pid = None
+                    n_prefix = 0
+                    prefix_pages = []
+        # the prefills run against the hit that is really mapped
+        req._effective_hit = hit
+        need = len(req.prompt_ids) - n_prefix + req.max_new_tokens
+        pages = self._pager.alloc(need)
+        if pages is None and self._host_tier is not None:
+            # cold shared prefixes (only the registry holds their pages)
+            # spill to host RAM before the admission is refused
+            missing = self._pager.pages_for(need) - self._pager.free_pages
+            if self._spill_cold_prefixes(missing, keep_pid=hit_pid):
+                pages = self._pager.alloc(need)
+        if pages is None and self._host_tier is not None:
+            # still short: oversubscribe, parking decode-resident streams
+            # (LRU by admission) until the admission fits or none is left
+            while (pages is None
+                   and self._spill_resident_stream(req.rid)):
+                pages = self._pager.alloc(need)
         if pages is None:
             return self._requeue_for_pages(req, slot, starved=True)
+        # a spilled preemption victim: its entry must fit the CURRENT
+        # admission's row (a prefix dropped or registered between spill
+        # and resume changes the row's layout)
+        ent = None
+        if self._host_tier is not None:
+            ent = self._host_tier.peek(("victim", req.rid))
+            if ent is not None and (ent.n_prefix_tokens != n_prefix
+                                    or ent.n_pages != len(pages)):
+                self._host_tier.drop(("victim", req.rid))
+                ent = None
+            elif ent is not None:
+                # counted as a restore; _restore_victim installs it
+                ent = self._host_tier.pop(("victim", req.rid))
         if prefix_pages:
             # retain AFTER the alloc: a requeued admission leaves no
             # reference behind
@@ -1030,11 +1160,150 @@ class InferenceEngine:
         table_set_slot(self.cache.table, slot, row)
         if self.kv_quant:
             # the slot's own fresh pages must not inherit a previous
-            # occupant's scales; the shared pages keep theirs
+            # occupant's scales (a restore overwrites them with the
+            # spilled ones anyway); the shared pages keep theirs
             reset_page_scales(self.cache, pages)
+        if ent is not None:
+            self._restore_victim(req, slot, pages, ent)
         if req.rid == blocked:
             self._page_blocked_rid = None
+        # the resident spill's LRU stamp: a re-admission counts as recent
+        # use, and its token count starts the anti-thrash quantum
+        req._admit_seq = self._admit_seq
+        req._resident_base = len(req.out_tokens)
+        self._admit_seq += 1
         return True
+
+    def _restore_victim(self, req: _Request, slot: int,
+                        pages: List[int], ent: SpilledPages) -> None:
+        """Host-to-device restore of a spilled preemption victim: its
+        pages go into the slot's fresh pages (bit for bit), and the
+        slot's mirrors resume at the spilled frontier, so the next decode
+        step (its row loaded from the host mirrors: its own pos and last
+        token) samples the token an uninterrupted run would. Sets
+        _kv_restored: the admission skips the prefill. ent: the entry
+        _alloc_slot_pages already popped."""
+        HostTier.install_pages(self.cache, pages, ent.arrays)
+        self._temp[slot] = req.temperature
+        self._top_p[slot] = req.top_p
+        self._penalty[slot] = req.repeat_penalty
+        self._prime_ring(slot, list(req.out_tokens))
+        self._pos[slot] = ent.pos
+        self._last_tok[slot] = ent.last_tok
+        self.stats.kv_restores += 1
+        req._kv_restored = True
+        self.tracer.span(req.rid, "kv_restored", pages=ent.n_pages)
+        log.debug("restored rid=%d from the host tier (%d pages, pos %d)",
+                  req.rid, ent.n_pages, ent.pos)
+
+    def _spill_victim_pages(self, req: _Request, slot: int) -> bool:
+        """Device-to-host spill of a preemption victim's (or a parked
+        stream's) own pages, called before _release_slot_pages while
+        they are still live; shared prefix pages only drop a reference.
+        False (no tier, spill_preempt off, a victim mid-prefill or with
+        no token out, no room, or a failed copy, which is logged and
+        counted): the recompute fold serves."""
+        if (self._host_tier is None
+                or not self._sched_cfg.spill_preempt
+                or slot in self._mixed_pending
+                or not req.out_tokens):
+            return False
+        row = self._slot_pages.get(slot) or []
+        n_shared = self._slot_prefix_pages.get(slot, 0)
+        own = row[n_shared:]
+        if not own or not self._host_tier.can_hold(len(own)):
+            return False
+        try:
+            arrays = HostTier.fetch_pages(self.cache, own)
+        except Exception:  # noqa: BLE001 — the fold is the fallback
+            self.stats.kv_spill_failures += 1
+            log.exception("victim spill failed (rid=%d); it resumes by "
+                          "the recompute fold", req.rid)
+            return False
+        ok = self._host_tier.put(("victim", req.rid), SpilledPages(
+            n_pages=len(own), arrays=arrays, kind="victim",
+            pos=int(self._pos[slot]), last_tok=int(self._last_tok[slot]),
+            n_prefix_tokens=n_shared * self._pager.page_size))
+        if ok:
+            self.stats.kv_spills += 1
+        return ok
+
+    def _spill_cold_prefixes(self, n_pages_needed: int,
+                             keep_pid=None) -> int:
+        """Spill least-recently-hit COLD prefixes (every page at refcount
+        1: only the registry holds them) to the host tier until
+        n_pages_needed device pages are free, skipping keep_pid (the
+        admission's own match). Returns the pages freed."""
+        if self._host_tier is None or n_pages_needed <= 0:
+            return 0
+        with self._rid_lock:
+            entries = list(self._prefixes.items())
+        entries.sort(key=lambda kv: self._prefix_last_hit.get(kv[0], 0.0))
+        freed = 0
+        for pid, (p_ids, pages) in entries:
+            if freed >= n_pages_needed:
+                break
+            if pid == keep_pid or pages is None:
+                continue
+            if any(self._pager.refcount(p) != 1 for p in pages):
+                continue          # hot: some slot maps these pages
+            if not self._host_tier.can_hold(len(pages)):
+                continue
+            try:
+                arrays = HostTier.fetch_pages(self.cache, pages)
+            except Exception:  # noqa: BLE001 — the prefix stays put
+                self.stats.kv_spill_failures += 1
+                log.exception("cold prefix spill failed (pid=%d)", pid)
+                continue
+            if not self._host_tier.put(
+                    ("prefix", pid),
+                    SpilledPages(n_pages=len(pages), arrays=arrays,
+                                 kind="prefix")):
+                continue
+            with self._rid_lock:
+                self._prefixes[pid] = (p_ids, None)
+            self._pager.release(pages)
+            self.stats.kv_spills += 1
+            freed += len(pages)
+            log.debug("spilled cold prefix %d (%d pages) to the host tier",
+                      pid, len(pages))
+        return freed
+
+    def _restore_prefix(self, pid: int) -> Optional[List[int]]:
+        """Host-to-device restore of a spilled prefix: fresh pool pages,
+        the saved contents installed, the registry entry re-pointed.
+        None when the host entry was evicted (the prefix exists nowhere:
+        it is unregistered, so matches stop) or the pool has no room now
+        (the entry stays; this hit degrades to a whole-prompt
+        prefill)."""
+        if self._host_tier is None:
+            return None
+        ent = self._host_tier.peek(("prefix", pid))
+        with self._rid_lock:
+            entry = self._prefixes.get(pid)
+        if entry is None:
+            if ent is not None:
+                self._host_tier.drop(("prefix", pid))
+            return None
+        if ent is None:
+            # evicted from the host tier: drop the registration
+            # (auto-prefix registers the head again on its next request)
+            with self._rid_lock:
+                self._prefixes.pop(pid, None)
+            self._prefix_last_hit.pop(pid, None)
+            return None
+        pages = self._pager.alloc(ent.n_pages * self._pager.page_size)
+        if pages is None:
+            return None
+        ent = self._host_tier.pop(("prefix", pid))
+        HostTier.install_pages(self.cache, pages, ent.arrays)
+        with self._rid_lock:
+            self._prefixes[pid] = (entry[0], pages)
+        self._prefix_last_hit[pid] = time.monotonic()
+        self.stats.kv_restores += 1
+        log.debug("restored prefix %d from the host tier (%d pages)", pid,
+                  ent.n_pages)
+        return pages
 
     def _requeue_for_pages(self, req: _Request, slot: int,
                            starved: bool) -> bool:
@@ -1060,6 +1329,8 @@ class InferenceEngine:
             self._requests.pop(req.rid, None)
             if self._page_blocked_rid == req.rid:
                 self._page_blocked_rid = None
+            if self._host_tier is not None:
+                self._host_tier.drop(("victim", req.rid))
             self.tracer.finish(req.rid, "error", error=str(req.error))
             req.done.set()
         else:
@@ -1103,14 +1374,15 @@ class InferenceEngine:
                 return
 
     def _preempt_slot(self, rid: int, slot: int, reason: str) -> bool:
-        """Recompute-style preemption of one slot: the victim requeues
-        with its seniority as prompt + generated tokens for the rest of
-        its budget (its admission re-prefills that fold through the
-        mixed step, or the phase-split prefill, and the next greedy token
-        is the one an uninterrupted run emits), and its pages go back
-        through the refcounted allocator (shared prefix pages only drop
-        a reference). The JAX engine's host-tier spill of the victim's
-        pages is not ported."""
+        """Preemption of one slot: the victim requeues with its seniority
+        as prompt + generated tokens for the rest of its budget, and its
+        pages go back through the refcounted allocator (shared prefix
+        pages only drop a reference). With the host tier its own pages
+        spill first (`_spill_victim_pages`), and its admission installs
+        them and resumes decoding where it stopped; otherwise the
+        admission re-prefills the fold through the mixed step, or the
+        phase-split prefill (the recompute fold). Either way the next
+        greedy token is the one an uninterrupted run emits."""
         req = (self._slot_req[slot]
                if 0 <= slot < self.max_slots else None)
         if req is None or req.rid != rid or req.done.is_set():
@@ -1125,18 +1397,115 @@ class InferenceEngine:
         self._slot_req[slot] = None
         req.slot = -1
         req.preemptions += 1
+        spilled = self._spill_victim_pages(req, slot)
         self._release_slot_pages(slot)
         self.stats.preemptions += 1
         _PREEMPTIONS.labels(reason=reason).inc()
         self.tracer.span(rid, "preempted", reason=reason,
-                         generated=len(req.out_tokens), spilled=False)
+                         generated=len(req.out_tokens), spilled=spilled)
         if self.events is not None:
             self.events.publish("preempted", rid=rid, reason=reason,
                                 priority=req.priority,
                                 generated=len(req.out_tokens),
-                                spilled=False)
-        log.debug("preempted rid=%d (%s, %d tokens fold into the prompt)",
-                  rid, reason, len(req.out_tokens))
+                                spilled=spilled)
+        log.debug("preempted rid=%d (%s, %d tokens %s)", rid, reason,
+                  len(req.out_tokens),
+                  "spilled to the host tier" if spilled
+                  else "fold into the prompt")
+        return True
+
+    def _live_decode_rows(self, decode_plan):
+        """The decode plan re-validated after a mid-wave resident spill:
+        plan() ran before the admissions, so a slot that
+        _spill_resident_stream parked may still carry a planned decode
+        row, pointing at pages already released (and maybe re-allocated
+        to the admission that parked it)."""
+        self._resident_parked = False
+        return [(rid, slot) for rid, slot in decode_plan
+                if self._slot_req[slot] is not None
+                and self._slot_req[slot].rid == rid]
+
+    def _spill_resident_stream(self, exclude_rid: int) -> bool:
+        """Decode-resident spill, oversubscribing the pool like virtual
+        memory: when an admission would be refused even after the cold
+        prefix spills, park the least recently admitted decoding stream
+        (its own pages to the host tier) and requeue it. It resumes as a
+        preemption victim does (`_restore_victim`, or the recompute fold
+        when its pages did not go to the host), so its stream is the one
+        an uninterrupted run emits. True when a stream was parked (its
+        pages are free now), False when no candidate qualifies.
+
+        Candidates are this iteration's planned decode rows
+        (_cur_decode), never same-wave admissions, whose prefill may
+        still be in flight; a candidate must have decoded
+        resident_quantum tokens since its admission (anti-thrash), and
+        its pages must fit the tier's FREE capacity (a park never
+        evicts: a spilled prefix is its only copy)."""
+        if self._host_tier is None or not self._sched_cfg.spill_resident:
+            return False
+        quantum = self._sched_cfg.resident_quantum
+        best = None
+        for slot, rid in self._cur_decode.items():
+            req = (self._slot_req[slot]
+                   if 0 <= slot < self.max_slots else None)
+            if (req is None or req.rid != rid or req.rid == exclude_rid
+                    or req.done.is_set() or slot in self._mixed_pending
+                    or not req.out_tokens
+                    or req.max_new_tokens - len(req.out_tokens) <= 0):
+                continue
+            if len(req.out_tokens) - req._resident_base < quantum:
+                continue
+            own = (self._slot_pages.get(slot)
+                   or [])[self._slot_prefix_pages.get(slot, 0):]
+            if not own or len(own) > self._host_tier.free_pages:
+                continue
+            if best is None or req._admit_seq < best[0]:
+                best = (req._admit_seq, rid, slot)
+        if best is None:
+            return False
+        _, rid, slot = best
+        req = self._slot_req[slot]
+        remaining = req.max_new_tokens - len(req.out_tokens)
+        folded = len(req.prompt_ids) + len(req.out_tokens)
+        if self._slo:
+            # seniority survives (the _preempt_slot discipline)
+            if not self.scheduler.requeue(rid, folded, remaining):
+                return False
+        else:
+            # resubmitted as it will re-admit: generated tokens folded
+            # into the prompt, the budget cut to the remainder
+            self.scheduler.cancel(rid)
+            if not self.scheduler.submit(rid, folded, remaining):
+                # the queue is full: the stream has nowhere to wait and
+                # errors as a page-starved admission with a full queue
+                # does; its pages still come back
+                self._slot_req[slot] = None
+                req.slot = -1
+                self._release_slot_pages(slot)
+                self._resident_parked = True
+                req.error = RuntimeError(
+                    "kv page pool exhausted and admission queue full")
+                self._requests.pop(rid, None)
+                self.tracer.finish(rid, "error", error=str(req.error))
+                req.done.set()
+                return True
+        self._slot_req[slot] = None
+        req.slot = -1
+        spilled = self._spill_victim_pages(req, slot)
+        self._release_slot_pages(slot)
+        self._resident_parked = True
+        self.stats.kv_resident_spills += 1
+        note_resident_spill()
+        self.tracer.span(rid, "resident_spilled",
+                         generated=len(req.out_tokens), spilled=spilled)
+        if self.events is not None:
+            self.events.publish("resident_spilled", rid=rid,
+                                generated=len(req.out_tokens),
+                                spilled=spilled)
+        log.debug("parked decode-resident rid=%d (%d tokens %s)", rid,
+                  len(req.out_tokens),
+                  "spilled to the host tier" if spilled
+                  else "fold into the prompt")
         return True
 
     # -- steps ----------------------------------------------------------------
@@ -1152,6 +1521,11 @@ class InferenceEngine:
             # the last mixed step fetched, unless its prompts were
             # cancelled mid-window: count what is still open
             self._count_mixed_time()
+            if decode_plan and self._resident_parked:
+                # an admission above parked a decode-resident slot: drop
+                # its stale row before the decode step is dispatched
+                # (_mixed_dispatch re-validates its rows itself)
+                decode_plan = self._live_decode_rows(decode_plan)
             # pure decode: K-step bursts while nothing is admitting
             if decode_plan:
                 n = self._scan_steps_for(decode_plan)
@@ -1179,6 +1553,13 @@ class InferenceEngine:
         hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
             return   # pool exhausted: requeued (or failed) inside
+        hit = req._effective_hit      # a spilled prefix may not be back
+        if req._kv_restored:
+            # a spilled victim restored from the host tier resumes as a
+            # decode row: it must not ride the next mixed step as a
+            # chunk row
+            req._kv_restored = False
+            return
         off = 0
         if hit is not None:
             # the shared pages are mapped at the row head: the windows
@@ -1411,6 +1792,11 @@ class InferenceEngine:
         decode take their step or burst."""
         if prefill_plan:
             self._do_prefill_batch(prefill_plan)
+        if decode_plan and self._resident_parked:
+            # an admission above parked a decode-resident slot: the plan
+            # predates the park, and no step may write through a
+            # released table row
+            decode_plan = self._live_decode_rows(decode_plan)
         if decode_plan:
             n = self._scan_steps_for(decode_plan)
             if n > 1:
@@ -1438,6 +1824,13 @@ class InferenceEngine:
         hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
             return None   # pool exhausted: requeued (or failed) inside
+        hit = req._effective_hit      # a spilled prefix may not be back
+        if req._kv_restored:
+            # a spilled victim restored from the host tier: its KV and
+            # sampling state sit at its frontier; no prefill at all (the
+            # token the fold would re-derive was already emitted)
+            req._kv_restored = False
+            return None
         n_top = self._n_top_for([slot])
         if hit is not None:
             out = self._prefixed_prefill_device(ids, slot, req, hit[1],
@@ -1909,6 +2302,10 @@ class InferenceEngine:
         """Fail every in-flight request with the typed (retryable) error."""
         from cake_tpu_torch.serve.errors import as_engine_error
         err = as_engine_error(err)
+        if self._host_tier is not None:
+            # spilled victims and prefixes belonged to the failed
+            # requests and the registry the reset clears: stale shortcuts
+            self._host_tier.clear()
         for rid in list(self._requests):
             req = self._requests.pop(rid, None)
             if req is None:

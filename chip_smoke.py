@@ -13,8 +13,11 @@ Phases, in order (any failure exits non-zero):
   kernels   each CUDA kernel against its plain PyTorch version, f32 and
             bf16 queries: the ragged paged-attention kernels at the serving
             shapes (H=32, KV=8, hd=128, 128-token pages, 16 table columns,
-            B=8, C=64) over f32/bf16 pages and over int8 and int4 pages
-            written by the port's qwrite_prompt_pages, and the flash pair
+            B=8, C=64) over f32/bf16 pages, over int8 and int4 pages
+            written by the port's qwrite_prompt_pages, and over fp8 e4m3
+            and e5m2 pages cast by the port's writers (their yardstick
+            SDPA over bf16 copies, their bound at one byte an element),
+            and the flash pair
             at the prefill shapes (S=T=1024 causal, plus window and
             non-causal cases; a 256-token chunk at pos 1280 of a 4096-slot
             cache with a NaN tail, plus one at an unaligned pos); device
@@ -26,8 +29,9 @@ Phases, in order (any failure exits non-zero):
             bits twice; each mixed case logs the body it ran (the
             tensor-core body or rpa_cta) and its split plan.
             More decode cases show the split body: B = 8 with one row
-            at pos 8191 (64 table columns) over a bf16, an int8 and an
-            int4 pool, B = 32 rows up to 2047 over bf16. Then
+            at pos 8191 (64 table columns) over a bf16, an int8, an int4,
+            an fp8 e4m3 and an fp8 e5m2 pool, B = 32 rows up to 2047
+            over bf16. Then
             the int4 matmul against its plain version at the four
             Llama-3-8B weight shapes, M = 1, 8 and 64, f32 and bf16 x
             (and f16 over w_gate/w_up, the table's row), weights from
@@ -48,7 +52,8 @@ Phases, in order (any failure exits non-zero):
             weights) the engine's decode step as serve/graphs.DecodeRunner
             runs it: K = 4 replays of the captured CUDA graph against the
             same step run 4 times eagerly from identical pools, over a
-            bf16, an int8 and an int4 pool (int4 weights: bf16 pool);
+            bf16, an int8, an int4 and an fp8 e4m3 pool (int4 weights:
+            bf16 pool; the bf16 and fp8 replays beside their bounds);
             identical tokens, byte-identical pages, the last step's
             logits' difference (0 expected), 4 x 32 decode launches a
             side, the replay's device ms and the eager step's host ms.
@@ -124,6 +129,25 @@ Phases, in order (any failure exits non-zero):
             batch chats past the shed's depth (--shed, batch held to a
             1 s queue-wait target): some get 429 with a Retry-After
             above 0. A `sched` JSON line holds the phase's record.
+  tiers     the KV tiers at the same width and depth, through the HTTP
+            API: (1) six chats over a bf16, an fp8 e4m3 and an fp8 e5m2
+            pool at --decode-scan 4, cold then warm: TTFT p50, decode
+            tok/s and pool GiB beside the bf16 drive's, the fp8 kernels'
+            launches (the kernels line's fp8 rows) and no plain version;
+            the tier's spill and restore ms a page of the bf16 and e4m3
+            pools (8 pages a move, CUDA events); (2) the sched phase's
+            round A with --kv-host-pages and the resident spill off:
+            exactly one "pages" preemption, one spill and one restore of
+            the victim's pages (cake_kv_spill_total{dir}), the restored
+            pages byte-identical to the spilled ones, the victim against
+            the FIFO drive printed; (3) the same at 4 layers and f32,
+            where the victim must be token-identical; (4) a 14-page pool
+            with --auto-prefix: a chat registers a 5-page system head,
+            eight 3-page chats arrive at once (the cold prefix spills,
+            decode-resident streams park and come back), every chat
+            completes, cake_kv_resident_spills_total rises, and a last
+            chat with the head restores the prefix and hits it; every
+            page comes back. A `tiers` JSON line holds the record.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -143,9 +167,10 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched")
+          "sched", "tiers")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -163,6 +188,16 @@ KERNELS = {
                       "cake_tpu/ops/ragged_paged_attention.py:223"),
     "rpa_mixed_q4": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
                      "cake_tpu/ops/ragged_paged_attention.py:557"),
+    # fp8 pages run JAX's _rpa_kernel / _rpa_mixed_kernel bodies, as bf16
+    # pages do (cake_tpu/models/llama/paged.py:382, :474)
+    "rpa_decode_f8e4m3": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                          "cake_tpu/ops/ragged_paged_attention.py:65"),
+    "rpa_mixed_f8e4m3": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                         "cake_tpu/ops/ragged_paged_attention.py:391"),
+    "rpa_decode_f8e5m2": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                          "cake_tpu/ops/ragged_paged_attention.py:65"),
+    "rpa_mixed_f8e5m2": ("cake_tpu_torch/csrc/ragged_paged_attention.cu",
+                         "cake_tpu/ops/ragged_paged_attention.py:391"),
     "flash_attn": ("cake_tpu_torch/csrc/flash_attention.cu",
                    "cake_tpu/ops/flash_attention.py:74"),
     "flash_attn_cached": ("cake_tpu_torch/csrc/flash_attention.cu",
@@ -170,6 +205,8 @@ KERNELS = {
     "int4_matmul": ("cake_tpu_torch/csrc/int4_matmul.cu",
                     "cake_tpu/ops/int4_matmul.py:73"),
 }
+# the --kv-dtype names of the fp8 pools and their torch dtypes' names
+FP8_FORMATS = {"f8_e4m3": "float8_e4m3fn", "f8_e5m2": "float8_e5m2"}
 TOL = {"float32": dict(atol=1e-4, rtol=0.0),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
@@ -182,7 +219,7 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-# -- phase: device -------------------------------------------------------------
+# -- phase: device ------------------------------------------------------------
 
 
 def phase_device(torch, *ops) -> str:
@@ -218,7 +255,7 @@ def phase_device(torch, *ops) -> str:
     return card
 
 
-# -- phase: kernels ------------------------------------------------------------
+# -- phase: kernels -----------------------------------------------------------
 
 
 def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
@@ -270,7 +307,8 @@ def _kernel_case(torch, dtype, gen, mixed: bool, fmt=None):
 def _pools(torch, gen, fmt, dtype, N, P, KV, hd):
     """(pool_k, pool_v, kw): normal draws in `dtype`, or with fmt
     "int8"/"int4" normal draws written by the port's qwrite_prompt_pages
-    (the kernel's scale arguments go in kw)."""
+    (the kernel's scale arguments go in kw), or with fmt "f8_e4m3" /
+    "f8_e5m2" normal draws cast to fp8 as the port's writers cast them."""
     from cake_tpu_torch.kv.quantized_pool import (
         Int4Pool, QuantPool, qwrite_prompt_pages,
     )
@@ -279,6 +317,12 @@ def _pools(torch, gen, fmt, dtype, N, P, KV, hd):
     if fmt is None:
         return tuple(torch.randn((N, P, KV, hd), generator=gen, device=dev,
                                  dtype=dtype) for _ in range(2)) + ({},)
+    if fmt in FP8_FORMATS:
+        from cake_tpu_torch.utils.devices import to_storage
+        dt = getattr(torch, FP8_FORMATS[fmt])
+        return tuple(to_storage(torch.randn((N, P, KV, hd), generator=gen,
+                                            device=dev), dt)
+                     for _ in range(2)) + ({},)
     cls, rows = (Int4Pool, P // 2) if fmt == "int4" else (QuantPool, P)
     every = torch.arange(N, dtype=torch.int32, device=dev)
     pools = []
@@ -297,11 +341,14 @@ def _pools(torch, gen, fmt, dtype, N, P, KV, hd):
 
 def _dequantized(torch, pool_k, pool_v, kw, dtype):
     """A quantized pool pair's pages dequantized to `dtype` ahead of
-    time (the SDPA yardstick's K/V); f32/bf16 pools as they are."""
+    time (the SDPA yardstick's K/V), an fp8 pair upcast to `dtype`;
+    f32/bf16 pools as they are."""
     from cake_tpu_torch.kv.quantized_pool import (
         Int4Pool, QuantPool, dequantize_pages,
     )
 
+    if pool_k.element_size() == 1 and not kw:           # fp8
+        return pool_k.to(dtype), pool_v.to(dtype)
     if not kw:
         return pool_k, pool_v
     cls = Int4Pool if kw["packed4"] else QuantPool
@@ -328,7 +375,7 @@ def _decode_pools(torch, pool_k, pool_v, kw, dtype):
     [(pool_k, pool_v, kw)] for the kernel, [(k, v)] for the yardstick
     (a quantized pool's pages dequantized to `dtype` ahead of time)."""
     kpools = _cold_copies(torch, pool_k, pool_v, kw)
-    if not kw:
+    if not kw and pool_k.element_size() > 1:
         return kpools, [(a, b) for a, b, _ in kpools]
     dk, dv = _dequantized(torch, pool_k, pool_v, kw, dtype)
     return kpools, [(a, b) for a, b, _ in _cold_copies(torch, dk, dv, {})]
@@ -336,8 +383,9 @@ def _decode_pools(torch, pool_k, pool_v, kw, dtype):
 
 def _elem_bytes(fmt, pool_k):
     """(bytes a K/V element, bytes a live page adds: its k and v scales,
-    4 each a kv head) of a pool stored as fmt (None: q's dtype)."""
-    if fmt is None:
+    4 each a kv head) of a pool stored as fmt (None: q's dtype; fp8: one
+    byte an element, no scales)."""
+    if fmt is None or fmt in FP8_FORMATS:
         return pool_k.element_size(), 0
     return _ELEM_BYTES[fmt], 8 * pool_k.shape[2]
 
@@ -451,6 +499,12 @@ def _measure(torch, label, dname, got, want, kerns, plain, libs, nbytes,
 _ELEM_BYTES = {"int8": 1.0, "int4": 0.5}
 
 
+def _kernel_suffix(fmt) -> str:
+    """The suffix of the kernel names that serve a pool stored as fmt."""
+    return {"int8": "_q8", "int4": "_q4", "f8_e4m3": "_f8e4m3",
+            "f8_e5m2": "_f8e5m2"}.get(fmt, "")
+
+
 def _rpa_kernels(torch, rpa, report, only=None) -> None:
     """The ragged kernels over f32/bf16 pages, then over int8 and int4
     pages. The quantized cases' yardstick is SDPA over the same live
@@ -458,10 +512,14 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
     or 4x (int4) the page bytes of a bf16 pool and dequantizes nothing.
     The decode kernels (every pool) cycle through pool copies larger than
     L2, and SDPA through copies of its own pages (a served decode step
-    finds each layer's pool cold). Every kernel must give the same bits
+    finds each layer's pool cold). Then over fp8 e4m3 and e5m2 pages (no
+    scales; the bound at one byte an element, the yardstick SDPA over
+    bf16 copies of the pages). Every kernel must give the same bits
     twice. `only`: the kernel names to run (None: all)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for fmt in (None, "int8", "int4"):
+    fmts = (None, "int8", "int4") + (
+        tuple(FP8_FORMATS) if hasattr(rpa, "_FP8_SUFFIX") else ())
+    for fmt in fmts:
         for base, mixed in (("rpa_decode", False), ("rpa_mixed", True)):
             kern = (rpa.ragged_paged_attention_mixed if mixed
                     else rpa.ragged_paged_attention)
@@ -471,8 +529,7 @@ def _rpa_kernels(torch, rpa, report, only=None) -> None:
                 dname = str(dtype).split(".")[-1]
                 q, pk, pv, table, pos, ql, kw = _kernel_case(
                     torch, dtype, gen, mixed, fmt)
-                name = rpa.kernel_name(base, kw.get("scale_k"),
-                                       kw.get("packed4", False))
+                name = base + _kernel_suffix(fmt)
                 if only is not None and name not in only:
                     continue
                 args = (q, pk, pv, table, pos) + ((ql,) if mixed else ())
@@ -525,11 +582,13 @@ def _split_cases(torch, rpa, only=None) -> None:
     """Decode cases that show the split of rpa_decode (bf16 queries,
     128-token pages, H=32, KV=8, hd=128; pools cycled past L2): B = 8
     with one row at pos 8191 (64 table columns) beside rows at 0..2047,
-    over a bf16, an int8 and an int4 pool (rpa_decode, rpa_decode_q8,
-    rpa_decode_q4), and B = 32 rows at mixed positions up to 2047 over
-    a bf16 pool. Each against its plain version, with the plan, device
-    time, bound and SDPA (over the pages dequantized to bf16 for the
-    quantized pools). `only`: the kernel names to run (None: all)."""
+    over a bf16, an int8, an int4, an fp8 e4m3 and an fp8 e5m2 pool
+    (rpa_decode, rpa_decode_q8, rpa_decode_q4, rpa_decode_f8e4m3,
+    rpa_decode_f8e5m2), and B = 32 rows at mixed positions up to 2047
+    over a bf16 pool. Each against its plain version, with the plan,
+    device time, bound and SDPA (over the pages dequantized, or upcast,
+    to bf16 for the quantized and fp8 pools). `only`: the kernel names to
+    run (None: all)."""
     gen = torch.Generator(device="cuda").manual_seed(777)
     H, KV, hd, P, dtype = 32, 8, 128, 128, torch.bfloat16
     long_row = [8191, 0, 127, 500, 1000, 1500, 2047, 300]
@@ -540,9 +599,13 @@ def _split_cases(torch, rpa, only=None) -> None:
                                         device="cuda").tolist()], None),
         ("B=8 one row at 8191", 8, 64, long_row, "int8"),
         ("B=8 one row at 8191", 8, 64, long_row, "int4"),
+        ("B=8 one row at 8191", 8, 64, long_row, "f8_e4m3"),
+        ("B=8 one row at 8191", 8, 64, long_row, "f8_e5m2"),
     )
     for label, B, MP, pos_l, fmt in cases:
-        name = "rpa_decode" + {"int8": "_q8", "int4": "_q4"}.get(fmt, "")
+        name = "rpa_decode" + _kernel_suffix(fmt)
+        if fmt in FP8_FORMATS and not hasattr(rpa, "_FP8_SUFFIX"):
+            continue
         if only is not None and name not in only:
             continue
         N = 256
@@ -905,7 +968,7 @@ def phase_kernels(torch, rpa, fa, i4, only=None) -> dict:
     return report
 
 
-# -- phase: step ---------------------------------------------------------------
+# -- phase: step --------------------------------------------------------------
 
 
 def phase_step(torch, rpa, fa, i4) -> None:
@@ -1246,6 +1309,45 @@ GRAPH_TOL = 0.0
 GRAPH_REPLAY = {}
 
 
+def _step_pool(torch, cfg, kv, B, N, P, T, gen):
+    """A full-depth pool of the step phases, every page written from
+    normal draws: bf16 (kv None), int8/int4 through the port's
+    qwrite_prompt_pages, fp8 through its writers' cast."""
+    from cake_tpu_torch.kv.quantized_pool import (
+        QUANTIZED_CACHES, qwrite_prompt_pages,
+    )
+    from cake_tpu_torch.models.llama.paged import PagedKVCache
+    from cake_tpu_torch.utils.devices import to_storage
+
+    dev = "cuda"
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    if kv in QUANTIZED_CACHES:
+        base = QUANTIZED_CACHES[kv].create(cfg, B, N, P, T, device=dev)
+        every = torch.arange(N, dtype=torch.int32, device=dev)
+        for i in range(L):
+            for leaf in base.layer(i):
+                vals = torch.randn((1, N * P, KV, hd), generator=gen,
+                                   device=dev)
+                qwrite_prompt_pages(leaf, vals, every)
+        return base
+    dt = getattr(torch, FP8_FORMATS.get(kv, "bfloat16"))
+    base = PagedKVCache.create(cfg, B, N, P, T, dtype=dt, device=dev)
+    for i in range(L):
+        for leaf in base.layer(i):
+            leaf.copy_(to_storage(torch.randn(leaf.shape, generator=gen,
+                                              device=dev), dt))
+    return base
+
+
+def _same_bytes(torch, a, b, pages=None) -> bool:
+    """Byte equality of two pool tensors (fp8 included), or of their
+    `pages` along the page axis."""
+    a, b = (x.contiguous().view(torch.uint8) for x in (a, b))
+    if pages is not None:
+        a, b = a[:, pages], b[:, pages]
+    return torch.equal(a, b)
+
+
 def _graph_steps(torch, rpa, i4, cfg, params,
                  int4_weights: bool = False) -> None:
     """The engine's decode step at full width and depth: K = 4 replays of
@@ -1259,13 +1361,8 @@ def _graph_steps(torch, rpa, i4, cfg, params,
     products with int4 weights) and no plain version."""
     import numpy as np
 
-    from cake_tpu_torch.kv.quantized_pool import (
-        QUANTIZED_CACHES, qwrite_prompt_pages,
-    )
     from cake_tpu_torch.models.llama.model import RopeTables
-    from cake_tpu_torch.models.llama.paged import (
-        PagedKVCache, table_set_slot,
-    )
+    from cake_tpu_torch.models.llama.paged import table_set_slot
     from cake_tpu_torch.serve.graphs import DecodeRunner
 
     dev = "cuda"
@@ -1278,20 +1375,9 @@ def _graph_steps(torch, rpa, i4, cfg, params,
     budget = np.array([K, K, K, K, 2, K, K, K])
     toks = np.arange(B) * 1009 % cfg.vocab_size
     label = "int4 weights" if int4_weights else "bf16 weights"
-    for kv in ((None,) if int4_weights else (None, "int8", "int4")):
-        if kv is None:
-            base = PagedKVCache.create(cfg, B, N, P, T, dtype=torch.bfloat16,
-                                       device=dev)
-            base.k.normal_(generator=gen)
-            base.v.normal_(generator=gen)
-        else:
-            base = QUANTIZED_CACHES[kv].create(cfg, B, N, P, T, device=dev)
-            every = torch.arange(N, dtype=torch.int32, device=dev)
-            for i in range(L):
-                for leaf in base.layer(i):
-                    vals = torch.randn((1, N * P, KV, hd), generator=gen,
-                                       device=dev)
-                    qwrite_prompt_pages(leaf, vals, every)
+    for kv in ((None,) if int4_weights else (None, "int8", "int4")
+               + (("f8_e4m3",) if hasattr(rpa, "_FP8_SUFFIX") else ())):
+        base = _step_pool(torch, cfg, kv, B, N, P, T, gen)
         for b in range(B - 1):                  # slot 7: every page unmapped
             table_set_slot(base.table, b, list(range(16 * b, 16 * b + 16)))
         runs = {}
@@ -1332,11 +1418,13 @@ def _graph_steps(torch, rpa, i4, cfg, params,
         (tg, lg, cg, ng, ms_g), (te, le, ce, ne, ms_e) = (runs["graph"],
                                                           runs["eager"])
         name = f"{label}, {kv or 'bf16'} pool"
-        if kv is None:
+        if kv in (None, "f8_e4m3"):
+            # the pool's bytes a token at its stored size: 2 bf16, 1 fp8
             bound = _mixed_step_bound(
                 cfg, params, B, 1, pos, live.astype(int),
-                2 * L * KV * hd * 2)[0]
-            GRAPH_REPLAY[label] = (ms_g, bound)
+                2 * L * KV * hd * (1 if kv else 2))[0]
+            GRAPH_REPLAY[label if kv is None else f"{label}, {kv}"] = (
+                ms_g, bound)
             log(f"step graph ({name}): a decode step's bound {bound:.3f} "
                 f"ms (bytes), the replay {bound / ms_g:.3f} of it")
         rows = torch.as_tensor(np.flatnonzero(live & (budget == K)),
@@ -1351,11 +1439,11 @@ def _graph_steps(torch, rpa, i4, cfg, params,
         if not torch.isfinite(lg[rows]).all() or err > GRAPH_TOL:
             fail(f"step graph ({name}): logits differ by {err:.3e}")
         pages = ((cg.k, ce.k), (cg.v, ce.v))
-        if kv is not None:
+        if kv in ("int8", "int4"):
             pages = tuple((x, y) for a, b in pages for x, y in zip(a, b))
-        if not all(torch.equal(x, y) for x, y in pages):
+        if not all(_same_bytes(torch, x, y) for x, y in pages):
             fail(f"step graph ({name}): the written pages differ")
-        suffix = {"int8": "_q8", "int4": "_q4"}.get(kv, "")
+        suffix = _kernel_suffix(kv)
         want = {"rpa_decode" + suffix: K * L}
         if int4_weights:
             want["int4_matmul"] = 7 * K * L
@@ -1451,13 +1539,8 @@ def _mixed_graph_steps(torch, rpa, i4, cfg, params,
     device time a layer."""
     import numpy as np
 
-    from cake_tpu_torch.kv.quantized_pool import (
-        QUANTIZED_CACHES, qwrite_prompt_pages,
-    )
     from cake_tpu_torch.models.llama.model import RopeTables
-    from cake_tpu_torch.models.llama.paged import (
-        PagedKVCache, table_set_slot,
-    )
+    from cake_tpu_torch.models.llama.paged import table_set_slot
     from cake_tpu_torch.serve.graphs import MixedRunner
 
     dev = "cuda"
@@ -1484,20 +1567,9 @@ def _mixed_graph_steps(torch, rpa, i4, cfg, params,
                       np.full(B, k, np.int64), np.zeros(B, np.float32),
                       np.ones(B, np.float32), np.full(B, 1.1, np.float32)))
     label = "int4 weights" if int4_weights else "bf16 weights"
-    for kv in ((None,) if int4_weights else (None, "int8", "int4")):
-        if kv is None:
-            base = PagedKVCache.create(cfg, B, N, P, T, dtype=torch.bfloat16,
-                                       device=dev)
-            base.k.normal_(generator=gen)
-            base.v.normal_(generator=gen)
-        else:
-            base = QUANTIZED_CACHES[kv].create(cfg, B, N, P, T, device=dev)
-            every = torch.arange(N, dtype=torch.int32, device=dev)
-            for i in range(L):
-                for leaf in base.layer(i):
-                    vals = torch.randn((1, N * P, KV, hd), generator=gen,
-                                       device=dev)
-                    qwrite_prompt_pages(leaf, vals, every)
+    for kv in ((None,) if int4_weights else (None, "int8", "int4")
+               + (("f8_e4m3",) if hasattr(rpa, "_FP8_SUFFIX") else ())):
+        base = _step_pool(torch, cfg, kv, B, N, P, T, gen)
         for b in range(B):
             table_set_slot(base.table, b, tables[b])
         torch.cuda.synchronize()
@@ -1545,7 +1617,7 @@ def _mixed_graph_steps(torch, rpa, i4, cfg, params,
         err = max((a[rows] - b[rows]).abs().max().item()
                   for a, b in zip(lg, le))
         kv_token = (2 * L * KV * hd
-                    * {"int8": 1.0, "int4": 0.5}.get(kv, 2.0))
+                    * {"int8": 1.0, "int4": 0.5, "f8_e4m3": 1.0}.get(kv, 2.0))
         bound, by, bound_all = _mixed_step_bound(
             cfg, params, B, C, steps[0][1], q_len, kv_token)
         log(f"mixed graph ({name}): {K} replays, {ms_g:.3f} ms a step "
@@ -1561,14 +1633,13 @@ def _mixed_graph_steps(torch, rpa, i4, cfg, params,
                 err > GRAPH_TOL:
             fail(f"mixed graph ({name}): logits differ by {err:.3e}")
         halves = ((cg.k, ce.k, base.k), (cg.v, ce.v, base.v))
-        if kv is not None:
+        if kv in ("int8", "int4"):
             halves = tuple(z for h in halves for z in zip(*h))
-        if not all(torch.equal(x, y) for x, y, _ in halves):
+        if not all(_same_bytes(torch, x, y) for x, y, _ in halves):
             fail(f"mixed graph ({name}): the written pages differ")
-        idx = torch.tensor(shared, device=dev)
-        if not all(torch.equal(x[:, idx], z[:, idx]) for x, _, z in halves):
+        if not all(_same_bytes(torch, x, z, shared) for x, _, z in halves):
             fail(f"mixed graph ({name}): a shared prefix page was written")
-        suffix = {"int8": "_q8", "int4": "_q4"}.get(kv, "")
+        suffix = _kernel_suffix(kv)
         want = {"rpa_mixed" + suffix: K * L, "int4_matmul": 0}
         for mode, n in (("graph", ng), ("eager", ne)):
             got = {k: n.get(k, 0) for k in want}
@@ -1586,7 +1657,7 @@ def _mixed_graph_steps(torch, rpa, i4, cfg, params,
         torch.cuda.empty_cache()
 
 
-# -- phase: serve --------------------------------------------------------------
+# -- phase: serve -------------------------------------------------------------
 
 
 def _post(url, body, timeout=600):
@@ -2040,7 +2111,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
     log(f"{label}: launches {counts}; pool {gib:.3f} GiB (the sink page "
         f"included); pool pages free {engine._pager.free_pages}/"
         f"{engine.cache.n_pages}")
-    suffix = {"int8": "_q8", "int4": "_q4"}.get(kv_dtype, "")
+    suffix = _kernel_suffix(kv_dtype)
     if hasattr(rpa, "mixed_split_plan"):
         # the served shapes' mixed body, asked of the wrapper's gate on
         # small tensors of the served dtypes
@@ -2081,7 +2152,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
     return {k: counts[k] for k in served}, gib, records
 
 
-# -- phase: prefix -------------------------------------------------------------
+# -- phase: prefix ------------------------------------------------------------
 
 # kernel against plain at full depth, bf16: layer 0's pages are written
 # before any attention, so they must be byte-identical; past it the two
@@ -2389,7 +2460,7 @@ def phase_prefix(torch, rpa, fa, cfg, params, card: str,
 
 
 
-# -- phase: sched --------------------------------------------------------------
+# -- phase: sched -------------------------------------------------------------
 
 # the sched phase's pool: 40 pages of 128 tokens (+ the sink), 8 slots
 SCHED_PAGES = 40
@@ -2410,8 +2481,8 @@ HBM_SHARE_TOL = 0.30       # decode records' HBM share against bound/replay
 def _metric(text: str, name: str, **labels) -> float:
     """One sample of a Prometheus exposition (0 when absent)."""
     want = ",".join(f'{k}="{v}"' for k, v in labels.items())
-    pat = re.escape(name) + (r"\{" + re.escape(want) + r"\}" if want
-                             else "") + r" (\S+)$"
+    pat = "^" + re.escape(name) + (r"\{" + re.escape(want) + r"\}" if want
+                                   else "") + r" (\S+)$"
     m = re.search(pat, text, re.M)
     return float(m.group(1)) if m else 0.0
 
@@ -2441,7 +2512,7 @@ class _SchedServer:
     same tags, so the same prompts, in every drive)."""
 
     def __init__(self, torch, cfg, params, dtype, classes: bool,
-                 shed: bool = False, sched_config=None):
+                 shed: bool = False, sched_config=None, **args_kw):
         from cake_tpu_torch.api.server import start
         from cake_tpu_torch.args import Args
         from cake_tpu_torch.master import Master
@@ -2450,10 +2521,13 @@ class _SchedServer:
         )
         from cake_tpu_torch.ops.sampling import SamplingConfig
 
-        args = Args(max_slots=8, max_seq_len=2048, kv_pages=SCHED_PAGES,
-                    kv_page_size=128, prefill_chunk=64, temperature=0.0,
-                    sample_len=32, decode_scan=4, step_ring=8192,
-                    priority_classes=classes, shed=shed).validate()
+        # args_kw: more Args fields (the tiers phase's --kv-dtype,
+        # --kv-host-pages, --kv-pages, --auto-prefix)
+        args = Args(**{**dict(
+            max_slots=8, max_seq_len=2048, kv_pages=SCHED_PAGES,
+            kv_page_size=128, prefill_chunk=64, temperature=0.0,
+            sample_len=32, decode_scan=4, step_ring=8192,
+            priority_classes=classes, shed=shed), **args_kw}).validate()
         self.gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
                                   max_seq_len=2048,
                                   sampling=SamplingConfig(temperature=0.0),
@@ -2466,11 +2540,16 @@ class _SchedServer:
         self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
         self.threads, self.status, self._reqs = [], {}, {}
 
-    def post(self, system: str, cls: str, n_prompt: int, max_tokens: int):
+    def post(self, system: str, cls: str, n_prompt: int, max_tokens: int,
+             head: str = None):
+        """A chat tagged `system` (its user message's n_prompt tokens),
+        after a system message `head` when given."""
         user = _tagged_chat(self.engine.tokenizer, system, n_prompt)
-        body = {"messages": [{"role": "user", "content": user}],
-                "max_tokens": max_tokens, "temperature": 0.0,
-                "priority": cls}
+        msgs = [{"role": "user", "content": user}]
+        if head is not None:
+            msgs.insert(0, {"role": "system", "content": head})
+        body = {"messages": msgs, "max_tokens": max_tokens,
+                "temperature": 0.0, "priority": cls}
 
         def one():
             try:
@@ -2497,7 +2576,7 @@ class _SchedServer:
             dec = self.engine.tokenizer.decode
             for req in list(self.engine._requests.values()) + list(
                     self.engine.retired):
-                if key in dec(req.prompt_ids[:160]):
+                if key in dec(req.prompt_ids):
                     got = self._reqs[system] = req
                     break
         return got
@@ -2801,6 +2880,297 @@ def phase_sched(torch, rpa, cfg, params, card: str) -> tuple:
     return {k: counts[k] for k in ("rpa_decode", "rpa_mixed")}, rec
 
 
+# -- phase: tiers -------------------------------------------------------------
+
+# drive 1: six chats of these user tokens, 32 greedy tokens each
+TIER_CHATS = (160, 400, 180, 200, 300, 140)
+TIER_HOST_PAGES = 64
+# drive 4: the pool holds the 5-page prefix and three 3-page chats; eight
+# chats of 200 + 120 tokens arrive at once
+TIER_OVER_PAGES = 14
+TIER_OVER_CHATS = 8
+
+
+def _tier_chats(srv, tag: str, n_new: int = 32) -> list:
+    """The six TIER_CHATS through one server at once; their requests,
+    once every one completed with 200."""
+    names = [f"{tag}{i}" for i in range(len(TIER_CHATS))]
+    for name, n in zip(names, TIER_CHATS):
+        srv.post(name, "standard", n, n_new)
+    srv.join()
+    reqs = []
+    for name in names:
+        code, err = srv.status.get(name, (None, None))
+        if code != 200:
+            fail(f"tiers {tag}: {name!r} got {code} {err}")
+        reqs.append(srv.request(name))
+    return reqs
+
+
+def _tier_fp8(torch, rpa, cfg, params, card: str) -> tuple:
+    """Drive 1: the six chats over a bf16, an fp8 e4m3 and an fp8 e5m2
+    pool (40 pages, --decode-scan 4): cold, then warm (measured: TTFT p50
+    and decode tok/s); the fp8 kernels' launches on the fp8 drives, and
+    no plain version; the pools' GiB. Then the tier's spill and restore
+    of 8 pages of the bf16 and the e4m3 pool, timed with CUDA events."""
+    from cake_tpu_torch.kv.host_tier import HostTier
+
+    recs, counts, moves = {}, {}, {}
+    for kv in (None, "f8_e4m3", "f8_e5m2"):
+        srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                           kv_dtype=kv, kv_host_pages=TIER_HOST_PAGES)
+        eng = srv.engine
+        if kv is not None:
+            rpa.reset_launch_counts()
+        _tier_chats(srv, f"T{kv or 'bf'}c")
+        rec = {"pool_gib": eng.cache.memory_bytes() / 2**30}
+        if kv != "f8_e5m2":
+            st = eng.stats
+            tok0, dec0 = st.tokens_generated, st.decode_time_s
+            reqs = _tier_chats(srv, f"T{kv or 'bf'}w")
+            rec.update(
+                ttft_p50_s=statistics.median(r.first_token_t - r.submit_t
+                                             for r in reqs),
+                decode_tok_s=(st.tokens_generated - tok0)
+                / (st.decode_time_s - dec0))
+        if kv is not None:
+            got = dict(rpa.LAUNCHES)
+            suffix = _kernel_suffix(kv)
+            for base in ("rpa_decode", "rpa_mixed"):
+                counts[base + suffix] = got[base + suffix]
+                if got[base + suffix] <= 0:
+                    fail(f"tiers ({kv}): {base + suffix} never launched")
+            plain = {k: n for k, n in got.items()
+                     if k.endswith("_plain") and n}
+            if plain:
+                fail(f"tiers ({kv}): plain versions ran: {plain}")
+        srv.close()
+        if kv != "f8_e5m2":
+            # the tier's copies of 8 pages of this pool (the engine stopped)
+            pages = list(range(8))
+            cache = eng.cache
+            per_page = eng._host_tier.page_bytes
+            for _ in range(2):                      # pinned memory warm
+                HostTier.install_pages(cache, pages,
+                                       HostTier.fetch_pages(cache, pages))
+            torch.cuda.synchronize()
+            t_sp, t_rs = [], []
+            for _ in range(10):
+                a, b, c = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+                a.record()
+                arrays = HostTier.fetch_pages(cache, pages)
+                b.record()
+                HostTier.install_pages(cache, pages, arrays)
+                c.record()
+                c.synchronize()
+                t_sp.append(a.elapsed_time(b) / len(pages))
+                t_rs.append(b.elapsed_time(c) / len(pages))
+            moves[kv or "bf16"] = dict(
+                page_mib=per_page / 2**20,
+                spill_ms_page=statistics.median(t_sp),
+                restore_ms_page=statistics.median(t_rs))
+            m = moves[kv or "bf16"]
+            log(f"tiers: {kv or 'bf16'} pool page ({m['page_mib']:.1f} "
+                f"MiB, {cfg.num_hidden_layers} layers): spill "
+                f"{m['spill_ms_page']:.3f} ms, "
+                f"restore {m['restore_ms_page']:.3f} ms a page (device, "
+                f"CUDA events, 8 pages a move, median of 10) = "
+                f"{per_page / m['spill_ms_page'] / 1e6:.1f} / "
+                f"{per_page / m['restore_ms_page'] / 1e6:.1f} GB/s [{card}]")
+        recs[kv or "bf16"] = rec
+        log(f"tiers fp8 ({kv or 'bf16'} pool): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec.items()) + f" [{card}]")
+        del srv, eng
+        torch.cuda.empty_cache()
+    return counts, dict(drives=recs, moves=moves)
+
+
+def _spy_victims(engine) -> dict:
+    """rid -> the victim's own pages' bytes before its spill ("before")
+    and after their install ("after"), copied on the device (the spies
+    wait for nothing)."""
+    from cake_tpu_torch.kv.host_tier import HostTier
+
+    snaps = {}
+    spill, restore = engine._spill_victim_pages, engine._restore_victim
+
+    def leaves(pages):
+        return [x[:, pages].clone() for x in HostTier._stores(engine.cache)]
+
+    def spill_spy(req, slot):
+        own = (engine._slot_pages.get(slot) or [])[
+            engine._slot_prefix_pages.get(slot, 0):]
+        before = leaves(own) if own else None
+        ok = spill(req, slot)
+        if ok:
+            snaps[req.rid] = {"before": before}
+        return ok
+
+    def restore_spy(req, slot, pages, ent):
+        restore(req, slot, pages, ent)
+        snaps.setdefault(req.rid, {})["after"] = leaves(pages)
+
+    engine._spill_victim_pages = spill_spy
+    engine._restore_victim = restore_spy
+    return snaps
+
+
+def _tier_round_a(torch, cfg, params, dtype, label: str, card: str):
+    """The sched phase's page-starved round A with --kv-host-pages (the
+    resident spill off, so the page-starved interactive chat preempts a
+    batch slot): exactly one "pages" preemption, one spill and one restore of
+    the victim's own pages by cake_kv_spill_total{dir}, the restored
+    pages byte-identical to the spilled ones; then the same arrivals
+    without classes (the FIFO drive). Returns (rounds, fifo rounds, the
+    record)."""
+    from cake_tpu_torch.sched import SchedConfig
+
+    srv = _SchedServer(torch, cfg, params, dtype, True,
+                       sched_config=SchedConfig(spill_resident=False),
+                       kv_host_pages=TIER_HOST_PAGES)
+    snaps = _spy_victims(srv.engine)
+    before = _get(srv.url + "/metrics").decode()
+    rounds = {"A": _sched_round(srv, "A", label)}
+    after = _get(srv.url + "/metrics").decode()
+    eng = srv.engine
+    moved = {d: _metric(after, "cake_kv_spill_total", dir=d)
+             - _metric(before, "cake_kv_spill_total", dir=d)
+             for d in ("spill", "restore")}
+    pre = (_metric(after, "cake_preemptions_total", reason="pages")
+           - _metric(before, "cake_preemptions_total", reason="pages"))
+    rec = dict(preempted_pages=pre, spills=eng.stats.kv_spills,
+               restores=eng.stats.kv_restores, pages_moved=moved)
+    if (pre, eng.stats.kv_spills, eng.stats.kv_restores) != (1.0, 1, 1) \
+            or moved["spill"] != moved["restore"] or moved["spill"] <= 0:
+        fail(f"tiers round A ({label}): {rec}; expected one pages "
+             "preemption, one spill and one restore of the same pages")
+    if len(snaps) != 1 or any(set(v) != {"before", "after"}
+                              for v in snaps.values()):
+        fail(f"tiers round A ({label}): victim snapshots {list(snaps)}")
+    (snap,) = snaps.values()
+    same = all(torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in zip(snap["before"], snap["after"]))
+    if not same:
+        fail(f"tiers round A ({label}): the restored pages differ from the "
+             "spilled ones")
+    if eng._pager.free_pages != SCHED_PAGES or eng._host_tier.used_pages:
+        fail(f"tiers round A ({label}): pages not all back")
+    srv.close()
+    fsrv = _SchedServer(torch, cfg, params, dtype, False)
+    fifo = {"A": _sched_round(fsrv, "A", label + " FIFO")}
+    fsrv.close()
+    log(f"tiers round A ({label}): one pages preemption, "
+        f"{moved['spill']:.0f} pages spilled and restored, byte-identical "
+        f"[{card}]")
+    return rounds, fifo, rec
+
+
+def _tier_oversubscribed(torch, cfg, params, card: str) -> dict:
+    """Drive 4: a 14-page pool with --auto-prefix and the host tier. A
+    chat with the ~630-token system message registers its 5-page head;
+    then TIER_OVER_CHATS chats of 200 + 120 tokens (3 pages each) arrive
+    at once, more than the pool holds: the cold prefix spills, and
+    decode-resident streams park and come back in resident_quantum
+    turns; every chat completes. Then a chat with the same system
+    message restores the prefix and hits it. Every page comes back."""
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                       kv_pages=TIER_OVER_PAGES,
+                       kv_host_pages=TIER_HOST_PAGES, auto_prefix=True)
+    eng = srv.engine
+    srv.post("Ohead", "standard", 160, 8, head=PREFIX_SYSTEM)
+    srv.join()
+    t0 = time.perf_counter()
+    before = _get(srv.url + "/metrics").decode()
+    names = [f"Oc{i}" for i in range(TIER_OVER_CHATS)]
+    for name in names:
+        srv.post(name, "standard", 200, 120)
+    srv.join()
+    wall = time.perf_counter() - t0
+    hits = eng.stats.prefix_hits
+    srv.post("Otail", "standard", 160, 8, head=PREFIX_SYSTEM)
+    srv.join()
+    after = _get(srv.url + "/metrics").decode()
+    bad = {n: srv.status.get(n) for n in names + ["Ohead", "Otail"]
+           if srv.status.get(n, (None,))[0] != 200}
+    if bad:
+        fail(f"tiers oversubscribed: chats failed {bad}")
+    evs = json.loads(_get(srv.url + "/api/v1/events?limit=10000"))["events"]
+    kinds = Counter((e["type"], e.get("kind")) for e in evs
+                    if e["type"] in ("kv_spill", "kv_restore"))
+    rec = dict(
+        resident_spills=_metric(after, "cake_kv_resident_spills_total")
+        - _metric(before, "cake_kv_resident_spills_total"),
+        prefix_spills=kinds[("kv_spill", "prefix")],
+        prefix_restores=kinds[("kv_restore", "prefix")],
+        victim_spills=kinds[("kv_spill", "victim")],
+        victim_restores=kinds[("kv_restore", "victim")],
+        tail_prefix_hit=eng.stats.prefix_hits - hits, wall_s=wall,
+        spill_seconds_mean=(
+            _metric(after, "cake_kv_spill_seconds_sum")
+            / max(1.0, _metric(after, "cake_kv_spill_seconds_count"))))
+    with eng._rid_lock:
+        registry = {pid: e[1] for pid, e in eng._prefixes.items()}
+    held = sum(len(p) for p in registry.values() if p)
+    log(f"tiers oversubscribed: {TIER_OVER_CHATS} chats of 3 pages on a "
+        f"{TIER_OVER_PAGES}-page pool: {rec} [{card}]")
+    if (rec["resident_spills"] <= 0 or rec["prefix_spills"] < 1
+            or rec["prefix_restores"] < 1 or rec["tail_prefix_hit"] != 1):
+        fail(f"tiers oversubscribed: {rec}; expected resident spills, the "
+             "cold prefix spilled and restored, and the last chat's hit")
+    if (eng._pager.free_pages != TIER_OVER_PAGES - held
+            or eng._host_tier.used_pages):
+        fail(f"tiers oversubscribed: {eng._pager.free_pages} pages free, "
+             f"{held} held by the registry, {eng._host_tier.used_pages} "
+             "host pages used")
+    for pid in registry:
+        eng.unregister_prefix(pid)
+    if eng._pager.free_pages != TIER_OVER_PAGES:
+        fail("tiers oversubscribed: pages leaked")
+    srv.close()
+    return rec
+
+
+def phase_tiers(torch, rpa, cfg, params, card: str) -> tuple:
+    """The KV tiers at Llama-3-8B width and depth, random bf16 weights
+    (drive 3: 4 layers, f32): 1. the six chats over an fp8 e4m3 pool
+    against a bf16 one (TTFT p50, decode tok/s, pool GiB), an fp8 e5m2
+    pool, and the tier's spill and restore ms a page; 2. round A with
+    the host tier: one spill and one restore, byte-identical pages, the
+    victim against the FIFO drive printed at bf16; 3. the same at 4
+    layers and f32, where the victim must be token-identical; 4. an
+    oversubscribed pool with a cold prefix. Returns (the fp8 kernels'
+    launches on drive 1, the phase's record)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.params import init_params
+
+    t_phase = time.perf_counter()
+    counts, fp8 = _tier_fp8(torch, rpa, cfg, params, card)
+    rec = dict(fp8=fp8)
+    rounds, fifo, rec["round_a_bf16"] = _tier_round_a(
+        torch, cfg, params, torch.bfloat16, "bf16", card)
+    rec["round_a_bf16"]["victims"] = _sched_identity(
+        rounds, fifo, "tiers bf16, 32 layers", card, required=False)
+    cfg32 = dataclasses.replace(cfg, num_hidden_layers=SCHED_LAYERS_F32)
+    p32 = init_params(cfg32, torch.Generator(device=DEV).manual_seed(3),
+                      device=DEV, dtype=torch.float32)
+    r32, f32, rec["round_a_f32"] = _tier_round_a(
+        torch, cfg32, p32, torch.float32, "f32", card)
+    rec["round_a_f32"]["victims"] = _sched_identity(
+        r32, f32, f"tiers f32, {SCHED_LAYERS_F32} layers", card,
+        required=True)
+    if not rec["round_a_f32"]["victims"]:
+        fail("tiers (f32): no preempted stream to compare")
+    del p32
+    torch.cuda.empty_cache()
+    rec["oversubscribed"] = _tier_oversubscribed(torch, cfg, params, card)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"tiers: phase wall {rec['wall_s']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2870,7 +3240,9 @@ def main(argv=None) -> int:
     serve_records = []
     prefix_records = []
     sched_record = None
-    if {"step", "generate", "serve", "prefix", "sched"} & set(phases):
+    tiers_record = None
+    if {"step", "generate", "serve", "prefix", "sched",
+            "tiers"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -2904,6 +3276,10 @@ def main(argv=None) -> int:
             got, sched_record = phase_sched(torch, rpa, cfg, params, card)
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
+        if "tiers" in phases:
+            # the fp8 kernels' launches on drive 1 (set to 0 just before)
+            got, tiers_record = phase_tiers(torch, rpa, cfg, params, card)
+            counts.update(got)
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -2943,6 +3319,9 @@ def main(argv=None) -> int:
               flush=True)
     if sched_record is not None:
         print(json.dumps({"sched": sched_record, "card": card}),
+              flush=True)
+    if tiers_record is not None:
+        print(json.dumps({"tiers": tiers_record, "card": card}),
               flush=True)
 
     rows = []
