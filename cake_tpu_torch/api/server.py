@@ -6,18 +6,29 @@ observability routes:
   POST /api/v1/chat/completions (and the /v1/chat/completions alias):
        buffered JSON, or SSE `chat.completion.chunk`s with "stream": true;
        the request's class in the body's "priority" or the
-       x-cake-priority header (the body wins; an unknown class is a 400)
-  GET  /v1/models (and /api/v1/models), GET /api/v1/health
+       x-cake-priority header (the body wins; an unknown class is a 400);
+       x-cake-idempotency-key makes a retried submit attach to its
+       stream instead of admitting it again, and on a streaming
+       reconnect Last-Event-ID (the absolute token position of the last
+       SSE `id:` the client saw) replays exactly the missing suffix
+  POST /api/v1/drain {"timeout_s"}: close admissions (new submits get
+       429 with the drain's Retry-After), let in-flight work finish,
+       then stop and save; GET /api/v1/drain reads the drain's state
+  GET  /v1/models (and /api/v1/models), GET /api/v1/health (with the
+       recovery, journal and drain blocks)
   GET  /metrics and /api/v1/metrics: the Prometheus text exposition
   GET  /api/v1/requests (?limit, ?rid, ?class, ?since): lifecycle traces
   GET  /api/v1/steps (?limit): the step flight recorder
   GET  /api/v1/events (?rid, ?type, ?since, ?limit): the event bus
 
 Every chat request goes through the continuous-batching engine, so N
-requests decode together; a full queue or a shed request answers 429
-with the computed Retry-After, an engine failure 503 (retryable) or 500.
-Not ported yet: the profile, fleet, drain, anomalies, autotune, cluster
-and timeline routes.
+requests decode together; a full queue, a shed request or a draining
+server answers 429 with the computed Retry-After, an engine failure 503
+(retryable) or 500 (a quarantined poison request). `start` restores a
+--checkpoint and replays a --journal at startup, and on SIGTERM drains,
+stops the engine and saves. Not ported yet: the profile, fleet,
+anomalies, autotune, cluster and timeline routes, the router's
+departure notice and the postmortem bundle.
 """
 
 from __future__ import annotations
@@ -34,12 +45,13 @@ from typing import Optional
 from cake_tpu_torch.api.openai import (
     chunk_response, completion_response, parse_chat_request,
 )
+from cake_tpu_torch.models.llama.generator import incremental_decode
 from cake_tpu_torch.obs import metrics as obs_metrics
 from cake_tpu_torch.obs import steps as obs_steps
 from cake_tpu_torch.obs.events import EVENT_TYPES
 from cake_tpu_torch.sched import ShedError, validate_priority
 from cake_tpu_torch.serve.engine import QueueFullError
-from cake_tpu_torch.serve.errors import EngineRequestError
+from cake_tpu_torch.serve.errors import DrainingError, EngineRequestError
 
 log = logging.getLogger(__name__)
 
@@ -49,19 +61,22 @@ KNOWN_ROUTES = frozenset({
     "/api/v1/chat/completions", "/v1/chat/completions",
     "/api/v1/health", "/v1/models", "/api/v1/models", "/metrics",
     "/api/v1/metrics", "/api/v1/requests", "/api/v1/steps",
-    "/api/v1/events",
+    "/api/v1/events", "/api/v1/drain",
 })
 
 
 class QueueFull(Exception):
-    """Admission refused: the queue is full, or (shed=True) load
-    shedding refused it; retry_after seconds ride the 429's
-    Retry-After."""
+    """Admission refused: the queue is full, (shed=True) load shedding
+    refused it, or (draining=True) the server is draining; retry_after
+    seconds ride the 429's Retry-After."""
 
-    def __init__(self, retry_after: float = 1.0, shed: bool = False):
-        super().__init__("request shed" if shed else "queue full")
+    def __init__(self, retry_after: float = 1.0, shed: bool = False,
+                 draining: bool = False):
+        super().__init__("server draining" if draining
+                         else "request shed" if shed else "queue full")
         self.retry_after = retry_after
         self.shed = shed
+        self.draining = draining
 
 # chat() return sentinel: the streaming client went away (handled; the
 # HTTP layer must not touch the dead socket again)
@@ -79,6 +94,11 @@ class ApiServer:
         self.model_name = model_name
         self.engine = engine
         self.started_at = int(time.time())  # /v1/models "created"
+        # drain: start() wires _shutdown to its save-and-exit closure,
+        # which the drain thread calls once in-flight work finishes
+        self._shutdown = None
+        self._drain_thread = None
+        self._drain_lock = threading.Lock()
         self._m_http = obs_metrics.counter(
             "cake_http_requests_total",
             "HTTP requests served, by route and status code",
@@ -98,14 +118,24 @@ class ApiServer:
         except (QueueFullError, ShedError) as e:
             raise QueueFull(getattr(e, "retry_after", 1.0),
                             shed=isinstance(e, ShedError))
+        except DrainingError as e:
+            raise QueueFull(e.retry_after, draining=True)
 
-    def chat(self, body: dict, send_chunk=None,
-             on_start=None) -> Optional[dict]:
+    def chat(self, body: dict, send_chunk=None, on_start=None,
+             idempotency_key=None, last_event_id=None) -> Optional[dict]:
         """Run one chat completion. With send_chunk, stream deltas through
         it and return None (or DISCONNECTED); else return the response
         dict. `on_start` fires after admission and before any token, so
         a queue rejection (QueueFullError) still surfaces as a clean
-        429."""
+        429. send_chunk(obj, event_id=N) gets each event's absolute token
+        position (the SSE `id:`).
+
+        idempotency_key (x-cake-idempotency-key): a retried submit with
+        the same key attaches to the live or finished stream instead of
+        admitting again (across restarts too with --journal).
+        last_event_id (Last-Event-ID): on a streaming reconnect, the
+        held or journaled suffix after that position is replayed, then
+        the stream continues live: no duplicates, no gaps."""
         messages, opts = parse_chat_request(body)
         want_lp = bool(opts.get("logprobs"))
         n_top = opts.get("top_logprobs") or 0
@@ -115,6 +145,7 @@ class ApiServer:
             top_p=opts["top_p"],
             want_top_logprobs=n_top > 0,
             priority=opts.get("priority"),
+            idempotency_key=idempotency_key,
         )
         tok = self.engine.tokenizer
 
@@ -129,6 +160,7 @@ class ApiServer:
                                           "bytes": list(atext.encode())})
             return e
 
+        eos_ids = self.engine.config.eos_token_ids
         if send_chunk is None:
             h = self._submit(messages, kw)
             h.wait()
@@ -137,6 +169,12 @@ class ApiServer:
             if want_lp:
                 lp = [lp_entry(t, l, top) for (t, l), top
                       in zip(h.token_logprobs, h.token_top_logprobs)]
+            rep = list(h._req.replayed_tokens)
+            if rep:
+                # a resumed stream: the client's transcript is the whole
+                # generation, earlier process generations included
+                text = tok.decode([t for t in rep + list(h._req.out_tokens)
+                                   if t not in eos_ids])
             return completion_response(text, self.model_name, logprobs=lp)
 
         rid = str(uuid.uuid4())
@@ -154,8 +192,12 @@ class ApiServer:
         if on_start is not None:
             on_start()
         r = h._req
-        eos_ids = self.engine.config.eos_token_ids
         lp_cursor = 0
+        # SSE event ids are absolute token positions: tokens of earlier
+        # process generations count, so a Last-Event-ID survives any
+        # number of restarts
+        id_base = len(r.replayed_tokens)
+        sent_id = id_base      # the highest event id delivered
 
         def chunk_lp(upto):
             nonlocal lp_cursor
@@ -168,6 +210,44 @@ class ApiServer:
             lp_cursor = upto
             return entries
 
+        # trim_from: a fresh admission with a Last-Event-ID (a keyed
+        # stream failed over to a process that re-runs it): events up to
+        # the client's position are suppressed, and the batch crossing
+        # it ships only the unseen suffix
+        trim_from = None
+        # shown: on an idempotent reconnect, the text sent since the
+        # client's Last-Event-ID. The server decodes an attached stream's
+        # text itself from the absolute token positions: the engine's
+        # deltas follow its own decode state, which a resumed request
+        # (no client until the attach) has not kept
+        shown = None
+        start_at = max(0, int(last_event_id or 0))
+
+        def since_client(upto):
+            history = list(r.replayed_tokens) + list(r.out_tokens)
+            return [t for t in history[start_at:upto] if t not in eos_ids]
+
+        if h.attached:
+            # the held or journaled suffix after the client's
+            # Last-Event-ID as one chunk, then the live loop drops queued
+            # deltas at or below it
+            n_hist = len(r.replayed_tokens) + len(r.out_tokens)
+            text, shown = incremental_decode(
+                tok, since_client(n_hist), "", final=r.done.is_set())
+            try:
+                if text:
+                    send_chunk(chunk_response(text, self.model_name,
+                                              rid=rid),
+                               event_id=n_hist)
+            except OSError:
+                return DISCONNECTED
+            sent_id = max(start_at, n_hist)
+            lp_cursor = max(0, sent_id - id_base)
+        elif last_event_id:
+            sent_id = max(sent_id, int(last_event_id))
+            lp_cursor = max(0, sent_id - id_base)
+            trim_from = lp_cursor
+
         while True:
             try:
                 delta, final, n_done = deltas.get(timeout=0.5)
@@ -175,15 +255,37 @@ class ApiServer:
                 if r.done.is_set() and deltas.empty():
                     break  # request ended without a final delta (error)
                 continue
-            if delta:
+            ev_id = id_base + n_done
+            if shown is not None and ev_id > sent_id:
+                delta, shown = incremental_decode(
+                    tok, since_client(ev_id), shown, final=final)
+            if delta and ev_id > sent_id:
+                if trim_from is not None:
+                    toks = [t for t in r.out_tokens[trim_from:n_done]
+                            if t not in eos_ids]
+                    delta = tok.decode(toks) if toks else ""
+                    trim_from = None
+                    if not delta:
+                        sent_id = ev_id
+                        if final:
+                            break
+                        continue
                 try:
                     send_chunk(chunk_response(delta, self.model_name,
                                               rid=rid,
-                                              logprobs=chunk_lp(n_done)))
+                                              logprobs=chunk_lp(n_done)),
+                               event_id=ev_id)
+                    sent_id = ev_id
                 except OSError:
-                    # client disconnected mid-stream: free the slot now
-                    log.info("client disconnected; cancelling request")
-                    self.engine.cancel(h)
+                    # the client went away: free the slot now, unless the
+                    # request is keyed (its client will reconnect)
+                    if r.idempotency_key is None:
+                        log.info("client disconnected; cancelling request")
+                        self.engine.cancel(h)
+                    else:
+                        log.info("client disconnected; rid=%d keeps "
+                                 "decoding for an idempotent reconnect",
+                                 r.rid)
                     return DISCONNECTED
             if final:
                 break
@@ -202,31 +304,43 @@ class ApiServer:
         try:
             send_chunk(chunk_response("", self.model_name, finish="stop",
                                       rid=rid,
-                                      logprobs=chunk_lp(len(r.out_tokens))))
+                                      logprobs=chunk_lp(len(r.out_tokens))),
+                       event_id=id_base + len(r.out_tokens))
         except OSError:
             return DISCONNECTED
         return None
 
     def health(self) -> dict:
         """/api/v1/health: engine occupancy, per-class queue depths (SLO
-        scheduling on), pool pages, SLO accounting and throughput."""
+        scheduling on), pool pages, SLO accounting and throughput, and
+        the recovery, journal and drain blocks. A stopped engine (a
+        storm-breaker or failed-rebuild stop) reports status "stopped"
+        and the reason."""
         eng = self.engine
         st = eng.stats
         out = {
-            "status": "ok",
+            "status": "stopped" if eng.stopped else "ok",
             "model": self.model_name,
             "device": str(eng.device),
             "queue_depth": eng.queue_depth,
             "active_requests": eng.active,
             "decode_slots": eng.max_slots,
         }
+        if eng.stopped:
+            out["reason"] = st.last_error or "engine stopped"
         depths = getattr(eng.scheduler, "class_depths", None)
         if depths is not None:
             out["queue_depth_by_class"] = depths()
+        if eng._draining:
+            out["draining"] = True
+            out["drain"] = eng.drain_state()
+        out["recovery"] = eng.recovery_state()
+        if eng._journal is not None:
+            out["journal"] = eng._journal.state()
         out.update(
-            page_size=eng.cache.page_size,
+            page_size=eng._pager.page_size,
             pages_free=eng._pager.free_pages,
-            pages_total=eng.cache.n_pages,
+            pages_total=eng._pager.n_pages,
             paged_attn=eng.paged_attn,
             slo=eng.slo.snapshot(),
             requests_completed=st.requests_completed,
@@ -313,6 +427,46 @@ class ApiServer:
                                    limit=limit)
         return {"events": evs, "cursor": cursor}
 
+    def drain(self, body: dict) -> dict:
+        """POST /api/v1/drain {"timeout_s": N?}: close admissions (new
+        submits get 429 with the drain's ETA as Retry-After), let
+        in-flight work finish for up to timeout_s (default 30), then run
+        start()'s shutdown (stop the engine, save the --checkpoint).
+        Answers at once with the drain's state; a second POST reports
+        progress."""
+        timeout_s = body.get("timeout_s", 30.0)
+        if (not isinstance(timeout_s, (int, float))
+                or isinstance(timeout_s, bool) or timeout_s <= 0):
+            raise ValueError("timeout_s must be a positive number")
+        st = self.engine.begin_drain()
+        with self._drain_lock:
+            if self._drain_thread is None:
+                self._drain_thread = threading.Thread(
+                    target=self._drain_then_exit, args=(float(timeout_s),),
+                    daemon=True, name="cake-drain")
+                self._drain_thread.start()
+        return st
+
+    def _drain_then_exit(self, timeout_s: float) -> None:
+        """The drain thread: wait (bounded) for the queue and the
+        in-flight requests to empty, then the shutdown."""
+        eng = self.engine
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            st = eng.drain_state()
+            if st["pending_requests"] == 0 and st["queue_depth"] == 0:
+                break
+            time.sleep(0.05)
+        else:
+            log.warning("drain: timeout after %.1fs with %d request(s) "
+                        "still in flight (snapshotted or journaled where "
+                        "armed)", timeout_s,
+                        eng.drain_state()["pending_requests"])
+        if self._shutdown is not None:
+            self._shutdown()
+        else:
+            eng.stop()
+
     def steps(self, limit: Optional[int] = None) -> dict:
         """GET /api/v1/steps: newest step records first and the summary
         (per-kind counts, captures, decode-side MFU / HBM share)."""
@@ -378,6 +532,8 @@ def make_handler(api: ApiServer):
             route = self.path.split("?", 1)[0]
             if route == "/api/v1/health":
                 return self._json(200, api.health())
+            if route == "/api/v1/drain":
+                return self._json(200, api.engine.drain_state())
             if route == "/api/v1/requests":
                 q = self._query()
                 try:
@@ -437,6 +593,8 @@ def make_handler(api: ApiServer):
                 if self.path in ("/api/v1/chat/completions",
                                  "/v1/chat/completions"):
                     return self._chat(body)
+                if self.path == "/api/v1/drain":
+                    return self._json(200, api.drain(body))
                 return self._json(404, {"error": "not found"})
             except ValueError as e:
                 if not self._stream_started:
@@ -447,7 +605,9 @@ def make_handler(api: ApiServer):
                     # until the class's backlog drains inside its SLO at
                     # the measured rate (sched/shed.py), 1 s otherwise
                     self._retry_json(429, e.retry_after, {
-                        "error": ("request shed: server saturated for "
+                        "error": ("server draining: admissions are closed"
+                                  if e.draining
+                                  else "request shed: server saturated for "
                                   "this priority class" if e.shed
                                   else "queue full")})
             except EngineRequestError as e:
@@ -471,8 +631,27 @@ def make_handler(api: ApiServer):
             hdr = self.headers.get("x-cake-priority")
             if hdr is not None and body.get("priority") is None:
                 body["priority"] = hdr
+            # durable serving: a retried submit with the same
+            # x-cake-idempotency-key attaches to its stream; on a
+            # streaming reconnect Last-Event-ID (the standard SSE resume
+            # header) replays exactly the missing suffix
+            idem_key = self.headers.get("x-cake-idempotency-key")
+            last_id = self.headers.get("Last-Event-ID")
+            if last_id is not None:
+                try:
+                    last_id = int(last_id)
+                except ValueError:
+                    raise ValueError(
+                        f"Last-Event-ID must be an integer event id, "
+                        f"got {last_id!r}")
+                if idem_key is None:
+                    raise ValueError(
+                        "Last-Event-ID resume requires "
+                        "x-cake-idempotency-key (the key names the "
+                        "stream across reconnects and restarts)")
             if not body.get("stream"):
-                return self._json(200, api.chat(body))
+                return self._json(200, api.chat(body,
+                                                idempotency_key=idem_key))
 
             def on_start():
                 self.send_response(200)
@@ -482,14 +661,22 @@ def make_handler(api: ApiServer):
                 self.end_headers()
                 self._stream_started = True
 
-            def send_chunk(obj: dict):
-                payload = f"data: {json.dumps(obj)}\n\n".encode()
+            def send_chunk(obj: dict, event_id=None):
+                # a keyed stream is resumable: its `id:` field is the
+                # absolute token position the event covers up to, which
+                # a reconnect echoes as Last-Event-ID (an unkeyed stream
+                # cannot be resumed and carries none)
+                head = (f"id: {int(event_id)}\n"
+                        if event_id is not None and idem_key is not None
+                        else "")
+                payload = f"{head}data: {json.dumps(obj)}\n\n".encode()
                 self.wfile.write(hex(len(payload))[2:].encode() + b"\r\n")
                 self.wfile.write(payload + b"\r\n")
                 self.wfile.flush()
 
-            if api.chat(body, send_chunk=send_chunk,
-                        on_start=on_start) is DISCONNECTED:
+            if api.chat(body, send_chunk=send_chunk, on_start=on_start,
+                        idempotency_key=idem_key,
+                        last_event_id=last_id) is DISCONNECTED:
                 return
             done = b"data: [DONE]\n\n"
             self.wfile.write(hex(len(done))[2:].encode() + b"\r\n")
@@ -501,28 +688,125 @@ def make_handler(api: ApiServer):
 
 
 def start(master, address: str = "127.0.0.1:10128",
-          model_name: str = "cake-tpu", block: bool = True, engine=None):
+          model_name: str = "cake-tpu", block: bool = True, engine=None,
+          checkpoint_path: Optional[str] = None):
     """Bind and serve. Without `engine`, one is built from the master
     (`master.make_engine()`). With block=False the server runs on a
     daemon thread and the bound ThreadingHTTPServer is returned: its
-    shutdown() stops serving, then stops the engine and fails whatever
-    it still held with a retryable error."""
+    shutdown() stops serving and runs the shutdown below.
+
+    checkpoint_path (--checkpoint): arms the engine's pre-fail snapshot,
+    restores the in-flight requests a previous process saved, and saves
+    the engine's requests at shutdown. With the engine's --journal, the
+    journal is replayed at startup over that checkpoint
+    (serve/journal.recover). A snapshot or journal that cannot be
+    resumed (another package's, other weights) is moved to *.invalid
+    and the engine starts empty.
+
+    The shutdown (SIGTERM when block=True, POST /api/v1/drain, or the
+    server's end) closes admissions, stops the engine, then saves the checkpoint;
+    without a checkpoint or a journal the requests still held fail with
+    a retryable error."""
+    import os
+
+    from cake_tpu_torch.serve import checkpoint as ckpt
+    from cake_tpu_torch.serve.errors import EngineResetError
+
     host, port = address.rsplit(":", 1)
     if engine is None:
         engine = master.make_engine()
+    journal_armed = engine._journal is not None
+    if checkpoint_path or journal_armed:
+        # the weights' digest now, while the card is healthy: the
+        # failure path's snapshot (and the journal's header) must not
+        # read the device
+        if checkpoint_path:
+            engine.snapshot_path = checkpoint_path
+        ckpt.warm_fingerprint(engine)
     api = ApiServer(master, model_name, engine=engine)
+    if journal_armed:
+        from cake_tpu_torch.serve import journal as jr
+        try:
+            handles, _ = jr.recover(engine, checkpoint_path=checkpoint_path,
+                                    strict=True)
+            if handles:
+                log.info("journal replay resubmitted %d in-flight "
+                         "request(s)", len(handles))
+        except Exception as e:  # noqa: BLE001
+            # an unusable journal or checkpoint must not crash-loop the
+            # startup: keep the evidence beside it
+            jpath = engine._journal.path
+            for p in (checkpoint_path, jpath, jpath + ".replaying"):
+                if p and os.path.exists(p):
+                    try:
+                        os.replace(p, p + ".invalid")
+                    except OSError:
+                        pass
+            log.warning("journal/checkpoint replay failed (%s); sidelined "
+                        "to *.invalid, starting with an empty engine", e)
+    elif checkpoint_path and os.path.exists(checkpoint_path):
+        try:
+            handles, _ = ckpt.restore(engine, checkpoint_path, strict=True)
+            log.info("restored %d in-flight request(s) from %s",
+                     len(handles), checkpoint_path)
+        except Exception as e:  # noqa: BLE001
+            bad = f"{checkpoint_path}.invalid"
+            try:
+                os.replace(checkpoint_path, bad)
+            except OSError:
+                bad = checkpoint_path
+            log.warning("checkpoint restore failed (%s); moved to %s, "
+                        "starting with an empty engine", e, bad)
     httpd = ThreadingHTTPServer((host, int(port)), make_handler(api))
     httpd.daemon_threads = True
     log.info("REST API listening on %s:%d", host, httpd.server_address[1])
+    done = threading.Event()
+
+    def save_and_exit(*_sig):
+        if done.is_set():
+            return
+        done.set()
+        # close admissions (new submits get the drain's 429 instead of
+        # racing the stop), stop the engine, then save; shutdown() runs
+        # on a helper thread (from the serving thread it deadlocks)
+        engine.begin_drain()
+        engine.stop()
+        if checkpoint_path:
+            engine.shutdown_save(checkpoint_path)
+        elif not journal_armed:
+            # nothing resumes these after a restart
+            engine._fail_all(EngineResetError(
+                "server stopped while this request was in flight"))
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+
+    api._shutdown = save_and_exit
+    if block:
+        # the serving process's SIGTERM (a block=False caller embeds the
+        # server and owns its signals; a handler would also keep every
+        # engine it ever started alive)
+        try:
+            import signal
+
+            prev_handler = signal.getsignal(signal.SIGTERM)
+
+            def on_sigterm(signum, frame):
+                save_and_exit()
+                # chain the handler that was there before
+                if callable(prev_handler):
+                    prev_handler(signum, frame)
+                elif prev_handler == signal.SIG_DFL:
+                    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                    signal.raise_signal(signal.SIGTERM)
+
+            signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:
+            pass  # not the main thread: the caller owns signals
 
     def serve():
         try:
             httpd.serve_forever()
         finally:
-            engine.stop()
-            from cake_tpu_torch.serve.errors import EngineResetError
-            engine._fail_all(EngineResetError(
-                "server stopped while this request was in flight"))
+            save_and_exit()
 
     if block:
         serve()

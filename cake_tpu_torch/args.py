@@ -112,6 +112,27 @@ class Args:
     # --shed: per-class load shedding from the measured service rate and
     # queue depth; a refused request gets 429 with a computed Retry-After
     shed: bool = False
+    # --checkpoint PATH: the engine's runtime checkpoint
+    # (serve/checkpoint.py): in-flight requests restored at startup,
+    # saved on SIGTERM and written before a fatal stop
+    checkpoint: Optional[str] = None
+    # --fault-plan SPEC: deterministic fault injection (faults/):
+    # "seed=N;site:trigger:error[:opts];...", e.g.
+    # "seed=7;engine.decode:nth=12:transient"; unset = no plane
+    fault_plan: Optional[str] = None
+    # --recovery / --no-recovery: on a step failure, reset and resubmit
+    # the in-flight requests through the recompute fold instead of
+    # failing them all; repeatedly implicated requests are quarantined
+    # as poison and a reset storm trips a breaker (snapshot + clean
+    # stop). None = on (the paged engine always has the fold)
+    recovery: Optional[bool] = None
+    # --journal PATH: the write-ahead request journal
+    # (serve/journal.py), replayed at startup (over the --checkpoint
+    # base when both are set), so a hard process death loses no stream
+    journal: Optional[str] = None
+    # --journal-fsync {never,batch,always}: "never" flushes per line,
+    # "batch" fsyncs once per engine iteration, "always" every append
+    journal_fsync: str = "batch"
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
@@ -120,7 +141,8 @@ class Args:
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
         name must be a dtype or an fp8 storage name; --kv-host-pages is
-        at least 1. Returns self."""
+        at least 1; --fault-plan parses; --journal-fsync is never, batch
+        or always. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         for knob in ("decode_scan", "trace_ring", "step_ring"):
@@ -157,6 +179,15 @@ class Args:
         if self.kv_host_pages is not None and self.kv_host_pages < 1:
             raise ValueError(
                 f"--kv-host-pages {self.kv_host_pages} must be >= 1")
+        if self.fault_plan:
+            # a malformed plan is a startup error, not a chaos run that
+            # silently injects nothing
+            from cake_tpu_torch.faults.plan import FaultPlan
+            FaultPlan.parse(self.fault_plan)
+        if self.journal_fsync not in ("never", "batch", "always"):
+            raise ValueError(
+                f"unsupported journal_fsync '{self.journal_fsync}' "
+                "(choose never, batch or always)")
         return self
 
 

@@ -25,20 +25,30 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s")
     args = parse_args(argv)
+    if args.journal_fsync != "batch" and not args.journal:
+        logging.getLogger(__name__).warning(
+            "--journal-fsync has no effect without --journal: it tunes "
+            "the write-ahead request journal's durability barrier "
+            "(serve/journal.py)")
     master = Master.from_args(args)
     if args.api:
         from cake_tpu_torch.api.server import start
-        start(master, address=args.api)
+        kw = ({"checkpoint_path": args.checkpoint} if args.checkpoint
+              else {})
+        start(master, address=args.api, **kw)
         return 0
     if (args.step_log or args.event_log or args.slo_targets
             or args.trace_events or args.priority_classes
-            or args.preemption or args.shed):
+            or args.preemption or args.shed or args.checkpoint
+            or args.fault_plan or args.journal
+            or args.recovery is not None):
         # the step recorder, the event bus, SLO accounting and the
         # scheduler live in the serving engine: a one-shot generation
         # has one request and records nothing
         logging.getLogger(__name__).warning(
             "--step-log / --event-log / --trace-events / --slo-targets / "
-            "--priority-classes / --preemption / --shed apply to engine "
+            "--priority-classes / --preemption / --shed / --checkpoint / "
+            "--fault-plan / --recovery / --journal apply to engine "
             "serving (--api); one-shot generation has a single request "
             "and records nothing")
     master.run()

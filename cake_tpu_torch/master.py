@@ -76,6 +76,12 @@ class Master:
             priority_classes=a.priority_classes,
             preemption=a.preemption,
             shed=a.shed,
+            # fault injection, crash recovery (--recovery unset = on, the
+            # JAX default) and the journal
+            fault_plan=a.fault_plan,
+            recovery=a.recovery is not False,
+            journal=a.journal,
+            journal_fsync=a.journal_fsync,
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)

@@ -83,6 +83,26 @@ class JsonlAppender:
                         exc_info=True)
             return 0
 
+    def sync(self) -> bool:
+        """fsync the open file (no-op before the first append, or after
+        a failure). The durability knob behind the request journal's
+        --journal-fsync batch/always modes (serve/journal.py): append()
+        alone flushes to the OS, sync() makes it power-loss durable.
+        Returns False when the writer is disabled or the fsync failed."""
+        if self._failed:
+            return False
+        try:
+            with self._lock:
+                if self._file is None:
+                    return True
+                os.fsync(self._file.fileno())
+            return True
+        except OSError:
+            self._failed = True
+            log.warning("jsonl log disabled: cannot fsync %s", self.path,
+                        exc_info=True)
+            return False
+
     def close(self) -> None:
         """Flush + fsync + close: records written before a clean
         shutdown survive a power loss right after it."""

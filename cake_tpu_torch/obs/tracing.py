@@ -310,6 +310,22 @@ class RequestTracer:
                     output_tokens=rec.output_tokens, e2e_s=_r(rec.e2e_s),
                     queue_wait_s=_r(rec.queue_wait_s))
 
+    def annotate(self, rid: int, **fields) -> None:
+        """Attach flags to a live record (resumed / truncated / ...).
+        Unknown keys are ignored rather than raised: annotation is
+        best-effort metadata, never control flow."""
+        with self._lock:
+            rec = self._active.get(rid)
+            if rec is None:
+                # the request may have retired between submit and this
+                # call: annotate the ring record
+                rec = next((r for r in self._done if r.rid == rid), None)
+            if rec is None:
+                return
+            for k, v in fields.items():
+                if hasattr(rec, k) and not k.startswith("_"):
+                    setattr(rec, k, v)
+
     # -- export -----------------------------------------------------------
 
     def dump(self, limit: Optional[int] = None,

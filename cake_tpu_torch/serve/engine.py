@@ -50,7 +50,26 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     flight record per device step (`flight`, with the step's counted
     FLOPs and bytes and its device time from CUDA events read at the
     fetch that already happens), the event bus (`events`) and SLO
-    accounting (`slo`), all built from values the host already has.
+    accounting (`slo`), all built from values the host already has;
+  * crash recovery (`recovery`; --recovery, on by default at the
+    serving entry points, as in JAX): a failed iteration
+    implicates the rows of the dispatch that failed, rebuilds the pool
+    and the sampling state (the old pool and the captured graphs are
+    released first), and resubmits every surviving request through the
+    recompute fold, so greedy streams finish with the tokens an
+    uninterrupted run gives; a request implicated in implication_budget
+    consecutive failures is quarantined (PoisonRequestError), and a
+    reset storm or a rebuild that itself fails snapshots the in-flight
+    requests (`snapshot_path`) and stops the engine cleanly;
+  * deterministic fault injection (`fault_plan`, faults/): named sites
+    (engine.step, engine.prefill, engine.mixed, engine.decode,
+    pager.alloc, host_tier.fetch, host_tier.install, journal.*), each
+    one `is not None` test on the host, none inside a graph capture;
+  * durable serving: the write-ahead request journal (`journal`,
+    serve/journal.py) with idempotency keys that attach a retried
+    submit to its stream, the runtime checkpoint (serve/checkpoint.py,
+    `shutdown_save`, the pre-fail snapshot), and drain (`begin_drain`:
+    new submits raise DrainingError while in-flight work finishes).
 
 Both steps run as captured CUDA graphs on the card (there is no eager
 step there), and eagerly on the CPU: the decode step, its sampling and
@@ -68,9 +87,9 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: speculation, fault injection
-and recovery, the journal, autotune, disaggregated prefill and
-multi-host.
+(`_run_on_engine_thread`). Not ported yet: speculation, autotune,
+disaggregated prefill and multi-host (the control channel and its
+lockstep followers), and the postmortem bundles.
 """
 
 from __future__ import annotations
@@ -78,13 +97,15 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from collections import deque
+import traceback
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from cake_tpu_torch.faults import build_injector
 from cake_tpu_torch.kv.host_tier import (
     HostTier, SpilledPages, note_resident_spill, pool_dtype_name,
 )
@@ -113,6 +134,10 @@ from cake_tpu_torch.sched import (
     SchedConfig, ShedController, ShedError, make_scheduler,
 )
 from cake_tpu_torch.sched.classes import CLASS_RANK, validate_priority
+from cake_tpu_torch.serve.errors import (
+    DrainingError, EngineResetError, PoisonRequestError, RecoveryConfig,
+    as_engine_error,
+)
 from cake_tpu_torch.serve.graphs import (
     DecodeRunner, MixedRunner, elapsed_s, mark,
 )
@@ -169,6 +194,37 @@ _SCHED_TTFT = obs_metrics.histogram(
     "wait and any preemption-induced requeues)",
     labelnames=("class",))
 
+# crash recovery: a rebuild that itself failed, recovery outcomes,
+# requests carried across a reset, and requests quarantined as poison
+_RESET_FAILURES = obs_metrics.counter(
+    "cake_engine_reset_failures_total",
+    "Post-error engine resets that themselves failed (engine stopped)")
+_RECOVERIES = obs_metrics.counter(
+    "cake_engine_recoveries_total",
+    "Engine step-failure recovery attempts by outcome (recovered = "
+    "reset + in-flight requests resubmitted; storm_breaker = too many "
+    "resets in the window, snapshot + clean stop; reset_failed = the "
+    "rebuild itself failed, engine stopped)",
+    labelnames=("outcome",))
+_RECOVERED_REQUESTS = obs_metrics.counter(
+    "cake_requests_recovered_total",
+    "In-flight requests carried across an engine reset via the "
+    "fold-tokens-into-prompt resubmit (no client-visible failure)")
+_POISON_REQUESTS = obs_metrics.counter(
+    "cake_poison_requests_total",
+    "Requests quarantined with a typed non-retryable error, by reason "
+    "(implicated = present in implication_budget consecutive failed "
+    "steps; resubmit_failed = recovery could not requeue it)",
+    labelnames=("reason",))
+_RECOVERY_SECONDS = obs_metrics.histogram(
+    "cake_engine_recovery_seconds",
+    "Wall seconds from deciding to recover to every surviving request "
+    "requeued (backoff wait + cache rebuild + resubmission)")
+
+# how long a failure's request capture stays the pre-fail snapshot's
+# fallback (a snapshot asked for after the registry was emptied)
+_FAIL_RECS_TTL_S = 60.0
+
 
 @dataclass
 class _Request:
@@ -189,6 +245,19 @@ class _Request:
     # higher class
     priority: str = "standard"
     preemptions: int = 0
+    # tokens generated before a checkpoint or journal resume: they seed
+    # the slot's repeat-penalty ring
+    prime_tokens: List[int] = field(default_factory=list)
+    # consecutive failed steps this request was dispatched in; an emit
+    # resets it, and recovery quarantines it at the implication budget
+    crash_count: int = 0
+    # durable serving: the client's idempotency key (a retried submit
+    # with the same key attaches instead of admitting again), and the
+    # tokens of earlier process generations a replay folded into
+    # prompt_ids; the absolute stream position (SSE event ids, journal
+    # emit counts) is len(replayed_tokens) + len(out_tokens)
+    idempotency_key: Optional[str] = None
+    replayed_tokens: List[int] = field(default_factory=list)
     out_tokens: List[int] = field(default_factory=list)
     out_logprobs: List[float] = field(default_factory=list)
     # per emitted token: [(alt_token_id, alt_logprob), ...] top-N list
@@ -212,7 +281,10 @@ class _Request:
 
 
 class RequestHandle:
-    """Caller-side view of a submitted request."""
+    """Caller-side view of a submitted request (`attached`: an
+    idempotent submit that attached to an existing stream)."""
+
+    attached = False
 
     def __init__(self, req: _Request, tokenizer, eos_ids):
         self._req = req
@@ -270,6 +342,11 @@ class EngineStats:
     # spills that failed (logged; the victim takes the recompute fold,
     # a cold prefix stays on the device)
     kv_spill_failures: int = 0
+    # crash recovery: successful reset + resubmits, the requests carried
+    # across them, and the requests quarantined as poison
+    recoveries: int = 0
+    requests_recovered: int = 0
+    poisoned: int = 0
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -324,6 +401,11 @@ class InferenceEngine:
         preemption: Optional[bool] = None,
         shed: bool = False,
         sched_config: Optional[SchedConfig] = None,
+        fault_plan=None,
+        recovery: Optional[bool] = None,
+        recovery_config: Optional[RecoveryConfig] = None,
+        journal: Optional[str] = None,
+        journal_fsync: str = "batch",
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -475,6 +557,60 @@ class InferenceEngine:
             max_slots, max_queue, priority_classes=self._slo,
             config=self._sched_cfg)
         self.stats = EngineStats()
+        # crash recovery: on a step failure, reset and resubmit the
+        # in-flight requests through the recompute fold instead of
+        # failing them all. An engine built directly keeps the
+        # fail-everything contract unless asked (None = off); the
+        # serving entry points pass --recovery, on by default as in JAX
+        # (master.make_engine)
+        self._recovery_cfg = recovery_config or RecoveryConfig()
+        self._recover = bool(recovery)
+        # the reset-storm breaker's window (monotonic reset times), the
+        # consecutive resets (backoff), and each recovery's seconds
+        self._reset_times: List[float] = []
+        self._consec_resets = 0
+        self.recovery_seconds: List[float] = []
+        self._breaker_tripped = False
+        # deterministic fault injection (faults/): None without a plan,
+        # and every site is then one attribute test
+        self._faults = build_injector(fault_plan)
+        if self._faults is not None:
+            self._faults.events = self.events
+            log.warning("fault plan armed: %s",
+                        self._faults.plan.describe())
+        # the rows of the dispatch in flight: the blast radius recovery
+        # implicates (set at each dispatch, cleared after a clean
+        # iteration)
+        self._implicated: Sequence = ()
+        # --journal: the write-ahead request journal (serve/journal.py),
+        # replayed at a cold restart; None without the flag
+        self._journal = None
+        if journal:
+            from cake_tpu_torch.serve.journal import RequestJournal
+            self._journal = RequestJournal(journal, fsync=journal_fsync)
+            self._journal.faults = self._faults
+            self._journal.owner = self
+            log.info("request journal armed: %s (fsync=%s)", journal,
+                     journal_fsync)
+        # idempotent submits: key -> live rid, and a bounded ring of
+        # finished keyed requests (a retry after retirement attaches to
+        # the transcript); both under _rid_lock
+        self._idem_live: dict = {}
+        self._idem_done: "OrderedDict" = OrderedDict()
+        self._idem_done_cap = 128
+        # drain (POST /api/v1/drain, SIGTERM): new submits refuse while
+        # in-flight work finishes
+        self._draining = False
+        # the checkpoint: api.start arms snapshot_path (the pre-fail
+        # snapshot); _ckpt_lock serializes the pre-fail and shutdown
+        # writes; _fail_recs is the last failure's request capture
+        self.snapshot_path: Optional[str] = None
+        self._ckpt_lock = threading.Lock()
+        self._fail_recs = None
+        self._prefail_written = False
+        # submit's critical section: an idempotency key's re-check and
+        # its registration land together
+        self._admit_lock = threading.Lock()
         # request-lifecycle traces (obs/tracing.py), always on: spans at
         # the submit, admission, first-token, emit, preemption, requeue
         # and retire seams; --trace-events appends them as JSONL
@@ -575,6 +711,16 @@ class InferenceEngine:
         self.flight.close()
         if self.events is not None:
             self.events.close()
+        if self._journal is not None:
+            # flush buffered emits and fsync: a clean stop's journal is
+            # durable (shutdown_save may then truncate it)
+            self._journal.close()
+
+    @property
+    def stopped(self) -> bool:
+        """The engine serves no more: stopped, or its loop ended (a
+        storm-breaker or failed-rebuild stop)."""
+        return self._stop.is_set()
 
     def __enter__(self):
         return self.start()
@@ -595,6 +741,9 @@ class InferenceEngine:
         stream: Optional[Callable[..., None]] = None,
         want_top_logprobs: bool = False,
         priority: Optional[str] = None,
+        prime_penalty_tokens: Optional[Sequence[int]] = None,
+        idempotency_key: Optional[str] = None,
+        replay_tokens: Optional[Sequence[int]] = None,
     ) -> RequestHandle:
         """Queue one generation. stream(text_delta, is_final) is called
         from the engine thread as tokens finalize; a callback with
@@ -603,11 +752,25 @@ class InferenceEngine:
         interface. priority: the request's class (interactive |
         standard | batch; None = standard; an unknown one raises
         ValueError); it orders admission under priority_classes and
-        labels the TTFT histogram always. Raises ShedError (shedding) or
-        QueueFullError, each with a Retry-After."""
+        labels the TTFT histogram always. Raises ShedError (shedding),
+        QueueFullError (each with a Retry-After), DrainingError while
+        draining, EngineResetError once stopped.
+
+        prime_penalty_tokens: tokens generated before a resume, which
+        seed the penalty ring. idempotency_key: a submit whose key names
+        a live or finished request attaches to it (the handle's
+        `attached` is True) instead of admitting again. replay_tokens:
+        the suffix of prompt_ids that earlier process generations
+        generated (a checkpoint or journal resume), which counts in the
+        request's absolute stream position."""
         if self._stop.is_set():
-            from cake_tpu_torch.serve.errors import EngineResetError
             raise EngineResetError("engine stopped")
+        if idempotency_key is not None:
+            # before validation: the key names an existing stream, which
+            # its admission validated
+            prev = self._attach_idempotent(idempotency_key, stream)
+            if prev is not None:
+                return prev
         cls = validate_priority(priority)
         ids = list(prompt_ids)
         if not ids:
@@ -618,12 +781,18 @@ class InferenceEngine:
                 f"{self.max_seq_len}")
         max_new = min(max_new_tokens, self.max_seq_len - len(ids))
         need = self._pager.pages_for(len(ids) + max_new)
-        if need > self.cache.n_pages:
+        if need > self._pager.n_pages:
             # can NEVER be admitted: fail fast instead of requeueing
             raise ValueError(
                 f"request needs {need} kv pages; the pool has "
-                f"{self.cache.n_pages} total (raise --kv-pages or lower "
+                f"{self._pager.n_pages} total (raise --kv-pages or lower "
                 "max_tokens)")
+        replayed = list(replay_tokens or ())
+        if replayed and ids[-len(replayed):] != replayed:
+            # the replay coordinate must be a literal suffix of the
+            # folded prompt, or SSE event ids would be wrong
+            raise ValueError(
+                "replay_tokens must be the folded suffix of prompt_ids")
         with self._rid_lock:
             rid = self._next_rid
             self._next_rid += 1
@@ -641,7 +810,29 @@ class InferenceEngine:
             want_top=want_top_logprobs,
             priority=cls,
             submit_t=time.perf_counter(),
+            prime_tokens=list(prime_penalty_tokens or ()),
+            idempotency_key=idempotency_key,
+            replayed_tokens=replayed,
         )
+        with self._admit_lock:
+            return self._admit(req, cls, replay_tokens is not None)
+
+    def _admit(self, req: _Request, cls: str,
+               replay: bool) -> RequestHandle:
+        """submit's critical section (under _admit_lock): the key's
+        re-check, the drain and shed refusals, the journal's admit
+        record, then the registration and the scheduler."""
+        rid = req.rid
+        key = req.idempotency_key
+        if key is not None:
+            # two concurrent first submits of one key serialize here:
+            # the second attaches to the first
+            prev = self._attach_idempotent(key, req.stream)
+            if prev is not None:
+                return prev
+        if self._draining and not replay:
+            # admissions are closed; a resume's resubmits still land
+            raise DrainingError(self._drain_eta_s())
         if self._shed is not None:
             # after every validation above: an invalid request gets its
             # 400, never a 429 inviting a retry that cannot succeed
@@ -661,25 +852,151 @@ class InferenceEngine:
                                     else None))
                 raise ShedError(cls, dec.retry_after_s,
                                 est_wait_s=dec.est_wait_s)
+        if self._journal is not None:
+            # write-ahead: the admit record lands before the engine
+            # thread can see the request (a refusal below tombstones it)
+            self._journal.note_admit(req)
         # register (and trace) BEFORE scheduler.submit: the engine
         # thread may plan the rid immediately, and an unknown rid counts
         # as cancelled
+        n_ids, max_new = len(req.prompt_ids), req.max_new_tokens
         self._requests[rid] = req
-        self.tracer.admit(rid, len(ids), max_new, priority=cls)
-        ok = (self.scheduler.submit(rid, len(ids), max_new, priority=cls)
+        self.tracer.admit(rid, n_ids, max_new, priority=cls)
+        ok = (self.scheduler.submit(rid, n_ids, max_new, priority=cls)
               if self._slo else
-              self.scheduler.submit(rid, len(ids), max_new))
+              self.scheduler.submit(rid, n_ids, max_new))
         if not ok:
             self._requests.pop(rid, None)
             self.tracer.drop(rid)
+            if self._journal is not None:
+                self._journal.note_retire(rid, "cancelled")
             retry = 1.0
             if self._shed is not None:
                 retry = self._shed.estimate_retry_after(
                     cls, self.scheduler.queue_depth)
             raise QueueFullError(retry_after=retry)
+        if key is not None:
+            with self._rid_lock:
+                self._idem_live[key] = rid
         self._set_queue_gauges()
         self._wake.set()
         return RequestHandle(req, self.tokenizer, self.config.eos_token_ids)
+
+    # -- durable serving: idempotency, drain, journal seams ---------------------
+
+    def _attach_idempotent(self, key: str,
+                           stream=None) -> Optional[RequestHandle]:
+        """A submit whose idempotency key matches a live or finished
+        request attaches to that stream (a safe client retry, across
+        reconnects and, with the journal, restarts). The new callback
+        replaces the gone client's; tokens the swap races are covered by
+        the reconnect's replay (the API dedupes by absolute event id).
+        None: no match (admit normally)."""
+        with self._rid_lock:
+            rid = self._idem_live.get(key)
+            req = self._requests.get(rid) if rid is not None else None
+            if req is None:
+                req = self._idem_done.get(key)
+            if req is None:
+                return None
+        if not req.done.is_set() and stream is not None:
+            req.stream = stream
+            req.stream_wants_count = bool(
+                getattr(stream, "wants_count", False))
+        h = RequestHandle(req, self.tokenizer, self.config.eos_token_ids)
+        h.attached = True
+        return h
+
+    def seed_finished_idempotent(self, rec: dict) -> None:
+        """Journal replay (serve/journal.recover): a request that
+        completed before the crash, whose client may still retry: its
+        finished state goes into the idempotency registry, so the retry
+        attaches to the transcript. Errored and cancelled records are
+        not seeded (a fresh retry is right for those)."""
+        key = rec.get("idempotency_key")
+        if not key or rec.get("error") \
+                or rec.get("status") == "cancelled":
+            return
+        out = list(rec.get("out_tokens") or ())
+        req = _Request(
+            rid=int(rec.get("rid") or 0),
+            prompt_ids=list(rec.get("prompt_ids") or ()),
+            max_new_tokens=int(rec.get("max_new")
+                               or rec.get("remaining") or 0),
+            temperature=rec.get("temperature", 0.0),
+            top_p=rec.get("top_p", 1.0),
+            repeat_penalty=rec.get("repeat_penalty", 1.0),
+            stream=None,
+            priority=rec.get("priority", "standard"),
+            idempotency_key=key,
+            replayed_tokens=list(rec.get("replayed") or ()),
+        )
+        req.out_tokens = out
+        # the journal stores no logprobs: a replayed transcript serves
+        # text and ids only
+        req.out_logprobs = [0.0] * len(out)
+        req.out_top = [[] for _ in out]
+        req.done.set()
+        with self._rid_lock:
+            self._idem_done[key] = req
+            while len(self._idem_done) > self._idem_done_cap:
+                self._idem_done.popitem(last=False)
+
+    def _journal_retire(self, req: _Request, status: str,
+                        error: Optional[str] = None) -> None:
+        """The terminal side channel of every retire seam (emit finish,
+        recovered finish, drop, fail-all, cancel, a refused requeue):
+        the journal's tombstone, and the idempotency registry's move (a
+        completed keyed request stays attachable in the done ring; a
+        failed or cancelled one frees its key, so a retry runs again)."""
+        if self._journal is not None:
+            self._journal.note_retire(req.rid, status, error=error)
+        key = req.idempotency_key
+        if key is None:
+            return
+        with self._rid_lock:
+            if self._idem_live.get(key) == req.rid:
+                del self._idem_live[key]
+            if status == "retired":
+                self._idem_done[key] = req
+                while len(self._idem_done) > self._idem_done_cap:
+                    self._idem_done.popitem(last=False)
+
+    def begin_drain(self) -> dict:
+        """Close admissions (new submits raise DrainingError, which the
+        API maps to 429 with the computed Retry-After) while in-flight
+        work keeps decoding. POST /api/v1/drain and SIGTERM call this."""
+        if not self._draining:
+            log.info("drain: admissions closed (%d in flight)",
+                     len(self._requests))
+        self._draining = True
+        self._wake.set()
+        return self.drain_state()
+
+    def _drain_eta_s(self) -> float:
+        """Computed seconds until the drain completes: the remaining
+        budgeted tokens over the measured decode rate (at most 600 s,
+        at least 1 s, the API's Retry-After floor)."""
+        remaining = sum(max(0, r.max_new_tokens - len(r.out_tokens))
+                        for r in list(self._requests.values())
+                        if not r.done.is_set())
+        if remaining == 0:
+            return 1.0
+        rate = self.stats.decode_tokens_per_s
+        if rate > 0:
+            return min(600.0, max(1.0, remaining / rate))
+        return min(600.0, max(1.0, remaining / 8.0))
+
+    def drain_state(self) -> dict:
+        """/api/v1/health's `draining` block, and the drain response."""
+        pending = sum(1 for r in list(self._requests.values())
+                      if not r.done.is_set())
+        out = {"draining": self._draining,
+               "pending_requests": pending,
+               "queue_depth": self.queue_depth}
+        if self._draining:
+            out["eta_s"] = round(self._drain_eta_s(), 3)
+        return out
 
     def chat(self, messages: Sequence[Message], **kw) -> RequestHandle:
         """Render a chat history through the model's template and submit.
@@ -773,6 +1090,7 @@ class InferenceEngine:
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
             req.finish_t = time.perf_counter()
+            self._journal_retire(req, "cancelled")
             self.tracer.finish(rid, "cancelled",
                                output_tokens=len(req.out_tokens))
             req.done.set()
@@ -998,16 +1316,44 @@ class InferenceEngine:
                     self._wake.wait(timeout=0.02)
                     self._wake.clear()
             try:
+                if self._faults is not None:
+                    # the top-of-iteration site (step= triggers key off
+                    # the engine's step counter)
+                    self._faults.check("engine.step", step=self.stats.steps)
                 if self._mixed:
                     self._do_mixed(prefill_plan, decode_plan)
                 else:
                     self._do_phases(prefill_plan, decode_plan)
+                # a clean iteration: an earlier failure's capture must
+                # not come back in a later failure's snapshot, the next
+                # failure backs off from scratch, and a failure before
+                # the next dispatch implicates nobody
+                self._fail_recs = None
+                self._consec_resets = 0
+                self._implicated = ()
+                if self._journal is not None:
+                    # one emit record per request touched this
+                    # iteration (and the batch-mode fsync), then the
+                    # size-triggered compaction, while the registry is
+                    # stable
+                    self._journal.flush()
+                    self._journal.maybe_compact(self)
             except Exception as e:  # noqa: BLE001
                 log.exception("engine iteration failed")
-                self.stats.errors += 1
-                self.stats.last_error = f"{type(e).__name__}: {e}"
-                self._fail_all(e)
-                self._reset_after_error()
+                # the traceback's frames hold the failed step's runners
+                # (and through them the pool), and a log handler may keep
+                # the record: clear their locals, so the reset frees the
+                # pool before it allocates the new one
+                traceback.clear_frames(e.__traceback__)
+                # the request records first (pure Python); written as
+                # the pre-fail snapshot only if the failure is fatal
+                recs = None
+                if self.snapshot_path:
+                    from cake_tpu_torch.serve import checkpoint
+                    recs = checkpoint.snapshot_requests(self)
+                    self._fail_recs = (time.monotonic(), recs)
+                if not self._continue_after_failure(e, recs):
+                    return
 
     def _new_cache(self, n_pages: int, page_size: int):
         """An empty pool of the configured storage: int8 or int4 pages
@@ -1020,16 +1366,289 @@ class InferenceEngine:
             self.config, self.max_slots, n_pages, page_size,
             self.max_seq_len, dtype=self._pool_dtype, device=self.device)
 
+    # -- crash recovery ---------------------------------------------------------
+
+    def _note_reset(self) -> bool:
+        """Record one reset in the storm window; True: the breaker trips
+        (storm_resets resets within storm_window_s: the fault is not
+        transient, so stop cleanly instead of thrashing)."""
+        cfg = self._recovery_cfg
+        now = time.monotonic()
+        self._reset_times.append(now)
+        cut = now - cfg.storm_window_s
+        while self._reset_times and self._reset_times[0] < cut:
+            self._reset_times.pop(0)
+        return (self._recover
+                and len(self._reset_times) >= cfg.storm_resets)
+
+    def _continue_after_failure(self, e: Exception, recs) -> bool:
+        """The policy after a failed iteration: recovery (reset and
+        resubmit the in-flight requests), the fail-everything path
+        (--no-recovery), or on a reset storm the breaker's snapshot and
+        clean stop. False: the engine must stop."""
+        storm = self._note_reset()
+        if self._recover and not storm and not self._stop.is_set():
+            return self._attempt_recovery(e, recs)
+        err = as_engine_error(e)
+        if storm:
+            log.error("reset storm: %d resets within %.0fs; breaker open, "
+                      "snapshotting in-flight requests and stopping",
+                      len(self._reset_times),
+                      self._recovery_cfg.storm_window_s)
+            self._breaker_tripped = True
+            _RECOVERIES.labels(outcome="storm_breaker").inc()
+            self.stats.errors += 1
+            self.stats.last_error = f"{type(e).__name__}: {e}"
+            return self._stop_with_snapshot(recs, err,
+                                             trigger="breaker_stop")
+        # fail everything, then rebuild
+        self._fail_all(err)
+        try:
+            self._reset_after_error()
+        except Exception:  # noqa: BLE001
+            return self._reset_failed(recs)
+        self.stats.errors += 1
+        self.stats.last_error = f"{type(e).__name__}: {e}"
+        return True
+
+    def _reset_failed(self, recs, err: Optional[Exception] = None) -> bool:
+        """The rebuild itself failed (an OOM while rebuilding, a sticky
+        CUDA error): the engine cannot serve again. Snapshot what the
+        failure captured and stop cleanly, instead of letting the raise
+        kill the engine thread while queued requests hang."""
+        log.exception("post-error engine reset failed; stopping the engine")
+        # the pool is dead: the clients' teardown below must not write
+        # its table (a poisoned CUDA context fails every call)
+        self._slot_pages = {}
+        self._slot_prefix_pages = {}
+        self._mixed_pending = {}
+        self._slot_req = [None] * self.max_slots
+        for req in list(self._requests.values()):
+            req.slot = -1
+        _RESET_FAILURES.inc()
+        _RECOVERIES.labels(outcome="reset_failed").inc()
+        self.stats.errors += 1
+        self.stats.last_error = "reset failed"
+        return self._stop_with_snapshot(recs, err, trigger="reset_failed")
+
+    def _stop_with_snapshot(self, recs, err: Optional[Exception] = None,
+                            trigger: str = "engine_stop") -> bool:
+        """The tail of every stop branch: fail the waiting clients (when
+        the caller has not), write the pre-fail snapshot from the
+        failure's capture, stop the engine thread. `trigger` names the
+        terminal cause for the postmortem bundle, which is not ported
+        (the seam stays here). Always False (the engine must stop)."""
+        if err is not None:
+            self._fail_all(err)
+        with self._ckpt_lock:
+            self._snapshot_before_fail(requests=recs)
+        log.error("engine stopped (%s): %s", trigger, self.stats.last_error)
+        self._stop.set()
+        return False
+
+    def _attempt_recovery(self, e: Exception, recs) -> bool:
+        """The fail-everything replacement: implicate the failed
+        dispatch's requests, back off if resets are consecutive, rebuild
+        the device state, then resubmit every surviving request through
+        the recompute fold, so greedy streams complete with the tokens
+        an uninterrupted run gives. False: the engine must stop."""
+        t0 = time.perf_counter()
+        # a request counts once a failed step: a mid-prefill slot is in
+        # a mixed step's decode plan too (the JAX engine counts it twice
+        # there, which quarantines it after one failure)
+        implicated = sorted({rid for rid, _slot in self._implicated})
+        self._implicated = ()
+        for rid in implicated:
+            req = self._requests.get(rid)
+            if req is not None and not req.done.is_set():
+                req.crash_count += 1
+        # exponential backoff between consecutive resets (the first is
+        # immediate), interruptible by stop()
+        cfg = self._recovery_cfg
+        self._consec_resets += 1
+        if self._consec_resets > 1:
+            delay = min(cfg.backoff_cap_s,
+                        cfg.backoff_base_s
+                        * (2.0 ** (self._consec_resets - 2)))
+            log.warning("recovery: consecutive reset #%d, backing off "
+                        "%.2fs", self._consec_resets, delay)
+            if self._stop.wait(delay):
+                self._fail_all(as_engine_error(e))
+                return False
+        try:
+            self._reset_after_error()
+        except Exception:  # noqa: BLE001
+            return self._reset_failed(recs, as_engine_error(e))
+        n_rec, n_poison = self._resubmit_after_reset(e)
+        self.stats.errors += 1
+        self.stats.last_error = f"{type(e).__name__}: {e}"
+        self.stats.recoveries += 1
+        dt = time.perf_counter() - t0
+        _RECOVERY_SECONDS.observe(dt)
+        if len(self.recovery_seconds) < 512:
+            self.recovery_seconds.append(dt)
+        _RECOVERIES.labels(outcome="recovered").inc()
+        log.warning("recovered from step failure (%s: %s): %d "
+                    "request(s) resubmitted, %d quarantined, %.3fs",
+                    type(e).__name__, e, n_rec, n_poison, dt)
+        self._wake.set()
+        return True
+
+    def _resubmit_after_reset(self, cause: Exception):
+        """The request side of a reset: quarantine poison requests
+        (implicated in implication_budget consecutive failed steps),
+        requeue everyone else with their generated tokens folded into
+        the prompt; class, seniority and preemption budget survive, as
+        the same _Request is resubmitted. Returns (resubmitted,
+        quarantined)."""
+        cfg = self._recovery_cfg
+        cause_s = f"{type(cause).__name__}: {cause}"
+        self._slot_req = [None] * self.max_slots
+        n_rec = n_poison = 0
+        for rid, req in sorted(self._requests.items()):
+            if req.done.is_set():
+                continue
+            req.slot = -1
+            req._kv_restored = False
+            if req.crash_count >= cfg.implication_budget:
+                self._drop_request(
+                    req, PoisonRequestError(rid, req.crash_count, cause_s),
+                    poison_reason="implicated")
+                n_poison += 1
+                continue
+            remaining = req.max_new_tokens - len(req.out_tokens)
+            if remaining <= 0:
+                # it was retiring in the failed step and holds every
+                # token it asked for
+                self._finish_recovered(req)
+                n_rec += 1
+                continue
+            n_tok = len(req.prompt_ids) + len(req.out_tokens)
+            if self._slo:
+                # keeps the original enqueue time and the preemption
+                # count; False means the request was still queued
+                self.scheduler.requeue(rid, n_tok, remaining)
+                ok = True
+            else:
+                # FIFO: cancel + resubmit in rid order keeps the arrival
+                # order
+                self.scheduler.cancel(rid)
+                ok = self.scheduler.submit(rid, n_tok, remaining)
+            if not ok:
+                self._drop_request(req, as_engine_error(cause),
+                                   poison_reason="resubmit_failed")
+                n_poison += 1
+                continue
+            self.tracer.span(rid, "crash_recovered",
+                             generated=len(req.out_tokens),
+                             crashes=req.crash_count)
+            if self.events is not None:
+                self.events.publish("recovered", rid=rid,
+                                    generated=len(req.out_tokens),
+                                    crashes=req.crash_count)
+            _RECOVERED_REQUESTS.inc()
+            self.stats.requests_recovered += 1
+            n_rec += 1
+        return n_rec, n_poison
+
+    def _drop_request(self, req: _Request, err: Exception,
+                      poison_reason: Optional[str] = None) -> None:
+        """Fail one request with a typed error during recovery (the
+        quarantine, a failed resubmit); the reset already cleared its
+        slot."""
+        req.error = err
+        self.scheduler.cancel(req.rid)
+        if self._host_tier is not None:
+            self._host_tier.drop(("victim", req.rid))
+        self._requests.pop(req.rid, None)
+        self._journal_retire(req, "error", error=str(err))
+        if poison_reason is not None:
+            self.stats.poisoned += 1
+            _POISON_REQUESTS.labels(reason=poison_reason).inc()
+            if self.events is not None:
+                self.events.publish("poisoned", rid=req.rid,
+                                    reason=poison_reason,
+                                    crashes=req.crash_count)
+            log.error("quarantined rid=%d as poison (%s): %s",
+                      req.rid, poison_reason, err)
+        self.tracer.finish(req.rid, "error", error=str(err),
+                           output_tokens=len(req.out_tokens))
+        req.done.set()
+
+    def _finish_recovered(self, req: _Request) -> None:
+        """Retire a request whose budget was exhausted when the step
+        failed: it has every token it asked for, so it gets its final
+        delta instead of a zero-budget prefill."""
+        if req.stream is not None:
+            delta = self._incremental_text(req, final=True)
+            try:
+                if req.stream_wants_count:
+                    req.stream(delta, True, len(req.out_tokens))
+                else:
+                    req.stream(delta, True)
+            except Exception:  # noqa: BLE001
+                log.exception("stream callback failed rid=%d", req.rid)
+        req.finish_t = time.perf_counter()
+        self.scheduler.cancel(req.rid)
+        self._journal_retire(req, "retired")
+        self._requests.pop(req.rid, None)
+        self.stats.requests_completed += 1
+        if self._shed is not None:
+            self._shed.observe_retire()
+        self.tracer.finish(req.rid, "retired",
+                           output_tokens=len(req.out_tokens))
+        self.retired.append(req)
+        req.done.set()
+
+    def recovery_state(self) -> dict:
+        """Recovery and breaker state for /api/v1/health."""
+        cfg = self._recovery_cfg
+        out = {
+            "enabled": self._recover,
+            "recoveries": self.stats.recoveries,
+            "requests_recovered": self.stats.requests_recovered,
+            "poisoned": self.stats.poisoned,
+            "consecutive_resets": self._consec_resets,
+            "breaker": {
+                "tripped": self._breaker_tripped,
+                "resets_in_window": len(self._reset_times),
+                "storm_resets": cfg.storm_resets,
+                "window_s": cfg.storm_window_s,
+            },
+        }
+        if self._faults is not None:
+            out["fault_plan"] = self._faults.describe()
+        return out
+
     def _reset_after_error(self) -> None:
         """A failed step may leave the pool half-written: rebuild the
         pool (of the same storage), the allocator, every per-slot mirror
-        and the sampling state, and drop both runners. Registered
-        prefixes lived in the old pool's pages, so the registry is
-        cleared too; auto-prefix heads register again on their next
-        request."""
-        self.cache = self._new_cache(self.cache.n_pages,
-                                     self.cache.page_size)
-        self._pager = PageAllocator(self.cache.n_pages, self.cache.page_size)
+        and the sampling state. Registered prefixes lived in the old
+        pool's pages, so the registry is cleared too (auto-prefix heads
+        register again on their next request), and so is the host tier
+        (its entries belonged to the failed requests and the cleared
+        registry).
+
+        On the card it first waits for the engine's stream (a chained
+        --decode-scan burst or a chunk-only mixed step may still run
+        on it), then drops both runners, their graphs' memory pool, the
+        pending mixed records and the pool before the new pool is
+        allocated, so a reset needs one pool's memory, not two. The next
+        step captures its graphs anew (counted as a compile). A raise
+        here (a sticky CUDA error, an OOM) goes to the caller's
+        reset_failed stop."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        n_pages, page_size = self._pager.n_pages, self._pager.page_size
+        self._runner = None
+        self._mixed_runner = None
+        self._graph_pool = None
+        self._mixed_open = None
+        self._ring = self._seeds = self._counters = None
+        self.cache = None
+        if self._host_tier is not None:
+            self._host_tier.clear()
+        self._pager = PageAllocator(n_pages, page_size)
         self._slot_pages = {}
         self._slot_prefix_pages = {}
         self._prefix_pages_shared = 0
@@ -1046,7 +1665,10 @@ class InferenceEngine:
         self._last_tok[:] = 0
         self._steps[:] = 0
         self._reset_count += 1
-        # the runners' graphs captured the old pool: capture anew
+        self.cache = self._new_cache(n_pages, page_size)
+        # new rings and random streams (the reset count folds into the
+        # seeds: sampled rows never replay consumed draws); the runners
+        # capture anew over the new pool
         self._fresh_sampling_state()
 
     # -- pages ----------------------------------------------------------------
@@ -1092,6 +1714,9 @@ class InferenceEngine:
         the request requeues; and a spilled preemption victim whose entry
         fits this admission's row has its pages installed
         (`_restore_victim`), so it needs no prefill."""
+        if self._faults is not None:
+            # an injected OOM here surfaces as a real allocation failure
+            self._faults.check("pager.alloc", step=self.stats.steps)
         blocked = self._page_blocked_rid
         if blocked is not None and blocked not in self._requests:
             blocked = self._page_blocked_rid = None     # cancelled/failed
@@ -1183,11 +1808,16 @@ class InferenceEngine:
         token) samples the token an uninterrupted run would. Sets
         _kv_restored: the admission skips the prefill. ent: the entry
         _alloc_slot_pages already popped."""
+        if self._faults is not None:
+            # an injected install fault fails the iteration: recovery
+            # resubmits the victim through the recompute fold (its entry
+            # was already popped)
+            self._faults.check("host_tier.install", step=self.stats.steps)
         HostTier.install_pages(self.cache, pages, ent.arrays)
         self._temp[slot] = req.temperature
         self._top_p[slot] = req.top_p
         self._penalty[slot] = req.repeat_penalty
-        self._prime_ring(slot, list(req.out_tokens))
+        self._prime_ring(slot, list(req.prime_tokens) + list(req.out_tokens))
         self._pos[slot] = ent.pos
         self._last_tok[slot] = ent.last_tok
         self.stats.kv_restores += 1
@@ -1214,6 +1844,10 @@ class InferenceEngine:
         if not own or not self._host_tier.can_hold(len(own)):
             return False
         try:
+            if self._faults is not None:
+                # inside the try: an injected fetch fault takes the
+                # documented fallback (the recompute fold)
+                self._faults.check("host_tier.fetch", step=self.stats.steps)
             arrays = HostTier.fetch_pages(self.cache, own)
         except Exception:  # noqa: BLE001 — the fold is the fallback
             self.stats.kv_spill_failures += 1
@@ -1250,6 +1884,9 @@ class InferenceEngine:
             if not self._host_tier.can_hold(len(pages)):
                 continue
             try:
+                if self._faults is not None:
+                    self._faults.check("host_tier.fetch",
+                                       step=self.stats.steps)
                 arrays = HostTier.fetch_pages(self.cache, pages)
             except Exception:  # noqa: BLE001 — the prefix stays put
                 self.stats.kv_spill_failures += 1
@@ -1295,6 +1932,8 @@ class InferenceEngine:
         pages = self._pager.alloc(ent.n_pages * self._pager.page_size)
         if pages is None:
             return None
+        if self._faults is not None:
+            self._faults.check("host_tier.install", step=self.stats.steps)
         ent = self._host_tier.pop(("prefix", pid))
         HostTier.install_pages(self.cache, pages, ent.arrays)
         with self._rid_lock:
@@ -1331,6 +1970,7 @@ class InferenceEngine:
                 self._page_blocked_rid = None
             if self._host_tier is not None:
                 self._host_tier.drop(("victim", req.rid))
+            self._journal_retire(req, "error", error=str(req.error))
             self.tracer.finish(req.rid, "error", error=str(req.error))
             req.done.set()
         else:
@@ -1486,6 +2126,7 @@ class InferenceEngine:
                 req.error = RuntimeError(
                     "kv page pool exhausted and admission queue full")
                 self._requests.pop(rid, None)
+                self._journal_retire(req, "error", error=str(req.error))
                 self.tracer.finish(rid, "error", error=str(req.error))
                 req.done.set()
                 return True
@@ -1550,6 +2191,13 @@ class InferenceEngine:
         # a preempted request re-prefills prompt + generated tokens, and
         # its penalty ring is rebuilt over the generated ones
         ids, prime = self._folded(req)
+        # this admission is the blast radius from here on; the site
+        # carries the prefill length, so a match_len= rule can target
+        # one request's prefill (the poison-request drill)
+        self._implicated = ((rid, slot),)
+        if self._faults is not None:
+            self._faults.check("engine.prefill", step=self.stats.steps,
+                               n_tokens=len(ids))
         hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
             return   # pool exhausted: requeued (or failed) inside
@@ -1581,12 +2229,13 @@ class InferenceEngine:
     @staticmethod
     def _folded(req: _Request):
         """(ids to prefill, tokens to prime the penalty ring with): the
-        prompt, or after a preemption the prompt and the generated
-        tokens (the recompute fold)."""
+        prompt and a resume's prime tokens, or after a preemption or a
+        recovery the prompt and the generated tokens (the recompute
+        fold), the ring primed over the whole generated history."""
         if req.out_tokens:
-            return list(req.prompt_ids) + list(req.out_tokens), \
-                list(req.out_tokens)
-        return req.prompt_ids, []
+            return (list(req.prompt_ids) + list(req.out_tokens),
+                    list(req.prime_tokens) + list(req.out_tokens))
+        return req.prompt_ids, list(req.prime_tokens)
 
     def _prime_ring(self, slot: int, prime) -> None:
         """Reset a slot's repeat-penalty ring and step counter, seeded
@@ -1663,6 +2312,15 @@ class InferenceEngine:
         which no row emits (every row mid-prompt) fetches nothing: the
         host goes on to build the next step, which queues behind it."""
         t0 = time.perf_counter()
+        # the blast radius: every decode row and every mid-prefill slot
+        # rides this one step (a chunk-only step fetches nothing, so a
+        # fault of its own is raised here, at its dispatch)
+        self._implicated = tuple(
+            [(rid, slot) for rid, slot in decode_plan]
+            + [(p["req"].rid, slot)
+               for slot, p in self._mixed_pending.items()])
+        if self._faults is not None:
+            self._faults.check("engine.mixed", step=self.stats.steps)
         B, C = self.max_slots, self._mixed_chunk
         tokens = np.zeros((B, C), np.int64)
         pos = np.zeros(B, np.int64)
@@ -1820,6 +2478,11 @@ class InferenceEngine:
         self._slot_req[slot] = req
         # a preempted request re-prefills prompt + generated tokens
         ids, prime = self._folded(req)
+        # the blast radius, and the content-keyed site (_mixed_admit's)
+        self._implicated = ((rid, slot),)
+        if self._faults is not None:
+            self._faults.check("engine.prefill", step=self.stats.steps,
+                               n_tokens=len(ids))
         # match BEFORE page admission: a hit changes the allocation
         hit = self._match_and_validate_prefix(ids)
         if not self._alloc_slot_pages(req, slot, hit):
@@ -2020,6 +2683,9 @@ class InferenceEngine:
     def _do_decode(self, decode_plan) -> None:
         """One decode step of every planned row (a burst of one)."""
         t0 = time.perf_counter()
+        self._implicated = decode_plan
+        if self._faults is not None:
+            self._faults.check("engine.decode", step=self.stats.steps)
         rows = [s for _, s in decode_plan]
         budget = self._scan_budget(decode_plan, 1)
         handle = self._dispatch_scan(rows, 1, self._n_top_for(rows), budget,
@@ -2108,6 +2774,9 @@ class InferenceEngine:
         decode time is counted as each burst is fetched, before its
         tokens are emitted, so a reader who sees a request retire also
         sees the time that produced its tokens."""
+        self._implicated = decode_plan
+        if self._faults is not None:
+            self._faults.check("engine.decode", step=self.stats.steps)
         clock = [time.perf_counter()]
         rows = [s for _, s in decode_plan]
         n_top = self._n_top_for(rows)
@@ -2263,6 +2932,17 @@ class InferenceEngine:
         else:
             self.tracer.token(req.rid)
         req.out_tokens.append(token_id)
+        if req.crash_count:
+            # a step that emits for the request succeeded: its crash
+            # implication is no longer consecutive
+            req.crash_count = 0
+        if self._journal is not None:
+            # buffered: one emit record per (request, iteration) at the
+            # run loop's flush; the count is absolute (replayed tokens
+            # of earlier generations included), the SSE event id
+            self._journal.note_emit(
+                req.rid, token_id,
+                len(req.replayed_tokens) + len(req.out_tokens))
         self.stats.tokens_generated += 1
         eos = token_id in self.config.eos_token_ids
         hit_cap = self._pos[req.slot] + 1 >= self.max_seq_len
@@ -2282,6 +2962,9 @@ class InferenceEngine:
             req.finish_t = now
             self._slot_req[req.slot] = None
             self._release_slot_pages(req.slot)
+            # the key moves to the done ring before the request leaves the
+            # registry: a retry in between must find one or the other
+            self._journal_retire(req, "retired")
             self._requests.pop(req.rid, None)
             self.stats.requests_completed += 1
             if self._shed is not None:
@@ -2299,22 +2982,82 @@ class InferenceEngine:
         return new
 
     def _fail_all(self, err: Exception) -> None:
-        """Fail every in-flight request with the typed (retryable) error."""
-        from cake_tpu_torch.serve.errors import as_engine_error
+        """Fail every in-flight request with the typed error (retryable
+        unless it says otherwise). The registry is claimed under
+        _ckpt_lock (a pre-fail snapshot and a shutdown may race), the
+        teardown runs outside it."""
         err = as_engine_error(err)
-        if self._host_tier is not None:
-            # spilled victims and prefixes belonged to the failed
-            # requests and the registry the reset clears: stale shortcuts
-            self._host_tier.clear()
-        for rid in list(self._requests):
-            req = self._requests.pop(rid, None)
-            if req is None:
-                continue
+        with self._ckpt_lock:
+            doomed = []
+            for rid in list(self._requests):
+                req = self._requests.pop(rid, None)
+                if req is not None:
+                    doomed.append((rid, req))
+        for rid, req in doomed:
             req.error = err
             self.scheduler.cancel(rid)
+            if self._host_tier is not None:
+                self._host_tier.drop(("victim", rid))
             if req.slot >= 0:
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
+            self._journal_retire(req, "error", error=str(err))
             self.tracer.finish(rid, "error", error=str(err),
                                output_tokens=len(req.out_tokens))
             req.done.set()
+
+    # -- the checkpoint's seams -------------------------------------------------
+
+    def shutdown_save(self, path: str) -> None:
+        """The clean-shutdown checkpoint: save the live registry, unless
+        this process wrote a pre-fail snapshot that still holds
+        resumable records (that file is the failure-time state, and the
+        emptied registry would clobber it). Under _ckpt_lock, like the
+        pre-fail writer. With the journal, the save truncates it (the
+        snapshot now owns every record)."""
+        from cake_tpu_torch.serve import checkpoint
+        with self._ckpt_lock:
+            if self._prefail_written and checkpoint.has_resumable(path):
+                log.info("keeping pre-fail snapshot at %s", path)
+                return
+            checkpoint.write(checkpoint.snapshot(self), path)
+            if self._journal is not None:
+                self._journal.truncate("checkpoint")
+
+    def _snapshot_before_fail(self, requests=None) -> None:
+        """The pre-fail checkpoint (a no-op unless `snapshot_path` is
+        armed; the caller holds _ckpt_lock). Device-free: the
+        fingerprint was warmed when the path was armed, so the snapshot
+        is pure Python and one local write, safe with a poisoned CUDA
+        context. requests: the records captured before the registry was
+        emptied (the engine loop's failure path)."""
+        path = self.snapshot_path
+        if not path:
+            return
+        if requests is None and not self._requests:
+            # the registry was emptied by an engine-loop failure: use
+            # that failure's capture if it is fresh
+            stash = self._fail_recs
+            if stash is not None and time.monotonic() - stash[0] \
+                    < _FAIL_RECS_TTL_S:
+                requests = stash[1]
+            else:
+                return
+        if getattr(self, "_ckpt_fingerprint", None) is None:
+            log.warning("pre-fail snapshot skipped: the fingerprint was "
+                        "not warmed when the path was armed (computing "
+                        "it now would read the device)")
+            return
+        try:
+            from cake_tpu_torch.serve import checkpoint
+            snap = checkpoint.snapshot(self, requests=requests)
+            if not any(checkpoint.is_resumable(r)
+                       for r in snap["requests"]):
+                return
+            checkpoint.write(snap, path)
+            self._prefail_written = True
+            if self._journal is not None:
+                self._journal.truncate("checkpoint")
+            log.info("pre-fail snapshot saved to %s", path)
+        except Exception:  # noqa: BLE001
+            log.exception("pre-fail snapshot failed")

@@ -148,6 +148,33 @@ Phases, in order (any failure exits non-zero):
             completes, cake_kv_resident_spills_total rises, and a last
             chat with the head restores the prefix and hits it; every
             page comes back. A `tiers` JSON line holds the record.
+  recovery  fault injection and crash recovery at Llama-3-8B width, through
+            the HTTP API: (1) 32 layers, random bf16 weights, the serve
+            phase's 128 x 128 pool, 8 slots, --decode-scan 4, six chats
+            of 64 tokens at once, without a plan (cold and warm waves),
+            with a never-firing plan at every site (cold, then the warm
+            wave with every site test, decode dispatch, mixed replay,
+            admission and page allocation under
+            torch.cuda.set_sync_debug_mode("error")), and with
+            RECOVERY_PLAN (a mixed dispatch, a burst's entry, the top of
+            an iteration) plus a fetch that fails inside a burst chain
+            with the next burst in flight: every chat 200, recoveries =
+            the faults that fired, none quarantined, graphs captured anew,
+            each rebuild's torch.cuda.max_memory_allocated at most a
+            tenth of a pool above what it held before; recovery seconds,
+            TTFT p50 and decode tok/s beside the waves without a plan;
+            (2) 2 layers, f32 weights and pool: the plan's greedy streams
+            equal the run's without it at decode_scan 1 and 4; (3) a
+            poison prefill (engine.prefill:match_len) quarantines exactly
+            its chat (500), the others 200; POST /api/v1/drain: a late
+            chat gets 429 with Retry-After, the in-flight ones 200; the
+            storm breaker stops the engine with a snapshot of every
+            request, restored token-identically; (4) a child process
+            serving with --journal dies by engine.decode:nth=10:abort
+            (exit 86) under three keyed SSE streams, a second child
+            replays the journal, each client's Last-Event-ID gets exactly
+            its suffix, and the journaled streams equal an uninterrupted
+            run's. A `recovery` JSON line holds the record.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -170,7 +197,7 @@ import urllib.request
 from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers")
+          "sched", "tiers", "recovery")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -3171,6 +3198,611 @@ def phase_tiers(torch, rpa, cfg, params, card: str) -> tuple:
     return counts, rec
 
 
+# -- phase: recovery ----------------------------------------------------------
+
+# drive 1's faults: a mixed step's dispatch, a decode burst's entry and
+# the top of an iteration (the JAX engine's sites), each once; drive 1
+# adds a fetch that raises inside a burst chain, with the next burst in
+# flight
+RECOVERY_PLAN = ("seed=15;engine.mixed:nth=3:transient;"
+                 "engine.decode:nth=1:oom;engine.step:step=10:transient")
+# every site armed, no rule fires
+RECOVERY_SILENT = ("seed=15;engine.mixed:nth=1000000:transient;"
+                   "engine.decode:nth=1000000:oom;"
+                   "engine.step:step=1000000000:transient;"
+                   "pager.alloc:nth=1000000:oom;"
+                   "engine.prefill:match_len=99999:always:transient")
+RECOVERY_NEW = 64            # tokens a chat (drive 1)
+RECOVERY_LAYERS_F32 = 2      # the f32 drives' depth (8B width)
+RECOVERY_PAGES = 128         # the serve phase's pool
+RECOVERY_ABORT = ("seed=1;engine.decode:nth=10:abort")
+RECOVERY_KEYS = ("jA", "jB", "jC")
+# the journal drive's child builds this LlamaConfig (its classmethod)
+RECOVERY_CHILD_CONFIG = "llama3_8b"
+
+
+def _recovery_wave(srv, tag: str, n_new: int = RECOVERY_NEW) -> dict:
+    """The six TIER_CHATS at once through `srv`: TTFT p50, the decode
+    tok/s of the wave (the engine's tokens over its decode time) and the
+    wave's wall."""
+    st = srv.engine.stats
+    tok0, dec0 = st.tokens_generated, st.decode_time_s
+    t0 = time.perf_counter()
+    reqs = _tier_chats(srv, tag, n_new)
+    wall = time.perf_counter() - t0
+    return dict(ttft_p50_s=statistics.median(r.first_token_t - r.submit_t
+                                             for r in reqs),
+                decode_tok_s=(st.tokens_generated - tok0)
+                / max(st.decode_time_s - dec0, 1e-9),
+                wall_s=wall, tokens=[len(r.out_tokens) for r in reqs])
+
+
+def _watch_resets(torch, eng) -> list:
+    """Wrap the engine's rebuild: for each reset, the bytes allocated just
+    before it and the peak allocated during it (the free-before-allocate
+    repair keeps the peak at or under the bytes before)."""
+    seen = []
+    real = eng._reset_after_error
+
+    def reset():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        real()
+        torch.cuda.synchronize()
+        seen.append(dict(before=before,
+                         peak=torch.cuda.max_memory_allocated(),
+                         after=torch.cuda.memory_allocated(),
+                         rebuild_s=time.perf_counter() - t0))
+
+    eng._reset_after_error = reset
+    return seen
+
+
+def _chain_fault(eng) -> dict:
+    """A fetch that raises inside a burst chain (once): the second
+    completion of a chained --decode-scan run raises, as a failing
+    device-to-host copy would, while the chain's next burst is already
+    dispatched. Returns its state (fired, and whether a burst was in
+    flight)."""
+    state = {"fired": False, "in_flight": None}
+    real = eng._drive_burst
+
+    def drive(dispatch, complete, can_chain):
+        n = [0, 0]
+
+        def counted_dispatch(s):
+            n[1] += 1
+            return dispatch(s)
+
+        def failing_complete(devs):
+            n[0] += 1
+            if not state["fired"] and n[0] == 2:
+                state["fired"] = True
+                state["in_flight"] = n[1] - n[0]
+                raise RuntimeError("smoke: a burst's fetch failed inside "
+                                   "a chain")
+            return complete(devs)
+
+        return real(counted_dispatch, failing_complete, can_chain)
+
+    eng._drive_burst = drive
+    return state
+
+
+def _guard_sync(torch, eng, graphs) -> tuple:
+    """The silent injector's check: every fault-site test, decode
+    dispatch, mixed replay, admission and page allocation runs under
+    torch.cuda.set_sync_debug_mode("error"). Returns (the guarded call
+    counts, an undo)."""
+    guarded = Counter()
+
+    def guard(name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                guarded[name] += 1
+        return wrapped
+
+    for name in ("_dispatch_scan", "_mixed_admit", "_alloc_slot_pages"):
+        setattr(eng, name, guard(name, getattr(eng, name)))
+    eng._faults.check = guard("site", eng._faults.check)
+    real_run = graphs.MixedRunner.run
+    graphs.MixedRunner.run = lambda self, *a: guard(
+        "mixed replay", lambda *b: real_run(self, *b))(*a)
+
+    def undo():
+        graphs.MixedRunner.run = real_run
+    return guarded, undo
+
+
+def _recovery_served(torch, rpa, cfg, params, card: str) -> tuple:
+    """Drive 1 (and 6): 32 layers, random bf16 weights, 8 slots, the serve
+    phase's 128 x 128 pool, --decode-scan 4, six chats of 64 tokens at
+    once. Without a plan (cold and warm waves); with a never-firing plan
+    armed at every site (cold wave, then the warm wave under
+    set_sync_debug_mode("error")); with RECOVERY_PLAN and a fetch fault
+    inside a burst chain (one cold wave): every chat 200, recoveries =
+    the faults that fired, none quarantined, each reset's peak memory at
+    or under what it held before. Returns (the ragged kernels' launches
+    on the faulted wave, the record)."""
+    import cake_tpu_torch.serve.graphs as graphs
+
+    rec = {}
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                       kv_pages=RECOVERY_PAGES)
+    rec["plain_cold"] = _recovery_wave(srv, "Rc")
+    rec["plain_warm"] = _recovery_wave(srv, "Rw")
+    srv.close()
+    del srv
+    torch.cuda.empty_cache()
+
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                       kv_pages=RECOVERY_PAGES, fault_plan=RECOVERY_SILENT)
+    rec["silent_cold"] = _recovery_wave(srv, "Sc")
+    guarded, undo = _guard_sync(torch, srv.engine, graphs)
+    try:
+        rec["silent_warm"] = _recovery_wave(srv, "Sw")
+    finally:
+        undo()
+    eng = srv.engine
+    if eng.stats.recoveries or eng._faults.describe()["injections_total"]:
+        fail(f"recovery: the silent plan fired: {eng.recovery_state()}")
+    if min(guarded[k] for k in ("site", "_dispatch_scan", "mixed replay",
+                                "_mixed_admit", "_alloc_slot_pages")) <= 0:
+        fail(f"recovery: the sync guard saw no call of a path: {guarded}")
+    rec["silent_guarded_calls"] = dict(guarded)
+    srv.close()
+    del srv, eng
+    torch.cuda.empty_cache()
+
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                       kv_pages=RECOVERY_PAGES, fault_plan=RECOVERY_PLAN)
+    eng = srv.engine
+    pool_bytes = eng.cache.memory_bytes()
+    resets = _watch_resets(torch, eng)
+    chain = _chain_fault(eng)
+    captures = []
+    real_capture = eng.flight.count_capture
+    eng.flight.count_capture = lambda fn, s: (
+        captures.append((fn, len(resets))), real_capture(fn, s))
+    rpa.reset_launch_counts()
+    rec["faulted"] = _recovery_wave(srv, "Rf")
+    counts = {k: rpa.LAUNCHES[k] for k in ("rpa_decode", "rpa_mixed")}
+    fired = eng._faults.describe()
+    st = eng.stats
+    want = fired["injections_total"] + int(chain["fired"])
+    rec.update(
+        plan=fired, chain_fault=chain, recoveries=st.recoveries,
+        requests_recovered=st.requests_recovered, poisoned=st.poisoned,
+        recovery_seconds=list(eng.recovery_seconds), resets=resets,
+        pool_bytes=pool_bytes,
+        captures_after_reset=sum(1 for _, n in captures if n > 0),
+        launches=counts)
+    srv.close()
+    if st.recoveries != want or st.poisoned or want < 3:
+        fail(f"recovery: {st.recoveries} recoveries for {want} faults "
+             f"({fired}, chain {chain}), {st.poisoned} quarantined")
+    if not chain["fired"] or not chain["in_flight"]:
+        fail(f"recovery: the chain fault did not land with a burst in "
+             f"flight: {chain}")
+    for k, n in counts.items():
+        if n <= 0:
+            fail(f"recovery: {k} never launched on the faulted wave")
+    plain = {k: n for k, n in rpa.LAUNCHES.items()
+             if k.endswith("_plain") and n}
+    if plain:
+        fail(f"recovery: plain versions ran: {plain}")
+    if rec["captures_after_reset"] <= 0:
+        fail("recovery: no graph was captured anew after a reset")
+    for i, r in enumerate(resets):
+        log(f"recovery: reset {i + 1}: {r['before'] / 2**30:.3f} GiB held, "
+            f"peak {r['peak'] / 2**30:.3f} GiB during the rebuild, "
+            f"{r['after'] / 2**30:.3f} GiB after (one pool "
+            f"{pool_bytes / 2**30:.3f} GiB), rebuild {r['rebuild_s']:.3f} s "
+            f"[{card}]")
+        if r["peak"] > r["before"] + 0.1 * pool_bytes:
+            fail(f"recovery: reset {i + 1} peaked "
+                 f"{(r['peak'] - r['before']) / 2**30:.3f} GiB above what "
+                 "it held: the old pool was still live")
+    log(f"recovery: {st.recoveries} recoveries in "
+        + ", ".join(f"{s:.3f}" for s in eng.recovery_seconds)
+        + f" s, {st.requests_recovered} requests resubmitted, "
+        f"{rec['captures_after_reset']} graphs captured anew; faulted wave "
+        f"TTFT p50 {rec['faulted']['ttft_p50_s']:.3f} s, decode "
+        f"{rec['faulted']['decode_tok_s']:.1f} tok/s against "
+        f"{rec['plain_cold']['ttft_p50_s']:.3f} s, "
+        f"{rec['plain_cold']['decode_tok_s']:.1f} tok/s without a plan "
+        f"(cold waves) [{card}]")
+    log(f"recovery: silent plan, warm wave {rec['silent_warm']['decode_tok_s']:.1f} "
+        f"tok/s (TTFT p50 {rec['silent_warm']['ttft_p50_s']:.3f} s) against "
+        f"{rec['plain_warm']['decode_tok_s']:.1f} tok/s "
+        f"({rec['plain_warm']['ttft_p50_s']:.3f} s) without a plan; no sync "
+        f"in {sum(guarded.values())} guarded calls [{card}]")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def _f32_params(torch, cfg):
+    """RECOVERY_LAYERS_F32 layers at cfg's width, f32 weights from a seed,
+    the lm_head's columns past the byte range zeroed: greedy tokens stay
+    in the ByteTokenizer's range (served text is not empty) and never hit
+    an EOS id, so every stream runs to its budget."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.params import init_params
+
+    c = dataclasses.replace(cfg, num_hidden_layers=RECOVERY_LAYERS_F32)
+    p = init_params(c, torch.Generator(device=DEV).manual_seed(15),
+                    device=DEV, dtype=torch.float32)
+    p["lm_head"][:, 256:] = 0.0
+    return c, p
+
+
+def _f32_engine(torch, cfg, params, **kw):
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    kw.setdefault("decode_scan_steps", 4)
+    return InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), device=DEV,
+        max_slots=8, max_seq_len=2048, kv_pages=RECOVERY_PAGES,
+        kv_page_size=128, prefill_chunk=64, cache_dtype=torch.float32,
+        sampling=SamplingConfig(temperature=0.0), recovery=True, **kw)
+
+
+def _f32_prompts():
+    return [[(7 * i + 3 * j) % 250 + 1 for j in range(n)]
+            for i, n in enumerate(TIER_CHATS)]
+
+
+def _run_prompts(eng, n_new: int = 32):
+    hs = [eng.submit(p, max_new_tokens=n_new) for p in _f32_prompts()]
+    with eng:
+        for h in hs:
+            if not h.wait(timeout=600):
+                fail("recovery: a request did not finish")
+    return hs
+
+
+def _recovery_identity(torch, cfg32, p32, card: str) -> dict:
+    """Drive 2: 8B width, 2 layers, f32 weights and pool, every prompt
+    submitted before the engine starts: under RECOVERY_PLAN the greedy
+    streams equal the same engine's without the plan, at decode_scan 1
+    and 4. Returns the record (and the clean streams at 4)."""
+    rec = {}
+    for scan in (1, 4):
+        clean = [list(h._req.out_tokens) for h in _run_prompts(
+            _f32_engine(torch, cfg32, p32, decode_scan_steps=scan))]
+        eng = _f32_engine(torch, cfg32, p32, decode_scan_steps=scan,
+                          fault_plan=RECOVERY_PLAN)
+        hs = _run_prompts(eng)
+        got = [list(h._req.out_tokens) for h in hs]
+        fired = eng._faults.describe()["injections_total"]
+        rec[f"scan{scan}"] = dict(recoveries=eng.stats.recoveries,
+                                  fired=fired, identical=got == clean,
+                                  seconds=list(eng.recovery_seconds))
+        if any(h._req.error for h in hs) or eng.stats.recoveries != fired \
+                or fired != 3:
+            fail(f"recovery identity (scan {scan}): {rec[f'scan{scan}']}")
+        if got != clean:
+            fail(f"recovery identity (scan {scan}): f32 greedy streams "
+                 "differ from the run without the plan")
+        rec["clean"] = clean
+        log(f"recovery identity (f32, {RECOVERY_LAYERS_F32} layers, "
+            f"decode_scan {scan}): {fired} faults, {eng.stats.recoveries} "
+            f"recoveries, streams token-identical [{card}]")
+    return rec
+
+
+def _recovery_poison_breaker(torch, cfg32, p32, clean, card: str) -> dict:
+    """Drive 3 and 5: the poison request through the HTTP API (a terminal
+    500 for exactly that chat, 200 for the others), then drain on the
+    same server (a 429 with Retry-After while the in-flight chats
+    complete); the storm breaker with a snapshot, restored into a fresh
+    engine token-identically."""
+    from cake_tpu_torch.serve import checkpoint
+    from cake_tpu_torch.serve.errors import RecoveryConfig
+
+    rec = {}
+    n_poison = TIER_CHATS[4]
+    srv = _SchedServer(torch, cfg32, p32, torch.float32, False,
+                       kv_pages=RECOVERY_PAGES,
+                       fault_plan=f"seed=1;engine.prefill:match_len="
+                                  f"{n_poison}:always:transient:times=50")
+    names = [f"P{i}" for i in range(len(TIER_CHATS))]
+    for name, n in zip(names, TIER_CHATS):
+        srv.post(name, "standard", n, 32)
+    srv.join()
+    codes = {n: srv.status.get(n, (None,))[0] for n in names}
+    want = {n: (500 if i == 4 else 200) for i, n in enumerate(names)}
+    st = srv.engine.stats
+    rec["poison"] = dict(codes=codes, poisoned=st.poisoned,
+                         recoveries=st.recoveries)
+    if codes != want or st.poisoned != 1:
+        fail(f"recovery poison: {rec['poison']}, expected {want} and one "
+             "quarantined")
+    # drain: three chats in flight, then POST /api/v1/drain
+    drain = [f"D{i}" for i in range(3)]
+    for name in drain:
+        srv.post(name, "standard", 200, 64)
+    srv.wait_tokens(drain, 2)
+    with _post(srv.url + "/api/v1/drain", {"timeout_s": 300}) as r:
+        dst = json.loads(r.read())
+    refused = None
+    try:
+        with _post(srv.url + "/api/v1/chat/completions",
+                   {"messages": [{"role": "user", "content": "late"}],
+                    "max_tokens": 4}) as r:
+            refused = (r.status, None)
+    except urllib.error.HTTPError as e:
+        refused = (e.code, e.headers.get("Retry-After"))
+    srv.join()
+    dcodes = [srv.status.get(n, (None,))[0] for n in drain]
+    rec["drain"] = dict(state=dst, refused=refused, in_flight=dcodes)
+    if (refused[0] != 429 or not refused[1] or int(refused[1]) < 1
+            or dcodes != [200] * 3 or not dst.get("draining")):
+        fail(f"recovery drain: {rec['drain']}")
+    log(f"recovery poison: {codes} ({st.recoveries} recoveries, "
+        f"{st.poisoned} quarantined); drain: a late chat got "
+        f"{refused[0]} Retry-After {refused[1]} s, the in-flight chats "
+        f"{dcodes} [{card}]")
+    srv.close()
+    del srv
+
+    # the storm breaker: resets from engine step 4 on (mid-prefill, some
+    # first tokens out), 3 in the window
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="cake_smoke_"), "ckpt.json")
+    eng = _f32_engine(torch, cfg32, p32, fault_plan="seed=2;engine.step:"
+                      "step=4:transient:times=99",
+                      recovery_config=RecoveryConfig(backoff_base_s=0.01,
+                                                     storm_resets=3))
+    eng.snapshot_path = path
+    checkpoint.warm_fingerprint(eng)
+    hs = _run_prompts(eng)
+    recs = checkpoint.load(path)["requests"]
+    ok = (eng._breaker_tripped and eng.stopped
+          and [r["rid"] for r in recs] == [h._req.rid for h in hs]
+          and all(checkpoint.is_resumable(r) for r in recs)
+          and all(h._req.error is not None and h._req.error.retryable
+                  for h in hs))
+    fresh = _f32_engine(torch, cfg32, p32)
+    with fresh:
+        handles, finished = checkpoint.restore(fresh, path)
+        for h in handles:
+            if not h.wait(timeout=600):
+                fail("recovery breaker: a restored request did not finish")
+    joined = [list(r["out_tokens"]) + list(h._req.out_tokens)
+              for r, h in zip(recs, handles)]
+    rec["breaker"] = dict(tripped=eng._breaker_tripped,
+                          recoveries=eng.stats.recoveries,
+                          snapshot=len(recs), restored=len(handles),
+                          generated_before=[len(r["out_tokens"])
+                                            for r in recs],
+                          identical=joined == clean)
+    if not ok or finished or joined != clean:
+        fail(f"recovery breaker: {rec['breaker']}")
+    log(f"recovery breaker: tripped after {eng.stats.recoveries} "
+        f"recoveries, snapshot of {len(recs)} requests, restored "
+        f"token-identically [{card}]")
+    return rec
+
+
+def _journal_child(tree: str, jpath: str, plan: str) -> None:
+    """A serving process for the cold-restart drive: the f32 2-layer
+    model from the seed, --journal JPATH and the plan; prints its port,
+    then serves until a drain (or the plan's abort) ends it."""
+    import torch
+
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    cfg32, p32 = _f32_params(
+        torch, getattr(LlamaConfig, RECOVERY_CHILD_CONFIG)())
+    args = Args(max_slots=8, max_seq_len=2048, kv_pages=RECOVERY_PAGES,
+                kv_page_size=128, prefill_chunk=64, temperature=0.0,
+                sample_len=32, journal=jpath,
+                fault_plan=plan or None).validate()
+    gen = LlamaGenerator(cfg32, p32, ByteTokenizer(cfg32.vocab_size),
+                         max_seq_len=2048,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.float32, device=DEV)
+    master = Master(args, text_generator=gen)
+    engine = master.make_engine()
+    httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
+    print(f"PORT {httpd.server_address[1]}", flush=True)
+    while not engine.stopped:
+        time.sleep(0.05)
+    time.sleep(0.5)          # the drain's shutdown closes the server
+
+
+def _spawn_child(jpath: str, plan: str, log_path: str):
+    """A _journal_child process (this script's directory and the tree
+    the parent imported on its path; its log to log_path): (the process,
+    its URL)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = sys.path[0]
+    code = (f"import sys; sys.path.insert(0, {here!r}); "
+            f"sys.path.insert(0, {tree!r}); import chip_smoke; "
+            f"chip_smoke.DEV = {DEV!r}; "
+            f"chip_smoke.RECOVERY_CHILD_CONFIG = {RECOVERY_CHILD_CONFIG!r}; "
+            f"chip_smoke._journal_child({tree!r}, {jpath!r}, {plan!r})")
+    err = open(log_path, "a")
+    p = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                         stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line = p.stdout.readline()
+    if not line.startswith("PORT "):
+        p.kill()
+        p.wait()
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"recovery journal: the child did not serve: {line!r} {tail}")
+    return p, f"http://127.0.0.1:{int(line.split()[1])}"
+
+
+def _sse_read(url: str, body: dict, headers: dict, until_drop: bool):
+    """POST a streaming chat; the (event id, delta text) of its events.
+    until_drop: the server dies mid-stream (the read ends in an error)."""
+    req = urllib.request.Request(
+        url + "/api/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **headers})
+    events, cur, done = [], None, False
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for raw in r:
+                line = raw.decode().rstrip("\n")
+                if line.startswith("id: "):
+                    cur = int(line[4:])
+                elif line == "data: [DONE]":
+                    done = True
+                elif line.startswith("data: "):
+                    ev = json.loads(line[6:])
+                    if "choices" in ev:
+                        events.append(
+                            (cur, ev["choices"][0]["delta"].get("content")))
+                    cur = None
+    except Exception as e:   # noqa: BLE001 — the child's abort
+        if not until_drop:
+            fail(f"recovery journal: the stream broke: {e!r}")
+    return events, done
+
+
+def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
+    """Drive 4: a child process serves the f32 2-layer model with
+    --journal and engine.decode:nth=10:abort; three keyed SSE chats
+    stream until it dies with ABORT_EXIT_CODE. A second child on the same
+    journal replays it; once it has finished the three requests, each
+    client reconnects with its Last-Event-ID and receives exactly the
+    missing suffix (one event, its id the stream's length). The joined
+    streams (the second child's journal, replayed) equal an uninterrupted
+    in-process run's tokens."""
+    import tempfile
+
+    from cake_tpu_torch.faults import ABORT_EXIT_CODE
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.serve import journal as jr
+
+    tmp = tempfile.mkdtemp(prefix="cake_smoke_journal_")
+    jpath = os.path.join(tmp, "requests.journal")
+    logp = os.path.join(tmp, "child.log")
+    t0 = time.perf_counter()
+    a, url = _spawn_child(jpath, RECOVERY_ABORT, logp)
+    bodies = {k: {"messages": [{"role": "user",
+                                "content": f"{k}: tell me a long story"}],
+                  "max_tokens": 32, "temperature": 0.0, "stream": True}
+              for k in RECOVERY_KEYS}
+    seen = {}
+
+    def client(k):
+        seen[k] = _sse_read(url, bodies[k],
+                            {"x-cake-idempotency-key": k}, True)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in RECOVERY_KEYS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    code = a.wait(timeout=120)
+    last = {k: max([i for i, _ in seen[k][0] if i is not None] or [0])
+            for k in RECOVERY_KEYS}
+    if code != ABORT_EXIT_CODE or any(seen[k][1] for k in RECOVERY_KEYS):
+        fail(f"recovery journal: the first child exited {code} (want "
+             f"{ABORT_EXIT_CODE}); streams done {[seen[k][1] for k in seen]}")
+    b, url = _spawn_child(jpath, "", logp)
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            h = json.loads(_get(url + "/api/v1/health"))
+            if h["requests_completed"] >= len(RECOVERY_KEYS):
+                break
+            time.sleep(0.05)
+        replay = h.get("journal", {}).get("last_replay", {})
+        resumed = {}
+        for k in RECOVERY_KEYS:
+            resumed[k] = _sse_read(url, bodies[k],
+                                   {"x-cake-idempotency-key": k,
+                                    "Last-Event-ID": str(last[k])}, False)
+        with _post(url + "/api/v1/drain", {"timeout_s": 60}) as r:
+            r.read()
+        code_b = b.wait(timeout=120)
+    finally:
+        if b.poll() is None:
+            b.kill()
+            b.wait()
+    wall = time.perf_counter() - t0
+    states = {s["idempotency_key"]: s
+              for s in jr.replay_state(jr.read_records(jpath)[0])[0]
+              if s.get("idempotency_key")}
+    # the uninterrupted run, in process
+    eng = _f32_engine(torch, cfg32, p32, decode_scan_steps=1)
+    with eng:
+        hs = {k: eng.chat([Message.user(bodies[k]["messages"][0]
+                                        ["content"])], max_new_tokens=32)
+              for k in RECOVERY_KEYS}
+        for h in hs.values():
+            h.wait(timeout=600)
+    tok = eng.tokenizer
+    rec = dict(last_event_ids=last, replay=replay, exit_codes=[code, code_b],
+               wall_s=wall)
+    for k in RECOVERY_KEYS:
+        full = list(states[k]["out_tokens"])
+        want = list(hs[k]._req.out_tokens)
+        events = resumed[k][0]
+        text = [(i, t) for i, t in events if t]
+        exp = tok.decode(full[last[k]:])
+        ok = (full == want and resumed[k][1] and states[k].get("finished")
+              and len(text) == 1 and text[0][0] == len(full)
+              and text[0][1] == exp
+              and all(i is None or i > last[k] for i, _ in events))
+        rec[k] = dict(last=last[k], total=len(full), identical=full == want,
+                      suffix_ok=ok)
+        if not ok:
+            fail(f"recovery journal {k}: last seen {last[k]}, events "
+                 f"{events[:3]}..., journal tokens == uninterrupted "
+                 f"{full == want}")
+    if replay.get("replayed") != len(RECOVERY_KEYS):
+        fail(f"recovery journal: the replay resubmitted {replay}")
+    log(f"recovery journal: child exited {code} (abort) after "
+        f"{list(last.values())} events; the second child replayed "
+        f"{replay.get('replayed')} requests in {replay.get('seconds')} s; "
+        f"each Last-Event-ID got exactly its suffix, streams "
+        f"token-identical to an uninterrupted run; {wall:.1f} s [{card}]")
+    return rec
+
+
+def phase_recovery(torch, rpa, cfg, params, card: str) -> tuple:
+    """Fault injection, crash recovery, the checkpoint, the journal and
+    drain at Llama-3-8B width (drives 2-5: 2 layers, f32). Returns (the
+    ragged kernels' launches on the faulted wave, the phase's record)."""
+    t_phase = time.perf_counter()
+    counts, rec = _recovery_served(torch, rpa, cfg, params, card)
+    cfg32, p32 = _f32_params(torch, cfg)
+    rec["identity"] = _recovery_identity(torch, cfg32, p32, card)
+    clean = rec["identity"].pop("clean")
+    rec.update(_recovery_poison_breaker(torch, cfg32, p32, clean, card))
+    rec["journal"] = _recovery_journal(torch, cfg32, p32, card)
+    del p32
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"recovery: phase wall {rec['wall_s']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3241,8 +3873,9 @@ def main(argv=None) -> int:
     prefix_records = []
     sched_record = None
     tiers_record = None
+    recovery_record = None
     if {"step", "generate", "serve", "prefix", "sched",
-            "tiers"} & set(phases):
+            "tiers", "recovery"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -3280,6 +3913,13 @@ def main(argv=None) -> int:
             # the fp8 kernels' launches on drive 1 (set to 0 just before)
             got, tiers_record = phase_tiers(torch, rpa, cfg, params, card)
             counts.update(got)
+        if "recovery" in phases:
+            # the faulted wave's decode and mixed launches (set to 0 just
+            # before it) join the serve phase's in the kernels line
+            got, recovery_record = phase_recovery(torch, rpa, cfg, params,
+                                                  card)
+            for k, n in got.items():
+                counts[k] = counts.get(k, 0) + n
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -3322,6 +3962,9 @@ def main(argv=None) -> int:
               flush=True)
     if tiers_record is not None:
         print(json.dumps({"tiers": tiers_record, "card": card}),
+              flush=True)
+    if recovery_record is not None:
+        print(json.dumps({"recovery": recovery_record, "card": card}),
               flush=True)
 
     rows = []
