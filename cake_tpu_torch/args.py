@@ -47,6 +47,9 @@ class Args:
     cpu: bool = False                   # run on the CPU (plain kernels)
     device_idx: int = 0                 # cuda:<device_idx> otherwise
     max_seq_len: int = 4096
+    # rows of the one-shot generator (the prompt replicated over them,
+    # row 0 streamed, as the JAX generator does)
+    batch_size: int = 1
     max_slots: int = 8                  # continuous-batching decode slots
     # prefill prompts in fixed windows of N tokens. Generator: None =
     # whole-prompt prefill; engine: None = 256, capped at max_seq_len.
@@ -58,6 +61,9 @@ class Args:
     decode_scan: int = 1
     # flash-attention kernels for prefill; None = on iff the device is CUDA
     flash_attention: Optional[bool] = None
+    # --tracing DIR: a torch.profiler trace of the one-shot generation,
+    # written to DIR as a Chrome / Perfetto trace file
+    tracing: Optional[str] = None
     # paged KV pool of the --api engine: N pages of kv_page_size tokens;
     # admission is gated by free pages (the port's engine is paged only)
     kv_pages: Optional[int] = 512
@@ -136,8 +142,8 @@ class Args:
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --decode-scan, --trace-ring and --step-ring are at
-        least 1, --event-ring at least 0; --slo-targets parses;
+        int8 or int4; --batch-size, --decode-scan, --trace-ring and
+        --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
         name must be a dtype or an fp8 storage name; --kv-host-pages is
@@ -145,7 +151,8 @@ class Args:
         or always. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        for knob in ("decode_scan", "trace_ring", "step_ring"):
+        for knob in ("batch_size", "decode_scan", "trace_ring",
+                     "step_ring"):
             if getattr(self, knob) < 1:
                 raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
         if self.slo_targets:

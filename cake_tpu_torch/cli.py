@@ -5,6 +5,7 @@ Counterpart of `cake_tpu/cli.py:main` for one device:
     python -m cake_tpu_torch.cli --model DIR --prompt "..."   # one-shot
     python -m cake_tpu_torch.cli --model DIR --api 0.0.0.0:8080
     python -m cake_tpu_torch.cli --cpu --prompt hi --sample-len 4
+    python -m cake_tpu_torch.cli --batch-size 2 --tracing /tmp/trace
 
 Without --model the model is the tiny config with random weights. It
 runs on cuda:<--device-idx> and raises when there is no card, unless
@@ -51,7 +52,9 @@ def main(argv=None) -> int:
             "--fault-plan / --recovery / --journal apply to engine "
             "serving (--api); one-shot generation has a single request "
             "and records nothing")
-    master.run()
+    from cake_tpu_torch.utils.profiling import trace
+    with trace(args.tracing):
+        master.run()
     return 0
 
 

@@ -3,8 +3,8 @@
 Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
 `Context.from_args`, `load_text_model`, `_maybe_quantize`), for one
 device: the dtype, the device (`cuda:<device_idx>`, or the CPU with
-`--cpu`), the model config and the text generator, its weights
-quantized with `--quant int8|int4`. Topologies, sequence parallelism
+`--cpu`), the model config and the text generator (`--batch-size`
+rows), its weights quantized with `--quant int8|int4`. Topologies, sequence parallelism
 (`--sp`) and speculation are not ported.
 """
 
@@ -116,5 +116,6 @@ class Context:
         return LlamaGenerator(
             cfg, params, tokenizer,
             max_seq_len=min(a.max_seq_len, cfg.max_position_embeddings),
+            batch_size=a.batch_size,
             sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
             prefill_chunk=a.prefill_chunk, device=self.device)

@@ -11,7 +11,10 @@
 //                      j <= i, and j > i - window with a window. Non-causal:
 //                      every key.
 //   flash_attn_cached  query i sits at absolute position pos + i and attends
-//                      cache slots j <= pos + i (and j > pos + i - window).
+//                      cache slots j <= pos + i (and j > pos + i - window);
+//                      pos is a device int32 the kernel reads (copied to
+//                      a fixed address first), as the TPU kernel reads its
+//                      scalar-prefetched pos_ref.
 //                      Slots at or past the write frontier pos + S may hold
 //                      stale or non-finite values and are never read.
 //
@@ -119,13 +122,32 @@ struct Args {
   void* out;        // [B, S, H, hd]
   int B, S, T, H, KV, hd;
   int q_cols;       // query positions per CTA
-  int qbase;        // absolute position of query 0 (pos; 0 when fresh)
+  int cached;       // 1: query 0 sits at g_pos (flash_attn_cached), 0: at 0
   int causal;       // 0 = every key
   int window;       // 0 = no window
   float scale;
   int splits;       // flash_tc: key splits per (query tile, kv head)
   float* part;      // flash_tc with splits > 1: f32 partials (tc_attention.cuh)
 };
+
+// flash_attn_cached's pos: the caller's device int32, copied here before
+// each launch (a device-to-device copy in stream order, which a capture
+// records with the launch, so a replayed launch reads the pos its buffer
+// holds then), as the TPU kernel reads its scalar-prefetched pos_ref.
+// Read from this fixed address it costs 0-2 us a launch, as from the
+// constant bank; read through a pointer in Args it made both bodies 1.6x
+// slower (the kernel table's shapes, H100; kernel_ablation.py's "flash
+// pos" variants).
+__device__ int g_pos;
+
+// The window's absolute position: g_pos for the cached kernel, 0 for a
+// fresh window. A pos outside [0, T - S] traps: it is never clamped.
+__device__ __forceinline__ int query_base(const Args& a) {
+  if (!a.cached) return 0;
+  const int p = g_pos;
+  if (p < 0 || p > a.T - a.S) __trap();
+  return p;
+}
 
 // Shared memory of one CTA, in bytes (all f32): K tile [kTile][hd + 4]
 // (padded so lane t's 16-byte reads fall in distinct banks), V tile
@@ -161,11 +183,12 @@ __device__ void flash_cta(const Args& a, int tile, int kv, int b) {
   T* out = static_cast<T*>(a.out);
 
   const int c0 = tile * a.q_cols;
+  const int qbase = query_base(a);
   const int cols = min(a.q_cols, a.S - c0);
   const int rows = cols * G;
   // keys [lo, hi) cover every key some row of this CTA attends
-  const int first = a.qbase + c0;              // position of the first row
-  const int last = a.qbase + c0 + cols - 1;    // position of the last row
+  const int first = qbase + c0;              // position of the first row
+  const int last = qbase + c0 + cols - 1;    // position of the last row
   const int hi = a.causal ? min(a.T, last + 1) : a.T;
   const int lo = a.window > 0 ? max(0, first - a.window + 1) : 0;
 
@@ -235,7 +258,7 @@ __device__ void flash_cta(const Args& a, int tile, int kv, int b) {
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) {
         const int r = r0 + j;
-        const int qpos = a.qbase + c0 + r / G;
+        const int qpos = qbase + c0 + r / G;
         const bool valid = r < rows && lane < nt &&
                            (!a.causal || key <= qpos) &&
                            (a.window <= 0 || key > qpos - a.window);
@@ -319,10 +342,11 @@ __device__ void flash_tc(const Args& a, int tile, int kv, int b, int split,
   T* out = static_cast<T*>(a.out);
 
   const int c0 = tile * a.q_cols;
+  const int qbase = query_base(a);
   const int cols = min(a.q_cols, a.S - c0);
   const int rows = cols * G;
-  const int first = a.qbase + c0;
-  const int last = a.qbase + c0 + cols - 1;
+  const int first = qbase + c0;
+  const int last = qbase + c0 + cols - 1;
   // keys [lo, hi) cover every key some row of this CTA attends; a cached
   // window's hi stays below the frontier qbase + S
   const int hi = a.causal ? min(a.T, last + 1) : a.T;
@@ -377,8 +401,8 @@ __device__ void flash_tc(const Args& a, int tile, int kv, int b, int split,
   if (n_tiles > 1) load_tile(1);
   tc::cp_commit();              // group 1: tile 1 (or nothing)
 
-  const int pos0 = a.qbase + c0 + r0 / G;
-  const int pos1 = a.qbase + c0 + (r0 + 8) / G;
+  const int pos0 = qbase + c0 + r0 / G;
+  const int pos1 = qbase + c0 + (r0 + 8) / G;
   const float sl2 = a.scale * tc::kLog2e;         // scores in log2 units
   uint32_t qf[kHd / 16][4];
 
@@ -562,21 +586,27 @@ int flash_attn(const void* q, const void* k, const void* v, void* out, int B,
   return launch(false, a, dtype, 4, static_cast<cudaStream_t>(stream));
 }
 
-// Window at absolute position pos against a cache k/v [B, T, KV, hd]
-// whose slots < pos + S are written (0 <= pos <= T - S). bf16/f16 run
+// Window at absolute position *pos (a device int32, copied to g_pos in
+// stream order and read by the kernel; one outside [0, T - S] traps)
+// against a cache k/v [B, T, KV, hd] whose slots < *pos + S are written.
+// bf16/f16 run
 // flash_tc with `warps` (4 or 8) warps a CTA over `splits` key splits;
 // splits > 1 needs `part`, f32 scratch of splits * B * S * H * (hd + 2)
 // floats, and launches flash_merge after it (bf16/f16 only). f32 runs
 // flash_cta (splits 1). Returns cudaGetLastError() of the launches.
 int flash_attn_cached(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int T, int H, int KV, int hd, int pos,
-                      int window, float scale, int dtype, int warps,
-                      int splits, float* part, void* stream) {
-  if (pos < 0 || pos > T - S || splits < 1 || splits > 65535)
+                      int B, int S, int T, int H, int KV, int hd,
+                      const int* pos, int window, float scale, int dtype,
+                      int warps, int splits, float* part, void* stream) {
+  if (pos == nullptr || splits < 1 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, out, B, S, T, H, KV, hd, 0, pos, 1, window, scale,
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyToSymbolAsync(g_pos, pos, sizeof(int), 0,
+                                          cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  Args a{q, k, v, out, B, S, T, H, KV, hd, 0, 1, 1, window, scale,
          splits, part};
-  return launch(true, a, dtype, warps, static_cast<cudaStream_t>(stream));
+  return launch(true, a, dtype, warps, st);
 }
 
 }  // extern "C"

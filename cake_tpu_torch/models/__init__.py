@@ -35,7 +35,7 @@ def load_text_params(config, model_dir: Optional[str], dtype, device):
     if getattr(config, "num_local_experts", 0):
         raise NotImplementedError(
             "mixture-of-experts models are not ported to cake_tpu_torch "
-            "yet (ROADMAP A14)")
+            "yet (ROADMAP A12)")
     dev = resolve_device(device)
     if has_weights(model_dir):
         return load_params_from_hf(model_dir, config, dtype=dtype,

@@ -25,7 +25,7 @@ def load_config_dict(raw: dict) -> "LlamaConfig":
     if raw.get("model_type") == "mixtral":
         raise NotImplementedError(
             "Mixtral (MoE) is not ported to cake_tpu_torch yet "
-            "(ROADMAP A14)")
+            "(ROADMAP A12)")
     return LlamaConfig.from_hf_dict(raw)
 
 

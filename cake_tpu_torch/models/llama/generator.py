@@ -5,11 +5,20 @@ Counterpart of `cake_tpu/models/llama/generator.py`: the first
 `next_token` renders the chat history and prefills it (whole prompt,
 right-padded to a bucket length; or fixed windows with
 `prefill_chunk`), every later one feeds the last token at its absolute
-position; repeat penalty over a ring of recent tokens, sampling with a
-`torch.Generator` seeded from `seed`, EOS detection over the config's
-whole eos set, and `reset()` zeroing the whole cache. JAX's on-device
-`generate_scan` is a host loop here. The `forward_fn`/`parallel` hooks
-(pipeline and sequence-parallel forwards) are not ported.
+position; repeat penalty over a ring of recent tokens, EOS detection
+over the config's whole eos set, and `reset()` zeroing the whole cache
+in place.
+
+The decode step is JAX's jitted `decode_step` as a CUDA graph
+(serve/graphs.GeneratorRunner): the dense forward reads its position
+from a device buffer, and the sample draws from the engine's
+counter-based streams (`ops/sampling.masked_sample`, one seed a row
+from `seed`), where JAX splits a threefry key; greedy rows are JAX's
+tokens. `generate_on_device`, one `lax.scan` in JAX, is one eager
+prefill and num_tokens - 1 replays of the captured step over a scratch
+cache, with one fetch at the end. The prefills stay eager. The
+`forward_fn`/`parallel` hooks (pipeline and sequence-parallel forwards)
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,11 +35,10 @@ from cake_tpu_torch.models.chat import History, Message
 from cake_tpu_torch.models.llama.cache import KVCache
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import (
-    RopeTables, decode_step, forward, prefill, prefill_chunk,
+    RopeTables, forward, prefill, prefill_chunk,
 )
-from cake_tpu_torch.ops.sampling import (
-    SamplingConfig, sample_tokens, update_ring,
-)
+from cake_tpu_torch.ops.sampling import SamplingConfig
+from cake_tpu_torch.serve.graphs import GeneratorRunner
 from cake_tpu_torch.utils.devices import resolve_device
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -137,7 +145,16 @@ class LlamaGenerator:
         self.cache = KVCache.create(config, batch_size, max_seq_len,
                                     dtype=cache_dtype, device=self.device)
         self.history = History(config.chat_template)
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
+        self._ring: Optional[torch.Tensor] = None
+        # the captured decode steps (built at first use) and the graph
+        # memory they share on the card
+        self._decode: Optional[GeneratorRunner] = None
+        self._scan: Optional[GeneratorRunner] = None
+        self._scratch: Optional[KVCache] = None
+        self._scan_calls = 0
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
         self._reset_session()
 
     # -- TextGenerator protocol ---------------------------------------------
@@ -146,19 +163,47 @@ class LlamaGenerator:
         self.history.add_message(message)
 
     def reset(self) -> None:
-        """Clear chat and decode state, the whole KV cache included."""
+        """Clear chat and decode state, the whole KV cache included
+        (zeroed in place: the captured step holds its storage). The
+        rows' random streams go on from where they are, as JAX's key
+        does."""
         self.history.clear()
-        self.cache = self.cache.fresh()
+        self.cache.zero_()
         self._reset_session()
 
     def _reset_session(self) -> None:
         self.tokens: List[int] = []      # every generated token id
         self.index_pos = 0               # absolute position in the cache
-        self._ring = torch.full((self.batch_size,
-                                 self.sampling.repeat_last_n), -1,
-                                dtype=torch.int32, device=self.device)
+        if self._ring is not None:
+            self._ring.fill_(-1)
         self._pending_text = ""
         self._prompt_len = 0
+
+    def _seeds(self, call: int, rows: int) -> List[int]:
+        """Row b's stream seed: the session's (call 0), or that of the
+        call-th `generate_on_device` (a stream of its own, so no call
+        replays another's draws)."""
+        base = self.seed * 1_000_003 + call * 65_537
+        return [base + b for b in range(rows)]
+
+    def _decode_runner(self) -> GeneratorRunner:
+        """The session's captured step over the session's cache (a new
+        one, carrying the session on, when set_sampling changed the
+        ring's width), its options those of `self.sampling`."""
+        n = self.sampling.repeat_last_n
+        r = self._decode
+        if r is None or self._ring.shape[1] != n:
+            self._ring = torch.full((self.batch_size, n), -1,
+                                    dtype=torch.int64, device=self.device)
+            r = self._decode = GeneratorRunner(
+                self.params, self.cache, self.rope, self.config,
+                self._ring, cols=self.max_seq_len, pool=self._graph_pool)
+            r.begin(self.index_pos, len(self.tokens),
+                    tok=self.tokens[-1] if self.tokens else None,
+                    seeds=self._seeds(0, self.batch_size))
+        if r.options is not self.sampling:
+            r.set_options(self.sampling)
+        return r
 
     def set_sampling(self, **overrides) -> None:
         """Apply per-request sampling overrides (None values ignored)."""
@@ -167,24 +212,23 @@ class LlamaGenerator:
             self.sampling = replace(self.sampling, **kw)
 
     def next_token(self, index: int) -> Token:
-        """Generate one token; index == 0 prefills the prompt."""
+        """Generate one token; index == 0 prefills the prompt (eagerly)
+        and samples its logits, a later index replays the captured step
+        from the last token at `index_pos`."""
+        runner = self._decode_runner()
+        top_k = self.sampling.top_k
         if index == 0:
             logits = self._prefill_prompt()
+            runner.begin(self.index_pos, len(self.tokens))
+            runner.sample(logits, top_k)
         else:
             if self.index_pos >= self.max_seq_len:
                 raise ValueError(
                     f"the KV cache is full: {self.max_seq_len} positions "
                     "(raise max_seq_len or generate fewer tokens)")
-            tok = torch.full((self.batch_size, 1), self.tokens[-1],
-                             dtype=torch.int32, device=self.device)
-            logits, self.cache = decode_step(
-                self.params, tok, self.index_pos, self.cache, self.rope,
-                self.config)
+            runner.replay(top_k)
             self.index_pos += 1
-
-        next_id = sample_tokens(self.rng, logits, self._ring, self.sampling)
-        self._ring = update_ring(self._ring, next_id, len(self.tokens))
-        tid = int(next_id[0])
+        tid = int(runner.tok[0])
         self.tokens.append(tid)
 
         if tid in self.config.eos_token_ids:
@@ -248,44 +292,70 @@ class LlamaGenerator:
 
     # -- batch generation ------------------------------------------------------
 
+    def _scan_runner(self, B: int) -> GeneratorRunner:
+        """The captured step over the scratch cache of B rows, allocated
+        once (again only when B or repeat_last_n changes, the old one
+        dropped first) and zeroed in place for each call."""
+        n = self.sampling.repeat_last_n
+        r = self._scan
+        if r is None or r.B != B or r.ring.shape[1] != n:
+            self._scan = self._scratch = r = None
+            self._scratch = KVCache.create(
+                self.config, B, self.max_seq_len, dtype=self.cache.k.dtype,
+                device=self.device)
+            ring = torch.full((B, n), -1, dtype=torch.int64,
+                              device=self.device)
+            r = self._scan = GeneratorRunner(
+                self.params, self._scratch, self.rope, self.config, ring,
+                cols=self.max_seq_len, pool=self._graph_pool)
+        else:
+            self._scratch.zero_()
+            r.ring.fill_(-1)
+        return r
+
     def generate_on_device(self, prompt_ids: np.ndarray,
                            prompt_len: np.ndarray,
                            num_tokens: int) -> np.ndarray:
         """Generate num_tokens for a [B, S] batch of right-padded prompts
         and return [B, num_tokens] int32, EOS not cut (see trim_at_eos).
 
-        JAX runs this loop as one on-device scan; here it is a host loop
-        over the same steps: a prefill forward at position 0 (the masked
-        einsum, as in the scan), then one decode forward per token. Runs
-        on a scratch cache: the session's cache and state are untouched.
-        prompt_len must be uniform, as decode positions are shared."""
+        JAX's one scan, as one eager prefill forward at position 0 (the
+        masked einsum, as in the scan) and its sample, then num_tokens - 1
+        replays of the captured decode step, each keeping token,
+        position and ring on the card and writing its token into column
+        `step` of a [B, max_seq_len] buffer: no host round trip between
+        steps, one fetch at the end. Runs on a scratch cache kept by the
+        generator (B x one session cache's bytes): the session's cache
+        and state are untouched. prompt_len must be uniform, as decode
+        positions are shared."""
         plen_arr = np.asarray(prompt_len, dtype=np.int32)
         if not (plen_arr == plen_arr[0]).all():
             raise ValueError(
                 "generate_on_device requires uniform prompt_len; "
                 f"got {plen_arr.tolist()}")
+        if not 1 <= num_tokens <= self.max_seq_len:
+            raise ValueError(
+                f"num_tokens {num_tokens} must be in [1, max_seq_len "
+                f"{self.max_seq_len}]")
         toks = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int32,
                                device=self.device)
         plen = torch.as_tensor(plen_arr, device=self.device)
-        cache = self.cache.fresh()
-        p, rope, cfg, smp = self.params, self.rope, self.config, self.sampling
+        B = toks.shape[0]
+        top_k = self.sampling.top_k
+        self._scan_calls += 1
         with torch.inference_mode():
-            logits, cache = forward(p, toks, cache, 0, rope, cfg,
-                                    last_idx=plen - 1)
-            ring = torch.full((toks.shape[0], smp.repeat_last_n), -1,
-                              dtype=torch.int32, device=self.device)
-            tok = sample_tokens(self.rng, logits, ring, smp)
-            ring = update_ring(ring, tok, 0)
-            outs = [tok]
-            pos = int(plen_arr.max())
-            for step in range(1, num_tokens):
-                logits, cache = forward(p, tok[:, None], cache, pos, rope,
-                                        cfg)
-                pos += 1
-                tok = sample_tokens(self.rng, logits, ring, smp)
-                ring = update_ring(ring, tok, step)
-                outs.append(tok)
-        return torch.stack(outs, dim=1).to(torch.int32).cpu().numpy()
+            r = self._scan_runner(B)
+            logits, _ = forward(self.params, toks, self._scratch, 0,
+                                self.rope, self.config, last_idx=plen - 1)
+            if r.options is not self.sampling:
+                r.set_options(self.sampling)
+            r.begin(int(plen_arr.max()), 0,
+                    seeds=self._seeds(self._scan_calls, B))
+            r.sample(logits, top_k)
+            for _ in range(1, num_tokens):
+                r.replay(top_k)
+            out = r.out[:, :num_tokens].to(torch.int32)
+        return out.cpu().numpy()
 
 
 def trim_at_eos(ids: np.ndarray, eos_ids: Tuple[int, ...]) -> List[List[int]]:

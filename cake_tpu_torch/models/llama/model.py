@@ -70,7 +70,7 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
     if "router" in lp:
         raise NotImplementedError(
             "mixture-of-experts blocks (a `router` leaf) are not ported "
-            "to cake_tpu_torch yet (ROADMAP A14)")
+            "to cake_tpu_torch yet (ROADMAP A12)")
     B, S, _ = x.shape
     hd = config.head_dim
     H = lp["wq"].shape[-1] // hd
@@ -94,13 +94,14 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
     return x, extras
 
 
-def block_forward(lp, x, k_cache, v_cache, pos: int, rope_c, rope_s, mask,
+def block_forward(lp, x, k_cache, v_cache, pos, rope_c, rope_s, mask,
                   config: LlamaConfig, is_prefill: bool = False,
                   chunked: bool = False):
     """One decoder block with its KV-cache write.
 
     x: [B, S, D]; k_cache/v_cache: one layer's [B, T, KV, hd] (written in
-    place at pos); rope_c/rope_s: [S, hd/2] rows of positions pos..;
+    place at pos; an int or a 0-d device tensor); rope_c/rope_s: [S, hd/2]
+    rows of positions pos..;
     mask: [S, T]. chunked: this prefill window continues the cache (pos
     may be > 0), so flash takes the cache-aware kernel; a fresh prefill
     (pos == 0) attends only its own S keys.
@@ -125,7 +126,7 @@ def block_forward(lp, x, k_cache, v_cache, pos: int, rope_c, rope_s, mask,
     return x, k_cache, v_cache
 
 
-def run_blocks(blocks, x, cache: KVCache, pos: int, rope_c, rope_s, mask,
+def run_blocks(blocks, x, cache: KVCache, pos, rope_c, rope_s, mask,
                config: LlamaConfig, is_prefill: bool = False,
                chunked: bool = False):
     """Every block of the stacked [L, ...] params over the hidden state,
@@ -142,11 +143,15 @@ def forward(params, tokens, cache: KVCache, pos, rope: RopeTables,
             config: LlamaConfig, last_idx: Optional[torch.Tensor] = None,
             return_hidden: bool = False, is_prefill: bool = False,
             chunked: bool = False):
-    """tokens [B, S] at absolute position pos (an int) -> (logits [B, V]
-    f32, cache). last_idx: [B] index of each row's last real token in a
-    right-padded window; defaults to S - 1."""
+    """tokens [B, S] at absolute position pos -> (logits [B, V] f32,
+    cache). pos: an int (the eager prefills), or a 0-d / [1] tensor on
+    the cache's device (the generator's captured decode step): the rope
+    rows, the mask and the cache write then read it on the device, so
+    one captured step replays at every position. last_idx: [B] index of
+    each row's last real token in a right-padded window; defaults to
+    S - 1."""
     B, S = tokens.shape
-    pos = int(pos)
+    pos = pos.reshape(()) if isinstance(pos, torch.Tensor) else int(pos)
     x = params["embed"][tokens.long()]
     rope_c, rope_s = rope_rows(rope.cos, rope.sin, pos, S)
     mask = uniform_forward_mask(pos, S, cache.max_seq_len,

@@ -592,12 +592,17 @@ def mixed_step_paged(params, tokens, pos, q_len, active,
 
 # -- phase-split and shared-prefix prefills (one slot, B = 1) -----------------
 #
-# The JAX package's jitted prefills, run eagerly: a Python loop over the
-# layers, the pool written in place. Each writes one slot's (or one
-# prefix's) pages, through write targets computed once a call (one host
-# sync, not one a layer), and attends with the flash kernels ("kernel")
-# or the masked einsum ("plain"); on the card a shape outside
-# `flash_supported` raises in the wrapper instead of falling back.
+# The JAX package's jitted prefills: a Python loop over the layers, the
+# pool written in place. Each writes one slot's (or one prefix's) pages,
+# through write targets computed once a call on the host from the host's
+# copy of the row (no wait for the stream), and attends with the flash
+# kernels ("kernel") or the masked einsum ("plain"); on the card a shape
+# outside `flash_supported` raises in the wrapper instead of falling
+# back. The slot prefills take `slot`, the real token count and the
+# chunk's `pos0` either as ints (an eager call) or as one-element device
+# tensors, which they read on the device, and their write targets
+# precomputed with fixed shapes (`targets=`): the form
+# serve/graphs.PrefillRunner captures and replays, as JAX traces them.
 
 
 def _use_flash(attn: str, x: torch.Tensor) -> bool:
@@ -623,27 +628,72 @@ def _gather_pages(pool, pages, dtype):
     return kv.reshape(1, n * P, KV, hd).to(dtype)
 
 
-def _last_logits(params, x, n_real: int, config: LlamaConfig):
+def _last_logits(params, x, n_real, config: LlamaConfig):
     """Final norm and lm_head at the window's last real token ([1, V]
-    f32)."""
+    f32); n_real: an int or a one-element device tensor (read through a
+    device index)."""
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    return qmatmul(x[:, n_real - 1], params["lm_head"]).float()
+    if isinstance(n_real, torch.Tensor):
+        last = x.index_select(1, n_real.reshape(1).long() - 1)[:, 0]
+    else:
+        last = x[:, int(n_real) - 1]
+    return qmatmul(last, params["lm_head"]).float()
+
+
+def _table_row(table, slot):
+    """Slot `slot`'s table row: an int, or a one-element device tensor
+    (an index_select)."""
+    if isinstance(slot, torch.Tensor):
+        return table.index_select(0, slot.reshape(1).long())[0]
+    return table[int(slot)]
+
+
+def _as_count(n):
+    """A real-token count as the writers take it: a one-element device
+    tensor as a 0-d one, anything else as an int."""
+    return n.reshape(()) if isinstance(n, torch.Tensor) else int(n)
+
+
+def fixed_prompt_targets(row, S: int, P: int, sink: int):
+    """`prompt_targets` with a fixed shape, for a captured prefill: every
+    window j of an S-token write at position 0 (windows [0, ceil(S/P))),
+    an unmapped window (-1) on page `sink` instead of left out (no table
+    maps the sink and nothing reads it). row: the slot's table row on
+    the host. Returns (windows, pages) host tensors."""
+    n_win = -(-S // P)
+    pages = row[:n_win].long()
+    return (torch.arange(n_win),
+            torch.where(pages >= 0, pages, torch.full_like(pages, sink)))
+
+
+def chunk_write_targets(cache, pos0: int, C: int, n_real: int, row):
+    """The write targets of a C-token window at pos0 with n_real real
+    tokens through one slot's row (the host row [max_pages]): the batched
+    writer's at one row (`step_write_targets`, dropped positions on the
+    sink), host tensors of fixed shapes. An f32/bf16 pool writes every
+    column (JAX's window writer writes the padding too), a quantized
+    pool only the n_real real ones."""
+    pos, q_len, active = _one_window(pos0, C, n_real, _quantized(cache.k),
+                                     "cpu")
+    return step_write_targets(cache, pos, active, q_len, C, table=row[None])
 
 
 def _prompt_prefill_blocks(params, tokens, table_row, cache, rope,
                            config: LlamaConfig, attn: str, n_real=None,
-                           row=None):
+                           row=None, targets=None):
     """Every block over a window at position 0 whose KV goes whole to the
     pages of `table_row` (`write_prompt_pages`), attending the window
     itself: causal `flash_attention`, or the einsum under a causal
-    mask. Returns the hidden state [1, S, D]."""
+    mask. `targets`: the writes' (windows, pages) on the device, or
+    computed from the host row. Returns the hidden state [1, S, D]."""
     S = tokens.shape[1]
     x = params["embed"][tokens.long()]
     rope_c, rope_s = rope_rows(rope.cos, rope.sin, 0, S)
     flash = _use_flash(attn, x)
     mask = None if flash else causal_mask(S, device=x.device)
-    targets = _on(prompt_targets(_host_row(table_row, row), S,
-                                 cache.page_size), x.device)
+    if targets is None:
+        targets = _on(prompt_targets(_host_row(table_row, row), S,
+                                     cache.page_size), x.device)
     for i in range(cache.num_layers):
         pk, pv = cache.layer(i)
 
@@ -686,16 +736,18 @@ def prefill_prefix_pages(params, tokens, table_row, cache: PagedKVCache,
 @torch.inference_mode()
 def prefill_slot_paged(params, tokens, prompt_len, slot,
                        cache: PagedKVCache, rope, config: LlamaConfig,
-                       attn: str = "auto", row=None):
+                       attn: str = "auto", row=None, targets=None):
     """A whole right-padded prompt bucket at position 0 into slot
     `slot`'s pages: causal prefill over the fresh window (no page reads),
     each layer's KV written through the slot's table row. tokens: [1, S];
-    prompt_len: the real token count (an int or a [1] tensor). Returns
-    ([1, V] f32 logits at prompt_len - 1, cache)."""
-    n = int(prompt_len)
-    x = _prompt_prefill_blocks(params, tokens, cache.table[int(slot)],
+    prompt_len: the real token count and slot: ints, or one-element
+    device tensors; targets: `fixed_prompt_targets` on the device (else
+    computed from `row`). Returns ([1, V] f32 logits at prompt_len - 1,
+    cache)."""
+    n = _as_count(prompt_len)
+    x = _prompt_prefill_blocks(params, tokens, _table_row(cache.table, slot),
                                cache, rope, config, attn, n_real=n,
-                               row=row)
+                               row=row, targets=targets)
     return _last_logits(params, x, n, config), cache
 
 
@@ -703,7 +755,8 @@ def prefill_slot_paged(params, tokens, prompt_len, slot,
 def prefill_slot_paged_prefixed(params, tokens, suffix_len, slot,
                                 cache: PagedKVCache, rope,
                                 config: LlamaConfig, n_prefix: int,
-                                attn: str = "auto", row=None):
+                                attn: str = "auto", row=None,
+                                targets=None):
     """The suffix window of a prompt whose first n_prefix tokens are a
     registered prefix, already mapped (shared, read-only) at the head of
     slot `slot`'s table row. The window's KV goes only to the row's pages
@@ -711,23 +764,26 @@ def prefill_slot_paged_prefixed(params, tokens, suffix_len, slot,
     dequantized for a quantized pool) followed by the window, at
     pos = n_prefix: `flash_attention_cached`, or the einsum under the
     same mask. tokens: [1, S] right-padded suffix; suffix_len: its real
-    length. Returns ([1, V] f32 logits at suffix_len - 1, cache)."""
+    length, and slot: ints or one-element device tensors; targets: the
+    suffix's `fixed_prompt_targets` on the device (else computed from
+    `row`). Returns ([1, V] f32 logits at suffix_len - 1, cache)."""
     S = tokens.shape[1]
-    n = int(suffix_len)
+    n = _as_count(suffix_len)
     P = cache.page_size
     n_pp = n_prefix // P
     T = n_prefix + S
     x = params["embed"][tokens.long()]
     rope_c, rope_s = rope_rows(rope.cos, rope.sin, n_prefix, S)
-    table_row = cache.table[int(slot)]
+    table_row = _table_row(cache.table, slot)
     prefix_pages = table_row[:n_pp].clamp(min=0)
     suffix_row = table_row[n_pp:]
     flash = _use_flash(attn, x)
     qpos = n_prefix + torch.arange(S, device=x.device)
     mask = (None if flash else
             torch.arange(T, device=x.device)[None, :] <= qpos[:, None])
-    targets = _on(prompt_targets(_host_row(table_row, row)[n_pp:], S, P),
-                  x.device)
+    if targets is None:
+        targets = _on(prompt_targets(_host_row(table_row, row)[n_pp:], S,
+                                     P), x.device)
     for i in range(cache.num_layers):
         pk, pv = cache.layer(i)
 
@@ -755,7 +811,7 @@ def prefill_slot_paged_prefixed(params, tokens, suffix_len, slot,
 def prefill_slot_paged_chunk(params, tokens, n_real, slot, pos0,
                              cache: PagedKVCache, rope,
                              config: LlamaConfig, attn: str = "auto",
-                             row=None):
+                             row=None, targets=None):
     """One C-token prefill window at absolute position pos0 into slot
     `slot`'s pages (pos0 anywhere in a page). The window's KV goes
     through the batched writer at one row (as `write_window_pages`
@@ -763,32 +819,39 @@ def prefill_slot_paged_chunk(params, tokens, n_real, slot, pos0,
     in position order (unmapped pages as zeros; a shared prefix at the
     row head and earlier windows included) and the window attends it at
     pos0: `flash_attention_cached`, or the einsum under
-    kj <= pos0 + qi. tokens: [1, C]; n_real: real tokens in the window.
-    Returns ([1, V] f32 logits at n_real - 1, cache)."""
+    kj <= pos0 + qi. tokens: [1, C]; n_real (real tokens in the
+    window), slot and pos0: ints or one-element device tensors; targets:
+    `chunk_write_targets` on the device (else computed from `row`, which
+    then needs n_real and pos0 on the host). Returns ([1, V] f32 logits
+    at n_real - 1, cache)."""
     C = tokens.shape[1]
-    n = int(n_real)
-    pos0 = int(pos0)
+    n = _as_count(n_real)
+    if isinstance(pos0, torch.Tensor):
+        pos0 = pos0.reshape(())
+    else:
+        pos0 = int(pos0)
     T = cache.max_seq_len
     x = params["embed"][tokens.long()]
     rope_c, rope_s = rope_rows(rope.cos, rope.sin, pos0, C)
-    table_row = cache.table[int(slot)]
+    table_row = _table_row(cache.table, slot)
     flash = _use_flash(attn, x)
     qpos = pos0 + torch.arange(C, device=x.device)
     mask = (None if flash else
             torch.arange(T, device=x.device)[None, :] <= qpos[:, None])
-    pos, q_len, active = _one_window(pos0, C, n, _quantized(cache.k),
-                                     "cpu")
-    targets = _on(step_write_targets(
-        cache, pos, active, q_len, C,
-        table=_host_row(table_row, row)[None]), x.device)
+    if targets is None:
+        targets = _on(chunk_write_targets(cache, pos0, C, n,
+                                          _host_row(table_row, row)),
+                      x.device)
     for i in range(cache.num_layers):
         pk, pv = cache.layer(i)
 
         def attn_fn(q, k, v):
             q = apply_rope(q, rope_c, rope_s)
             k = apply_rope(k, rope_c, rope_s)
-            write_windows_pages(pk, pv, k, v, pos, q_len, active,
-                                table_row[None], targets)
+            # the targets carry the window (pos0, n_real, the row), so
+            # the batched writer reads nothing else
+            write_windows_pages(pk, pv, k, v, None, None, None, None,
+                                targets)
             k_full = _gather_pages(pk, table_row, q.dtype)
             v_full = _gather_pages(pv, table_row, q.dtype)
             if flash:

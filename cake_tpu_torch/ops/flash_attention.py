@@ -57,8 +57,9 @@ def reset_launch_counts() -> None:
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attn.argtypes = [p, p, p, p] + [i] * 8 + [f, i, p]
-    lib.flash_attn_cached.argtypes = [p, p, p, p] + [i] * 8 + [
-        f, i, i, i, p, p]
+    # flash_attn_cached's pos is a device int32 the kernel reads
+    lib.flash_attn_cached.argtypes = [p, p, p, p] + [i] * 6 + [
+        p, i, f, i, i, i, p, p]
     for fn in (lib.flash_attn, lib.flash_attn_cached):
         fn.restype = i
 
@@ -162,6 +163,20 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     return out
 
 
+def _device_pos(pos, device) -> torch.Tensor:
+    """The kernel's pos: a one-element int32 tensor on `device`. A
+    tensor is taken as it is (cast when it is not int32); an int is
+    written there by a fill kernel, so the host does not wait and a
+    capture records the value, not a host address."""
+    if isinstance(pos, torch.Tensor):
+        if pos.device != device or pos.numel() != 1:
+            raise ValueError(
+                f"flash_attention_cached: pos must be one element on "
+                f"{device}, got {tuple(pos.shape)} on {pos.device}")
+        return pos.reshape(1).to(torch.int32).contiguous()
+    return torch.full((1,), pos, dtype=torch.int32, device=device)
+
+
 def flash_attention_cached(q, k_cache, v_cache, pos, *,
                            scale: Optional[float] = None,
                            window: Optional[int] = None):
@@ -170,16 +185,20 @@ def flash_attention_cached(q, k_cache, v_cache, pos, *,
 
     q [B, S, H, hd]; k_cache/v_cache [B, T, KV, hd] with every slot
     < pos + S written (the window's own k/v included); later slots may
-    hold garbage and are never read. pos: an int (or a 0-d tensor) with
-    0 <= pos <= T - S. Query i attends slots j <= pos + i (and
-    j > pos + i - window). Returns [B, S, H, hd] in q.dtype."""
+    hold garbage and are never read. Query i attends slots j <= pos + i
+    (and j > pos + i - window). pos: an int, checked here against
+    0 <= pos <= T - S, or a one-element tensor on q's device, which the
+    kernel reads on the card (as the TPU kernel reads its scalar ref),
+    so a captured call replays at any position; there a pos out of
+    range traps the kernel. Returns [B, S, H, hd] in q.dtype."""
     B, S, H, hd = q.shape
     T = k_cache.shape[1]
-    pos = int(pos)
     w = _check_window(window)
-    if not 0 <= pos <= T - S:
-        raise ValueError(f"flash_attention_cached: pos {pos} with S={S} "
-                         f"runs past the cache (T={T})")
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+        if not 0 <= pos <= T - S:
+            raise ValueError(f"flash_attention_cached: pos {pos} with "
+                             f"S={S} runs past the cache (T={T})")
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     if not q.is_cuda:
@@ -196,9 +215,11 @@ def flash_attention_cached(q, k_cache, v_cache, pos, *,
         if splits > 1:
             part = torch.empty(splits * B * S * H * (hd + 2),
                                dtype=torch.float32, device=q.device)
+    pos_d = _device_pos(pos, q.device)
     rc = LIBRARY.get().flash_attn_cached(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), B, S, T, H, KV, hd, pos, w, float(scale),
+        out.data_ptr(), B, S, T, H, KV, hd, pos_d.data_ptr(), w,
+        float(scale),
         _DTYPE_CODES[q.dtype], CACHED_WARPS, splits,
         None if part is None else part.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -258,11 +279,14 @@ def flash_attention_cached_plain(q, k_cache, v_cache, pos, *,
                                  window: Optional[int] = None):
     """Plain version of `flash_attention_cached`. Value rows at or past
     the frontier pos + S are zeroed before the product, as the JAX kernel
-    zeroes them: a masked p is 0, and 0 * NaN garbage is NaN."""
+    zeroes them: a masked p is 0, and 0 * NaN garbage is NaN. pos: an
+    int or a one-element tensor on q's device (the mask is then built
+    there)."""
     LAUNCHES["flash_attn_cached_plain"] += 1
     S, hd = q.shape[1], q.shape[3]
     T = k_cache.shape[1]
-    pos = int(pos)
+    pos = (pos.reshape(()).long() if isinstance(pos, torch.Tensor)
+           else int(pos))
     _check_window(window)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)

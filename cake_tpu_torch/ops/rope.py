@@ -20,9 +20,18 @@ def precompute_rope(head_dim: int, max_seq_len: int, theta: float = 10000.0,
     return freqs.cos().to(dtype), freqs.sin().to(dtype)
 
 
-def rope_rows(cos, sin, pos: int, seq_len: int):
-    """Rows [pos : pos+seq_len] of the tables."""
-    return cos[pos:pos + seq_len], sin[pos:pos + seq_len]
+def rope_rows(cos, sin, pos, seq_len: int):
+    """Rows [pos : pos+seq_len] of the tables, the start clamped into
+    [0, T - seq_len] as `lax.dynamic_slice` clamps it. pos: an int, or a
+    0-d / [1] tensor on the tables' device, read there (an index_select,
+    so a captured step replays at any position)."""
+    T = cos.shape[0]
+    if not isinstance(pos, torch.Tensor):
+        start = min(max(int(pos), 0), T - seq_len)
+        return cos[start:start + seq_len], sin[start:start + seq_len]
+    idx = (pos.reshape(()).long().clamp(0, T - seq_len)
+           + torch.arange(seq_len, device=cos.device))
+    return cos.index_select(0, idx), sin.index_select(0, idx)
 
 
 def rope_rows_per_row(cos, sin, pos: torch.Tensor):

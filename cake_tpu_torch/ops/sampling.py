@@ -1,10 +1,11 @@
 """Token sampling: argmax / temperature / top-k / top-p + repeat penalty.
 
 Counterpart of `cake_tpu/ops/sampling.py`. Token history is a fixed
-[B, repeat_last_n] ring buffer (pad slots = -1). The sequential
-generator draws from one `torch.Generator` a stream (`sample_tokens`).
-The engine's rows draw from counter-based streams instead
-(`sample_tokens_ragged`, `masked_sample`): row b's uniforms at a step
+[B, repeat_last_n] ring buffer (pad slots = -1). `sample_tokens` draws
+from one `torch.Generator` a stream (JAX's `sample_tokens`, one key a
+call). The engine's rows and the sequential generator's draw from
+counter-based streams instead (`sample_tokens_ragged`, `masked_sample`,
+inside their captured steps): row b's uniforms at a step
 are a hash of (seed[b], counter[b], token id) in integer tensor ops, so
 a row's draw depends only on its own state, the state is two device
 tensors that advance only where the row is live (as the JAX engine

@@ -71,10 +71,15 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     `shutdown_save`, the pre-fail snapshot), and drain (`begin_drain`:
     new submits raise DrainingError while in-flight work finishes).
 
-Both steps run as captured CUDA graphs on the card (there is no eager
-step there), and eagerly on the CPU: the decode step, its sampling and
-its carry through `serve/graphs.DecodeRunner`, the mixed step and its
-sampling through `serve/graphs.MixedRunner`. A mixed step's rows go up
+Both steps, and the phase-split loop's one-slot prefills, run as
+captured CUDA graphs on the card (there is no eager step there), and
+eagerly on the CPU: the decode step, its sampling and its carry through
+`serve/graphs.DecodeRunner`, the mixed step and its sampling through
+`serve/graphs.MixedRunner`, the prefills through
+`serve/graphs.PrefillRunner` (each capture counted as a compile of its
+JAX function). A recovery resets the pool, the table and the sampling
+state in place and keeps every graph, as JAX's reset keeps its jitted
+steps; only when that raises does it rebuild. A mixed step's rows go up
 from pinned memory without a wait for the stream; a step in which no
 row emits (every row mid-prompt) fetches nothing, so a long prompt's
 chunk-only steps queue back to back, and only a step with a row that
@@ -119,9 +124,9 @@ from cake_tpu_torch.models.llama.generator import (
 )
 from cake_tpu_torch.models.llama.model import RopeTables
 from cake_tpu_torch.models.llama.paged import (
-    ATTN_IMPLS, PageAllocator, PagedKVCache, mixed_step_paged,
-    prefill_prefix_pages, prefill_slot_paged, prefill_slot_paged_chunk,
-    prefill_slot_paged_prefixed, table_set_slot,
+    ATTN_IMPLS, PageAllocator, PagedKVCache, chunk_write_targets,
+    fixed_prompt_targets, mixed_step_paged, prefill_prefix_pages,
+    table_set_slot,
 )
 from cake_tpu_torch.models.llama.params import params_bytes
 from cake_tpu_torch.obs import metrics as obs_metrics
@@ -139,10 +144,10 @@ from cake_tpu_torch.serve.errors import (
     as_engine_error,
 )
 from cake_tpu_torch.serve.graphs import (
-    DecodeRunner, MixedRunner, elapsed_s, mark,
+    PREFILL_FNS, DecodeRunner, MixedRunner, PrefillRunner, elapsed_s, mark,
 )
 from cake_tpu_torch.utils.devices import (
-    resolve_device, resolve_kv_dtype, to_device,
+    resolve_device, resolve_kv_dtype, to_device, zero_,
 )
 from cake_tpu_torch.utils.profiling import StepStats
 
@@ -662,23 +667,29 @@ class InferenceEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    def _seed_values(self) -> torch.Tensor:
+        """Slot b's stream seed (host): the reset count folds in, so the
+        streams after a reset never replay consumed draws."""
+        base = self._seed * 1_000_003 + self._reset_count * 65_537
+        return torch.tensor([base + b for b in range(self.max_slots)],
+                            dtype=torch.int64)
+
     def _fresh_sampling_state(self) -> None:
         """The device state of the rows' sampling, updated in place from
-        here on: the repeat-penalty rings, and one random stream per slot
-        (a seed and a counter), so a row's draws are independent of the
-        other rows; the reset count keeps a post-error rebuild from
-        replaying consumed streams. The runners hold these tensors, so
-        a new set drops them."""
+        here on (a recovery resets it where it is,
+        `_reset_device_in_place`): the repeat-penalty rings, and one
+        random stream per slot (a seed and a counter), so a row's draws
+        are independent of the other rows. The runners hold these
+        tensors, so a new set drops them."""
         B, dev = self.max_slots, self.device
         self._ring = torch.full((B, self.defaults.repeat_last_n), -1,
                                 dtype=torch.int64, device=dev)
-        base = self._seed * 1_000_003 + self._reset_count * 65_537
-        self._seeds = torch.tensor([base + b for b in range(B)],
-                                   dtype=torch.int64, device=dev)
+        self._seeds = self._seed_values().to(dev)
         self._counters = torch.zeros(B, dtype=torch.int64, device=dev)
         self._runner: Optional[DecodeRunner] = None
         self._mixed_runner: Optional[MixedRunner] = None
-        # the two runners' graphs share one memory pool on the card
+        self._prefill_runner: Optional[PrefillRunner] = None
+        # the three runners' graphs share one memory pool on the card
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
         # mixed steps dispatched and not yet counted in the stats' times
@@ -1621,31 +1632,86 @@ class InferenceEngine:
         return out
 
     def _reset_after_error(self) -> None:
-        """A failed step may leave the pool half-written: rebuild the
-        pool (of the same storage), the allocator, every per-slot mirror
-        and the sampling state. Registered prefixes lived in the old
-        pool's pages, so the registry is cleared too (auto-prefix heads
+        """A failed step may leave the pool half-written: reset the pool
+        (of the same storage), the allocator, every per-slot mirror and
+        the sampling state. Registered prefixes lived in the pool's
+        pages, so the registry is cleared too (auto-prefix heads
         register again on their next request), and so is the host tier
         (its entries belonged to the failed requests and the cleared
-        registry).
+        registry). The reset count folds into the new seeds.
 
-        On the card it first waits for the engine's stream (a chained
-        --decode-scan burst or a chunk-only mixed step may still run
-        on it), then drops both runners, their graphs' memory pool, the
-        pending mixed records and the pool before the new pool is
-        allocated, so a reset needs one pool's memory, not two. The next
-        step captures its graphs anew (counted as a compile). A raise
-        here (a sticky CUDA error, an OOM) goes to the caller's
-        reset_failed stop."""
+        The reset is made in place (`_reset_in_place`): every captured
+        graph stays valid and nothing is captured anew, as JAX's reset
+        keeps its jitted steps. Only when that raises (a sticky CUDA
+        error) does the rebuild run (`_rebuild_after_error`), which
+        drops the graphs and allocates a new pool; a raise there goes
+        to the caller's reset_failed stop."""
+        self._reset_count += 1
+        try:
+            self._reset_in_place()
+            return
+        except Exception as e:  # noqa: BLE001
+            log.exception("in-place reset failed; rebuilding the pool "
+                          "and the graphs")
+            # a log handler may keep the record: its frames must not
+            # hold the pool through the rebuild
+            traceback.clear_frames(e.__traceback__)
+        self._rebuild_after_error()
+
+    def _reset_in_place(self) -> None:
+        """The reset at the same addresses, after a wait for the
+        engine's stream (a chained --decode-scan burst or a chunk-only
+        mixed step may still run on it): the host state as the rebuild
+        resets it, then `_reset_device_in_place`."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._mixed_open = None
+        self._compiled_step = False
+        self._reset_host_state(self._pager.n_pages, self._pager.page_size)
+        self._reset_device_in_place()
+
+    def _reset_device_in_place(self) -> None:
+        """Every pool leaf zeroed (values and int8/int4 scales, the sink
+        page included, which stays the sink), every table row unmapped,
+        the rings emptied, the seeds recomputed into their tensor and
+        the counters zeroed, and the runners' per-step buffers zeroed:
+        no tensor a graph holds moves."""
+        for st in (self.cache.k_store, self.cache.v_store):
+            for t in (st if isinstance(st, tuple) else (st,)):
+                zero_(t)
+        self.cache.table.fill_(-1)
+        self._ring.fill_(-1)
+        self._seeds.copy_(to_device(self._seed_values(), self.device))
+        self._counters.zero_()
+        for r in (self._runner, self._mixed_runner, self._prefill_runner):
+            if r is not None:
+                r.reset_carry()
+
+    def _rebuild_after_error(self) -> None:
+        """The fallback reset: wait for the stream, drop all three
+        runners, their graphs' memory pool, the pending mixed records
+        and the pool before the new pool is allocated (a rebuild needs
+        one pool's memory, not two), then new sampling state. The next
+        steps capture their graphs anew (counted as compiles)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         n_pages, page_size = self._pager.n_pages, self._pager.page_size
         self._runner = None
         self._mixed_runner = None
+        self._prefill_runner = None
         self._graph_pool = None
         self._mixed_open = None
         self._ring = self._seeds = self._counters = None
         self.cache = None
+        self._reset_host_state(n_pages, page_size)
+        self.cache = self._new_cache(n_pages, page_size)
+        # new rings and random streams; the runners capture anew over
+        # the new pool
+        self._fresh_sampling_state()
+
+    def _reset_host_state(self, n_pages: int, page_size: int) -> None:
+        """The host side of a reset: the host tier, the allocator, the
+        slot maps, the prefix registry and the per-slot mirrors."""
         if self._host_tier is not None:
             self._host_tier.clear()
         self._pager = PageAllocator(n_pages, page_size)
@@ -1664,12 +1730,6 @@ class InferenceEngine:
         self._pos[:] = 0
         self._last_tok[:] = 0
         self._steps[:] = 0
-        self._reset_count += 1
-        self.cache = self._new_cache(n_pages, page_size)
-        # new rings and random streams (the reset count folds into the
-        # seeds: sampled rows never replay consumed draws); the runners
-        # capture anew over the new pool
-        self._fresh_sampling_state()
 
     # -- pages ----------------------------------------------------------------
 
@@ -2589,26 +2649,52 @@ class InferenceEngine:
         return to_device(torch.tensor([list(ids)], dtype=torch.int32),
                          self.device)
 
+    def _prefill_step_runner(self) -> PrefillRunner:
+        """The captured one-slot prefills (serve/graphs.PrefillRunner),
+        each capture counted as a compile of its JAX function."""
+        if self._prefill_runner is None:
+            def hook(variant, seconds: float) -> None:
+                self._captured(PREFILL_FNS[variant[0]])(variant, seconds)
+
+            self._prefill_runner = PrefillRunner(
+                self.params, self.cache, self.rope, self.config,
+                attn=self.paged_attn, pool=self._graph_pool,
+                on_capture=hook)
+        return self._prefill_runner
+
+    def _host_row(self, slot: int) -> torch.Tensor:
+        """Slot `slot`'s table row on the host, from its page list (the
+        write targets are computed from it, with no wait)."""
+        pages = self._slot_pages[slot]
+        row = torch.full((self.cache.max_pages,), -1, dtype=torch.int32)
+        row[:len(pages)] = torch.tensor(list(pages), dtype=torch.int32)
+        return row
+
     def _prefill_raw(self, ids, slot: int):
-        """Whole-prompt prefill of the prompt's bucket."""
+        """Whole-prompt prefill of the prompt's bucket (the captured
+        `prefill_slot_paged` of that bucket). Returns the runner's
+        logits buffer."""
         bucket = bucket_length(len(ids), self.max_seq_len)
         padded = list(ids) + [0] * (bucket - len(ids))
-        logits, self.cache = prefill_slot_paged(
-            self.params, self._tokens(padded), len(ids), slot, self.cache,
-            self.rope, self.config, attn=self.paged_attn,
-            row=self._slot_pages[slot])
-        return logits
+        targets = fixed_prompt_targets(self._host_row(slot), bucket,
+                                       self.cache.page_size,
+                                       self.cache.n_pages)
+        return self._prefill_step_runner().run(
+            ("slot", bucket), padded, len(ids), slot, 0, targets)
 
     def _prefill_chunked(self, ids: List[int], slot: int, C: int,
                          pos0: int = 0):
         """Walk a prompt (or a prefix hit's suffix, from absolute
-        position pos0) through the slot's pages in C-token windows."""
+        position pos0) through the slot's pages in C-token windows (the
+        captured `prefill_slot_paged_chunk`, one replay a window)."""
+        runner = self._prefill_step_runner()
+        row = self._host_row(slot)
         logits = None
         for window, n_real, start in chunk_windows(ids, C):
-            logits, self.cache = prefill_slot_paged_chunk(
-                self.params, self._tokens(window), n_real, slot,
-                pos0 + start, self.cache, self.rope, self.config,
-                attn=self.paged_attn, row=self._slot_pages[slot])
+            targets = chunk_write_targets(self.cache, pos0 + start, C,
+                                          n_real, row)
+            logits = runner.run(("chunk", C), window, n_real, slot,
+                                pos0 + start, targets)
         return logits
 
     def _prefixed_prefill_device(self, ids, slot: int, req: _Request,
@@ -2630,10 +2716,13 @@ class InferenceEngine:
                                            pos0=len(p_ids))
         else:
             padded = suffix + [0] * (width - len(suffix))
-            logits, self.cache = prefill_slot_paged_prefixed(
-                self.params, self._tokens(padded), len(suffix), slot,
-                self.cache, self.rope, self.config, n_prefix=len(p_ids),
-                attn=self.paged_attn, row=self._slot_pages[slot])
+            P = self.cache.page_size
+            targets = fixed_prompt_targets(
+                self._host_row(slot)[len(p_ids) // P:], width, P,
+                self.cache.n_pages)
+            logits = self._prefill_step_runner().run(
+                ("prefixed", len(p_ids), width), padded, len(suffix), slot,
+                0, targets)
         return self._finish_prefill(logits, slot, len(ids), req, n_top,
                                     prime)
 

@@ -1,6 +1,13 @@
-"""The engine's two device steps, each with its sampling, as CUDA graphs:
-the pure-decode step (`DecodeRunner`, replayed K times a burst) and the
-mixed step (`MixedRunner`, replayed once a mixed step).
+"""Every step the JAX package compiles, as CUDA graphs replayed over
+static buffers: the engine's two device steps with their sampling, the
+pure-decode step (`DecodeRunner`, replayed K times a burst) and the
+mixed step (`MixedRunner`, replayed once a mixed step); the phase-split
+loop's one-slot prefills (`PrefillRunner`); and the sequential
+generator's decode step (`GeneratorRunner`). Each reads every per-call
+value (position, slot, real tokens) from a device buffer written in
+place, so a graph outlives anything that does not change a shape: a
+recovery resets the buffers where they are (`reset_carry`) and keeps
+every graph.
 
 `DecodeRunner` is the counterpart of the JAX engine's `make_decode_scan`
 (a jitted `lax.scan` of K ragged decode steps and their sampling): where
@@ -30,12 +37,12 @@ On the CPU the same steps run eagerly (`replay` calls them), which is
 how the tests drive the runners. On CUDA a step is captured at the first
 use of each variant (the decode step's `n_top`, 0 or the engine's
 top-logprobs cap, as JAX compiles two; the mixed step's also "no
-sampling"), on the engine thread, after a warm-up on a side stream with
-every row frozen or idle, so the warm-up's writes land on the sink page
-and it changes no state the engine keeps. The pool, the table, the rope
-tables, the weights, the ring and the random streams live outside the
-graphs' memory pool (which the engine's two runners share) and are
-updated in place; host values go up from pinned memory and outputs come
+sampling"; a prefill's JAX compile key), on the engine thread, after a
+warm-up on a side stream with every row frozen or idle, so the warm-up's
+writes land on the sink page and it changes no state the engine keeps.
+The pool, the table, the rope tables, the weights, the ring and the
+random streams live outside the graphs' memory pool (which the engine's
+three runners share) and are updated in place; host values go up from pinned memory and outputs come
 down into pinned memory behind an event, so the host does not wait for
 the stream until it fetches.
 
@@ -59,8 +66,11 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from cake_tpu_torch.kv.quantized_pool import WindowTargets
+from cake_tpu_torch.models.llama.model import forward
 from cake_tpu_torch.models.llama.paged import (
-    forward_ragged_paged, mixed_step_paged,
+    forward_ragged_paged, mixed_step_paged, prefill_slot_paged,
+    prefill_slot_paged_chunk, prefill_slot_paged_prefixed,
 )
 from cake_tpu_torch.ops import flash_attention, int4_matmul
 from cake_tpu_torch.ops import ragged_paged_attention
@@ -117,41 +127,27 @@ def elapsed_s(timing) -> Optional[float]:
     return timing[0].elapsed_time(timing[1]) / 1e3
 
 
-class _Runner:
-    """What the two runners share: the engine's sampling state, the
-    outputs ([B, cols] ids and logprobs, [B, cols, n_top_cap] top ids and
-    logprobs) with two pinned host copies used in turn, the captured
-    step per variant, and the host-to-device puts. A subclass gives
-    `step(variant)` and `_idle()` (the buffers set so that a step changes
-    nothing the engine keeps)."""
+class _Graphs:
+    """Captured steps over static buffers, one CUDA graph per variant,
+    captured at the variant's first use and replayed after; on the CPU
+    `replay` runs the step eagerly. A subclass gives `step(variant)` and
+    `_idle(variant)` (the buffers set so that the warm-up changes
+    nothing kept; it may return a callable that restores them after
+    the warm-up). Runners given one `pool` share its memory."""
 
-    def __init__(self, params, cache, rope, config, *, attn: str,
-                 ring: torch.Tensor, seeds: torch.Tensor,
-                 counters: torch.Tensor, cols: int, n_top_cap: int,
-                 top_k: Optional[int], pool=None, on_capture=None):
-        dev = ring.device
-        self.device = dev
-        self.params, self.cache, self.rope = params, cache, rope
-        self.config, self.attn, self.top_k = config, attn, top_k
-        self.ring, self.seeds, self.counters = ring, seeds, counters
-        self.B = B = ring.shape[0]
-        # the last step's logits (what a comparison of two runs reads)
-        self.logits = self._zeros(B, config.vocab_size, dtype=torch.float32)
-        self.out = (self._zeros(B, cols, dtype=torch.int64),
-                    self._zeros(B, cols, dtype=torch.float32),
-                    self._zeros(B, cols, n_top_cap, dtype=torch.int64),
-                    self._zeros(B, cols, n_top_cap, dtype=torch.float32))
-        self._cuda = dev.type == "cuda"
-        # two host copies of the outputs, used in turn (double buffering)
-        self._host = [tuple(torch.empty(t.shape, dtype=t.dtype,
-                                        pin_memory=self._cuda)
-                            for t in self.out) for _ in range(2)]
-        self._turn = 0
+    def __init__(self, device, pool=None, on_capture=None):
+        self.device = device
+        self._cuda = device.type == "cuda"
         self._pool = pool
         self._graphs: dict = {}
         self._on_capture = on_capture
         # the last run's timing events (None on the CPU)
         self.timing: Optional[tuple] = None
+
+    @property
+    def captures(self) -> int:
+        """Variants captured so far (0 on the CPU)."""
+        return len(self._graphs)
 
     def _zeros(self, *shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -159,25 +155,26 @@ class _Runner:
     def step(self, variant) -> None:
         raise NotImplementedError
 
-    def _idle(self) -> None:
+    def _idle(self, variant):
         raise NotImplementedError
 
     def captured(self, variant):
         """The captured step of this variant, captured at first use: a
-        warm-up on a side stream with the buffers idle (`_idle`: the
-        writes land on the sink page, and the counters and ring keep
-        their values), then the capture. Clears the per-step buffers."""
+        warm-up on a side stream with the buffers idle (`_idle`), then
+        the capture (which runs nothing)."""
         got = self._graphs.get(variant)
         if got is not None:
             return got
         t0 = time.perf_counter()
-        self._idle()
+        undo = self._idle(variant)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.step(variant)
         cur.wait_stream(side)
+        if undo is not None:
+            undo()
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()
         with torch.cuda.graph(graph, pool=self._pool,
@@ -202,11 +199,46 @@ class _Runner:
 
     def _put(self, dst: torch.Tensor, values) -> None:
         """Host values into a device buffer; on the card from pinned
-        memory, so the host does not wait for the stream."""
+        memory (a fresh block of the caching host allocator, which reuses
+        it only after this copy has run), so the host does not wait for
+        the stream and two puts in flight never share their staging."""
         src = torch.as_tensor(np.asarray(values)).to(dst.dtype)
         if self._cuda:
             src = src.pin_memory()
         dst.copy_(src, non_blocking=True)
+
+
+class _Runner(_Graphs):
+    """What the engine's two step runners share: the engine's sampling
+    state, the outputs ([B, cols] ids and logprobs, [B, cols, n_top_cap]
+    top ids and logprobs) with two pinned host copies used in turn, and
+    the step's last logits."""
+
+    def __init__(self, params, cache, rope, config, *, attn: str,
+                 ring: torch.Tensor, seeds: torch.Tensor,
+                 counters: torch.Tensor, cols: int, n_top_cap: int,
+                 top_k: Optional[int], pool=None, on_capture=None):
+        super().__init__(ring.device, pool=pool, on_capture=on_capture)
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config, self.attn, self.top_k = config, attn, top_k
+        self.ring, self.seeds, self.counters = ring, seeds, counters
+        self.B = B = ring.shape[0]
+        # the last step's logits (what a comparison of two runs reads)
+        self.logits = self._zeros(B, config.vocab_size, dtype=torch.float32)
+        self.out = (self._zeros(B, cols, dtype=torch.int64),
+                    self._zeros(B, cols, dtype=torch.float32),
+                    self._zeros(B, cols, n_top_cap, dtype=torch.int64),
+                    self._zeros(B, cols, n_top_cap, dtype=torch.float32))
+        # two host copies of the outputs, used in turn (double buffering)
+        self._host = [tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=self._cuda)
+                            for t in self.out) for _ in range(2)]
+        self._turn = 0
+
+    def reset_carry(self) -> None:
+        """Zero the per-step buffers in place (a recovery keeps the
+        graphs, whose addresses these are)."""
+        raise NotImplementedError
 
     def download(self, n: int, n_top: int) -> BurstHandle:
         """Dispatch the outputs' copy to the next host buffer, behind an
@@ -293,11 +325,17 @@ class DecodeRunner(_Runner):
             tl_o.index_copy_(1, self.col, t_l[:, None])
         self.col.add_(1)
 
-    def _idle(self) -> None:
+    def _idle(self, _variant) -> None:
         """Every row frozen (budget 0), from column 0."""
         self.live.zero_()
         self.budget.zero_()
         self.col.zero_()
+
+    def reset_carry(self) -> None:
+        for t in (self.tok, self.pos, self.live, self.steps, self.steps_in,
+                  self.budget, self.col, self.temp, self.top_p,
+                  self.penalty):
+            t.zero_()
 
     # -- the burst protocol -------------------------------------------------------
 
@@ -386,11 +424,16 @@ class MixedRunner(_Runner):
             ti_o[:, 0, :n_top].copy_(t_i)
             tl_o[:, 0, :n_top].copy_(t_l)
 
-    def _idle(self) -> None:
+    def _idle(self, _variant) -> None:
         """Every row idle (q_len 0, inactive) and none emitting."""
         self.q_len.zero_()
         self.active.zero_()
         self.emit.zero_()
+
+    def reset_carry(self) -> None:
+        for t in (self.tokens, self.pos, self.q_len, self.active, self.emit,
+                  self.steps, self.temp, self.top_p, self.penalty):
+            t.zero_()
 
     def load(self, n_top: Optional[int], tokens, pos, q_len, active, emit,
              steps, temp, top_p, penalty) -> None:
@@ -417,3 +460,220 @@ class MixedRunner(_Runner):
         self.replay(n_top)
         self.timing = (start, mark(self.device)) if self._cuda else None
         return None if n_top is None else self.download(1, n_top)
+
+
+# the JAX function each kind of one-slot prefill counts its captures as
+PREFILL_FNS = {"slot": "prefill_slot_paged",
+               "prefixed": "prefill_slot_paged_prefixed",
+               "chunk": "prefill_slot_paged_chunk"}
+
+
+class _PrefillBuffers(NamedTuple):
+    tokens: torch.Tensor    # [1, S] int32
+    n: torch.Tensor         # [1] int32: prompt_len / suffix_len / n_real
+    slot: torch.Tensor      # [1] int64
+    pos0: torch.Tensor      # [1] int32 (the chunk's window start)
+    targets: tuple          # the writes' targets, fixed shapes
+
+
+class PrefillRunner(_Graphs):
+    """The phase-split loop's one-slot prefills (`--mixed-batch off`) as
+    CUDA graphs: JAX's jitted `prefill_slot_paged`,
+    `prefill_slot_paged_prefixed` and `prefill_slot_paged_chunk`, one
+    variant per JAX compile key, ("slot", S) by bucket, ("prefixed",
+    n_prefix, S) and ("chunk", C). Each variant has static buffers: the
+    window's tokens, the real token count, the slot and the chunk's pos0,
+    which the prefills read on the device (the table row by
+    index_select, the rope rows and the last token by device index, pos0
+    by the cached flash kernel), and the write targets, computed on the
+    host from the host's copy of the slot's row with fixed shapes (an
+    unmapped window or a dropped position on the sink page).
+
+    `run` puts the host inputs (from pinned memory, no wait for the
+    stream), replays, and returns the logits buffer [1, V]; the engine
+    samples it before the next replay overwrites it (stream order). A
+    variant is captured at its first use after a warm-up on a side
+    stream whose writes all land on the sink page. On the CPU `replay`
+    runs the prefill eagerly over the same buffers."""
+
+    def __init__(self, params, cache, rope, config, *, attn: str,
+                 pool=None, on_capture=None):
+        super().__init__(cache.table.device, pool=pool,
+                         on_capture=on_capture)
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config, self.attn = config, attn
+        self.logits = self._zeros(1, config.vocab_size, dtype=torch.float32)
+        self._bufs: dict = {}
+
+    def _buffers(self, variant, targets) -> _PrefillBuffers:
+        got = self._bufs.get(variant)
+        if got is None:
+            moved = [self._zeros(*t.shape, dtype=t.dtype) for t in targets]
+            got = _PrefillBuffers(
+                tokens=self._zeros(1, variant[-1], dtype=torch.int32),
+                n=self._zeros(1, dtype=torch.int32),
+                slot=self._zeros(1, dtype=torch.int64),
+                pos0=self._zeros(1, dtype=torch.int32),
+                targets=(targets._make(moved) if hasattr(targets, "_make")
+                         else tuple(moved)))
+            self._bufs[variant] = got
+        return got
+
+    def step(self, variant) -> None:
+        b = self._bufs[variant]
+        kw = dict(attn=self.attn, targets=b.targets)
+        if variant[0] == "slot":
+            logits, _ = prefill_slot_paged(
+                self.params, b.tokens, b.n, b.slot, self.cache, self.rope,
+                self.config, **kw)
+        elif variant[0] == "prefixed":
+            logits, _ = prefill_slot_paged_prefixed(
+                self.params, b.tokens, b.n, b.slot, self.cache, self.rope,
+                self.config, n_prefix=variant[1], **kw)
+        else:
+            logits, _ = prefill_slot_paged_chunk(
+                self.params, b.tokens, b.n, b.slot, b.pos0, self.cache,
+                self.rope, self.config, **kw)
+        self.logits.copy_(logits)
+
+    def _idle(self, variant) -> None:
+        """Every write on the sink page (one real token, slot 0, pos0
+        0): the warm-up reads real pages and writes none."""
+        b = self._bufs[variant]
+        b.n.fill_(1)
+        b.slot.zero_()
+        b.pos0.zero_()
+        t = b.targets
+        # the pages of (windows, pages), (rows, cols, pages, offsets) or
+        # a quantized pool's WindowTargets
+        pages = (t.pages if isinstance(t, WindowTargets)
+                 else t[1] if len(t) == 2 else t[2])
+        pages.fill_(self.cache.n_pages)
+
+    def reset_carry(self) -> None:
+        """Zero every variant's inputs in place (a recovery keeps the
+        graphs)."""
+        for b in self._bufs.values():
+            for t in (b.tokens, b.n, b.slot, b.pos0, *b.targets):
+                t.zero_()
+
+    def run(self, variant, tokens, n: int, slot: int, pos0: int,
+            targets) -> torch.Tensor:
+        """One prefill of `variant`: tokens (the window's S ids), n (its
+        real tokens), slot, pos0 (the chunk's start; 0 otherwise) and the
+        host write targets up, then the replay. Returns the logits buffer
+        [1, V] (valid until the next replay)."""
+        b = self._buffers(variant, targets)
+        if self._cuda:
+            self.captured(variant)   # before the puts: the warm-up idles
+        self._put(b.tokens, [list(tokens)])
+        for dst, v in ((b.n, [n]), (b.slot, [slot]), (b.pos0, [pos0])):
+            self._put(dst, v)
+        for dst, v in zip(b.targets, targets):
+            self._put(dst, v)
+        self.replay(variant)
+        return self.logits
+
+
+class GeneratorRunner(_Graphs):
+    """The sequential generator's decode step as a CUDA graph: JAX's
+    jitted `decode_step` and its `sample_tokens` (the body of
+    `_generate_scan`'s scan), captured once per `top_k` and replayed a
+    token. Static buffers: the token [B], the position [1] (the dense
+    forward's rope rows, mask and cache write read it on the device),
+    the ring [B, N], the rows' random streams (seeds and counters, the
+    engine's counter-based streams: every step samples, so every step
+    advances them), the sampling options [B], and the tokens out
+    [B, cols], written at column `col`. A replay needs no host value, so
+    `generate_on_device` replays it num_tokens - 1 times and fetches
+    `out` once; `next_token` fetches `tok` after each.
+
+    The warm-up before a capture runs the real step (its cache write
+    lands where the first replay writes the same values) and the carry
+    is restored after it. On the CPU `replay` runs the step eagerly."""
+
+    def __init__(self, params, cache, rope, config, ring: torch.Tensor, *,
+                 cols: int, pool=None):
+        super().__init__(ring.device, pool=pool)
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config, self.ring, self.cols = config, ring, cols
+        self.B = B = ring.shape[0]
+        z = self._zeros
+        self.tok = z(B, dtype=torch.int64)
+        self.pos = z(1, dtype=torch.int64)
+        self.steps = z(B, dtype=torch.int64)
+        self.col = z(1, dtype=torch.int64)
+        self.seeds = z(B, dtype=torch.int64)
+        self.counters = z(B, dtype=torch.int64)
+        self.live = torch.ones(B, dtype=torch.bool, device=self.device)
+        self.temp = z(B, dtype=torch.float32)
+        self.top_p = z(B, dtype=torch.float32)
+        self.penalty = z(B, dtype=torch.float32)
+        self.logits = z(B, config.vocab_size, dtype=torch.float32)
+        self.out = z(B, cols, dtype=torch.int64)
+        # the SamplingConfig whose options the buffers hold
+        self.options = None
+
+    @torch.inference_mode()
+    def set_options(self, sampling) -> None:
+        """A SamplingConfig's options into the rows' buffers (greedy at
+        temperature None or <= 0, no nucleus at top_p None); top_k is
+        the variant `replay` and `sample` take."""
+        B, t = self.B, sampling.temperature
+        self._put(self.temp, [0.0 if t is None else t] * B)
+        self._put(self.top_p, [1.0 if sampling.top_p is None
+                               else sampling.top_p] * B)
+        self._put(self.penalty, [sampling.repeat_penalty] * B)
+        self.options = sampling
+
+    @torch.inference_mode()
+    def begin(self, pos: int, steps: int, tok: Optional[int] = None,
+              col: int = 0, seeds=None) -> None:
+        """The host's values up (no wait for the stream): the position
+        of the next forward, the ring slot of the next sample (`steps`),
+        the last token when given, the output column, and with `seeds`
+        new random streams from counter 0."""
+        B = self.B
+        self._put(self.pos, [pos])
+        self._put(self.steps, [steps] * B)
+        self._put(self.col, [col])
+        if tok is not None:
+            self._put(self.tok, [tok] * B)
+        if seeds is not None:
+            self._put(self.seeds, seeds)
+            self.counters.zero_()
+
+    @torch.inference_mode()
+    def sample(self, logits, top_k: Optional[int]) -> torch.Tensor:
+        """Sample every row from `logits` [B, V] (`masked_sample`), push
+        the ring, write the token at column `col`; in place."""
+        nxt, counters, ring, _, _, _ = masked_sample(
+            self.live, self.seeds, self.counters, logits, self.ring,
+            self.steps, self.temp, self.top_p, self.penalty, top_k=top_k)
+        self.counters.copy_(counters)
+        self.ring.copy_(ring)
+        self.tok.copy_(nxt)
+        self.steps.add_(1)
+        self.out.index_copy_(1, self.col, nxt[:, None])
+        self.col.add_(1).remainder_(self.cols)
+        return nxt
+
+    @torch.inference_mode()
+    def step(self, top_k: Optional[int]) -> None:
+        """One decode step from the carry: the forward at `pos`, then
+        the sample."""
+        logits, _ = forward(self.params, self.tok[:, None], self.cache,
+                            self.pos, self.rope, self.config)
+        self.logits.copy_(logits)
+        self.pos.add_(1)
+        self.sample(logits, top_k)
+
+    def _idle(self, _variant):
+        carry = (self.tok, self.pos, self.steps, self.col, self.counters,
+                 self.ring)
+        saved = [t.clone() for t in carry]
+
+        def undo():
+            for t, v in zip(carry, saved):
+                t.copy_(v)
+        return undo

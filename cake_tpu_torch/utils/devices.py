@@ -96,6 +96,21 @@ def put_rows(pool: torch.Tensor, idx, vals: torch.Tensor) -> None:
     _bytes_of(pool)[idx] = _bytes_of(to_storage(vals, pool.dtype))
 
 
+def zero_(t: torch.Tensor) -> torch.Tensor:
+    """t zeroed in place, fp8 included (through its bytes: 0x00 is +0.0
+    in both formats). Returns t."""
+    _bytes_of(t).zero_()
+    return t
+
+
+def index_copy_rows(dst: torch.Tensor, dim: int, idx: torch.Tensor,
+                    vals: torch.Tensor) -> None:
+    """dst.index_copy_(dim, idx, vals cast to dst's storage), in place,
+    fp8 included (through the bytes)."""
+    _bytes_of(dst).index_copy_(dim, idx,
+                               _bytes_of(to_storage(vals, dst.dtype)))
+
+
 _SM_COUNTS: dict = {}
 
 

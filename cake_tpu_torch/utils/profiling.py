@@ -1,11 +1,16 @@
-"""What the engine takes of `cake_tpu/utils/profiling.py`: the windowed
-step counter (`StepStats`), `human_bytes` and the device memory stats
-behind the scrape-time HBM gauges (from `torch.cuda.memory_stats()`).
-The JAX module's profiler trace and live capture are not ported yet."""
+"""What the port takes of `cake_tpu/utils/profiling.py`: the profiler
+trace around a one-shot generation (`trace`, a torch.profiler capture
+written as a Chrome / Perfetto trace file where JAX writes its
+jax.profiler trace), the windowed step counter (`StepStats`),
+`human_bytes` and the device memory stats behind the scrape-time HBM
+gauges (from `torch.cuda.memory_stats()`). The JAX module's live
+capture (`capture_trace`) and its annotations are not ported yet."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -13,6 +18,31 @@ from typing import Dict, List, Optional
 log = logging.getLogger(__name__)
 
 NUM_OPS_TO_STATS = 5
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """Profile everything inside the block (None or "" = no-op): the
+    host's ops, and the card's kernels when there is one, written on
+    exit to `<log_dir>/trace.<pid>.<ms>.json`, a Chrome trace that
+    ui.perfetto.dev and chrome://tracing open."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(
+        log_dir, f"trace.{os.getpid()}.{int(time.time() * 1e3)}.json")
+    log.info("profiling to %s", log_dir)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    log.info("profile written to %s", path)
 
 
 def human_bytes(n: float) -> str:

@@ -72,8 +72,14 @@ Phases, in order (any failure exits non-zero):
             generator behind Master.generate_text: a ~1000-token prompt
             (bucket 1024, one flash_attn launch per layer) and a
             ~1500-token prompt in 256-token windows (six flash_attn_cached
-            launches per layer), 32 greedy tokens each; then the
-            `python3 -m cake_tpu_torch.cli` one-shot command on the card.
+            launches per layer), 32 greedy tokens each (run A's device
+            busy share under --profile); the generator's captured decode
+            step: 8 replays against 8 eager steps from identical caches
+            (identical tokens and logits, replay device ms beside the
+            eager step's host ms); generate_on_device at B = 1 and 4
+            against next_token's greedy stream (flash off); then the
+            `python3 -m cake_tpu_torch.cli --batch-size 2 --tracing DIR`
+            one-shot command on the card (exit 0, one trace file).
             Then 32-layer int4 weights (init_params_quantized, bits=4)
             behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
             launches per decode step and no plain call; a few tokens
@@ -98,7 +104,12 @@ Phases, in order (any failure exits non-zero):
             row that maps it, each with attn="kernel" (flash_attn,
             flash_attn_cached: 32 launches a call) and attn="plain" from
             one pool (layer 0's pages identical, logits and pages within
-            PREFIX_REL_TOL of their magnitude); then a warm-up chat and six
+            PREFIX_REL_TOL of their magnitude); each captured one-slot
+            prefill (serve/graphs.PrefillRunner: a 256 bucket, a
+            128-token suffix after the prefix, a 64-token chunk at the
+            unaligned pos 677) against its eager call from one pool:
+            byte-identical pages, equal logits, replay device ms beside
+            the eager host ms; then a warm-up chat and six
             concurrent chats with one ~700-token system message through
             the HTTP API with --auto-prefix at --mixed-batch auto and off
             (--decode-scan 4), and the same chats without it: 6 prefix
@@ -155,14 +166,18 @@ Phases, in order (any failure exits non-zero):
             with a never-firing plan at every site (cold, then the warm
             wave with every site test, decode dispatch, mixed replay,
             admission and page allocation under
-            torch.cuda.set_sync_debug_mode("error")), and with
-            RECOVERY_PLAN (a mixed dispatch, a burst's entry, the top of
-            an iteration) plus a fetch that fails inside a burst chain
-            with the next burst in flight: every chat 200, recoveries =
-            the faults that fired, none quarantined, graphs captured anew,
-            each rebuild's torch.cuda.max_memory_allocated at most a
-            tenth of a pool above what it held before; recovery seconds,
-            TTFT p50 and decode tok/s beside the waves without a plan;
+            torch.cuda.set_sync_debug_mode("error")), and, after a warm
+            wave with the plan disarmed, with RECOVERY_PLAN (a mixed
+            dispatch, a burst's entry, the top of an iteration) plus a
+            fetch that fails inside a burst chain with the next burst in
+            flight: every chat 200, recoveries = the faults that fired,
+            none quarantined, no graph captured anew and
+            cake_jit_compiles_total unchanged across the wave (the
+            in-place reset), then RECOVERY_FALLBACK with the in-place
+            reset forced to raise (the rebuild); each reset's
+            torch.cuda.max_memory_allocated at most a tenth of a pool
+            above what it held before; recovery seconds, TTFT p50 and
+            decode tok/s beside the warm wave without a plan;
             (2) 2 layers, f32 weights and pool: the plan's greedy streams
             equal the run's without it at decode_scan 1 and 4; (3) a
             poison prefill (engine.prefill:match_len) quarantines exactly
@@ -174,7 +189,12 @@ Phases, in order (any failure exits non-zero):
             (exit 86) under three keyed SSE streams, a second child
             replays the journal, each client's Last-Event-ID gets exactly
             its suffix, and the journaled streams equal an uninterrupted
-            run's. A `recovery` JSON line holds the record.
+            run's; (5) a child process trips a device-side assert before
+            a decode dispatch: its in-place reset and its rebuild raise,
+            it stops with reset_failed (health "stopped", every client a
+            retryable error, the snapshot written without a device read),
+            and this process resumes the snapshot to the uninterrupted
+            f32 streams. A `recovery` JSON line holds the record.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -754,7 +774,12 @@ def _flash_kernels(torch, fa, report, only=None) -> None:
                 # the zeros of unmapped pages
                 k[:, pos + S:] = shp.get("tail", float("nan"))
                 v[:, pos + S:] = shp.get("tail", float("nan"))
-                args = (q, k, v, pos)
+                # the kernel reads pos from the card where the tree's
+                # wrapper takes a device tensor (an earlier tree's takes
+                # an int)
+                args = (q, k, v, torch.tensor([pos], dtype=torch.int32,
+                                              device="cuda")
+                        if hasattr(fa, "_device_pos") else pos)
                 kern = fa.flash_attention_cached
                 plain = fa.flash_attention_cached_plain
             causal = kw.get("causal", True)
@@ -1828,16 +1853,25 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
             timing.setdefault("ttft_s", time.perf_counter() - t0)
 
         m.generate_text(on_token)
+        torch.cuda.synchronize()
         timing.update(prompt=g._prompt_len, tokens=len(g.tokens),
-                      tok_s=m.tokens_per_s,
+                      tok_s=m.tokens_per_s, wall_s=time.perf_counter() - t0,
                       eos=g.tokens[-1] in cfg.eos_token_ids)
         return timing
 
-    # warm-up: cuBLAS handles and the kernel library, off the counts
-    run(master(), 300)
+    # warm-up: cuBLAS handles, the kernel library and the generator's
+    # captured decode step, off the counts; run A then reuses the
+    # generator (reset in place), so its decode time is replays alone
+    m_a = master()
+    run(m_a, 300)
+    m_a.reset()
     fa.reset_launch_counts()
+    rows_a = []
     a = _profiled(torch, profile, "generate run A",
-                  lambda: run(master(), 1000))
+                  lambda: run(m_a, 1000), rows_a)
+    if rows_a:
+        # over the run's own wall (the profiler's teardown left out)
+        a["busy"] = sum(t for t, _, _ in rows_a) / 1e6 / a["wall_s"]
     counts_a = dict(fa.LAUNCHES)
     b = run(master(prefill_chunk=256), 1500, "generate run B's prefill")
     counts = dict(fa.LAUNCHES)
@@ -1845,7 +1879,9 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     for label, t in (("A (bucket 1024)", a), ("B (256-token windows)", b)):
         log(f"generate {label}: prompt {t['prompt']} tokens, TTFT "
             f"{t['ttft_s']:.3f} s, prefill {t['prefill_s']:.3f} s, "
-            f"{t['tokens']} tokens, decode {t['tok_s']:.1f} tok/s")
+            f"{t['tokens']} tokens, decode {t['tok_s']:.1f} tok/s"
+            + (f", device busy {100 * t['busy']:.1f}%" if "busy" in t
+               else ""))
         if t["tokens"] != n_new and not t["eos"]:
             fail(f"generate {label}: {t['tokens']} tokens, expected {n_new}")
     log(f"generate: launches {counts} (after run A: {counts_a})")
@@ -1861,17 +1897,127 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     if counts != want or counts_a["flash_attn_cached"] != 0:
         fail(f"generate: launches {counts}, expected {want}")
 
+    if hasattr(LlamaGenerator, "_decode_runner"):
+        _generator_graph(torch, fcfg, params, tok, system)
+
+    import tempfile
+    trace_dir = tempfile.mkdtemp(prefix="cake_smoke_trace_")
+    new_flags = hasattr(Args(), "tracing")
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--prompt",
-           "Why is the sky blue?", "--sample-len", "8"]
+           "Why is the sky blue?", "--sample-len", "8"] + (
+        ["--batch-size", "2", "--tracing", trace_dir] if new_flags else [])
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                       capture_output=True, text=True, timeout=600)
+    r = subprocess.run(cmd, cwd=sys.path[0], capture_output=True,
+                       text=True, timeout=600)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     log(f"generate: `{' '.join(cmd[1:])}` exit {r.returncode} in "
         f"{time.perf_counter() - t0:.1f} s; stdout tail "
-        f"{r.stdout.strip().splitlines()[-1:]!r}")
+        f"{r.stdout.strip().splitlines()[-1:]!r}; trace files {traces} "
+        f"({sum(os.path.getsize(os.path.join(trace_dir, f)) for f in traces)}"
+        " bytes)")
     if r.returncode != 0:
         fail(f"generate: the command line failed:\n{r.stderr[-3000:]}")
+    if new_flags and len(traces) != 1:
+        fail(f"generate: --tracing {trace_dir} wrote {traces}")
     return counts
+
+
+def _generator_graph(torch, fcfg, params, tok, system) -> None:
+    """The generator's captured decode step (serve/graphs.GeneratorRunner)
+    at full width and depth, bf16, greedy: from one 1000-token prefill,
+    8 steps run eagerly (`step`), then from the same caches and carry 8
+    replays of the captured step: identical tokens and logits, each
+    replay's device ms (CUDA events) beside the eager step's host ms.
+    Then generate_on_device at B = 1 and 4 against next_token's greedy
+    stream of 16 tokens with flash off (the scan's prefill is the masked
+    einsum): B = 1 identical, B = 4's rows equal to one another (their
+    agreement with the stream printed: a batched GEMM rounds apart)."""
+    import dataclasses
+
+    import numpy as np
+
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.models.llama.generator import (
+        LlamaGenerator, bucket_length, encode_text,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    gen = LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.bfloat16, device=DEV)
+    gen.add_message(Message.system(system))
+    gen.add_message(Message.user(_prompt_of(tok, 1000, system)))
+    gen.next_token(0)
+    r = gen._decode
+    keep = (gen.cache.k, gen.cache.v, r.tok, r.pos, r.steps, r.col,
+            r.counters, r.ring)
+    saved = [t.clone() for t in keep]
+    eager, host_ms = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        r.step(None)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        eager.append((r.tok.clone(), r.logits.clone()))
+    r.captured(None)                  # capture (the warm-up restores)
+    for t, v in zip(keep, saved):
+        t.copy_(v)
+    del saved
+    dev_ms, err = [], 0.0
+    for i in range(8):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r.replay(None)
+        e1.record()
+        e1.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+        if not torch.equal(r.tok, eager[i][0]):
+            fail(f"generate graph: replay {i} sampled {r.tok.tolist()}, "
+                 f"the eager step {eager[i][0].tolist()}")
+        err = max(err, (r.logits - eager[i][1]).abs().max().item())
+    log(f"generate graph: 8 replays of the captured decode step (32 "
+        f"layers, bf16, 4096-slot cache) against 8 eager steps: tokens "
+        f"identical, logits max |replay - eager| {err:.3e}; replay device "
+        f"{statistics.median(dev_ms):.3f} ms (median), eager step host "
+        f"{statistics.median(host_ms):.3f} ms; {r.captures} capture")
+    if err != 0.0:
+        fail(f"generate graph: replayed logits differ from the eager "
+             f"step's by {err:.3e}")
+    del gen, r, eager, keep
+    torch.cuda.empty_cache()
+
+    ncfg = dataclasses.replace(fcfg, use_flash_attention=False)
+    gen = LlamaGenerator(ncfg, params, tok, max_seq_len=2048,
+                         sampling=SamplingConfig(temperature=0.0),
+                         cache_dtype=torch.bfloat16, device=DEV)
+    gen.add_message(Message.system(system))
+    gen.add_message(Message.user(_prompt_of(tok, 300, system)))
+    stream = [gen.next_token(i).id for i in range(16)]
+    ids = encode_text(tok, gen.history.render())
+    bucket = bucket_length(len(ids), 2048)     # next_token's prefill's
+    padded = np.array(ids + [0] * (bucket - len(ids)))
+    for B in (1, 4):
+        walls = []
+        for _ in range(2):        # the first call captures the B-row step
+            t0 = time.perf_counter()
+            out = gen.generate_on_device(np.stack([padded] * B),
+                                         np.full(B, len(ids)), 16)
+            walls.append(time.perf_counter() - t0)
+        agree = [int(np.argmin(np.append(row == np.array(stream), False)))
+                 for row in out]
+        log(f"generate_on_device B={B}: 16 tokens in {walls[1]:.3f} s "
+            f"(one eager prefill, 15 replays, one fetch; "
+            f"{B * 16 / walls[1]:.1f} tok/s; the first call, capture "
+            f"included, {walls[0]:.3f} s), rows agree with next_token's "
+            f"stream for {agree} tokens")
+        if B == 1 and agree != [16]:
+            fail(f"generate_on_device B=1: {out[0].tolist()} against "
+                 f"next_token's {stream}")
+        if not (out == out[0]).all():
+            fail(f"generate_on_device B={B}: the rows differ: {out}")
+    del gen
+    torch.cuda.empty_cache()
 
 
 def phase_generate_quant(torch, i4, cfg) -> dict:
@@ -1902,10 +2048,13 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
     system = "You are a helpful AI assistant."
     L = cfg.num_hidden_layers
 
-    def run(params, quant, n_new):
-        gen = LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
-                             sampling=SamplingConfig(temperature=0.0),
-                             cache_dtype=torch.bfloat16, device=dev)
+    def generator(params):
+        return LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
+                              sampling=SamplingConfig(temperature=0.0),
+                              cache_dtype=torch.bfloat16, device=dev)
+
+    def run(gen, quant, n_new):
+        gen.reset()
         m = Master(Args(sample_len=n_new, system_prompt=system, quant=quant),
                    text_generator=gen)
         m.add_message(Message.system(system))
@@ -1937,9 +2086,10 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
         return params
 
     q4 = made(4)
-    run(q4, "int4", 4)            # warm-up, off the counts
+    gen4 = generator(q4)
+    run(gen4, "int4", 4)          # warm-up and capture, off the counts
     i4.reset_launch_counts()
-    t = run(q4, "int4", 32)
+    t = run(gen4, "int4", 32)
     counts = dict(i4.LAUNCHES)
     log(f"generate int4: prompt {t['prompt']} tokens, TTFT {t['ttft_s']:.3f} "
         f"s, {t['tokens']} tokens, decode {t['tok_s']:.1f} tok/s; launches "
@@ -1953,9 +2103,10 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
         fail(f"generate int4: launches {counts}, expected {want} (7 x {L} "
              "per decode step) and no plain call")
 
+    del gen4
     q8 = made(8)
     i4.reset_launch_counts()
-    t8 = run(q8, "int8", 4)
+    t8 = run(generator(q8), "int8", 4)
     log(f"generate int8: prompt {t8['prompt']} tokens, TTFT "
         f"{t8['ttft_s']:.3f} s, {t8['tokens']} tokens, decode "
         f"{t8['tok_s']:.1f} tok/s (plain PyTorch: each weight is converted "
@@ -2300,6 +2451,114 @@ def _prefix_steps(torch, fa, cfg, params, kv_dtype) -> dict:
     return counts
 
 
+def _prefill_graph_steps(torch, cfg, params, kv_dtype) -> dict:
+    """The captured one-slot prefills of `--mixed-batch off`
+    (serve/graphs.PrefillRunner) at full width and depth against their
+    eager calls from clones of one pool (attn="kernel"): ("slot", 256) a
+    200-token prompt, ("prefixed", 640, 128) a 100-token suffix after
+    the 5-page prefix, ("chunk", 64) a 64-token window at the unaligned
+    pos 677 of the row that maps the prefix. Byte-identical real pages
+    and logits (0 difference expected: the same kernels), and a
+    replay's device ms beside the eager call's host ms. Returns the
+    record by kind."""
+    from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
+    from cake_tpu_torch.models.llama import paged as pg
+    from cake_tpu_torch.models.llama.model import RopeTables
+    from cake_tpu_torch.serve.graphs import PrefillRunner
+
+    dev, T, P = DEV, 2048, 128
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rope = RopeTables.create(cfg, T, device=dev)
+    if kv_dtype is None:
+        cache = pg.PagedKVCache.create(cfg, 2, 24, P, T,
+                                       dtype=torch.bfloat16, device=dev)
+    else:
+        cache = QUANTIZED_CACHES[kv_dtype].create(cfg, 2, 24, P, T,
+                                                  device=dev)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=dev).tolist()
+
+    rows = {0: list(range(10)), 1: [10, 11]}
+    pg.prefill_prefix_pages(
+        params, torch.tensor([ids(5 * P)], dtype=torch.int32, device=dev),
+        torch.tensor(rows[0][:5] + [-1] * 11, dtype=torch.int32,
+                     device=dev), cache, rope, cfg, attn="kernel")
+    for slot, pages in rows.items():
+        pg.table_set_slot(cache.table, slot, pages)
+    sink = cache.n_pages
+
+    def host_row(slot):
+        r = torch.full((T // P,), -1, dtype=torch.int32)
+        r[:len(rows[slot])] = torch.tensor(rows[slot], dtype=torch.int32)
+        return r
+
+    toks = {"slot": ids(200) + [0] * 56, "prefixed": ids(100) + [0] * 28,
+            "chunk": ids(64)}
+    cases = {
+        "slot": (("slot", 256), 200, 1, 0,
+                 pg.fixed_prompt_targets(host_row(1), 256, P, sink),
+                 lambda c, t: pg.prefill_slot_paged(
+                     params, t, 200, 1, c, rope, cfg, attn="kernel",
+                     row=rows[1])),
+        "prefixed": (("prefixed", 5 * P, 128), 100, 0, 0,
+                     pg.fixed_prompt_targets(host_row(0)[5:], 128, P, sink),
+                     lambda c, t: pg.prefill_slot_paged_prefixed(
+                         params, t, 100, 0, c, rope, cfg, n_prefix=5 * P,
+                         attn="kernel", row=rows[0])),
+        "chunk": (("chunk", 64), 64, 0, 677,
+                  pg.chunk_write_targets(cache, 677, 64, 64, host_row(0)),
+                  lambda c, t: pg.prefill_slot_paged_chunk(
+                      params, t, 64, 0, 677, c, rope, cfg, attn="kernel",
+                      row=rows[0])),
+    }
+    label = f"prefill graphs ({kv_dtype or 'bf16'} pool)"
+    out = {}
+    for kind, (variant, n, slot, pos0, targets, eager) in cases.items():
+        t = torch.tensor([toks[kind]], dtype=torch.int32, device=dev)
+        ce, cr = cache.clone(), cache.clone()
+        want = eager(ce, t)[0]
+        torch.cuda.synchronize()
+        host, ct = [], cache.clone()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eager(ct, t)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        del ct
+        runner = PrefillRunner(params, cr, rope, cfg, attn="kernel")
+        got = runner.run(variant, toks[kind], n, slot, pos0,
+                         targets).clone()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(_pool_leaves(ce),
+                                                     _pool_leaves(cr)))
+        err = (got - want).abs().max().item()
+        dev_ms = []
+        for _ in range(5):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            runner.replay(variant)
+            e1.record()
+            e1.synchronize()
+            dev_ms.append(e0.elapsed_time(e1))
+        out[kind] = dict(pages_identical=same, logits_err=err,
+                         replay_ms=statistics.median(dev_ms),
+                         eager_host_ms=statistics.median(host),
+                         captures=runner.captures)
+        log(f"{label} {variant}: pages byte-identical {same}, logits max "
+            f"|captured - eager| {err:.3e}; replay device "
+            f"{out[kind]['replay_ms']:.3f} ms, eager host "
+            f"{out[kind]['eager_host_ms']:.3f} ms")
+        if not same or err != 0.0 or runner.captures != 1:
+            fail(f"{label} {variant}: {out[kind]}")
+        del ce, cr, runner
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def _prefix_serve(torch, rpa, fa, cfg, params, kv_dtype, mixed: str,
                   auto_prefix: bool, profile: bool = False) -> dict:
     """One engine behind the HTTP API (the serve phase's Args, plus
@@ -2455,10 +2714,14 @@ def phase_prefix(torch, rpa, fa, cfg, params, card: str,
     --auto-prefix, against the same chats without it (each drive under
     torch.profiler with `profile`). Returns (the flash launches of the
     served drives, the drives' records)."""
+    import cake_tpu_torch.serve.graphs as graphs
+
     served = {"flash_attn": 0, "flash_attn_cached": 0}
     records = []
     for kv in (None, "int8"):
         _prefix_steps(torch, fa, cfg, params, kv)
+        if hasattr(graphs, "PrefillRunner"):
+            _prefill_graph_steps(torch, cfg, params, kv)
         recs = {(m, a): _prefix_serve(torch, rpa, fa, cfg, params, kv, m, a,
                                       profile)
                 for m, a in (("auto", False), ("auto", True), ("off", True))}
@@ -3212,6 +3475,9 @@ RECOVERY_SILENT = ("seed=15;engine.mixed:nth=1000000:transient;"
                    "engine.step:step=1000000000:transient;"
                    "pager.alloc:nth=1000000:oom;"
                    "engine.prefill:match_len=99999:always:transient")
+# the forced-fallback wave's faults (drive 1, after the faulted wave)
+RECOVERY_FALLBACK = ("seed=16;engine.mixed:nth=3:transient;"
+                     "engine.decode:nth=2:oom")
 RECOVERY_NEW = 64            # tokens a chat (drive 1)
 RECOVERY_LAYERS_F32 = 2      # the f32 drives' depth (8B width)
 RECOVERY_PAGES = 128         # the serve phase's pool
@@ -3219,6 +3485,19 @@ RECOVERY_ABORT = ("seed=1;engine.decode:nth=10:abort")
 RECOVERY_KEYS = ("jA", "jB", "jC")
 # the journal drive's child builds this LlamaConfig (its classmethod)
 RECOVERY_CHILD_CONFIG = "llama3_8b"
+
+
+def _shift_steps(plan: str, base: int) -> str:
+    """`plan` with each step=N trigger moved to base + N (a plan armed
+    after `base` engine steps fires where a fresh engine's would)."""
+    return re.sub(r"step=(\d+)", lambda m: f"step={base + int(m.group(1))}",
+                  plan)
+
+
+def _metric_sum(text: str, name: str) -> float:
+    """The sum of a metric family's samples over all its labels."""
+    return sum(float(m.group(1)) for m in re.finditer(
+        "^" + re.escape(name) + r"(?:\{[^}]*\})? (\S+)$", text, re.M))
 
 
 def _recovery_wave(srv, tag: str, n_new: int = RECOVERY_NEW) -> dict:
@@ -3360,33 +3639,71 @@ def _recovery_served(torch, rpa, cfg, params, card: str) -> tuple:
     del srv, eng
     torch.cuda.empty_cache()
 
+    from cake_tpu_torch.faults import build_injector
+    from cake_tpu_torch.obs import metrics as obs_metrics
+
     srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
                        kv_pages=RECOVERY_PAGES, fault_plan=RECOVERY_PLAN)
     eng = srv.engine
+    in_place = hasattr(eng, "_reset_in_place")
     pool_bytes = eng.cache.memory_bytes()
-    resets = _watch_resets(torch, eng)
-    chain = _chain_fault(eng)
     captures = []
     real_capture = eng.flight.count_capture
+    resets = []
     eng.flight.count_capture = lambda fn, s: (
         captures.append((fn, len(resets))), real_capture(fn, s))
+    # a warm wave with the plan disarmed captures every variant, so the
+    # faulted wave compares with the plain server's warm wave and shows
+    # whether a reset captures anew
+    eng._faults = None
+    rec["faulted_warmup"] = _recovery_wave(srv, "Rv")
+    n_warm = len(captures)
+    eng._faults = build_injector(_shift_steps(RECOVERY_PLAN,
+                                              eng.stats.steps))
+    resets = _watch_resets(torch, eng)
+    chain = _chain_fault(eng)
+    compiles0 = _metric_sum(obs_metrics.REGISTRY.render(),
+                            "cake_jit_compiles_total")
     rpa.reset_launch_counts()
     rec["faulted"] = _recovery_wave(srv, "Rf")
     counts = {k: rpa.LAUNCHES[k] for k in ("rpa_decode", "rpa_mixed")}
+    compiles1 = _metric_sum(obs_metrics.REGISTRY.render(),
+                            "cake_jit_compiles_total")
     fired = eng._faults.describe()
     st = eng.stats
     want = fired["injections_total"] + int(chain["fired"])
     rec.update(
         plan=fired, chain_fault=chain, recoveries=st.recoveries,
         requests_recovered=st.requests_recovered, poisoned=st.poisoned,
-        recovery_seconds=list(eng.recovery_seconds), resets=resets,
-        pool_bytes=pool_bytes,
-        captures_after_reset=sum(1 for _, n in captures if n > 0),
+        recovery_seconds=list(eng.recovery_seconds), resets=list(resets),
+        pool_bytes=pool_bytes, captures_warmup=n_warm,
+        captures_faulted=len(captures) - n_warm,
+        compiles_before=compiles0, compiles_after=compiles1,
         launches=counts)
+    n_faulted = len(resets)
+    recoveries, poisoned = st.recoveries, st.poisoned
+    if in_place:
+        # the fallback rebuild, forced: the in-place reset raises, so
+        # the free-before-allocate order meets the memory check
+        def in_place_fails():
+            raise RuntimeError("smoke: the in-place reset forced to fail")
+
+        eng._reset_in_place = in_place_fails
+        # a new fault episode: the faulted wave's resets leave the storm
+        # window, so its breaker does not count them
+        eng._reset_times.clear()
+        eng._faults = build_injector(_shift_steps(RECOVERY_FALLBACK,
+                                                  eng.stats.steps))
+        c0 = len(captures)
+        rec["fallback"] = _recovery_wave(srv, "Rb")
+        rec["fallback_resets"] = resets[n_faulted:]
+        rec["fallback_captures"] = len(captures) - c0
+        if not rec["fallback_resets"]:
+            fail("recovery: the forced fallback wave reset nothing")
     srv.close()
-    if st.recoveries != want or st.poisoned or want < 3:
-        fail(f"recovery: {st.recoveries} recoveries for {want} faults "
-             f"({fired}, chain {chain}), {st.poisoned} quarantined")
+    if recoveries != want or poisoned or want < 3:
+        fail(f"recovery: {recoveries} recoveries for {want} faults "
+             f"({fired}, chain {chain}), {poisoned} quarantined")
     if not chain["fired"] or not chain["in_flight"]:
         fail(f"recovery: the chain fault did not land with a burst in "
              f"flight: {chain}")
@@ -3397,10 +3714,18 @@ def _recovery_served(torch, rpa, cfg, params, card: str) -> tuple:
              if k.endswith("_plain") and n}
     if plain:
         fail(f"recovery: plain versions ran: {plain}")
-    if rec["captures_after_reset"] <= 0:
-        fail("recovery: no graph was captured anew after a reset")
+    log(f"recovery: {n_warm} graphs captured in the warm wave, "
+        f"{rec['captures_faulted']} in the faulted wave; "
+        f"cake_jit_compiles_total {compiles0:.0f} before it, "
+        f"{compiles1:.0f} after [{card}]")
+    if in_place and (rec["captures_faulted"] or compiles1 != compiles0):
+        fail(f"recovery: the in-place resets captured "
+             f"{rec['captures_faulted']} graphs anew (compiles "
+             f"{compiles0:.0f} -> {compiles1:.0f})")
     for i, r in enumerate(resets):
-        log(f"recovery: reset {i + 1}: {r['before'] / 2**30:.3f} GiB held, "
+        kind = "in place" if in_place and i < n_faulted else "rebuild"
+        log(f"recovery: reset {i + 1} ({kind}): "
+            f"{r['before'] / 2**30:.3f} GiB held, "
             f"peak {r['peak'] / 2**30:.3f} GiB during the rebuild, "
             f"{r['after'] / 2**30:.3f} GiB after (one pool "
             f"{pool_bytes / 2**30:.3f} GiB), rebuild {r['rebuild_s']:.3f} s "
@@ -3409,15 +3734,20 @@ def _recovery_served(torch, rpa, cfg, params, card: str) -> tuple:
             fail(f"recovery: reset {i + 1} peaked "
                  f"{(r['peak'] - r['before']) / 2**30:.3f} GiB above what "
                  "it held: the old pool was still live")
-    log(f"recovery: {st.recoveries} recoveries in "
-        + ", ".join(f"{s:.3f}" for s in eng.recovery_seconds)
-        + f" s, {st.requests_recovered} requests resubmitted, "
-        f"{rec['captures_after_reset']} graphs captured anew; faulted wave "
-        f"TTFT p50 {rec['faulted']['ttft_p50_s']:.3f} s, decode "
+    log(f"recovery: {recoveries} recoveries in "
+        + ", ".join(f"{s:.3f}" for s in rec["recovery_seconds"])
+        + f" s, {rec['requests_recovered']} requests resubmitted; faulted "
+        f"(warm) wave TTFT p50 {rec['faulted']['ttft_p50_s']:.3f} s, decode "
         f"{rec['faulted']['decode_tok_s']:.1f} tok/s against "
-        f"{rec['plain_cold']['ttft_p50_s']:.3f} s, "
-        f"{rec['plain_cold']['decode_tok_s']:.1f} tok/s without a plan "
-        f"(cold waves) [{card}]")
+        f"{rec['plain_warm']['ttft_p50_s']:.3f} s, "
+        f"{rec['plain_warm']['decode_tok_s']:.1f} tok/s for the warm wave "
+        f"without a plan [{card}]")
+    if "fallback" in rec:
+        log(f"recovery: forced fallback wave: "
+            f"{len(rec['fallback_resets'])} rebuilds, "
+            f"{rec['fallback_captures']} graphs captured anew, TTFT p50 "
+            f"{rec['fallback']['ttft_p50_s']:.3f} s, decode "
+            f"{rec['fallback']['decode_tok_s']:.1f} tok/s [{card}]")
     log(f"recovery: silent plan, warm wave {rec['silent_warm']['decode_tok_s']:.1f} "
         f"tok/s (TTFT p50 {rec['silent_warm']['ttft_p50_s']:.3f} s) against "
         f"{rec['plain_warm']['decode_tok_s']:.1f} tok/s "
@@ -3785,6 +4115,137 @@ def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
     return rec
 
 
+def _device_fault_child(path: str, out: str) -> None:
+    """A serving process for the device-fault drive: the f32 2-layer
+    model, a snapshot path, and the third decode dispatch preceded by an
+    out-of-range index on the card (a device-side assert: the context's
+    sticky error). Writes what it saw to `out` as JSON."""
+    import torch
+
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    cfg32, p32 = _f32_params(
+        torch, getattr(LlamaConfig, RECOVERY_CHILD_CONFIG)())
+    eng = _f32_engine(torch, cfg32, p32, decode_scan_steps=1)
+    raised = []
+
+    def recorded(name):
+        fn = getattr(eng, name)
+
+        def call():
+            try:
+                return fn()
+            except Exception as e:   # noqa: BLE001 — recorded, raised on
+                raised.append([name, type(e).__name__, str(e)[:160]])
+                raise
+        return call
+
+    for name in ("_reset_in_place", "_rebuild_after_error"):
+        setattr(eng, name, recorded(name))
+    calls = []
+    dispatch = eng._dispatch_scan
+
+    def faulting(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            x = torch.zeros(4, device=DEV)
+            x[torch.tensor([1 << 20], device=DEV)] += 1.0
+        return dispatch(*a, **k)
+
+    eng._dispatch_scan = faulting
+    died = []
+    threading.excepthook = lambda args: died.append(repr(args.exc_value))
+    master = Master(Args(sample_len=32, temperature=0.0),
+                    text_generator=None)
+    httpd = start(master, "127.0.0.1:0", block=False, engine=eng,
+                  checkpoint_path=path)
+    hs = [eng.submit(p, max_new_tokens=32) for p in _f32_prompts()]
+    ok = all(h.wait(timeout=300) for h in hs)
+    eng._thread.join(timeout=60)
+    health = json.loads(_get(f"http://127.0.0.1:{httpd.server_address[1]}"
+                             "/api/v1/health"))
+    with open(out, "w") as f:
+        json.dump(dict(
+            ok=ok, died=died, raised=raised, stopped=eng.stopped,
+            last_error=eng.stats.last_error, health=health.get("status"),
+            errors=[type(h._req.error).__name__ for h in hs],
+            retryable=[bool(getattr(h._req.error, "retryable", False))
+                       for h in hs]), f)
+    httpd.shutdown()
+    # the context is dead: leave without its teardown
+    os._exit(0)
+
+
+def _recovery_device_fault(torch, cfg32, p32, clean, card: str) -> dict:
+    """Drive 6: a real device fault. A child process serves the f32
+    2-layer model and trips a device-side assert before a decode
+    dispatch: its in-place reset and its fallback rebuild both raise
+    (the context is dead), so the engine stops with reset_failed, health
+    reads "stopped", every client gets a retryable error, and the
+    snapshot is written without a device read. This process resumes the
+    snapshot into a fresh engine: the joined streams equal an
+    uninterrupted run's (f32)."""
+    import tempfile
+
+    from cake_tpu_torch.serve import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="cake_smoke_fault_")
+    path, out = os.path.join(tmp, "ckpt.json"), os.path.join(tmp, "out.json")
+    here, tree = os.path.dirname(os.path.abspath(__file__)), sys.path[0]
+    code = (f"import sys; sys.path.insert(0, {here!r}); "
+            f"sys.path.insert(0, {tree!r}); import chip_smoke; "
+            f"chip_smoke.DEV = {DEV!r}; "
+            f"chip_smoke.RECOVERY_CHILD_CONFIG = {RECOVERY_CHILD_CONFIG!r}; "
+            f"chip_smoke._device_fault_child({path!r}, {out!r})")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    if not os.path.exists(out):
+        fail(f"recovery device fault: the child wrote nothing (exit "
+             f"{r.returncode}):\n{r.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    recs = checkpoint.load(path)["requests"]
+    asserted = any("assert" in m.lower() for _, _, m in got["raised"])
+    ok = (got["ok"] and not got["died"] and got["stopped"]
+          and [n for n, _, _ in got["raised"]] == ["_reset_in_place",
+                                                   "_rebuild_after_error"]
+          and got["last_error"] == "reset failed"
+          and got["health"] == "stopped"
+          and set(got["errors"]) == {"EngineResetError"}
+          and all(got["retryable"]) and len(recs) == len(clean)
+          and all(checkpoint.is_resumable(x) for x in recs))
+    if not ok:
+        fail(f"recovery device fault: {got}, {len(recs)} snapshotted")
+    fresh = _f32_engine(torch, cfg32, p32)
+    with fresh:
+        handles, finished = checkpoint.restore(fresh, path)
+        for h in handles:
+            if not h.wait(timeout=600):
+                fail("recovery device fault: a resumed request did not "
+                     "finish")
+    joined = [list(x["out_tokens"]) + list(h._req.out_tokens)
+              for x, h in zip(recs, handles)]
+    rec = dict(raised=got["raised"], device_assert=asserted,
+               health=got["health"], errors=got["errors"],
+               generated_before=[len(x["out_tokens"]) for x in recs],
+               identical=joined == clean, finished=len(finished),
+               wall_s=time.perf_counter() - t0)
+    if finished or joined != clean:
+        fail(f"recovery device fault: the resumed streams differ: {rec}")
+    log(f"recovery device fault: the child's in-place reset raised "
+        f"{got['raised'][0][1]} ({got['raised'][0][2][:60]!r}), the "
+        f"rebuild {got['raised'][1][1]}; reset_failed, health "
+        f"{got['health']}, {len(got['errors'])} clients errored "
+        f"(retryable), snapshot of {len(recs)} requests "
+        f"({rec['generated_before']} tokens out) resumed token-identically "
+        f"in this process; {rec['wall_s']:.1f} s [{card}]")
+    return rec
+
+
 def phase_recovery(torch, rpa, cfg, params, card: str) -> tuple:
     """Fault injection, crash recovery, the checkpoint, the journal and
     drain at Llama-3-8B width (drives 2-5: 2 layers, f32). Returns (the
@@ -3796,6 +4257,10 @@ def phase_recovery(torch, rpa, cfg, params, card: str) -> tuple:
     clean = rec["identity"].pop("clean")
     rec.update(_recovery_poison_breaker(torch, cfg32, p32, clean, card))
     rec["journal"] = _recovery_journal(torch, cfg32, p32, card)
+    from cake_tpu_torch.serve.engine import InferenceEngine
+    if hasattr(InferenceEngine, "_reset_in_place"):
+        rec["device_fault"] = _recovery_device_fault(torch, cfg32, p32,
+                                                     clean, card)
     del p32
     torch.cuda.empty_cache()
     rec["wall_s"] = time.perf_counter() - t_phase

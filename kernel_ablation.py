@@ -25,7 +25,9 @@ M = 1 and 8 (one row on the CUDA-core body, the rest on the tensor-core
 body: variants
 without the nibble conversion, without the loop's loads, the ring alone
 (no products, so no conversion either), at most two CTAs an SM, and in
-natural column order with byte loads).
+natural column order with byte loads). Three variants move
+`flash_attn_cached`'s pos read (none, the constant bank, a shuffled
+global load).
 The unpatched build also times the two split bodies at other plans
 (`flash_attn_cached` at 4 and 8 warps a CTA and 1 to 6 key splits; the
 three mixed kernels unsplit and at their plan; `int4_matmul` in one
@@ -64,6 +66,8 @@ TC_CASES = ("flash_attn", "flash_attn_cached") + RPA_MIXED
 LOOP_LOADS = ("    if (j + tc::kStages < n_tiles) load_tile(j + tc::kStages);",
               "")
 # variant -> ({file: [(text, replacement), ...]}, cases timed); {} = as is
+FLASH = ("flash_attn", "flash_attn_cached")
+POS_READ = "  const int p = g_pos;"
 VARIANTS = {
     "as is": ({}, ("flash_attn", "flash_attn_cached") + RPA_DECODES
               + RPA_MIXED + INT4_CASES),
@@ -152,6 +156,16 @@ VARIANTS = {
     "rpa_decode: 64-slot ring stages": ({RPA: [
         ("constexpr int kSplitTile = 32;", "constexpr int kSplitTile = 64;")]},
         ("rpa_decode",)),
+    # where flash_attn_cached reads its device pos (the wrapper copies it
+    # to g_pos before each launch): without the read, from the constant
+    # bank, and a global load broadcast by a shuffle
+    "flash pos: no read": ({FA: [
+        (POS_READ, "  const int p = 1280;")]}, FLASH),
+    "flash pos: the constant bank": ({FA: [
+        ("__device__ int g_pos;", "__constant__ int g_pos;")]}, FLASH),
+    "flash pos: a shuffled load": ({FA: [
+        (POS_READ, "  const int p = __shfl_sync(0xffffffffu, g_pos, 0);")]},
+        FLASH),
 }
 
 
@@ -240,6 +254,8 @@ def main(argv=None) -> int:
         rnd(1, 4096, 8, 128)
     ck[:, 1280 + 256:] = float("nan")
     cv[:, 1280 + 256:] = float("nan")
+    # the kernel reads pos on the card
+    cpos = torch.tensor([1280], dtype=torch.int32, device="cuda")
     dec = cs._kernel_case(torch, torch.bfloat16,
                           torch.Generator(device="cuda").manual_seed(1234),
                           False, None)[:5]
@@ -267,7 +283,7 @@ def main(argv=None) -> int:
     calls = {
         "flash_attn": lambda: fa.flash_attention(q, k, v),
         "flash_attn_cached": lambda: fa.flash_attention_cached(cq, ck, cv,
-                                                               1280),
+                                                               cpos),
         "rpa_decode": lambda: rpa.ragged_paged_attention(*dec),
         "rpa_mixed": lambda: rpa.ragged_paged_attention_mixed(*mix),
         "rpa_decode_q8": lambda: rpa.ragged_paged_attention(*q8[:5],

@@ -336,9 +336,10 @@ def test_quantized_weights_greedy_streams_token_identical_to_jax_engine(
 
 def test_quantized_pool_is_rebuilt_quantized_after_a_failed_step(
         models, monkeypatch):
-    """A step that raises fails its requests with a retryable error and
-    rebuilds the pool with the same int4 storage; the next request is
-    served from it and every page returns."""
+    """A step that raises fails its requests with a retryable error and,
+    when the in-place reset raises too, rebuilds the pool with the same
+    int4 storage; the next request is served from it and every page
+    returns."""
     from cake_tpu_torch.kv.quantized_pool import Int4PagedKVCache
     from cake_tpu_torch.serve import engine as engine_mod
     from cake_tpu_torch.serve.errors import EngineRequestError
@@ -359,6 +360,12 @@ def test_quantized_pool_is_rebuilt_quantized_after_a_failed_step(
         return real_step(*a, **kw)
 
     monkeypatch.setattr(engine_mod, "mixed_step_paged", failing_once)
+
+    def in_place_fails():
+        raise RuntimeError("in-place reset failed (test)")
+
+    # the rebuild is the fallback when the in-place reset raises
+    monkeypatch.setattr(eng, "_reset_in_place", in_place_fails)
     first_cache = eng.cache
     with eng:
         h = eng.submit([4] * 10, max_new_tokens=3)

@@ -20,15 +20,17 @@ submitted before the engine starts, so both plan the same iterations:
   * a rebuild that itself fails stops the engine with a snapshot, no
     thread dies, and `/api/v1/health` reports it; the snapshot path
     calls nothing on the device;
-  * the old pool is unreferenced (a weakref) when the new one is
-    allocated, after an injected fault and after a runner that raises;
+  * when the in-place reset raises, the old pool is unreferenced (a
+    weakref) when the fallback rebuild allocates the new one, after an
+    injected fault and after a runner that raises;
   * one failed step implicates a request once (the JAX engine counts a
     mid-prefill slot twice and quarantines it: a pinned divergence);
   * `recovery=False` (--no-recovery) fails everything with retryable
     errors, as before, and serves on.
 
 The `cuda` cases (the card engine recovering across a burst and a mixed
-replay against the CPU engine; a silent plan under
+replay against the CPU engine, capturing no graph anew; a silent plan
+under
 `torch.cuda.set_sync_debug_mode("error")`) skip without a card. The JAX
 package is imported inside the cases that use it:
 
@@ -329,8 +331,8 @@ def _post(url, body):
 
 def test_failed_rebuild_stops_the_engine_with_a_snapshot(models, tmp_path,
                                                          monkeypatch):
-    """A rebuild that raises (here `_new_cache`) takes the reset_failed
-    stop: the in-flight clients get a retryable 503, the snapshot holds
+    """An in-place reset that raises, then a rebuild that raises (here
+    `_new_cache`), take the reset_failed stop: the in-flight clients get a retryable 503, the snapshot holds
     them, no thread dies, /api/v1/health says "stopped", and the
     snapshot path read nothing from the device (the digest and every
     tensor host copy raise once the fingerprint is warm)."""
@@ -368,6 +370,7 @@ def test_failed_rebuild_stops_the_engine_with_a_snapshot(models, tmp_path,
                 m.setattr(torch.Tensor, name, no_device)
             real_snap(requests=requests)
 
+    monkeypatch.setattr(eng, "_reset_in_place", _in_place_fails)
     monkeypatch.setattr(eng, "_new_cache", broken)
     monkeypatch.setattr(eng, "_snapshot_before_fail",
                         snapshot_without_the_device)
@@ -398,14 +401,20 @@ def test_failed_rebuild_stops_the_engine_with_a_snapshot(models, tmp_path,
         httpd.server_close()
 
 
+def _in_place_fails():
+    raise RuntimeError("in-place reset failed (test)")
+
+
 @pytest.mark.parametrize("mixed", ["auto", "off"])
 def test_old_pool_is_released_before_the_new_one(models, mixed):
-    """At the rebuild's allocation the old pool and both runners are
-    unreferenced (weakrefs dead without a collection), so a reset needs
-    one pool's memory, not two."""
+    """When the in-place reset raises, at the fallback rebuild's
+    allocation the old pool and both runners are unreferenced (weakrefs
+    dead without a collection), so a rebuild needs one pool's memory,
+    not two."""
     import gc
     eng = _engine(models, mixed_batch=mixed, decode_scan_steps=4,
                   fault_plan="seed=1;engine.decode:nth=3:transient")
+    eng._reset_in_place = _in_place_fails
     real = eng._new_cache
     seen = []
 
@@ -444,8 +453,9 @@ def test_old_pool_is_released_before_the_new_one(models, mixed):
 def test_old_pool_is_released_when_a_runner_raises(models, where,
                                                    monkeypatch):
     """A real step error raised inside a runner (its frame holds the
-    runner, and the log record keeps the traceback): the failed frames
-    are cleared, so the pool is still unreferenced at the rebuild."""
+    runner, and the log record keeps the traceback), then an in-place
+    reset that raises: the failed frames are cleared, so the pool is
+    still unreferenced at the fallback rebuild."""
     from cake_tpu_torch.serve import graphs
     cls = graphs.MixedRunner if where == "mixed" else graphs.DecodeRunner
     real_run = cls.run
@@ -473,6 +483,7 @@ def test_old_pool_is_released_when_a_runner_raises(models, where,
         return real_new(*a, **kw)
 
     eng._reset_after_error, eng._new_cache = reset, new_cache
+    eng._reset_in_place = _in_place_fails
     hs = [eng.submit(p, max_new_tokens=GEN) for p in PROMPTS]
     import gc
     gc.disable()
@@ -592,8 +603,8 @@ def _card_models():
 def test_cuda_engine_recovers_like_the_cpu_engine(scan):
     """The card engine under a plan whose faults land on a mixed replay,
     inside a decode burst chain and at the top of an iteration: the same
-    recoveries and streams as the CPU engine's, and the graphs are
-    captured anew after each reset."""
+    recoveries and streams as the CPU engine's, and no graph is captured
+    anew after a reset (each variant's one capture is the only one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     plan = ("seed=15;engine.mixed:nth=3:transient;engine.decode:nth=5:oom;"
@@ -608,7 +619,9 @@ def test_cuda_engine_recovers_like_the_cpu_engine(scan):
         if device == "cuda":
             captures = len(eng.events.dump(type="recompile"))
             assert eng.stats.recoveries >= 2
-            assert captures > eng.stats.recoveries
+            runners = (eng._runner, eng._mixed_runner)
+            assert all(r is not None for r in runners)
+            assert captures == sum(r.captures for r in runners)
     assert runs[1] == runs[0]
 
 
