@@ -395,6 +395,16 @@ class ApiServer:
              "Engine iterations that failed and reset", st.errors),
         ):
             m.counter(name, help_).set_total(val)
+        if getattr(eng, "_specp", None) is not None:
+            # the engine's speculation (the JAX server keys these on its
+            # dense spec engine, which the port does not have)
+            m.counter("cake_engine_spec_proposed_total",
+                      "Draft tokens proposed").set_total(st.spec_proposed)
+            m.counter("cake_engine_spec_accepted_total",
+                      "Draft tokens accepted").set_total(st.spec_accepted)
+            m.gauge("cake_engine_spec_acceptance",
+                    "Lifetime draft acceptance ratio").set(
+                round(st.spec_acceptance, 4))
         eng._set_queue_gauges()
         obs_steps.refresh_page_gauges(eng)
         eng.slo.refresh_gauges()

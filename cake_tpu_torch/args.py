@@ -7,8 +7,7 @@ is on by default, being the port's only serving engine).
 validates the result (`Args.validate`, the JAX package's rules for the
 fields the port has, `--quant none|int8|int4` among them); a flag of the
 JAX package that the port does not implement yet (`--topology`, `--sp`,
-the speculative-decoding flags, ...) is rejected by argparse, never
-accepted and ignored.
+`--autotune`, ...) is rejected by argparse, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -19,6 +18,11 @@ from typing import Optional
 
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
 from cake_tpu_torch.utils.devices import resolve_kv_dtype
+
+INT8_KV_SPEC_ERROR = (
+    "--kv-dtype int8/int4 is unavailable with --draft-model: the "
+    "speculative generator's caches are dense, so there are no KV pages "
+    "to quantize")
 
 
 @dataclass
@@ -39,6 +43,22 @@ class Args:
     # weight-only quantization: none | int8 (per-channel) | int4
     # (group-wise, nibble-packed; the int4 matmul kernel at decode shapes)
     quant: str = "none"
+    # speculative decoding (models/llama/speculative.py): path to a small
+    # draft model sharing the target's tokenizer; each target pass then
+    # verifies spec_gamma drafted tokens at once. Batch-1, one device,
+    # one-shot generation (the dense spec engine behind --api is
+    # ROADMAP A11)
+    draft_model: Optional[str] = None
+    spec_gamma: int = 4
+    # paged speculative decoding (spec/): path to a small draft model
+    # whose KV rides a second paged pool behind the engine's one page
+    # allocator, spec rows a row kind of the --api engine. Requires
+    # --kv-pages and f32/bf16/fp8 KV; shares --spec-gamma. Mutually
+    # exclusive with --draft-model
+    spec_draft: Optional[str] = None
+    # batch-1 speculation: propose-verify rounds chained on the card per
+    # host fetch (spec_scan); the engine ignores it
+    spec_rounds: int = 4
     # KV cache/pool dtype; None = dtype. int8/int4 quantize the paged
     # pool (the generator's dense cache keeps the compute dtype);
     # f8_e4m3/f8_e5m2 store the pool and the dense cache in fp8, upcast
@@ -142,17 +162,19 @@ class Args:
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --batch-size, --decode-scan, --trace-ring and
-        --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
+        int8 or int4; --batch-size, --decode-scan, --spec-gamma,
+        --spec-rounds, --trace-ring and --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
-        name must be a dtype or an fp8 storage name; --kv-host-pages is
+        name must be a dtype or an fp8 storage name; --draft-model
+        refuses int8/int4 KV; --spec-draft excludes --draft-model and
+        needs --kv-pages, float pages and the mixed loop; --kv-host-pages is
         at least 1; --fault-plan parses; --journal-fsync is never, batch
         or always. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        for knob in ("batch_size", "decode_scan", "trace_ring",
-                     "step_ring"):
+        for knob in ("batch_size", "decode_scan", "spec_gamma",
+                     "spec_rounds", "trace_ring", "step_ring"):
             if getattr(self, knob) < 1:
                 raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
         if self.slo_targets:
@@ -181,8 +203,31 @@ class Args:
                     f"--kv-dtype int4 requires an even --kv-page-size "
                     f"(got {self.kv_page_size}): pages nibble-pack "
                     "token pairs (cake_tpu/kv/quantized_pool)")
+            if self.draft_model is not None:
+                raise ValueError(INT8_KV_SPEC_ERROR)
         elif self.kv_dtype is not None:
             resolve_kv_dtype(self.kv_dtype)
+        if self.spec_draft is not None:
+            # paged speculative decoding: the engine constructor's checks
+            # at startup, before the model loads
+            if self.draft_model is not None:
+                raise ValueError(
+                    "--spec-draft (paged spec rows) and --draft-model "
+                    "(the dense spec engine) are mutually exclusive")
+            if not self.kv_pages:
+                raise ValueError(
+                    "--spec-draft requires --kv-pages: paged "
+                    "speculative decoding shares the page allocator")
+            if self.kv_dtype in ("int8", "int4"):
+                raise ValueError(
+                    f"--spec-draft requires f32/bf16/fp8 KV pages, got "
+                    f"--kv-dtype {self.kv_dtype}: the draft pool has "
+                    "no quantized flavor")
+            if self.mixed_batch == "off":
+                raise ValueError(
+                    "--spec-draft requires the mixed ragged step "
+                    "(--mixed-batch auto/on): spec rows are a row "
+                    "kind of that step")
         if self.kv_host_pages is not None and self.kv_host_pages < 1:
             raise ValueError(
                 f"--kv-host-pages {self.kv_host_pages} must be >= 1")

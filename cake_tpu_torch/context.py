@@ -4,8 +4,9 @@ Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
 `Context.from_args`, `load_text_model`, `_maybe_quantize`), for one
 device: the dtype, the device (`cuda:<device_idx>`, or the CPU with
 `--cpu`), the model config and the text generator (`--batch-size`
-rows), its weights quantized with `--quant int8|int4`. Topologies, sequence parallelism
-(`--sp`) and speculation are not ported.
+rows, or with `--draft-model` the batch-1 SpeculativeGenerator,
+`_load_speculative`), its weights quantized with `--quant int8|int4`.
+Topologies and sequence parallelism (`--sp`) are not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +36,18 @@ def _resolve_flash(args: Args, device: torch.device) -> bool:
     if args.flash_attention is not None:
         return args.flash_attention
     return device.type == "cuda"
+
+
+def draft_config(args: Args, device: torch.device,
+                 d_dir: Optional[str]) -> LlamaConfig:
+    """A draft model's config: `<d_dir>/config.json`, or the tiny config
+    without one; flash as the target's."""
+    if d_dir and os.path.exists(os.path.join(d_dir, "config.json")):
+        d_cfg = load_config(d_dir)
+    else:
+        d_cfg = LlamaConfig.tiny()
+    return dataclasses.replace(
+        d_cfg, use_flash_attention=_resolve_flash(args, device))
 
 
 @dataclass
@@ -99,11 +112,17 @@ class Context:
             tokenizer = ByteTokenizer(cfg.vocab_size)
         params = self._maybe_quantize(
             load_text_params(cfg, a.model, self.dtype, self.device))
+        # --repeat-penalty unset: the reference default 1.1, except under
+        # --draft-model, where it is 1.0 (the parallel verify replays no
+        # penalty ring); an explicit value is honoured. Under
+        # --spec-draft it stays 1.1, as in JAX: the engine then serves a
+        # request that does not ask for 1.0 on the plain path
+        penalty = a.repeat_penalty
+        if penalty is None:
+            penalty = 1.0 if a.draft_model is not None else 1.1
         sampling = SamplingConfig(
             temperature=a.temperature, top_k=a.top_k, top_p=a.top_p,
-            repeat_penalty=(1.1 if a.repeat_penalty is None
-                            else a.repeat_penalty),
-            repeat_last_n=a.repeat_last_n)
+            repeat_penalty=penalty, repeat_last_n=a.repeat_last_n)
         if a.kv_dtype in QUANTIZED_CACHES:
             # int8/int4 KV is the paged engine's quantized pool
             # (master.make_engine passes --kv-dtype through): the
@@ -113,9 +132,48 @@ class Context:
         else:
             kv_dtype = (resolve_kv_dtype(a.kv_dtype) if a.kv_dtype
                         else self.dtype)
+        max_seq = min(a.max_seq_len, cfg.max_position_embeddings)
+        if a.draft_model is not None:
+            if a.batch_size != 1:
+                raise ValueError(
+                    "--draft-model (speculative decoding) is batch-1 "
+                    "single-device")
+            if a.prefill_chunk is not None:
+                raise ValueError(
+                    "--prefill-chunk is not supported with --draft-model "
+                    "(speculative prefill is whole-prompt)")
+            return self._load_speculative(cfg, params, tokenizer, sampling,
+                                          max_seq, kv_dtype)
         return LlamaGenerator(
             cfg, params, tokenizer,
-            max_seq_len=min(a.max_seq_len, cfg.max_position_embeddings),
+            max_seq_len=max_seq,
             batch_size=a.batch_size,
             sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
             prefill_chunk=a.prefill_chunk, device=self.device)
+
+    def _load_speculative(self, cfg, params, tokenizer, sampling, max_seq,
+                          kv_dtype):
+        """The batch-1 SpeculativeGenerator over the --draft-model draft
+        (quantized with --quant as the target)."""
+        from cake_tpu_torch.models import load_text_params
+        from cake_tpu_torch.models.llama.speculative import (
+            SpeculativeGenerator,
+        )
+
+        a = self.args
+        d_dir = a.draft_model
+        d_cfg = draft_config(a, self.device, d_dir)
+        if d_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {d_cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}: speculation verifies draft token ids "
+                "directly, so the models must share a tokenizer")
+        d_params = self._maybe_quantize(
+            load_text_params(d_cfg, d_dir, self.dtype, self.device))
+        log.info("speculative generation: gamma=%d draft=%s", a.spec_gamma,
+                 d_dir or "<random tiny>")
+        return SpeculativeGenerator(
+            cfg, params, d_cfg, d_params, tokenizer,
+            gamma=a.spec_gamma, max_seq_len=max_seq, sampling=sampling,
+            seed=a.seed, cache_dtype=kv_dtype, spec_rounds=a.spec_rounds,
+            device=self.device)

@@ -1,11 +1,14 @@
 """Master: drives the text generator and builds the serving engine.
 
 Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
-`generate_text`, `run`, `reset`, `add_message`), text only.
-`generate_text` streams each token through a callback and times the
-tokens after the first, so the prefill does not skew tokens/s;
+`generate_text`, `run`, `reset`, `add_message`, `_spec_kwargs`), text
+only. `generate_text` streams each token through a callback and times
+the tokens after the first, so the prefill does not skew tokens/s;
 `make_engine` builds the paged continuous-batching engine over the
-generator's config, params and tokenizer for the REST server.
+generator's config, params and tokenizer for the REST server, with the
+--spec-draft draft for paged speculative rows. Over a --draft-model
+generator it raises: the dense spec engine JAX builds there is ROADMAP
+A11.
 """
 
 from __future__ import annotations
@@ -43,9 +46,17 @@ class Master:
         to InferenceEngine."""
         if self.llm is None:
             raise RuntimeError("no text generator loaded")
+        from cake_tpu_torch.models.llama.speculative import (
+            SpeculativeGenerator,
+        )
         from cake_tpu_torch.serve.engine import InferenceEngine
         a = self.args
         g = self.llm
+        if isinstance(g, SpeculativeGenerator):
+            raise NotImplementedError(
+                "--draft-model with --api needs the dense spec engine, not "
+                "ported to cake_tpu_torch yet (ROADMAP A11): serve "
+                "speculation with --spec-draft DIR over --kv-pages")
         kw = dict(
             device=g.device,
             max_slots=max_slots or a.max_slots,
@@ -82,9 +93,37 @@ class Master:
             recovery=a.recovery is not False,
             journal=a.journal,
             journal_fsync=a.journal_fsync,
+            **self._spec_kwargs(),
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+
+    def _spec_kwargs(self) -> dict:
+        """Paged speculative decoding: the --spec-draft draft's params and
+        config for the engine (which builds the draft pool itself). The
+        config resolves as the context's; the draft stays unquantized,
+        as in JAX (--quant targets the big model)."""
+        d_dir = self.args.spec_draft
+        if not d_dir:
+            return {}
+        from cake_tpu_torch.context import draft_config
+        from cake_tpu_torch.models import load_text_params
+        from cake_tpu_torch.utils.devices import resolve_dtype
+
+        g = self.llm
+        d_cfg = draft_config(self.args, g.device, d_dir)
+        if d_cfg.vocab_size != g.config.vocab_size:
+            raise ValueError(
+                f"spec draft vocab {d_cfg.vocab_size} != target vocab "
+                f"{g.config.vocab_size}: the verify pass scores draft "
+                "token ids directly, so the models must share a "
+                "tokenizer")
+        d_params = load_text_params(d_cfg, d_dir,
+                                    resolve_dtype(self.args.dtype), g.device)
+        log.info("paged speculative serving: gamma=%d draft=%s",
+                 self.args.spec_gamma, d_dir)
+        return dict(spec_draft_params=d_params, spec_draft_config=d_cfg,
+                    spec_gamma=self.args.spec_gamma)
 
     # -- text ----------------------------------------------------------------
 

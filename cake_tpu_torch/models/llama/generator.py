@@ -37,6 +37,7 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.model import (
     RopeTables, forward, prefill, prefill_chunk,
 )
+from cake_tpu_torch.models.llama.tokenizer import BpeTokenizer
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve.graphs import GeneratorRunner
 from cake_tpu_torch.utils.devices import resolve_device
@@ -79,9 +80,12 @@ class ByteTokenizer:
 
 
 def load_tokenizer(model_dir: str):
-    """HF tokenizer.json loader (imports `tokenizers` on first use)."""
-    from tokenizers import Tokenizer
-    return Tokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
+    """`<model_dir>/tokenizer.json` through the port's own reader
+    (models/llama/tokenizer.BpeTokenizer), where JAX loads it with the
+    `tokenizers` package: the same ids and text for the byte-level BPE
+    files of Llama-3 and Qwen2, and an error naming the feature for a
+    file of another kind."""
+    return BpeTokenizer.from_file(os.path.join(model_dir, "tokenizer.json"))
 
 
 def encode_text(tokenizer, text: str) -> List[int]:

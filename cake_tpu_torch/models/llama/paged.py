@@ -590,6 +590,22 @@ def mixed_step_paged(params, tokens, pos, q_len, active,
     return logits, cache
 
 
+@torch.inference_mode()
+def verify_window_paged(params, tokens, pos, q_len, active,
+                        cache: PagedKVCache, rope, config: LlamaConfig,
+                        attn: str = "auto"):
+    """The speculative verify pass over paged KV: the mixed step's
+    window math (`_mixed_windows_trunk`: each row's window written into
+    its pages, everything mapped attended through the table) with logits
+    at every window position [B, C, V] f32, so the target scores a row's
+    [last_tok, d_0..d_{gamma-1}] in one pass. A spec row carries (pos =
+    the round's frontier, q_len = gamma + 1); an inactive row q_len = 0,
+    and touches nothing."""
+    x, cache = _mixed_windows_trunk(params, tokens, pos, q_len, active,
+                                    cache, rope, config, attn)
+    return qmatmul(x, params["lm_head"]).float(), cache
+
+
 # -- phase-split and shared-prefix prefills (one slot, B = 1) -----------------
 #
 # The JAX package's jitted prefills: a Python loop over the layers, the

@@ -69,15 +69,26 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     serve/journal.py) with idempotency keys that attach a retried
     submit to its stream, the runtime checkpoint (serve/checkpoint.py,
     `shutdown_save`, the pre-fail snapshot), and drain (`begin_drain`:
-    new submits raise DrainingError while in-flight work finishes).
+    new submits raise DrainingError while in-flight work finishes);
+  * paged speculative decoding (`spec_draft_params`, --spec-draft;
+    spec/): a draft model's KV lives in a second pool of the same page
+    geometry whose pages come from the one allocator; a decoding row
+    whose sampling is temperature-only rides one batched draft+verify
+    round (`_do_spec_paged`, spec/round.spec_round_paged) in a
+    pure-decode iteration, its draft row prefilled at activation, both
+    table rows extended to cover the round before it and truncated back
+    to the accepted frontier after it; a collapsing stream degrades to
+    plain decode, and the gamma tuner narrows gamma engine-wide.
 
 Both steps, and the phase-split loop's one-slot prefills, run as
 captured CUDA graphs on the card (there is no eager step there), and
 eagerly on the CPU: the decode step, its sampling and its carry through
 `serve/graphs.DecodeRunner`, the mixed step and its sampling through
 `serve/graphs.MixedRunner`, the prefills through
-`serve/graphs.PrefillRunner` (each capture counted as a compile of its
-JAX function). A recovery resets the pool, the table and the sampling
+`serve/graphs.PrefillRunner`, the speculative round through
+`serve/graphs.SpecRunner` and the draft prefill through a second
+`PrefillRunner` (each capture counted as a compile of its JAX
+function). A recovery resets the pool, the table and the sampling
 state in place and keeps every graph, as JAX's reset keeps its jitted
 steps; only when that raises does it rebuild. A mixed step's rows go up
 from pinned memory without a wait for the stream; a step in which no
@@ -92,9 +103,10 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: speculation, autotune,
-disaggregated prefill and multi-host (the control channel and its
-lockstep followers), and the postmortem bundles.
+(`_run_on_engine_thread`). Not ported yet: the dense-cache engine and
+its spec mode (--draft-model behind --api), autotune, disaggregated
+prefill and multi-host (the control channel and its lockstep
+followers), and the postmortem bundles.
 """
 
 from __future__ import annotations
@@ -110,7 +122,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cake_tpu_torch.autotune.spec import SpecGammaTuner
 from cake_tpu_torch.faults import build_injector
+from cake_tpu_torch.faults.plan import InjectedFault
 from cake_tpu_torch.kv.host_tier import (
     HostTier, SpilledPages, note_resident_spill, pool_dtype_name,
 )
@@ -144,7 +158,12 @@ from cake_tpu_torch.serve.errors import (
     as_engine_error,
 )
 from cake_tpu_torch.serve.graphs import (
-    PREFILL_FNS, DecodeRunner, MixedRunner, PrefillRunner, elapsed_s, mark,
+    PREFILL_FNS, DecodeRunner, MixedRunner, PrefillRunner, SpecRunner,
+    elapsed_s, mark,
+)
+from cake_tpu_torch.spec.state import (
+    DISABLE_AFTER_FAILS, SPEC_DEGRADED, STREAM_ACCEPT_FLOOR,
+    STREAM_WARMUP_ROUNDS, SpecPlane, SpecState,
 )
 from cake_tpu_torch.utils.devices import (
     resolve_device, resolve_kv_dtype, to_device, zero_,
@@ -352,6 +371,14 @@ class EngineStats:
     recoveries: int = 0
     requests_recovered: int = 0
     poisoned: int = 0
+    # paged speculative decoding: drafts offered / kept across all slots
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+
+    @property
+    def spec_acceptance(self) -> float:
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -411,12 +438,54 @@ class InferenceEngine:
         recovery_config: Optional[RecoveryConfig] = None,
         journal: Optional[str] = None,
         journal_fsync: str = "batch",
+        spec_draft_params=None,
+        spec_draft_config: Optional[LlamaConfig] = None,
+        spec_gamma: int = 4,
+        draft_params=None,
+        draft_config: Optional[LlamaConfig] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on "
                 f"{self.device}")
+        # paged speculative decoding (spec/): spec as a row KIND of the
+        # paged engine, with JAX's constructor checks
+        if spec_draft_params is not None:
+            if draft_params is not None:
+                raise ValueError(
+                    "--spec-draft (paged spec rows) and --draft-model "
+                    "(the dense spec engine) are mutually exclusive")
+            if kv_pages is None:
+                raise ValueError(
+                    "--spec-draft requires --kv-pages: paged "
+                    "speculative decoding shares the page allocator")
+            if kv_dtype in ("int8", "int4"):
+                raise ValueError(
+                    f"--spec-draft requires f32/bf16/fp8 KV pages, got "
+                    f"--kv-dtype {kv_dtype}: the draft pool has no "
+                    "quantized flavor")
+            if spec_draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    "spec draft and target must share a vocabulary")
+            if spec_gamma < 1:
+                raise ValueError(
+                    f"spec_gamma must be >= 1, got {spec_gamma}")
+            if mixed_batch == "off":
+                raise ValueError(
+                    "--spec-draft runs its rounds in the mixed loop's "
+                    "pure-decode iterations: --mixed-batch off is not "
+                    "supported with it")
+            if spec_draft_params["embed"].device != self.device:
+                raise ValueError(
+                    f"draft params live on "
+                    f"{spec_draft_params['embed'].device}, the engine on "
+                    f"{self.device}")
+        elif draft_params is not None:
+            raise NotImplementedError(
+                "the dense spec engine (--draft-model behind --api) is not "
+                "ported to cake_tpu_torch yet (ROADMAP A11): serve "
+                "speculation with --spec-draft over --kv-pages")
         if kv_pages is None:
             raise NotImplementedError(
                 "the dense-cache engine is not ported to cake_tpu_torch "
@@ -489,6 +558,28 @@ class InferenceEngine:
                  "(%.2f GiB pool) on %s", kv_pages, kv_page_size, impl,
                  kv_dtype + "+scales" if self.kv_quant else self._pool_dtype,
                  self.cache.memory_bytes() / 2**30, self.device)
+
+        # paged speculative decoding: the draft model's KV pages live in
+        # a SECOND pool with the target pool's page geometry, addressed
+        # by the SAME allocator (one page-id space, one budget for the
+        # admission gate), and a sink page of its own
+        self._specp: Optional[SpecPlane] = None
+        self.d_cache: Optional[PagedKVCache] = None
+        if spec_draft_params is not None:
+            self._specp = SpecPlane(
+                spec_draft_params, spec_draft_config, spec_gamma,
+                rope=RopeTables.create(spec_draft_config, max_seq_len,
+                                       device=self.device),
+                tuner=SpecGammaTuner(gamma=spec_gamma))
+            self.d_cache = self._new_draft_cache()
+            self._d_weight_bytes = (
+                params_bytes(spec_draft_params)
+                - params_bytes(spec_draft_params["embed"]))
+            self._d_embed_row_bytes = (params_bytes(
+                spec_draft_params["embed"]) // spec_draft_config.vocab_size)
+            log.info("paged spec: draft pool %d pages x %d tokens "
+                     "(%.2f GiB), gamma=%d", kv_pages, kv_page_size,
+                     self.d_cache.memory_bytes() / 2**30, spec_gamma)
 
         # the step cost's constants (obs/steps.step_cost): the weights a
         # forward pass reads at their stored size, the embedding left
@@ -689,7 +780,10 @@ class InferenceEngine:
         self._runner: Optional[DecodeRunner] = None
         self._mixed_runner: Optional[MixedRunner] = None
         self._prefill_runner: Optional[PrefillRunner] = None
-        # the three runners' graphs share one memory pool on the card
+        # the speculative round and the draft prefill (spec engines)
+        self._spec_runner: Optional[SpecRunner] = None
+        self._draft_prefill_runner: Optional[PrefillRunner] = None
+        # the runners' graphs share one memory pool on the card
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if dev.type == "cuda" else None)
         # mixed steps dispatched and not yet counted in the stats' times
@@ -1366,6 +1460,15 @@ class InferenceEngine:
                 if not self._continue_after_failure(e, recs):
                     return
 
+    def _new_draft_cache(self) -> PagedKVCache:
+        """An empty draft pool: the target pool's pages and page size, the
+        draft config's layers and heads, its own sink page, the pool's
+        storage dtype (fp8 included)."""
+        return PagedKVCache.create(
+            self._specp.draft_config, self.max_slots, self._pager.n_pages,
+            self._pager.page_size, self.max_seq_len,
+            dtype=self._pool_dtype, device=self.device)
+
     def _new_cache(self, n_pages: int, page_size: int):
         """An empty pool of the configured storage: int8 or int4 pages
         with scales, or f32/bf16 pages."""
@@ -1680,10 +1783,15 @@ class InferenceEngine:
             for t in (st if isinstance(st, tuple) else (st,)):
                 zero_(t)
         self.cache.table.fill_(-1)
+        if self.d_cache is not None:
+            for t in (self.d_cache.k_store, self.d_cache.v_store):
+                zero_(t)
+            self.d_cache.table.fill_(-1)
         self._ring.fill_(-1)
         self._seeds.copy_(to_device(self._seed_values(), self.device))
         self._counters.zero_()
-        for r in (self._runner, self._mixed_runner, self._prefill_runner):
+        for r in (self._runner, self._mixed_runner, self._prefill_runner,
+                  self._spec_runner, self._draft_prefill_runner):
             if r is not None:
                 r.reset_carry()
 
@@ -1699,12 +1807,17 @@ class InferenceEngine:
         self._runner = None
         self._mixed_runner = None
         self._prefill_runner = None
+        self._spec_runner = None
+        self._draft_prefill_runner = None
         self._graph_pool = None
         self._mixed_open = None
         self._ring = self._seeds = self._counters = None
         self.cache = None
+        self.d_cache = None
         self._reset_host_state(n_pages, page_size)
         self.cache = self._new_cache(n_pages, page_size)
+        if self._specp is not None:
+            self.d_cache = self._new_draft_cache()
         # new rings and random streams; the runners capture anew over
         # the new pool
         self._fresh_sampling_state()
@@ -1714,6 +1827,11 @@ class InferenceEngine:
         slot maps, the prefix registry and the per-slot mirrors."""
         if self._host_tier is not None:
             self._host_tier.clear()
+        if self._specp is not None:
+            # every stream's draft and suffix pages lived in the
+            # allocator reset here; streams re-activate lazily after
+            # their recovery resubmit
+            self._specp.spec_streams.clear()
         self._pager = PageAllocator(n_pages, page_size)
         self._slot_pages = {}
         self._slot_prefix_pages = {}
@@ -1743,6 +1861,10 @@ class InferenceEngine:
         if slot < 0:
             return
         self._mixed_pending.pop(slot, None)
+        # spec teardown rides the same idempotent hook: the stream's
+        # draft pages and target suffix pages go back with its base
+        # pages, whatever path tears the slot down
+        self._release_spec_state(slot)
         pages = self._slot_pages.pop(slot, None)
         if pages:
             self._pager.release(pages)
@@ -1751,6 +1873,21 @@ class InferenceEngine:
         if n_shared:
             self._prefix_pages_shared -= n_shared
             _PREFIX_PAGES_SHARED.set(self._prefix_pages_shared)
+
+    def _release_spec_state(self, slot: int) -> None:
+        """Release a slot's speculative pages (idempotent): the draft
+        row's pages and the target row's suffix pages return to the
+        shared allocator, and the draft row is unmapped."""
+        if self._specp is None:
+            return
+        st = self._specp.spec_streams.pop(slot, None)
+        if st is None:
+            return
+        if st.d_pages:
+            self._pager.release(st.d_pages)
+            table_set_slot(self.d_cache.table, slot, [])
+        if st.t_suffix_pages:
+            self._pager.release(st.t_suffix_pages)
 
     def _alloc_slot_pages(self, req: _Request, slot: int,
                           hit=None) -> bool:
@@ -1805,6 +1942,22 @@ class InferenceEngine:
         # the prefills run against the hit that is really mapped
         req._effective_hit = hit
         need = len(req.prompt_ids) - n_prefix + req.max_new_tokens
+        if self._specp is not None:
+            # spec admission gate: admit only when the pool can also
+            # cover the stream's worst-case speculative pages, the draft
+            # row's whole-context pages (the draft pool shares no
+            # prefixes) plus the target row's gamma-token overhang past
+            # the base allocation; activation and extension stay
+            # best-effort (a shortfall decodes the row plain)
+            g = self._specp.live_gamma
+            base = len(req.prompt_ids) + req.max_new_tokens
+            cap = min(base + g, self.max_seq_len)
+            spec_extra = (self._pager.pages_for(cap)
+                          + max(self._pager.pages_for(cap)
+                                - self._pager.pages_for(base), 0))
+            if (self._pager.pages_for(need) + spec_extra
+                    > self._pager.free_pages):
+                return self._requeue_for_pages(req, slot, starved=True)
         pages = self._pager.alloc(need)
         if pages is None and self._host_tier is not None:
             # cold shared prefixes (only the registry holds their pages)
@@ -2227,6 +2380,11 @@ class InferenceEngine:
                 # its stale row before the decode step is dispatched
                 # (_mixed_dispatch re-validates its rows itself)
                 decode_plan = self._live_decode_rows(decode_plan)
+            if decode_plan and self._specp is not None:
+                # spec rows ride one batched draft+verify round; the rows
+                # it leaves (sampling options, page pressure, window cap,
+                # degraded) fall through to the plain decode paths
+                decode_plan = self._do_spec_paged(decode_plan)
             # pure decode: K-step bursts while nothing is admitting
             if decode_plan:
                 n = self._scan_steps_for(decode_plan)
@@ -2953,6 +3111,328 @@ class InferenceEngine:
                     break            # EOS/budget: the step froze it here too
             self._steps[slot] += emitted
             self._pos[slot] = pos0 + emitted
+
+    # -- paged speculative decoding (spec/) ------------------------------------
+
+    def _do_spec_paged(self, decode_plan):
+        """One batched draft+verify round over the paged pools for this
+        iteration's spec-ready decode rows; returns the rows the round
+        did not cover (the plain decode paths take them). Page
+        discipline per row and round: both table rows are extended to
+        cover pos..pos+gamma before the round (it writes gamma + 1
+        positions in each pool; a write past the mapped pages lands on
+        the sink, which would lose an accepted position's KV), then
+        truncated back to the accepted frontier after the fetch, so
+        `free_pages + live_pages == n_pages` holds again when this
+        returns. The extension, the dispatch and the truncation wait for
+        nothing on the stream; the fetch of (out, n_emit) is the round's
+        one sync (JAX's single device_get)."""
+        if self._specp is None:
+            return decode_plan
+        sp = self._specp
+        g = sp.live_gamma
+        spec_rows, plain = [], []
+        for rid, slot in decode_plan:
+            (spec_rows if self._spec_row_ready(rid, slot, g)
+             else plain).append((rid, slot))
+        if not spec_rows:
+            return plain
+        t0 = time.perf_counter()
+        plan = []
+        for rid, slot in spec_rows:
+            if self._spec_extend_rows(slot, g):
+                plan.append((self._slot_req[slot], slot))
+            else:
+                # pool pressure: the row decodes plain this iteration
+                plain.append((rid, slot))
+        if not plan:
+            self.stats.decode_time_s += time.perf_counter() - t0
+            return plain
+        if self._faults is not None:
+            # the verify pass's chaos site: an injected fault is
+            # absorbed here (the rows' acceptance charged, their
+            # extensions truncated, repeat offenders degraded, the rows
+            # decode plain this iteration); a real dispatch error below
+            # goes to recovery with the round's rows implicated
+            try:
+                self._faults.check("spec.verify", step=self.stats.steps)
+            except InjectedFault as exc:
+                self._spec_verify_failed(plan, g, exc)
+                self.stats.decode_time_s += time.perf_counter() - t0
+                return plain + [(req.rid, s) for req, s in plan]
+        self._implicated = tuple((req.rid, s) for req, s in plan)
+        active = np.zeros(self.max_slots, bool)
+        for _req, slot in plan:
+            active[slot] = True
+        pos_rows = [(int(self._pos[s]), s) for _req, s in plan]
+        t0d = time.perf_counter()
+        handle = self._spec_round_runner().run(
+            g, self._last_tok, np.minimum(self._pos, self.max_seq_len - 1),
+            active, self._temp)
+        disp = time.perf_counter() - t0d
+        out_h, n_emit_h = SpecRunner.fetch(handle)
+        wall = time.perf_counter() - t0d
+        round_tokens = proposed = accepted = 0
+        for req, slot in plan:
+            if req.done.is_set():
+                continue
+            n = int(n_emit_h[slot])
+            round_tokens += n
+            proposed += g
+            accepted += n - 1
+            self.stats.spec_proposed += g
+            self.stats.spec_accepted += n - 1
+            pos0 = int(self._pos[slot])
+            toks = [int(t) for t in out_h[slot, :n]]
+            self._last_tok[slot] = toks[-1]
+            self._steps[slot] += n
+            for j, tok in enumerate(toks):
+                # per-token position, so _emit's cap check sees the value
+                # a single-step loop would have had
+                self._pos[slot] = pos0 + j + 1
+                self._emit(req, tok)
+                if req.done.is_set():
+                    break       # EOS / budget mid-round: the tail dropped
+            # the cache frontier: the round wrote n accepted positions
+            # whatever the emission budget took
+            self._pos[slot] = pos0 + n
+            # a finished row's teardown already released its spec state;
+            # a live row folds the round into its controller signal and
+            # gives the unaccepted suffix pages back
+            st = sp.spec_streams.get(slot)
+            if st is not None and st.enabled:
+                st.verify_fails = 0
+                st.note_round(g, n - 1)
+                self._spec_truncate(slot)
+                if (st.rounds >= STREAM_WARMUP_ROUNDS
+                        and (st.accept_ema or 0.0) < STREAM_ACCEPT_FLOOR):
+                    self._spec_disable(req, slot, "acceptance_collapse")
+        self.stats.steps += 1
+        sp.note_round(proposed, accepted, round_tokens, len(plan))
+        if sp.tuner is not None:
+            ng = sp.tuner.maybe_shrink()
+            if ng is not None and ng < sp.live_gamma:
+                sp.live_gamma = ng
+                SPEC_DEGRADED.labels(action="shrink_gamma").inc()
+                log.warning("spec: acceptance EMA %.2f below the tuner's "
+                            "threshold: gamma shrunk to %d",
+                            sp.accept_ema or 0.0, ng)
+                if self.events is not None:
+                    self.events.publish(
+                        "spec_degraded", action="shrink_gamma", gamma=ng,
+                        accept_ema=sp.accept_ema)
+        if self.events is not None:
+            self.events.publish("spec_round", rows=len(plan),
+                                proposed=proposed, accepted=accepted,
+                                tokens=round_tokens, gamma=g)
+        self._record("spec", rows=len(plan), tokens=round_tokens,
+                     cost=self._spec_cost(pos_rows, g), wall_s=wall,
+                     dispatch_s=disp, timing=handle.timing,
+                     compiled=self._took_capture(),
+                     rids=[req.rid for req, _s in plan])
+        self.stats.decode_time_s += time.perf_counter() - t0
+        return plain
+
+    def _spec_cost(self, pos_rows, g: int) -> obs_steps.CostInfo:
+        """A round's counted FLOPs and bytes (obs/steps.step_cost): gamma
+        + 1 draft decode steps of every row over the draft's weights and
+        pool, plus one verify window of gamma + 1 tokens a row with
+        logits at every position over the target's."""
+        sp, rows = self._specp, len(pos_rows)
+        draft = obs_steps.step_cost(
+            sp.draft_config, "spec", rows, rows * (g + 1),
+            [(p + j, 1) for p, _s in pos_rows for j in range(g + 1)],
+            emit_rows=rows * (g + 1), passes=g + 1,
+            weight_bytes=self._d_weight_bytes,
+            embed_row_bytes=self._d_embed_row_bytes,
+            kv_bytes_per_token=self.d_cache.memory_bytes() / (
+                (self.d_cache.n_pages + 1) * self.d_cache.page_size))
+        verify = self._cost("spec", rows, rows * (g + 1),
+                            [(p, g + 1) for p, _s in pos_rows],
+                            emit_rows=rows * (g + 1))
+        return obs_steps.CostInfo(
+            flops=draft.flops + verify.flops,
+            bytes_accessed=draft.bytes_accessed + verify.bytes_accessed)
+
+    def _spec_round_runner(self) -> SpecRunner:
+        """The captured round (serve/graphs.SpecRunner), one graph per
+        gamma, each capture counted as a compile of spec_round_paged."""
+        if self._spec_runner is None:
+            sp = self._specp
+            self._spec_runner = SpecRunner(
+                self.params, sp.draft_params, self.cache, self.d_cache,
+                self.rope, sp.rope, self.config, sp.draft_config,
+                attn=self.paged_attn, seeds=self._seeds,
+                counters=self._counters, max_gamma=sp.gamma0,
+                pool=self._graph_pool,
+                on_capture=self._captured("spec_round_paged"))
+        return self._spec_runner
+
+    def _draft_prefill_step_runner(self) -> PrefillRunner:
+        """The draft's captured one-slot prefill over the draft pool, one
+        graph per bucket, counted as spec_draft_prefill."""
+        if self._draft_prefill_runner is None:
+            sp = self._specp
+            self._draft_prefill_runner = PrefillRunner(
+                sp.draft_params, self.d_cache, sp.rope, sp.draft_config,
+                attn=self.paged_attn, pool=self._graph_pool,
+                on_capture=self._captured("spec_draft_prefill"))
+        return self._draft_prefill_runner
+
+    def _spec_row_ready(self, rid: int, slot: int, g: int) -> bool:
+        """Does this decode row ride this iteration's round?
+        Temperature-only sampling (top-p, repeat-penalty and top-logprobs
+        rows decode plain), window room for a whole round, at least one
+        emitted token (last_tok's KV unwritten at the frontier), and an
+        enabled SpecState, activated here at the row's first chance
+        whatever path brought it to its frontier."""
+        if self._specp is None:
+            return False
+        req = self._slot_req[slot]
+        if req is None or req.rid != rid or req.done.is_set():
+            return False
+        if not req.out_tokens:
+            return False
+        if req.top_p < 1.0 or req.repeat_penalty != 1.0 or req.want_top:
+            return False
+        if self._pos[slot] + g + 1 >= self.max_seq_len:
+            # too close to the window: the plain path finishes the row
+            return False
+        st = self._specp.spec_streams.get(slot)
+        if st is not None and st.rid != req.rid:
+            # a slot reused without the teardown hook must not speculate
+            # against a stale draft row
+            self._release_spec_state(slot)
+            st = None
+        if st is None:
+            return self._spec_activate(req, slot)
+        return st.enabled
+
+    def _spec_activate(self, req: _Request, slot: int) -> bool:
+        """Opt a decoding stream into speculation: the draft row's
+        context pages from the shared allocator and one whole-context
+        draft prefill (the captured `prefill_slot_paged` of its bucket
+        over the draft params and pool), leaving the draft pool with KV
+        for positions 0..pos-1, the round's contract. Best-effort: a
+        shortfall keeps the row plain (False)."""
+        pos = int(self._pos[slot])
+        ctx = (list(req.prompt_ids) + list(req.out_tokens))[:pos]
+        if len(ctx) != pos:
+            return False    # frontier and transcript disagree: stay plain
+        d_pages = self._pager.alloc(len(ctx))
+        if d_pages is None:
+            return False    # pool pressure: retry on a later iteration
+        self._specp.spec_streams[slot] = SpecState(rid=req.rid,
+                                                   d_pages=d_pages)
+        table_set_slot(self.d_cache.table, slot, d_pages)
+        bucket = bucket_length(len(ctx), self.max_seq_len)
+        row = torch.full((self.d_cache.max_pages,), -1, dtype=torch.int32)
+        row[:len(d_pages)] = torch.tensor(d_pages, dtype=torch.int32)
+        targets = fixed_prompt_targets(row, bucket, self.d_cache.page_size,
+                                       self.d_cache.n_pages)
+        self._draft_prefill_step_runner().run(
+            ("slot", bucket), ctx + [0] * (bucket - len(ctx)), len(ctx),
+            slot, 0, targets)
+        return True
+
+    def _spec_extend_rows(self, slot: int, g: int) -> bool:
+        """Both table rows cover positions pos..pos+gamma before the
+        round: the draft row (its SpecState's one list) and the target
+        row (the admission's base row, untouched, plus the state's
+        suffix pages). False = the pool cannot cover the round; what was
+        extended stays until the truncation or the teardown."""
+        st = self._specp.spec_streams[slot]
+        ps = self.cache.page_size
+        cover = int(self._pos[slot]) + g + 1
+        if cover > len(st.d_pages) * ps:
+            extra = self._pager.alloc(cover - len(st.d_pages) * ps)
+            if extra is None:
+                return False
+            st.d_pages = st.d_pages + extra
+            table_set_slot(self.d_cache.table, slot, st.d_pages)
+        base = self._slot_row_pages(slot)
+        have = (len(base) + len(st.t_suffix_pages)) * ps
+        if cover > have:
+            extra = self._pager.alloc(cover - have)
+            if extra is None:
+                return False
+            st.t_suffix_pages = st.t_suffix_pages + extra
+            table_set_slot(self.cache.table, slot, base + st.t_suffix_pages)
+        return True
+
+    def _slot_row_pages(self, slot: int) -> list:
+        """A slot's base target row (shared prefix pages and its own
+        admission pages, in table order): the part spec never owns."""
+        return list(self._slot_pages.get(slot, []))
+
+    def _spec_truncate(self, slot: int) -> None:
+        """Give back every speculative page past the accepted frontier:
+        the draft row shrinks to its context, the target row to what its
+        base allocation does not already cover, and the shrunk rows are
+        mapped again."""
+        st = self._specp.spec_streams.get(slot)
+        if st is None:
+            return
+        need = self._pager.pages_for(int(self._pos[slot]))
+        keep = max(need, 1)      # a decoding row always keeps a page
+        if keep < len(st.d_pages):
+            self._pager.release(st.d_pages[keep:])
+            st.d_pages = st.d_pages[:keep]
+            table_set_slot(self.d_cache.table, slot, st.d_pages)
+        base = self._slot_row_pages(slot)
+        keep_sfx = max(need - len(base), 0)
+        if keep_sfx < len(st.t_suffix_pages):
+            self._pager.release(st.t_suffix_pages[keep_sfx:])
+            st.t_suffix_pages = st.t_suffix_pages[:keep_sfx]
+            table_set_slot(self.cache.table, slot, base + st.t_suffix_pages)
+
+    def _spec_disable(self, req: _Request, slot: int, reason: str) -> None:
+        """Degrade one stream to plain decode, never wedging it: every
+        speculative page back to the pool, a disabled tombstone so the
+        stream is not activated again, and the degrade published."""
+        st = self._specp.spec_streams.get(slot)
+        if st is None or not st.enabled:
+            return
+        if st.d_pages:
+            self._pager.release(st.d_pages)
+            st.d_pages = []
+            table_set_slot(self.d_cache.table, slot, [])
+        if st.t_suffix_pages:
+            self._pager.release(st.t_suffix_pages)
+            st.t_suffix_pages = []
+            table_set_slot(self.cache.table, slot,
+                           self._slot_row_pages(slot))
+        st.enabled = False
+        SPEC_DEGRADED.labels(action="disabled").inc()
+        log.warning("spec: rid=%d degraded to plain decode (%s, "
+                    "accept_ema=%.2f after %d rounds)", req.rid, reason,
+                    st.accept_ema or 0.0, st.rounds)
+        if self.events is not None:
+            self.events.publish("spec_degraded", rid=req.rid,
+                                action="disabled", reason=reason,
+                                accept_ema=st.accept_ema, rounds=st.rounds)
+
+    def _spec_verify_failed(self, plan, g: int, exc) -> None:
+        """An injected spec.verify fault: a zero-acceptance round charged
+        to every planned row (the controller sees collapse, not
+        silence), their extensions truncated back, repeat offenders
+        disabled; the rows finish on the plain path either way."""
+        log.warning("spec.verify fault (%s): %d rows decode plain this "
+                    "iteration", exc, len(plan))
+        for req, slot in plan:
+            st = self._specp.spec_streams.get(slot)
+            if st is None or not st.enabled:
+                continue
+            st.verify_fails += 1
+            st.note_round(g, 0)
+            self._spec_truncate(slot)
+            if st.verify_fails >= DISABLE_AFTER_FAILS:
+                self._spec_disable(req, slot, "verify_faults")
+        self._specp.note_round(g * len(plan), 0, 0, len(plan))
+        if self.events is not None:
+            self.events.publish("spec_round", rows=len(plan),
+                                proposed=g * len(plan), accepted=0,
+                                tokens=0, gamma=g, fault=True)
 
     # -- sampling ---------------------------------------------------------------
 

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.kv.quantized_pool import WindowTargets
-from cake_tpu_torch.models.llama.model import forward
+from cake_tpu_torch.models.llama.model import forward, forward_logits_all
 from cake_tpu_torch.models.llama.paged import (
     forward_ragged_paged, mixed_step_paged, prefill_slot_paged,
     prefill_slot_paged_chunk, prefill_slot_paged_prefixed,
@@ -75,6 +75,11 @@ from cake_tpu_torch.models.llama.paged import (
 from cake_tpu_torch.ops import flash_attention, int4_matmul
 from cake_tpu_torch.ops import ragged_paged_attention
 from cake_tpu_torch.ops.sampling import masked_sample
+from cake_tpu_torch.spec.accept import (
+    advance_counters, assemble_sampled, categorical, greedy_accept,
+    rejection_accept, uniforms,
+)
+from cake_tpu_torch.spec.round import spec_round_paged
 
 # the kernel modules' launch counters
 COUNTERS = (ragged_paged_attention.LAUNCHES, int4_matmul.LAUNCHES,
@@ -677,3 +682,237 @@ class GeneratorRunner(_Graphs):
             for t, v in zip(carry, saved):
                 t.copy_(v)
         return undo
+
+
+class SpecHandle(NamedTuple):
+    """One dispatched speculative round: its gamma, the host copies of
+    (out, n_emit), ready once `event` has passed (None on the CPU), and
+    the round's timing events (None on the CPU)."""
+
+    gamma: int
+    host: Tuple[torch.Tensor, torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    timing: Optional[tuple] = None
+
+
+class SpecRunner(_Graphs):
+    """The engine's paged speculative round (`spec/round.spec_round_paged`,
+    one jitted program per gamma in JAX) as a CUDA graph per gamma: gamma
+    + 1 draft decode steps over the draft pool, the verify window over
+    the target pool and the acceptance. Static buffers: the rows' last
+    token, position, spec mask and temperature [B], the engine's random
+    streams (seeds and counters, advanced in place by gamma + 3 for the
+    active sampled rows), and the outputs out [B, max_gamma + 1] and
+    n_emit [B]. The table rows change between rounds in place
+    (`table_set_slot`), never inside a capture.
+
+    `run` puts the host rows up from pinned memory, replays once, and
+    dispatches the copy of (out, n_emit) to pinned host memory behind an
+    event; `fetch` waits for that event, the round's one sync. The
+    warm-up before a capture runs with every row inactive, so its writes
+    land on both pools' sink pages and no counter moves. On the CPU
+    `replay` runs the round eagerly over the same buffers."""
+
+    def __init__(self, t_params, d_params, t_cache, d_cache, t_rope, d_rope,
+                 t_config, d_config, *, attn: str, seeds: torch.Tensor,
+                 counters: torch.Tensor, max_gamma: int, pool=None,
+                 on_capture=None):
+        super().__init__(seeds.device, pool=pool, on_capture=on_capture)
+        self.t_params, self.d_params = t_params, d_params
+        self.t_cache, self.d_cache = t_cache, d_cache
+        self.t_rope, self.d_rope = t_rope, d_rope
+        self.t_config, self.d_config, self.attn = t_config, d_config, attn
+        self.seeds, self.counters = seeds, counters
+        self.B = B = seeds.shape[0]
+        z = self._zeros
+        self.last = z(B, dtype=torch.int64)
+        self.pos = z(B, dtype=torch.int32)
+        self.active = z(B, dtype=torch.bool)
+        self.temp = z(B, dtype=torch.float32)
+        self.out = z(B, max_gamma + 1, dtype=torch.int64)
+        self.n_emit = z(B, dtype=torch.int64)
+        self._host = (torch.empty(self.out.shape, dtype=torch.int64,
+                                  pin_memory=self._cuda),
+                      torch.empty(B, dtype=torch.int64,
+                                  pin_memory=self._cuda))
+
+    def step(self, gamma: int) -> None:
+        out, n_emit, counters = spec_round_paged(
+            self.t_params, self.d_params, self.t_cache, self.d_cache,
+            self.last[:, None], self.pos, self.active, self.seeds,
+            self.counters, self.temp, self.t_rope, self.d_rope,
+            self.t_config, self.d_config, gamma, attn=self.attn)
+        self.out[:, :gamma + 1].copy_(out)
+        self.n_emit.copy_(n_emit)
+        self.counters.copy_(counters)
+
+    def _idle(self, _gamma) -> None:
+        """Every row inactive: the warm-up writes only the sink pages."""
+        self.active.zero_()
+
+    def reset_carry(self) -> None:
+        for t in (self.last, self.pos, self.active, self.temp, self.out,
+                  self.n_emit):
+            t.zero_()
+
+    def run(self, gamma: int, last, pos, active, temp) -> SpecHandle:
+        """One round of the host rows ([B] each): the capture at gamma's
+        first use, the puts, one replay, and the outputs' copy to the
+        host, dispatched and not waited for."""
+        if self._cuda:
+            self.captured(gamma)     # before the puts: the warm-up idles
+        for dst, v in ((self.last, last), (self.pos, pos),
+                       (self.active, active), (self.temp, temp)):
+            self._put(dst, v)
+        start = mark(self.device)
+        self.replay(gamma)
+        self.timing = (start, mark(self.device)) if self._cuda else None
+        for h, o in zip(self._host, (self.out, self.n_emit)):
+            h.copy_(o, non_blocking=True)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return SpecHandle(gamma, self._host, event, self.timing)
+
+    @staticmethod
+    def fetch(handle: SpecHandle):
+        """(out [B, gamma + 1], n_emit [B]) as host arrays: the round's
+        one wait for the stream."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        out, n_emit = handle.host
+        return (out[:, :handle.gamma + 1].numpy().copy(),
+                n_emit.numpy().copy())
+
+
+class SpecGeneratorRunner(_Graphs):
+    """The batch-1 speculative generator's round as a CUDA graph: JAX's
+    jitted `spec_step` (and the body of `spec_scan`), captured once per
+    (gamma, greedy) over the generator's dense caches. One round is
+    gamma + 1 draft decode steps over the draft cache, one
+    `forward_logits_all` verify of the gamma + 1-token window over the
+    target cache, and the acceptance (spec/accept.py). Static buffers:
+    the last token and its position [1] (the carry: a replay advances
+    them to the round's last emitted token and the next frontier, so R
+    chained replays are `spec_scan`'s R rounds), the row's random stream
+    (a seed and a counter, advanced by gamma + 3 a sampled round), the
+    temperature, and the outputs outs [R, gamma + 1] and ns [R], written
+    at row `col`.
+
+    The warm-up before a capture runs the real round (its cache writes
+    land where the first replay writes the same values) and the carry is
+    restored after it. On the CPU `replay` runs the round eagerly."""
+
+    def __init__(self, t_params, d_params, t_cache, d_cache, t_rope, d_rope,
+                 t_config, d_config, *, rounds: int, max_gamma: int,
+                 pool=None, on_capture=None):
+        super().__init__(t_cache.k.device, pool=pool, on_capture=on_capture)
+        self.t_params, self.d_params = t_params, d_params
+        self.t_cache, self.d_cache = t_cache, d_cache
+        self.t_rope, self.d_rope = t_rope, d_rope
+        self.t_config, self.d_config = t_config, d_config
+        z = self._zeros
+        self.tok = z(1, dtype=torch.int64)
+        self.pos = z(1, dtype=torch.int64)
+        self.seeds = z(1, dtype=torch.int64)
+        self.counters = z(1, dtype=torch.int64)
+        self.temp = torch.ones(1, dtype=torch.float32, device=self.device)
+        self.col = z(1, dtype=torch.int64)
+        self.outs = z(rounds, max_gamma + 1, dtype=torch.int64)
+        self.ns = z(rounds, dtype=torch.int64)
+        self._host = (torch.empty(self.outs.shape, dtype=torch.int64,
+                                  pin_memory=self._cuda),
+                      torch.empty(rounds, dtype=torch.int64,
+                                  pin_memory=self._cuda))
+
+    @torch.inference_mode()
+    def step(self, variant) -> None:
+        """One round from the carry, in place (JAX's `_spec_round`)."""
+        gamma, greedy = variant
+        temp = self.temp[:, None]
+        tok = self.tok[:, None]
+        drafts, d_probs = [], []
+        for k in range(gamma + 1):
+            logits, _ = forward(self.d_params, tok, self.d_cache,
+                                self.pos + k, self.d_rope, self.d_config)
+            if k == gamma:
+                break     # the last draft's KV written; no proposal
+            if greedy:
+                probs = torch.softmax(logits, dim=-1)
+                nxt = logits.argmax(dim=-1)
+            else:
+                probs = torch.softmax(logits / temp, dim=-1)
+                nxt = categorical(self.seeds, self.counters + k, probs)
+            drafts.append(nxt)
+            d_probs.append(probs)
+            tok = nxt[:, None]
+        drafts = torch.stack(drafts, dim=1)              # [1, gamma]
+        tokens_v = torch.cat([self.tok[:, None], drafts], dim=1)
+        t_logits, _ = forward_logits_all(self.t_params, tokens_v,
+                                         self.t_cache, self.pos, self.t_rope,
+                                         self.t_config)  # [1, g+1, V]
+        if greedy:
+            out = t_logits.argmax(dim=-1)
+            n_emit = greedy_accept(drafts, out) + 1
+        else:
+            t_probs = torch.softmax(t_logits / temp[..., None], dim=-1)
+            u = uniforms(self.seeds, self.counters + gamma + 1, gamma)
+            n_acc, resid = rejection_accept(
+                drafts, torch.stack(d_probs, dim=1), t_probs, u, gamma)
+            corr = categorical(self.seeds, self.counters + gamma + 2, resid)
+            out = assemble_sampled(drafts, corr, n_acc, gamma)
+            n_emit = n_acc + 1
+            self.counters.copy_(advance_counters(
+                self.counters, torch.ones_like(self.counters, dtype=torch.bool),
+                gamma))
+        cols = torch.arange(gamma + 1, device=out.device)
+        out = torch.where(cols[None] < n_emit[:, None], out,
+                          torch.full_like(out, -1))
+        row = torch.full_like(self.outs[:1], -1)
+        row[:, :gamma + 1] = out
+        self.outs.index_copy_(0, self.col, row)
+        self.ns.index_copy_(0, self.col, n_emit)
+        self.col.add_(1)
+        # the carry: the round's last emitted token at the next frontier
+        self.tok.copy_(out.gather(1, (n_emit - 1)[:, None])[:, 0])
+        self.pos.add_(n_emit)
+
+    def _idle(self, _variant):
+        carry = (self.tok, self.pos, self.counters, self.col)
+        saved = [t.clone() for t in carry]
+
+        def undo():
+            for t, v in zip(carry, saved):
+                t.copy_(v)
+        return undo
+
+    def begin(self, tok: int, pos: int, temp: float) -> None:
+        """The round's start from the host (pinned puts, no wait): the
+        last token, its position, the temperature; rows from 0."""
+        for dst, v in ((self.tok, [tok]), (self.pos, [pos]),
+                       (self.temp, [temp]), (self.col, [0])):
+            self._put(dst, v)
+
+    def set_stream(self, seed: int) -> None:
+        """A new random stream from counter 0."""
+        self._put(self.seeds, [seed])
+        self.counters.zero_()
+
+    def run(self, variant, rounds: int):
+        """`rounds` chained replays from `begin`'s carry, then one fetch
+        of (outs [rounds, gamma + 1], ns [rounds]) as host arrays."""
+        if self._cuda:
+            self.captured(variant)
+        start = mark(self.device)
+        for _ in range(rounds):
+            self.replay(variant)
+        self.timing = (start, mark(self.device)) if self._cuda else None
+        for h, o in zip(self._host, (self.outs, self.ns)):
+            h.copy_(o, non_blocking=True)
+        if self._cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        gamma = variant[0]
+        outs, ns = self._host
+        return (outs[:rounds, :gamma + 1].numpy().copy(),
+                ns[:rounds].numpy().copy())

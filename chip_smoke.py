@@ -79,7 +79,14 @@ Phases, in order (any failure exits non-zero):
             eager step's host ms); generate_on_device at B = 1 and 4
             against next_token's greedy stream (flash off); then the
             `python3 -m cake_tpu_torch.cli --batch-size 2 --tracing DIR`
-            one-shot command on the card (exit 0, one trace file).
+            one-shot command on the card (exit 0, one trace file); then
+            a small checkpoint directory written here (config.json, a
+            hand-written model.safetensors of random f32 weights, a
+            byte-level BPE tokenizer.json: 256 byte tokens, 300 merges
+            learned from this docstring, Llama-3's special tokens and
+            split) read through the port's reader (a mixed-script round
+            trip printed and required) and served by
+            `python3 -m cake_tpu_torch.cli --model DIR` (exit 0).
             Then 32-layer int4 weights (init_params_quantized, bits=4)
             behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
             launches per decode step and no plain call; a few tokens
@@ -195,6 +202,34 @@ Phases, in order (any failure exits non-zero):
             retryable error, the snapshot written without a device read),
             and this process resumes the snapshot to the uninterrupted
             f32 streams. A `recovery` JSON line holds the record.
+  spec      paged speculative decoding and the batch-1 draft generator:
+            the bodies the spec path launches held against their plain
+            versions at its shapes (the mixed body and its merge at
+            verify windows C = 2 and 5, the window writer's targets at
+            the same C against a scatter, the split decode body and
+            flash at the 1B draft's hd = 64, int4_matmul at 40 rows);
+            (a) 8B width, 2 layers, f32 weights and pool: the card's
+            spec engine (self-draft, a mismatched 1-layer draft, gamma
+            3) token-identical to the card's plain engine and the CPU's
+            spec engine, the pool conserved after every wave; a
+            spec.verify:always storm degrades every stream (spec_degraded)
+            and each finishes exactly; across an in-place recovery the
+            round captures nothing anew; SpeculativeGenerator equal to
+            greedy LlamaGenerator, and one spec_scan of 4 chained
+            replays equal to four single rounds. (b) 32 layers, the
+            phases' bf16 weights, 128 x 128-token pages, 8 slots, six
+            chats of 64 tokens at repeat_penalty 1.0, gamma 4, after a
+            warm-up wave: the plain engine, then drafts self, the
+            target's first 4 blocks and a Llama-3.2-1B-shaped random
+            model: tok/s, acceptance, tokens a round, a round's device
+            ms beside its bound, captures (none allowed in the measured
+            wave), degrade and shrink events, pool GiB; the self-draft
+            over int4 weights (int4_matmul launched by the verify);
+            the generator with a self-draft at 4096 slots, R = 4, beside
+            the plain generator. Acceptance is printed, not gated
+            (random weights decide it). A `spec` JSON line holds the
+            record; each kernel row carries `spec_launches`, its
+            launches in the measured self-draft wave.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -217,7 +252,7 @@ import urllib.request
 from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers", "recovery")
+          "sched", "tiers", "recovery", "spec")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -1919,7 +1954,187 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
         fail(f"generate: the command line failed:\n{r.stderr[-3000:]}")
     if new_flags and len(traces) != 1:
         fail(f"generate: --tracing {trace_dir} wrote {traces}")
+    if importlib.util.find_spec("cake_tpu_torch.models.llama.tokenizer"):
+        _checkpoint_cli()
     return counts
+
+
+# the small checkpoint directory the generate phase writes and loads:
+# Llama-3's special tokens (their ids follow the merges), a small width
+CKPT_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>",
+                 "<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>")
+CKPT_MERGES = 300
+CKPT_CONFIG = dict(
+    model_type="llama", hidden_size=256, intermediate_size=512,
+    num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+    rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=1024,
+    tie_word_embeddings=False, vocab_size=640)
+CKPT_ROUND_TRIP = "Grüße, 東京! Привет мир ١٢٣ 😀 naïve café\r\n\tx"
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+
+
+def _bpe_merges(corpus: str, n: int, b2u) -> list:
+    """n byte-level BPE merges learned from `corpus` (whitespace-split
+    words, the most frequent adjacent pair merged first): enough to make
+    a tokenizer.json of the Llama-3 kind without the tokenizers package."""
+    words = Counter()
+    for w in re.findall(r" ?\S+", corpus):
+        words[tuple(b2u[b] for b in w.encode("utf-8"))] += 1
+    merges = []
+    while len(merges) < n:
+        pairs = Counter()
+        for w, c in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append((a, b))
+        nxt = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            nxt[tuple(out)] += c
+        words = nxt
+    return merges
+
+
+def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
+    """A small Llama checkpoint directory written by hand: config.json, a
+    model.safetensors of random f32 weights from `seed` (the header JSON
+    and the raw bytes: the card has no safetensors package) and a
+    byte-level BPE tokenizer.json (256 byte tokens, CKPT_MERGES merges
+    learned from this file's docstring, Llama-3's special tokens and
+    split, the <|begin_of_text|> template). Returns the config."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama.tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = _bpe_merges(__doc__, CKPT_MERGES, b2u)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    specials = {t: len(vocab) + i for i, t in enumerate(CKPT_SPECIALS)}
+    cfg = dict(CKPT_CONFIG, bos_token_id=specials["<|begin_of_text|>"],
+               eos_token_id=[specials["<|end_of_text|>"],
+                             specials["<|eot_id|>"]])
+    if max(specials.values()) >= cfg["vocab_size"]:
+        fail(f"checkpoint: {len(vocab) + len(specials)} tokens past the "
+             f"vocabulary of {cfg['vocab_size']}")
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=i, content=t, single_word=False,
+                              lstrip=False, rstrip=False, normalized=False,
+                              special=True) for t, i in specials.items()],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "TemplateProcessing", "single": [
+            {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}},
+            {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [], "special_tokens": {"<|begin_of_text|>": {
+                "id": "<|begin_of_text|>",
+                "ids": [specials["<|begin_of_text|>"]],
+                "tokens": ["<|begin_of_text|>"]}}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    D, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    H, KV = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    hd = D // H
+    rng = np.random.default_rng(seed)
+    tensors = {"model.embed_tokens.weight": (V, D), "lm_head.weight": (V, D),
+               "model.norm.weight": (D,)}
+    for i in range(cfg["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        tensors.update({
+            pre + "self_attn.q_proj.weight": (H * hd, D),
+            pre + "self_attn.k_proj.weight": (KV * hd, D),
+            pre + "self_attn.v_proj.weight": (KV * hd, D),
+            pre + "self_attn.o_proj.weight": (D, H * hd),
+            pre + "mlp.gate_proj.weight": (F, D),
+            pre + "mlp.up_proj.weight": (F, D),
+            pre + "mlp.down_proj.weight": (D, F),
+            pre + "input_layernorm.weight": (D,),
+            pre + "post_attention_layernorm.weight": (D,)})
+    header, blobs, off = {}, [], 0
+    for name, shape in tensors.items():
+        a = (np.ones(shape, np.float32) if name.endswith("norm.weight")
+             else rng.standard_normal(shape).astype(np.float32) * 0.05)
+        raw = a.tobytes()
+        header[name] = {"dtype": "F32", "shape": list(shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, "model.safetensors"), "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    with open(os.path.join(dirname, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(dirname, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return cfg
+
+
+def _checkpoint_cli() -> dict:
+    """The load path of a real checkpoint on the card: a small checkpoint
+    directory (`_write_checkpoint`) read through the port's tokenizer.json
+    reader (the round trip of a mixed-script string printed and
+    required), then `python -m cake_tpu_torch.cli --model DIR` in its own
+    process (exit 0)."""
+    import tempfile
+
+    from cake_tpu_torch.models.llama.generator import load_tokenizer
+    from cake_tpu_torch.models.llama.tokenizer import BpeTokenizer
+
+    d = tempfile.mkdtemp(prefix="cake_smoke_ckpt_")
+    cfg = _write_checkpoint(d)
+    tok = load_tokenizer(d)
+    ids = tok.encode(CKPT_ROUND_TRIP)
+    back = tok.decode(ids)
+    log(f"checkpoint: {d} ({CKPT_MERGES} merges, vocab {cfg['vocab_size']},"
+        f" {type(tok).__name__}); {CKPT_ROUND_TRIP!r} -> {len(ids)} ids "
+        f"{ids[:12]}... -> {back!r}")
+    english = tok.encode("Why is the sky blue?", add_special_tokens=False)
+    if not isinstance(tok, BpeTokenizer) or back != CKPT_ROUND_TRIP \
+            or ids[0] != cfg["bos_token_id"] or len(english) >= 20:
+        fail(f"checkpoint: the tokenizer.json round trip failed "
+             f"({len(english)} ids for 20 English bytes)")
+    cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
+           "--prompt", "Why is the sky blue?", "--sample-len", "8"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=sys.path[0], capture_output=True,
+                       text=True, timeout=600)
+    log(f"checkpoint: `{' '.join(cmd[1:])}` exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; stdout tail "
+        f"{r.stdout.strip().splitlines()[-1:]!r}")
+    if r.returncode != 0:
+        fail(f"checkpoint: the command line failed:\n{r.stderr[-3000:]}")
+    return dict(dir=d, ids=len(ids), round_trip=back == CKPT_ROUND_TRIP,
+                cli_exit=r.returncode)
 
 
 def _generator_graph(torch, fcfg, params, tok, system) -> None:
@@ -4268,6 +4483,551 @@ def phase_recovery(torch, rpa, cfg, params, card: str) -> tuple:
     return counts, rec
 
 
+# -- spec: paged speculative decoding and the batch-1 draft generator ---------
+
+SPEC_GAMMA_ID = 3            # (a): the identity drives' gamma
+SPEC_GAMMA = 4               # (b): full width
+SPEC_NEW_ID = 24             # (a): tokens a stream
+SPEC_NEW = 64                # (b): tokens a chat
+SPEC_PROMPTS_ID = (40, 100, 70)
+SPEC_C = (2, 5)              # verify windows held against the plain bodies
+
+
+def _spec_kernel_checks(torch, rpa, fa, i4) -> dict:
+    """The bodies the spec path launches at its own shapes, each against
+    its plain version on the card: the mixed body (bf16, 8B heads) and
+    its merge at verify windows C = 2 and 5, the window writer's targets
+    at the same C against a position-by-position scatter, the split
+    decode body and flash at the 1B draft's hd = 64, and int4_matmul at
+    the verify's B x (gamma + 1) = 40 rows."""
+    from cake_tpu_torch.models.llama.paged import (
+        PagedKVCache, step_write_targets, write_windows_pages,
+    )
+    from cake_tpu_torch.ops.quant import group_size, quantize_group
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    dev, bf = "cuda", torch.bfloat16
+    B, H, KV, P, MP, N = 8, 32, 8, 128, 16, 128
+    rec = {}
+    tol = TOL["bfloat16"]
+
+    def hold(label, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.isfinite(got.float()).all() or not torch.allclose(
+                got.float(), want.float(), **tol):
+            fail(f"spec kernels: {label}: max |kernel - plain| {err:.3e} "
+                 f"over {tol}")
+        rec[label] = err
+        log(f"spec kernels: {label}: max_abs_err {err:.3e} (tol {tol})")
+
+    table = torch.randperm(N, generator=gen, device=dev).to(
+        torch.int32).reshape(B, MP)
+    pos = torch.tensor([2047 - 5, 127, 5 * P + 126, 300, 0, 9 * P + 124,
+                        1000, 400], dtype=torch.int32, device=dev)
+    for hd in (128, 64):
+        pk, pv = (torch.randn((N, P, KV, hd), generator=gen, device=dev,
+                              dtype=bf) for _ in range(2))
+        if hd == 128:
+            for C in SPEC_C:
+                q = torch.randn((B, C, H, hd), generator=gen, device=dev,
+                                dtype=bf)
+                q_len = torch.full((B,), C, dtype=torch.int32, device=dev)
+                q_len[3] = 0
+                kw = dict(table=table, pos=pos, q_len=q_len)
+                hold(f"rpa_mixed C={C} hd={hd} "
+                     f"({_mixed_body(rpa, q, pk, pv, {}, MP, P)})",
+                     rpa.ragged_paged_attention_mixed(q, pk, pv, **kw),
+                     rpa.ragged_paged_attention_mixed_plain(q, pk, pv, **kw))
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev, dtype=bf)
+        hold(f"rpa_decode hd={hd}",
+             rpa.ragged_paged_attention(q, pk, pv, table, pos),
+             rpa.ragged_paged_attention_plain(q, pk, pv, table, pos))
+        if hd == 64:
+            qf = torch.randn((1, 256, H, hd), generator=gen, device=dev,
+                             dtype=bf)
+            kf, vf = (torch.randn((1, 256, KV, hd), generator=gen,
+                                  device=dev, dtype=bf) for _ in range(2))
+            hold(f"flash_attn S=256 hd={hd}", fa.flash_attention(qf, kf, vf),
+                 fa.flash_attention_plain(qf, kf, vf))
+    # the window writer at the verify widths: fixed-shape targets (the
+    # sink where JAX drops) against a scatter position by position
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    cfg_w = LlamaConfig(num_hidden_layers=1)       # KV 8, hd 128
+    for C in SPEC_C:
+        cache = PagedKVCache.create(cfg_w, B, N, P, MP * P, dtype=bf,
+                                    device=dev)
+        cache.table.copy_(table)
+        cache.table[2, 6] = -1           # a window crossing onto a hole
+        q_len = torch.full((B,), C, dtype=torch.int32, device=dev)
+        q_len[3] = 0
+        active = q_len > 0
+        k, v = (torch.randn((B, C, KV, 128), generator=gen, device=dev,
+                            dtype=bf) for _ in range(2))
+        pk, pv = cache.layer(0)
+        write_windows_pages(pk, pv, k, v, pos, q_len, active, cache.table,
+                            step_write_targets(cache, pos, active, q_len, C))
+        want = torch.zeros_like(cache.k[0])
+        for b in range(B):
+            for c in range(int(q_len[b])):
+                t = int(pos[b]) + c
+                page = int(cache.table[b, t // P]) if t // P < MP else -1
+                if page >= 0:
+                    want[page, t % P] = k[b, c]
+        if not torch.equal(cache.k[0], want):
+            fail(f"spec kernels: the window writer at C={C} wrote other "
+                 "pages than the position-by-position scatter")
+        log(f"spec kernels: window writer C={C}: pages equal to the "
+            "position-by-position scatter (a hole, an idle row)")
+    # int4_matmul at the verify's rows (8 rows x gamma + 1)
+    M = B * (SPEC_GAMMA + 1)
+    In, Out = INT4_MAIN
+    qt = quantize_group(torch.randn((In, Out), generator=gen, device=dev)
+                        * In ** -0.5, 0)
+    x = torch.randn((M, In), generator=gen, device=dev).to(bf)
+    hold(f"int4_matmul M={M}", i4.int4_matmul(x, qt.q, qt.scale,
+                                              g=group_size(qt)),
+         i4.int4_matmul_plain(x, qt.q, qt.scale, g=group_size(qt)))
+    return rec
+
+
+def _spec_draft_f32(torch, cfg32):
+    """(a)'s mismatched draft: one layer at the same width, another seed,
+    the lm_head past the byte range zeroed as `_f32_params` does."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.params import init_params
+
+    c = dataclasses.replace(cfg32, num_hidden_layers=1)
+    p = init_params(c, torch.Generator(device=DEV).manual_seed(16),
+                    device=DEV, dtype=torch.float32)
+    p["lm_head"][:, 256:] = 0.0
+    return c, p
+
+
+def _spec_f32_engine(torch, cfg, params, device, draft=None, **kw):
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    if draft is not None:
+        kw.update(spec_draft_params=draft[1], spec_draft_config=draft[0],
+                  spec_gamma=SPEC_GAMMA_ID)
+    return InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), device=device,
+        max_slots=4, max_seq_len=1024, kv_pages=32, kv_page_size=128,
+        prefill_chunk=64, cache_dtype=torch.float32,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+        recovery=True, **kw)
+
+
+def _spec_streams(eng, prompts, n_new: int):
+    """Every prompt submitted before the engine starts; the greedy
+    streams, after the pool's conservation is checked."""
+    hs = [eng.submit(list(p), max_new_tokens=n_new, temperature=0.0,
+                     repeat_penalty=1.0) for p in prompts]
+    with eng:
+        for h in hs:
+            if not h.wait(timeout=900) or h._req.error is not None:
+                fail(f"spec: a stream did not finish ({h._req.error})")
+    pg = eng._pager
+    if pg.free_pages + pg.live_pages != pg.n_pages or pg.live_pages:
+        fail(f"spec: pool not conserved: free {pg.free_pages} + live "
+             f"{pg.live_pages} != {pg.n_pages}")
+    if eng._specp is not None and eng._specp.spec_streams:
+        fail("spec: spec states survived their streams")
+    return [list(h._req.out_tokens) for h in hs]
+
+
+def _spec_identity(torch, card: str) -> dict:
+    """(a) 8B width, 2 layers, f32 params and pool: the card's spec engine
+    (self-draft and a mismatched 1-layer draft, gamma 3) against the
+    card's plain engine and the CPU's spec engine, token for token; a
+    spec.verify:always storm degrades every stream with an event and
+    finishes it exactly; across an in-place recovery the round captures
+    nothing anew. Then the batch-1 generator: SpeculativeGenerator on
+    the card equal to greedy LlamaGenerator, and one spec_scan of R = 4
+    chained replays equal to four single rounds."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.models.llama.speculative import SpeculativeGenerator
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    cfg32, p32 = _f32_params(torch, LlamaConfig.llama3_8b())
+    draft = _spec_draft_f32(torch, cfg32)
+    prompts = [[(7 * i + 3 * j) % 250 + 1 for j in range(n)]
+               for i, n in enumerate(SPEC_PROMPTS_ID)]
+    cpu = {k: v.cpu() if hasattr(v, "cpu") else v
+           for k, v in p32.items() if k != "blocks"}
+    cpu["blocks"] = {k: v.cpu() for k, v in p32["blocks"].items()}
+    cpu_d = {k: v.cpu() for k, v in draft[1].items() if k != "blocks"}
+    cpu_d["blocks"] = {k: v.cpu() for k, v in draft[1]["blocks"].items()}
+    plain = _spec_streams(_spec_f32_engine(torch, cfg32, p32, DEV), prompts,
+                          SPEC_NEW_ID)
+    rec = {}
+    for name, d, dc in (("self", (cfg32, p32), (cfg32, cpu)),
+                        ("mismatched", draft, (draft[0], cpu_d))):
+        eng = _spec_f32_engine(torch, cfg32, p32, DEV, draft=d)
+        got = _spec_streams(eng, prompts, SPEC_NEW_ID)
+        ref = _spec_streams(_spec_f32_engine(torch, cfg32, cpu, "cpu",
+                                             draft=dc), prompts, SPEC_NEW_ID)
+        st = eng.stats
+        rec[name] = dict(proposed=st.spec_proposed, accepted=st.spec_accepted,
+                         plain=got == plain, cpu=got == ref)
+        log(f"spec identity ({name} draft, f32, 2 layers, gamma "
+            f"{SPEC_GAMMA_ID}): {st.spec_accepted}/{st.spec_proposed} "
+            f"drafts accepted; streams == plain engine {got == plain}, == "
+            f"CPU spec engine {got == ref} [{card}]")
+        if got != plain or got != ref or not st.spec_proposed:
+            fail(f"spec identity ({name}): {rec[name]}")
+    # a spec.verify storm: every stream degrades and finishes exactly
+    eng = _spec_f32_engine(torch, cfg32, p32, DEV, draft=(cfg32, p32),
+                           fault_plan=("seed=1;spec.verify:always:transient"
+                                       ":times=64"))
+    got = _spec_streams(eng, prompts, SPEC_NEW_ID)
+    deg = eng.events.dump(type="spec_degraded")
+    rids = {e["rid"] for e in deg if e["action"] == "disabled"}
+    rec["storm"] = dict(degraded=len(rids), identical=got == plain)
+    log(f"spec identity (spec.verify:always): {len(rids)} streams degraded "
+        f"({sorted({e['reason'] for e in deg})}), streams == plain "
+        f"{got == plain}")
+    if got != plain or len(rids) != len(prompts):
+        fail(f"spec identity (storm): {rec['storm']}")
+    # an in-place recovery in the middle of the spec rounds
+    eng = _spec_f32_engine(torch, cfg32, p32, DEV, draft=(cfg32, p32),
+                           fault_plan="seed=3;engine.step:nth=5:transient")
+    seen = []
+    real_reset = eng._reset_in_place
+
+    def reset():
+        seen.append(eng._spec_runner and eng._spec_runner.captures)
+        real_reset()
+    eng._reset_in_place = reset
+    got = _spec_streams(eng, prompts, SPEC_NEW_ID)
+    after = eng._spec_runner.captures
+    rec["recovery"] = dict(recoveries=eng.stats.recoveries, before=seen,
+                           after=after, identical=got == plain)
+    log(f"spec identity (in-place recovery): {eng.stats.recoveries} "
+        f"recoveries, round captures {seen} before the reset, {after} "
+        f"after; streams == plain {got == plain}")
+    if (got != plain or eng.stats.recoveries != 1 or not seen
+            or not seen[0] or after != seen[0]):
+        fail(f"spec identity (recovery): {rec['recovery']}")
+    # the batch-1 generator, self-draft
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    tok = ByteTokenizer(cfg32.vocab_size)
+    prompt = np.asarray([prompts[1]], np.int32)
+    plen = np.asarray([len(prompts[1])], np.int32)
+    want = LlamaGenerator(cfg32, p32, tok, max_seq_len=1024, sampling=greedy,
+                          cache_dtype=torch.float32, device=DEV
+                          ).generate_on_device(prompt, plen, SPEC_NEW_ID)
+    outs = []
+    for R in (4, 1):
+        sg = SpeculativeGenerator(cfg32, p32, draft[0], draft[1], tok,
+                                  gamma=SPEC_GAMMA_ID, max_seq_len=1024,
+                                  sampling=greedy, cache_dtype=torch.float32,
+                                  spec_rounds=R, device=DEV)
+        got = sg.generate_on_device(prompt, plen, SPEC_NEW_ID)
+        r, first = sg._runner, sg._prefill_both(sg._runner, prompts[1])
+        rounds, last, pos = [], first, len(prompts[1])
+        for _ in range(4 // R):
+            o, n = sg._rounds(r, last, pos, R)
+            for k in range(R):
+                rounds.append((o[k, :n[k]].tolist(), int(n[k])))
+                last, pos = int(o[k, n[k] - 1]), pos + int(n[k])
+        outs.append(rounds)
+        if not np.array_equal(got, want):
+            fail(f"spec identity (generator, R={R}): the stream differs "
+                 "from greedy LlamaGenerator's")
+    rec["generator"] = dict(scan_equals_single=outs[0] == outs[1])
+    log(f"spec identity (generator, mismatched draft): == greedy "
+        f"LlamaGenerator; one spec_scan of 4 replays == 4 single rounds "
+        f"{outs[0] == outs[1]}")
+    if outs[0] != outs[1]:
+        fail("spec identity: R = 4 chained replays differ from 4 rounds")
+    return rec
+
+
+def _cut_draft(cfg, params, layers: int):
+    """The target's first `layers` blocks with its embedding, final norm
+    and lm_head (views, no copy)."""
+    import dataclasses
+    c = dataclasses.replace(cfg, num_hidden_layers=layers)
+    p = {k: v for k, v in params.items() if k != "blocks"}
+    p["blocks"] = {k: v[:layers] for k, v in params["blocks"].items()}
+    return c, p
+
+
+def _llama32_1b(torch):
+    """A Llama-3.2-1B-shaped random bf16 draft (meta-llama/Llama-3.2-1B's
+    published config.json: 16 layers, D 2048, H 32, KV 8, hd 64, F 8192,
+    V 128256, tied embeddings)."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.params import init_params
+
+    c = LlamaConfig(vocab_size=128256, hidden_size=2048,
+                    intermediate_size=8192, num_hidden_layers=16,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    rope_theta=500000.0, max_position_embeddings=131072,
+                    tie_word_embeddings=True)
+    return c, init_params(c, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda", dtype=torch.bfloat16)
+
+
+def _spec_wave(torch, eng, prompts, label: str, measured: bool = True):
+    """One wave of the engine: the chats at once, wall and tok/s, the
+    captures inside it (none allowed in a measured wave), and for a spec
+    engine its rounds' device ms beside their bound (the engine's
+    counted bytes at 3.35 TB/s), acceptance and events."""
+    caps, costs = [], []
+    real_cap = eng.flight.count_capture
+    eng.flight.count_capture = lambda fn, sec: (caps.append(fn),
+                                                real_cap(fn, sec))
+    if eng._specp is not None:
+        real_cost = eng._spec_cost
+
+        def cost(pr, g):
+            c = real_cost(pr, g)
+            costs.append(c.bytes_accessed)
+            return c
+        eng._spec_cost = cost
+        p0, a0 = eng.stats.spec_proposed, eng.stats.spec_accepted
+    recs0 = eng.flight.dump(1)
+    step0 = recs0[0]["step"] if recs0 else -1
+    t0 = time.perf_counter()
+    hs = [eng.submit(list(p), max_new_tokens=SPEC_NEW, temperature=0.0,
+                     repeat_penalty=1.0) for p in prompts]
+    for h in hs:
+        if not h.wait(timeout=900) or h._req.error is not None:
+            fail(f"spec {label}: a chat did not finish ({h._req.error})")
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    eng.flight.count_capture = real_cap
+    toks = sum(len(h._req.out_tokens) for h in hs)
+    recs = [r for r in eng.flight.dump() if r["step"] > step0]
+    rec = dict(label=label, tokens=toks, wall_s=wall, tok_s=toks / wall,
+               captures=len(caps))
+    pg = eng._pager
+    if pg.free_pages + pg.live_pages != pg.n_pages:
+        fail(f"spec {label}: pool not conserved")
+    if caps and measured:
+        fail(f"spec {label}: {caps} captured inside the measured wave")
+    if eng._specp is not None:
+        eng._spec_cost = real_cost
+        sp = eng._specp
+        spec = [r for r in recs if r["kind"] == "spec"]
+        dev_ms = (1e3 * statistics.mean(r["device_s"] for r in spec)
+                  if spec else None)
+        bound = (1e3 * statistics.mean(costs) / HBM_BYTES_PER_S
+                 if costs else None)
+        deg = Counter(e["action"] for e in eng.events.dump(
+            type="spec_degraded"))
+        prop = eng.stats.spec_proposed - p0
+        acc = eng.stats.spec_accepted - a0
+        rec.update(rounds=len(spec), round_ms=dev_ms, round_bound_ms=bound,
+                   accepted=acc, proposed=prop,
+                   acceptance=acc / prop if prop else None,
+                   accept_ema=sp.accept_ema, tokens_per_round=sp.tokens_ema,
+                   gamma=sp.live_gamma, degraded=dict(deg))
+    return rec
+
+
+def _spec_full(torch, rpa, fa, cfg, params, card: str):
+    """(b) Llama-3-8B width and depth, the phases' bf16 weights: 128 x
+    128-token pages, 8 slots, six chats of SPEC_NEW tokens at
+    repeat_penalty 1.0, gamma 4, against the plain engine in the same
+    call; drafts: the target itself, its first four blocks, and a
+    Llama-3.2-1B-shaped random draft. Random weights decide acceptance
+    here: it is printed, not gated. Then the batch-1 generator with a
+    self-draft at 4096 slots, R = 4, beside the plain generator."""
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    prompts = [[(11 * i + 5 * j) % 30000 + 1000 for j in range(n)]
+               for i, n in enumerate(TIER_CHATS)]
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+
+    def engine(draft=None, p=params):
+        kw = {}
+        if draft is not None:
+            kw = dict(spec_draft_params=draft[1], spec_draft_config=draft[0],
+                      spec_gamma=SPEC_GAMMA)
+        return InferenceEngine(
+            cfg, p, ByteTokenizer(cfg.vocab_size), device="cuda",
+            max_slots=8, max_seq_len=2048, kv_pages=RECOVERY_PAGES,
+            kv_page_size=128, cache_dtype=torch.bfloat16, sampling=greedy,
+            decode_scan_steps=4, **kw)
+
+    def warm(eng, label):
+        """Warm-up waves until one captures nothing (the tuner's gamma
+        shrinks are new graphs, as JAX compiles per gamma), at most 4."""
+        for i in range(4):
+            w = _spec_wave(torch, eng, prompts, f"{label} (warm-up {i})",
+                           measured=False)
+            if not w["captures"]:
+                return
+        fail(f"spec {label}: still capturing after 4 warm-up waves")
+
+    def drive(eng, label):
+        with eng:
+            warm(eng, label)
+            return _spec_wave(torch, eng, prompts, label)
+
+    records = [drive(engine(), "plain")]
+    counts = None
+    drafts = (("self", lambda: (cfg, params)),
+              ("cut4", lambda: _cut_draft(cfg, params, 4)),
+              ("llama3.2-1b", lambda: _llama32_1b(torch)))
+    for name, make in drafts:
+        d = make()
+        eng = engine(d)
+        gib = eng.d_cache.memory_bytes() / 2**30
+        with eng:
+            warm(eng, name)
+            for m in (rpa, fa):
+                m.reset_launch_counts()
+            r = _spec_wave(torch, eng, prompts, name)
+            if counts is None:
+                counts = {**rpa.LAUNCHES, **fa.LAUNCHES}
+        r.update(draft_pool_gib=gib, target_pool_gib=(
+            eng.cache.memory_bytes() / 2**30))
+        records.append(r)
+        del eng, d
+        torch.cuda.empty_cache()
+    for r in records:
+        extra = ("" if "rounds" not in r else
+                 f"; {r['rounds']} rounds, round {r['round_ms']:.3f} ms "
+                 f"(bound {r['round_bound_ms']:.3f} ms), acceptance "
+                 f"{r['acceptance']}, EMA {r['accept_ema']}, tokens/round "
+                 f"EMA {r['tokens_per_round']}, gamma {r['gamma']}, "
+                 f"degraded {r['degraded']}, draft pool "
+                 f"{r['draft_pool_gib']:.3f} GiB")
+        log(f"spec full width {r['label']:<12}: {r['tokens']} tokens in "
+            f"{r['wall_s']:.2f} s = {r['tok_s']:.1f} tok/s, captures "
+            f"{r['captures']}{extra} [{card}]")
+    plain = [k for k in counts if k.endswith("_plain") and counts[k]]
+    if plain or not counts.get("rpa_decode") or not counts.get("rpa_mixed"):
+        fail(f"spec: launches of the self-draft wave {counts}")
+    return counts, records
+
+
+def _spec_int4(torch, i4, cfg, q4, card: str) -> dict:
+    """The self-draft engine over int4 target weights: the verify's
+    B x (gamma + 1) <= 64-row products launch int4_matmul."""
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    prompts = [[(11 * i + 5 * j) % 30000 + 1000 for j in range(n)]
+               for i, n in enumerate(TIER_CHATS)]
+    eng = InferenceEngine(
+        cfg, q4, ByteTokenizer(cfg.vocab_size), device="cuda", max_slots=8,
+        max_seq_len=2048, kv_pages=RECOVERY_PAGES, kv_page_size=128,
+        cache_dtype=torch.bfloat16,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+        decode_scan_steps=4, spec_draft_params=q4, spec_draft_config=cfg,
+        spec_gamma=SPEC_GAMMA)
+    with eng:
+        for i in range(4):
+            if not _spec_wave(torch, eng, prompts, f"int4 self (warm-up {i})",
+                              measured=False)["captures"]:
+                break
+        i4.reset_launch_counts()
+        r = _spec_wave(torch, eng, prompts, "int4 self")
+        got = dict(i4.LAUNCHES)
+    r["int4_matmul"] = got.get("int4_matmul", 0)
+    log(f"spec int4 weights (self-draft): {r['tokens']} tokens, "
+        f"{r['tok_s']:.1f} tok/s, {r['rounds']} rounds, round "
+        f"{r['round_ms']:.3f} ms (bound {r['round_bound_ms']:.3f} ms), "
+        f"int4_matmul launches {got} [{card}]")
+    if not got.get("int4_matmul") or got.get("int4_matmul_plain"):
+        fail(f"spec int4: launches {got}")
+    return r
+
+
+def _spec_generator(torch, cfg, params, card: str) -> dict:
+    """The batch-1 generator at full width with a self-draft (4096 slots,
+    R = 4, gamma 4): a 1000-token prompt and SPEC_NEW greedy tokens
+    through Master.generate_text, beside the plain LlamaGenerator's
+    tok/s; a round replay's device ms beside its bound (the draft's
+    weights gamma + 1 times, the target's once, and the KV up to the
+    frontier, at 3.35 TB/s)."""
+    import dataclasses
+
+    from cake_tpu_torch.args import Args
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.models.llama.params import params_bytes
+    from cake_tpu_torch.models.llama.speculative import SpeculativeGenerator
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    fcfg = dataclasses.replace(cfg, use_flash_attention=True)
+    tok = ByteTokenizer(cfg.vocab_size)
+    greedy = SamplingConfig(temperature=0.0, repeat_penalty=1.0)
+    system = "You are a helpful AI assistant."
+    out = {}
+    for name in ("plain", "spec"):
+        if name == "plain":
+            g = LlamaGenerator(fcfg, params, tok, max_seq_len=4096,
+                               sampling=greedy, cache_dtype=torch.bfloat16)
+        else:
+            g = SpeculativeGenerator(fcfg, params, fcfg, params, tok,
+                                     gamma=SPEC_GAMMA, max_seq_len=4096,
+                                     sampling=greedy,
+                                     cache_dtype=torch.bfloat16,
+                                     spec_rounds=4)
+        m = Master(Args(sample_len=SPEC_NEW, system_prompt=system),
+                   text_generator=g)
+        for n_prompt in (300, 1000):          # warm-up, then measured
+            m.reset()
+            m.add_message(Message.system(system))
+            m.add_message(Message.user(_prompt_of(tok, n_prompt, system)))
+            m.generate_text(lambda t: None)
+        out[name] = dict(tok_s=m.tokens_per_s, tokens=len(g.tokens))
+        if name == "spec":
+            r = g._runner
+            ms = r.timing[0].elapsed_time(r.timing[1]) / r.ns.numel()
+            pos = g.index_pos
+            kv = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
+                  * cfg.head_dim * 2)
+            need = (params_bytes(params) * (SPEC_GAMMA + 2)
+                    + kv * (SPEC_GAMMA + 2) * pos)
+            out[name].update(round_ms=ms,
+                             bound_ms=need / HBM_BYTES_PER_S * 1e3,
+                             acceptance=g.acceptance_rate,
+                             captures=r.captures)
+    s = out["spec"]
+    log(f"spec generator (self-draft, 8B bf16, R=4): {s['tok_s']:.1f} tok/s "
+        f"vs plain {out['plain']['tok_s']:.1f}; round replay "
+        f"{s['round_ms']:.3f} ms (bound {s['bound_ms']:.3f} ms), "
+        f"acceptance {s['acceptance']:.3f}, captures {s['captures']} "
+        f"[{card}]")
+    if s["tokens"] < 1 or s["captures"] != 1:
+        fail(f"spec generator: {out}")
+    return out
+
+
+def phase_spec(torch, rpa, fa, i4, cfg, params, card: str):
+    """The spec phase: the kernels at the spec path's shapes, (a) the f32
+    identities, (b) full width. Returns (launch counts of the measured
+    self-draft wave, record)."""
+    t0 = time.perf_counter()
+    rec = dict(kernels=_spec_kernel_checks(torch, rpa, fa, i4))
+    rec["identity"] = _spec_identity(torch, card)
+    torch.cuda.empty_cache()
+    counts, rec["full"] = _spec_full(torch, rpa, fa, cfg, params, card)
+    rec["generator"] = _spec_generator(torch, cfg, params, card)
+    log(f"spec phase: {time.perf_counter() - t0:.1f} s")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4339,8 +5099,10 @@ def main(argv=None) -> int:
     sched_record = None
     tiers_record = None
     recovery_record = None
+    spec_record = None
+    spec_counts = {}
     if {"step", "generate", "serve", "prefix", "sched",
-            "tiers", "recovery"} & set(phases):
+            "tiers", "recovery", "spec"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -4385,6 +5147,12 @@ def main(argv=None) -> int:
                                                   card)
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
+        has_spec = importlib.util.find_spec("cake_tpu_torch.spec")
+        if "spec" in phases and has_spec:
+            # the measured self-draft wave's launches (set to 0 just
+            # before it), a kernels-line key of their own
+            spec_counts, spec_record = phase_spec(torch, rpa, fa, i4, cfg,
+                                                  params, card)
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -4392,7 +5160,7 @@ def main(argv=None) -> int:
         if "generate" in phases:
             q4, got = phase_generate_quant(torch, i4, cfg)
             counts["int4_matmul"] = got["int4_matmul"]
-        if q4 is None and ("serve" in phases
+        if q4 is None and ("serve" in phases or "spec" in phases
                            or ("step" in phases and graphs)):
             from cake_tpu_torch.models.llama.params import (
                 init_params_quantized,
@@ -4412,6 +5180,9 @@ def main(argv=None) -> int:
             # the ragged kernels' counts stay those of the bf16-weight run
             counts["int4_matmul"] = (counts.get("int4_matmul", 0)
                                      + got["int4_matmul"])
+        if "spec" in phases and has_spec:
+            spec_record["int4"] = _spec_int4(torch, i4, cfg, q4, card)
+            spec_counts["int4_matmul"] = spec_record["int4"]["int4_matmul"]
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -4431,6 +5202,8 @@ def main(argv=None) -> int:
     if recovery_record is not None:
         print(json.dumps({"recovery": recovery_record, "card": card}),
               flush=True)
+    if spec_record is not None:
+        print(json.dumps({"spec": spec_record, "card": card}), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4449,6 +5222,7 @@ def main(argv=None) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(name),
+            "spec_launches": spec_counts.get(name) if spec_record else None,
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

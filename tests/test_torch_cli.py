@@ -79,8 +79,15 @@ def test_flags_keep_the_jax_names_and_defaults():
     assert (a.max_seq_len, a.top_p, a.kv_dtype, a.device_idx) == (
         128, 0.9, "f32", 1)
     assert parse_args(["--quant", "int8"]).quant == "int8"
+    # the speculative flags, with JAX's names and defaults
+    for name in ("draft_model", "spec_gamma", "spec_draft", "spec_rounds"):
+        assert getattr(Args(), name) == theirs[name], name
+    a = parse_args(["--draft-model", "d", "--spec-gamma", "3",
+                    "--spec-rounds", "2"])
+    assert (a.draft_model, a.spec_gamma, a.spec_rounds) == ("d", 3, 2)
+    assert parse_args(["--spec-draft", "d"]).spec_draft == "d"
     with pytest.raises(SystemExit):
-        parse_args(["--spec-draft", "dir"])  # not ported: rejected
+        parse_args(["--autotune", "auto"])  # not ported: rejected
 
 
 @pytest.mark.parametrize("quant", ["int4", "int8"])
@@ -174,6 +181,28 @@ def test_kv_dtype_rules_match_the_jax_args():
         parse_args(["--kv-dtype", "int3"])
     with pytest.raises(ValueError, match="even --kv-page-size"):
         cli.main(["--cpu", "--kv-dtype", "int4", "--kv-page-size", "9"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(spec_draft="d", draft_model="d"),
+    dict(spec_draft="d", kv_pages=None),
+    dict(spec_draft="d", kv_dtype="int8"),
+    dict(spec_draft="d", kv_dtype="int4"),
+    dict(spec_draft="d", mixed_batch="off"),
+    dict(spec_draft="d", spec_gamma=0),
+    dict(draft_model="d", spec_rounds=0),
+    dict(draft_model="d", kv_dtype="int8"),
+], ids=["both", "no_pages", "int8", "int4", "mixed_off", "gamma",
+        "rounds", "draft_int8"])
+def test_spec_flag_rules_match_the_jax_args(kw):
+    """The speculative flags' refusals are the JAX package's (their
+    messages may name the port's own reasons)."""
+    base = dict(kv_pages=512) if "kv_pages" not in kw else {}
+    with pytest.raises(ValueError):
+        JArgs(**{**base, **kw}).validate()
+    with pytest.raises(ValueError):
+        Args(**kw).validate()
+    assert Args(spec_draft="d", kv_dtype="f8_e4m3").validate().spec_draft
 
 
 def test_int4_kv_keeps_the_generators_compute_dtype():
