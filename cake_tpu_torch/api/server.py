@@ -20,15 +20,25 @@ observability routes:
   GET  /api/v1/requests (?limit, ?rid, ?class, ?since): lifecycle traces
   GET  /api/v1/steps (?limit): the step flight recorder
   GET  /api/v1/events (?rid, ?type, ?since, ?limit): the event bus
+  GET  /api/v1/requests/{rid}/timeline: one request's spans, events and
+       step records merged in time order (404 for an unknown rid)
+  GET  /api/v1/autotune: the live config, the switch log and (auto mode)
+       the controller's window; POST /api/v1/autotune {"config": {...}}:
+       a live switch (400 for an invalid or refused config, a failed
+       rebuild, or --autotune off; 409 while a switch is in flight)
+  GET  /api/v1/anomalies (?limit): the sentinel's anomalies and
+       detectors, and the action plane's history (--sentinel-act)
+  POST /api/v1/profile {"seconds"}: a torch.profiler capture of the
+       live process into --profile-dir (409 while one runs)
 
 Every chat request goes through the continuous-batching engine, so N
 requests decode together; a full queue, a shed request or a draining
 server answers 429 with the computed Retry-After, an engine failure 503
 (retryable) or 500 (a quarantined poison request). `start` restores a
 --checkpoint and replays a --journal at startup, and on SIGTERM drains,
-stops the engine and saves. Not ported yet: the profile, fleet,
-anomalies, autotune, cluster and timeline routes, the router's
-departure notice and the postmortem bundle.
+stops the engine, writes the postmortem bundle (--postmortem-dir) and
+saves. Not ported yet: the fleet route (federation, ROADMAP A6c), the
+cluster route and the router's departure notice (ROADMAP A13, A15).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from __future__ import annotations
 import json
 import logging
 import queue
+import re
 import threading
 import time
 import uuid
@@ -51,7 +62,9 @@ from cake_tpu_torch.obs import steps as obs_steps
 from cake_tpu_torch.obs.events import EVENT_TYPES
 from cake_tpu_torch.sched import ShedError, validate_priority
 from cake_tpu_torch.serve.engine import QueueFullError
-from cake_tpu_torch.serve.errors import DrainingError, EngineRequestError
+from cake_tpu_torch.serve.errors import (
+    DrainingError, EngineRequestError, SwitchInFlightError,
+)
 
 log = logging.getLogger(__name__)
 
@@ -61,8 +74,11 @@ KNOWN_ROUTES = frozenset({
     "/api/v1/chat/completions", "/v1/chat/completions",
     "/api/v1/health", "/v1/models", "/api/v1/models", "/metrics",
     "/api/v1/metrics", "/api/v1/requests", "/api/v1/steps",
-    "/api/v1/events", "/api/v1/drain",
+    "/api/v1/events", "/api/v1/drain", "/api/v1/profile",
+    "/api/v1/autotune", "/api/v1/requests/{rid}/timeline",
+    "/api/v1/anomalies",
 })
+_TIMELINE_RE = re.compile(r"^/api/v1/requests/(\d+)/timeline$")
 
 
 class QueueFull(Exception):
@@ -99,6 +115,15 @@ class ApiServer:
         self._shutdown = None
         self._drain_thread = None
         self._drain_lock = threading.Lock()
+        # POST /api/v1/profile's capture directory (--profile-dir; None:
+        # a fresh temporary directory a capture). Naming one warms the
+        # profiler here, on the thread that builds the server, so a
+        # capture from a handler thread starts at once
+        self._profile_dir = getattr(getattr(master, "args", None),
+                                    "profile_dir", None)
+        if self._profile_dir and engine.device.type == "cuda":
+            from cake_tpu_torch.utils.profiling import warm_profiler
+            warm_profiler()
         self._m_http = obs_metrics.counter(
             "cake_http_requests_total",
             "HTTP requests served, by route and status code",
@@ -107,6 +132,8 @@ class ApiServer:
 
     def _count(self, path: str, code: int) -> None:
         route = path.split("?", 1)[0]
+        if _TIMELINE_RE.match(route):
+            route = "/api/v1/requests/{rid}/timeline"
         if route not in KNOWN_ROUTES:
             route = "other"
         self._m_http.labels(route=route, status=str(code)).inc()
@@ -334,6 +361,11 @@ class ApiServer:
         if eng._draining:
             out["draining"] = True
             out["drain"] = eng.drain_state()
+        # the autotune epoch and the switch flag (a router redirects
+        # fresh admissions while a fold-everything switch runs)
+        out["config_epoch"] = eng.config_epoch
+        out["autotune"] = eng.autotune_mode
+        out["switch_in_flight"] = bool(eng._switch_inflight)
         out["recovery"] = eng.recovery_state()
         if eng._journal is not None:
             out["journal"] = eng._journal.state()
@@ -351,7 +383,75 @@ class ApiServer:
         if depths is not None:
             out["preemptions"] = st.preemptions
             out["requests_shed"] = st.shed
+        # the LIVE effective engine config, what the autotuner chose
+        out["engine_config"] = eng.current_config().to_dict()
         return out
+
+    def autotune(self) -> dict:
+        """GET /api/v1/autotune: mode, live config, window signals and
+        the switch and decision history (autotune/)."""
+        return self.engine.autotune_state()
+
+    def autotune_switch(self, body: dict) -> dict:
+        """POST /api/v1/autotune {"config": {...}}: a manual live switch.
+        ValueError (400) for a malformed, invalid or refused config, a
+        failed rebuild, or --autotune off; SwitchInFlightError (409,
+        mapped by the handler) while another switch runs."""
+        if self.engine.autotune_mode == "off":
+            raise ValueError(
+                "autotune is off; restart with --autotune manual (or auto) "
+                "to enable live config switching")
+        cfg = body.get("config")
+        if not isinstance(cfg, dict):
+            raise ValueError('body must be {"config": {...}} with the '
+                             "switchable engine knobs")
+        switched = self.engine.reconfigure(cfg, reason="manual")
+        return {"switched": bool(switched),
+                "config": self.engine.current_config().to_dict(),
+                "epoch": self.engine.config_epoch}
+
+    def request_timeline(self, rid: int) -> Optional[dict]:
+        """GET /api/v1/requests/{rid}/timeline (obs/timeline.py); None
+        is the 404."""
+        return self.engine.request_timeline(rid)
+
+    def anomalies(self, limit: Optional[int] = None) -> dict:
+        """GET /api/v1/anomalies: the active anomalies, the recent-firing
+        ring (?limit=), every detector's threshold and state
+        (obs/sentinel.py; --sentinel), and with --sentinel-act the
+        action history (obs/actions.py)."""
+        sen = self.engine.sentinel
+        if sen is None:
+            return {"active": [], "anomalies": [],
+                    "note": "sentinel disabled (restart with --sentinel)"}
+        out = sen.state(limit=limit)
+        plane = self.engine._actions
+        if plane is not None:
+            out["actions"] = plane.history(limit)
+            out["action_rate_per_min"] = plane.max_per_min
+        return out
+
+    def profile(self, body: dict) -> dict:
+        """POST /api/v1/profile {"seconds": N}: a torch.profiler Chrome
+        trace of the next N seconds of the live process, into
+        --profile-dir (never a path from the body: clients must not pick
+        server paths). The profiler starts and stops on the engine
+        thread, between iterations: stopped while another thread
+        replays a CUDA graph, it can deadlock with the replay.
+        Single-flight: a concurrent capture raises ProfileBusyError
+        (409)."""
+        if not isinstance(body, dict):
+            raise ValueError("body must be a JSON object")
+        seconds = body.get("seconds", 2.0)
+        if not isinstance(seconds, (int, float)) or isinstance(
+                seconds, bool):
+            raise ValueError("seconds must be a number")
+        eng = self.engine
+        run = (eng._run_on_engine_thread
+               if eng._thread is not None and eng._thread.is_alive()
+               else None)
+        return obs_steps.PROFILER.capture(seconds, self._profile_dir,
+                                          run=run)
 
     def metrics(self) -> str:
         """Prometheus text exposition: the registry's families, with the
@@ -570,12 +670,28 @@ def make_handler(api: ApiServer):
                         limit=self._int_arg(q, "limit")))
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+            m = _TIMELINE_RE.match(route)
+            if m:
+                tl = api.request_timeline(int(m.group(1)))
+                if tl is None:
+                    return self._json(404, {
+                        "error": f"unknown rid {m.group(1)} (not admitted, "
+                                 "or out of the finished-trace ring)"})
+                return self._json(200, tl)
             if route == "/api/v1/steps":
                 try:
                     return self._json(200, api.steps(
                         self._int_arg(self._query(), "limit")))
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+            if route == "/api/v1/anomalies":
+                try:
+                    return self._json(200, api.anomalies(
+                        self._int_arg(self._query(), "limit")))
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+            if route == "/api/v1/autotune":
+                return self._json(200, api.autotune())
             if route in ("/metrics", "/api/v1/metrics"):
                 data = api.metrics().encode()
                 self.send_response(200)
@@ -605,6 +721,18 @@ def make_handler(api: ApiServer):
                     return self._chat(body)
                 if self.path == "/api/v1/drain":
                     return self._json(200, api.drain(body))
+                if self.path == "/api/v1/profile":
+                    try:
+                        return self._json(200, api.profile(body))
+                    except obs_steps.ProfileBusyError as e:
+                        return self._json(409, {"error": str(e)})
+                if self.path == "/api/v1/autotune":
+                    try:
+                        return self._json(200, api.autotune_switch(body))
+                    except SwitchInFlightError as e:
+                        # one switch at a time: the client retries after
+                        # the one in flight lands
+                        return self._json(409, {"error": str(e)})
                 return self._json(404, {"error": "not found"})
             except ValueError as e:
                 if not self._stream_started:
@@ -781,6 +909,10 @@ def start(master, address: str = "127.0.0.1:10128",
         # on a helper thread (from the serving thread it deadlocks)
         engine.begin_drain()
         engine.stop()
+        if engine._postmortem is not None:
+            # the black-box bundle on the termination path too: the
+            # engine thread is stopped, so every ring is final
+            engine._postmortem.dump("sigterm", engine=engine, force=True)
         if checkpoint_path:
             engine.shutdown_save(checkpoint_path)
         elif not journal_armed:

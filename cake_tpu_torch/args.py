@@ -7,7 +7,8 @@ is on by default, being the port's only serving engine).
 validates the result (`Args.validate`, the JAX package's rules for the
 fields the port has, `--quant none|int8|int4` among them); a flag of the
 JAX package that the port does not implement yet (`--topology`, `--sp`,
-`--autotune`, ...) is rejected by argparse, never accepted and ignored.
+`--telemetry-export`, ...) is rejected by argparse, never accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -159,10 +160,47 @@ class Args:
     # --journal-fsync {never,batch,always}: "never" flushes per line,
     # "batch" fsyncs once per engine iteration, "always" every append
     journal_fsync: str = "batch"
+    # --autotune {off,manual,auto}: live engine-config hot-switching
+    # (autotune/). "manual" arms POST /api/v1/autotune (an operator
+    # switches slots / decode-scan / kv-pages / kv-page-size / kv-dtype /
+    # mixed-batch / paged-attn under load: in-flight streams fold their
+    # generated tokens into their prompts and requeue with seniority and
+    # class kept, token-identical at f32 KV); "auto" also runs the policy
+    # controller over an offered-load regime -> config table
+    # (--autotune-policy, fitted offline by
+    # `python -m cake_tpu_torch.tools.autotune_fit`), with hysteresis,
+    # cooldown and a one-shot rollback guard
+    autotune: str = "off"
+    # --autotune-policy PATH: the piecewise policy table for --autotune
+    # auto (JSON {"version": 2, "regimes": [{"max_offered_rps": ...,
+    # "config": {...}}, ...]}; autotune/search.py)
+    autotune_policy: Optional[str] = None
+    # --sentinel: the online regression sentinel (obs/sentinel.py):
+    # rolling-window anomaly detectors over the engine's own rings
+    # (per-kind step-time p95 against a self-calibrated baseline, graph
+    # captures, kv spills, sheds, per-class SLO attainment), typed
+    # `anomaly` events, cake_anomaly_* metrics and GET /api/v1/anomalies
+    sentinel: bool = False
+    # --sentinel-interval S: the detectors' tick, seconds
+    sentinel_interval: float = 2.0
+    # --sentinel-act: close the loop (obs/actions.py): capture-storm and
+    # step-time anomalies hold new policy switches while active and pin
+    # the post-switch rollback verdict, each action typed on the bus,
+    # rate-bounded and counted in cake_anomaly_actions_total
+    sentinel_act: bool = False
+    # --profile-dir DIR: where POST /api/v1/profile writes its
+    # torch.profiler capture; None = a fresh temporary directory each
+    profile_dir: Optional[str] = None
+    # --postmortem-dir DIR: black-box forensics: breaker and
+    # failed-rebuild stops, poison quarantines and SIGTERM each dump one
+    # JSON bundle (step records, events, traces, anomaly and action
+    # history, stats, metrics, journal tail) here; tools/postmortem.py
+    # renders a bundle into a wall-clock narrative
+    postmortem_dir: Optional[str] = None
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --batch-size, --decode-scan, --spec-gamma,
+        int8 or int4; --batch-size, --max-slots, --decode-scan, --spec-gamma,
         --spec-rounds, --trace-ring and --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
@@ -170,10 +208,12 @@ class Args:
         refuses int8/int4 KV; --spec-draft excludes --draft-model and
         needs --kv-pages, float pages and the mixed loop; --kv-host-pages is
         at least 1; --fault-plan parses; --journal-fsync is never, batch
-        or always. Returns self."""
+        or always; --autotune is off, manual or auto, and auto needs a
+        --autotune-policy that loads; --sentinel-interval is above 0 and
+        --sentinel-act needs --sentinel. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        for knob in ("batch_size", "decode_scan", "spec_gamma",
+        for knob in ("batch_size", "max_slots", "decode_scan", "spec_gamma",
                      "spec_rounds", "trace_ring", "step_ring"):
             if getattr(self, knob) < 1:
                 raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
@@ -240,6 +280,28 @@ class Args:
             raise ValueError(
                 f"unsupported journal_fsync '{self.journal_fsync}' "
                 "(choose never, batch or always)")
+        if self.autotune not in ("off", "manual", "auto"):
+            raise ValueError(
+                f"unsupported autotune '{self.autotune}' "
+                "(choose off, manual or auto)")
+        if self.autotune == "auto":
+            if not self.autotune_policy:
+                raise ValueError(
+                    "--autotune auto requires --autotune-policy "
+                    "(fit one with python -m "
+                    "cake_tpu_torch.tools.autotune_fit)")
+            # parsed now: a malformed or missing policy is a startup
+            # error, not a crash after the model loaded
+            from cake_tpu_torch.autotune import PolicyTable
+            PolicyTable.load(self.autotune_policy)
+        if not self.sentinel_interval > 0:
+            raise ValueError(
+                f"--sentinel-interval {self.sentinel_interval} must "
+                "be > 0 seconds")
+        if self.sentinel_act and not self.sentinel:
+            raise ValueError(
+                "--sentinel-act requires --sentinel (nothing to act "
+                "on without the anomaly sentinel)")
         return self
 
 

@@ -53,6 +53,13 @@ class Master:
         a = self.args
         g = self.llm
         if isinstance(g, SpeculativeGenerator):
+            if a.autotune != "off":
+                # as the JAX master says it before it builds the dense
+                # spec engine, which has no hot-switch fold
+                log.warning("--autotune ignored with --draft-model: "
+                            "speculative serving has no hot-switch fold "
+                            "(the draft cache cannot be rebuilt "
+                            "mid-round)")
             raise NotImplementedError(
                 "--draft-model with --api needs the dense spec engine, not "
                 "ported to cake_tpu_torch yet (ROADMAP A11): serve "
@@ -93,6 +100,14 @@ class Master:
             recovery=a.recovery is not False,
             journal=a.journal,
             journal_fsync=a.journal_fsync,
+            # live reconfiguration, the sentinel, its action plane and
+            # the postmortem sink
+            autotune=a.autotune,
+            autotune_policy=a.autotune_policy,
+            sentinel=a.sentinel,
+            sentinel_interval=a.sentinel_interval,
+            sentinel_act=a.sentinel_act,
+            postmortem_dir=a.postmortem_dir,
             **self._spec_kwargs(),
         )
         kw.update(engine_kwargs)

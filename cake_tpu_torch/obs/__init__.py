@@ -17,8 +17,16 @@
     (`--slo-targets`).
   * `obs.jsonl` — the append-only, fail-open JSONL writer and the
     corrupt-tail-tolerant reader the logs share.
+  * `obs.sentinel` — online anomaly detectors over those rings
+    (`--sentinel`, `GET /api/v1/anomalies`).
+  * `obs.actions` — the action plane that turns anomalies into autotune
+    signals (`--sentinel-act`), and the postmortem bundles
+    (`--postmortem-dir`).
+  * `obs.timeline` — the per-request explain
+    (`GET /api/v1/requests/{rid}/timeline`).
 
-Not ported yet: the timeline, sentinel, actions and federation planes.
+Not ported yet: federation (ROADMAP A6c) and the router's halves of the
+sentinel, the actions and the timeline (A15).
 """
 
 from cake_tpu_torch.obs.events import EVENT_TYPES, Event, EventBus  # noqa: F401

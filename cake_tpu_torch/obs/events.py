@@ -15,9 +15,11 @@ the same names on both servers. The port's engine publishes
 ``preempted``, ``prefix_hit``, ``shed``, and through the host KV tier
 ``kv_spill``, ``kv_restore`` and ``resident_spilled``, through recovery
 ``recovered``, ``poisoned`` and ``fault_injected``, ``recompile`` at a
-graph capture, and through paged speculative decoding ``spec_round`` and
-``spec_degraded``; the rest belong to planes not ported yet (autotune,
-the router, disaggregated prefill).
+graph capture, through paged speculative decoding ``spec_round`` and
+``spec_degraded``, through a live switch ``reconfigured``, through the
+sentinel ``anomaly`` and through its action plane ``anomaly_action``;
+the rest belong to planes not ported yet (the router, disaggregated
+prefill).
 
 Cost discipline: publishers hold ``events = None`` when the bus is
 disabled (``--event-ring 0``) and every call site guards ``if <bus> is

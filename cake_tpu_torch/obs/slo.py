@@ -28,9 +28,9 @@ tok/s where every interactive request waited 4s is worse than one at
 The accountant is fed from ONE seam — ``RequestTracer.finish`` — so
 every retire path lands here with the trace record's OWN latencies:
 TTFT/e2e measured from the ORIGINAL admission, surviving preemption
-requeues (a requeue must never reset the clock). In the JAX package it
-also feeds the autotune controller (``ttft_p99_by_class()``,
-``attainment_by_class()``), which the port has not ported yet.
+requeues (a requeue must never reset the clock). It also feeds the
+autotune controller (``ttft_p99_by_class()``, ``attainment_by_class()``)
+and the sentinel's attainment detectors.
 """
 
 from __future__ import annotations
@@ -253,6 +253,23 @@ class SLOAccountant:
                        if now - t <= span]
                 if ent:
                     out[cls] = sum(1 for _t, met in ent if met) / len(ent)
+        return out
+
+    def ttft_p99_by_class(self, window: str = "1m",
+                          now: Optional[float] = None
+                          ) -> Dict[str, float]:
+        """class -> TTFT p99 seconds over the window (measured TTFTs
+        only) — the autotune controller's quality signal."""
+        span = dict(WINDOWS)[window]
+        now = self._clock() if now is None else now
+        out: Dict[str, float] = {}
+        with self._mu:
+            for cls, dq in self._window.items():
+                xs = sorted(tt for t, _met, tt, _tk in dq
+                            if tt is not None and now - t <= span)
+                if xs:
+                    out[cls] = xs[min(len(xs) - 1,
+                                      int(0.99 * len(xs)))]
         return out
 
     def refresh_gauges(self, now: Optional[float] = None) -> None:

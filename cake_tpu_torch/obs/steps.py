@@ -37,7 +37,10 @@ replays on the card, the wall on the CPU), clamped to 1.0 as in JAX
 HBM utilization is the counted bytes over the card's memory rate the
 same way. On the CPU the peaks are relative figures, as in JAX.
 
-Not ported yet: the live profiler capture behind `POST /api/v1/profile`.
+  * **Live profile capture** (`ProfileCapture`, behind
+    `POST /api/v1/profile`): a single-flight torch.profiler capture of
+    the next N seconds of the live process (utils/profiling.capture_trace),
+    where JAX captures a jax.profiler trace.
 """
 
 from __future__ import annotations
@@ -348,6 +351,16 @@ class StepTelemetry:
         self._bps = hbm_bps if hbm_bps is not None else hbm_bps_for(kind)
         self._events = events
 
+    def rebind(self, *, impl: Optional[str] = None) -> None:
+        """Re-tag this recorder after a live engine config switch
+        (serve/engine.reconfigure): the ring and the --step-log appender
+        survive, and the new config's records carry its attention impl.
+        The JAX recorder also moves its jit accountant's key prefix; the
+        port's captures are per runner, and a switch drops the runners,
+        so nothing else can alias across configs."""
+        if impl is not None:
+            self.impl = impl
+
     # -- captures -----------------------------------------------------------
 
     def count_capture(self, fn_name: str, seconds: float) -> None:
@@ -432,13 +445,32 @@ class StepTelemetry:
             recs = recs[:max(0, int(limit))]
         return [r.to_dict() for r in recs]
 
-    def utilization(self) -> Dict[str, float]:
-        """Wall-time-weighted mean MFU / HBM utilization over the ring's
-        decode-side records, leaving out records whose step captured a
-        graph. 0.0 when no remaining record carried a cost."""
+    def records_for(self, rid: int) -> List[Dict]:
+        """Ring records whose dispatched batch contained `rid`, oldest
+        first — the per-request explain's step stream (bounded by the
+        ring capacity, like every other dump)."""
         with self._lock:
             recs = [r for r in self._ring
-                    if r.kind in _DECODE_KINDS and not r.compiled]
+                    if r.rids is not None and rid in r.rids]
+        return [r.to_dict() for r in recs]
+
+    def utilization(self, since_step: int = 0, *,
+                    include_prefill: bool = False) -> Dict[str, float]:
+        """Wall-time-weighted mean MFU / HBM utilization over the ring's
+        decode-side records (decode / decode_scan / spec / mixed),
+        leaving out records whose step captured a graph.
+        include_prefill=True widens it to the phase-split prefill
+        records too (the autotune signal gather: a mixed record folds
+        its chunks' prefill work in, so the other loop must count the
+        same work); since_step drops every record up to a warm-up
+        boundary (a `summary()["recorded_steps"]` read then). 0.0 when
+        no remaining record carried a cost."""
+        kinds = _DECODE_KINDS + ("prefill",) if include_prefill \
+            else _DECODE_KINDS
+        with self._lock:
+            recs = [r for r in self._ring
+                    if r.kind in kinds and not r.compiled
+                    and r.step > since_step]
         out = {"mfu": 0.0, "hbm_util": 0.0}
         for field in ("mfu", "hbm_util"):
             num = den = 0.0
@@ -481,3 +513,52 @@ class StepTelemetry:
     def close(self) -> None:
         if self._log is not None:
             self._log.close()
+
+
+# -- on-demand profiler capture ----------------------------------------------
+
+
+class ProfileBusyError(RuntimeError):
+    """A capture is already running (the single-flight guard). The API
+    layer maps this to HTTP 409."""
+
+
+class ProfileCapture:
+    """Single-flight torch.profiler capture from a live process.
+
+    The profiler supports one active session per process; a second
+    concurrent capture would raise from inside it (or corrupt the first
+    trace), so the guard rejects it up front with ProfileBusyError."""
+
+    MAX_SECONDS = 120.0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    @property
+    def busy(self) -> bool:
+        # advisory only (the real gate is the non-blocking acquire)
+        return self._lock.locked()
+
+    def capture(self, seconds: float, out_dir: Optional[str] = None,
+                run=None) -> Dict:
+        """One capture of the next `seconds` (utils/profiling.
+        capture_trace; `run` places the profiler's start and stop)."""
+        try:
+            seconds = float(seconds)
+        except (TypeError, ValueError):
+            raise ValueError("seconds must be a number")
+        if not (0 < seconds <= self.MAX_SECONDS):
+            raise ValueError(
+                f"seconds must be in (0, {self.MAX_SECONDS:.0f}]")
+        if not self._lock.acquire(blocking=False):
+            raise ProfileBusyError(
+                "a profiler capture is already in progress")
+        try:
+            from cake_tpu_torch.utils.profiling import capture_trace
+            return capture_trace(seconds, out_dir, run=run)
+        finally:
+            self._lock.release()
+
+
+PROFILER = ProfileCapture()

@@ -94,6 +94,11 @@ class TraceRecord:
     # include a "reconfigured" event is attributable to both configs —
     # admitted under this epoch, finished under a later one
     config_epoch: int = 0
+    # the originating distributed-trace id (x-cake-trace, minted by a
+    # front-door router or a client; the router is ROADMAP A15), the key
+    # a fleet timeline would correlate this record under; None without
+    # trace context
+    trace: Optional[str] = None
     wall_start: float = 0.0
     _last_token_t: float = 0.0
 
@@ -164,6 +169,8 @@ class TraceRecord:
             out["resumed"] = True
         if self.truncated:
             out["truncated"] = True
+        if self.trace:
+            out["trace"] = self.trace
         return out
 
 
@@ -205,12 +212,12 @@ class RequestTracer:
 
     def admit(self, rid: int, prompt_tokens: int,
               max_new_tokens: int, priority: str = "standard",
-              config_epoch: int = 0) -> None:
+              config_epoch: int = 0, trace: Optional[str] = None) -> None:
         now = time.perf_counter()
         rec = TraceRecord(rid=rid, prompt_tokens=prompt_tokens,
                           max_new_tokens=max_new_tokens,
                           priority=priority,
-                          config_epoch=config_epoch,
+                          config_epoch=config_epoch, trace=trace,
                           wall_start=time.time())
         rec.spans.append(("admitted", now))
         rec.spans.append(("queued", now))
@@ -356,6 +363,40 @@ class RequestTracer:
             recs = recs[:max(0, int(limit))]
         return [r.to_dict() for r in recs]
 
+    def _find(self, rid: int) -> Optional[TraceRecord]:
+        """The record of `rid`, active or finished (caller holds the
+        lock)."""
+        rec = self._active.get(rid)
+        if rec is None:
+            rec = next((r for r in self._done if r.rid == rid), None)
+        return rec
+
+    def get(self, rid: int) -> Optional[Dict]:
+        """One record by rid (active or finished), or None — the
+        timeline endpoint's lookup."""
+        with self._lock:
+            rec = self._find(rid)
+            return rec.to_dict() if rec is not None else None
+
+    def trace_for(self, rid: int) -> Optional[str]:
+        """The distributed-trace id the request was admitted under, or
+        None — the event bus's per-publish annotation resolver."""
+        with self._lock:
+            rec = self._find(rid)
+            return rec.trace if rec is not None else None
+
+    def recent_ttfts(self, n: int = 32) -> List[float]:
+        """TTFT seconds of the newest <= n finished-and-retired requests
+        (the autotune controller's arrival-latency signal: one pass over
+        the bounded ring's tail)."""
+        out: List[float] = []
+        with self._lock:
+            recs = list(self._done)[-max(1, int(n)):]
+        for r in recs:
+            if r.status == "retired" and r.ttft_s is not None:
+                out.append(r.ttft_s)
+        return out
+
     @property
     def active_count(self) -> int:
         with self._lock:
@@ -372,5 +413,7 @@ class RequestTracer:
             return
         line = {"ts": round(time.time(), 6), "rid": rec.rid,
                 "event": event}
+        if rec.trace:
+            line["trace"] = rec.trace
         line.update({k: v for k, v in fields.items() if v is not None})
         self._events.append(line)

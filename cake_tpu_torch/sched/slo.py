@@ -145,6 +145,22 @@ class SLOScheduler:
 
     # -- SLO extensions ----------------------------------------------------
 
+    def resize(self, max_slots: int) -> None:
+        """Change the decode-slot count in place — the live engine
+        reconfiguration seam (serve/engine.reconfigure): every active
+        request must already be requeued (seniority-preserving), so only
+        the free-slot map changes. Queued entries, enqueue times and
+        preemption counts are untouched."""
+        if max_slots <= 0:
+            raise ValueError("max_slots must be positive")
+        with self._mu:
+            if self._active:
+                raise RuntimeError(
+                    f"resize with {self._active} active request(s): "
+                    "requeue them first (reconfigure does)")
+            self.max_slots = max_slots
+            self._slots = [0] * max_slots
+
     def requeue(self, rid: int, prompt_len: int, max_new_tokens: int,
                 preempted: bool = False) -> bool:
         """Move an ACTIVE request back to its class queue, preserving
@@ -206,6 +222,21 @@ class SLOScheduler:
                 return False
             return ((self._score(ea, now), ea["seq"])
                     < (self._score(eb, now), eb["seq"]))
+
+    def queue_pressure(self, now: Optional[float] = None) -> float:
+        """Dimensionless admission pressure for the autotune signal
+        gather (AutotuneSignals.queue_pressure): the largest aging a
+        queued request has accumulated, in rank steps — 0.0 when the
+        queue is empty, 1.0 when some request has waited one full
+        aging_s, climbing without bound as the backlog ages."""
+        now = time.monotonic() if now is None else now
+        with self._mu:
+            if not self._queued:
+                return 0.0
+            return max(
+                max(0.0, now - self._reqs[r]["enq_t"])
+                / self._reqs[r]["aging_s"]
+                for r in self._queued)
 
     def class_depths(self) -> Dict[str, int]:
         """Queued requests per class (the cake_queue_depth gauge)."""

@@ -157,13 +157,38 @@ def snapshot_requests(engine) -> List[Dict]:
 def snapshot(engine, requests: Optional[List[Dict]] = None) -> Dict:
     """Capture the engine's request state (stopped, or quiesced: the
     engine thread mutates requests every step). requests: records
-    captured earlier with snapshot_requests (the pre-fail path)."""
-    return {
+    captured earlier with snapshot_requests (the pre-fail path).
+
+    Beside the records, outside the fingerprint (informational, as in
+    JAX): the live engine config and its autotune epoch (a snapshot
+    restores into a DIFFERENT config token-identically, so the config
+    never gates a resume), and the sentinel's calibrated baselines (a
+    restart adopts them instead of re-learning what normal looks
+    like)."""
+    snap = {
         "version": SNAPSHOT_VERSION,
         "engine": _fingerprint(engine),
         "requests": (snapshot_requests(engine) if requests is None
                      else requests),
     }
+    cfg_fn = getattr(engine, "current_config", None)
+    if cfg_fn is not None:
+        try:
+            snap["engine_config"] = cfg_fn().to_dict()
+            snap["config_epoch"] = getattr(engine, "config_epoch", 0)
+        except Exception:  # noqa: BLE001 — metadata, never the save
+            log.debug("snapshot: engine config capture failed",
+                      exc_info=True)
+    sen = getattr(engine, "sentinel", None)
+    if sen is not None:
+        try:
+            baselines = sen.export_baselines()
+            if baselines:
+                snap["sentinel_baselines"] = baselines
+        except Exception:  # noqa: BLE001 — metadata, never the save
+            log.debug("snapshot: sentinel baseline capture failed",
+                      exc_info=True)
+    return snap
 
 
 def write(snap: Dict, path: str) -> None:
@@ -243,6 +268,16 @@ def resume(engine, snap: Dict, strict: bool = True) -> Tuple[List, List[Dict]]:
         if strict:
             raise ValueError(msg)
         log.warning("%s (resuming anyway)", msg)
+    # the sentinel adopts the saved baselines BEFORE the load comes back:
+    # a restored detector must not calibrate on resume-storm traffic
+    # (best-effort: telemetry never gates a resume)
+    sen = getattr(engine, "sentinel", None)
+    if sen is not None:
+        try:
+            sen.restore_baselines(snap.get("sentinel_baselines"))
+        except Exception:  # noqa: BLE001
+            log.debug("resume: sentinel baseline restore failed",
+                      exc_info=True)
     handles, finished = [], []
     for rec in snap["requests"]:
         try:

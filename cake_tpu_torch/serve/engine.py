@@ -70,6 +70,22 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     submit to its stream, the runtime checkpoint (serve/checkpoint.py,
     `shutdown_save`, the pre-fail snapshot), and drain (`begin_drain`:
     new submits raise DrainingError while in-flight work finishes);
+  * live reconfiguration (`autotune`, --autotune manual | auto;
+    autotune/): `reconfigure` hot-switches the engine to another
+    EngineConfig (slots, --decode-scan, pool pages, page size, KV dtype,
+    mixed batching, attention impl) between iterations: every in-flight
+    stream folds its generated tokens into its prompt, the old pool and
+    its captured graphs are freed before the new ones are allocated and
+    captured, and every request requeues with its seniority, so greedy
+    streams finish token-identical at f32; `auto` runs the policy
+    controller from the loop (`_autotune_tick`);
+  * the control plane of obs/: the anomaly sentinel (`sentinel`,
+    --sentinel; obs/sentinel.py) over the engine's own rings, its action
+    plane (--sentinel-act; obs/actions.py), which can hold or roll back
+    a switch, the per-request timeline (`request_timeline`;
+    obs/timeline.py) and the black-box postmortem bundles
+    (--postmortem-dir), written at a breaker or failed-rebuild stop and
+    at a poison quarantine;
   * paged speculative decoding (`spec_draft_params`, --spec-draft;
     spec/): a draft model's KV lives in a second pool of the same page
     geometry whose pages come from the one allocator; a decoding row
@@ -104,9 +120,9 @@ Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
 (`_run_on_engine_thread`). Not ported yet: the dense-cache engine and
-its spec mode (--draft-model behind --api), autotune, disaggregated
-prefill and multi-host (the control channel and its lockstep
-followers), and the postmortem bundles.
+its spec mode (--draft-model behind --api), disaggregated prefill,
+multi-host (the control channel and its lockstep followers) and the
+fleet telemetry (federation, ROADMAP A6c).
 """
 
 from __future__ import annotations
@@ -122,6 +138,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cake_tpu_torch.autotune.space import resolve_paged_attn
 from cake_tpu_torch.autotune.spec import SpecGammaTuner
 from cake_tpu_torch.faults import build_injector
 from cake_tpu_torch.faults.plan import InjectedFault
@@ -374,6 +391,10 @@ class EngineStats:
     # paged speculative decoding: drafts offered / kept across all slots
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # live reconfiguration: switches applied, and the autonomous ones the
+    # rollback guard reverted
+    config_switches: int = 0
+    config_rollbacks: int = 0
 
     @property
     def spec_acceptance(self) -> float:
@@ -443,6 +464,13 @@ class InferenceEngine:
         spec_gamma: int = 4,
         draft_params=None,
         draft_config: Optional[LlamaConfig] = None,
+        autotune: Optional[str] = None,
+        autotune_policy=None,
+        autotune_config=None,
+        sentinel: bool = False,
+        sentinel_interval: float = 2.0,
+        sentinel_act: bool = False,
+        postmortem_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -498,10 +526,10 @@ class InferenceEngine:
         if impl not in ATTN_IMPLS:
             raise ValueError(
                 f"--paged-attn must be one of {ATTN_IMPLS}, got {impl!r}")
-        if impl == "kernel" and self.device.type != "cuda":
-            raise ValueError("--paged-attn kernel needs a CUDA device: the "
-                             "ragged paged-attention kernels run only on "
-                             "the card")
+        # "auto" resolves by the ONE rule the autotuner's comparison key
+        # uses too (autotune/space.resolve_paged_attn): the kernels on a
+        # card, their plain versions on the CPU
+        impl = self._check_attn(resolve_paged_attn(impl, self.device))
         if decode_scan_steps < 1:
             raise ValueError(
                 f"--decode-scan must be >= 1, got {decode_scan_steps}")
@@ -539,6 +567,12 @@ class InferenceEngine:
         # "f8_e5m2") included; None keeps cache_dtype
         self._quant_cache = QUANTIZED_CACHES.get(kv_dtype)
         self.kv_quant = self._quant_cache is not None
+        # the --kv-dtype name and the cache dtype an unset one follows:
+        # what current_config reports and a live switch resolves against
+        self._kv_dtype_name = kv_dtype
+        self._base_cache_dtype = cache_dtype
+        self._kv_host_pages = kv_host_pages
+        self._max_queue = max_queue
         self._pool_dtype = (resolve_kv_dtype(kv_dtype)
                             if kv_dtype is not None and not self.kv_quant
                             else cache_dtype)
@@ -581,16 +615,7 @@ class InferenceEngine:
                      "(%.2f GiB), gamma=%d", kv_pages, kv_page_size,
                      self.d_cache.memory_bytes() / 2**30, spec_gamma)
 
-        # the step cost's constants (obs/steps.step_cost): the weights a
-        # forward pass reads at their stored size, the embedding left
-        # out (a pass gathers one row a token of it), and the pool's
-        # bytes a token (scales and the sink page's share included)
-        self._weight_bytes = (params_bytes(params)
-                              - params_bytes(params["embed"]))
-        self._embed_row_bytes = (params_bytes(params["embed"])
-                                 // config.vocab_size)
-        self._kv_bytes_per_token = self.cache.memory_bytes() / (
-            (self.cache.n_pages + 1) * self.cache.page_size)
+        self._cost_constants()
 
         # the event bus (obs/events.py): preemption, prefix hits,
         # shedding and graph captures publish request-linked events
@@ -720,6 +745,15 @@ class InferenceEngine:
         self.flight = obs_steps.StepTelemetry(
             impl=f"paged-{impl}", capacity=step_ring, log_path=step_log,
             kind=obs_steps.device_kind(self.device), events=self.events)
+        # the anomaly sentinel (--sentinel, obs/sentinel.py): rolling-
+        # window detectors over the flight recorder, the event bus and
+        # the SLO accountant, ticked from a daemon thread between start()
+        # and stop(); it reads host numbers only. None without the flag
+        self.sentinel = None
+        if sentinel:
+            from cake_tpu_torch.obs.sentinel import attach_engine_sentinel
+            self.sentinel = attach_engine_sentinel(
+                self, interval_s=sentinel_interval)
         # the last retired requests, newest last (bench and smoke stats)
         self.retired: deque = deque(maxlen=1024)
 
@@ -757,6 +791,104 @@ class InferenceEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._setup_control_plane(autotune, autotune_policy,
+                                  autotune_config, sentinel_act,
+                                  postmortem_dir)
+
+    def _setup_control_plane(self, autotune, autotune_policy,
+                             autotune_config, sentinel_act: bool,
+                             postmortem_dir: Optional[str]) -> None:
+        """Live reconfiguration (--autotune off | manual | auto), the
+        action plane (--sentinel-act) and the postmortem sink
+        (--postmortem-dir), as the JAX engine's constructor wires them.
+        `manual` arms POST /api/v1/autotune; `auto` also runs the policy
+        controller from the engine loop (_autotune_tick). The switch seam
+        (reconfigure) exists whatever the mode: tests drive it directly."""
+        self.config_epoch = 0
+        # guards the in-flight flag only; the switch itself runs under
+        # _admit_lock, the lock submit() registers under
+        self._switch_lock = threading.Lock()
+        self._switch_inflight = False
+        self._switch_log: deque = deque(maxlen=64)
+        mode = autotune or "off"
+        if mode not in ("off", "manual", "auto"):
+            raise ValueError(
+                f"--autotune must be off, manual or auto, got {mode!r}")
+        if mode != "off" and not self._reconfig_supported():
+            log.warning("--autotune disabled: %s", self._reconfig_refusal())
+            mode = "off"
+        self.autotune_mode = mode
+        if mode != "off":
+            # the startup config through the info gauge: the "live
+            # effective config" holds before (and without) any switch
+            from cake_tpu_torch.autotune import set_config_info
+            set_config_info(self.current_config())
+        self._autotuner = None
+        self._autotune_last = 0.0
+        # (t, submitted, completed, tokens, shed) for the signal deltas
+        self._autotune_prev: Optional[tuple] = None
+        if mode == "auto":
+            from cake_tpu_torch.autotune import (
+                AutotuneController, ControllerConfig, PolicyTable,
+            )
+            if autotune_policy is None:
+                raise ValueError(
+                    "--autotune auto requires --autotune-policy (fit one "
+                    "with python -m cake_tpu_torch.tools.autotune_fit)")
+            if isinstance(autotune_policy, str):
+                policy = PolicyTable.load(autotune_policy)
+            elif isinstance(autotune_policy, dict):
+                policy = PolicyTable.from_dict(autotune_policy).validate()
+            else:
+                policy = autotune_policy
+            policy.validate(max_seq_len=self.max_seq_len)
+            self._autotuner = AutotuneController(
+                policy, self.current_config(),
+                config=autotune_config or ControllerConfig())
+            log.info("autotune: auto mode, %d policy regime(s), interval "
+                     "%.1fs", len(policy.regimes),
+                     self._autotuner.config.interval_s)
+        # the action plane (--sentinel-act): sentinel anomalies become
+        # autotune signals with a typed, rate-bounded audit trail
+        self._actions = None
+        if sentinel_act:
+            if self.sentinel is None:
+                raise ValueError(
+                    "--sentinel-act requires --sentinel (nothing to act on "
+                    "without the anomaly sentinel)")
+            from cake_tpu_torch.obs.actions import (
+                ActionPlane, EngineAnomalyActuator,
+            )
+            self._actions = ActionPlane(events=self.events)
+            EngineAnomalyActuator(self, self._actions).attach(self.sentinel)
+        # the black-box postmortem sink (--postmortem-dir): breaker and
+        # failed-rebuild stops, poison quarantines and SIGTERM dump one
+        # bundle each (tools/postmortem.py renders them)
+        self._postmortem = None
+        if postmortem_dir:
+            from cake_tpu_torch.obs.actions import PostmortemSink
+            self._postmortem = PostmortemSink(postmortem_dir)
+
+    def _check_attn(self, impl: str) -> str:
+        """A resolved attention impl the engine's device can run."""
+        if impl == "kernel" and self.device.type != "cuda":
+            raise ValueError("--paged-attn kernel needs a CUDA device: the "
+                             "ragged paged-attention kernels run only on "
+                             "the card")
+        return impl
+
+    def _cost_constants(self) -> None:
+        """The step cost's constants (obs/steps.step_cost), recomputed
+        after a live switch: the weights a forward pass reads at their
+        stored size, the embedding left out (a pass gathers one row a
+        token of it), and the pool's bytes a token (scales and the sink
+        page's share included)."""
+        self._weight_bytes = (params_bytes(self.params)
+                              - params_bytes(self.params["embed"]))
+        self._embed_row_bytes = (params_bytes(self.params["embed"])
+                                 // self.config.vocab_size)
+        self._kv_bytes_per_token = self.cache.memory_bytes() / (
+            (self.cache.n_pages + 1) * self.cache.page_size)
 
     def _seed_values(self) -> torch.Tensor:
         """Slot b's stream seed (host): the reset count folds in, so the
@@ -800,9 +932,13 @@ class InferenceEngine:
             self._thread = threading.Thread(target=self._run, daemon=True,
                                             name="cake-engine")
             self._thread.start()
+            if self.sentinel is not None:
+                self.sentinel.start()
         return self
 
     def stop(self, timeout: float = 10.0) -> None:
+        if self.sentinel is not None:
+            self.sentinel.close()
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -935,6 +1071,16 @@ class InferenceEngine:
             prev = self._attach_idempotent(key, req.stream)
             if prev is not None:
                 return prev
+        need = self._pager.pages_for(len(req.prompt_ids)
+                                     + req.max_new_tokens)
+        if need > self._pager.n_pages:
+            # submit() checked the pool it saw; a live switch to a
+            # smaller pool may have landed since (this lock is the one
+            # the switch holds)
+            raise ValueError(
+                f"request needs {need} kv pages; the pool has "
+                f"{self._pager.n_pages} total (raise --kv-pages or lower "
+                "max_tokens)")
         if self._draining and not replay:
             # admissions are closed; a resume's resubmits still land
             raise DrainingError(self._drain_eta_s())
@@ -960,13 +1106,16 @@ class InferenceEngine:
         if self._journal is not None:
             # write-ahead: the admit record lands before the engine
             # thread can see the request (a refusal below tombstones it)
-            self._journal.note_admit(req)
+            self._journal.note_admit(req, self.config_epoch)
         # register (and trace) BEFORE scheduler.submit: the engine
         # thread may plan the rid immediately, and an unknown rid counts
         # as cancelled
         n_ids, max_new = len(req.prompt_ids), req.max_new_tokens
         self._requests[rid] = req
-        self.tracer.admit(rid, n_ids, max_new, priority=cls)
+        # config_epoch attributes the trace to the engine config that
+        # admitted it (a live switch bumps the epoch)
+        self.tracer.admit(rid, n_ids, max_new, priority=cls,
+                          config_epoch=self.config_epoch)
         ok = (self.scheduler.submit(rid, n_ids, max_new, priority=cls)
               if self._slo else
               self.scheduler.submit(rid, n_ids, max_new))
@@ -1394,6 +1543,10 @@ class InferenceEngine:
         while not self._stop.is_set():
             self._drain_cancellations()
             self._drain_commands()
+            if self._autotuner is not None:
+                # between iterations only: a switch folds every slot, so
+                # it never lands mid-wave; off-interval it is a no-op
+                self._autotune_tick()
             if self._slo and self._preemption:
                 # between iterations only: every burst has been fetched
                 # and no step reads a table row this releases, except
@@ -1549,13 +1702,20 @@ class InferenceEngine:
                             trigger: str = "engine_stop") -> bool:
         """The tail of every stop branch: fail the waiting clients (when
         the caller has not), write the pre-fail snapshot from the
-        failure's capture, stop the engine thread. `trigger` names the
-        terminal cause for the postmortem bundle, which is not ported
-        (the seam stays here). Always False (the engine must stop)."""
+        failure's capture, dump the postmortem bundle (--postmortem-dir;
+        `trigger` names the terminal cause), stop the engine thread.
+        Always False (the engine must stop)."""
         if err is not None:
             self._fail_all(err)
         with self._ckpt_lock:
             self._snapshot_before_fail(requests=recs)
+        if self._postmortem is not None:
+            # terminal: always leaves a bundle, even right after an
+            # interval-bounded poison dump
+            self._postmortem.dump(
+                trigger, engine=self,
+                reason=str(err) if err is not None
+                else self.stats.last_error, force=True)
         log.error("engine stopped (%s): %s", trigger, self.stats.last_error)
         self._stop.set()
         return False
@@ -1685,6 +1845,12 @@ class InferenceEngine:
                                     crashes=req.crash_count)
             log.error("quarantined rid=%d as poison (%s): %s",
                       req.rid, poison_reason, err)
+            if self._postmortem is not None:
+                # interval-bounded (not forced): a quarantine cascade
+                # leaves ONE bundle, not one a rid
+                self._postmortem.dump(
+                    "poison", engine=self,
+                    reason=f"rid={req.rid} {poison_reason}: {err}")
         self.tracer.finish(req.rid, "error", error=str(err),
                            output_tokens=len(req.out_tokens))
         req.done.set()
@@ -1804,6 +1970,21 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         n_pages, page_size = self._pager.n_pages, self._pager.page_size
+        self._drop_device_state()
+        self._reset_host_state(n_pages, page_size)
+        self.cache = self._new_cache(n_pages, page_size)
+        if self._specp is not None:
+            self.d_cache = self._new_draft_cache()
+        # new rings and random streams; the runners capture anew over
+        # the new pool
+        self._fresh_sampling_state()
+
+    def _drop_device_state(self) -> None:
+        """Drop every reference to the pool and the graphs that hold it:
+        the runners, their graphs' memory pool, the pending mixed
+        records, the sampling state and the pools (the caller allocates
+        the new ones after this, so it needs one pool's memory, not
+        two)."""
         self._runner = None
         self._mixed_runner = None
         self._prefill_runner = None
@@ -1814,13 +1995,6 @@ class InferenceEngine:
         self._ring = self._seeds = self._counters = None
         self.cache = None
         self.d_cache = None
-        self._reset_host_state(n_pages, page_size)
-        self.cache = self._new_cache(n_pages, page_size)
-        if self._specp is not None:
-            self.d_cache = self._new_draft_cache()
-        # new rings and random streams; the runners capture anew over
-        # the new pool
-        self._fresh_sampling_state()
 
     def _reset_host_state(self, n_pages: int, page_size: int) -> None:
         """The host side of a reset: the host tier, the allocator, the
@@ -3574,6 +3748,489 @@ class InferenceEngine:
             self.tracer.finish(rid, "error", error=str(err),
                                output_tokens=len(req.out_tokens))
             req.done.set()
+
+    # -- per-request explain (obs/timeline.py) ----------------------------------
+
+    def request_timeline(self, rid: int) -> Optional[dict]:
+        """GET /api/v1/requests/{rid}/timeline: one merged, time-ordered
+        view of the request's trace spans, its event-bus events and the
+        step records whose batch contained it, so a slow TTFT reads as
+        its causes (preempted twice, a prefix spilled then restored,
+        folded by a config switch, ...). None when the rid is unknown
+        (never admitted, or out of the finished ring): the API's 404.
+        The fleet merge (federation) is ROADMAP A6c."""
+        from cake_tpu_torch.obs.timeline import build_timeline
+        trace = self.tracer.get(rid)
+        if trace is None:
+            return None
+        events = (self.events.dump(rid=rid)
+                  if self.events is not None else [])
+        return build_timeline(trace, events, self.flight.records_for(rid))
+
+    # -- live reconfiguration (autotune/) ---------------------------------------
+
+    def _reconfig_supported(self) -> bool:
+        return self._specp is None
+
+    def _reconfig_refusal(self) -> str:
+        return ("paged speculative serving has no hot-switch fold (the "
+                "draft pool shares the page allocator a switch would swap "
+                "wholesale)")
+
+    def current_config(self):
+        """The LIVE effective engine config as an autotune point
+        (autotune/space.EngineConfig): what /api/v1/health and
+        GET /api/v1/autotune report. The storage name is reported only
+        when it differs from what an unset --kv-dtype resolves to, so a
+        policy config omitting kv_dtype compares equal."""
+        from cake_tpu_torch.autotune.space import EngineConfig
+        kv_dtype = None
+        if self.kv_quant or self._pool_dtype != self._base_cache_dtype:
+            kv_dtype = self._kv_dtype_name
+        return EngineConfig(
+            slots=self.max_slots,
+            decode_scan=self._decode_scan,
+            kv_pages=self._pager.n_pages,
+            kv_page_size=self._pager.page_size,
+            kv_dtype=kv_dtype,
+            mixed_batch="on" if self._mixed else "off",
+            paged_attn=self.paged_attn)
+
+    def reconfigure(self, config, reason: str = "manual") -> bool:
+        """Hot-switch the engine to a new EngineConfig under live load:
+        every in-flight request folds its generated tokens into its
+        prompt (the recovery resubmit minus backoff and implication),
+        the pool and its graphs are dropped and rebuilt under the new
+        knobs, and everything requeues with seniority, class and
+        preemption budget kept. Greedy streams finish token-identical at
+        f32 KV across the switch, shared-prefix slots included.
+
+        Thread-safe: routed onto the engine thread between iterations
+        when the engine runs; a concurrent switch raises
+        SwitchInFlightError (the API's 409). An invalid or refused
+        config, or a rebuild that failed and restored the previous
+        config, raises ValueError (the API's 400). Returns True when a
+        switch happened, False for a no-op (already at `config`)."""
+        from cake_tpu_torch.autotune.space import EngineConfig
+        from cake_tpu_torch.serve.errors import SwitchInFlightError
+        cfg = (config if isinstance(config, EngineConfig)
+               else EngineConfig.from_dict(dict(config)))
+        if (self._thread is not None and self._thread.is_alive()
+                and threading.current_thread() is not self._thread):
+            with self._switch_lock:
+                if self._switch_inflight:
+                    raise SwitchInFlightError(
+                        "a config switch is already in flight")
+                self._switch_inflight = True
+            try:
+                return self._run_on_engine_thread(
+                    lambda: self._reconfigure_sync(cfg, reason))
+            finally:
+                with self._switch_lock:
+                    self._switch_inflight = False
+        return self._reconfigure_sync(cfg, reason)
+
+    def _config_key(self, cfg) -> tuple:
+        """The comparison key as this engine resolves it: an unset
+        kv_dtype is the base cache dtype, "auto" the device's impl."""
+        from cake_tpu_torch.autotune.space import config_key
+        return config_key(
+            cfg, default_kv_dtype=str(self._base_cache_dtype).replace(
+                "torch.", ""), device=self.device)
+
+    def _reconfigure_sync(self, new, reason: str) -> bool:
+        """The engine-thread body of reconfigure(), between iterations."""
+        from cake_tpu_torch.autotune import (
+            SWITCH_SECONDS, SWITCHES, set_config_info,
+        )
+        from cake_tpu_torch.autotune.space import (
+            switch_guard, validate_config,
+        )
+        cur = self.current_config()
+        if self._config_key(new) == self._config_key(cur):
+            return False
+        if not self._reconfig_supported():
+            raise ValueError("live reconfiguration is unavailable: "
+                             + self._reconfig_refusal())
+        guard = switch_guard(cur, new)
+        if guard is not None:
+            raise ValueError(guard)
+        validate_config(new, max_seq_len=self.max_seq_len)
+        self._check_attn(resolve_paged_attn(new.paged_attn, self.device))
+        t0 = time.perf_counter()
+        # the whole mutation runs under _admit_lock, the lock submit()
+        # registers under: an admission lands fully before this switch
+        # (fit-checked below and carried) or fully after it (checked
+        # against the NEW pool), never half-registered across the swap
+        with self._admit_lock:
+            # ZERO dropped streams: refuse a pool an in-flight request
+            # does not fit (the bound submit() enforces at admission)
+            per = new.kv_page_size
+            for req in list(self._requests.values()):
+                if req.done.is_set():
+                    continue
+                need = -(-(len(req.prompt_ids) + req.max_new_tokens)
+                         // per)
+                if need > new.kv_pages:
+                    raise ValueError(
+                        f"refusing switch: rid={req.rid} needs {need} kv "
+                        f"pages, the proposed pool has {new.kv_pages} (no "
+                        "stream may be dropped)")
+            self._quiesce()
+            folded = self._prepare_fold(new)
+            applied, apply_err = new, None
+            try:
+                self._apply_exec_config(new)
+            except Exception as e:  # noqa: BLE001 — e.g. the new pool
+                # does not fit the card after the old one was freed:
+                # restore the OLD geometry (an empty pool: the folded
+                # streams re-prefill from token ids either way) instead
+                # of leaving the engine poolless
+                log.exception("reconfigure rebuild failed; restoring the "
+                              "previous config")
+                # the frames hold whatever the failed rebuild allocated
+                traceback.clear_frames(e.__traceback__)
+                applied, apply_err = cur, e
+                self._apply_exec_config(cur)
+            carried = self._requeue_folded(applied, folded)
+        if apply_err is not None:
+            self._wake.set()
+            raise ValueError(
+                f"switch to {new.to_dict()} failed; previous config "
+                f"restored with {carried} stream(s) requeued: "
+                f"{type(apply_err).__name__}: {apply_err}") from apply_err
+        self.config_epoch += 1
+        self.stats.config_switches += 1
+        dt = time.perf_counter() - t0
+        SWITCHES.labels(reason=reason).inc()
+        SWITCH_SECONDS.observe(dt)
+        set_config_info(self.current_config())
+        self._switch_log.append({
+            "t": round(time.time(), 3), "reason": reason,
+            "from": cur.to_dict(), "to": new.to_dict(),
+            "seconds": round(dt, 4), "carried": carried,
+            "epoch": self.config_epoch})
+        if self.events is not None:
+            # the engine-level summary beside the per-request events
+            self.events.publish("reconfigured", reason=reason,
+                                epoch=self.config_epoch, carried=carried,
+                                seconds=round(dt, 4), to=new.to_dict())
+        if self._autotuner is not None and reason == "manual":
+            # keep the controller's "current" in step with an operator's
+            # switch; a manual reason never arms the rollback guard
+            self._autotuner.on_switched(
+                new, cur, self._autotuner.window_service_tps(), reason)
+        log.warning("engine reconfigured (%s) in %.3fs: %s -> %s, %d "
+                    "stream(s) carried (epoch %d)", reason, dt,
+                    cur.to_dict(), new.to_dict(), carried,
+                    self.config_epoch)
+        self._wake.set()
+        return True
+
+    def _quiesce(self) -> None:
+        """Nothing of the old config may still run when its pool goes: a
+        chained --decode-scan burst or a chunk-only mixed step may still
+        be on the stream, so wait for it, then record the mixed steps
+        dispatched and not yet counted."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._count_mixed_time()
+
+    def _storage_name(self) -> str:
+        """The LIVE pool's storage name ("int8"/"int4", else the dtype's
+        name): the identity a host-tier entry's raw slices are bound to."""
+        if self.kv_quant:
+            return self._kv_dtype_name
+        return str(self._pool_dtype).replace("torch.", "")
+
+    def _target_storage_name(self, new) -> str:
+        """What _apply_exec_config resolves `new`'s storage to."""
+        if new.kv_dtype in QUANTIZED_CACHES:
+            return new.kv_dtype
+        dt = (resolve_kv_dtype(new.kv_dtype) if new.kv_dtype is not None
+              else self._base_cache_dtype)
+        return str(dt).replace("torch.", "")
+
+    def _host_tier_survives(self, new) -> bool:
+        """Whether spilled host-tier entries stay valid across a switch
+        to `new`: the same page size and storage, so a rebuilt pool
+        installs them verbatim (the page COUNT may change: entries hold
+        contents, not page ids)."""
+        return (new.kv_page_size == self._pager.page_size
+                and self._target_storage_name(new) == self._storage_name())
+
+    def _prepare_fold(self, new) -> set:
+        """The host half of the fold: clear every slot's mapping and
+        release its pages through the OLD allocator, and drop what the
+        old pool's bytes back (spilled pages a new layout cannot take,
+        the prefix registry). Every unfinished request is then slotless
+        and re-prefills from token ids, whether the rebuild lands `new`
+        or rolls back to the old geometry. Returns the rids that held
+        slots: the streams the switch folds (queued requests ride
+        along)."""
+        folded = set()
+        for slot in range(self.max_slots):
+            req = self._slot_req[slot]
+            self._slot_req[slot] = None
+            if req is not None:
+                req.slot = -1
+                folded.add(req.rid)
+            self._release_slot_pages(slot)
+        self._mixed_pending = {}
+        self._page_blocked_rid = None
+        self._pending_page_preempt = None
+        self._page_starved = False
+        self._cur_decode = {}
+        self._implicated = ()
+        if self._host_tier is not None:
+            if self._host_tier_survives(new):
+                # victim entries are raw page slices, valid in a pool of
+                # the same page size and storage: kept, so preempted and
+                # parked streams resume from their pages; prefix entries
+                # die with the registry below
+                for key in self._host_tier.keys():
+                    if not (isinstance(key, tuple) and key
+                            and key[0] == "victim"):
+                        self._host_tier.drop(key)
+            else:
+                self._host_tier.clear()
+        # the registry's pages die with the old pool: auto-prefix heads
+        # register again on their next request
+        with self._rid_lock:
+            self._prefixes.clear()
+            self._auto_pids.clear()
+        self._prefix_last_hit = {}
+        self._prefix_pages_shared = 0
+        _PREFIX_PAGES_SHARED.set(0)
+        return folded
+
+    def _requeue_folded(self, applied, folded: set) -> int:
+        """The scheduler half of the fold, after the rebuild landed:
+        every unfinished request requeues under the config actually
+        applied (the target, or the restored old one), its generated
+        tokens folded into its prompt; seniority, class and preemption
+        budget survive, nothing is quarantined. Caller holds _admit_lock.
+        Returns the streams the switch folded (the requests that held a
+        slot; queued ones requeue too but are neither counted nor
+        stamped)."""
+        carried = 0
+
+        def stamp(rid: int, req: _Request) -> None:
+            self.tracer.span(rid, "reconfigured",
+                             generated=len(req.out_tokens))
+            if self.events is not None:
+                self.events.publish("reconfigured", rid=rid,
+                                    generated=len(req.out_tokens))
+
+        if self._slo:
+            for rid, req in sorted(self._requests.items()):
+                if req.done.is_set():
+                    continue
+                req._kv_restored = False
+                remaining = req.max_new_tokens - len(req.out_tokens)
+                if remaining <= 0:
+                    # it was retiring this iteration: it holds every
+                    # token it asked for
+                    self._finish_recovered(req)
+                    continue
+                # keeps the enqueue time (seniority) and the preemption
+                # count; False: the request was still queued
+                active = self.scheduler.requeue(
+                    rid, len(req.prompt_ids) + len(req.out_tokens),
+                    remaining)
+                if active or rid in folded:
+                    stamp(rid, req)
+                    carried += 1
+            self.scheduler.resize(applied.slots)
+            return carried
+        # FIFO has no requeue: a new scheduler at the new slot count,
+        # resubmitted in rid (arrival) order. Its capacity covers queued
+        # AND formerly active requests (the active ones did not count
+        # against the old queue's cap)
+        unfinished = sum(1 for r in self._requests.values()
+                         if not r.done.is_set())
+        self.scheduler = make_scheduler(
+            applied.slots, max(self._max_queue, unfinished),
+            priority_classes=False, config=self._sched_cfg)
+        for rid, req in sorted(self._requests.items()):
+            if req.done.is_set():
+                continue
+            req._kv_restored = False
+            remaining = req.max_new_tokens - len(req.out_tokens)
+            if remaining <= 0:
+                self._finish_recovered(req)
+                continue
+            if not self.scheduler.submit(
+                    rid, len(req.prompt_ids) + len(req.out_tokens),
+                    remaining):
+                # capacity was sized above: cannot happen, but a dropped
+                # stream must be loud
+                self._drop_request(req, as_engine_error(
+                    RuntimeError("reconfigure resubmit failed")))
+                continue
+            if rid in folded:
+                stamp(rid, req)
+                carried += 1
+        return carried
+
+    def _apply_exec_config(self, new) -> None:
+        """Rebuild the config-dependent state under the new knobs: the
+        allocator, the pool, the per-slot mirrors, the sampling state
+        (the reset count folds into the seeds: the startup streams are
+        not replayed), the host tier's page size, the step cost's
+        constants and the flight recorder's impl. The old pool, the
+        runners and their graphs' memory pool go BEFORE the new pool is
+        allocated, so a switch needs one pool's memory, not two; the
+        next steps capture their graphs anew. Engine thread only, after
+        _prepare_fold (no slot holds device state)."""
+        B = new.slots
+        impl = self._check_attn(resolve_paged_attn(new.paged_attn,
+                                                   self.device))
+        self._drop_device_state()
+        self.max_slots = B
+        self._decode_scan = max(1, new.decode_scan)
+        self._kv_dtype_name = new.kv_dtype
+        self._quant_cache = QUANTIZED_CACHES.get(new.kv_dtype)
+        self.kv_quant = self._quant_cache is not None
+        self._pool_dtype = (resolve_kv_dtype(new.kv_dtype)
+                            if new.kv_dtype is not None and not self.kv_quant
+                            else self._base_cache_dtype)
+        self._mixed = (new.mixed_batch or "auto") != "off"
+        self.paged_attn = impl
+        self._pager = PageAllocator(new.kv_pages, new.kv_page_size)
+        self._slot_pages = {}
+        self._slot_prefix_pages = {}
+        self._pos = np.zeros(B, np.int64)
+        self._last_tok = np.zeros(B, np.int64)
+        self._steps = np.zeros(B, np.int64)
+        self._temp = np.full(B, self.defaults.temperature or 0.0,
+                             np.float32)
+        self._top_p = np.ones(B, np.float32)
+        self._penalty = np.full(B, self.defaults.repeat_penalty,
+                                np.float32)
+        self._slot_req = [None] * B
+        self._reset_count += 1
+        self.cache = self._new_cache(new.kv_pages, new.kv_page_size)
+        tier = self._host_tier
+        if self._kv_host_pages is not None:
+            pb = page_bytes(self.config, new.kv_page_size,
+                            new.kv_dtype if self.kv_quant
+                            else self._pool_dtype)
+            if tier is None or tier.page_bytes != pb:
+                # a new layout (_prepare_fold emptied the old tier); the
+                # same one keeps its tier and the victims it holds
+                tier = HostTier(self._kv_host_pages, page_bytes=pb,
+                                events=self.events,
+                                dtype_name=pool_dtype_name(self.cache))
+            self._host_tier = tier
+        self._fresh_sampling_state()
+        self._cost_constants()
+        self.flight.rebind(impl=f"paged-{impl}")
+        log.info("paged KV: %d pages x %d tokens, %s attention, %s storage "
+                 "(%.2f GiB pool), %d slots, decode_scan %d, mixed %s",
+                 new.kv_pages, new.kv_page_size, impl,
+                 self._storage_name(), self.cache.memory_bytes() / 2**30,
+                 B, self._decode_scan, "on" if self._mixed else "off")
+
+    def autotune_state(self) -> dict:
+        """GET /api/v1/autotune: mode, live config, switch and decision
+        history, and (auto mode) the controller's window signals."""
+        out = {
+            "mode": self.autotune_mode,
+            "epoch": self.config_epoch,
+            "config": self.current_config().to_dict(),
+            "switches": self.stats.config_switches,
+            "rollbacks": self.stats.config_rollbacks,
+            "switch_in_flight": self._switch_inflight,
+            "switch_log": list(self._switch_log),
+        }
+        at = self._autotuner
+        if at is not None:
+            out["controller"] = at.state()
+            out["policy"] = at.policy.to_dict()
+        return out
+
+    def _gather_autotune_signals(self, now: float):
+        """One sliding-window sample from telemetry the engine already
+        keeps (host numbers only): arrival and service deltas from
+        EngineStats, MFU / HBM from the flight recorder, queue depth from
+        the scheduler, pool occupancy from the allocator, TTFT from the
+        tracer ring and the SLO accountant."""
+        from cake_tpu_torch.autotune import AutotuneSignals
+        st = self.stats
+        submitted = self._next_rid - 1
+        cur = (now, submitted, st.requests_completed, st.tokens_generated,
+               st.shed)
+        prev, self._autotune_prev = self._autotune_prev, cur
+        if prev is None:
+            prev = cur
+        dt = max(1e-6, now - prev[0])
+        util = self.flight.utilization(include_prefill=True)
+        total = self._pager.n_pages
+        pages_frac = (total - self._pager.free_pages) / total
+        depths = getattr(self.scheduler, "class_depths", None)
+        ttfts = self.tracer.recent_ttfts(32)
+        p99 = None
+        if ttfts:
+            xs = sorted(ttfts)
+            p99 = xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+        pressure = getattr(self.scheduler, "queue_pressure", None)
+        return AutotuneSignals(
+            t=now,
+            offered_rps=(submitted - prev[1]) / dt,
+            completed_rps=(st.requests_completed - prev[2]) / dt,
+            service_tps=(st.tokens_generated - prev[3]) / dt,
+            queue_depth=self.scheduler.queue_depth,
+            queue_depth_by_class=depths() if depths else {},
+            mfu=util["mfu"], hbm_util=util["hbm_util"],
+            pages_in_use_frac=pages_frac,
+            shed_rps=(st.shed - prev[4]) / dt,
+            ttft_p99_s=p99,
+            ttft_p99_by_class=self.slo.ttft_p99_by_class("1m"),
+            attainment=self.slo.attainment_by_class("1m"),
+            queue_pressure=pressure() if pressure is not None else 0.0)
+
+    def _autotune_tick(self) -> None:
+        """The auto-mode controller's drive, from the engine loop between
+        iterations: a signal sample every interval, and the controller's
+        switch or rollback applied inline (this IS the engine thread, so
+        the switch lands at a step boundary)."""
+        from cake_tpu_torch.autotune import ROLLBACKS
+        at = self._autotuner
+        if at is None:
+            return
+        now = time.monotonic()
+        if now - self._autotune_last < at.config.interval_s:
+            return
+        self._autotune_last = now
+        decision = at.decide(self._gather_autotune_signals(now))
+        if decision is None:
+            return
+        target, reason = decision
+        old = self.current_config()
+        pre_rate = at.window_service_tps()
+        try:
+            if not self._reconfigure_sync(target, reason):
+                # a target spelled differently but identical: adopt the
+                # spelling as "current", so the no-op is not re-proposed
+                at.on_switched(target, old, pre_rate, "noop")
+                return
+        except Exception as e:  # noqa: BLE001
+            if reason == "rollback":
+                # a REFUSED revert must not pin the known-good config:
+                # stay put (the regressed one is already pinned)
+                log.warning("rollback revert refused; staying on the "
+                            "current config: %s", e)
+            else:
+                # an unswitchable policy target must not spin: pin it
+                log.warning("autotune switch refused (%s); pinning: %s",
+                            reason, e)
+                at.pin(target, why=str(e))
+            return
+        at.on_switched(target, old, pre_rate, reason)
+        if reason == "rollback":
+            ROLLBACKS.inc()
+            self.stats.config_rollbacks += 1
 
     # -- the checkpoint's seams -------------------------------------------------
 

@@ -1,12 +1,13 @@
 """Typed request-failure errors and recovery tuning for the engine.
 
-Counterpart of `cake_tpu/serve/errors.py` (the part the port's engine
-raises; the autotune switch error is not ported). Every request failed
+Counterpart of `cake_tpu/serve/errors.py`. Every request failed
 by the engine carries an ``EngineRequestError`` with an explicit
 ``retryable`` flag: the API maps retryable failures (an engine reset or
 a storm-breaker stop) to 503 + Retry-After and non-retryable ones (a
 poison request that kept crashing the step it was in) to a terminal 500.
-A refused admission while draining is a ``DrainingError`` (429).
+A refused admission while draining is a ``DrainingError`` (429), and a
+live config switch asked for while another runs a
+``SwitchInFlightError`` (409).
 """
 
 from __future__ import annotations
@@ -61,6 +62,13 @@ class DrainingError(Exception):
     def __init__(self, retry_after: float = 1.0):
         super().__init__("server draining: admissions are closed")
         self.retry_after = retry_after
+
+
+class SwitchInFlightError(RuntimeError):
+    """A live config switch (serve/engine.reconfigure) was requested
+    while another switch is still folding and rebuilding. Not an
+    EngineRequestError: no request failed — the API maps it to HTTP 409
+    and the caller retries after the in-flight switch lands."""
 
 
 def as_engine_error(err: Exception) -> EngineRequestError:

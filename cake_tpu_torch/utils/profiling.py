@@ -2,9 +2,11 @@
 trace around a one-shot generation (`trace`, a torch.profiler capture
 written as a Chrome / Perfetto trace file where JAX writes its
 jax.profiler trace), the windowed step counter (`StepStats`),
-`human_bytes` and the device memory stats behind the scrape-time HBM
-gauges (from `torch.cuda.memory_stats()`). The JAX module's live
-capture (`capture_trace`) and its annotations are not ported yet."""
+`human_bytes`, the device memory stats behind the scrape-time HBM
+gauges (from `torch.cuda.memory_stats()`), and the live capture behind
+`POST /api/v1/profile` (`capture_trace`: a torch.profiler session over
+the next N seconds of whatever the process is doing). The JAX module's
+annotations are not ported."""
 
 from __future__ import annotations
 
@@ -43,6 +45,70 @@ def trace(log_dir: Optional[str]):
         yield
     prof.export_chrome_trace(path)
     log.info("profile written to %s", path)
+
+
+def capture_trace(seconds: float, out_dir: Optional[str] = None,
+                  run=None) -> dict:
+    """Profile the NEXT `seconds` of the live process (the POST
+    /api/v1/profile backend, obs/steps.ProfileCapture): unlike `trace`,
+    which wraps a block the caller controls, this records whatever the
+    process runs meanwhile (a serving engine's replays on its own
+    thread: the card's kernels are CUPTI's, whichever thread launched
+    them), then writes a Chrome trace.
+
+    out_dir: the capture directory (created if missing); None makes a
+    fresh temporary one a capture. run: where the profiler starts and
+    stops (run(fn) returns fn()): a serving engine passes its
+    `_run_on_engine_thread`, because stopping the profiler while another
+    thread launches a CUDA graph can deadlock the two; None: here.
+    Returns {"dir", "trace", "seconds"}: the trace file's path and the
+    wall seconds captured."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    d = out_dir or tempfile.mkdtemp(prefix="cake-profile-")
+    os.makedirs(d, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    path = os.path.join(
+        d, f"trace.{os.getpid()}.{int(time.time() * 1e3)}.json")
+    run = run or (lambda fn: fn())
+    prof = profile(activities=acts)
+    t0 = time.perf_counter()
+    run(prof.start)
+    try:
+        time.sleep(seconds)
+    finally:
+        run(prof.stop)
+    captured = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    log.info("profiler capture: %.2fs -> %s", captured, path)
+    return {"dir": d, "trace": path, "seconds": round(captured, 3)}
+
+
+def warm_profiler() -> float:
+    """Start and stop an empty torch.profiler session with the card's
+    activities on the calling thread, and return its seconds. The
+    profiler's first start in a process initializes CUPTI (seconds on a
+    card) and its client on the starting thread; a serving process that
+    will capture from its HTTP handlers pays that once, at startup, on
+    the thread that imported torch (`api/server.start` with
+    --profile-dir)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    with profile(activities=acts):
+        pass
+    dt = time.perf_counter() - t0
+    log.info("profiler warmed in %.2fs", dt)
+    return dt
 
 
 def human_bytes(n: float) -> str:

@@ -230,6 +230,54 @@ Phases, in order (any failure exits non-zero):
             (random weights decide it). A `spec` JSON line holds the
             record; each kernel row carries `spec_launches`, its
             launches in the measured self-draft wave.
+  control   live reconfiguration and the engine's control plane of obs/:
+            (1) the 32-layer bf16 weights behind the HTTP API at 8 slots,
+            --decode-scan 1, a 128 x 128-token bf16 pool, with --autotune
+            manual, --sentinel (interval 0.5 s), --sentinel-act,
+            --profile-dir and --postmortem-dir: a cold and a warm wave of
+            six chats of 64 tokens, then, inside a wave once every chat
+            has its first token, a POST to 16 slots, --decode-scan 4 and
+            256 pages, a warm wave, a POST to the same over int8 pages,
+            a warm wave; inside the next wave the int8 -> bf16 switch
+            (400, JAX's reason), a pool the in-flight streams do not fit
+            (400), and a switch to 8 slots with --mixed-batch off met by
+            a concurrent POST (409); a warm wave there; a profile capture
+            inside a wave of 256-token chats (its trace must name the
+            port's kernels; a concurrent capture 409; --profile-dir warms
+            the profiler at the server's start); then a 16384-page int8
+            pool the card cannot hold (400 naming the OOM, the previous
+            config serving). Every chat
+            200; each switch's seconds, streams carried, allocated bytes
+            before, peak and after (the peak at most a tenth of the
+            larger pool above the larger of before and after) and
+            reserved bytes; no capture in a warm wave after a switch;
+            each config's TTFT p50 and decode tok/s; the int8 bodies
+            launched after the int8 switch, the flash pair after the
+            --mixed-batch off one, no plain version; a folded chat's
+            timeline (its reconfigured entry, its step records) and a
+            404; /api/v1/anomalies and the action history printed.
+            (2) 8B width, 2 layers, f32 weights and pool: greedy streams
+            crossing seven mid-stream switches (slots 8 -> 4 -> 8,
+            decode_scan 1 -> 4, pages 128 -> 64, page size 128 -> 64,
+            mixed batching on -> off -> on) equal the uninterrupted run's
+            and the CPU engine's, the pool conserved; a warm drive at the
+            last config captures nothing, nor does an in-place recovery.
+            (3) the port's fitter (python -m
+            cake_tpu_torch.tools.autotune_fit) over (1)'s step logs
+            writes a policy that validates; an --autotune auto engine at
+            full width over a two-regime policy and a fast controller
+            (interval 0.5 s, window 2, hold 1, cooldown 2 s) takes
+            exactly one policy switch across a low-rate wave and a burst,
+            every chat 200, its decision log printed (its rollback
+            verdict held past the drive). (4) the sched phase's 48-chat
+            shed burst, four times half a second apart, with --sentinel:
+            shed_storm fires and clears; a storm-breaker stop with
+            --postmortem-dir and
+            --journal writes exactly one bundle with the steps, events,
+            traces, anomalies, actions, stats, metrics and journal_tail
+            keys. A `control` JSON line holds the record; each kernel row
+            carries `control_launches`, its launches in (1)'s waves after
+            the cold one.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -252,7 +300,7 @@ import urllib.request
 from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers", "recovery", "spec")
+          "sched", "tiers", "recovery", "spec", "control")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -3017,7 +3065,8 @@ class _SchedServer:
     same tags, so the same prompts, in every drive)."""
 
     def __init__(self, torch, cfg, params, dtype, classes: bool,
-                 shed: bool = False, sched_config=None, **args_kw):
+                 shed: bool = False, sched_config=None, engine_kw=None,
+                 **args_kw):
         from cake_tpu_torch.api.server import start
         from cake_tpu_torch.args import Args
         from cake_tpu_torch.master import Master
@@ -3027,7 +3076,9 @@ class _SchedServer:
         from cake_tpu_torch.ops.sampling import SamplingConfig
 
         # args_kw: more Args fields (the tiers phase's --kv-dtype,
-        # --kv-host-pages, --kv-pages, --auto-prefix)
+        # --kv-host-pages, --kv-pages, --auto-prefix; the control phase's
+        # --autotune, --sentinel ...); engine_kw: InferenceEngine
+        # arguments beside them (the control phase's autotune_config)
         args = Args(**{**dict(
             max_slots=8, max_seq_len=2048, kv_pages=SCHED_PAGES,
             kv_page_size=128, prefill_chunk=64, temperature=0.0,
@@ -3039,6 +3090,7 @@ class _SchedServer:
                                   cache_dtype=dtype, device=DEV)
         self.master = Master(args, text_generator=self.gen)
         kw = {"sched_config": sched_config} if sched_config else {}
+        kw.update(engine_kw or {})
         self.engine = self.master.make_engine(**kw)
         self.httpd = start(self.master, "127.0.0.1:0", block=False,
                            engine=self.engine)
@@ -5028,6 +5080,704 @@ def phase_spec(torch, rpa, fa, i4, cfg, params, card: str):
     return counts, rec
 
 
+# -- the control phase: live reconfiguration and the obs/ control plane ------
+
+CONTROL_NEW = 64                  # tokens a chat in (1)
+# (1)'s server flags, and the configs its POSTs switch to
+CONTROL_A = dict(slots=8, decode_scan=1, kv_pages=128)
+CONTROL_B = dict(slots=16, decode_scan=4, kv_pages=256)
+CONTROL_C = dict(CONTROL_B, kv_dtype="int8")
+# the switch a concurrent POST meets (its 409): the phase-split loop, so
+# the flash pair's captured prefills join the path
+CONTROL_D = dict(CONTROL_C, slots=8, mixed_batch="off")
+# an int8 pool of 16384 x 128-token pages: ~137 GB, more than the card
+CONTROL_OOM_PAGES = 16384
+# (2)'s mid-stream switches, in order (the start: 8 slots, decode_scan 1,
+# 128 x 128-token pages, mixed batching on)
+CONTROL_ID_START = dict(slots=8, decode_scan=1, kv_pages=128,
+                        kv_page_size=128)
+CONTROL_ID_SWITCHES = (
+    dict(CONTROL_ID_START, slots=4),
+    dict(CONTROL_ID_START, slots=8),
+    dict(CONTROL_ID_START, decode_scan=4),
+    dict(CONTROL_ID_START, decode_scan=4, kv_pages=64),
+    dict(CONTROL_ID_START, decode_scan=4, kv_pages=128, kv_page_size=64),
+    dict(CONTROL_ID_START, decode_scan=4, kv_pages=128, kv_page_size=64,
+         mixed_batch="off"),
+    dict(CONTROL_ID_START, decode_scan=4, kv_pages=128, kv_page_size=64,
+         mixed_batch="auto"),
+)
+CONTROL_ID_NEW = 48
+# (3): the auto engine's regimes (offered requests a second), its
+# controller, and the drive
+CONTROL_RPS = 4.0
+CONTROL_LOW = 4                   # one chat a second
+CONTROL_BURST = 24
+# the rollback verdict's samples in (3): 40 x 0.5 s, past the drive
+CONTROL_VERDICT = 40
+# (4): the sched phase's 48-chat shed burst, this many times
+CONTROL_SHED_BURSTS = 4
+# (1)'s profile wave: tokens a chat (a wave longer than the capture)
+CONTROL_PROFILE_NEW = 256
+# seconds after which the phase dumps every thread's stack and exits
+CONTROL_HANG_S = 360
+CONTROL_ROUTE_KEYS = ("steps", "events", "traces", "anomalies", "actions",
+                      "stats", "metrics", "journal_tail")
+
+
+def _http_json(url: str, body=None, timeout: float = 600):
+    """(status, JSON body) of a GET, or of a POST when `body` is given."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _watch_switches(torch, eng) -> list:
+    """Wrap the engine's switch body (it runs on the engine thread, the
+    only thread on the card): for each switch, the bytes allocated and
+    reserved before it, the peak allocated during it, both after, the old
+    and the new pool's bytes, its seconds, and its outcome."""
+    seen = []
+    real = eng._reconfigure_sync
+
+    def switch(new, reason):
+        torch.cuda.synchronize()
+        rec = dict(to=new.to_dict(), before=torch.cuda.memory_allocated(),
+                   reserved_before=torch.cuda.memory_reserved(),
+                   old_pool=eng.cache.memory_bytes())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            rec["switched"] = real(new, reason)
+            return rec["switched"]
+        except Exception as e:    # noqa: BLE001 — recorded, then raised
+            rec["error"] = f"{type(e).__name__}: {e}"[:400]
+            raise
+        finally:
+            torch.cuda.synchronize()
+            rec.update(seconds=time.perf_counter() - t0,
+                       peak=torch.cuda.max_memory_allocated(),
+                       after=torch.cuda.memory_allocated(),
+                       reserved_after=torch.cuda.memory_reserved(),
+                       new_pool=eng.cache.memory_bytes())
+            seen.append(rec)
+
+    eng._reconfigure_sync = switch
+    return seen
+
+
+def _count_captures(eng) -> list:
+    """Every graph capture of the engine, as its JAX function's name."""
+    seen = []
+    real = eng.flight.count_capture
+
+    def count(fn, s):
+        seen.append(fn)
+        real(fn, s)
+    eng.flight.count_capture = count
+    return seen
+
+
+def _launch_snapshot(rpa, fa) -> dict:
+    return {**rpa.LAUNCHES, **fa.LAUNCHES}
+
+
+def _control_wave(srv, tag: str, during=None, n_new: int = CONTROL_NEW):
+    """The six TIER_CHATS at once through `srv`; `during()` runs once
+    every chat has its first token. Returns (the wave's record, its
+    requests, what during() returned); every chat must get 200."""
+    names = [f"{tag}{i}" for i in range(len(TIER_CHATS))]
+    st = srv.engine.stats
+    tok0, dec0 = st.tokens_generated, st.decode_time_s
+    t0 = time.perf_counter()
+    for name, n in zip(names, TIER_CHATS):
+        srv.post(name, "standard", n, n_new)
+    got = None
+    if during is not None:
+        srv.wait_tokens(names, 1)
+        got = during()
+    srv.join()
+    wall = time.perf_counter() - t0
+    reqs = []
+    for name in names:
+        code, err = srv.status.get(name, (None, None))
+        if code != 200:
+            fail(f"control {tag}: {name!r} got {code} {err}")
+        reqs.append(srv.request(name))
+    ttfts = [r.first_token_t - r.submit_t for r in reqs]
+    rec = dict(ttft_p50_s=statistics.median(ttfts), ttft_max_s=max(ttfts),
+               decode_tok_s=(st.tokens_generated - tok0)
+               / max(st.decode_time_s - dec0, 1e-9),
+               wall_s=wall, tokens=[len(r.out_tokens) for r in reqs])
+    return rec, reqs, got
+
+
+def _control_profile(srv) -> dict:
+    """Inside a wave of CONTROL_PROFILE_NEW-token chats, once every chat
+    has its first token: POST /api/v1/profile {"seconds": 1} on a
+    thread and a second POST while it runs (409); then the trace's
+    kernel rows: the port's kernels must be among them, and every chat
+    200. The server was built with --profile-dir, which warmed the
+    profiler at startup, so the capture starts at once."""
+    url = srv.url
+    box = {}
+
+    def capture():
+        box["got"] = _http_json(url + "/api/v1/profile", {"seconds": 1},
+                                timeout=120)
+
+    def during():
+        t = threading.Thread(target=capture)
+        t.start()
+        time.sleep(0.3)
+        got = _http_json(url + "/api/v1/profile", {"seconds": 1},
+                         timeout=120)
+        t.join(timeout=150)
+        if t.is_alive():
+            import faulthandler
+            faulthandler.dump_traceback(all_threads=True)
+            fail("control profile: the capture did not return in 150 s")
+        return got
+
+    _, _, (code2, err2) = _control_wave(srv, "P", during,
+                                        n_new=CONTROL_PROFILE_NEW)
+    code, out = box.get("got", (None, {}))
+    log(f"control profile: the capture {code} {out}, the concurrent one "
+        f"{code2} {err2}")
+    if code != 200 or code2 != 409:
+        fail(f"control profile: the capture got {code} {out}, the "
+             f"concurrent one {code2} {err2}")
+    with open(out["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")
+            m = _PORT_KERNEL.search(name)
+            kernels[re.search(r"::(\w+)", name[m.start():]).group(1)
+                    if m else "other"] += 1
+    ours = {k: n for k, n in kernels.items() if k != "other"}
+    if not ours:
+        fail(f"control profile: no kernel of the port in the trace "
+             f"({sum(kernels.values())} kernel rows; events by category "
+             f"{dict(Counter(e.get('cat') for e in events))})")
+    return dict(trace=out["trace"], seconds=out["seconds"],
+                kernel_rows=sum(kernels.values()), port_kernels=ours,
+                concurrent=code2)
+
+
+def _control_served(torch, rpa, fa, cfg, params, card: str, tmp: str):
+    """(1) The 32-layer bf16 weights behind the HTTP API with --autotune
+    manual, the sentinel and its action plane, --profile-dir and
+    --postmortem-dir: a cold and a warm wave at CONTROL_A, switch 1 to
+    CONTROL_B inside a wave (every chat holding its first token), a warm
+    wave, switch 2 to CONTROL_C (int8 pages) inside a wave, a warm wave;
+    inside the next wave the int8 -> bf16 refusal, a pool the in-flight
+    streams do not fit, and a switch to CONTROL_D met by a concurrent
+    POST (409); a warm wave at CONTROL_D; a profile capture (and its
+    concurrent 409) inside a wave; then a pool the card cannot hold
+    (400, CONTROL_D kept).
+    Returns (launches of the measured waves, record, the step logs of
+    CONTROL_A's and CONTROL_B's drives)."""
+    pm_dir = os.path.join(tmp, "postmortem")
+    step_log = os.path.join(tmp, "steps.jsonl")
+    srv = _SchedServer(
+        torch, cfg, params, torch.bfloat16, False,
+        kv_pages=CONTROL_A["kv_pages"], decode_scan=CONTROL_A["decode_scan"],
+        autotune="manual", sentinel=True, sentinel_interval=0.5,
+        sentinel_act=True, profile_dir=os.path.join(tmp, "profile"),
+        postmortem_dir=pm_dir, step_log=step_log)
+    eng = srv.engine
+    switches = _watch_switches(torch, eng)
+    captures = _count_captures(eng)
+    rec = {"waves": {}, "switches": [], "refusals": {}}
+    waves = rec["waves"]
+
+    def wave(tag, during=None):
+        c0 = len(captures)
+        l0 = _launch_snapshot(rpa, fa)
+        got, reqs, out = _control_wave(srv, tag, during)
+        got["captures"] = len(captures) - c0
+        got["config"] = eng.current_config().to_dict()
+        got["launches"] = {k: n - l0[k]
+                           for k, n in _launch_snapshot(rpa, fa).items()
+                           if n - l0[k]}
+        waves[tag] = got
+        log(f"control wave {tag} at {got['config']}: TTFT p50 "
+            f"{got['ttft_p50_s']:.3f} s, decode {got['decode_tok_s']:.1f} "
+            f"tok/s, wall {got['wall_s']:.2f} s, {got['captures']} "
+            f"captures, launches {got['launches']} [{card}]")
+        return reqs, out
+
+    def switch(cfg_):
+        code, out = _http_json(srv.url + "/api/v1/autotune",
+                               {"config": cfg_})
+        if code != 200 or not out.get("switched"):
+            fail(f"control: the switch to {cfg_} got {code} {out}")
+        return out
+
+    wave("A0")                       # cold: captures A's variants
+    rpa.reset_launch_counts()
+    fa.reset_launch_counts()
+    wave("A1")
+    t_a = time.time()
+    reqs1, _ = wave("AB", lambda: switch(CONTROL_B))
+    t_b = time.time()
+    wave("B1")
+    wave("BC", lambda: switch(CONTROL_C))
+    t_c = time.time()
+    wave("C1")
+
+    def refusals():
+        out = {}
+        out["guard"] = _http_json(srv.url + "/api/v1/autotune",
+                                  {"config": CONTROL_B})
+        out["fit"] = _http_json(srv.url + "/api/v1/autotune",
+                                {"config": dict(CONTROL_C, kv_pages=2)})
+        box = {}
+        a = threading.Thread(target=lambda: box.update(
+            d=_http_json(srv.url + "/api/v1/autotune",
+                         {"config": CONTROL_D})))
+        a.start()
+        deadline = time.monotonic() + 30
+        while not eng._switch_inflight and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        out["concurrent"] = _http_json(srv.url + "/api/v1/autotune",
+                                       {"config": CONTROL_C})
+        a.join(timeout=600)
+        out["switch_d"] = box.get("d")
+        return out
+
+    _, ref = wave("CD", refusals)
+    wave("D1")
+    counts = _launch_snapshot(rpa, fa)
+    rec["profile"] = _control_profile(srv)
+    _, oom = wave("DX", lambda: _http_json(
+        srv.url + "/api/v1/autotune",
+        {"config": dict(CONTROL_D, kv_pages=CONTROL_OOM_PAGES)}))
+    for name, (code, body), want, text in (
+            ("guard", ref["guard"], 400, "int8-pool -> float-pool"),
+            ("fit", ref["fit"], 400, "no stream may be dropped"),
+            ("concurrent", ref["concurrent"], 409, "in flight"),
+            ("oom", oom, 400, "OutOfMemoryError")):
+        rec["refusals"][name] = dict(code=code, error=body.get("error"))
+        log(f"control refusal ({name}): {code} {body.get('error', '')[:160]}")
+        if code != want or text not in body.get("error", ""):
+            fail(f"control: the {name} switch got {code} {body}, "
+                 f"expected {want} naming {text!r}")
+    d_code, d_out = ref["switch_d"] or (None, {})
+    if d_code != 200 or not d_out.get("switched"):
+        fail(f"control: the switch to CONTROL_D got {d_code} {d_out}")
+    got_cfg = eng.current_config().to_dict()
+    want_cfg = dict(eng.current_config().to_dict(), **CONTROL_D)
+    if got_cfg != want_cfg:
+        fail(f"control: after the OOM switch the engine is at {got_cfg}, "
+             f"not the previous config {CONTROL_D}")
+    prof = rec["profile"]
+    log(f"control profile: {prof['kernel_rows']} kernel rows in "
+        f"{prof['seconds']} s of capture, the port's: "
+        f"{prof['port_kernels']}; the concurrent capture "
+        f"{prof['concurrent']} [{card}]")
+
+    # each switch: seconds, streams carried, memory against the pools
+    code, st = _http_json(srv.url + "/api/v1/autotune")
+    log_by_epoch = {e["epoch"]: e for e in st["switch_log"]}
+    landed = [s for s in switches if s.get("switched")]
+    for i, s in enumerate(landed):
+        entry = log_by_epoch.get(i + 1, {})
+        pool = max(s["old_pool"], s["new_pool"])
+        r = dict(to=s["to"], seconds=s["seconds"],
+                 carried=entry.get("carried"), before=s["before"],
+                 peak=s["peak"], after=s["after"],
+                 reserved_before=s["reserved_before"],
+                 reserved_after=s["reserved_after"], old_pool=s["old_pool"],
+                 new_pool=s["new_pool"])
+        rec["switches"].append(r)
+        log(f"control switch {i + 1} -> {s['to']}: {s['seconds']:.3f} s, "
+            f"{r['carried']} streams carried; allocated "
+            f"{s['before'] / 2**30:.3f} GiB before, peak "
+            f"{s['peak'] / 2**30:.3f}, {s['after'] / 2**30:.3f} after "
+            f"(pools {s['old_pool'] / 2**30:.3f} -> "
+            f"{s['new_pool'] / 2**30:.3f} GiB); reserved "
+            f"{s['reserved_before'] / 2**30:.3f} -> "
+            f"{s['reserved_after'] / 2**30:.3f} GiB [{card}]")
+        if s["peak"] > max(s["before"], s["after"]) + 0.1 * pool:
+            fail(f"control: switch {i + 1} peaked "
+                 f"{(s['peak'] - max(s['before'], s['after'])) / 2**30:.3f}"
+                 " GiB above what it held: the old pool was still live")
+    if len(landed) != 3:
+        fail(f"control: {len(landed)} switches landed, expected 3")
+    failed = [s for s in switches if "error" in s]
+    rec["oom_switch"] = [dict(error=s["error"], before=s["before"],
+                              after=s["after"],
+                              reserved_after=s["reserved_after"])
+                         for s in failed if "OutOfMemory" in s["error"]]
+    for tag in ("A1", "B1", "C1", "D1"):
+        if waves[tag]["captures"]:
+            fail(f"control: the warm wave {tag} after a switch captured "
+                 f"{waves[tag]['captures']} graphs")
+    for tag, keys in (("C1", ("rpa_decode_q8", "rpa_mixed_q8")),
+                      ("D1", ("rpa_decode_q8", "flash_attn_cached")),
+                      ("A1", ("rpa_decode", "rpa_mixed")),
+                      ("B1", ("rpa_decode", "rpa_mixed"))):
+        for k in keys:
+            if not waves[tag]["launches"].get(k):
+                fail(f"control: {k} never launched in the wave {tag}")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    if plain:
+        fail(f"control: plain versions ran: {plain}")
+
+    # a folded chat explains itself; an unknown rid is a 404
+    rid = reqs1[0].rid
+    code, tl = _http_json(f"{srv.url}/api/v1/requests/{rid}/timeline")
+    folds = [e for e in tl.get("timeline", ())
+             if e["event"] == "reconfigured" and e["source"] == "trace"]
+    steps = [e for e in tl.get("timeline", ()) if e["source"] == "steps"]
+    code404, _ = _http_json(f"{srv.url}/api/v1/requests/999999/timeline")
+    rec["timeline"] = dict(rid=rid, entries=len(tl.get("timeline", ())),
+                           reconfigured=len(folds), steps=len(steps),
+                           causes=tl.get("summary", {}).get("causes"),
+                           unknown=code404)
+    log(f"control timeline of rid {rid}: {rec['timeline']}")
+    if code != 200 or not folds or not steps or code404 != 404:
+        fail(f"control: the timeline route: {code} {rec['timeline']}")
+    # what the sentinel saw and what the action plane did
+    code, an = _http_json(srv.url + "/api/v1/anomalies")
+    rec["anomalies"] = dict(
+        fired=[(a["kind"], a["active"]) for a in an.get("anomalies", ())],
+        actions=[(a["kind"], a["action"], a["outcome"])
+                 for a in an.get("actions", ())])
+    log(f"control anomalies: {rec['anomalies']['fired']}; actions "
+        f"{rec['anomalies']['actions']} [{card}]")
+    srv.close()
+    del srv, eng
+    torch.cuda.empty_cache()
+    # the step logs of the A and B drives, for the fitter in (3)
+    logs = {}
+    with open(step_log) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    for name, lo, hi in (("A", t_a - 3600, t_a), ("B", t_b, t_c)):
+        path = os.path.join(tmp, f"steps_{name}.jsonl")
+        with open(path, "w") as f:
+            for r in recs:
+                if lo <= r["ts"] < hi:
+                    f.write(json.dumps(r) + "\n")
+        logs[name] = path
+    return counts, rec, logs
+
+
+def _control_f32_engine(torch, cfg, params, device, **kw):
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), device=device,
+        max_slots=CONTROL_ID_START["slots"], max_seq_len=1024,
+        kv_pages=CONTROL_ID_START["kv_pages"],
+        kv_page_size=CONTROL_ID_START["kv_page_size"], prefill_chunk=64,
+        decode_scan_steps=CONTROL_ID_START["decode_scan"],
+        cache_dtype=torch.float32, sampling=SamplingConfig(temperature=0.0),
+        recovery=True, **kw)
+
+
+def _control_identity(torch, card: str) -> dict:
+    """(2) 8B width, 2 layers, f32 weights and pool: greedy streams that
+    cross CONTROL_ID_SWITCHES mid-stream equal the uninterrupted card
+    run's and the CPU engine's, the pool is conserved, a warm drive at
+    the last config captures nothing, and an in-place recovery there
+    captures nothing anew."""
+    from cake_tpu_torch.faults import build_injector
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    cfg32, p32 = _f32_params(torch, LlamaConfig.llama3_8b())
+    cpu = {k: v.cpu() for k, v in p32.items() if k != "blocks"}
+    cpu["blocks"] = {k: v.cpu() for k, v in p32["blocks"].items()}
+    prompts = _f32_prompts()
+    box = {}
+
+    def cpu_run():
+        eng = _control_f32_engine(torch, cfg32, cpu, "cpu")
+        hs = [eng.submit(p, max_new_tokens=CONTROL_ID_NEW)
+              for p in prompts]
+        with eng:
+            box["cpu"] = [list(h._req.out_tokens) if h.wait(900) else None
+                          for h in hs]
+
+    t_cpu = threading.Thread(target=cpu_run)
+    t_cpu.start()
+
+    def drive(eng, switches=()):
+        hs = [eng.submit(p, max_new_tokens=CONTROL_ID_NEW) for p in prompts]
+        for i, c in enumerate(switches):
+            deadline = time.monotonic() + 300
+            while (len(hs[0]._req.out_tokens) < 4 * (i + 1)
+                   and time.monotonic() < deadline):
+                time.sleep(0.0005)
+            if hs[0]._req.done.is_set():
+                fail(f"control identity: the stream finished before "
+                     f"switch {i + 1}")
+            if not eng.reconfigure(c):
+                fail(f"control identity: switch {i + 1} to {c} was a no-op")
+        for h in hs:
+            if not h.wait(600) or h._req.error is not None:
+                fail(f"control identity: a stream failed ({h._req.error})")
+        pg = eng._pager
+        if pg.live_pages or pg.free_pages != pg.n_pages:
+            fail(f"control identity: pool not conserved: free "
+                 f"{pg.free_pages}, live {pg.live_pages}, {pg.n_pages}")
+        return [list(h._req.out_tokens) for h in hs]
+
+    plain = _control_f32_engine(torch, cfg32, p32, DEV)
+    with plain:
+        ref = drive(plain)
+    del plain
+    eng = _control_f32_engine(torch, cfg32, p32, DEV)
+    captures = _count_captures(eng)
+    rec = {}
+    with eng:
+        got = drive(eng, CONTROL_ID_SWITCHES)
+        c0 = len(captures)
+        warm = drive(eng)
+        c1 = len(captures)
+        eng._faults = build_injector("seed=3;engine.mixed:nth=2:transient")
+        faulted = drive(eng)
+        c2 = len(captures)
+    t_cpu.join(timeout=900)
+    rec = dict(switched=got == ref, cpu=box.get("cpu") == ref,
+               warm=warm == ref, faulted=faulted == ref,
+               switches=eng.stats.config_switches, epoch=eng.config_epoch,
+               captures_switched=c0, captures_warm=c1 - c0,
+               captures_recovery=c2 - c1, recoveries=eng.stats.recoveries,
+               config=eng.current_config().to_dict())
+    log(f"control identity (f32, 2 layers, {len(CONTROL_ID_SWITCHES)} "
+        f"mid-stream switches): streams == uninterrupted {rec['switched']},"
+        f" == CPU engine {rec['cpu']}; warm drive == {rec['warm']} with "
+        f"{rec['captures_warm']} captures; {rec['recoveries']} in-place "
+        f"recovery, {rec['captures_recovery']} captures anew, streams == "
+        f"{rec['faulted']} [{card}]")
+    if not (rec["switched"] and rec["cpu"] and rec["warm"]
+            and rec["faulted"]):
+        fail(f"control identity: {rec}")
+    if (rec["switches"] != len(CONTROL_ID_SWITCHES) or rec["captures_warm"]
+            or rec["captures_recovery"] or rec["recoveries"] != 1):
+        fail(f"control identity: {rec}")
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _control_auto(torch, cfg, params, logs: dict, card: str,
+                  tmp: str) -> dict:
+    """(3) The port's fitter over (1)'s step logs of CONTROL_A and
+    CONTROL_B writes a policy that validates; then an --autotune auto
+    engine at full width over a two-regime policy (CONTROL_A up to
+    CONTROL_RPS offered requests a second, CONTROL_B past it) and a fast
+    controller (interval 0.5 s, window 2, hold 1, cooldown 2 s): a
+    low-rate wave, one chat a second, then a burst that crosses the
+    boundary. The rollback verdict waits CONTROL_VERDICT samples, past
+    the drive's end (as the JAX package's closed-loop drive keeps it out
+    of reach), so nothing moves after the one switch and the drive sees
+    exactly one policy switch; every chat 200."""
+    from cake_tpu_torch.autotune import ControllerConfig, PolicyTable
+
+    fitted = os.path.join(tmp, "fitted.json")
+    tree = os.path.dirname(os.path.dirname(
+        importlib.util.find_spec("cake_tpu_torch").origin))
+    cmd = [sys.executable, "-m", "cake_tpu_torch.tools.autotune_fit",
+           "--step-log", logs["A"], "--step-config", json.dumps(CONTROL_A),
+           "--step-log", logs["B"], "--step-config", json.dumps(CONTROL_B),
+           "--window", "1.0", "--out", fitted]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=tree))
+    log("control fitter: " + p.stdout.strip().replace("\n", "\n  "))
+    if p.returncode != 0:
+        fail(f"control: the fitter exited {p.returncode}: {p.stderr[-2000:]}")
+    fit = PolicyTable.load(fitted).to_dict()
+    policy = {"version": 1, "regimes": [
+        {"max_offered_rps": CONTROL_RPS, "config": CONTROL_A},
+        {"max_offered_rps": None, "config": CONTROL_B}]}
+    path = os.path.join(tmp, "policy.json")
+    with open(path, "w") as f:
+        json.dump(policy, f)
+    srv = _SchedServer(
+        torch, cfg, params, torch.bfloat16, False,
+        kv_pages=CONTROL_A["kv_pages"], decode_scan=CONTROL_A["decode_scan"],
+        autotune="auto", autotune_policy=path, engine_kw=dict(
+            autotune_config=ControllerConfig(
+                interval_s=0.5, window=2, hold=1, cooldown_s=2.0,
+                rollback_window=CONTROL_VERDICT)))
+    eng = srv.engine
+    t0 = time.perf_counter()
+    low = [f"L{i}" for i in range(CONTROL_LOW)]
+    for i, name in enumerate(low):
+        srv.post(name, "standard", TIER_CHATS[i % len(TIER_CHATS)], 32)
+        time.sleep(1.0)
+    srv.join()
+    switched_low = eng.stats.config_switches
+    burst = [f"U{i}" for i in range(CONTROL_BURST)]
+    for i, name in enumerate(burst):
+        srv.post(name, "standard", TIER_CHATS[i % len(TIER_CHATS)], 32)
+    srv.join()
+    codes = [srv.status.get(n, (None,))[0] for n in low + burst]
+    st = eng.autotune_state()
+    srv.close()
+    rec = dict(fitted=fit, policy=policy,
+               switches=[(e["reason"], e["to"]) for e in st["switch_log"]],
+               switched_in_low_wave=switched_low,
+               decisions=st["controller"]["decisions"],
+               wall_s=time.perf_counter() - t0,
+               codes=sorted(set(codes)))
+    for d in rec["decisions"]:
+        log(f"control auto decision: {d}")
+    log(f"control auto: {len(rec['switches'])} switches "
+        f"{rec['switches']}, codes {rec['codes']} [{card}]")
+    if (codes != [200] * len(codes) or switched_low
+            or [r for r, _ in rec["switches"]] != ["auto"]):
+        fail(f"control auto: {rec['switches']}, codes {rec['codes']}, "
+             f"{switched_low} switches in the low-rate wave")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _control_shed(torch, cfg, params, card: str) -> dict:
+    """(4a) The sched phase's shed burst with --sentinel
+    --sentinel-interval 0.5: CONTROL_SHED_BURSTS bursts of 48 batch
+    chats half a second apart (the detector fires on two consecutive
+    windows over its threshold, and one burst's sheds land within one
+    window); shed_storm fires, then clears, read from /api/v1/anomalies
+    and cake_anomaly_total; every chat 200 or 429."""
+    from cake_tpu_torch.sched import SchedConfig
+    from cake_tpu_torch.sched.classes import DEFAULT_POLICIES, ClassPolicy
+
+    pol = tuple(ClassPolicy(p.name, p.rank, p.aging_s,
+                            1.0 if p.name == "batch" else p.target_wait_s)
+                for p in DEFAULT_POLICIES)
+    srv = _SchedServer(torch, cfg, params, torch.bfloat16, True, shed=True,
+                       sched_config=SchedConfig(policies=pol),
+                       sentinel=True, sentinel_interval=0.5)
+    for i in range(4):
+        srv.post(f"W{i}", "batch", 160, 4)
+        srv.join()
+    time.sleep(1.0)
+    burst = [f"S{i}" for i in range(48 * CONTROL_SHED_BURSTS)]
+    for g in range(CONTROL_SHED_BURSTS):
+        for name in burst[48 * g:48 * (g + 1)]:
+            srv.post(name, "batch", 160, 8)
+        time.sleep(0.5)
+    srv.join()
+    fired = cleared = None
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        _, an = _http_json(srv.url + "/api/v1/anomalies")
+        recs = [a for a in an["anomalies"] if a["kind"] == "shed_storm"]
+        fired = bool(recs)
+        cleared = fired and not any(a["active"] for a in recs)
+        if cleared:
+            break
+        time.sleep(0.25)
+    text = _get(srv.url + "/metrics").decode()
+    n_metric = _metric(text, "cake_anomaly_total", kind="shed_storm")
+    codes = [srv.status[s][0] for s in burst]
+    if set(codes) - {200, 429}:
+        fail(f"control shed: codes {sorted(set(codes))}")
+    rec = dict(shed=codes.count(429), admitted=codes.count(200),
+               fired=fired, cleared=cleared, metric=n_metric,
+               anomalies=[(a["kind"], a["active"])
+                          for a in an["anomalies"]])
+    srv.close()
+    log(f"control shed: {rec['shed']} of {len(burst)} shed; shed_storm fired "
+        f"{fired}, cleared {cleared}, cake_anomaly_total{{kind=shed_storm}} "
+        f"{n_metric:.0f}; anomalies {rec['anomalies']} [{card}]")
+    if not (fired and cleared and n_metric >= 1):
+        fail(f"control shed: {rec}")
+    del srv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _control_breaker(torch, card: str, tmp: str) -> dict:
+    """(4b) A storm-breaker stop of the f32 engine with --postmortem-dir,
+    --journal, --sentinel and --sentinel-act writes exactly one bundle,
+    with the keys of CONTROL_ROUTE_KEYS."""
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.serve.errors import RecoveryConfig
+
+    cfg32, p32 = _f32_params(torch, LlamaConfig.llama3_8b())
+    pm = os.path.join(tmp, "breaker")
+    eng = _control_f32_engine(
+        torch, cfg32, p32, DEV, postmortem_dir=pm,
+        journal=os.path.join(tmp, "breaker.jsonl"), sentinel=True,
+        sentinel_act=True,
+        fault_plan="seed=5;engine.step:step=6:transient:times=50",
+        recovery_config=RecoveryConfig(backoff_base_s=0.05,
+                                       backoff_cap_s=0.1))
+    hs = [eng.submit(p, max_new_tokens=16) for p in _f32_prompts()]
+    with eng:
+        for h in hs:
+            h.wait(300)
+        eng._thread.join(timeout=120)
+    files = sorted(f for f in os.listdir(pm) if f.endswith(".json"))
+    if len(files) != 1:
+        fail(f"control breaker: {len(files)} bundles: {files}")
+    with open(os.path.join(pm, files[0])) as f:
+        bundle = json.load(f)
+    missing = [k for k in CONTROL_ROUTE_KEYS if k not in bundle]
+    rec = dict(bundle=files[0], trigger=bundle.get("trigger"),
+               missing=missing, recoveries=eng.stats.recoveries,
+               journal_tail=len(bundle.get("journal_tail") or ()))
+    log(f"control breaker: stopped {eng.stopped} after "
+        f"{eng.stats.recoveries} recoveries; one bundle {files[0]} "
+        f"(trigger {rec['trigger']}), keys missing {missing} [{card}]")
+    if (not eng._breaker_tripped or missing
+            or rec["trigger"] != "breaker_stop"):
+        fail(f"control breaker: {rec}")
+    del eng, p32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_control(torch, rpa, fa, cfg, params, card: str):
+    """The control phase: (1) live switches at full width through the
+    API, (2) the f32 identity across switches, (3) auto mode, (4) the
+    sentinel's shed storm and the breaker's postmortem bundle. Returns
+    (the launch counts of (1)'s measured waves, record)."""
+    import tempfile
+
+    import faulthandler
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cake-control-")
+    # a hang (a step that never returns) must not eat the run's time:
+    # dump every thread's stack and exit
+    faulthandler.dump_traceback_later(CONTROL_HANG_S, exit=True)
+    counts, served, logs = _control_served(torch, rpa, fa, cfg, params,
+                                           card, tmp)
+    rec = dict(served=served)
+    parts = {"served": time.perf_counter() - t0}
+    for name, fn in (
+            ("identity", lambda: _control_identity(torch, card)),
+            ("auto", lambda: _control_auto(torch, cfg, params, logs, card,
+                                           tmp)),
+            ("shed", lambda: _control_shed(torch, cfg, params, card)),
+            ("breaker", lambda: _control_breaker(torch, card, tmp))):
+        t1 = time.perf_counter()
+        rec[name] = fn()
+        parts[name] = time.perf_counter() - t1
+    faulthandler.cancel_dump_traceback_later()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["part_seconds"] = parts
+    log(f"control phase: {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5101,8 +5851,10 @@ def main(argv=None) -> int:
     recovery_record = None
     spec_record = None
     spec_counts = {}
+    control_record = None
+    control_counts = {}
     if {"step", "generate", "serve", "prefix", "sched",
-            "tiers", "recovery", "spec"} & set(phases):
+            "tiers", "recovery", "spec", "control"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -5153,6 +5905,13 @@ def main(argv=None) -> int:
             # before it), a kernels-line key of their own
             spec_counts, spec_record = phase_spec(torch, rpa, fa, i4, cfg,
                                                   params, card)
+        has_control = importlib.util.find_spec(
+            "cake_tpu_torch.autotune.space")
+        if "control" in phases and has_control:
+            # (1)'s measured waves' launches (set to 0 just before them),
+            # a kernels-line key of their own
+            control_counts, control_record = phase_control(
+                torch, rpa, fa, cfg, params, card)
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -5204,6 +5963,9 @@ def main(argv=None) -> int:
               flush=True)
     if spec_record is not None:
         print(json.dumps({"spec": spec_record, "card": card}), flush=True)
+    if control_record is not None:
+        print(json.dumps({"control": control_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -5223,6 +5985,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(name),
             "spec_launches": spec_counts.get(name) if spec_record else None,
+            "control_launches": (control_counts.get(name, 0)
+                                 if control_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

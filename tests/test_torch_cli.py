@@ -86,8 +86,31 @@ def test_flags_keep_the_jax_names_and_defaults():
                     "--spec-rounds", "2"])
     assert (a.draft_model, a.spec_gamma, a.spec_rounds) == ("d", 3, 2)
     assert parse_args(["--spec-draft", "d"]).spec_draft == "d"
+    # the control plane's flags, with JAX's names and defaults
+    new = ("autotune", "autotune_policy", "sentinel", "sentinel_interval",
+           "sentinel_act", "profile_dir", "postmortem_dir")
+    for name in new:
+        assert getattr(Args(), name) == theirs[name], name
+    a = parse_args(["--autotune", "manual", "--sentinel",
+                    "--sentinel-interval", "0.5", "--sentinel-act",
+                    "--profile-dir", "p", "--postmortem-dir", "m"])
+    assert (a.autotune, a.sentinel, a.sentinel_interval, a.sentinel_act,
+            a.profile_dir, a.postmortem_dir) == (
+        "manual", True, 0.5, True, "p", "m")
+    for argv in (["--autotune", "sometimes"], ["--autotune", "auto"],
+                 ["--sentinel-act"], ["--sentinel-interval", "0"]):
+        with pytest.raises(ValueError) as ours:
+            parse_args(argv)
+        kw = {k.lstrip("-").replace("-", "_"): v for k, v in zip(
+            argv[::2], (argv[1::2] + [True])[:len(argv[::2])])}
+        if "sentinel_interval" in kw:
+            kw["sentinel_interval"] = float(kw["sentinel_interval"])
+        with pytest.raises(ValueError) as jax_err:
+            JArgs(**kw).validate()
+        assert str(ours.value).split("(")[0] == \
+            str(jax_err.value).split("(")[0]
     with pytest.raises(SystemExit):
-        parse_args(["--autotune", "auto"])  # not ported: rejected
+        parse_args(["--telemetry-export", "h:1"])  # not ported (A6c)
 
 
 @pytest.mark.parametrize("quant", ["int4", "int8"])
