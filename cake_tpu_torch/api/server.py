@@ -19,7 +19,10 @@ observability routes:
   GET  /metrics and /api/v1/metrics: the Prometheus text exposition
   GET  /api/v1/requests (?limit, ?rid, ?class, ?since): lifecycle traces
   GET  /api/v1/steps (?limit): the step flight recorder
-  GET  /api/v1/events (?rid, ?type, ?since, ?limit): the event bus
+  GET  /api/v1/events (?rid, ?type, ?since, ?limit, ?host): the event
+       bus; ?host= a fleet host's stream held by the collector
+  GET  /api/v1/fleet: per-host liveness, export age, clock offset and
+       HBM gauges (this host alone, with a note, without a collector)
   GET  /api/v1/requests/{rid}/timeline: one request's spans, events and
        step records merged in time order (404 for an unknown rid)
   GET  /api/v1/autotune: the live config, the switch log and (auto mode)
@@ -37,8 +40,11 @@ server answers 429 with the computed Retry-After, an engine failure 503
 (retryable) or 500 (a quarantined poison request). `start` restores a
 --checkpoint and replays a --journal at startup, and on SIGTERM drains,
 stops the engine, writes the postmortem bundle (--postmortem-dir) and
-saves. Not ported yet: the fleet route (federation, ROADMAP A6c), the
-cluster route and the router's departure notice (ROADMAP A13, A15).
+saves. With a fleet collector (`collector=`, obs/federation.py) the
+fleet route, ?host= events, the host-labelled families appended to
+/metrics and the fleet merge of a request's timeline read from it. Not
+ported yet: the cluster route and the router's departure notice
+(ROADMAP A13, A15).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ KNOWN_ROUTES = frozenset({
     "/api/v1/metrics", "/api/v1/requests", "/api/v1/steps",
     "/api/v1/events", "/api/v1/drain", "/api/v1/profile",
     "/api/v1/autotune", "/api/v1/requests/{rid}/timeline",
-    "/api/v1/anomalies",
+    "/api/v1/anomalies", "/api/v1/fleet",
 })
 _TIMELINE_RE = re.compile(r"^/api/v1/requests/(\d+)/timeline$")
 
@@ -102,13 +108,20 @@ DISCONNECTED = object()
 class ApiServer:
     """Wraps a Master and its engine: chat requests batch continuously."""
 
-    def __init__(self, master, model_name: str = "cake-tpu", engine=None):
+    def __init__(self, master, model_name: str = "cake-tpu", engine=None,
+                 collector=None):
         if engine is None:
             raise ValueError("the port serves through the batching engine "
                              "only: pass engine=master.make_engine()")
         self.master = master
         self.model_name = model_name
         self.engine = engine
+        # obs/federation.TelemetryCollector: the fleet route, ?host=
+        # events and the host-labelled /metrics families read from it;
+        # attached to the engine, request timelines span hosts
+        self.collector = collector
+        if collector is not None:
+            engine.telemetry = collector
         self.started_at = int(time.time())  # /v1/models "created"
         # drain: start() wires _shutdown to its save-and-exit closure,
         # which the drain thread calls once in-flight work finishes
@@ -508,7 +521,62 @@ class ApiServer:
         eng._set_queue_gauges()
         obs_steps.refresh_page_gauges(eng)
         eng.slo.refresh_gauges()
-        return m.REGISTRY.render()
+        if self.collector is not None:
+            # the per-host liveness/age gauges live in the LOCAL
+            # registry: refreshed before it renders
+            try:
+                self.collector.refresh_gauges()
+            except Exception:  # noqa: BLE001 — a scrape must not fail
+                log.debug("fleet gauge refresh failed", exc_info=True)
+        text = m.REGISTRY.render()
+        if self.collector is not None:
+            # remote hosts' families appended with a host label: the
+            # families this process also owns reuse its HELP/TYPE block
+            # above, remote-only ones bring their own
+            try:
+                text += self.collector.render_federated(
+                    {f.name for f in m.REGISTRY.families()})
+            except Exception:  # noqa: BLE001 — a scrape must not fail
+                log.debug("federated render failed", exc_info=True)
+        return text
+
+    def fleet(self) -> dict:
+        """GET /api/v1/fleet: this host's entry (live, active requests,
+        queue depth, the card's memory under the remote rows' keys)
+        beside the collector's remote views; without a collector, this
+        host alone with JAX's note."""
+        local_name = getattr(self.collector, "local_host", None) \
+            or "coordinator"
+        eng = self.engine
+        local: dict = {"role": "coordinator", "live": not eng.stopped,
+                       "active_requests": eng.active,
+                       "queue_depth": eng.queue_depth}
+        try:
+            from cake_tpu_torch.utils.profiling import device_memory_stats
+            keymap = (("bytes_in_use", "bytes_in_use"),
+                      ("peak_bytes_in_use", "peak_bytes"),
+                      ("bytes_limit", "bytes_limit"))
+            local["hbm"] = {
+                str(s["device"]): {out: s[src] for src, out in keymap
+                                   if s.get(src) is not None}
+                for s in device_memory_stats()
+                if s.get("bytes_in_use") is not None}
+        except Exception:  # noqa: BLE001 — the fleet view is best-effort
+            log.debug("local memory stats unavailable", exc_info=True)
+        out = {"local_host": local_name, "hosts": {local_name: local}}
+        if self.collector is None:
+            out["note"] = ("telemetry federation disabled "
+                           "(single-host serving, or "
+                           "--no-telemetry-export)")
+            return out
+        remote = self.collector.fleet()
+        out["published_seq"] = remote.get("published_seq")
+        out["stale_after_s"] = remote.get("stale_after_s")
+        if out["published_seq"] is not None:
+            local["applied_seq"] = out["published_seq"]
+            local["lag_ops"] = 0
+        out["hosts"].update(remote.get("hosts", {}))
+        return out
 
     def requests(self, limit: Optional[int] = None,
                  rid: Optional[int] = None, cls: Optional[str] = None,
@@ -526,16 +594,41 @@ class ApiServer:
 
     def events(self, rid: Optional[int] = None,
                type: Optional[str] = None, since: Optional[int] = None,
-               limit: Optional[int] = None) -> dict:
+               limit: Optional[int] = None,
+               host: Optional[str] = None) -> dict:
         """GET /api/v1/events: ascending seq, filtered; the cursor is
-        safe to pass back as ?since= (obs/events.EventBus.snapshot)."""
+        safe to pass back as ?since= (obs/events.EventBus.snapshot).
+        ?host= selects a fleet host's stream: this host's name (or
+        "local") serves the local bus as the unfiltered call does; a
+        remote host's name serves the collector's view (timestamps
+        clock-offset corrected, seqs and cursor that host's own). An
+        unknown host, or any remote one without a collector, is a
+        ValueError (the 400)."""
+        local_name = getattr(self.collector, "local_host", None)
+        if host is not None and host not in ("local", local_name):
+            if self.collector is None:
+                raise ValueError(
+                    f"?host={host!r}: telemetry federation is "
+                    "disabled (no collector); only local events exist")
+            known = self.collector.hosts()
+            if host not in known:
+                raise ValueError(
+                    f"unknown host {host!r} (local: "
+                    f"{local_name or 'local'}; exporting: "
+                    f"{', '.join(known) or 'none yet'})")
+            evs, cursor = self.collector.events_page(
+                host, rid=rid, type=type, since=since, limit=limit)
+            return {"events": evs, "host": host, "cursor": cursor}
         bus = self.engine.events
         if bus is None:
             return {"events": [], "cursor": 0,
                     "note": "event bus disabled (--event-ring 0)"}
         evs, cursor = bus.snapshot(rid=rid, type=type, since=since,
                                    limit=limit)
-        return {"events": evs, "cursor": cursor}
+        out = {"events": evs, "cursor": cursor}
+        if host is not None:
+            out["host"] = local_name or "local"
+        return out
 
     def drain(self, body: dict) -> dict:
         """POST /api/v1/drain {"timeout_s": N?}: close admissions (new
@@ -667,9 +760,12 @@ def make_handler(api: ApiServer):
                     return self._json(200, api.events(
                         rid=self._int_arg(q, "rid"), type=t,
                         since=self._int_arg(q, "since"),
-                        limit=self._int_arg(q, "limit")))
+                        limit=self._int_arg(q, "limit"),
+                        host=q.get("host")))
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+            if route == "/api/v1/fleet":
+                return self._json(200, api.fleet())
             m = _TIMELINE_RE.match(route)
             if m:
                 tl = api.request_timeline(int(m.group(1)))
@@ -827,7 +923,7 @@ def make_handler(api: ApiServer):
 
 def start(master, address: str = "127.0.0.1:10128",
           model_name: str = "cake-tpu", block: bool = True, engine=None,
-          checkpoint_path: Optional[str] = None):
+          checkpoint_path: Optional[str] = None, collector=None):
     """Bind and serve. Without `engine`, one is built from the master
     (`master.make_engine()`). With block=False the server runs on a
     daemon thread and the bound ThreadingHTTPServer is returned: its
@@ -844,7 +940,11 @@ def start(master, address: str = "127.0.0.1:10128",
     The shutdown (SIGTERM when block=True, POST /api/v1/drain, or the
     server's end) closes admissions, stops the engine, then saves the checkpoint;
     without a checkpoint or a journal the requests still held fail with
-    a retryable error."""
+    a retryable error.
+
+    collector: an obs/federation.TelemetryCollector whose remote views
+    the fleet route, ?host= events, /metrics and request timelines
+    read."""
     import os
 
     from cake_tpu_torch.serve import checkpoint as ckpt
@@ -861,7 +961,7 @@ def start(master, address: str = "127.0.0.1:10128",
         if checkpoint_path:
             engine.snapshot_path = checkpoint_path
         ckpt.warm_fingerprint(engine)
-    api = ApiServer(master, model_name, engine=engine)
+    api = ApiServer(master, model_name, engine=engine, collector=collector)
     if journal_armed:
         from cake_tpu_torch.serve import journal as jr
         try:

@@ -197,6 +197,24 @@ class Args:
     # history, stats, metrics, journal tail) here; tools/postmortem.py
     # renders a bundle into a wall-clock narrative
     postmortem_dir: Optional[str] = None
+    # --disagg {prefill,decode}: disaggregated prefill/decode serving
+    # (kv/transfer.py): this engine takes ONE phase of the pair.
+    # "decode" is the front door: it forwards each admission's prompt
+    # to the prefill peer, installs the shipped KV pages through the
+    # refcounted allocator and streams from the first decoded token;
+    # "prefill" admits forwarded prompts, prefills them into pool pages
+    # and ships the pages and a handoff record. Needs --kv-pages and
+    # the shared channel token in $CAKE_DISAGG_TOKEN on both engines.
+    # Any channel failure degrades the decode engine to whole-prompt
+    # local prefill, never a wedged stream
+    disagg: Optional[str] = None
+    # --disagg-peer host:port: the channel's address; the PREFILL
+    # engine binds it (port 0 = ephemeral), the DECODE engine connects
+    # to it (retrying with backoff, so start order is free)
+    disagg_peer: Optional[str] = None
+    # --disagg-timeout S: the decode engine's wait for a forwarded
+    # prefill before that request degrades to local prefill
+    disagg_timeout: float = 30.0
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
@@ -210,7 +228,10 @@ class Args:
         at least 1; --fault-plan parses; --journal-fsync is never, batch
         or always; --autotune is off, manual or auto, and auto needs a
         --autotune-policy that loads; --sentinel-interval is above 0 and
-        --sentinel-act needs --sentinel. Returns self."""
+        --sentinel-act needs --sentinel; --disagg is prefill or decode,
+        needs --kv-pages, a host:port --disagg-peer and
+        $CAKE_DISAGG_TOKEN, and excludes --spec-draft; --disagg-timeout
+        is above 0. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         for knob in ("batch_size", "max_slots", "decode_scan", "spec_gamma",
@@ -263,6 +284,11 @@ class Args:
                     f"--spec-draft requires f32/bf16/fp8 KV pages, got "
                     f"--kv-dtype {self.kv_dtype}: the draft pool has "
                     "no quantized flavor")
+            if self.disagg is not None:
+                raise ValueError(
+                    "--spec-draft is not supported with --disagg yet: "
+                    "a shipped prefill carries no draft-pool KV (the "
+                    "decode host would re-prefill every draft)")
             if self.mixed_batch == "off":
                 raise ValueError(
                     "--spec-draft requires the mixed ragged step "
@@ -302,6 +328,37 @@ class Args:
             raise ValueError(
                 "--sentinel-act requires --sentinel (nothing to act "
                 "on without the anomaly sentinel)")
+        if self.disagg is not None:
+            if self.disagg not in ("prefill", "decode"):
+                raise ValueError(
+                    f"unsupported disagg '{self.disagg}' (choose "
+                    "prefill or decode)")
+            if not self.kv_pages:
+                raise ValueError(
+                    "--disagg requires --kv-pages: KV pool pages are "
+                    "the transfer unit (cake_tpu/kv/transfer.py)")
+            if not self.disagg_peer:
+                raise ValueError(
+                    "--disagg requires --disagg-peer host:port (the "
+                    "prefill engine binds it; the decode engine "
+                    "connects to it)")
+            host, sep, port = self.disagg_peer.rpartition(":")
+            if not sep or not host or not port.isdigit() \
+                    or not 0 <= int(port) <= 65535:
+                raise ValueError(
+                    f"--disagg-peer {self.disagg_peer!r} must be "
+                    "host:port (port 0 binds ephemeral on the prefill "
+                    "role)")
+            import os
+            if not os.environ.get("CAKE_DISAGG_TOKEN"):
+                # loud now, not a dead channel after the model loaded
+                raise ValueError(
+                    "--disagg needs the shared channel token in "
+                    "$CAKE_DISAGG_TOKEN on both engines")
+        if not self.disagg_timeout > 0:
+            raise ValueError(
+                f"--disagg-timeout {self.disagg_timeout} must be > 0 "
+                "seconds")
         return self
 
 

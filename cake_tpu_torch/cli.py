@@ -34,6 +34,15 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s")
     args = parse_args(argv)
+    warn = logging.getLogger(__name__).warning
+    if args.disagg and not args.api:
+        # the prefill/decode split is a pair of SERVING engines wired by
+        # the transfer channel; a one-shot generation has neither: warn
+        # AND clear, so no channel is bound or dialed
+        warn("--disagg applies to engine serving (--api): a one-shot "
+             "generation has no peer to ship KV pages to "
+             "(kv/transfer.py); ignoring it")
+        args.disagg = None
     if args.journal_fsync != "batch" and not args.journal:
         logging.getLogger(__name__).warning(
             "--journal-fsync has no effect without --journal: it tunes "

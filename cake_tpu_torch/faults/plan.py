@@ -4,10 +4,12 @@ Counterpart of `cake_tpu/faults/plan.py`, copied as it is: the same
 grammar, the same `SITES`, the same parse errors, so one ``--fault-plan``
 spec means the same thing to both packages. Every JAX site name is kept,
 including those whose code the port does not have yet (``control.publish``
-and ``control.recv``: the port serves from one process; ``kv.ship`` and
-``kv.adopt``: no disaggregated prefill). A plan naming them parses, as in
-JAX, and never fires. ``spec.verify`` fires at the paged engine's
-speculative round (serve/engine._do_spec_paged), as in JAX.
+and ``control.recv``: the port serves from one process). A plan naming
+them parses, as in JAX, and never fires. ``spec.verify`` fires at the
+paged engine's speculative round (serve/engine._do_spec_paged), and
+``kv.ship`` / ``kv.adopt`` at the disaggregated engines' capture and
+adoption seams (serve/engine._capture_shipment, _adopt_install), as in
+JAX.
 
 A fault plan is a deterministic description of *where* and *when* the
 serving stack should fail, written as a compact spec string

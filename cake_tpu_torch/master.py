@@ -108,6 +108,12 @@ class Master:
             sentinel_interval=a.sentinel_interval,
             sentinel_act=a.sentinel_act,
             postmortem_dir=a.postmortem_dir,
+            # disaggregated prefill/decode (kv/transfer.py): the role
+            # and the channel's peer; the shared token rides
+            # $CAKE_DISAGG_TOKEN (Args.validate checked it)
+            disagg=a.disagg,
+            disagg_peer=a.disagg_peer,
+            disagg_timeout_s=a.disagg_timeout,
             **self._spec_kwargs(),
         )
         kw.update(engine_kwargs)

@@ -24,9 +24,13 @@
     (`--postmortem-dir`).
   * `obs.timeline` — the per-request explain
     (`GET /api/v1/requests/{rid}/timeline`).
+  * `obs.federation` — fleet telemetry: exporters ship a process's
+    metrics, events and step summaries to a collector, which feeds
+    `GET /api/v1/fleet`, `?host=` events, host-labelled `/metrics`
+    families and cross-host timelines.
 
-Not ported yet: federation (ROADMAP A6c) and the router's halves of the
-sentinel, the actions and the timeline (A15).
+Not ported yet: the router's halves of the sentinel, the actions and
+the timeline (ROADMAP A15).
 """
 
 from cake_tpu_torch.obs.events import EVENT_TYPES, Event, EventBus  # noqa: F401

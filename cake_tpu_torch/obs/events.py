@@ -17,9 +17,10 @@ the same names on both servers. The port's engine publishes
 ``recovered``, ``poisoned`` and ``fault_injected``, ``recompile`` at a
 graph capture, through paged speculative decoding ``spec_round`` and
 ``spec_degraded``, through a live switch ``reconfigured``, through the
-sentinel ``anomaly`` and through its action plane ``anomaly_action``;
-the rest belong to planes not ported yet (the router, disaggregated
-prefill).
+sentinel ``anomaly``, through its action plane ``anomaly_action``, and
+through disaggregated prefill/decode (kv/transfer.py and the engine's
+seams) ``kv_shipped``, ``kv_adopted`` and ``kv_ship_degraded``; the
+rest belong to the router, not ported yet.
 
 Cost discipline: publishers hold ``events = None`` when the bus is
 disabled (``--event-ring 0``) and every call site guards ``if <bus> is

@@ -43,7 +43,7 @@ def build_timeline(trace: Dict, events: List[Dict],
                    local_host: Optional[str] = None) -> Dict:
     """Merge one request's trace record (RequestTracer dump entry),
     its bus events (EventBus.dump(rid=...), plus any collector-held
-    REMOTE events — the fleet collector, ROADMAP A6c, tags those with
+    REMOTE events — the fleet collector, obs/federation.py, tags those with
     their origin ``host`` and corrects their timestamps by the per-host
     clock offset) and the step records whose batch contained it
     (StepTelemetry.records_for(rid)) into one time-ordered view with a

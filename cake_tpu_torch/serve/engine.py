@@ -94,7 +94,20 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
     pure-decode iteration, its draft row prefilled at activation, both
     table rows extended to cover the round before it and truncated back
     to the accepted frontier after it; a collapsing stream degrades to
-    plain decode, and the gamma tuner narrows gamma engine-wide.
+    plain decode, and the gamma tuner narrows gamma engine-wide;
+  * disaggregated prefill/decode (`disagg`, --disagg prefill | decode;
+    kv/transfer.py): the decode engine is the front door and holds an
+    admission out of the scheduler while its prompt goes to the prefill
+    peer, which prefills it as a one-token request and, at retirement,
+    fetches the written pages before they are freed
+    (`_capture_shipment`) and ships them; the decode engine installs
+    them into the admitted row and emits the peer's first token
+    verbatim (`_adopt_install`). Any failure (a `kv.ship` or `kv.adopt`
+    fault, a peer that is down, a timeout, a corrupt or stale shipment)
+    degrades to whole-prompt prefill on the decode engine;
+  * fleet telemetry (`telemetry`: the API server's federation
+    collector, obs/federation.py): `request_timeline` merges the
+    collector's remote events for the request.
 
 Both steps, and the phase-split loop's one-slot prefills, run as
 captured CUDA graphs on the card (there is no eager step there), and
@@ -120,9 +133,8 @@ Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
 (`_run_on_engine_thread`). Not ported yet: the dense-cache engine and
-its spec mode (--draft-model behind --api), disaggregated prefill,
-multi-host (the control channel and its lockstep followers) and the
-fleet telemetry (federation, ROADMAP A6c).
+its spec mode (--draft-model behind --api; ROADMAP A11) and multi-host
+serving (the control channel and its lockstep followers; ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -131,6 +143,7 @@ import logging
 import threading
 import time
 import traceback
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
@@ -148,6 +161,7 @@ from cake_tpu_torch.kv.host_tier import (
 from cake_tpu_torch.kv.quantized_pool import (
     QUANTIZED_CACHES, page_bytes, reset_page_scales,
 )
+from cake_tpu_torch.kv.transfer import Shipment, note_adopt
 from cake_tpu_torch.models.chat import BEGIN_OF_TEXT, History, Message
 from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import (
@@ -319,6 +333,12 @@ class _Request:
     _effective_hit: object = None
     _admit_seq: int = 0
     _resident_base: int = 0
+    # disaggregated serving (kv/transfer.py): on the PREFILL engine, the
+    # callback handed the captured page shipment at retirement; on the
+    # DECODE engine, True while the admission waits for the peer's
+    # shipment (disagg_complete enters it into the scheduler)
+    ship_sink: Optional[Callable] = None
+    _disagg_pending: bool = False
 
 
 class RequestHandle:
@@ -334,6 +354,12 @@ class RequestHandle:
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self._req.done.wait(timeout)
+
+    def finished(self) -> bool:
+        """True once the request retired (tokens final or error set),
+        without blocking; the disagg prefill plane's writer uses it to
+        spot admissions that died before capturing a shipment."""
+        return self._req.done.is_set()
 
     @property
     def token_ids(self) -> List[int]:
@@ -395,6 +421,10 @@ class EngineStats:
     # rollback guard reverted
     config_switches: int = 0
     config_rollbacks: int = 0
+    # disaggregated serving: shipments captured (prefill engine) and
+    # adopted (decode engine)
+    kv_ships: int = 0
+    kv_adopts: int = 0
 
     @property
     def spec_acceptance(self) -> float:
@@ -471,6 +501,10 @@ class InferenceEngine:
         sentinel_interval: float = 2.0,
         sentinel_act: bool = False,
         postmortem_dir: Optional[str] = None,
+        disagg: Optional[str] = None,
+        disagg_peer: Optional[str] = None,
+        disagg_token: Optional[str] = None,
+        disagg_timeout_s: float = 30.0,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -514,6 +548,10 @@ class InferenceEngine:
                 "the dense spec engine (--draft-model behind --api) is not "
                 "ported to cake_tpu_torch yet (ROADMAP A11): serve "
                 "speculation with --spec-draft over --kv-pages")
+        if disagg is not None and kv_pages is None:
+            raise ValueError(
+                "--disagg requires the paged KV pool (--kv-pages): "
+                "pages are the transfer unit")
         if kv_pages is None:
             raise NotImplementedError(
                 "the dense-cache engine is not ported to cake_tpu_torch "
@@ -794,6 +832,38 @@ class InferenceEngine:
         self._setup_control_plane(autotune, autotune_policy,
                                   autotune_config, sentinel_act,
                                   postmortem_dir)
+        # the fleet collector (obs/federation.TelemetryCollector), set by
+        # the API server: request_timeline merges its remote events
+        self.telemetry = None
+        self._setup_disagg(disagg, disagg_peer, disagg_token,
+                           disagg_timeout_s)
+
+    def _setup_disagg(self, role: Optional[str], peer: Optional[str],
+                      token: Optional[str], timeout_s: float) -> None:
+        """Disaggregated prefill/decode (--disagg, kv/transfer.py): one
+        engine runs prefill only and ships pool pages; the other is the
+        front door and adopts shipped prefills into its own pool.
+        _adopt_store stages reassembled shipments (channel thread ->
+        engine thread) by rid; it exists without the plane too, so the
+        adoption peeks stay branch-free."""
+        import os
+
+        self._adopt_store: dict = {}
+        self._disagg = None
+        if role is None:
+            return
+        if not peer:
+            raise ValueError(
+                "--disagg requires --disagg-peer host:port (the "
+                "prefill engine binds it; the decode engine "
+                "connects to it)")
+        from cake_tpu_torch.kv.transfer import build_disagg_plane
+        self._disagg = build_disagg_plane(
+            self, role, peer, token or os.environ.get(
+                "CAKE_DISAGG_TOKEN", ""),
+            events=self.events, timeout_s=timeout_s,
+            pin=self.device.type == "cuda")
+        log.info("disagg: %s role, peer %s", role, peer)
 
     def _setup_control_plane(self, autotune, autotune_policy,
                              autotune_config, sentinel_act: bool,
@@ -934,11 +1004,17 @@ class InferenceEngine:
             self._thread.start()
             if self.sentinel is not None:
                 self.sentinel.start()
+            if self._disagg is not None:
+                self._disagg.start()
         return self
 
     def stop(self, timeout: float = 10.0) -> None:
         if self.sentinel is not None:
             self.sentinel.close()
+        if self._disagg is not None:
+            # first: a decode plane degrades its in-flight shipments to
+            # local prefill while the engine thread can still run them
+            self._disagg.stop()
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -985,6 +1061,7 @@ class InferenceEngine:
         prime_penalty_tokens: Optional[Sequence[int]] = None,
         idempotency_key: Optional[str] = None,
         replay_tokens: Optional[Sequence[int]] = None,
+        ship_sink: Optional[Callable] = None,
     ) -> RequestHandle:
         """Queue one generation. stream(text_delta, is_final) is called
         from the engine thread as tokens finalize; a callback with
@@ -1003,7 +1080,9 @@ class InferenceEngine:
         `attached` is True) instead of admitting again. replay_tokens:
         the suffix of prompt_ids that earlier process generations
         generated (a checkpoint or journal resume), which counts in the
-        request's absolute stream position."""
+        request's absolute stream position. ship_sink (the disagg prefill
+        plane): called from the engine thread at retirement with the
+        captured page shipment (None when the capture failed)."""
         if self._stop.is_set():
             raise EngineResetError("engine stopped")
         if idempotency_key is not None:
@@ -1054,15 +1133,18 @@ class InferenceEngine:
             prime_tokens=list(prime_penalty_tokens or ()),
             idempotency_key=idempotency_key,
             replayed_tokens=replayed,
+            ship_sink=ship_sink,
         )
         with self._admit_lock:
-            return self._admit(req, cls, replay_tokens is not None)
+            return self._admit(req, cls, replay_tokens is not None,
+                               want_top_logprobs)
 
-    def _admit(self, req: _Request, cls: str,
-               replay: bool) -> RequestHandle:
+    def _admit(self, req: _Request, cls: str, replay: bool,
+               want_top: bool = False) -> RequestHandle:
         """submit's critical section (under _admit_lock): the key's
         re-check, the drain and shed refusals, the journal's admit
-        record, then the registration and the scheduler."""
+        record, then the registration and the scheduler (or, on a
+        disagg decode engine, the prefill peer)."""
         rid = req.rid
         key = req.idempotency_key
         if key is not None:
@@ -1116,9 +1198,23 @@ class InferenceEngine:
         # admitted it (a live switch bumps the epoch)
         self.tracer.admit(rid, n_ids, max_new, priority=cls,
                           config_epoch=self.config_epoch)
-        ok = (self.scheduler.submit(rid, n_ids, max_new, priority=cls)
-              if self._slo else
-              self.scheduler.submit(rid, n_ids, max_new))
+        if (self._disagg is not None and self._disagg.role == "decode"
+                and not replay and not want_top
+                and self._disagg.request_prefill(req)):
+            # the disaggregated front door: the admission is held OUT of
+            # the scheduler while the prefill peer computes its pages;
+            # disagg_complete enters it (with the shipment to adopt, or
+            # without one after any channel failure). Replays and
+            # top-logprob requests stay local: a replay suffix already
+            # holds generated tokens, and the shipped first token carries
+            # no top-N alternatives. request_prefill False means the
+            # channel is down: the local path, as colocated
+            req._disagg_pending = True
+            ok = True
+        else:
+            ok = (self.scheduler.submit(rid, n_ids, max_new, priority=cls)
+                  if self._slo else
+                  self.scheduler.submit(rid, n_ids, max_new))
         if not ok:
             self._requests.pop(rid, None)
             self.tracer.drop(rid)
@@ -1135,6 +1231,46 @@ class InferenceEngine:
         self._set_queue_gauges()
         self._wake.set()
         return RequestHandle(req, self.tokenizer, self.config.eos_token_ids)
+
+    # -- disaggregated serving (kv/transfer.py) ---------------------------------
+
+    def disagg_complete(self, rid: int, shipment) -> None:
+        """Decode plane's channel thread: the peer's answer for a
+        deferred admission arrived, a reassembled Shipment to adopt or
+        None (peer down / timeout / refused / corrupt), which means
+        whole-prompt prefill here. Either way the request NOW enters the
+        scheduler; the adoption itself happens on the engine thread when
+        _do_prefill / _mixed_admit reach the rid. Under _admit_lock, the
+        lock submit registers under and a live switch holds."""
+        with self._admit_lock:
+            req = self._requests.get(rid)
+            if req is None or not req._disagg_pending:
+                return   # cancelled / failed while the shipment flew
+            req._disagg_pending = False
+            if shipment is not None:
+                with self._rid_lock:
+                    self._adopt_store[rid] = shipment
+            ids, max_new = req.prompt_ids, req.max_new_tokens
+            ok = (self.scheduler.submit(rid, len(ids), max_new,
+                                        priority=req.priority)
+                  if self._slo else
+                  self.scheduler.submit(rid, len(ids), max_new))
+            if not ok:
+                # submit's refusal, late: the deferred admission was
+                # already registered and journaled, so the handle
+                # finishes with the retryable error a synchronous
+                # refusal raises
+                self._requests.pop(rid, None)
+                with self._rid_lock:
+                    self._adopt_store.pop(rid, None)
+                self.tracer.drop(rid)
+                if self._journal is not None:
+                    self._journal.note_retire(rid, "cancelled")
+                req.error = QueueFullError(retry_after=1.0)
+                req.done.set()
+                return
+        self._set_queue_gauges()
+        self._wake.set()
 
     # -- durable serving: idempotency, drain, journal seams ---------------------
 
@@ -1336,6 +1472,10 @@ class InferenceEngine:
             if req is None:
                 continue
             self.scheduler.cancel(rid)
+            with self._rid_lock:
+                # a shipment staged for a cancelled admission must not
+                # outlive it in the adoption store
+                self._adopt_store.pop(rid, None)
             if self._host_tier is not None:
                 # a victim cancelled while parked leaves its spilled
                 # pages orphaned in the LRU: drop them now
@@ -1780,7 +1920,9 @@ class InferenceEngine:
         self._slot_req = [None] * self.max_slots
         n_rec = n_poison = 0
         for rid, req in sorted(self._requests.items()):
-            if req.done.is_set():
+            if req.done.is_set() or req._disagg_pending:
+                # a disagg admission still waiting for its shipment is
+                # in no scheduler: disagg_complete enters it
                 continue
             req.slot = -1
             req._kv_restored = False
@@ -2001,6 +2143,10 @@ class InferenceEngine:
         slot maps, the prefix registry and the per-slot mirrors."""
         if self._host_tier is not None:
             self._host_tier.clear()
+        with self._rid_lock:
+            # staged shipments referenced the failed requests'
+            # admissions; post-reset resubmits prefill locally
+            self._adopt_store.clear()
         if self._specp is not None:
             # every stream's draft and suffix pages lived in the
             # allocator reset here; streams re-activate lazily after
@@ -2212,6 +2358,129 @@ class InferenceEngine:
         self.tracer.span(req.rid, "kv_restored", pages=ent.n_pages)
         log.debug("restored rid=%d from the host tier (%d pages, pos %d)",
                   req.rid, ent.n_pages, ent.pos)
+
+    def _capture_shipment(self, req: _Request) -> None:
+        """Disaggregated PREFILL engine (engine thread, inside _emit's
+        retirement, before _release_slot_pages frees the row): fetch the
+        pages holding the prompt's KV (raw pool slices, scales included,
+        dtype-blind) and hand a Shipment to the request's ship_sink.
+        On the card the fetch only queues non-blocking copies into
+        pinned memory; the event recorded after them (`Shipment.ready`)
+        is what the plane's writer thread waits on, so nothing here
+        waits for the stream. Failure hands None (the decode peer
+        degrades to local prefill), so this never raises."""
+        ship = None
+        try:
+            if self._faults is not None:
+                # inside the try: an injected ship fault degrades to the
+                # peer's local prefill, as a real fetch failure does
+                self._faults.check("kv.ship", step=self.stats.steps)
+            if not req.out_tokens:
+                raise ValueError("nothing to ship (no first token)")
+            row = self._slot_pages.get(req.slot) or []
+            P = self._pager.page_size
+            n_tokens = len(req.prompt_ids)
+            n_written = -(-n_tokens // P)
+            if n_written > len(row):
+                raise ValueError(
+                    f"slot row holds {len(row)} pages; prompt needs "
+                    f"{n_written}")
+            pages = row[:n_written]
+            arrays = HostTier.fetch_pages(self.cache, pages)
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            ship = Shipment(
+                epoch=0,   # stamped by the plane with the PEER's epoch
+                dtype=pool_dtype_name(self.cache),
+                page_size=P, n_tokens=n_tokens, n_written=n_written,
+                first_tok=int(req.out_tokens[0]), pages=list(pages),
+                arrays=arrays, ready=ready,
+                handoff={
+                    # the journal admit/emit schema's fields: what the
+                    # decode engine needs to adopt the stream
+                    "rid": req.rid, "prompt_len": n_tokens,
+                    "max_new_tokens": req.max_new_tokens,
+                    "temperature": req.temperature,
+                    "top_p": req.top_p,
+                    "repeat_penalty": req.repeat_penalty,
+                    "priority": req.priority,
+                    "first_lp": float(req.out_logprobs[0])
+                    if req.out_logprobs else 0.0,
+                })
+            self.stats.kv_ships += 1
+            self.tracer.span(req.rid, "kv_shipped", pages=n_written)
+        except Exception:  # noqa: BLE001 — shipping is best-effort
+            log.exception("kv shipment capture failed rid=%d; the peer "
+                          "will prefill locally", req.rid)
+            ship = None
+        try:
+            req.ship_sink(ship)
+        except Exception:  # noqa: BLE001 — never raise into _emit
+            log.exception("ship_sink failed rid=%d", req.rid)
+
+    def _adopt_install(self, req: _Request, slot: int, ent) -> bool:
+        """Disaggregated DECODE engine (engine thread, from _do_prefill /
+        _mixed_admit after the row is allocated): install the shipped
+        pages into the slot's fresh row and resume the stream at the
+        shipped frontier, as _restore_victim does, with the peer's
+        first token emitted verbatim. The upload leaves pinned memory
+        with non_blocking on the steps' stream; PyTorch's pinned-memory
+        allocator keeps each block from reuse until the event it records
+        with the copy has passed. Every buffer a graph holds is written
+        in place (pool leaves, table, penalty ring; the rest are host
+        mirrors the steps load). False = refused (a stale epoch, a geometry that does not fit, an
+        injected fault): the caller falls through to whole-prompt local
+        prefill, which rewrites the row's pages and scales."""
+        outcome = "fault"
+        try:
+            if self._faults is not None:
+                self._faults.check("kv.adopt", step=self.stats.steps)
+            if ent.epoch != self.config_epoch:
+                outcome = "epoch"
+                raise ValueError(
+                    f"shipment config epoch {ent.epoch} != engine "
+                    f"epoch {self.config_epoch} (reconfigured while "
+                    "the shipment flew)")
+            pool_dt = pool_dtype_name(self.cache)
+            row = self._slot_pages.get(slot) or []
+            if (ent.page_size != self._pager.page_size
+                    or ent.dtype != pool_dt
+                    or ent.n_tokens != len(req.prompt_ids)
+                    or ent.n_written > len(row)):
+                outcome = "geometry"
+                raise ValueError(
+                    f"shipment geometry (page_size={ent.page_size}, "
+                    f"dtype={ent.dtype}, n_tokens={ent.n_tokens}, "
+                    f"n_written={ent.n_written}) does not fit this "
+                    f"pool (page_size={self._pager.page_size}, "
+                    f"dtype={pool_dt}, row={len(row)} pages)")
+            HostTier.install_pages(self.cache, row[:ent.n_written],
+                                   ent.arrays)
+        except Exception:  # noqa: BLE001 — adoption is best-effort
+            note_adopt(outcome)
+            log.exception("kv adoption refused rid=%d; degrading to "
+                          "local prefill", req.rid)
+            return False
+        self._temp[slot] = req.temperature
+        self._top_p[slot] = req.top_p
+        self._penalty[slot] = req.repeat_penalty
+        self._prime_ring(slot, list(req.prime_tokens) + [ent.first_tok])
+        self._pos[slot] = ent.n_tokens
+        self._last_tok[slot] = ent.first_tok
+        self.stats.kv_adopts += 1
+        note_adopt("adopted")
+        self.tracer.span(req.rid, "kv_adopted", pages=ent.n_written)
+        if self.events is not None:
+            self.events.publish("kv_adopted", rid=req.rid,
+                                pages=ent.n_written, dtype=ent.dtype)
+        # the peer's first token emits verbatim: identity with the
+        # colocated engine is by construction, and the stream starts
+        # here, not after a local re-prefill
+        self._emit(req, ent.first_tok,
+                   logprob=float(ent.handoff.get("first_lp", 0.0)))
+        return True
 
     def _spill_victim_pages(self, req: _Request, slot: int) -> bool:
         """Device-to-host spill of a preemption victim's (or a parked
@@ -2590,7 +2859,15 @@ class InferenceEngine:
         if self._faults is not None:
             self._faults.check("engine.prefill", step=self.stats.steps,
                                n_tokens=len(ids))
-        hit = self._match_and_validate_prefix(ids)
+        # shipped-prefill adoption (disagg decode engine): a staged
+        # shipment replaces both the prefix match and the local compute,
+        # since the peer's pages hold the whole prompt (the row
+        # allocates unshared). PEEK only: the entry must survive a
+        # pool-exhausted requeue; it pops after the row exists
+        with self._rid_lock:
+            adopt = self._adopt_store.get(rid)
+        hit = (self._match_and_validate_prefix(ids) if adopt is None
+               else None)
         if not self._alloc_slot_pages(req, slot, hit):
             return   # pool exhausted: requeued (or failed) inside
         hit = req._effective_hit      # a spilled prefix may not be back
@@ -2600,6 +2877,15 @@ class InferenceEngine:
             # chunk row
             req._kv_restored = False
             return
+        if adopt is not None:
+            with self._rid_lock:
+                self._adopt_store.pop(rid, None)
+            if not req.out_tokens and self._adopt_install(req, slot,
+                                                          adopt):
+                # the slot resumes as a DECODE row from the shipped
+                # frontier: it must not also ride as a chunk row
+                return
+            # refused: fall through to local chunked prefill
         off = 0
         if hit is not None:
             # the shared pages are mapped at the row head: the windows
@@ -2661,10 +2947,16 @@ class InferenceEngine:
     def _captured(self, fn_name: str):
         """A runner's capture hook: the flight recorder counts the
         capture as a compile of `fn_name`, and the step that caused it
-        is recorded as compiled."""
+        is recorded as compiled. The hook holds the engine weakly: the
+        engine owns the runner, and a stopped engine is freed by its
+        refcount, not by a cyclic collection."""
+        ref = weakref.ref(self)
+
         def hook(_variant, seconds: float) -> None:
-            self.flight.count_capture(fn_name, seconds)
-            self._compiled_step = True
+            eng = ref()
+            if eng is not None:
+                eng.flight.count_capture(fn_name, seconds)
+                eng._compiled_step = True
         return hook
 
     def _took_capture(self) -> bool:
@@ -2875,8 +3167,13 @@ class InferenceEngine:
         if self._faults is not None:
             self._faults.check("engine.prefill", step=self.stats.steps,
                                n_tokens=len(ids))
+        # a staged shipment (disagg decode engine): peeked here, popped
+        # once the row exists (_mixed_admit's discipline)
+        with self._rid_lock:
+            adopt = self._adopt_store.get(rid)
         # match BEFORE page admission: a hit changes the allocation
-        hit = self._match_and_validate_prefix(ids)
+        hit = (self._match_and_validate_prefix(ids) if adopt is None
+               else None)
         if not self._alloc_slot_pages(req, slot, hit):
             return None   # pool exhausted: requeued (or failed) inside
         hit = req._effective_hit      # a spilled prefix may not be back
@@ -2886,6 +3183,14 @@ class InferenceEngine:
             # token the fold would re-derive was already emitted)
             req._kv_restored = False
             return None
+        if adopt is not None:
+            with self._rid_lock:
+                self._adopt_store.pop(rid, None)
+            if not req.out_tokens and self._adopt_install(req, slot,
+                                                          adopt):
+                return None   # pages installed, first token emitted
+            # refused: whole-prompt prefill rewrites the row's pages
+            # and scales, the documented degradation
         n_top = self._n_top_for([slot])
         if hit is not None:
             out = self._prefixed_prefill_device(ids, slot, req, hit[1],
@@ -3703,6 +4008,11 @@ class InferenceEngine:
                     log.exception("stream callback failed rid=%d", req.rid)
         if finished:
             req.finish_t = now
+            if req.ship_sink is not None:
+                # disaggregated prefill engine: fetch the slot's written
+                # pages BEFORE the release frees them; the sink queues
+                # the shipment for the transfer channel's writer thread
+                self._capture_shipment(req)
             self._slot_req[req.slot] = None
             self._release_slot_pages(req.slot)
             # the key moves to the done ring before the request leaves the
@@ -3739,6 +4049,8 @@ class InferenceEngine:
         for rid, req in doomed:
             req.error = err
             self.scheduler.cancel(rid)
+            with self._rid_lock:
+                self._adopt_store.pop(rid, None)
             if self._host_tier is not None:
                 self._host_tier.drop(("victim", rid))
             if req.slot >= 0:
@@ -3758,14 +4070,25 @@ class InferenceEngine:
         its causes (preempted twice, a prefix spilled then restored,
         folded by a config switch, ...). None when the rid is unknown
         (never admitted, or out of the finished ring): the API's 404.
-        The fleet merge (federation) is ROADMAP A6c."""
+        With a fleet collector (`telemetry`), its remote events for the
+        rid join, tagged with their origin host and clock-offset
+        corrected, so a request that prefilled on one host and decoded on
+        another reads as one chronology."""
         from cake_tpu_torch.obs.timeline import build_timeline
         trace = self.tracer.get(rid)
         if trace is None:
             return None
         events = (self.events.dump(rid=rid)
                   if self.events is not None else [])
-        return build_timeline(trace, events, self.flight.records_for(rid))
+        local_host = None
+        if self.telemetry is not None:
+            local_host = getattr(self.telemetry, "local_host", None)
+            try:
+                events = events + self.telemetry.events_for(rid=rid)
+            except Exception:  # noqa: BLE001 — explain must not fail
+                log.debug("remote event merge failed", exc_info=True)
+        return build_timeline(trace, events, self.flight.records_for(rid),
+                              local_host=local_host)
 
     # -- live reconfiguration (autotune/) ---------------------------------------
 
@@ -4024,7 +4347,7 @@ class InferenceEngine:
 
         if self._slo:
             for rid, req in sorted(self._requests.items()):
-                if req.done.is_set():
+                if req.done.is_set() or req._disagg_pending:
                     continue
                 req._kv_restored = False
                 remaining = req.max_new_tokens - len(req.out_tokens)
@@ -4053,7 +4376,9 @@ class InferenceEngine:
             applied.slots, max(self._max_queue, unfinished),
             priority_classes=False, config=self._sched_cfg)
         for rid, req in sorted(self._requests.items()):
-            if req.done.is_set():
+            if req.done.is_set() or req._disagg_pending:
+                # waiting for its shipment: disagg_complete submits it
+                # to this scheduler
                 continue
             req._kv_restored = False
             remaining = req.max_new_tokens - len(req.out_tokens)
@@ -4100,6 +4425,10 @@ class InferenceEngine:
         self._pager = PageAllocator(new.kv_pages, new.kv_page_size)
         self._slot_pages = {}
         self._slot_prefix_pages = {}
+        with self._rid_lock:
+            # a staged shipment was cut for the old pool's geometry (a
+            # later one from before the switch meets the epoch check)
+            self._adopt_store.clear()
         self._pos = np.zeros(B, np.int64)
         self._last_tok = np.zeros(B, np.int64)
         self._steps = np.zeros(B, np.int64)

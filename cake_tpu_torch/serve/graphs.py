@@ -60,6 +60,9 @@ capture (the flight recorder counts captures as JAX counts compiles).
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -99,6 +102,43 @@ def _add(delta: List[dict], times: int) -> None:
     for c, d in zip(COUNTERS, delta):
         for k, n in d.items():
             c[k] += n * times
+
+
+_CAPTURE_LOCK = threading.RLock()
+# the warm-ups' side stream, one a device: cuBLAS keeps a workspace for
+# every stream it has run on for the life of the process, so a fresh
+# stream a capture would hold ~32 MiB more each time
+_SIDE_STREAMS: dict = {}
+
+
+@contextlib.contextmanager
+def _capturing():
+    """One capture at a time in the process, with the cyclic garbage
+    collector paused. Engines in one process (a disaggregated pair) may
+    reach a first use at once, and `torch.cuda.graph` synchronizes the
+    device and frees cached memory before it begins, which must not
+    land inside another thread's capture. A collection in the capturing
+    thread would run the finalizers of unreachable objects there, and a
+    dropped engine's CUDAGraph destroys its graph, an operation a
+    capturing stream forbids: the capture would be invalidated. What
+    became garbage meanwhile is collected after."""
+    with _CAPTURE_LOCK:
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if was:
+                gc.enable()
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """The device's warm-up stream (callers hold _CAPTURE_LOCK)."""
+    key = torch.device(device).index
+    got = _SIDE_STREAMS.get(key)
+    if got is None:
+        got = _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return got
 
 
 class BurstHandle(NamedTuple):
@@ -171,20 +211,21 @@ class _Graphs:
         if got is not None:
             return got
         t0 = time.perf_counter()
-        undo = self._idle(variant)
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.step(variant)
-        cur.wait_stream(side)
-        if undo is not None:
-            undo()
-        graph = torch.cuda.CUDAGraph()
-        before = _snapshot()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            self.step(variant)
+        with _capturing():
+            undo = self._idle(variant)
+            cur = torch.cuda.current_stream(self.device)
+            side = _side_stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self.step(variant)
+            cur.wait_stream(side)
+            if undo is not None:
+                undo()
+            graph = torch.cuda.CUDAGraph()
+            before = _snapshot()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                self.step(variant)
         delta = _increase(before)
         _add(delta, -1)              # the capture launched nothing
         self._graphs[variant] = got = (graph, delta)

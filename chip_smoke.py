@@ -278,6 +278,37 @@ Phases, in order (any failure exits non-zero):
             keys. A `control` JSON line holds the record; each kernel row
             carries `control_launches`, its launches in (1)'s waves after
             the cold one.
+  disagg    disaggregated prefill/decode (kv/transfer.py): a prefill
+            engine and a decode engine in this process, sharing one
+            parameter object, over a loopback page channel. (a) 8B
+            width, 2 layers, f32 weights and pool, 16-token pages, 8
+            slots: six greedy chats of 16 tokens sharing a 32-token head
+            through the pair, against one colocated card engine (with
+            and without the head registered) and the CPU engine (with
+            it), in six waves: plain; the head registered on both hosts;
+            a kv.ship fault on the prefill host; a kv.adopt fault on the
+            decode host; a reconfigure of the decode host while the
+            shipments are held (each refused with outcome "epoch");
+            no prefill peer (the prefill host stopped). Identical
+            streams, both allocators back to their pages after each
+            wave, each outcome counted in cake_kv_adopt_total. (b) 32
+            layers, the phases' bf16 weights, 128 x 128-token pages and
+            8 slots on each host, the decode host behind the HTTP API,
+            --decode-scan 4, chunk 256: six chats of 1000-token prompts
+            (8 pages) and 64 tokens, a warm-up wave then a measured one,
+            on the colocated engine, the pair, and the pair over int8
+            pages: TTFT p50, decode tok/s, shipments and the bytes a
+            shipment (equal to the count by hand: 134217728 over bf16,
+            67125248 over int8), cake_kv_ship_seconds p50 and its GB/s,
+            the prefill host's TTFT p50 and the channel's share of the
+            TTFT, the kernels launched (rpa_mixed on the prefill host,
+            rpa_decode on the decode host, the q8 bodies over int8; the
+            decode host runs decode steps only, the prefill host no
+            decode step), no plain version, no capture in a warm wave,
+            every chat adopted; GET /api/v1/fleet answers for one host.
+            A `disagg` JSON line holds the record; each kernel row
+            carries `disagg_launches`, its launches in (b)'s measured
+            pair waves.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -297,10 +328,11 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers", "recovery", "spec", "control")
+          "sched", "tiers", "recovery", "spec", "control", "disagg")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -5778,6 +5810,416 @@ def phase_control(torch, rpa, fa, cfg, params, card: str):
     return counts, rec
 
 
+# -- phase: disagg --------------------------------------------------------------
+
+DISAGG_TOKEN = "chip-smoke-disagg"
+DISAGG_HEAD = 32                  # (a): the shared head (two 16-token pages)
+DISAGG_TAILS = (8, 68, 38, 98, 23, 58)   # (a): each chat's own tokens
+DISAGG_NEW_ID = 16                # (a): tokens a chat
+DISAGG_NEW = 64                   # (b): tokens a chat
+DISAGG_PROMPT = 1000              # (b): tokens a chat's prompt: 8 pages
+# (b): a shipment's bytes, reckoned by hand: 8 pages x 32 layers x 128
+# tokens x 8 kv heads x 128 x 2 bytes x (k, v); over int8 one byte an
+# element plus the f32 scales, 8 pages x 32 layers x 8 heads x 4 B x 2
+DISAGG_BYTES = {"bf16": 8 * 32 * 128 * 8 * 128 * 2 * 2,
+                "int8": 8 * 32 * 128 * 8 * 128 * 2 + 8 * 32 * 8 * 4 * 2}
+DISAGG_OUTCOMES = ("adopted", "degraded", "fault", "epoch", "timeout",
+                   "checksum", "geometry")
+
+
+def _release(torch, gone=()) -> None:
+    """Hand what dropped engines held back to the card. `gone` holds
+    weak references to the engines just dropped: a stopped engine is in
+    no reference cycle (its planes and its runners' capture hooks hold
+    it weakly), so its refcount alone frees its pool and graphs, and one
+    still alive here fails the phase. The collection after it is only a
+    safety net for what else became garbage."""
+    import gc
+    alive = [i for i, r in enumerate(gone) if r() is not None]
+    if alive:
+        fail(f"disagg: stopped engine(s) {alive} of {len(gone)} outlived "
+             "their last reference (a reference cycle)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _adopt_counts() -> dict:
+    from cake_tpu_torch.kv import transfer
+    return {o: transfer._ADOPT_TOTAL.labels(outcome=o).value
+            for o in DISAGG_OUTCOMES}
+
+
+def _disagg_pair(build):
+    """A started prefill + decode pair over loopback, the decode plane
+    connected (until then request_prefill declines and every chat would
+    prefill locally). build(**kw) makes one engine."""
+    pre = build(disagg="prefill", disagg_peer="127.0.0.1:0",
+                disagg_token=DISAGG_TOKEN).start()
+    dec = build(disagg="decode", disagg_peer=f"127.0.0.1:{pre._disagg.port}",
+                disagg_token=DISAGG_TOKEN, disagg_timeout_s=120.0).start()
+    if not dec._disagg.wait_connected(60):
+        fail("disagg: the transfer channel never connected")
+    return pre, dec
+
+
+def _disagg_free(engines, label: str, floors=None) -> None:
+    """Every engine's allocator back to its pages less `floors` (a
+    registered prefix's pages), polled under a deadline."""
+    deadline = time.monotonic() + 30.0
+    floors = floors or [0] * len(engines)
+
+    def back():
+        return all(e._pager.free_pages == e._pager.n_pages - f
+                   for e, f in zip(engines, floors))
+    while not back() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if not back():
+        fail(f"disagg {label}: pages not conserved "
+             f"({[(e._pager.free_pages, e._pager.n_pages) for e in engines]})")
+
+
+def _disagg_identity(torch, card: str) -> dict:
+    """(a) 8B width, 2 layers, f32 weights and pool, 16-token pages: six
+    greedy chats sharing a 32-token head through the pair, against one
+    colocated card engine and the CPU engine (both with the head
+    registered, and the card's also without), in these waves: plain; the
+    head registered on both hosts; a kv.ship fault on the prefill host;
+    a kv.adopt fault on the decode host; a reconfigure of the decode
+    host while the shipments are held (outcome epoch); no prefill peer
+    (the prefill host stopped: request_prefill declines). Identical
+    streams and conserved pools after every wave; each outcome counted
+    in cake_kv_adopt_total."""
+    from cake_tpu_torch.faults import build_injector
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    cfg32, p32 = _f32_params(torch, LlamaConfig.llama3_8b())
+    head = [(5 * j) % 250 + 1 for j in range(DISAGG_HEAD)]
+    prompts = [head + [(7 * i + 3 * j) % 250 + 1 for j in range(n)]
+               for i, n in enumerate(DISAGG_TAILS)]
+
+    def build(device=DEV, params=p32, **kw):
+        return InferenceEngine(
+            cfg32, params, ByteTokenizer(cfg32.vocab_size), device=device,
+            max_slots=8, max_seq_len=512, kv_pages=256, kv_page_size=16,
+            prefill_chunk=64, cache_dtype=torch.float32,
+            sampling=SamplingConfig(temperature=0.0), **kw)
+
+    def wave(eng, label):
+        hs = [eng.submit(p, max_new_tokens=DISAGG_NEW_ID) for p in prompts]
+        for h in hs:
+            if not h.wait(timeout=300) or h._req.error is not None:
+                fail(f"disagg (a) {label}: a chat failed "
+                     f"({h._req.error!r})")
+        return [list(h._req.out_tokens) for h in hs]
+
+    refs = {}
+    for label, device, prefix in (("card", DEV, False),
+                                  ("card+prefix", DEV, True),
+                                  ("cpu+prefix", "cpu", True)):
+        params = p32 if device == DEV else {
+            k: ({n: t.cpu() for n, t in v.items()} if k == "blocks"
+                else v.cpu()) for k, v in p32.items()}
+        eng = build(device=device, params=params)
+        with eng:
+            if prefix:
+                eng.register_prefix(head)
+            refs[label] = wave(eng, label)
+        gone = [weakref.ref(eng)]
+        del eng, params
+        _release(torch, gone)
+    if len({json.dumps(v) for v in refs.values()}) != 1:
+        fail(f"disagg (a): the colocated references differ: {refs}")
+    want = refs["card"]
+    pre, dec = _disagg_pair(build)
+    waves = {}
+    expect = {"plain": ("adopted", 6), "prefix": ("adopted", 6),
+              "ship_fault": ("degraded", 1), "adopt_fault": ("fault", 1),
+              "epoch": ("epoch", 6), "no_peer": (None, 0)}
+    try:
+        for label in expect:
+            a0 = _adopt_counts()
+            k0 = dec.stats.kv_adopts
+            pids = []
+            if label == "prefix":
+                pids = [pre.register_prefix(head), dec.register_prefix(head)]
+            elif label == "ship_fault":
+                pre._faults = build_injector(
+                    "seed=5;kv.ship:nth=1:transient")
+            elif label == "adopt_fault":
+                pre._faults = None
+                dec._faults = build_injector(
+                    "seed=5;kv.adopt:nth=1:transient")
+            elif label == "epoch":
+                dec._faults = None
+            elif label == "no_peer":
+                pre.stop()
+                deadline = time.monotonic() + 30.0
+                while (dec._disagg._connected.is_set()
+                       and time.monotonic() < deadline):
+                    time.sleep(0.005)
+                if dec._disagg._connected.is_set():
+                    fail("disagg (a): the decode plane kept its channel")
+            if label == "epoch":
+                # the prefill host's writer holds its first send until
+                # the decode host has switched: every shipment is
+                # captured (queued) and none has left
+                plane = pre._disagg
+                gate, real = threading.Event(), plane._send_item
+
+                def held_send(stream, item, _real=real):
+                    gate.wait(120)
+                    _real(stream, item)
+                plane._send_item = held_send
+                ships0 = pre.stats.kv_ships
+                hs = [dec.submit(p, max_new_tokens=DISAGG_NEW_ID)
+                      for p in prompts]
+                deadline = time.monotonic() + 120.0
+                while pre.stats.kv_ships < ships0 + len(prompts) and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.005)
+                cur = dec.current_config().to_dict()
+                dec.reconfigure(dict(cur, decode_scan=4))
+                plane._send_item = real
+                gate.set()
+                for h in hs:
+                    if not h.wait(timeout=300) or h._req.error is not None:
+                        fail("disagg (a) epoch: a chat failed")
+                got = [list(h._req.out_tokens) for h in hs]
+            else:
+                got = wave(dec, label)
+            a1 = _adopt_counts()
+            delta = {o: a1[o] - a0[o] for o in a1 if a1[o] != a0[o]}
+            adopts = dec.stats.kv_adopts - k0
+            waves[label] = dict(identical=got == want, adopts=adopts,
+                                outcomes=delta)
+            log(f"disagg (a) {label}: identical {got == want}, adopted "
+                f"{adopts}, outcomes {delta}")
+            if got != want:
+                fail(f"disagg (a) {label}: streams differ from the "
+                     "colocated engines'")
+            o, n = expect[label]
+            if o is not None and delta.get(o) != n:
+                fail(f"disagg (a) {label}: expected {n} {o!r} outcomes, "
+                     f"got {delta}")
+            want_adopts = {"plain": 6, "prefix": 6, "ship_fault": 5,
+                           "adopt_fault": 5}.get(label, 0)
+            if adopts != want_adopts:
+                fail(f"disagg (a) {label}: {adopts} adoptions, expected "
+                     f"{want_adopts}")
+            if pids:
+                pre.unregister_prefix(pids[0])
+                dec.unregister_prefix(pids[1])
+            live = [dec] if label == "no_peer" else [pre, dec]
+            _disagg_free(live, f"(a) {label}")
+    finally:
+        dec.stop()
+        pre.stop()
+    gone = [weakref.ref(pre), weakref.ref(dec)]
+    del pre, dec, p32, live
+    _release(torch, gone)
+    return dict(waves=waves, seconds=time.perf_counter() - t0)
+
+
+def _disagg_full(torch, rpa, cfg, params, card: str):
+    """(b) 32 layers, bf16 weights, 128 x 128-token pages and 8 slots on
+    each host, the decode host behind the HTTP API: six chats of
+    DISAGG_PROMPT-token prompts and DISAGG_NEW tokens, a warm-up wave
+    then a measured one, on the colocated engine, the pair, and the pair
+    over int8 pages. Returns (the pair waves' launches, records)."""
+    from cake_tpu_torch.kv import transfer
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    records, launches = [], Counter()
+    args_kw = dict(kv_pages=128, prefill_chunk=256, sample_len=DISAGG_NEW)
+    for label, kv_dtype, paired in (("colocated", None, False),
+                                    ("pair", None, True),
+                                    ("pair int8", "int8", True)):
+        pre = None
+        engine_kw = {}
+        if paired:
+            pre = InferenceEngine(
+                cfg, params, ByteTokenizer(cfg.vocab_size), device=DEV,
+                max_slots=8, max_seq_len=2048, kv_pages=128,
+                kv_page_size=128, prefill_chunk=256,
+                cache_dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                sampling=SamplingConfig(temperature=0.0),
+                disagg="prefill", disagg_peer="127.0.0.1:0",
+                disagg_token=DISAGG_TOKEN).start()
+            engine_kw = dict(disagg="decode", disagg_token=DISAGG_TOKEN,
+                             disagg_peer=f"127.0.0.1:{pre._disagg.port}",
+                             disagg_timeout_s=120.0)
+        srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                           engine_kw=engine_kw, kv_dtype=kv_dtype,
+                           **args_kw)
+        eng = srv.engine
+        try:
+            if paired and not eng._disagg.wait_connected(60):
+                fail(f"disagg (b) {label}: the channel never connected")
+            caps = _count_captures(eng)
+            pre_caps = _count_captures(pre) if pre else []
+            ship_s = []
+            real_observe = transfer._SHIP_SECONDS.observe
+
+            def observe(v, _real=real_observe):
+                ship_s.append(v)
+                _real(v)
+            for run in ("warm-up", "measured"):
+                if run == "measured":
+                    rpa.reset_launch_counts()
+                    del caps[:], pre_caps[:], ship_s[:]
+                    transfer._SHIP_SECONDS.observe = observe
+                tok0, dec0 = eng.stats.tokens_generated, \
+                    eng.stats.decode_time_s
+                k0 = eng.stats.kv_adopts
+                s0 = dict(pre._disagg.stats) if pre else {}
+                kinds0 = Counter(r["kind"] for r in eng.flight.dump())
+                pkinds0 = (Counter(r["kind"] for r in pre.flight.dump())
+                           if pre else Counter())
+                n0 = len(eng.retired)
+                p0 = len(pre.retired) if pre else 0
+                t_wave = time.perf_counter()
+                tags = [f"{run[0]}{label[:1]}{i}" for i in range(6)]
+                for tag in tags:
+                    srv.post(tag, "standard", DISAGG_PROMPT, DISAGG_NEW)
+                srv.join()
+                wall = time.perf_counter() - t_wave
+                bad = {t: srv.status.get(t) for t in tags
+                       if srv.status.get(t, (0,))[0] != 200}
+                if bad:
+                    fail(f"disagg (b) {label} [{run}]: chats failed {bad}")
+                transfer._SHIP_SECONDS.observe = real_observe
+                if run != "measured":
+                    continue
+                retired = list(eng.retired)[n0:]
+                if len(retired) != 6 or any(
+                        len(r.prompt_ids) != DISAGG_PROMPT
+                        or len(r.out_tokens) != DISAGG_NEW
+                        for r in retired):
+                    fail(f"disagg (b) {label}: expected six chats of "
+                         f"{DISAGG_PROMPT} + {DISAGG_NEW} tokens")
+                dec_s = eng.stats.decode_time_s - dec0
+                rec = dict(
+                    label=label, wall_s=wall,
+                    ttft_p50_s=statistics.median(
+                        r.first_token_t - r.submit_t for r in retired),
+                    decode_tok_s=((eng.stats.tokens_generated - tok0)
+                                  / dec_s if dec_s else 0.0),
+                    captures=len(caps) + len(pre_caps),
+                    launches={k: n for k, n in rpa.LAUNCHES.items() if n},
+                    step_kinds=dict(Counter(r["kind"]
+                                            for r in eng.flight.dump())
+                                    - kinds0))
+                if paired:
+                    st = pre._disagg.stats
+                    n_ship = st["shipments"] - s0["shipments"]
+                    per = (st["bytes"] - s0["bytes"]) / max(n_ship, 1)
+                    p50 = statistics.median(ship_s) if ship_s else None
+                    pre_ret = list(pre.retired)[p0:]
+                    rec.update(
+                        adopts=eng.stats.kv_adopts - k0,
+                        shipments=n_ship, bytes_a_shipment=per,
+                        ship_seconds_p50=p50,
+                        ship_gb_s=(per / p50 / 1e9 if p50 else None),
+                        prefill_host_ttft_p50_s=statistics.median(
+                            r.first_token_t - r.submit_t for r in pre_ret),
+                        prefill_host_step_kinds=dict(
+                            Counter(r["kind"] for r in pre.flight.dump())
+                            - pkinds0),
+                        degraded=eng._disagg.stats["degraded"])
+                    rec["channel_share"] = (
+                        1.0 - rec["prefill_host_ttft_p50_s"]
+                        / rec["ttft_p50_s"])
+                    want = DISAGG_BYTES[kv_dtype or "bf16"]
+                    if n_ship != 6 or per != want:
+                        fail(f"disagg (b) {label}: {n_ship} shipments of "
+                             f"{per} B, expected 6 of {want} B")
+                    if rec["adopts"] != 6 or rec["degraded"]:
+                        fail(f"disagg (b) {label}: {rec['adopts']} "
+                             "adoptions of 6 chats, "
+                             f"{rec['degraded']} degraded")
+                    if set(rec["step_kinds"]) - {"decode", "decode_scan"}:
+                        fail(f"disagg (b) {label}: the decode host ran "
+                             f"{rec['step_kinds']}")
+                    if {"decode", "decode_scan"} & set(
+                            rec["prefill_host_step_kinds"]):
+                        fail(f"disagg (b) {label}: the prefill host ran "
+                             f"decode steps {rec['prefill_host_step_kinds']}")
+                    for k, n in rpa.LAUNCHES.items():
+                        launches[k] += n
+                    suffix = _kernel_suffix(kv_dtype)
+                    for k in ("rpa_decode" + suffix, "rpa_mixed" + suffix):
+                        if rpa.LAUNCHES.get(k, 0) <= 0:
+                            fail(f"disagg (b) {label}: {k} never launched")
+                if rec["captures"]:
+                    fail(f"disagg (b) {label}: the warm wave captured "
+                         f"{rec['captures']} graph(s)")
+                plain = {k: n for k, n in rpa.LAUNCHES.items()
+                         if k.endswith("_plain") and n}
+                if plain:
+                    fail(f"disagg (b) {label}: plain folds ran {plain}")
+                records.append(rec)
+                log(f"disagg (b) {label}: TTFT p50 {rec['ttft_p50_s']:.3f} "
+                    f"s, decode {rec['decode_tok_s']:.1f} tok/s, wall "
+                    f"{wall:.2f} s"
+                    + (f", {rec['shipments']} shipments of "
+                       f"{rec['bytes_a_shipment']:.0f} B, ship p50 "
+                       f"{rec['ship_seconds_p50']:.4f} s "
+                       f"({rec['ship_gb_s']:.2f} GB/s), prefill-host TTFT "
+                       f"p50 {rec['prefill_host_ttft_p50_s']:.3f} s, "
+                       f"channel share {rec['channel_share']:.2f}"
+                       if paired else "")
+                    + f"; launches {rec['launches']}")
+            if label == "pair":
+                fleet = json.loads(_get(srv.url + "/api/v1/fleet"))
+                if (fleet.get("local_host") != "coordinator"
+                        or "note" not in fleet
+                        or not fleet["hosts"]["coordinator"]["live"]):
+                    fail(f"disagg (b): /api/v1/fleet answered {fleet}")
+                records[-1]["fleet"] = fleet
+                log(f"disagg (b) fleet: {json.dumps(fleet)}")
+            _disagg_free([e for e in (pre, eng) if e is not None],
+                         f"(b) {label}")
+        finally:
+            srv.close()
+            if pre is not None:
+                pre.stop()
+        # the served engine waits for the collection: the HTTP
+        # handler class the server makes is cyclic and holds it
+        gone = [weakref.ref(pre)] if pre is not None else []
+        del srv, eng, pre
+        _release(torch, gone)
+    return dict(launches), records
+
+
+def phase_disagg(torch, rpa, cfg, params, card: str):
+    """The disagg phase: (a) the identities at 2 layers, f32, (b) full
+    width. Returns (the pair waves' launches, record)."""
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    rec = dict(identity=_disagg_identity(torch, card))
+    counts, rec["full"] = _disagg_full(torch, rpa, cfg, params, card)
+    rec["seconds"] = time.perf_counter() - t0
+    # the phase gives back what its engines took (the last ones became
+    # garbage only as _disagg_full's frame went): the weight-quantized
+    # phases after it need the card
+    _release(torch)
+    rec["held_gib"] = [held / 2**30, torch.cuda.memory_allocated() / 2**30]
+    log(f"disagg: {rec['held_gib'][0]:.3f} GiB allocated before the "
+        f"phase, {rec['held_gib'][1]:.3f} after")
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail(f"disagg: the phase kept {rec['held_gib']} GiB allocated")
+    log(f"disagg phase: {rec['seconds']:.1f} s (identity "
+        f"{rec['identity']['seconds']:.1f} s)")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5853,8 +6295,10 @@ def main(argv=None) -> int:
     spec_counts = {}
     control_record = None
     control_counts = {}
+    disagg_record = None
+    disagg_counts = {}
     if {"step", "generate", "serve", "prefix", "sched",
-            "tiers", "recovery", "spec", "control"} & set(phases):
+            "tiers", "recovery", "spec", "control", "disagg"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
@@ -5912,6 +6356,12 @@ def main(argv=None) -> int:
             # a kernels-line key of their own
             control_counts, control_record = phase_control(
                 torch, rpa, fa, cfg, params, card)
+        has_disagg = importlib.util.find_spec("cake_tpu_torch.kv.transfer")
+        if "disagg" in phases and has_disagg:
+            # (b)'s measured pair waves' launches (set to 0 just before
+            # each), a kernels-line key of their own
+            disagg_counts, disagg_record = phase_disagg(
+                torch, rpa, cfg, params, card)
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -5966,6 +6416,9 @@ def main(argv=None) -> int:
     if control_record is not None:
         print(json.dumps({"control": control_record, "card": card},
                          default=str), flush=True)
+    if disagg_record is not None:
+        print(json.dumps({"disagg": disagg_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -5987,6 +6440,8 @@ def main(argv=None) -> int:
             "spec_launches": spec_counts.get(name) if spec_record else None,
             "control_launches": (control_counts.get(name, 0)
                                  if control_record else None),
+            "disagg_launches": (disagg_counts.get(name, 0)
+                                if disagg_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

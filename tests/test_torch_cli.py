@@ -110,7 +110,7 @@ def test_flags_keep_the_jax_names_and_defaults():
         assert str(ours.value).split("(")[0] == \
             str(jax_err.value).split("(")[0]
     with pytest.raises(SystemExit):
-        parse_args(["--telemetry-export", "h:1"])  # not ported (A6c)
+        parse_args(["--telemetry-export", "h:1"])  # not ported (A13)
 
 
 @pytest.mark.parametrize("quant", ["int4", "int8"])
@@ -258,3 +258,70 @@ def test_make_engine_passes_the_kv_dtype(kv_dtype):
         h = engine.submit([3] * 12, max_new_tokens=3, temperature=0.0)
         assert h.wait(timeout=120) and h._req.error is None
     assert engine._pager.free_pages == 8
+
+
+DISAGG = dict(disagg="decode", disagg_peer="127.0.0.1:7000", kv_pages=16)
+
+
+@pytest.mark.parametrize("kw,token", [
+    (dict(DISAGG, disagg="middle"), "t"),
+    (dict(DISAGG, kv_pages=None), "t"),
+    (dict(DISAGG, disagg_peer=None), "t"),
+    (dict(DISAGG, disagg_peer="nohost"), "t"),
+    (dict(DISAGG, disagg_peer="h:99999"), "t"),
+    (DISAGG, ""),
+    (dict(DISAGG, disagg_timeout=0.0), "t"),
+    (dict(disagg_timeout=-1.0), "t"),
+    (dict(DISAGG, spec_draft="d"), "t"),
+    (dict(DISAGG, disagg_peer=":7000"), "t"),
+], ids=["role", "no_pages", "no_peer", "no_port", "bad_port", "no_token",
+        "timeout", "timeout_alone", "spec_draft", "no_host"])
+def test_disagg_and_telemetry_rules_match_the_jax_args(kw, token,
+                                                       monkeypatch):
+    """The disaggregation flags' refusals carry the JAX package's
+    messages (the telemetry flags are not parsed yet: see below)."""
+    monkeypatch.setenv("CAKE_DISAGG_TOKEN", token)
+    with pytest.raises(ValueError) as theirs:
+        JArgs(**kw).validate()
+    with pytest.raises(ValueError) as ours:
+        Args(**kw).validate()
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_disagg_and_telemetry_flags_parse_with_jax_defaults(monkeypatch,
+                                                            caplog):
+    """The flags' names and defaults are JAX's; --disagg in a one-shot
+    run warns and is cleared. The telemetry flags wait for their
+    consumer, multi-host serving (A13), and are still refused."""
+    theirs = {f.name: f.default for f in dataclasses.fields(JArgs)}
+    for name in ("disagg", "disagg_peer", "disagg_timeout"):
+        assert getattr(Args(), name) == theirs[name], name
+    monkeypatch.setenv("CAKE_DISAGG_TOKEN", "t")
+    a = parse_args(["--disagg", "prefill", "--disagg-peer", "0.0.0.0:0",
+                    "--disagg-timeout", "5"])
+    assert (a.disagg, a.disagg_peer, a.disagg_timeout) == \
+        ("prefill", "0.0.0.0:0", 5.0)
+    for flag in ("--telemetry-export", "--no-telemetry-export",
+                 "--telemetry-interval"):
+        with pytest.raises(SystemExit):
+            parse_args([flag, "1"] if flag.endswith("interval") else [flag])
+    caplog.set_level("WARNING")
+    assert cli.main(["--cpu", "--prompt", "hi", "--sample-len", "2",
+                     "--disagg", "decode", "--disagg-peer", "h:1"]) == 0
+    assert "--disagg applies to engine serving (--api)" in caplog.text
+
+
+def test_make_engine_wires_the_disagg_role(monkeypatch):
+    """Master.make_engine passes --disagg, --disagg-peer and
+    --disagg-timeout; the token comes from $CAKE_DISAGG_TOKEN."""
+    monkeypatch.setenv("CAKE_DISAGG_TOKEN", "t")
+    master = Master.from_args(Args(cpu=True, max_seq_len=64, kv_pages=8,
+                                   kv_page_size=16, disagg="prefill",
+                                   disagg_peer="127.0.0.1:0",
+                                   disagg_timeout=7.0))
+    engine = master.make_engine(max_slots=2)
+    assert engine._disagg.role == "prefill"
+    assert engine._disagg._token == "t"
+    dec = master.make_engine(max_slots=2, disagg="decode",
+                             disagg_peer="127.0.0.1:1")
+    assert dec._disagg.role == "decode" and dec._disagg.timeout_s == 7.0

@@ -495,3 +495,117 @@ def test_cuda_engine_streams_match_across_decode_scan_and_the_cpu():
         assert eng._pager.free_pages == 24
         runs.append([list(h._req.out_tokens) for h in hs])
     assert runs[1] == runs[2] == runs[0]
+
+
+def test_a_capture_holds_the_collector_and_the_other_captures():
+    """`graphs._capturing`: the cyclic collector is paused inside it and
+    restored after, and a second thread's capture waits for the first
+    (engines in one process, a disaggregated pair, capture at once)."""
+    import gc
+    import threading
+
+    from cake_tpu_torch.serve import graphs
+
+    assert gc.isenabled()
+    order = []
+    inside = threading.Event()
+    release = threading.Event()
+
+    def first():
+        with graphs._capturing():
+            order.append(("first", gc.isenabled()))
+            inside.set()
+            release.wait(30)
+        order.append(("first out", None))
+
+    def second():
+        with graphs._capturing():
+            order.append(("second", gc.isenabled()))
+
+    t1 = threading.Thread(target=first)
+    t1.start()
+    assert inside.wait(30)
+    t2 = threading.Thread(target=second)
+    t2.start()
+    t2.join(0.2)
+    assert t2.is_alive(), "the second capture did not wait"
+    release.set()
+    t1.join(30)
+    t2.join(30)
+    assert order[0] == ("first", False) and ("second", False) in order
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._capturing():
+            assert not gc.isenabled()
+        assert not gc.isenabled(), "a paused collector stays paused"
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_a_collection_cannot_land_inside_a_capture():
+    """A dropped CUDA graph that becomes cyclic garbage while the decode
+    step is being captured: with the collector running on every
+    allocation, a collection inside the capture would destroy that
+    graph there (forbidden while the stream captures) and invalidate
+    the capture; the capture pauses the collector, and the engine
+    serves. A second engine's captures, once it is dropped and
+    collected, leave no device memory behind (the warm-ups share one
+    stream: cuBLAS keeps a workspace for every stream it ran on)."""
+    import gc
+
+    _cuda_or_skip()
+    cfg = LlamaConfig.tiny(num_hidden_layers=2)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu", dtype=torch.float32), "cuda")
+
+    def engine():
+        return InferenceEngine(
+            cfg, params, ByteTokenizer(cfg.vocab_size), device="cuda",
+            max_slots=2, max_seq_len=T, kv_pages=16, kv_page_size=PAGE,
+            sampling=ts.SamplingConfig(temperature=0.0),
+            cache_dtype=torch.float32)
+
+    def collected():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    first = engine()
+    with first:
+        assert first.submit([4] * 9, max_new_tokens=4).wait(timeout=120)
+    del first
+    held = collected()
+    eng = engine()
+    x = torch.zeros(4, device="cuda")
+    old = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(old):
+        x.add_(1.0)
+    box = [old]
+    del old
+    runner = eng._decode_runner()
+    real = runner.step
+    seen = []
+
+    def step(variant):
+        if box and torch.cuda.is_current_stream_capturing():
+            cycle = [box.pop()]
+            cycle.append(cycle)        # the old graph: cyclic garbage now
+            del cycle
+            seen.append(len([[i] for i in range(20000)]))
+        real(variant)
+
+    runner.step = step
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with eng:
+            h = eng.submit([5] * 9, max_new_tokens=4, temperature=0.0)
+            assert h.wait(timeout=120)
+    finally:
+        gc.set_threshold(*threshold)
+    assert h._req.error is None and len(h._req.out_tokens) == 4
+    assert seen == [20000]
+    del eng, runner, real, h, x
+    assert collected() <= held + (1 << 20)
