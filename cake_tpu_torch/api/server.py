@@ -56,6 +56,7 @@ import re
 import threading
 import time
 import uuid
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -382,11 +383,12 @@ class ApiServer:
         out["recovery"] = eng.recovery_state()
         if eng._journal is not None:
             out["journal"] = eng._journal.state()
+        if eng.paged:
+            out.update(page_size=eng._pager.page_size,
+                       pages_free=eng._pager.free_pages,
+                       pages_total=eng._pager.n_pages,
+                       paged_attn=eng.paged_attn)
         out.update(
-            page_size=eng._pager.page_size,
-            pages_free=eng._pager.free_pages,
-            pages_total=eng._pager.n_pages,
-            paged_attn=eng.paged_attn,
             slo=eng.slo.snapshot(),
             requests_completed=st.requests_completed,
             tokens_generated=st.tokens_generated,
@@ -678,6 +680,13 @@ class ApiServer:
 
 
 def make_handler(api: ApiServer):
+    """The request handler class of one server. A class is always in a
+    reference cycle of its own (its __mro__, its descriptors), and the
+    HTTP server keeps it after serve_forever has returned, so it holds
+    the ApiServer weakly: the server's end leaves the ApiServer, and the
+    engine it wraps, to their refcounts, not to a cyclic collection."""
+    api = weakref.proxy(api)
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -1044,15 +1053,18 @@ def start(master, address: str = "127.0.0.1:10128",
         except ValueError:
             pass  # not the main thread: the caller owns signals
 
-    def serve():
+    def serve(owner: ApiServer):
+        # the serving thread holds the ApiServer (`owner`; the handler
+        # class holds it weakly) for as long as it serves, and no longer
         try:
             httpd.serve_forever()
         finally:
             save_and_exit()
+            del owner
 
     if block:
-        serve()
+        serve(api)
     else:
-        threading.Thread(target=serve, daemon=True,
+        threading.Thread(target=serve, args=(api,), daemon=True,
                          name="cake-http").start()
     return httpd

@@ -46,9 +46,9 @@ class Args:
     quant: str = "none"
     # speculative decoding (models/llama/speculative.py): path to a small
     # draft model sharing the target's tokenizer; each target pass then
-    # verifies spec_gamma drafted tokens at once. Batch-1, one device,
-    # one-shot generation (the dense spec engine behind --api is
-    # ROADMAP A11)
+    # verifies spec_gamma drafted tokens at once. Batch-1 one-shot
+    # generation, and behind --api the dense spec engine (batched rounds
+    # over every slot, spec_round_batched)
     draft_model: Optional[str] = None
     spec_gamma: int = 4
     # paged speculative decoding (spec/): path to a small draft model
@@ -85,9 +85,11 @@ class Args:
     # --tracing DIR: a torch.profiler trace of the one-shot generation,
     # written to DIR as a Chrome / Perfetto trace file
     tracing: Optional[str] = None
-    # paged KV pool of the --api engine: N pages of kv_page_size tokens;
-    # admission is gated by free pages (the port's engine is paged only)
-    kv_pages: Optional[int] = 512
+    # --kv-pages N: paged KV for the --api engine, a pool of N pages of
+    # kv_page_size tokens; admission is gated by free pages. None = the
+    # dense engine (one [L, B, T] cache; a ring of W = window slots for a
+    # sliding-window config shorter than max_seq_len), as in JAX
+    kv_pages: Optional[int] = None
     kv_page_size: int = 128
     # --kv-host-pages N: host-RAM spill tier for the paged pool
     # (kv/host_tier.py), N pages of capacity: preemption victims', cold

@@ -23,11 +23,9 @@ declarative point in a config space:
     normalize, so "the same config spelled differently" never triggers a
     pointless switch.
 
-Two deliberate divergences from the JAX package: the port serves only
-the paged engine, so a dense point (``kv_pages: None``) is refused
-(ROADMAP A11), and the attention impls are the port's ``plain`` /
-``kernel`` (JAX's ``fold`` / ``pallas`` are refused with the port's
-names).
+One deliberate divergence from the JAX package: the attention impls
+are the port's ``plain`` / ``kernel`` (JAX's ``fold`` / ``pallas`` are
+refused with the port's names).
 """
 
 from __future__ import annotations
@@ -48,11 +46,10 @@ JAX_ATTN_NAMES = {"fold": "plain", "pallas": "kernel"}
 class EngineConfig:
     """One switchable engine configuration point.
 
-    ``kv_pages is None`` names the dense engine, which the port does not
-    have (validate_config refuses it); a value selects the paged engine
-    with that pool geometry. Field defaults mirror the JAX package's
-    Args, so a config built from partial JSON means what it means
-    there."""
+    ``kv_pages is None`` selects the dense engine (one [L, B, T] cache);
+    a value selects the paged engine with that pool geometry. Field
+    defaults mirror the JAX package's Args, so a config built from
+    partial JSON means what it means there."""
 
     slots: int = 8
     decode_scan: int = 1
@@ -153,11 +150,6 @@ def validate_config(cfg: EngineConfig,
     flags, then adds the engine rules args.py leaves to the engine."""
     from cake_tpu_torch.args import Args
 
-    if not cfg.paged:
-        raise ValueError(
-            "a dense engine config (kv_pages null) is not available: the "
-            "port serves the paged engine only (the dense-cache engine is "
-            "ROADMAP A11); name kv_pages")
     impl = cfg.paged_attn or "auto"
     if impl in JAX_ATTN_NAMES:
         raise ValueError(
@@ -175,7 +167,11 @@ def validate_config(cfg: EngineConfig,
          kv_pages=cfg.kv_pages, kv_page_size=cfg.kv_page_size,
          kv_dtype=cfg.kv_dtype, mixed_batch=cfg.mixed_batch,
          paged_attn=impl).validate()
-    if cfg.kv_pages < 1 or cfg.kv_page_size < 1:
+    if cfg.mixed_batch == "on" and not cfg.paged:
+        raise ValueError(
+            "mixed_batch=on requires kv_pages: the mixed ragged step "
+            "dispatches over the paged pool")
+    if cfg.paged and (cfg.kv_pages < 1 or cfg.kv_page_size < 1):
         raise ValueError(
             f"kv_pages {cfg.kv_pages} / kv_page_size "
             f"{cfg.kv_page_size} must be >= 1")

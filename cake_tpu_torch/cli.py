@@ -8,16 +8,18 @@ Counterpart of `cake_tpu/cli.py:main` for one device:
     python -m cake_tpu_torch.cli --batch-size 2 --tracing /tmp/trace
     python -m cake_tpu_torch.cli --model DIR --draft-model DRAFT
     python -m cake_tpu_torch.cli --model DIR --api 0.0.0.0:8080 \
-        --spec-draft DRAFT --repeat-penalty 1.0
+        --kv-pages 512 --spec-draft DRAFT --repeat-penalty 1.0
 
 Without --model the model is the tiny config with random weights;
 `<model>/tokenizer.json` is read by the port's own reader
 (models/llama/tokenizer.py). It runs on cuda:<--device-idx> and raises
-when there is no card, unless --cpu is given. `--draft-model` is the
-batch-1 speculative generator of one-shot generation; with --api it
-raises (the dense spec engine is ROADMAP A11), where `--spec-draft`
-serves paged speculative rows (a row speculates only at
-repeat_penalty 1.0, so pass --repeat-penalty 1.0).
+when there is no card, unless --cpu is given. `--api` serves the dense
+engine without --kv-pages (the ring engine for a sliding-window config
+shorter than --max-seq-len) and the paged engine with it.
+`--draft-model` is the batch-1 speculative generator of one-shot
+generation, and with --api the dense spec engine (batched rounds over
+every slot); `--spec-draft` serves paged speculative rows (a row
+speculates only at repeat_penalty 1.0, so pass --repeat-penalty 1.0).
 """
 
 from __future__ import annotations

@@ -4,11 +4,12 @@ Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
 `generate_text`, `run`, `reset`, `add_message`, `_spec_kwargs`), text
 only. `generate_text` streams each token through a callback and times
 the tokens after the first, so the prefill does not skew tokens/s;
-`make_engine` builds the paged continuous-batching engine over the
-generator's config, params and tokenizer for the REST server, with the
---spec-draft draft for paged speculative rows. Over a --draft-model
-generator it raises: the dense spec engine JAX builds there is ROADMAP
-A11.
+`make_engine` builds the continuous-batching engine over the
+generator's config, params and tokenizer for the REST server: the paged
+engine with --kv-pages (and the --spec-draft draft for paged speculative
+rows), the dense engine without it (the ring engine for a sliding-window
+config shorter than max_seq_len), and over a --draft-model generator the
+dense spec engine.
 """
 
 from __future__ import annotations
@@ -40,10 +41,14 @@ class Master:
 
     def make_engine(self, max_slots: Optional[int] = None,
                     **engine_kwargs):
-        """Build the paged continuous-batching engine over the loaded
+        """Build the continuous-batching engine over the loaded
         generator's params (no weight copy; the engine allocates its own
-        KV pool) on the generator's device. engine_kwargs pass through
-        to InferenceEngine."""
+        KV cache) on the generator's device: the paged engine with
+        --kv-pages, else the dense engine (the ring engine for a
+        sliding-window config shorter than max_seq_len), and over a
+        --draft-model generator the dense spec engine, with JAX's
+        warnings for the flags it ignores. engine_kwargs pass through to
+        InferenceEngine."""
         if self.llm is None:
             raise RuntimeError("no text generator loaded")
         from cake_tpu_torch.models.llama.speculative import (
@@ -52,19 +57,7 @@ class Master:
         from cake_tpu_torch.serve.engine import InferenceEngine
         a = self.args
         g = self.llm
-        if isinstance(g, SpeculativeGenerator):
-            if a.autotune != "off":
-                # as the JAX master says it before it builds the dense
-                # spec engine, which has no hot-switch fold
-                log.warning("--autotune ignored with --draft-model: "
-                            "speculative serving has no hot-switch fold "
-                            "(the draft cache cannot be rebuilt "
-                            "mid-round)")
-            raise NotImplementedError(
-                "--draft-model with --api needs the dense spec engine, not "
-                "ported to cake_tpu_torch yet (ROADMAP A11): serve "
-                "speculation with --spec-draft DIR over --kv-pages")
-        kw = dict(
+        common = dict(
             device=g.device,
             max_slots=max_slots or a.max_slots,
             max_seq_len=g.max_seq_len,
@@ -73,16 +66,6 @@ class Master:
             # the generator's cache dtype (a float --kv-dtype); an
             # int8/int4 --kv-dtype quantizes the engine's pool instead
             cache_dtype=g.cache.k.dtype,
-            kv_dtype=a.kv_dtype,
-            prefill_chunk=a.prefill_chunk,
-            kv_pages=a.kv_pages,
-            kv_page_size=a.kv_page_size,
-            # --kv-host-pages arms the host-RAM spill tier
-            kv_host_pages=a.kv_host_pages,
-            paged_attn=a.paged_attn,
-            mixed_batch=a.mixed_batch,
-            decode_scan_steps=a.decode_scan,
-            auto_prefix_system=a.auto_prefix,
             # the observability planes and the SLO scheduler
             trace_events=a.trace_events,
             trace_ring=a.trace_ring,
@@ -94,20 +77,64 @@ class Master:
             priority_classes=a.priority_classes,
             preemption=a.preemption,
             shed=a.shed,
-            # fault injection, crash recovery (--recovery unset = on, the
-            # JAX default) and the journal
-            fault_plan=a.fault_plan,
-            recovery=a.recovery is not False,
-            journal=a.journal,
-            journal_fsync=a.journal_fsync,
-            # live reconfiguration, the sentinel, its action plane and
-            # the postmortem sink
-            autotune=a.autotune,
-            autotune_policy=a.autotune_policy,
             sentinel=a.sentinel,
             sentinel_interval=a.sentinel_interval,
             sentinel_act=a.sentinel_act,
             postmortem_dir=a.postmortem_dir,
+            # fault injection and the journal
+            fault_plan=a.fault_plan,
+            journal=a.journal,
+            journal_fsync=a.journal_fsync,
+            # passed through so the engine's guard WARNS that multi-step
+            # scans do not apply to speculative rounds
+            decode_scan_steps=a.decode_scan,
+        )
+        if isinstance(g, SpeculativeGenerator):
+            # speculation inside the batching engine: the draft/verify
+            # rounds run batched across slots (spec_round_batched)
+            if a.kv_dtype in ("int8", "int4"):
+                from cake_tpu_torch.args import INT8_KV_SPEC_ERROR
+                raise ValueError(INT8_KV_SPEC_ERROR)
+            for flag, on, why in (
+                    ("--kv-pages", a.kv_pages, "the spec engine's "
+                     "target+draft caches are not paged"),
+                    ("--kv-host-pages", a.kv_host_pages, "the host KV "
+                     "tier spills paged pool pages"),
+                    ("--auto-prefix", a.auto_prefix, "prefix caching is "
+                     "not implemented for the spec engine (draft cache "
+                     "has no prefix install path)"),
+                    ("--mixed-batch", a.mixed_batch == "on", "the mixed "
+                     "ragged step is a paged-engine path and the spec "
+                     "engine is not paged"),
+                    ("--autotune", a.autotune != "off", "speculative "
+                     "serving has no hot-switch fold (the draft cache "
+                     "cannot be rebuilt mid-round)")):
+                if on:
+                    log.warning("%s ignored with --draft-model: %s", flag,
+                                why)
+            kw = dict(common, draft_params=g.draft_params,
+                      draft_config=g.draft_config, spec_gamma=g.gamma,
+                      # unset: off for this flavor, with no warning
+                      recovery=bool(a.recovery))
+            kw.update(engine_kwargs)
+            return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+        kw = dict(
+            common,
+            kv_dtype=a.kv_dtype,
+            prefill_chunk=a.prefill_chunk,
+            # None: the dense (or ring) engine, as in JAX
+            kv_pages=a.kv_pages,
+            kv_page_size=a.kv_page_size,
+            # --kv-host-pages arms the host-RAM spill tier
+            kv_host_pages=a.kv_host_pages,
+            paged_attn=a.paged_attn,
+            mixed_batch=a.mixed_batch,
+            auto_prefix_system=a.auto_prefix,
+            # crash recovery: unset = on, the JAX default
+            recovery=a.recovery is not False,
+            # live reconfiguration
+            autotune=a.autotune,
+            autotune_policy=a.autotune_policy,
             # disaggregated prefill/decode (kv/transfer.py): the role
             # and the channel's peer; the shared token rides
             # $CAKE_DISAGG_TOKEN (Args.validate checked it)

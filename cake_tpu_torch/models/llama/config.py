@@ -124,3 +124,39 @@ class LlamaConfig:
             num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=500000.0,
             max_position_embeddings=8192,
         )
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """Mistral-7B-v0.1: Llama architecture + 4096-token sliding
+        window (HF mistralai/Mistral-7B-v0.1 config.json; the weight
+        names are Llama's)."""
+        return cls(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=10000.0,
+            max_position_embeddings=32768, bos_token_id=1,
+            eos_token_ids=(2,), sliding_window=4096,
+            chat_template="mistral",
+        )
+
+    @classmethod
+    def qwen2_7b(cls) -> "LlamaConfig":
+        """Qwen2-7B-Instruct: Llama architecture + QKV bias + ChatML
+        (HF Qwen/Qwen2-7B-Instruct config.json)."""
+        return cls(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_hidden_layers=28, num_attention_heads=28,
+            num_key_value_heads=4, rms_norm_eps=1e-6, rope_theta=1e6,
+            max_position_embeddings=32768, bos_token_id=151643,
+            eos_token_ids=(151645, 151643), attention_bias=True,
+            chat_template="chatml",
+        )
+
+    @classmethod
+    def llama3_70b(cls) -> "LlamaConfig":
+        return cls(
+            vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+            num_hidden_layers=80, num_attention_heads=64,
+            num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=500000.0,
+            max_position_embeddings=8192,
+        )

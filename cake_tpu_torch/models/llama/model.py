@@ -1,9 +1,14 @@
 """Llama-3 forward functions over the dense KV cache.
 
-Counterpart of `cake_tpu/models/llama/model.py` (`RopeTables`,
-`block_skeleton`, `block_forward`, `run_blocks`, `forward`,
-`forward_logits_all`, `prefill`, `decode_step`, `prefill_chunk`; the
-ring and ragged variants are not ported). Block semantics:
+Counterpart of `cake_tpu/models/llama/model.py`: `RopeTables`,
+`block_skeleton`, `block_forward` (its ring branch included), `run_blocks`,
+`forward`, `forward_logits_all`, `prefill`, `decode_step`,
+`prefill_chunk`; the ragged entry points of the dense engine
+(`run_blocks_ragged`, `ragged_decode`, `forward_ragged`,
+`decode_step_ragged`, `forward_window_ragged`, `forward_ragged_ring`,
+`decode_step_ragged_ring`); and its one-slot prefills (`slot_prefill`,
+`prefill_slot`, `prefill_slot_chunk`, `prefill_slot_chunk_ring`,
+`install_prefix_slot`, `prefill_slot_prefixed`). Block semantics:
   x = x + attn(rms_norm(x))        # input_layernorm -> GQA+RoPE -> o_proj
   x = x + mlp(rms_norm(x))         # post_attention_layernorm -> SwiGLU
 Every weight product goes through `ops/quant.qmatmul`: a plain tensor
@@ -20,7 +25,17 @@ Attention route, as `block_forward` in JAX: with
 `flash_attention` over the window's own k/v, a chunked prefill whose
 cache dtype matches q to `flash_attention_cached` over the cache; every
 other case (decode, flash off, a KV dtype unlike q's) to the masked
-`gqa_attention` over the cache.
+`gqa_attention` over the cache. A ring (sliding-window) cache takes the
+einsum always: its slots permute key positions, which the kernels'
+sequential-position masks cannot express, and a prefill window attends
+the PRE-write ring plus its own keys before it writes.
+
+The one-slot prefills splice the slot's lines per layer: `run_blocks`
+with `slot` (a [1] int64 tensor on the device, read there, as JAX traces
+it) gathers the slot's [1, T, KV, hd] lines of one layer, runs the
+block over them and copies them back, so one captured program serves
+every slot, and only one layer's lines are ever out of the cache (JAX
+slices the whole slot out and writes it back, with the cache donated).
 """
 
 from __future__ import annotations
@@ -30,15 +45,25 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from cake_tpu_torch.models.llama.cache import KVCache, update_layer_cache
+from cake_tpu_torch.models.llama.cache import (
+    KVCache, update_layer_cache, update_layer_cache_per_row,
+    update_layer_cache_per_row_ring, update_layer_cache_ring,
+    update_layer_cache_window_per_row,
+)
 from cake_tpu_torch.models.llama.config import LlamaConfig
-from cake_tpu_torch.ops.attention import gqa_attention, uniform_forward_mask
+from cake_tpu_torch.ops.attention import (
+    decode_mask_per_row, gqa_attention, ring_decode_mask_per_row,
+    uniform_forward_mask,
+)
 from cake_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_cached,
 )
 from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import QTensor, qmatmul
-from cake_tpu_torch.ops.rope import apply_rope, precompute_rope, rope_rows
+from cake_tpu_torch.ops.rope import (
+    apply_rope, precompute_rope, rope_rows, rope_rows_per_row,
+)
+from cake_tpu_torch.utils.devices import index_copy_rows, take_rows, to_storage
 
 
 class RopeTables(NamedTuple):
@@ -96,20 +121,38 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
 
 def block_forward(lp, x, k_cache, v_cache, pos, rope_c, rope_s, mask,
                   config: LlamaConfig, is_prefill: bool = False,
-                  chunked: bool = False):
+                  chunked: bool = False, ring: bool = False,
+                  write_len=None):
     """One decoder block with its KV-cache write.
 
     x: [B, S, D]; k_cache/v_cache: one layer's [B, T, KV, hd] (written in
     place at pos; an int or a 0-d device tensor); rope_c/rope_s: [S, hd/2]
     rows of positions pos..;
-    mask: [S, T]. chunked: this prefill window continues the cache (pos
-    may be > 0), so flash takes the cache-aware kernel; a fresh prefill
-    (pos == 0) attends only its own S keys.
+    mask: [S, T] ([S, W + S] over a ring). chunked: this prefill window
+    continues the cache (pos may be > 0), so flash takes the cache-aware
+    kernel; a fresh prefill (pos == 0) attends only its own S keys.
+    ring: k_cache/v_cache are W-slot rings: attend the pre-write ring
+    plus the fresh window, then write slots (pos + i) % W, the first
+    write_len entries only (the rest is a padded window's junk).
     Returns (x, k_cache, v_cache)."""
 
     def attn_fn(q, k, v):
         q = apply_rope(q, rope_c, rope_s)
         k = apply_rope(k, rope_c, rope_s)
+        if ring:
+            # the keys as the ring will store them, concatenated after
+            # the pre-write ring (JAX concatenates in the cache dtype;
+            # gqa_attention reads both in q's)
+            k_full = torch.cat([k_cache.to(q.dtype),
+                                to_storage(k, k_cache.dtype).to(q.dtype)],
+                               dim=1)
+            v_full = torch.cat([v_cache.to(q.dtype),
+                                to_storage(v, v_cache.dtype).to(q.dtype)],
+                               dim=1)
+            attn = gqa_attention(q, k_full, v_full, mask=mask)
+            kc, vc = update_layer_cache_ring(k_cache, v_cache, k, v, pos,
+                                             n_real=write_len)
+            return attn, (kc, vc)
         kc, vc = update_layer_cache(k_cache, v_cache, k, v, pos)
         use_flash = is_prefill and config.use_flash_attention
         if use_flash and not chunked:
@@ -128,37 +171,56 @@ def block_forward(lp, x, k_cache, v_cache, pos, rope_c, rope_s, mask,
 
 def run_blocks(blocks, x, cache: KVCache, pos, rope_c, rope_s, mask,
                config: LlamaConfig, is_prefill: bool = False,
-               chunked: bool = False):
+               chunked: bool = False, ring: bool = False, write_len=None,
+               slot=None, prefix=None):
     """Every block of the stacked [L, ...] params over the hidden state,
-    layer i writing cache.k[i] / cache.v[i]. Returns (x, cache)."""
+    layer i writing cache.k[i] / cache.v[i]. slot: a [1] int64 tensor on
+    the cache's device; layer i then runs over that batch slot's lines
+    only, gathered out and copied back (the one-slot prefills' splice).
+    prefix: (k, v) [L, 1, P, KV, hd], written over the slot's positions
+    0..P-1 first (a prefix hit). Returns (x, cache)."""
     for i in range(cache.k.shape[0]):
-        x, _, _ = block_forward(layer_params(blocks, i), x, cache.k[i],
-                                cache.v[i], pos, rope_c, rope_s, mask,
-                                config, is_prefill=is_prefill,
-                                chunked=chunked)
+        kc, vc = cache.k[i], cache.v[i]
+        if slot is not None:
+            kc, vc = take_rows(kc, slot), take_rows(vc, slot)
+            if prefix is not None:
+                P = prefix[0].shape[2]
+                kc[:, :P] = prefix[0][i]
+                vc[:, :P] = prefix[1][i]
+        x, _, _ = block_forward(layer_params(blocks, i), x, kc, vc, pos,
+                                rope_c, rope_s, mask, config,
+                                is_prefill=is_prefill, chunked=chunked,
+                                ring=ring, write_len=write_len)
+        if slot is not None:
+            index_copy_rows(cache.k[i], 0, slot, kc)
+            index_copy_rows(cache.v[i], 0, slot, vc)
     return x, cache
 
 
 def forward(params, tokens, cache: KVCache, pos, rope: RopeTables,
             config: LlamaConfig, last_idx: Optional[torch.Tensor] = None,
             return_hidden: bool = False, is_prefill: bool = False,
-            chunked: bool = False):
+            chunked: bool = False, ring: bool = False, write_len=None,
+            slot=None, prefix=None):
     """tokens [B, S] at absolute position pos -> (logits [B, V] f32,
     cache). pos: an int (the eager prefills), or a 0-d / [1] tensor on
-    the cache's device (the generator's captured decode step): the rope
-    rows, the mask and the cache write then read it on the device, so
-    one captured step replays at every position. last_idx: [B] index of
-    each row's last real token in a right-padded window; defaults to
-    S - 1."""
+    the cache's device (the captured steps): the rope rows, the mask and
+    the cache write then read it on the device, so one captured step
+    replays at every position. last_idx: [B] index of each row's last
+    real token in a right-padded window; defaults to S - 1. ring,
+    write_len: the ring cache's window (`block_forward`); slot, prefix:
+    the one-slot splice (`run_blocks`)."""
     B, S = tokens.shape
     pos = pos.reshape(()) if isinstance(pos, torch.Tensor) else int(pos)
     x = params["embed"][tokens.long()]
     rope_c, rope_s = rope_rows(rope.cos, rope.sin, pos, S)
     mask = uniform_forward_mask(pos, S, cache.max_seq_len,
-                                config.sliding_window, device=x.device)
+                                config.sliding_window, ring=ring,
+                                n_real=write_len, device=x.device)
     x, cache = run_blocks(params["blocks"], x, cache, pos, rope_c, rope_s,
                           mask, config, is_prefill=is_prefill,
-                          chunked=chunked)
+                          chunked=chunked, ring=ring, write_len=write_len,
+                          slot=slot, prefix=prefix)
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if return_hidden:
         return x, cache
@@ -203,3 +265,220 @@ def prefill_chunk(params, tokens, pos, last_idx, cache: KVCache,
     cache-aware kernel (ops/flash_attention.flash_attention_cached)."""
     return forward(params, tokens, cache, pos, rope, config,
                    last_idx=last_idx, is_prefill=True, chunked=True)
+
+
+# -- ragged (per-row position) entry points for continuous batching ----------
+
+
+def run_blocks_ragged(blocks, x, cache: KVCache, pos, active, rope_c,
+                      rope_s, mask, config: LlamaConfig, ring: bool = False,
+                      cache_update=None):
+    """Every block for per-row-position ragged decode.
+
+    x: [B, S, D]; pos/active: [B]; rope_c/rope_s: [B, S, hd/2] per-row
+    rows; mask: [B, S, T]. S = 1 for single-token decode; the batched
+    speculative verify passes S = gamma + 1 windows with its own
+    cache_update. Inactive rows compute garbage and leave their cache
+    lines untouched. cache_update(kc, vc, k, v) -> (kc, vc): the
+    per-layer KV write; default the single-token per-row write
+    (ring-modular with ring)."""
+    if cache_update is None:
+        write = (update_layer_cache_per_row_ring if ring
+                 else update_layer_cache_per_row)
+
+        def cache_update(kc, vc, k, v):
+            return write(kc, vc, k, v, pos, active)
+
+    for i in range(cache.k.shape[0]):
+        kc, vc = cache.k[i], cache.v[i]
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q, rope_c, rope_s)
+            k = apply_rope(k, rope_c, rope_s)
+            kc2, vc2 = cache_update(kc, vc, k, v)
+            return gqa_attention(q, kc2, vc2, mask=mask), (kc2, vc2)
+
+        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
+    return x, cache
+
+
+def ragged_decode(params, tokens, pos, active, cache: KVCache,
+                  rope: RopeTables, config: LlamaConfig, ring: bool = False):
+    """Per-row-position single-token decode: embedding -> per-row rope
+    rows and mask -> the blocks -> final norm -> logits [B, V] f32."""
+    T = cache.max_seq_len
+    x = params["embed"][tokens.long()]
+    rope_c, rope_s = rope_rows_per_row(rope.cos, rope.sin, pos.long())
+    if ring:
+        mask = ring_decode_mask_per_row(pos, T)
+    else:
+        mask = decode_mask_per_row(pos, T, window=config.sliding_window)
+    x, cache = run_blocks_ragged(params["blocks"], x, cache, pos, active,
+                                 rope_c, rope_s, mask, config, ring=ring)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return qmatmul(x[:, -1], params["lm_head"]).float(), cache
+
+
+def forward_ragged(params, tokens, cache: KVCache, pos, active,
+                   rope: RopeTables, config: LlamaConfig):
+    """Single-token decode where every row sits at its own position.
+    tokens [B, 1]; pos [B] absolute positions (device tensor); active [B]
+    bool: inactive rows (free slots) compute garbage and keep their
+    cache lines. Returns (logits [B, V] f32, cache)."""
+    return ragged_decode(params, tokens, pos, active, cache, rope, config)
+
+
+@torch.inference_mode()
+def decode_step_ragged(params, tokens, pos, active, cache: KVCache,
+                       rope: RopeTables, config: LlamaConfig):
+    """The dense engine's ragged decode step."""
+    return forward_ragged(params, tokens, cache, pos, active, rope, config)
+
+
+def forward_window_ragged(params, tokens, cache: KVCache, pos0, active,
+                          rope: RopeTables, config: LlamaConfig):
+    """Score a W-token window per row, each row at its own start
+    position (the batched speculative verify). tokens [B, W]; pos0 [B];
+    active [B]. Row b's token j sits at pos0[b] + j, attends cache slots
+    <= pos0[b] + j and writes its KV there. Returns (logits [B, W, V]
+    f32, cache). Sliding-window configs are gated off speculation."""
+    B, W = tokens.shape
+    T = cache.max_seq_len
+    dev = tokens.device
+    x = params["embed"][tokens.long()]                    # [B, W, D]
+    p = torch.clamp(pos0.long()[:, None] + torch.arange(W, device=dev)[None],
+                    0, T - 1)                              # [B, W]
+    rope_c, rope_s = rope.cos[p], rope.sin[p]              # [B, W, hd/2]
+    kj = torch.arange(T, device=dev)[None, None, :]
+    mask = kj <= p[:, :, None]                             # [B, W, T]
+
+    def window_update(kc, vc, k, v):
+        return update_layer_cache_window_per_row(kc, vc, k, v, pos0, active)
+
+    x, cache = run_blocks_ragged(params["blocks"], x, cache, pos0, active,
+                                 rope_c, rope_s, mask, config,
+                                 cache_update=window_update)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return qmatmul(x, params["lm_head"]).float(), cache
+
+
+def forward_ragged_ring(params, tokens, cache: KVCache, pos, active,
+                        rope: RopeTables, config: LlamaConfig):
+    """forward_ragged over a ring cache: position p writes slot p % W,
+    and validity is ring-slot liveness (`ring_decode_mask_per_row`)."""
+    return ragged_decode(params, tokens, pos, active, cache, rope, config,
+                         ring=True)
+
+
+@torch.inference_mode()
+def decode_step_ragged_ring(params, tokens, pos, active, cache: KVCache,
+                            rope: RopeTables, config: LlamaConfig):
+    """The ring engine's ragged decode step (KV memory = the window, not
+    max_seq)."""
+    return forward_ragged_ring(params, tokens, cache, pos, active, rope,
+                               config)
+
+
+# -- one-slot prefills of the dense engine -------------------------------------
+
+
+def _slot_index(slot, device) -> torch.Tensor:
+    """The slot as a [1] int64 tensor on `device` (a captured prefill
+    passes its device buffer; an int is uploaded)."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).long()
+    return torch.tensor([int(slot)], dtype=torch.int64, device=device)
+
+
+def slot_prefill(params, tokens, prompt_len, slot, cache: KVCache,
+                 forward_fn, prefix=None, pos0=None):
+    """Prefill ONE request into batch slot `slot` of the shared cache.
+
+    tokens [1, S_padded]; prompt_len [1]; slot: an int or a device
+    tensor. forward_fn(params, tokens, cache, pos0, last_idx, slot=,
+    prefix=) runs the window over the slot's lines only (`run_blocks`'
+    splice), so the other slots' state is untouched and requests are
+    admitted while their neighbours decode. prefix: (k, v)
+    [L, 1, P, KV, hd], a cached prompt head written at positions
+    0..P-1 first, the window then starting at P. pos0: the window's
+    start (chunked prefill); exclusive with prefix."""
+    assert prefix is None or pos0 is None, "prefix implies its own pos0"
+    if prefix is not None:
+        pos0 = prefix[0].shape[2]
+    elif pos0 is None:
+        pos0 = 0
+    last_idx = prompt_len - 1
+    return forward_fn(params, tokens, cache, pos0, last_idx,
+                      slot=_slot_index(slot, cache.k.device), prefix=prefix)
+
+
+@torch.inference_mode()
+def prefill_slot(params, tokens, prompt_len, slot, cache: KVCache,
+                 rope: RopeTables, config: LlamaConfig):
+    """Whole-prompt slot prefill (one program per bucket length in JAX):
+    flash over the window's own keys when flash is on."""
+    def fwd(p, t, c, pos, last_idx, **kw):
+        return forward(p, t, c, pos, rope, config, last_idx=last_idx,
+                       is_prefill=True, **kw)
+
+    return slot_prefill(params, tokens, prompt_len, slot, cache, fwd)
+
+
+@torch.inference_mode()
+def prefill_slot_chunk(params, tokens, n_real, slot, pos0, cache: KVCache,
+                       rope: RopeTables, config: LlamaConfig):
+    """One fixed-size prefill window into batch slot `slot` at absolute
+    position pos0 (engine-side chunked prefill: one program per window
+    shape). tokens [1, C]; n_real [1] the real tokens in the window."""
+    def fwd(p, t, c, pos, last_idx, **kw):
+        return forward(p, t, c, pos, rope, config, last_idx=last_idx,
+                       is_prefill=True, chunked=True, **kw)
+
+    return slot_prefill(params, tokens, n_real, slot, cache, fwd, pos0=pos0)
+
+
+@torch.inference_mode()
+def prefill_slot_chunk_ring(params, tokens, n_real, slot, pos0,
+                            cache: KVCache, rope: RopeTables,
+                            config: LlamaConfig):
+    """prefill_slot_chunk over a ring cache: the queries attend the
+    pre-write ring plus the fresh window (`ring_concat_mask`), then the
+    window writes ring slots (pos0 + i) % W, its padding masked. Every
+    ring prompt walks through this (windows <= W keep the slots
+    unique)."""
+    n = n_real.reshape(()) if isinstance(n_real, torch.Tensor) else n_real
+
+    def fwd(p, t, c, pos, last_idx, **kw):
+        return forward(p, t, c, pos, rope, config, last_idx=last_idx,
+                       is_prefill=True, chunked=True, ring=True,
+                       write_len=n, **kw)
+
+    return slot_prefill(params, tokens, n_real, slot, cache, fwd, pos0=pos0)
+
+
+@torch.inference_mode()
+def install_prefix_slot(cache: KVCache, prefix_k, prefix_v, slot):
+    """Copy cached-prefix KV [L, 1, P, KV, hd] into slot `slot` at
+    positions 0..P-1 (a prefix hit whose suffix prefills in windows: the
+    install and the windows are separate programs)."""
+    P = prefix_k.shape[2]
+    s = _slot_index(slot, cache.k.device)
+    index_copy_rows(cache.k[:, :, :P], 1, s, prefix_k)
+    index_copy_rows(cache.v[:, :, :P], 1, s, prefix_v)
+    return cache
+
+
+@torch.inference_mode()
+def prefill_slot_prefixed(params, tokens, suffix_len, slot, prefix_k,
+                          prefix_v, cache: KVCache, rope: RopeTables,
+                          config: LlamaConfig):
+    """Slot prefill continuing a cached prefix: the prefix KV
+    [L, 1, P, KV, hd] is written at the slot's positions 0..P-1, then
+    the suffix window [1, S_padded] prefills at position P through the
+    cache-aware (chunked) path. One program per (P, suffix bucket)."""
+    def fwd(p, t, c, pos, last_idx, **kw):
+        return forward(p, t, c, pos, rope, config, last_idx=last_idx,
+                       is_prefill=True, chunked=True, **kw)
+
+    return slot_prefill(params, tokens, suffix_len, slot, cache, fwd,
+                        prefix=(prefix_k, prefix_v))

@@ -23,6 +23,12 @@ models stay eager (the flash kernel on the card).
 Scope (JAX's): batch 1, one device, repeat_penalty == 1.0 (the verify
 pass scores gamma + 1 positions at once, so a penalty ring cannot be
 replayed), temperature only (no top-k / top-p).
+
+`spec_round_batched` is the dense spec engine's round (`--draft-model`
+behind `--api`): one round for every active slot, gamma + 1 batched
+ragged draft steps and one `forward_window_ragged` verify, with the
+rows' counter-based streams (serve/graphs.DenseSpecRunner captures it
+once per gamma).
 """
 
 from __future__ import annotations
@@ -40,11 +46,90 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import (
     bucket_length, encode_text, incremental_decode,
 )
-from cake_tpu_torch.models.llama.model import RopeTables, prefill
+from cake_tpu_torch.models.llama.model import (
+    RopeTables, forward_ragged, forward_window_ragged, prefill,
+)
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve.graphs import SpecGeneratorRunner
-from cake_tpu_torch.spec.accept import categorical
+from cake_tpu_torch.spec.accept import (
+    advance_counters, assemble_sampled, categorical, greedy_accept,
+    rejection_accept, uniforms,
+)
 from cake_tpu_torch.utils.devices import resolve_device
+
+
+@torch.inference_mode()
+def spec_round_batched(t_params, d_params, t_cache: KVCache,
+                       d_cache: KVCache, last_tok, pos, active, seeds,
+                       counters, temp, t_rope: RopeTables,
+                       d_rope: RopeTables, t_cfg: LlamaConfig,
+                       d_cfg: LlamaConfig, gamma: int):
+    """One propose-verify-accept round for EVERY active slot of the
+    dense spec engine: gamma + 1 batched ragged draft steps over the
+    draft cache (`forward_ragged`) and one batched windowed verify over
+    the target cache (`forward_window_ragged`), so the weights stream
+    once a round.
+
+    last_tok [B, 1] at per-row absolute `pos` [B] (its KV unwritten in
+    both caches); active [B]; seeds/counters [B] int64, the rows' random
+    streams (counters advanced by gamma + 3 for active sampled rows
+    only: draft step k at c + k, the uniforms at c + gamma + 1, the
+    correction at c + gamma + 2, where JAX splits a threefry key);
+    temp [B] (<= 0 a greedy row: argmax drafts and exact-match
+    acceptance, JAX's tokens; > 0 leftover-residual rejection sampling).
+    Both caches are written in place. Returns (out [B, gamma + 1] int64,
+    the first n_emit[b] valid and the rest -1; n_emit [B], 0 for
+    inactive rows; counters; state = (last [B, 1], pos [B]): each active
+    row's last emitted token at its advanced frontier, the next round's
+    (last_tok, pos) for a chained round)."""
+    greedy = temp <= 0.0
+    temp_eff = torch.where(greedy, torch.ones_like(temp), temp)[:, None]
+    sampled = active & ~greedy
+    step = active.to(pos.dtype)
+
+    # gamma + 1 draft steps: step gamma writes the last draft's KV (an
+    # all-accept round needs no patch-up pass); its proposal is unused
+    tok, p = last_tok, pos
+    drafts, d_probs = [], []
+    for k in range(gamma + 1):
+        logits, _ = forward_ragged(d_params, tok, d_cache, p, active, d_rope,
+                                   d_cfg)
+        if k == gamma:
+            break
+        probs = torch.softmax(logits / temp_eff, dim=-1)
+        nxt = torch.where(greedy, logits.argmax(dim=-1),
+                          categorical(seeds, counters + k, probs))
+        drafts.append(nxt)
+        d_probs.append(probs)
+        tok, p = nxt[:, None], p + step
+    drafts = torch.stack(drafts, dim=1)                  # [B, gamma]
+    d_probs = torch.stack(d_probs, dim=1)                # [B, gamma, V]
+
+    tokens_v = torch.cat([last_tok.to(drafts.dtype), drafts], dim=1)
+    t_logits, _ = forward_window_ragged(t_params, tokens_v, t_cache, pos,
+                                        active, t_rope, t_cfg)
+
+    # greedy rows: exact-match acceptance against the target argmax
+    targets = t_logits.argmax(dim=-1)
+    n_acc_g = greedy_accept(drafts, targets)
+    # sampled rows: leftover-residual rejection sampling; greedy rows'
+    # residual and correction are computed and unused
+    t_probs = torch.softmax(t_logits / temp_eff[..., None], dim=-1)
+    u = uniforms(seeds, counters + gamma + 1, gamma)
+    n_acc_s, resid = rejection_accept(drafts, d_probs, t_probs, u, gamma)
+    correction = categorical(seeds, counters + gamma + 2, resid)
+    out_s = assemble_sampled(drafts, correction, n_acc_s, gamma)
+
+    n_acc = torch.where(greedy, n_acc_g, n_acc_s)
+    out = torch.where(greedy[:, None], targets, out_s)
+    n_emit = torch.where(active, n_acc + 1, torch.zeros_like(n_acc))
+    cols = torch.arange(gamma + 1, device=out.device)
+    out = torch.where(cols[None] < n_emit[:, None], out,
+                      torch.full_like(out, -1))
+    last = out.gather(1, torch.clamp(n_emit - 1, min=0)[:, None])[:, 0]
+    last_out = torch.where(active, last, last_tok[:, 0].to(last.dtype))
+    state = (last_out[:, None], pos + n_emit.to(pos.dtype))
+    return out, n_emit, advance_counters(counters, sampled, gamma), state
 
 
 class SpeculativeGenerator:

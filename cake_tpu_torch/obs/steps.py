@@ -149,7 +149,10 @@ _MIXED_ROWS = _m.counter(
 
 def refresh_page_gauges(engine) -> None:
     """KV page-pool occupancy gauges of a paged engine and the KV tiers'
-    gauges, read at scrape time (api/server.py)."""
+    gauges, read at scrape time (api/server.py); a no-op for the dense
+    flavors."""
+    if not getattr(engine, "paged", False):
+        return
     try:
         _m.gauge("cake_engine_kv_pages_total",
                  "KV pages in the pool").set(engine.cache.n_pages)
@@ -216,7 +219,8 @@ def step_cost(config, kind: str, rows: int, tokens: int,
               ctx_lens: Sequence[Tuple[int, int]], *, emit_rows: int,
               passes: int = 1, weight_bytes: int = 0,
               embed_row_bytes: int = 0,
-              kv_bytes_per_token: float = 0.0) -> CostInfo:
+              kv_bytes_per_token: float = 0.0,
+              kv_span: Optional[int] = None) -> CostInfo:
     """FLOPs and bytes of one recorded step (`kind` as in the record;
     `rows` and `tokens` are the record's and go unread here, named so a
     call reads like the record it costs).
@@ -242,18 +246,29 @@ def step_cost(config, kind: str, rows: int, tokens: int,
     and int4 leaves with their scales), the embedding left out (a pass
     gathers embed_row_bytes a token of it); kv_bytes_per_token: the
     pool's bytes a token at its stored size (scales included), each
-    row's history read once and its new tokens written once."""
+    row's history read once and its new tokens written once.
+
+    kv_span: the row length of the dense engine's cache (T, or a ring's
+    W slots), whose steps attend a row's every slot under a mask
+    whatever the position: a run (pos, n) then attends n x kv_span
+    (query, key) pairs and reads kv_span positions of KV (its n new
+    ones written on top). None: the paged pool's counts above."""
     c = config
     n_tok = sum(n for _, n in ctx_lens)
-    # a token at position p attends p + 1 keys: a run (pos, n) attends
-    # n * pos + n (n + 1) / 2 (query, key) pairs
-    pairs = sum(n * p + n * (n + 1) // 2 for p, n in ctx_lens)
+    if kv_span is None:
+        # a token at position p attends p + 1 keys: a run (pos, n)
+        # attends n * pos + n (n + 1) / 2 (query, key) pairs
+        pairs = sum(n * p + n * (n + 1) // 2 for p, n in ctx_lens)
+        kv_tokens = sum(p + n for p, n in ctx_lens)
+    else:
+        pairs = sum(n * kv_span for _, n in ctx_lens)
+        kv_tokens = sum(kv_span + n for _, n in ctx_lens)
     flops = (2 * matmul_weights_per_token(c) * n_tok
              + 4 * c.num_attention_heads * c.head_dim
              * c.num_hidden_layers * pairs
              + 2 * c.hidden_size * c.vocab_size * emit_rows)
     nbytes = (passes * weight_bytes + n_tok * embed_row_bytes
-              + kv_bytes_per_token * sum(p + n for p, n in ctx_lens))
+              + kv_bytes_per_token * kv_tokens)
     return CostInfo(flops=float(flops), bytes_accessed=float(nbytes))
 
 

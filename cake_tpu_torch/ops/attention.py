@@ -1,8 +1,10 @@
 """Attention: grouped-query attention with softmax in f32.
 
 Counterpart of `cake_tpu/ops/attention.py` (`gqa_attention`,
-`causal_mask`, and the dense-cache masks `decode_mask` and
-`uniform_forward_mask`; the ring-cache masks are not ported) plus the
+`causal_mask`, the dense-cache masks `decode_mask` and
+`decode_mask_per_row`, the ring-cache masks `ring_decode_mask_per_row`
+and `ring_concat_mask`, and `uniform_forward_mask`, which picks between
+them) plus the
 port's own copy of the online-softmax stats pair from
 `cake_tpu/parallel/context_parallel.py`
 (`partial_attention_stats`, `merge_attention_stats`), which the paged
@@ -75,11 +77,75 @@ def decode_mask(pos: int, seq_len: int, max_seq_len: int, window=None,
     return m
 
 
-def uniform_forward_mask(pos: int, seq_len: int, max_seq_len: int, window,
+def decode_mask_per_row(pos: torch.Tensor, max_seq_len: int,
+                        window=None) -> torch.Tensor:
+    """[B, 1, T] mask for ragged single-token decode: row b (its query at
+    absolute position pos[b]) may attend cache slots j <= pos[b], and
+    with a sliding window also j > pos[b] - window."""
+    kj = torch.arange(max_seq_len, device=pos.device)[None, None, :]
+    p = pos.long()[:, None, None]
+    m = kj <= p
+    if window is not None:
+        m &= kj > p - window
+    return m
+
+
+# -- ring-buffer (sliding-window) cache masks ---------------------------------
+#
+# A sliding-window model never attends further back than `window`, so the
+# ring cache holds only W = min(window, max_seq) slots: position p lives in
+# ring slot p % W (models/llama/cache.update_layer_cache_ring). The masks
+# below translate "which absolute positions may query q attend" into
+# ring-slot space.
+
+def ring_decode_mask_per_row(pos: torch.Tensor,
+                             ring_len: int) -> torch.Tensor:
+    """[B, 1, W] mask for ragged single-token decode over a ring cache.
+    After this step's write, slot j holds absolute position
+    p - ((p - j) mod W), always within (p - W, p], so validity is "slot
+    j has been written": j <= pos[b] (before the wrap) or pos[b] >= W."""
+    kj = torch.arange(ring_len, device=pos.device)[None, None, :]
+    p = pos.long()[:, None, None]
+    return (kj <= p) | (p >= ring_len)
+
+
+def ring_concat_mask(pos, seq_len: int, ring_len: int, window: int,
+                     n_real=None, device="cpu") -> torch.Tensor:
+    """[S, W + S] mask for a prefill window of S <= W tokens at absolute
+    positions pos..pos+S-1 attending concat(pre-write ring, fresh
+    window). A full-W window's write replaces the whole ring, so the
+    window's queries read the ring BEFORE the write plus the fresh keys.
+
+      * ring column j (< W) holds absolute a_j = pos-1 - ((pos-1-j) mod W),
+        the newest position < pos in that slot; valid iff a_j >= 0 and
+        a_j > pos + i - window;
+      * fresh column W + jj is the window's token at pos + jj, causal
+        jj <= i. Junk columns jj >= n_real reach only padding queries,
+        whose output the caller discards.
+
+    pos: an int, or a 0-d / [1] tensor read on the device."""
+    del n_real  # junk freshness is handled by causality (see above)
+    if isinstance(pos, torch.Tensor):
+        device = pos.device
+        pos = pos.reshape(()).long()
+    i_r = torch.arange(seq_len, device=device)[:, None]
+    j_r = torch.arange(ring_len, device=device)[None, :]
+    a_j = pos - 1 - torch.remainder(pos - 1 - j_r, ring_len)
+    ring_ok = (a_j >= 0) & (a_j > pos + i_r - window)
+    fresh_ok = causal_mask(seq_len, device=device)
+    return torch.cat([ring_ok.expand(seq_len, ring_len), fresh_ok], dim=1)
+
+
+def uniform_forward_mask(pos, seq_len: int, ring_len_or_T: int, window,
+                         ring: bool = False, n_real=None,
                          device="cpu") -> torch.Tensor:
-    """The mask of a uniform-position forward over the dense cache:
-    `decode_mask` over [S, T], windowed for sliding-window models."""
-    return decode_mask(pos, seq_len, max_seq_len, window=window,
+    """The mask of a uniform-position forward: over a ring cache
+    `ring_concat_mask` [S, W + S], over the dense cache `decode_mask`
+    [S, T] (windowed for sliding-window models)."""
+    if ring:
+        return ring_concat_mask(pos, seq_len, ring_len_or_T, window,
+                                n_real=n_real, device=device)
+    return decode_mask(pos, seq_len, ring_len_or_T, window=window,
                        device=device)
 
 

@@ -1,7 +1,31 @@
-"""Continuous-batching inference engine over the paged KV pool.
+"""Continuous-batching inference engine over the paged KV pool or a
+dense cache.
 
-Counterpart of `cake_tpu/serve/engine.py`, restricted to its
-`--kv-pages` engine:
+Counterpart of `cake_tpu/serve/engine.py`: its `--kv-pages` engine
+(below), and without pages its dense flavors, which share the
+phase-split loop, scheduling, preemption, recovery, the journal and
+reconfiguration with it:
+
+  * the dense engine: one [L, B, T] KVCache, a row of T positions a
+    slot; admissions prefill alone into their slot (`prefill_slot` by
+    bucket, `prefill_slot_chunk` windows with --prefill-chunk, a
+    registered prefix's KV installed from the registry by
+    `prefill_slot_prefixed` or `install_prefix_slot`), then the planned
+    rows take the ragged decode step (`forward_ragged`, the masked
+    einsum over every slot) or its K-step bursts;
+  * the ring engine, for a sliding-window config whose window W is
+    shorter than max_seq_len: the cache holds W slots, position p in
+    slot p % W; every prompt prefills in windows of at most W
+    (`prefill_slot_chunk_ring`: the pre-write ring plus the fresh
+    window, then the write), decode writes wrap
+    (`forward_ragged_ring`); it serves no prefix and takes no switch;
+  * the dense spec engine (`draft_params`, --draft-model behind --api):
+    a draft KVCache beside the target's, both prefilled at admission,
+    and batched propose-verify rounds over every decoding slot
+    (`speculative.spec_round_batched`) chained on the device; no
+    preemption, recovery or switch, as in JAX.
+
+The paged engine:
 
   * a fixed pool of B decode slots shares ONE paged KV cache; the page
     allocator gates admission, and a slot maps its positions to pages
@@ -112,11 +136,14 @@ Counterpart of `cake_tpu/serve/engine.py`, restricted to its
 Both steps, and the phase-split loop's one-slot prefills, run as
 captured CUDA graphs on the card (there is no eager step there), and
 eagerly on the CPU: the decode step, its sampling and its carry through
-`serve/graphs.DecodeRunner`, the mixed step and its sampling through
-`serve/graphs.MixedRunner`, the prefills through
-`serve/graphs.PrefillRunner`, the speculative round through
-`serve/graphs.SpecRunner` and the draft prefill through a second
-`PrefillRunner` (each capture counted as a compile of its JAX
+`serve/graphs.DecodeRunner` (over the pool, the dense cache or the
+ring), the mixed step and its sampling through
+`serve/graphs.MixedRunner`, the paged prefills through
+`serve/graphs.PrefillRunner` and the dense ones through
+`serve/graphs.DensePrefillRunner`, the paged speculative round through
+`serve/graphs.SpecRunner`, the dense one through
+`serve/graphs.DenseSpecRunner`, and each draft prefill through a second
+prefill runner (each capture counted as a compile of its JAX
 function). A recovery resets the pool, the table and the sampling
 state in place and keeps every graph, as JAX's reset keeps its jitted
 steps; only when that raises does it rebuild. A mixed step's rows go up
@@ -132,13 +159,13 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: the dense-cache engine and
-its spec mode (--draft-model behind --api; ROADMAP A11) and multi-host
-serving (the control channel and its lockstep followers; ROADMAP A13).
+(`_run_on_engine_thread`). Not ported yet: multi-host serving (the
+control channel and its lockstep followers; ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -167,11 +194,14 @@ from cake_tpu_torch.models.llama.config import LlamaConfig
 from cake_tpu_torch.models.llama.generator import (
     bucket_length, chunk_windows, encode_text, incremental_decode,
 )
-from cake_tpu_torch.models.llama.model import RopeTables
+from cake_tpu_torch.models.llama.cache import KVCache
+from cake_tpu_torch.models.llama.model import (
+    RopeTables, forward_ragged, forward_ragged_ring, prefill,
+)
 from cake_tpu_torch.models.llama.paged import (
     ATTN_IMPLS, PageAllocator, PagedKVCache, chunk_write_targets,
-    fixed_prompt_targets, mixed_step_paged, prefill_prefix_pages,
-    table_set_slot,
+    fixed_prompt_targets, forward_ragged_paged, mixed_step_paged,
+    prefill_prefix_pages, table_set_slot,
 )
 from cake_tpu_torch.models.llama.params import params_bytes
 from cake_tpu_torch.obs import metrics as obs_metrics
@@ -189,8 +219,9 @@ from cake_tpu_torch.serve.errors import (
     as_engine_error,
 )
 from cake_tpu_torch.serve.graphs import (
-    PREFILL_FNS, DecodeRunner, MixedRunner, PrefillRunner, SpecRunner,
-    elapsed_s, mark,
+    DENSE_PREFILL_FNS, PREFILL_FNS, DecodeRunner, DensePrefillRunner,
+    DenseSpecRunner, MixedRunner, PrefillRunner, SpecRunner, elapsed_s,
+    mark,
 )
 from cake_tpu_torch.spec.state import (
     DISABLE_AFTER_FAILS, SPEC_DEGRADED, STREAM_ACCEPT_FLOOR,
@@ -543,39 +574,94 @@ class InferenceEngine:
                     f"draft params live on "
                     f"{spec_draft_params['embed'].device}, the engine on "
                     f"{self.device}")
-        elif draft_params is not None:
-            raise NotImplementedError(
-                "the dense spec engine (--draft-model behind --api) is not "
-                "ported to cake_tpu_torch yet (ROADMAP A11): serve "
-                "speculation with --spec-draft over --kv-pages")
+        # the engine's flavor, JAX's choice: the paged pool with
+        # kv_pages; else a dense [L, B, T] cache, or a ring of W = window
+        # slots for a sliding-window config shorter than max_seq_len;
+        # with a draft model the dense spec engine
+        self.paged = kv_pages is not None
+        self.ring = (not self.paged and config.sliding_window is not None
+                     and config.sliding_window < max_seq_len)
+        self._spec = draft_params is not None
+        if self._spec:
+            if (config.sliding_window is not None
+                    and config.sliding_window < max_seq_len):
+                raise ValueError(
+                    "the speculative engine requires the built-in dense "
+                    "single-device path (no topology/ring step fns)")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if spec_gamma < 1:
+                raise ValueError(
+                    f"spec_gamma must be >= 1, got {spec_gamma}")
+            if draft_params["embed"].device != self.device:
+                raise ValueError(
+                    f"draft params live on {draft_params['embed'].device}, "
+                    f"the engine on {self.device}")
+        if self.paged and (self._spec or (
+                config.sliding_window is not None
+                and config.sliding_window < max_seq_len)):
+            raise ValueError(
+                "--kv-pages requires the built-in dense single-device "
+                "path (no topology/ring/speculative mode)")
         if disagg is not None and kv_pages is None:
             raise ValueError(
                 "--disagg requires the paged KV pool (--kv-pages): "
                 "pages are the transfer unit")
-        if kv_pages is None:
-            raise NotImplementedError(
-                "the dense-cache engine is not ported to cake_tpu_torch "
-                "yet: pass kv_pages (--kv-pages) for the paged engine")
+        if kv_dtype in QUANTIZED_CACHES and not self.paged:
+            raise ValueError(
+                f"--kv-dtype {kv_dtype} requires --kv-pages: quantized "
+                "KV pages live in the paged pool"
+                + (" (speculative serving is gated off the paged "
+                   "engine, so it cannot quantize KV)" if self._spec
+                   else ""))
         mb = mixed_batch or "auto"
         if mb not in ("auto", "on", "off"):
             raise ValueError(
                 f"--mixed-batch must be auto, on or off, got {mb!r}")
-        impl = paged_attn or "auto"
-        if impl not in ATTN_IMPLS:
+        if mb == "on" and not self.paged:
             raise ValueError(
-                f"--paged-attn must be one of {ATTN_IMPLS}, got {impl!r}")
-        # "auto" resolves by the ONE rule the autotuner's comparison key
-        # uses too (autotune/space.resolve_paged_attn): the kernels on a
-        # card, their plain versions on the CPU
-        impl = self._check_attn(resolve_paged_attn(impl, self.device))
+                "--mixed-batch on requires --kv-pages: the mixed "
+                "ragged step dispatches over the paged pool")
+        impl = None
+        if self.paged:
+            impl = paged_attn or "auto"
+            if impl not in ATTN_IMPLS:
+                raise ValueError(f"--paged-attn must be one of "
+                                 f"{ATTN_IMPLS}, got {impl!r}")
+            # "auto" resolves by the ONE rule the autotuner's comparison
+            # key uses too (autotune/space.resolve_paged_attn): the
+            # kernels on a card, their plain versions on the CPU
+            impl = self._check_attn(resolve_paged_attn(impl, self.device))
+        elif kv_host_pages is not None:
+            log.warning("--kv-host-pages ignored: the host KV tier "
+                        "spills paged pool pages (set --kv-pages)")
+            kv_host_pages = None
         if decode_scan_steps < 1:
             raise ValueError(
                 f"--decode-scan must be >= 1, got {decode_scan_steps}")
+        if self._spec:
+            if prefill_chunk is not None:
+                log.warning("prefill_chunk ignored in speculative mode "
+                            "(whole-prompt prefill keeps the draft cache "
+                            "aligned)")
+                prefill_chunk = None
+            if decode_scan_steps > 1:
+                log.warning("decode_scan ignored in speculative mode "
+                            "(each spec round already amortizes up to "
+                            "gamma+1 tokens per dispatch)")
+                decode_scan_steps = 1
+        if self.ring:
+            # every ring prefill is a window of at most W tokens
+            W = config.sliding_window
+            prefill_chunk = min(prefill_chunk or min(512, W), W)
         if prefill_chunk is not None and (
                 prefill_chunk < 1 or max_seq_len % prefill_chunk != 0):
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be >= 1 and divide "
-                f"max_seq_len {max_seq_len}")
+                f"max_seq_len {max_seq_len}"
+                + (" (ring/sliding-window serving requires a chunk that "
+                   "divides max_seq_len; pass --prefill-chunk)"
+                   if self.ring else ""))
         self.config = config
         self.params = params
         self.tokenizer = tokenizer
@@ -586,9 +672,9 @@ class InferenceEngine:
         self.paged_attn = impl
         # decode steps a host round trip (bursts of the captured step)
         self._decode_scan = decode_scan_steps
-        # --mixed-batch off: the phase-split loop (whole-prompt or
-        # C-token-window prefills, then decode)
-        self._mixed = mb != "off"
+        # --mixed-batch off (and every dense flavor): the phase-split
+        # loop (whole-prompt or C-token-window prefills, then decode)
+        self._mixed = self.paged and mb != "off"
         # the phase-split prefill's window (None = whole-prompt buckets);
         # it also decides which prefix hits can be served
         # (_prefix_window_plan), on both loops, as in JAX
@@ -599,10 +685,16 @@ class InferenceEngine:
                              else min(256, max_seq_len))
         self.rope = RopeTables.create(config, max_seq_len,
                                       device=self.device)
+        # a ring cache owns its layout (a prefix install writes dense
+        # positions), and the spec engine keeps its draft cache aligned
+        # with the target (a prefix-cached target prefill would leave
+        # the draft cold): neither serves prefixes
+        self._prefix_capable = not self.ring and not self._spec
         # --kv-dtype: "int8"/"int4" select the quantized page pools (int8
         # pages or nibble-packed int4 pages + per-page, per-kv-head f32
         # scales); another name is a plain pool dtype, fp8 ("f8_e4m3",
-        # "f8_e5m2") included; None keeps cache_dtype
+        # "f8_e5m2") included; None keeps cache_dtype. The dense flavors
+        # keep cache_dtype, as JAX's do
         self._quant_cache = QUANTIZED_CACHES.get(kv_dtype)
         self.kv_quant = self._quant_cache is not None
         # the --kv-dtype name and the cache dtype an unset one follows:
@@ -612,10 +704,8 @@ class InferenceEngine:
         self._kv_host_pages = kv_host_pages
         self._max_queue = max_queue
         self._pool_dtype = (resolve_kv_dtype(kv_dtype)
-                            if kv_dtype is not None and not self.kv_quant
-                            else cache_dtype)
-        self._pager = PageAllocator(kv_pages, kv_page_size)
-        self.cache = self._new_cache(kv_pages, kv_page_size)
+                            if self.paged and kv_dtype is not None
+                            and not self.kv_quant else cache_dtype)
         self._slot_pages: dict = {}
         # slot -> count of SHARED prefix pages at the head of its row
         # (the pages themselves ride _slot_pages for the refcounted
@@ -626,17 +716,45 @@ class InferenceEngine:
         self._mixed_pending: dict = {}
         self._page_blocked_rid: Optional[int] = None
         self._page_starved = False
-        log.info("paged KV: %d pages x %d tokens, %s attention, %s storage "
-                 "(%.2f GiB pool) on %s", kv_pages, kv_page_size, impl,
-                 kv_dtype + "+scales" if self.kv_quant else self._pool_dtype,
-                 self.cache.memory_bytes() / 2**30, self.device)
+        # the paged speculative plane (spec/, --spec-draft) and the dense
+        # spec engine's draft (--draft-model behind --api)
+        self._specp: Optional[SpecPlane] = None
+        self.d_cache = None
+        self.draft_params = draft_params
+        self.draft_config = draft_config
+        self.spec_gamma = spec_gamma
+        if self.paged:
+            self._pager: Optional[PageAllocator] = PageAllocator(
+                kv_pages, kv_page_size)
+            self.cache = self._new_cache(kv_pages, kv_page_size)
+            log.info("paged KV: %d pages x %d tokens, %s attention, %s "
+                     "storage (%.2f GiB pool) on %s", kv_pages,
+                     kv_page_size, impl,
+                     kv_dtype + "+scales" if self.kv_quant
+                     else self._pool_dtype,
+                     self.cache.memory_bytes() / 2**30, self.device)
+        else:
+            self._pager = None
+            self.cache = self._new_dense_cache(config)
+            log.info("%s KV cache: %d slots x %d positions, %s (%.2f GiB) "
+                     "on %s", "ring" if self.ring else "dense", max_slots,
+                     self.cache.max_seq_len, cache_dtype,
+                     self.cache.memory_bytes() / 2**30, self.device)
+        if self._spec:
+            self.d_rope = RopeTables.create(draft_config, max_seq_len,
+                                            device=self.device)
+            self.d_cache = self._new_dense_cache(draft_config)
+            self._d_weight_bytes = (params_bytes(draft_params)
+                                    - params_bytes(draft_params["embed"]))
+            self._d_embed_row_bytes = (params_bytes(draft_params["embed"])
+                                       // draft_config.vocab_size)
+            log.info("dense spec: draft cache %.2f GiB, gamma=%d",
+                     self.d_cache.memory_bytes() / 2**30, spec_gamma)
 
         # paged speculative decoding: the draft model's KV pages live in
         # a SECOND pool with the target pool's page geometry, addressed
         # by the SAME allocator (one page-id space, one budget for the
         # admission gate), and a sink page of its own
-        self._specp: Optional[SpecPlane] = None
-        self.d_cache: Optional[PagedKVCache] = None
         if spec_draft_params is not None:
             self._specp = SpecPlane(
                 spec_draft_params, spec_draft_config, spec_gamma,
@@ -706,6 +824,11 @@ class InferenceEngine:
             log.warning("--preemption requires --priority-classes; "
                         "preemption disabled")
             self._preemption = False
+        if self._preemption and self._spec:
+            log.warning("preemption disabled: speculative serving keeps "
+                        "the draft cache aligned with the target per "
+                        "round (no recompute-resume path)")
+            self._preemption = False
         self._shed = ShedController(self._sched_cfg) if shed else None
         # rank of a page-starved higher-class admission awaiting a
         # victim; consumed at the top of the next iteration (a mid-wave
@@ -724,6 +847,10 @@ class InferenceEngine:
         # (master.make_engine)
         self._recovery_cfg = recovery_config or RecoveryConfig()
         self._recover = bool(recovery)
+        if self._recover and self._spec:
+            log.warning("crash recovery disabled: speculative serving has "
+                        "no recompute-resume fold")
+            self._recover = False
         # the reset-storm breaker's window (monotonic reset times), the
         # consecutive resets (backoff), and each recovery's seconds
         self._reset_times: List[float] = []
@@ -781,7 +908,7 @@ class InferenceEngine:
         # per device step at the step seams, GET /api/v1/steps and
         # --step-log; MFU and HBM utilization against this card's peaks
         self.flight = obs_steps.StepTelemetry(
-            impl=f"paged-{impl}", capacity=step_ring, log_path=step_log,
+            impl=self._flavor(), capacity=step_ring, log_path=step_log,
             kind=obs_steps.device_kind(self.device), events=self.events)
         # the anomaly sentinel (--sentinel, obs/sentinel.py): rolling-
         # window detectors over the flight recorder, the event bus and
@@ -939,6 +1066,13 @@ class InferenceEngine:
             from cake_tpu_torch.obs.actions import PostmortemSink
             self._postmortem = PostmortemSink(postmortem_dir)
 
+    def _flavor(self) -> str:
+        """The flight record's impl name, JAX's: "spec", "paged-<impl>",
+        "ring" or "dense"."""
+        return ("spec" if self._spec else
+                f"paged-{self.paged_attn}" if self.paged else
+                "ring" if self.ring else "dense")
+
     def _check_attn(self, impl: str) -> str:
         """A resolved attention impl the engine's device can run."""
         if impl == "kernel" and self.device.type != "cuda":
@@ -957,8 +1091,12 @@ class InferenceEngine:
                               - params_bytes(self.params["embed"]))
         self._embed_row_bytes = (params_bytes(self.params["embed"])
                                  // self.config.vocab_size)
-        self._kv_bytes_per_token = self.cache.memory_bytes() / (
-            (self.cache.n_pages + 1) * self.cache.page_size)
+        if self.paged:
+            self._kv_bytes_per_token = self.cache.memory_bytes() / (
+                (self.cache.n_pages + 1) * self.cache.page_size)
+        else:
+            self._kv_bytes_per_token = self.cache.memory_bytes() / (
+                self.max_slots * self.cache.max_seq_len)
 
     def _seed_values(self) -> torch.Tensor:
         """Slot b's stream seed (host): the reset count folds in, so the
@@ -1100,13 +1238,30 @@ class InferenceEngine:
                 f"prompt length {len(ids)} exceeds max_seq_len "
                 f"{self.max_seq_len}")
         max_new = min(max_new_tokens, self.max_seq_len - len(ids))
-        need = self._pager.pages_for(len(ids) + max_new)
-        if need > self._pager.n_pages:
-            # can NEVER be admitted: fail fast instead of requeueing
-            raise ValueError(
-                f"request needs {need} kv pages; the pool has "
-                f"{self._pager.n_pages} total (raise --kv-pages or lower "
-                "max_tokens)")
+        if self.paged:
+            need = self._pager.pages_for(len(ids) + max_new)
+            if need > self._pager.n_pages:
+                # can NEVER be admitted: fail fast instead of requeueing
+                raise ValueError(
+                    f"request needs {need} kv pages; the pool has "
+                    f"{self._pager.n_pages} total (raise --kv-pages or "
+                    "lower max_tokens)")
+        d = self.defaults
+        if self._spec:
+            # the accept/resample identity assumes the unfiltered
+            # temperature softmax, and the verify pass scores the burst
+            # in parallel (no within-burst penalty ring)
+            eff_top_p = top_p if top_p is not None else d.top_p
+            eff_pen = (d.repeat_penalty if repeat_penalty is None
+                       else repeat_penalty)
+            if (eff_top_p or 1.0) < 1.0 or eff_pen != 1.0:
+                raise ValueError(
+                    "speculative serving supports temperature-only "
+                    "sampling (top_p=1, repeat_penalty=1)")
+            if want_top_logprobs:
+                raise ValueError(
+                    "logprobs are unavailable in speculative serving "
+                    "(accepted drafts are not sampled step-by-step)")
         replayed = list(replay_tokens or ())
         if replayed and ids[-len(replayed):] != replayed:
             # the replay coordinate must be a literal suffix of the
@@ -1116,7 +1271,6 @@ class InferenceEngine:
         with self._rid_lock:
             rid = self._next_rid
             self._next_rid += 1
-        d = self.defaults
         eff_temp = temperature if temperature is not None else d.temperature
         eff_top_p = top_p if top_p is not None else d.top_p
         req = _Request(
@@ -1153,16 +1307,17 @@ class InferenceEngine:
             prev = self._attach_idempotent(key, req.stream)
             if prev is not None:
                 return prev
-        need = self._pager.pages_for(len(req.prompt_ids)
-                                     + req.max_new_tokens)
-        if need > self._pager.n_pages:
-            # submit() checked the pool it saw; a live switch to a
-            # smaller pool may have landed since (this lock is the one
-            # the switch holds)
-            raise ValueError(
-                f"request needs {need} kv pages; the pool has "
-                f"{self._pager.n_pages} total (raise --kv-pages or lower "
-                "max_tokens)")
+        if self.paged:
+            need = self._pager.pages_for(len(req.prompt_ids)
+                                         + req.max_new_tokens)
+            if need > self._pager.n_pages:
+                # submit() checked the pool it saw; a live switch to a
+                # smaller pool may have landed since (this lock is the
+                # one the switch holds)
+                raise ValueError(
+                    f"request needs {need} kv pages; the pool has "
+                    f"{self._pager.n_pages} total (raise --kv-pages or "
+                    "lower max_tokens)")
         if self._draining and not replay:
             # admissions are closed; a resume's resubmits still land
             raise DrainingError(self._drain_eta_s())
@@ -1399,6 +1554,7 @@ class InferenceEngine:
             hist.add_message(m)
         if (self._auto_prefix and messages
                 and messages[0].role.value == "system"
+                and self._prefix_capable
                 and hist.template == "llama3"):
             # the head below is the llama3 system block; other templates
             # have no standalone shared head
@@ -1438,7 +1594,7 @@ class InferenceEngine:
             ids = encode_text(self.tokenizer, head)
             # page-granular sharing: a head shorter than one page has
             # nothing to share (register_prefix would refuse it)
-            min_len = max(8, self._pager.page_size)
+            min_len = max(8, self._pager.page_size) if self.paged else 8
             if len(ids) < min_len or len(ids) >= self.max_seq_len - 1:
                 with self._rid_lock:
                     self._auto_pids[head] = -1
@@ -1499,6 +1655,18 @@ class InferenceEngine:
         each suffix. Returns a prefix id (for unregister_prefix). Runs on
         the engine thread when it is running (the pool and the table
         have one writer)."""
+        if not self._prefix_capable:
+            # name the flavor's actual refusal, as JAX does
+            if self._spec:
+                reason = ("speculative serving keeps the draft cache "
+                          "aligned with the target, and a prefix-cached "
+                          "target prefill would leave the draft cold "
+                          "(acceptance would silently collapse)")
+            else:
+                reason = ("ring sliding-window caches own their layout "
+                          "(a prefix install writes dense positions the "
+                          "ring would misplace)")
+            raise ValueError(f"prefix caching is unavailable here: {reason}")
         ids = list(prefix_ids)
         if not ids:
             raise ValueError("empty prefix")
@@ -1506,17 +1674,52 @@ class InferenceEngine:
             raise ValueError(
                 f"prefix length {len(ids)} leaves no room for a suffix "
                 f"(max_seq_len {self.max_seq_len})")
-        P = self._pager.page_size
-        if len(ids) < P:
-            raise ValueError(
-                f"paged prefix sharing is page-granular: the prefix "
-                f"({len(ids)} tokens) is shorter than one kv page "
-                f"({P} tokens), so there is nothing to share "
-                "(lower --kv-page-size or skip registration)")
+        if not self.paged:
+            fn = (lambda: self._register_prefix_sync(ids))
+        else:
+            P = self._pager.page_size
+            if len(ids) < P:
+                raise ValueError(
+                    f"paged prefix sharing is page-granular: the prefix "
+                    f"({len(ids)} tokens) is shorter than one kv page "
+                    f"({P} tokens), so there is nothing to share "
+                    "(lower --kv-page-size or skip registration)")
+            fn = (lambda: self._register_prefix_paged(ids))
+        # the device work runs on the engine thread when it is running
+        # (the cache and the table have one writer)
         if self._thread is not None and self._thread.is_alive():
-            return self._run_on_engine_thread(
-                lambda: self._register_prefix_paged(ids))
-        return self._register_prefix_paged(ids)
+            return self._run_on_engine_thread(fn)
+        return fn()
+
+    def _register_prefix_sync(self, ids: List[int]) -> int:
+        """The dense registration: compute the prefix's KV once, into a
+        one-slot scratch cache of its bucket (`_prefix_kv_device`), and
+        keep its first P positions [L, 1, P, KV, hd] in the registry,
+        outside the serving cache (a reset or a switch to another dense
+        config keeps them, as JAX's registry does)."""
+        P = len(ids)
+        bucket = bucket_length(P, self.max_seq_len)
+        with self._rid_lock:
+            pid = self._next_prefix_id
+            self._next_prefix_id += 1
+        k, v = self._prefix_kv_device(ids, P, bucket)
+        with self._rid_lock:
+            self._prefixes[pid] = (list(ids), (k, v))
+        log.info("registered prefix %d: %d tokens", pid, P)
+        return pid
+
+    def _prefix_kv_device(self, ids: List[int], P: int, bucket: int):
+        """A prefix's KV: the whole-prompt prefill of its bucket into a
+        one-slot cache of that length (flash on the card, as every
+        fresh prefill), its first P positions kept. Eager: JAX compiles
+        it once a bucket, at registration time only."""
+        tmp = KVCache.create(self.config, 1, bucket,
+                             dtype=self.cache.k.dtype, device=self.device)
+        padded = list(ids) + [0] * (bucket - P)
+        plen = to_device(torch.tensor([P], dtype=torch.int32), self.device)
+        prefill(self.params, self._tokens(padded), plen, tmp, self.rope,
+                self.config)
+        return (tmp.k[:, :, :P].contiguous(), tmp.v[:, :, :P].contiguous())
 
     def _register_prefix_paged(self, ids: List[int]) -> int:
         """Round the prefix down to a page, allocate its pages, prefill
@@ -1559,7 +1762,13 @@ class InferenceEngine:
     def unregister_prefix(self, prefix_id: int) -> None:
         """Drop a registration: the registry's page references go;
         slots still decoding on those pages hold their own, so the pages
-        outlive it until the last such request retires."""
+        outlive it until the last such request retires. A dense
+        registration's KV lives outside the cache and just goes."""
+        if not self.paged:
+            with self._rid_lock:
+                self._prefixes.pop(prefix_id, None)
+            self._prefix_last_hit.pop(prefix_id, None)
+            return
         if self._thread is not None and self._thread.is_alive():
             self._run_on_engine_thread(
                 lambda: self._unregister_paged_sync(prefix_id))
@@ -1580,7 +1789,8 @@ class InferenceEngine:
 
     def _match_prefix(self, ids: List[int]):
         """Longest registered prefix that is a proper head of `ids`:
-        (pid, (p_ids, pages)) or None (pages None: spilled)."""
+        (pid, (p_ids, pages)) or None (pages None: spilled); a dense
+        entry is (p_ids, (k, v))."""
         best = None
         with self._rid_lock:
             entries = list(self._prefixes.items())
@@ -1761,6 +1971,16 @@ class InferenceEngine:
             self._specp.draft_config, self.max_slots, self._pager.n_pages,
             self._pager.page_size, self.max_seq_len,
             dtype=self._pool_dtype, device=self.device)
+
+    def _new_dense_cache(self, config: LlamaConfig) -> KVCache:
+        """An empty dense cache for `config` (the target's or the
+        draft's): max_slots rows of max_seq_len positions, or of the
+        window's W on a ring engine, in the cache dtype."""
+        length = (self.config.sliding_window if self.ring
+                  else self.max_seq_len)
+        return KVCache.create(config, self.max_slots, length,
+                              dtype=self._base_cache_dtype,
+                              device=self.device)
 
     def _new_cache(self, n_pages: int, page_size: int):
         """An empty pool of the configured storage: int8 or int4 pages
@@ -2078,7 +2298,7 @@ class InferenceEngine:
             torch.cuda.current_stream(self.device).synchronize()
         self._mixed_open = None
         self._compiled_step = False
-        self._reset_host_state(self._pager.n_pages, self._pager.page_size)
+        self._reset_host_state()
         self._reset_device_in_place()
 
     def _reset_device_in_place(self) -> None:
@@ -2087,14 +2307,20 @@ class InferenceEngine:
         the rings emptied, the seeds recomputed into their tensor and
         the counters zeroed, and the runners' per-step buffers zeroed:
         no tensor a graph holds moves."""
-        for st in (self.cache.k_store, self.cache.v_store):
-            for t in (st if isinstance(st, tuple) else (st,)):
-                zero_(t)
-        self.cache.table.fill_(-1)
-        if self.d_cache is not None:
-            for t in (self.d_cache.k_store, self.d_cache.v_store):
-                zero_(t)
-            self.d_cache.table.fill_(-1)
+        if not self.paged:
+            # the dense or ring cache, and the dense spec engine's draft
+            self.cache.zero_()
+            if self.d_cache is not None:
+                self.d_cache.zero_()
+        else:
+            for st in (self.cache.k_store, self.cache.v_store):
+                for t in (st if isinstance(st, tuple) else (st,)):
+                    zero_(t)
+            self.cache.table.fill_(-1)
+            if self.d_cache is not None:
+                for t in (self.d_cache.k_store, self.d_cache.v_store):
+                    zero_(t)
+                self.d_cache.table.fill_(-1)
         self._ring.fill_(-1)
         self._seeds.copy_(to_device(self._seed_values(), self.device))
         self._counters.zero_()
@@ -2111,12 +2337,17 @@ class InferenceEngine:
         steps capture their graphs anew (counted as compiles)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        n_pages, page_size = self._pager.n_pages, self._pager.page_size
         self._drop_device_state()
-        self._reset_host_state(n_pages, page_size)
-        self.cache = self._new_cache(n_pages, page_size)
-        if self._specp is not None:
-            self.d_cache = self._new_draft_cache()
+        self._reset_host_state()
+        if not self.paged:
+            self.cache = self._new_dense_cache(self.config)
+            if self._spec:
+                self.d_cache = self._new_dense_cache(self.draft_config)
+        else:
+            self.cache = self._new_cache(self._pager.n_pages,
+                                         self._pager.page_size)
+            if self._specp is not None:
+                self.d_cache = self._new_draft_cache()
         # new rings and random streams; the runners capture anew over
         # the new pool
         self._fresh_sampling_state()
@@ -2138,9 +2369,11 @@ class InferenceEngine:
         self.cache = None
         self.d_cache = None
 
-    def _reset_host_state(self, n_pages: int, page_size: int) -> None:
-        """The host side of a reset: the host tier, the allocator, the
-        slot maps, the prefix registry and the per-slot mirrors."""
+    def _reset_host_state(self) -> None:
+        """The host side of a reset: the host tier, the allocator (of the
+        same geometry), the slot maps, the prefix registry and the
+        per-slot mirrors. A dense registry lives outside the cache and
+        stays, as JAX's does."""
         if self._host_tier is not None:
             self._host_tier.clear()
         with self._rid_lock:
@@ -2152,17 +2385,19 @@ class InferenceEngine:
             # allocator reset here; streams re-activate lazily after
             # their recovery resubmit
             self._specp.spec_streams.clear()
-        self._pager = PageAllocator(n_pages, page_size)
+        if self.paged:
+            self._pager = PageAllocator(self._pager.n_pages,
+                                        self._pager.page_size)
+            with self._rid_lock:
+                self._prefixes.clear()
+                self._auto_pids.clear()
+            self._prefix_last_hit = {}
         self._slot_pages = {}
         self._slot_prefix_pages = {}
         self._prefix_pages_shared = 0
-        with self._rid_lock:
-            self._prefixes.clear()
-            self._auto_pids.clear()
         self._mixed_pending = {}
         self._page_blocked_rid = None
         self._pending_page_preempt = None
-        self._prefix_last_hit = {}
         self._cur_decode = {}
         _PREFIX_PAGES_SHARED.set(0)
         self._pos[:] = 0
@@ -2944,18 +3179,21 @@ class InferenceEngine:
                 on_capture=self._captured("mixed_step"))
         return self._mixed_runner
 
-    def _captured(self, fn_name: str):
+    def _captured(self, fn_name):
         """A runner's capture hook: the flight recorder counts the
-        capture as a compile of `fn_name`, and the step that caused it
-        is recorded as compiled. The hook holds the engine weakly: the
+        capture as a compile of `fn_name` (a dict: of the JAX function
+        its variant's kind names), and the step that caused it is
+        recorded as compiled. The hook holds the engine weakly: the
         engine owns the runner, and a stopped engine is freed by its
         refcount, not by a cyclic collection."""
         ref = weakref.ref(self)
 
-        def hook(_variant, seconds: float) -> None:
+        def hook(variant, seconds: float) -> None:
             eng = ref()
             if eng is not None:
-                eng.flight.count_capture(fn_name, seconds)
+                eng.flight.count_capture(
+                    fn_name[variant[0]] if isinstance(fn_name, dict)
+                    else fn_name, seconds)
                 eng._compiled_step = True
         return hook
 
@@ -2972,7 +3210,8 @@ class InferenceEngine:
             emit_rows=emit_rows, passes=passes,
             weight_bytes=self._weight_bytes,
             embed_row_bytes=self._embed_row_bytes,
-            kv_bytes_per_token=self._kv_bytes_per_token)
+            kv_bytes_per_token=self._kv_bytes_per_token,
+            kv_span=None if self.paged else self.cache.max_seq_len)
 
     def _record(self, kind: str, *, rows: int, tokens: int, cost,
                 wall_s: float, dispatch_s: Optional[float] = None,
@@ -2985,8 +3224,10 @@ class InferenceEngine:
         self.flight.record(
             kind, rows=rows, tokens=tokens, dispatch_s=dispatch_s,
             device_s=elapsed_s(timing), wall_s=wall_s, cost=cost,
-            compiled=compiled, pages_free=self._pager.free_pages,
-            pages_total=self.cache.n_pages, rids=list(rids), **split)
+            compiled=compiled,
+            pages_free=self._pager.free_pages if self.paged else None,
+            pages_total=self.cache.n_pages if self.paged else None,
+            rids=list(rids), **split)
 
     def _mixed_dispatch(self, decode_plan) -> None:
         """Build and run ONE mixed step: every decode row contributes its
@@ -3140,6 +3381,9 @@ class InferenceEngine:
             # released table row
             decode_plan = self._live_decode_rows(decode_plan)
         if decode_plan:
+            if self._spec:
+                self._do_decode_spec(decode_plan)
+                return
             n = self._scan_steps_for(decode_plan)
             if n > 1:
                 self._decode_burst(decode_plan, n)
@@ -3172,11 +3416,12 @@ class InferenceEngine:
         with self._rid_lock:
             adopt = self._adopt_store.get(rid)
         # match BEFORE page admission: a hit changes the allocation
-        hit = (self._match_and_validate_prefix(ids) if adopt is None
-               else None)
-        if not self._alloc_slot_pages(req, slot, hit):
-            return None   # pool exhausted: requeued (or failed) inside
-        hit = req._effective_hit      # a spilled prefix may not be back
+        hit = (self._match_and_validate_prefix(ids)
+               if adopt is None and self._prefix_capable else None)
+        if self.paged:
+            if not self._alloc_slot_pages(req, slot, hit):
+                return None   # pool exhausted: requeued (or failed) inside
+            hit = req._effective_hit   # a spilled prefix may not be back
         if req._kv_restored:
             # a spilled victim restored from the host tier: its KV and
             # sampling state sit at its frontier; no prefill at all (the
@@ -3197,7 +3442,8 @@ class InferenceEngine:
                                                 n_top, prime)
             n_pre = len(hit[1][0])
             self.stats.prefix_hits += 1
-            _PREFIX_PAGED_HITS.inc()
+            if self.paged:
+                _PREFIX_PAGED_HITS.inc()
             _PREFIX_TOKENS_SAVED.inc(n_pre)
             if self.events is not None:
                 self.events.publish("prefix_hit", rid=rid, pid=hit[0],
@@ -3214,7 +3460,7 @@ class InferenceEngine:
         the part to prefill is longer than the chunk."""
         C = self.prefill_chunk
         n = len(ids) - n_prefix
-        if not (C and n > C):
+        if not (C and (n > C or self.ring)):
             return [(n_prefix, n)]
         return [(n_prefix + a, min(C, n - a)) for a in range(0, n, C)]
 
@@ -3273,7 +3519,9 @@ class InferenceEngine:
         """Prefill one slot, whole-prompt or in --prefill-chunk windows
         (prompts longer than C), and sample its first token."""
         C = self.prefill_chunk
-        if C and len(ids) > C:
+        if C and (len(ids) > C or self.ring):
+            # a ring prompt always walks windows of at most W: a whole
+            # bucket would write past the ring
             logits = self._prefill_chunked(ids, slot, C)
         else:
             logits = self._prefill_raw(ids, slot)
@@ -3290,14 +3538,34 @@ class InferenceEngine:
         """The captured one-slot prefills (serve/graphs.PrefillRunner),
         each capture counted as a compile of its JAX function."""
         if self._prefill_runner is None:
-            def hook(variant, seconds: float) -> None:
-                self._captured(PREFILL_FNS[variant[0]])(variant, seconds)
-
             self._prefill_runner = PrefillRunner(
                 self.params, self.cache, self.rope, self.config,
                 attn=self.paged_attn, pool=self._graph_pool,
-                on_capture=hook)
+                on_capture=self._captured(PREFILL_FNS))
         return self._prefill_runner
+
+    def _dense_prefill_runner(self) -> DensePrefillRunner:
+        """The dense and ring engines' captured one-slot steps
+        (serve/graphs.DensePrefillRunner), each capture counted as a
+        compile of its JAX function."""
+        if self._prefill_runner is None:
+            self._prefill_runner = self._new_dense_prefill_runner(
+                self.params, self.cache, self.rope, self.config)
+        return self._prefill_runner
+
+    def _draft_dense_prefill_runner(self) -> DensePrefillRunner:
+        """The dense spec engine's draft prefill: JAX's same jitted
+        `prefill_slot` over the draft's params and cache."""
+        if self._draft_prefill_runner is None:
+            self._draft_prefill_runner = self._new_dense_prefill_runner(
+                self.draft_params, self.d_cache, self.d_rope,
+                self.draft_config)
+        return self._draft_prefill_runner
+
+    def _new_dense_prefill_runner(self, params, cache, rope, config):
+        return DensePrefillRunner(
+            params, cache, rope, config, pool=self._graph_pool,
+            on_capture=self._captured(DENSE_PREFILL_FNS))
 
     def _host_row(self, slot: int) -> torch.Tensor:
         """Slot `slot`'s table row on the host, from its page list (the
@@ -3313,6 +3581,15 @@ class InferenceEngine:
         logits buffer."""
         bucket = bucket_length(len(ids), self.max_seq_len)
         padded = list(ids) + [0] * (bucket - len(ids))
+        if not self.paged:
+            logits = self._dense_prefill_runner().run(
+                ("slot", bucket), padded, len(ids), slot)
+            if self._spec:
+                # the draft's KV must cover the prompt too (its proposals
+                # attend the positions the target verifies)
+                self._draft_dense_prefill_runner().run(
+                    ("slot", bucket), padded, len(ids), slot)
+            return logits
         targets = fixed_prompt_targets(self._host_row(slot), bucket,
                                        self.cache.page_size,
                                        self.cache.n_pages)
@@ -3324,6 +3601,14 @@ class InferenceEngine:
         """Walk a prompt (or a prefix hit's suffix, from absolute
         position pos0) through the slot's pages in C-token windows (the
         captured `prefill_slot_paged_chunk`, one replay a window)."""
+        if not self.paged:
+            runner = self._dense_prefill_runner()
+            kind = "ring" if self.ring else "chunk"
+            logits = None
+            for window, n_real, start in chunk_windows(ids, C):
+                logits = runner.run((kind, C), window, n_real, slot,
+                                    pos0 + start)
+            return logits
         runner = self._prefill_step_runner()
         row = self._host_row(slot)
         logits = None
@@ -3348,6 +3633,21 @@ class InferenceEngine:
                 f"prefix no longer serves a prompt of len {len(ids)}")
         chunk_suffix, width = plan
         suffix = list(ids[len(p_ids):])
+        if not self.paged:
+            # the registered head's KV goes into the slot's positions
+            # 0..P-1, then the suffix prefills after it: one program, or
+            # an install and the suffix's windows
+            P = len(p_ids)
+            runner = self._dense_prefill_runner()
+            if chunk_suffix:
+                runner.run(("install", P), slot=slot, prefix=entry[1])
+                logits = self._prefill_chunked(suffix, slot, width, pos0=P)
+            else:
+                padded = suffix + [0] * (width - len(suffix))
+                logits = runner.run(("prefixed", P, width), padded,
+                                    len(suffix), slot, prefix=entry[1])
+            return self._finish_prefill(logits, slot, len(ids), req, n_top,
+                                        prime)
         if chunk_suffix:
             logits = self._prefill_chunked(suffix, slot, width,
                                            pos0=len(p_ids))
@@ -3382,9 +3682,14 @@ class InferenceEngine:
 
     def _decode_runner(self) -> DecodeRunner:
         if self._runner is None:
+            # the paged forward, or the dense engine's ragged forward
+            # over its cache (modular over a ring)
+            fwd = (functools.partial(forward_ragged_paged,
+                                     attn=self.paged_attn) if self.paged
+                   else forward_ragged_ring if self.ring else forward_ragged)
             self._runner = DecodeRunner(
                 self.params, self.cache, self.rope, self.config,
-                attn=self.paged_attn, ring=self._ring, seeds=self._seeds,
+                forward_fn=fwd, ring=self._ring, seeds=self._seeds,
                 counters=self._counters, max_steps=self._decode_scan,
                 n_top_cap=self.n_top, top_k=self.defaults.top_k,
                 pool=self._graph_pool,
@@ -3472,18 +3777,23 @@ class InferenceEngine:
         return (self._stop.is_set() or self.scheduler.queue_depth > 0
                 or pending)
 
-    def _drive_burst(self, dispatch, complete, can_chain) -> None:
+    def _drive_burst(self, dispatch, complete, can_chain,
+                     first_unconditional: bool = False) -> None:
         """The double-buffered dispatch/fetch loop: dispatch burst k+1
         (chained from k's carry on the device) BEFORE completing k, so
         k's copy to the host and its emits overlap k+1's device work.
         dispatch(state) -> (devs, state'); complete(devs) fetches and
         emits one burst; can_chain(n_inflight) gates a dispatch after
-        the host-attention gate."""
+        the host-attention gate. first_unconditional: one dispatch
+        whatever the gates say (the spec burst, whose planning loop has
+        no other progress path with full slots and a waiting queue)."""
         inflight: list = []
         state = None
+        first = first_unconditional
         while True:
-            chain = (not self._host_attention_pending()
-                     and can_chain(len(inflight)))
+            chain = first or (not self._host_attention_pending()
+                              and can_chain(len(inflight)))
+            first = False
             if chain:
                 devs, state = dispatch(state)
                 inflight.append(devs)
@@ -3590,6 +3900,141 @@ class InferenceEngine:
                     break            # EOS/budget: the step froze it here too
             self._steps[slot] += emitted
             self._pos[slot] = pos0 + emitted
+
+    # -- the dense spec engine (--draft-model behind --api) ---------------------
+
+    def _dense_spec_runner(self) -> DenseSpecRunner:
+        """The captured dense round (serve/graphs.DenseSpecRunner), one
+        graph per gamma, each capture counted as a compile of
+        spec_round_batched."""
+        if self._spec_runner is None:
+            self._spec_runner = DenseSpecRunner(
+                self.params, self.draft_params, self.cache, self.d_cache,
+                self.rope, self.d_rope, self.config, self.draft_config,
+                seeds=self._seeds, counters=self._counters,
+                max_gamma=self.spec_gamma, pool=self._graph_pool,
+                on_capture=self._captured("spec_round_batched"))
+        return self._spec_runner
+
+    def _do_decode_spec(self, decode_plan) -> None:
+        """One propose-verify-accept round for ALL planned slots in one
+        captured program (speculative.spec_round_batched): batched ragged
+        draft steps and one windowed verify, so the weights stream once a
+        round. Rounds chain on the device (the runner's carry) in
+        double-buffered bursts while nothing needs the host, JAX's
+        `_do_decode_spec` rules: a row that cannot take another round
+        before the window's end is finished at the cap; a chained round
+        past a row's EOS or budget computes junk the emit loop drops."""
+        self._implicated = decode_plan
+        if self._faults is not None:
+            self._faults.check("engine.decode", step=self.stats.steps)
+        t0 = time.perf_counter()
+        g = self.spec_gamma
+        plan = []
+        for rid, slot in decode_plan:
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            if self._pos[slot] + g + 1 >= self.max_seq_len:
+                # the round writes g + 1 positions; too close to the
+                # window's end, finish at the cap
+                self._force_finish(req)
+                continue
+            plan.append((req, slot))
+        if not plan:
+            self.stats.decode_time_s += time.perf_counter() - t0
+            return
+        active = np.zeros(self.max_slots, bool)
+        active[[s for _, s in plan]] = True
+        runner = self._dense_spec_runner()
+
+        def dispatch(state):
+            if state is None:
+                runner.load(self._last_tok,
+                            np.minimum(self._pos, self.max_seq_len - 1),
+                            active, self._temp)
+            t0d = time.perf_counter()
+            handle = runner.run(g)
+            disp = time.perf_counter() - t0d
+            return (handle, disp, self._took_capture(),
+                    [(int(self._pos[s]), s) for _, s in plan]), True
+
+        def complete(devs):
+            handle, disp_k, compiled, pos_rows = devs
+            t0f = time.perf_counter()
+            out_h, n_emit_h = SpecRunner.fetch(handle)
+            fetch = time.perf_counter() - t0f
+            round_tokens = 0
+            for req, slot in plan:
+                if req.done.is_set():
+                    # a round chained before this row's EOS or budget end
+                    # was known: its junk (and its stats) are dropped
+                    continue
+                n = int(n_emit_h[slot])
+                round_tokens += n
+                toks = [int(t) for t in out_h[slot, :n]]
+                self.stats.spec_proposed += g
+                self.stats.spec_accepted += n - 1
+                pos0 = int(self._pos[slot])
+                self._last_tok[slot] = toks[-1]
+                self._steps[slot] += n
+                for j, tok in enumerate(toks):
+                    # per-token position, so _emit's cap check sees what
+                    # a single-step loop would
+                    self._pos[slot] = pos0 + j + 1
+                    self._emit(req, tok)
+                    if req.done.is_set():
+                        break   # EOS / budget mid-round: the tail drops
+                # the next round's frontier: the round wrote n accepted
+                # positions whatever the emission budget
+                self._pos[slot] = pos0 + n
+            self.stats.steps += 1
+            self._record("spec", rows=len(plan), tokens=round_tokens,
+                         cost=self._spec_cost(pos_rows, g),
+                         wall_s=disp_k + fetch, dispatch_s=disp_k,
+                         timing=handle.timing, compiled=compiled,
+                         rids=[req.rid for req, _s in plan])
+
+        # the window guard projects the device frontier by the worst case
+        # (g + 1 a round in flight); the first round is unconditional:
+        # every planned row has room for one (the cap finish above)
+        def can_chain(n_inflight: int) -> bool:
+            return (all(not req.done.is_set()
+                        and (req.max_new_tokens - len(req.out_tokens)
+                             - n_inflight * (g + 1)) > 0
+                        for req, _ in plan)
+                    and all(self._pos[s] + (n_inflight + 1) * (g + 1)
+                            < self.max_seq_len for _, s in plan))
+
+        self._drive_burst(dispatch, complete, can_chain,
+                          first_unconditional=True)
+        self.stats.decode_time_s += time.perf_counter() - t0
+
+    def _force_finish(self, req: _Request) -> None:
+        """Finish a request that cannot take another token (the spec
+        round's window cap): the _emit finish tail, minus the token."""
+        self.scheduler.report(req.rid, 0, True)
+        req.finish_t = time.perf_counter()
+        if req.slot >= 0 and self._slot_req[req.slot] is req:
+            self._slot_req[req.slot] = None
+        self._requests.pop(req.rid, None)
+        if self._shed is not None:
+            self._shed.observe_retire()
+        self.stats.requests_completed += 1
+        self._journal_retire(req, "retired")
+        self.tracer.finish(req.rid, "retired",
+                           output_tokens=len(req.out_tokens))
+        if req.stream is not None:
+            try:
+                delta = self._incremental_text(req, final=True)
+                if req.stream_wants_count:
+                    req.stream(delta, True, len(req.out_tokens))
+                else:
+                    req.stream(delta, True)
+            except Exception:  # noqa: BLE001
+                log.exception("stream callback failed rid=%d", req.rid)
+        self.retired.append(req)
+        req.done.set()
 
     # -- paged speculative decoding (spec/) ------------------------------------
 
@@ -3717,15 +4162,20 @@ class InferenceEngine:
         + 1 draft decode steps of every row over the draft's weights and
         pool, plus one verify window of gamma + 1 tokens a row with
         logits at every position over the target's."""
-        sp, rows = self._specp, len(pos_rows)
+        rows, dc = len(pos_rows), self.d_cache
+        if self._specp is not None:
+            d_cfg, span = self._specp.draft_config, None
+            d_kv = dc.memory_bytes() / ((dc.n_pages + 1) * dc.page_size)
+        else:   # the dense spec engine's draft cache
+            d_cfg, span = self.draft_config, dc.max_seq_len
+            d_kv = dc.memory_bytes() / (self.max_slots * dc.max_seq_len)
         draft = obs_steps.step_cost(
-            sp.draft_config, "spec", rows, rows * (g + 1),
+            d_cfg, "spec", rows, rows * (g + 1),
             [(p + j, 1) for p, _s in pos_rows for j in range(g + 1)],
             emit_rows=rows * (g + 1), passes=g + 1,
             weight_bytes=self._d_weight_bytes,
             embed_row_bytes=self._d_embed_row_bytes,
-            kv_bytes_per_token=self.d_cache.memory_bytes() / (
-                (self.d_cache.n_pages + 1) * self.d_cache.page_size))
+            kv_bytes_per_token=d_kv, kv_span=span)
         verify = self._cost("spec", rows, rows * (g + 1),
                             [(p, g + 1) for p, _s in pos_rows],
                             emit_rows=rows * (g + 1))
@@ -4093,12 +4543,18 @@ class InferenceEngine:
     # -- live reconfiguration (autotune/) ---------------------------------------
 
     def _reconfig_supported(self) -> bool:
-        return self._specp is None
+        return not self.ring and not self._spec and self._specp is None
 
     def _reconfig_refusal(self) -> str:
-        return ("paged speculative serving has no hot-switch fold (the "
-                "draft pool shares the page allocator a switch would swap "
-                "wholesale)")
+        if self._spec:
+            return ("speculative serving has no hot-switch fold (the "
+                    "draft cache cannot be rebuilt mid-round)")
+        if self._specp is not None:
+            return ("paged speculative serving has no hot-switch fold "
+                    "(the draft pool shares the page allocator a switch "
+                    "would swap wholesale)")
+        return ("ring (sliding-window) caches own their layout; a rebuilt "
+                "ring cannot replay folded positions")
 
     def current_config(self):
         """The LIVE effective engine config as an autotune point
@@ -4108,16 +4564,17 @@ class InferenceEngine:
         policy config omitting kv_dtype compares equal."""
         from cake_tpu_torch.autotune.space import EngineConfig
         kv_dtype = None
-        if self.kv_quant or self._pool_dtype != self._base_cache_dtype:
+        if self.paged and (self.kv_quant
+                           or self._pool_dtype != self._base_cache_dtype):
             kv_dtype = self._kv_dtype_name
         return EngineConfig(
             slots=self.max_slots,
             decode_scan=self._decode_scan,
-            kv_pages=self._pager.n_pages,
-            kv_page_size=self._pager.page_size,
+            kv_pages=self._pager.n_pages if self.paged else None,
+            kv_page_size=self._pager.page_size if self.paged else 128,
             kv_dtype=kv_dtype,
             mixed_batch="on" if self._mixed else "off",
-            paged_attn=self.paged_attn)
+            paged_attn=self.paged_attn or "auto")
 
     def reconfigure(self, config, reason: str = "manual") -> bool:
         """Hot-switch the engine to a new EngineConfig under live load:
@@ -4179,7 +4636,9 @@ class InferenceEngine:
         if guard is not None:
             raise ValueError(guard)
         validate_config(new, max_seq_len=self.max_seq_len)
-        self._check_attn(resolve_paged_attn(new.paged_attn, self.device))
+        if new.paged:
+            self._check_attn(resolve_paged_attn(new.paged_attn,
+                                                self.device))
         t0 = time.perf_counter()
         # the whole mutation runs under _admit_lock, the lock submit()
         # registers under: an admission lands fully before this switch
@@ -4190,7 +4649,7 @@ class InferenceEngine:
             # does not fit (the bound submit() enforces at admission)
             per = new.kv_page_size
             for req in list(self._requests.values()):
-                if req.done.is_set():
+                if req.done.is_set() or not new.paged:
                     continue
                 need = -(-(len(req.prompt_ids) + req.max_new_tokens)
                          // per)
@@ -4279,7 +4738,8 @@ class InferenceEngine:
         to `new`: the same page size and storage, so a rebuilt pool
         installs them verbatim (the page COUNT may change: entries hold
         contents, not page ids)."""
-        return (new.kv_page_size == self._pager.page_size
+        return (self.paged and new.paged
+                and new.kv_page_size == self._pager.page_size
                 and self._target_storage_name(new) == self._storage_name())
 
     def _prepare_fold(self, new) -> set:
@@ -4317,12 +4777,16 @@ class InferenceEngine:
                         self._host_tier.drop(key)
             else:
                 self._host_tier.clear()
-        # the registry's pages die with the old pool: auto-prefix heads
-        # register again on their next request
-        with self._rid_lock:
-            self._prefixes.clear()
-            self._auto_pids.clear()
-        self._prefix_last_hit = {}
+        if self.paged or new.paged:
+            # the paged registry's pages die with the old pool (and a
+            # dense registry's (k, v) entries mean nothing to a paged
+            # successor): auto-prefix heads register again on their next
+            # request. A dense -> dense switch keeps the registry, whose
+            # KV lives outside the cache
+            with self._rid_lock:
+                self._prefixes.clear()
+                self._auto_pids.clear()
+            self._prefix_last_hit = {}
         self._prefix_pages_shared = 0
         _PREFIX_PAGES_SHARED.set(0)
         return folded
@@ -4400,29 +4864,34 @@ class InferenceEngine:
 
     def _apply_exec_config(self, new) -> None:
         """Rebuild the config-dependent state under the new knobs: the
-        allocator, the pool, the per-slot mirrors, the sampling state
-        (the reset count folds into the seeds: the startup streams are
-        not replayed), the host tier's page size, the step cost's
-        constants and the flight recorder's impl. The old pool, the
-        runners and their graphs' memory pool go BEFORE the new pool is
-        allocated, so a switch needs one pool's memory, not two; the
-        next steps capture their graphs anew. Engine thread only, after
+        flavor (the paged pool, or the dense cache for `kv_pages: null`),
+        the allocator, the per-slot mirrors, the sampling state (the
+        reset count folds into the seeds: the startup streams are not
+        replayed), the host tier's page size, the step cost's constants
+        and the flight recorder's impl. The old cache, the runners and
+        their graphs' memory pool go BEFORE the new cache is allocated,
+        so a switch needs one cache's memory, not two; the next steps
+        capture their graphs anew. Engine thread only, after
         _prepare_fold (no slot holds device state)."""
         B = new.slots
-        impl = self._check_attn(resolve_paged_attn(new.paged_attn,
-                                                   self.device))
+        impl = (self._check_attn(resolve_paged_attn(new.paged_attn,
+                                                    self.device))
+                if new.paged else None)
         self._drop_device_state()
         self.max_slots = B
         self._decode_scan = max(1, new.decode_scan)
+        self.paged = new.paged
         self._kv_dtype_name = new.kv_dtype
         self._quant_cache = QUANTIZED_CACHES.get(new.kv_dtype)
         self.kv_quant = self._quant_cache is not None
         self._pool_dtype = (resolve_kv_dtype(new.kv_dtype)
-                            if new.kv_dtype is not None and not self.kv_quant
+                            if self.paged and new.kv_dtype is not None
+                            and not self.kv_quant
                             else self._base_cache_dtype)
-        self._mixed = (new.mixed_batch or "auto") != "off"
+        self._mixed = self.paged and (new.mixed_batch or "auto") != "off"
         self.paged_attn = impl
-        self._pager = PageAllocator(new.kv_pages, new.kv_page_size)
+        self._pager = (PageAllocator(new.kv_pages, new.kv_page_size)
+                       if self.paged else None)
         self._slot_pages = {}
         self._slot_prefix_pages = {}
         with self._rid_lock:
@@ -4439,27 +4908,37 @@ class InferenceEngine:
                                 np.float32)
         self._slot_req = [None] * B
         self._reset_count += 1
-        self.cache = self._new_cache(new.kv_pages, new.kv_page_size)
-        tier = self._host_tier
-        if self._kv_host_pages is not None:
-            pb = page_bytes(self.config, new.kv_page_size,
-                            new.kv_dtype if self.kv_quant
-                            else self._pool_dtype)
-            if tier is None or tier.page_bytes != pb:
-                # a new layout (_prepare_fold emptied the old tier); the
-                # same one keeps its tier and the victims it holds
-                tier = HostTier(self._kv_host_pages, page_bytes=pb,
-                                events=self.events,
-                                dtype_name=pool_dtype_name(self.cache))
-            self._host_tier = tier
+        if not self.paged:
+            self.cache = self._new_dense_cache(self.config)
+            self._host_tier = None
+        else:
+            self.cache = self._new_cache(new.kv_pages, new.kv_page_size)
+            tier = self._host_tier
+            if self._kv_host_pages is not None:
+                pb = page_bytes(self.config, new.kv_page_size,
+                                new.kv_dtype if self.kv_quant
+                                else self._pool_dtype)
+                if tier is None or tier.page_bytes != pb:
+                    # a new layout (_prepare_fold emptied the old tier);
+                    # the same one keeps its tier and the victims it holds
+                    tier = HostTier(self._kv_host_pages, page_bytes=pb,
+                                    events=self.events,
+                                    dtype_name=pool_dtype_name(self.cache))
+                self._host_tier = tier
         self._fresh_sampling_state()
         self._cost_constants()
-        self.flight.rebind(impl=f"paged-{impl}")
-        log.info("paged KV: %d pages x %d tokens, %s attention, %s storage "
-                 "(%.2f GiB pool), %d slots, decode_scan %d, mixed %s",
-                 new.kv_pages, new.kv_page_size, impl,
-                 self._storage_name(), self.cache.memory_bytes() / 2**30,
-                 B, self._decode_scan, "on" if self._mixed else "off")
+        self.flight.rebind(impl=self._flavor())
+        if self.paged:
+            log.info("paged KV: %d pages x %d tokens, %s attention, %s "
+                     "storage (%.2f GiB pool), %d slots, decode_scan %d, "
+                     "mixed %s", new.kv_pages, new.kv_page_size, impl,
+                     self._storage_name(),
+                     self.cache.memory_bytes() / 2**30, B,
+                     self._decode_scan, "on" if self._mixed else "off")
+        else:
+            log.info("dense KV cache: %d slots x %d positions (%.2f GiB), "
+                     "decode_scan %d", B, self.max_seq_len,
+                     self.cache.memory_bytes() / 2**30, self._decode_scan)
 
     def autotune_state(self) -> dict:
         """GET /api/v1/autotune: mode, live config, switch and decision
@@ -4495,8 +4974,10 @@ class InferenceEngine:
             prev = cur
         dt = max(1e-6, now - prev[0])
         util = self.flight.utilization(include_prefill=True)
-        total = self._pager.n_pages
-        pages_frac = (total - self._pager.free_pages) / total
+        pages_frac = 0.0
+        if self.paged:
+            total = self._pager.n_pages
+            pages_frac = (total - self._pager.free_pages) / total
         depths = getattr(self.scheduler, "class_depths", None)
         ttfts = self.tracer.recent_ttfts(32)
         p99 = None

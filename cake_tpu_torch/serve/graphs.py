@@ -1,8 +1,11 @@
 """Every step the JAX package compiles, as CUDA graphs replayed over
 static buffers: the engine's two device steps with their sampling, the
-pure-decode step (`DecodeRunner`, replayed K times a burst) and the
-mixed step (`MixedRunner`, replayed once a mixed step); the phase-split
-loop's one-slot prefills (`PrefillRunner`); and the sequential
+pure-decode step (`DecodeRunner`, replayed K times a burst; over the
+paged pool, the dense cache or the ring) and the mixed step
+(`MixedRunner`, replayed once a mixed step); the phase-split loop's
+one-slot prefills (`PrefillRunner` over the pool, `DensePrefillRunner`
+over the dense or ring cache); the speculative rounds (`SpecRunner`,
+`DenseSpecRunner`, `SpecGeneratorRunner`); and the sequential
 generator's decode step (`GeneratorRunner`). Each reads every per-call
 value (position, slot, real tokens) from a device buffer written in
 place, so a graph outlives anything that does not change a shape: a
@@ -14,7 +17,9 @@ every graph.
 JAX compiles the step once and runs K of them in one program, the runner
 captures ONE step over static buffers and replays it K times; each
 replay updates the carry in place and writes its outputs into column
-`col` of [B, K] burst buffers. The step is `forward_ragged_paged` plus
+`col` of [B, K] burst buffers. The step is the engine's ragged forward
+(`forward_ragged_paged` over pages, `forward_ragged` or
+`forward_ragged_ring` over a dense or ring cache) plus
 `ops/sampling.masked_sample`, with the JAX scan body's row rules:
 
   * a row is live while it was active at the burst's start, has emitted
@@ -70,10 +75,13 @@ import numpy as np
 import torch
 
 from cake_tpu_torch.kv.quantized_pool import WindowTargets
-from cake_tpu_torch.models.llama.model import forward, forward_logits_all
+from cake_tpu_torch.models.llama.model import (
+    forward, forward_logits_all, install_prefix_slot, prefill_slot,
+    prefill_slot_chunk, prefill_slot_chunk_ring, prefill_slot_prefixed,
+)
 from cake_tpu_torch.models.llama.paged import (
-    forward_ragged_paged, mixed_step_paged, prefill_slot_paged,
-    prefill_slot_paged_chunk, prefill_slot_paged_prefixed,
+    mixed_step_paged, prefill_slot_paged, prefill_slot_paged_chunk,
+    prefill_slot_paged_prefixed,
 )
 from cake_tpu_torch.ops import flash_attention, int4_matmul
 from cake_tpu_torch.ops import ragged_paged_attention
@@ -83,6 +91,7 @@ from cake_tpu_torch.spec.accept import (
     rejection_accept, uniforms,
 )
 from cake_tpu_torch.spec.round import spec_round_paged
+from cake_tpu_torch.utils.devices import zero_
 
 # the kernel modules' launch counters
 COUNTERS = (ragged_paged_attention.LAUNCHES, int4_matmul.LAUNCHES,
@@ -260,13 +269,13 @@ class _Runner(_Graphs):
     top ids and logprobs) with two pinned host copies used in turn, and
     the step's last logits."""
 
-    def __init__(self, params, cache, rope, config, *, attn: str,
-                 ring: torch.Tensor, seeds: torch.Tensor,
-                 counters: torch.Tensor, cols: int, n_top_cap: int,
-                 top_k: Optional[int], pool=None, on_capture=None):
+    def __init__(self, params, cache, rope, config, *, ring: torch.Tensor,
+                 seeds: torch.Tensor, counters: torch.Tensor, cols: int,
+                 n_top_cap: int, top_k: Optional[int], pool=None,
+                 on_capture=None):
         super().__init__(ring.device, pool=pool, on_capture=on_capture)
         self.params, self.cache, self.rope = params, cache, rope
-        self.config, self.attn, self.top_k = config, attn, top_k
+        self.config, self.top_k = config, top_k
         self.ring, self.seeds, self.counters = ring, seeds, counters
         self.B = B = ring.shape[0]
         # the last step's logits (what a comparison of two runs reads)
@@ -317,14 +326,18 @@ class DecodeRunner(_Runner):
     `run` (K replays, outputs copied to host behind an event; chained
     bursts call `run` again without `load`), then `fetch`."""
 
-    def __init__(self, params, cache, rope, config, *, attn: str,
+    def __init__(self, params, cache, rope, config, *, forward_fn,
                  ring: torch.Tensor, seeds: torch.Tensor,
                  counters: torch.Tensor, max_steps: int, n_top_cap: int,
                  top_k: Optional[int], pool=None, on_capture=None):
-        super().__init__(params, cache, rope, config, attn=attn, ring=ring,
-                         seeds=seeds, counters=counters, cols=max_steps,
+        super().__init__(params, cache, rope, config, ring=ring, seeds=seeds,
+                         counters=counters, cols=max_steps,
                          n_top_cap=n_top_cap, top_k=top_k, pool=pool,
                          on_capture=on_capture)
+        # the ragged forward(params, tokens, cache, pos, live, rope,
+        # config): paged.forward_ragged_paged with its attn bound, or
+        # model.forward_ragged (dense) or forward_ragged_ring (ring)
+        self.forward_fn = forward_fn
         B, zeros = self.B, self._zeros
         # the carry
         self.tok = zeros(B, dtype=torch.int64)
@@ -348,9 +361,9 @@ class DecodeRunner(_Runner):
         """One decode step over the static buffers, in place (the JAX
         scan body)."""
         live = self.live & ((self.steps - self.steps_in) < self.budget)
-        logits, _ = forward_ragged_paged(
+        logits, _ = self.forward_fn(
             self.params, self.tok[:, None], self.cache, self.pos, live,
-            self.rope, self.config, attn=self.attn)
+            self.rope, self.config)
         nxt, counters, ring, lp, t_i, t_l = masked_sample(
             live, self.seeds, self.counters, logits, self.ring, self.steps,
             self.temp, self.top_p, self.penalty, top_k=self.top_k,
@@ -372,7 +385,9 @@ class DecodeRunner(_Runner):
         self.col.add_(1)
 
     def _idle(self, _variant) -> None:
-        """Every row frozen (budget 0), from column 0."""
+        """Every row frozen (budget 0), from column 0: a frozen row's
+        write lands on the pool's sink page, or on a dense cache is its
+        own old line written back."""
         self.live.zero_()
         self.budget.zero_()
         self.col.zero_()
@@ -428,12 +443,11 @@ class MixedRunner(_Runner):
                  counters: torch.Tensor, chunk: int, n_top_cap: int,
                  top_k: Optional[int], step_fn=mixed_step_paged,
                  pool=None, on_capture=None):
-        super().__init__(params, cache, rope, config, attn=attn, ring=ring,
-                         seeds=seeds, counters=counters, cols=1,
-                         n_top_cap=n_top_cap, top_k=top_k, pool=pool,
-                         on_capture=on_capture)
+        super().__init__(params, cache, rope, config, ring=ring, seeds=seeds,
+                         counters=counters, cols=1, n_top_cap=n_top_cap,
+                         top_k=top_k, pool=pool, on_capture=on_capture)
         B, zeros = self.B, self._zeros
-        self.step_fn = step_fn
+        self.attn, self.step_fn = attn, step_fn
         # the step's rows
         self.tokens = zeros(B, chunk, dtype=torch.int32)
         self.pos = zeros(B, dtype=torch.int32)
@@ -617,6 +631,133 @@ class PrefillRunner(_Graphs):
             self._put(dst, v)
         for dst, v in zip(b.targets, targets):
             self._put(dst, v)
+        self.replay(variant)
+        return self.logits
+
+
+# the JAX function each kind of dense one-slot step counts its captures as
+DENSE_PREFILL_FNS = {"slot": "prefill_slot", "chunk": "prefill_slot_chunk",
+                     "ring": "prefill_slot_chunk_ring",
+                     "prefixed": "prefill_slot_prefixed",
+                     "install": "install_prefix_slot"}
+
+
+class DensePrefillRunner(_Graphs):
+    """The dense and ring engines' one-slot steps as CUDA graphs: JAX's
+    jitted `prefill_slot` (a variant ("slot", S) a bucket),
+    `prefill_slot_chunk` (("chunk", C)), `prefill_slot_chunk_ring`
+    (("ring", C)), `prefill_slot_prefixed` (("prefixed", P, S)) and
+    `install_prefix_slot` (("install", P)), one variant per JAX compile
+    key. Static buffers a variant: the window's tokens [1, S], its real
+    token count, the slot and the window's pos0, which the step reads on
+    the device (the slot by the per-layer splice, pos0 by the rope rows,
+    the mask, the cache writes and the cached flash kernel), and for a
+    prefix the registered head's k/v [L, 1, P, KV, hd], copied in on the
+    device before the replay. One graph serves every slot.
+
+    `run` puts the host inputs (from pinned memory, no wait for the
+    stream), captures the variant at its first use, replays, and returns
+    the logits buffer [1, V]. The warm-up before a capture runs the real
+    step: a dense window's writes land where the replay writes the same
+    values, since they depend only on the window's tokens and the cache
+    before pos0, which no window writes. A ring window reads the ring
+    before it writes it, so its warm-up runs with no real token (every
+    entry keeps its slot) and the count is restored after it. On the CPU
+    `replay` runs the step eagerly over the same buffers."""
+
+    def __init__(self, params, cache, rope, config, *, pool=None,
+                 on_capture=None):
+        super().__init__(cache.k.device, pool=pool, on_capture=on_capture)
+        self.params, self.cache, self.rope = params, cache, rope
+        self.config = config
+        self.logits = self._zeros(1, config.vocab_size, dtype=torch.float32)
+        self._bufs: dict = {}
+        self._prefix: dict = {}     # P -> (k, v) static buffers
+
+    def _buffers(self, variant) -> _PrefillBuffers:
+        got = self._bufs.get(variant)
+        if got is None:
+            S = variant[-1] if variant[0] != "install" else 1
+            got = _PrefillBuffers(
+                tokens=self._zeros(1, S, dtype=torch.int32),
+                n=self._zeros(1, dtype=torch.int32),
+                slot=self._zeros(1, dtype=torch.int64),
+                pos0=self._zeros(1, dtype=torch.int32),
+                targets=())
+            self._bufs[variant] = got
+        return got
+
+    def _prefix_buffers(self, P: int):
+        got = self._prefix.get(P)
+        if got is None:
+            k = self.cache.k
+            shape = (k.shape[0], 1, P, k.shape[3], k.shape[4])
+            got = (torch.zeros(shape, dtype=k.dtype, device=self.device),
+                   torch.zeros(shape, dtype=k.dtype, device=self.device))
+            self._prefix[P] = got
+        return got
+
+    def step(self, variant) -> None:
+        b = self._bufs[variant]
+        kind = variant[0]
+        if kind == "install":
+            pk, pv = self._prefix[variant[1]]
+            install_prefix_slot(self.cache, pk, pv, b.slot)
+            return
+        args = (self.params, b.tokens, b.n, b.slot)
+        if kind == "slot":
+            logits, _ = prefill_slot(*args, self.cache, self.rope,
+                                     self.config)
+        elif kind == "chunk":
+            logits, _ = prefill_slot_chunk(*args, b.pos0, self.cache,
+                                           self.rope, self.config)
+        elif kind == "ring":
+            logits, _ = prefill_slot_chunk_ring(*args, b.pos0, self.cache,
+                                                self.rope, self.config)
+        else:
+            pk, pv = self._prefix[variant[1]]
+            logits, _ = prefill_slot_prefixed(*args, pk, pv, self.cache,
+                                              self.rope, self.config)
+        self.logits.copy_(logits)
+
+    def _idle(self, variant):
+        """The real step, except a ring window: no real token, so it
+        writes no slot (the count is restored after the warm-up)."""
+        if variant[0] != "ring":
+            return None
+        b = self._bufs[variant]
+        n = b.n.clone()
+        b.n.zero_()
+        return lambda: b.n.copy_(n)
+
+    def reset_carry(self) -> None:
+        """Zero every variant's inputs and the prefix buffers in place (a
+        recovery keeps the graphs)."""
+        for b in self._bufs.values():
+            for t in (b.tokens, b.n, b.slot, b.pos0):
+                t.zero_()
+        for pk, pv in self._prefix.values():
+            zero_(pk)
+            zero_(pv)
+
+    def run(self, variant, tokens=(), n: int = 0, slot: int = 0,
+            pos0: int = 0, prefix=None) -> torch.Tensor:
+        """One step of `variant`: tokens (the window's S ids), n (its real
+        tokens), slot, pos0 (a chunk's start) and a prefix's (k, v) in,
+        then the capture at first use and the replay. Returns the logits
+        buffer [1, V] (valid until the next replay; an install leaves it
+        as it was)."""
+        b = self._buffers(variant)
+        if tokens:
+            self._put(b.tokens, [list(tokens)])
+        for dst, v in ((b.n, [n]), (b.slot, [slot]), (b.pos0, [pos0])):
+            self._put(dst, v)
+        if prefix is not None:
+            for dst, src in zip(self._prefix_buffers(prefix[0].shape[2]),
+                                prefix):
+                dst.copy_(src)
+        if self._cuda:
+            self.captured(variant)   # after the puts: the warm-up is real
         self.replay(variant)
         return self.logits
 
@@ -957,3 +1098,97 @@ class SpecGeneratorRunner(_Graphs):
         outs, ns = self._host
         return (outs[:rounds, :gamma + 1].numpy().copy(),
                 ns[:rounds].numpy().copy())
+
+
+class DenseSpecRunner(_Graphs):
+    """The dense spec engine's round (`speculative.spec_round_batched`,
+    one jitted program per gamma in JAX) as a CUDA graph per gamma:
+    gamma + 1 batched ragged draft steps over the draft cache, one
+    windowed verify over the target cache and the acceptance. Static
+    buffers: the carry, the rows' last token and position [B], which a
+    replay advances to each active row's last emitted token and next
+    frontier (so a chained round needs no host value, as JAX feeds the
+    round's `state` back), the active mask and temperatures [B], the
+    engine's random streams (seeds and counters, advanced in place by
+    gamma + 3 for active sampled rows), and the outputs out
+    [B, max_gamma + 1] and n_emit [B], copied after each round to one of
+    two pinned host buffers in turn (two rounds may be in flight).
+
+    The warm-up before a capture runs with every row inactive: an
+    inactive row writes its own old lines back in both caches and keeps
+    its carry and counter. On the CPU `replay` runs the round eagerly."""
+
+    def __init__(self, t_params, d_params, t_cache, d_cache, t_rope, d_rope,
+                 t_config, d_config, *, seeds: torch.Tensor,
+                 counters: torch.Tensor, max_gamma: int, pool=None,
+                 on_capture=None):
+        super().__init__(seeds.device, pool=pool, on_capture=on_capture)
+        self.t_params, self.d_params = t_params, d_params
+        self.t_cache, self.d_cache = t_cache, d_cache
+        self.t_rope, self.d_rope = t_rope, d_rope
+        self.t_config, self.d_config = t_config, d_config
+        self.seeds, self.counters = seeds, counters
+        self.B = B = seeds.shape[0]
+        z = self._zeros
+        self.last = z(B, dtype=torch.int64)
+        self.pos = z(B, dtype=torch.int32)
+        self.active = z(B, dtype=torch.bool)
+        self.temp = z(B, dtype=torch.float32)
+        self.out = z(B, max_gamma + 1, dtype=torch.int64)
+        self.n_emit = z(B, dtype=torch.int64)
+        self._host = [(torch.empty(self.out.shape, dtype=torch.int64,
+                                   pin_memory=self._cuda),
+                       torch.empty(B, dtype=torch.int64,
+                                   pin_memory=self._cuda))
+                      for _ in range(2)]
+        self._turn = 0
+
+    def step(self, gamma: int) -> None:
+        from cake_tpu_torch.models.llama.speculative import (
+            spec_round_batched,
+        )
+        out, n_emit, counters, (last, pos) = spec_round_batched(
+            self.t_params, self.d_params, self.t_cache, self.d_cache,
+            self.last[:, None], self.pos, self.active, self.seeds,
+            self.counters, self.temp, self.t_rope, self.d_rope,
+            self.t_config, self.d_config, gamma)
+        self.out[:, :gamma + 1].copy_(out)
+        self.n_emit.copy_(n_emit)
+        self.counters.copy_(counters)
+        self.last.copy_(last[:, 0])
+        self.pos.copy_(pos)
+
+    def _idle(self, _gamma):
+        active = self.active.clone()
+        self.active.zero_()
+        return lambda: self.active.copy_(active)
+
+    def reset_carry(self) -> None:
+        for t in (self.last, self.pos, self.active, self.temp, self.out,
+                  self.n_emit):
+            t.zero_()
+
+    def load(self, last, pos, active, temp) -> None:
+        """A fresh chain of rounds from the host rows ([B] each)."""
+        for dst, v in ((self.last, last), (self.pos, pos),
+                       (self.active, active), (self.temp, temp)):
+            self._put(dst, v)
+
+    def run(self, gamma: int) -> SpecHandle:
+        """One round from the carry: the capture at gamma's first use, one
+        replay, and the outputs' copy to the next host buffer,
+        dispatched and not waited for."""
+        if self._cuda:
+            self.captured(gamma)
+        start = mark(self.device)
+        self.replay(gamma)
+        self.timing = (start, mark(self.device)) if self._cuda else None
+        host = self._host[self._turn]
+        self._turn ^= 1
+        for h, o in zip(host, (self.out, self.n_emit)):
+            h.copy_(o, non_blocking=True)
+        event = None
+        if self._cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return SpecHandle(gamma, host, event, self.timing)

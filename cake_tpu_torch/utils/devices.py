@@ -106,9 +106,11 @@ def zero_(t: torch.Tensor) -> torch.Tensor:
 def index_copy_rows(dst: torch.Tensor, dim: int, idx: torch.Tensor,
                     vals: torch.Tensor) -> None:
     """dst.index_copy_(dim, idx, vals cast to dst's storage), in place,
-    fp8 included (through the bytes)."""
-    _bytes_of(dst).index_copy_(dim, idx,
-                               _bytes_of(to_storage(vals, dst.dtype)))
+    fp8 included (through the bytes); vals already in dst's dtype are
+    copied as they are."""
+    if vals.dtype != dst.dtype:
+        vals = to_storage(vals, dst.dtype)
+    _bytes_of(dst).index_copy_(dim, idx, _bytes_of(vals))
 
 
 _SM_COUNTS: dict = {}

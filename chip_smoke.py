@@ -77,16 +77,15 @@ Phases, in order (any failure exits non-zero):
             step: 8 replays against 8 eager steps from identical caches
             (identical tokens and logits, replay device ms beside the
             eager step's host ms); generate_on_device at B = 1 and 4
-            against next_token's greedy stream (flash off); then the
-            `python3 -m cake_tpu_torch.cli --batch-size 2 --tracing DIR`
-            one-shot command on the card (exit 0, one trace file); then
-            a small checkpoint directory written here (config.json, a
+            against next_token's greedy stream (flash off); then a
+            small checkpoint directory written here (config.json, a
             hand-written model.safetensors of random f32 weights, a
             byte-level BPE tokenizer.json: 256 byte tokens, 300 merges
             learned from this docstring, Llama-3's special tokens and
             split) read through the port's reader (a mixed-script round
-            trip printed and required) and served by
-            `python3 -m cake_tpu_torch.cli --model DIR` (exit 0).
+            trip printed and required) and served by `python3 -m
+            cake_tpu_torch.cli --model DIR --batch-size 2 --tracing DIR`
+            on the card (exit 0, one trace file).
             Then 32-layer int4 weights (init_params_quantized, bits=4)
             behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
             launches per decode step and no plain call; a few tokens
@@ -95,8 +94,9 @@ Phases, in order (any failure exits non-zero):
             requests (three SSE) of 32 tokens through the paged engine,
             over a bf16 pool at --decode-scan 1 and 4, then int8 and int4
             pools at 4, then int4 weights over a bf16 pool at 4. Each
-            configuration drives the chats three times through one
-            engine (cold, warm, warm under torch.profiler) and prints
+            configuration drives the chats through one engine (cold,
+            warm, and over the bf16 pool warm under torch.profiler)
+            and prints
             decode tok/s, TTFT p50, the served wall and (profiled) the
             device's busy share; its kernels must have run (replays of
             the captured decode and mixed steps counted) and no plain
@@ -221,7 +221,9 @@ Phases, in order (any failure exits non-zero):
             chats of 64 tokens at repeat_penalty 1.0, gamma 4, after a
             warm-up wave: the plain engine, then drafts self, the
             target's first 4 blocks and a Llama-3.2-1B-shaped random
-            model: tok/s, acceptance, tokens a round, a round's device
+            draft cut to 2 of its 16 layers (D 2048, hd 64, tied
+            embeddings: the draft pool at hd 64 and its captured
+            rounds): tok/s, acceptance, tokens a round, a round's device
             ms beside its bound, captures (none allowed in the measured
             wave), degrade and shrink events, pool GiB; the self-draft
             over int4 weights (int4_matmul launched by the verify);
@@ -242,7 +244,7 @@ Phases, in order (any failure exits non-zero):
             (400, JAX's reason), a pool the in-flight streams do not fit
             (400), and a switch to 8 slots with --mixed-batch off met by
             a concurrent POST (409); a warm wave there; a profile capture
-            inside a wave of 256-token chats (its trace must name the
+            inside a wave of 96-token chats (its trace must name the
             port's kernels; a concurrent capture 409; --profile-dir warms
             the profiler at the server's start); then a 16384-page int8
             pool the card cannot hold (400 naming the OOM, the previous
@@ -309,6 +311,50 @@ Phases, in order (any failure exits non-zero):
             A `disagg` JSON line holds the record; each kernel row
             carries `disagg_launches`, its launches in (b)'s measured
             pair waves.
+  dense     the dense-cache engine, the ring engine and the dense spec
+            engine (ROADMAP A11). (a) 8B width, 2 layers, a 512-token
+            vocabulary, f32 weights and cache: a whole-prompt
+            prefill_slot and a chunk window of prefill_slot_chunk at
+            pos0 173, each replayed from its captured graph
+            (serve/graphs.DensePrefillRunner), against the same step on
+            the host, where flash_attn and flash_attn_cached run their
+            plain versions (one launch a layer a replay); then greedy
+            streams of card engines against the CPU engine's (flash off
+            there, run on a thread meanwhile): the dense engine with
+            whole-prompt prefills and two prefix hits at --decode-scan 1
+            and 4, with --prefill-chunk 32 (windows, an install and
+            hits) at 4; the ring engine (a 32-slot window, max_seq_len
+            128, prompts of 40 and 70 tokens, 40 new tokens); the dense
+            spec engine with a self-draft and a mismatched 1-layer draft
+            (gamma 3); a paged engine switched to the dense engine and
+            back under load; a warm wave of the chunked, ring and
+            self-draft engines capturing nothing, no plain version on
+            the card. (b) the 32-layer bf16 weights behind the HTTP API:
+            the dense engine Master.make_engine builds with --kv-pages
+            unset (8 slots at max_seq_len 4096, a 4 GiB cache) and
+            --auto-prefix, and the paged engine (128 x 128-token pages)
+            on the same waves: six ~1000-token chats of 64 new tokens
+            (three share a 400-token system message: prefix hits), a
+            warm-up wave then a measured one: TTFT p50, decode tok/s,
+            the decode replay's device ms, the flash launches (both
+            kernels required) and no plain version, no capture; then the
+            largest prefill_slot bucket and prefill_slot_prefixed key
+            that wave replayed, each captured over a random bf16 cache
+            of (b)'s shape and held against the same step with flash off
+            on the same inputs (logits and the slot's lines within
+            PREFIX_REL_TOL of their magnitude, layer 1's lines within
+            L1_REL_TOL of theirs, layer 0 and the prefix identical, the
+            other slots untouched).
+            (c) the same weights with sliding_window 4096 (Mistral-7B's)
+            at max_seq_len 8192: the ring engine, two chats of
+            5000-token prompts and 64 new tokens after a warm-up: TTFT,
+            tok/s, the ring's bytes a slot beside a dense row's. (d) the
+            dense spec engine at 8 slots and max_seq_len 4096, the
+            target's first 4 blocks as the draft, gamma 4, (b)'s
+            prompts: acceptance, tokens a round, tok/s beside (b)'s
+            dense engine (printed, not gated). A `dense` JSON line holds
+            the record; each kernel row carries `dense_launches`, its
+            launches in (b)'s measured dense wave.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -332,7 +378,8 @@ import weakref
 from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers", "recovery", "spec", "control", "disagg")
+          "sched", "tiers", "recovery", "spec", "control", "disagg",
+          "dense")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -1526,10 +1573,14 @@ def _graph_steps(torch, rpa, i4, cfg, params,
     the real pages byte-identical and the last step's logits within
     GRAPH_TOL; each side launches 4 x L decode kernels (7 x 4 x L int4
     products with int4 weights) and no plain version."""
+    import functools
+
     import numpy as np
 
     from cake_tpu_torch.models.llama.model import RopeTables
-    from cake_tpu_torch.models.llama.paged import table_set_slot
+    from cake_tpu_torch.models.llama.paged import (
+        forward_ragged_paged, table_set_slot,
+    )
     from cake_tpu_torch.serve.graphs import DecodeRunner
 
     dev = "cuda"
@@ -1551,7 +1602,9 @@ def _graph_steps(torch, rpa, i4, cfg, params,
         for mode in ("graph", "eager"):
             cache = base.clone()
             runner = DecodeRunner(
-                params, cache, rope, cfg, attn="kernel",
+                params, cache, rope, cfg,
+                forward_fn=functools.partial(forward_ragged_paged,
+                                             attn="kernel"),
                 ring=torch.full((B, 128), -1, dtype=torch.int64, device=dev),
                 seeds=torch.arange(B, device=dev),
                 counters=torch.zeros(B, dtype=torch.int64, device=dev),
@@ -1921,7 +1974,8 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     generator at full width and depth, bf16, greedy. Run A: a prompt of
     1000 tokens, bucket 1024 (one flash_attn per layer). Run B: 1500
     tokens in 256-token windows (six flash_attn_cached per layer). Then
-    the one-shot command line, in its own process on the card."""
+    the checkpoint's command line (`_checkpoint_cli`) with --batch-size 2
+    and --tracing, in its own process on the card."""
     import dataclasses
 
     from cake_tpu_torch.args import Args
@@ -2015,27 +2069,11 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     if hasattr(LlamaGenerator, "_decode_runner"):
         _generator_graph(torch, fcfg, params, tok, system)
 
+    # the checkpoint's command line in its own process, with
+    # --batch-size 2 and --tracing
     import tempfile
     trace_dir = tempfile.mkdtemp(prefix="cake_smoke_trace_")
-    new_flags = hasattr(Args(), "tracing")
-    cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--prompt",
-           "Why is the sky blue?", "--sample-len", "8"] + (
-        ["--batch-size", "2", "--tracing", trace_dir] if new_flags else [])
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=sys.path[0], capture_output=True,
-                       text=True, timeout=600)
-    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
-    log(f"generate: `{' '.join(cmd[1:])}` exit {r.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s; stdout tail "
-        f"{r.stdout.strip().splitlines()[-1:]!r}; trace files {traces} "
-        f"({sum(os.path.getsize(os.path.join(trace_dir, f)) for f in traces)}"
-        " bytes)")
-    if r.returncode != 0:
-        fail(f"generate: the command line failed:\n{r.stderr[-3000:]}")
-    if new_flags and len(traces) != 1:
-        fail(f"generate: --tracing {trace_dir} wrote {traces}")
-    if importlib.util.find_spec("cake_tpu_torch.models.llama.tokenizer"):
-        _checkpoint_cli()
+    _checkpoint_cli(["--batch-size", "2", "--tracing", trace_dir], trace_dir)
     return counts
 
 
@@ -2179,12 +2217,13 @@ def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
     return cfg
 
 
-def _checkpoint_cli() -> dict:
+def _checkpoint_cli(extra=(), trace_dir=None) -> dict:
     """The load path of a real checkpoint on the card: a small checkpoint
     directory (`_write_checkpoint`) read through the port's tokenizer.json
     reader (the round trip of a mixed-script string printed and
-    required), then `python -m cake_tpu_torch.cli --model DIR` in its own
-    process (exit 0)."""
+    required), then `python -m cake_tpu_torch.cli --model DIR` and the
+    flags `extra` in its own process (exit 0); with `trace_dir` (its
+    --tracing), exactly one trace file there."""
     import tempfile
 
     from cake_tpu_torch.models.llama.generator import load_tokenizer
@@ -2204,15 +2243,21 @@ def _checkpoint_cli() -> dict:
         fail(f"checkpoint: the tokenizer.json round trip failed "
              f"({len(english)} ids for 20 English bytes)")
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
-           "--prompt", "Why is the sky blue?", "--sample-len", "8"]
+           "--prompt", "Why is the sky blue?", "--sample-len", "8",
+           *extra]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=sys.path[0], capture_output=True,
                        text=True, timeout=600)
+    traces = (sorted(f for f in os.listdir(trace_dir)
+                     if f.endswith(".json")) if trace_dir else [])
     log(f"checkpoint: `{' '.join(cmd[1:])}` exit {r.returncode} in "
         f"{time.perf_counter() - t0:.1f} s; stdout tail "
-        f"{r.stdout.strip().splitlines()[-1:]!r}")
+        f"{r.stdout.strip().splitlines()[-1:]!r}"
+        + (f"; trace files {traces}" if trace_dir else ""))
     if r.returncode != 0:
         fail(f"checkpoint: the command line failed:\n{r.stderr[-3000:]}")
+    if trace_dir and len(traces) != 1:
+        fail(f"checkpoint: --tracing {trace_dir} wrote {traces}")
     return dict(dir=d, ids=len(ids), round_trip=back == CKPT_ROUND_TRIP,
                 cli_exit=r.returncode)
 
@@ -2431,14 +2476,15 @@ SERVE_DRIVES = ("cold", "warm", "profiled")
 
 
 def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
-                decode_scan: int = 1) -> tuple:
+                decode_scan: int = 1, drives=SERVE_DRIVES) -> tuple:
     """Six concurrent chats (three SSE) of 32 greedy tokens through the
     HTTP API and the paged engine, over a bf16 pool or with kv_dtype
     "int8"/"int4" a quantized one, at --decode-scan `decode_scan` (the
     option left out for a tree whose Args lack it). Three drives of the
     same chats through one engine: cold (the first, which captures the
     decode graphs), warm, and warm under torch.profiler (the device's
-    busy share of the drive's wall). Each prints decode tok/s (the
+    busy share of the drive's wall; `drives` names the ones to run).
+    Each prints decode tok/s (the
     engine's tokens over its decode time in the drive), TTFT p50 and the
     served wall. Returns (launch counts of the kernels the path runs,
     read after the three drives; the pool's GiB; the drives' records).
@@ -2535,7 +2581,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
         i4.reset_launch_counts()
     stats = engine.stats
     records = []
-    for run in SERVE_DRIVES:
+    for run in drives:
         results[:] = [None] * len(prompts)
         tok0, dec0, steps0 = (stats.tokens_generated, stats.decode_time_s,
                               stats.steps)
@@ -3098,7 +3144,7 @@ class _SchedServer:
 
     def __init__(self, torch, cfg, params, dtype, classes: bool,
                  shed: bool = False, sched_config=None, engine_kw=None,
-                 **args_kw):
+                 max_seq_len: int = 2048, **args_kw):
         from cake_tpu_torch.api.server import start
         from cake_tpu_torch.args import Args
         from cake_tpu_torch.master import Master
@@ -3112,12 +3158,12 @@ class _SchedServer:
         # --autotune, --sentinel ...); engine_kw: InferenceEngine
         # arguments beside them (the control phase's autotune_config)
         args = Args(**{**dict(
-            max_slots=8, max_seq_len=2048, kv_pages=SCHED_PAGES,
+            max_slots=8, max_seq_len=max_seq_len, kv_pages=SCHED_PAGES,
             kv_page_size=128, prefill_chunk=64, temperature=0.0,
             sample_len=32, decode_scan=4, step_ring=8192,
             priority_classes=classes, shed=shed), **args_kw}).validate()
         self.gen = LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
-                                  max_seq_len=2048,
+                                  max_seq_len=max_seq_len,
                                   sampling=SamplingConfig(temperature=0.0),
                                   cache_dtype=dtype, device=DEV)
         self.master = Master(args, text_generator=self.gen)
@@ -4845,15 +4891,18 @@ def _cut_draft(cfg, params, layers: int):
     return c, p
 
 
-def _llama32_1b(torch):
+SPEC_1B_LAYERS = 2           # (b): the 1B-shaped draft's depth (of 16)
+
+
+def _llama32_1b(torch, layers: int = SPEC_1B_LAYERS):
     """A Llama-3.2-1B-shaped random bf16 draft (meta-llama/Llama-3.2-1B's
-    published config.json: 16 layers, D 2048, H 32, KV 8, hd 64, F 8192,
-    V 128256, tied embeddings)."""
+    published config.json: D 2048, H 32, KV 8, hd 64, F 8192, V 128256,
+    tied embeddings), its 16 layers cut to `layers`."""
     from cake_tpu_torch.models.llama.config import LlamaConfig
     from cake_tpu_torch.models.llama.params import init_params
 
     c = LlamaConfig(vocab_size=128256, hidden_size=2048,
-                    intermediate_size=8192, num_hidden_layers=16,
+                    intermediate_size=8192, num_hidden_layers=layers,
                     num_attention_heads=32, num_key_value_heads=8,
                     rope_theta=500000.0, max_position_embeddings=131072,
                     tie_word_embeddings=True)
@@ -4924,9 +4973,11 @@ def _spec_full(torch, rpa, fa, cfg, params, card: str):
     128-token pages, 8 slots, six chats of SPEC_NEW tokens at
     repeat_penalty 1.0, gamma 4, against the plain engine in the same
     call; drafts: the target itself, its first four blocks, and a
-    Llama-3.2-1B-shaped random draft. Random weights decide acceptance
-    here: it is printed, not gated. Then the batch-1 generator with a
-    self-draft at 4096 slots, R = 4, beside the plain generator."""
+    Llama-3.2-1B-shaped random draft at SPEC_1B_LAYERS of its 16 layers
+    (hd 64: the draft pool and rounds at another head width). Random
+    weights decide acceptance here: it is printed, not gated. Then the
+    batch-1 generator with a self-draft at 4096 slots, R = 4, beside the
+    plain generator."""
     from cake_tpu_torch.models.llama.generator import ByteTokenizer
     from cake_tpu_torch.ops.sampling import SamplingConfig
     from cake_tpu_torch.serve.engine import InferenceEngine
@@ -5139,7 +5190,7 @@ CONTROL_ID_SWITCHES = (
     dict(CONTROL_ID_START, decode_scan=4, kv_pages=128, kv_page_size=64,
          mixed_batch="auto"),
 )
-CONTROL_ID_NEW = 48
+CONTROL_ID_NEW = 36
 # (3): the auto engine's regimes (offered requests a second), its
 # controller, and the drive
 CONTROL_RPS = 4.0
@@ -5149,8 +5200,9 @@ CONTROL_BURST = 24
 CONTROL_VERDICT = 40
 # (4): the sched phase's 48-chat shed burst, this many times
 CONTROL_SHED_BURSTS = 4
-# (1)'s profile wave: tokens a chat (a wave longer than the capture)
-CONTROL_PROFILE_NEW = 256
+# (1)'s profile wave: tokens a chat (a wave that outlasts the capture's
+# start)
+CONTROL_PROFILE_NEW = 96
 # seconds after which the phase dumps every thread's stack and exits
 CONTROL_HANG_S = 360
 CONTROL_ROUTE_KEYS = ("steps", "events", "traces", "anomalies", "actions",
@@ -5837,8 +5889,8 @@ def _release(torch, gone=()) -> None:
     import gc
     alive = [i for i, r in enumerate(gone) if r() is not None]
     if alive:
-        fail(f"disagg: stopped engine(s) {alive} of {len(gone)} outlived "
-             "their last reference (a reference cycle)")
+        fail(f"stopped engine(s) {alive} of {len(gone)} outlived their "
+             "last reference (a reference cycle)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6220,6 +6272,708 @@ def phase_disagg(torch, rpa, cfg, params, card: str):
     return counts, rec
 
 
+DENSE_LAYERS_ID = 2               # (a): the identity drives' depth
+DENSE_VOCAB_ID = 512              # (a): their vocabulary (8B width else)
+DENSE_T_ID = 512                  # (a): max_seq_len of the dense drives
+DENSE_HEAD_ID = 32                # (a): the registered head's tokens
+DENSE_TAILS_ID = (20, 60)         # (a): the head's prompts' own tokens
+DENSE_PLAIN_ID = (40, 110)        # (a): prompts without the head
+DENSE_NEW_ID = 10                 # (a): tokens a stream
+DENSE_CHUNK_ID = 32               # (a): --prefill-chunk of the chunked drive
+DENSE_RING_W_ID = 32              # (a): the ring's window ...
+DENSE_RING_T_ID = 128             # ... and max_seq_len
+DENSE_RING_PROMPTS_ID = (40, 70)  # (a): both longer than the window
+DENSE_RING_NEW_ID = 24            # (a): streams past another wrap
+DENSE_SLOTS = 8                   # (b), (d)
+DENSE_T = 4096                    # (b), (d): max_seq_len
+DENSE_SYSTEM = 400                # (b): the shared system message's tokens
+DENSE_USER = 600                  # (b): each chat's own message
+DENSE_NEW = 64                    # (b)-(d): tokens a chat
+RING_W = 4096                     # (c): Mistral-7B's window ...
+RING_T = 8192                     # ... at twice its length
+RING_PROMPT = 5000                # (c): tokens a chat's prompt
+DENSE_DRAFT_LAYERS = 4            # (d): the draft, the target's first blocks
+DENSE_GAMMA = 4                   # (d)
+
+
+def _dense_f32(torch, cfg, seed: int, layers: int):
+    """A model at cfg's width with `layers` layers and f32 weights drawn
+    on the host from a seed (the CPU engine gets them as they are, the
+    card a copy), the lm_head past the byte range zeroed as
+    `_f32_params` does."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.params import init_params
+
+    c = dataclasses.replace(cfg, num_hidden_layers=layers)
+    p = init_params(c, torch.Generator().manual_seed(seed), device="cpu",
+                    dtype=torch.float32)
+    p["lm_head"][:, 256:] = 0.0
+    on = {k: ({n: t.to(DEV) for n, t in v.items()}
+              if isinstance(v, dict) else v.to(DEV))
+          for k, v in p.items()}
+    return c, p, on
+
+
+def _dense_engine(torch, cfg, params, device, **kw):
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    kw.setdefault("max_slots", 4)
+    kw.setdefault("max_seq_len", DENSE_T_ID)
+    return InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), device=device,
+        cache_dtype=torch.float32,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0),
+        recovery=True, **kw)
+
+
+def _dense_streams(eng, prompts, n_new: int, head=None, warm: bool = False,
+                   switches=()):
+    """Every prompt submitted before the engine starts (the head
+    registered first); with `switches`, each applied once the first
+    stream has 4 more tokens; with `warm`, a second wave of the same
+    prompts after the first. Returns (the waves' greedy streams, the
+    captures each wave made)."""
+    captures = _count_captures(eng)
+    waves, caps = [], []
+    if head is not None:
+        eng.register_prefix(list(head))
+    hs = [eng.submit(list(p), max_new_tokens=n_new) for p in prompts]
+    with eng:
+        for i, c in enumerate(switches):
+            deadline = time.monotonic() + 300
+            while (len(hs[0]._req.out_tokens) < 4 * (i + 1)
+                   and time.monotonic() < deadline):
+                time.sleep(0.0005)
+            if hs[0]._req.done.is_set():
+                fail(f"dense: a stream finished before switch {i + 1}")
+            if not eng.reconfigure(c):
+                fail(f"dense: switch {i + 1} to {c} was a no-op")
+        for wave in range(2 if warm else 1):
+            if wave:
+                hs = [eng.submit(list(p), max_new_tokens=n_new)
+                      for p in prompts]
+            for h in hs:
+                if not h.wait(900) or h._req.error is not None:
+                    fail(f"dense: a stream failed ({h._req.error})")
+            waves.append([list(h._req.out_tokens) for h in hs])
+            caps.append(len(captures) - sum(caps))
+    return waves, caps
+
+
+def _dense_flash_held(torch, fa, cfg, p_cpu, p_dev, card: str) -> dict:
+    """The dense prefills' flash launches held against the kernels' plain
+    versions: a whole-prompt `prefill_slot` (flash_attn) and a chunk
+    window of `prefill_slot_chunk` at an unaligned pos0 (flash_attn_cached
+    over the slot's lines), each replayed from its captured graph on the
+    card, against the same step on the host, where the wrappers run their
+    plain versions. One launch a layer a replay."""
+    from cake_tpu_torch.models.llama import model as tm
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.serve.graphs import DensePrefillRunner
+
+    g = torch.Generator().manual_seed(21)
+    shape = (cfg.num_hidden_layers, 3, DENSE_T_ID, cfg.num_key_value_heads,
+             cfg.head_dim)
+    host = KVCache(0.5 * torch.randn(shape, generator=g),
+                   0.5 * torch.randn(shape, generator=g))
+    card_c = KVCache(host.k.to(DEV), host.v.to(DEV))
+    runner = DensePrefillRunner(p_dev, card_c,
+                                tm.RopeTables.create(cfg, DENSE_T_ID,
+                                                     device=DEV), cfg)
+    rope_h = tm.RopeTables.create(cfg, DENSE_T_ID, device="cpu")
+    ids = [(11 * j) % 250 + 3 for j in range(100)]
+    out = {}
+    for name, variant, n, slot, pos0 in (
+            ("flash_attn", ("slot", 128), 100, 1, 0),
+            ("flash_attn_cached", ("chunk", 64), 61, 2, 173)):
+        S = variant[1]
+        win = (ids + [0] * S)[:S] if variant[0] == "slot" else \
+            (ids[:n] + [0] * S)[:S]
+        runner.run(variant, win, n, slot, pos0)       # the capture
+        fa.reset_launch_counts()
+        got = runner.run(variant, win, n, slot, pos0).clone()
+        launched = fa.LAUNCHES[name]
+        torch.cuda.synchronize()
+        toks = torch.tensor([win], dtype=torch.int32)
+        n_t = torch.tensor([n], dtype=torch.int32)
+        if variant[0] == "slot":
+            want, _ = tm.prefill_slot(p_cpu, toks, n_t, slot, host, rope_h,
+                                      cfg)
+        else:
+            want, _ = tm.prefill_slot_chunk(p_cpu, toks, n_t, slot, pos0,
+                                            host, rope_h, cfg)
+        plain = fa.LAUNCHES[name + "_plain"]
+        err = (got.cpu() - want).abs().max().item()
+        cache_err = max((card_c.k[:, slot].cpu() - host.k[:, slot]).abs()
+                        .max().item(), (card_c.v[:, slot].cpu()
+                                        - host.v[:, slot]).abs().max().item())
+        scale = want.abs().max().item()
+        out[name] = dict(launches=launched, plain_calls=plain,
+                         max_abs_err=err, cache_max_abs_err=cache_err,
+                         logit_scale=scale)
+        log(f"dense (a) {name} in a replayed {variant}: {launched} launches,"
+            f" max |logits - plain| {err:.3g} (|logits| up to {scale:.3g}),"
+            f" slot lines {cache_err:.3g} [{card}]")
+        if launched != cfg.num_hidden_layers or plain != cfg.num_hidden_layers:
+            fail(f"dense (a) {name}: {launched} replayed and {plain} plain "
+                 f"launches, expected {cfg.num_hidden_layers} each")
+        if err > 1e-4 * max(1.0, scale) or cache_err > 1e-4:
+            fail(f"dense (a) {name}: the replay is not the plain version's "
+                 f"({out[name]})")
+    return out
+
+
+def _dense_identity(torch, fa, rpa, i4, card: str) -> dict:
+    """(a) 8B width, 2 layers, a 512-token vocabulary, f32 weights and
+    cache: the dense flash launches inside replayed prefills against
+    their plain versions; then every card engine's greedy streams
+    against the CPU engine's (flash off there, so the host drives, run
+    on a thread meanwhile, launch no kernel and call no plain version):
+    the dense engine with whole-prompt prefills and prefix hits at
+    --decode-scan 1 and 4, with --prefill-chunk windows, installs and
+    hits at 4 (a warm wave capturing nothing); the ring engine with a
+    32-slot window, prompts and streams past it (a warm wave); the dense
+    spec engine with a self-draft (a warm wave) and a mismatched 1-layer
+    draft; and one paged engine switched to the dense engine and back
+    under load. No plain version on the card."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    t0 = time.perf_counter()
+    base = dataclasses.replace(LlamaConfig.llama3_8b(),
+                               vocab_size=DENSE_VOCAB_ID)
+    cfg, p_cpu, p_dev = _dense_f32(torch, base, 15, DENSE_LAYERS_ID)
+    dcfg, d_cpu, d_dev = _dense_f32(torch, base, 16, 1)
+    flash = dataclasses.replace(cfg, use_flash_attention=True)
+    rec = dict(flash=_dense_flash_held(torch, fa, flash, p_cpu, p_dev,
+                                       card))
+    head = [(5 * j) % 250 + 3 for j in range(DENSE_HEAD_ID)]
+    prompts = [head + [(7 * i + 3 * j) % 250 + 3 for j in range(n)]
+               for i, n in enumerate(DENSE_TAILS_ID)] + [
+        [(11 * i + 7 * j + 1) % 250 + 3 for j in range(n)]
+        for i, n in enumerate(DENSE_PLAIN_ID)]
+    ring = dataclasses.replace(cfg, sliding_window=DENSE_RING_W_ID)
+    ring_prompts = [[(13 * i + 7 * j) % 250 + 3 for j in range(n)]
+                    for i, n in enumerate(DENSE_RING_PROMPTS_ID)]
+    spec_prompts = prompts[2:]
+    # drive -> (card engine, its kwargs, the CPU drive it must equal)
+    drives = {
+        "whole scan1": (flash, dict(decode_scan_steps=1), "whole"),
+        "whole scan4": (flash, dict(decode_scan_steps=4), "whole"),
+        "chunked scan4": (flash, dict(decode_scan_steps=4,
+                                      prefill_chunk=DENSE_CHUNK_ID),
+                          "chunked"),
+        "ring": (dataclasses.replace(ring, use_flash_attention=True),
+                 dict(decode_scan_steps=4, max_seq_len=DENSE_RING_T_ID),
+                 "ring"),
+        "spec self": (flash, dict(draft_params=p_dev, draft_config=flash,
+                                  spec_gamma=3), "spec self"),
+        "spec mismatched": (flash, dict(draft_params=d_dev,
+                                        draft_config=dcfg, spec_gamma=3),
+                            "spec mismatched"),
+        "switch": (flash, dict(kv_pages=32, kv_page_size=16,
+                               decode_scan_steps=4), "switch"),
+    }
+    # the host's drives (flash off: the einsum, no kernel counter moves)
+    host = {
+        "whole": (cfg, dict(), prompts, DENSE_NEW_ID, head),
+        "chunked": (cfg, dict(prefill_chunk=DENSE_CHUNK_ID), prompts,
+                    DENSE_NEW_ID, head),
+        "ring": (ring, dict(max_seq_len=DENSE_RING_T_ID), ring_prompts,
+                 DENSE_RING_NEW_ID, None),
+        "spec self": (cfg, dict(draft_params=p_cpu, draft_config=cfg,
+                                spec_gamma=3), spec_prompts, DENSE_NEW_ID,
+                      None),
+        "spec mismatched": (cfg, dict(draft_params=d_cpu, draft_config=dcfg,
+                                      spec_gamma=3), spec_prompts,
+                            DENSE_NEW_ID, None),
+        "switch": (cfg, dict(), prompts, 2 * DENSE_NEW_ID + 4, None),
+    }
+    box = {}
+
+    def host_run():
+        for key, (c, kw, ps, n, h) in host.items():
+            try:
+                box[key] = _dense_streams(_dense_engine(torch, c, p_cpu,
+                                                        "cpu", **kw),
+                                          ps, n, head=h)[0][0]
+            except BaseException as e:   # noqa: BLE001 — reported below
+                box[key] = repr(e)
+
+    fa.reset_launch_counts()
+    plain0 = {k: n for c in (rpa.LAUNCHES, fa.LAUNCHES, i4.LAUNCHES)
+              for k, n in c.items() if k.endswith("_plain")}
+    t_host = threading.Thread(target=host_run)
+    t_host.start()
+    got = {}
+    for name, (c, kw, key) in drives.items():
+        _, _, ps, n, h = host[key]
+        if name.startswith("spec") or name == "ring":
+            h = None
+        eng = _dense_engine(torch, c, p_dev, DEV, **kw)
+        flavor = eng.flight.impl
+        switches = ((dict(slots=4, decode_scan=4),
+                     dict(slots=4, decode_scan=4, kv_pages=32,
+                          kv_page_size=16)) if name == "switch" else ())
+        warm = name in ("chunked scan4", "ring", "spec self")
+        waves, caps = _dense_streams(eng, ps, n, head=h, warm=warm,
+                                     switches=switches)
+        got[name] = dict(flavor=flavor, streams=waves[0], captures=caps,
+                         epoch=eng.config_epoch,
+                         prefix_hits=eng.stats.prefix_hits)
+        if warm and (waves[1] != waves[0] or caps[1]):
+            fail(f"dense (a) {name}: the warm wave captured {caps[1]} "
+                 f"graph(s) or changed the streams")
+        if name == "switch" and (eng.config_epoch != 2 or not eng.paged):
+            fail(f"dense (a) switch: epoch {eng.config_epoch}, paged "
+                 f"{eng.paged}")
+        del eng
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+    t_host.join(timeout=900)
+    plain1 = {k: n for c in (rpa.LAUNCHES, fa.LAUNCHES, i4.LAUNCHES)
+              for k, n in c.items() if k.endswith("_plain")}
+    moved = {k: plain1[k] - plain0.get(k, 0) for k in plain1
+             if plain1[k] != plain0.get(k, 0)}
+    for name, (_, _, key) in drives.items():
+        ref = box.get(key)
+        same = got[name]["streams"] == ref
+        got[name]["cpu_identical"] = same
+        log(f"dense (a) {name:<16} [{got[name]['flavor']}]: == CPU engine "
+            f"{same}, captures by wave {got[name]['captures']}, prefix hits "
+            f"{got[name]['prefix_hits']} [{card}]")
+        if not same:
+            fail(f"dense (a) {name}: the card's streams "
+                 f"{got[name]['streams']} are not the CPU engine's {ref}")
+    # two hits a wave (the chunked engine runs two waves)
+    if got["whole scan1"]["prefix_hits"] != 2 or \
+            got["chunked scan4"]["prefix_hits"] != 4:
+        fail("dense (a): the head's prompts did not hit the prefix")
+    for k in ("flash_attn", "flash_attn_cached"):
+        if launches.get(k, 0) <= 0:
+            fail(f"dense (a): {k} never launched on the card")
+    if moved:
+        fail(f"dense (a): plain versions ran on the card: {moved}")
+    rec.update(drives=got, launches=launches,
+               seconds=time.perf_counter() - t0)
+    log(f"dense (a): flash launches {launches}, no plain version; "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def _dense_wave(srv, tag: str, head: str) -> dict:
+    """Six chats of about DENSE_SYSTEM + DENSE_USER tokens and DENSE_NEW
+    new ones at once through the HTTP API: three share the system
+    message `head` (with --auto-prefix, prefix hits: the head's KV
+    installed, the suffix prefilled after it), three carry all their
+    tokens in the user message (whole-prompt prefills). The served
+    requests' TTFT p50 and decode tok/s, and the decode replays' device
+    ms (the flight records of single decode steps)."""
+    eng = srv.engine
+    n0, tok0, dec0 = len(eng.retired), eng.stats.tokens_generated, \
+        eng.stats.decode_time_s
+    r0 = len(eng.flight.records())
+    t_wave = time.perf_counter()
+    tags = [f"{tag}{i}" for i in range(6)]
+    for i, t in enumerate(tags):
+        if i % 2:
+            srv.post(t, "standard", DENSE_SYSTEM + DENSE_USER, DENSE_NEW)
+        else:
+            srv.post(t, "standard", DENSE_USER, DENSE_NEW, head=head)
+    srv.join()
+    wall = time.perf_counter() - t_wave
+    bad = {t: srv.status.get(t) for t in tags
+           if srv.status.get(t, (0,))[0] != 200}
+    if bad:
+        fail(f"dense (b) [{tag}]: chats failed {bad}")
+    retired = list(eng.retired)[n0:]
+    if len(retired) != 6 or any(len(r.out_tokens) != DENSE_NEW
+                                for r in retired):
+        fail(f"dense (b) [{tag}]: expected six chats of {DENSE_NEW} tokens")
+    dec_s = eng.stats.decode_time_s - dec0
+    recs = eng.flight.records()[r0:]
+    dev = [r.device_s for r in recs if r.kind == "decode" and r.device_s]
+    return dict(
+        wall_s=wall, ttft_p50_s=statistics.median(
+            r.first_token_t - r.submit_t for r in retired),
+        decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
+                      if dec_s else 0.0),
+        decode_replay_ms=(1e3 * statistics.median(dev) if dev else None),
+        prompt_tokens=[len(r.prompt_ids) for r in retired],
+        streams=[list(r.out_tokens) for r in retired],
+        prompts=[list(r.prompt_ids) for r in retired])
+
+
+def _dense_served(torch, fa, rpa, cfg, params, card: str):
+    """(b) the 32-layer bf16 weights behind the HTTP API: the dense
+    engine Master.make_engine builds with --kv-pages unset (8 slots at
+    max_seq_len 4096: a 4 GiB cache) with --auto-prefix, and beside it
+    the paged engine (128 x 128-token pages) on the same waves: a warm-up
+    wave, then a measured one (the counts set to 0 just before it); then
+    `_dense_flash_bf16` at the keys that wave replayed. Returns (the
+    dense measured wave's flash launches, records)."""
+    head = " ".join(f"s{i}" for i in range(DENSE_SYSTEM))[:DENSE_SYSTEM]
+    records, dense_launches = {}, {}
+    for label, pages in (("dense", None), ("paged", 128)):
+        srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                           max_seq_len=DENSE_T, kv_pages=pages,
+                           prefill_chunk=None, decode_scan=1,
+                           auto_prefix=True)
+        eng = srv.engine
+        try:
+            if (eng.paged, eng.flight.impl) != (
+                    pages is not None,
+                    "dense" if pages is None else "paged-kernel"):
+                fail(f"dense (b): make_engine built {eng.flight.impl}")
+            caps = _count_captures(eng)
+            _dense_wave(srv, f"w{label[0]}", head)
+            fa.reset_launch_counts()
+            rpa.reset_launch_counts()
+            del caps[:]
+            rec = _dense_wave(srv, f"m{label[0]}", head)
+            rec.update(label=label, captures=len(caps),
+                       launches={k: n for k, n in {
+                           **fa.LAUNCHES, **rpa.LAUNCHES}.items() if n},
+                       cache_gib=eng.cache.memory_bytes() / 2**30,
+                       prefix_hits=eng.stats.prefix_hits)
+            if label == "dense":
+                dense_launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+                variants = [v for v in eng._prefill_runner._bufs
+                            if v[0] in ("slot", "prefixed")]
+                for k in ("flash_attn", "flash_attn_cached"):
+                    if rec["launches"].get(k, 0) <= 0:
+                        fail(f"dense (b): {k} never launched")
+                if rec["prefix_hits"] < 3:
+                    fail(f"dense (b): {rec['prefix_hits']} prefix hits, "
+                         "expected the system chats' 3 at least")
+            if rec["captures"]:
+                fail(f"dense (b) {label}: the measured wave captured "
+                     f"{rec['captures']} graph(s)")
+            plain = {k: n for k, n in rec["launches"].items()
+                     if k.endswith("_plain")}
+            if plain:
+                fail(f"dense (b) {label}: plain versions ran {plain}")
+            records[label] = rec
+            log(f"dense (b) {label:<6}: TTFT p50 {rec['ttft_p50_s']:.3f} s, "
+                f"decode {rec['decode_tok_s']:.1f} tok/s, decode replay "
+                f"{rec['decode_replay_ms']} ms, wall {rec['wall_s']:.2f} s, "
+                f"cache {rec['cache_gib']:.3f} GiB, prefix hits "
+                f"{rec['prefix_hits']}, launches {rec['launches']} [{card}]")
+        finally:
+            srv.close()
+        # the serving thread ends once its shutdown has stopped the engine;
+        # then nothing holds the engine but these names (the handler
+        # class holds the server weakly)
+        for t in threading.enumerate():
+            if t.name == "cake-http":
+                t.join(timeout=60)
+        gone = [weakref.ref(eng)]
+        del srv, eng
+        _release(torch, gone)
+    same = sum(a == b for a, b in zip(records["dense"]["streams"],
+                                      records["paged"]["streams"]))
+    records["dense_equals_paged"] = same
+    log(f"dense (b): {same} of 6 bf16 streams equal the paged engine's "
+        "(printed, not gated: bf16 near-ties)")
+    records["flash_bf16"] = _dense_flash_bf16(torch, fa, cfg, params,
+                                              variants, card)
+    return dense_launches, records
+
+
+# layer 1's lines after one bf16 attention of each route, held to a share
+# of their largest magnitude (bf16's rtol): elementwise, a line near 0
+# inherits the rounding of the larger values it is projected from
+L1_REL_TOL = TOL["bfloat16"]["rtol"]
+
+
+def _dense_flash_bf16(torch, fa, cfg, params, variants, card: str) -> dict:
+    """(b)'s bf16 flash bodies held inside its own steps: the largest
+    `prefill_slot` bucket and `prefill_slot_prefixed` key that its
+    measured wave replayed (`variants`), each captured and replayed over
+    a random bf16 cache of (b)'s shape (DENSE_SLOTS slots at DENSE_T),
+    against the same step run eagerly with flash off (the einsum) on the
+    same card inputs from a clone of that cache. 32 layers of bf16
+    rounding part the two routes as in the prefix phase (flash rounds p
+    to bf16, the einsum keeps it in f32), so logits and the slot's lines
+    are held to PREFIX_REL_TOL of their largest magnitude, and layer 1's
+    lines, one attention in, to L1_REL_TOL of theirs; layer 0's lines (and a
+    prefix's P positions: a head prefilled with flash off, as the
+    registry holds it) are written before any attention and must be
+    identical, and every other slot must keep its lines."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama import model as tm
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.serve.graphs import DensePrefillRunner
+
+    picks = {kind: max((v for v in variants if v[0] == kind),
+                       key=lambda v: v[-1], default=None)
+             for kind in ("slot", "prefixed")}
+    if None in picks.values():
+        fail(f"dense (b): the measured wave replayed {variants}, expected "
+             "a prefill_slot and a prefill_slot_prefixed key")
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    shape = (L, DENSE_SLOTS, DENSE_T, KV, hd)
+
+    def lines(s):
+        return 0.5 * torch.randn(s, generator=gen, device=DEV,
+                                 dtype=torch.bfloat16)
+
+    cache = KVCache(lines(shape), lines(shape))
+    rope = tm.RopeTables.create(cfg, DENSE_T, device=DEV)
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
+    runner = DensePrefillRunner(params, cache, rope, cfg)
+    out = {}
+    for (kind, variant), slot, kern in zip(
+            picks.items(), (5, 6), ("flash_attn", "flash_attn_cached")):
+        S = variant[-1]
+        n = S - 24
+        ids = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                            device=DEV, dtype=torch.int32)
+        ids[:, n:] = 0
+        prefix = None
+        if kind == "prefixed":
+            # a registered head's lines, as the engine's registry holds
+            # them: the head prefilled (flash off) into the last slot
+            P = variant[1]
+            head = torch.randint(0, cfg.vocab_size, (1, P), generator=gen,
+                                 device=DEV, dtype=torch.int32)
+            tm.prefill_slot(params, head, torch.tensor(
+                [P], dtype=torch.int32, device=DEV), DENSE_SLOTS - 1, cache,
+                rope, plain_cfg)
+            prefix = (cache.k[:, -1:, :P].clone(), cache.v[:, -1:, :P].clone())
+        ref = KVCache(cache.k.clone(), cache.v.clone())
+        runner.run(variant, ids[0].tolist(), n, slot, prefix=prefix)
+        fa.reset_launch_counts()
+        got = runner.run(variant, ids[0].tolist(), n, slot,
+                         prefix=prefix).clone()
+        replayed = {k: c for k, c in fa.LAUNCHES.items() if c}
+        fa.reset_launch_counts()
+        n_t = torch.tensor([n], dtype=torch.int32, device=DEV)
+        if kind == "slot":
+            want, _ = tm.prefill_slot(params, ids, n_t, slot, ref, rope,
+                                      plain_cfg)
+        else:
+            want, _ = tm.prefill_slot_prefixed(params, ids, n_t, slot,
+                                               *prefix, ref, rope, plain_cfg)
+        torch.cuda.synchronize()
+        eager = {k: c for k, c in fa.LAUNCHES.items() if c}
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        line_err, line_scale, l0_same, others_same = 0.0, 0.0, True, True
+        l1_err, l1_scale = 0.0, 0.0
+        for a, b in ((cache.k, ref.k), (cache.v, ref.v)):
+            x, y = a[:, slot].float(), b[:, slot].float()
+            line_err = max(line_err, (x - y).abs().max().item())
+            line_scale = max(line_scale, y.abs().max().item())
+            # layer 1's lines follow one attention of each route: a fault
+            # of the body shows there beyond bf16 rounding
+            l1_err = max(l1_err, (x[1] - y[1]).abs().max().item())
+            l1_scale = max(l1_scale, y[1].abs().max().item())
+            l0_same &= torch.equal(a[0, slot], b[0, slot])
+            if prefix is not None:
+                l0_same &= torch.equal(a[:, slot, :variant[1]],
+                                       b[:, slot, :variant[1]])
+            others_same &= (torch.equal(a[:, :slot], b[:, :slot])
+                            and torch.equal(a[:, slot + 1:], b[:, slot + 1:]))
+            del x, y
+        l1_close = l1_err <= L1_REL_TOL * l1_scale
+        out[kind] = dict(variant=list(variant), launches=replayed,
+                         max_abs_err=err, logit_scale=scale,
+                         lines_max_abs_err=line_err, lines_scale=line_scale,
+                         layer0_identical=l0_same,
+                         layer1_max_abs_err=l1_err, layer1_close=l1_close,
+                         other_slots_kept=others_same)
+        log(f"dense (b) bf16 {kind} {variant}, slot {slot}: replay "
+            f"launches {replayed}; max |logits - flash off| {err:.3e} "
+            f"({err / scale:.3e} of {scale:.3e}), slot lines "
+            f"{line_err:.3e} ({line_err / line_scale:.3e} of "
+            f"{line_scale:.3e}), tol {PREFIX_REL_TOL}; layer 1's lines "
+            f"{l1_err:.3e} ({l1_err / l1_scale:.3e} of {l1_scale:.3e}, tol "
+            f"{L1_REL_TOL}); layer 0"
+            f"{' and the prefix' if prefix else ''} identical {l0_same}, "
+            f"other slots kept {others_same} [{card}]")
+        if (replayed != {kern: L} or eager or not torch.isfinite(got).all()
+                or err > PREFIX_REL_TOL * scale
+                or line_err > PREFIX_REL_TOL * line_scale or not l1_close
+                or not l0_same or not others_same):
+            fail(f"dense (b) bf16 {kind}: {out[kind]} (the flash-off side "
+                 f"launched {eager})")
+        del ref
+    del runner, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _byte_tok(cfg):
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    return ByteTokenizer(cfg.vocab_size)
+
+
+def _dense_ring(torch, cfg, params, card: str) -> dict:
+    """(c) the same weights with Mistral-7B's window (sliding_window 4096)
+    at max_seq_len 8192: the ring engine (W = 4096 slots, 512 MiB a slot
+    where a dense row would take 1 GiB), two chats of RING_PROMPT-token
+    prompts that wrap the ring (windows of 512) and DENSE_NEW new tokens,
+    after a warm-up chat."""
+    import dataclasses
+
+    ring_cfg = dataclasses.replace(cfg, sliding_window=RING_W)
+    eng = _bf16_engine(torch, ring_cfg, params, max_slots=2,
+                       max_seq_len=RING_T)
+    if not eng.ring or eng.cache.max_seq_len != RING_W:
+        fail(f"dense (c): not a {RING_W}-slot ring engine")
+    caps = _count_captures(eng)
+    prompts = [[(7 * i + 3 * j) % (cfg.vocab_size // 4) + 100
+                for j in range(RING_PROMPT)] for i in range(2)]
+    with eng:
+        h = eng.submit(prompts[0][:700], max_new_tokens=8)
+        if not h.wait(600) or h._req.error is not None:
+            fail(f"dense (c): the warm-up chat failed ({h._req.error})")
+        del caps[:]
+        n0, tok0, dec0 = len(eng.retired), eng.stats.tokens_generated, \
+            eng.stats.decode_time_s
+        t_wave = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+        for h in hs:
+            if not h.wait(900) or h._req.error is not None:
+                fail(f"dense (c): a chat failed ({h._req.error})")
+        wall = time.perf_counter() - t_wave
+    retired = list(eng.retired)[n0:]
+    dec_s = eng.stats.decode_time_s - dec0
+    per_slot = eng.cache.memory_bytes() / 2
+    dense_slot = per_slot * RING_T / RING_W
+    rec = dict(
+        wall_s=wall, captures=len(caps),
+        ttft_p50_s=statistics.median(r.first_token_t - r.submit_t
+                                     for r in retired),
+        decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
+                      if dec_s else 0.0),
+        ring_bytes=eng.cache.memory_bytes(), ring_bytes_a_slot=per_slot,
+        dense_bytes_a_slot=dense_slot,
+        tokens=[len(r.out_tokens) for r in retired])
+    if rec["tokens"] != [DENSE_NEW] * 2 or any(
+            not 0 <= t < cfg.vocab_size for r in retired
+            for t in r.out_tokens):
+        fail(f"dense (c): bad streams {rec['tokens']}")
+    if rec["captures"]:
+        fail(f"dense (c): the measured wave captured {rec['captures']}")
+    log(f"dense (c) ring W={RING_W} at max_seq_len {RING_T}: two "
+        f"{RING_PROMPT}-token chats, TTFT p50 {rec['ttft_p50_s']:.3f} s, "
+        f"decode {rec['decode_tok_s']:.1f} tok/s, wall {wall:.2f} s; the "
+        f"ring {per_slot / 2**20:.0f} MiB a slot where a dense row takes "
+        f"{dense_slot / 2**20:.0f} MiB [{card}]")
+    gone = [weakref.ref(eng)]
+    del eng
+    _release(torch, gone)
+    return rec
+
+
+def _bf16_engine(torch, cfg, params, **kw):
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(
+        cfg, params, _byte_tok(cfg), device=DEV, cache_dtype=torch.bfloat16,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0), **kw)
+
+
+def _dense_spec(torch, cfg, params, plain: dict, card: str) -> dict:
+    """(d) the dense spec engine at full width: the target's first
+    DENSE_DRAFT_LAYERS blocks as the draft, gamma DENSE_GAMMA, 8 slots at
+    max_seq_len 4096, (b)'s six prompts and DENSE_NEW tokens, after a
+    warm-up wave: acceptance, tokens a round and tok/s beside (b)'s plain
+    dense engine."""
+    d_cfg, d_params = _cut_draft(cfg, params, DENSE_DRAFT_LAYERS)
+    eng = _bf16_engine(torch, cfg, params, max_slots=DENSE_SLOTS,
+                       max_seq_len=DENSE_T, draft_params=d_params,
+                       draft_config=d_cfg, spec_gamma=DENSE_GAMMA)
+    caps = _count_captures(eng)
+    prompts = plain["prompts"]
+    with eng:
+        for wave in ("warm-up", "measured"):
+            if wave == "measured":
+                del caps[:]
+                p0, a0 = eng.stats.spec_proposed, eng.stats.spec_accepted
+                r0 = len(eng.flight.records())
+                tok0, dec0 = eng.stats.tokens_generated, \
+                    eng.stats.decode_time_s
+            hs = [eng.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+            for h in hs:
+                if not h.wait(900) or h._req.error is not None:
+                    fail(f"dense (d): a chat failed ({h._req.error})")
+    rounds = [r for r in eng.flight.records()[r0:] if r.kind == "spec"]
+    proposed = eng.stats.spec_proposed - p0
+    dec_s = eng.stats.decode_time_s - dec0
+    streams = [list(h._req.out_tokens) for h in hs]
+    rec = dict(
+        captures=len(caps), rounds=len(rounds),
+        acceptance=((eng.stats.spec_accepted - a0) / proposed
+                    if proposed else None),
+        tokens_a_round=(sum(r.tokens for r in rounds)
+                        / max(1, sum(r.rows for r in rounds))),
+        decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
+                      if dec_s else 0.0),
+        plain_decode_tok_s=plain["decode_tok_s"],
+        round_device_ms=(1e3 * statistics.median(
+            r.device_s for r in rounds if r.device_s)
+            if any(r.device_s for r in rounds) else None),
+        equal_to_plain=sum(a == b for a, b in zip(streams,
+                                                   plain["streams"])),
+        draft_cache_gib=eng.d_cache.memory_bytes() / 2**30)
+    if rec["captures"]:
+        fail(f"dense (d): the measured wave captured {rec['captures']}")
+    if any(len(s) != DENSE_NEW for s in streams):
+        fail("dense (d): a stream stopped short")
+    log(f"dense (d) spec, draft = the first {DENSE_DRAFT_LAYERS} blocks, "
+        f"gamma {DENSE_GAMMA}: acceptance {rec['acceptance']}, "
+        f"{rec['tokens_a_round']:.2f} tokens a row a round, "
+        f"{rec['rounds']} rounds (device {rec['round_device_ms']} ms a "
+        f"round), decode {rec['decode_tok_s']:.1f} tok/s against the plain "
+        f"dense engine's {rec['plain_decode_tok_s']:.1f}; "
+        f"{rec['equal_to_plain']} of 6 streams equal (b)'s (printed, "
+        f"not gated) [{card}]")
+    gone = [weakref.ref(eng)]
+    del eng
+    _release(torch, gone)
+    return rec
+
+
+def phase_dense(torch, rpa, fa, i4, cfg, params, card: str):
+    """The dense phase: (a) the identities at 2 layers, f32, (b) the dense
+    engine served at full width beside the paged engine, (c) the ring at
+    Mistral-7B's window, (d) the dense spec engine. Returns ((b)'s
+    measured dense wave's launches, record)."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    rec = dict(identity=_dense_identity(torch, fa, rpa, i4, card))
+    _release(torch)
+    # flash prefills, as the context turns them on for a card
+    cfg = dataclasses.replace(cfg, use_flash_attention=True)
+    counts, rec["served"] = _dense_served(torch, fa, rpa, cfg, params, card)
+    rec["ring"] = _dense_ring(torch, cfg, params, card)
+    rec["spec"] = _dense_spec(torch, cfg, params, rec["served"]["dense"],
+                              card)
+    for r in ("dense", "paged"):
+        rec["served"][r].pop("prompts", None)
+        rec["served"][r].pop("streams", None)
+    rec["seconds"] = time.perf_counter() - t0
+    _release(torch)
+    rec["held_gib"] = [held / 2**30, torch.cuda.memory_allocated() / 2**30]
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail(f"dense: the phase kept {rec['held_gib']} GiB allocated")
+    log(f"dense phase: {rec['seconds']:.1f} s (identity "
+        f"{rec['identity']['seconds']:.1f} s)")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6268,10 +7022,20 @@ def main(argv=None) -> int:
         log(phase_device(torch, i4))
         int4_sweep(torch, i4, [int(t) for t in a.int4_sweep.split(",")])
         return 0
+    t_start = time.perf_counter()
+
+    def lap(name: str) -> None:
+        """The smoke's clock at the end of a phase (the whole smoke has a
+        time budget: each phase's share shows where it goes)."""
+        log(f"smoke clock: {name} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     card = phase_device(torch, rpa, fa, i4)
+    lap("device")
     only = set(a.kernels.split(",")) - {""} or None
     kern = (phase_kernels(torch, rpa, fa, i4, only) if "kernels" in phases
             else {})
+    lap("kernels")
     if "step" in phases:
         phase_step(torch, rpa, fa, i4)
     # the captured decode step and --decode-scan exist in this tree (a
@@ -6297,28 +7061,34 @@ def main(argv=None) -> int:
     control_counts = {}
     disagg_record = None
     disagg_counts = {}
-    if {"step", "generate", "serve", "prefix", "sched",
-            "tiers", "recovery", "spec", "control", "disagg"} & set(phases):
+    dense_record = None
+    dense_counts = {}
+    if {"step", "generate", "serve", "prefix", "sched", "tiers",
+            "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
         if "step" in phases and graphs:
             _graph_steps(torch, rpa, i4, cfg, params)
             if mixed_graph:
                 _mixed_graph_steps(torch, rpa, i4, cfg, params)
+        lap("step")
         if "generate" in phases:
             counts.update(phase_generate(torch, fa, cfg, params,
                                          profile=a.profile))
+        lap("generate")
         if "serve" in phases:
             pools = {}
             runs = [(None, k) for k in scans] + [
                 (kv, scans[-1]) for kv in ("int8", "int4")]
             for kv, k in runs:
                 got, pools[kv or "bf16"], recs = phase_serve(
-                    torch, rpa, cfg, params, kv_dtype=kv, decode_scan=k)
+                    torch, rpa, cfg, params, kv_dtype=kv, decode_scan=k,
+                    drives=SERVE_DRIVES if kv is None else ("cold", "warm"))
                 counts.update(got)
                 serve_records += recs
             log("serve pools (128 pages x 128 tokens + the sink, 32 "
                 "layers): "
                 + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
+            lap("serve")
         if "prefix" in phases:
             # the flash kernels' launches on the serve path join the
             # generator's in the kernels line
@@ -6326,16 +7096,19 @@ def main(argv=None) -> int:
                                                   params, card, a.profile)
             for k, n in served.items():
                 counts[k] = counts.get(k, 0) + n
+            lap("prefix")
         if "sched" in phases:
             # the scheduling drive's decode and mixed launches join the
             # serve phase's in the kernels line
             got, sched_record = phase_sched(torch, rpa, cfg, params, card)
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
+            lap("sched")
         if "tiers" in phases:
             # the fp8 kernels' launches on drive 1 (set to 0 just before)
             got, tiers_record = phase_tiers(torch, rpa, cfg, params, card)
             counts.update(got)
+            lap("tiers")
         if "recovery" in phases:
             # the faulted wave's decode and mixed launches (set to 0 just
             # before it) join the serve phase's in the kernels line
@@ -6343,12 +7116,14 @@ def main(argv=None) -> int:
                                                   card)
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
+            lap("recovery")
         has_spec = importlib.util.find_spec("cake_tpu_torch.spec")
         if "spec" in phases and has_spec:
             # the measured self-draft wave's launches (set to 0 just
             # before it), a kernels-line key of their own
             spec_counts, spec_record = phase_spec(torch, rpa, fa, i4, cfg,
                                                   params, card)
+            lap("spec")
         has_control = importlib.util.find_spec(
             "cake_tpu_torch.autotune.space")
         if "control" in phases and has_control:
@@ -6356,12 +7131,23 @@ def main(argv=None) -> int:
             # a kernels-line key of their own
             control_counts, control_record = phase_control(
                 torch, rpa, fa, cfg, params, card)
+            lap("control")
         has_disagg = importlib.util.find_spec("cake_tpu_torch.kv.transfer")
         if "disagg" in phases and has_disagg:
             # (b)'s measured pair waves' launches (set to 0 just before
             # each), a kernels-line key of their own
             disagg_counts, disagg_record = phase_disagg(
                 torch, rpa, cfg, params, card)
+            lap("disagg")
+        has_dense = graphs is not None and hasattr(
+            importlib.import_module("cake_tpu_torch.serve.graphs"),
+            "DenseSpecRunner")
+        if "dense" in phases and has_dense:
+            # (b)'s measured dense wave's launches (set to 0 just before
+            # it), a kernels-line key of their own
+            dense_counts, dense_record = phase_dense(
+                torch, rpa, fa, i4, cfg, params, card)
+            lap("dense")
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -6384,7 +7170,8 @@ def main(argv=None) -> int:
                                    int4_weights=True)
         if "serve" in phases:
             got, _, recs = phase_serve(torch, rpa, cfg, q4, i4=i4,
-                                       decode_scan=scans[-1])
+                                       decode_scan=scans[-1],
+                                       drives=("cold", "warm"))
             serve_records += recs
             # the ragged kernels' counts stay those of the bf16-weight run
             counts["int4_matmul"] = (counts.get("int4_matmul", 0)
@@ -6392,6 +7179,7 @@ def main(argv=None) -> int:
         if "spec" in phases and has_spec:
             spec_record["int4"] = _spec_int4(torch, i4, cfg, q4, card)
             spec_counts["int4_matmul"] = spec_record["int4"]["int4_matmul"]
+    lap("the weight-quantized runs")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -6419,6 +7207,9 @@ def main(argv=None) -> int:
     if disagg_record is not None:
         print(json.dumps({"disagg": disagg_record, "card": card},
                          default=str), flush=True)
+    if dense_record is not None:
+        print(json.dumps({"dense": dense_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -6442,6 +7233,8 @@ def main(argv=None) -> int:
                                  if control_record else None),
             "disagg_launches": (disagg_counts.get(name, 0)
                                 if disagg_record else None),
+            "dense_launches": (dense_counts.get(name, 0)
+                               if dense_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

@@ -89,23 +89,25 @@ def test_space_agrees_with_jax(a, b):
     assert _port_key(ja.config_key(ja_a)) == config_key(pa, device="cpu")
     # the live-switch guard, reason text included
     assert ja.switch_guard(ja_a, ja_b) == switch_guard(pa, pb)
-    # validity: the port refuses a dense point (A11); every paged point
-    # is legal in the port exactly when it is in JAX
+    # validity: every point, dense (kv_pages null) or paged, is legal in
+    # the port exactly when it is in JAX; the port's dtype table also
+    # takes numpy's spellings (utils/devices.resolve_kv_dtype), which
+    # JAX's rejects
     port = _outcome(lambda: validate_config(pa))
-    if a["kv_pages"] is None:
-        assert port == "refused"
-    else:
-        # the port's dtype table also takes numpy's spellings
-        # (utils/devices.resolve_kv_dtype), which JAX's rejects
-        spelled = ja.EngineConfig.from_dict(dict(a, kv_dtype={
-            "float32": "f32", "bfloat16": "bf16"}.get(a["kv_dtype"],
-                                                      a["kv_dtype"])))
-        assert port == _outcome(lambda: ja.validate_config(spelled))
+    spelled = ja.EngineConfig.from_dict(dict(a, kv_dtype={
+        "float32": "f32", "bfloat16": "bf16"}.get(a["kv_dtype"],
+                                                  a["kv_dtype"])))
+    assert port == _outcome(lambda: ja.validate_config(spelled))
 
 
 def test_divergences_dense_point_and_jax_impl_names():
-    with pytest.raises(ValueError, match="A11"):
-        validate_config(EngineConfig(slots=8))
+    # a dense point is legal, as in JAX; its mixed step is not
+    assert validate_config(EngineConfig(slots=8)).kv_pages is None
+    with pytest.raises(ValueError, match="mixed_batch=on requires"):
+        validate_config(EngineConfig(slots=8, mixed_batch="on"))
+    assert (config_key(EngineConfig(slots=8, kv_page_size=64), device="cpu")
+            == config_key(EngineConfig(slots=8), device="cpu")
+            == ("dense", 8, 1))
     for jax_name, ours in TO_PORT.items():
         with pytest.raises(ValueError, match=repr(ours)):
             validate_config(EngineConfig(kv_pages=16, paged_attn=jax_name))

@@ -14,8 +14,8 @@ The engines run the tiny config (2 layers, f32 params and KV, greedy,
   * a matching switch keeps the host tier's victim entries, a storage
     change clears them;
   * a pool an in-flight stream does not fit refuses the switch, and
-    nothing moves; a no-op switch is False; a spec engine and a dense
-    target are refused; a switch during a switch is SwitchInFlightError;
+    nothing moves; a no-op switch is False; a spec engine is refused and
+    a dense target lands; a switch during a switch is SwitchInFlightError;
   * a rebuild whose new pool raises restores the previous config and
     carries every stream; the FIFO's queue plus its active slots are
     carried; a manual switch syncs the auto controller;
@@ -251,8 +251,12 @@ def test_noop_unknown_knob_dense_target_and_spec_refusal(models):
     assert eng.config_epoch == 0
     with pytest.raises(ValueError, match="unknown engine config"):
         eng.reconfigure({"slotz": 4})
-    with pytest.raises(ValueError, match="A11"):
-        eng.reconfigure({"slots": 4})            # a dense point
+    # a dense point lands (the dense engine, as in JAX), and the same
+    # point again is a no-op
+    assert eng.reconfigure({"slots": 4}) is True
+    assert not eng.paged and eng._pager is None
+    assert eng.current_config().kv_pages is None and eng.config_epoch == 1
+    assert eng.reconfigure({"slots": 4, "kv_page_size": 64}) is False
     with pytest.raises(ValueError, match="'plain'"):
         eng.reconfigure(dict(slots=2, kv_pages=16, paged_attn="fold"))
     with pytest.raises(ValueError, match="CUDA device"):
@@ -396,7 +400,7 @@ def test_api_autotune_contract(models):
         assert _http(url + "/health")[1]["engine_config"]["slots"] == 4
         assert _http(url + "/autotune")[1]["switch_log"][-1][
             "reason"] == "manual"
-        for body in ({}, {"config": {"slots": 4}},
+        for body in ({}, {"config": {"slots": 4, "mixed_batch": "on"}},
                      {"config": {"slots": 2, "kv_pages": 16,
                                  "kv_dtype": "int8"}}):
             assert _http(url + "/autotune", body)[0] == 400

@@ -70,8 +70,6 @@ def test_flags_keep_the_jax_names_and_defaults():
     theirs = {f.name: f.default for f in dataclasses.fields(JArgs)}
     ours = dataclasses.fields(Args)
     for f in ours:
-        if f.name == "kv_pages":     # the port's engine is paged only
-            continue
         assert theirs[f.name] == f.default, f.name
     assert parse_args([]) == Args()
     a = parse_args(["--max-seq-len", "128", "--top-p", "0.9",
@@ -85,7 +83,8 @@ def test_flags_keep_the_jax_names_and_defaults():
     a = parse_args(["--draft-model", "d", "--spec-gamma", "3",
                     "--spec-rounds", "2"])
     assert (a.draft_model, a.spec_gamma, a.spec_rounds) == ("d", 3, 2)
-    assert parse_args(["--spec-draft", "d"]).spec_draft == "d"
+    assert parse_args(["--spec-draft", "d", "--kv-pages", "8"]).spec_draft \
+        == "d"
     # the control plane's flags, with JAX's names and defaults
     new = ("autotune", "autotune_policy", "sentinel", "sentinel_interval",
            "sentinel_act", "profile_dir", "postmortem_dir")
@@ -190,7 +189,8 @@ def test_kv_dtype_rules_match_the_jax_args():
     """int8/int4 need the paged pool, int4 an even page size (with the
     JAX package's message); another name must be a dtype."""
     for name in ("int8", "int4", "f32", "bf16"):
-        assert parse_args(["--kv-dtype", name]).kv_dtype == name
+        assert parse_args(["--kv-dtype", name, "--kv-pages", "8"]).kv_dtype \
+            == name
     bad = [dict(kv_dtype="int4", kv_pages=8, kv_page_size=7),
            dict(kv_dtype="int8", kv_pages=None),
            dict(kv_dtype="int4", kv_pages=0)]
@@ -203,7 +203,8 @@ def test_kv_dtype_rules_match_the_jax_args():
     with pytest.raises(ValueError, match="unknown dtype"):
         parse_args(["--kv-dtype", "int3"])
     with pytest.raises(ValueError, match="even --kv-page-size"):
-        cli.main(["--cpu", "--kv-dtype", "int4", "--kv-page-size", "9"])
+        cli.main(["--cpu", "--kv-dtype", "int4", "--kv-pages", "8",
+                  "--kv-page-size", "9"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -224,8 +225,9 @@ def test_spec_flag_rules_match_the_jax_args(kw):
     with pytest.raises(ValueError):
         JArgs(**{**base, **kw}).validate()
     with pytest.raises(ValueError):
-        Args(**kw).validate()
-    assert Args(spec_draft="d", kv_dtype="f8_e4m3").validate().spec_draft
+        Args(**{**base, **kw}).validate()
+    assert Args(spec_draft="d", kv_dtype="f8_e4m3",
+                kv_pages=512).validate().spec_draft
 
 
 def test_int4_kv_keeps_the_generators_compute_dtype():
@@ -298,7 +300,7 @@ def test_disagg_and_telemetry_flags_parse_with_jax_defaults(monkeypatch,
         assert getattr(Args(), name) == theirs[name], name
     monkeypatch.setenv("CAKE_DISAGG_TOKEN", "t")
     a = parse_args(["--disagg", "prefill", "--disagg-peer", "0.0.0.0:0",
-                    "--disagg-timeout", "5"])
+                    "--disagg-timeout", "5", "--kv-pages", "16"])
     assert (a.disagg, a.disagg_peer, a.disagg_timeout) == \
         ("prefill", "0.0.0.0:0", 5.0)
     for flag in ("--telemetry-export", "--no-telemetry-export",
@@ -307,7 +309,8 @@ def test_disagg_and_telemetry_flags_parse_with_jax_defaults(monkeypatch,
             parse_args([flag, "1"] if flag.endswith("interval") else [flag])
     caplog.set_level("WARNING")
     assert cli.main(["--cpu", "--prompt", "hi", "--sample-len", "2",
-                     "--disagg", "decode", "--disagg-peer", "h:1"]) == 0
+                     "--disagg", "decode", "--disagg-peer", "h:1",
+                     "--kv-pages", "16"]) == 0
     assert "--disagg applies to engine serving (--api)" in caplog.text
 
 

@@ -20,6 +20,8 @@ card (which has no jax) the file collects and its `cuda` cases run:
     python -m pytest --noconftest -m cuda tests/test_torch_decode_scan.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -384,7 +386,8 @@ def _runner(device, layers=2, slots=3, K=4, kv_dtype=None, attn="auto"):
     ring = torch.full((slots, 8), -1, dtype=torch.int64, device=device)
     runner = DecodeRunner(
         params, cache, RopeTables.create(cfg, T, device=device), cfg,
-        attn=attn, ring=ring, seeds=torch.arange(slots, device=device),
+        forward_fn=functools.partial(tpg.forward_ragged_paged, attn=attn),
+        ring=ring, seeds=torch.arange(slots, device=device),
         counters=torch.zeros(slots, dtype=torch.int64, device=device),
         max_steps=K, n_top_cap=2, top_k=None)
     return runner

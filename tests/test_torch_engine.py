@@ -158,8 +158,13 @@ def test_engine_validates_its_configuration(models):
     _, _, tc, tp = models
     kw = dict(device="cpu", max_seq_len=T, kv_page_size=PAGE)
     tok = ByteTokenizer(tc.vocab_size)
-    with pytest.raises(NotImplementedError, match="kv_pages"):
-        InferenceEngine(tc, tp, tok, **kw)
+    # without kv_pages the dense engine, as in JAX; the mixed step it
+    # has not
+    dense = InferenceEngine(tc, tp, tok, **kw)
+    assert not dense.paged and not dense._mixed
+    assert dense.flight.impl == "dense"
+    with pytest.raises(ValueError, match="--mixed-batch on requires"):
+        InferenceEngine(tc, tp, tok, mixed_batch="on", **kw)
     with pytest.raises(ValueError, match="--mixed-batch must be"):
         InferenceEngine(tc, tp, tok, kv_pages=4, mixed_batch="no", **kw)
     # the phase-split loop is ported: "off" builds it

@@ -117,7 +117,7 @@ def test_host_tier_matches_jax_op_for_op(seed):
             type(tier)(0)
     with pytest.raises(ValueError, match="must be >= 1"):
         Args(kv_host_pages=0).validate()
-    Args(kv_host_pages=4, kv_dtype="int8").validate()
+    Args(kv_host_pages=4, kv_dtype="int8", kv_pages=512).validate()
 
 
 def test_tier_metric_families_render_jax_text(monkeypatch):

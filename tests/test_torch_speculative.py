@@ -200,7 +200,8 @@ def test_the_context_wires_draft_model():
     """--draft-model builds the generator (a random tiny draft without
     weights); --prefill-chunk and --batch-size 2 are refused with it; an
     unset --repeat-penalty is 1.0 under --draft-model and 1.1 otherwise
-    (under --spec-draft too, as in JAX); --api over it raises."""
+    (under --spec-draft too, as in JAX); --api over it builds the dense
+    spec engine."""
     from cake_tpu_torch.args import Args
     from cake_tpu_torch.context import Context
     from cake_tpu_torch.master import Master
@@ -219,10 +220,16 @@ def test_the_context_wires_draft_model():
     with pytest.raises(ValueError, match="batch-1"):
         Context.from_args(Args(draft_model="", batch_size=2,
                                **base).validate()).load_text_model()
-    plain = Context.from_args(Args(spec_draft="d", **base).validate())
+    plain = Context.from_args(Args(spec_draft="d", kv_pages=16,
+                                   **base).validate())
     assert plain.load_text_model().sampling.repeat_penalty == 1.1
-    with pytest.raises(NotImplementedError, match="A11"):
-        Master(Args(draft_model="", **base), text_generator=gen).make_engine()
+    # --api over it: the dense spec engine, with the draft's params
+    eng = Master(Args(draft_model="", **base),
+                 text_generator=gen).make_engine(max_slots=2)
+    assert eng._spec and not eng.paged and eng.spec_gamma == 2
+    assert eng.draft_params is gen.draft_params
+    assert eng.d_cache.k.shape[1:3] == (2, 128)
+    assert eng.flight.impl == "spec"
 
 
 def test_the_engine_takes_the_spec_draft_from_master(tmp_path):
