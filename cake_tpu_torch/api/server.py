@@ -3,6 +3,9 @@
 Counterpart of `cake_tpu/api/server.py`, with its text and
 observability routes:
 
+  POST /api/v1/image: ImageGenerationArgs as the JSON body ->
+       {"images": [base64 PNG, ...]}, one generation at a time (on a
+       text model the master raises: a 500, as in JAX)
   POST /api/v1/chat/completions (and the /v1/chat/completions alias):
        buffered JSON, or SSE `chat.completion.chunk`s with "stream": true;
        the request's class in the body's "priority" or the
@@ -45,10 +48,15 @@ fleet route, ?host= events, the host-labelled families appended to
 /metrics and the fleet merge of a request's timeline read from it. Not
 ported yet: the cluster route and the router's departure notice
 (ROADMAP A13, A15).
+
+An image model's master (an image generator and no text generator) is
+served with no engine: the image, health, models and metrics routes
+answer, and every other route is a 404.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import queue
@@ -63,6 +71,7 @@ from typing import Optional
 from cake_tpu_torch.api.openai import (
     chunk_response, completion_response, parse_chat_request,
 )
+from cake_tpu_torch.args import ImageGenerationArgs
 from cake_tpu_torch.models.llama.generator import incremental_decode
 from cake_tpu_torch.obs import metrics as obs_metrics
 from cake_tpu_torch.obs import steps as obs_steps
@@ -83,9 +92,14 @@ KNOWN_ROUTES = frozenset({
     "/api/v1/metrics", "/api/v1/requests", "/api/v1/steps",
     "/api/v1/events", "/api/v1/drain", "/api/v1/profile",
     "/api/v1/autotune", "/api/v1/requests/{rid}/timeline",
-    "/api/v1/anomalies", "/api/v1/fleet",
+    "/api/v1/anomalies", "/api/v1/fleet", "/api/v1/image",
 })
 _TIMELINE_RE = re.compile(r"^/api/v1/requests/(\d+)/timeline$")
+# what a server with no engine (an image model) answers
+IMAGE_MODEL_ROUTES = frozenset({
+    "/api/v1/image", "/api/v1/health", "/v1/models", "/api/v1/models",
+    "/metrics", "/api/v1/metrics",
+})
 
 
 class QueueFull(Exception):
@@ -107,13 +121,14 @@ DISCONNECTED = object()
 
 
 class ApiServer:
-    """Wraps a Master and its engine: chat requests batch continuously."""
+    """Wraps a Master and its engine: chat requests batch continuously.
+    An image model's master is wrapped with engine=None."""
 
     def __init__(self, master, model_name: str = "cake-tpu", engine=None,
                  collector=None):
-        if engine is None:
-            raise ValueError("the port serves through the batching engine "
-                             "only: pass engine=master.make_engine()")
+        if engine is None and getattr(master, "image", None) is None:
+            raise ValueError("the port serves text through the batching "
+                             "engine only: pass engine=master.make_engine()")
         self.master = master
         self.model_name = model_name
         self.engine = engine
@@ -121,8 +136,10 @@ class ApiServer:
         # events and the host-labelled /metrics families read from it;
         # attached to the engine, request timelines span hosts
         self.collector = collector
-        if collector is not None:
+        if collector is not None and engine is not None:
             engine.telemetry = collector
+        # POST /api/v1/image: one generation at a time, as JAX's lock
+        self._gen_lock = threading.Lock()
         self.started_at = int(time.time())  # /v1/models "created"
         # drain: start() wires _shutdown to its save-and-exit closure,
         # which the drain thread calls once in-flight work finishes
@@ -135,14 +152,16 @@ class ApiServer:
         # capture from a handler thread starts at once
         self._profile_dir = getattr(getattr(master, "args", None),
                                     "profile_dir", None)
-        if self._profile_dir and engine.device.type == "cuda":
+        if self._profile_dir and engine is not None \
+                and engine.device.type == "cuda":
             from cake_tpu_torch.utils.profiling import warm_profiler
             warm_profiler()
         self._m_http = obs_metrics.counter(
             "cake_http_requests_total",
             "HTTP requests served, by route and status code",
             labelnames=("route", "status"))
-        engine.start()
+        if engine is not None:
+            engine.start()
 
     def _count(self, path: str, code: int) -> None:
         route = path.split("?", 1)[0]
@@ -351,13 +370,31 @@ class ApiServer:
             return DISCONNECTED
         return None
 
+    def image(self, body: dict) -> dict:
+        """POST /api/v1/image: the master's generation for the body
+        (ImageGenerationArgs as JSON, unknown keys ignored) as base64
+        PNGs. A text model's master raises "no image generator loaded"
+        (a 500, as in JAX)."""
+        if not isinstance(body, dict):
+            raise ValueError("the body must be a JSON object")
+        images: list = []
+        with self._gen_lock:
+            self.master.generate_image(ImageGenerationArgs.from_json(body),
+                                       images.extend)
+        return {"images": [base64.b64encode(p).decode() for p in images]}
+
     def health(self) -> dict:
         """/api/v1/health: engine occupancy, per-class queue depths (SLO
         scheduling on), pool pages, SLO accounting and throughput, and
         the recovery, journal and drain blocks. A stopped engine (a
         storm-breaker or failed-rebuild stop) reports status "stopped"
-        and the reason."""
+        and the reason. With no engine (an image model): the generator's
+        device and whether a generation runs."""
         eng = self.engine
+        if eng is None:
+            return {"status": "ok", "model": self.model_name,
+                    "device": str(self.master.image.device),
+                    "busy": self._gen_lock.locked()}
         st = eng.stats
         out = {
             "status": "stopped" if eng.stopped else "ok",
@@ -474,7 +511,32 @@ class ApiServer:
         one snapshot of EngineStats), as the JAX server renders them."""
         m = obs_metrics
         obs_steps.refresh_device_gauges()
-        eng = self.engine
+        if self.engine is not None:
+            self._sync_engine_metrics(self.engine)
+        if self.collector is not None:
+            # the per-host liveness/age gauges live in the LOCAL
+            # registry: refreshed before it renders
+            try:
+                self.collector.refresh_gauges()
+            except Exception:  # noqa: BLE001 — a scrape must not fail
+                log.debug("fleet gauge refresh failed", exc_info=True)
+        text = m.REGISTRY.render()
+        if self.collector is not None:
+            # remote hosts' families appended with a host label: the
+            # families this process also owns reuse its HELP/TYPE block
+            # above, remote-only ones bring their own
+            try:
+                text += self.collector.render_federated(
+                    {f.name for f in m.REGISTRY.families()})
+            except Exception:  # noqa: BLE001 — a scrape must not fail
+                log.debug("federated render failed", exc_info=True)
+        return text
+
+    @staticmethod
+    def _sync_engine_metrics(eng) -> None:
+        """The engine's gauges and aggregate counters, set from its
+        EngineStats at scrape time."""
+        m = obs_metrics
         st = eng.stats
         for name, help_, val in (
             ("cake_engine_queue_depth",
@@ -523,24 +585,6 @@ class ApiServer:
         eng._set_queue_gauges()
         obs_steps.refresh_page_gauges(eng)
         eng.slo.refresh_gauges()
-        if self.collector is not None:
-            # the per-host liveness/age gauges live in the LOCAL
-            # registry: refreshed before it renders
-            try:
-                self.collector.refresh_gauges()
-            except Exception:  # noqa: BLE001 — a scrape must not fail
-                log.debug("fleet gauge refresh failed", exc_info=True)
-        text = m.REGISTRY.render()
-        if self.collector is not None:
-            # remote hosts' families appended with a host label: the
-            # families this process also owns reuse its HELP/TYPE block
-            # above, remote-only ones bring their own
-            try:
-                text += self.collector.render_federated(
-                    {f.name for f in m.REGISTRY.families()})
-            except Exception:  # noqa: BLE001 — a scrape must not fail
-                log.debug("federated render failed", exc_info=True)
-        return text
 
     def fleet(self) -> dict:
         """GET /api/v1/fleet: this host's entry (live, active requests,
@@ -740,8 +784,19 @@ def make_handler(api: ApiServer):
             except json.JSONDecodeError:
                 raise ValueError("invalid JSON body")
 
+        def _no_engine(self, route: str) -> bool:
+            """An image model's server: a route it does not serve is a
+            404 (answered here)."""
+            if api.engine is not None or route in IMAGE_MODEL_ROUTES:
+                return False
+            self._json(404, {"error": "not found: this server holds an "
+                                      "image model (POST /api/v1/image)"})
+            return True
+
         def do_GET(self):
             route = self.path.split("?", 1)[0]
+            if self._no_engine(route):
+                return
             if route == "/api/v1/health":
                 return self._json(200, api.health())
             if route == "/api/v1/drain":
@@ -819,6 +874,8 @@ def make_handler(api: ApiServer):
 
         def do_POST(self):
             self._stream_started = False
+            if self._no_engine(self.path):
+                return
             try:
                 body = self._read_body()
                 if self.path in ("/api/v1/chat/completions",
@@ -831,6 +888,8 @@ def make_handler(api: ApiServer):
                         return self._json(200, api.profile(body))
                     except obs_steps.ProfileBusyError as e:
                         return self._json(409, {"error": str(e)})
+                if self.path == "/api/v1/image":
+                    return self._json(200, api.image(body))
                 if self.path == "/api/v1/autotune":
                     try:
                         return self._json(200, api.autotune_switch(body))
@@ -934,8 +993,9 @@ def start(master, address: str = "127.0.0.1:10128",
           model_name: str = "cake-tpu", block: bool = True, engine=None,
           checkpoint_path: Optional[str] = None, collector=None):
     """Bind and serve. Without `engine`, one is built from the master
-    (`master.make_engine()`). With block=False the server runs on a
-    daemon thread and the bound ThreadingHTTPServer is returned: its
+    (`master.make_engine()`), except for an image model's master (an
+    image generator and no text generator), which is served with no
+    engine. With block=False the server runs on a daemon thread and the bound ThreadingHTTPServer is returned: its
     shutdown() stops serving and runs the shutdown below.
 
     checkpoint_path (--checkpoint): arms the engine's pre-fail snapshot,
@@ -960,9 +1020,14 @@ def start(master, address: str = "127.0.0.1:10128",
     from cake_tpu_torch.serve.errors import EngineResetError
 
     host, port = address.rsplit(":", 1)
-    if engine is None:
+    image_model = engine is None and getattr(master, "llm", None) is None \
+        and getattr(master, "image", None) is not None
+    if image_model and checkpoint_path:
+        raise ValueError("--checkpoint saves a text engine's requests; an "
+                         "image model's server has none")
+    if engine is None and not image_model:
         engine = master.make_engine()
-    journal_armed = engine._journal is not None
+    journal_armed = engine is not None and engine._journal is not None
     if checkpoint_path or journal_armed:
         # the weights' digest now, while the card is healthy: the
         # failure path's snapshot (and the journal's header) must not
@@ -1013,6 +1078,9 @@ def start(master, address: str = "127.0.0.1:10128",
         if done.is_set():
             return
         done.set()
+        if engine is None:
+            threading.Thread(target=httpd.shutdown, daemon=True).start()
+            return
         # close admissions (new submits get the drain's 429 instead of
         # racing the stop), stop the engine, then save; shutdown() runs
         # on a helper thread (from the serving thread it deadlocks)

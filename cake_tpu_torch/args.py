@@ -1,23 +1,30 @@
-"""Command-line arguments (the fields of `cake_tpu/args.py:Args` that the
-port implements; same names and defaults, except that the paged KV pool
-is on by default, being the port's only serving engine).
+"""Command-line arguments: the fields of `cake_tpu/args.py:Args` that the
+port implements (same names and defaults), `ModelType`, and the image
+model's `SDArgs` and `ImageGenerationArgs` (which doubles as the body of
+POST /api/v1/image), as in the JAX package.
 
-`parse_args` builds one flag per field, as the JAX package does
-(`--max-seq-len`, `--flash-attention/--no-flash-attention`, ...), and
-validates the result (`Args.validate`, the JAX package's rules for the
-fields the port has, `--quant none|int8|int4` among them); a flag of the
-JAX package that the port does not implement yet (`--topology`, `--sp`,
-`--telemetry-export`, ...) is rejected by argparse, never accepted and
-ignored.
+`build_parser` builds one flag per field of the three, as the JAX
+package does (`--max-seq-len`, `--flash-attention/--no-flash-attention`,
+`--sd-version`, `--sd-n-steps`, ...). `parse_all_args` returns
+(Args, SDArgs, ImageGenerationArgs), what JAX's `parse_args` returns;
+`parse_args` returns the validated Args alone (`Args.validate`, the JAX
+package's rules for the fields the port has, `--quant none|int8|int4`
+among them). A flag of the JAX package that the port does not implement
+yet (`--topology`, `--sp`, `--dp`, `--telemetry-export`, ...), or that
+the JAX package parses and reads nowhere (`--sd-flash-attention`,
+`--sd-sliced-attention-size`), is rejected by argparse, never accepted
+and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
-from dataclasses import dataclass, fields
-from typing import Optional
+from dataclasses import asdict, dataclass, fields
+from enum import Enum
+from typing import Optional, Tuple
 
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
+from cake_tpu_torch.models.sd.config import SDVersion
 from cake_tpu_torch.utils.devices import resolve_kv_dtype
 
 INT8_KV_SPEC_ERROR = (
@@ -26,9 +33,17 @@ INT8_KV_SPEC_ERROR = (
     "to quantize")
 
 
+class ModelType(str, Enum):
+    TEXT = "text"
+    IMAGE = "image"
+
+
 @dataclass
 class Args:
     model: str = ""                     # model directory ("" = tiny random)
+    # --model-type text | image: a Llama-family (or Mixtral) text model,
+    # or Stable Diffusion (SDArgs, ImageGenerationArgs)
+    model_type: ModelType = ModelType.TEXT
     api: Optional[str] = None           # REST bind address; None = one-shot
     prompt: str = "Why is the sky blue?"
     system_prompt: str = "You are a helpful AI assistant."
@@ -364,26 +379,94 @@ class Args:
         return self
 
 
+@dataclass
+class SDArgs:
+    """Stable Diffusion model options (JAX's `SDArgs`), without its
+    sd_sliced_attention_size and sd_flash_attention, which JAX parses
+    and reads nowhere."""
+
+    sd_version: SDVersion = SDVersion.V1_5
+    sd_tokenizer: Optional[str] = None
+    sd_tokenizer_2: Optional[str] = None
+    sd_use_f16: bool = True
+    sd_width: Optional[int] = None
+    sd_height: Optional[int] = None
+    sd_clip: Optional[str] = None
+    sd_clip2: Optional[str] = None
+    sd_vae: Optional[str] = None
+    sd_unet: Optional[str] = None
+
+
+@dataclass
+class ImageGenerationArgs:
+    """Per-request image generation parameters (JAX's
+    `ImageGenerationArgs`): command-line flags and the JSON body of
+    POST /api/v1/image."""
+
+    image_prompt: str = ("A very realistic photo of a rusty robot walking "
+                         "on a sandy beach")
+    image_uncond_prompt: str = ""
+    sd_tracing: bool = False
+    sd_img2img: Optional[str] = None
+    sd_img2img_strength: float = 0.8
+    sd_n_steps: Optional[int] = None
+    sd_num_samples: int = 1
+    sd_bsize: int = 1
+    sd_intermediary_images: bool = False
+    sd_guidance_scale: Optional[float] = None
+    sd_seed: Optional[int] = None
+
+    @classmethod
+    def from_json(cls, body: dict) -> "ImageGenerationArgs":
+        known = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in body.items() if k in known})
+
+    def to_json(self) -> dict:
+        return asdict(self)
+
+
 _PARSERS = {"str": str, "int": int, "float": float,
             "Optional[str]": str, "Optional[int]": int,
             "Optional[float]": float}
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        prog="cake_tpu_torch.cli",
-        description="Llama text generation and serving on PyTorch/CUDA")
-    for f in fields(Args):
+def _add_fields(parser: argparse.ArgumentParser, dc_type) -> None:
+    for f in fields(dc_type):
         name = "--" + f.name.replace("_", "-")
-        if f.type in ("bool", "Optional[bool]"):
+        if isinstance(f.default, Enum):
+            parser.add_argument(name, type=type(f.default),
+                                choices=list(type(f.default)),
+                                default=f.default)
+        elif f.type in ("bool", "Optional[bool]"):
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=f.default)
         else:
             parser.add_argument(name, type=_PARSERS[f.type],
                                 default=f.default)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="cake_tpu_torch.cli",
+        description="Llama / Mixtral text and Stable Diffusion image "
+                    "generation and serving on PyTorch/CUDA")
+    for dc_type in (Args, SDArgs, ImageGenerationArgs):
+        _add_fields(parser, dc_type)
     return parser
+
+
+def parse_all_args(argv=None
+                   ) -> Tuple[Args, SDArgs, ImageGenerationArgs]:
+    """Parse argv (sys.argv[1:] when None) into (validated Args, SDArgs,
+    ImageGenerationArgs), as JAX's `parse_args`."""
+    d = vars(build_parser().parse_args(argv))
+
+    def pick(dc_type):
+        return dc_type(**{f.name: d[f.name] for f in fields(dc_type)})
+
+    return pick(Args).validate(), pick(SDArgs), pick(ImageGenerationArgs)
 
 
 def parse_args(argv=None) -> Args:
     """Parse argv (sys.argv[1:] when None) into validated Args."""
-    return Args(**vars(build_parser().parse_args(argv))).validate()
+    return parse_all_args(argv)[0]

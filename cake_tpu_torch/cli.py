@@ -9,6 +9,9 @@ Counterpart of `cake_tpu/cli.py:main` for one device:
     python -m cake_tpu_torch.cli --model DIR --draft-model DRAFT
     python -m cake_tpu_torch.cli --model DIR --api 0.0.0.0:8080 \
         --kv-pages 512 --spec-draft DRAFT --repeat-penalty 1.0
+    python -m cake_tpu_torch.cli --model-type image --sd-version v1-5 \
+        --image-prompt "a red barn" --sd-n-steps 20      # image_0.png
+    python -m cake_tpu_torch.cli --model-type image --api 0.0.0.0:8080
 
 Without --model the model is the tiny config with random weights;
 `<model>/tokenizer.json` is read by the port's own reader
@@ -20,6 +23,11 @@ shorter than --max-seq-len) and the paged engine with it.
 generation, and with --api the dense spec engine (batched rounds over
 every slot); `--spec-draft` serves paged speculative rows (a row
 speculates only at repeat_penalty 1.0, so pass --repeat-penalty 1.0).
+A `config.json` of `model_type: "mixtral"` loads the mixture-of-experts
+family. `--model-type image` loads Stable Diffusion (--sd-* weights
+from their paths or the local HF cache, else random): one-shot it
+writes image_N.png into the working directory, with --api it serves
+POST /api/v1/image.
 """
 
 from __future__ import annotations
@@ -29,13 +37,13 @@ import sys
 
 
 def main(argv=None) -> int:
-    from cake_tpu_torch.args import parse_args
+    from cake_tpu_torch.args import ModelType, parse_all_args
     from cake_tpu_torch.master import Master
 
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s")
-    args = parse_args(argv)
+    args, sd_args, img_args = parse_all_args(argv)
     warn = logging.getLogger(__name__).warning
     if args.disagg and not args.api:
         # the prefill/decode split is a pair of SERVING engines wired by
@@ -50,7 +58,7 @@ def main(argv=None) -> int:
             "--journal-fsync has no effect without --journal: it tunes "
             "the write-ahead request journal's durability barrier "
             "(serve/journal.py)")
-    master = Master.from_args(args)
+    master = Master.from_args(args, sd_args)
     if args.api:
         from cake_tpu_torch.api.server import start
         kw = ({"checkpoint_path": args.checkpoint} if args.checkpoint
@@ -71,6 +79,19 @@ def main(argv=None) -> int:
             "--fault-plan / --recovery / --journal apply to engine "
             "serving (--api); one-shot generation has a single request "
             "and records nothing")
+    if args.model_type == ModelType.IMAGE:
+        count = [0]
+
+        def save(pngs):
+            for png in pngs:
+                path = f"image_{count[0]}.png"
+                with open(path, "wb") as f:
+                    f.write(png)
+                print(f"wrote {path}")
+                count[0] += 1
+
+        master.generate_image(img_args, save)
+        return 0
     from cake_tpu_torch.utils.profiling import trace
     with trace(args.tracing):
         master.run()

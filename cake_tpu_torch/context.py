@@ -1,12 +1,14 @@
 """Context: process-wide state built once from Args.
 
 Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
-`Context.from_args`, `load_text_model`, `_maybe_quantize`), for one
-device: the dtype, the device (`cuda:<device_idx>`, or the CPU with
-`--cpu`), the model config and the text generator (`--batch-size`
-rows, or with `--draft-model` the batch-1 SpeculativeGenerator,
-`_load_speculative`), its weights quantized with `--quant int8|int4`.
-Topologies and sequence parallelism (`--sp`) are not ported.
+`Context.from_args`, `load_text_model`, `_maybe_quantize`,
+`load_image_model`), for one device: the dtype, the device
+(`cuda:<device_idx>`, or the CPU with `--cpu`), the model config and the
+text generator (`--batch-size` rows, or with `--draft-model` the batch-1
+SpeculativeGenerator, `_load_speculative`), its weights quantized with
+`--quant int8|int4`; or, with `--model-type image`, the Stable
+Diffusion generator of the SDArgs. Topologies, sequence parallelism
+(`--sp`) and the image mesh (`--dp`) are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from cake_tpu_torch.args import Args
+from cake_tpu_torch.args import Args, SDArgs
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
 from cake_tpu_torch.models.llama.config import LlamaConfig, load_config
 from cake_tpu_torch.utils.devices import (
@@ -56,9 +58,11 @@ class Context:
     dtype: torch.dtype
     device: torch.device
     llama_config: Optional[LlamaConfig] = None
+    sd_args: Optional[SDArgs] = None
 
     @classmethod
-    def from_args(cls, args: Args) -> "Context":
+    def from_args(cls, args: Args,
+                  sd_args: Optional[SDArgs] = None) -> "Context":
         """Resolve dtype and device (a CUDA device without a card raises)
         and read `<model>/config.json` when there is one."""
         dtype = resolve_dtype(args.dtype)
@@ -72,7 +76,7 @@ class Context:
                 use_flash_attention=_resolve_flash(args, device))
         log.info("context: device=%s dtype=%s", device, args.dtype)
         return cls(args=args, dtype=dtype, device=device,
-                   llama_config=llama_config)
+                   llama_config=llama_config, sd_args=sd_args)
 
     def _maybe_quantize(self, params):
         """Apply --quant to a parameter dict without holding two trees:
@@ -150,6 +154,12 @@ class Context:
             batch_size=a.batch_size,
             sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
             prefill_chunk=a.prefill_chunk, device=self.device)
+
+    def load_image_model(self):
+        """The Stable Diffusion generator of the SDArgs (models/sd/sd.py)
+        on the context's device."""
+        from cake_tpu_torch.models.sd.sd import SDGenerator
+        return SDGenerator.load(self)
 
     def _load_speculative(self, cfg, params, tokenizer, sampling, max_seq,
                           kv_dtype):

@@ -1,8 +1,10 @@
-"""Master: drives the text generator and builds the serving engine.
+"""Master: drives the text or image generator and builds the serving
+engine.
 
 Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
-`generate_text`, `run`, `reset`, `add_message`, `_spec_kwargs`), text
-only. `generate_text` streams each token through a callback and times
+`generate_text`, `generate_image`, `run`, `reset`, `add_message`,
+`_spec_kwargs`), for one device; the multi-host image control is not
+ported (ROADMAP A13). `generate_text` streams each token through a callback and times
 the tokens after the first, so the prefill does not skew tokens/s;
 `make_engine` builds the continuous-batching engine over the
 generator's config, params and tokenizer for the REST server: the paged
@@ -26,18 +28,24 @@ log = logging.getLogger(__name__)
 
 
 class Master:
-    """Drives a text generator (`models/llama/generator.LlamaGenerator`)."""
+    """Drives a text generator (`models/llama/generator.LlamaGenerator`)
+    or an image generator (`models/sd/sd.SDGenerator`)."""
 
-    def __init__(self, args: Args, text_generator=None):
+    def __init__(self, args: Args, text_generator=None,
+                 image_generator=None):
         self.args = args
         self.llm = text_generator
+        self.image = image_generator
         self.tokens_per_s: float = 0.0
 
     @classmethod
-    def from_args(cls, args: Args) -> "Master":
+    def from_args(cls, args: Args, sd_args=None) -> "Master":
+        from cake_tpu_torch.args import ModelType
         from cake_tpu_torch.context import Context
-        return cls(args, text_generator=Context.from_args(args)
-                   .load_text_model())
+        ctx = Context.from_args(args, sd_args)
+        if args.model_type == ModelType.IMAGE:
+            return cls(args, image_generator=ctx.load_image_model())
+        return cls(args, text_generator=ctx.load_text_model())
 
     def make_engine(self, max_slots: Optional[int] = None,
                     **engine_kwargs):
@@ -172,6 +180,15 @@ class Master:
                  self.args.spec_gamma, d_dir)
         return dict(spec_draft_params=d_params, spec_draft_config=d_cfg,
                     spec_gamma=self.args.spec_gamma)
+
+    # -- image ---------------------------------------------------------------
+
+    def generate_image(self, image_args, callback) -> None:
+        """Generate images per ImageGenerationArgs, handing each batch of
+        PNG bytes to `callback`."""
+        if self.image is None:
+            raise RuntimeError("no image generator loaded")
+        self.image.generate_image(image_args, callback)
 
     # -- text ----------------------------------------------------------------
 

@@ -23,19 +23,20 @@ class Token:
 
 
 def load_text_params(config, model_dir: Optional[str], dtype, device):
-    """The dense Llama parameter dict: HF safetensors when model_dir holds
-    them, else a random init from seed 0 (with a warning). Mixture-of-
-    experts configs are not ported and raise."""
-    from cake_tpu_torch.models.llama.params import (
-        init_params, load_params_from_hf,
-    )
+    """The text model's parameter dict, dense Llama or mixture-of-experts
+    by `config.is_moe`: HF safetensors when model_dir holds them, else a
+    random init from seed 0 (with a warning)."""
     from cake_tpu_torch.utils.devices import resolve_device
     from cake_tpu_torch.utils.loading import has_weights
 
-    if getattr(config, "num_local_experts", 0):
-        raise NotImplementedError(
-            "mixture-of-experts models are not ported to cake_tpu_torch "
-            "yet (ROADMAP A12)")
+    if config.is_moe:
+        from cake_tpu_torch.models.moe.params import (
+            init_params, load_params_from_hf,
+        )
+    else:
+        from cake_tpu_torch.models.llama.params import (
+            init_params, load_params_from_hf,
+        )
     dev = resolve_device(device)
     if has_weights(model_dir):
         return load_params_from_hf(model_dir, config, dtype=dtype,

@@ -20,12 +20,11 @@ def _read_config(model_dir: str) -> dict:
 
 
 def load_config_dict(raw: dict) -> "LlamaConfig":
-    """Parse a config.json dict. Mixtral (sparse experts) is not ported
-    yet and raises instead of loading as a dense model."""
+    """Dispatch a parsed config.json on `model_type`: "mixtral" ->
+    MoEConfig (sparse experts), anything else -> LlamaConfig."""
     if raw.get("model_type") == "mixtral":
-        raise NotImplementedError(
-            "Mixtral (MoE) is not ported to cake_tpu_torch yet "
-            "(ROADMAP A12)")
+        from cake_tpu_torch.models.moe.config import MoEConfig
+        return MoEConfig.from_hf_dict(raw)
     return LlamaConfig.from_hf_dict(raw)
 
 
@@ -66,9 +65,19 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    @property
+    def is_moe(self) -> bool:
+        """Family dispatch: MoEConfig carries num_local_experts, dense
+        configs do not."""
+        return bool(getattr(self, "num_local_experts", 0))
+
     @classmethod
     def from_path(cls, model_dir: str) -> "LlamaConfig":
-        return load_config(model_dir)
+        """Load `<model_dir>/config.json` with model_type dispatch; called
+        on a subclass, that subclass is guaranteed."""
+        raw = _read_config(model_dir)
+        cfg = load_config_dict(raw)
+        return cfg if isinstance(cfg, cls) else cls.from_hf_dict(raw)
 
     @classmethod
     def from_hf_dict(cls, raw: dict) -> "LlamaConfig":

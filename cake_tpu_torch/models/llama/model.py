@@ -58,6 +58,7 @@ from cake_tpu_torch.ops.attention import (
 from cake_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_cached,
 )
+from cake_tpu_torch.ops.moe import moe_mlp
 from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import QTensor, qmatmul
 from cake_tpu_torch.ops.rope import (
@@ -89,13 +90,10 @@ def layer_params(blocks: dict, i: int) -> dict:
 def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
     """Decoder-block math with a pluggable attention:
     rms -> qkv proj -> attn_fn(q, k, v) -> o_proj -> residual -> rms ->
-    SwiGLU -> residual. attn_fn returns (attn [B,S,H,hd], extras).
+    SwiGLU (or, with a `router` leaf, the experts' `moe_mlp`) ->
+    residual. attn_fn returns (attn [B,S,H,hd], extras).
     lp: one layer's params (leaves without the L axis); x: [B, S, D].
     """
-    if "router" in lp:
-        raise NotImplementedError(
-            "mixture-of-experts blocks (a `router` leaf) are not ported "
-            "to cake_tpu_torch yet (ROADMAP A12)")
     B, S, _ = x.shape
     hd = config.head_dim
     H = lp["wq"].shape[-1] // hd
@@ -114,6 +112,14 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
     x = x + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps)
+    if "router" in lp:
+        if not config.is_moe:
+            # MoE params paired with a dense config: a real mismatch
+            # that must not default silently
+            raise NotImplementedError(
+                "a mixture-of-experts block (a `router` leaf) runs only "
+                "under a MoEConfig: a dense LlamaConfig has no routing")
+        return x + moe_mlp(lp, h, config.num_experts_per_tok), extras
     gate = F.silu(qmatmul(h, lp["w_gate"]))
     x = x + qmatmul(gate * qmatmul(h, lp["w_up"]), lp["w_down"])
     return x, extras

@@ -70,6 +70,31 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def random_qtensor(shape, contract_dims, fan_in, generator, device,
+                   bits: int = 8) -> QTensor:
+    """A random quantized leaf of `shape` on `device`: uniform int8 codes
+    (bits=8, per-channel scales dropping `contract_dims`) or random
+    packed bytes (bits=4: each nibble a uniform int4, group-wise scales
+    over contract_dims[0]), and the constant scale 1/(qmax sqrt(fan_in)),
+    which gives about init_params' spread."""
+    qmax = 127 if bits == 8 else 7
+    if bits == 4:
+        cd = contract_dims[0]
+        g = pick_group(shape[cd])
+        q = torch.randint(
+            0, 256, shape[:cd] + (shape[cd] // 2,) + shape[cd + 1:],
+            generator=generator, device=device, dtype=torch.uint8)
+        scale_shape = shape[:cd] + (shape[cd] // g,) + shape[cd + 1:]
+    else:
+        q = torch.randint(-qmax, qmax + 1, shape, generator=generator,
+                          device=device, dtype=torch.int8)
+        scale_shape = tuple(s for i, s in enumerate(shape)
+                            if i not in contract_dims)
+    scale = torch.full(scale_shape, 1.0 / (qmax * math.sqrt(fan_in)),
+                       dtype=torch.float32, device=device)
+    return QTensor(q=q, scale=scale)
+
+
 def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
                           device="cuda", dtype=torch.bfloat16,
                           bits: int = 8) -> Dict:
@@ -90,22 +115,8 @@ def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
     H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
 
     def qleaf(shape, contract_dims, fan_in, leaf_bits=bits):
-        qmax = 127 if leaf_bits == 8 else 7
-        if leaf_bits == 4:
-            cd = contract_dims[0]
-            g = pick_group(shape[cd])
-            q = torch.randint(
-                0, 256, shape[:cd] + (shape[cd] // 2,) + shape[cd + 1:],
-                generator=generator, device=dev, dtype=torch.uint8)
-            scale_shape = shape[:cd] + (shape[cd] // g,) + shape[cd + 1:]
-        else:
-            q = torch.randint(-qmax, qmax + 1, shape, generator=generator,
-                              device=dev, dtype=torch.int8)
-            scale_shape = tuple(s for i, s in enumerate(shape)
-                                if i not in contract_dims)
-        scale = torch.full(scale_shape, 1.0 / (qmax * math.sqrt(fan_in)),
-                           dtype=torch.float32, device=dev)
-        return QTensor(q=q, scale=scale)
+        return random_qtensor(shape, contract_dims, fan_in, generator, dev,
+                              leaf_bits)
 
     def w(shape, fan_in):
         t = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
@@ -140,19 +151,21 @@ def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
 
 
 def params_bytes(params) -> int:
-    """Bytes of every tensor in a parameter dict, QTensor nodes
-    included."""
+    """Bytes of every tensor in a parameter dict (lists and QTensor nodes
+    included)."""
     if isinstance(params, dict):
         return sum(params_bytes(v) for v in params.values())
     if isinstance(params, QTensor):
         return params_bytes(params.q) + params_bytes(params.scale)
+    if isinstance(params, list):              # the SD trees' layer lists
+        return sum(params_bytes(v) for v in params)
     return params.numel() * params.element_size()
 
 
 def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     """The port's params from a JAX param pytree converted to numpy
-    (`jax.tree.map(np.asarray, params)`): the same nested dict, each
-    leaf a tensor of `dtype` on `device`. Leaves in bfloat16 (an
+    (`jax.tree.map(np.asarray, params)`): the same nested dicts and
+    lists, each leaf a tensor of `dtype` on `device`. Leaves in bfloat16 (an
     ml_dtypes numpy dtype torch cannot read) cross via their bits. A
     quantized node (any NamedTuple with fields q and scale, as the JAX
     package's QTensor arrives) becomes the port's QTensor: q keeps its
@@ -171,6 +184,8 @@ def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):           # the SD trees' layer lists
+            return [walk(v) for v in node]
         if getattr(node, "_fields", None) == ("q", "scale"):
             return QTensor(q=leaf(node.q, keep_dtype=True),
                            scale=leaf(node.scale, keep_dtype=True))

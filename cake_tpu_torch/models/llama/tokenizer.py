@@ -10,25 +10,31 @@ Llama-3 and Qwen2 checkpoints ship, and gives the ids and text
   * `added_tokens` (special or not, with `lstrip`, `rstrip`,
     `single_word` and `normalized`) split the text first, the longest
     match at the leftmost position winning;
-  * the normalizer: none, or `NFC`;
+  * the normalizer: none, `NFC`, or CLIP's `Sequence[NFC, Replace(\\s+
+    -> " "), Lowercase]`;
   * the pre-tokenizer: `Sequence[Split(Regex, Isolated), ByteLevel
-    (use_regex=false)]`, or a bare `ByteLevel` with its own regex. The
+    (use_regex=false)]`, CLIP's `Sequence[Split(Regex, Removed,
+    invert=true), ByteLevel(use_regex=false)]` (the matches are the
+    pre-tokens, the text between them is dropped), or a bare
+    `ByteLevel` with its own regex. The
     regex is read from the file and translated to Python's `re`:
     `\\p{L}`, `\\p{N}` and `\\s` become explicit classes built from
     `unicodedata` (Python's `\\s` also matches U+001C..U+001F, and
     `[^\\W\\d_]` is not `\\p{L}`); a construct it cannot translate
     raises;
   * the `BPE` model (`vocab`, `merges` as "a b" strings or pairs,
-    `ignore_merges`), merges applied lowest rank first, leftmost on a
-    tie, with a cache per pre-token;
-  * the post-processor (`TemplateProcessing`, `ByteLevel`, or a
-    `Sequence` of them), applied by `encode` (add_special_tokens=True,
-    as `tokenizers`' `encode(text)`);
+    `ignore_merges`, CLIP's `end_of_word_suffix` "</w>" on each
+    pre-token's last symbol), merges applied lowest rank first,
+    leftmost on a tie, with a cache per pre-token;
+  * the post-processor (`TemplateProcessing`, `ByteLevel`, CLIP's
+    `RobertaProcessing`, or a `Sequence` of them), applied by `encode`
+    (add_special_tokens=True, as `tokenizers`' `encode(text)`);
   * the `ByteLevel` decoder (`decode` skips special tokens by default).
 
 Anything else (`Metaspace`, `byte_fallback`, `WordPiece`, `Unigram`,
-another normalizer, ByteLevel's `add_prefix_space`, a BPE with dropout
-or subword affixes) raises
+another normalizer or normalizer sequence, ByteLevel's
+`add_prefix_space`, a BPE with dropout or a continuing-subword prefix)
+raises
 `UnsupportedTokenizer`, naming the feature: the reader never tokenizes
 in some other way.
 """
@@ -56,7 +62,8 @@ def _need(cond: bool, what: str) -> None:
     if not cond:
         raise UnsupportedTokenizer(
             f"tokenizer.json: {what} is not supported by the port's reader "
-            "(byte-level BPE files, as Llama-3 and Qwen2 ship, only)")
+            "(byte-level BPE files, as Llama-3, Qwen2 and CLIP ship, "
+            "only)")
 
 
 # -- character classes -----------------------------------------------------------
@@ -229,7 +236,9 @@ class BpeTokenizer:
         _need(not model.get("dropout"), "BPE dropout")
         _need(not model.get("continuing_subword_prefix"),
               "BPE continuing_subword_prefix")
-        _need(not model.get("end_of_word_suffix"), "BPE end_of_word_suffix")
+        self.suffix = model.get("end_of_word_suffix") or ""
+        _need(self.suffix in ("", "</w>"),
+              f"BPE end_of_word_suffix {self.suffix!r}")
         self.vocab: Dict[str, int] = dict(model.get("vocab") or {})
         self.unk = model.get("unk_token")
         self.ignore_merges = bool(model.get("ignore_merges", False))
@@ -246,10 +255,8 @@ class BpeTokenizer:
             self.id_to_token[a.id] = a.content
         self.special_ids = {a.id for a in self.added if a.special}
 
-        norm = spec.get("normalizer")
-        _need(norm is None or norm.get("type") == "NFC",
-              f"the normalizer {norm and norm.get('type')!r}")
-        self.nfc = norm is not None
+        self.nfc, self.clip_norm = self._read_normalizer(
+            spec.get("normalizer"))
         # added tokens matched on the raw text, then on the normalized
         # pieces (their content normalized as the pieces are)
         self._raw_added = [a for a in self.added if not a.normalized]
@@ -271,8 +278,24 @@ class BpeTokenizer:
     # -- the file's parts ---------------------------------------------------------
 
     @staticmethod
+    def _read_normalizer(norm) -> Tuple[bool, bool]:
+        """(NFC, CLIP's whitespace collapse and lowercase after it)."""
+        if norm is None:
+            return False, False
+        if norm.get("type") == "NFC":
+            return True, False
+        steps = norm.get("normalizers") or []
+        kinds = [n.get("type") for n in steps]
+        _need(norm.get("type") == "Sequence"
+              and kinds == ["NFC", "Replace", "Lowercase"]
+              and steps[1].get("pattern") == {"Regex": "\\s+"}
+              and steps[1].get("content") == " ",
+              f"the normalizer {norm.get('type')!r} {kinds or ''}")
+        return True, True
+
+    @staticmethod
     def _read_pre_tokenizer(pre) -> list:
-        """The split regexes, in order."""
+        """The split steps, in order: (regex, keep the matches only)."""
         _need(pre is not None, "a missing pre_tokenizer")
         steps = (pre.get("pretokenizers", [])
                  if pre.get("type") == "Sequence" else [pre])
@@ -284,15 +307,17 @@ class BpeTokenizer:
                   f"the pre_tokenizer step {s.get('type')!r}")
             pat = s.get("pattern") or {}
             _need("Regex" in pat, "a Split on a String pattern")
-            _need(s.get("behavior") == "Isolated",
+            removed = (s.get("behavior") == "Removed"
+                       and s.get("invert", False))
+            _need(s.get("behavior") == "Isolated" or removed,
                   f"the Split behavior {s.get('behavior')!r}")
-            _need(not s.get("invert", False), "an inverted Split")
-            splits.append(_compiled(pat["Regex"]))
+            _need(removed or not s.get("invert", False), "an inverted Split")
+            splits.append((_compiled(pat["Regex"]), removed))
         bl = steps[-1]
         _need(not bl.get("add_prefix_space", False),
               "ByteLevel add_prefix_space")
         if bl.get("use_regex", True):
-            splits.append(_compiled(GPT2_PATTERN))
+            splits.append((_compiled(GPT2_PATTERN), False))
         return splits
 
     @staticmethod
@@ -308,6 +333,10 @@ class BpeTokenizer:
             kind = p.get("type")
             if kind == "ByteLevel":
                 continue          # offsets only: the ids are unchanged
+            if kind == "RobertaProcessing":
+                # <cls> $A <sep> for one sequence
+                template = ([int(p["cls"][1])], [int(p["sep"][1])])
+                continue
             _need(kind == "TemplateProcessing",
                   f"the post_processor {kind!r}")
             specials = p.get("special_tokens", {})
@@ -328,7 +357,11 @@ class BpeTokenizer:
     # -- encode -------------------------------------------------------------------
 
     def _normalize(self, text: str) -> str:
-        return unicodedata.normalize("NFC", text) if self.nfc else text
+        if self.nfc:
+            text = unicodedata.normalize("NFC", text)
+        if self.clip_norm:
+            text = _compiled("\\s+").sub(" ", text).lower()
+        return text
 
     @staticmethod
     def _split_added(text: str, added: Sequence[_Added], content=None):
@@ -383,17 +416,17 @@ class BpeTokenizer:
 
     def _pre_tokens(self, text: str) -> List[str]:
         pieces = [text]
-        for rx in self.splits:
+        for rx, matches_only in self.splits:
             nxt = []
             for p in pieces:
                 last = 0
                 for m in rx.finditer(p):
-                    if m.start() > last:
+                    if m.start() > last and not matches_only:
                         nxt.append(p[last:m.start()])
                     if m.end() > m.start():
                         nxt.append(m.group())
                     last = m.end()
-                if last < len(p):
+                if last < len(p) and not matches_only:
                     nxt.append(p[last:])
             pieces = nxt
         b2u = bytes_to_unicode()
@@ -408,7 +441,9 @@ class BpeTokenizer:
             got = (vocab[word],)
         else:
             syms = []
-            for ch in word:
+            for i, ch in enumerate(word):
+                if i == len(word) - 1:
+                    ch += self.suffix
                 if ch in vocab:
                     syms.append(ch)
                 elif self.unk is not None and self.unk in vocab:

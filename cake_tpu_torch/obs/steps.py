@@ -207,12 +207,17 @@ class CostInfo:
 
 def matmul_weights_per_token(config) -> int:
     """Multiply-adds of the block products for one token: q, k, v, o,
-    gate, up and down in every layer."""
+    gate, up and down in every layer. A mixture-of-experts layer
+    computes what ops/moe.moe_mlp computes: every expert's gate, up and
+    down on every token (E x 3 x D x F) plus the router's D x E."""
     c = config
     D, H, KV, hd = (c.hidden_size, c.num_attention_heads,
                     c.num_key_value_heads, c.head_dim)
-    return c.num_hidden_layers * (D * (H + 2 * KV) * hd + H * hd * D
-                                  + 3 * D * c.intermediate_size)
+    ffn = 3 * D * c.intermediate_size
+    if getattr(c, "is_moe", False):
+        E = c.num_local_experts
+        ffn = E * ffn + D * E
+    return c.num_hidden_layers * (D * (H + 2 * KV) * hd + H * hd * D + ffn)
 
 
 def step_cost(config, kind: str, rows: int, tokens: int,

@@ -416,6 +416,23 @@ class RequestHandle:
             raise self._req.error
         return self._tokenizer.decode(self.token_ids)
 
+    @property
+    def ttft(self) -> float:
+        """Seconds from submit to first token (queueing included); 0.0
+        before the first token."""
+        r = self._req
+        return (r.first_token_t - r.submit_t) if r.first_token_t else 0.0
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Tokens after the first over the seconds since the first (to
+        the finish, or now while the stream runs); 0.0 below two
+        tokens."""
+        r = self._req
+        n = len(r.out_tokens)
+        dt = (r.finish_t or time.perf_counter()) - (r.first_token_t or 0)
+        return (n - 1) / dt if n > 1 and dt > 0 else 0.0
+
 
 @dataclass
 class EngineStats:

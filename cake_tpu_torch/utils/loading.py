@@ -130,3 +130,37 @@ def load_weights(model_dir: str,
     for fname, names in by_file.items():
         out.update(_st_load_file(os.path.join(base_dir, fname), names))
     return out
+
+
+def save_safetensors(path: str, tensors: Dict[str, object]) -> None:
+    """Write a safetensors file, byte for byte as
+    `cake_tpu/utils/loading.save_safetensors` writes the same arrays:
+    the header's tensors in the dict's order, each blob after the last.
+    Values are numpy arrays or CPU torch tensors (a bf16 tensor is
+    written as BF16 from its bits)."""
+    np_to_st = {np.dtype(v[0]): k for k, v in _ST_DTYPES.items()
+                if k != "BF16"}
+    header = {}
+    offset = 0
+    blobs = []
+    for name, arr in tensors.items():
+        st = None
+        if isinstance(arr, torch.Tensor):
+            if arr.dtype == torch.bfloat16:
+                st, arr = "BF16", arr.view(torch.int16)
+            arr = arr.detach().cpu().numpy()
+        arr = np.ascontiguousarray(arr)
+        blob = arr.tobytes()
+        header[name] = {
+            "dtype": st or np_to_st[arr.dtype],
+            "shape": list(arr.shape),
+            "data_offsets": [offset, offset + len(blob)],
+        }
+        offset += len(blob)
+        blobs.append(blob)
+    hdr = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(hdr).to_bytes(8, "little"))
+        f.write(hdr)
+        for blob in blobs:
+            f.write(blob)

@@ -147,7 +147,8 @@ Phases, in order (any failure exits non-zero):
             batch chats past the shed's depth (--shed, batch held to a
             1 s queue-wait target): some get 429 with a Retry-After
             above 0. A `sched` JSON line holds the phase's record.
-  tiers     the KV tiers at the same width and depth, through the HTTP
+  tiers     the KV tiers at the same width, the bf16 weights' first
+            CUT_LAYERS = 8 blocks (the time budget), through the HTTP
             API: (1) six chats over a bf16, an fp8 e4m3 and an fp8 e5m2
             pool at --decode-scan 4, cold then warm: TTFT p50, decode
             tok/s and pool GiB beside the bf16 drive's, the fp8 kernels'
@@ -167,7 +168,8 @@ Phases, in order (any failure exits non-zero):
             chat with the head restores the prefix and hits it; every
             page comes back. A `tiers` JSON line holds the record.
   recovery  fault injection and crash recovery at Llama-3-8B width, through
-            the HTTP API: (1) 32 layers, random bf16 weights, the serve
+            the HTTP API: (1) the bf16 weights' first CUT_LAYERS = 8
+            blocks (the time budget), the serve
             phase's 128 x 128 pool, 8 slots, --decode-scan 4, six chats
             of 64 tokens at once, without a plan (cold and warm waves),
             with a never-firing plan at every site (cold, then the warm
@@ -216,8 +218,9 @@ Phases, in order (any failure exits non-zero):
             and each finishes exactly; across an in-place recovery the
             round captures nothing anew; SpeculativeGenerator equal to
             greedy LlamaGenerator, and one spec_scan of 4 chained
-            replays equal to four single rounds. (b) 32 layers, the
-            phases' bf16 weights, 128 x 128-token pages, 8 slots, six
+            replays equal to four single rounds. (b) the phases' bf16
+            weights cut to their first CUT_LAYERS = 8 blocks (the time
+            budget), 128 x 128-token pages, 8 slots, six
             chats of 64 tokens at repeat_penalty 1.0, gamma 4, after a
             warm-up wave: the plain engine, then drafts self, the
             target's first 4 blocks and a Llama-3.2-1B-shaped random
@@ -233,7 +236,10 @@ Phases, in order (any failure exits non-zero):
             record; each kernel row carries `spec_launches`, its
             launches in the measured self-draft wave.
   control   live reconfiguration and the engine's control plane of obs/:
-            (1) the 32-layer bf16 weights behind the HTTP API at 8 slots,
+            (1)-(4) run the phases' bf16 weights cut to their first
+            CUT_LAYERS = 8 blocks (the time budget), but (4)'s
+            shed storm, which needs the full depth's service rate.
+            (1) those weights behind the HTTP API at 8 slots,
             --decode-scan 1, a 128 x 128-token bf16 pool, with --autotune
             manual, --sentinel (interval 0.5 s), --sentinel-act,
             --profile-dir and --postmortem-dir: a cold and a warm wave of
@@ -246,7 +252,7 @@ Phases, in order (any failure exits non-zero):
             a concurrent POST (409); a warm wave there; a profile capture
             inside a wave of 96-token chats (its trace must name the
             port's kernels; a concurrent capture 409; --profile-dir warms
-            the profiler at the server's start); then a 16384-page int8
+            the profiler at the server's start); then a 65536-page int8
             pool the card cannot hold (400 naming the OOM, the previous
             config serving). Every chat
             200; each switch's seconds, streams carried, allocated bytes
@@ -293,15 +299,17 @@ Phases, in order (any failure exits non-zero):
             shipments are held (each refused with outcome "epoch");
             no prefill peer (the prefill host stopped). Identical
             streams, both allocators back to their pages after each
-            wave, each outcome counted in cake_kv_adopt_total. (b) 32
-            layers, the phases' bf16 weights, 128 x 128-token pages and
+            wave, each outcome counted in cake_kv_adopt_total. (b) the
+            phases' bf16 weights cut to their first CUT_LAYERS = 8
+            blocks (the time budget), 128 x 128-token pages and
             8 slots on each host, the decode host behind the HTTP API,
             --decode-scan 4, chunk 256: six chats of 1000-token prompts
             (8 pages) and 64 tokens, a warm-up wave then a measured one,
             on the colocated engine, the pair, and the pair over int8
             pages: TTFT p50, decode tok/s, shipments and the bytes a
-            shipment (equal to the count by hand: 134217728 over bf16,
-            67125248 over int8), cake_kv_ship_seconds p50 and its GB/s,
+            shipment (equal to the count by hand: 33554432 over bf16,
+            16781312 over int8, at CUT_LAYERS = 8), cake_kv_ship_seconds
+            p50 and its GB/s,
             the prefill host's TTFT p50 and the channel's share of the
             TTFT, the kernels launched (rpa_mixed on the prefill host,
             rpa_decode on the decode host, the q8 bodies over int8; the
@@ -329,7 +337,8 @@ Phases, in order (any failure exits non-zero):
             (gamma 3); a paged engine switched to the dense engine and
             back under load; a warm wave of the chunked, ring and
             self-draft engines capturing nothing, no plain version on
-            the card. (b) the 32-layer bf16 weights behind the HTTP API:
+            the card. (b)-(d) run the bf16 weights' first CUT_LAYERS =
+            8 blocks (the time budget). (b) those weights behind the HTTP API:
             the dense engine Master.make_engine builds with --kv-pages
             unset (8 slots at max_seq_len 4096, a 4 GiB cache) and
             --auto-prefix, and the paged engine (128 x 128-token pages)
@@ -355,6 +364,50 @@ Phases, in order (any failure exits non-zero):
             dense engine (printed, not gated). A `dense` JSON line holds
             the record; each kernel row carries `dense_launches`, its
             launches in (b)'s measured dense wave.
+  moe       Mixtral's mixture-of-experts (ROADMAP A12). (a) the tiny MoE
+            (2 layers, 4 experts, top 2) at f32, its weights drawn on the
+            host from a seed: the paged engine at --mixed-batch auto and
+            off and --decode-scan 1 and 4, the dense engine, the ring
+            engine (a 16-slot window, prompts past it), a paged
+            self-draft spec engine, each on the card against the same
+            flavor on the CPU over two waves (equal greedy streams; the
+            warm wave captures nothing), and the generator's replayed
+            decode steps against the CPU generator's. (b) Mixtral-8x7B
+            width (D 4096, F 14336, H 32, KV 8, hd 128, E 8, top 2,
+            V 32000) at MOE_LAYERS = 4 of its 32 layers, random weights:
+            the paged engine (8 slots, 128 x 128-token pages) behind
+            the HTTP API, six chats of 64 tokens, two warm-up waves then
+            a measured one, in three drives (MOE_DRIVES): bf16 (mixed
+            steps: rpa_decode, rpa_mixed), the int8 tree over int8 pages
+            (--quant int8 --kv-dtype int8: rpa_decode_q8, rpa_mixed_q8)
+            and bf16 at --mixed-batch off with --prefill-chunk 256 (the
+            short prompts' whole-prompt flash prefills, the long ones'
+            windows: rpa_decode, flash_attn, flash_attn_cached); each
+            measured wave must launch its kernels, no plain version and
+            no capture. TTFT p50, decode tok/s, a decode replay's device
+            ms beside its bound (every expert's bytes, the lm_head's and
+            the KV history's over the memory rate: the dense formulation
+            reads all experts), weight GiB, launches. A `moe` JSON line
+            holds the record; each kernel row carries `moe_launches`,
+            its launches summed over (b)'s three measured waves.
+  sd        Stable Diffusion (ROADMAP A14). (a) tiny_sd_config at f32,
+            the trees drawn on the host: the card generator's u8 images
+            within one level of the CPU generator's (the noise drawn on
+            the host for both), and the captured UNet step within
+            SD_REL_TOL of its eager call, guidance on and off, one
+            capture a variant. (b) v1-5 at 512 x 512, bf16, random
+            weights through Master.from_args: txt2img through POST
+            /api/v1/image, 20 DDIM steps at guidance 7.5 (the UNet's
+            batch 2), a valid 512 x 512 PNG, one capture, the memory
+            peak over it; the UNet step's replay device ms beside its
+            eager host ms and its bound (FLOPs counted from the config,
+            `unet_flops`, at the bf16 peak); then
+            `python -m cake_tpu_torch.cli --model-type image --sd-img2img
+            <that PNG> --sd-img2img-strength 0.8 --sd-n-steps 4` in a
+            child process writes a 512 x 512 image_0.png. (c) turbo
+            (SDXL width: two encoders, Euler, the added condition) at
+            512 x 512, bf16: one step, no guidance, and its UNet step's
+            times. An `sd` JSON line holds the record.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -379,7 +432,12 @@ from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
           "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense")
+          "dense", "moe", "sd")
+# the depth the tiers, recovery and spec phases, the control phase's (1)
+# and (3), the disagg phase's (b) and the dense phase's (b)-(d) run the
+# Llama-3-8B-width bf16 weights at: their first blocks of the 32 (the
+# smoke's time budget)
+CUT_LAYERS = 8
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
             "float16": 989e12}
@@ -3787,7 +3845,8 @@ def phase_tiers(torch, rpa, cfg, params, card: str) -> tuple:
     rounds, fifo, rec["round_a_bf16"] = _tier_round_a(
         torch, cfg, params, torch.bfloat16, "bf16", card)
     rec["round_a_bf16"]["victims"] = _sched_identity(
-        rounds, fifo, "tiers bf16, 32 layers", card, required=False)
+        rounds, fifo, f"tiers bf16, {cfg.num_hidden_layers} layers", card,
+        required=False)
     cfg32 = dataclasses.replace(cfg, num_hidden_layers=SCHED_LAYERS_F32)
     p32 = init_params(cfg32, torch.Generator(device=DEV).manual_seed(3),
                       device=DEV, dtype=torch.float32)
@@ -3945,7 +4004,8 @@ def _guard_sync(torch, eng, graphs) -> tuple:
 
 
 def _recovery_served(torch, rpa, cfg, params, card: str) -> tuple:
-    """Drive 1 (and 6): 32 layers, random bf16 weights, 8 slots, the serve
+    """Drive 1 (and 6): the bf16 weights (cut to CUT_LAYERS), 8 slots, the
+    serve
     phase's 128 x 128 pool, --decode-scan 4, six chats of 64 tokens at
     once. Without a plan (cold and warm waves); with a never-firing plan
     armed at every site (cold wave, then the warm wave under
@@ -5174,7 +5234,7 @@ CONTROL_C = dict(CONTROL_B, kv_dtype="int8")
 # the flash pair's captured prefills join the path
 CONTROL_D = dict(CONTROL_C, slots=8, mixed_batch="off")
 # an int8 pool of 16384 x 128-token pages: ~137 GB, more than the card
-CONTROL_OOM_PAGES = 16384
+CONTROL_OOM_PAGES = 65536        # 16 GiB of int8 pages a layer: past the card
 # (2)'s mid-stream switches, in order (the start: 8 slots, decode_scan 1,
 # 128 x 128-token pages, mixed batching on)
 CONTROL_ID_START = dict(slots=8, decode_scan=1, kv_pages=128,
@@ -5356,7 +5416,8 @@ def _control_profile(srv) -> dict:
 
 
 def _control_served(torch, rpa, fa, cfg, params, card: str, tmp: str):
-    """(1) The 32-layer bf16 weights behind the HTTP API with --autotune
+    """(1) The bf16 weights (cut to CUT_LAYERS) behind the HTTP API with
+    --autotune
     manual, the sentinel and its action plane, --profile-dir and
     --postmortem-dir: a cold and a warm wave at CONTROL_A, switch 1 to
     CONTROL_B inside a wave (every chat holding its first token), a warm
@@ -5841,14 +5902,17 @@ def phase_control(torch, rpa, fa, cfg, params, card: str):
     # a hang (a step that never returns) must not eat the run's time:
     # dump every thread's stack and exit
     faulthandler.dump_traceback_later(CONTROL_HANG_S, exit=True)
-    counts, served, logs = _control_served(torch, rpa, fa, cfg, params,
-                                           card, tmp)
+    # (1) and (3) at the first CUT_LAYERS blocks; (4)'s shed storm
+    # needs the full depth's service rate to shed enough
+    cut_cfg, cut_params = _cut_draft(cfg, params, CUT_LAYERS)
+    counts, served, logs = _control_served(torch, rpa, fa, cut_cfg,
+                                           cut_params, card, tmp)
     rec = dict(served=served)
     parts = {"served": time.perf_counter() - t0}
     for name, fn in (
             ("identity", lambda: _control_identity(torch, card)),
-            ("auto", lambda: _control_auto(torch, cfg, params, logs, card,
-                                           tmp)),
+            ("auto", lambda: _control_auto(torch, cut_cfg, cut_params, logs,
+                                           card, tmp)),
             ("shed", lambda: _control_shed(torch, cfg, params, card)),
             ("breaker", lambda: _control_breaker(torch, card, tmp))):
         t1 = time.perf_counter()
@@ -5870,11 +5934,12 @@ DISAGG_TAILS = (8, 68, 38, 98, 23, 58)   # (a): each chat's own tokens
 DISAGG_NEW_ID = 16                # (a): tokens a chat
 DISAGG_NEW = 64                   # (b): tokens a chat
 DISAGG_PROMPT = 1000              # (b): tokens a chat's prompt: 8 pages
-# (b): a shipment's bytes, reckoned by hand: 8 pages x 32 layers x 128
-# tokens x 8 kv heads x 128 x 2 bytes x (k, v); over int8 one byte an
-# element plus the f32 scales, 8 pages x 32 layers x 8 heads x 4 B x 2
-DISAGG_BYTES = {"bf16": 8 * 32 * 128 * 8 * 128 * 2 * 2,
-                "int8": 8 * 32 * 128 * 8 * 128 * 2 + 8 * 32 * 8 * 4 * 2}
+# (b): a shipment's bytes, reckoned by hand: 8 pages x CUT_LAYERS x
+# 128 tokens x 8 kv heads x 128 x 2 bytes x (k, v); over int8 one byte
+# an element plus the f32 scales, 8 pages x layers x 8 heads x 4 B x 2
+DISAGG_BYTES = {"bf16": 8 * CUT_LAYERS * 128 * 8 * 128 * 2 * 2,
+                "int8": 8 * CUT_LAYERS * 128 * 8 * 128 * 2
+                + 8 * CUT_LAYERS * 8 * 4 * 2}
 DISAGG_OUTCOMES = ("adopted", "degraded", "fault", "epoch", "timeout",
                    "checksum", "geometry")
 
@@ -6077,7 +6142,8 @@ def _disagg_identity(torch, card: str) -> dict:
 
 
 def _disagg_full(torch, rpa, cfg, params, card: str):
-    """(b) 32 layers, bf16 weights, 128 x 128-token pages and 8 slots on
+    """(b) the first CUT_LAYERS bf16 blocks, 128 x 128-token pages and 8
+    slots on
     each host, the decode host behind the HTTP API: six chats of
     DISAGG_PROMPT-token prompts and DISAGG_NEW tokens, a warm-up wave
     then a measured one, on the colocated engine, the pair, and the pair
@@ -6608,7 +6674,8 @@ def _dense_wave(srv, tag: str, head: str) -> dict:
 
 
 def _dense_served(torch, fa, rpa, cfg, params, card: str):
-    """(b) the 32-layer bf16 weights behind the HTTP API: the dense
+    """(b) the bf16 weights (cut to CUT_LAYERS) behind the HTTP API: the
+    dense
     engine Master.make_engine builds with --kv-pages unset (8 slots at
     max_seq_len 4096: a 4 GiB cache) with --auto-prefix, and beside it
     the paged engine (128 x 128-token pages) on the same waves: a warm-up
@@ -6974,6 +7041,615 @@ def phase_dense(torch, rpa, fa, i4, cfg, params, card: str):
     return counts, rec
 
 
+# -- phase: moe -----------------------------------------------------------------
+
+MOE_W_ID = 16                     # (a): the ring flavor's window
+MOE_T_ID = 64                     # (a): max_seq_len of the identity drives
+MOE_PROMPTS_ID = (20, 37, 9)      # (a): prompt tokens (two past the window)
+MOE_NEW_ID = 12                   # (a): tokens a stream
+MOE_LAYERS = 4                    # (b): Mixtral-8x7B's 32 layers cut to 4
+MOE_CHATS = (160, 400, 180, 200, 300, 140)   # (b): each chat's prompt
+MOE_NEW = 64                      # (b): tokens a chat
+MOE_OFF_CHUNK = 256               # (b) off: prompts past it walk windows
+# (b)'s drives: weights, engine Args beside the common ones, and the
+# kernels each measured wave must launch (its KERNELS rows)
+MOE_DRIVES = {
+    "bf16": ("bf16", dict(prefill_chunk=None),
+             ("rpa_decode", "rpa_mixed")),
+    "int8": ("int8", dict(prefill_chunk=None, kv_dtype="int8"),
+             ("rpa_decode_q8", "rpa_mixed_q8")),
+    "off": ("bf16", dict(prefill_chunk=MOE_OFF_CHUNK, mixed_batch="off"),
+            ("rpa_decode", "flash_attn", "flash_attn_cached")),
+}
+MOE_FLAVORS = {
+    "paged-auto-1": dict(kv_pages=24, kv_page_size=16, prefill_chunk=8,
+                         mixed_batch="auto", decode_scan_steps=1),
+    "paged-auto-4": dict(kv_pages=24, kv_page_size=16, prefill_chunk=8,
+                         mixed_batch="auto", decode_scan_steps=4),
+    "paged-off-1": dict(kv_pages=24, kv_page_size=16, prefill_chunk=8,
+                        mixed_batch="off", decode_scan_steps=1),
+    "paged-off-4": dict(kv_pages=24, kv_page_size=16, prefill_chunk=8,
+                        mixed_batch="off", decode_scan_steps=4),
+    "dense": dict(prefill_chunk=8, decode_scan_steps=4),
+    "ring": dict(decode_scan_steps=4),
+    "spec": dict(kv_pages=24, kv_page_size=16, prefill_chunk=8,
+                 spec_gamma=3),
+}
+
+
+def _moe_engine(torch, cfg, params, device, flavor: str):
+    """One MoE engine flavor of (a): greedy, f32 cache."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve.engine import InferenceEngine
+
+    kw = dict(MOE_FLAVORS[flavor])
+    if flavor == "ring":
+        cfg = dataclasses.replace(cfg, sliding_window=MOE_W_ID)
+    if flavor == "spec":
+        kw.update(spec_draft_params=params, spec_draft_config=cfg)
+    return InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), device=device,
+        max_slots=3, max_seq_len=MOE_T_ID, cache_dtype=torch.float32,
+        sampling=SamplingConfig(temperature=0.0, repeat_penalty=1.0), **kw)
+
+
+def _moe_identity(torch, card: str) -> dict:
+    """(a) the tiny MoE (2 layers, 4 experts, top 2) at f32, the weights
+    drawn on the host from a seed: each engine flavor on the card
+    against the same flavor on the CPU over two waves (the second
+    capturing nothing), and the generator's replayed decode steps
+    against the CPU generator's."""
+    import numpy as np
+
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.models.moe import MoEConfig
+    from cake_tpu_torch.models.moe.params import init_params
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+
+    t0 = time.perf_counter()
+    cfg = MoEConfig.tiny()
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(3), device="cpu",
+                        dtype=torch.float32)
+    p_dev = {k: ({n: t.to(DEV) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(DEV))
+             for k, v in p_cpu.items()}
+    prompts = [[(7 * i + 3 * j) % 200 + 3 for j in range(n)]
+               for i, n in enumerate(MOE_PROMPTS_ID)]
+    rec = {}
+    for flavor in MOE_FLAVORS:
+        want = None
+        streams = []
+        for side, (device, p) in enumerate((("cpu", p_cpu), (DEV, p_dev))):
+            eng = _moe_engine(torch, cfg, p, device, flavor)
+            caps = _count_captures(eng)
+            waves = []
+            with eng:
+                for wave in range(1 + side):
+                    n0 = len(caps)
+                    hs = [eng.submit(list(q), max_new_tokens=MOE_NEW_ID)
+                          for q in prompts]
+                    for h in hs:
+                        if not h.wait(600) or h._req.error is not None:
+                            fail(f"moe (a) {flavor} on {device}: a stream "
+                                 f"failed ({h._req.error})")
+                    waves.append(([list(h._req.out_tokens) for h in hs],
+                                  len(caps) - n0))
+            if side == 0:
+                want = waves[0][0]
+            else:
+                streams = waves
+            del eng
+        if any(w[0] != want for w in streams):
+            fail(f"moe (a) {flavor}: the card's streams {streams} are not "
+                 f"the CPU engine's {want}")
+        if DEV == "cuda" and (streams[0][1] == 0 or streams[1][1]):
+            fail(f"moe (a) {flavor}: captures {[w[1] for w in streams]} "
+                 "(the first wave must capture, the warm one nothing)")
+        rec[flavor] = dict(captures=[w[1] for w in streams],
+                           tokens=sum(len(s) for s in want))
+    ids = np.asarray([prompts[0][:9], prompts[1][:9]], np.int32)
+    outs = []
+    for device, p in (("cpu", p_cpu), (DEV, p_dev)):
+        gen = LlamaGenerator(cfg, p, ByteTokenizer(cfg.vocab_size),
+                             max_seq_len=MOE_T_ID, batch_size=2,
+                             sampling=SamplingConfig(temperature=0.0,
+                                                     repeat_penalty=1.0),
+                             cache_dtype=torch.float32, device=device)
+        outs.append(gen.generate_on_device(ids, np.asarray([9, 9]),
+                                           MOE_NEW_ID).tolist())
+    if outs[0] != outs[1]:
+        fail(f"moe (a) generator: card {outs[1]} != CPU {outs[0]}")
+    rec["generator"] = dict(tokens=2 * MOE_NEW_ID)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"moe (a): {len(MOE_FLAVORS)} engine flavors and the generator "
+        f"equal the CPU's at f32; captures "
+        f"{ {k: v['captures'] for k, v in rec.items() if k in MOE_FLAVORS} } "
+        f"in {rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def _moe_wave(srv, tag: str) -> dict:
+    """The six MOE_CHATS at once through the HTTP API: TTFT p50, decode
+    tok/s, the decode replays' device ms (single decode steps' flight
+    records) and the rows' positions at those steps."""
+    eng = srv.engine
+    n0, tok0, dec0 = len(eng.retired), eng.stats.tokens_generated, \
+        eng.stats.decode_time_s
+    r0 = len(eng.flight.records())
+    t_wave = time.perf_counter()
+    for i, n in enumerate(MOE_CHATS):
+        srv.post(f"{tag}{i}", "standard", n, MOE_NEW)
+    srv.join()
+    wall = time.perf_counter() - t_wave
+    bad = {t: c for t, c in srv.status.items()
+           if t.startswith(tag) and c[0] != 200}
+    if bad:
+        fail(f"moe (b) [{tag}]: chats failed {bad}")
+    retired = list(eng.retired)[n0:]
+    if len(retired) != 6 or any(len(r.out_tokens) != MOE_NEW
+                                for r in retired):
+        fail(f"moe (b) [{tag}]: expected six chats of {MOE_NEW} tokens")
+    dec_s = eng.stats.decode_time_s - dec0
+    recs = eng.flight.records()[r0:]
+    dev = [r.device_s for r in recs
+           if r.kind == "decode" and r.device_s and r.rows == 6]
+    return dict(
+        wall_s=wall, ttft_p50_s=statistics.median(
+            r.first_token_t - r.submit_t for r in retired),
+        decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
+                      if dec_s else 0.0),
+        decode_replay_ms=(1e3 * statistics.median(dev) if dev else None),
+        mean_prompt=statistics.mean(len(r.prompt_ids) for r in retired))
+
+
+def _moe_served(torch, rpa, fa, card: str):
+    """(b) Mixtral-8x7B width (D 4096, F 14336, H 32, KV 8, E 8, top 2,
+    V 32000) at MOE_LAYERS of its 32 layers, random weights from a seed:
+    the paged engine (8 slots, 128 x 128-token pages) behind the HTTP
+    API, two warm-up waves then a measured one of the six chats, in each
+    of MOE_DRIVES: bf16 with mixed steps, the int8 tree (--quant int8:
+    experts and attention per-channel int8) over int8 pages, and bf16
+    at --mixed-batch off (flash prefills). Returns (the launches summed
+    over the measured waves, records)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.params import params_bytes
+    from cake_tpu_torch.models.moe import MoEConfig
+    from cake_tpu_torch.models.moe.params import (
+        init_params, init_params_quantized,
+    )
+
+    cfg = dataclasses.replace(MoEConfig.mixtral_8x7b(),
+                              num_hidden_layers=MOE_LAYERS,
+                              use_flash_attention=True)
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    records, launches = {}, Counter()
+    for label, (tree, args_kw, needed) in MOE_DRIVES.items():
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        init = init_params if tree == "bf16" else init_params_quantized
+        params = init(cfg, gen, device=DEV, dtype=torch.bfloat16)
+        weights = params_bytes(params)
+        embed = params_bytes(params["embed"])
+        srv = _SchedServer(torch, cfg, params, torch.bfloat16, False,
+                           kv_pages=128, decode_scan=1, **args_kw)
+        eng = srv.engine
+        try:
+            caps = _count_captures(eng)
+            # two warm-up waves: the threads' arrival order decides which
+            # step variants a wave meets
+            for w in range(2):
+                _moe_wave(srv, f"w{w}{label}")
+            fa.reset_launch_counts()
+            rpa.reset_launch_counts()
+            del caps[:]
+            rec = _moe_wave(srv, f"m{label}")
+            got = {k: n for k, n in {**fa.LAUNCHES, **rpa.LAUNCHES}.items()
+                   if n}
+            # a decode step reads every block weight (all 8 experts of
+            # every layer: the dense formulation) and the lm_head once,
+            # 6 embedding rows, and each row's KV history (int8 pages: a
+            # byte an element and an f32 scale a page and kv head)
+            hist = rec["mean_prompt"] + MOE_NEW / 2
+            kv = 6 * hist * L * KV * hd * 2 * 2
+            if args_kw.get("kv_dtype") == "int8":
+                kv = 6 * L * KV * 2 * (hist * hd + -(-hist // 128) * 4)
+            bound_ms = 1e3 * (weights - embed + kv) / HBM_BYTES_PER_S
+            rec.update(label=label, weights=tree,
+                       kv_dtype=args_kw.get("kv_dtype") or "bf16",
+                       mixed_batch=args_kw.get("mixed_batch", "auto"),
+                       prefill_chunk=args_kw["prefill_chunk"],
+                       captures=len(caps), launches=got,
+                       weight_gib=weights / 2**30,
+                       decode_bound_ms=bound_ms,
+                       impl=eng.flight.impl)
+            if rec["captures"]:
+                fail(f"moe (b) {label}: the measured wave captured "
+                     f"{rec['captures']} graph(s)")
+            plain = {k: n for k, n in got.items() if k.endswith("_plain")}
+            if plain:
+                fail(f"moe (b) {label}: plain versions ran {plain}")
+            for k in needed:
+                if not got.get(k):
+                    fail(f"moe (b) {label}: {k} never launched")
+            launches.update(got)
+            records[label] = rec
+            log(f"moe (b) {label}: TTFT p50 {rec['ttft_p50_s']:.3f} s, "
+                f"decode {rec['decode_tok_s']:.1f} tok/s, decode replay "
+                f"{rec['decode_replay_ms']} ms (bound {bound_ms:.3f} ms), "
+                f"weights {rec['weight_gib']:.3f} GiB, wall "
+                f"{rec['wall_s']:.2f} s, launches {got} [{card}]")
+        finally:
+            srv.close()
+        for t in threading.enumerate():
+            if t.name == "cake-http":
+                t.join(timeout=60)
+        gone = [weakref.ref(eng)]
+        del srv, eng, params
+        _release(torch, gone)
+    return dict(launches), records
+
+
+def phase_moe(torch, rpa, fa, card: str):
+    """The moe phase: (a) the tiny MoE through every engine flavor at
+    f32, (b) Mixtral-8x7B width behind the API in MOE_DRIVES. Returns
+    ((b)'s measured waves' launches, record)."""
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    rec = dict(identity=_moe_identity(torch, card))
+    counts, rec["served"] = _moe_served(torch, rpa, fa, card)
+    rec["seconds"] = time.perf_counter() - t0
+    _release(torch)
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail("moe: the phase kept "
+             f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB")
+    log(f"moe phase: {rec['seconds']:.1f} s")
+    return counts, rec
+
+
+# -- phase: sd ------------------------------------------------------------------
+
+SD_STEPS = 20                     # (b): DDIM steps of the txt2img request
+SD_GUIDANCE = 7.5                 # (b): guidance on: the UNet's batch is 2
+SD_IMG2IMG_STEPS = 4              # (b): the CLI's img2img
+SD_TINY_STEPS = 3                 # (a)
+SD_REL_TOL = 1e-4                 # (a): the replayed step against eager, f32
+
+
+def unet_flops(u, B: int, h: int, w: int, S: int) -> float:
+    """FLOPs (2 x multiply-adds) of one UNet forward of the config `u`
+    at latents h x w, batch B, a context of S tokens: its convolutions,
+    linears and attention products (QK^T and PV), the walk of
+    unet_forward; norms and pointwise ops left out."""
+    ch = u.block_out_channels
+    temb = ch[0] * u.time_embed_dim_mult
+    ctx = u.cross_attention_dim
+
+    def conv(H, W, k, cin, cout):
+        return 2 * B * H * W * k * k * cin * cout
+
+    def lin(n, cin, cout):
+        return 2 * B * n * cin * cout
+
+    def res(H, W, cin, cout):
+        f = conv(H, W, 3, cin, cout) + conv(H, W, 3, cout, cout) \
+            + lin(1, temb, cout)
+        return f + (conv(H, W, 1, cin, cout) if cin != cout else 0)
+
+    def xf(H, W, c, layers):
+        N = H * W
+        f = 2 * lin(N, c, c)                             # proj_in, proj_out
+        for _ in range(layers):
+            f += 4 * lin(N, c, c) + 4 * B * N * N * c      # self attention
+            f += 2 * lin(N, c, c) + 2 * lin(S, ctx, c) \
+                + 4 * B * N * S * c                        # cross attention
+            f += lin(N, c, 8 * c) + lin(N, 4 * c, c)       # GEGLU
+        return f
+
+    f = lin(1, ch[0], temb) + lin(1, temb, temb)
+    if u.addition_embed_dim:
+        f += lin(1, u.addition_embed_dim, temb) + lin(1, temb, temb)
+    f += conv(h, w, 3, u.in_channels, ch[0])
+    H, W = h, w
+    skips = [ch[0]]
+    for i, cout in enumerate(ch):
+        cin = ch[i - 1] if i else ch[0]
+        for j in range(u.layers_per_block):
+            f += res(H, W, cin if j == 0 else cout, cout)
+            if u.attn_blocks[i]:
+                f += xf(H, W, cout, u.transformer_layers_per_block[i])
+            skips.append(cout)
+        if i < len(ch) - 1:
+            H, W = H // 2, W // 2
+            f += conv(H, W, 3, cout, cout)
+            skips.append(cout)
+    mid = u.transformer_layers_per_block[-1] if u.attn_blocks[-1] else 1
+    f += 2 * res(H, W, ch[-1], ch[-1]) + xf(H, W, ch[-1], mid)
+    prev = ch[-1]
+    for i, cout in enumerate(reversed(ch)):
+        src = len(ch) - 1 - i
+        for j in range(u.layers_per_block + 1):
+            f += res(H, W, prev + skips.pop(), cout)
+            prev = cout
+            if u.attn_blocks[src]:
+                f += xf(H, W, cout, u.transformer_layers_per_block[src])
+        if i < len(ch) - 1:
+            H, W = H * 2, W * 2
+            f += conv(H, W, 3, cout, cout)
+    return float(f + conv(h, w, 3, ch[0], u.out_channels))
+
+
+def _sd_tiny(torch, card: str) -> dict:
+    """(a) tiny_sd_config at f32, the trees drawn on the host from a
+    seed: the card generator's u8 images within one level of the CPU
+    generator's for one seed (the noise drawn on the host for both, so
+    both denoise the same latents), and the captured UNet step against
+    its eager call, guidance on and off."""
+    import numpy as np
+
+    from cake_tpu_torch.args import ImageGenerationArgs
+    from cake_tpu_torch.models.sd.clip import init_clip_params
+    from cake_tpu_torch.models.sd.config import tiny_sd_config
+    from cake_tpu_torch.models.sd.image import decode_png
+    from cake_tpu_torch.models.sd.sd import (
+        SDGenerator, SimpleClipTokenizer, unet_step,
+    )
+    from cake_tpu_torch.models.sd.unet import init_unet_params
+    from cake_tpu_torch.models.sd.vae import init_vae_params
+
+    t0 = time.perf_counter()
+    cfg = tiny_sd_config()
+    g = torch.Generator().manual_seed(0)
+    tree = {"clip": init_clip_params(cfg.clip, g),
+            "unet": init_unet_params(cfg.unet, g),
+            "vae": init_vae_params(cfg.vae, g)}
+
+    def moved(t, device):
+        if isinstance(t, dict):
+            return {k: moved(v, device) for k, v in t.items()}
+        if isinstance(t, list):
+            return [moved(v, device) for v in t]
+        return t.to(device)
+
+    images, gens = {}, {}
+    for device in ("cpu", DEV):
+        gen = SDGenerator(cfg, moved(tree, device),
+                          [SimpleClipTokenizer(cfg.clip.vocab_size)],
+                          torch.float32, device=device)
+        host = torch.Generator().manual_seed(5)
+        gen._noise = (lambda shape, _g, gen=gen, host=host: torch.randn(
+            shape, generator=host).to(gen.device, gen.dtype))
+        out = []
+        gen.generate_image(ImageGenerationArgs(
+            image_prompt="a red barn", sd_n_steps=SD_TINY_STEPS,
+            sd_seed=1), out.extend)
+        images[device] = [decode_png(p) for p in out]
+        gens[device] = gen
+    diff = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+               for a, b in zip(images["cpu"], images[DEV]))
+    if diff > 1:
+        fail(f"sd (a): the card's image is {diff} levels from the CPU's")
+    gen = gens[DEV]
+    caps = _count_captures(gen)
+    errs = []
+    gd = torch.Generator(device=DEV).manual_seed(2)
+    side = cfg.height // cfg.vae.downscale_factor
+    for scale, on in ((7.5, True), (3.0, True), (1.0, False)):
+        lat = torch.randn(1, side, side, 4, generator=gd, device=DEV)
+        ctx = torch.randn(2 if on else 1, 77, 64, generator=gd, device=DEV)
+        for t in (951.0, 11.0):
+            got = gen.unet_runner.run(lat, t, ctx, None, scale, on).clone()
+            want = unet_step(gen.params["unet"], cfg.unet, lat,
+                             torch.tensor([t], device=DEV), ctx, None,
+                             scale, on)
+            err = float((got - want).abs().max() / want.abs().max())
+            errs.append(err)
+            if err > SD_REL_TOL:
+                fail(f"sd (a): the replayed UNet step is {err:.2e} of its "
+                     "scale from its eager call")
+    if DEV == "cuda" and caps != ["_make_unet_step"]:
+        fail(f"sd (a): captures {caps}, expected the guidance-off "
+             "variant's one (the guidance-on one came with the images)")
+    rec = dict(levels=diff, step_rel_err=max(errs),
+               seconds=time.perf_counter() - t0)
+    log(f"sd (a): tiny f32 images within {diff} level(s) of the CPU's; "
+        f"the replayed step within {max(errs):.2e} of its eager call "
+        f"({rec['seconds']:.1f} s) [{card}]")
+    return rec
+
+
+def _sd_step_times(torch, gen, card: str) -> dict:
+    """The UNet step of `gen` as its generations run it (B = 1 at the
+    config's latents; guidance on, batch 2, when the preset's default
+    asks for it): the replay's device ms (CUDA events around 10 replays,
+    the inputs' copies into the graph's buffers included) beside the
+    eager call's host ms and the bound (the counted FLOPs at the bf16
+    peak, or the UNet's weight bytes at the memory rate)."""
+    from cake_tpu_torch.models.llama.params import params_bytes
+    from cake_tpu_torch.models.sd.sd import unet_step
+
+    cfg = gen.config
+    f = cfg.vae.downscale_factor
+    h, w = cfg.height // f, cfg.width // f
+    scale = cfg.default_guidance
+    on = scale > 1.0
+    ctx, added = gen.text_embeddings("a red barn", "", on)
+    gd = torch.Generator(device=DEV).manual_seed(3)
+    lat = torch.randn(1, h, w, cfg.vae.latent_channels, generator=gd,
+                      device=DEV, dtype=gen.dtype)
+    run = lambda: gen.unet_runner.run(lat, 500.0, ctx, added,  # noqa: E731
+                                      scale, on)
+    run()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(10):
+        run()
+    b.record()
+    b.synchronize()
+    replay_ms = a.elapsed_time(b) / 10
+    t = torch.tensor([500.0], device=DEV)
+    with torch.inference_mode():
+        unet_step(gen.params["unet"], cfg.unet, lat, t, ctx, added, scale,
+                  on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            unet_step(gen.params["unet"], cfg.unet, lat, t, ctx, added,
+                      scale, on)
+        torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / 3
+    B = 2 if on else 1
+    flops = unet_flops(cfg.unet, B, h, w, 77)
+    nbytes = params_bytes(gen.params["unet"])
+    bound = max(1e3 * flops / PEAK_OPS["bfloat16"],
+                1e3 * nbytes / HBM_BYTES_PER_S)
+    rec = dict(replay_ms=replay_ms, eager_host_ms=eager_ms, bound_ms=bound,
+               bound_by=("operations" if flops / PEAK_OPS["bfloat16"]
+                         > nbytes / HBM_BYTES_PER_S else "bytes"),
+               tflop=flops / 1e12, unet_gib=nbytes / 2**30,
+               latents=[B, h, w])
+    log(f"sd UNet step {cfg.version.value} at {B} x {h} x {w}: replay "
+        f"{replay_ms:.3f} ms device, eager {eager_ms:.3f} ms host, bound "
+        f"{bound:.3f} ms ({rec['tflop']:.3f} TFLOP at the bf16 peak; "
+        f"{rec['unet_gib']:.3f} GiB of weights) [{card}]")
+    return rec
+
+
+def _sd_v15(torch, card: str, tree: str) -> dict:
+    """(b) v1-5 at full width, 512 x 512, bf16, random weights (no
+    checkpoint resolves): txt2img through POST /api/v1/image (SD_STEPS
+    DDIM steps at guidance 7.5), the graph pool's peak over the first
+    capture, the UNet step's replay beside its eager call and its bound,
+    then img2img through the CLI in a child process over the PNG the
+    API returned."""
+    import base64
+    import tempfile
+
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.args import Args, ModelType, SDArgs
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.sd.image import decode_png
+
+    t0 = time.perf_counter()
+    master = Master.from_args(
+        Args(model_type=ModelType.IMAGE, cpu=DEV == "cpu"),
+        SDArgs(sd_version="v1-5"))
+    gen = master.image
+    caps = _count_captures(gen)
+    httpd = start(master, "127.0.0.1:0", block=False)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rec = dict(load_s=time.perf_counter() - t0)
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        code, out = _http_json(url + "/api/v1/image", {
+            "image_prompt": "a red barn in a snowy field",
+            "sd_n_steps": SD_STEPS, "sd_guidance_scale": SD_GUIDANCE,
+            "sd_seed": 1})
+        rec["txt2img_s"] = time.perf_counter() - t1
+        rec["pool_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                - before) / 2**30
+        if code != 200 or len(out.get("images", ())) != 1:
+            fail(f"sd (b): /api/v1/image got {code} {str(out)[:200]}")
+        png = base64.b64decode(out["images"][0])
+        img = decode_png(png)
+        if img.shape != (512, 512, 3) or img.std() == 0:
+            fail(f"sd (b): the image is {img.shape}, std {img.std()}")
+        if caps != ["_make_unet_step"]:
+            fail(f"sd (b): captures {caps}, expected one UNet step")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    rec["step"] = _sd_step_times(torch, gen, card)
+    del master, gen, httpd
+    _release(torch)
+    tmp = tempfile.mkdtemp(prefix="cake-sd-")
+    src = os.path.join(tmp, "txt2img.png")
+    with open(src, "wb") as f:
+        f.write(png)
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=tree)
+    p = subprocess.run(
+        [sys.executable, "-m", "cake_tpu_torch.cli", "--model-type",
+         "image", "--sd-img2img", src, "--sd-img2img-strength", "0.8",
+         "--sd-n-steps", str(SD_IMG2IMG_STEPS)]
+        + (["--cpu"] if DEV == "cpu" else []), cwd=tmp, env=env,
+        capture_output=True, text=True, timeout=300)
+    rec["img2img_cli_s"] = time.perf_counter() - t1
+    out_png = os.path.join(tmp, "image_0.png")
+    if p.returncode != 0 or not os.path.exists(out_png):
+        fail(f"sd (b): the CLI's img2img exited {p.returncode}: "
+             f"{p.stderr[-2000:]}")
+    with open(out_png, "rb") as f:
+        got = decode_png(f.read())
+    if got.shape != (512, 512, 3):
+        fail(f"sd (b): the CLI's image_0.png is {got.shape}")
+    log(f"sd (b) v1-5 512 x 512 bf16: txt2img {SD_STEPS} steps through "
+        f"the API in {rec['txt2img_s']:.2f} s (load {rec['load_s']:.1f} s, "
+        f"pool peak {rec['pool_peak_gib']:.3f} GiB over the first capture "
+        f"and generation); the CLI's img2img ({SD_IMG2IMG_STEPS} steps at "
+        f"0.8) wrote image_0.png in {rec['img2img_cli_s']:.1f} s of child "
+        f"process [{card}]")
+    return rec
+
+
+def _sd_turbo(torch, card: str) -> dict:
+    """(c) turbo (SDXL width: two encoders, Euler, the added condition)
+    at 512 x 512, bf16, random weights: one step, no guidance."""
+    from cake_tpu_torch.args import Args, ImageGenerationArgs, ModelType
+    from cake_tpu_torch.args import SDArgs
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.sd.image import decode_png
+
+    t0 = time.perf_counter()
+    master = Master.from_args(
+        Args(model_type=ModelType.IMAGE, cpu=DEV == "cpu"),
+        SDArgs(sd_version="turbo", sd_height=512, sd_width=512))
+    gen = master.image
+    if gen.config.clip2 is None or not gen.config.unet.addition_embed_dim:
+        fail("sd (c): turbo loaded without its second encoder")
+    out = []
+    t1 = time.perf_counter()
+    master.generate_image(ImageGenerationArgs(image_prompt="a cat",
+                                              sd_seed=3), out.extend)
+    gen_s = time.perf_counter() - t1
+    img = decode_png(out[0]) if len(out) == 1 else None
+    if img is None or img.shape != (512, 512, 3):
+        fail(f"sd (c): turbo gave {len(out)} image(s), the first "
+             f"{None if img is None else img.shape}")
+    rec = dict(generate_s=gen_s, seconds=time.perf_counter() - t0,
+               steps=gen.config.default_steps)
+    rec["step"] = _sd_step_times(torch, gen, card)
+    log(f"sd (c) turbo 512 x 512 bf16: one Euler step, no guidance, in "
+        f"{gen_s:.2f} s with the capture ({rec['seconds']:.1f} s with the "
+        f"load) [{card}]")
+    del master, gen
+    _release(torch)
+    return rec
+
+
+def phase_sd(torch, card: str, tree: str) -> dict:
+    """The sd phase: (a) tiny at f32 against the CPU, (b) v1-5 at 512 x
+    512 through the API and the CLI, (c) turbo at SDXL width."""
+    t0 = time.perf_counter()
+    _release(torch)
+    rec = dict(tiny=_sd_tiny(torch, card))
+    _release(torch)
+    rec["v1_5"] = _sd_v15(torch, card, tree)
+    rec["turbo"] = _sd_turbo(torch, card)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"sd phase: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7063,6 +7739,9 @@ def main(argv=None) -> int:
     disagg_counts = {}
     dense_record = None
     dense_counts = {}
+    moe_record = None
+    moe_counts = {}
+    sd_record = None
     if {"step", "generate", "serve", "prefix", "sched", "tiers",
             "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
@@ -7106,14 +7785,15 @@ def main(argv=None) -> int:
             lap("sched")
         if "tiers" in phases:
             # the fp8 kernels' launches on drive 1 (set to 0 just before)
-            got, tiers_record = phase_tiers(torch, rpa, cfg, params, card)
+            got, tiers_record = phase_tiers(
+                torch, rpa, *_cut_draft(cfg, params, CUT_LAYERS), card)
             counts.update(got)
             lap("tiers")
         if "recovery" in phases:
             # the faulted wave's decode and mixed launches (set to 0 just
             # before it) join the serve phase's in the kernels line
-            got, recovery_record = phase_recovery(torch, rpa, cfg, params,
-                                                  card)
+            got, recovery_record = phase_recovery(
+                torch, rpa, *_cut_draft(cfg, params, CUT_LAYERS), card)
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
             lap("recovery")
@@ -7121,8 +7801,9 @@ def main(argv=None) -> int:
         if "spec" in phases and has_spec:
             # the measured self-draft wave's launches (set to 0 just
             # before it), a kernels-line key of their own
-            spec_counts, spec_record = phase_spec(torch, rpa, fa, i4, cfg,
-                                                  params, card)
+            spec_counts, spec_record = phase_spec(
+                torch, rpa, fa, i4, *_cut_draft(cfg, params, CUT_LAYERS),
+                card)
             lap("spec")
         has_control = importlib.util.find_spec(
             "cake_tpu_torch.autotune.space")
@@ -7137,7 +7818,7 @@ def main(argv=None) -> int:
             # (b)'s measured pair waves' launches (set to 0 just before
             # each), a kernels-line key of their own
             disagg_counts, disagg_record = phase_disagg(
-                torch, rpa, cfg, params, card)
+                torch, rpa, *_cut_draft(cfg, params, CUT_LAYERS), card)
             lap("disagg")
         has_dense = graphs is not None and hasattr(
             importlib.import_module("cake_tpu_torch.serve.graphs"),
@@ -7146,7 +7827,8 @@ def main(argv=None) -> int:
             # (b)'s measured dense wave's launches (set to 0 just before
             # it), a kernels-line key of their own
             dense_counts, dense_record = phase_dense(
-                torch, rpa, fa, i4, cfg, params, card)
+                torch, rpa, fa, i4, *_cut_draft(cfg, params, CUT_LAYERS),
+                card)
             lap("dense")
         # the weight-quantized path, after the bf16 tree is dropped
         del params
@@ -7180,6 +7862,16 @@ def main(argv=None) -> int:
             spec_record["int4"] = _spec_int4(torch, i4, cfg, q4, card)
             spec_counts["int4_matmul"] = spec_record["int4"]["int4_matmul"]
     lap("the weight-quantized runs")
+    if "moe" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.models.moe"):
+        # (b)'s measured waves' launches (set to 0 just before each),
+        # a kernels-line key of their own
+        moe_counts, moe_record = phase_moe(torch, rpa, fa, card)
+        lap("moe")
+    if "sd" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.models.sd"):
+        sd_record = phase_sd(torch, card, tree)
+        lap("sd")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -7210,6 +7902,12 @@ def main(argv=None) -> int:
     if dense_record is not None:
         print(json.dumps({"dense": dense_record, "card": card},
                          default=str), flush=True)
+    if moe_record is not None:
+        print(json.dumps({"moe": moe_record, "card": card}, default=str),
+              flush=True)
+    if sd_record is not None:
+        print(json.dumps({"sd": sd_record, "card": card}, default=str),
+              flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -7235,6 +7933,8 @@ def main(argv=None) -> int:
                                 if disagg_record else None),
             "dense_launches": (dense_counts.get(name, 0)
                                if dense_record else None),
+            "moe_launches": (moe_counts.get(name, 0)
+                             if moe_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
