@@ -47,7 +47,7 @@ saves. With a fleet collector (`collector=`, obs/federation.py) the
 fleet route, ?host= events, the host-labelled families appended to
 /metrics and the fleet merge of a request's timeline read from it. Not
 ported yet: the cluster route and the router's departure notice
-(ROADMAP A13, A15).
+(ROADMAP A13(2), A15).
 
 An image model's master (an image generator and no text generator) is
 served with no engine: the image, health, models and metrics routes

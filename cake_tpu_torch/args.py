@@ -10,7 +10,8 @@ package does (`--max-seq-len`, `--flash-attention/--no-flash-attention`,
 `parse_args` returns the validated Args alone (`Args.validate`, the JAX
 package's rules for the fields the port has, `--quant none|int8|int4`
 among them). A flag of the JAX package that the port does not implement
-yet (`--topology`, `--sp`, `--dp`, `--telemetry-export`, ...), or that
+yet (`--sp`, the multi-host `--mode`, `--name`, `--address`,
+`--heartbeat-timeout`, `--stall-timeout`, `--telemetry-export`, ...), or that
 the JAX package parses and reads nowhere (`--sd-flash-attention`,
 `--sd-sliced-attention-size`), is rejected by argparse, never accepted
 and ignored.
@@ -87,6 +88,14 @@ class Args:
     # row 0 streamed, as the JAX generator does)
     batch_size: int = 1
     max_slots: int = 8                  # continuous-batching decode slots
+    # topology.yml: contiguous block ranges become pipeline stages of
+    # the ("dp", "stage", "tp") mesh (parallel/plan.py)
+    topology: Optional[str] = None
+    tp: int = 1                         # tensor-parallel degree
+    # data-parallel degree: the generator's batch rows split over dp
+    # replicas; an image model's UNet batch over dp positions
+    dp: int = 1
+    microbatches: int = 1               # GPipe microbatches per step
     # prefill prompts in fixed windows of N tokens. Generator: None =
     # whole-prompt prefill; engine: None = 256, capped at max_seq_len.
     # Must divide max_seq_len
@@ -235,7 +244,8 @@ class Args:
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --batch-size, --max-slots, --decode-scan, --spec-gamma,
+        int8 or int4; --tp, --dp, --microbatches, --batch-size,
+        --max-slots, --decode-scan, --spec-gamma,
         --spec-rounds, --trace-ring and --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
         int4 need the paged pool, and int4 an even page size; any other
@@ -251,8 +261,9 @@ class Args:
         is above 0. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        for knob in ("batch_size", "max_slots", "decode_scan", "spec_gamma",
-                     "spec_rounds", "trace_ring", "step_ring"):
+        for knob in ("tp", "dp", "microbatches", "batch_size", "max_slots",
+                     "decode_scan", "spec_gamma", "spec_rounds",
+                     "trace_ring", "step_ring"):
             if getattr(self, knob) < 1:
                 raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
         if self.slo_targets:

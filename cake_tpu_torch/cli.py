@@ -12,6 +12,8 @@ Counterpart of `cake_tpu/cli.py:main` for one device:
     python -m cake_tpu_torch.cli --model-type image --sd-version v1-5 \
         --image-prompt "a red barn" --sd-n-steps 20      # image_0.png
     python -m cake_tpu_torch.cli --model-type image --api 0.0.0.0:8080
+    python -m cake_tpu_torch.cli --model DIR --topology topology.yml \
+        --tp 2 --microbatches 2 --api 0.0.0.0:8080     # sharded serving
 
 Without --model the model is the tiny config with random weights;
 `<model>/tokenizer.json` is read by the port's own reader
@@ -28,6 +30,13 @@ family. `--model-type image` loads Stable Diffusion (--sd-* weights
 from their paths or the local HF cache, else random): one-shot it
 writes image_N.png into the working directory, with --api it serves
 POST /api/v1/image.
+
+`--topology FILE` maps contiguous block ranges onto pipeline stages,
+`--tp` shards each stage's heads and ffn, `--dp` the generator's batch
+rows (an image model's UNet batch), `--microbatches` the GPipe schedule
+(parallel/): the one-shot generator and the --api engine then run the
+pipelined steps over a mesh of the visible cards (the CPU at every
+position with --cpu).
 """
 
 from __future__ import annotations

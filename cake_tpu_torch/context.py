@@ -1,14 +1,23 @@
 """Context: process-wide state built once from Args.
 
 Counterpart of `cake_tpu/context.py` (`_resolve_flash`,
-`Context.from_args`, `load_text_model`, `_maybe_quantize`,
-`load_image_model`), for one device: the dtype, the device
-(`cuda:<device_idx>`, or the CPU with `--cpu`), the model config and the
-text generator (`--batch-size` rows, or with `--draft-model` the batch-1
-SpeculativeGenerator, `_load_speculative`), its weights quantized with
-`--quant int8|int4`; or, with `--model-type image`, the Stable
-Diffusion generator of the SDArgs. Topologies, sequence parallelism
-(`--sp`) and the image mesh (`--dp`) are not ported.
+`Context.from_args`, `load_text_model`, `_load_params_streamed`,
+`_maybe_quantize`, `load_image_model`): the dtype, the device
+(`cuda:<device_idx>`, or the CPU with `--cpu`), the topology, the model
+config and the text generator (`--batch-size` rows, or with
+`--draft-model` the batch-1 SpeculativeGenerator, `_load_speculative`),
+its weights quantized with `--quant int8|int4`; or, with `--model-type
+image`, the Stable Diffusion generator of the SDArgs, its components
+placed by a topology or its UNet batch over `--dp` positions.
+
+A topology with several stages, or `--tp` / `--dp` above 1, builds the
+ParallelPlan's ("dp", "stage", "tp") mesh (parallel/): the generator's
+params and cache are placed on it (streamed shard by shard from the
+safetensors files when the model has weights) and it drives the
+pipelined forward. The mesh's default devices are every visible card
+(the CPU at every position with --cpu); `mesh_devices=` (Python only)
+names them, a card repeated for a co-located mesh. Sequence
+parallelism (`--sp`) and multi-host serving are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 from cake_tpu_torch.args import Args, SDArgs
 from cake_tpu_torch.kv.quantized_pool import QUANTIZED_CACHES
 from cake_tpu_torch.models.llama.config import LlamaConfig, load_config
+from cake_tpu_torch.topology import Topology
 from cake_tpu_torch.utils.devices import (
     resolve_device, resolve_dtype, resolve_kv_dtype,
 )
@@ -59,24 +69,36 @@ class Context:
     device: torch.device
     llama_config: Optional[LlamaConfig] = None
     sd_args: Optional[SDArgs] = None
+    topology: Optional[Topology] = None
+    # the mesh's devices in position order (None: the defaults)
+    mesh_devices: Optional[list] = None
 
     @classmethod
-    def from_args(cls, args: Args,
-                  sd_args: Optional[SDArgs] = None) -> "Context":
-        """Resolve dtype and device (a CUDA device without a card raises)
-        and read `<model>/config.json` when there is one."""
+    def from_args(cls, args: Args, sd_args: Optional[SDArgs] = None,
+                  mesh_devices=None) -> "Context":
+        """Resolve dtype and device (a CUDA device without a card raises),
+        read the topology and `<model>/config.json` when there is one.
+        mesh_devices: the devices of a sharded plan's mesh, in position
+        order (a card may repeat: the co-located mesh)."""
         dtype = resolve_dtype(args.dtype)
         device = resolve_device(
             "cpu" if args.cpu else f"cuda:{args.device_idx}")
+        if mesh_devices is not None:
+            mesh_devices = [torch.device(d) for d in mesh_devices]
+            device = mesh_devices[0]
+        topology = Topology.from_path(args.topology) if args.topology \
+            else None
         llama_config = None
         if args.model and os.path.exists(
                 os.path.join(args.model, "config.json")):
             llama_config = dataclasses.replace(
                 load_config(args.model),
                 use_flash_attention=_resolve_flash(args, device))
-        log.info("context: device=%s dtype=%s", device, args.dtype)
+        log.info("context: device=%s dtype=%s topology=%s", device,
+                 args.dtype, list(topology.keys()) if topology else None)
         return cls(args=args, dtype=dtype, device=device,
-                   llama_config=llama_config, sd_args=sd_args)
+                   llama_config=llama_config, sd_args=sd_args,
+                   topology=topology, mesh_devices=mesh_devices)
 
     def _maybe_quantize(self, params):
         """Apply --quant to a parameter dict without holding two trees:
@@ -98,12 +120,15 @@ class Context:
     def load_text_model(self):
         """Build the LlamaGenerator: the model's config, weights and
         tokenizer, or without --model the tiny config with random
-        weights and the byte tokenizer."""
+        weights and the byte tokenizer; over a sharded plan, its params
+        and cache placed on the plan's mesh and the pipelined forward."""
         from cake_tpu_torch.models import load_text_params
         from cake_tpu_torch.models.llama.generator import (
             ByteTokenizer, LlamaGenerator, load_tokenizer,
         )
         from cake_tpu_torch.ops.sampling import SamplingConfig
+        from cake_tpu_torch.parallel.plan import ParallelPlan
+        from cake_tpu_torch.utils.loading import has_weights
 
         a = self.args
         cfg = self.llama_config or dataclasses.replace(
@@ -114,8 +139,23 @@ class Context:
             tokenizer = load_tokenizer(a.model)
         else:
             tokenizer = ByteTokenizer(cfg.vocab_size)
-        params = self._maybe_quantize(
-            load_text_params(cfg, a.model, self.dtype, self.device))
+        plan = ParallelPlan.from_topology(
+            cfg, self.topology, args=a, num_devices=self._device_count())
+        if plan.sharded:
+            self._check_plan(cfg, plan)
+        if a.draft_model is not None and (plan.sharded
+                                          or a.batch_size != 1):
+            raise ValueError(
+                "--draft-model (speculative decoding) is batch-1 "
+                "single-device; it does not compose with "
+                "--sp/--tp/--dp/topology stages")
+        # the sharded plan streams each shard's slice from the files
+        # (no whole-model copy ever exists); everything else loads whole
+        stream = plan.sharded and has_weights(a.model)
+        params = None
+        if not stream:
+            params = self._maybe_quantize(
+                load_text_params(cfg, a.model, self.dtype, self.device))
         # --repeat-penalty unset: the reference default 1.1, except under
         # --draft-model, where it is 1.0 (the parallel verify replays no
         # penalty ring); an explicit value is honoured. Under
@@ -137,11 +177,11 @@ class Context:
             kv_dtype = (resolve_kv_dtype(a.kv_dtype) if a.kv_dtype
                         else self.dtype)
         max_seq = min(a.max_seq_len, cfg.max_position_embeddings)
+        kwargs = {}
+        if plan.sharded:
+            kwargs = self._place(cfg, plan, params, max_seq, kv_dtype)
+            params = kwargs.pop("params")
         if a.draft_model is not None:
-            if a.batch_size != 1:
-                raise ValueError(
-                    "--draft-model (speculative decoding) is batch-1 "
-                    "single-device")
             if a.prefill_chunk is not None:
                 raise ValueError(
                     "--prefill-chunk is not supported with --draft-model "
@@ -153,13 +193,130 @@ class Context:
             max_seq_len=max_seq,
             batch_size=a.batch_size,
             sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
-            prefill_chunk=a.prefill_chunk, device=self.device)
+            prefill_chunk=a.prefill_chunk, device=self.device, **kwargs)
+
+    def _device_count(self) -> Optional[int]:
+        """The devices a plan may take: the named mesh devices, else every
+        visible card; no bound on the CPU (every position is the CPU)."""
+        if self.mesh_devices is not None:
+            return len(self.mesh_devices)
+        if self.device.type == "cuda":
+            return torch.cuda.device_count()
+        return None
+
+    def _check_plan(self, cfg, plan) -> None:
+        """JAX's refusals of a plan the pipeline cannot run, before any
+        weight loads, and the port's tp-divides-KV-heads check (JAX
+        makes it on its --sp branch only)."""
+        a = self.args
+        if a.batch_size % plan.dp != 0:
+            raise ValueError(
+                f"--batch-size {a.batch_size} must be divisible by "
+                f"--dp {plan.dp}")
+        if (a.batch_size // plan.dp) % a.microbatches != 0:
+            raise ValueError(
+                f"per-replica batch {a.batch_size // plan.dp} must be "
+                f"divisible by --microbatches {a.microbatches} "
+                "(GPipe slices the batch into microbatches)")
+        if plan.tp > 1 and cfg.num_key_value_heads % plan.tp != 0:
+            raise ValueError(
+                f"--tp {plan.tp} must divide kv heads "
+                f"{cfg.num_key_value_heads}")
+        if plan.tp > 1 and a.quant == "int4":
+            # a tp shard of a row-parallel int4 weight must hold whole
+            # groups (the packed nibbles and the per-group scales are
+            # then its own); misaligned dims would split a group
+            from cake_tpu_torch.ops.quant import pick_group
+            for name, dim in (
+                    ("wo", cfg.num_attention_heads * cfg.head_dim),
+                    ("w_down", cfg.intermediate_size)):
+                g = pick_group(dim)
+                if (dim // g) % plan.tp:
+                    raise ValueError(
+                        f"--tp {plan.tp} with --quant int4: {name}'s "
+                        f"contract dim {dim} has {dim // g} groups of {g}, "
+                        "not divisible over tp — a tp shard would split a "
+                        "quantization group. Use int8, drop --tp, or pick "
+                        "a tp that divides the group count")
+
+    def _place(self, cfg, plan, params, max_seq: int, kv_dtype) -> dict:
+        """The generator's sharded state: the plan's mesh, the cache
+        allocated shard by shard, the params placed (or streamed) on it,
+        the pipelined forward."""
+        from cake_tpu_torch.parallel.pipeline import (
+            make_pipeline_forward, place_params,
+        )
+        from cake_tpu_torch.parallel.sharding import create_sharded_cache
+
+        a = self.args
+        mesh = plan.build_mesh(devices=self.mesh_devices,
+                               device_type=self.device.type)
+        if mesh.device(0, 0, 0) != self.device:
+            raise ValueError(
+                f"the mesh's first device {mesh.device(0, 0, 0)} is not "
+                f"the context's {self.device}")
+        tp, dp = plan.tp > 1, plan.dp > 1
+        cache = create_sharded_cache(
+            cfg, a.batch_size, max_seq, mesh,
+            tp_axis="tp" if tp else None, dp_axis="dp" if dp else None,
+            stage_axis="stage", dtype=kv_dtype)
+        if params is None:
+            params = self._load_params_streamed(cfg, mesh, tp)
+        else:
+            params = place_params(params, mesh, tp=tp)
+        fwd = make_pipeline_forward(mesh, cfg,
+                                    num_microbatches=a.microbatches,
+                                    tp=tp, dp=dp)
+        log.info("topology-sharded serving:\n%s", plan.describe())
+        return dict(params=params, forward_fn=fwd, cache=cache,
+                    parallel=(plan, mesh))
+
+    def _load_params_streamed(self, cfg, mesh, tp: bool):
+        """Stream the weights from disk onto their pipeline shards
+        (`load_params_sharded`): each tensor is read once a shard slice
+        and never exists whole; --quant then runs shard by shard."""
+        from cake_tpu_torch.models.llama.params import block_param_keys
+        from cake_tpu_torch.parallel.pipeline import pipeline_param_specs
+        from cake_tpu_torch.parallel.sharding import quantize_sharded
+
+        if cfg.is_moe:
+            from cake_tpu_torch.models.moe.params import load_params_sharded
+        else:
+            from cake_tpu_torch.models.llama.params import (
+                load_params_sharded,
+            )
+        specs = pipeline_param_specs(block_param_keys(cfg),
+                                     tp_axis="tp" if tp else None)
+        log.info("streaming stage-local weight load from %s",
+                 self.args.model)
+        params = load_params_sharded(self.args.model, cfg, mesh, specs,
+                                     dtype=self.dtype)
+        if self.args.quant in ("int8", "int4"):
+            params = quantize_sharded(
+                params, bits=8 if self.args.quant == "int8" else 4)
+        return params
 
     def load_image_model(self):
         """The Stable Diffusion generator of the SDArgs (models/sd/sd.py)
-        on the context's device."""
+        on the context's device, its components placed by the topology,
+        or with --dp its UNet batch over a ("dp",) mesh."""
         from cake_tpu_torch.models.sd.sd import SDGenerator
-        return SDGenerator.load(self)
+        from cake_tpu_torch.parallel.mesh import make_mesh
+        gen = SDGenerator.load(self)
+        a = self.args
+        if a.dp > 1:
+            if self.topology is not None:
+                raise ValueError(
+                    "--dp and an SD component topology are mutually "
+                    "exclusive: one SPMD program cannot mix mesh-sharded "
+                    "and committed-to-device components")
+            n = self._device_count()
+            if n is not None and a.dp > n:
+                raise ValueError(
+                    f"--dp {a.dp} needs {a.dp} devices, have {n}")
+            gen.shard_for_mesh(make_mesh(dp=a.dp, devices=self.mesh_devices,
+                                         device_type=self.device.type))
+        return gen
 
     def _load_speculative(self, cfg, params, tokenizer, sampling, max_seq,
                           kv_dtype):

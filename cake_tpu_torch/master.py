@@ -3,15 +3,17 @@ engine.
 
 Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
 `generate_text`, `generate_image`, `run`, `reset`, `add_message`,
-`_spec_kwargs`), for one device; the multi-host image control is not
-ported (ROADMAP A13). `generate_text` streams each token through a callback and times
-the tokens after the first, so the prefill does not skew tokens/s;
-`make_engine` builds the continuous-batching engine over the
+`_spec_kwargs`); the multi-host image control is not ported (ROADMAP
+A13(2)). `generate_text` streams each token through a callback and
+times the tokens after the first, so the prefill does not skew
+tokens/s; `make_engine` builds the continuous-batching engine over the
 generator's config, params and tokenizer for the REST server: the paged
 engine with --kv-pages (and the --spec-draft draft for paged speculative
 rows), the dense engine without it (the ring engine for a sliding-window
-config shorter than max_seq_len), and over a --draft-model generator the
-dense spec engine.
+config shorter than max_seq_len), over a --draft-model generator the
+dense spec engine, and over a topology-sharded generator the dense (or
+ring) engine on the pipelined step fns (parallel/pipeline
+.make_engine_step_fns) with its own sharded cache.
 """
 
 from __future__ import annotations
@@ -39,10 +41,14 @@ class Master:
         self.tokens_per_s: float = 0.0
 
     @classmethod
-    def from_args(cls, args: Args, sd_args=None) -> "Master":
+    def from_args(cls, args: Args, sd_args=None,
+                  mesh_devices=None) -> "Master":
+        """The generator of the args' model type. mesh_devices: a sharded
+        plan's devices in mesh-position order (Python only; a card may
+        repeat)."""
         from cake_tpu_torch.args import ModelType
         from cake_tpu_torch.context import Context
-        ctx = Context.from_args(args, sd_args)
+        ctx = Context.from_args(args, sd_args, mesh_devices=mesh_devices)
         if args.model_type == ModelType.IMAGE:
             return cls(args, image_generator=ctx.load_image_model())
         return cls(args, text_generator=ctx.load_text_model())
@@ -126,6 +132,8 @@ class Master:
                       recovery=bool(a.recovery))
             kw.update(engine_kwargs)
             return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+        if getattr(g, "parallel", None) is not None:
+            common.update(self._parallel_kwargs(common["max_slots"]))
         kw = dict(
             common,
             kv_dtype=a.kv_dtype,
@@ -153,6 +161,35 @@ class Master:
         )
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+
+    def _parallel_kwargs(self, slots: int) -> dict:
+        """A topology-sharded generator's engine: the pipelined step fns
+        over the generator's mesh and a batched cache placed to match (a
+        ring of W positions a slot for a sliding-window config), as
+        JAX's make_engine builds them."""
+        from cake_tpu_torch.parallel.pipeline import make_engine_step_fns
+        from cake_tpu_torch.parallel.sharding import create_sharded_cache
+
+        g = self.llm
+        plan, mesh = g.parallel
+        tp = plan.tp > 1
+        microbatches = self.args.microbatches
+        if slots % microbatches != 0:
+            raise ValueError(
+                f"--max-slots {slots} must be divisible by "
+                f"--microbatches {microbatches}")
+        ring = (g.config.sliding_window is not None
+                and g.config.sliding_window < g.max_seq_len)
+        cache = create_sharded_cache(
+            g.config, slots,
+            g.config.sliding_window if ring else g.max_seq_len, mesh,
+            tp_axis="tp" if tp else None, dp_axis=None,
+            stage_axis="stage", dtype=g.cache.k.dtype)
+        return dict(
+            step_fns=make_engine_step_fns(
+                mesh, g.config, num_microbatches=microbatches, tp=tp,
+                ring=ring),
+            cache=cache, ring=ring)
 
     def _spec_kwargs(self) -> dict:
         """Paged speculative decoding: the --spec-draft draft's params and

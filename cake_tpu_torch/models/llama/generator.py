@@ -16,9 +16,16 @@ counter-based streams (`ops/sampling.masked_sample`, one seed a row
 from `seed`), where JAX splits a threefry key; greedy rows are JAX's
 tokens. `generate_on_device`, one `lax.scan` in JAX, is one eager
 prefill and num_tokens - 1 replays of the captured step over a scratch
-cache, with one fetch at the end. The prefills stay eager. The
-`forward_fn`/`parallel` hooks (pipeline and sequence-parallel forwards)
-are not ported.
+cache, with one fetch at the end. The prefills stay eager.
+
+`forward_fn=`, `cache=` and `parallel=` are JAX's hooks for a
+topology-sharded model (parallel/pipeline.make_pipeline_forward over a
+ShardedKVCache, the (plan, mesh) pair kept for `Master.make_engine`):
+every prompt then prefills whole through forward_fn (flash on the
+card, per stage and tp rank), the decode step captured over it, and
+`generate_on_device` is JAX's host loop, one eager pipelined prefill
+and a replay of the captured pipelined step a token over a scratch
+copy of the sharded cache. Sequence parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -125,6 +132,9 @@ class LlamaGenerator:
         cache_dtype=torch.bfloat16,
         prefill_chunk: Optional[int] = None,
         device="cuda",
+        forward_fn=None,
+        cache=None,
+        parallel=None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -146,8 +156,15 @@ class LlamaGenerator:
                 f"prefill_chunk {prefill_chunk} must be >= 1 and divide "
                 f"max_seq_len {max_seq_len}")
         self.prefill_chunk = prefill_chunk
-        self.cache = KVCache.create(config, batch_size, max_seq_len,
-                                    dtype=cache_dtype, device=self.device)
+        # forward_fn(params, tokens, cache, pos, rope, last_idx=None,
+        # is_prefill=False) -> (logits, cache): the pipelined forward of
+        # a sharded model, over `cache` (its placement); parallel: the
+        # (plan, mesh) the engine builds its own sharded cache from
+        self._forward_fn = forward_fn
+        self.parallel = parallel
+        self.cache = cache if cache is not None else KVCache.create(
+            config, batch_size, max_seq_len, dtype=cache_dtype,
+            device=self.device)
         self.history = History(config.chat_template)
         self.seed = seed
         self._ring: Optional[torch.Tensor] = None
@@ -201,7 +218,8 @@ class LlamaGenerator:
                                     dtype=torch.int64, device=self.device)
             r = self._decode = GeneratorRunner(
                 self.params, self.cache, self.rope, self.config,
-                self._ring, cols=self.max_seq_len, pool=self._graph_pool)
+                self._ring, cols=self.max_seq_len, pool=self._graph_pool,
+                forward_fn=self._forward_fn)
             r.begin(self.index_pos, len(self.tokens),
                     tok=self.tokens[-1] if self.tokens else None,
                     seeds=self._seeds(0, self.batch_size))
@@ -264,7 +282,18 @@ class LlamaGenerator:
         ids = self._encode_prompt()
         self._prompt_len = len(ids)
         C = self.prefill_chunk
-        if C and len(ids) > C:
+        if self._forward_fn is not None:
+            # the pipelined forward prefills the whole bucket, as JAX's
+            # (its --prefill-chunk windows are the unsharded path's)
+            bucket = bucket_length(len(ids), self.max_seq_len)
+            plen = torch.full((self.batch_size,), len(ids),
+                              dtype=torch.int32, device=self.device)
+            with torch.inference_mode():
+                logits, self.cache = self._forward_fn(
+                    self.params, self._tokens(ids + [0] * (bucket - len(ids))),
+                    self.cache, 0, self.rope, last_idx=plen - 1,
+                    is_prefill=True)
+        elif C and len(ids) > C:
             logits = self._prefill_chunked(ids, C)
         else:
             bucket = bucket_length(len(ids), self.max_seq_len)
@@ -304,14 +333,23 @@ class LlamaGenerator:
         r = self._scan
         if r is None or r.B != B or r.ring.shape[1] != n:
             self._scan = self._scratch = r = None
-            self._scratch = KVCache.create(
-                self.config, B, self.max_seq_len, dtype=self.cache.k.dtype,
-                device=self.device)
+            if self._forward_fn is not None:
+                # a scratch copy of the session's sharded placement
+                if B != self.batch_size:
+                    raise ValueError(
+                        f"a sharded generator's batch is its cache's: "
+                        f"{B} prompts for --batch-size {self.batch_size}")
+                self._scratch = self.cache.fresh()
+            else:
+                self._scratch = KVCache.create(
+                    self.config, B, self.max_seq_len,
+                    dtype=self.cache.k.dtype, device=self.device)
             ring = torch.full((B, n), -1, dtype=torch.int64,
                               device=self.device)
             r = self._scan = GeneratorRunner(
                 self.params, self._scratch, self.rope, self.config, ring,
-                cols=self.max_seq_len, pool=self._graph_pool)
+                cols=self.max_seq_len, pool=self._graph_pool,
+                forward_fn=self._forward_fn)
         else:
             self._scratch.zero_()
             r.ring.fill_(-1)
@@ -349,8 +387,15 @@ class LlamaGenerator:
         self._scan_calls += 1
         with torch.inference_mode():
             r = self._scan_runner(B)
-            logits, _ = forward(self.params, toks, self._scratch, 0,
-                                self.rope, self.config, last_idx=plen - 1)
+            if self._forward_fn is not None:
+                # JAX's host loop over the pipelined forward
+                logits, _ = self._forward_fn(
+                    self.params, toks, self._scratch, 0, self.rope,
+                    last_idx=plen - 1, is_prefill=True)
+            else:
+                logits, _ = forward(self.params, toks, self._scratch, 0,
+                                    self.rope, self.config,
+                                    last_idx=plen - 1)
             if r.options is not self.sampling:
                 r.set_options(self.sampling)
             r.begin(int(plen_arr.max()), 0,

@@ -30,6 +30,14 @@ einsum always: its slots permute key positions, which the kernels'
 sequential-position masks cannot express, and a prefill window attends
 the PRE-write ring plus its own keys before it writes.
 
+Tensor parallelism (parallel/pipeline.py): `block_skeleton`,
+`block_forward`, `run_blocks` and `run_blocks_ragged` take lists with
+one entry per tp rank of a pipeline stage (its layer params, its
+attention, its cache), and `tp_reduce` sums the ranks' row-parallel wo
+and FFN partials (JAX's psum over tp). Unsharded, each list holds the
+one whole layer or cache, and the default `tp_sum` of one partial is
+that partial itself.
+
 The one-slot prefills splice the slot's lines per layer: `run_blocks`
 with `slot` (a [1] int64 tensor on the device, read there, as JAX traces
 it) gathers the slot's [1, T, KV, hd] lines of one layer, runs the
@@ -40,7 +48,8 @@ slices the whole slot out and writes it back, with the cache donated).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -87,16 +96,23 @@ def layer_params(blocks: dict, i: int) -> dict:
             for k, v in blocks.items()}
 
 
-def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
-    """Decoder-block math with a pluggable attention:
-    rms -> qkv proj -> attn_fn(q, k, v) -> o_proj -> residual -> rms ->
-    SwiGLU (or, with a `router` leaf, the experts' `moe_mlp`) ->
-    residual. attn_fn returns (attn [B,S,H,hd], extras).
-    lp: one layer's params (leaves without the L axis); x: [B, S, D].
-    """
+def tp_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The tp ranks' partials summed in rank order on rank 0's device
+    (JAX's psum over tp); a single rank's partial is returned as it
+    is."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p.to(out.device)
+    return out
+
+
+def _attn_partial(lp, x, config: LlamaConfig, attn_fn):
+    """rms -> qkv proj -> attn_fn(q, k, v) -> o_proj: the attention's
+    output before the residual (a tensor-parallel rank's partial sum),
+    and attn_fn's extras."""
     B, S, _ = x.shape
     hd = config.head_dim
-    H = lp["wq"].shape[-1] // hd
+    H = lp["wq"].shape[-1] // hd      # the rank's heads under tp
     KV = lp["wk"].shape[-1] // hd
 
     h = rms_norm(x, lp["attn_norm"], config.rms_norm_eps)
@@ -109,9 +125,12 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
         v = v + lp["bv"]
     attn, extras = attn_fn(q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
                            v.reshape(B, S, KV, hd))
-    x = x + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
+    return qmatmul(attn.reshape(B, S, H * hd), lp["wo"]), extras
 
-    h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps)
+
+def _ffn(lp, h, config: LlamaConfig):
+    """SwiGLU, or with a `router` leaf the experts' `moe_mlp`, before the
+    residual (a tensor-parallel rank's partial sum)."""
     if "router" in lp:
         if not config.is_moe:
             # MoE params paired with a dense config: a real mismatch
@@ -119,29 +138,52 @@ def block_skeleton(lp, x, config: LlamaConfig, attn_fn):
             raise NotImplementedError(
                 "a mixture-of-experts block (a `router` leaf) runs only "
                 "under a MoEConfig: a dense LlamaConfig has no routing")
-        return x + moe_mlp(lp, h, config.num_experts_per_tok), extras
+        return moe_mlp(lp, h, config.num_experts_per_tok)
     gate = F.silu(qmatmul(h, lp["w_gate"]))
-    x = x + qmatmul(gate * qmatmul(h, lp["w_up"]), lp["w_down"])
-    return x, extras
+    return qmatmul(gate * qmatmul(h, lp["w_up"]), lp["w_down"])
 
 
-def block_forward(lp, x, k_cache, v_cache, pos, rope_c, rope_s, mask,
-                  config: LlamaConfig, is_prefill: bool = False,
-                  chunked: bool = False, ring: bool = False,
-                  write_len=None):
-    """One decoder block with its KV-cache write.
+def _device_of(lp) -> torch.device:
+    return lp["attn_norm"].device
 
-    x: [B, S, D]; k_cache/v_cache: one layer's [B, T, KV, hd] (written in
-    place at pos; an int or a 0-d device tensor); rope_c/rope_s: [S, hd/2]
-    rows of positions pos..;
-    mask: [S, T] ([S, W + S] over a ring). chunked: this prefill window
-    continues the cache (pos may be > 0), so flash takes the cache-aware
-    kernel; a fresh prefill (pos == 0) attends only its own S keys.
-    ring: k_cache/v_cache are W-slot rings: attend the pre-write ring
-    plus the fresh window, then write slots (pos + i) % W, the first
-    write_len entries only (the rest is a padded window's junk).
-    Returns (x, k_cache, v_cache)."""
 
+def block_skeleton(ranks, x, config: LlamaConfig, attn_fns,
+                   tp_reduce=tp_sum):
+    """Decoder-block math with a pluggable attention:
+    rms -> qkv proj -> attn_fn(q, k, v) -> o_proj -> residual -> rms ->
+    SwiGLU (or, with a `router` leaf, the experts' `moe_mlp`) ->
+    residual. x: [B, S, D].
+
+    ranks: one layer's params (leaves without the L axis) for each tp
+    rank of the stage, head-sharded, or the one whole layer unsharded;
+    attn_fns: each rank's attention over its heads, returning
+    (attn [B,S,H,hd], extras). Each rank runs on its own device, and
+    tp_reduce(partials) sums the ranks' row-parallel outputs of wo and
+    of the FFN (JAX's `tp_axis` psum; the residual stream stays whole).
+    Head counts come from the weight shapes, so the same math runs on
+    full or sharded weights. Returns (x, [each rank's extras])."""
+    parts, extras = [], []
+    for lp, attn_fn in zip(ranks, attn_fns):
+        out, ex = _attn_partial(lp, x.to(_device_of(lp)), config, attn_fn)
+        parts.append(out)
+        extras.append(ex)
+    x = x + tp_reduce(parts)
+    parts = []
+    for lp in ranks:
+        h = rms_norm(x.to(_device_of(lp)), lp["mlp_norm"],
+                     config.rms_norm_eps)
+        parts.append(_ffn(lp, h, config))
+    return x + tp_reduce(parts), extras
+
+
+def _to(t, dev):
+    return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+
+def _block_attn(k_cache, v_cache, pos, rope_c, rope_s, mask,
+                config: LlamaConfig, is_prefill: bool, chunked: bool,
+                ring: bool, write_len):
+    """block_forward's attention with its cache write (see there)."""
     def attn_fn(q, k, v):
         q = apply_rope(q, rope_c, rope_s)
         k = apply_rope(k, rope_c, rope_s)
@@ -170,37 +212,75 @@ def block_forward(lp, x, k_cache, v_cache, pos, rope_c, rope_s, mask,
         else:
             attn = gqa_attention(q, kc, vc, mask=mask)
         return attn, (kc, vc)
-
-    x, (k_cache, v_cache) = block_skeleton(lp, x, config, attn_fn)
-    return x, k_cache, v_cache
+    return attn_fn
 
 
-def run_blocks(blocks, x, cache: KVCache, pos, rope_c, rope_s, mask,
+def block_forward(ranks, x, k_caches, v_caches, pos, rope_c, rope_s, mask,
+                  config: LlamaConfig, is_prefill: bool = False,
+                  chunked: bool = False, ring: bool = False,
+                  write_len=None, tp_reduce=tp_sum):
+    """One decoder block with its KV-cache write.
+
+    x: [B, S, D]; ranks, k_caches, v_caches: each tp rank's layer params
+    and its one layer's [B, T, KV, hd] lines (`block_skeleton`; one entry
+    unsharded), written in place at pos (an int or a 0-d device tensor);
+    rope_c/rope_s: [S, hd/2] rows of positions pos..;
+    mask: [S, T] ([S, W + S] over a ring). Each rank's positions, rope
+    rows and mask move to its device. chunked: this prefill window
+    continues the cache (pos may be > 0), so flash takes the cache-aware
+    kernel; a fresh prefill (pos == 0) attends only its own S keys.
+    ring: k_cache/v_cache are W-slot rings: attend the pre-write ring
+    plus the fresh window, then write slots (pos + i) % W, the first
+    write_len entries only (the rest is a padded window's junk).
+    Returns (x, k_caches, v_caches)."""
+    fns = []
+    for kc, vc in zip(k_caches, v_caches):
+        dev = kc.device
+        fns.append(_block_attn(kc, vc, _to(pos, dev), rope_c.to(dev),
+                               rope_s.to(dev), _to(mask, dev), config,
+                               is_prefill, chunked, ring,
+                               _to(write_len, dev)))
+    x, extras = block_skeleton(ranks, x, config, fns, tp_reduce=tp_reduce)
+    return x, [e[0] for e in extras], [e[1] for e in extras]
+
+
+def run_blocks(blocks, x, caches, pos, rope_c, rope_s, mask,
                config: LlamaConfig, is_prefill: bool = False,
                chunked: bool = False, ring: bool = False, write_len=None,
-               slot=None, prefix=None):
+               slot=None, prefixes=None, tp_reduce=tp_sum):
     """Every block of the stacked [L, ...] params over the hidden state,
-    layer i writing cache.k[i] / cache.v[i]. slot: a [1] int64 tensor on
-    the cache's device; layer i then runs over that batch slot's lines
-    only, gathered out and copied back (the one-slot prefills' splice).
-    prefix: (k, v) [L, 1, P, KV, hd], written over the slot's positions
-    0..P-1 first (a prefix hit). Returns (x, cache)."""
-    for i in range(cache.k.shape[0]):
-        kc, vc = cache.k[i], cache.v[i]
-        if slot is not None:
-            kc, vc = take_rows(kc, slot), take_rows(vc, slot)
-            if prefix is not None:
-                P = prefix[0].shape[2]
-                kc[:, :P] = prefix[0][i]
-                vc[:, :P] = prefix[1][i]
-        x, _, _ = block_forward(layer_params(blocks, i), x, kc, vc, pos,
-                                rope_c, rope_s, mask, config,
+    layer i writing cache.k[i] / cache.v[i]. blocks, caches: each tp
+    rank's stacked params and KVCache (`block_skeleton`; one entry
+    unsharded). slot: a [1] int64 tensor on the device; layer i then
+    runs over that batch slot's lines only, gathered out and copied back
+    (the one-slot prefills' splice). prefixes: each rank's (k, v)
+    [L, 1, P, KV, hd], written over the slot's positions 0..P-1 first
+    (a prefix hit). Returns (x, caches)."""
+    for i in range(caches[0].k.shape[0]):
+        kcs, vcs = [], []
+        for r, c in enumerate(caches):
+            kc, vc = c.k[i], c.v[i]
+            if slot is not None:
+                s = slot.to(kc.device)
+                kc, vc = take_rows(kc, s), take_rows(vc, s)
+                if prefixes is not None:
+                    pk, pv = prefixes[r]
+                    P = pk.shape[2]
+                    kc[:, :P] = pk[i]
+                    vc[:, :P] = pv[i]
+            kcs.append(kc)
+            vcs.append(vc)
+        x, _, _ = block_forward([layer_params(b, i) for b in blocks], x,
+                                kcs, vcs, pos, rope_c, rope_s, mask, config,
                                 is_prefill=is_prefill, chunked=chunked,
-                                ring=ring, write_len=write_len)
+                                ring=ring, write_len=write_len,
+                                tp_reduce=tp_reduce)
         if slot is not None:
-            index_copy_rows(cache.k[i], 0, slot, kc)
-            index_copy_rows(cache.v[i], 0, slot, vc)
-    return x, cache
+            for c, kc, vc in zip(caches, kcs, vcs):
+                s = slot.to(kc.device)
+                index_copy_rows(c.k[i], 0, s, kc)
+                index_copy_rows(c.v[i], 0, s, vc)
+    return x, caches
 
 
 def forward(params, tokens, cache: KVCache, pos, rope: RopeTables,
@@ -223,10 +303,10 @@ def forward(params, tokens, cache: KVCache, pos, rope: RopeTables,
     mask = uniform_forward_mask(pos, S, cache.max_seq_len,
                                 config.sliding_window, ring=ring,
                                 n_real=write_len, device=x.device)
-    x, cache = run_blocks(params["blocks"], x, cache, pos, rope_c, rope_s,
-                          mask, config, is_prefill=is_prefill,
-                          chunked=chunked, ring=ring, write_len=write_len,
-                          slot=slot, prefix=prefix)
+    x, _ = run_blocks([params["blocks"]], x, [cache], pos, rope_c, rope_s,
+                      mask, config, is_prefill=is_prefill, chunked=chunked,
+                      ring=ring, write_len=write_len, slot=slot,
+                      prefixes=None if prefix is None else [prefix])
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if return_hidden:
         return x, cache
@@ -276,36 +356,42 @@ def prefill_chunk(params, tokens, pos, last_idx, cache: KVCache,
 # -- ragged (per-row position) entry points for continuous batching ----------
 
 
-def run_blocks_ragged(blocks, x, cache: KVCache, pos, active, rope_c,
-                      rope_s, mask, config: LlamaConfig, ring: bool = False,
-                      cache_update=None):
+def run_blocks_ragged(blocks, x, caches, pos, active, rope_c, rope_s,
+                      mask, config: LlamaConfig, ring: bool = False,
+                      cache_update=None, tp_reduce=tp_sum):
     """Every block for per-row-position ragged decode.
 
     x: [B, S, D]; pos/active: [B]; rope_c/rope_s: [B, S, hd/2] per-row
     rows; mask: [B, S, T]. S = 1 for single-token decode; the batched
     speculative verify passes S = gamma + 1 windows with its own
     cache_update. Inactive rows compute garbage and leave their cache
-    lines untouched. cache_update(kc, vc, k, v) -> (kc, vc): the
-    per-layer KV write; default the single-token per-row write
-    (ring-modular with ring)."""
-    if cache_update is None:
-        write = (update_layer_cache_per_row_ring if ring
-                 else update_layer_cache_per_row)
+    lines untouched. blocks, caches: each tp rank's stacked params and
+    KVCache (`block_skeleton`; one entry unsharded), each rank's rows
+    moved to its device. cache_update(kc, vc, k, v) -> (kc, vc): the
+    per-layer KV write (unsharded only); default the single-token
+    per-row write (ring-modular with ring). Returns (x, caches)."""
+    write = (update_layer_cache_per_row_ring if ring
+             else update_layer_cache_per_row)
+    for i in range(caches[0].k.shape[0]):
+        fns = []
+        for c in caches:
+            dev = c.k.device
+            update = cache_update or functools.partial(
+                write, pos=pos.to(dev), active=active.to(dev))
+            fns.append(_ragged_attn(c.k[i], c.v[i], rope_c.to(dev),
+                                    rope_s.to(dev), mask.to(dev), update))
+        x, _ = block_skeleton([layer_params(b, i) for b in blocks], x,
+                              config, fns, tp_reduce=tp_reduce)
+    return x, caches
 
-        def cache_update(kc, vc, k, v):
-            return write(kc, vc, k, v, pos, active)
 
-    for i in range(cache.k.shape[0]):
-        kc, vc = cache.k[i], cache.v[i]
-
-        def attn_fn(q, k, v):
-            q = apply_rope(q, rope_c, rope_s)
-            k = apply_rope(k, rope_c, rope_s)
-            kc2, vc2 = cache_update(kc, vc, k, v)
-            return gqa_attention(q, kc2, vc2, mask=mask), (kc2, vc2)
-
-        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
-    return x, cache
+def _ragged_attn(kc, vc, rope_c, rope_s, mask, cache_update):
+    def attn_fn(q, k, v):
+        q = apply_rope(q, rope_c, rope_s)
+        k = apply_rope(k, rope_c, rope_s)
+        kc2, vc2 = cache_update(kc, vc, k, v)
+        return gqa_attention(q, kc2, vc2, mask=mask), (kc2, vc2)
+    return attn_fn
 
 
 def ragged_decode(params, tokens, pos, active, cache: KVCache,
@@ -319,8 +405,8 @@ def ragged_decode(params, tokens, pos, active, cache: KVCache,
         mask = ring_decode_mask_per_row(pos, T)
     else:
         mask = decode_mask_per_row(pos, T, window=config.sliding_window)
-    x, cache = run_blocks_ragged(params["blocks"], x, cache, pos, active,
-                                 rope_c, rope_s, mask, config, ring=ring)
+    x, _ = run_blocks_ragged([params["blocks"]], x, [cache], pos, active,
+                             rope_c, rope_s, mask, config, ring=ring)
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     return qmatmul(x[:, -1], params["lm_head"]).float(), cache
 
@@ -361,9 +447,9 @@ def forward_window_ragged(params, tokens, cache: KVCache, pos0, active,
     def window_update(kc, vc, k, v):
         return update_layer_cache_window_per_row(kc, vc, k, v, pos0, active)
 
-    x, cache = run_blocks_ragged(params["blocks"], x, cache, pos0, active,
-                                 rope_c, rope_s, mask, config,
-                                 cache_update=window_update)
+    x, _ = run_blocks_ragged([params["blocks"]], x, [cache], pos0, active,
+                             rope_c, rope_s, mask, config,
+                             cache_update=window_update)
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     return qmatmul(x, params["lm_head"]).float(), cache
 

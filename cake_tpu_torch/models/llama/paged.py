@@ -496,7 +496,7 @@ def run_blocks_ragged_paged(blocks, x, cache: PagedKVCache, pos, active,
             return paged_attention(q, pk, pv, cache.table, pos,
                                    impl=attn), None
 
-        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
+        x, _ = block_skeleton([layer_params(blocks, i)], x, config, [attn_fn])
     return x, cache
 
 
@@ -545,7 +545,7 @@ def run_blocks_mixed_paged(blocks, x, cache: PagedKVCache, pos, q_len,
             return paged_attention_mixed(q, pk, pv, cache.table, pos,
                                          q_len, impl=attn), None
 
-        x, _ = block_skeleton(layer_params(blocks, i), x, config, attn_fn)
+        x, _ = block_skeleton([layer_params(blocks, i)], x, config, [attn_fn])
     return x, cache
 
 
@@ -721,8 +721,8 @@ def _prompt_prefill_blocks(params, tokens, table_row, cache, rope,
                 return flash_attention(q, k, v, causal=True), None
             return gqa_attention(q, k, v, mask=mask), None
 
-        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
-                              attn_fn)
+        x, _ = block_skeleton([layer_params(params["blocks"], i)], x,
+                              config, [attn_fn])
     return x
 
 
@@ -818,8 +818,8 @@ def prefill_slot_paged_prefixed(params, tokens, suffix_len, slot,
                                               n_prefix), None
             return gqa_attention(q, k_full, v_full, mask=mask), None
 
-        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
-                              attn_fn)
+        x, _ = block_skeleton([layer_params(params["blocks"], i)], x,
+                              config, [attn_fn])
     return _last_logits(params, x, n, config), cache
 
 
@@ -875,6 +875,6 @@ def prefill_slot_paged_chunk(params, tokens, n_real, slot, pos0,
                                               pos0), None
             return gqa_attention(q, k_full, v_full, mask=mask), None
 
-        x, _ = block_skeleton(layer_params(params["blocks"], i), x, config,
-                              attn_fn)
+        x, _ = block_skeleton([layer_params(params["blocks"], i)], x,
+                              config, [attn_fn])
     return _last_logits(params, x, n, config), cache

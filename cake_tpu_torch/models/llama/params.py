@@ -11,6 +11,12 @@ transposed from HF's [out, in] at load:
 
 With weight quantization (ops/quant.py) the seven block matmul weights
 and the lm_head are `QTensor` nodes (q, scale) instead of tensors.
+
+The placement specs (`block_param_keys`, `block_specs`, `param_specs`,
+`cache_specs`) say which dim of each leaf goes over the mesh's `stage`,
+`tp` and expert axes (a spec is a tuple of axis names or None, JAX's
+PartitionSpec); `load_params_sharded` streams each shard's slice from
+the safetensors files onto its device.
 """
 
 from __future__ import annotations
@@ -268,4 +274,113 @@ def load_params_from_hf(model_dir: str, config: LlamaConfig,
             params["blocks"][key] = torch.stack([
                 leaf(f"model.layers.{i}.{hf_suffix}", transpose)
                 for i in layers])
+    return params
+
+
+# -- sharding ---------------------------------------------------------------
+
+def block_param_keys(config=None, *, moe: Optional[bool] = None) -> tuple:
+    """Stacked-block leaf names for a config's family (dense vs MoE)."""
+    if moe is None:
+        moe = bool(config is not None and config.is_moe)
+    keys = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
+    if config is not None and getattr(config, "attention_bias", False):
+        keys += ["bq", "bk", "bv"]
+    keys += (["router", "we_gate", "we_up", "we_down"] if moe
+             else ["w_gate", "w_up", "w_down"])
+    return tuple(keys)
+
+
+def block_specs(keys, stage_axis: Optional[str] = None,
+                tp_axis: Optional[str] = None,
+                ep_axis: Optional[str] = None) -> dict:
+    """Specs of a set of stacked-block leaves, dense or MoE: the layer
+    dim over stage; q/k/v, gate/up (output dim) and o, down (input dim)
+    over tp (Megatron); the MoE experts over ep, their ffn dim over tp,
+    the router replicated. An unknown leaf raises JAX's KeyError."""
+    S, T, E = stage_axis, tp_axis, ep_axis
+    table = {
+        "attn_norm": (S, None),
+        "wq": (S, None, T),
+        "wk": (S, None, T),
+        "wv": (S, None, T),
+        # QKV bias (Qwen2): sharded like its weight's output dim
+        "bq": (S, T),
+        "bk": (S, T),
+        "bv": (S, T),
+        "wo": (S, T, None),
+        "mlp_norm": (S, None),
+        "w_gate": (S, None, T),
+        "w_up": (S, None, T),
+        "w_down": (S, T, None),
+        "router": (S, None, None),
+        "we_gate": (S, E, None, T),
+        "we_up": (S, E, None, T),
+        "we_down": (S, E, T, None),
+    }
+    unknown = set(keys) - set(table)
+    if unknown:
+        raise KeyError(f"no PartitionSpec rule for block leaves {unknown}")
+    return {k: table[k] for k in keys}
+
+
+def param_specs(tp_axis: Optional[str] = "tp",
+                stage_axis: Optional[str] = None,
+                config: Optional[LlamaConfig] = None) -> dict:
+    """Megatron tensor-parallel specs of a dense tree: column-parallel
+    q/k/v and gate/up, row-parallel o and down, the embedding and the
+    lm_head over the vocabulary, norms replicated; stage_axis shards the
+    layer dim too. config: family leaves such as Qwen2's biases."""
+    return {
+        "embed": (tp_axis, None),
+        "blocks": block_specs(block_param_keys(config, moe=False),
+                              stage_axis=stage_axis, tp_axis=tp_axis),
+        "final_norm": (None,),
+        "lm_head": (None, tp_axis),
+    }
+
+
+def cache_specs(tp_axis: Optional[str] = "tp",
+                dp_axis: Optional[str] = "dp",
+                stage_axis: Optional[str] = None):
+    """KVCache specs, [L, B, S, KV, hd]: layers over stage, batch over
+    dp, kv heads over tp."""
+    from cake_tpu_torch.models.llama.cache import KVCache
+    spec = (stage_axis, dp_axis, None, tp_axis, None)
+    return KVCache(k=spec, v=spec)
+
+
+def load_params_sharded(model_dir: str, config: LlamaConfig, mesh, specs,
+                        dtype=torch.bfloat16) -> Dict:
+    """Stream HF safetensors onto their shards: every leaf of `specs`
+    (the pipeline's placement, parallel/pipeline.pipeline_param_specs)
+    is read one shard slice at a time from the mmap'd file, cast and
+    copied onto that shard's device; no full tensor of the model ever
+    exists on a device or the host. The same tree `load_params_from_hf`
+    + `place_for_pipeline` give."""
+    from cake_tpu_torch.parallel.sharding import stream_leaf
+    from cake_tpu_torch.utils.loading import load_weights
+
+    layout, per_layer, L = hf_param_layout(config)
+    needed = {name for (name, _t) in layout.values()}
+    for i in range(L):
+        for hf_suffix, _t in per_layer.values():
+            needed.add(f"model.layers.{i}.{hf_suffix}")
+    if config.tie_word_embeddings:
+        needed.discard("lm_head.weight")
+    host = load_weights(model_dir, filter_fn=lambda n: n in needed)
+    missing = needed - set(host)
+    if missing:
+        raise KeyError(f"{model_dir}: missing tensors {sorted(missing)[:4]}"
+                       f"{' ...' if len(missing) > 4 else ''}")
+    params: Dict = {"blocks": {}}
+    for (key,), (name, tr) in layout.items():
+        if key == "lm_head" and config.tie_word_embeddings:
+            name, tr = "model.embed_tokens.weight", True
+        params[key] = stream_leaf(lambda name=name: host[name], tr,
+                                  specs[key], mesh, dtype)
+    for key, (hf_suffix, tr) in per_layer.items():
+        params["blocks"][key] = stream_leaf(
+            lambda i, s=hf_suffix: host[f"model.layers.{i}.{s}"], tr,
+            specs["blocks"][key], mesh, dtype, lead=(L,))
     return params

@@ -8,8 +8,9 @@ expert leaves add an E axis: router [L, D, E], we_gate / we_up
 safetensors (model.layers.N.block_sparse_moe.gate.weight,
 .experts.K.{w1,w2,w3}.weight, w1 = gate, w2 = down, w3 = up), so public
 checkpoints load unchanged. `init_params_quantized` draws the int8 tree
-on the card directly, as the Llama family's does. Sharded loading and
-the expert-parallel specs are not ported.
+on the card directly, as the Llama family's does. `param_specs` places
+the experts over an expert axis and their ffn dim over tp;
+`load_params_sharded` streams each shard's slice from the files.
 """
 
 from __future__ import annotations
@@ -182,4 +183,54 @@ def load_params_from_hf(model_dir: str, config: MoEConfig,
         }
         params["lm_head"] = (params["embed"].T if c.tie_word_embeddings
                              else leaf("lm_head.weight", True))
+    return params
+
+
+def param_specs(tp_axis: Optional[str] = "tp", ep_axis: Optional[str] = "ep",
+                stage_axis: Optional[str] = None) -> dict:
+    """Specs of an MoE tree: experts over ep, their ffn dim over tp
+    (Megatron), the router replicated, the embedding and the lm_head over
+    the vocabulary."""
+    from cake_tpu_torch.models.llama.params import (
+        block_param_keys, block_specs,
+    )
+    return {
+        "embed": (tp_axis, None),
+        "blocks": block_specs(block_param_keys(moe=True),
+                              stage_axis=stage_axis, tp_axis=tp_axis,
+                              ep_axis=ep_axis),
+        "final_norm": (None,),
+        "lm_head": (None, tp_axis),
+    }
+
+
+def load_params_sharded(model_dir: str, config: MoEConfig, mesh, specs,
+                        dtype=torch.bfloat16) -> Dict:
+    """Stream HF Mixtral safetensors onto their shards, the MoE analog of
+    models/llama/params.load_params_sharded: each shard reads only its
+    slice of each layer's (and expert's) tensor from the mmap."""
+    from cake_tpu_torch.parallel.sharding import stream_leaf
+    from cake_tpu_torch.utils.loading import load_weights
+
+    c = config
+    L, E = c.num_hidden_layers, c.num_local_experts
+    moe = MOE_PREFIX
+    host = load_weights(model_dir)
+    params: Dict = {"blocks": {}}
+    top = {"embed": ("model.embed_tokens.weight", False),
+           "final_norm": ("model.norm.weight", False),
+           "lm_head": (("model.embed_tokens.weight", True)
+                       if c.tie_word_embeddings else ("lm_head.weight", True))}
+    for key, (name, tr) in top.items():
+        params[key] = stream_leaf(lambda name=name: host[name], tr,
+                                  specs[key], mesh, dtype)
+    for key, (suffix, tr) in MOE_ATTN_LAYOUT.items():
+        params["blocks"][key] = stream_leaf(
+            lambda i, s=suffix: host[f"model.layers.{i}.{s}"], tr,
+            specs["blocks"][key], mesh, dtype, lead=(L,))
+    for key, wn in MOE_EXPERT_LAYOUT:
+        params["blocks"][key] = stream_leaf(
+            lambda i, e, wn=wn: host[
+                f"model.layers.{i}.{moe}.experts.{e}.{wn}.weight"], True,
+            specs["blocks"][key], mesh, dtype, lead=(L, E))
     return params

@@ -1,6 +1,6 @@
 """Stable Diffusion generator: text embeddings, guidance, denoise, decode.
 
-Counterpart of `cake_tpu/models/sd/sd.py` for one device:
+Counterpart of `cake_tpu/models/sd/sd.py`:
   * the prompt's and the negative prompt's CLIP embeddings, padded or
     truncated to 77 tokens and concatenated for classifier-free
     guidance; SDXL's two encoders and its added condition;
@@ -22,9 +22,17 @@ The noise streams are the port's own: the initial latents and the VAE
 posterior's noise come from a `torch.Generator` seeded with `sd_seed`,
 where JAX draws them from threefry keys, so the two packages give
 different images for one seed (the port gives one image for one seed).
-Multi-device serving (`place_components` with a topology,
-`shard_for_mesh`, `--dp`, the multi-host image follower) is not ported
-(ROADMAP A13) and raises.
+
+On one host the components may live on several devices:
+`place_components(topology)` puts clip, clip2, vae and unet on
+`devices[idx % n]` of the node that names each, as JAX does, and the
+activations move between them; `shard_for_mesh` (`--dp`) replicates
+every component on the mesh's devices and splits the UNet's batch (the
+guidance pair, several samples) over the dp positions, each running its
+rows, inside the one captured step. The noise is drawn on the
+generator's device either way, so a placed or meshed generator gives
+the single-device image. The multi-host image follower is not ported
+(ROADMAP A13(2)).
 """
 
 from __future__ import annotations
@@ -95,15 +103,39 @@ class ClipTokenizer:
         return ids + [eos] * (max_len - len(ids))
 
 
+def _unet_dp(replicas, ucfg, inp, ts, context, added):
+    """The UNet's batch split over the dp positions' replicas (device,
+    params): each runs its contiguous rows on its device, the outputs
+    gathered back in row order on the first row's device."""
+    n = len(replicas)
+    parts = []
+    for r, rows in enumerate(torch.arange(inp.shape[0]).tensor_split(n)):
+        if not len(rows):
+            continue
+        dev, params = replicas[r]
+        a, b = int(rows[0]), int(rows[-1]) + 1
+        add = (None if added is None else
+               {k: v[a:b].to(dev) for k, v in added.items()})
+        parts.append(unet_forward(params, ucfg, inp[a:b].to(dev),
+                                  ts[a:b].to(dev), context[a:b].to(dev),
+                                  added_cond=add).to(inp.device))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def unet_step(unet_params, ucfg, latents, t, context, added,
-              guidance_scale, use_guidance: bool):
+              guidance_scale, use_guidance: bool, replicas=None):
     """JAX's `_make_unet_step` body: the UNet on the (doubled, with
     guidance) batch at timestep t (a 0-d or [1] tensor), then the
     guidance mix, its product in f32 for a float scale and for an f32
-    [1] tensor alike. Returns eps like latents."""
+    [1] tensor alike. Returns eps like latents. replicas: the dp mesh's
+    (device, params), the batch split over them (`_unet_dp`)."""
     inp = torch.cat([latents, latents], dim=0) if use_guidance else latents
     ts = t.float().reshape(1).expand(inp.shape[0])
-    eps = unet_forward(unet_params, ucfg, inp, ts, context, added_cond=added)
+    if replicas is not None:
+        eps = _unet_dp(replicas, ucfg, inp, ts, context, added)
+    else:
+        eps = unet_forward(unet_params, ucfg, inp, ts, context,
+                           added_cond=added)
     if use_guidance:
         eps_u, eps_c = eps.chunk(2, dim=0)
         eps = eps_u + (guidance_scale
@@ -120,9 +152,11 @@ class UNetStepRunner(_Graphs):
     stream under `serve/graphs._capturing`, so cuDNN has picked its
     convolution algorithms before the capture."""
 
-    def __init__(self, params, ucfg, device, pool=None, on_capture=None):
+    def __init__(self, params, ucfg, device, pool=None, on_capture=None,
+                 replicas=None):
         super().__init__(device, pool=pool, on_capture=on_capture)
         self.params, self.ucfg = params, ucfg
+        self.replicas = replicas
         self._bufs: dict = {}
 
     def _idle(self, variant):
@@ -132,7 +166,8 @@ class UNetStepRunner(_Graphs):
         b = self._bufs[variant]
         b["eps"].copy_(unet_step(self.params, self.ucfg, b["latents"],
                                  b["t"], b["context"], b["added"],
-                                 b["g"], variant[0]))
+                                 b["g"], variant[0],
+                                 replicas=self.replicas))
 
     @torch.inference_mode()
     def run(self, latents, t: float, context, added, guidance_scale: float,
@@ -178,13 +213,25 @@ class SDGenerator:
         self.params = params          # {"clip", "clip2"?, "unet", "vae"}
         self.tokenizers = tokenizers  # [tok] or [tok, tok2] for XL
         self.dtype = dtype
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
+        # component -> its device (place_components); the dp mesh's
+        # UNet replicas (shard_for_mesh)
+        self._devices = {name: self.device for name in params}
+        self._mesh = None
+        self._placed = False
+        self._replicas = None
         # the capture counter (cake_jit_compiles_total{fn=...})
         self.flight = StepTelemetry(impl="sd", capacity=1)
+        self._new_unet_runner()
+
+    def _new_unet_runner(self) -> None:
+        """The captured UNet step on the UNet's device (anew after a
+        placement: its graphs hold the old buffers)."""
+        dev = self._devices["unet"]
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if dev.type == "cuda" else None)
         self.unet_runner = UNetStepRunner(
-            params["unet"], config.unet, self.device, pool=self._pool,
-            on_capture=self._count_capture)
+            self.params["unet"], self.config.unet, dev, pool=self._pool,
+            on_capture=self._count_capture, replicas=self._replicas)
 
     def _count_capture(self, variant, seconds: float) -> None:
         log.info("sd: captured the UNet step %s in %.2f s", variant, seconds)
@@ -192,15 +239,54 @@ class SDGenerator:
 
     # -- multi-device --------------------------------------------------------
 
-    def place_components(self, topology) -> None:
-        raise NotImplementedError(
-            "placing SD components on devices by a topology is not "
-            "ported (ROADMAP A13): the port runs on one device")
+    def place_components(self, topology, devices=None) -> None:
+        """Map the components onto devices by topology names (the
+        reference's clip/vae/unet worker assignment, done as placement):
+        a node naming `clip`, `clip2`, `vae` or `unet` puts it on
+        devices[idx % n], idx its first `devices:` entry (0 without).
+        devices: default every visible card, or the CPU on the CPU."""
+        from cake_tpu_torch.parallel.mesh import default_devices
+        if self._mesh is not None:
+            raise ValueError(
+                "an SD component topology and the --dp mesh are mutually "
+                "exclusive")
+        devices = [torch.device(d) for d in
+                   (devices or default_devices(self.device.type))]
+        self._placed = True
+        self.params = dict(self.params)      # the caller's dict stays
+        for name in ("clip", "clip2", "vae", "unet"):
+            found = topology.get_node_for_layer(name)
+            if found is None or name not in self.params:
+                continue
+            node_name, node = found
+            idx = node.devices[0] if node.devices else 0
+            dev = devices[idx % len(devices)]
+            self.params[name] = _tree_to(self.params[name], dev)
+            self._devices[name] = dev
+            log.info("sd: %s -> %s (node %s)", name, dev, node_name)
+        self._new_unet_runner()
 
     def shard_for_mesh(self, mesh) -> None:
-        raise NotImplementedError(
-            "the whole-pipeline SD mesh (--dp, multi-host) is not ported "
-            "(ROADMAP A13): the port runs on one device")
+        """The UNet's batch over the dp positions of `mesh` (a Mesh whose
+        only axis is "dp", or a ("dp", "stage", "tp") mesh of stage and
+        tp 1): the UNet is replicated once on each distinct device and
+        each position runs its contiguous rows of the (guidance-doubled,
+        multi-sample) batch, inside the one captured step. Mutually
+        exclusive with per-component placement."""
+        if self._placed:
+            raise ValueError(
+                "--dp and an SD component topology are mutually "
+                "exclusive: the mesh replicates every component")
+        devices = list(mesh.devices.flat)
+        copies: dict = {}
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = (self.params["unet"] if dev == self.device
+                               else _tree_to(self.params["unet"], dev))
+        self._mesh = mesh
+        self._replicas = [(dev, copies[dev]) for dev in devices]
+        self._new_unet_runner()
+        log.info("sd: the UNet batch over dp=%d positions", len(devices))
 
     # -- loading -------------------------------------------------------------
 
@@ -264,7 +350,11 @@ class SDGenerator:
                 "clip2", sd_args.sd_clip2,
                 lambda: init_clip_params(cfg.clip2, gen, dtype, dev))
             toks.append(tokenizer_for("tokenizer_2", sd_args.sd_tokenizer_2))
-        return cls(cfg, params, toks, dtype, device=dev)
+        gen = cls(cfg, params, toks, dtype, device=dev)
+        if getattr(ctx, "topology", None) is not None:
+            gen.place_components(ctx.topology,
+                                 devices=getattr(ctx, "mesh_devices", None))
+        return gen
 
     # -- text embeddings -----------------------------------------------------
 
@@ -276,21 +366,25 @@ class SDGenerator:
         cfg = self.config
         added = None
 
-        def encode_with(tok, clip_params, clip_cfg, text, skip):
+        unet_dev = self._devices["unet"]
+
+        def encode_with(name, tok, clip_cfg, text, skip):
             ids = torch.tensor([tok.encode(text)], dtype=torch.int64,
-                               device=self.device)
-            return clip_encode(clip_params, clip_cfg, ids,
-                               output_hidden_state=skip)
+                               device=self._devices[name])
+            out = clip_encode(self.params[name], clip_cfg, ids,
+                              output_hidden_state=skip)
+            # the embeddings go to the UNet's device at once (the two
+            # encoders may live apart)
+            return tuple(o.to(unet_dev) for o in out)
 
         # clip skip (-2, no final_ln) for the XL encoders only; v2.1's
         # ViT-H ships truncated to 23 layers and uses its final state
         skip = -2 if cfg.version in (SDVersion.XL, SDVersion.TURBO) else -1
-        cond, pooled = encode_with(self.tokenizers[0], self.params["clip"],
-                                   cfg.clip, prompt, skip)
+        cond, pooled = encode_with("clip", self.tokenizers[0], cfg.clip,
+                                   prompt, skip)
         if cfg.clip2 is not None:
-            cond2, pooled2 = encode_with(self.tokenizers[1],
-                                         self.params["clip2"], cfg.clip2,
-                                         prompt, -2)
+            cond2, pooled2 = encode_with("clip2", self.tokenizers[1],
+                                         cfg.clip2, prompt, -2)
             cond = torch.cat([cond, cond2], dim=-1)
             pooled = pooled2
         if not use_guidance:
@@ -299,12 +393,11 @@ class SDGenerator:
                          "time_ids": self._time_ids(1)}
             return cond, added
 
-        un, un_pooled = encode_with(self.tokenizers[0], self.params["clip"],
-                                    cfg.clip, uncond_prompt, skip)
+        un, un_pooled = encode_with("clip", self.tokenizers[0], cfg.clip,
+                                    uncond_prompt, skip)
         if cfg.clip2 is not None:
-            un2, un_pooled2 = encode_with(self.tokenizers[1],
-                                          self.params["clip2"], cfg.clip2,
-                                          uncond_prompt, -2)
+            un2, un_pooled2 = encode_with("clip2", self.tokenizers[1],
+                                          cfg.clip2, uncond_prompt, -2)
             un = torch.cat([un, un2], dim=-1)
             un_pooled = un_pooled2
             added = {"text_embeds": torch.cat([un_pooled, pooled], dim=0),
@@ -314,12 +407,13 @@ class SDGenerator:
     def _time_ids(self, b: int) -> torch.Tensor:
         h, w = self.config.height, self.config.width
         return torch.tensor([[h, w, 0, 0, h, w]], dtype=torch.float32,
-                            device=self.device).repeat(b, 1)
+                            device=self._devices["unet"]).repeat(b, 1)
 
     # -- generation ----------------------------------------------------------
 
     def _noise(self, shape, generator: torch.Generator) -> torch.Tensor:
-        """Standard normal noise of `shape` in the model dtype."""
+        """Standard normal noise of `shape` in the model dtype, drawn on
+        the generator's device (the callers hand it to a component's)."""
         return torch.randn(shape, generator=generator, device=self.device,
                            dtype=self.dtype)
 
@@ -363,13 +457,15 @@ class SDGenerator:
             image = image_preprocess(args.sd_img2img, cfg.height, cfg.width)
             init_latent = vae_encode(
                 self.params["vae"], cfg.vae,
-                torch.as_tensor(image, device=self.device)
+                torch.as_tensor(image, device=self._devices["vae"])
                 .to(self.dtype)[None],
-                noise=self._noise((1, lat_h, lat_w, lat_c), gen))
+                noise=self._noise((1, lat_h, lat_w, lat_c), gen).to(
+                    self._devices["vae"])).to(self._devices["unet"])
             t_start = max(steps - int(args.sd_img2img_strength * steps), 0)
 
         for sample_idx in range(args.sd_num_samples):
-            noise = self._noise((bsize, lat_h, lat_w, lat_c), gen)
+            noise = self._noise((bsize, lat_h, lat_w, lat_c), gen).to(
+                self._devices["unet"])
             if init_latent is not None:
                 latents = sched.add_noise(init_latent.repeat(bsize, 1, 1, 1),
                                           noise, t_start)
@@ -397,12 +493,22 @@ class SDGenerator:
 
     def decode_to_u8(self, latents) -> np.ndarray:
         """VAE decode -> u8 RGB [B, H, W, 3] on the host."""
-        imgs = vae_decode(self.params["vae"], self.config.vae, latents)
+        imgs = vae_decode(self.params["vae"], self.config.vae,
+                          latents.to(self._devices["vae"]))
         return ((imgs.clamp(-1, 1) + 1.0) * 127.5).to(torch.uint8).cpu() \
             .numpy()
 
     def _decode_to_pngs(self, latents) -> List[bytes]:
         return [encode_png(img) for img in self.decode_to_u8(latents)]
+
+
+def _tree_to(tree, dev):
+    """A component's param tree (dicts, lists, tensors) on `dev`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
 def image_preprocess(path: str, height: int, width: int) -> np.ndarray:

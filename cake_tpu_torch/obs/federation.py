@@ -5,7 +5,7 @@ frames (JSON over the utils/wire.py framing, a token-gated hello), the
 same per-host views, clock correction and read surfaces, and the same
 metric families, so a port exporter's frames are ingested by the JAX
 package's collector and the other way round. The port serves from one
-process until multi-host serving lands (ROADMAP A13): the collector
+process until multi-host serving lands (ROADMAP A13(2)): the collector
 feeds the API server's ``GET /api/v1/fleet``, ``?host=`` events, the
 host-labelled families appended to ``/metrics`` and the fleet merge of
 a request's timeline, and an exporter ships any process's telemetry to

@@ -287,3 +287,51 @@ def quantize_params_leafwise(params: dict, bits: int = 4,
     out["lm_head"] = quantize(lm, (0,))
     del lm
     return out
+
+
+# -- placement specs of quantized leaves -----------------------------------------
+#
+# A spec is a tuple with one entry per dim: None (replicated), a mesh
+# axis name, or a tuple of names (parallel/sharding.py), JAX's
+# PartitionSpec as a plain tuple.
+
+def expand_spec(spec, contract_dims: Sequence[int], ndim: int,
+                groupwise: bool = False) -> QTensor:
+    """(q_spec, scale_spec) for a quantized weight from its logical spec.
+
+    q keeps the weight's spec (same dims). Per-channel: the scale drops
+    the contracted dims, so its spec keeps only the surviving entries —
+    sharding a contracted dim shards q only. Group-wise: the scale keeps
+    every dim (the contract dim became the group dim), so it inherits
+    the whole spec — sharding the contract dim splits whole groups as
+    long as each shard stays group-aligned."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    if groupwise:
+        return QTensor(q=tuple(entries), scale=tuple(entries))
+    scale_entries = [e for i, e in enumerate(entries)
+                     if i not in tuple(contract_dims)]
+    return QTensor(q=tuple(entries), scale=tuple(scale_entries))
+
+
+def contract_dims_for_path(path) -> Sequence[int]:
+    """Contracted dims of a quantized leaf by its path of dict keys:
+    stacked block leaves by name, the lm_head its input dim 0."""
+    for name in reversed(tuple(path)):
+        if name in _BLOCK_CONTRACT:
+            return _BLOCK_CONTRACT[name]
+        if name == "lm_head":
+            return (0,)
+    raise KeyError(
+        f"no contract-dim rule for quantized leaf at path {path!r}")
+
+
+def expand_specs_for_quant(params, spec_tree, path=()):
+    """spec_tree with QTensor(q_spec, scale_spec) nodes wherever `params`
+    holds a QTensor, so the two trees match leaf for leaf."""
+    if isinstance(params, QTensor):
+        return expand_spec(spec_tree, contract_dims_for_path(path),
+                           params.q.ndim, groupwise=is_groupwise(params))
+    if isinstance(params, dict):
+        return {k: expand_specs_for_quant(v, spec_tree[k], path + (k,))
+                for k, v in params.items()}
+    return spec_tree

@@ -159,8 +159,17 @@ JAX engine's row rules (`_decode_burst`).
 Device work happens only on the engine thread, under
 torch.inference_mode(); commands from other threads (a prefix
 registration from an HTTP handler) run there between iterations
-(`_run_on_engine_thread`). Not ported yet: multi-host serving (the
-control channel and its lockstep followers; ROADMAP A13).
+(`_run_on_engine_thread`).
+
+Topology-sharded serving (`step_fns`, `cache`, `ring`: JAX's seam) runs
+the dense or ring engine over the caller's steps and cache: a sharded
+model's pipelined prefill, decode and chunk steps
+(parallel/pipeline.make_engine_step_fns) captured by the same runners,
+its ShardedKVCache reset in place by a recovery. Such an engine serves
+a prefix by installing its sharded lines and windowing the suffix
+through the chunk step, takes no --kv-pages, speculation or live
+switch, as in JAX. Not ported yet: multi-host serving (the control
+channel and its lockstep followers; ROADMAP A13(2)).
 """
 
 from __future__ import annotations
@@ -210,6 +219,10 @@ from cake_tpu_torch.obs.events import EventBus
 from cake_tpu_torch.obs.slo import SLOAccountant, parse_slo_targets
 from cake_tpu_torch.obs.tracing import RequestTracer
 from cake_tpu_torch.ops.sampling import SamplingConfig, masked_sample
+from cake_tpu_torch.parallel.pipeline import (
+    install_prefix_sharded, prefix_lines,
+)
+from cake_tpu_torch.parallel.sharding import zeros_placed
 from cake_tpu_torch.sched import (
     SchedConfig, ShedController, ShedError, make_scheduler,
 )
@@ -494,6 +507,15 @@ class QueueFullError(Exception):
         self.retry_after = retry_after
 
 
+def _decode_as_forward(decode_fn):
+    """A decode_ragged_fn(params, tokens, pos, active, cache, rope,
+    config) in the ragged forward's argument order (params, tokens,
+    cache, pos, active, rope, config), which the decode runner calls."""
+    def forward_fn(params, tokens, cache, pos, active, rope, config):
+        return decode_fn(params, tokens, pos, active, cache, rope, config)
+    return forward_fn
+
+
 class InferenceEngine:
     """Slot-based continuous batching over one shared paged KV pool."""
 
@@ -553,6 +575,9 @@ class InferenceEngine:
         disagg_peer: Optional[str] = None,
         disagg_token: Optional[str] = None,
         disagg_timeout_s: float = 30.0,
+        step_fns=None,
+        cache=None,
+        ring: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -598,9 +623,36 @@ class InferenceEngine:
         self.paged = kv_pages is not None
         self.ring = (not self.paged and config.sliding_window is not None
                      and config.sliding_window < max_seq_len)
+        # step_fns: JAX's seam, 2-4 fns replacing the dense engine's
+        # steps, (prefill_slot_fn, decode_ragged_fn[, decode_scan_fn
+        # [, prefill_chunk_fn]]) with the signatures of
+        # model.prefill_slot, model.decode_step_ragged, the ragged
+        # forward the decode runner replays K times a burst
+        # (model.forward_ragged's) and model.prefill_slot_chunk, over
+        # `cache`, placed for them (parallel/pipeline
+        # .make_engine_step_fns: topology-sharded serving); ring=True:
+        # they run a ring cache (the caller passes a W-long one)
+        self._custom_steps = step_fns is not None
+        self._step_fns = None
+        if self._custom_steps:
+            fns = tuple(step_fns)
+            if not 2 <= len(fns) <= 4:
+                raise ValueError(
+                    f"step_fns takes 2-4 functions, got {len(fns)}")
+            self._step_fns = fns = fns + (None,) * (4 - len(fns))
+            self.ring = bool(ring) and not self.paged
+            if ring and fns[3] is None:
+                raise ValueError(
+                    "ring step fns require a chunked-prefill variant "
+                    "(every ring prompt prefills in windows <= W)")
+            if cache is None and not self.paged:
+                raise ValueError(
+                    "custom step fns run over the cache placed for them: "
+                    "pass cache=")
         self._spec = draft_params is not None
         if self._spec:
-            if (config.sliding_window is not None
+            if self._custom_steps or (
+                    config.sliding_window is not None
                     and config.sliding_window < max_seq_len):
                 raise ValueError(
                     "the speculative engine requires the built-in dense "
@@ -614,12 +666,16 @@ class InferenceEngine:
                 raise ValueError(
                     f"draft params live on {draft_params['embed'].device}, "
                     f"the engine on {self.device}")
-        if self.paged and (self._spec or (
+        if self.paged and (self._spec or self._custom_steps or (
                 config.sliding_window is not None
                 and config.sliding_window < max_seq_len)):
             raise ValueError(
                 "--kv-pages requires the built-in dense single-device "
                 "path (no topology/ring/speculative mode)")
+        if self.paged and cache is not None:
+            raise ValueError(
+                "--kv-pages builds its own page pool; a pre-placed "
+                "cache= cannot apply")
         if disagg is not None and kv_pages is None:
             raise ValueError(
                 "--disagg requires the paged KV pool (--kv-pages): "
@@ -656,6 +712,18 @@ class InferenceEngine:
         if decode_scan_steps < 1:
             raise ValueError(
                 f"--decode-scan must be >= 1, got {decode_scan_steps}")
+        if self._custom_steps:
+            if decode_scan_steps > 1 and self._step_fns[2] is None:
+                log.warning(
+                    "decode_scan_steps=%d ignored: these custom step fns "
+                    "provide no scan variant", decode_scan_steps)
+                decode_scan_steps = 1
+            if prefill_chunk is not None and self._step_fns[3] is None:
+                # before validation: an engine whose step fns lack a
+                # chunk variant ignores the knob with a warning
+                log.warning("prefill_chunk ignored: these custom step fns "
+                            "provide no chunked-prefill variant")
+                prefill_chunk = None
         if self._spec:
             if prefill_chunk is not None:
                 log.warning("prefill_chunk ignored in speculative mode "
@@ -706,7 +774,10 @@ class InferenceEngine:
         # positions), and the spec engine keeps its draft cache aligned
         # with the target (a prefix-cached target prefill would leave
         # the draft cold): neither serves prefixes
-        self._prefix_capable = not self.ring and not self._spec
+        # a pipelined path serves prefixes when it has a chunk variant
+        # (the suffix windows at pos0 = P through it)
+        self._prefix_capable = (not self.ring and not self._spec and (
+            not self._custom_steps or self._step_fns[3] is not None))
         # --kv-dtype: "int8"/"int4" select the quantized page pools (int8
         # pages or nibble-packed int4 pages + per-page, per-kv-head f32
         # scales); another name is a plain pool dtype, fp8 ("f8_e4m3",
@@ -752,7 +823,13 @@ class InferenceEngine:
                      self.cache.memory_bytes() / 2**30, self.device)
         else:
             self._pager = None
-            self.cache = self._new_dense_cache(config)
+            if self._custom_steps:
+                # the caller's placement, kept (not its tensors) for a
+                # rebuild after an error
+                self.cache = cache
+                self._cache_placement = cache.placement()
+            else:
+                self.cache = self._new_dense_cache(config)
             log.info("%s KV cache: %d slots x %d positions, %s (%.2f GiB) "
                      "on %s", "ring" if self.ring else "dense", max_slots,
                      self.cache.max_seq_len, cache_dtype,
@@ -1679,10 +1756,14 @@ class InferenceEngine:
                           "aligned with the target, and a prefix-cached "
                           "target prefill would leave the draft cold "
                           "(acceptance would silently collapse)")
-            else:
+            elif self.ring:
                 reason = ("ring sliding-window caches own their layout "
                           "(a prefix install writes dense positions the "
                           "ring would misplace)")
+            else:
+                reason = ("these custom step fns provide no "
+                          "chunked-prefill variant to window the suffix "
+                          "at the prefix boundary")
             raise ValueError(f"prefix caching is unavailable here: {reason}")
         ids = list(prefix_ids)
         if not ids:
@@ -1719,9 +1800,9 @@ class InferenceEngine:
         with self._rid_lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
-        k, v = self._prefix_kv_device(ids, P, bucket)
+        kv = self._prefix_kv_device(ids, P, bucket)
         with self._rid_lock:
-            self._prefixes[pid] = (list(ids), (k, v))
+            self._prefixes[pid] = (list(ids), kv)
         log.info("registered prefix %d: %d tokens", pid, P)
         return pid
 
@@ -1730,10 +1811,19 @@ class InferenceEngine:
         one-slot cache of that length (flash on the card, as every
         fresh prefill), its first P positions kept. Eager: JAX compiles
         it once a bucket, at registration time only."""
-        tmp = KVCache.create(self.config, 1, bucket,
-                             dtype=self.cache.k.dtype, device=self.device)
         padded = list(ids) + [0] * (bucket - P)
         plen = to_device(torch.tensor([P], dtype=torch.int32), self.device)
+        if self._custom_steps:
+            # slot 0 of a one-slot cache of the serving cache's
+            # placement, through the pipelined prefill: the prefix's
+            # lines stay sharded as the install target is
+            tmp = zeros_placed(self._cache_placement, batch=1, length=bucket)
+            with torch.inference_mode():
+                self._step_fns[0](self.params, self._tokens(padded), plen,
+                                  0, tmp, self.rope, self.config)
+            return prefix_lines(tmp, P)
+        tmp = KVCache.create(self.config, 1, bucket,
+                             dtype=self.cache.k.dtype, device=self.device)
         prefill(self.params, self._tokens(padded), plen, tmp, self.rope,
                 self.config)
         return (tmp.k[:, :, :P].contiguous(), tmp.v[:, :, :P].contiguous())
@@ -1837,10 +1927,13 @@ class InferenceEngine:
         after the prefix. The JAX engine's rule, applied on both loops."""
         C = self.prefill_chunk
         suffix = ids[len(p_ids):]
-        if C and len(suffix) > C:
-            n_win = -(-len(suffix) // C)
-            if len(p_ids) + n_win * C <= self.max_seq_len:
-                return (True, C)
+        # a pipelined path always windows the suffix at pos0 = P (it has
+        # no one-program prefixed prefill)
+        if (self._custom_steps and not self.paged) or (C and len(suffix) > C):
+            Cw = C or bucket_length(len(suffix), self.max_seq_len)
+            n_win = -(-len(suffix) // Cw)
+            if len(p_ids) + n_win * Cw <= self.max_seq_len:
+                return (True, Cw)
             return None
         bucket = bucket_length(len(suffix), self.max_seq_len)
         if len(p_ids) + bucket > self.max_seq_len:
@@ -1992,7 +2085,10 @@ class InferenceEngine:
     def _new_dense_cache(self, config: LlamaConfig) -> KVCache:
         """An empty dense cache for `config` (the target's or the
         draft's): max_slots rows of max_seq_len positions, or of the
-        window's W on a ring engine, in the cache dtype."""
+        window's W on a ring engine, in the cache dtype; over custom
+        step fns, a new zeroed cache of the caller's placement."""
+        if self._custom_steps:
+            return zeros_placed(self._cache_placement)
         length = (self.config.sliding_window if self.ring
                   else self.max_seq_len)
         return KVCache.create(config, self.max_slots, length,
@@ -3580,9 +3676,13 @@ class InferenceEngine:
         return self._draft_prefill_runner
 
     def _new_dense_prefill_runner(self, params, cache, rope, config):
+        fns = None
+        if self._custom_steps and params is self.params:
+            slot_fn, _, _, chunk_fn = self._step_fns
+            fns = {"slot": slot_fn, "chunk": chunk_fn, "ring": chunk_fn}
         return DensePrefillRunner(
             params, cache, rope, config, pool=self._graph_pool,
-            on_capture=self._captured(DENSE_PREFILL_FNS))
+            on_capture=self._captured(DENSE_PREFILL_FNS), fns=fns)
 
     def _host_row(self, slot: int) -> torch.Tensor:
         """Slot `slot`'s table row on the host, from its page list (the
@@ -3656,7 +3756,13 @@ class InferenceEngine:
             # an install and the suffix's windows
             P = len(p_ids)
             runner = self._dense_prefill_runner()
-            if chunk_suffix:
+            if self._custom_steps:
+                # the sharded prefix's lines into the slot (eager copies;
+                # JAX's install is its own small program), then the
+                # suffix's windows through the pipelined chunk step
+                install_prefix_sharded(self.cache, entry[1], slot)
+                logits = self._prefill_chunked(suffix, slot, width, pos0=P)
+            elif chunk_suffix:
                 runner.run(("install", P), slot=slot, prefix=entry[1])
                 logits = self._prefill_chunked(suffix, slot, width, pos0=P)
             else:
@@ -3704,6 +3810,11 @@ class InferenceEngine:
             fwd = (functools.partial(forward_ragged_paged,
                                      attn=self.paged_attn) if self.paged
                    else forward_ragged_ring if self.ring else forward_ragged)
+            if self._custom_steps:
+                # the scan variant (the ragged forward replayed K times a
+                # burst), else the single step in the forward's order
+                fwd = self._step_fns[2] or _decode_as_forward(
+                    self._step_fns[1])
             self._runner = DecodeRunner(
                 self.params, self.cache, self.rope, self.config,
                 forward_fn=fwd, ring=self._ring, seeds=self._seeds,
@@ -4560,7 +4671,8 @@ class InferenceEngine:
     # -- live reconfiguration (autotune/) ---------------------------------------
 
     def _reconfig_supported(self) -> bool:
-        return not self.ring and not self._spec and self._specp is None
+        return (not self._custom_steps and not self.ring and not self._spec
+                and self._specp is None)
 
     def _reconfig_refusal(self) -> str:
         if self._spec:
@@ -4570,8 +4682,11 @@ class InferenceEngine:
             return ("paged speculative serving has no hot-switch fold "
                     "(the draft pool shares the page allocator a switch "
                     "would swap wholesale)")
-        return ("ring (sliding-window) caches own their layout; a rebuilt "
-                "ring cannot replay folded positions")
+        if self.ring:
+            return ("ring (sliding-window) caches own their layout; a "
+                    "rebuilt ring cannot replay folded positions")
+        return ("custom step fns own their cache contract; only the "
+                "built-in dense/paged engines can hot-switch")
 
     def current_config(self):
         """The LIVE effective engine config as an autotune point

@@ -663,13 +663,20 @@ class DensePrefillRunner(_Graphs):
     before pos0, which no window writes. A ring window reads the ring
     before it writes it, so its warm-up runs with no real token (every
     entry keeps its slot) and the count is restored after it. On the CPU
-    `replay` runs the step eagerly over the same buffers."""
+    `replay` runs the step eagerly over the same buffers.
+
+    fns: {"slot", "chunk", "ring"} -> the engine's custom step fns (a
+    topology-sharded model's pipelined prefills) in place of the model's
+    functions, with their signatures."""
 
     def __init__(self, params, cache, rope, config, *, pool=None,
-                 on_capture=None):
+                 on_capture=None, fns=None):
         super().__init__(cache.k.device, pool=pool, on_capture=on_capture)
         self.params, self.cache, self.rope = params, cache, rope
         self.config = config
+        self._fns = {"slot": prefill_slot, "chunk": prefill_slot_chunk,
+                     "ring": prefill_slot_chunk_ring}
+        self._fns.update(fns or {})
         self.logits = self._zeros(1, config.vocab_size, dtype=torch.float32)
         self._bufs: dict = {}
         self._prefix: dict = {}     # P -> (k, v) static buffers
@@ -706,14 +713,11 @@ class DensePrefillRunner(_Graphs):
             return
         args = (self.params, b.tokens, b.n, b.slot)
         if kind == "slot":
-            logits, _ = prefill_slot(*args, self.cache, self.rope,
-                                     self.config)
-        elif kind == "chunk":
-            logits, _ = prefill_slot_chunk(*args, b.pos0, self.cache,
-                                           self.rope, self.config)
-        elif kind == "ring":
-            logits, _ = prefill_slot_chunk_ring(*args, b.pos0, self.cache,
-                                                self.rope, self.config)
+            logits, _ = self._fns["slot"](*args, self.cache, self.rope,
+                                          self.config)
+        elif kind in ("chunk", "ring"):
+            logits, _ = self._fns[kind](*args, b.pos0, self.cache,
+                                        self.rope, self.config)
         else:
             pk, pv = self._prefix[variant[1]]
             logits, _ = prefill_slot_prefixed(*args, pk, pv, self.cache,
@@ -777,12 +781,15 @@ class GeneratorRunner(_Graphs):
 
     The warm-up before a capture runs the real step (its cache write
     lands where the first replay writes the same values) and the carry
-    is restored after it. On the CPU `replay` runs the step eagerly."""
+    is restored after it. On the CPU `replay` runs the step eagerly.
+    forward_fn(params, tokens, cache, pos, rope): a sharded model's
+    pipelined forward in place of the dense `forward`."""
 
     def __init__(self, params, cache, rope, config, ring: torch.Tensor, *,
-                 cols: int, pool=None):
+                 cols: int, pool=None, forward_fn=None):
         super().__init__(ring.device, pool=pool)
         self.params, self.cache, self.rope = params, cache, rope
+        self.forward_fn = forward_fn
         self.config, self.ring, self.cols = config, ring, cols
         self.B = B = ring.shape[0]
         z = self._zeros
@@ -849,8 +856,12 @@ class GeneratorRunner(_Graphs):
     def step(self, top_k: Optional[int]) -> None:
         """One decode step from the carry: the forward at `pos`, then
         the sample."""
-        logits, _ = forward(self.params, self.tok[:, None], self.cache,
-                            self.pos, self.rope, self.config)
+        if self.forward_fn is None:
+            logits, _ = forward(self.params, self.tok[:, None], self.cache,
+                                self.pos, self.rope, self.config)
+        else:
+            logits, _ = self.forward_fn(self.params, self.tok[:, None],
+                                        self.cache, self.pos, self.rope)
         self.logits.copy_(logits)
         self.pos.add_(1)
         self.sample(logits, top_k)

@@ -5,7 +5,7 @@ Counterpart of `cake_tpu/utils/wire.py`, copied as it is: the same
 frame one package writes is a frame the other reads. The telemetry
 federation plane (obs/federation.py) and the disaggregated page channel
 (kv/transfer.py) speak it; the control channel of multi-host serving is
-not ported yet (ROADMAP A13).
+not ported yet (ROADMAP A13(2)).
 
 Deliberately NOT shared: each consumer's streaming read loop. The page
 channel's persistent partial-frame buffer (timeout-resume semantics)

@@ -408,6 +408,30 @@ Phases, in order (any failure exits non-zero):
             (SDXL width: two encoders, Euler, the added condition) at
             512 x 512, bf16: one step, no guidance, and its UNet step's
             times. An `sd` JSON line holds the record.
+  parallel  topology-sharded serving (ROADMAP A13 part 1) on a mesh
+            whose positions repeat the card (what sharding costs, not a
+            speed-up): (a) 8 of Llama-3-8B's 32 blocks at f32 over a
+            4 + 4 topology with --tp 2 --microbatches 2, eight chats
+            through Master.make_engine behind the HTTP API, the streams
+            equal to the unsharded dense engine's on the same wave, the
+            measured wave's flash launches (whole prompts and chunk
+            windows) from the sharded steps, no capture; TTFT p50,
+            decode tok/s and a decode replay's device ms of both; then
+            one prefill and one decode step at bf16 through the
+            pipelined steps within PAR_BF16_TOL of max |logits|; rows
+            7-9 at the tp shard shapes against their plain versions
+            (flash at f32, as (a) runs them, and at bf16), the int4
+            cluster plans; (b) the generator through
+            Context.load_text_model over stage 2 x dp 2 at batch 4,
+            greedy-identical to unsharded, and --quant int4 over stage
+            2 x tp 2 (its int4_matmul launches, no plain one); (c)
+            Mixtral width, 2 blocks, over tp 2, greedy-identical, and
+            SD v1-5 --dp 2 at f32 within PAR_SD_LEVELS of the unsharded
+            image; at bf16 (the same weights rounded) the dp mesh's UNet
+            call equal to two batch-1 calls with no mesh, and the --dp 2
+            image no farther from the f32 image than PAR_SD_BF16_RATIO
+            times the unsharded bf16 image is. A `parallel` JSON line holds the record; each kernel
+            row carries `parallel_launches`.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -432,7 +456,7 @@ from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
           "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense", "moe", "sd")
+          "dense", "moe", "sd", "parallel")
 # the depth the tiers, recovery and spec phases, the control phase's (1)
 # and (3), the disagg phase's (b) and the dense phase's (b)-(d) run the
 # Llama-3-8B-width bf16 weights at: their first blocks of the 32 (the
@@ -7650,6 +7674,567 @@ def phase_sd(torch, card: str, tree: str) -> dict:
     return rec
 
 
+# -- phase: parallel ------------------------------------------------------------
+
+PAR_LAYERS = 8                    # (a): Llama-3-8B width, 8 of its 32 blocks
+PAR_TOPOLOGY = ("a:\n  layers:\n    - model.layers.0-3\n"
+                "b:\n  layers:\n    - model.layers.4-7\n")
+PAR_T = 1024                      # (a): max_seq_len
+PAR_CHUNK = 256                   # (a): --prefill-chunk
+PAR_CHATS = (160, 300, 180, 200, 600, 250, 170, 400)  # (a): prompt tokens
+PAR_NEW = 16                      # (a): tokens a chat
+PAR_BF16_TOL = 5e-2               # (a) bf16: logits, share of max |logits|
+PAR_GEN_LAYERS = 4                # (b): blocks of the generator drives
+PAR_GEN_NEW = 8                   # (b): tokens a row
+PAR_MOE_LAYERS = 2                # (c): Mixtral-8x7B's blocks kept
+PAR_SD_STEPS = 4                  # (c): SD v1-5 --dp 2 DDIM steps
+PAR_SD_LEVELS = 1                 # (c): u8 levels a dp image may differ
+# (c) bf16: the --dp 2 image's mean u8 distance from the f32 image, as a
+# multiple of the unsharded bf16 image's (1.016 on an H100: 3.368 and
+# 3.315 levels)
+PAR_SD_BF16_RATIO = 1.25
+
+
+def _par_args(**kw):
+    from cake_tpu_torch.args import Args
+    base = dict(max_seq_len=PAR_T, temperature=0.0, repeat_penalty=1.0,
+                sample_len=PAR_NEW, max_slots=8, decode_scan=1,
+                prefill_chunk=PAR_CHUNK, dtype="f32", cpu=DEV == "cpu")
+    base.update(kw)
+    return Args(**base).validate()
+
+
+def _par_topology(text: str = PAR_TOPOLOGY) -> str:
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="cake-topo-"), "t.yml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _par_generator(torch, cfg, params, args, mesh_devices=None):
+    """The generator Context.load_text_model builds for `args` (its
+    plan's mesh on `mesh_devices`), over `params` (a tree made here, not
+    loaded): the sharded path's placement and forward, or the plain
+    generator."""
+    from cake_tpu_torch.context import Context
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.parallel.plan import ParallelPlan
+
+    ctx = Context.from_args(args, mesh_devices=mesh_devices)
+    plan = ParallelPlan.from_topology(cfg, ctx.topology, args=args,
+                                      num_devices=ctx._device_count())
+    kw = {}
+    if plan.sharded:
+        ctx._check_plan(cfg, plan)
+        kw = ctx._place(cfg, plan, params, args.max_seq_len, ctx.dtype)
+        params = kw.pop("params")
+    return LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
+                          max_seq_len=args.max_seq_len,
+                          batch_size=args.batch_size,
+                          sampling=SamplingConfig(temperature=0.0,
+                                                  repeat_penalty=1.0),
+                          cache_dtype=ctx.dtype, device=ctx.device, **kw)
+
+
+def _par_wave(srv, tag: str) -> dict:
+    """PAR_CHATS chats at once through the HTTP API, PAR_NEW tokens each:
+    TTFT p50, decode tok/s, the decode replays' device ms, the streams."""
+    eng = srv.engine
+    n0, tok0, dec0 = len(eng.retired), eng.stats.tokens_generated, \
+        eng.stats.decode_time_s
+    r0 = len(eng.flight.records())
+    t_wave = time.perf_counter()
+    tags = [f"{tag}{i}" for i in range(len(PAR_CHATS))]
+    for t, n in zip(tags, PAR_CHATS):
+        srv.post(t, "standard", n, PAR_NEW)
+    srv.join()
+    wall = time.perf_counter() - t_wave
+    bad = {t: srv.status.get(t) for t in tags
+           if srv.status.get(t, (0,))[0] != 200}
+    if bad:
+        fail(f"parallel (a) [{tag}]: chats failed {bad}")
+    retired = sorted(list(eng.retired)[n0:], key=lambda r: r.prompt_ids)
+    if len(retired) != len(PAR_CHATS):
+        fail(f"parallel (a) [{tag}]: {len(retired)} chats retired")
+    dec_s = eng.stats.decode_time_s - dec0
+    dev = [r.device_s for r in eng.flight.records()[r0:]
+           if r.kind == "decode" and r.device_s]
+    return dict(
+        wall_s=wall, ttft_p50_s=statistics.median(
+            r.first_token_t - r.submit_t for r in retired),
+        decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
+                      if dec_s else 0.0),
+        decode_replay_ms=(1e3 * statistics.median(dev) if dev else None),
+        streams=[list(r.out_tokens) for r in retired])
+
+
+class _ParServer(_SchedServer):
+    """_SchedServer over a generator built here (sharded or not)."""
+
+    def __init__(self, torch, gen, args):
+        from cake_tpu_torch.api.server import start
+        from cake_tpu_torch.master import Master
+        self.gen = gen
+        self.master = Master(args, text_generator=gen)
+        self.engine = self.master.make_engine()
+        self.httpd = start(self.master, "127.0.0.1:0", block=False,
+                           engine=self.engine)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.threads, self.status, self._reqs = [], {}, {}
+
+
+def _par_served(torch, fa, cfg, params, card: str):
+    """(a) the unsharded dense engine, then the engine over a two-stage
+    topology with --tp 2 --microbatches 2 on four mesh positions of the
+    card, behind the HTTP API at f32: a warm-up wave, then a measured one
+    (the counts set to 0 just before it) whose streams must be the
+    unsharded engine's, whose flash launches (whole prompts and chunk
+    windows) come from the sharded steps and which captures nothing."""
+    rec, counts, ref = {}, {}, None
+    topo = _par_topology()
+    for label in ("unsharded", "sharded"):
+        sharded = label == "sharded"
+        # the generator's batch must divide into the microbatches too
+        args = _par_args(**(dict(topology=topo, tp=2, microbatches=2,
+                                 batch_size=2) if sharded else {}))
+        gen = _par_generator(torch, cfg, params, args,
+                             mesh_devices=[DEV] * 4 if sharded else None)
+        srv = _ParServer(torch, gen, args)
+        eng = srv.engine
+        try:
+            if sharded != eng._custom_steps:
+                fail(f"parallel (a): make_engine built custom steps "
+                     f"{eng._custom_steps} for the {label} generator")
+            caps = _count_captures(eng)
+            _par_wave(srv, "w")
+            fa.reset_launch_counts()
+            del caps[:]
+            r = _par_wave(srv, "m")
+            r.update(captures=len(caps), launches={
+                k: n for k, n in fa.LAUNCHES.items() if n},
+                cache_gib=eng.cache.memory_bytes() / 2**30)
+            if r["captures"]:
+                fail(f"parallel (a) {label}: the measured wave captured "
+                     f"{r['captures']} graph(s)")
+            for k in ("flash_attn", "flash_attn_cached"):
+                if r["launches"].get(k, 0) <= 0:
+                    fail(f"parallel (a) {label}: {k} never launched")
+            plain = {k: n for k, n in r["launches"].items()
+                     if k.endswith("_plain")}
+            if plain:
+                fail(f"parallel (a) {label}: plain versions ran {plain}")
+            if sharded:
+                counts = dict(r["launches"])
+                if eng._runner is None or not eng._runner.captures:
+                    fail("parallel (a): no captured pipelined decode step")
+            log(f"parallel (a) {label:<9}: TTFT p50 {r['ttft_p50_s']:.3f} s, "
+                f"decode {r['decode_tok_s']:.1f} tok/s, decode replay "
+                f"{r['decode_replay_ms']} ms, wall {r['wall_s']:.2f} s, "
+                f"cache {r['cache_gib']:.3f} GiB, launches {r['launches']} "
+                f"[{card}]")
+        finally:
+            srv.close()
+        for t in threading.enumerate():
+            if t.name == "cake-http":
+                t.join(timeout=60)
+        gone = [weakref.ref(eng)]
+        del srv, eng, gen
+        _release(torch, gone)
+        if ref is None:
+            ref = r["streams"]
+        elif r["streams"] != ref:
+            same = sum(a == b for a, b in zip(r["streams"], ref))
+            fail(f"parallel (a): {same} of {len(ref)} f32 streams equal the "
+                 "unsharded engine's")
+        r.pop("streams")
+        rec[label] = r
+    return counts, rec
+
+
+def _par_bf16(torch, cfg, card: str) -> dict:
+    """(a) at bf16: one whole-prompt prefill and one decode step through
+    the pipelined engine steps (tp 2, two stages) against the unsharded
+    model's, logits within PAR_BF16_TOL of their largest magnitude (the
+    tp reduce sums in another order; bf16 rounds apart)."""
+    from cake_tpu_torch.models.llama import model as tm
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.models.llama.params import init_params
+    from cake_tpu_torch.parallel.mesh import make_mesh
+    from cake_tpu_torch.parallel.pipeline import (
+        make_engine_step_fns, place_params,
+    )
+    from cake_tpu_torch.parallel.sharding import create_sharded_cache
+
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3),
+                         device=DEV, dtype=torch.bfloat16)
+    mesh = make_mesh(1, 2, 2, devices=[DEV] * 4)
+    sp = place_params(params, mesh, tp=True)
+    fns = make_engine_step_fns(mesh, cfg, num_microbatches=2, tp=True)
+    rope = tm.RopeTables.create(cfg, PAR_T, device=DEV)
+    B, S, n = 4, 256, 200
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                        device=DEV, dtype=torch.int32)
+    plen = torch.tensor([n], dtype=torch.int32, device=DEV)
+    dense = KVCache.create(cfg, B, PAR_T, dtype=torch.bfloat16, device=DEV)
+    sh = create_sharded_cache(cfg, B, PAR_T, mesh, tp_axis="tp",
+                              dtype=torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        want, _ = tm.prefill_slot(params, ids, plen, 1, dense, rope, cfg)
+        got, _ = fns[0](sp, ids, plen, 1, sh, rope, cfg)
+        tok = torch.full((B, 1), 7, dtype=torch.int32, device=DEV)
+        pos = torch.tensor([0, n, 0, 0], dtype=torch.int32, device=DEV)
+        live = torch.tensor([False, True, False, False], device=DEV)
+        want2, _ = tm.decode_step_ragged(params, tok, pos, live, dense,
+                                         rope, cfg)
+        got2, _ = fns[1](sp, tok, pos, live, sh, rope, cfg)
+    for name, w, g in (("prefill", want, got), ("decode", want2[1], got2[1])):
+        share = ((w - g).abs().max() / w.abs().max()).item()
+        out[name] = share
+        if not share <= PAR_BF16_TOL:
+            fail(f"parallel (a) bf16 {name}: logits differ by {share:.4f} "
+                 f"of max |logits| (> {PAR_BF16_TOL})")
+    log(f"parallel (a) bf16: prefill and decode logits within "
+        f"{out['prefill']:.4f} and {out['decode']:.4f} of max |logits| "
+        f"(tol {PAR_BF16_TOL}) [{card}]")
+    del params, sp, dense, sh
+    return out
+
+
+def _par_kernels(torch, fa, i4, card: str) -> dict:
+    """Rows 7, 8 and 9 at the shard shapes the sharded steps launch them
+    at, against their plain versions: flash_attn over a tp rank's 16
+    query and 4 kv heads (a 512-token prompt), flash_attn_cached over a
+    256-token window at pos 256 of that rank's cache, both at f32 (the
+    scalar bodies (a)'s f32 drive launches) and at bf16 (the tensor-core
+    bodies), each within TOL of its dtype; int4_matmul over a tp 2
+    rank's wq [4096 -> 2048], wo [2048 -> 4096] (16 groups) and w_down
+    [7168 -> 4096] (56 groups) at one row, with its cluster plan (at
+    most 16 ranks)."""
+    from cake_tpu_torch.ops.quant import quantize_group
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEV, dtype=dtype)
+
+    rec = {}
+    pos = torch.tensor([256], dtype=torch.int32, device=DEV)
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        q, k, v = (rnd(1, 512, 16, 128, dtype=dt), rnd(1, 512, 4, 128, dtype=dt),
+                   rnd(1, 512, 4, 128, dtype=dt))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        errs = dict(flash_attn=(got.float() - want.float()).abs().max().item())
+        kc, vc = rnd(1, PAR_T, 4, 128, dtype=dt), rnd(1, PAR_T, 4, 128, dtype=dt)
+        qw = rnd(1, 256, 16, 128, dtype=dt)
+        got = fa.flash_attention_cached(qw, kc, vc, pos)
+        want = fa.flash_attention_cached_plain(qw, kc, vc, pos)
+        errs["flash_attn_cached"] = (got.float()
+                                     - want.float()).abs().max().item()
+        for name, err in errs.items():
+            rec[f"{name}_{dname}"] = err
+            if not err <= TOL[dname]["atol"]:
+                fail(f"parallel: {name} at the tp shard's heads, {dname}, "
+                     f"differs from its plain version by {err} (tol "
+                     f"{TOL[dname]['atol']})")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (In, Out) in (("wq", (4096, 2048)), ("wo", (2048, 4096)),
+                            ("w_down", (7168, 4096))):
+        w = quantize_group(rnd(In, Out, dtype=torch.float32), 0)
+        g = 2 * w.q.shape[0] // w.scale.shape[0]
+        x = rnd(1, In)
+        got = i4.int4_matmul(x, w.q, w.scale, g=g)
+        want = i4.int4_matmul_plain(x, w.q, w.scale, g=g)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        ranks = i4.split_plan(1, In // g, Out,
+                              i4.takes_tc(1, g, torch.bfloat16), n_sm)
+        rec[f"int4_{name}"] = dict(groups=In // g, cluster=ranks, err=err)
+        if not (err <= TOL["bfloat16"]["rtol"] and 1 <= ranks <= 16):
+            fail(f"parallel: int4_matmul over the tp shard of {name} "
+                 f"[{In} -> {Out}]: share {err}, cluster {ranks}")
+    log(f"parallel kernels at shard shapes: {rec} [{card}]")
+    return rec
+
+
+def _par_generators(torch, i4, card: str) -> dict:
+    """(b) the generator through Context.load_text_model (random f32
+    weights from seed 0, PAR_GEN_LAYERS blocks at 8B width): over a
+    two-stage topology with --dp 2 at --batch-size 4, greedy-identical to
+    the unsharded generator (next_token and generate_on_device); then
+    --quant int4 over two stages x --tp 2 at bf16: its int4_matmul
+    launches (counted from 0 before it) and no plain one, its logits
+    within PAR_BF16_TOL of the unsharded int4 generator's."""
+    import dataclasses
+
+    import numpy as np
+
+    from cake_tpu_torch.context import Context
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=PAR_GEN_LAYERS,
+                              use_flash_attention=True)
+    topo = _par_topology("a:\n  layers:\n    - model.layers.0-1\n"
+                         "b:\n  layers:\n    - model.layers.2-3\n")
+    rec, outs = {}, {}
+    prompt = np.full((4, 24), 9, np.int32)
+    prompt[:, ::3] = 77
+    for label, kw in (("single", {}), ("stage2_dp2", dict(topology=topo,
+                                                          dp=2))):
+        args = _par_args(batch_size=4, prefill_chunk=None, **kw)
+        ctx = Context.from_args(args, mesh_devices=[DEV] * 4 if kw else None)
+        ctx.llama_config = cfg
+        g = ctx.load_text_model()
+        g.add_message(Message.user("the same prompt on every row"))
+        toks = [g.next_token(i).id for i in range(PAR_GEN_NEW)]
+        god = g.generate_on_device(prompt, np.full((4,), 24, np.int32),
+                                   PAR_GEN_NEW)
+        outs[label] = (toks, god.tolist())
+        del g, ctx
+        _release(torch)
+    if outs["single"] != outs["stage2_dp2"]:
+        fail(f"parallel (b): stage 2 x dp 2 gave {outs['stage2_dp2']}, the "
+             f"unsharded generator {outs['single']}")
+    rec["dp_identity"] = True
+    logits = {}
+    for label, kw in (("single", {}), ("stage2_tp2", dict(topology=topo,
+                                                          tp=2))):
+        args = _par_args(batch_size=1, prefill_chunk=None, quant="int4",
+                         dtype="bf16", **kw)
+        ctx = Context.from_args(args, mesh_devices=[DEV] * 4 if kw else None)
+        ctx.llama_config = cfg
+        g = ctx.load_text_model()
+        g.add_message(Message.user("int4 over a topology"))
+        g.next_token(0)
+        i4.reset_launch_counts()
+        for i in range(1, 4):
+            g.next_token(i)
+        torch.cuda.synchronize()
+        logits[label] = g._decode.logits[0].float().clone()
+        if kw:
+            rec["int4_launches"] = dict(i4.LAUNCHES)
+        del g, ctx
+        _release(torch)
+    n = rec["int4_launches"]
+    if n["int4_matmul"] <= 0 or n["int4_matmul_plain"]:
+        fail(f"parallel (b): int4 launches {n}")
+    share = ((logits["single"] - logits["stage2_tp2"]).abs().max()
+             / logits["single"].abs().max()).item()
+    rec["int4_logits_share"] = share
+    if not share <= PAR_BF16_TOL:
+        fail(f"parallel (b): int4 stage 2 x tp 2 logits differ by {share}")
+    log(f"parallel (b): stage 2 x dp 2 greedy-identical; int4 stage 2 x "
+        f"tp 2: {n} launches, logits within {share:.4f} [{card}]")
+    return rec
+
+
+def _par_moe_sd(torch, card: str, tree: str) -> dict:
+    """(c) Mixtral-8x7B width, PAR_MOE_LAYERS blocks, f32: the pipelined
+    forward over one stage x tp 2 (the experts' ffn dim split) greedy
+    -identical to the unsharded generator; then SD v1-5 512 x 512 at f32
+    through Context with --dp 2 (the UNet's guidance pair over two mesh
+    positions of the card) against the same generator unsharded, one seed,
+    u8 images within PAR_SD_LEVELS. At bf16, over the same weights
+    rounded: the mesh's UNet call equals two batch-1 calls with no mesh
+    (`_sd_split_witness`), and the --dp 2 image's mean distance from the
+    f32 image is at most PAR_SD_BF16_RATIO times the unsharded bf16
+    image's (random weights and guidance 7.5 amplify bf16 rounding, so
+    the two bf16 images are not held to each other)."""
+    import dataclasses
+
+    import numpy as np
+
+    from cake_tpu_torch.args import Args, ImageGenerationArgs, ModelType, \
+        SDArgs
+    from cake_tpu_torch.context import Context
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.models.moe import MoEConfig
+    from cake_tpu_torch.models.moe.params import init_params as moe_init
+    from cake_tpu_torch.models.sd.image import decode_png
+    from cake_tpu_torch.models.sd.sd import SDGenerator
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.parallel.mesh import make_mesh
+
+    rec = {}
+    cfg = dataclasses.replace(MoEConfig.mixtral_8x7b(),
+                              num_hidden_layers=PAR_MOE_LAYERS,
+                              use_flash_attention=True)
+    params = moe_init(cfg, torch.Generator(device=DEV).manual_seed(6),
+                      device=DEV, dtype=torch.float32)
+    prompt = np.full((1, 40), 11, np.int32)
+    outs = {}
+    for label, kw in (("single", {}), ("tp2", dict(tp=2))):
+        args = _par_args(batch_size=1, prefill_chunk=None, max_seq_len=256,
+                         **kw)
+        g = _par_generator(torch, cfg, params, args,
+                           mesh_devices=[DEV] * 2 if kw else None)
+        outs[label] = g.generate_on_device(
+            prompt, np.full((1,), 40, np.int32), PAR_GEN_NEW).tolist()
+        del g
+        _release(torch)
+    del params
+    _release(torch)
+    if outs["single"] != outs["tp2"]:
+        fail(f"parallel (c): MoE tp 2 gave {outs['tp2']}, unsharded "
+             f"{outs['single']}")
+    rec["moe_identity"] = outs["tp2"][0]
+    ctx = Context.from_args(Args(model_type=ModelType.IMAGE,
+                                 cpu=DEV == "cpu"),
+                            SDArgs(sd_version="v1-5", sd_use_f16=False))
+    f32 = ctx.load_image_model()
+    # the bf16 generator (sd_use_f16's dtype) over the same weights rounded
+    bf16 = SDGenerator(f32.config, _cast_tree(f32.params, torch.bfloat16),
+                       f32.tokenizers, dtype=torch.bfloat16, device=DEV)
+    for dname, g in (("f32", f32), ("bf16", bf16)):
+        rec[f"sd_split_{dname}"] = _sd_split_witness(torch, g)
+    imgs = {}
+    for dname, g in (("f32", f32), ("bf16", bf16)):
+        for label in ("single", "dp2"):
+            if label == "dp2":
+                g.shard_for_mesh(make_mesh(dp=2, devices=[DEV] * 2))
+            got = []
+            t0 = time.perf_counter()
+            g.generate_image(ImageGenerationArgs(
+                image_prompt="a red barn", sd_n_steps=PAR_SD_STEPS,
+                sd_guidance_scale=7.5, sd_seed=3),
+                lambda pngs: got.extend(decode_png(p) for p in pngs))
+            rec[f"sd_{dname}_{label}_s"] = time.perf_counter() - t0
+            imgs[f"{dname}_{label}"] = got[-1].astype(int)
+    del f32, bf16, ctx
+    _release(torch)
+
+    def dist(a, b):
+        d = np.abs(imgs[a] - imgs[b])
+        return dict(max=int(d.max()), mean=float(d.mean()),
+                    equal=float((d == 0).mean()))
+
+    pairs = rec["sd_images"] = {
+        "f32 dp2 / f32": dist("f32_dp2", "f32_single"),
+        "bf16 / f32": dist("bf16_single", "f32_single"),
+        "bf16 dp2 / f32": dist("bf16_dp2", "f32_single"),
+        "bf16 dp2 / bf16": dist("bf16_dp2", "bf16_single")}
+    diff = pairs["f32 dp2 / f32"]["max"]
+    if diff > PAR_SD_LEVELS or imgs["f32_single"].std() == 0:
+        fail(f"parallel (c): SD --dp 2's f32 image differs by {diff} levels")
+    near, far = pairs["bf16 / f32"]["mean"], pairs["bf16 dp2 / f32"]["mean"]
+    if not far <= PAR_SD_BF16_RATIO * near or imgs["bf16_dp2"].std() == 0:
+        fail(f"parallel (c): SD --dp 2's bf16 image is {far:.3f} levels from "
+             f"the f32 image on average, the unsharded bf16 one {near:.3f} "
+             f"(ratio > {PAR_SD_BF16_RATIO})")
+    log(f"parallel (c): MoE tp 2 greedy-identical; SD --dp 2 at f32 within "
+        f"{diff} level(s); UNet batch split {rec['sd_split_f32']} at f32, "
+        f"{rec['sd_split_bf16']} at bf16; images {pairs} [{card}]")
+    return rec
+
+
+def _cast_tree(tree, dtype):
+    """A param tree (dicts, lists, tensors) with its float leaves cast."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def _sd_split_witness(torch, g) -> dict:
+    """One UNet call over a guidance pair (random latents at t 999, the
+    pair's text context) three ways, eagerly: batch 2 with no mesh, two
+    batch-1 calls with no mesh, and the --dp 2 mesh's split (`_unet_dp`
+    over two replicas on the card). The mesh's split must equal the two
+    batch-1 calls exactly; the batch split's own distance from batch 2
+    (share of max |eps|) is recorded."""
+    from cake_tpu_torch.models.sd.sd import _unet_dp
+    from cake_tpu_torch.models.sd.unet import unet_forward
+
+    cfg, p = g.config, g.params["unet"]
+    f = cfg.vae.downscale_factor
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    with torch.inference_mode():
+        lat = torch.randn((1, cfg.height // f, cfg.width // f,
+                           cfg.vae.latent_channels), generator=gen,
+                          device=DEV, dtype=torch.float32).to(g.dtype)
+        ctx, _ = g.text_embeddings("a red barn", "", True)
+        pair = torch.cat([lat, lat], dim=0)
+        ts = torch.full((2,), 999.0, device=DEV)
+        whole = unet_forward(p, cfg.unet, pair, ts, ctx).float()
+        split = torch.cat([unet_forward(p, cfg.unet, lat, ts[i:i + 1],
+                                        ctx[i:i + 1])
+                           for i in range(2)], dim=0).float()
+        mesh = _unet_dp([(torch.device(DEV), p)] * 2, cfg.unet, pair, ts,
+                        ctx, None).float()
+    out = dict(mesh_vs_split=(mesh - split).abs().max().item(),
+               split_vs_whole=((split - whole).abs().max()
+                               / whole.abs().max()).item())
+    if out["mesh_vs_split"] != 0.0:
+        fail(f"parallel (c): the --dp 2 mesh's UNet call differs from two "
+             f"batch-1 calls by {out['mesh_vs_split']} ({g.dtype})")
+    return out
+
+
+def phase_parallel(torch, fa, i4, card: str, tree: str):
+    """The parallel phase (ROADMAP A13 part 1): (a) the engine over a
+    two-stage topology at tp 2 with two microbatches, on four mesh
+    positions of the card, at 8 of Llama-3-8B's blocks; (b) the generator
+    over stage 2 x dp 2 and int4 over stage 2 x tp 2; (c) Mixtral-width
+    MoE over tp 2 and SD v1-5 over --dp 2; and rows 7-9 at the shard
+    shapes. Returns ((a)'s measured sharded wave's launches, record)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.params import init_params
+
+    from cake_tpu_torch.parallel.plan import HBM_BUDGET
+
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"parallel: the card's total_memory {total} bytes, plan.HBM_BUDGET"
+        f" {HBM_BUDGET} [{card}]")
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=PAR_LAYERS,
+                              use_flash_attention=True)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(21),
+                         device=DEV, dtype=torch.float32)
+    # greedy tokens in the byte range, never an EOS: every stream runs
+    # to its budget
+    params["lm_head"][:, 256:] = 0.0
+    counts, served = _par_served(torch, fa, cfg, params, card)
+    del params
+    _release(torch)
+    rec = dict(served=served, bf16=_par_bf16(torch, cfg, card))
+    _release(torch)
+    t1 = time.perf_counter()
+    rec["kernels"] = _par_kernels(torch, fa, i4, card)
+    rec["generators"] = _par_generators(torch, i4, card)
+    t2 = time.perf_counter()
+    rec["moe_sd"] = _par_moe_sd(torch, card, tree)
+    rec["part_seconds"] = dict(a=t1 - t0, b=t2 - t1,
+                               c=time.perf_counter() - t2)
+    rec["seconds"] = time.perf_counter() - t0
+    _release(torch)
+    rec["held_gib"] = [held / 2**30, torch.cuda.memory_allocated() / 2**30]
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail(f"parallel: the phase kept {rec['held_gib']} GiB allocated")
+    log(f"parallel phase: {rec['seconds']:.1f} s (co-located mesh: these "
+        "times are sharding's cost on one card, not a parallel speed-up)")
+    return counts, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7742,6 +8327,8 @@ def main(argv=None) -> int:
     moe_record = None
     moe_counts = {}
     sd_record = None
+    parallel_record = None
+    parallel_counts = {}
     if {"step", "generate", "serve", "prefix", "sched", "tiers",
             "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
@@ -7872,6 +8459,16 @@ def main(argv=None) -> int:
             "cake_tpu_torch.models.sd"):
         sd_record = phase_sd(torch, card, tree)
         lap("sd")
+    if "parallel" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.parallel"):
+        # (a)'s measured sharded wave's flash launches and (b)'s int4
+        # drive's (each set to 0 just before), a kernels-line key of
+        # their own
+        parallel_counts, parallel_record = phase_parallel(
+            torch, fa, i4, card, tree)
+        parallel_counts["int4_matmul"] = parallel_record["generators"][
+            "int4_launches"]["int4_matmul"]
+        lap("parallel")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -7908,6 +8505,9 @@ def main(argv=None) -> int:
     if sd_record is not None:
         print(json.dumps({"sd": sd_record, "card": card}, default=str),
               flush=True)
+    if parallel_record is not None:
+        print(json.dumps({"parallel": parallel_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -7935,6 +8535,8 @@ def main(argv=None) -> int:
                                if dense_record else None),
             "moe_launches": (moe_counts.get(name, 0)
                              if moe_record else None),
+            "parallel_launches": (parallel_counts.get(name, 0)
+                                  if parallel_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

@@ -20,7 +20,8 @@ the same trees (drawn by the port's init and carried to JAX):
     server's route fails as JAX's does; the CLI's `--model-type image`
     writes image_0.png; `--sd-flash-attention` and
     `--sd-sliced-attention-size`, which JAX parses and reads nowhere, are
-    refused by argparse; the multi-device paths are refused.
+    refused by argparse; component placement and the --dp mesh exclude
+    each other.
 
 The `cuda` cases (the captured UNet step against its eager call; the
 card generator against the CPU generator, one seed; a generation under
@@ -288,12 +289,20 @@ def test_text_embeddings_pad_to_77_and_guidance_doubles(tiny):
 
 
 def test_multi_device_paths_are_refused(tiny):
+    """Component placement and the --dp mesh exclude each other (both
+    are ported: tests/test_torch_sd_parallel.py)."""
+    from cake_tpu_torch.parallel.mesh import make_mesh
+    from cake_tpu_torch.topology import Topology
     cfg, params = tiny
+    topo = Topology.from_dict({"g": {"layers": ["unet"]}})
     gen = _port_gen(cfg, params)
-    for call in (lambda: gen.place_components(object()),
-                 lambda: gen.shard_for_mesh(object())):
-        with pytest.raises(NotImplementedError, match="A13"):
-            call()
+    gen.shard_for_mesh(make_mesh(dp=2, device_type="cpu"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        gen.place_components(topo, devices=["cpu", "cpu"])
+    gen = _port_gen(cfg, params)
+    gen.place_components(topo, devices=["cpu"])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        gen.shard_for_mesh(make_mesh(dp=2, device_type="cpu"))
 
 
 def test_non_png_img2img_is_refused(tiny, tmp_path):
