@@ -10,7 +10,7 @@ package does (`--max-seq-len`, `--flash-attention/--no-flash-attention`,
 `parse_args` returns the validated Args alone (`Args.validate`, the JAX
 package's rules for the fields the port has, `--quant none|int8|int4`
 among them). A flag of the JAX package that the port does not implement
-yet (`--sp`, the multi-host `--mode`, `--name`, `--address`,
+yet (the multi-host `--mode`, `--name`, `--address`,
 `--heartbeat-timeout`, `--stall-timeout`, `--telemetry-export`, ...), or that
 the JAX package parses and reads nowhere (`--sd-flash-attention`,
 `--sd-sliced-attention-size`), is rejected by argparse, never accepted
@@ -95,6 +95,11 @@ class Args:
     # data-parallel degree: the generator's batch rows split over dp
     # replicas; an image model's UNet batch over dp positions
     dp: int = 1
+    # sequence-parallel degree: the prompt's context window split over
+    # an "sp" mesh axis, prefilled by ring attention and decoded against
+    # merged per-shard stats plus a replicated decode tail
+    # (parallel/context_parallel.py)
+    sp: int = 1
     microbatches: int = 1               # GPipe microbatches per step
     # prefill prompts in fixed windows of N tokens. Generator: None =
     # whole-prompt prefill; engine: None = 256, capped at max_seq_len.
@@ -244,7 +249,7 @@ class Args:
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
-        int8 or int4; --tp, --dp, --microbatches, --batch-size,
+        int8 or int4; --tp, --dp, --sp, --microbatches, --batch-size,
         --max-slots, --decode-scan, --spec-gamma,
         --spec-rounds, --trace-ring and --step-ring are at least 1, --event-ring at least 0; --slo-targets parses;
         --mixed-batch is auto, on or off; --kv-dtype int8 and
@@ -261,9 +266,9 @@ class Args:
         is above 0. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
-        for knob in ("tp", "dp", "microbatches", "batch_size", "max_slots",
-                     "decode_scan", "spec_gamma", "spec_rounds",
-                     "trace_ring", "step_ring"):
+        for knob in ("tp", "dp", "sp", "microbatches", "batch_size",
+                     "max_slots", "decode_scan", "spec_gamma",
+                     "spec_rounds", "trace_ring", "step_ring"):
             if getattr(self, knob) < 1:
                 raise ValueError(f"--{knob.replace('_', '-')} must be >= 1")
         if self.slo_targets:

@@ -36,7 +36,15 @@ POST /api/v1/image.
 rows (an image model's UNet batch), `--microbatches` the GPipe schedule
 (parallel/): the one-shot generator and the --api engine then run the
 pipelined steps over a mesh of the visible cards (the CPU at every
-position with --cpu).
+position with --cpu). `--sp N` splits the context window over an "sp"
+axis instead (parallel/context_parallel.py: ring-attention prefill,
+merged-stats decode against a replicated tail), with `--tp`, `--dp` or
+a topology's stages: the one-shot generator runs SPGeneratorForward,
+--api the sp engine:
+
+    python -m cake_tpu_torch.cli --model DIR --sp 4 --max-seq-len 4112 \
+        --api 0.0.0.0:8080
+    python -m cake_tpu_torch.cli --cpu --sp 2 --max-seq-len 512 --prompt hi
 """
 
 from __future__ import annotations

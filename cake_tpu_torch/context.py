@@ -14,10 +14,16 @@ A topology with several stages, or `--tp` / `--dp` above 1, builds the
 ParallelPlan's ("dp", "stage", "tp") mesh (parallel/): the generator's
 params and cache are placed on it (streamed shard by shard from the
 safetensors files when the model has weights) and it drives the
-pipelined forward. The mesh's default devices are every visible card
-(the CPU at every position with --cpu); `mesh_devices=` (Python only)
-names them, a card repeated for a co-located mesh. Sequence
-parallelism (`--sp`) and multi-host serving are not ported.
+pipelined forward. `--sp N` builds JAX's sequence-parallel mesh
+instead, ("sp",), ("sp", "tp"), ("dp", "sp"[, "tp"]) or ("stage",
+"sp"[, "tp"]) (`_place_sp`): the window max_seq_len splits into a
+context of ctx_len = ((max_seq_len - tail) // sp) * sp positions over
+sp and a replicated decode tail of tail = max(sample_len, 16), and the
+generator drives parallel/context_parallel.SPGeneratorForward (its
+weights streamed stage-locally with stages). The mesh's default devices
+are every visible card (the CPU at every position with --cpu);
+`mesh_devices=` (Python only) names them, a card repeated for a
+co-located mesh. Multi-host serving is not ported.
 """
 
 from __future__ import annotations
@@ -139,19 +145,26 @@ class Context:
             tokenizer = load_tokenizer(a.model)
         else:
             tokenizer = ByteTokenizer(cfg.vocab_size)
+        sp = a.sp > 1
+        # the sp branch counts its devices itself (sp x the plan's)
         plan = ParallelPlan.from_topology(
-            cfg, self.topology, args=a, num_devices=self._device_count())
-        if plan.sharded:
+            cfg, self.topology, args=a,
+            num_devices=None if sp else self._device_count())
+        if sp:
+            self._check_sp(cfg, plan)
+        elif plan.sharded:
             self._check_plan(cfg, plan)
-        if a.draft_model is not None and (plan.sharded
+        if a.draft_model is not None and (plan.sharded or sp
                                           or a.batch_size != 1):
             raise ValueError(
                 "--draft-model (speculative decoding) is batch-1 "
                 "single-device; it does not compose with "
                 "--sp/--tp/--dp/topology stages")
         # the sharded plan streams each shard's slice from the files
-        # (no whole-model copy ever exists); everything else loads whole
-        stream = plan.sharded and has_weights(a.model)
+        # (no whole-model copy ever exists); everything else loads whole,
+        # sp without stages too, as in JAX
+        stream = (plan.sharded and (not sp or plan.stages > 1)
+                  and has_weights(a.model))
         params = None
         if not stream:
             params = self._maybe_quantize(
@@ -178,7 +191,10 @@ class Context:
                         else self.dtype)
         max_seq = min(a.max_seq_len, cfg.max_position_embeddings)
         kwargs = {}
-        if plan.sharded:
+        if sp:
+            kwargs = self._place_sp(cfg, plan, params, max_seq, kv_dtype)
+            params = kwargs.pop("params")
+        elif plan.sharded:
             kwargs = self._place(cfg, plan, params, max_seq, kv_dtype)
             params = kwargs.pop("params")
         if a.draft_model is not None:
@@ -238,6 +254,110 @@ class Context:
                         "not divisible over tp — a tp shard would split a "
                         "quantization group. Use int8, drop --tp, or pick "
                         "a tp that divides the group count")
+
+    def _sp_window(self, max_seq: int) -> tuple:
+        """(ctx_len, tail): the tail holds sample_len generated tokens
+        (a smaller one would clamp its writes over live entries), the
+        context the rest, a multiple of sp."""
+        a = self.args
+        tail = max(a.sample_len, 16)
+        return ((max_seq - tail) // a.sp) * a.sp, tail
+
+    def _check_sp(self, cfg, plan) -> None:
+        """JAX's refusals of an sp plan, in its order and words, before
+        any weight loads."""
+        a = self.args
+        if plan.dp > 1 and plan.stages > 1:
+            raise ValueError(
+                "--sp composes with --dp OR topology stages, not both in "
+                "one mesh")
+        if plan.dp > 1 and a.batch_size % plan.dp != 0:
+            raise ValueError(
+                f"--batch-size {a.batch_size} must be divisible by --dp "
+                f"{plan.dp}")
+        if plan.tp > 1 and a.quant == "int4":
+            # a tp shard of a contract-sharded int4 weight must hold
+            # whole groups (its nibbles and scales are then its own)
+            from cake_tpu_torch.ops.quant import pick_group
+            for name, dim in (
+                    ("wo", cfg.num_attention_heads * cfg.head_dim),
+                    ("w_down", cfg.intermediate_size)):
+                g = pick_group(dim)
+                if (dim // g) % plan.tp:
+                    raise ValueError(
+                        f"--sp with --tp {plan.tp} and --quant int4: "
+                        f"{name}'s contract dim {dim} has {dim // g} "
+                        f"groups of {g}, not divisible over tp — a tp "
+                        "shard would split a quantization group. Use "
+                        "int8, drop --tp, or pick a tp that divides the "
+                        "group count")
+        if cfg.sliding_window is not None:
+            raise ValueError(
+                "--sp (ring attention) does not implement sliding-window "
+                "attention; serve this model without --sp")
+        need = plan.stages * plan.dp * a.sp * plan.tp
+        have = self._device_count()
+        if have is not None and need > have:
+            raise ValueError(
+                f"stages {plan.stages} x --dp {plan.dp} x --sp {a.sp} x "
+                f"--tp {plan.tp} needs {need} devices, have {have}")
+        # JAX refuses here a multi-host mesh that does not span every
+        # process's devices (its jax.process_count() > 1 check): that
+        # check comes with multi-host serving (ROADMAP A13(2))
+        if plan.tp > 1 and cfg.num_key_value_heads % plan.tp != 0:
+            raise ValueError(
+                f"--tp {plan.tp} must divide kv heads "
+                f"{cfg.num_key_value_heads}")
+        if plan.stages > 1 and cfg.num_hidden_layers % plan.stages != 0:
+            raise ValueError(
+                f"topology stages {plan.stages} must divide layer count "
+                f"{cfg.num_hidden_layers}")
+        max_seq = min(a.max_seq_len, cfg.max_position_embeddings)
+        ctx_len, tail = self._sp_window(max_seq)
+        if ctx_len <= 0:
+            raise ValueError(
+                f"--max-seq-len {max_seq} leaves no context window for "
+                f"sp={a.sp} after a {tail}-token decode tail; raise "
+                "--max-seq-len or lower --sample-len")
+
+    def _place_sp(self, cfg, plan, params, max_seq: int, kv_dtype) -> dict:
+        """The generator's sequence-parallel state: JAX's sp mesh, the
+        params placed on it (streamed stage-locally with stages and
+        weights on disk), the SPGeneratorForward and JAX's placeholder
+        cache of length 1 (the generator takes the forward's own)."""
+        from cake_tpu_torch.models.llama.cache import KVCache
+        from cake_tpu_torch.parallel.context_parallel import (
+            SPGeneratorForward, place_sp_params,
+        )
+        from cake_tpu_torch.parallel.mesh import make_sp_mesh
+        from cake_tpu_torch.parallel.sp_pipeline import place_sp_stage_params
+
+        a = self.args
+        stages = plan.stages
+        mesh = make_sp_mesh(a.sp, dp=plan.dp, stage=stages, tp=plan.tp,
+                            devices=self.mesh_devices,
+                            device_type=self.device.type)
+        if mesh.devices.flat[0] != self.device:
+            raise ValueError(
+                f"the mesh's first device {mesh.devices.flat[0]} is not "
+                f"the context's {self.device}")
+        if stages > 1:
+            if params is None:      # the streamed stage-local load
+                params = self._load_params_streamed(cfg, mesh,
+                                                    plan.tp > 1)
+            else:
+                params = place_sp_stage_params(mesh, cfg, params)
+        else:
+            params = place_sp_params(mesh, cfg, params)
+        ctx_len, _ = self._sp_window(max_seq)
+        fwd = SPGeneratorForward(
+            mesh, cfg, ctx_len, max_seq - ctx_len, kv_dtype=kv_dtype)
+        log.info("sp serving: ring prefill over sp=%d%s, ctx=%d tail=%d",
+                 a.sp, f" x stages={stages}" if stages > 1 else "",
+                 ctx_len, max_seq - ctx_len)
+        return dict(params=params, forward_fn=fwd,
+                    cache=KVCache.create(cfg, a.batch_size, 1,
+                                         dtype=kv_dtype, device=self.device))
 
     def _place(self, cfg, plan, params, max_seq: int, kv_dtype) -> dict:
         """The generator's sharded state: the plan's mesh, the cache

@@ -11,9 +11,12 @@ generator's config, params and tokenizer for the REST server: the paged
 engine with --kv-pages (and the --spec-draft draft for paged speculative
 rows), the dense engine without it (the ring engine for a sliding-window
 config shorter than max_seq_len), over a --draft-model generator the
-dense spec engine, and over a topology-sharded generator the dense (or
+dense spec engine, over a topology-sharded generator the dense (or
 ring) engine on the pipelined step fns (parallel/pipeline
-.make_engine_step_fns) with its own sharded cache.
+.make_engine_step_fns) with its own sharded cache, and over an `--sp`
+generator the sp engine (`_sp_engine`: the forward's `engine_pieces`,
+the windowed limits prompt_limit = ctx_len and decode_budget =
+tail_len, JAX's warnings for the flags it ignores).
 """
 
 from __future__ import annotations
@@ -77,9 +80,6 @@ class Master:
             max_seq_len=g.max_seq_len,
             sampling=g.sampling,
             seed=a.seed,
-            # the generator's cache dtype (a float --kv-dtype); an
-            # int8/int4 --kv-dtype quantizes the engine's pool instead
-            cache_dtype=g.cache.k.dtype,
             # the observability planes and the SLO scheduler
             trace_events=a.trace_events,
             trace_ring=a.trace_ring,
@@ -103,6 +103,13 @@ class Master:
             # scans do not apply to speculative rounds
             decode_scan_steps=a.decode_scan,
         )
+        fwd = getattr(g, "_forward_fn", None)
+        if fwd is not None and hasattr(fwd, "engine_pieces"):
+            # a forward that builds its own engine: the --sp adapter
+            return self._sp_engine(fwd, common, engine_kwargs)
+        # the generator's cache dtype (a float --kv-dtype); an int8/int4
+        # --kv-dtype quantizes the engine's pool instead
+        common["cache_dtype"] = g.cache.k.dtype
         if isinstance(g, SpeculativeGenerator):
             # speculation inside the batching engine: the draft/verify
             # rounds run batched across slots (spec_round_batched)
@@ -159,6 +166,50 @@ class Master:
             disagg_timeout_s=a.disagg_timeout,
             **self._spec_kwargs(),
         )
+        kw.update(engine_kwargs)
+        return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
+
+    def _sp_engine(self, fwd, common: dict, engine_kwargs: dict):
+        """The sp engine over the adapter's mesh and window: its step fns
+        and cache (`engine_pieces`, max slots divisible by dp for dp x
+        sp), prompt_limit = ctx_len and decode_budget = tail_len, and
+        JAX's warnings for the flags it ignores; --prefill-chunk passes
+        through, so the engine warns that the sp steps have no chunked
+        variant."""
+        from cake_tpu_torch.serve.engine import InferenceEngine
+        a = self.args
+        g = self.llm
+        slots = common["max_slots"]
+        fns, cache, ctx_len, tail_len = fwd.engine_pieces(slots, g.params)
+        for flag, on, why in (
+                ("--kv-pages", a.kv_pages, "the sp engine's ctx/tail "
+                 "cache is not paged (the ctx region is "
+                 "sequence-sharded, not slot-paged)"),
+                ("--kv-dtype int8/int4 / --kv-host-pages",
+                 a.kv_dtype in ("int8", "int4") or a.kv_host_pages,
+                 "KV tiering (cake_tpu_torch/kv) applies to the paged "
+                 "pool, and the sp engine's ctx/tail cache is not paged"),
+                ("--auto-prefix", a.auto_prefix, "prefix caching is not "
+                 "implemented for the sp engine's sequence-sharded ctx "
+                 "cache"),
+                ("--mixed-batch", a.mixed_batch == "on", "the sp engine's "
+                 "ctx/tail cache is not paged, so there is no mixed "
+                 "ragged step to dispatch"),
+                ("--autotune", a.autotune != "off", "the sp engine's "
+                 "custom step fns own their cache contract; only the "
+                 "built-in dense/paged engines can hot-switch configs"),
+                ("--disagg", a.disagg, "disaggregated prefill/decode "
+                 "ships paged pool pages (cake_tpu_torch/kv/transfer.py), "
+                 "and the sp engine's ctx/tail cache is not paged")):
+            if on:
+                log.warning("%s ignored: %s", flag, why)
+        log.info("sp engine: %d slots, ctx window %d + decode tail %d",
+                 slots, ctx_len, tail_len)
+        kw = dict(common, max_seq_len=ctx_len + tail_len,
+                  cache_dtype=cache.dtype, step_fns=fns, cache=cache,
+                  prompt_limit=ctx_len, decode_budget=tail_len,
+                  prefill_chunk=a.prefill_chunk,
+                  recovery=a.recovery is not False)
         kw.update(engine_kwargs)
         return InferenceEngine(g.config, g.params, g.tokenizer, **kw)
 

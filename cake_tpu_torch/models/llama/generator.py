@@ -25,7 +25,11 @@ every prompt then prefills whole through forward_fn (flash on the
 card, per stage and tp rank), the decode step captured over it, and
 `generate_on_device` is JAX's host loop, one eager pipelined prefill
 and a replay of the captured pipelined step a token over a scratch
-copy of the sharded cache. Sequence parallelism is not ported.
+copy of the sharded cache. A forward may bound the session
+(parallel/context_parallel.SPGeneratorForward, `--sp`): `max_prompt_len`
+caps the prompt, `max_decode_tokens` the generated tokens, and a forward
+with a `new_cache` gives the session its cache (once: the captured step
+holds it, and `reset` zeroes it in place).
 """
 
 from __future__ import annotations
@@ -162,6 +166,10 @@ class LlamaGenerator:
         # (plan, mesh) the engine builds its own sharded cache from
         self._forward_fn = forward_fn
         self.parallel = parallel
+        if hasattr(forward_fn, "new_cache"):
+            # the forward's own layout (the sp context and tail), in
+            # place of the caller's placeholder
+            cache = forward_fn.new_cache(batch_size, cache_dtype)
         self.cache = cache if cache is not None else KVCache.create(
             config, batch_size, max_seq_len, dtype=cache_dtype,
             device=self.device)
@@ -237,6 +245,13 @@ class LlamaGenerator:
         """Generate one token; index == 0 prefills the prompt (eagerly)
         and samples its logits, a later index replays the captured step
         from the last token at `index_pos`."""
+        limit = getattr(self._forward_fn, "max_decode_tokens", None)
+        if limit is not None and index >= limit:
+            # the sp forward's decode tail is full: a write past it would
+            # clamp over live entries
+            raise ValueError(
+                f"decode budget exhausted: this serving mode holds at most "
+                f"{limit} generated tokens per session")
         runner = self._decode_runner()
         top_k = self.sampling.top_k
         if index == 0:
@@ -267,7 +282,11 @@ class LlamaGenerator:
 
     def _encode_prompt(self) -> List[int]:
         ids = encode_text(self.tokenizer, self.history.render())
-        limit = self.max_seq_len - 1     # decode needs one free slot
+        # a forward's own (inclusive) bound, the sp context window; the
+        # dense decode needs one free slot past the prompt
+        limit = getattr(self._forward_fn, "max_prompt_len", None)
+        if limit is None:
+            limit = self.max_seq_len - 1
         if len(ids) > limit:
             raise ValueError(
                 f"prompt length {len(ids)} exceeds limit {limit} "
@@ -379,6 +398,18 @@ class LlamaGenerator:
             raise ValueError(
                 f"num_tokens {num_tokens} must be in [1, max_seq_len "
                 f"{self.max_seq_len}]")
+        fwd = self._forward_fn
+        plimit = getattr(fwd, "max_prompt_len", None)
+        if plimit is not None and int(plen_arr[0]) > plimit:
+            # the sp context window: a longer prompt would be cut
+            raise ValueError(
+                f"prompt length {int(plen_arr[0])} exceeds this serving "
+                f"mode's prompt limit {plimit}")
+        limit = getattr(fwd, "max_decode_tokens", None)
+        if limit is not None and num_tokens > limit:
+            raise ValueError(
+                f"num_tokens {num_tokens} exceeds this serving mode's "
+                f"decode budget of {limit} tokens per session")
         toks = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int32,
                                device=self.device)
         plen = torch.as_tensor(plen_arr, device=self.device)

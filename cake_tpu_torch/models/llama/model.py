@@ -106,10 +106,9 @@ def tp_sum(parts: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _attn_partial(lp, x, config: LlamaConfig, attn_fn):
-    """rms -> qkv proj -> attn_fn(q, k, v) -> o_proj: the attention's
-    output before the residual (a tensor-parallel rank's partial sum),
-    and attn_fn's extras."""
+def _qkv(lp, x, config: LlamaConfig):
+    """rms -> qkv proj: the rank's q [B, S, H, hd] and k, v
+    [B, S, KV, hd] (its heads under tp)."""
     B, S, _ = x.shape
     hd = config.head_dim
     H = lp["wq"].shape[-1] // hd      # the rank's heads under tp
@@ -123,9 +122,23 @@ def _attn_partial(lp, x, config: LlamaConfig, attn_fn):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    attn, extras = attn_fn(q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-                           v.reshape(B, S, KV, hd))
-    return qmatmul(attn.reshape(B, S, H * hd), lp["wo"]), extras
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+def _o_proj(lp, attn):
+    """The rank's attention [B, S, H, hd] through its wo (a
+    tensor-parallel rank's partial sum)."""
+    B, S = attn.shape[:2]
+    return qmatmul(attn.reshape(B, S, -1), lp["wo"])
+
+
+def _attn_partial(lp, x, config: LlamaConfig, attn_fn):
+    """rms -> qkv proj -> attn_fn(q, k, v) -> o_proj: the attention's
+    output before the residual (a tensor-parallel rank's partial sum),
+    and attn_fn's extras."""
+    attn, extras = attn_fn(*_qkv(lp, x, config))
+    return _o_proj(lp, attn), extras
 
 
 def _ffn(lp, h, config: LlamaConfig):
@@ -168,12 +181,32 @@ def block_skeleton(ranks, x, config: LlamaConfig, attn_fns,
         parts.append(out)
         extras.append(ex)
     x = x + tp_reduce(parts)
+    return _ffn_residual(ranks, x, config, tp_reduce), extras
+
+
+def _ffn_residual(ranks, x, config: LlamaConfig, tp_reduce):
+    """rms -> each rank's FFN -> the partials summed -> residual."""
     parts = []
     for lp in ranks:
         h = rms_norm(x.to(_device_of(lp)), lp["mlp_norm"],
                      config.rms_norm_eps)
         parts.append(_ffn(lp, h, config))
-    return x + tp_reduce(parts), extras
+    return x + tp_reduce(parts)
+
+
+def block_qkv(ranks, x, config: LlamaConfig) -> list:
+    """block_skeleton's first half, for an attention that needs every
+    chunk's keys before any chunk's output (sequence parallelism's
+    ring): each rank's (q, k, v) of its heads, on its device."""
+    return [_qkv(lp, x.to(_device_of(lp)), config) for lp in ranks]
+
+
+def block_finish(ranks, x, attns, config: LlamaConfig, tp_reduce=tp_sum):
+    """block_skeleton's second half: each rank's attention [B, S, H, hd]
+    through its wo, the partials summed (tp_reduce), the residual, then
+    the FFN (or the experts') half. Returns x."""
+    x = x + tp_reduce([_o_proj(lp, a) for lp, a in zip(ranks, attns)])
+    return _ffn_residual(ranks, x, config, tp_reduce)
 
 
 def _to(t, dev):

@@ -1,16 +1,20 @@
 """Topology-sharded execution on one controller: a mesh of torch
-devices, placement of params and caches by spec, and the GPipe pipeline.
+devices, placement of params and caches by spec, the GPipe pipeline and
+sequence parallelism.
 
 Counterpart of `cake_tpu/parallel/` (`mesh.py`, `plan.py`,
-`sharding.py`, `pipeline.py`) for pipeline stages, tensor, data and
-expert parallelism. JAX runs one SPMD program over a
-`jax.sharding.Mesh` from one process; the port keeps that shape: one
-process drives a `Mesh`, an array of `torch.device` over JAX's axes
-("dp", "stage", "tp"), where a position may repeat a device (the
-co-located mesh of the tests, and of one card). A stage's hidden state
-moves to the next stage's device; a tensor-parallel reduction sums the
-shards' partials on the stage's device. Sequence parallelism and
-multi-host serving are not ported.
+`sharding.py`, `pipeline.py`, `context_parallel.py`, `sp_pipeline.py`)
+for pipeline stages, tensor, data, expert and sequence parallelism. JAX
+runs one SPMD program over a `jax.sharding.Mesh` from one process; the
+port keeps that shape: one process drives a `Mesh`, an array of
+`torch.device` over JAX's axes ("dp", "stage", "tp", or an sp mesh's
+with "sp"), where a position may repeat a device (the co-located mesh
+of the tests, and of one card). A stage's hidden state moves to the
+next stage's device; a tensor-parallel reduction sums the shards'
+partials on the stage's device; `context_parallel.py` runs ring
+attention over the sp positions and merges the decode's per-shard
+stats, `sp_pipeline.py` chains it over stages. Multi-host serving is
+not ported.
 """
 
 from cake_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401

@@ -3,6 +3,11 @@
 Counterpart of `cake_tpu/parallel/mesh.py`. Axis convention as in JAX:
 ("dp", "stage", "tp") — data parallel, pipeline stage, tensor parallel.
 A `Mesh` is an object array of `torch.device` of shape (dp, stage, tp).
+Sequence parallelism builds JAX's meshes with an "sp" axis
+(`cake_tpu/context.py`'s sp branch, `make_sp_mesh`): ("sp",),
+("sp", "tp"), ("dp", "sp"[, "tp"]) and ("stage", "sp"[, "tp"]). A
+position is addressed by its named coordinates (`Mesh.index`), an axis
+the mesh lacks at coordinate 0.
 
 Default devices: on CUDA each visible card once (a mesh that needs more
 cards than are visible raises JAX's message); on the CPU the CPU at
@@ -44,9 +49,29 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    def size_of(self, axis: str) -> int:
+        """The axis' size (1 for an axis the mesh does not have)."""
+        return self.shape.get(axis, 1)
+
+    def index(self, dp: int = 0, stage: int = 0, tp: int = 0,
+              sp: int = 0) -> tuple:
+        """The position of named coordinates; an axis the mesh lacks
+        must be at 0."""
+        coords = {"dp": dp, "stage": stage, "tp": tp, "sp": sp}
+        for ax, c in coords.items():
+            if c and ax not in self.axis_names:
+                raise ValueError(f"mesh {self.axis_names} has no {ax!r} "
+                                 f"axis (coordinate {c})")
+        return tuple(coords[a] for a in self.axis_names)
+
     def device(self, *index) -> torch.device:
         """The device at a mesh position."""
         return self.devices[tuple(index)]
+
+    def at(self, dp: int = 0, stage: int = 0, tp: int = 0,
+           sp: int = 0) -> torch.device:
+        """The device at named coordinates (`index`)."""
+        return self.devices[self.index(dp=dp, stage=stage, tp=tp, sp=sp)]
 
     def distinct_devices(self):
         """The mesh's devices, each once, in position order."""
@@ -76,20 +101,52 @@ def make_mesh(dp: int = 1, stage: int = 1, tp: int = 1,
     """Build a ("dp", "stage", "tp") mesh over the given devices, or the
     default ones of `device_type` (the CPU fills every position)."""
     need = dp * stage * tp
+    return _mesh((dp, stage, tp), AXES, devices, device_type,
+                 f"mesh dp={dp} x stage={stage} x tp={tp} = {need} devices, "
+                 "but only {have} available")
+
+
+def _mesh(shape: tuple, axes: tuple, devices, device_type: str,
+          too_few: str) -> Mesh:
+    """A mesh of `shape` over `devices` (None: the defaults of
+    `device_type`, the CPU at every position), or ValueError(too_few
+    formatted with have=) when they are too few."""
+    need = int(np.prod(shape))
     if devices is None:
         devices = default_devices(device_type)
         if device_type != "cuda":
             devices = devices * need
     devices = [torch.device(d) for d in devices]
     if need > len(devices):
-        raise ValueError(
-            f"mesh dp={dp} x stage={stage} x tp={tp} = {need} devices, "
-            f"but only {len(devices)} available"
-        )
+        raise ValueError(too_few.format(have=len(devices)))
     arr = np.empty(need, dtype=object)
     for i, d in enumerate(devices[:need]):
         arr[i] = d
-    return Mesh(arr.reshape(dp, stage, tp), AXES)
+    return Mesh(arr.reshape(shape), axes)
+
+
+def sp_axes(dp: int = 1, stage: int = 1, tp: int = 1) -> tuple:
+    """JAX's axis names of an sp mesh (`cake_tpu/context.py`):
+    ("stage", "sp"[, "tp"]) with stages, else ("dp",)? + ("sp",) +
+    ("tp",)?; an axis of size 1 is left out."""
+    lead = ("stage",) if stage > 1 else ("dp",) if dp > 1 else ()
+    return lead + ("sp",) + (("tp",) if tp > 1 else ())
+
+
+def make_sp_mesh(sp: int, dp: int = 1, stage: int = 1, tp: int = 1,
+                 devices: Optional[Sequence] = None,
+                 device_type: str = "cuda") -> Mesh:
+    """A mesh with an "sp" axis over the given devices, or the default
+    ones of `device_type` (the CPU fills every position). dp and stages
+    do not compose in one sp mesh (the context refuses it first)."""
+    if dp > 1 and stage > 1:
+        raise ValueError("an sp mesh takes dp or stages, not both")
+    axes = sp_axes(dp, stage, tp)
+    sizes = {"dp": dp, "stage": stage, "sp": sp, "tp": tp}
+    shape = tuple(sizes[a] for a in axes)
+    return _mesh(shape, axes, devices, device_type,
+                 f"stages {stage} x --dp {dp} x --sp {sp} x --tp {tp} needs "
+                 f"{int(np.prod(shape))} devices, have {{have}}")
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -45,8 +45,8 @@ def _full_spec(spec, ndim: int) -> tuple:
 
 
 def shard_slices(shape, spec, mesh: Mesh, pos) -> tuple:
-    """The slice of each dim that mesh position `pos` (dp, stage, tp)
-    holds of a leaf of `shape` placed by `spec`. A dim must divide over
+    """The slice of each dim that mesh position `pos` (an index of the
+    mesh's array, (dp, stage, tp) on a pipeline mesh) holds of a leaf of `shape` placed by `spec`. A dim must divide over
     its axes."""
     out = []
     for dim, entry in enumerate(_full_spec(spec, len(shape))):
@@ -113,9 +113,12 @@ class Sharded:
     def element_size(self) -> int:
         return self.shards.flat[0].element_size()
 
-    def shard(self, dp: int = 0, stage: int = 0, tp: int = 0):
-        """The tensor a mesh position holds."""
-        return self.shards[dp, stage, tp]
+    def shard(self, dp: int = 0, stage: int = 0, tp: int = 0,
+              sp: int = 0):
+        """The tensor the mesh position of these coordinates holds (an
+        axis the mesh lacks at 0, `Mesh.index`)."""
+        return self.shards[self.mesh.index(dp=dp, stage=stage, tp=tp,
+                                           sp=sp)]
 
     def distinct(self) -> list:
         """Every tensor once (positions may share one)."""
@@ -186,16 +189,16 @@ def tree_shard(tree, mesh: Mesh, spec_tree):
     return _map(tree, spec_tree, lambda x, s: place(x, mesh, s))
 
 
-def local(tree, dp: int = 0, stage: int = 0, tp: int = 0):
+def local(tree, dp: int = 0, stage: int = 0, tp: int = 0, sp: int = 0):
     """A placed tree as one mesh position sees it: each Sharded leaf its
     shard, QTensor nodes of shards, other leaves as they are."""
     if isinstance(tree, Sharded):
-        return tree.shard(dp, stage, tp)
+        return tree.shard(dp, stage, tp, sp)
     if isinstance(tree, QTensor):
-        return QTensor(local(tree.q, dp, stage, tp),
-                       local(tree.scale, dp, stage, tp))
+        return QTensor(local(tree.q, dp, stage, tp, sp),
+                       local(tree.scale, dp, stage, tp, sp))
     if isinstance(tree, dict):
-        return {k: local(v, dp, stage, tp) for k, v in tree.items()}
+        return {k: local(v, dp, stage, tp, sp) for k, v in tree.items()}
     return tree
 
 

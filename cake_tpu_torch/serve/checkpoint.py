@@ -12,7 +12,10 @@ format:
     original prompt + tokens generated so far, and their generated
     history as `prime_penalty_tokens`, so greedy streams, with a repeat
     penalty or without, continue with the tokens an uninterrupted run
-    emits; `restore` is load + resume.
+    emits; `restore` is load + resume. Over a windowed engine (the sp
+    engine's prompt window and decode tail) a transcript past the
+    window is refused, and a remaining budget past the tail warns that
+    the resumed generation will be truncated.
 
 The fingerprint is the port's own: its params digest samples the port's
 leaves (in the dict's key order), and it carries ``"framework":
@@ -67,11 +70,17 @@ def _leaves(tree) -> List[torch.Tensor]:
 def _params_digest(params) -> str:
     """Weight-sensitive model identity: sha256 over the shapes and the
     first 256 values of the first and last four leaves (sliced on the
-    device before the copy to the host)."""
+    device before the copy to the host; of a placed leaf, the first
+    mesh position's slice)."""
+    from cake_tpu_torch.parallel.sharding import Sharded
+
     h = hashlib.sha256()
     leaves = _leaves(params)
     for leaf in leaves[:4] + leaves[-4:]:
         h.update(str(tuple(leaf.shape)).encode())
+        if isinstance(leaf, Sharded):
+            # a placed leaf: its global shape, its first position's slice
+            leaf = leaf.shards.flat[0]
         sample = leaf.reshape(-1)[:256].to(torch.float32).cpu()
         h.update(sample.numpy().tobytes())
     return h.hexdigest()[:16]
@@ -287,6 +296,23 @@ def resume(engine, snap: Dict, strict: bool = True) -> Tuple[List, List[Dict]]:
                 finished.append(rec)
                 continue
             ids = rec["prompt_ids"] + rec["out_tokens"]
+            limit = getattr(engine, "prompt_limit", None)
+            if limit is not None and len(ids) > limit:
+                # a windowed serving mode (the sp engine's context and
+                # tail) re-prefills the whole transcript into its prompt
+                # window; a longer one has no replay path
+                raise ValueError(
+                    f"resumed context {len(ids)} exceeds this serving "
+                    f"mode's prompt window {limit}")
+            budget = getattr(engine, "decode_budget", None)
+            if budget is not None and rec["remaining"] > budget:
+                # submit clamps max_new_tokens to the tail: say so, since
+                # it shortens the client's resumed generation
+                log.warning(
+                    "resume: rid=%s has %d tokens remaining but this "
+                    "serving mode's decode budget is %d; the resumed "
+                    "generation will be truncated",
+                    rec.get("rid"), rec["remaining"], budget)
             h = engine.submit(
                 ids,
                 max_new_tokens=rec["remaining"],

@@ -168,7 +168,13 @@ model's pipelined prefill, decode and chunk steps
 its ShardedKVCache reset in place by a recovery. Such an engine serves
 a prefix by installing its sharded lines and windowing the suffix
 through the chunk step, takes no --kv-pages, speculation or live
-switch, as in JAX. Not ported yet: multi-host serving (the control
+switch, as in JAX. The sp engine runs the same seam over the sequence-
+parallel steps (parallel/context_parallel.make_sp_engine_step_fns: the
+ring slot prefill, one captured step for the whole window, and the
+merged-stats ragged decode) and an SPEngineCache, with JAX's windowed
+limits: `prompt_limit` refuses a longer prompt, `decode_budget` caps
+each request's generation at the decode tail, and preemption is off
+unless asked for. Not ported yet: multi-host serving (the control
 channel and its lockstep followers; ROADMAP A13(2)).
 """
 
@@ -578,6 +584,8 @@ class InferenceEngine:
         step_fns=None,
         cache=None,
         ring: Optional[bool] = None,
+        prompt_limit: Optional[int] = None,
+        decode_budget: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -752,6 +760,11 @@ class InferenceEngine:
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
+        # a windowed layout (the sp engine: a prompt window and a decode
+        # tail) bounds prompts and each request's generation apart from
+        # max_seq_len; None = the single-window rules
+        self.prompt_limit = prompt_limit
+        self.decode_budget = decode_budget
         self.defaults = sampling or SamplingConfig()
         self.n_top = top_logprobs_cap
         self.paged_attn = impl
@@ -912,8 +925,10 @@ class InferenceEngine:
         # stays the priority-free fallback.
         self._sched_cfg = sched_config or SchedConfig()
         self._slo = bool(priority_classes)
-        self._preemption = (self._slo if preemption is None
-                            else bool(preemption))
+        # unset: on with the classes, except over a windowed layout, whose
+        # recompute fold would re-prefill past the prompt window
+        self._preemption = ((self._slo and decode_budget is None)
+                            if preemption is None else bool(preemption))
         if self._preemption and not self._slo:
             log.warning("--preemption requires --priority-classes; "
                         "preemption disabled")
@@ -1331,7 +1346,15 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt length {len(ids)} exceeds max_seq_len "
                 f"{self.max_seq_len}")
+        if self.prompt_limit is not None and len(ids) > self.prompt_limit:
+            raise ValueError(
+                f"prompt length {len(ids)} exceeds this serving mode's "
+                f"prompt window {self.prompt_limit}")
         max_new = min(max_new_tokens, self.max_seq_len - len(ids))
+        if self.decode_budget is not None:
+            # a windowed layout caps generation by its tail, not by
+            # max_seq_len - prompt
+            max_new = min(max_new, self.decode_budget)
         if self.paged:
             need = self._pager.pages_for(len(ids) + max_new)
             if need > self._pager.n_pages:
@@ -2088,7 +2111,9 @@ class InferenceEngine:
         window's W on a ring engine, in the cache dtype; over custom
         step fns, a new zeroed cache of the caller's placement."""
         if self._custom_steps:
-            return zeros_placed(self._cache_placement)
+            p = self._cache_placement
+            # a placement tuple, or a cache's own allocator (the sp cache)
+            return p() if callable(p) else zeros_placed(p)
         length = (self.config.sliding_window if self.ring
                   else self.max_seq_len)
         return KVCache.create(config, self.max_slots, length,
@@ -3682,7 +3707,8 @@ class InferenceEngine:
             fns = {"slot": slot_fn, "chunk": chunk_fn, "ring": chunk_fn}
         return DensePrefillRunner(
             params, cache, rope, config, pool=self._graph_pool,
-            on_capture=self._captured(DENSE_PREFILL_FNS), fns=fns)
+            on_capture=self._captured(DENSE_PREFILL_FNS), fns=fns,
+            device=self.device)
 
     def _host_row(self, slot: int) -> torch.Tensor:
         """Slot `slot`'s table row on the host, from its page list (the
@@ -3696,7 +3722,10 @@ class InferenceEngine:
         """Whole-prompt prefill of the prompt's bucket (the captured
         `prefill_slot_paged` of that bucket). Returns the runner's
         logits buffer."""
-        bucket = bucket_length(len(ids), self.max_seq_len)
+        # a windowed layout pads every prompt to its window (the sp slot
+        # prefill's one shape: one captured step)
+        bucket = (self.prompt_limit if self.prompt_limit is not None
+                  else bucket_length(len(ids), self.max_seq_len))
         padded = list(ids) + [0] * (bucket - len(ids))
         if not self.paged:
             logits = self._dense_prefill_runner().run(

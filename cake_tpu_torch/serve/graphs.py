@@ -54,7 +54,9 @@ the stream until it fetches.
 Kernel launch counts (the `LAUNCHES` dicts of the kernel modules) are
 bumped in Python, which a replay never runs: the runner records each
 counter's increase during capture, takes it back out (a capture
-launches nothing), and adds it once per replay.
+launches nothing), and adds it once per replay. Other host-side
+accounting of a step registers a hook inside the capture (`on_replay`),
+which each replay calls with its host wall.
 
 On the card a run records a timing event before its first replay and
 one after its last (`timing`): the engine reads their elapsed time for
@@ -111,6 +113,23 @@ def _add(delta: List[dict], times: int) -> None:
     for c, d in zip(COUNTERS, delta):
         for k, n in d.items():
             c[k] += n * times
+
+
+# host-side hooks registered inside a capture (`on_replay`), collected
+# by the capturing thread
+_HOOKS = threading.local()
+
+
+def on_replay(hook) -> bool:
+    """Inside a capture: every replay of the graph being captured calls
+    hook(seconds), the replay's host wall, and True is returned; outside
+    one, False. Host-side accounting of a captured step (the sp engine's
+    dispatch counters) runs this way, since a replay runs no Python."""
+    hooks = getattr(_HOOKS, "hooks", None)
+    if hooks is None:
+        return False
+    hooks.append(hook)
+    return True
 
 
 _CAPTURE_LOCK = threading.RLock()
@@ -232,12 +251,16 @@ class _Graphs:
                 undo()
             graph = torch.cuda.CUDAGraph()
             before = _snapshot()
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
-                self.step(variant)
+            _HOOKS.hooks = hooks = []
+            try:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
+                    self.step(variant)
+            finally:
+                _HOOKS.hooks = None
         delta = _increase(before)
         _add(delta, -1)              # the capture launched nothing
-        self._graphs[variant] = got = (graph, delta)
+        self._graphs[variant] = got = (graph, delta, hooks)
         if self._on_capture is not None:
             self._on_capture(variant, time.perf_counter() - t0)
         return got
@@ -248,9 +271,14 @@ class _Graphs:
         if not self._cuda:
             self.step(variant)
             return
-        graph, delta = self.captured(variant)
+        graph, delta, hooks = self.captured(variant)
+        t0 = time.perf_counter()
         graph.replay()
         _add(delta, 1)
+        if hooks:
+            dt = time.perf_counter() - t0
+            for hook in hooks:
+                hook(dt)
 
     def _put(self, dst: torch.Tensor, values) -> None:
         """Host values into a device buffer; on the card from pinned
@@ -666,12 +694,14 @@ class DensePrefillRunner(_Graphs):
     `replay` runs the step eagerly over the same buffers.
 
     fns: {"slot", "chunk", "ring"} -> the engine's custom step fns (a
-    topology-sharded model's pipelined prefills) in place of the model's
-    functions, with their signatures."""
+    topology-sharded model's pipelined prefills, the sp engine's ring
+    prefill) in place of the model's functions, with their signatures;
+    device: the steps' device (default the cache's k's)."""
 
     def __init__(self, params, cache, rope, config, *, pool=None,
-                 on_capture=None, fns=None):
-        super().__init__(cache.k.device, pool=pool, on_capture=on_capture)
+                 on_capture=None, fns=None, device=None):
+        super().__init__(device if device is not None else cache.k.device,
+                         pool=pool, on_capture=on_capture)
         self.params, self.cache, self.rope = params, cache, rope
         self.config = config
         self._fns = {"slot": prefill_slot, "chunk": prefill_slot_chunk,

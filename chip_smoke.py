@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases kernels,step
     python3 chip_smoke.py --phases device,generate --profile
     python3 chip_smoke.py --phases device,serve --tree DIR  # a parent's serve
+    python3 chip_smoke.py --phases device,sp          # sequence parallelism
     python3 chip_smoke.py --phases device,kernels --kernels rpa_decode,flash_attn \
         --tree DIR            # the same cases over the package in DIR
 
@@ -376,8 +377,9 @@ Phases, in order (any failure exits non-zero):
             width (D 4096, F 14336, H 32, KV 8, hd 128, E 8, top 2,
             V 32000) at MOE_LAYERS = 4 of its 32 layers, random weights:
             the paged engine (8 slots, 128 x 128-token pages) behind
-            the HTTP API, six chats of 64 tokens, two warm-up waves then
-            a measured one, in three drives (MOE_DRIVES): bf16 (mixed
+            the HTTP API, six chats of 64 tokens, two warm-up waves
+            (more, to MOE_WARM_MAX, until one captures nothing) then a
+            measured one, in three drives (MOE_DRIVES): bf16 (mixed
             steps: rpa_decode, rpa_mixed), the int8 tree over int8 pages
             (--quant int8 --kv-dtype int8: rpa_decode_q8, rpa_mixed_q8)
             and bf16 at --mixed-batch off with --prefill-chunk 256 (the
@@ -432,6 +434,31 @@ Phases, in order (any failure exits non-zero):
             image no farther from the f32 image than PAR_SD_BF16_RATIO
             times the unsharded bf16 image is. A `parallel` JSON line holds the record; each kernel
             row carries `parallel_launches`.
+  sp        sequence parallelism (ROADMAP A13 part 1b) on meshes whose
+            positions repeat the card (what sp costs on one card, not a
+            speed-up): (a) 8 of Llama-3-8B's blocks at f32, --sp 4
+            --max-seq-len 4112 --sample-len 16 (a 4096-token context
+            and a 16-token tail), 4 slots, four chats of 1000 to 4000
+            prompt tokens and 16 new tokens through Master.make_engine
+            behind the HTTP API, both engines at --decode-scan 4: the
+            streams equal to the unsharded dense engine's on the same
+            wave, the sp steps replayed graphs (one prefill capture for
+            the window), the measured wave capturing nothing, TTFT p50,
+            decode tok/s and a decode replay's device ms of both; then
+            the sp engine's captured decode step, one 4-step burst
+            against four single steps; (b) the generator through
+            Context.load_text_model over sp 2 x tp 2 on a full
+            4096-token prompt greedy-identical to unsharded, and
+            --quant int4 over sp 2 x tp 2: its int4_matmul launches (no
+            plain one), its prefill logits within PAR_BF16_TOL of max
+            against the unsharded int4 generator's, and each block
+            product at the tp shard shapes against its plain version;
+            (c) stage 2 x sp 2 (4 + 4) and
+            dp 2 x sp 2 engines greedy-identical to the unsharded
+            engine on two full-window and two short prompts, and one
+            bf16 prefill and decode step through the sp 4 steps within
+            PAR_BF16_TOL of max |logits|. An `sp` JSON line holds the
+            record; each kernel row carries `sp_launches`.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -456,7 +483,7 @@ from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
           "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense", "moe", "sd", "parallel")
+          "dense", "moe", "sd", "parallel", "sp")
 # the depth the tiers, recovery and spec phases, the control phase's (1)
 # and (3), the disagg phase's (b) and the dense phase's (b)-(d) run the
 # Llama-3-8B-width bf16 weights at: their first blocks of the 32 (the
@@ -7074,6 +7101,7 @@ MOE_NEW_ID = 12                   # (a): tokens a stream
 MOE_LAYERS = 4                    # (b): Mixtral-8x7B's 32 layers cut to 4
 MOE_CHATS = (160, 400, 180, 200, 300, 140)   # (b): each chat's prompt
 MOE_NEW = 64                      # (b): tokens a chat
+MOE_WARM_MAX = 4                  # (b): warm-up waves at most
 MOE_OFF_CHUNK = 256               # (b) off: prompts past it walk windows
 # (b)'s drives: weights, engine Args beside the common ones, and the
 # kernels each measured wave must launch (its KERNELS rows)
@@ -7235,7 +7263,8 @@ def _moe_served(torch, rpa, fa, card: str):
     """(b) Mixtral-8x7B width (D 4096, F 14336, H 32, KV 8, E 8, top 2,
     V 32000) at MOE_LAYERS of its 32 layers, random weights from a seed:
     the paged engine (8 slots, 128 x 128-token pages) behind the HTTP
-    API, two warm-up waves then a measured one of the six chats, in each
+    API, two warm-up waves (more, to MOE_WARM_MAX, until one captures
+    nothing) then a measured one of the six chats, in each
     of MOE_DRIVES: bf16 with mixed steps, the int8 tree (--quant int8:
     experts and attention per-channel int8) over int8 pages, and bf16
     at --mixed-batch off (flash prefills). Returns (the launches summed
@@ -7264,10 +7293,18 @@ def _moe_served(torch, rpa, fa, card: str):
         eng = srv.engine
         try:
             caps = _count_captures(eng)
-            # two warm-up waves: the threads' arrival order decides which
-            # step variants a wave meets
-            for w in range(2):
+            # warm-up waves, two and then until one captures nothing, at
+            # most MOE_WARM_MAX (as spec's): the threads' arrival order
+            # decides which step variants a wave meets
+            for w in range(MOE_WARM_MAX):
+                n_caps = len(caps)
                 _moe_wave(srv, f"w{w}{label}")
+                if w and len(caps) == n_caps:
+                    break
+            else:
+                fail(f"moe (b) {label}: still capturing after "
+                     f"{MOE_WARM_MAX} warm-up waves")
+            warm_waves = w + 1
             fa.reset_launch_counts()
             rpa.reset_launch_counts()
             del caps[:]
@@ -7287,13 +7324,14 @@ def _moe_served(torch, rpa, fa, card: str):
                        kv_dtype=args_kw.get("kv_dtype") or "bf16",
                        mixed_batch=args_kw.get("mixed_batch", "auto"),
                        prefill_chunk=args_kw["prefill_chunk"],
-                       captures=len(caps), launches=got,
+                       captures=len(caps), warm_waves=warm_waves,
+                       launches=got,
                        weight_gib=weights / 2**30,
                        decode_bound_ms=bound_ms,
                        impl=eng.flight.impl)
             if rec["captures"]:
                 fail(f"moe (b) {label}: the measured wave captured "
-                     f"{rec['captures']} graph(s)")
+                     f"{rec['captures']} graph(s): {caps}")
             plain = {k: n for k, n in got.items() if k.endswith("_plain")}
             if plain:
                 fail(f"moe (b) {label}: plain versions ran {plain}")
@@ -7740,35 +7778,41 @@ def _par_generator(torch, cfg, params, args, mesh_devices=None):
                           cache_dtype=ctx.dtype, device=ctx.device, **kw)
 
 
-def _par_wave(srv, tag: str) -> dict:
-    """PAR_CHATS chats at once through the HTTP API, PAR_NEW tokens each:
-    TTFT p50, decode tok/s, the decode replays' device ms, the streams."""
+def _par_wave(srv, tag: str, chats=PAR_CHATS, n_new: int = PAR_NEW,
+              what: str = "parallel (a)") -> dict:
+    """`chats` chats at once through the HTTP API (each of that many
+    prompt tokens), n_new tokens each: TTFT p50, decode tok/s, a decode
+    replay's device ms (a K-step burst's device time over its K
+    replays), the bursts run, the streams."""
     eng = srv.engine
     n0, tok0, dec0 = len(eng.retired), eng.stats.tokens_generated, \
         eng.stats.decode_time_s
     r0 = len(eng.flight.records())
     t_wave = time.perf_counter()
-    tags = [f"{tag}{i}" for i in range(len(PAR_CHATS))]
-    for t, n in zip(tags, PAR_CHATS):
-        srv.post(t, "standard", n, PAR_NEW)
+    tags = [f"{tag}{i}" for i in range(len(chats))]
+    for t, n in zip(tags, chats):
+        srv.post(t, "standard", n, n_new)
     srv.join()
     wall = time.perf_counter() - t_wave
     bad = {t: srv.status.get(t) for t in tags
            if srv.status.get(t, (0,))[0] != 200}
     if bad:
-        fail(f"parallel (a) [{tag}]: chats failed {bad}")
+        fail(f"{what} [{tag}]: chats failed {bad}")
     retired = sorted(list(eng.retired)[n0:], key=lambda r: r.prompt_ids)
-    if len(retired) != len(PAR_CHATS):
-        fail(f"parallel (a) [{tag}]: {len(retired)} chats retired")
+    if len(retired) != len(chats):
+        fail(f"{what} [{tag}]: {len(retired)} chats retired")
     dec_s = eng.stats.decode_time_s - dec0
-    dev = [r.device_s for r in eng.flight.records()[r0:]
-           if r.kind == "decode" and r.device_s]
+    recs = eng.flight.records()[r0:]
+    dev = [r.device_s for r in recs if r.kind == "decode" and r.device_s]
+    dev += [r.device_s / eng._decode_scan for r in recs
+            if r.kind == "decode_scan" and r.device_s]
     return dict(
         wall_s=wall, ttft_p50_s=statistics.median(
             r.first_token_t - r.submit_t for r in retired),
         decode_tok_s=((eng.stats.tokens_generated - tok0) / dec_s
                       if dec_s else 0.0),
         decode_replay_ms=(1e3 * statistics.median(dev) if dev else None),
+        bursts=sum(r.kind == "decode_scan" for r in recs),
         streams=[list(r.out_tokens) for r in retired])
 
 
@@ -8235,6 +8279,399 @@ def phase_parallel(torch, fa, i4, card: str, tree: str):
     return counts, rec
 
 
+# -- phase: sp --------------------------------------------------------------------
+
+SP_N = 4                          # (a): --sp
+SP_LAYERS = 8                     # (a), (c): Llama-3-8B width, 8 of 32 blocks
+SP_T = 4112                       # --max-seq-len: a 4096 context, a 16 tail
+SP_NEW = 16                       # --sample-len, and the tokens a chat
+SP_CTX = 4096
+SP_SLOTS = 4
+SP_CHATS = (1000, 2000, 3000, 4000)   # (a): prompt tokens
+SP_SCAN = 4                       # (a): --decode-scan of both engines
+SP_GEN_LAYERS = 4                 # (b): blocks of the generator drives
+SP_GEN_NEW = 8                    # (b): tokens of the f32 drive
+SP_SHORT = (300, 900)             # (c): the short chats' tokens
+SP_TOPOLOGY = PAR_TOPOLOGY        # (c): a 4 + 4 topology
+
+
+def _sp_args(**kw):
+    return _par_args(**{**dict(max_seq_len=SP_T, sample_len=SP_NEW,
+                                max_slots=SP_SLOTS, prefill_chunk=None,
+                                decode_scan=SP_SCAN), **kw})
+
+
+def _sp_generator(torch, cfg, params, args, mesh_devices):
+    """The generator Context.load_text_model builds for an --sp `args`
+    (its sp branch: the refusals, JAX's sp mesh on `mesh_devices`, the
+    window split, the SPGeneratorForward), over `params` (a tree made
+    here, not loaded)."""
+    from cake_tpu_torch.context import Context
+    from cake_tpu_torch.models.llama.generator import (
+        ByteTokenizer, LlamaGenerator,
+    )
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.parallel.plan import ParallelPlan
+
+    ctx = Context.from_args(args, mesh_devices=mesh_devices)
+    plan = ParallelPlan.from_topology(cfg, ctx.topology, args=args)
+    ctx._check_sp(cfg, plan)
+    kw = ctx._place_sp(cfg, plan, params, args.max_seq_len, ctx.dtype)
+    params = kw.pop("params")
+    return LlamaGenerator(cfg, params, ByteTokenizer(cfg.vocab_size),
+                          max_seq_len=args.max_seq_len,
+                          batch_size=args.batch_size,
+                          sampling=SamplingConfig(temperature=0.0,
+                                                  repeat_penalty=1.0),
+                          cache_dtype=ctx.dtype, device=ctx.device, **kw)
+
+
+def _sp_scan_check(torch, eng) -> bool:
+    """The sp engine's captured decode step after its waves: one K = 4
+    burst of replays against four bursts of one, every slot live from
+    its prompt's end, the tails restored between: the same tokens."""
+    import numpy as np
+
+    from cake_tpu_torch.serve.graphs import DecodeRunner
+    r, cache, B = eng._runner, eng.cache, eng.max_slots
+    tails = cache.tail_k.distinct() + cache.tail_v.distinct()
+    saved = [t.clone() for t in tails]
+    plen = cache.plen.cpu().numpy()
+    ones = np.ones(B, np.float32)
+
+    def burst(ns):
+        for t, v in zip(tails, saved):
+            t.copy_(v)
+        r.load(0, np.arange(B) + 40, plen, np.ones(B, bool),
+               np.zeros(B, np.int64), 0 * ones, ones, ones)
+        return np.concatenate([DecodeRunner.fetch(r.run(
+            n, np.full(B, n), 0))[0] for n in ns], axis=1)
+
+    with torch.inference_mode():
+        got, want = burst([SP_SCAN]), burst([1] * SP_SCAN)
+        for t, v in zip(tails, saved):
+            t.copy_(v)
+    if not (got == want).all():
+        fail(f"sp (a): a {SP_SCAN}-step burst gave {got.tolist()}, "
+             f"{SP_SCAN} single steps {want.tolist()}")
+    return True
+
+
+def _sp_served(torch, cfg, params, card: str) -> dict:
+    """(a) the unsharded dense engine, then the engine over --sp 4 on
+    four mesh positions of the card, both at --decode-scan 4 behind the
+    HTTP API at f32: a warm-up wave, then a measured one whose streams
+    must be the unsharded engine's and which captures nothing; the sp
+    engine's windowed limits; its K = 4 burst against single steps."""
+    rec, ref = {}, None
+    for label in ("unsharded", "sp"):
+        sp = label == "sp"
+        args = _sp_args(**(dict(sp=SP_N) if sp else {}))
+        gen = (_sp_generator(torch, cfg, params, args, [DEV] * SP_N) if sp
+               else _par_generator(torch, cfg, params, args))
+        srv = _ParServer(torch, gen, args)
+        eng = srv.engine
+        try:
+            if sp != eng._custom_steps:
+                fail(f"sp (a): make_engine built custom steps "
+                     f"{eng._custom_steps} for the {label} generator")
+            if sp and (eng.prompt_limit, eng.decode_budget) != (SP_CTX,
+                                                                SP_NEW):
+                fail(f"sp (a): prompt_limit {eng.prompt_limit}, "
+                     f"decode_budget {eng.decode_budget}")
+            caps = _count_captures(eng)
+            _par_wave(srv, "w", SP_CHATS, SP_NEW, "sp (a)")
+            n_caps = len(caps)
+            del caps[:]
+            r = _par_wave(srv, "m", SP_CHATS, SP_NEW, "sp (a)")
+            r.update(captures=len(caps), warm_captures=n_caps,
+                     cache_gib=eng.cache.memory_bytes() / 2**30)
+            if r["captures"]:
+                fail(f"sp (a) {label}: the measured wave captured "
+                     f"{r['captures']} graph(s)")
+            if not r["bursts"]:
+                fail(f"sp (a) {label}: no {SP_SCAN}-step burst ran")
+            if sp and not (eng._runner and eng._runner.captures
+                           and eng._prefill_runner.captures == 1):
+                fail("sp (a): the sp steps were not replayed graphs (one "
+                     "prefill capture for the window expected)")
+            log(f"sp (a) {label:<9}: TTFT p50 {r['ttft_p50_s']:.3f} s, "
+                f"decode {r['decode_tok_s']:.1f} tok/s, decode replay "
+                f"{r['decode_replay_ms']} ms, {r['bursts']} bursts, wall "
+                f"{r['wall_s']:.2f} s, cache {r['cache_gib']:.3f} GiB "
+                f"[{card}]")
+        finally:
+            srv.close()
+        for t in threading.enumerate():
+            if t.name == "cake-http":
+                t.join(timeout=60)
+        if sp:
+            r["scan_equal"] = _sp_scan_check(torch, eng)
+        gone = [weakref.ref(eng)]
+        del srv, eng, gen
+        _release(torch, gone)
+        if ref is None:
+            ref = r["streams"]
+        elif r["streams"] != ref:
+            same = sum(a == b for a, b in zip(r["streams"], ref))
+            fail(f"sp (a): {same} of {len(ref)} f32 streams equal the "
+                 "unsharded engine's")
+        r.pop("streams")
+        rec[label] = r
+    return rec
+
+
+def _sp_bf16(torch, cfg, card: str) -> dict:
+    """(c) at bf16: one slot prefill of a 1000-token prompt over a 1024
+    window and one decode step through the sp 4 engine steps against the
+    unsharded model's, logits within PAR_BF16_TOL of their largest
+    magnitude (the ring and the merge sum in another order; bf16 rounds
+    apart)."""
+    from cake_tpu_torch.models.llama import model as tm
+    from cake_tpu_torch.models.llama.cache import KVCache
+    from cake_tpu_torch.models.llama.params import init_params
+    from cake_tpu_torch.parallel.context_parallel import (
+        create_sp_engine_cache, make_sp_engine_step_fns, place_sp_params,
+    )
+    from cake_tpu_torch.parallel.mesh import make_sp_mesh
+
+    ctx, tail, n, B = 1024, 16, 1000, 4
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3),
+                         device=DEV, dtype=torch.bfloat16)
+    mesh = make_sp_mesh(sp=SP_N, devices=[DEV] * SP_N)
+    placed = place_sp_params(mesh, cfg, params)
+    fns = make_sp_engine_step_fns(mesh, cfg, ctx, tail,
+                                  kv_dtype=torch.bfloat16)
+    cache = create_sp_engine_cache(mesh, cfg, B, ctx, tail,
+                                   kv_dtype=torch.bfloat16)
+    rope = tm.RopeTables.create(cfg, ctx + tail, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (1, ctx), generator=gen,
+                        device=DEV, dtype=torch.int32)
+    plen = torch.tensor([n], dtype=torch.int32, device=DEV)
+    dense = KVCache.create(cfg, B, ctx + tail, dtype=torch.bfloat16,
+                           device=DEV)
+    out = {}
+    with torch.inference_mode():
+        want, _ = tm.prefill_slot(params, ids, plen, 1, dense, rope, cfg)
+        got, _ = fns[0](placed, ids, plen, 1, cache, rope, cfg)
+        tok = torch.full((B, 1), 7, dtype=torch.int32, device=DEV)
+        pos = torch.tensor([0, n, 0, 0], dtype=torch.int32, device=DEV)
+        live = torch.tensor([False, True, False, False], device=DEV)
+        want2, _ = tm.decode_step_ragged(params, tok, pos, live, dense,
+                                         rope, cfg)
+        got2, _ = fns[1](placed, tok, pos, live, cache, rope, cfg)
+    for name, w, g in (("prefill", want, got), ("decode", want2[1], got2[1])):
+        share = ((w - g).abs().max() / w.abs().max()).item()
+        out[name] = share
+        if not share <= PAR_BF16_TOL:
+            fail(f"sp (c) bf16 {name}: logits differ by {share:.4f} of max "
+                 f"|logits| (> {PAR_BF16_TOL})")
+    log(f"sp (c) bf16: prefill and decode logits within {out['prefill']:.4f}"
+        f" and {out['decode']:.4f} of max |logits| (tol {PAR_BF16_TOL}) "
+        f"[{card}]")
+    del params, placed, dense, cache
+    return out
+
+
+def _sp_generators(torch, i4, card: str) -> dict:
+    """(b) the generator through Context.load_text_model (random weights
+    from seed 0, SP_GEN_LAYERS blocks at 8B width) on a full 4096-token
+    prompt: over sp 2 x tp 2 at f32, greedy-identical to the unsharded
+    generator; then --quant int4 over sp 2 x tp 2 at bf16: its
+    int4_matmul launches on the decode steps (counted from 0 just
+    before) and no plain one, its prefill logits within PAR_BF16_TOL of
+    max against the unsharded int4 generator's on the same prompt, and
+    each block product at the tp shard shapes it launched at against
+    its plain version within row 9's tolerance."""
+    import dataclasses
+
+    import numpy as np
+
+    from cake_tpu_torch.context import Context
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.ops.quant import group_size
+    from cake_tpu_torch.parallel.sharding import local
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=SP_GEN_LAYERS,
+                              use_flash_attention=True)
+    prompt = np.random.default_rng(9).integers(
+        3, 250, (1, SP_CTX)).astype(np.int32)
+    plen = np.full((1,), SP_CTX, np.int32)
+    rec, outs = {}, {}
+    for label, kw in (("single", {}), ("sp2_tp2", dict(sp=2, tp=2))):
+        args = _sp_args(batch_size=1, **kw)
+        ctx = Context.from_args(args, mesh_devices=[DEV] * 4 if kw else None)
+        ctx.llama_config = cfg
+        g = ctx.load_text_model()
+        if kw and g._forward_fn.ctx_len != SP_CTX:
+            fail(f"sp (b): ctx_len {g._forward_fn.ctx_len}")
+        t0 = time.perf_counter()
+        outs[label] = g.generate_on_device(prompt, plen,
+                                           SP_GEN_NEW).tolist()
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        del g, ctx
+        _release(torch)
+    if outs["single"] != outs["sp2_tp2"]:
+        fail(f"sp (b): sp 2 x tp 2 gave {outs['sp2_tp2']}, the unsharded "
+             f"generator {outs['single']}")
+    rec["identity"] = outs["single"][0]
+    logits = {}
+    for label, kw in (("single", {}), ("sp2_tp2", dict(sp=2, tp=2))):
+        args = _sp_args(batch_size=1, quant="int4", dtype="bf16", **kw)
+        ctx = Context.from_args(args, mesh_devices=[DEV] * 4 if kw else None)
+        ctx.llama_config = cfg
+        g = ctx.load_text_model()
+        i4.reset_launch_counts()
+        rec[f"int4_{label}_tokens"] = g.generate_on_device(
+            prompt, plen, 4).tolist()[0]
+        torch.cuda.synchronize()
+        if kw:
+            rec["int4_launches"] = n = dict(i4.LAUNCHES)
+        logits[label] = _sp_prefill_logits(torch, g, prompt, plen)
+        if not kw:
+            del g, ctx
+            _release(torch)
+    if n["int4_matmul"] <= 0 or n["int4_matmul_plain"]:
+        fail(f"sp (b): int4 launches {n}")
+    share = ((logits["single"] - logits["sp2_tp2"]).abs().max()
+             / logits["single"].abs().max()).item()
+    rec["int4_logits_share"] = share
+    if not share <= PAR_BF16_TOL:
+        fail(f"sp (b): int4 sp 2 x tp 2 prefill logits differ from the "
+             f"unsharded int4 generator's by {share} of max")
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    errs = {}
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        for t in range(2):
+            w = local(g.params["blocks"][name], tp=t).layer(0)
+            gs = group_size(w)
+            x = torch.randn((1, 2 * w.q.shape[0]), generator=gen,
+                            device=DEV, dtype=torch.bfloat16)
+            got = i4.int4_matmul(x, w.q, w.scale, g=gs)
+            want = i4.int4_matmul_plain(x, w.q, w.scale, g=gs)
+            err = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            errs[f"{name}[{2 * w.q.shape[0]}->{w.q.shape[1]}]"] = err
+            if not err <= TOL["bfloat16"]["rtol"]:
+                fail(f"sp (b): int4_matmul over tp rank {t}'s {name} "
+                     f"differs from its plain version by {err} of max")
+    rec["int4_shard_errs"] = errs
+    del g, ctx
+    _release(torch)
+    log(f"sp (b): sp 2 x tp 2 greedy-identical on a {SP_CTX}-token prompt; "
+        f"int4: {n} launches, prefill logits within {share:.4f} of the "
+        f"unsharded int4 generator's; shard shapes {errs} [{card}]")
+    return rec
+
+
+def _sp_prefill_logits(torch, g, prompt, plen):
+    """The logits [V] f32 of g's prefill of `prompt` at plen - 1 over its
+    scratch cache, what generate_on_device samples its first token from
+    (run after a generate_on_device, which allocates the scratch)."""
+    from cake_tpu_torch.models.llama.model import forward
+
+    toks = torch.as_tensor(prompt, device=g.device)
+    last = torch.as_tensor(plen, device=g.device) - 1
+    with torch.inference_mode():
+        if g._forward_fn is not None:
+            logits, _ = g._forward_fn(g.params, toks, g._scratch, 0, g.rope,
+                                      last_idx=last, is_prefill=True)
+        else:
+            logits, _ = forward(g.params, toks, g._scratch, 0, g.rope,
+                                g.config, last_idx=last)
+    return logits[0].float().clone()
+
+
+def _sp_compositions(torch, cfg, params, card: str) -> dict:
+    """(c) stage 2 x sp 2 (a 4 + 4 topology) and dp 2 x sp 2 engines on
+    four mesh positions of the card, each greedy-identical to the
+    unsharded dense engine on two full-window (4096-token) and two short
+    prompts."""
+    import numpy as np
+
+    from cake_tpu_torch.master import Master
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, 250, n).tolist()
+               for n in (SP_CTX, SP_CTX) + SP_SHORT]
+    rec, ref = {}, None
+    for label, kw in (("unsharded", {}),
+                      ("stage2_sp2", dict(sp=2, topology=_par_topology(
+                          SP_TOPOLOGY))),
+                      ("dp2_sp2", dict(sp=2, dp=2, batch_size=2))):
+        args = _sp_args(decode_scan=1, **kw)
+        gen = (_sp_generator(torch, cfg, params, args, [DEV] * 4) if kw
+               else _par_generator(torch, cfg, params, args))
+        eng = Master(args, text_generator=gen).make_engine()
+        t0 = time.perf_counter()
+        with eng:
+            hs = [eng.submit(p, max_new_tokens=SP_NEW) for p in prompts]
+            if not all(h.wait(600) for h in hs):
+                fail(f"sp (c) {label}: a request did not finish")
+        streams = [list(h._req.out_tokens) for h in hs]
+        rec[label] = dict(wall_s=time.perf_counter() - t0,
+                          custom=eng._custom_steps)
+        gone = [weakref.ref(eng)]
+        del eng, gen, hs
+        _release(torch, gone)
+        if ref is None:
+            ref = streams
+        elif streams != ref:
+            same = sum(a == b for a, b in zip(streams, ref))
+            fail(f"sp (c) {label}: {same} of {len(ref)} streams equal the "
+                 "unsharded engine's")
+    log(f"sp (c): stage 2 x sp 2 and dp 2 x sp 2 greedy-identical on two "
+        f"full-window and two short prompts {rec} [{card}]")
+    return rec
+
+
+def phase_sp(torch, i4, card: str):
+    """The sp phase (ROADMAP A13 part 1b) on meshes whose positions repeat
+    the card (what sequence parallelism costs on one card, not a
+    speed-up): (a) the engine over --sp 4 at 8 of Llama-3-8B's blocks,
+    (b) the generator over sp 2 x tp 2 and its int4 tree, (c) stage 2 x
+    sp 2 and dp 2 x sp 2 engines and one bf16 step. Returns ((b)'s int4
+    drive's launches, record)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.params import init_params
+
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=SP_LAYERS,
+                              use_flash_attention=True)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(21),
+                         device=DEV, dtype=torch.float32)
+    # greedy tokens in the byte range, never an EOS: every stream runs
+    # to its budget
+    params["lm_head"][:, 256:] = 0.0
+    rec = dict(served=_sp_served(torch, cfg, params, card))
+    t1 = time.perf_counter()
+    rec["compositions"] = _sp_compositions(torch, cfg, params, card)
+    del params
+    _release(torch)
+    rec["bf16"] = _sp_bf16(torch, cfg, card)
+    _release(torch)
+    t2 = time.perf_counter()
+    rec["generators"] = _sp_generators(torch, i4, card)
+    rec["part_seconds"] = dict(a=t1 - t0, c=t2 - t1,
+                               b=time.perf_counter() - t2)
+    rec["seconds"] = time.perf_counter() - t0
+    _release(torch)
+    rec["held_gib"] = [held / 2**30, torch.cuda.memory_allocated() / 2**30]
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail(f"sp: the phase kept {rec['held_gib']} GiB allocated")
+    log(f"sp phase: {rec['seconds']:.1f} s (co-located mesh: these times "
+        "are sequence parallelism's cost on one card, not a speed-up)")
+    return {"int4_matmul": rec["generators"]["int4_launches"][
+        "int4_matmul"]}, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8329,6 +8766,8 @@ def main(argv=None) -> int:
     sd_record = None
     parallel_record = None
     parallel_counts = {}
+    sp_record = None
+    sp_counts = {}
     if {"step", "generate", "serve", "prefix", "sched", "tiers",
             "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
@@ -8469,6 +8908,12 @@ def main(argv=None) -> int:
         parallel_counts["int4_matmul"] = parallel_record["generators"][
             "int4_launches"]["int4_matmul"]
         lap("parallel")
+    if "sp" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.parallel.context_parallel"):
+        # (b)'s int4 drive's launches (set to 0 just before it), a
+        # kernels-line key of their own
+        sp_counts, sp_record = phase_sp(torch, i4, card)
+        lap("sp")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -8508,6 +8953,9 @@ def main(argv=None) -> int:
     if parallel_record is not None:
         print(json.dumps({"parallel": parallel_record, "card": card},
                          default=str), flush=True)
+    if sp_record is not None:
+        print(json.dumps({"sp": sp_record, "card": card}, default=str),
+              flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -8537,6 +8985,8 @@ def main(argv=None) -> int:
                              if moe_record else None),
             "parallel_launches": (parallel_counts.get(name, 0)
                                   if parallel_record else None),
+            "sp_launches": (sp_counts.get(name, 0)
+                            if sp_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

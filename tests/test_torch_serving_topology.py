@@ -353,8 +353,13 @@ def test_tp_must_divide_kv_heads_and_int4_shards_hold_whole_groups(
 
 
 def test_sp_and_the_multi_host_flags_are_refused_by_argparse(capsys):
+    """The multi-host flags (A13(2)) are refused by argparse; --sp is
+    parsed now, and refused below 1 with JAX's message."""
     from cake_tpu_torch.args import parse_args
-    for flag, val in (("--sp", "2"), ("--mode", "worker"), ("--name", "n"),
+    assert parse_args(["--sp", "2"]).sp == 2
+    with pytest.raises(ValueError, match="--sp must be >= 1"):
+        parse_args(["--sp", "0"])
+    for flag, val in (("--mode", "worker"), ("--name", "n"),
                       ("--address", "1.2.3.4:5"),
                       ("--heartbeat-timeout", "3"),
                       ("--stall-timeout", "3")):
