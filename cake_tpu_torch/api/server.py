@@ -26,6 +26,8 @@ observability routes:
        bus; ?host= a fleet host's stream held by the collector
   GET  /api/v1/fleet: per-host liveness, export age, clock offset and
        HBM gauges (this host alone, with a note, without a collector)
+  GET  /api/v1/cluster: the process group (process index and count,
+       devices, the hops' backend; parallel/distributed.cluster_info)
   GET  /api/v1/requests/{rid}/timeline: one request's spans, events and
        step records merged in time order (404 for an unknown rid)
   GET  /api/v1/autotune: the live config, the switch log and (auto mode)
@@ -40,14 +42,18 @@ observability routes:
 Every chat request goes through the continuous-batching engine, so N
 requests decode together; a full queue, a shed request or a draining
 server answers 429 with the computed Retry-After, an engine failure 503
-(retryable) or 500 (a quarantined poison request). `start` restores a
---checkpoint and replays a --journal at startup, and on SIGTERM drains,
-stops the engine, writes the postmortem bundle (--postmortem-dir) and
-saves. With a fleet collector (`collector=`, obs/federation.py) the
+(retryable) or 500 (a quarantined poison request). `start` always arms
+a `ServingHealth` over the engine (parallel/health.py: the progress
+watchdog of --stall-timeout; multi-process serving passes one that also
+watches the followers' heartbeats): once it fails, every POST but a
+drain answers 503 with the reason, /api/v1/health reads "failed" with
+it, `cake_serving_healthy` is 0 and the fleet's local `live` is false.
+`start` restores a --checkpoint and replays a --journal at startup,
+and on SIGTERM drains, stops the engine, writes the postmortem bundle
+(--postmortem-dir) and saves. With a fleet collector (`collector=`, obs/federation.py) the
 fleet route, ?host= events, the host-labelled families appended to
 /metrics and the fleet merge of a request's timeline read from it. Not
-ported yet: the cluster route and the router's departure notice
-(ROADMAP A13(2), A15).
+ported yet: the router's departure notice (ROADMAP A15).
 
 An image model's master (an image generator and no text generator) is
 served with no engine: the image, health, models and metrics routes
@@ -93,6 +99,7 @@ KNOWN_ROUTES = frozenset({
     "/api/v1/events", "/api/v1/drain", "/api/v1/profile",
     "/api/v1/autotune", "/api/v1/requests/{rid}/timeline",
     "/api/v1/anomalies", "/api/v1/fleet", "/api/v1/image",
+    "/api/v1/cluster",
 })
 _TIMELINE_RE = re.compile(r"^/api/v1/requests/(\d+)/timeline$")
 # what a server with no engine (an image model) answers
@@ -125,13 +132,16 @@ class ApiServer:
     An image model's master is wrapped with engine=None."""
 
     def __init__(self, master, model_name: str = "cake-tpu", engine=None,
-                 collector=None):
+                 collector=None, health=None):
         if engine is None and getattr(master, "image", None) is None:
             raise ValueError("the port serves text through the batching "
                              "engine only: pass engine=master.make_engine()")
         self.master = master
         self.model_name = model_name
         self.engine = engine
+        # parallel.health.ServingHealth: once it fails, POSTs 503 and
+        # /api/v1/health reports the reason
+        self.health_state = health
         # obs/federation.TelemetryCollector: the fleet route, ?host=
         # events and the host-labelled /metrics families read from it;
         # attached to the engine, request timelines span hosts
@@ -396,15 +406,19 @@ class ApiServer:
                     "device": str(self.master.image.device),
                     "busy": self._gen_lock.locked()}
         st = eng.stats
+        failed = self._failed()
         out = {
-            "status": "stopped" if eng.stopped else "ok",
+            "status": ("failed" if failed else "stopped" if eng.stopped
+                       else "ok"),
             "model": self.model_name,
             "device": str(eng.device),
             "queue_depth": eng.queue_depth,
             "active_requests": eng.active,
             "decode_slots": eng.max_slots,
         }
-        if eng.stopped:
+        if failed:
+            out["reason"] = self.health_state.reason
+        elif eng.stopped:
             out["reason"] = st.last_error or "engine stopped"
         depths = getattr(eng.scheduler, "class_depths", None)
         if depths is not None:
@@ -438,6 +452,15 @@ class ApiServer:
         # the LIVE effective engine config, what the autotuner chose
         out["engine_config"] = eng.current_config().to_dict()
         return out
+
+    def _failed(self) -> bool:
+        return self.health_state is not None and self.health_state.failed
+
+    def cluster(self) -> dict:
+        """GET /api/v1/cluster: the process group as
+        parallel/distributed.cluster_info reports it."""
+        from cake_tpu_torch.parallel.distributed import cluster_info
+        return cluster_info()
 
     def autotune(self) -> dict:
         """GET /api/v1/autotune: mode, live config, window signals and
@@ -510,7 +533,16 @@ class ApiServer:
         engine's aggregate counters synced at scrape time (one scrape =
         one snapshot of EngineStats), as the JAX server renders them."""
         m = obs_metrics
-        obs_steps.refresh_device_gauges()
+        if self.health_state is None:
+            # with a health state, its observe_metrics below refreshes
+            # the device gauges (once a scrape)
+            obs_steps.refresh_device_gauges()
+        m.gauge("cake_serving_healthy",
+                "1 = serving, 0 = failed (parallel/health.py)").set(
+            0 if self._failed() else 1)
+        if self.health_state is not None:
+            # the heartbeat staleness gauge, the device and page gauges
+            self.health_state.observe_metrics()
         if self.engine is not None:
             self._sync_engine_metrics(self.engine)
         if self.collector is not None:
@@ -594,9 +626,13 @@ class ApiServer:
         local_name = getattr(self.collector, "local_host", None) \
             or "coordinator"
         eng = self.engine
-        local: dict = {"role": "coordinator", "live": not eng.stopped,
+        failed = self._failed()
+        local: dict = {"role": "coordinator", "live": not failed,
                        "active_requests": eng.active,
                        "queue_depth": eng.queue_depth}
+        if failed:
+            local["health"] = {"status": "failed",
+                               "reason": self.health_state.reason}
         try:
             from cake_tpu_torch.utils.profiling import device_memory_stats
             keymap = (("bytes_in_use", "bytes_in_use"),
@@ -830,6 +866,8 @@ def make_handler(api: ApiServer):
                     return self._json(400, {"error": str(e)})
             if route == "/api/v1/fleet":
                 return self._json(200, api.fleet())
+            if route == "/api/v1/cluster":
+                return self._json(200, api.cluster())
             m = _TIMELINE_RE.match(route)
             if m:
                 tl = api.request_timeline(int(m.group(1)))
@@ -878,11 +916,20 @@ def make_handler(api: ApiServer):
                 return
             try:
                 body = self._read_body()
+                if self.path == "/api/v1/drain":
+                    # before the health gate: draining a failed server
+                    # is how an operator evacuates it
+                    return self._json(200, api.drain(body))
+                # after the body read: answering early would leave body
+                # bytes unread on this keep-alive connection
+                if api._failed():
+                    # fail fast instead of queueing work onto a dead mesh
+                    return self._json(503, {
+                        "error": "serving failed: "
+                                 f"{api.health_state.reason}"})
                 if self.path in ("/api/v1/chat/completions",
                                  "/v1/chat/completions"):
                     return self._chat(body)
-                if self.path == "/api/v1/drain":
-                    return self._json(200, api.drain(body))
                 if self.path == "/api/v1/profile":
                     try:
                         return self._json(200, api.profile(body))
@@ -991,7 +1038,8 @@ def make_handler(api: ApiServer):
 
 def start(master, address: str = "127.0.0.1:10128",
           model_name: str = "cake-tpu", block: bool = True, engine=None,
-          checkpoint_path: Optional[str] = None, collector=None):
+          checkpoint_path: Optional[str] = None, collector=None,
+          health=None):
     """Bind and serve. Without `engine`, one is built from the master
     (`master.make_engine()`), except for an image model's master (an
     image generator and no text generator), which is served with no
@@ -1013,7 +1061,11 @@ def start(master, address: str = "127.0.0.1:10128",
 
     collector: an obs/federation.TelemetryCollector whose remote views
     the fleet route, ?host= events, /metrics and request timelines
-    read."""
+    read.
+
+    health: a parallel/health.ServingHealth (multi-process serving
+    passes one watching the followers' heartbeats); without one, one is
+    armed over the engine with --stall-timeout's watchdog, always."""
     import os
 
     from cake_tpu_torch.serve import checkpoint as ckpt
@@ -1035,7 +1087,12 @@ def start(master, address: str = "127.0.0.1:10128",
         if checkpoint_path:
             engine.snapshot_path = checkpoint_path
         ckpt.warm_fingerprint(engine)
-    api = ApiServer(master, model_name, engine=engine, collector=collector)
+    if health is None and engine is not None:
+        from cake_tpu_torch.parallel.health import ServingHealth
+        health = ServingHealth(engine, stall_after_s=getattr(
+            getattr(master, "args", None), "stall_timeout", 600.0))
+    api = ApiServer(master, model_name, engine=engine, collector=collector,
+                    health=health)
     if journal_armed:
         from cake_tpu_torch.serve import journal as jr
         try:
@@ -1128,6 +1185,8 @@ def start(master, address: str = "127.0.0.1:10128",
             httpd.serve_forever()
         finally:
             save_and_exit()
+            if health is not None:
+                health.close()
             del owner
 
     if block:

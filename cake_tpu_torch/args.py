@@ -9,12 +9,13 @@ package does (`--max-seq-len`, `--flash-attention/--no-flash-attention`,
 (Args, SDArgs, ImageGenerationArgs), what JAX's `parse_args` returns;
 `parse_args` returns the validated Args alone (`Args.validate`, the JAX
 package's rules for the fields the port has, `--quant none|int8|int4`
-among them). A flag of the JAX package that the port does not implement
-yet (the multi-host `--mode`, `--name`, `--address`,
-`--heartbeat-timeout`, `--stall-timeout`, `--telemetry-export`, ...), or that
-the JAX package parses and reads nowhere (`--sd-flash-attention`,
-`--sd-sliced-attention-size`), is rejected by argparse, never accepted
-and ignored.
+among them). The multi-process serving
+flags (`--mode`, `--name`, `--address`, `--heartbeat-timeout`,
+`--stall-timeout`, `--telemetry-export`, `--telemetry-interval`) have
+JAX's names, defaults and checks. A flag of the JAX package that the
+port does not implement yet, or that the JAX package parses and reads
+nowhere (`--sd-flash-attention`, `--sd-sliced-attention-size`), is
+rejected by argparse, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ class Args:
     # --model-type text | image: a Llama-family (or Mixtral) text model,
     # or Stable Diffusion (SDArgs, ImageGenerationArgs)
     model_type: ModelType = ModelType.TEXT
+    # master | worker: JAX's compatibility flag; every process runs the
+    # same command and its role comes from the process group, so
+    # `--mode worker` is explained and refused (cli.main, rc 2)
+    mode: str = "master"
+    name: str = ""                      # node name within the topology
+    address: str = "127.0.0.1:10128"    # serving bind address
     api: Optional[str] = None           # REST bind address; None = one-shot
     prompt: str = "Why is the sky blue?"
     system_prompt: str = "You are a helpful AI assistant."
@@ -246,6 +253,23 @@ class Args:
     # --disagg-timeout S: the decode engine's wait for a forwarded
     # prefill before that request degrades to local prefill
     disagg_timeout: float = 30.0
+    # serving watchdog: fail (recoverably) when the engine makes no
+    # progress for this many seconds with active requests; must exceed
+    # the worst-case first-request capture time (parallel/health.py)
+    stall_timeout: float = 600.0
+    # multi-process serving: fail when a follower's heartbeat lapses
+    # this many seconds (parallel/health.HeartbeatMonitor stale window):
+    # the pre-fail snapshot and 503s instead of a hop that never returns
+    heartbeat_timeout: float = 15.0
+    # --telemetry-export / --no-telemetry-export: fleet telemetry
+    # federation (obs/federation.py): every follower ships its metrics,
+    # events, step summaries and applied control-op seq to the
+    # coordinator's collector (/api/v1/fleet, ?host=, host-labelled
+    # /metrics). None = auto (on when serving spans processes); True on
+    # a single process is a one-shot warning
+    telemetry_export: Optional[bool] = None
+    # --telemetry-interval S: the exporter's frame cadence in seconds
+    telemetry_interval: float = 2.0
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
@@ -263,9 +287,16 @@ class Args:
         --sentinel-act needs --sentinel; --disagg is prefill or decode,
         needs --kv-pages, a host:port --disagg-peer and
         $CAKE_DISAGG_TOKEN, and excludes --spec-draft; --disagg-timeout
-        is above 0. Returns self."""
+        is above 0; --telemetry-interval is above 0; --mode is master or
+        worker. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
+        if not self.telemetry_interval > 0:
+            raise ValueError(
+                f"--telemetry-interval {self.telemetry_interval} must "
+                "be > 0 seconds")
+        if self.mode not in ("master", "worker"):
+            raise ValueError(f"unsupported mode '{self.mode}'")
         for knob in ("tp", "dp", "sp", "microbatches", "batch_size",
                      "max_slots", "decode_scan", "spec_gamma",
                      "spec_rounds", "trace_ring", "step_ring"):

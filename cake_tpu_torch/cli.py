@@ -45,12 +45,266 @@ a topology's stages: the one-shot generator runs SPGeneratorForward,
     python -m cake_tpu_torch.cli --model DIR --sp 4 --max-seq-len 4112 \
         --api 0.0.0.0:8080
     python -m cake_tpu_torch.cli --cpu --sp 2 --max-seq-len 512 --prompt hi
+
+Multi-process serving: every process runs the same command, with
+CAKE_COORDINATOR=host:port (the process group's rendezvous, hosted by
+process 0), CAKE_NUM_PROCESSES and CAKE_PROCESS_ID; process 0 serves
+the API and publishes each engine step over the control channel
+(serve/control.py), the others replay it (`_serve_multihost`).
+CAKE_CONTROL_HOST names the address the followers dial (default the
+coordinator's host):
+
+    CAKE_COORDINATOR=10.0.0.1:29500 CAKE_NUM_PROCESSES=2 CAKE_PROCESS_ID=0 \
+        python -m cake_tpu_torch.cli --model DIR --topology topo.yml \
+        --api 0.0.0.0:8080
+    CAKE_COORDINATOR=10.0.0.1:29500 CAKE_NUM_PROCESSES=2 CAKE_PROCESS_ID=1 \
+        python -m cake_tpu_torch.cli --model DIR --topology topo.yml \
+        --api 0.0.0.0:8080
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
+
+
+def _serve_multihost(master, args) -> int:
+    """Serve the REST API over a mesh that spans processes.
+
+    Every process runs the positions it owns and hops to the others
+    inside each step, so the coordinator publishes one op record per
+    engine step over a TCP control channel and every other process
+    replays it (JAX's `_serve_multihost`, with its teardown order).
+    Every process runs this same command; its role comes from the
+    process group (parallel/distributed.initialize)."""
+    from cake_tpu_torch.api.server import start
+    from cake_tpu_torch.parallel.distributed import (
+        is_coordinator, process_count, process_index,
+    )
+    from cake_tpu_torch.serve.control import (
+        ControlClient, ControlServer, broadcast_control_address,
+    )
+
+    if args.sp > 1 and args.dp > 1:
+        # dp x sp shards the slot axis over dp: decode outputs would be
+        # process-local, which the replicated-logits path cannot consume
+        raise ValueError(
+            "dp x sp serving is single-host only (dp-sharded "
+            "decode outputs are process-local); drop --dp or "
+            "serve on one host")
+    if args.draft_model is not None:
+        raise ValueError(
+            "this serving mode (--draft-model multi-host, or an "
+            "sp composition without an engine contract) has no "
+            "multi-host step replay; serve it on one host")
+    # every process builds the identical engine
+    engine = master.make_engine()
+    # the pre-fail capture must outlive the heartbeat stale window (the
+    # monitor is exactly the late-arriving consumer)
+    engine.fail_recs_ttl = args.heartbeat_timeout + 60.0
+    # a model without a cross-process placement runs entirely inside the
+    # coordinator: the followers idle on the channel until the stop op
+    replayed = getattr(master.llm, "parallel", None) is not None
+    n = process_count()
+    if is_coordinator():
+        import secrets
+        import signal
+        import threading
+
+        from cake_tpu_torch.parallel.health import ServingHealth
+
+        token = secrets.token_hex(16)
+        adv = _advertised_host(args)
+        try:
+            control = ControlServer(n - 1, host=adv, token=token)
+            bind_host = adv
+        except OSError:
+            # the advertised name may not be a bindable interface (NAT,
+            # aliases): all interfaces, the token still gates the channel
+            control = ControlServer(n - 1, token=token)
+            bind_host = ""
+        # follower heartbeats feed the serving health: a dead process
+        # 503s the API instead of leaving the next hop waiting
+        health = ServingHealth(engine, stall_after_s=args.stall_timeout)
+        hb_addr = health.expect_workers(
+            [f"proc{i}" for i in range(1, n)], bind_host=bind_host,
+            stale_after_s=args.heartbeat_timeout)
+        hb_adv = f"{adv}:{hb_addr.rsplit(':', 1)[1]}"
+        # fleet telemetry federation (obs/federation.py), token-gated
+        # with the control secret
+        collector = None
+        tel_adv = ""
+        tel_enabled, tel_interval = master.telemetry_settings()
+        if tel_enabled:
+            from cake_tpu_torch.obs.federation import TelemetryCollector
+            tel_kwargs = dict(
+                token=token, control=control, local_host="proc0",
+                stale_after_s=max(args.heartbeat_timeout,
+                                  3 * tel_interval),
+                max_hosts=max(8, 2 * n))
+            try:
+                collector = TelemetryCollector(host=bind_host, **tel_kwargs)
+            except OSError:
+                collector = TelemetryCollector(**tel_kwargs)
+            tel_adv = f"{adv}:{collector.port}"
+        broadcast_control_address(
+            f"{adv}:{control.port}|{token}|{hb_adv}|{tel_adv}")
+        control.accept_followers()
+        if replayed:
+            engine.attach_control(control)
+
+        done = threading.Event()
+
+        def teardown():
+            # the order matters: stop (publishes the stop op), then wait
+            # for each control socket's EOF (the follower is about to
+            # leave the process group), then close the collector (the
+            # followers' last frames have come), then leave the group,
+            # whose store this process hosts
+            if done.is_set():
+                return
+            done.set()
+            try:
+                health.close()
+            except Exception:  # noqa: BLE001
+                pass
+            engine.stop()
+            if not replayed:
+                # idle followers get no stop from an engine
+                try:
+                    control.publish({"op": "stop"})
+                except Exception:  # noqa: BLE001
+                    pass
+            control.wait_closed()
+            _hop_report(engine)
+            if collector is not None:
+                try:
+                    collector.close()
+                except Exception:  # noqa: BLE001
+                    pass
+            control.close()
+            _distributed_shutdown()
+
+        def on_sigterm(signum, frame):
+            # api.start's own handler saves first and chains here; exit
+            # 0 instead of a default-handler death that would strand
+            # the followers mid-heartbeat
+            teardown()
+            os._exit(0)
+
+        try:
+            signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:
+            pass  # not the main thread; the caller owns signals
+        try:
+            start(master, address=args.api, engine=engine,
+                  checkpoint_path=args.checkpoint, health=health,
+                  collector=collector)
+        finally:
+            teardown()
+    else:
+        from cake_tpu_torch.parallel.health import HeartbeatSender
+
+        payload = broadcast_control_address(None)
+        addr, _, rest = payload.partition("|")
+        token, _, rest = rest.partition("|")
+        hb_addr, _, tel_addr = rest.partition("|")
+        client = ControlClient(addr, token=token or None)
+        if args.fault_plan:
+            # follower-side chaos: control.recv rules fire here (the
+            # plan string is the same on every process)
+            from cake_tpu_torch.faults import build_injector
+            client.faults = build_injector(args.fault_plan)
+        proc_name = f"proc{process_index()}"
+        beat = HeartbeatSender(hb_addr, proc_name) if hb_addr else None
+        exporter = None
+        tel_enabled, tel_interval = master.telemetry_settings()
+        if tel_enabled and tel_addr:
+            from cake_tpu_torch.obs.federation import TelemetryExporter
+
+            def _health_snapshot(beat=beat):
+                out = {}
+                if beat is not None:
+                    out["heartbeat_ok"] = beat.alive_within(
+                        beat.worst_case_gap_s)
+                return out
+
+            exporter = TelemetryExporter(
+                tel_addr, host=proc_name, token=token or None,
+                interval_s=tel_interval, events=engine.events,
+                flight=engine.flight,
+                applied_seq=lambda: engine.applied_op_seq,
+                health_snapshot=_health_snapshot)
+        try:
+            # the liveness window covers the sender's worst quiet gap (a
+            # monitor blip parks it in a capped backoff, which is no
+            # evidence that the coordinator died)
+            hb_window = max(args.heartbeat_timeout,
+                            beat.worst_case_gap_s if beat is not None
+                            else 5.0)
+            engine.run_follower_loop(
+                client,
+                op_timeout_s=hb_window if beat is not None else None,
+                liveness=((lambda: beat.alive_within(hb_window))
+                          if beat is not None else None))
+        finally:
+            _hop_report(engine)
+            if exporter is not None:
+                # the terminal frame (the final applied seq: the fleet's
+                # lag drains to 0) before the control socket's EOF, for
+                # which the coordinator keeps its collector open
+                exporter.close(flush=True)
+            if beat is not None:
+                beat.close()
+            # the socket's EOF first, then leave the process group: the
+            # coordinator leaves it only after every EOF
+            client.close()
+            _distributed_shutdown()
+    return 0
+
+
+def _hop_report(engine) -> None:
+    """One log line of this process's cross-process cost at teardown:
+    the hops replayed between graphs and their host seconds, the graphs
+    each captured decode step is cut into (one replay each a step), and
+    the kernels' launch counts."""
+    import json
+
+    from cake_tpu_torch.parallel.distributed import hops
+    from cake_tpu_torch.serve.graphs import COUNTERS
+    h = hops()
+    runner = engine._runner
+    segs = ({str(v): len(g[0]) for v, g in runner._graphs.items()}
+            if runner is not None else {})
+    launches = {k: n for c in COUNTERS for k, n in c.items() if n}
+    logging.getLogger(__name__).info("multihost report: %s", json.dumps({
+        "hops": h.count, "hop_seconds": h.seconds,
+        "decode_segments": segs, "launches": launches}))
+
+
+def _distributed_shutdown() -> None:
+    try:
+        from cake_tpu_torch.parallel.distributed import shutdown
+        shutdown()
+    except Exception:  # noqa: BLE001 — teardown must never mask the exit
+        logging.getLogger(__name__).debug("distributed shutdown failed",
+                                          exc_info=True)
+
+
+def _advertised_host(args) -> str:
+    """The address followers use to reach the coordinator's control
+    socket: CAKE_CONTROL_HOST, else the host the process group's
+    rendezvous was reached at (CAKE_COORDINATOR), else this host's
+    name."""
+    import socket
+
+    if os.environ.get("CAKE_CONTROL_HOST"):
+        return os.environ["CAKE_CONTROL_HOST"]
+    coord = os.environ.get("CAKE_COORDINATOR", "")
+    if ":" in coord:
+        return coord.rsplit(":", 1)[0]
+    return socket.gethostname()
 
 
 def main(argv=None) -> int:
@@ -75,13 +329,44 @@ def main(argv=None) -> int:
             "--journal-fsync has no effect without --journal: it tunes "
             "the write-ahead request journal's durability barrier "
             "(serve/journal.py)")
+    if args.mode == "worker":
+        print(
+            "cake-tpu runs the whole topology as one program per process "
+            "over the device mesh; there is no separate worker process. "
+            "Run every process in master mode, each with its "
+            "CAKE_PROCESS_ID.",
+            file=sys.stderr,
+        )
+        return 2
+    # multi-process: every process runs this same program; the process
+    # group's coordinates come from the CAKE_* variables
+    from cake_tpu_torch.parallel.distributed import (
+        initialize, process_count,
+    )
+    import torch
+    initialize(device=torch.device(
+        "cpu" if args.cpu else f"cuda:{args.device_idx}"))
     master = Master.from_args(args, sd_args)
     if args.api:
         from cake_tpu_torch.api.server import start
+        if process_count() > 1:
+            return _serve_multihost(master, args)
+        if args.telemetry_export:
+            # the federation plane ships follower telemetry to the
+            # coordinator; one process has no followers to federate
+            warn("--telemetry-export has no effect on single-host "
+                 "serving: there are no follower processes to "
+                 "federate (obs/federation.py); /api/v1/fleet will "
+                 "report only this host")
         kw = ({"checkpoint_path": args.checkpoint} if args.checkpoint
               else {})
         start(master, address=args.api, **kw)
         return 0
+    if args.telemetry_export:
+        # the exporter/collector pair lives in multi-process API serving
+        warn("--telemetry-export applies to multi-host API serving "
+             "(--api across processes); one-shot generation runs one "
+             "process with nothing to federate")
     if (args.step_log or args.event_log or args.slo_targets
             or args.trace_events or args.priority_classes
             or args.preemption or args.shed or args.checkpoint

@@ -23,7 +23,14 @@ generator drives parallel/context_parallel.SPGeneratorForward (its
 weights streamed stage-locally with stages). The mesh's default devices
 are every visible card (the CPU at every position with --cpu);
 `mesh_devices=` (Python only) names them, a card repeated for a
-co-located mesh. Multi-host serving is not ported.
+co-located mesh.
+
+With several processes (parallel/distributed.initialize, the CAKE_*
+variables) the plan's mesh spans them (`ParallelPlan.build_mesh`): each
+process allocates, streams and quantizes only the positions it owns,
+and the pipelined forward hops between processes (parallel/hop.py).
+Multi-process image serving and multi-process `--sp` are refused before
+any weight loads (ROADMAP A13(3)).
 """
 
 from __future__ import annotations
@@ -213,11 +220,13 @@ class Context:
 
     def _device_count(self) -> Optional[int]:
         """The devices a plan may take: the named mesh devices, else every
-        visible card; no bound on the CPU (every position is the CPU)."""
+        visible card, in each process of the group (every process holds
+        alike); no bound on the CPU (every position is the CPU)."""
+        from cake_tpu_torch.parallel.distributed import process_count
         if self.mesh_devices is not None:
-            return len(self.mesh_devices)
+            return len(self.mesh_devices) * process_count()
         if self.device.type == "cuda":
-            return torch.cuda.device_count()
+            return torch.cuda.device_count() * process_count()
         return None
 
     def _check_plan(self, cfg, plan) -> None:
@@ -301,9 +310,15 @@ class Context:
             raise ValueError(
                 f"stages {plan.stages} x --dp {plan.dp} x --sp {a.sp} x "
                 f"--tp {plan.tp} needs {need} devices, have {have}")
-        # JAX refuses here a multi-host mesh that does not span every
-        # process's devices (its jax.process_count() > 1 check): that
-        # check comes with multi-host serving (ROADMAP A13(2))
+        # JAX checks here that a multi-host mesh spans every process's
+        # devices; the port refuses multi-process --sp outright (its
+        # ring's hops across processes are ROADMAP A13(3))
+        from cake_tpu_torch.parallel.distributed import process_count
+        if process_count() > 1:
+            raise ValueError(
+                "multi-process --sp is not supported yet: the ring's hops "
+                "run inside one process (ROADMAP A13(3)); serve --sp on "
+                "one process")
         if plan.tp > 1 and cfg.num_key_value_heads % plan.tp != 0:
             raise ValueError(
                 f"--tp {plan.tp} must divide kv heads "
@@ -371,10 +386,10 @@ class Context:
         a = self.args
         mesh = plan.build_mesh(devices=self.mesh_devices,
                                device_type=self.device.type)
-        if mesh.device(0, 0, 0) != self.device:
+        if mesh.home != self.device:
             raise ValueError(
-                f"the mesh's first device {mesh.device(0, 0, 0)} is not "
-                f"the context's {self.device}")
+                f"the mesh's first device {mesh.home} is not the "
+                f"context's {self.device}")
         tp, dp = plan.tp > 1, plan.dp > 1
         cache = create_sharded_cache(
             cfg, a.batch_size, max_seq, mesh,
@@ -421,7 +436,14 @@ class Context:
         on the context's device, its components placed by the topology,
         or with --dp its UNet batch over a ("dp",) mesh."""
         from cake_tpu_torch.models.sd.sd import SDGenerator
+        from cake_tpu_torch.parallel.distributed import process_count
         from cake_tpu_torch.parallel.mesh import make_mesh
+        if process_count() > 1:
+            raise ValueError(
+                "multi-process image serving is not supported yet: the "
+                "image model's mesh over every process and the follower's "
+                "generation replay are ROADMAP A13(3); serve --model-type "
+                "image on one process")
         gen = SDGenerator.load(self)
         a = self.args
         if a.dp > 1:

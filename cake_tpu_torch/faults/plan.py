@@ -2,10 +2,9 @@
 
 Counterpart of `cake_tpu/faults/plan.py`, copied as it is: the same
 grammar, the same `SITES`, the same parse errors, so one ``--fault-plan``
-spec means the same thing to both packages. Every JAX site name is kept,
-including those whose code the port does not have yet (``control.publish``
-and ``control.recv``: the port serves from one process). A plan naming
-them parses, as in JAX, and never fires. ``spec.verify`` fires at the
+spec means the same thing to both packages. ``control.publish`` fires in
+the coordinator's op publish and ``control.recv`` in a follower's op
+receive (serve/control.py, multi-process serving). ``spec.verify`` fires at the
 paged engine's speculative round (serve/engine._do_spec_paged), and
 ``kv.ship`` / ``kv.adopt`` at the disaggregated engines' capture and
 adoption seams (serve/engine._capture_shipment, _adopt_install), as in

@@ -3,10 +3,10 @@ engine.
 
 Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
 `generate_text`, `generate_image`, `run`, `reset`, `add_message`,
-`_spec_kwargs`); the multi-host image control is not ported (ROADMAP
-A13(2)). `generate_text` streams each token through a callback and
-times the tokens after the first, so the prefill does not skew
-tokens/s; `make_engine` builds the continuous-batching engine over the
+`_spec_kwargs`, `telemetry_settings`); the multi-process image control
+is not ported (ROADMAP A13(3)). `generate_text` streams each token
+through a callback and times the tokens after the first, so the
+prefill does not skew tokens/s; `make_engine` builds the continuous-batching engine over the
 generator's config, params and tokenizer for the REST server: the paged
 engine with --kv-pages (and the --spec-draft draft for paged speculative
 rows), the dense engine without it (the ring engine for a sliding-window
@@ -241,6 +241,19 @@ class Master:
                 mesh, g.config, num_microbatches=microbatches, tp=tp,
                 ring=ring),
             cache=cache, ring=ring)
+
+    def telemetry_settings(self) -> tuple:
+        """(enabled, interval_s) of fleet telemetry federation
+        (--telemetry-export / --telemetry-interval, obs/federation.py),
+        resolved in ONE place so the coordinator's collector and every
+        follower's exporter agree: None = on exactly when serving spans
+        processes, an explicit True/False as given."""
+        enabled = getattr(self.args, "telemetry_export", None)
+        if enabled is None:
+            from cake_tpu_torch.parallel.distributed import process_count
+            enabled = process_count() > 1
+        return (bool(enabled),
+                float(getattr(self.args, "telemetry_interval", 2.0)))
 
     def _spec_kwargs(self) -> dict:
         """Paged speculative decoding: the --spec-draft draft's params and

@@ -31,8 +31,8 @@ every component on the mesh's devices and splits the UNet's batch (the
 guidance pair, several samples) over the dp positions, each running its
 rows, inside the one captured step. The noise is drawn on the
 generator's device either way, so a placed or meshed generator gives
-the single-device image. The multi-host image follower is not ported
-(ROADMAP A13(2)).
+the single-device image. Multi-process image serving (the image
+follower) is not ported (ROADMAP A13(3)): Context refuses it.
 """
 
 from __future__ import annotations

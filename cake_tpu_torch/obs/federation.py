@@ -4,14 +4,14 @@ Counterpart of `cake_tpu/obs/federation.py`, copied as it is: the same
 frames (JSON over the utils/wire.py framing, a token-gated hello), the
 same per-host views, clock correction and read surfaces, and the same
 metric families, so a port exporter's frames are ingested by the JAX
-package's collector and the other way round. The port serves from one
-process until multi-host serving lands (ROADMAP A13(2)): the collector
-feeds the API server's ``GET /api/v1/fleet``, ``?host=`` events, the
+package's collector and the other way round. The collector feeds the
+API server's ``GET /api/v1/fleet``, ``?host=`` events, the
 host-labelled families appended to ``/metrics`` and the fleet merge of
-a request's timeline, and an exporter ships any process's telemetry to
-it. ``control=`` (the multi-host control server whose published seq is
-the lag reference) stays None here, so the applied-seq lag fields read
-as JAX's do without one.
+a request's timeline. Multi-process serving (cli._serve_multihost)
+wires them as JAX does: the coordinator's collector with ``control=``
+(its ControlServer, whose published seq is the lag reference) and each
+follower's exporter with its applied op seq and a heartbeat health
+snapshot.
 
 Every serving subsystem measures ONE process. Under multi-host
 serving the coordinator runs the API and publishes the op stream, but

@@ -13,8 +13,13 @@ of the tests, and of one card). A stage's hidden state moves to the
 next stage's device; a tensor-parallel reduction sums the shards'
 partials on the stage's device; `context_parallel.py` runs ring
 attention over the sp positions and merges the decode's per-shard
-stats, `sp_pipeline.py` chains it over stages. Multi-host serving is
-not ported.
+stats, `sp_pipeline.py` chains it over stages.
+
+Across processes (`distributed.py`, `hop.py`, `health.py`): one
+controller per process, each running the mesh positions it owns; a
+stage's output crosses to another process by a torch.distributed
+send/recv, and the logits reach every rank. Multi-process `--sp` and
+image serving are ROADMAP A13(3).
 """
 
 from cake_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401

@@ -17,6 +17,12 @@ shard of a plan lives on one card (JAX's counterpart is
 `--xla_force_host_platform_device_count`). It is reachable from Python
 only, through the `devices=` keyword that `Context` and `Master` pass
 down.
+
+A mesh that spans processes (parallel/distributed.make_multihost_mesh)
+carries each position's owning rank (`ranks`) and this process's
+(`rank`): a process allocates, loads and runs only the positions it owns
+(`owns`), and its tensors land on `home`, its first owned position's
+device. A mesh built in one process owns every position.
 """
 
 from __future__ import annotations
@@ -34,12 +40,37 @@ AXES = ("dp", "stage", "tp")
 class Mesh:
     """An array of torch devices over named axes."""
 
-    def __init__(self, devices: np.ndarray, axis_names=AXES):
+    def __init__(self, devices: np.ndarray, axis_names=AXES,
+                 ranks: Optional[np.ndarray] = None, rank: int = 0):
         if devices.ndim != len(axis_names):
             raise ValueError(
                 f"mesh of {devices.ndim} dims for axes {axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.ranks = (np.zeros(devices.shape, dtype=np.int64)
+                      if ranks is None else ranks)
+        self.rank = rank
+
+    @property
+    def multiprocess(self) -> bool:
+        """True when the positions span more than one process."""
+        return len(set(self.ranks.flat)) > 1
+
+    def owns(self, pos) -> bool:
+        """Whether this process owns the position (an index tuple)."""
+        return int(self.ranks[tuple(pos)]) == self.rank
+
+    def owner(self, *index) -> int:
+        """The rank owning a position."""
+        return int(self.ranks[tuple(index)])
+
+    @property
+    def home(self) -> torch.device:
+        """This process's first owned position's device."""
+        for pos in np.ndindex(*self.devices.shape):
+            if self.owns(pos):
+                return self.devices[pos]
+        raise ValueError(f"process {self.rank} owns no position of {self}")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -74,15 +105,20 @@ class Mesh:
         return self.devices[self.index(dp=dp, stage=stage, tp=tp, sp=sp)]
 
     def distinct_devices(self):
-        """The mesh's devices, each once, in position order."""
+        """The devices of this process's positions, each once, in
+        position order."""
         seen = []
-        for d in self.devices.flat:
-            if d not in seen:
+        for pos in np.ndindex(*self.devices.shape):
+            d = self.devices[pos]
+            if self.owns(pos) and d not in seen:
                 seen.append(d)
         return seen
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
+        out = f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]}"
+        if self.multiprocess:
+            out += f", ranks={self.ranks.flat[:].tolist()}, rank={self.rank}"
+        return out + ")"
 
 
 def default_devices(device_type: str = "cuda") -> list:

@@ -30,6 +30,14 @@ every move is a no-op, so the pipelined steps capture into one CUDA
 graph like the unsharded ones (serve/graphs). A mesh over several
 distinct cards has not been run: its steps would launch on every card
 from one stream of the first, untested.
+
+On a mesh that spans processes (parallel/distributed.make_multihost_mesh,
+the process boundary on the "stage" or "dp" axis) each process runs the
+stages it owns: a stage's output crosses to a stage of another process
+by a send/recv (parallel/hop.py), and the logits of each replica's last
+stage reach every rank, so every process samples the same tokens. A
+captured step is then cut at its hops (serve/graphs.segment_cut). The
+tp ranks of a stage must live in one process.
 """
 
 from __future__ import annotations
@@ -61,14 +69,41 @@ def _to(t, dev):
     return t.to(dev) if isinstance(t, torch.Tensor) else t
 
 
-def _gpipe(x: torch.Tensor, n_stages: int, num_microbatches: int,
-           run_stage) -> torch.Tensor:
+class _Link:
+    """One replica's stages across processes: which stages this process
+    owns, and the hops of a microbatch's hidden state [mb, S, D] between
+    stages of different processes."""
+
+    def __init__(self, placement: "_Placement", d: int, S: int, dtype):
+        self.p, self.d, self.S, self.dtype = placement, d, S, dtype
+
+    def owns(self, s: int) -> bool:
+        return self.p.owns(self.d, s)
+
+    def send(self, y: torch.Tensor, s: int) -> None:
+        """Stage s - 1's output to stage s's process."""
+        self.p.hops.send(y, self.p.owner(self.d, s))
+
+    def recv(self, s: int, mb: int) -> torch.Tensor:
+        """Stage s's input from stage s - 1's process."""
+        return self.p.hops.recv(
+            (mb, self.S, self.p.config.hidden_size), self.dtype,
+            self.p.mesh.device(self.d, s, 0), self.p.owner(self.d, s - 1))
+
+
+def _gpipe(x: Optional[torch.Tensor], n_stages: int, num_microbatches: int,
+           run_stage, link: Optional[_Link] = None,
+           B: Optional[int] = None) -> Optional[torch.Tensor]:
     """GPipe over one replica's rows: x [B, ...] in microbatches of
     B / M rows; run_stage(s, inp, idx, mb) runs stage s's blocks over
     rows idx..idx+mb and returns its output. Returns the last stage's
-    outputs for every row, in row order."""
+    outputs for every row, in row order. With a `link` (a mesh across
+    processes) only this process's stages run, a stage's output is sent
+    where the next stage lives in another process and received there
+    (x is None and B given where stage 0 is not this process's), and
+    the result is None unless this process owns the last stage."""
     M = num_microbatches
-    B = x.shape[0]
+    B = x.shape[0] if x is not None else B
     assert B % M == 0, f"local batch {B} not divisible by microbatches {M}"
     mb = B // M
     handed: dict = {}          # stage -> (microbatch, its input)
@@ -79,17 +114,25 @@ def _gpipe(x: torch.Tensor, n_stages: int, num_microbatches: int,
             m = tick - s
             if not 0 <= m < M:
                 continue       # the pipeline's bubble: nothing runs
+            if link is not None and not link.owns(s):
+                continue       # another process's stage
             if s == 0:
                 inp = x[m * mb:(m + 1) * mb]
+            elif link is not None and not link.owns(s - 1):
+                inp = link.recv(s, mb)
             else:
                 got_m, inp = handed[s]
                 assert got_m == m
             y = run_stage(s, inp, m * mb, mb)
             if s == n_stages - 1:
                 outs[m] = y
+            elif link is not None and not link.owns(s + 1):
+                link.send(y, s + 1)
             else:
                 nxt[s + 1] = (m, y)
         handed.update(nxt)
+    if outs[0] is None:
+        return None
     return outs[0] if M == 1 else torch.cat(outs, dim=0)
 
 
@@ -107,6 +150,61 @@ class _Placement:
         self.n_tp = mesh.shape["tp"]
         self.n_dp = mesh.shape["dp"] if dp else 1
         self._ropes: dict = {}
+        self.hops = None
+        if mesh.multiprocess:
+            from cake_tpu_torch.parallel.distributed import hops
+            for pos in np.ndindex(*mesh.devices.shape):
+                if mesh.owner(*pos) != mesh.owner(pos[0], pos[1], 0):
+                    raise ValueError(
+                        "a stage's tp ranks span processes: the port "
+                        "hops between processes on the 'stage' or 'dp' "
+                        "axis only (dcn_axis='tp' is not supported)")
+            self.hops = hops()
+
+    def owns(self, d: int, s: int) -> bool:
+        """Whether this process runs stage s of replica d."""
+        return self.mesh.owns((d, s, 0))
+
+    def owner(self, d: int, s: int) -> int:
+        return self.mesh.owner(d, s, 0)
+
+    def link(self, d: int, S: int, dtype) -> Optional[_Link]:
+        """Replica d's cross-process link (None in one process)."""
+        return None if self.hops is None else _Link(self, d, S, dtype)
+
+    def base(self, d: int) -> torch.device:
+        """Where replica d's per-row inputs (rope rows, mask) are built:
+        stage 0's device, or this process's home where stage 0 is
+        another's."""
+        return (self.mesh.device(d, 0, 0) if self.owns(d, 0)
+                else self.mesh.home)
+
+    def embed(self, params, tokens, d: int, dev):
+        """The embedded tokens on stage 0's device (None where stage 0
+        is another process's)."""
+        if not self.owns(d, 0):
+            return None
+        return local(params["embed"], d, 0, 0)[tokens.to(dev).long()]
+
+    def act_dtype(self, params, d: int):
+        """The hidden state's dtype (the embedding's, which every
+        position holds)."""
+        for s in range(self.n_stages):
+            if self.owns(d, s):
+                return local(params["embed"], d, s, 0).dtype
+        return torch.float32
+
+    def logits_to_all(self, params, y, d: int, rows: int, last_idx=None):
+        """Replica d's logits [rows, V] f32 on every rank: the head on
+        the last stage's process, then sent to every other (in one
+        process, the head alone)."""
+        s = self.n_stages - 1
+        lg = self.head(params, y, d, last_idx) if y is not None else None
+        if self.hops is None:
+            return lg
+        return self.hops.bcast(lg, self.owner(d, s),
+                               (rows, self.config.vocab_size),
+                               torch.float32, self.mesh.home)
 
     def rope(self, rope: RopeTables, dev) -> RopeTables:
         """The rope tables on `dev` (copied once a device)."""
@@ -176,9 +274,9 @@ class PipelineForward(_Placement):
         pos = pos.reshape(()) if isinstance(pos, torch.Tensor) else int(pos)
         logits = []
         for d in range(self.n_dp):
-            dev0 = self.mesh.device(d, 0, 0)
-            tok = tokens[d * rows:(d + 1) * rows].to(dev0)
-            x = local(params["embed"], d, 0, 0)[tok.long()]
+            dev0 = self.base(d)
+            tok = tokens[d * rows:(d + 1) * rows]
+            x = self.embed(params, tok, d, dev0)
             r0 = self.rope(rope, dev0)
             p0 = _to(pos, dev0)
             rope_c, rope_s = rope_rows(r0.cos, r0.sin, p0, S)
@@ -205,9 +303,10 @@ class PipelineForward(_Placement):
                     slot=_to(slot, dev))
                 return y
 
-            y = _gpipe(x, self.n_stages, self.M, run_stage)
-            logits.append(self.head(params, y, d, li))
-        first = self.mesh.device(0, 0, 0)
+            y = _gpipe(x, self.n_stages, self.M, run_stage,
+                       self.link(d, S, self.act_dtype(params, d)), B=rows)
+            logits.append(self.logits_to_all(params, y, d, rows, li))
+        first = self.mesh.home
         out = (logits[0].to(first) if len(logits) == 1
                else torch.cat([lg.to(first) for lg in logits], dim=0))
         return out, cache
@@ -225,8 +324,8 @@ class PipelineRagged(_Placement):
     def __call__(self, params, tokens, cache: ShardedKVCache, pos, active,
                  rope: RopeTables, config=None):
         T = cache.max_seq_len
-        dev0 = self.mesh.device(0, 0, 0)
-        x = local(params["embed"], 0, 0, 0)[tokens.to(dev0).long()]
+        dev0 = self.base(0)
+        x = self.embed(params, tokens, 0, dev0)
         r0 = self.rope(rope, dev0)
         pos, active = pos.to(dev0), active.to(dev0)
         rope_c, rope_s = rope_rows_per_row(r0.cos, r0.sin, pos.long())
@@ -246,8 +345,11 @@ class PipelineRagged(_Placement):
                 mask[sl].to(dev), self.config, ring=self.ring)
             return y
 
-        y = _gpipe(x, self.n_stages, self.M, run_stage)
-        return self.head(params, y, 0).to(dev0), cache
+        y = _gpipe(x, self.n_stages, self.M, run_stage,
+                   self.link(0, 1, self.act_dtype(params, 0)),
+                   B=tokens.shape[0])
+        logits = self.logits_to_all(params, y, 0, tokens.shape[0])
+        return logits.to(self.mesh.home), cache
 
 
 def make_pipeline_forward(mesh: Mesh, config: LlamaConfig,
@@ -378,7 +480,7 @@ def install_prefix_sharded(cache: ShardedKVCache, prefix: ShardedKVCache,
     for pos in np.ndindex(*cache.k.shards.shape):
         for dst, src in ((cache.k, prefix.k), (cache.v, prefix.v)):
             t = dst.shards[pos]
-            if id(t) in done:
+            if t is None or id(t) in done:
                 continue
             done.add(id(t))
             s = torch.tensor([int(slot)], dtype=torch.int64, device=t.device)

@@ -77,11 +77,41 @@ class ParallelPlan:
     def sharded(self) -> bool:
         return self.stages > 1 or self.tp > 1 or self.dp > 1
 
-    def build_mesh(self, devices=None, device_type: str = "cuda"):
+    def build_mesh(self, devices=None, device_type: str = "cuda",
+                   dcn_axis: Optional[str] = None):
         """The (dp, stage, tp) mesh over `devices` (None: each visible
-        card once on CUDA, the CPU at every position on the CPU)."""
-        return make_mesh(dp=self.dp, stage=self.stages, tp=self.tp,
-                         devices=devices, device_type=device_type)
+        card once on CUDA, the CPU at every position on the CPU).
+
+        With more than one process (parallel/distributed.initialize) the
+        mesh spans them (`make_multihost_mesh`): `devices` are this
+        process's (every process holds alike), and the `dcn_axis`, the
+        one that crosses the process boundary, is JAX's auto-selection
+        when None: the first of dp -> stage -> tp whose size the process
+        count divides (dp replicas are independent; a stage crosses
+        once per pipeline hop; tp is the last resort)."""
+        from cake_tpu_torch.parallel.distributed import (
+            _slice_ids, global_devices, make_multihost_mesh, process_count,
+        )
+        n = process_count()
+        if n == 1:
+            return make_mesh(dp=self.dp, stage=self.stages, tp=self.tp,
+                             devices=devices, device_type=device_type)
+        need = self.dp * self.stages * self.tp
+        per = -(-need // n)
+        if devices is None:
+            from cake_tpu_torch.parallel.mesh import default_devices
+            devices = default_devices(device_type)
+            if device_type != "cuda":
+                devices = devices * per
+        gdevs = global_devices([torch.device(d) for d in devices], n)
+        if dcn_axis is None:
+            n_slices = len(set(_slice_ids(gdevs)))
+            sizes = {"dp": self.dp, "stage": self.stages, "tp": self.tp}
+            dcn_axis = next((a for a in ("dp", "stage", "tp")
+                             if sizes[a] % n_slices == 0), "dp")
+        return make_multihost_mesh(dp=self.dp, stage=self.stages,
+                                   tp=self.tp, dcn_axis=dcn_axis,
+                                   devices=gdevs)
 
     def describe(self) -> str:
         lines = [f"mesh: dp={self.dp} x stage={self.stages} x tp={self.tp}"]

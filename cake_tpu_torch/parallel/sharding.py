@@ -10,7 +10,9 @@ slice (a copy, never a view that keeps the whole tensor's storage
 alive). Positions whose slice and device coincide share one tensor, so
 a replicated leaf is held once per distinct device: a co-located mesh
 keeps one embedding, not one a position. The forwards of
-`parallel/pipeline.py` read a position's slices (`local`).
+`parallel/pipeline.py` read a position's slices (`local`). On a mesh
+that spans processes a position another process owns holds None: the
+leaf is allocated, loaded and quantized only where this process runs.
 
 A spec is a tuple with one entry per dim: None (replicated), an axis
 name of the mesh, or a tuple of names (major to minor); entries past
@@ -84,10 +86,12 @@ class Sharded:
               make: Callable[[tuple, torch.device], torch.Tensor]
               ) -> "Sharded":
         """make(slices, device) -> that shard, called once for each
-        distinct (slice, device)."""
+        distinct (slice, device) of the positions this process owns."""
         made: dict = {}
         shards = np.empty(mesh.devices.shape, dtype=object)
         for pos in np.ndindex(*mesh.devices.shape):
+            if not mesh.owns(pos):
+                continue
             dev = mesh.devices[pos]
             sl = shard_slices(shape, spec, mesh, pos)
             key = (_key(sl), dev)
@@ -104,14 +108,18 @@ class Sharded:
 
     @property
     def device(self) -> torch.device:
-        """The first position's device."""
-        return self.shards.flat[0].device
+        """The first owned position's device."""
+        return self.first().device
+
+    def first(self) -> torch.Tensor:
+        """The first owned position's tensor."""
+        return next(t for t in self.shards.flat if t is not None)
 
     def numel(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64))
 
     def element_size(self) -> int:
-        return self.shards.flat[0].element_size()
+        return self.first().element_size()
 
     def shard(self, dp: int = 0, stage: int = 0, tp: int = 0,
               sp: int = 0):
@@ -121,10 +129,11 @@ class Sharded:
                                            sp=sp)]
 
     def distinct(self) -> list:
-        """Every tensor once (positions may share one)."""
+        """Every tensor this process holds, once (positions may share
+        one)."""
         seen, out = set(), []
         for t in self.shards.flat:
-            if id(t) not in seen:
+            if t is not None and id(t) not in seen:
                 seen.add(id(t))
                 out.append(t)
         return out
@@ -371,6 +380,8 @@ def map_shards(x: Sharded, shape, dtype, spec, fn) -> Sharded:
     shards = np.empty(x.shards.shape, dtype=object)
     for pos in _positions(x):
         t = x.shards[pos]
+        if t is None:
+            continue
         if id(t) not in made:
             made[id(t)] = fn(pos, t)
         shards[pos] = made[id(t)]
@@ -426,6 +437,8 @@ def _quantize_sharded_leaf(x: Sharded, dims, bits: int,
     # the max over every shard that holds the same channels
     groups: dict = {}
     for pos in _positions(x):
+        if x.shards[pos] is None:
+            continue
         sl = shard_slices(x.shape, x.spec, x.mesh, pos)
         key = tuple(_key(sl)[d] for d in range(x.ndim) if d not in dims)
         groups.setdefault(key, {})[id(x.shards[pos])] = x.shards[pos]

@@ -71,7 +71,7 @@ def _params_digest(params) -> str:
     """Weight-sensitive model identity: sha256 over the shapes and the
     first 256 values of the first and last four leaves (sliced on the
     device before the copy to the host; of a placed leaf, the first
-    mesh position's slice)."""
+    mesh position's slice this process holds)."""
     from cake_tpu_torch.parallel.sharding import Sharded
 
     h = hashlib.sha256()
@@ -79,8 +79,9 @@ def _params_digest(params) -> str:
     for leaf in leaves[:4] + leaves[-4:]:
         h.update(str(tuple(leaf.shape)).encode())
         if isinstance(leaf, Sharded):
-            # a placed leaf: its global shape, its first position's slice
-            leaf = leaf.shards.flat[0]
+            # a placed leaf: its global shape, its first owned
+            # position's slice
+            leaf = leaf.first()
         sample = leaf.reshape(-1)[:256].to(torch.float32).cpu()
         h.update(sample.numpy().tobytes())
     return h.hexdigest()[:16]

@@ -174,8 +174,16 @@ ring slot prefill, one captured step for the whole window, and the
 merged-stats ragged decode) and an SPEngineCache, with JAX's windowed
 limits: `prompt_limit` refuses a longer prompt, `decode_budget` caps
 each request's generation at the decode tail, and preemption is off
-unless asked for. Not ported yet: multi-host serving (the control
-channel and its lockstep followers; ROADMAP A13(2)).
+unless asked for.
+
+Multi-process serving (JAX's control channel, serve/control.py): over a
+mesh whose stages live in several processes, the coordinator's engine
+publishes one op record before each device step (`attach_control`,
+`_publish`: prefill, prefill_prefixed, decode, decode_scan,
+register_prefix, unregister_prefix, reset, stop) and every follower
+replays it (`run_follower_loop`), so the processes run the same steps in
+the same order and their hops meet. A decode op carries the carry a
+fresh burst loads from the host mirrors, so a follower keeps none.
 """
 
 from __future__ import annotations
@@ -1003,6 +1011,16 @@ class InferenceEngine:
         self._ckpt_lock = threading.Lock()
         self._fail_recs = None
         self._prefail_written = False
+        # how long a failure's request capture may serve a later fatal
+        # declaration (cli sets it past --heartbeat-timeout: the
+        # heartbeat monitor is the late arrival)
+        self.fail_recs_ttl = _FAIL_RECS_TTL_S
+        # multi-process serving: the coordinator's ControlServer
+        # (attach_control), the follower's last applied op seq
+        # (run_follower_loop; its telemetry frames report it)
+        self._control = None
+        self._multihost = False
+        self.applied_op_seq = 0
         # submit's critical section: an idempotency key's re-check and
         # its registration land together
         self._admit_lock = threading.Lock()
@@ -1279,6 +1297,156 @@ class InferenceEngine:
             # flush buffered emits and fsync: a clean stop's journal is
             # durable (shutdown_save may then truncate it)
             self._journal.close()
+        if self._control is not None:
+            # published only after the engine thread has exited, so no
+            # step op can be ordered after the stop on the wire
+            try:
+                self._control.publish({"op": "stop"})
+            except Exception:  # noqa: BLE001
+                log.warning("control: stop publish failed (followers "
+                            "will exit on channel close)")
+
+    # -- multi-process serving --------------------------------------------------
+
+    def attach_control(self, control) -> None:
+        """Coordinator side of multi-process serving: publish every
+        device step through `control` (a serve.control.ControlServer)
+        before dispatching it, so every follower process runs the same
+        step and its hops meet. Must be called before start()."""
+        if not self._custom_steps or self.paged:
+            raise ValueError(
+                "multi-host control requires pipelined step fns (a mesh "
+                "spanning processes); the single-device engine (incl. "
+                "--kv-pages) has no cross-process computation to "
+                "coordinate")
+        if self._prefixes:
+            raise ValueError(
+                "multi-host control cannot be attached after prefix "
+                "registrations (registrations are not replayed)")
+        self._control = control
+        # a --fault-plan with control.publish rules fires inside the
+        # channel itself, so the failure shape (publish raises) is the
+        # one a dead follower produces
+        if self._faults is not None:
+            control.faults = self._faults
+        self._multihost = True
+
+    def run_follower_loop(self, client, reset_wait_s: float = 120.0,
+                          op_timeout_s: Optional[float] = None,
+                          liveness=None) -> None:
+        """Non-coordinator side: replay the coordinator's op stream.
+        Blocks until the coordinator publishes a stop or closes the
+        channel. The engine thread never starts here: this process only
+        runs the device steps (its stages, its hops) in the
+        coordinator's order.
+
+        After a failed op this process is out of step. A failure on
+        every process is recovered by the coordinator's reset op; if no
+        reset arrives within reset_wait_s the failure was this
+        process's alone, and the only safe move is to disconnect (the
+        coordinator's next publish or hop then fails instead of
+        waiting forever).
+
+        op_timeout_s / liveness: a coordinator that dies between ops
+        (no FIN) would hang recv() forever; with op_timeout_s set each
+        quiet interval re-checks liveness() (the heartbeat channel:
+        the monitor lives in the coordinator's process) and exits when
+        it is gone. An idle but live coordinator keeps the loop
+        waiting."""
+        import socket as _socket
+        from types import SimpleNamespace
+
+        self._multihost = True
+        log.info("engine follower: replaying coordinator ops")
+        failed = False
+        while True:
+            try:
+                op = client.recv(
+                    timeout=reset_wait_s if failed else op_timeout_s)
+            except (_socket.timeout, TimeoutError):
+                if not failed:
+                    if liveness is not None and liveness():
+                        continue    # quiet but provably alive: keep on
+                    log.error(
+                        "engine follower: no op for %.0fs and the "
+                        "coordinator shows no liveness; exiting "
+                        "instead of hanging the process", op_timeout_s)
+                    return
+                log.error("engine follower: op failed and no reset came "
+                          "within %.0fs; disconnecting", reset_wait_s)
+                return
+            if op is None or op.get("op") == "stop":
+                if op is not None and isinstance(op.get("seq"), int):
+                    # count the stop as applied: a drained follower
+                    # must report zero lag, not one phantom op
+                    self.applied_op_seq = op["seq"]
+                log.info("engine follower: coordinator %s",
+                         "stopped" if op else "closed the channel")
+                return
+            if failed and op.get("op") != "reset":
+                log.error("engine follower: op %r after a local failure "
+                          "(no reset) — out of sync; disconnecting",
+                          op.get("op"))
+                return
+            try:
+                kind = op["op"]
+                with torch.inference_mode():
+                    if kind in ("prefill", "prefill_prefixed"):
+                        req = SimpleNamespace(temperature=op["temp"],
+                                              top_p=op["top_p"],
+                                              repeat_penalty=op["penalty"])
+                        if kind == "prefill":
+                            self._prefill_device(
+                                op["ids"], op["slot"], req,
+                                op.get("n_top", 0), op.get("prime", ()))
+                        else:
+                            with self._rid_lock:
+                                entry = self._prefixes[op["pid"]]
+                            self._prefixed_prefill_device(
+                                op["ids"], op["slot"], req, entry,
+                                op.get("n_top", 0), op.get("prime", ()))
+                    elif kind in ("decode", "decode_scan"):
+                        carry = op.get("carry")
+                        if carry is not None:
+                            self._last_tok[:] = carry["tok"]
+                            self._pos[:] = carry["pos"]
+                            self._steps[:] = carry["steps"]
+                            self._temp[:] = carry["temp"]
+                            self._top_p[:] = carry["top_p"]
+                            self._penalty[:] = carry["penalty"]
+                        self._dispatch_scan(
+                            op["rows"], op["n"], op.get("n_top", 0),
+                            np.asarray(op["budget"], np.int64),
+                            fresh=carry is not None)
+                    elif kind == "register_prefix":
+                        ids = list(op["ids"])
+                        P = len(ids)
+                        kv = self._prefix_kv_device(
+                            ids, P, bucket_length(P, self.max_seq_len))
+                        with self._rid_lock:
+                            self._prefixes[op["pid"]] = (ids, kv)
+                            self._next_prefix_id = max(
+                                self._next_prefix_id, op["pid"] + 1)
+                    elif kind == "unregister_prefix":
+                        with self._rid_lock:
+                            self._prefixes.pop(op["pid"], None)
+                    elif kind == "reset":
+                        self._reset_after_error()
+                    else:
+                        log.error("engine follower: unknown op %r", kind)
+                failed = False
+                if isinstance(op.get("seq"), int):
+                    # applied (not merely received): telemetry frames
+                    # report this, and lag vs the published seq is the
+                    # fleet view's behind-ness signal
+                    self.applied_op_seq = op["seq"]
+            except Exception:  # noqa: BLE001
+                log.exception("follower op failed (awaiting reset)")
+                failed = True
+
+    def _publish(self, op: dict) -> None:
+        if self._control is not None:
+            self._control.publish(op)
 
     @property
     def stopped(self) -> bool:
@@ -1823,6 +1991,8 @@ class InferenceEngine:
         with self._rid_lock:
             pid = self._next_prefix_id
             self._next_prefix_id += 1
+        self._publish({"op": "register_prefix", "pid": pid,
+                       "ids": list(ids)})
         kv = self._prefix_kv_device(ids, P, bucket)
         with self._rid_lock:
             self._prefixes[pid] = (list(ids), kv)
@@ -1895,15 +2065,28 @@ class InferenceEngine:
         outlive it until the last such request retires. A dense
         registration's KV lives outside the cache and just goes."""
         if not self.paged:
-            with self._rid_lock:
-                self._prefixes.pop(prefix_id, None)
-            self._prefix_last_hit.pop(prefix_id, None)
+            if (self._control is not None and self._thread is not None
+                    and self._thread.is_alive()):
+                # ordered with the engine thread's prefill ops: a
+                # follower must not drop a registration a published
+                # prefill still names
+                self._run_on_engine_thread(
+                    lambda: self._unregister_dense(prefix_id))
+                return
+            self._unregister_dense(prefix_id)
             return
         if self._thread is not None and self._thread.is_alive():
             self._run_on_engine_thread(
                 lambda: self._unregister_paged_sync(prefix_id))
             return
         self._unregister_paged_sync(prefix_id)
+
+    def _unregister_dense(self, prefix_id: int) -> None:
+        with self._rid_lock:
+            entry = self._prefixes.pop(prefix_id, None)
+        self._prefix_last_hit.pop(prefix_id, None)
+        if entry is not None:
+            self._publish({"op": "unregister_prefix", "pid": prefix_id})
 
     def _unregister_paged_sync(self, prefix_id: int) -> None:
         with self._rid_lock:
@@ -2169,6 +2352,14 @@ class InferenceEngine:
         # fail everything, then rebuild
         self._fail_all(err)
         try:
+            self._publish({"op": "reset"})
+        except Exception:  # noqa: BLE001
+            # followers unreachable: the mesh is no longer fully driven;
+            # stop serving instead of blocking on the next hop
+            log.exception("control publish failed; stopping")
+            self.stats.last_error = "control lost"
+            return self._stop_with_snapshot(recs, trigger="control_lost")
+        try:
             self._reset_after_error()
         except Exception:  # noqa: BLE001
             return self._reset_failed(recs)
@@ -2205,6 +2396,16 @@ class InferenceEngine:
         Always False (the engine must stop)."""
         if err is not None:
             self._fail_all(err)
+        # best effort: a breaker or reset-failed stop leaves this process
+        # alive (the API serves 503s, heartbeats answer), so followers
+        # would wait forever on a channel that carries no more ops. This
+        # runs on the engine thread as its loop ends: no step op can
+        # follow it on the wire
+        try:
+            self._publish({"op": "stop"})
+        except Exception:  # noqa: BLE001
+            log.warning("control: stop publish failed (followers will "
+                        "exit on channel close)")
         with self._ckpt_lock:
             self._snapshot_before_fail(requests=recs)
         if self._postmortem is not None:
@@ -2247,6 +2448,14 @@ class InferenceEngine:
             if self._stop.wait(delay):
                 self._fail_all(as_engine_error(e))
                 return False
+        try:
+            # followers replay the reset, so every process rebuilds
+            self._publish({"op": "reset"})
+        except Exception:  # noqa: BLE001
+            log.exception("control publish failed; stopping")
+            self.stats.last_error = "control lost"
+            return self._stop_with_snapshot(recs, as_engine_error(e),
+                                            trigger="control_lost")
         try:
             self._reset_after_error()
         except Exception:  # noqa: BLE001
@@ -2398,6 +2607,12 @@ class InferenceEngine:
         }
         if self._faults is not None:
             out["fault_plan"] = self._faults.describe()
+        if self._control is not None and hasattr(self._control,
+                                                 "wire_state"):
+            # the control plane's wire state (published seq, each
+            # follower's last-sent and last-acked seqs): a follower
+            # disconnect is diagnosable from the health route
+            out["control"] = self._control.wire_state()
         return out
 
     def _reset_after_error(self) -> None:
@@ -3575,6 +3790,14 @@ class InferenceEngine:
             # refused: whole-prompt prefill rewrites the row's pages
             # and scales, the documented degradation
         n_top = self._n_top_for([slot])
+        if self._control is not None:
+            op = {"op": "prefill", "ids": list(ids), "slot": slot,
+                  "temp": req.temperature, "top_p": req.top_p,
+                  "penalty": req.repeat_penalty, "prime": list(prime),
+                  "n_top": n_top}
+            if hit is not None:
+                op.update(op="prefill_prefixed", pid=hit[0])
+            self._publish(op)
         if hit is not None:
             out = self._prefixed_prefill_device(ids, slot, req, hit[1],
                                                 n_top, prime)
@@ -3858,6 +4081,21 @@ class InferenceEngine:
         """Dispatch n decode steps of the runner (no fetch). fresh: load
         the carry from the host mirrors; otherwise chain from the
         previous burst's carry on the device."""
+        if self._control is not None:
+            op = {"op": "decode" if n == 1 and fresh else "decode_scan",
+                  "rows": [int(r) for r in rows], "n": n, "n_top": n_top,
+                  "budget": [int(b) for b in budget]}
+            if fresh:
+                # what the fresh load reads from the host mirrors: the
+                # follower keeps no mirrors of its own
+                op["carry"] = {
+                    "tok": self._last_tok.tolist(),
+                    "pos": self._pos.tolist(),
+                    "steps": self._steps.tolist(),
+                    "temp": self._temp.tolist(),
+                    "top_p": self._top_p.tolist(),
+                    "penalty": self._penalty.tolist()}
+            self._publish(op)
         runner = self._decode_runner()
         if fresh:
             live = np.zeros(self.max_slots, bool)
@@ -4641,13 +4879,17 @@ class InferenceEngine:
             self.tokenizer, ids, req._pending_text, final=final)
         return new
 
-    def _fail_all(self, err: Exception) -> None:
+    def _fail_all(self, err: Exception, snapshot: bool = False) -> None:
         """Fail every in-flight request with the typed error (retryable
-        unless it says otherwise). The registry is claimed under
-        _ckpt_lock (a pre-fail snapshot and a shutdown may race), the
-        teardown runs outside it."""
+        unless it says otherwise). snapshot: a fatal failure (a lost
+        follower, serving/health.py) first writes the pre-fail snapshot
+        of the requests, so a restarted pair resumes them. The registry
+        is claimed under _ckpt_lock (a pre-fail snapshot and a shutdown
+        may race), the teardown runs outside it."""
         err = as_engine_error(err)
         with self._ckpt_lock:
+            if snapshot:
+                self._snapshot_before_fail()
             doomed = []
             for rid in list(self._requests):
                 req = self._requests.pop(rid, None)
@@ -4714,6 +4956,9 @@ class InferenceEngine:
         if self.ring:
             return ("ring (sliding-window) caches own their layout; a "
                     "rebuilt ring cannot replay folded positions")
+        if self._multihost:
+            return ("multi-host serving replays a fixed op stream; "
+                    "followers cannot rebuild mid-stream")
         return ("custom step fns own their cache contract; only the "
                 "built-in dense/paged engines can hot-switch")
 
@@ -5236,7 +5481,7 @@ class InferenceEngine:
             # that failure's capture if it is fresh
             stash = self._fail_recs
             if stash is not None and time.monotonic() - stash[0] \
-                    < _FAIL_RECS_TTL_S:
+                    < self.fail_recs_ttl:
                 requests = stash[1]
             else:
                 return

@@ -58,6 +58,12 @@ launches nothing), and adds it once per replay. Other host-side
 accounting of a step registers a hook inside the capture (`on_replay`),
 which each replay calls with its host wall.
 
+A step over a mesh that spans processes hops between processes inside
+the step (parallel/hop.py), which no graph can hold: each hop cuts the
+capture (`segment_cut`), so the variant is a chain of graphs with the
+hops as host code between their replays. Its kernels are the captured
+graphs' all the same, and a warm wave captures nothing.
+
 On the card a run records a timing event before its first replay and
 one after its last (`timing`): the engine reads their elapsed time for
 the step's flight record after a fetch has passed them, so timing adds
@@ -71,6 +77,7 @@ import contextlib
 import gc
 import threading
 import time
+import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -158,6 +165,52 @@ def _capturing():
         finally:
             if was:
                 gc.enable()
+
+
+class _Segments:
+    """A capture cut at the hops (`segment_cut`): the graphs captured so
+    far, each with the host action that runs after its replay (None
+    for the last). The context's `cuda_graph` is moved to the open
+    graph, so `torch.cuda.graph`'s exit ends the last one."""
+
+    def __init__(self, ctx, pool):
+        self.ctx, self.pool = ctx, pool
+        self.parts = [[ctx.cuda_graph, None]]
+
+    def cut(self, make):
+        self._end(self.parts[-1][0])
+        action, out = make()
+        self.parts[-1][1] = action
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool,
+                            capture_error_mode="thread_local")
+        self.parts.append([graph, None])
+        self.ctx.cuda_graph = graph
+        return out
+
+    @staticmethod
+    def _end(graph) -> None:
+        with warnings.catch_warnings():
+            # a segment may hold no kernel (a step that begins with a
+            # hop): its graph is empty, and its replay runs nothing
+            warnings.filterwarnings("ignore", message=".*CUDA Graph is empty")
+            graph.capture_end()
+
+
+_SEGMENTS = threading.local()
+
+
+def segment_cut(make):
+    """Inside a capture: end the graph being captured, call make() ->
+    (action, out) with no capture open (an allocation there is a
+    static buffer outside the graphs' pool), and open the next graph;
+    every replay of the variant runs action() between the two graphs.
+    Returns (True, out). Outside a capture: (False, None), and the
+    caller hops at once."""
+    seg = getattr(_SEGMENTS, "seg", None)
+    if seg is None:
+        return False, None
+    return True, seg.cut(make)
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -252,15 +305,24 @@ class _Graphs:
             graph = torch.cuda.CUDAGraph()
             before = _snapshot()
             _HOOKS.hooks = hooks = []
+            # the segments of one variant share a pool (a tensor one
+            # hands the next stays alive while the next is captured)
+            pool = (self._pool if self._pool is not None
+                    else torch.cuda.graph_pool_handle())
+            ctx = torch.cuda.graph(graph, pool=pool,
+                                   capture_error_mode="thread_local")
             try:
-                with torch.cuda.graph(graph, pool=self._pool,
-                                      capture_error_mode="thread_local"):
-                    self.step(variant)
+                with ctx:
+                    _SEGMENTS.seg = seg = _Segments(ctx, pool)
+                    try:
+                        self.step(variant)
+                    finally:
+                        _SEGMENTS.seg = None
             finally:
                 _HOOKS.hooks = None
         delta = _increase(before)
         _add(delta, -1)              # the capture launched nothing
-        self._graphs[variant] = got = (graph, delta, hooks)
+        self._graphs[variant] = got = (seg.parts, delta, hooks)
         if self._on_capture is not None:
             self._on_capture(variant, time.perf_counter() - t0)
         return got
@@ -271,9 +333,12 @@ class _Graphs:
         if not self._cuda:
             self.step(variant)
             return
-        graph, delta, hooks = self.captured(variant)
+        parts, delta, hooks = self.captured(variant)
         t0 = time.perf_counter()
-        graph.replay()
+        for graph, hop in parts:
+            graph.replay()
+            if hop is not None:
+                hop()
         _add(delta, 1)
         if hooks:
             dt = time.perf_counter() - t0

@@ -4,8 +4,8 @@ Counterpart of `cake_tpu/utils/wire.py`, copied as it is: the same
 4-byte big-endian length prefix, the same bounded hello read, so a
 frame one package writes is a frame the other reads. The telemetry
 federation plane (obs/federation.py) and the disaggregated page channel
-(kv/transfer.py) speak it; the control channel of multi-host serving is
-not ported yet (ROADMAP A13(2)).
+(kv/transfer.py) speak it, and so does the control channel of
+multi-process serving (serve/control.py).
 
 Deliberately NOT shared: each consumer's streaming read loop. The page
 channel's persistent partial-frame buffer (timeout-resume semantics)

@@ -94,7 +94,9 @@ Phases, in order (any failure exits non-zero):
   serve     the same weights behind the HTTP API: six concurrent chat
             requests (three SSE) of 32 tokens through the paged engine,
             over a bf16 pool at --decode-scan 1 and 4, then int8 and int4
-            pools at 4, then int4 weights over a bf16 pool at 4. Each
+            pools at 4 (these four at the first CUT_LAYERS blocks since
+            PR 24, the smoke's time budget), then the 32-layer int4
+            weights over a bf16 pool at 4. Each
             configuration drives the chats through one engine (cold,
             warm, and over the bf16 pool warm under torch.profiler)
             and prints
@@ -107,10 +109,11 @@ Phases, in order (any failure exits non-zero):
             at --decode-scan 1 only. A `serve` JSON line holds the
             drives' records.
   prefix    shared-prefix pages and the phase-split prefill at the same
-            width and depth, over a bf16 and an int8 pool: the prefix's
+            width (the first CUT_LAYERS blocks since PR 24, the smoke's
+            time budget), over a bf16 and an int8 pool: the prefix's
             prefill into its 5 pages, a suffix after it and a window of a
             row that maps it, each with attn="kernel" (flash_attn,
-            flash_attn_cached: 32 launches a call) and attn="plain" from
+            flash_attn_cached: a launch a layer a call) and attn="plain" from
             one pool (layer 0's pages identical, logits and pages within
             PREFIX_REL_TOL of their magnitude); each captured one-slot
             prefill (serve/graphs.PrefillRunner: a 256 bucket, a
@@ -459,6 +462,38 @@ Phases, in order (any failure exits non-zero):
             bf16 prefill and decode step through the sp 4 steps within
             PAR_BF16_TOL of max |logits|. An `sp` JSON line holds the
             record; each kernel row carries `sp_launches`.
+  multihost multi-process serving (ROADMAP A13 part 2): two processes on
+            the card, each `python -m cake_tpu_torch.cli` (through
+            cli.main) with CAKE_COORDINATOR / CAKE_NUM_PROCESSES /
+            CAKE_PROCESS_ID, the coordinator on process 0, hops over gloo
+            (the backend rule: two ranks share the card); 8 of
+            Llama-3-8B's blocks drawn in each process from seed 0 (its
+            lm_head cut to printable ASCII: no EOS), a 4 + 4 topology, one
+            stage a process, --max-slots 4 --decode-scan 4 --auto-prefix
+            --checkpoint; one HTTP client against process 0. (a) f32:
+            four chats sharing a system prompt, buffered, then streamed
+            twice over SSE, then a second conversation sharing the
+            prompt: every text the single-process unsharded dense
+            engine's on the same weights; prefix hits and one replayed
+            register_prefix; /api/v1/cluster (2 processes, the backend);
+            proc1's lag 0 in /api/v1/fleet; the last SSE wave captures
+            nothing on either process (cake_jit_compiles_total, local and
+            proc1's federated). (c) the follower is killed (SIGKILL) in
+            the middle of a long stream: within --heartbeat-timeout
+            /api/v1/health reads failed naming proc1, a new chat gets a
+            503, the pre-fail checkpoint holds the request unfinished,
+            its tokens the reference's so far. (b) bf16: eight SSE chats
+            (a warm wave, then the measured one) on a fresh pair, the
+            single-process co-located 4 + 4 engine and the unsharded
+            engine: TTFT p50, decode tok/s, cake_control_publish_seconds
+            p50, each process's host seconds a hop and graphs (replays)
+            a decode step; then a --quant int4 pair's wave, whose
+            int4_matmul launches (both processes) hold row 9. (d) each
+            fresh pair's coordinator gets SIGTERM: the follower exits 0,
+            the coordinator 0 or -15, the checkpoint is on disk. Rows 7-9
+            at the stage's shard shapes against their plain versions. A
+            `multihost` JSON line holds the record; each kernel row
+            carries `multihost_launches` (the pairs' processes' counts).
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -483,11 +518,11 @@ from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
           "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense", "moe", "sd", "parallel", "sp")
-# the depth the tiers, recovery and spec phases, the control phase's (1)
-# and (3), the disagg phase's (b) and the dense phase's (b)-(d) run the
-# Llama-3-8B-width bf16 weights at: their first blocks of the 32 (the
-# smoke's time budget)
+          "dense", "moe", "sd", "parallel", "sp", "multihost")
+# the depth the serve phase's pool runs, the prefix, tiers, recovery and
+# spec phases, the control phase's (1) and (3), the disagg phase's (b)
+# and the dense phase's (b)-(d) run the Llama-3-8B-width bf16 weights
+# at: their first blocks of the 32 (the smoke's time budget)
 CUT_LAYERS = 8
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,    # FMA-pipe f32; TC
@@ -7305,6 +7340,13 @@ def _moe_served(torch, rpa, fa, card: str):
                 fail(f"moe (b) {label}: still capturing after "
                      f"{MOE_WARM_MAX} warm-up waves")
             warm_waves = w + 1
+            if eng._mixed:
+                # the mixed step's two variants here (no row emits; rows
+                # emit, n_top 0): which ones a wave meets follows the
+                # arrival order, so one a warm wave missed is captured
+                # now, on the engine thread, as its first use would
+                eng._run_on_engine_thread(lambda: [
+                    eng._mixed_step_runner().captured(v) for v in (None, 0)])
             fa.reset_launch_counts()
             rpa.reset_launch_counts()
             del caps[:]
@@ -8672,6 +8714,617 @@ def phase_sp(torch, i4, card: str):
         "int4_matmul"]}, rec
 
 
+# -- phase: multihost -------------------------------------------------------------
+
+MH_LAYERS = 8                     # Llama-3-8B width, 8 of its 32 blocks
+MH_T = 1024                       # --max-seq-len
+MH_SLOTS = 4                      # --max-slots
+MH_SCAN = 4                       # --decode-scan
+MH_NEW = 16                       # tokens a chat
+MH_CHATS = (160, 300, 180, 200)   # (a): the user messages' tokens
+MH_WAVE = PAR_CHATS               # (b): eight chats
+MH_LONG = 256                     # (c): the killed stream's tokens
+MH_HB = 5.0                       # (c): --heartbeat-timeout
+MH_EXTRA = ()                     # more CLI flags of every child
+MH_SYSTEM = ("You answer briefly and exactly. Keep to the facts, and say "
+             "so when a question cannot be answered from what you know.")
+# a child: seed 0's random init (what load_text_params draws without
+# weights on disk), its lm_head cut to the byte tokenizer's printable
+# ASCII (ids 35-129: bytes 32-126) so greedy streams never reach an EOS
+# and decode exactly; then the CLI
+MH_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import cake_tpu_torch.models as models
+_load = models.load_text_params
+def _printable(config, model_dir, dtype, device):
+    p = _load(config, model_dir, dtype, device)
+    with torch.no_grad():
+        p["lm_head"][:, :35] = 0
+        p["lm_head"][:, 130:] = 0
+    return p
+models.load_text_params = _printable
+import cake_tpu_torch.master as master
+_from_args = master.Master.from_args.__func__
+def _loaded(cls, *a, **k):
+    # the whole drawn tree is gone once placed: hand its blocks back, so
+    # the three pairs and the references fit the card together
+    m = _from_args(cls, *a, **k)
+    torch.cuda.empty_cache()
+    return m
+master.Master.from_args = classmethod(_loaded)
+from cake_tpu_torch import cli
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+def _mh_get(url: str, timeout: float = 30.0) -> dict:
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mh_model_dir() -> str:
+    """A model directory holding only config.json: Llama-3-8B at
+    MH_LAYERS blocks (no weights: the CLI draws them)."""
+    import tempfile
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    c = LlamaConfig.llama3_8b()
+    d = tempfile.mkdtemp(prefix="cake_smoke_mh_model_")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({
+            "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+            "intermediate_size": c.intermediate_size,
+            "num_hidden_layers": MH_LAYERS,
+            "num_attention_heads": c.num_attention_heads,
+            "num_key_value_heads": c.num_key_value_heads,
+            "rms_norm_eps": c.rms_norm_eps, "rope_theta": c.rope_theta,
+            "max_position_embeddings": c.max_position_embeddings,
+            "bos_token_id": c.bos_token_id,
+            "eos_token_id": list(c.eos_token_ids)}, f)
+    return d
+
+
+def _mh_params(torch, cfg, dtype):
+    """The children's weights, drawn here: seed 0's init on the card,
+    the lm_head cut to printable ASCII (MH_CHILD's cut)."""
+    from cake_tpu_torch.models.llama.params import init_params
+    p = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                    device=DEV, dtype=dtype)
+    with torch.no_grad():
+        p["lm_head"][:, :35] = 0
+        p["lm_head"][:, 130:] = 0
+    return p
+
+
+class _MhPair:
+    """Two processes of `python -c MH_CHILD` (cli.main) serving one model
+    over a mesh that spans them, the API on process 0."""
+
+    def __init__(self, tree, model_dir, topo, dtype, tag, extra=()):
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix=f"cake_smoke_mh_{tag}_")
+        self.ckpt = os.path.join(self.tmp, "ckpt.json")
+        api = _free_port()
+        self.url = f"http://127.0.0.1:{api}"
+        argv = ["--model", model_dir, "--topology", topo, "--dtype", dtype,
+                "--max-seq-len", str(MH_T), "--max-slots", str(MH_SLOTS),
+                "--decode-scan", str(MH_SCAN), "--auto-prefix",
+                "--checkpoint", self.ckpt, "--temperature", "0",
+                "--repeat-penalty", "1.0", "--sample-len", str(MH_NEW),
+                "--telemetry-interval", "0.5", "--api",
+                f"127.0.0.1:{api}", *MH_EXTRA, *extra]
+        port = _free_port()
+        self.logs = [os.path.join(self.tmp, f"p{i}.log") for i in range(2)]
+        self.procs = []
+        for i in range(2):
+            env = dict(os.environ, CAKE_COORDINATOR=f"127.0.0.1:{port}",
+                       CAKE_NUM_PROCESSES="2", CAKE_PROCESS_ID=str(i))
+            with open(self.logs[i], "w") as log_f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", MH_CHILD, tree, *argv],
+                    stdout=log_f, stderr=subprocess.STDOUT, env=env))
+        self.tag = tag
+
+    def tail(self, i: int, n: int = 3000) -> str:
+        with open(self.logs[i]) as f:
+            return f.read()[-n:]
+
+    def wait_up(self, timeout: float = 300.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if any(p.poll() is not None for p in self.procs):
+                fail(f"multihost {self.tag}: a process died at startup:\n"
+                     f"{self.tail(0)}\n---\n{self.tail(1)}")
+            try:
+                if _mh_get(self.url + "/api/v1/health",
+                              timeout=2.0)["status"] == "ok":
+                    return time.perf_counter() - t0
+            except (OSError, ValueError):
+                time.sleep(0.2)
+        fail(f"multihost {self.tag}: the API never came up")
+
+    def report(self, i: int) -> dict:
+        """The process's teardown report line (cli._hop_report)."""
+        with open(self.logs[i]) as f:
+            lines = [ln for ln in f if "multihost report: " in ln]
+        if not lines:
+            fail(f"multihost {self.tag}: process {i} logged no report:\n"
+                 f"{self.tail(i)}")
+        return json.loads(lines[-1].split("multihost report: ", 1)[1])
+
+    def term(self) -> None:
+        """(d): SIGTERM to the coordinator (`reap` checks the exits)."""
+        import signal
+        self.procs[0].send_signal(signal.SIGTERM)
+
+    def reap(self) -> list:
+        """After `term`: the follower must exit 0, the coordinator 0 or
+        -15, and the checkpoint must be on disk."""
+        import signal
+        try:
+            rcs = [self.procs[1].wait(120), self.procs[0].wait(120)]
+        except subprocess.TimeoutExpired:
+            fail(f"multihost {self.tag}: SIGTERM did not end the pair:\n"
+                 f"{self.tail(0)}\n---\n{self.tail(1)}")
+        if rcs[0] != 0 or rcs[1] not in (0, -signal.SIGTERM):
+            fail(f"multihost {self.tag}: after SIGTERM the follower exited "
+                 f"{rcs[0]}, the coordinator {rcs[1]}:\n{self.tail(0)}\n---"
+                 f"\n{self.tail(1)}")
+        if not os.path.exists(self.ckpt):
+            fail(f"multihost {self.tag}: no checkpoint on disk after "
+                 "SIGTERM")
+        return rcs
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _mh_body(tok, tag: str, n_prompt: int, n_new: int, stream: bool,
+             system: str = MH_SYSTEM) -> dict:
+    return {"messages": [{"role": "system", "content": system},
+                         {"role": "user",
+                          "content": _tagged_chat(tok, tag, n_prompt)}],
+            "max_tokens": n_new, "temperature": 0.0, "stream": stream}
+
+
+def _mh_chat(url: str, body: dict) -> dict:
+    """One chat: its text, and with "stream" its first and last content
+    event's times beside the send time."""
+    t0 = time.perf_counter()
+    if not body.get("stream"):
+        with _post(url + "/api/v1/chat/completions", body) as r:
+            text = json.loads(r.read())["choices"][0]["message"]["content"]
+        return dict(text=text, t0=t0, t_first=None,
+                    t_end=time.perf_counter())
+    req = urllib.request.Request(
+        url + "/api/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    pieces, t_first = [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            ev = json.loads(line[6:])
+            if "error" in ev:
+                raise RuntimeError(f"stream error: {ev['error']}")
+            piece = ev["choices"][0]["delta"].get("content")
+            if piece:
+                if t_first is None:
+                    t_first = time.perf_counter()
+                pieces.append(piece)
+    return dict(text="".join(pieces), t0=t0, t_first=t_first,
+                t_end=time.perf_counter())
+
+
+def _mh_wave(url: str, tok, chats, stream: bool, tag: str,
+             n_new: int = MH_NEW) -> dict:
+    """Chats of `chats` user tokens at once (threads): their texts by
+    tag, and with streams TTFT p50 and the wave's decode tok/s (tokens
+    after each first over the span from the earliest first token to the
+    last token)."""
+    out, errs = {}, {}
+
+    def one(i, n):
+        try:
+            out[f"{tag}{i}"] = _mh_chat(
+                url, _mh_body(tok, f"{tag}{i}", n, n_new, stream))
+        except Exception as e:   # noqa: BLE001
+            errs[f"{tag}{i}"] = repr(e)
+
+    threads = [threading.Thread(target=one, args=(i, n))
+               for i, n in enumerate(chats)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or len(out) != len(chats):
+        fail(f"multihost [{tag}]: chats failed {errs}")
+    rec = dict(wall_s=time.perf_counter() - t0,
+               texts={k: v["text"] for k, v in sorted(out.items())})
+    if stream:
+        firsts = [v["t_first"] for v in out.values()]
+        rec["ttft_p50_s"] = statistics.median(
+            v["t_first"] - v["t0"] for v in out.values())
+        span = max(v["t_end"] for v in out.values()) - min(firsts)
+        rec["decode_tok_s"] = len(chats) * (n_new - 1) / span
+    return rec
+
+
+def _mh_metrics(url: str) -> dict:
+    """The coordinator's /metrics samples (federated ones included)."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            k, v = ln.rsplit(" ", 1)
+            out[k] = float(v)
+    return out
+
+
+def _mh_captures(m: dict) -> tuple:
+    """(this process's, proc1's) cake_jit_compiles_total."""
+    local = sum(v for k, v in m.items()
+                if k.startswith("cake_jit_compiles_total")
+                and 'host="' not in k)
+    remote = sum(v for k, v in m.items()
+                 if k.startswith("cake_jit_compiles_total")
+                 and 'host="proc1"' in k)
+    return local, remote
+
+
+def _mh_drained(url: str, timeout: float = 60.0) -> dict:
+    """Wait until proc1 has applied every published op (lag 0); the
+    fleet view."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        f = _mh_get(url + "/api/v1/fleet", timeout=10)
+        h = f.get("hosts", {}).get("proc1", {})
+        if (h.get("lag_ops") == 0 and f.get("published_seq")
+                and h.get("applied_seq") == f["published_seq"]):
+            # the frame that reports the last op applied carries the
+            # registry as it stood then: every capture of those ops in it
+            return f
+        time.sleep(0.2)
+    fail(f"multihost: proc1 never reported lag 0: {f}")
+
+
+def _mh_publish_p50(before: dict, after: dict) -> float:
+    """cake_control_publish_seconds' p50 over the samples between two
+    scrapes (the upper bound of the bucket holding the median)."""
+    pre = "cake_control_publish_seconds_bucket{le=\""
+    buckets = sorted(
+        (float("inf") if k[len(pre):-2] == "+Inf" else float(k[len(pre):-2]),
+         after[k] - before.get(k, 0.0))
+        for k in after if k.startswith(pre))
+    total = buckets[-1][1] if buckets else 0
+    for le, n in buckets:
+        if total and n >= total / 2:
+            return le
+    return float("nan")
+
+
+def _mh_reference(torch, cfg, dtype, args_kw, tok, drives, card,
+                  mesh_devices=None) -> dict:
+    """The single-process engine (unsharded, or over a co-located mesh
+    with a topology in args_kw) over the children's weights, behind the
+    HTTP API: drives(url) -> its record."""
+    params = _mh_params(torch, cfg, dtype)
+    args = _par_args(max_seq_len=MH_T, max_slots=MH_SLOTS,
+                     decode_scan=MH_SCAN, auto_prefix=True,
+                     sample_len=MH_NEW, prefill_chunk=None,
+                     dtype="f32" if dtype == torch.float32 else "bf16",
+                     **args_kw)
+    gen = _par_generator(torch, cfg, params, args, mesh_devices=mesh_devices)
+    del params
+    srv = _ParServer(torch, gen, args)
+    eng = srv.engine
+    try:
+        rec = drives(srv.url)
+    finally:
+        srv.close()
+    for t in threading.enumerate():
+        if t.name == "cake-http":
+            t.join(timeout=60)
+    gone = [weakref.ref(eng)]
+    del srv, eng, gen
+    _release(torch, gone)
+    return rec
+
+
+def _mh_kernels(torch, fa, i4, card: str) -> dict:
+    """Rows 7, 8 and 9 at the shapes a stage of the pair launches them
+    at (one stage a process, no tp: every head): flash_attn over 32
+    query and 8 kv heads of a 512-token prompt, flash_attn_cached over a
+    256-token window at pos 256 of a 1024-slot cache, at f32 ((a)'s
+    scalar bodies) and bf16 ((b)'s tensor-core bodies); int4_matmul at
+    the four slots of a decode step over wq / wo [4096 -> 4096] and
+    w_down [14336 -> 4096]."""
+    from cake_tpu_torch.ops.quant import quantize_group
+
+    gen = torch.Generator(device=DEV).manual_seed(6)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEV, dtype=dtype)
+
+    rec = {}
+    pos = torch.tensor([256], dtype=torch.int32, device=DEV)
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        q, k, v = (rnd(1, 512, 32, 128, dtype=dt),
+                   rnd(1, 512, 8, 128, dtype=dt), rnd(1, 512, 8, 128, dtype=dt))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        errs = dict(flash_attn=(got.float() - want.float()).abs().max().item())
+        kc, vc = rnd(1, MH_T, 8, 128, dtype=dt), rnd(1, MH_T, 8, 128, dtype=dt)
+        qw = rnd(1, 256, 32, 128, dtype=dt)
+        got = fa.flash_attention_cached(qw, kc, vc, pos)
+        want = fa.flash_attention_cached_plain(qw, kc, vc, pos)
+        errs["flash_attn_cached"] = (got.float()
+                                     - want.float()).abs().max().item()
+        for name, err in errs.items():
+            rec[f"{name}_{dname}"] = err
+            if not err <= TOL[dname]["atol"]:
+                fail(f"multihost: {name} at a stage's shapes, {dname}, "
+                     f"differs from its plain version by {err} (tol "
+                     f"{TOL[dname]['atol']})")
+    for name, (In, Out) in (("wq", (4096, 4096)), ("wo", (4096, 4096)),
+                            ("w_down", (14336, 4096))):
+        w = quantize_group(rnd(In, Out, dtype=torch.float32), 0)
+        g = 2 * w.q.shape[0] // w.scale.shape[0]
+        x = rnd(MH_SLOTS, In)
+        got = i4.int4_matmul(x, w.q, w.scale, g=g)
+        want = i4.int4_matmul_plain(x, w.q, w.scale, g=g)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        rec[f"int4_{name}"] = err
+        if not err <= TOL["bfloat16"]["rtol"]:
+            fail(f"multihost: int4_matmul over {name} [{In} -> {Out}] at "
+                 f"M = {MH_SLOTS}: share {err}")
+    log(f"multihost kernels at a stage's shapes: {rec} [{card}]")
+    return rec
+
+
+def phase_multihost(torch, fa, i4, card: str, tree: str):
+    """The multihost phase (ROADMAP A13 part 2; see the module
+    docstring). Returns (the pairs' processes' kernel launches, the
+    record)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.config import load_config
+    from cake_tpu_torch.models.llama.generator import ByteTokenizer
+
+    t0 = time.perf_counter()
+    _release(torch)
+    held = torch.cuda.memory_allocated()
+    model_dir = _mh_model_dir()
+    topo = _par_topology()
+    cfg = dataclasses.replace(load_config(model_dir),
+                              use_flash_attention=True)
+    tok = ByteTokenizer(cfg.vocab_size)
+    second = _mh_body(tok, "second", 220, MH_NEW, False)
+    long_body = _mh_body(tok, "long", 200, MH_LONG, True)
+    pairs = []
+    parts: dict = {}
+    try:
+        # the three pairs start while the kernels and the f32 reference
+        # run: the f32 pair for (a) and (c), the bf16 and int4 pairs for
+        # (b) and (d)
+        f32 = _MhPair(tree, model_dir, topo, "f32", "f32",
+                      ("--heartbeat-timeout", str(MH_HB)))
+        bf16 = _MhPair(tree, model_dir, topo, "bf16", "bf16")
+        q4 = _MhPair(tree, model_dir, topo, "bf16", "int4",
+                     ("--quant", "int4"))
+        pairs += [f32, bf16, q4]
+        rec: dict = {"kernels": _mh_kernels(torch, fa, i4, card)}
+
+        def ref_drives(url):
+            out = {w: _mh_wave(url, tok, MH_CHATS, w != "A", "c")["texts"]
+                   for w in ("A", "B")}
+            out["second"] = _mh_chat(url, second)["text"]
+            out["long"] = _mh_chat(url, long_body)["text"]
+            return out
+
+        ref = _mh_reference(torch, cfg, torch.float32, {}, tok, ref_drives,
+                            card)
+        parts["reference"] = time.perf_counter() - t0
+        rec["f32_startup_s"] = f32.wait_up()
+        url = f32.url
+        cluster = _mh_get(url + "/api/v1/cluster", timeout=10)
+        if cluster.get("process_count") != 2 or not cluster.get("backend"):
+            fail(f"multihost (a): /api/v1/cluster {cluster}")
+        waves = {w: _mh_wave(url, tok, MH_CHATS, w != "A", "c")
+                 for w in ("A", "B")}
+        _mh_drained(url)
+        m0 = _mh_metrics(url)
+        waves["C"] = _mh_wave(url, tok, MH_CHATS, True, "c")
+        fleet = _mh_drained(url)
+        m1 = _mh_metrics(url)
+        caps = [b - a for a, b in zip(_mh_captures(m0), _mh_captures(m1))]
+        got_second = _mh_chat(url, second)["text"]
+        for w, r in waves.items():
+            want = ref["B" if w != "A" else "A"]
+            if r["texts"] != want:
+                same = sum(r["texts"][k] == want.get(k) for k in r["texts"])
+                fail(f"multihost (a) wave {w}: {same} of {len(want)} f32 "
+                     "texts equal the unsharded engine's")
+        if got_second != ref["second"]:
+            fail("multihost (a): the second conversation's text is not "
+                 "the unsharded engine's")
+        hits = m1.get("cake_engine_prefix_hits_total", 0)
+        reg = m1.get('cake_control_ops_total{op="register_prefix"}', 0)
+        if hits <= 0 or reg < 1:
+            fail(f"multihost (a): prefix hits {hits}, register_prefix ops "
+                 f"{reg}")
+        if any(caps):
+            fail(f"multihost (a): the warm SSE wave captured {caps} graphs "
+                 "(coordinator, follower)")
+        p1 = fleet["hosts"]["proc1"]
+        rec["a"] = dict(cluster=cluster, prefix_hits=hits,
+                        register_prefix_ops=reg, warm_captures=caps,
+                        proc1=dict(lag_ops=p1["lag_ops"],
+                                   applied_seq=p1["applied_seq"]),
+                        published_seq=fleet["published_seq"],
+                        captures_total=_mh_captures(m1))
+        log(f"multihost (a) f32: {len(MH_CHATS)} chats x 3 waves and the "
+            f"second conversation equal the unsharded engine's; prefix "
+            f"hits {hits:.0f}, register_prefix ops {reg:.0f}, the warm "
+            f"wave's captures {caps}, backend {cluster['backend']}, proc1 "
+            f"lag {p1['lag_ops']} [{card}]")
+
+        parts["a"] = time.perf_counter() - t0
+
+        # (c): the follower dies in the middle of a long stream
+        killed = []
+
+        def stream_long():
+            try:
+                req = urllib.request.Request(
+                    url + "/api/v1/chat/completions",
+                    data=json.dumps(long_body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    n = 0
+                    for raw in r:
+                        if raw.startswith(b"data: ") and b"content" in raw:
+                            n += 1
+                            if n == 2 and not killed:
+                                f32.procs[1].kill()
+                                killed.append(time.perf_counter())
+            except Exception:   # noqa: BLE001 — torn down by the failure
+                pass
+
+        th = threading.Thread(target=stream_long)
+        th.start()
+        th.join(timeout=300)
+        if not killed:
+            fail("multihost (c): the stream ended before the follower was "
+                 "killed")
+        health = None
+        while time.perf_counter() - killed[0] < MH_HB + 10:
+            health = _mh_get(url + "/api/v1/health", timeout=10)
+            if health["status"] == "failed":
+                break
+            time.sleep(0.1)
+        t_failed = time.perf_counter() - killed[0]
+        if health["status"] != "failed" or "proc1" not in str(
+                health.get("reason")):
+            fail(f"multihost (c): health after the kill: {health}")
+        try:
+            _post(url + "/api/v1/chat/completions",
+                  _mh_body(tok, "late", 200, 2, False)).close()
+            fail("multihost (c): a chat after the failure was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 503:
+                fail(f"multihost (c): a chat after the failure got {e.code}")
+        with open(f32.ckpt) as f:
+            snap = json.load(f)
+        live = [r for r in snap["requests"]
+                if not r["finished"] and not r["error"]]
+        if len(live) != 1 or not 1 <= len(live[0]["out_tokens"]) < MH_LONG:
+            fail(f"multihost (c): the pre-fail snapshot holds {live}")
+        done = tok.decode(live[0]["out_tokens"])
+        if not ref["long"].startswith(done):
+            fail("multihost (c): the snapshot's tokens are not the "
+                 "reference's")
+        rec["c"] = dict(failed_after_s=t_failed, reason=health["reason"],
+                        snapshot_tokens=len(live[0]["out_tokens"]))
+        log(f"multihost (c): serving failed {t_failed:.2f} s after the "
+            f"kill ('{health['reason']}'), a new chat 503, the snapshot "
+            f"holds the stream at {len(live[0]['out_tokens'])} tokens "
+            f"[{card}]")
+        # its coordinator goes too ((d) is a healthy pair's SIGTERM)
+        f32.kill()
+        parts["c"] = time.perf_counter() - t0
+
+        # (b): the single-process engines, then the bf16 pair
+        def cost_drives(u):
+            _mh_wave(u, tok, MH_WAVE, True, "w")
+            return _mh_wave(u, tok, MH_WAVE, True, "m")
+
+        # the pairs idle (up) while the single-process engines run
+        rec["bf16_startup_s"] = bf16.wait_up()
+        rec["int4_startup_s"] = q4.wait_up()
+        cost = {"unsharded": _mh_reference(torch, cfg, torch.bfloat16, {},
+                                           tok, cost_drives, card)}
+        cost["co-located"] = _mh_reference(
+            torch, cfg, torch.bfloat16, dict(topology=topo), tok,
+            cost_drives, card, mesh_devices=[DEV] * 2)
+        parts["b_references"] = time.perf_counter() - t0
+        _mh_wave(bf16.url, tok, MH_WAVE, True, "w")
+        m0 = _mh_metrics(bf16.url)
+        cost["two processes"] = _mh_wave(bf16.url, tok, MH_WAVE, True, "m")
+        m1 = _mh_metrics(bf16.url)
+        cost["two processes"]["publish_p50_s"] = _mh_publish_p50(m0, m1)
+        # row 9 on the int4 pair, then (d): both pairs' SIGTERM at once
+        _mh_wave(q4.url, tok, MH_WAVE, True, "q")
+        bf16.term()
+        q4.term()
+        rcs = bf16.reap()
+        q4.reap()
+        reports = [bf16.report(i) for i in range(2)]
+        cost["two processes"]["processes"] = [
+            dict(hop_ms=(1e3 * r["hop_seconds"] / r["hops"]
+                         if r["hops"] else None),
+                 hops=r["hops"], decode_graphs=r["decode_segments"])
+            for r in reports]
+        for label, r in cost.items():
+            r.pop("texts")
+            log(f"multihost (b) bf16 {label:<13}: TTFT p50 "
+                f"{r['ttft_p50_s']:.3f} s, decode {r['decode_tok_s']:.1f} "
+                f"tok/s, wall {r['wall_s']:.2f} s"
+                + (f", publish p50 <= {r['publish_p50_s']} s, processes "
+                   f"{r['processes']}" if "processes" in r else "")
+                + f" [{card}]")
+        rec["b"] = cost
+        launches: dict = {}
+        for r in reports:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        q4_reports = [q4.report(i) for i in range(2)]
+        n4 = [r["launches"].get("int4_matmul", 0) for r in q4_reports]
+        if min(n4) <= 0:
+            fail(f"multihost (b) int4: int4_matmul launches {n4}")
+        launches["int4_matmul"] = sum(n4)
+        for k in ("flash_attn", "flash_attn_cached"):
+            if launches.get(k, 0) <= 0:
+                fail(f"multihost (b): {k} never launched on the pair")
+        plain = {k: n for r in reports + q4_reports
+                 for k, n in r["launches"].items() if k.endswith("_plain")}
+        if plain:
+            fail(f"multihost: plain versions ran {plain}")
+        rec["d"] = dict(bf16_rcs=rcs)
+        rec["launches"] = launches
+        parts["b_d"] = time.perf_counter() - t0
+        rec["part_ends_s"] = parts
+        log(f"multihost (d): SIGTERM: follower {rcs[0]}, coordinator "
+            f"{rcs[1]}, checkpoint on disk; int4 launches {n4}; the pairs' "
+            f"launches {launches} [{card}]")
+    finally:
+        for p in pairs:
+            p.kill()
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    if torch.cuda.memory_allocated() > held + 2**30:
+        fail("multihost: the phase kept memory allocated")
+    log(f"multihost phase: {rec['seconds']:.1f} s")
+    return launches, rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8768,6 +9421,8 @@ def main(argv=None) -> int:
     parallel_counts = {}
     sp_record = None
     sp_counts = {}
+    mh_record = None
+    mh_counts = {}
     if {"step", "generate", "serve", "prefix", "sched", "tiers",
             "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
@@ -8786,19 +9441,21 @@ def main(argv=None) -> int:
                 (kv, scans[-1]) for kv in ("int8", "int4")]
             for kv, k in runs:
                 got, pools[kv or "bf16"], recs = phase_serve(
-                    torch, rpa, cfg, params, kv_dtype=kv, decode_scan=k,
+                    torch, rpa, *_cut_draft(cfg, params, CUT_LAYERS),
+                    kv_dtype=kv, decode_scan=k,
                     drives=SERVE_DRIVES if kv is None else ("cold", "warm"))
                 counts.update(got)
                 serve_records += recs
-            log("serve pools (128 pages x 128 tokens + the sink, 32 "
-                "layers): "
+            log(f"serve pools (128 pages x 128 tokens + the sink, "
+                f"{CUT_LAYERS} layers): "
                 + ", ".join(f"{k} {v:.3f} GiB" for k, v in pools.items()))
             lap("serve")
         if "prefix" in phases:
             # the flash kernels' launches on the serve path join the
             # generator's in the kernels line
-            served, prefix_records = phase_prefix(torch, rpa, fa, cfg,
-                                                  params, card, a.profile)
+            served, prefix_records = phase_prefix(
+                torch, rpa, fa, *_cut_draft(cfg, params, CUT_LAYERS), card,
+                a.profile)
             for k, n in served.items():
                 counts[k] = counts.get(k, 0) + n
             lap("prefix")
@@ -8914,6 +9571,12 @@ def main(argv=None) -> int:
         # kernels-line key of their own
         sp_counts, sp_record = phase_sp(torch, i4, card)
         lap("sp")
+    if "multihost" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.serve.control"):
+        # the pairs' processes' launches (each process starts at 0), a
+        # kernels-line key of their own
+        mh_counts, mh_record = phase_multihost(torch, fa, i4, card, tree)
+        lap("multihost")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -8956,6 +9619,9 @@ def main(argv=None) -> int:
     if sp_record is not None:
         print(json.dumps({"sp": sp_record, "card": card}, default=str),
               flush=True)
+    if mh_record is not None:
+        print(json.dumps({"multihost": mh_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -8987,6 +9653,8 @@ def main(argv=None) -> int:
                                   if parallel_record else None),
             "sp_launches": (sp_counts.get(name, 0)
                             if sp_record else None),
+            "multihost_launches": (mh_counts.get(name, 0)
+                                   if mh_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

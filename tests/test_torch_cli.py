@@ -293,25 +293,44 @@ def test_disagg_and_telemetry_rules_match_the_jax_args(kw, token,
 def test_disagg_and_telemetry_flags_parse_with_jax_defaults(monkeypatch,
                                                             caplog):
     """The flags' names and defaults are JAX's; --disagg in a one-shot
-    run warns and is cleared. The telemetry flags wait for their
-    consumer, multi-host serving (A13), and are still refused."""
+    run warns and is cleared. The telemetry flags (consumed by
+    multi-host serving since A13(2)) parse with JAX's defaults and
+    check, and --telemetry-export warns where there is nothing to
+    federate: a one-shot run, and single-host serving."""
     theirs = {f.name: f.default for f in dataclasses.fields(JArgs)}
-    for name in ("disagg", "disagg_peer", "disagg_timeout"):
+    for name in ("disagg", "disagg_peer", "disagg_timeout",
+                 "telemetry_export", "telemetry_interval"):
         assert getattr(Args(), name) == theirs[name], name
     monkeypatch.setenv("CAKE_DISAGG_TOKEN", "t")
     a = parse_args(["--disagg", "prefill", "--disagg-peer", "0.0.0.0:0",
                     "--disagg-timeout", "5", "--kv-pages", "16"])
     assert (a.disagg, a.disagg_peer, a.disagg_timeout) == \
         ("prefill", "0.0.0.0:0", 5.0)
-    for flag in ("--telemetry-export", "--no-telemetry-export",
-                 "--telemetry-interval"):
-        with pytest.raises(SystemExit):
-            parse_args([flag, "1"] if flag.endswith("interval") else [flag])
+    assert parse_args(["--telemetry-export"]).telemetry_export is True
+    assert parse_args(["--no-telemetry-export"]).telemetry_export is False
+    assert parse_args(["--telemetry-interval", "1"]).telemetry_interval \
+        == 1.0
+    with pytest.raises(ValueError) as ours:
+        parse_args(["--telemetry-interval", "0"])
+    with pytest.raises(ValueError) as jax_err:
+        JArgs(telemetry_interval=0.0).validate()
+    assert str(ours.value) == str(jax_err.value)
     caplog.set_level("WARNING")
     assert cli.main(["--cpu", "--prompt", "hi", "--sample-len", "2",
                      "--disagg", "decode", "--disagg-peer", "h:1",
-                     "--kv-pages", "16"]) == 0
+                     "--kv-pages", "16", "--telemetry-export"]) == 0
     assert "--disagg applies to engine serving (--api)" in caplog.text
+    assert "--telemetry-export applies to multi-host API serving" \
+        in caplog.text
+    import cake_tpu_torch.api.server as server
+    started = []
+    monkeypatch.setattr(server, "start",
+                        lambda master, **kw: started.append(kw))
+    assert cli.main(["--cpu", "--api", "127.0.0.1:0",
+                     "--telemetry-export"]) == 0
+    assert started and started[0]["address"] == "127.0.0.1:0"
+    assert "--telemetry-export has no effect on single-host serving" \
+        in caplog.text
 
 
 def test_make_engine_wires_the_disagg_role(monkeypatch):

@@ -11,8 +11,9 @@ package's (`cake_tpu/faults`).
   * `abort` ends the process with ABORT_EXIT_CODE (in a subprocess).
   * `cake_fault_injections_total{site}` renders JAX's text after the
     same firings; a firing publishes `fault_injected` on the port's bus.
-  * A plan naming a site the port has no code for yet (control.publish,
-    kv.ship, spec.verify) parses and never fires in the engine.
+  * A plan naming a site the engine under test does not reach
+    (control.publish: a paged engine takes no control channel; kv.ship,
+    spec.verify) parses and never fires in the engine.
 """
 
 import random

@@ -353,22 +353,32 @@ def test_tp_must_divide_kv_heads_and_int4_shards_hold_whole_groups(
 
 
 def test_sp_and_the_multi_host_flags_are_refused_by_argparse(capsys):
-    """The multi-host flags (A13(2)) are refused by argparse; --sp is
-    parsed now, and refused below 1 with JAX's message."""
+    """--sp is parsed, and refused below 1 with JAX's message. The
+    multi-host flags (ported with A13(2)) parse with JAX's names and
+    defaults, and --mode takes JAX's two values only."""
+    import dataclasses
+
+    from cake_tpu.args import Args as JArgs
+
     from cake_tpu_torch.args import parse_args
     assert parse_args(["--sp", "2"]).sp == 2
     with pytest.raises(ValueError, match="--sp must be >= 1"):
         parse_args(["--sp", "0"])
-    for flag, val in (("--mode", "worker"), ("--name", "n"),
-                      ("--address", "1.2.3.4:5"),
-                      ("--heartbeat-timeout", "3"),
-                      ("--stall-timeout", "3")):
-        with pytest.raises(SystemExit):
-            parse_args([flag, val])
-        # refused outright, or as an abbreviation of no single flag
-        err = capsys.readouterr().err
-        assert ("unrecognized arguments" in err
-                or "ambiguous option" in err) and flag in err
+    theirs = {f.name: f.default for f in dataclasses.fields(JArgs)}
+    for flag, val, want in (("--mode", "worker", "worker"),
+                            ("--name", "n", "n"),
+                            ("--address", "1.2.3.4:5", "1.2.3.4:5"),
+                            ("--heartbeat-timeout", "3", 3.0),
+                            ("--stall-timeout", "3", 3.0)):
+        name = flag[2:].replace("-", "_")
+        assert getattr(Args(), name) == theirs[name], name
+        assert getattr(parse_args([flag, val]), name) == want
+    assert capsys.readouterr().err == ""
+    with pytest.raises(ValueError) as ours:
+        parse_args(["--mode", "peer"])
+    with pytest.raises(ValueError) as jax_err:
+        JArgs(mode="peer").validate()
+    assert str(ours.value) == str(jax_err.value)
     a = parse_args(["--topology", "t.yml", "--tp", "2", "--dp", "2",
                     "--microbatches", "2"])
     assert (a.topology, a.tp, a.dp, a.microbatches) == ("t.yml", 2, 2, 2)
