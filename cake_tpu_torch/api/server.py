@@ -18,7 +18,7 @@ observability routes:
        429 with the drain's Retry-After), let in-flight work finish,
        then stop and save; GET /api/v1/drain reads the drain's state
   GET  /v1/models (and /api/v1/models), GET /api/v1/health (with the
-       recovery, journal and drain blocks)
+       recovery, journal and drain blocks; ?lite=1 the router's poll)
   GET  /metrics and /api/v1/metrics: the Prometheus text exposition
   GET  /api/v1/requests (?limit, ?rid, ?class, ?since): lifecycle traces
   GET  /api/v1/steps (?limit): the step flight recorder
@@ -52,8 +52,15 @@ it, `cake_serving_healthy` is 0 and the fleet's local `live` is false.
 and on SIGTERM drains, stops the engine, writes the postmortem bundle
 (--postmortem-dir) and saves. With a fleet collector (`collector=`, obs/federation.py) the
 fleet route, ?host= events, the host-labelled families appended to
-/metrics and the fleet merge of a request's timeline read from it. Not
-ported yet: the router's departure notice (ROADMAP A15).
+/metrics and the fleet merge of a request's timeline read from it. With
+`announce=` the replica registers itself with a front-door router
+(router/discovery.py) and the shutdown sends its departure first.
+
+The router's half of the contract: `?lite=1` on the health route (a
+subtree of the full document with the replica's name and wall clock),
+`x-cake-replica` on every 429 and 503 and on a stream's headers with
+the engine rid (`x-cake-rid`), and the request's `x-cake-trace` threaded
+to the engine and sent back on the stream and on every error.
 
 An image model's master (an image generator and no text generator) is
 served with no engine: the image, health, models and metrics routes
@@ -132,13 +139,26 @@ class ApiServer:
     An image model's master is wrapped with engine=None."""
 
     def __init__(self, master, model_name: str = "cake-tpu", engine=None,
-                 collector=None, health=None):
+                 collector=None, health=None, replica_id=None):
+        import os
+        import socket
         if engine is None and getattr(master, "image", None) is None:
             raise ValueError("the port serves text through the batching "
                              "engine only: pass engine=master.make_engine()")
         self.master = master
         self.model_name = model_name
         self.engine = engine
+        # this serving process's id, as a front-door router attributes
+        # backpressure and streams to it: the x-cake-replica header and
+        # the health document's `replica`. start() passes the bind
+        # address; CAKE_REPLICA_ID overrides the host name
+        self.replica_id = (replica_id
+                           or os.environ.get("CAKE_REPLICA_ID")
+                           or socket.gethostname())
+        # image requests inside HTTP admission (waiting on or holding
+        # the generation lock): an image model's queue depth
+        self._waiting = 0
+        self._waiting_lock = threading.Lock()
         # parallel.health.ServingHealth: once it fails, POSTs 503 and
         # /api/v1/health reports the reason
         self.health_state = health
@@ -181,6 +201,19 @@ class ApiServer:
             route = "other"
         self._m_http.labels(route=route, status=str(code)).inc()
 
+    def _engine_retry_after(self, priority=None) -> float:
+        """The Retry-After of a retryable engine failure's 503: the shed
+        controller's estimate for the request's class when shedding is
+        on (the 429 path's computation), else 1 s."""
+        shed = getattr(self.engine, "_shed", None)
+        if shed is not None:
+            try:
+                return shed.estimate_retry_after(
+                    priority or "standard", self.engine.queue_depth)
+            except Exception:  # noqa: BLE001 — an estimate, not a contract
+                log.debug("retry-after estimate failed", exc_info=True)
+        return 1.0
+
     def _submit(self, messages, kw):
         """engine.chat, its refusals as QueueFull (429)."""
         try:
@@ -192,13 +225,18 @@ class ApiServer:
             raise QueueFull(e.retry_after, draining=True)
 
     def chat(self, body: dict, send_chunk=None, on_start=None,
-             idempotency_key=None, last_event_id=None) -> Optional[dict]:
+             idempotency_key=None, last_event_id=None,
+             trace_id=None) -> Optional[dict]:
         """Run one chat completion. With send_chunk, stream deltas through
         it and return None (or DISCONNECTED); else return the response
         dict. `on_start` fires after admission and before any token, so
         a queue rejection (QueueFullError) still surfaces as a clean
-        429. send_chunk(obj, event_id=N) gets each event's absolute token
-        position (the SSE `id:`).
+        429; it gets the engine rid as `rid=` (the handler sends it as
+        x-cake-rid, a router's key for joining the trace).
+        send_chunk(obj, event_id=N) gets each event's absolute token
+        position (the SSE `id:`). trace_id (x-cake-trace): the
+        originating trace id, threaded to the engine's tracer and event
+        bus at admission.
 
         idempotency_key (x-cake-idempotency-key): a retried submit with
         the same key attaches to the live or finished stream instead of
@@ -216,6 +254,7 @@ class ApiServer:
             want_top_logprobs=n_top > 0,
             priority=opts.get("priority"),
             idempotency_key=idempotency_key,
+            trace_id=trace_id,
         )
         tok = self.engine.tokenizer
 
@@ -260,7 +299,7 @@ class ApiServer:
         stream.wants_count = True
         h = self._submit(messages, dict(kw, stream=stream))
         if on_start is not None:
-            on_start()
+            on_start(rid=h._req.rid)
         r = h._req
         lp_cursor = 0
         # SSE event ids are absolute token positions: tokens of earlier
@@ -388,59 +427,85 @@ class ApiServer:
         if not isinstance(body, dict):
             raise ValueError("the body must be a JSON object")
         images: list = []
-        with self._gen_lock:
-            self.master.generate_image(ImageGenerationArgs.from_json(body),
-                                       images.extend)
+        with self._waiting_lock:
+            self._waiting += 1
+        try:
+            with self._gen_lock:
+                self.master.generate_image(
+                    ImageGenerationArgs.from_json(body), images.extend)
+        finally:
+            with self._waiting_lock:
+                self._waiting -= 1
         return {"images": [base64.b64encode(p).decode() for p in images]}
 
-    def health(self) -> dict:
+    def health(self, lite: bool = False) -> dict:
         """/api/v1/health: engine occupancy, per-class queue depths (SLO
         scheduling on), pool pages, SLO accounting and throughput, and
         the recovery, journal and drain blocks. A stopped engine (a
         storm-breaker or failed-rebuild stop) reports status "stopped"
         and the reason. With no engine (an image model): the generator's
-        device and whether a generation runs."""
+        device and whether a generation runs.
+
+        lite (?lite=1): only what a front-door router polls every few
+        hundred ms, each field a subtree of the full document: the
+        replica, the document's wall clock (the router's clock-offset
+        input), queue depths, draining, page size, config epoch, SLO
+        attainment and the breaker, as JAX's lite document."""
         eng = self.engine
-        if eng is None:
-            return {"status": "ok", "model": self.model_name,
-                    "device": str(self.master.image.device),
-                    "busy": self._gen_lock.locked()}
-        st = eng.stats
         failed = self._failed()
-        out = {
-            "status": ("failed" if failed else "stopped" if eng.stopped
-                       else "ok"),
-            "model": self.model_name,
-            "device": str(eng.device),
-            "queue_depth": eng.queue_depth,
-            "active_requests": eng.active,
-            "decode_slots": eng.max_slots,
-        }
+        out = {"status": ("failed" if failed
+                          else "stopped" if eng is not None and eng.stopped
+                          else "ok"),
+               "replica": self.replica_id,
+               "now": round(time.time(), 6),
+               "queue_depth": self._waiting}
+        if not lite:
+            out["model"] = self.model_name
         if failed:
             out["reason"] = self.health_state.reason
-        elif eng.stopped:
-            out["reason"] = st.last_error or "engine stopped"
+        elif eng is not None and eng.stopped:
+            out["reason"] = eng.stats.last_error or "engine stopped"
+        if eng is None:
+            if not lite:
+                out.update(device=str(self.master.image.device),
+                           busy=self._gen_lock.locked())
+            return out
+        out.update(queue_depth=eng.queue_depth,
+                   active_requests=eng.active,
+                   decode_slots=eng.max_slots)
         depths = getattr(eng.scheduler, "class_depths", None)
         if depths is not None:
             out["queue_depth_by_class"] = depths()
         if eng._draining:
             out["draining"] = True
             out["drain"] = eng.drain_state()
+        if eng.paged:
+            out["page_size"] = eng._pager.page_size
         # the autotune epoch and the switch flag (a router redirects
         # fresh admissions while a fold-everything switch runs)
         out["config_epoch"] = eng.config_epoch
         out["autotune"] = eng.autotune_mode
         out["switch_in_flight"] = bool(eng._switch_inflight)
+        if lite:
+            # the router's weighted pick reads attainment, and a tripped
+            # breaker means this replica is a restart away
+            out["slo"] = {"attainment_1m": {
+                c: round(v, 4) for c, v in
+                eng.slo.attainment_by_class("1m").items()}}
+            out["recovery"] = {"breaker": {"tripped": bool(
+                eng._breaker_tripped)}}
+            return out
+        out["device"] = str(eng.device)
+        out["slo"] = eng.slo.snapshot()
         out["recovery"] = eng.recovery_state()
         if eng._journal is not None:
             out["journal"] = eng._journal.state()
         if eng.paged:
-            out.update(page_size=eng._pager.page_size,
-                       pages_free=eng._pager.free_pages,
+            out.update(pages_free=eng._pager.free_pages,
                        pages_total=eng._pager.n_pages,
                        paged_attn=eng.paged_attn)
+        st = eng.stats
         out.update(
-            slo=eng.slo.snapshot(),
             requests_completed=st.requests_completed,
             tokens_generated=st.tokens_generated,
             decode_tokens_per_s=round(st.decode_tokens_per_s, 2),
@@ -778,6 +843,10 @@ def make_handler(api: ApiServer):
             self.send_response(code)
             for k, v in headers:
                 self.send_header(k, v)
+            if code >= 400 and getattr(self, "_trace", None):
+                # a router relays non-200s as they are: a refused or
+                # failed request still hands its caller the trace id
+                self.send_header("x-cake-trace", self._trace)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
@@ -788,8 +857,10 @@ def make_handler(api: ApiServer):
             """_json with a Retry-After header (whole seconds, ceil'd,
             floor 1), also in the body as retry_after_s."""
             retry = max(1, int(-(-retry_after_s // 1)))
+            # x-cake-replica: which replica computed the backpressure
             self._json(code, {**obj, "retry_after_s": retry},
-                       headers=[("Retry-After", str(retry))])
+                       headers=[("Retry-After", str(retry)),
+                                ("x-cake-replica", str(api.replica_id))])
 
         def _query(self) -> dict:
             """The first value of each query parameter."""
@@ -830,11 +901,17 @@ def make_handler(api: ApiServer):
             return True
 
         def do_GET(self):
+            # stashed per request: on a keep-alive connection an earlier
+            # POST's value must not label this request's errors
+            self._trace = self.headers.get("x-cake-trace")
             route = self.path.split("?", 1)[0]
             if self._no_engine(route):
                 return
             if route == "/api/v1/health":
-                return self._json(200, api.health())
+                # ?lite=1: the router's cheap poll (any other value: the
+                # full document)
+                return self._json(200, api.health(
+                    lite=self._query().get("lite") == "1"))
             if route == "/api/v1/drain":
                 return self._json(200, api.engine.drain_state())
             if route == "/api/v1/requests":
@@ -912,6 +989,9 @@ def make_handler(api: ApiServer):
 
         def do_POST(self):
             self._stream_started = False
+            # for the error paths' x-cake-trace echo; a stream sends it
+            # with its headers
+            self._trace = self.headers.get("x-cake-trace")
             if self._no_engine(self.path):
                 return
             try:
@@ -966,8 +1046,10 @@ def make_handler(api: ApiServer):
                 if not e.retryable:
                     return self._json(500, {"error": str(e),
                                             "retryable": False})
-                self._json(503, {"error": str(e), "retryable": True},
-                           headers=[("Retry-After", "1")])
+                # body["priority"] holds the merged body/header class
+                self._retry_json(
+                    503, api._engine_retry_after(body.get("priority")),
+                    {"error": str(e), "retryable": True})
             except Exception as e:  # noqa: BLE001
                 log.exception("request failed")
                 if not self._stream_started:
@@ -986,6 +1068,10 @@ def make_handler(api: ApiServer):
             # header) replays exactly the missing suffix
             idem_key = self.headers.get("x-cake-idempotency-key")
             last_id = self.headers.get("Last-Event-ID")
+            # x-cake-trace (minted by a front-door router or a client):
+            # threaded to the engine's tracer and event bus, sent back
+            # with a stream's headers and on error responses
+            trace = self.headers.get("x-cake-trace")
             if last_id is not None:
                 try:
                     last_id = int(last_id)
@@ -1000,13 +1086,22 @@ def make_handler(api: ApiServer):
                         "stream across reconnects and restarts)")
             if not body.get("stream"):
                 return self._json(200, api.chat(body,
-                                                idempotency_key=idem_key))
+                                                idempotency_key=idem_key,
+                                                trace_id=trace))
 
-            def on_start():
+            def on_start(rid):
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
                 self.send_header("Transfer-Encoding", "chunked")
+                # before any token: which replica serves the stream,
+                # under which trace, as which engine rid (a router joins
+                # the trace to this replica's timeline through the rid)
+                self.send_header("x-cake-replica", str(api.replica_id))
+                if trace is not None:
+                    self.send_header("x-cake-trace", trace)
+                if rid is not None:
+                    self.send_header("x-cake-rid", str(rid))
                 self.end_headers()
                 self._stream_started = True
 
@@ -1024,8 +1119,8 @@ def make_handler(api: ApiServer):
                 self.wfile.flush()
 
             if api.chat(body, send_chunk=send_chunk, on_start=on_start,
-                        idempotency_key=idem_key,
-                        last_event_id=last_id) is DISCONNECTED:
+                        idempotency_key=idem_key, last_event_id=last_id,
+                        trace_id=trace) is DISCONNECTED:
                 return
             done = b"data: [DONE]\n\n"
             self.wfile.write(hex(len(done))[2:].encode() + b"\r\n")
@@ -1039,7 +1134,9 @@ def make_handler(api: ApiServer):
 def start(master, address: str = "127.0.0.1:10128",
           model_name: str = "cake-tpu", block: bool = True, engine=None,
           checkpoint_path: Optional[str] = None, collector=None,
-          health=None):
+          health=None, announce: Optional[str] = None,
+          announce_interval_s: float = 2.0,
+          announce_token: Optional[str] = None):
     """Bind and serve. Without `engine`, one is built from the master
     (`master.make_engine()`), except for an image model's master (an
     image generator and no text generator), which is served with no
@@ -1065,7 +1162,14 @@ def start(master, address: str = "127.0.0.1:10128",
 
     health: a parallel/health.ServingHealth (multi-process serving
     passes one watching the followers' heartbeats); without one, one is
-    armed over the engine with --stall-timeout's watchdog, always."""
+    armed over the engine with --stall-timeout's watchdog, always.
+
+    announce: a front-door router's announce listener ("host:port",
+    --router-announce): this replica registers itself there and ships
+    frames of its lite health (and more) every announce_interval_s
+    (router/discovery.ReplicaAnnouncer); the shutdown sends the
+    departure notice first, so the router stops routing new work here
+    while the streams in flight finish."""
     import os
 
     from cake_tpu_torch.serve import checkpoint as ckpt
@@ -1092,7 +1196,7 @@ def start(master, address: str = "127.0.0.1:10128",
         health = ServingHealth(engine, stall_after_s=getattr(
             getattr(master, "args", None), "stall_timeout", 600.0))
     api = ApiServer(master, model_name, engine=engine, collector=collector,
-                    health=health)
+                    health=health, replica_id=address)
     if journal_armed:
         from cake_tpu_torch.serve import journal as jr
         try:
@@ -1129,13 +1233,32 @@ def start(master, address: str = "127.0.0.1:10128",
     httpd = ThreadingHTTPServer((host, int(port)), make_handler(api))
     httpd.daemon_threads = True
     log.info("REST API listening on %s:%d", host, httpd.server_address[1])
+    announcer = None
+    if announce is not None:
+        from cake_tpu_torch.router.discovery import ReplicaAnnouncer
+        # the announced name is the router's proxy target: the bound
+        # port (a port-0 bind resolves here) and a concrete host where
+        # the bind was a wildcard
+        ahost = host if host not in ("", "0.0.0.0", "::") else "127.0.0.1"
+        announcer = ReplicaAnnouncer(
+            announce, f"{ahost}:{httpd.server_address[1]}",
+            token=announce_token, interval_s=announce_interval_s,
+            health=lambda: api.health(lite=True), engine=engine)
+        log.info("announcing to router at %s as %s", announce,
+                 announcer.replica)
     done = threading.Event()
 
     def save_and_exit(*_sig):
         if done.is_set():
             return
         done.set()
+        if announcer is not None:
+            # the router hears the departure first: no new work comes
+            # here while the streams in flight finish
+            announcer.depart()
         if engine is None:
+            if announcer is not None:
+                announcer.close()
             threading.Thread(target=httpd.shutdown, daemon=True).start()
             return
         # close admissions (new submits get the drain's 429 instead of
@@ -1153,6 +1276,10 @@ def start(master, address: str = "127.0.0.1:10128",
             # nothing resumes these after a restart
             engine._fail_all(EngineResetError(
                 "server stopped while this request was in flight"))
+        if announcer is not None:
+            # the terminal frame: the departure again, with the drained
+            # (zero-load) health, the router's condition to forget
+            announcer.close()
         threading.Thread(target=httpd.shutdown, daemon=True).start()
 
     api._shutdown = save_and_exit

@@ -11,8 +11,11 @@ package does (`--max-seq-len`, `--flash-attention/--no-flash-attention`,
 package's rules for the fields the port has, `--quant none|int8|int4`
 among them). The multi-process serving
 flags (`--mode`, `--name`, `--address`, `--heartbeat-timeout`,
-`--stall-timeout`, `--telemetry-export`, `--telemetry-interval`) have
-JAX's names, defaults and checks. A flag of the JAX package that the
+`--stall-timeout`, `--telemetry-export`, `--telemetry-interval`) and the
+router's (`--router`, `--replicas`, `--router-announce`,
+`--announce-interval`, `--router-watermark`, `--router-poll`,
+`--router-policy`, `--router-anomaly-weighting`) have JAX's names,
+defaults and checks. A flag of the JAX package that the
 port does not implement yet, or that the JAX package parses and reads
 nowhere (`--sd-flash-attention`, `--sd-sliced-attention-size`), is
 rejected by argparse, never accepted and ignored.
@@ -38,6 +41,35 @@ INT8_KV_SPEC_ERROR = (
 class ModelType(str, Enum):
     TEXT = "text"
     IMAGE = "image"
+
+
+def parse_replicas(spec: str) -> list:
+    """Validate and split a --replicas list: comma-separated host:port
+    entries, no duplicates (Args.validate and cli._serve_router)."""
+    out = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        host, sep, port = entry.rpartition(":")
+        if not sep or not host:
+            raise ValueError(
+                f"--replicas entry {entry!r} must be host:port")
+        try:
+            p = int(port)
+        except ValueError:
+            raise ValueError(
+                f"--replicas entry {entry!r}: port {port!r} is not an "
+                "integer")
+        if not 0 < p < 65536:
+            raise ValueError(
+                f"--replicas entry {entry!r}: port {p} out of range")
+        out.append(entry)
+    if not out:
+        raise ValueError(f"--replicas {spec!r} names no replicas")
+    if len(set(out)) != len(out):
+        raise ValueError(f"--replicas {spec!r} has duplicate entries")
+    return out
 
 
 @dataclass
@@ -270,6 +302,33 @@ class Args:
     telemetry_export: Optional[bool] = None
     # --telemetry-interval S: the exporter's frame cadence in seconds
     telemetry_interval: float = 2.0
+    # --router: run this process as the front-door router (router/) over
+    # independent engine replicas instead of loading a model; it binds
+    # --api (or --address). With --model on a directory holding
+    # tokenizer.json the affinity keys are page-aligned token
+    # fingerprints; without one, system-prompt text fingerprints
+    router: bool = False
+    # --replicas host:port,...: the replicas the router fronts (each an
+    # `--api` process); with --router-announce an optional static seed
+    replicas: Optional[str] = None
+    # --router-announce host:port: on the router, bind the token-gated
+    # announce listener there (port 0: ephemeral); on a replica (--api),
+    # announce to it. The token is $CAKE_ANNOUNCE_TOKEN on both sides
+    router_announce: Optional[str] = None
+    # --announce-interval S: the replica's announce-frame cadence (and
+    # the router's warm-up Retry-After bound; x3 its staleness window)
+    announce_interval: float = 2.0
+    # --router-watermark N: the affinity target takes a request only
+    # under this queue + active load; over it the request spills
+    router_watermark: int = 8
+    # --router-poll S: the lite-health poll cadence a replica
+    router_poll: float = 0.25
+    # --router-policy {affinity,round_robin}
+    router_policy: str = "affinity"
+    # --router-anomaly-weighting: the router's closed loop (needs
+    # --sentinel): TTFT skew, shed storms and affinity collapse
+    # de-weight the offending replica, never ejecting it
+    router_anomaly_weighting: bool = False
 
     def validate(self) -> "Args":
         """The JAX package's `Args.validate` rules: --quant is none,
@@ -288,7 +347,11 @@ class Args:
         needs --kv-pages, a host:port --disagg-peer and
         $CAKE_DISAGG_TOKEN, and excludes --spec-draft; --disagg-timeout
         is above 0; --telemetry-interval is above 0; --mode is master or
-        worker. Returns self."""
+        worker; --router-policy is affinity or round_robin,
+        --router-watermark at least 1, --router-poll and
+        --announce-interval above 0, --router-anomaly-weighting needs
+        --sentinel, --router-announce is host:port, and --router needs
+        --replicas (a valid list) or --router-announce. Returns self."""
         if self.quant not in ("none", "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         if not self.telemetry_interval > 0:
@@ -297,6 +360,7 @@ class Args:
                 "be > 0 seconds")
         if self.mode not in ("master", "worker"):
             raise ValueError(f"unsupported mode '{self.mode}'")
+        self._validate_router()
         for knob in ("tp", "dp", "sp", "microbatches", "batch_size",
                      "max_slots", "decode_scan", "spec_gamma",
                      "spec_rounds", "trace_ring", "step_ring"):
@@ -424,6 +488,46 @@ class Args:
                 f"--disagg-timeout {self.disagg_timeout} must be > 0 "
                 "seconds")
         return self
+
+    def _validate_router(self) -> None:
+        """The router flags' checks, in JAX's words."""
+        if self.router_policy not in ("affinity", "round_robin"):
+            raise ValueError(
+                f"unsupported router_policy '{self.router_policy}' "
+                "(choose affinity or round_robin)")
+        if self.router_watermark < 1:
+            raise ValueError(
+                f"--router-watermark {self.router_watermark} must be >= 1")
+        if not self.router_poll > 0:
+            raise ValueError(
+                f"--router-poll {self.router_poll} must be > 0 seconds")
+        if self.router_anomaly_weighting and not self.sentinel:
+            raise ValueError(
+                "--router-anomaly-weighting requires --sentinel (the "
+                "router-side detectors drive the de-weighting)")
+        if not self.announce_interval > 0:
+            raise ValueError(
+                f"--announce-interval {self.announce_interval} must "
+                "be > 0 seconds")
+        if self.router_announce is not None:
+            host, sep, port = self.router_announce.rpartition(":")
+            if not sep or not host or not port.isdigit():
+                raise ValueError(
+                    f"--router-announce {self.router_announce!r} must "
+                    "be host:port (port 0 binds an ephemeral announce "
+                    "listener on the router role)")
+            if not 0 <= int(port) <= 65535:
+                raise ValueError(
+                    f"--router-announce port {port} out of range (0-65535)")
+        if self.router:
+            if not self.replicas and self.router_announce is None:
+                raise ValueError(
+                    "--router requires --replicas host:port,... (the "
+                    "engine replicas the front door routes over) or "
+                    "--router-announce host:port (fleet discovery: "
+                    "replicas self-register)")
+            if self.replicas:
+                parse_replicas(self.replicas)
 
 
 @dataclass

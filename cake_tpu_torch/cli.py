@@ -60,6 +60,20 @@ coordinator's host):
     CAKE_COORDINATOR=10.0.0.1:29500 CAKE_NUM_PROCESSES=2 CAKE_PROCESS_ID=1 \
         python -m cake_tpu_torch.cli --model DIR --topology topo.yml \
         --api 0.0.0.0:8080
+
+The front-door router (router/) is a third process role with no weights
+and no card: it spreads chats over `--api` replicas by the system
+prompt's prefix fingerprint (page-aligned through `<model>/tokenizer.json`
+when --model names a directory), polls their lite health and fails a
+keyed stream over to a survivor. Replicas are named with --replicas or
+join by announcing themselves (--router-announce on both roles, the
+token in $CAKE_ANNOUNCE_TOKEN):
+
+    python -m cake_tpu_torch.cli --model DIR --api 127.0.0.1:8001 \
+        --kv-pages 512 --auto-prefix --router-announce 127.0.0.1:9000
+    python -m cake_tpu_torch.cli --router --model DIR \
+        --api 127.0.0.1:8080 --replicas 127.0.0.1:8002 \
+        --router-announce 127.0.0.1:9000
 """
 
 from __future__ import annotations
@@ -86,26 +100,37 @@ def _serve_multihost(master, args) -> int:
         ControlClient, ControlServer, broadcast_control_address,
     )
 
-    if args.sp > 1 and args.dp > 1:
-        # dp x sp shards the slot axis over dp: decode outputs would be
-        # process-local, which the replicated-logits path cannot consume
-        raise ValueError(
-            "dp x sp serving is single-host only (dp-sharded "
-            "decode outputs are process-local); drop --dp or "
-            "serve on one host")
-    if args.draft_model is not None:
-        raise ValueError(
-            "this serving mode (--draft-model multi-host, or an "
-            "sp composition without an engine contract) has no "
-            "multi-host step replay; serve it on one host")
-    # every process builds the identical engine
-    engine = master.make_engine()
-    # the pre-fail capture must outlive the heartbeat stale window (the
-    # monitor is exactly the late-arriving consumer)
-    engine.fail_recs_ttl = args.heartbeat_timeout + 60.0
+    # an image model: Context.load_image_model split its UNet batch over
+    # a ("dp",) mesh of every process's devices; a generation follows
+    # from its args (the seed rides in them), so one op a request: the
+    # followers replay master.generate_image (_run_image_follower)
+    image_mode = master.llm is None
+    engine = None
+    if not image_mode:
+        if args.sp > 1 and args.dp > 1:
+            # dp x sp shards the slot axis over dp: decode outputs would
+            # be process-local, which the replicated logits cannot serve
+            raise ValueError(
+                "dp x sp serving is single-host only (dp-sharded "
+                "decode outputs are process-local); drop --dp or "
+                "serve on one host")
+        if args.draft_model is not None:
+            raise ValueError(
+                "this serving mode (--draft-model multi-host, or an "
+                "sp composition without an engine contract) has no "
+                "multi-host step replay; serve it on one host")
+        # every process builds the identical engine
+        engine = master.make_engine()
+        # the pre-fail capture must outlive the heartbeat stale window
+        # (the monitor is exactly the late-arriving consumer)
+        engine.fail_recs_ttl = args.heartbeat_timeout + 60.0
     # a model without a cross-process placement runs entirely inside the
-    # coordinator: the followers idle on the channel until the stop op
-    replayed = getattr(master.llm, "parallel", None) is not None
+    # coordinator: the followers idle on the channel until the stop op.
+    # An sp model (its forward, no plan) is cross-process: every step
+    # is replayed
+    replayed = (image_mode
+                or getattr(master.llm, "parallel", None) is not None
+                or getattr(master.llm, "_forward_fn", None) is not None)
     n = process_count()
     if is_coordinator():
         import secrets
@@ -125,12 +150,17 @@ def _serve_multihost(master, args) -> int:
             control = ControlServer(n - 1, token=token)
             bind_host = ""
         # follower heartbeats feed the serving health: a dead process
-        # 503s the API instead of leaving the next hop waiting
-        health = ServingHealth(engine, stall_after_s=args.stall_timeout)
-        hb_addr = health.expect_workers(
-            [f"proc{i}" for i in range(1, n)], bind_host=bind_host,
-            stale_after_s=args.heartbeat_timeout)
-        hb_adv = f"{adv}:{hb_addr.rsplit(':', 1)[1]}"
+        # 503s the API instead of leaving the next hop waiting. An image
+        # model has no engine to watch: a dead follower shows as the
+        # next generation's publish error
+        health = None
+        hb_adv = ""
+        if engine is not None:
+            health = ServingHealth(engine, stall_after_s=args.stall_timeout)
+            hb_addr = health.expect_workers(
+                [f"proc{i}" for i in range(1, n)], bind_host=bind_host,
+                stale_after_s=args.heartbeat_timeout)
+            hb_adv = f"{adv}:{hb_addr.rsplit(':', 1)[1]}"
         # fleet telemetry federation (obs/federation.py), token-gated
         # with the control secret
         collector = None
@@ -151,7 +181,9 @@ def _serve_multihost(master, args) -> int:
         broadcast_control_address(
             f"{adv}:{control.port}|{token}|{hb_adv}|{tel_adv}")
         control.accept_followers()
-        if replayed:
+        if image_mode:
+            master.attach_image_control(control)
+        elif replayed:
             engine.attach_control(control)
 
         done = threading.Event()
@@ -166,12 +198,14 @@ def _serve_multihost(master, args) -> int:
                 return
             done.set()
             try:
-                health.close()
+                if health is not None:
+                    health.close()
             except Exception:  # noqa: BLE001
                 pass
-            engine.stop()
-            if not replayed:
-                # idle followers get no stop from an engine
+            if engine is not None:
+                engine.stop()
+            if engine is None or not replayed:
+                # image and idle followers get no stop from an engine
                 try:
                     control.publish({"op": "stop"})
                 except Exception:  # noqa: BLE001
@@ -200,7 +234,7 @@ def _serve_multihost(master, args) -> int:
         try:
             start(master, address=args.api, engine=engine,
                   checkpoint_path=args.checkpoint, health=health,
-                  collector=collector)
+                  collector=collector, **_announce_kwargs(args))
         finally:
             teardown()
     else:
@@ -232,22 +266,27 @@ def _serve_multihost(master, args) -> int:
 
             exporter = TelemetryExporter(
                 tel_addr, host=proc_name, token=token or None,
-                interval_s=tel_interval, events=engine.events,
-                flight=engine.flight,
-                applied_seq=lambda: engine.applied_op_seq,
+                interval_s=tel_interval,
+                events=engine.events if engine is not None else None,
+                flight=engine.flight if engine is not None else None,
+                applied_seq=((lambda: engine.applied_op_seq)
+                             if engine is not None else None),
                 health_snapshot=_health_snapshot)
         try:
-            # the liveness window covers the sender's worst quiet gap (a
-            # monitor blip parks it in a capped backoff, which is no
-            # evidence that the coordinator died)
-            hb_window = max(args.heartbeat_timeout,
-                            beat.worst_case_gap_s if beat is not None
-                            else 5.0)
-            engine.run_follower_loop(
-                client,
-                op_timeout_s=hb_window if beat is not None else None,
-                liveness=((lambda: beat.alive_within(hb_window))
-                          if beat is not None else None))
+            if image_mode:
+                _run_image_follower(master, client)
+            else:
+                # the liveness window covers the sender's worst quiet gap
+                # (a monitor blip parks it in a capped backoff, which is
+                # no evidence that the coordinator died)
+                hb_window = max(args.heartbeat_timeout,
+                                beat.worst_case_gap_s if beat is not None
+                                else 5.0)
+                engine.run_follower_loop(
+                    client,
+                    op_timeout_s=hb_window if beat is not None else None,
+                    liveness=((lambda: beat.alive_within(hb_window))
+                              if beat is not None else None))
         finally:
             _hop_report(engine)
             if exporter is not None:
@@ -264,6 +303,35 @@ def _serve_multihost(master, args) -> int:
     return 0
 
 
+def _run_image_follower(master, client) -> None:
+    """An image model's follower: replay each generation op. A
+    generation follows from its args (the seed rides in them), so
+    master.generate_image with the coordinator's args runs the same
+    steps and meets the same hops. A failed replay disconnects: the
+    coordinator's next publish then fails instead of a hop waiting
+    forever."""
+    from cake_tpu_torch.args import ImageGenerationArgs
+
+    log = logging.getLogger(__name__)
+    log.info("image follower: replaying generation ops")
+    while True:
+        op = client.recv()
+        if op is None or op.get("op") == "stop":
+            log.info("image follower: coordinator %s",
+                     "stopped" if op else "closed the channel")
+            return
+        if op.get("op") != "image":
+            log.error("image follower: unknown op %r", op.get("op"))
+            continue
+        try:
+            master.generate_image(ImageGenerationArgs.from_json(op["args"]),
+                                  lambda _pngs: None)
+        except Exception:  # noqa: BLE001
+            log.exception("image follower: generation replay failed; "
+                          "disconnecting")
+            return
+
+
 def _hop_report(engine) -> None:
     """One log line of this process's cross-process cost at teardown:
     the hops replayed between graphs and their host seconds, the graphs
@@ -274,7 +342,7 @@ def _hop_report(engine) -> None:
     from cake_tpu_torch.parallel.distributed import hops
     from cake_tpu_torch.serve.graphs import COUNTERS
     h = hops()
-    runner = engine._runner
+    runner = engine._runner if engine is not None else None
     segs = ({str(v): len(g[0]) for v, g in runner._graphs.items()}
             if runner is not None else {})
     launches = {k: n for c in COUNTERS for k, n in c.items() if n}
@@ -307,6 +375,64 @@ def _advertised_host(args) -> str:
     return socket.gethostname()
 
 
+def _announce_kwargs(args) -> dict:
+    """start()'s announce arguments under --router-announce (a replica
+    registering itself with a router), else none."""
+    if not args.router_announce:
+        return {}
+    return dict(announce=args.router_announce,
+                announce_interval_s=args.announce_interval,
+                announce_token=os.environ.get("CAKE_ANNOUNCE_TOKEN"))
+
+
+def _serve_router(args) -> int:
+    """The router process role: no weights and no card, a thin HTTP
+    front door (router/) over --replicas and the replicas that announce
+    themselves. With a --model directory holding tokenizer.json the
+    affinity keys are page-aligned token fingerprints; otherwise
+    system-prompt text fingerprints (RouterServer warns once)."""
+    from cake_tpu_torch.args import parse_replicas
+    from cake_tpu_torch.router import start_router
+
+    log = logging.getLogger(__name__)
+    replicas = parse_replicas(args.replicas) if args.replicas else []
+    tokenizer = None
+    if args.model:
+        try:
+            from cake_tpu_torch.models.llama.generator import load_tokenizer
+            tokenizer = load_tokenizer(args.model)
+        except Exception as e:  # noqa: BLE001 — degraded, not fatal
+            log.warning("router: could not load tokenizer from %s "
+                        "(%s); affinity falls back to text "
+                        "fingerprints", args.model, e)
+    address = args.api or args.address
+    log.info("router: fronting %d replica(s) on %s", len(replicas),
+             address)
+    start_router(replicas, address=address, tokenizer=tokenizer,
+                 poll_interval_s=args.router_poll,
+                 load_watermark=args.router_watermark,
+                 policy_mode=args.router_policy,
+                 trace_ring=args.trace_ring,
+                 trace_events=args.trace_events,
+                 event_ring=args.event_ring,
+                 event_log=args.event_log,
+                 sentinel=args.sentinel,
+                 sentinel_interval_s=args.sentinel_interval,
+                 anomaly_weighting=args.router_anomaly_weighting,
+                 announce=args.router_announce,
+                 announce_interval_s=args.announce_interval,
+                 announce_token=os.environ.get("CAKE_ANNOUNCE_TOKEN"))
+    return 0
+
+
+def router_main(argv=None) -> int:
+    """The router's entry: main with --router implied."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--router" not in argv:
+        argv = ["--router"] + argv
+    return main(argv)
+
+
 def main(argv=None) -> int:
     from cake_tpu_torch.args import ModelType, parse_all_args
     from cake_tpu_torch.master import Master
@@ -316,6 +442,22 @@ def main(argv=None) -> int:
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s")
     args, sd_args, img_args = parse_all_args(argv)
     warn = logging.getLogger(__name__).warning
+    if args.router:
+        # before any context, process group or card: the router loads
+        # no weights and joins no mesh
+        return _serve_router(args)
+    if args.replicas:
+        warn("--replicas has no effect without --router: the replica "
+             "list names the backends of the front-door router "
+             "(router/)")
+    if args.router_announce and not args.api:
+        warn("--router-announce has no effect without --api (or "
+             "--router): a replica announces its serving address to "
+             "the front door (router/discovery.py)")
+    if args.router_anomaly_weighting:
+        warn("--router-anomaly-weighting has no effect without "
+             "--router: the placement de-weighting actuator runs in "
+             "the front-door process (router/)")
     if args.disagg and not args.api:
         # the prefill/decode split is a pair of SERVING engines wired by
         # the transfer channel; a one-shot generation has neither: warn
@@ -360,6 +502,7 @@ def main(argv=None) -> int:
                  "report only this host")
         kw = ({"checkpoint_path": args.checkpoint} if args.checkpoint
               else {})
+        kw.update(_announce_kwargs(args))
         start(master, address=args.api, **kw)
         return 0
     if args.telemetry_export:

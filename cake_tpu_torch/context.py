@@ -29,8 +29,10 @@ With several processes (parallel/distributed.initialize, the CAKE_*
 variables) the plan's mesh spans them (`ParallelPlan.build_mesh`): each
 process allocates, streams and quantizes only the positions it owns,
 and the pipelined forward hops between processes (parallel/hop.py).
-Multi-process image serving and multi-process `--sp` are refused before
-any weight loads (ROADMAP A13(3)).
+Multi-process `--sp` lays JAX's sp mesh over every process's devices
+(`make_multihost_sp_mesh`; the mesh must span them all), and a
+multi-process image model splits its UNet batch over a ("dp",) mesh of
+every process's devices.
 """
 
 from __future__ import annotations
@@ -310,15 +312,13 @@ class Context:
             raise ValueError(
                 f"stages {plan.stages} x --dp {plan.dp} x --sp {a.sp} x "
                 f"--tp {plan.tp} needs {need} devices, have {have}")
-        # JAX checks here that a multi-host mesh spans every process's
-        # devices; the port refuses multi-process --sp outright (its
-        # ring's hops across processes are ROADMAP A13(3))
         from cake_tpu_torch.parallel.distributed import process_count
-        if process_count() > 1:
+        if process_count() > 1 and have is not None and need != have:
+            # a mesh over a subset of the devices could leave a process
+            # with no position: every process must take part
             raise ValueError(
-                "multi-process --sp is not supported yet: the ring's hops "
-                "run inside one process (ROADMAP A13(3)); serve --sp on "
-                "one process")
+                f"multi-host --sp meshes must span every device: "
+                f"sp x tp (x dp/stages) = {need} != {have} global devices")
         if plan.tp > 1 and cfg.num_key_value_heads % plan.tp != 0:
             raise ValueError(
                 f"--tp {plan.tp} must divide kv heads "
@@ -347,14 +347,29 @@ class Context:
         from cake_tpu_torch.parallel.mesh import make_sp_mesh
         from cake_tpu_torch.parallel.sp_pipeline import place_sp_stage_params
 
+        from cake_tpu_torch.parallel.distributed import (
+            global_devices, make_multihost_sp_mesh, process_count,
+        )
+
         a = self.args
         stages = plan.stages
-        mesh = make_sp_mesh(a.sp, dp=plan.dp, stage=stages, tp=plan.tp,
-                            devices=self.mesh_devices,
-                            device_type=self.device.type)
-        if mesh.devices.flat[0] != self.device:
+        n = process_count()
+        if n > 1:
+            # JAX's global device list, process-major, reshaped into the
+            # sp mesh: each process holds its share of the positions
+            need = stages * plan.dp * a.sp * plan.tp
+            local_devs = self.mesh_devices or [self.device] * -(-need // n)
+            mesh = make_multihost_sp_mesh(
+                a.sp, dp=plan.dp, stage=stages, tp=plan.tp,
+                devices=global_devices(
+                    [torch.device(d) for d in local_devs], n))
+        else:
+            mesh = make_sp_mesh(a.sp, dp=plan.dp, stage=stages, tp=plan.tp,
+                                devices=self.mesh_devices,
+                                device_type=self.device.type)
+        if mesh.home != self.device:
             raise ValueError(
-                f"the mesh's first device {mesh.devices.flat[0]} is not "
+                f"the mesh's first device {mesh.home} is not "
                 f"the context's {self.device}")
         if stages > 1:
             if params is None:      # the streamed stage-local load
@@ -434,24 +449,42 @@ class Context:
     def load_image_model(self):
         """The Stable Diffusion generator of the SDArgs (models/sd/sd.py)
         on the context's device, its components placed by the topology,
-        or with --dp its UNet batch over a ("dp",) mesh."""
+        or with --dp its UNet batch over a ("dp",) mesh. With several
+        processes the ("dp",) mesh spans every process's devices (each
+        runs its rows; cli._serve_multihost replays each generation on
+        the followers), as JAX's; a --dp other than the total is
+        refused, and so is a component topology."""
         from cake_tpu_torch.models.sd.sd import SDGenerator
         from cake_tpu_torch.parallel.distributed import process_count
         from cake_tpu_torch.parallel.mesh import make_mesh
-        if process_count() > 1:
-            raise ValueError(
-                "multi-process image serving is not supported yet: the "
-                "image model's mesh over every process and the follower's "
-                "generation replay are ROADMAP A13(3); serve --model-type "
-                "image on one process")
-        gen = SDGenerator.load(self)
         a = self.args
+        multi = process_count() > 1
+        if (a.dp > 1 or multi) and self.topology is not None:
+            why = ("--dp" if a.dp > 1
+                   else "multi-host image serving (which meshes the "
+                        "whole pipeline)")
+            raise ValueError(
+                f"{why} and an SD component topology are mutually "
+                "exclusive: one SPMD program cannot mix mesh-sharded "
+                "and committed-to-device components")
+        total = self._device_count()
+        if multi and total is not None and a.dp > 1 and a.dp != total:
+            raise ValueError(
+                f"multi-host image serving meshes over ALL {total} "
+                f"devices; --dp {a.dp} cannot be honored (drop the flag "
+                "or set it to the total device count)")
+        gen = SDGenerator.load(self)
+        if multi:
+            from cake_tpu_torch.parallel.distributed import (
+                global_devices, make_multihost_mesh,
+            )
+            n = process_count()
+            local_devs = self.mesh_devices or [self.device]
+            devs = global_devices([torch.device(d) for d in local_devs], n)
+            gen.shard_for_mesh(make_multihost_mesh(dp=len(devs),
+                                                   devices=devs))
+            return gen
         if a.dp > 1:
-            if self.topology is not None:
-                raise ValueError(
-                    "--dp and an SD component topology are mutually "
-                    "exclusive: one SPMD program cannot mix mesh-sharded "
-                    "and committed-to-device components")
             n = self._device_count()
             if n is not None and a.dp > n:
                 raise ValueError(

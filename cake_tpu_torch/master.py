@@ -3,8 +3,9 @@ engine.
 
 Counterpart of `cake_tpu/master.py` (`from_args`, `make_engine`,
 `generate_text`, `generate_image`, `run`, `reset`, `add_message`,
-`_spec_kwargs`, `telemetry_settings`); the multi-process image control
-is not ported (ROADMAP A13(3)). `generate_text` streams each token
+`_spec_kwargs`, `telemetry_settings`, `attach_image_control`: under
+multi-process image serving each generation's args are published for
+the followers to replay). `generate_text` streams each token
 through a callback and times the tokens after the first, so the
 prefill does not skew tokens/s; `make_engine` builds the continuous-batching engine over the
 generator's config, params and tokenizer for the REST server: the paged
@@ -284,11 +285,27 @@ class Master:
 
     # -- image ---------------------------------------------------------------
 
+    def attach_image_control(self, control) -> None:
+        """Multi-process image serving: publish each generation's args
+        before running it, so every follower replays the same generation
+        and its hops meet (cli._run_image_follower)."""
+        self._image_control = control
+
     def generate_image(self, image_args, callback) -> None:
         """Generate images per ImageGenerationArgs, handing each batch of
-        PNG bytes to `callback`."""
+        PNG bytes to `callback`. Under multi-process serving the args are
+        published first; img2img is refused there, as in JAX (the init
+        image exists on the coordinator only)."""
         if self.image is None:
             raise RuntimeError("no image generator loaded")
+        control = getattr(self, "_image_control", None)
+        if control is not None:
+            if image_args.sd_img2img:
+                raise ValueError(
+                    "img2img is unavailable under multi-host serving: "
+                    "the init image exists on the coordinator only; "
+                    "serve img2img on one host")
+            control.publish({"op": "image", "args": image_args.to_json()})
         self.image.generate_image(image_args, callback)
 
     # -- text ----------------------------------------------------------------

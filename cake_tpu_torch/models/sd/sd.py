@@ -31,8 +31,16 @@ every component on the mesh's devices and splits the UNet's batch (the
 guidance pair, several samples) over the dp positions, each running its
 rows, inside the one captured step. The noise is drawn on the
 generator's device either way, so a placed or meshed generator gives
-the single-device image. Multi-process image serving (the image
-follower) is not ported (ROADMAP A13(3)): Context refuses it.
+the single-device image.
+
+Over a ("dp",) mesh that spans processes (multi-process image serving,
+Context.load_image_model) each process holds the UNet on its own
+positions and runs only their rows; the rows reach every rank by hop
+(parallel/hop.py: each block from its owner to every other process, in
+row order), so every process runs the guidance mix, the scheduler
+update and the VAE decode itself, as every JAX process does, and the
+captured step is a chain of graphs cut at the hops. The noise is drawn
+from `sd_seed` alike on every process.
 """
 
 from __future__ import annotations
@@ -103,10 +111,15 @@ class ClipTokenizer:
         return ids + [eos] * (max_len - len(ids))
 
 
-def _unet_dp(replicas, ucfg, inp, ts, context, added):
+def _unet_dp(replicas, ucfg, inp, ts, context, added, across=None):
     """The UNet's batch split over the dp positions' replicas (device,
     params): each runs its contiguous rows on its device, the outputs
-    gathered back in row order on the first row's device."""
+    gathered back in row order on the first row's device.
+
+    across: (hops, owners) where the positions span processes: a
+    replica of another process is (device, None); this process runs its
+    own rows, and each block of rows reaches every rank from its owner
+    (`Hops.bcast`, blocks in row order)."""
     n = len(replicas)
     parts = []
     for r, rows in enumerate(torch.arange(inp.shape[0]).tensor_split(n)):
@@ -114,25 +127,34 @@ def _unet_dp(replicas, ucfg, inp, ts, context, added):
             continue
         dev, params = replicas[r]
         a, b = int(rows[0]), int(rows[-1]) + 1
-        add = (None if added is None else
-               {k: v[a:b].to(dev) for k, v in added.items()})
-        parts.append(unet_forward(params, ucfg, inp[a:b].to(dev),
-                                  ts[a:b].to(dev), context[a:b].to(dev),
-                                  added_cond=add).to(inp.device))
+        out = None
+        if params is not None:
+            add = (None if added is None else
+                   {k: v[a:b].to(dev) for k, v in added.items()})
+            out = unet_forward(params, ucfg, inp[a:b].to(dev),
+                               ts[a:b].to(dev), context[a:b].to(dev),
+                               added_cond=add).to(inp.device)
+        if across is not None:
+            hops, owners = across
+            out = hops.bcast(out, owners[r], (b - a, *inp.shape[1:]),
+                             inp.dtype, inp.device)
+        parts.append(out)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def unet_step(unet_params, ucfg, latents, t, context, added,
-              guidance_scale, use_guidance: bool, replicas=None):
+              guidance_scale, use_guidance: bool, replicas=None,
+              across=None):
     """JAX's `_make_unet_step` body: the UNet on the (doubled, with
     guidance) batch at timestep t (a 0-d or [1] tensor), then the
     guidance mix, its product in f32 for a float scale and for an f32
     [1] tensor alike. Returns eps like latents. replicas: the dp mesh's
-    (device, params), the batch split over them (`_unet_dp`)."""
+    (device, params), the batch split over them (`_unet_dp`; across: its
+    processes' hops)."""
     inp = torch.cat([latents, latents], dim=0) if use_guidance else latents
     ts = t.float().reshape(1).expand(inp.shape[0])
     if replicas is not None:
-        eps = _unet_dp(replicas, ucfg, inp, ts, context, added)
+        eps = _unet_dp(replicas, ucfg, inp, ts, context, added, across)
     else:
         eps = unet_forward(unet_params, ucfg, inp, ts, context,
                            added_cond=added)
@@ -153,10 +175,10 @@ class UNetStepRunner(_Graphs):
     convolution algorithms before the capture."""
 
     def __init__(self, params, ucfg, device, pool=None, on_capture=None,
-                 replicas=None):
+                 replicas=None, across=None):
         super().__init__(device, pool=pool, on_capture=on_capture)
         self.params, self.ucfg = params, ucfg
-        self.replicas = replicas
+        self.replicas, self.across = replicas, across
         self._bufs: dict = {}
 
     def _idle(self, variant):
@@ -167,7 +189,8 @@ class UNetStepRunner(_Graphs):
         b["eps"].copy_(unet_step(self.params, self.ucfg, b["latents"],
                                  b["t"], b["context"], b["added"],
                                  b["g"], variant[0],
-                                 replicas=self.replicas))
+                                 replicas=self.replicas,
+                                 across=self.across))
 
     @torch.inference_mode()
     def run(self, latents, t: float, context, added, guidance_scale: float,
@@ -219,6 +242,7 @@ class SDGenerator:
         self._mesh = None
         self._placed = False
         self._replicas = None
+        self._across = None
         # the capture counter (cake_jit_compiles_total{fn=...})
         self.flight = StepTelemetry(impl="sd", capacity=1)
         self._new_unet_runner()
@@ -231,7 +255,8 @@ class SDGenerator:
                       if dev.type == "cuda" else None)
         self.unet_runner = UNetStepRunner(
             self.params["unet"], self.config.unet, dev, pool=self._pool,
-            on_capture=self._count_capture, replicas=self._replicas)
+            on_capture=self._count_capture, replicas=self._replicas,
+            across=self._across)
 
     def _count_capture(self, variant, seconds: float) -> None:
         log.info("sd: captured the UNet step %s in %.2f s", variant, seconds)
@@ -272,19 +297,28 @@ class SDGenerator:
         tp 1): the UNet is replicated once on each distinct device and
         each position runs its contiguous rows of the (guidance-doubled,
         multi-sample) batch, inside the one captured step. Mutually
-        exclusive with per-component placement."""
+        exclusive with per-component placement.
+
+        A mesh across processes (`Mesh.ranks`): the UNet is held on this
+        process's positions only, and the rows of the others arrive by
+        hop (`_unet_dp`)."""
         if self._placed:
             raise ValueError(
                 "--dp and an SD component topology are mutually "
                 "exclusive: the mesh replicates every component")
         devices = list(mesh.devices.flat)
+        owned = [mesh.owns(pos) for pos in np.ndindex(*mesh.devices.shape)]
         copies: dict = {}
-        for dev in devices:
-            if dev not in copies:
+        for dev, mine in zip(devices, owned):
+            if mine and dev not in copies:
                 copies[dev] = (self.params["unet"] if dev == self.device
                                else _tree_to(self.params["unet"], dev))
         self._mesh = mesh
-        self._replicas = [(dev, copies[dev]) for dev in devices]
+        self._replicas = [(dev, copies[dev] if mine else None)
+                          for dev, mine in zip(devices, owned)]
+        if mesh.multiprocess:
+            from cake_tpu_torch.parallel.distributed import hops
+            self._across = (hops(), [int(r) for r in mesh.ranks.flat])
         self._new_unet_runner()
         log.info("sd: the UNet batch over dp=%d positions", len(devices))
 

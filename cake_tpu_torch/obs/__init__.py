@@ -29,8 +29,8 @@
     `GET /api/v1/fleet`, `?host=` events, host-labelled `/metrics`
     families and cross-host timelines.
 
-Not ported yet: the router's halves of the sentinel, the actions and
-the timeline (ROADMAP A15).
+The router's halves (`attach_router_sentinel`, `RouterAnomalyActuator`,
+`merge_router_timeline`) sit in the same modules.
 """
 
 from cake_tpu_torch.obs.events import EVENT_TYPES, Event, EventBus  # noqa: F401

@@ -1,8 +1,9 @@
 """Closed-loop anomaly actions: typed, rate-bounded actuation with a
 full audit trail, plus black-box postmortem bundles.
 
-Counterpart of `cake_tpu/obs/actions.py`, its engine side (the router's
-actuator waits for the router, ROADMAP A15). The sentinel
+Counterpart of `cake_tpu/obs/actions.py`: the engine's actuator, the
+router's (`RouterAnomalyActuator`, --router-anomaly-weighting) and the
+postmortem sink for either role. The sentinel
 (obs/sentinel.py) detects recompile storms, step-time regressions and
 attainment collapse; this module closes the loop:
 
@@ -263,6 +264,151 @@ def _journal_tail(path: Optional[str], n: int = 200) -> Optional[list]:
     return out
 
 
+# the router-tier detector kinds the actuator acts on
+ROUTER_ACTION_KINDS = ("replica_ttft_skew", "affinity_collapse",
+                       "router_shed_storm")
+
+
+class RouterAnomalyActuator:
+    """Router-side closed loop: sentinel transitions -> placement
+    de-weighting (--router-anomaly-weighting).
+
+    On fire, the offending replica's RoutingPolicy weight drops to
+    `factor` (its effective load is divided by the weight, so affinity
+    targets spill away and least-loaded stops picking it) — it stays
+    ELIGIBLE, never ejected, so a stale window can at worst misplace
+    load, not strand it. On clear, the weight is restored and the
+    replica enters a `cooldown_s` window during which it cannot be
+    de-weighted again (anti-flap, on top of the detectors' own
+    fire/clear hysteresis)."""
+
+    def __init__(self, router, plane: ActionPlane, *,
+                 factor: float = 0.25, cooldown_s: float = 30.0,
+                 window_s: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic):
+        if not 0.0 < factor < 1.0:
+            raise ValueError(f"factor {factor} must be in (0, 1)")
+        self._router = router
+        self._plane = plane
+        self.factor = float(factor)
+        self.cooldown_s = float(cooldown_s)
+        self.window_s = float(window_s)
+        self._clock = clock
+        self._mu = threading.Lock()
+        self._deweighted: Dict[str, str] = {}      # kind -> replica
+        self._cooldown_until: Dict[str, float] = {}  # replica -> t
+
+    def attach(self, sentinel) -> "RouterAnomalyActuator":
+        sentinel.add_listener(self.on_transition)
+        return self
+
+    def _offender(self, kind: str) -> Optional[str]:
+        """The replica this anomaly indicts. TTFT skew: the slowest
+        median in the hop tracer's window. Shed storm / affinity
+        collapse carry no replica in their cause — blame the most
+        loaded admitting replica. None when the fleet has fewer than
+        two admitting replicas: de-weighting the only destination just
+        misroutes the accounting."""
+        if kind == "replica_ttft_skew":
+            hops = self._router.hops
+            if hops is None:
+                return None
+            meds: Dict[str, float] = {}
+            for name, ttfts in hops.ttft_by_replica(
+                    self.window_s).items():
+                if ttfts:
+                    xs = sorted(ttfts)
+                    meds[name] = xs[len(xs) // 2]
+            if len(meds) < 2:
+                return None
+            return max(sorted(meds), key=lambda n: meds[n])
+        states = self._router.tracker.admitting()
+        if len(states) < 2:
+            return None
+        return max(states, key=lambda s: (s.load, s.name)).name
+
+    def on_transition(self, kind: str, state: str, cause: Dict) -> None:
+        if kind not in ROUTER_ACTION_KINDS:
+            return
+        policy = self._router.policy
+        now = self._clock()
+        if state == "fired":
+            name = self._offender(kind)
+            if name is None:
+                self._plane.record(kind, "deweight", "noop",
+                                   reason="no offender "
+                                          "(need >= 2 admitting replicas)",
+                                   **_scalar_cause(cause))
+                return
+            with self._mu:
+                cooling = now < self._cooldown_until.get(
+                    name, float("-inf"))
+            if cooling:
+                self._plane.record(kind, "deweight", "skipped",
+                                   replica=name, reason="cooldown",
+                                   **_scalar_cause(cause))
+                return
+            if not self._plane.allow(now):
+                self._plane.record(kind, "deweight", "rate_limited",
+                                   replica=name, **_scalar_cause(cause))
+                return
+            policy.set_weight(name, self.factor)
+            with self._mu:
+                self._deweighted[kind] = name
+            self._plane.record(kind, "deweight", "applied",
+                               replica=name, weight=self.factor,
+                               **_scalar_cause(cause))
+            return
+        # cleared: restore the weight unless another active anomaly
+        # still holds this replica down
+        with self._mu:
+            name = self._deweighted.pop(kind, None)
+            held = name is not None and name in self._deweighted.values()
+        if name is None:
+            return
+        if held:
+            self._plane.record(kind, "reweight", "noop", replica=name,
+                               reason="held by another anomaly")
+            return
+        policy.set_weight(name, 1.0)
+        with self._mu:
+            self._cooldown_until[name] = now + self.cooldown_s
+        self._plane.record(kind, "reweight", "applied", replica=name,
+                           weight=1.0, cooldown_s=self.cooldown_s)
+
+
+def _best_effort(fn: Callable, what: str):
+    """Collector wrapper for the postmortem path: a broken telemetry
+    read costs one log line, never the bundle."""
+    try:
+        return fn()
+    except Exception:  # noqa: BLE001 — forensics never raise
+        log.debug("postmortem: %s collector failed", what,
+                  exc_info=True)
+        return None
+
+
+def _journal_tail(path: Optional[str], n: int = 200) -> Optional[list]:
+    if not path:
+        return None
+    try:
+        with open(path, "rb") as f:
+            # bounded read from the end: journals can be huge
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            f.seek(max(0, size - 256 * 1024))
+            lines = f.read().decode("utf-8", "replace").splitlines()
+    except OSError:
+        return None
+    out = []
+    for ln in lines[-n:]:
+        try:
+            out.append(json.loads(ln))
+        except ValueError:
+            out.append({"raw": ln})
+    return out
+
+
 class PostmortemSink:
     """Black-box bundle writer (--postmortem-dir): one JSON file per
     terminal incident, holding every in-memory ring that explains WHY.
@@ -285,7 +431,7 @@ class PostmortemSink:
             log.warning("postmortem: cannot create %s", dir_path,
                         exc_info=True)
 
-    def dump(self, trigger: str, *, engine=None,
+    def dump(self, trigger: str, *, engine=None, router=None,
              reason: Optional[str] = None,
              force: bool = False) -> Optional[str]:
         """Write one bundle; returns its path, or None (interval-bound
@@ -302,7 +448,7 @@ class PostmortemSink:
             seq = self._seq
         try:
             bundle = self._collect(trigger, engine=engine,
-                                   reason=reason)
+                                   router=router, reason=reason)
             name = (f"postmortem-{int(bundle['wall_time'] * 1000)}"
                     f"-{seq:03d}-{trigger}.json")
             path = os.path.join(self.dir, name)
@@ -320,13 +466,13 @@ class PostmortemSink:
                         exc_info=True)
             return None
 
-    def _collect(self, trigger: str, *, engine=None,
+    def _collect(self, trigger: str, *, engine=None, router=None,
                  reason: Optional[str]) -> Dict:
         bundle: Dict = {"version": 1, "trigger": trigger,
                         "wall_time": round(self._wall(), 6)}
         if reason is not None:
             bundle["reason"] = str(reason)
-        src = engine
+        src = engine if engine is not None else router
         if src is None:
             return bundle
         flight = getattr(src, "flight", None)
@@ -341,11 +487,16 @@ class PostmortemSink:
         if tracer is not None:
             bundle["traces"] = _best_effort(
                 lambda: tracer.dump(limit=64), "tracer")
+        hops = getattr(src, "hops", None)
+        if hops is not None:
+            bundle["hops"] = _best_effort(
+                lambda: hops.dump(limit=64), "hops")
         sentinel = getattr(src, "sentinel", None)
         if sentinel is not None:
             bundle["anomalies"] = _best_effort(
                 lambda: sentinel.state(limit=64), "sentinel")
-        actions = getattr(src, "_actions", None)
+        actions = (getattr(src, "_actions", None)
+                   or getattr(src, "actions", None))
         if actions is not None:
             bundle["actions"] = _best_effort(
                 lambda: actions.history(limit=128), "actions")

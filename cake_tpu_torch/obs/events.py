@@ -20,7 +20,8 @@ graph capture, through paged speculative decoding ``spec_round`` and
 sentinel ``anomaly``, through its action plane ``anomaly_action``, and
 through disaggregated prefill/decode (kv/transfer.py and the engine's
 seams) ``kv_shipped``, ``kv_adopted`` and ``kv_ship_degraded``; the
-rest belong to the router, not ported yet.
+router (router/) publishes the rest on its own ring. Events published
+with a rid carry the request's x-cake-trace (``trace_of``).
 
 Cost discipline: publishers hold ``events = None`` when the bus is
 disabled (``--event-ring 0``) and every call site guards ``if <bus> is
@@ -133,6 +134,12 @@ class EventBus:
         self._next_seq = 1
         self._log = JsonlAppender(log_path) if log_path else None
         self._observe = observe_metrics
+        # an optional rid -> trace-id resolver (RequestTracer.trace_for):
+        # behind a front-door router, events published with a rid carry
+        # the originating x-cake-trace, so the router's federated
+        # timeline selects them without knowing the replica's rids
+        self.trace_of = None
+
     def publish(self, type: str, rid: Optional[int] = None,
                 **fields) -> Event:
         """Append one event. Unknown types raise ValueError — a typo'd
@@ -146,6 +153,11 @@ class EventBus:
                    rid=int(rid) if rid is not None else None,
                    fields={k: v for k, v in fields.items()
                            if v is not None})
+        if (rid is not None and self.trace_of is not None
+                and "trace" not in ev.fields):
+            t = self.trace_of(int(rid))
+            if t:
+                ev.fields["trace"] = t
         with self._lock:
             ev.seq = self._next_seq
             self._next_seq += 1

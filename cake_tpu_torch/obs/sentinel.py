@@ -1,8 +1,9 @@
 """Online performance-regression sentinel: rolling-window anomaly
 detectors over the LIVE signal stream.
 
-Counterpart of `cake_tpu/obs/sentinel.py`, its engine side (the router's
-detector set waits for the router, ROADMAP A15). The live telemetry the
+Counterpart of `cake_tpu/obs/sentinel.py`: the engine's detector set
+(`attach_engine_sentinel`) and the router's (`attach_router_sentinel`,
+over the hop tracer and the router's event ring). The live telemetry the
 engine already keeps — step records (obs/steps.py), SLO attainment
 (obs/slo.py), the event bus (obs/events.py) — is rich enough to detect
 these failure classes online: recompile storms (in the port, bursts of
@@ -580,3 +581,64 @@ def attach_engine_sentinel(engine, *, interval_s: float = 2.0,
                 _attainment_source(cls))
     return sen
 
+
+def attach_router_sentinel(router, *, interval_s: float = 2.0,
+                           window_s: float = 30.0,
+                           ttft_skew_ratio: float = 4.0,
+                           hit_collapse_ratio: float = 0.5,
+                           shed_threshold: float = 4.0,
+                           min_samples: int = 4,
+                           fire_after: int = 2,
+                           clear_after: int = 3) -> Optional[Sentinel]:
+    """The router-side standard detector set, fed from the hop
+    tracer's rolling samples and the router event ring:
+
+      * ``replica_ttft_skew`` — slowest replica's median first-byte
+        latency over the fastest's (> ttft_skew_ratio fires): one
+        degraded replica in an otherwise healthy fleet;
+      * ``affinity_collapse`` — fleet affinity hit fraction vs its
+        self-calibrated baseline (< hit_collapse_ratio x baseline
+        fires): ring churn / a hot tenant overwhelming its home;
+      * ``router_shed_storm`` — shed_by_router events per tick window.
+
+    None when the hop tracer is disabled (trace_ring=0) — every
+    detector here reads it."""
+    if router.hops is None:
+        log.warning("router sentinel disabled: the hop tracer is off "
+                    "(trace_ring=0) and every router detector reads "
+                    "its samples")
+        return None
+    hops = router.hops
+    sen = Sentinel(interval_s=interval_s, events=router.events)
+
+    def ttft_skew() -> Optional[float]:
+        by_rep = hops.ttft_by_replica(window_s)
+        meds = []
+        for ttfts in by_rep.values():
+            if len(ttfts) >= min_samples:
+                xs = sorted(ttfts)
+                meds.append(xs[len(xs) // 2])
+        if len(meds) < 2 or min(meds) <= 0:
+            return None
+        return max(meds) / min(meds)
+
+    def hit_fraction() -> Optional[float]:
+        counts = hops.outcome_counts(window_s)
+        denom = counts.get("hit", 0) + counts.get("spill", 0)
+        if denom < min_samples:
+            return None
+        return counts.get("hit", 0) / denom
+
+    sen.add(ThresholdDetector("replica_ttft_skew", ttft_skew_ratio,
+                              fire_after=fire_after,
+                              clear_after=clear_after), ttft_skew)
+    sen.add(BaselineDetector("affinity_collapse",
+                             ratio=hit_collapse_ratio, mode="below",
+                             fire_after=fire_after,
+                             clear_after=clear_after), hit_fraction)
+    if router.events is not None:
+        sen.add(ThresholdDetector("router_shed_storm", shed_threshold,
+                                  fire_after=fire_after,
+                                  clear_after=clear_after),
+                _event_count_source(router.events, "shed_by_router"))
+    return sen

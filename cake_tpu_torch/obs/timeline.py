@@ -1,7 +1,7 @@
 """Per-request explain: one merged, time-ordered request timeline.
 
-Counterpart of `cake_tpu/obs/timeline.py` (`build_timeline`; the
-router's merge waits for the router, ROADMAP A15).
+Counterpart of `cake_tpu/obs/timeline.py`: `build_timeline` and the
+router's federated merge, `merge_router_timeline`.
 ``GET /api/v1/requests/{rid}/timeline`` answers "why was this request's
 TTFT 400ms?" from one call, by stitching the three telemetry streams the
 engine already keeps into a single chronology:
@@ -128,3 +128,85 @@ def build_timeline(trace: Dict, events: List[Dict],
         "timeline": entries,
     }
 
+
+def merge_router_timeline(hop: Dict, router_events: List[Dict],
+                          replicas: List[tuple]) -> Dict:
+    """Merge one request's ROUTER-tier view — the front door's hop
+    record (router/tracing.HopTracer dump entry: admit, pick + affinity
+    verdict, connect, first byte, failover resume, retire) and its
+    router event-ring events (selected by trace id) — with the owning
+    replica(s)' merged timelines into ONE wall-clock-ordered chronology.
+
+    `replicas` is [(name, clock_offset_s, rid, timeline_doc_or_None)]:
+    one entry per replica that admitted this trace (BOTH replicas after
+    a drain/kill failover). Each replica entry's timestamps are
+    corrected by that replica's clock offset (the federation
+    rule: offset = min over health polls of receive-wall minus the
+    replica's reported wall — skew plus the smallest observed transit)
+    and tagged with its replica name. A replica whose timeline fetch
+    failed (e.g. the killed home of a failover) contributes no spans
+    but is still NAMED, with unreachable=true — the router hops cover
+    its attempt either way.
+
+    Pure function over dumps, like build_timeline: tests drive it on
+    synthetic records; RouterServer.request_timeline only gathers the
+    inputs."""
+    entries: List[Dict] = []
+    for sp in hop.get("spans", ()):
+        e = {"t": sp.get("t"), "source": "router",
+             "event": sp.get("name")}
+        e.update({k: v for k, v in sp.items()
+                  if k not in ("t", "name")})
+        entries.append(e)
+    for ev in router_events:
+        e = {"t": ev.get("ts"), "source": "router-events",
+             "event": ev.get("type")}
+        e.update({k: v for k, v in ev.items()
+                  if k not in ("ts", "type", "rid", "seq")})
+        entries.append(e)
+
+    causes: Dict[str, int] = {}
+    replica_rows = []
+    for name, offset_s, rid, doc in replicas:
+        row: Dict = {"replica": name, "rid": rid,
+                     "clock_offset_s": (round(offset_s, 6)
+                                        if offset_s else 0.0)}
+        if doc is None:
+            # the replica is gone (killed home) or refused the fetch:
+            # its attempt still reads from the router hops above
+            row["unreachable"] = True
+            replica_rows.append(row)
+            continue
+        row["status"] = doc.get("status")
+        replica_rows.append(row)
+        for e in doc.get("timeline", ()):
+            e2 = dict(e)
+            if e2.get("t") is not None:
+                e2["t"] = e2["t"] + (offset_s or 0.0)
+            e2["replica"] = name
+            entries.append(e2)
+        for k, v in (doc.get("summary", {}).get("causes") or {}).items():
+            causes[k] = causes.get(k, 0) + int(v)
+    for ev in router_events:
+        t = ev.get("type")
+        if t in ROUTER_CAUSE_TYPES:
+            causes[t] = causes.get(t, 0) + 1
+
+    # one chronology: wall-clock order; ties read router-first (the
+    # front door observed the request before any replica did)
+    order = {"router": 0, "router-events": 1, "trace": 2, "events": 3,
+             "steps": 4}
+    entries.sort(key=lambda e: (e.get("t") or 0.0,
+                                order.get(e.get("source"), 5)))
+    return {
+        "trace": hop.get("trace"),
+        "status": hop.get("status"),
+        "priority": hop.get("class"),
+        "hop": hop.get("hop"),
+        "replicas": replica_rows,
+        "summary": {
+            "causes": causes,
+            "attempts": len(hop.get("attempts", ()) or ()),
+        },
+        "timeline": entries,
+    }

@@ -95,9 +95,8 @@ class TraceRecord:
     # admitted under this epoch, finished under a later one
     config_epoch: int = 0
     # the originating distributed-trace id (x-cake-trace, minted by a
-    # front-door router or a client; the router is ROADMAP A15), the key
-    # a fleet timeline would correlate this record under; None without
-    # trace context
+    # front-door router or a client), the key the router's federated
+    # timeline correlates this record under; None without trace context
     trace: Optional[str] = None
     wall_start: float = 0.0
     _last_token_t: float = 0.0

@@ -18,8 +18,9 @@ stats, `sp_pipeline.py` chains it over stages.
 Across processes (`distributed.py`, `hop.py`, `health.py`): one
 controller per process, each running the mesh positions it owns; a
 stage's output crosses to another process by a torch.distributed
-send/recv, and the logits reach every rank. Multi-process `--sp` and
-image serving are ROADMAP A13(3).
+send/recv, and the logits reach every rank; an sp mesh's ring chunks,
+decode stats and stage hand-offs, and an image model's UNet rows,
+cross the same way.
 """
 
 from cake_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401

@@ -13,15 +13,16 @@ logsumexp reduction and adds the tail (`sp_merged_attention`), so the
 long context is never resharded.
 
 JAX runs each position's body under `shard_map` and moves data with
-`ppermute`, `pmax` and `psum`. The port keeps the pipeline's one
-controller over a mesh of torch devices (parallel/mesh.py), with no
-torch.distributed: the ring is a static Python loop over the sp
-positions, where a hop moves each k/v chunk to the next position's
-device into buffers allocated before the loop (a co-located hop moves
-nothing); the decode merge is a loop in which the first position takes
-the max of the shards' m and sums their rescaled l and o. A body that
-JAX replicates over sp (the decode block around its attention, the
-last-token projection) runs once, on the group's first position.
+`ppermute`, `pmax` and `psum`. In one process the port keeps the
+pipeline's one controller over a mesh of torch devices
+(parallel/mesh.py), with no torch.distributed: the ring is a static
+Python loop over the sp positions, where a hop moves each k/v chunk to
+the next position's device into buffers allocated before the loop (a
+co-located hop moves nothing); the decode merge is a loop in which the
+first position takes the max of the shards' m and sums their rescaled
+l and o. A body that JAX replicates over sp (the decode block around
+its attention, the last-token projection) runs once, on the group's
+first position.
 
 Tensor parallelism runs every chunk's heads per tp rank through the
 halves of `model.block_skeleton` (`block_qkv`, `block_finish`), the wo
@@ -53,6 +54,18 @@ and `cake_sp_tail_window_tokens{mode}` (`instrument_sp_engine`). A
 dispatch is an eager call of a step fn, or on the card a replay of its
 captured graph (serve/graphs.on_replay).
 
+Across processes (a mesh from `distributed.make_multihost_sp_mesh`,
+each position carrying its rank) each process runs only its positions
+and the moves become hops (parallel/hop.py; `SPHop`): without stages the
+sp axis crosses processes, so a ring chunk moves forward by send/recv
+while a later position still needs it (`_ring_across`), a decode
+step's q goes out and each shard's (m, l, o) comes back to the group's
+first position every layer (`_serve_decode` on the other processes),
+the last token's hidden state is summed on the head's process and the
+logits reach every rank; with stages each stage's sp group lives in
+one process and the hidden state crosses at the stage boundary
+(`_across`). A captured step is cut at each hop (serve/graphs).
+
 A mesh over several distinct cards has not been run: its hops and
 merges would copy between cards from one stream of the first, untested.
 """
@@ -63,6 +76,7 @@ import functools
 import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -171,7 +185,8 @@ def _fold(qg, k, v, m, l, acc, mask, scale):
 
 
 def ring_attention(qs, ks, vs, *, causal: bool = True,
-                   scale: Optional[float] = None) -> list:
+                   scale: Optional[float] = None,
+                   hop: Optional[SPHop] = None) -> list:
     """Ring attention over the sp positions' chunks.
 
     qs[i]: [B, Sl, H, hd] position i's query chunk (global rows i*Sl..),
@@ -186,7 +201,18 @@ def ring_attention(qs, ks, vs, *, causal: bool = True,
     position i's queries (src > i) would fold to nothing (every
     probability zeroed, alpha exactly 1), so that fold is skipped.
     Returns each position's [B, Sl, H, hd] in q's dtype, on its device.
+
+    hop: the positions of a group that spans processes (`SPHop`; qs, ks,
+    vs None at another process's positions, causal only): the ring runs
+    `_ring_across`, the same folds in the same order.
     """
+    if hop is not None:
+        if not causal:
+            raise ValueError("a ring across processes is causal")
+        ref = next(q for q in qs if q is not None)
+        if scale is None:
+            scale = 1.0 / (ref.shape[-1] ** 0.5)
+        return _ring_across(qs, ks, vs, scale, hop)
     sp = len(qs)
     B, Sl, H, hd = qs[0].shape
     KV = ks[0].shape[2]
@@ -238,6 +264,90 @@ def ring_attention(qs, ks, vs, *, causal: bool = True,
     return out
 
 
+class SPHop:
+    """The cross-process moves of an sp group: the hops (parallel/hop.py)
+    of a tensor to or from the process of another sp position. One
+    process a position's tp ranks (SPForward checks it), so a position's
+    owner is its tp rank 0's."""
+
+    def __init__(self, core: "SPForward", d: int, s: int):
+        self.core, self.d, self.s = core, d, s
+        self.hops = core.hops
+
+    def owner(self, i: int) -> int:
+        return self.core.owner(self.d, self.s, i)
+
+    def send(self, x: torch.Tensor, i: int) -> None:
+        """x to position i's process."""
+        self.hops.send(x, self.owner(i))
+
+    def recv(self, shape, dtype, dev, i: int) -> torch.Tensor:
+        """A tensor from position i's process, on dev."""
+        return self.hops.recv(shape, dtype, dev, self.owner(i))
+
+
+def _ring_across(qs, ks, vs, scale, hop: SPHop) -> list:
+    """`ring_attention`'s causal ring over positions of several
+    processes: qs/ks/vs hold this process's positions (None elsewhere).
+    Position i folds, at hop t, the chunk that started at i - t (the
+    causal ring's fold order: its own chunk under the diagonal mask,
+    then i - 1 down to 0); a chunk moves forward only while a later
+    position still needs it, by a send/recv where the next position is
+    another process's (every send of a hop before its receives: the
+    sends go forward only, so no cycle can wait). Returns the owned
+    positions' outputs (None elsewhere)."""
+    sp = len(qs)
+    own = [q is not None for q in qs]
+    ref = next(q for q in qs if q is not None)
+    B, Sl, H, hd = ref.shape
+    kv_ref = next(k for k in ks if k is not None)
+    KV, kv_dt = kv_ref.shape[2], kv_ref.dtype
+    G = H // KV
+    st = {}
+    for i in range(sp):
+        if own[i]:
+            d = qs[i].device
+            st[i] = [qs[i].reshape(B, Sl, KV, G, hd),
+                     torch.full((B, KV, G, Sl, 1), NEG_INF,
+                                dtype=torch.float32, device=d),
+                     torch.zeros((B, KV, G, Sl, 1), dtype=torch.float32,
+                                 device=d),
+                     torch.zeros((B, KV, G, Sl, hd), dtype=torch.float32,
+                                 device=d),
+                     torch.ones(Sl, Sl, dtype=torch.bool, device=d).tril()]
+    k_cur, v_cur = list(ks), list(vs)
+    for t in range(sp):
+        for i in range(t, sp):
+            if own[i]:
+                qg, m, l, acc, diag = st[i]
+                st[i][1:4] = _fold(qg, k_cur[i], v_cur[i], m, l, acc,
+                                   diag if t == 0 else None, scale)
+        if t == sp - 1:
+            break
+        for i in range(t, sp - 1):
+            if own[i] and not own[i + 1]:
+                hop.send(k_cur[i], i + 1)
+                hop.send(v_cur[i], i + 1)
+        k_new, v_new = [None] * sp, [None] * sp
+        for i in range(t, sp - 1):
+            if not own[i + 1]:
+                continue
+            dev = qs[i + 1].device
+            if own[i]:
+                k_new[i + 1] = k_cur[i].to(dev)
+                v_new[i + 1] = v_cur[i].to(dev)
+            else:
+                k_new[i + 1] = hop.recv((B, Sl, KV, hd), kv_dt, dev, i)
+                v_new[i + 1] = hop.recv((B, Sl, KV, hd), kv_dt, dev, i)
+        k_cur, v_cur = k_new, v_new
+    out = [None] * sp
+    for i, (_, _, l, acc, _) in st.items():
+        li = torch.where(l == 0.0, torch.ones_like(l), l)
+        out[i] = ((acc / li).permute(0, 3, 1, 2, 4)
+                  .reshape(B, Sl, H, hd).to(qs[i].dtype))
+    return out
+
+
 def partial_attention_stats(q, k, v, valid, *, scale: Optional[float] = None):
     """Partial attention of q against one KV shard, as unnormalised
     online-softmax stats for a merge across shards.
@@ -279,7 +389,7 @@ def merge_attention_stats(stats_list):
 
 
 def sp_merged_attention(q, ctx_k, ctx_v, tail_k, tail_v, ctx_valid,
-                        tail_valid):
+                        tail_valid, remote=None):
     """Decode attention over the sharded context plus the replicated
     tail.
 
@@ -290,12 +400,19 @@ def sp_merged_attention(q, ctx_k, ctx_v, tail_k, tail_v, ctx_valid,
     stats are computed where it lives; the first position takes the
     max of the shards' m and sums their rescaled l and o (JAX's pmax and
     two psums over sp), folds in the tail's stats and normalises.
-    Returns [B, S, H, hd] in q's dtype."""
+    Returns [B, S, H, hd] in q's dtype.
+
+    remote: for a group spanning processes, a function of q giving
+    {i: (m, l, o)} for the positions of other processes (ctx_k[i] None
+    there), computed by their owners and received on q's device."""
     B, S, H, hd = q.shape
     dev = q.device
-    stats = [partial_attention_stats(q.to(k.device), k, v,
+    got = remote(q) if remote is not None else {}
+    stats = [got[i] if k is None else
+             partial_attention_stats(q.to(k.device), k, v,
                                      mask.to(k.device))
-             for k, v, mask in zip(ctx_k, ctx_v, ctx_valid)]
+             for i, (k, v, mask) in enumerate(zip(ctx_k, ctx_v,
+                                                  ctx_valid))]
     ms = [st[0].to(dev) for st in stats]
     m_g = ms[0]
     for m in ms[1:]:
@@ -316,7 +433,8 @@ def sp_merged_attention(q, ctx_k, ctx_v, tail_k, tail_v, ctx_valid,
 # engine's step fns all run these.
 
 
-def sp_prefill_layer(config: LlamaConfig, ranks, xs, ropes, kv_dtype):
+def sp_prefill_layer(config: LlamaConfig, ranks, xs, ropes, kv_dtype,
+                     hop: Optional[SPHop] = None):
     """One block of a ring prefill over the sequence chunks.
 
     ranks[i]: chunk i's tp ranks' layer params (one entry unsharded);
@@ -325,32 +443,42 @@ def sp_prefill_layer(config: LlamaConfig, ranks, xs, ropes, kv_dtype):
     chunk's q/k/v (`block_qkv`), RoPE, the ring over the chunks per tp
     rank, then each chunk's wo, residual and FFN (`block_finish`).
     Returns (xs, kv): kv[i][t] the chunk's (k, v) cast to the storage
-    dtype here, inside the layer, as JAX casts them."""
-    n_sp, n_tp = len(xs), len(ranks[0])
-    qkv = [block_qkv(ranks[i], xs[i], config) for i in range(n_sp)]
-    attns = [[None] * n_tp for _ in range(n_sp)]
-    kv = [[None] * n_tp for _ in range(n_sp)]
+    dtype here, inside the layer, as JAX casts them.
+
+    hop: a group spanning processes (`SPHop`): ranks[i] and xs[i] are
+    None at another process's positions, and so are the results."""
+    n_sp = len(xs)
+    own = [x is not None for x in xs]
+    n_tp = len(next(r for r in ranks if r is not None))
+    qkv = [block_qkv(ranks[i], xs[i], config) if own[i] else None
+           for i in range(n_sp)]
+    attns = [[None] * n_tp if own[i] else None for i in range(n_sp)]
+    kv = [[None] * n_tp if own[i] else None for i in range(n_sp)]
     for t in range(n_tp):
-        qs, ks, vs = [], [], []
+        qs, ks, vs = [None] * n_sp, [None] * n_sp, [None] * n_sp
         for i in range(n_sp):
+            if not own[i]:
+                continue
             q, k, v = qkv[i][t]
             cos, sin = ropes[i][t]
-            qs.append(apply_rope(q, cos, sin))
-            ks.append(apply_rope(k, cos, sin))
-            vs.append(v)
-        outs = ring_attention(qs, ks, vs, causal=True)
+            qs[i] = apply_rope(q, cos, sin)
+            ks[i] = apply_rope(k, cos, sin)
+            vs[i] = v
+        outs = ring_attention(qs, ks, vs, causal=True, hop=hop)
         for i in range(n_sp):
+            if not own[i]:
+                continue
             attns[i][t] = outs[i]
             k, v = ks[i], vs[i]
             if kv_dtype is not None:
                 k, v = to_storage(k, kv_dtype), to_storage(v, kv_dtype)
             kv[i][t] = (k, v)
     return ([block_finish(ranks[i], xs[i], attns[i], config)
-             for i in range(n_sp)], kv)
+             if own[i] else None for i in range(n_sp)], kv)
 
 
 def sp_decode_layer(rope_c, rope_s, ctx_k, ctx_v, tail_k, tail_v,
-                    ctx_valid, tail_valid, tail_update):
+                    ctx_valid, tail_valid, tail_update, remote=None):
     """One tp rank's attention of a merged-stats decode block, for
     `block_skeleton`: RoPE, the step's k/v written into every distinct
     copy of the rank's tail (tail_update(tk, tv, k, v), in place: the
@@ -363,7 +491,7 @@ def sp_decode_layer(rope_c, rope_s, ctx_k, ctx_v, tail_k, tail_v,
         for tk, tv in zip(tail_k, tail_v):
             tail_update(tk, tv, k.to(tk.device), v.to(tk.device))
         out = sp_merged_attention(q, ctx_k, ctx_v, tail_k[0], tail_v[0],
-                                  ctx_valid, tail_valid)
+                                  ctx_valid, tail_valid, remote=remote)
         return out, None
     return attn_fn
 
@@ -386,22 +514,32 @@ def sp_decode_masks(Sl: int, n_sp: int, plen, tail_T: int, t_slot,
     return ctx, tail
 
 
-def sp_select_last(xs, plen, Sl: int, final_norm, lm_head, eps: float):
+def sp_last_hidden(xs, plen, Sl: int) -> Optional[torch.Tensor]:
     """The hidden state at each row's plen - 1 (it lives on one chunk),
-    summed onto the first chunk's device (JAX's psum over sp of the
-    owner's value and the others' zeros), final-normed and projected:
-    logits [B, V] f32."""
-    dev = xs[0].device
+    summed over the chunks held (None entries skipped) onto the first
+    held chunk's device: JAX's psum over sp of the owner's value and the
+    others' zeros. None when no chunk is held."""
+    held = [x for x in xs if x is not None]
+    if not held:
+        return None
+    dev = held[0].device
     last = (plen.to(dev) - 1).long()
     rows = torch.arange(last.shape[0], device=dev)
     val = None
     for i, x in enumerate(xs):
+        if x is None:
+            continue
         local_idx = (last - i * Sl).clamp(0, Sl - 1)
         mine = (last >= i * Sl) & (last < (i + 1) * Sl)
         got = x.to(dev)[rows, local_idx]
         got = torch.where(mine[:, None], got, torch.zeros_like(got))
         val = got if val is None else val + got
-    h = rms_norm(val, final_norm, eps)
+    return val
+
+
+def sp_select_last(xs, plen, Sl: int, final_norm, lm_head, eps: float):
+    """`sp_last_hidden` final-normed and projected: logits [B, V] f32."""
+    h = rms_norm(sp_last_hidden(xs, plen, Sl), final_norm, eps)
     return qmatmul(h, lm_head).float()
 
 
@@ -461,9 +599,55 @@ class SPForward:
         self.layers = L // self.n_stage           # a stage's blocks
         self.chain = chain or _one_stage
         self._ropes: dict = {}
+        self._dtype = None       # the hidden state's, set by each group
+        self.hops = None
+        if mesh.multiprocess:
+            self._check_multiprocess()
+            from cake_tpu_torch.parallel.distributed import hops
+            self.hops = hops()
+
+    def _check_multiprocess(self) -> None:
+        """The layouts a mesh across processes may take: an sp
+        position's tp ranks in one process, no dp (JAX's refusal), and
+        with stages each stage whole in one process (the stage axis
+        crosses processes, the sp group stays in one)."""
+        mesh = self.mesh
+        if self.n_dp > 1:
+            raise ValueError(
+                "dp x sp serving is single-host only (dp-sharded "
+                "decode outputs are process-local); drop --dp or "
+                "serve on one host")
+        for pos in np.ndindex(*mesh.devices.shape):
+            at = dict(zip(mesh.axis_names, pos))
+            head = mesh.index(stage=at.get("stage", 0),
+                              sp=0 if self.n_stage > 1 else at["sp"])
+            if mesh.owner(*pos) != mesh.owner(*head):
+                raise ValueError(
+                    "this sp mesh splits an sp position's tp ranks, or "
+                    "with stages a stage's sp group, across processes: "
+                    "the port hops between processes on the 'sp' axis "
+                    "(no stages) or the 'stage' axis only")
 
     def dev(self, d: int, s: int, i: int, t: int = 0) -> torch.device:
         return self.mesh.at(dp=d, stage=s, sp=i, tp=t)
+
+    def owns(self, d: int, s: int, i: int) -> bool:
+        """Whether this process holds sp position i of stage s."""
+        return self.mesh.owns(self.mesh.index(dp=d, stage=s, sp=i))
+
+    def owner(self, d: int, s: int, i: int) -> int:
+        return self.mesh.owner(*self.mesh.index(dp=d, stage=s, sp=i))
+
+    def hop(self, d: int, s: int) -> Optional[SPHop]:
+        """Stage s's cross-process moves (None in one process)."""
+        return None if self.hops is None else SPHop(self, d, s)
+
+    def base(self, d: int) -> torch.device:
+        """Where group d's step inputs and logits live: its first
+        position's device, or this process's home where that position is
+        another's."""
+        return (self.dev(d, 0, 0) if self.owns(d, 0, 0)
+                else self.mesh.home)
 
     def rope(self, rope: RopeTables, dev) -> RopeTables:
         """The rope tables on `dev` (copied once a device)."""
@@ -496,8 +680,12 @@ class SPForward:
         takes the storage-cast key/value chunk of stage s's local layer
         li at sp position i, tp rank t (the cache write)."""
         Sl, cfg = self.Sl, self.config
+        self._dtype = params["embed"].dtype    # the hidden state's
         xs = []
         for i in range(self.n_sp):
+            if not self.owns(d, 0, i):
+                xs.append(None)        # another process's chunk
+                continue
             dev = self.dev(d, 0, i)
             tok = tokens[:, i * Sl:(i + 1) * Sl].to(dev).long()
             xs.append(local(params["embed"], d, 0, 0, i)[tok])
@@ -505,6 +693,10 @@ class SPForward:
         def run_stage(s, xs):
             ropes, blocks = [], []
             for i in range(self.n_sp):
+                if not self.owns(d, s, i):
+                    ropes.append(None)
+                    blocks.append(None)
+                    continue
                 row = []
                 for t in range(self.n_tp):
                     r = self.rope(rope, self.dev(d, s, i, t))
@@ -512,20 +704,30 @@ class SPForward:
                                 r.sin[i * Sl:(i + 1) * Sl]))
                 ropes.append(row)
                 blocks.append(self.ranks(params, d, s, i))
-            xs = [x.to(self.dev(d, s, i)) for i, x in enumerate(xs)]
+            xs = [x.to(self.dev(d, s, i)) if x is not None else None
+                  for i, x in enumerate(xs)]
+            hop = self.hop(d, s)
             for li in range(self.layers):
                 ranks = [[layer_params(b, li) for b in blocks[i]]
+                         if blocks[i] is not None else None
                          for i in range(self.n_sp)]
                 xs, kv = sp_prefill_layer(cfg, ranks, xs, ropes,
-                                          self.kv_dtype)
+                                          self.kv_dtype, hop=hop)
                 for i in range(self.n_sp):
-                    for t in range(self.n_tp):
-                        sink(s, li, i, t, *kv[i][t])
+                    if kv[i] is not None:
+                        for t in range(self.n_tp):
+                            sink(s, li, i, t, *kv[i][t])
             return xs
 
-        xs = self.chain(xs, run_stage, self.n_stage)
-        norm, lm_head = self.head(params, d)
-        return sp_select_last(xs, plen, Sl, norm, lm_head, cfg.rms_norm_eps)
+        b = tokens.shape[0]
+        xs = self.chain(xs, self._across(d, run_stage, [
+            (b, Sl, cfg.hidden_size)] * self.n_sp), self.n_stage)
+        if self.hops is None:
+            norm, lm_head = self.head(params, d)
+            return sp_select_last(xs, plen, Sl, norm, lm_head,
+                                  cfg.rms_norm_eps)
+        return self._logits_to_all(params, self._gather_last(
+            xs if xs is not None else [None] * self.n_sp, plen, d), d, b)
 
     def decode_group(self, params, tokens, rope_c, rope_s, plen, t_slot,
                      cache: "SPCache", d: int, tail_update_for):
@@ -538,11 +740,18 @@ class SPForward:
         write on that device (`sp_decode_layer`)."""
         cfg = self.config
         b = tokens.shape[0]
-        x = local(params["embed"], d, 0, 0, 0)[tokens.long()]
+        self._dtype = params["embed"].dtype    # the hidden state's
+        x = (local(params["embed"], d, 0, 0, 0)[tokens.long()]
+             if self.owns(d, 0, 0) else None)
         ctx_valid, tail_valid = sp_decode_masks(
             self.Sl, self.n_sp, plen, self.tail_len, t_slot, b)
 
         def run_stage(s, x):
+            if not self.owns(d, s, 0):
+                # another process runs the block: this one answers its
+                # positions' attention stats, layer by layer
+                self._serve_decode(params, cache, d, s, b, ctx_valid)
+                return None
             attn_of = [self._decode_rank(cache, d, s, t, rope_c, rope_s,
                                          ctx_valid, tail_valid,
                                          tail_update_for)
@@ -554,10 +763,132 @@ class SPForward:
                                       x, cfg, [attn(li) for attn in attn_of])
             return x
 
-        x = self.chain(x, run_stage, self.n_stage)
-        norm, lm_head = self.head(params, d)
-        x = rms_norm(x.to(norm.device), norm, cfg.rms_norm_eps)
-        return qmatmul(x[:, -1], lm_head).float()
+        x = self.chain(x, self._across(d, run_stage, (b, 1, cfg.hidden_size)),
+                       self.n_stage)
+        if self.hops is None:
+            norm, lm_head = self.head(params, d)
+            x = rms_norm(x.to(norm.device), norm, cfg.rms_norm_eps)
+            return qmatmul(x[:, -1], lm_head).float()
+        return self._logits_to_all(
+            params, x[:, -1] if x is not None else None, d, b)
+
+    # -- across processes -------------------------------------------------------
+
+    def _across(self, d: int, run_stage, shape):
+        """run_stage for a chain whose stages live in different
+        processes (each stage whole in one, `_check_multiprocess`): a
+        stage runs where it lives, its input received from the previous
+        stage's process and its output sent to the next's; elsewhere it
+        passes None on. shape: the hidden state's, [b, 1, D] a decode
+        step's, or a list over the sp chunks of [b, Sl, D] a prefill's.
+        Without stages across processes, run_stage itself."""
+        if self.hops is None or self.n_stage == 1:
+            return run_stage
+        rank, hops = self.mesh.rank, self.hops
+        chunked = isinstance(shape, list)
+
+        def run(s, x):
+            if self.owner(d, s, 0) != rank:
+                return None
+            if s > 0 and self.owner(d, s - 1, 0) != rank:
+                src = self.owner(d, s - 1, 0)
+                x = ([hops.recv(shp, self._dtype, self.dev(d, s, i), src)
+                      for i, shp in enumerate(shape)] if chunked else
+                     hops.recv(shape, self._dtype, self.dev(d, s, 0), src))
+            y = run_stage(s, x)
+            if s + 1 < self.n_stage and self.owner(d, s + 1, 0) != rank:
+                for part in (y if chunked else [y]):
+                    hops.send(part, self.owner(d, s + 1, 0))
+                return None
+            return y
+
+        return run
+
+    def _gather_last(self, xs, plen, d: int):
+        """The last token's hidden state [b, D] on the head's process:
+        each process's share over the chunks it holds, summed there in
+        rank order (None elsewhere)."""
+        s = self.n_stage - 1
+        head = self.owner(d, s, 0)
+        val = sp_last_hidden(xs, plen, self.Sl)
+        holders = sorted({self.owner(d, s, i) for i in range(self.n_sp)})
+        if self.mesh.rank != head:
+            if self.mesh.rank in holders:
+                self.hops.send(val, head)
+            return None
+        for r in holders:
+            if r != head:
+                got = self.hops.recv(val.shape, val.dtype, val.device, r)
+                val = val + got
+        return val
+
+    def _logits_to_all(self, params, h, d: int, b: int) -> torch.Tensor:
+        """The head over h [b, D] on the last stage's first position's
+        process, and the logits [b, V] f32 on every rank."""
+        s = self.n_stage - 1
+        head = self.owner(d, s, 0)
+        lg = None
+        if self.mesh.rank == head:
+            norm, lm_head = self.head(params, d)
+            h = rms_norm(h.to(norm.device), norm, self.config.rms_norm_eps)
+            lg = qmatmul(h, lm_head).float()
+        return self.hops.bcast(lg, head, (b, self.config.vocab_size),
+                               torch.float32, self.base(d))
+
+    def _remote_stats(self, d: int, s: int, t: int, dev):
+        """On the group's first position's process: a function of tp
+        rank t's q [b, S, H_t, hd] that sends q to every process holding
+        other positions (once a process) and receives each position's
+        (m, l, o) on dev, as one [b, KV_t, G, S, hd + 2] f32 tensor a
+        position (None when this process holds every position)."""
+        remote = [i for i in range(self.n_sp) if not self.owns(d, s, i)]
+        if not remote:
+            return None
+        hop = self.hop(d, s)
+        KV = self.config.num_key_value_heads // self.n_tp
+
+        def stats(q):
+            b, S, H, hd = q.shape
+            sent = set()
+            for i in remote:
+                if hop.owner(i) not in sent:
+                    hop.send(q, i)
+                    sent.add(hop.owner(i))
+            out = {}
+            for i in remote:
+                pack = hop.recv((b, KV, H // KV, S, hd + 2), torch.float32,
+                                dev, i)
+                out[i] = (pack[..., :1], pack[..., 1:2], pack[..., 2:])
+            return out
+        return stats
+
+    def _serve_decode(self, params, cache, d: int, s: int, b: int,
+                      ctx_valid) -> None:
+        """On a process holding context shards but not the group's first
+        position: for each layer and tp rank, receive q, compute each
+        held position's partial stats (`partial_attention_stats`, where
+        the shard lives) and send them back packed as (m, l, o)."""
+        mine = [i for i in range(self.n_sp) if self.owns(d, s, i)]
+        if not mine:
+            return
+        hop = self.hop(d, s)
+        cfg = self.config
+        H = cfg.num_attention_heads // self.n_tp
+        dtype = self._dtype
+        shards = {(i, t): (cache.ctx_k.shard(d, s, t, i),
+                           cache.ctx_v.shard(d, s, t, i))
+                  for i in mine for t in range(self.n_tp)}
+        valid = {i: ctx_valid[i].to(self.dev(d, s, i)) for i in mine}
+        for li in range(self.layers):
+            for t in range(self.n_tp):
+                dev = self.dev(d, s, mine[0], t)
+                q = hop.recv((b, 1, H, cfg.head_dim), dtype, dev, 0)
+                for i in mine:
+                    ck, cv = shards[(i, t)]
+                    m, l, o = partial_attention_stats(
+                        q.to(ck.device), ck[li], cv[li],
+                        valid[i].to(ck.device))
+                    hop.send(torch.cat([m, l, o], dim=-1), 0)
 
     def _decode_rank(self, cache: "SPCache", d: int, s: int, t: int,
                      rope_c, rope_s, ctx_valid, tail_valid,
@@ -567,23 +898,33 @@ class SPForward:
         shard at every sp position and every distinct copy of its tail,
         the rope rows and masks moved once to their devices."""
         dev = self.dev(d, s, 0, t)
-        ck = [cache.ctx_k.shard(d, s, t, i) for i in range(self.n_sp)]
-        cv = [cache.ctx_v.shard(d, s, t, i) for i in range(self.n_sp)]
+        held = [self.owns(d, s, i) for i in range(self.n_sp)]
+        ck = [cache.ctx_k.shard(d, s, t, i) if held[i] else None
+              for i in range(self.n_sp)]
+        cv = [cache.ctx_v.shard(d, s, t, i) if held[i] else None
+              for i in range(self.n_sp)]
         tk, tv = [], []
         for i in range(self.n_sp):
+            if not held[i]:
+                continue    # another process's copy: attention reads ours
             k = cache.tail_k.shard(d, s, t, i)
             if all(k is not seen for seen in tk):
                 tk.append(k)
                 tv.append(cache.tail_v.shard(d, s, t, i))
-        valid = [m.to(c.device) for m, c in zip(ctx_valid, ck)]
+        valid = [m.to(c.device) if c is not None else m
+                 for m, c in zip(ctx_valid, ck)]
         rc, rs = rope_c.to(dev), rope_s.to(dev)
         t_valid, update = tail_valid.to(dev), tail_update_for(dev)
+        remote = self._remote_stats(d, s, t, dev)
 
         def attn(li):
-            return sp_decode_layer(rc, rs, [c[li] for c in ck],
-                                   [c[li] for c in cv], [c[li] for c in tk],
+            return sp_decode_layer(rc, rs,
+                                   [c[li] if c is not None else None
+                                    for c in ck],
+                                   [c[li] if c is not None else None
+                                    for c in cv], [c[li] for c in tk],
                                    [c[li] for c in tv], valid, t_valid,
-                                   update)
+                                   update, remote=remote)
         return attn
 
     # -- placement ------------------------------------------------------------
@@ -709,7 +1050,7 @@ def make_sp_forward(mesh: Mesh, config: LlamaConfig, ctx_len: int,
         B = tokens.shape[0]
         if cache is None:
             dtype = (kv_dtype if kv_dtype is not None
-                     else local(params["embed"]).dtype)
+                     else params["embed"].dtype)
             cache = core.new_cache(B, dtype)
         else:
             cache.tail_k.zero_()
@@ -717,7 +1058,7 @@ def make_sp_forward(mesh: Mesh, config: LlamaConfig, ctx_len: int,
         rows = B // core.n_dp
         logits = []
         for d in range(core.n_dp):
-            dev = core.dev(d, 0, 0)
+            dev = core.base(d)
 
             def sink(s, li, i, t, k, v, d=d):
                 for dst, new in ((cache.ctx_k, k), (cache.ctx_v, v)):
@@ -727,7 +1068,7 @@ def make_sp_forward(mesh: Mesh, config: LlamaConfig, ctx_len: int,
             logits.append(core.prefill_group(
                 params, tokens[d * rows:(d + 1) * rows].to(dev),
                 plen[d * rows:(d + 1) * rows].to(dev), rope, d, sink))
-        return _gather_rows(logits, core.dev(0, 0, 0)), cache
+        return _gather_rows(logits, core.base(0)), cache
 
     @torch.inference_mode()
     def sp_decode(params, token, pos, plen, cache: SPCache,
@@ -737,7 +1078,7 @@ def make_sp_forward(mesh: Mesh, config: LlamaConfig, ctx_len: int,
         t_slot = pos - ctx_len
         logits = []
         for d in range(core.n_dp):
-            dev = core.dev(d, 0, 0)
+            dev = core.base(d)
             r = core.rope(rope, dev)
             p = pos.to(dev) if isinstance(pos, torch.Tensor) else pos
             rope_c, rope_s = rope_rows(r.cos, r.sin, p, 1)
@@ -747,7 +1088,7 @@ def make_sp_forward(mesh: Mesh, config: LlamaConfig, ctx_len: int,
                 params, token[d * rows:(d + 1) * rows].to(dev), rope_c,
                 rope_s, plen[d * rows:(d + 1) * rows].to(dev), ts, cache,
                 d, _uniform_tail_write(ts)))
-        return _gather_rows(logits, core.dev(0, 0, 0)), cache
+        return _gather_rows(logits, core.base(0)), cache
 
     sp_prefill.core = core
     return sp_prefill, sp_decode
@@ -826,7 +1167,7 @@ class SPGeneratorForward:
         store = self._kv_dtype if self._kv_dtype is not None else dtype
         return SPSessionCache(
             core.new_cache(batch, store),
-            torch.zeros(batch, dtype=torch.int32, device=core.dev(0, 0, 0)))
+            torch.zeros(batch, dtype=torch.int32, device=core.base(0)))
 
     def __call__(self, params, tokens, cache: SPSessionCache, pos, rope,
                  last_idx=None, is_prefill: bool = False):
@@ -858,7 +1199,7 @@ class SPGeneratorForward:
         sp_pipeline's factories, dp x sp with the slots over dp (max
         slots divisible by dp)."""
         dtype = (self._kv_dtype if self._kv_dtype is not None
-                 else local(params["embed"]).dtype)
+                 else params["embed"].dtype)
         n_dp = self._mesh.size_of("dp")
         if slots % n_dp != 0:
             raise ValueError(
@@ -950,8 +1291,7 @@ def create_sp_engine_cache(mesh: Mesh, config: LlamaConfig, slots: int,
               ((L, slots, ctx_len, KV, hd), kv_dtype, ctx, mesh),
               ((L, slots, tail_len, KV, hd), kv_dtype, tail, mesh),
               ((L, slots, tail_len, KV, hd), kv_dtype, tail, mesh)]
-    return _sp_engine_cache_zeros(
-        leaves, ((slots,), torch.int32, mesh.devices.flat[0]))
+    return _sp_engine_cache_zeros(leaves, ((slots,), torch.int32, mesh.home))
 
 
 def _slot_index(slot, device) -> torch.Tensor:
@@ -989,7 +1329,7 @@ def make_slot_prefill_fn(core: SPForward):
         S = tokens.shape[1]
         toks = (tokens[:, :ctx_len] if S >= ctx_len
                 else F.pad(tokens, (0, ctx_len - S)))
-        dev = core.dev(0, 0, 0)
+        dev = core.base(0)
         plen = prompt_len.reshape(1).to(dev, torch.int32)
         slot_t = _slot_index(slot, dev)
         rows = cache.plen.shape[0] // core.n_dp
@@ -1032,7 +1372,7 @@ def make_sp_engine_decode_body(core: SPForward):
         rows = B // core.n_dp
         out = []
         for d in range(core.n_dp):
-            dev = core.dev(d, 0, 0)
+            dev = core.base(d)
             sl = slice(d * rows, (d + 1) * rows)
             p = pos[sl].to(dev).long()
             plen = cache.plen[sl].to(dev).long()
@@ -1049,7 +1389,7 @@ def make_sp_engine_decode_body(core: SPForward):
             out.append(core.decode_group(params, tokens[sl].to(dev),
                                          rope_c, rope_s, plen, t_slot,
                                          cache, d, update_for))
-        return _gather_rows(out, core.dev(0, 0, 0))
+        return _gather_rows(out, core.base(0))
 
     return decode_body
 

@@ -20,6 +20,8 @@ positions it owns) and joins the processes with `torch.distributed`:
   * `make_multihost_mesh()` lays out a ("dp", "stage", "tp") mesh whose
     `dcn_axis` crosses the process boundary, JAX's layout with a process
     as the slice; every position carries its owning rank (`Mesh.ranks`).
+    `make_multihost_sp_mesh()` lays out JAX's sp meshes the same way,
+    process-major.
   * `is_coordinator()` / `coordinator_only()`: rank-0 gating (the REST
     API binds on the coordinator).
   * `assign_hosts_to_stages`, `cluster_info` (`/api/v1/cluster`).
@@ -213,13 +215,45 @@ def _as_device(d) -> torch.device:
     return d.device if isinstance(d, GlobalDevice) else torch.device(d)
 
 
-def _mesh_of(arr: np.ndarray, rank: int) -> Mesh:
+def _mesh_of(arr: np.ndarray, rank: int, axes=AXES) -> Mesh:
     devs = np.empty(arr.shape, dtype=object)
     ranks = np.zeros(arr.shape, dtype=np.int64)
     for pos in np.ndindex(*arr.shape):
         devs[pos] = _as_device(arr[pos])
         ranks[pos] = _slice_ids([arr[pos]])[0]
-    return Mesh(devs, AXES, ranks=ranks, rank=rank)
+    return Mesh(devs, axes, ranks=ranks, rank=rank)
+
+
+def make_multihost_sp_mesh(sp: int, dp: int = 1, stage: int = 1,
+                           tp: int = 1, devices: Optional[Sequence] = None,
+                           rank: Optional[int] = None) -> Mesh:
+    """JAX's sp mesh over every process's devices (`cake_tpu/context.py`'s
+    sp branch reshapes the global device list, process-major, into the
+    mesh's shape): the leading axis crosses the process boundary, so
+    ("sp"[, "tp"]) puts sp positions on different processes with each
+    position's tp ranks in one, and ("stage", "sp"[, "tp"]) puts stages
+    on different processes. devices: GlobalDevices in rank order
+    (default every process's copy of this process's device, as many as
+    the mesh needs)."""
+    from cake_tpu_torch.parallel.mesh import sp_axes
+
+    rank = process_index() if rank is None else rank
+    axes = sp_axes(dp, stage, tp)
+    sizes = {"dp": dp, "stage": stage, "sp": sp, "tp": tp}
+    shape = tuple(sizes[a] for a in axes)
+    need = int(np.prod(shape))
+    if devices is None:
+        dev = _STATE["device"] or torch.device("cpu")
+        devices = global_devices([dev] * -(-need // process_count()))
+    devices = list(devices)
+    if need > len(devices):
+        raise ValueError(
+            f"stages {stage} x --dp {dp} x --sp {sp} x --tp {tp} needs "
+            f"{need} devices, have {len(devices)}")
+    arr = np.empty(need, dtype=object)
+    for i, d in enumerate(devices[:need]):
+        arr[i] = d
+    return _mesh_of(arr.reshape(shape), rank, axes)
 
 
 def make_multihost_mesh(dp: int = 1, stage: int = 1, tp: int = 1,

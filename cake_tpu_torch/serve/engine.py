@@ -1030,6 +1030,9 @@ class InferenceEngine:
         self.tracer = RequestTracer(capacity=trace_ring,
                                     events_path=trace_events,
                                     slo=self.slo)
+        # events published with a rid carry the request's x-cake-trace
+        if self.events is not None:
+            self.events.trace_of = self.tracer.trace_for
         self._step_stats = StepStats(name="engine", window=100)
         # the step flight recorder (obs/steps.py), always on: one record
         # per device step at the step seams, GET /api/v1/steps and
@@ -1477,6 +1480,7 @@ class InferenceEngine:
         idempotency_key: Optional[str] = None,
         replay_tokens: Optional[Sequence[int]] = None,
         ship_sink: Optional[Callable] = None,
+        trace_id: Optional[str] = None,
     ) -> RequestHandle:
         """Queue one generation. stream(text_delta, is_final) is called
         from the engine thread as tokens finalize; a callback with
@@ -1497,7 +1501,9 @@ class InferenceEngine:
         generated (a checkpoint or journal resume), which counts in the
         request's absolute stream position. ship_sink (the disagg prefill
         plane): called from the engine thread at retirement with the
-        captured page shipment (None when the capture failed)."""
+        captured page shipment (None when the capture failed). trace_id:
+        the originating x-cake-trace, the key a router's federated
+        timeline finds this request's trace and events under."""
         if self._stop.is_set():
             raise EngineResetError("engine stopped")
         if idempotency_key is not None:
@@ -1576,10 +1582,11 @@ class InferenceEngine:
         )
         with self._admit_lock:
             return self._admit(req, cls, replay_tokens is not None,
-                               want_top_logprobs)
+                               want_top_logprobs, trace_id=trace_id)
 
     def _admit(self, req: _Request, cls: str, replay: bool,
-               want_top: bool = False) -> RequestHandle:
+               want_top: bool = False,
+               trace_id: Optional[str] = None) -> RequestHandle:
         """submit's critical section (under _admit_lock): the key's
         re-check, the drain and shed refusals, the journal's admit
         record, then the registration and the scheduler (or, on a
@@ -1637,7 +1644,7 @@ class InferenceEngine:
         # config_epoch attributes the trace to the engine config that
         # admitted it (a live switch bumps the epoch)
         self.tracer.admit(rid, n_ids, max_new, priority=cls,
-                          config_epoch=self.config_epoch)
+                          config_epoch=self.config_epoch, trace=trace_id)
         if (self._disagg is not None and self._disagg.role == "decode"
                 and not replay and not want_top
                 and self._disagg.request_prefill(req)):

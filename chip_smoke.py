@@ -86,11 +86,13 @@ Phases, in order (any failure exits non-zero):
             split) read through the port's reader (a mixed-script round
             trip printed and required) and served by `python3 -m
             cake_tpu_torch.cli --model DIR --batch-size 2 --tracing DIR`
-            on the card (exit 0, one trace file).
-            Then 32-layer int4 weights (init_params_quantized, bits=4)
-            behind the same Master: 32 greedy tokens, 7 x 32 int4_matmul
-            launches per decode step and no plain call; a few tokens
-            with int8 weights; and the command line with --quant int4.
+            on the card (exit 0, exactly one trace file). Then 32-layer
+            int4 weights (init_params_quantized, bits=4) behind the same
+            Master: 32 greedy tokens, 7 x 32 int4_matmul launches per
+            decode step and no plain call; a few tokens with int8
+            weights; and the command line with --quant int4. The two
+            command lines run in their own processes while dense (a)'s
+            identity drives run (untimed; the time budget).
   serve     the same weights behind the HTTP API: six concurrent chat
             requests (three SSE) of 32 tokens through the paged engine,
             over a bf16 pool at --decode-scan 1 and 4, then int8 and int4
@@ -192,7 +194,8 @@ Phases, in order (any failure exits non-zero):
             above what it held before; recovery seconds, TTFT p50 and
             decode tok/s beside the warm wave without a plan;
             (2) 2 layers, f32 weights and pool: the plan's greedy streams
-            equal the run's without it at decode_scan 1 and 4; (3) a
+            equal the run's without it at decode_scan 4 (1 cut for the
+            time budget); (3) a
             poison prefill (engine.prefill:match_len) quarantines exactly
             its chat (500), the others 200; POST /api/v1/drain: a late
             chat gets 429 with Retry-After, the in-flight ones 200; the
@@ -207,7 +210,9 @@ Phases, in order (any failure exits non-zero):
             it stops with reset_failed (health "stopped", every client a
             retryable error, the snapshot written without a device read),
             and this process resumes the snapshot to the uninterrupted
-            f32 streams. A `recovery` JSON line holds the record.
+            f32 streams. (4)'s and (5)'s children run while (2) and (3)
+            run (untimed: (2) keeps no recovery seconds; the time
+            budget). A `recovery` JSON line holds the record.
   spec      paged speculative decoding and the batch-1 draft generator:
             the bodies the spec path launches held against their plain
             versions at its shapes (the mixed body and its merge at
@@ -226,9 +231,10 @@ Phases, in order (any failure exits non-zero):
             weights cut to their first CUT_LAYERS = 8 blocks (the time
             budget), 128 x 128-token pages, 8 slots, six
             chats of 64 tokens at repeat_penalty 1.0, gamma 4, after a
-            warm-up wave: the plain engine, then drafts self, the
-            target's first 4 blocks and a Llama-3.2-1B-shaped random
-            draft cut to 2 of its 16 layers (D 2048, hd 64, tied
+            warm-up wave: the plain engine, then drafts self and a
+            Llama-3.2-1B-shaped random draft cut to 2 of its 16 layers
+            (the target's first 4 blocks as a draft cut for the time
+            budget) (D 2048, hd 64, tied
             embeddings: the draft pool at hd 64 and its captured
             rounds): tok/s, acceptance, tokens a round, a round's device
             ms beside its bound, captures (none allowed in the measured
@@ -333,10 +339,11 @@ Phases, in order (any failure exits non-zero):
             plain versions (one launch a layer a replay); then greedy
             streams of card engines against the CPU engine's (flash off
             there, run on a thread meanwhile): the dense engine with
-            whole-prompt prefills and two prefix hits at --decode-scan 1
-            and 4, with --prefill-chunk 32 (windows, an install and
-            hits) at 4; the ring engine (a 32-slot window, max_seq_len
-            128, prompts of 40 and 70 tokens, 40 new tokens); the dense
+            whole-prompt prefills and two prefix hits at --decode-scan 4
+            (1 cut for the time budget), with --prefill-chunk 32
+            (windows, an install and hits) at 4; the ring engine (a
+            32-slot window, max_seq_len 128, prompts of 40 and 70
+            tokens, 40 new tokens); the dense
             spec engine with a self-draft and a mismatched 1-layer draft
             (gamma 3); a paged engine switched to the dense engine and
             back under load; a warm wave of the chunked, ring and
@@ -487,13 +494,65 @@ Phases, in order (any failure exits non-zero):
             single-process co-located 4 + 4 engine and the unsharded
             engine: TTFT p50, decode tok/s, cake_control_publish_seconds
             p50, each process's host seconds a hop and graphs (replays)
-            a decode step; then a --quant int4 pair's wave, whose
+            a decode step; before (b), a --quant int4 pair's wave, whose
             int4_matmul launches (both processes) hold row 9. (d) each
             fresh pair's coordinator gets SIGTERM: the follower exits 0,
             the coordinator 0 or -15, the checkpoint is on disk. Rows 7-9
-            at the stage's shard shapes against their plain versions. A
-            `multihost` JSON line holds the record; each kernel row
-            carries `multihost_launches` (the pairs' processes' counts).
+            at the stage's shard shapes against their plain versions.
+            (e) ROADMAP A13 part 3: `--sp 2` across the two processes
+            (one sp position each, no topology, --max-seq-len 2064: a
+            2048-token context), the same 8 blocks: two full-window
+            chats and two short ones; at f32 a warm SSE wave then a
+            measured one whose texts must be the single-process
+            co-located --sp 2 engine's and the unsharded engine's and
+            which captures nothing on either process; at bf16 the pair's
+            measured wave beside the co-located sp 2 engine's: TTFT p50,
+            decode tok/s, each process's hops, a hop's host ms and the
+            graphs a decode step is cut into. (f) SD v1-5 at 512 x 512,
+            bf16 random weights, over two processes (`--model-type image
+            --api`, one dp position each): 20 DDIM steps at guidance 7.5
+            through POST /api/v1/image on process 0, twice, the follower
+            replaying; the PNG within one u8 level of the single-process
+            co-located --dp 2 generator's (the same seed); seconds an
+            image beside it; img2img refused with JAX's message; the
+            follower exits 0 on SIGTERM. The pairs start while only
+            untimed drives run: (a)-(d)'s at the phase's start, (e)'s
+            f32 pair and (f)'s after (c), (e)'s bf16 pair during (d);
+            every pair is up, and idles, before a timed wave: (b) after
+            (e)'s f32 identities, then (e) bf16 and (f). A `multihost`
+            JSON line holds
+            the record; each kernel row carries `multihost_launches`
+            (the pairs' processes' counts; (e) and (f) launch none of
+            the port's kernels: the sp ring and SD are einsums).
+  router    the front-door router (ROADMAP A15): `python -m
+            cake_tpu_torch.cli --router` (its --model a directory whose
+            byte-level BPE tokenizer.json this script writes) over two
+            replica processes (`cli.main --api`, the paged engine,
+            --auto-prefix, 256 x 128-token pages, 8 slots,
+            --decode-scan 4, Llama-3-8B width from seed 0, the lm_head
+            cut to printable ASCII), one named by --replicas, the other
+            registered by --router-announce. (a) f32 at 2 blocks: three
+            tenants' system prompts of 256-600 tokens, four SSE chats
+            each: every text through the router is the named replica's
+            own (x-cake-replica), a tenant's chats on one replica. (c)
+            kill: a keyed stream's home SIGKILLed after its first
+            events; the reconnect with the key and Last-Event-ID
+            finishes on the survivor with the reference's text, and the
+            router's federated timeline names both replicas. (b) bf16
+            at 8 blocks (both replicas announce, one also named): twelve
+            SSE chats of 16 tokens, a warm wave then a measured one,
+            then the same chats straight to their replicas: TTFT p50
+            both ways, prefix hits per replica, the cake_router_*
+            families, /api/v1/fleet with both replicas, no capture in
+            the measured wave, rpa_decode and rpa_mixed launched there
+            (the replicas' counts zeroed by SIGUSR1 just before, read by
+            SIGUSR2 just after) and no plain version. (c) drain: a
+            stream's home drains; the router's state is awaited until it
+            stops admitting there; three new chats go to the other, the
+            stream finishes. (d) the other replica SIGTERMed: the
+            router's replica_departed precedes the process's exit. A
+            `router` JSON line holds the record; each kernel row carries
+            `router_launches` (the measured wave's).
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -518,7 +577,7 @@ from collections import Counter
 
 PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
           "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense", "moe", "sd", "parallel", "sp", "multihost")
+          "dense", "moe", "sd", "parallel", "sp", "multihost", "router")
 # the depth the serve phase's pool runs, the prefix, tiers, recovery and
 # spec phases, the control phase's (1) and (3), the disagg phase's (b)
 # and the dense phase's (b)-(d) run the Llama-3-8B-width bf16 weights
@@ -2117,9 +2176,9 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
     """The slice's path: Master.generate_text over the sequential
     generator at full width and depth, bf16, greedy. Run A: a prompt of
     1000 tokens, bucket 1024 (one flash_attn per layer). Run B: 1500
-    tokens in 256-token windows (six flash_attn_cached per layer). Then
-    the checkpoint's command line (`_checkpoint_cli`) with --batch-size 2
-    and --tracing, in its own process on the card."""
+    tokens in 256-token windows (six flash_attn_cached per layer). The
+    phase's command lines (`_generate_cli`) run apart: main starts them
+    while dense (a)'s identity drives run (the time budget)."""
     import dataclasses
 
     from cake_tpu_torch.args import Args
@@ -2212,13 +2271,21 @@ def phase_generate(torch, fa, cfg, params, profile: bool = False) -> dict:
 
     if hasattr(LlamaGenerator, "_decode_runner"):
         _generator_graph(torch, fcfg, params, tok, system)
+    return counts
 
-    # the checkpoint's command line in its own process, with
-    # --batch-size 2 and --tracing
+
+def _generate_cli():
+    """The generate phase's two command lines, each in its own process on
+    the card: the checkpoint directory's with --batch-size 2 and
+    --tracing DIR (`_checkpoint_cli`) and the tiny model's with --quant
+    int4 (`_quant_cli`). Returns, once both are started, the function
+    that joins and checks them: main runs untimed drives meanwhile (dense
+    (a)'s identities)."""
     import tempfile
     trace_dir = tempfile.mkdtemp(prefix="cake_smoke_trace_")
-    _checkpoint_cli(["--batch-size", "2", "--tracing", trace_dir], trace_dir)
-    return counts
+    joins = [_checkpoint_cli(["--batch-size", "2", "--tracing", trace_dir],
+                             trace_dir), _quant_cli()]
+    return lambda: [join() for join in joins]
 
 
 # the small checkpoint directory the generate phase writes and loads:
@@ -2269,15 +2336,11 @@ def _bpe_merges(corpus: str, n: int, b2u) -> list:
     return merges
 
 
-def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
-    """A small Llama checkpoint directory written by hand: config.json, a
-    model.safetensors of random f32 weights from `seed` (the header JSON
-    and the raw bytes: the card has no safetensors package) and a
-    byte-level BPE tokenizer.json (256 byte tokens, CKPT_MERGES merges
-    learned from this file's docstring, Llama-3's special tokens and
-    split, the <|begin_of_text|> template). Returns the config."""
-    import numpy as np
-
+def _tokenizer_json():
+    """(spec, specials): a byte-level BPE tokenizer.json of the Llama-3
+    kind (256 byte tokens, CKPT_MERGES merges learned from this file's
+    docstring, Llama-3's special tokens and split, the
+    <|begin_of_text|> template) and its special tokens' ids."""
     from cake_tpu_torch.models.llama.tokenizer import bytes_to_unicode
 
     b2u = bytes_to_unicode()
@@ -2286,12 +2349,6 @@ def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
     for a, b in merges:
         vocab.setdefault(a + b, len(vocab))
     specials = {t: len(vocab) + i for i, t in enumerate(CKPT_SPECIALS)}
-    cfg = dict(CKPT_CONFIG, bos_token_id=specials["<|begin_of_text|>"],
-               eos_token_id=[specials["<|end_of_text|>"],
-                             specials["<|eot_id|>"]])
-    if max(specials.values()) >= cfg["vocab_size"]:
-        fail(f"checkpoint: {len(vocab) + len(specials)} tokens past the "
-             f"vocabulary of {cfg['vocab_size']}")
     spec = {
         "version": "1.0", "truncation": None, "padding": None,
         "added_tokens": [dict(id=i, content=t, single_word=False,
@@ -2318,6 +2375,25 @@ def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
                   "byte_fallback": False, "ignore_merges": True,
                   "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]},
     }
+    return spec, specials
+
+
+def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
+    """A small Llama checkpoint directory written by hand: config.json, a
+    model.safetensors of random f32 weights from `seed` (the header JSON
+    and the raw bytes: the card has no safetensors package) and a
+    byte-level BPE tokenizer.json (256 byte tokens, CKPT_MERGES merges
+    learned from this file's docstring, Llama-3's special tokens and
+    split, the <|begin_of_text|> template). Returns the config."""
+    import numpy as np
+
+    spec, specials = _tokenizer_json()
+    cfg = dict(CKPT_CONFIG, bos_token_id=specials["<|begin_of_text|>"],
+               eos_token_id=[specials["<|end_of_text|>"],
+                             specials["<|eot_id|>"]])
+    if max(specials.values()) >= cfg["vocab_size"]:
+        fail(f"checkpoint: {max(specials.values()) + 1} tokens past the "
+             f"vocabulary of {cfg['vocab_size']}")
     D, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     H, KV = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     hd = D // H
@@ -2361,13 +2437,14 @@ def _write_checkpoint(dirname: str, seed: int = 0) -> dict:
     return cfg
 
 
-def _checkpoint_cli(extra=(), trace_dir=None) -> dict:
+def _checkpoint_cli(extra, trace_dir):
     """The load path of a real checkpoint on the card: a small checkpoint
     directory (`_write_checkpoint`) read through the port's tokenizer.json
     reader (the round trip of a mixed-script string printed and
     required), then `python -m cake_tpu_torch.cli --model DIR` and the
-    flags `extra` in its own process (exit 0); with `trace_dir` (its
-    --tracing), exactly one trace file there."""
+    flags `extra` (--tracing trace_dir among them) in its own process.
+    Returns, once the child is started, the function that joins it and
+    requires exit 0 and exactly one trace file in trace_dir."""
     import tempfile
 
     from cake_tpu_torch.models.llama.generator import load_tokenizer
@@ -2390,17 +2467,27 @@ def _checkpoint_cli(extra=(), trace_dir=None) -> dict:
            "--prompt", "Why is the sky blue?", "--sample-len", "8",
            *extra]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=sys.path[0], capture_output=True,
-                       text=True, timeout=600)
-    traces = (sorted(f for f in os.listdir(trace_dir)
-                     if f.endswith(".json")) if trace_dir else [])
+    child = subprocess.Popen(cmd, cwd=sys.path[0], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    return lambda: _checkpoint_cli_end(child, cmd, t0, trace_dir, d, ids,
+                                       back)
+
+
+def _checkpoint_cli_end(child, cmd, t0, trace_dir, d, ids, back) -> dict:
+    """_checkpoint_cli's child joined: its exit, its trace file."""
+    try:
+        stdout, stderr = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        fail("checkpoint: the command line ran past 600 s")
+    r = subprocess.CompletedProcess(cmd, child.returncode, stdout, stderr)
+    traces = sorted(f for f in os.listdir(trace_dir) if f.endswith(".json"))
     log(f"checkpoint: `{' '.join(cmd[1:])}` exit {r.returncode} in "
         f"{time.perf_counter() - t0:.1f} s; stdout tail "
-        f"{r.stdout.strip().splitlines()[-1:]!r}"
-        + (f"; trace files {traces}" if trace_dir else ""))
+        f"{r.stdout.strip().splitlines()[-1:]!r}; trace files {traces}")
     if r.returncode != 0:
         fail(f"checkpoint: the command line failed:\n{r.stderr[-3000:]}")
-    if trace_dir and len(traces) != 1:
+    if len(traces) != 1:
         fail(f"checkpoint: --tracing {trace_dir} wrote {traces}")
     return dict(dir=d, ids=len(ids), round_trip=back == CKPT_ROUND_TRIP,
                 cli_exit=r.returncode)
@@ -2509,10 +2596,9 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
     8B-width int4 weights (init_params_quantized, bits=4), a 300-token
     prompt (prefill: the dequantize route) and 32 greedy tokens (decode:
     7 int4_matmul launches per layer and step, no plain call); the same
-    with int8 weights for 4 tokens; then the command line with --quant
-    int4 in its own process (the tiny model: context._maybe_quantize and
-    the gate's small shapes on the card). Returns the int4 params and the
-    int4 run's launch counts."""
+    with int8 weights for 4 tokens (the command line with --quant int4
+    runs apart: `_quant_cli`). Returns the int4 params and the int4
+    run's launch counts."""
     import dataclasses
 
     from cake_tpu_torch.args import Args
@@ -2601,18 +2687,35 @@ def phase_generate_quant(torch, i4, cfg) -> dict:
         fail(f"generate int8: int4_matmul ran ({i4.LAUNCHES})")
     del q8
     torch.cuda.empty_cache()
+    return q4, counts
 
+
+def _quant_cli():
+    """The command line with --quant int4 in its own process (the tiny
+    model: context._maybe_quantize and the gate's small shapes on the
+    card). Returns, once the child is started, the function that joins
+    it and requires exit 0 and the quantization's log line."""
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--quant", "int4",
            "--prompt", "Why is the sky blue?", "--sample-len", "8"]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                       capture_output=True, text=True, timeout=600)
-    log(f"generate int4: `{' '.join(cmd[1:])}` exit {r.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s; stdout tail "
-        f"{r.stdout.strip().splitlines()[-1:]!r}")
-    if r.returncode != 0 or "weights quantized to int4" not in r.stderr:
-        fail(f"generate int4: the command line failed:\n{r.stderr[-3000:]}")
-    return q4, counts
+    child = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def join() -> None:
+        try:
+            stdout, stderr = child.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            fail("generate int4: the command line ran past 600 s")
+        log(f"generate int4: `{' '.join(cmd[1:])}` exit {child.returncode} "
+            f"in {time.perf_counter() - t0:.1f} s; stdout tail "
+            f"{stdout.strip().splitlines()[-1:]!r}")
+        if child.returncode != 0 or "weights quantized to int4" not in \
+                stderr:
+            fail(f"generate int4: the command line failed:\n"
+                 f"{stderr[-3000:]}")
+    return join
 
 
 # the serve phase's three drives of the same six chats through one engine
@@ -4295,10 +4398,12 @@ def _run_prompts(eng, n_new: int = 32):
 def _recovery_identity(torch, cfg32, p32, card: str) -> dict:
     """Drive 2: 8B width, 2 layers, f32 weights and pool, every prompt
     submitted before the engine starts: under RECOVERY_PLAN the greedy
-    streams equal the same engine's without the plan, at decode_scan 1
-    and 4. Returns the record (and the clean streams at 4)."""
+    streams equal the same engine's without the plan, at decode_scan 4
+    (decode_scan 1 cut for the smoke's time budget: its steps
+    are the bursts' single replays). Returns the record (and the clean
+    streams)."""
     rec = {}
-    for scan in (1, 4):
+    for scan in (4,):
         clean = [list(h._req.out_tokens) for h in _run_prompts(
             _f32_engine(torch, cfg32, p32, decode_scan_steps=scan))]
         eng = _f32_engine(torch, cfg32, p32, decode_scan_steps=scan,
@@ -4306,9 +4411,10 @@ def _recovery_identity(torch, cfg32, p32, card: str) -> dict:
         hs = _run_prompts(eng)
         got = [list(h._req.out_tokens) for h in hs]
         fired = eng._faults.describe()["injections_total"]
+        # no recovery seconds: the journal and device-fault children
+        # share the card meanwhile (the served wave times recoveries)
         rec[f"scan{scan}"] = dict(recoveries=eng.stats.recoveries,
-                                  fired=fired, identical=got == clean,
-                                  seconds=list(eng.recovery_seconds))
+                                  fired=fired, identical=got == clean)
         if any(h._req.error for h in hs) or eng.stats.recoveries != fired \
                 or fired != 3:
             fail(f"recovery identity (scan {scan}): {rec[f'scan{scan}']}")
@@ -4502,7 +4608,7 @@ def _sse_read(url: str, body: dict, headers: dict, until_drop: bool):
     return events, done
 
 
-def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
+def _recovery_journal(torch, cfg32, p32, card: str):
     """Drive 4: a child process serves the f32 2-layer model with
     --journal and engine.decode:nth=10:abort; three keyed SSE chats
     stream until it dies with ABORT_EXIT_CODE. A second child on the same
@@ -4510,12 +4616,35 @@ def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
     client reconnects with its Last-Event-ID and receives exactly the
     missing suffix (one event, its id the stream's length). The joined
     streams (the second child's journal, replayed) equal an uninterrupted
-    in-process run's tokens."""
+    in-process run's tokens. The children's part runs on a thread while
+    the caller's other drives run (the smoke's time budget); the
+    returned function joins it and runs the in-process part."""
+    got: dict = {}
+
+    def children():
+        try:
+            got.update(_recovery_journal_children())
+        except BaseException as e:      # noqa: BLE001 — a FAIL included
+            got["error"] = e
+
+    th = threading.Thread(target=children, daemon=True)
+    th.start()
+
+    def finish() -> dict:
+        th.join(timeout=900)
+        if "error" in got or th.is_alive():
+            raise got.get("error") or SystemExit(
+                "chip_smoke: FAIL: recovery journal: the children's part "
+                "ran past 900 s")
+        return _recovery_journal_check(torch, cfg32, p32, card, **got)
+    return finish
+
+
+def _recovery_journal_children() -> dict:
+    """_recovery_journal's two children and their clients."""
     import tempfile
 
     from cake_tpu_torch.faults import ABORT_EXIT_CODE
-    from cake_tpu_torch.models.chat import Message
-    from cake_tpu_torch.serve import journal as jr
 
     tmp = tempfile.mkdtemp(prefix="cake_smoke_journal_")
     jpath = os.path.join(tmp, "requests.journal")
@@ -4565,7 +4694,19 @@ def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
         if b.poll() is None:
             b.kill()
             b.wait()
-    wall = time.perf_counter() - t0
+    return dict(wall=time.perf_counter() - t0, jpath=jpath, bodies=bodies,
+                last=last, replay=replay, resumed=resumed,
+                codes=[code, code_b])
+
+
+def _recovery_journal_check(torch, cfg32, p32, card, wall, jpath, bodies,
+                            last, replay, resumed, codes) -> dict:
+    """_recovery_journal's in-process part: the uninterrupted run, and
+    each stream held against it."""
+    from cake_tpu_torch.models.chat import Message
+    from cake_tpu_torch.serve import journal as jr
+
+    code = codes[0]
     states = {s["idempotency_key"]: s
               for s in jr.replay_state(jr.read_records(jpath)[0])[0]
               if s.get("idempotency_key")}
@@ -4578,7 +4719,7 @@ def _recovery_journal(torch, cfg32, p32, card: str) -> dict:
         for h in hs.values():
             h.wait(timeout=600)
     tok = eng.tokenizer
-    rec = dict(last_event_ids=last, replay=replay, exit_codes=[code, code_b],
+    rec = dict(last_event_ids=last, replay=replay, exit_codes=codes,
                wall_s=wall)
     for k in RECOVERY_KEYS:
         full = list(states[k]["out_tokens"])
@@ -4670,7 +4811,7 @@ def _device_fault_child(path: str, out: str) -> None:
     os._exit(0)
 
 
-def _recovery_device_fault(torch, cfg32, p32, clean, card: str) -> dict:
+def _recovery_device_fault(torch, cfg32, p32, card: str):
     """Drive 6: a real device fault. A child process serves the f32
     2-layer model and trips a device-side assert before a decode
     dispatch: its in-place reset and its fallback rebuild both raise
@@ -4678,10 +4819,9 @@ def _recovery_device_fault(torch, cfg32, p32, clean, card: str) -> dict:
     reads "stopped", every client gets a retryable error, and the
     snapshot is written without a device read. This process resumes the
     snapshot into a fresh engine: the joined streams equal an
-    uninterrupted run's (f32)."""
+    uninterrupted run's (f32). Returns, once the child is started, a
+    function of the uninterrupted streams that joins and checks it."""
     import tempfile
-
-    from cake_tpu_torch.serve import checkpoint
 
     tmp = tempfile.mkdtemp(prefix="cake_smoke_fault_")
     path, out = os.path.join(tmp, "ckpt.json"), os.path.join(tmp, "out.json")
@@ -4692,8 +4832,26 @@ def _recovery_device_fault(torch, cfg32, p32, clean, card: str) -> dict:
             f"chip_smoke.RECOVERY_CHILD_CONFIG = {RECOVERY_CHILD_CONFIG!r}; "
             f"chip_smoke._device_fault_child({path!r}, {out!r})")
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", code], cwd=here,
-                       capture_output=True, text=True, timeout=300)
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    # the caller's other drives run while the child serves and faults
+    # (the smoke's time budget); `clean` is theirs
+    return lambda clean: _recovery_device_fault_end(
+        torch, cfg32, p32, clean, card, child, path, out, t0)
+
+
+def _recovery_device_fault_end(torch, cfg32, p32, clean, card, child, path,
+                               out, t0) -> dict:
+    """_recovery_device_fault's child joined, its snapshot resumed."""
+    from cake_tpu_torch.serve import checkpoint
+
+    try:
+        _, stderr = child.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        fail("recovery device fault: the child ran past 300 s")
+    r = subprocess.CompletedProcess(child.args, child.returncode, "", stderr)
     if not os.path.exists(out):
         fail(f"recovery device fault: the child wrote nothing (exit "
              f"{r.returncode}):\n{r.stderr[-3000:]}")
@@ -4744,14 +4902,16 @@ def phase_recovery(torch, rpa, cfg, params, card: str) -> tuple:
     t_phase = time.perf_counter()
     counts, rec = _recovery_served(torch, rpa, cfg, params, card)
     cfg32, p32 = _f32_params(torch, cfg)
+    from cake_tpu_torch.serve.engine import InferenceEngine
+    fault_done = (_recovery_device_fault(torch, cfg32, p32, card)
+                  if hasattr(InferenceEngine, "_reset_in_place") else None)
+    journal_done = _recovery_journal(torch, cfg32, p32, card)
     rec["identity"] = _recovery_identity(torch, cfg32, p32, card)
     clean = rec["identity"].pop("clean")
     rec.update(_recovery_poison_breaker(torch, cfg32, p32, clean, card))
-    rec["journal"] = _recovery_journal(torch, cfg32, p32, card)
-    from cake_tpu_torch.serve.engine import InferenceEngine
-    if hasattr(InferenceEngine, "_reset_in_place"):
-        rec["device_fault"] = _recovery_device_fault(torch, cfg32, p32,
-                                                     clean, card)
+    rec["journal"] = journal_done()
+    if fault_done is not None:
+        rec["device_fault"] = fault_done(clean)
     del p32
     torch.cuda.empty_cache()
     rec["wall_s"] = time.perf_counter() - t_phase
@@ -5118,7 +5278,7 @@ def _spec_full(torch, rpa, fa, cfg, params, card: str):
     """(b) Llama-3-8B width and depth, the phases' bf16 weights: 128 x
     128-token pages, 8 slots, six chats of SPEC_NEW tokens at
     repeat_penalty 1.0, gamma 4, against the plain engine in the same
-    call; drafts: the target itself, its first four blocks, and a
+    call; drafts: the target itself and a
     Llama-3.2-1B-shaped random draft at SPEC_1B_LAYERS of its 16 layers
     (hd 64: the draft pool and rounds at another head width). Random
     weights decide acceptance here: it is printed, not gated. Then the
@@ -5160,8 +5320,9 @@ def _spec_full(torch, rpa, fa, cfg, params, card: str):
 
     records = [drive(engine(), "plain")]
     counts = None
+    # the target's first four blocks as a draft, cut for the
+    # smoke's time budget (the 1B-shaped draft is the mismatched one)
     drafts = (("self", lambda: (cfg, params)),
-              ("cut4", lambda: _cut_draft(cfg, params, 4)),
               ("llama3.2-1b", lambda: _llama32_1b(torch)))
     for name, make in drafts:
         d = make()
@@ -6613,8 +6774,9 @@ def _dense_identity(torch, fa, rpa, i4, card: str) -> dict:
                     for i, n in enumerate(DENSE_RING_PROMPTS_ID)]
     spec_prompts = prompts[2:]
     # drive -> (card engine, its kwargs, the CPU drive it must equal)
+    # "whole scan1" (decode_scan 1) cut for the smoke's time
+    # budget: scan 4's bursts replay the same step
     drives = {
-        "whole scan1": (flash, dict(decode_scan_steps=1), "whole"),
         "whole scan4": (flash, dict(decode_scan_steps=4), "whole"),
         "chunked scan4": (flash, dict(decode_scan_steps=4,
                                       prefill_chunk=DENSE_CHUNK_ID),
@@ -6701,7 +6863,7 @@ def _dense_identity(torch, fa, rpa, i4, card: str) -> dict:
             fail(f"dense (a) {name}: the card's streams "
                  f"{got[name]['streams']} are not the CPU engine's {ref}")
     # two hits a wave (the chunked engine runs two waves)
-    if got["whole scan1"]["prefix_hits"] != 2 or \
+    if got["whole scan4"]["prefix_hits"] != 2 or \
             got["chunked scan4"]["prefix_hits"] != 4:
         fail("dense (a): the head's prompts did not hit the prefix")
     for k in ("flash_attn", "flash_attn_cached"):
@@ -7096,7 +7258,8 @@ def _dense_spec(torch, cfg, params, plain: dict, card: str) -> dict:
     return rec
 
 
-def phase_dense(torch, rpa, fa, i4, cfg, params, card: str):
+def phase_dense(torch, rpa, fa, i4, cfg, params, card: str,
+                after_identity=None):
     """The dense phase: (a) the identities at 2 layers, f32, (b) the dense
     engine served at full width beside the paged engine, (c) the ring at
     Mistral-7B's window, (d) the dense spec engine. Returns ((b)'s
@@ -7107,6 +7270,8 @@ def phase_dense(torch, rpa, fa, i4, cfg, params, card: str):
     _release(torch)
     held = torch.cuda.memory_allocated()
     rec = dict(identity=_dense_identity(torch, fa, rpa, i4, card))
+    if after_identity is not None:
+        after_identity()     # a child that ran meanwhile, joined
     _release(torch)
     # flash prefills, as the context turns them on for a card
     cfg = dataclasses.replace(cfg, use_flash_attention=True)
@@ -8815,7 +8980,9 @@ class _MhPair:
         self.ckpt = os.path.join(self.tmp, "ckpt.json")
         api = _free_port()
         self.url = f"http://127.0.0.1:{api}"
-        argv = ["--model", model_dir, "--topology", topo, "--dtype", dtype,
+        # topo None: no topology (an --sp pair, given in `extra`)
+        argv = ["--model", model_dir,
+                *(["--topology", topo] if topo else []), "--dtype", dtype,
                 "--max-seq-len", str(MH_T), "--max-slots", str(MH_SLOTS),
                 "--decode-scan", str(MH_SCAN), "--auto-prefix",
                 "--checkpoint", self.ckpt, "--temperature", "0",
@@ -9024,12 +9191,15 @@ def _mh_reference(torch, cfg, dtype, args_kw, tok, drives, card,
     with a topology in args_kw) over the children's weights, behind the
     HTTP API: drives(url) -> its record."""
     params = _mh_params(torch, cfg, dtype)
-    args = _par_args(max_seq_len=MH_T, max_slots=MH_SLOTS,
-                     decode_scan=MH_SCAN, auto_prefix=True,
-                     sample_len=MH_NEW, prefill_chunk=None,
-                     dtype="f32" if dtype == torch.float32 else "bf16",
-                     **args_kw)
-    gen = _par_generator(torch, cfg, params, args, mesh_devices=mesh_devices)
+    kw = dict(max_seq_len=MH_T, max_slots=MH_SLOTS, decode_scan=MH_SCAN,
+              auto_prefix=True, sample_len=MH_NEW, prefill_chunk=None,
+              dtype="f32" if dtype == torch.float32 else "bf16")
+    kw.update(args_kw)
+    args = _par_args(**kw)
+    gen = (_sp_generator(torch, cfg, params, args, mesh_devices)
+           if args.sp > 1 else
+           _par_generator(torch, cfg, params, args,
+                          mesh_devices=mesh_devices))
     del params
     srv = _ParServer(torch, gen, args)
     eng = srv.engine
@@ -9099,6 +9269,254 @@ def _mh_kernels(torch, fa, i4, card: str) -> dict:
     return rec
 
 
+MH_SP_T = 2064                    # (e): --max-seq-len: a 2048 context
+MH_SP_CTX = 2048
+MH_SP_SHORT = (200, 500)          # (e): the short chats' user tokens
+MH_SD_STEPS = 20                  # (f): DDIM steps at guidance 7.5
+MH_SD_LEVELS = 1                  # (f): u8 levels the pair's image may differ
+
+
+MH_SP_EXTRA = ("--sp", "2", "--max-seq-len", str(MH_SP_T))
+
+
+def _mh_sp_chats(tok) -> tuple:
+    """(e)'s chats: two that fill the 2048-token window and two short
+    ones, each prompt's tokens less the system block's."""
+    from cake_tpu_torch.models.chat import History, Message
+
+    h = History("llama3")
+    h.add_message(Message.system(MH_SYSTEM))
+    h.add_message(Message.user(""))
+    bare = History("llama3")
+    bare.add_message(Message.user(""))
+    sys_block = len(tok.encode(h.render())) - len(tok.encode(bare.render()))
+    chats = (MH_SP_CTX - sys_block - 1, MH_SP_CTX - sys_block - 9,
+             *MH_SP_SHORT)
+    return chats, [n + sys_block for n in chats]
+
+
+def _mh_sp_identity(torch, cfg, tok, card: str, f32) -> dict:
+    """(e) --sp 2 across the two processes at f32: each owns one sp
+    position of a 2048-token context (the ring's chunks and a decode
+    step's q and stats cross by hop). Two full-window chats and two
+    short ones, a warm SSE wave then a measured one: every text the
+    single-process co-located --sp 2 engine's and the unsharded
+    engine's, no capture in the measured wave on either process. `f32`:
+    the pair, started by the caller. Untimed (other processes start
+    meanwhile): no TTFT or tok/s is kept."""
+    chats, tokens = _mh_sp_chats(tok)
+    t0 = time.perf_counter()
+    rec: dict = {"chat_tokens": tokens}
+
+    def drives(url):      # the texts alone: one wave
+        return _mh_wave(url, tok, chats, True, "s")
+
+    ref = {"unsharded": _mh_reference(
+        torch, cfg, torch.float32, dict(max_seq_len=MH_SP_T,
+                                        auto_prefix=False),
+        tok, drives, card)}
+    ref["co-located sp 2"] = _mh_reference(
+        torch, cfg, torch.float32, dict(sp=2, max_seq_len=MH_SP_T,
+                                        auto_prefix=False),
+        tok, drives, card, mesh_devices=[DEV] * 2)
+    rec["f32_startup_s"] = f32.wait_up()
+    url = f32.url
+    _mh_wave(url, tok, chats, True, "s")
+    _mh_drained(url)
+    m0 = _mh_metrics(url)
+    got = _mh_wave(url, tok, chats, True, "s")
+    _mh_drained(url)
+    m1 = _mh_metrics(url)
+    f32.kill()
+    caps = [b - a for a, b in zip(_mh_captures(m0), _mh_captures(m1))]
+    for label, r in ref.items():
+        if got["texts"] != r["texts"]:
+            same = sum(got["texts"][k] == r["texts"].get(k)
+                       for k in got["texts"])
+            fail(f"multihost (e): {same} of {len(chats)} f32 texts of "
+                 f"the sp 2 pair equal the {label} engine's")
+    if any(caps):
+        fail(f"multihost (e): the measured wave captured {caps} graphs "
+             "(coordinator, follower)")
+    rec["f32"] = dict(texts_equal=True, warm_captures=caps)
+    log(f"multihost (e) f32: --sp 2 across two processes, "
+        f"{len(chats)} chats of {tokens} tokens: every text the "
+        f"co-located sp 2 engine's and the unsharded engine's; the "
+        f"measured wave's captures {caps} [{card}]")
+    rec["f32_seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _mh_sp_cost(torch, cfg, tok, card: str, bf16) -> dict:
+    """(e) at bf16: the pair (`bf16`, started by the caller, awaited
+    here before anything is timed) beside the single-process co-located
+    sp 2 engine, a warm wave then the measured one each: TTFT p50,
+    decode tok/s, the hops a decode step and a hop's host seconds (the
+    processes' teardown reports)."""
+    chats, _ = _mh_sp_chats(tok)
+    t0 = time.perf_counter()
+    rec: dict = {"bf16_startup_s": bf16.wait_up()}
+
+    def cost(url):
+        _mh_wave(url, tok, chats, True, "b")
+        return _mh_wave(url, tok, chats, True, "b")
+
+    bf = {"co-located sp 2": _mh_reference(
+        torch, cfg, torch.bfloat16, dict(sp=2, max_seq_len=MH_SP_T,
+                                         auto_prefix=False),
+        tok, cost, card, mesh_devices=[DEV] * 2)}
+    bf["two processes"] = cost(bf16.url)
+    bf16.term()
+    bf16.reap()
+    reports = [bf16.report(i) for i in range(2)]
+    bf["two processes"]["processes"] = [
+        dict(hops=r["hops"], hop_ms=(1e3 * r["hop_seconds"] / r["hops"]
+                                     if r["hops"] else None),
+             decode_graphs=r["decode_segments"]) for r in reports]
+    for label, r in bf.items():
+        r.pop("texts")
+        log(f"multihost (e) bf16 {label:<15}: TTFT p50 "
+            f"{r['ttft_p50_s']:.3f} s, decode {r['decode_tok_s']:.1f} "
+            f"tok/s, wall {r['wall_s']:.2f} s"
+            + (f", processes {r['processes']} (a decode step's hops: "
+               "its graphs less one)" if "processes" in r else "")
+            + f" [{card}]")
+    rec["bf16"] = bf
+    rec["bf16_seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _mh_image_start(tree) -> dict:
+    """(f)'s two processes started (`_mh_image_up` awaits them)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="cake_smoke_mh_sd_")
+    port, api = _free_port(), _free_port()
+    logs = [os.path.join(tmp, f"p{i}.log") for i in range(2)]
+    procs = []
+    for i in range(2):
+        env = dict(os.environ, CAKE_COORDINATOR=f"127.0.0.1:{port}",
+                   CAKE_NUM_PROCESSES="2", CAKE_PROCESS_ID=str(i),
+                   PYTHONPATH=tree)
+        with open(logs[i], "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "cake_tpu_torch.cli", "--model-type",
+                 "image", "--sd-version", "v1-5", "--api",
+                 f"127.0.0.1:{api}"], stdout=log_f,
+                stderr=subprocess.STDOUT, env=env))
+    return dict(procs=procs, logs=logs, url=f"http://127.0.0.1:{api}",
+                t0=time.perf_counter())
+
+
+def _mh_image_up(started: dict, timeout: float = 300.0) -> float:
+    """(f)'s pair up (its health ok): the seconds since its start."""
+    procs, logs, url = started["procs"], started["logs"], started["url"]
+    deadline = time.perf_counter() + timeout
+    while True:
+        if any(p.poll() is not None for p in procs):
+            tails = []
+            for lp in logs:
+                with open(lp) as f:
+                    tails.append(f.read()[-3000:])
+            fail(f"multihost (f): a process died:\n{tails[0]}\n---\n"
+                 f"{tails[1]}")
+        try:
+            if _mh_get(url + "/api/v1/health", 2.0)["status"] == "ok":
+                return time.perf_counter() - started["t0"]
+        except (OSError, ValueError):
+            if time.perf_counter() > deadline:
+                fail("multihost (f): the image API never came up")
+            time.sleep(0.2)
+
+
+def _mh_image(torch, started: dict, card: str) -> dict:
+    """(f) SD v1-5 at its published 512 x 512, bf16 random weights, over
+    two processes (one dp position each: a process runs its half of the
+    guidance-doubled UNet batch, the halves cross by hop): SD_STEPS DDIM
+    steps at guidance 7.5 through POST /api/v1/image on process 0, the
+    follower replaying the generation; the PNG within MH_SD_LEVELS u8
+    levels of the single-process co-located --dp 2 generator's (the same
+    seed); seconds an image beside it (the second request each);
+    img2img refused with JAX's message. The caller has awaited the pair
+    (`_mh_image_up`): it idles while the reference is timed."""
+    import base64
+    import signal
+
+    from cake_tpu_torch.args import (
+        Args, ImageGenerationArgs, ModelType, SDArgs,
+    )
+    from cake_tpu_torch.master import Master
+    from cake_tpu_torch.models.sd.image import decode_png
+
+    body = {"image_prompt": "a red barn in a snowy field",
+            "sd_n_steps": MH_SD_STEPS, "sd_guidance_scale": 7.5,
+            "sd_seed": 3}
+    t0 = time.perf_counter()
+    procs, logs, url = started["procs"], started["logs"], started["url"]
+
+    def tail(i):
+        with open(logs[i]) as f:
+            return f.read()[-3000:]
+
+    rec: dict = {}
+    try:
+        # the reference (the pair idles, up): one process, the co-located
+        # --dp 2 mesh
+        master = Master.from_args(
+            Args(model_type=ModelType.IMAGE, dp=2, cpu=DEV == "cpu"),
+            SDArgs(sd_version="v1-5"), mesh_devices=[DEV] * 2)
+        want, secs = None, []
+        for _ in range(2):
+            out = []
+            t1 = time.perf_counter()
+            master.generate_image(ImageGenerationArgs(**body), out.extend)
+            secs.append(time.perf_counter() - t1)
+            want = decode_png(out[0])
+        rec["co-located dp 2_s"] = secs
+        del master
+        _release(torch)
+        secs, got = [], None
+        for _ in range(2):
+            t1 = time.perf_counter()
+            code, out = _http_json(url + "/api/v1/image", body)
+            secs.append(time.perf_counter() - t1)
+            if code != 200:
+                fail(f"multihost (f): /api/v1/image got {code} "
+                     f"{str(out)[:300]}")
+            got = decode_png(base64.b64decode(out["images"][0]))
+        rec["two processes_s"] = secs
+        diff = int(abs(got.astype(int) - want.astype(int)).max())
+        rec["max_level_diff"] = diff
+        if got.shape != (512, 512, 3) or want.std() == 0 \
+                or diff > MH_SD_LEVELS:
+            fail(f"multihost (f): the pair's image {got.shape} differs from "
+                 f"the co-located --dp 2 image by {diff} levels")
+        code, out = _http_json(url + "/api/v1/image",
+                               dict(body, sd_img2img="/nonexistent.png"))
+        want_msg = ("img2img is unavailable under multi-host serving: the "
+                    "init image exists on the coordinator only; serve "
+                    "img2img on one host")
+        if code not in (400, 500) or want_msg not in str(out):
+            fail(f"multihost (f): img2img got {code} {out}")
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = [procs[1].wait(120), procs[0].wait(120)]
+        if rcs[0] != 0 or "image follower: coordinator stopped" not in \
+                tail(1):
+            fail(f"multihost (f): the follower exited {rcs[0]}:\n{tail(1)}")
+        rec["rcs"] = rcs
+        log(f"multihost (f) SD v1-5 512 x 512 bf16 over two processes: "
+            f"{MH_SD_STEPS} steps in {secs[-1]:.2f} s an image (co-located "
+            f"--dp 2: {rec['co-located dp 2_s'][-1]:.2f} s), the PNG "
+            f"{diff} u8 levels from the co-located image; img2img refused "
+            f"({code}); follower exit {rcs[0]} [{card}]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def phase_multihost(torch, fa, i4, card: str, tree: str):
     """The multihost phase (ROADMAP A13 part 2; see the module
     docstring). Returns (the pairs' processes' kernel launches, the
@@ -9119,6 +9537,7 @@ def phase_multihost(torch, fa, i4, card: str, tree: str):
     second = _mh_body(tok, "second", 220, MH_NEW, False)
     long_body = _mh_body(tok, "long", 200, MH_LONG, True)
     pairs = []
+    later: list = []       # (e)'s and (f)'s, started after (c)
     parts: dict = {}
     try:
         # the three pairs start while the kernels and the f32 reference
@@ -9250,15 +9669,27 @@ def phase_multihost(torch, fa, i4, card: str, tree: str):
         # its coordinator goes too ((d) is a healthy pair's SIGTERM)
         f32.kill()
         parts["c"] = time.perf_counter() - t0
+        # (e)'s f32 pair and (f)'s pair start while only untimed drives
+        # run: (e)'s f32 identities and the int4 pair's wave
+        sp_f32 = _MhPair(tree, model_dir, None, "f32", "sp_f32",
+                         MH_SP_EXTRA)
+        later.append(sp_f32)
+        sd = _mh_image_start(tree)
+        later += sd["procs"]
+        rec["e"] = _mh_sp_identity(torch, cfg, tok, card, sp_f32)
+        parts["e_f32"] = time.perf_counter() - t0
+        # row 9 on the int4 pair
+        rec["int4_startup_s"] = q4.wait_up()
+        _mh_wave(q4.url, tok, MH_WAVE, True, "q")
 
-        # (b): the single-process engines, then the bf16 pair
+        # (b): every process started so far is up, and idles, before the
+        # single-process engines and the bf16 pair are timed
         def cost_drives(u):
             _mh_wave(u, tok, MH_WAVE, True, "w")
             return _mh_wave(u, tok, MH_WAVE, True, "m")
 
-        # the pairs idle (up) while the single-process engines run
         rec["bf16_startup_s"] = bf16.wait_up()
-        rec["int4_startup_s"] = q4.wait_up()
+        rec["f_startup_s"] = _mh_image_up(sd)
         cost = {"unsharded": _mh_reference(torch, cfg, torch.bfloat16, {},
                                            tok, cost_drives, card)}
         cost["co-located"] = _mh_reference(
@@ -9270,8 +9701,11 @@ def phase_multihost(torch, fa, i4, card: str, tree: str):
         cost["two processes"] = _mh_wave(bf16.url, tok, MH_WAVE, True, "m")
         m1 = _mh_metrics(bf16.url)
         cost["two processes"]["publish_p50_s"] = _mh_publish_p50(m0, m1)
-        # row 9 on the int4 pair, then (d): both pairs' SIGTERM at once
-        _mh_wave(q4.url, tok, MH_WAVE, True, "q")
+        # (e)'s bf16 pair starts while (d) stops the stage pairs: both
+        # pairs' SIGTERM at once
+        sp_bf16 = _MhPair(tree, model_dir, None, "bf16", "sp_bf16",
+                          MH_SP_EXTRA)
+        later.append(sp_bf16)
         bf16.term()
         q4.term()
         rcs = bf16.reap()
@@ -9310,19 +9744,559 @@ def phase_multihost(torch, fa, i4, card: str, tree: str):
         rec["d"] = dict(bf16_rcs=rcs)
         rec["launches"] = launches
         parts["b_d"] = time.perf_counter() - t0
-        rec["part_ends_s"] = parts
+        rec["part_ends_s"] = parts     # (e) and (f) add theirs below
         log(f"multihost (d): SIGTERM: follower {rcs[0]}, coordinator "
             f"{rcs[1]}, checkpoint on disk; int4 launches {n4}; the pairs' "
             f"launches {launches} [{card}]")
-    finally:
         for p in pairs:
             p.kill()
+        rec["e"].update(_mh_sp_cost(torch, cfg, tok, card, sp_bf16))
+        parts["e"] = time.perf_counter() - t0
+        rec["f"] = _mh_image(torch, sd, card)
+        parts["f"] = time.perf_counter() - t0
+    finally:
+        for p in pairs + later:
+            if isinstance(p, _MhPair):
+                p.kill()
+            elif p.poll() is None:
+                p.kill()
+                p.wait()
     _release(torch)
     rec["seconds"] = time.perf_counter() - t0
     if torch.cuda.memory_allocated() > held + 2**30:
         fail("multihost: the phase kept memory allocated")
     log(f"multihost phase: {rec['seconds']:.1f} s")
     return launches, rec
+
+
+# -- phase: router ------------------------------------------------------------
+
+RT_LAYERS = 8                     # (b)-(d): Llama-3-8B width, 8 of 32 blocks
+RT_F32_LAYERS = 2                 # (a), (c) kill: 2 blocks at f32
+RT_T = 2048                       # the replicas' --max-seq-len
+RT_PAGES = 256                    # --kv-pages (128-token pages)
+RT_SLOTS = 8                      # --max-slots
+RT_NEW = 16                       # tokens a chat
+RT_TENANTS = (256, 420, 600)      # the tenants' system prompts' tokens
+RT_CHATS = 4                      # chats a tenant
+RT_LONG = 64                      # (c): the killed and drained streams' tokens
+RT_TOKEN = "cake-smoke-announce"  # $CAKE_ANNOUNCE_TOKEN of the phase
+# a replica: MH_CHILD with its lm_head cut to the BPE tokenizer's
+# printable ASCII byte tokens (ids 32-126: no EOS, no partial UTF-8),
+# SIGUSR1 zeroing the kernels' launch counts and SIGUSR2 printing them
+RT_CHILD = MH_CHILD.replace('p["lm_head"][:, :35] = 0',
+                            'p["lm_head"][:, :32] = 0').replace(
+    'p["lm_head"][:, 130:] = 0', 'p["lm_head"][:, 127:] = 0').replace(
+    "from cake_tpu_torch import cli\n", """import json, signal
+from cake_tpu_torch.serve.graphs import COUNTERS
+def _zero(*_):
+    for c in COUNTERS:
+        for k in c:
+            c[k] = 0
+def _report(*_):
+    print("router child launches: " + json.dumps(
+        {k: n for c in COUNTERS for k, n in c.items()}), flush=True)
+signal.signal(signal.SIGUSR1, _zero)
+signal.signal(signal.SIGUSR2, _report)
+from cake_tpu_torch import cli
+""")
+
+
+def _rt_model_dir(layers: int) -> str:
+    """config.json (Llama-3-8B width at `layers` blocks, the tokenizer's
+    special ids) and the byte-level BPE tokenizer.json the replicas and
+    the router read; no weights (a replica draws seed 0's)."""
+    import tempfile
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    spec, specials = _tokenizer_json()
+    c = LlamaConfig.llama3_8b()
+    d = tempfile.mkdtemp(prefix="cake_smoke_rt_model_")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({
+            "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+            "intermediate_size": c.intermediate_size,
+            "num_hidden_layers": layers,
+            "num_attention_heads": c.num_attention_heads,
+            "num_key_value_heads": c.num_key_value_heads,
+            "rms_norm_eps": c.rms_norm_eps, "rope_theta": c.rope_theta,
+            "max_position_embeddings": c.max_position_embeddings,
+            "bos_token_id": specials["<|begin_of_text|>"],
+            "eos_token_id": [specials["<|end_of_text|>"],
+                             specials["<|eot_id|>"]]}, f)
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return d
+
+
+class _RtProc:
+    """One process of the phase (a replica or the router), its log."""
+
+    def __init__(self, argv, tag: str, tree: str):
+        import tempfile
+        self.tag = tag
+        self.log = os.path.join(tempfile.mkdtemp(prefix=f"cake_rt_{tag}_"),
+                                "log")
+        env = dict(os.environ, CAKE_ANNOUNCE_TOKEN=RT_TOKEN,
+                   PYTHONPATH=tree)
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(argv, stdout=f,
+                                         stderr=subprocess.STDOUT, env=env)
+
+    def tail(self, n: int = 3000) -> str:
+        with open(self.log) as f:
+            return f.read()[-n:]
+
+    def launches(self) -> dict:
+        """The kernels' launch counts since the last `zero` (SIGUSR2; the
+        child prints them)."""
+        import signal
+        with open(self.log) as f:
+            seen = f.read().count("router child launches: ")
+        self.proc.send_signal(signal.SIGUSR2)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30:
+            with open(self.log) as f:
+                lines = [ln for ln in f
+                         if ln.startswith("router child launches: ")]
+            if len(lines) > seen:
+                return json.loads(lines[-1].split(": ", 1)[1])
+            time.sleep(0.05)
+        fail(f"router: {self.tag} printed no launch counts:\n{self.tail()}")
+
+    def zero(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGUSR1)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _rt_replica(tree, model_dir, dtype, tag, announce=None,
+                port=None) -> tuple:
+    """(process, its address): `python -c RT_CHILD` serving the paged
+    engine with --auto-prefix; announce: the router's announce listener
+    (the replica registers itself) or None (the router names it)."""
+    port = port or _free_port()
+    addr = f"127.0.0.1:{port}"
+    argv = [sys.executable, "-c", RT_CHILD, tree, "--model", model_dir,
+            "--dtype", dtype, "--api", addr, "--kv-pages", str(RT_PAGES),
+            "--auto-prefix", "--max-slots", str(RT_SLOTS),
+            "--decode-scan", "4", "--max-seq-len", str(RT_T),
+            "--temperature", "0", "--repeat-penalty", "1.0",
+            "--sample-len", str(RT_NEW), *(["--cpu"] if DEV == "cpu" else [])]
+    if announce:
+        argv += ["--router-announce", announce, "--announce-interval",
+                 "0.5"]
+    return _RtProc(argv, tag, tree), addr
+
+
+def _rt_router(tree, model_dir, named: str, tag: str) -> tuple:
+    """(process, its address, its announce address): `python -m
+    cake_tpu_torch.cli --router` over `named` and whatever announces."""
+    port, aport = _free_port(), _free_port()
+    argv = [sys.executable, "-m", "cake_tpu_torch.cli", "--router",
+            "--model", model_dir, "--api", f"127.0.0.1:{port}",
+            "--replicas", named, "--router-announce",
+            f"127.0.0.1:{aport}", "--announce-interval", "0.5",
+            "--router-poll", "0.1"]
+    return (_RtProc(argv, tag, tree), f"127.0.0.1:{port}",
+            f"127.0.0.1:{aport}")
+
+
+def _rt_up(router: str, replicas, procs, timeout: float = 300.0) -> float:
+    """Wait on the router's state until every replica is admitting."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        for p in procs:
+            if p.proc.poll() is not None:
+                fail(f"router: {p.tag} died at startup:\n{p.tail()}")
+        try:
+            st = _mh_get(f"http://{router}/api/v1/router", 2.0)["replicas"]
+            if all(st.get(r, {}).get("admitting") for r in replicas):
+                return time.perf_counter() - t0
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.2)
+    fail(f"router: replicas {replicas} never all admitting")
+
+
+def _rt_system(tok, tag: str, n: int) -> str:
+    """A tenant's system prompt of at least n tokens of the tokenizer."""
+    words = ("policy", "ledger", "answer", "source", "careful", "exact",
+             "region", "customer", "order", "refund", "shipping", "tone")
+    text, i = f"You are the assistant of tenant {tag}.", 0
+    while len(tok.encode(text, add_special_tokens=False)) < n:
+        text += f" {words[i % len(words)]}"
+        i += 1
+    return text
+
+
+def _rt_chat(addr: str, system: str, user: str, n_new: int = RT_NEW,
+             headers=None, last_id=None) -> dict:
+    """One SSE chat: its text, the router's and the replica's headers,
+    the first content event's time, the highest event id."""
+    import http.client
+    body = {"messages": [{"role": "system", "content": system},
+                         {"role": "user", "content": user}],
+            "max_tokens": n_new, "temperature": 0.0, "stream": True}
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+    if last_id is not None:
+        hdrs["Last-Event-ID"] = str(last_id)
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(addr, timeout=600)
+    conn.request("POST", "/api/v1/chat/completions",
+                 body=json.dumps(body).encode(), headers=hdrs)
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise RuntimeError(f"{resp.status} {resp.read()[:300]!r}")
+    out = dict(t0=t0, t_first=None, pieces=[], last_id=None,
+               replica=resp.getheader("x-cake-replica"),
+               rid=resp.getheader("x-cake-rid"),
+               trace=resp.getheader("x-cake-trace"), resp=resp, conn=conn)
+    return out
+
+
+def _rt_read(c: dict, stop_after=None) -> dict:
+    """Read c's SSE events (all, or the first `stop_after` content
+    ones): text pieces, event ids, the first content time."""
+    cur = None
+    for raw in c["resp"]:
+        line = raw.decode().rstrip("\n")
+        if line.startswith("id: "):
+            cur = int(line[4:])
+        elif line.startswith("data: ") and line != "data: [DONE]":
+            ev = json.loads(line[6:])
+            if "error" in ev:
+                c["error"] = ev["error"]
+                break
+            piece = ev["choices"][0]["delta"].get("content")
+            if piece:
+                if c["t_first"] is None:
+                    c["t_first"] = time.perf_counter()
+                c["pieces"].append(piece)
+                c["last_id"] = cur
+                if stop_after and len(c["pieces"]) >= stop_after:
+                    return c
+        elif line == "data: [DONE]":
+            break
+    c["conn"].close()
+    return c
+
+
+def _rt_text(c: dict) -> str:
+    return "".join(c["pieces"])
+
+
+def _rt_wave(addr: str, chats, tag: str, home=None) -> dict:
+    """The chats (system, user) at once through `addr` (or each straight
+    to home[i]): texts, replicas, TTFT p50."""
+    out, errs = {}, {}
+
+    def one(i, system, user):
+        try:
+            a = home[i] if home else addr
+            out[i] = _rt_read(_rt_chat(a, system, user))
+        except Exception as e:   # noqa: BLE001
+            errs[i] = repr(e)
+
+    threads = [threading.Thread(target=one, args=(i, s, u))
+               for i, (s, u) in enumerate(chats)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs or len(out) != len(chats):
+        fail(f"router [{tag}]: chats failed {errs}")
+    return dict(wall_s=time.perf_counter() - t0,
+                texts=[_rt_text(out[i]) for i in range(len(chats))],
+                replicas=[out[i]["replica"] for i in range(len(chats))],
+                ttft_p50_s=statistics.median(
+                    c["t_first"] - c["t0"] for c in out.values()))
+
+
+def _rt_metric(addr: str, name: str) -> float:
+    return sum(v for k, v in _mh_metrics(f"http://{addr}").items()
+               if k == name or k.startswith(name + "{"))
+
+
+def _rt_tenant_chats(tok, tag: str):
+    """The phase's chats: RT_CHATS a tenant, each tenant's system prompt
+    RT_TENANTS tokens long."""
+    return [(_rt_system(tok, f"{tag}{t}", n), f"question {i} of {t}: "
+             "what should I check first?")
+            for t, n in enumerate(RT_TENANTS) for i in range(RT_CHATS)]
+
+
+def _rt_start(tree: str) -> dict:
+    """The router phase's six processes started: the f32 pair a0 (named)
+    and a1 (announced) behind router_a, the bf16 pair b0 (named, and
+    announcing too: either bf16 replica can be (c)'s drained home and the
+    other (d)'s departing one) and b1 behind router_b."""
+    d32, d16 = _rt_model_dir(RT_F32_LAYERS), _rt_model_dir(RT_LAYERS)
+    st = dict(d32=d32, d16=d16)
+    st["a0"], st["a0_addr"] = _rt_replica(tree, d32, "f32", "a0")
+    st["ra"], st["ra_addr"], ra_ann = _rt_router(tree, d32, st["a0_addr"],
+                                                 "router_a")
+    st["a1"], st["a1_addr"] = _rt_replica(tree, d32, "f32", "a1", ra_ann)
+    b0_port = _free_port()
+    st["rb"], st["rb_addr"], rb_ann = _rt_router(
+        tree, d16, f"127.0.0.1:{b0_port}", "router_b")
+    st["b0"], st["b0_addr"] = _rt_replica(tree, d16, "bf16", "b0", rb_ann,
+                                          port=b0_port)
+    st["b1"], st["b1_addr"] = _rt_replica(tree, d16, "bf16", "b1", rb_ann)
+    st["procs"] = [st[k] for k in ("a0", "ra", "a1", "b0", "rb", "b1")]
+    return st
+
+
+def phase_router(torch, card: str, tree: str):
+    """The router phase (ROADMAP A15): `python -m cake_tpu_torch.cli
+    --router` over two replica processes (the paged engine, --auto-prefix,
+    Llama-3-8B width from seed 0), one named by --replicas, the other
+    registered by --router-announce. (a) f32 at 2 blocks: every text
+    through the router is the text straight from the replica it names
+    (x-cake-replica), and every chat of a tenant lands on one replica.
+    (b) bf16 at 8 blocks: twelve SSE chats, a warm wave then a measured
+    one: TTFT p50 through the router beside straight to the replicas,
+    prefix hits per replica, the router's cake_router_* families,
+    /api/v1/fleet with both replicas, no capture in the measured wave,
+    the kernels' launches in it. (c) faults: a replica SIGKILLed in the
+    middle of a keyed stream, the reconnect with Last-Event-ID finishing
+    on the survivor (the reference's text) and the router's federated
+    timeline naming both; a drained replica gets no new admission while
+    its stream finishes (the router's state awaited). (d) a SIGTERMed
+    replica's departure reaches the router before the replica exits.
+    Returns (the measured wave's launches, the record)."""
+    from cake_tpu_torch.models.llama.generator import load_tokenizer
+
+    t0 = time.perf_counter()
+    st = _rt_start(tree)
+    procs = st["procs"]
+    rec: dict = {}
+    try:
+        a0, ra, a1, b0, rb, b1 = procs
+        a0_addr, ra_addr, a1_addr = st["a0_addr"], st["ra_addr"], \
+            st["a1_addr"]
+        b0_addr, rb_addr, b1_addr = st["b0_addr"], st["rb_addr"], \
+            st["b1_addr"]
+        tok = load_tokenizer(st["d32"])
+        chats = _rt_tenant_chats(tok, "t")
+        rec["system_tokens"] = [
+            len(tok.encode(chats[i][0], add_special_tokens=False))
+            for i in range(0, len(chats), RT_CHATS)]
+        rec["a_startup_s"] = _rt_up(ra_addr, (a0_addr, a1_addr),
+                                    (a0, a1, ra))
+
+        # (a) f32: through the router, then straight to the named replica
+        homes: dict = {}
+        for i, (system, user) in enumerate(chats):
+            via = _rt_read(_rt_chat(ra_addr, system, user))
+            if via["replica"] not in (a0_addr, a1_addr) or not via["trace"]:
+                fail(f"router (a): chat {i} came back from "
+                     f"{via['replica']!r}, trace {via['trace']!r}")
+            direct = _rt_read(_rt_chat(via["replica"], system, user))
+            if _rt_text(via) != _rt_text(direct):
+                fail(f"router (a): chat {i}'s text through the router is "
+                     f"not {via['replica']}'s own")
+            homes.setdefault(i // RT_CHATS, set()).add(via["replica"])
+        if any(len(h) != 1 for h in homes.values()):
+            fail(f"router (a): a tenant's chats split over {homes}")
+        fleet = _mh_get(f"http://{ra_addr}/api/v1/fleet", 10)
+        src = {r: fleet["replicas"][r]["source"] for r in (a0_addr, a1_addr)}
+        rec["a"] = dict(homes={t: sorted(h)[0] for t, h in homes.items()},
+                        sources=src)
+        log(f"router (a) f32 {RT_F32_LAYERS} blocks: {len(chats)} chats "
+            f"of {len(RT_TENANTS)} tenants (system prompts "
+            f"{rec['system_tokens']} tokens) equal their replica's own "
+            f"text, each tenant on one replica {rec['a']['homes']}; "
+            f"sources {src} [{card}]")
+
+        # (c) kill: a keyed stream's home dies after 3 events
+        sysk, userk = chats[0][0], "tell me everything about the policy"
+        key = {"x-cake-idempotency-key": "smoke-kill"}
+        c = _rt_read(_rt_chat(ra_addr, sysk, userk, RT_LONG, key),
+                     stop_after=3)
+        home = c["replica"]
+        rid_home = c["rid"]
+        survivor = a1_addr if home == a0_addr else a0_addr
+        (a0 if home == a0_addr else a1).kill()
+        try:
+            _rt_read(c)
+        except Exception:   # noqa: BLE001 — the replica is gone
+            pass
+        c2 = _rt_read(_rt_chat(ra_addr, sysk, userk, RT_LONG, key,
+                               last_id=c["last_id"]))
+        if c2["replica"] != survivor or c2["trace"] != c["trace"]:
+            fail(f"router (c): the reconnect went to {c2['replica']} "
+                 f"(trace {c2['trace']} vs {c['trace']})")
+        ref = _rt_read(_rt_chat(survivor, sysk, userk, RT_LONG))
+        if _rt_text(c) + _rt_text(c2) != _rt_text(ref):
+            fail("router (c): the resumed stream's text is not the "
+                 "reference's")
+        tl = _mh_get(f"http://{ra_addr}/api/v1/requests/{c2['rid']}"
+                     "/timeline", 30)
+        rows = {r["replica"]: r for r in tl["replicas"]}
+        if set(rows) != {home, survivor} or tl["trace"] != c["trace"] \
+                or str(rows[home]["rid"]) != str(rid_home):
+            fail(f"router (c): the federated timeline names {rows}")
+        rec["c_kill"] = dict(events_before=len(c["pieces"]),
+                             resumed_on=survivor, timeline_entries=len(
+                                 tl["timeline"]),
+                             causes=tl["summary"]["causes"])
+        log(f"router (c) kill: {home} SIGKILLed after "
+            f"{len(c['pieces'])} events; the keyed reconnect (Last-Event-ID "
+            f"{c['last_id']}) finished on {survivor}, the reference's text; "
+            f"the federated timeline names both ({len(tl['timeline'])} "
+            f"entries, causes {tl['summary']['causes']}) [{card}]")
+        for p in (a0, a1, ra):
+            p.kill()
+        parts = {"a_c_kill": time.perf_counter() - t0}
+
+        # (b) bf16 at 8 blocks: a warm wave, then the measured one
+        rec["b_startup_s"] = _rt_up(rb_addr, (b0_addr, b1_addr),
+                                    (b0, b1, rb))
+        chats16 = _rt_tenant_chats(tok, "u")
+
+        def captures():
+            return [_rt_metric(r, "cake_jit_compiles_total")
+                    for r in (b0_addr, b1_addr)]
+
+        # warm until a wave captures nothing (at most 4 waves): which
+        # step variants a wave needs follows the chats' arrival order
+        caps0 = captures()
+        for warm in range(1, 5):
+            _rt_wave(rb_addr, chats16, "warm")
+            got = captures()
+            if got == caps0:
+                break
+            caps0 = got
+        rec["warm_waves"] = warm
+        for p in (b0, b1):
+            p.zero()
+        time.sleep(1.0)      # the zeroing lands between the waves
+        via = _rt_wave(rb_addr, chats16, "measured")
+        launches: dict = {}
+        for p in (b0, b1):
+            for k, n in p.launches().items():
+                launches[k] = launches.get(k, 0) + n
+        caps = [_rt_metric(r, "cake_jit_compiles_total") - c0
+                for r, c0 in zip((b0_addr, b1_addr), caps0)]
+        direct = _rt_wave(None, chats16, "direct", home=via["replicas"])
+        # printed, not gated: at bf16 a wave's batch composition moves
+        # near-ties ((a) holds the texts at f32)
+        same = sum(a == b for a, b in zip(direct["texts"], via["texts"]))
+        if any(caps):
+            fail(f"router (b): the measured wave captured {caps} graphs")
+        for k in ("rpa_decode", "rpa_mixed"):
+            if launches.get(k, 0) <= 0 and DEV == "cuda":
+                fail(f"router (b): {k} never launched on the replicas "
+                     f"({launches})")
+        plain = {k: n for k, n in launches.items()
+                 if k.endswith("_plain") and n}
+        if plain and DEV == "cuda":
+            fail(f"router (b): plain versions ran {plain}")
+        hits = {r: _rt_metric(r, "cake_engine_prefix_hits_total")
+                for r in (b0_addr, b1_addr)}
+        m = _mh_metrics(f"http://{rb_addr}")
+        rmet = {k: v for k, v in m.items() if k.startswith("cake_router_")}
+        fleet = _mh_get(f"http://{rb_addr}/api/v1/fleet", 10)
+        if set(fleet["replicas"]) != {b0_addr, b1_addr}:
+            fail(f"router (b): /api/v1/fleet shows {fleet['replicas']}")
+        if not any(k.startswith("cake_router_requests_total") for k in rmet):
+            fail("router (b): no cake_router_requests_total on /metrics")
+        rec["b"] = dict(
+            router=dict(ttft_p50_s=via["ttft_p50_s"], wall_s=via["wall_s"]),
+            direct=dict(ttft_p50_s=direct["ttft_p50_s"],
+                        wall_s=direct["wall_s"]),
+            replicas=Counter(via["replicas"]), prefix_hits=hits,
+            texts_equal_direct=same,
+            measured_captures=caps, launches=launches,
+            fleet={r: v.get("source") for r, v in fleet["replicas"].items()},
+            router_families=sorted({k.split("{")[0] for k in rmet}))
+        log(f"router (b) bf16 {RT_LAYERS} blocks: {len(chats16)} SSE chats, "
+            f"TTFT p50 {via['ttft_p50_s']:.3f} s through the router, "
+            f"{direct['ttft_p50_s']:.3f} s straight to the replicas ({same} "
+            f"of {len(chats16)} bf16 texts equal); "
+            f"replicas {dict(Counter(via['replicas']))}, prefix hits {hits}, "
+            f"the measured wave's captures {caps}, launches {launches}; "
+            f"router families {rec['b']['router_families']} [{card}]")
+        parts["b"] = time.perf_counter() - t0
+
+        # (c) drain: b0 drains while its stream runs; new work goes to b1
+        c = _rt_read(_rt_chat(rb_addr, chats16[0][0], "a long answer",
+                              RT_LONG), stop_after=1)
+        home = c["replica"]
+        other = b1_addr if home == b0_addr else b0_addr
+        code, st = _http_json(f"http://{home}/api/v1/drain",
+                              {"timeout_s": 120})
+        if code != 200 or not st.get("draining"):
+            fail(f"router (c) drain: {code} {st}")
+        t_drain = time.perf_counter()
+        while time.perf_counter() - t_drain < 60:
+            rows = _mh_get(f"http://{rb_addr}/api/v1/router", 5)["replicas"]
+            if not rows[home]["admitting"]:
+                break
+            time.sleep(0.05)
+        else:
+            fail(f"router (c) drain: the router still admits to {home}")
+        seen_s = time.perf_counter() - t_drain
+        after = [_rt_read(_rt_chat(rb_addr, chats16[0][0], f"after {i}"))
+                 for i in range(3)]
+        if {x["replica"] for x in after} != {other}:
+            fail(f"router (c) drain: new chats went to "
+                 f"{[x['replica'] for x in after]}")
+        _rt_read(c)
+        if len(c["pieces"]) < 2 or "error" in c:
+            fail(f"router (c) drain: the in-flight stream ended with "
+                 f"{len(c['pieces'])} events {c.get('error')}")
+        rec["c_drain"] = dict(router_saw_s=seen_s, stream_events=len(
+            c["pieces"]), after=other)
+        log(f"router (c) drain: the router stopped admitting to {home} "
+            f"{seen_s:.3f} s after its drain; 3 new chats went to {other}, "
+            f"the in-flight stream finished ({len(c['pieces'])} events) "
+            f"[{card}]")
+
+        # (d) SIGTERM the announced replica: its departure first
+        import signal
+        dep = b1 if other == b1_addr else b0
+        dep_addr = other
+        exited = []
+
+        def wait_exit():
+            dep.proc.wait(120)
+            exited.append(time.time())
+
+        w = threading.Thread(target=wait_exit)
+        dep.proc.send_signal(signal.SIGTERM)
+        w.start()
+        t_dep = None
+        while time.perf_counter() - t_drain < 300 and t_dep is None:
+            evs = _mh_get(f"http://{rb_addr}/api/v1/events?type="
+                          "replica_departed", 5)["events"]
+            for ev in evs:
+                if ev.get("replica") == dep_addr:
+                    t_dep = ev["ts"]
+            time.sleep(0.05)
+        w.join(timeout=120)
+        if t_dep is None or not exited or not t_dep < exited[0]:
+            fail(f"router (d): departure at {t_dep}, exit at {exited} "
+                 f"for {dep_addr}:\n{dep.tail()}")
+        rec["d"] = dict(departed_before_exit_s=exited[0] - t_dep,
+                        rc=dep.proc.returncode)
+        log(f"router (d): {dep_addr} SIGTERMed: the router's "
+            f"replica_departed {exited[0] - t_dep:.3f} s before the "
+            f"process exited ({dep.proc.returncode}) [{card}]")
+        parts["c_d"] = time.perf_counter() - t0
+        rec["part_ends_s"] = parts
+    finally:
+        for p in procs:
+            p.kill()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"router phase: {rec['seconds']:.1f} s")
+    return rec["b"]["launches"], rec
 
 
 def main(argv=None) -> int:
@@ -9423,6 +10397,8 @@ def main(argv=None) -> int:
     sp_counts = {}
     mh_record = None
     mh_counts = {}
+    router_record = None
+    router_counts = {}
     if {"step", "generate", "serve", "prefix", "sched", "tiers",
             "recovery", "spec", "control", "disagg", "dense"} & set(phases):
         cfg, params = _big_params(torch)
@@ -9508,11 +10484,15 @@ def main(argv=None) -> int:
             "DenseSpecRunner")
         if "dense" in phases and has_dense:
             # (b)'s measured dense wave's launches (set to 0 just before
-            # it), a kernels-line key of their own
+            # it), a kernels-line key of their own; the generate phase's
+            # command lines run during (a)'s identity drives
+            cli_done = _generate_cli() if "generate" in phases else None
             dense_counts, dense_record = phase_dense(
                 torch, rpa, fa, i4, *_cut_draft(cfg, params, CUT_LAYERS),
-                card)
+                card, after_identity=cli_done)
             lap("dense")
+        elif "generate" in phases:
+            _generate_cli()()
         # the weight-quantized path, after the bf16 tree is dropped
         del params
         torch.cuda.empty_cache()
@@ -9577,6 +10557,12 @@ def main(argv=None) -> int:
         # kernels-line key of their own
         mh_counts, mh_record = phase_multihost(torch, fa, i4, card, tree)
         lap("multihost")
+    if "router" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.router"):
+        # the measured wave's launches on both replicas (each set to 0
+        # just before it), a kernels-line key of their own
+        router_counts, router_record = phase_router(torch, card, tree)
+        lap("router")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -9622,6 +10608,9 @@ def main(argv=None) -> int:
     if mh_record is not None:
         print(json.dumps({"multihost": mh_record, "card": card},
                          default=str), flush=True)
+    if router_record is not None:
+        print(json.dumps({"router": router_record, "card": card},
+                         default=str), flush=True)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -9655,6 +10644,8 @@ def main(argv=None) -> int:
                             if sp_record else None),
             "multihost_launches": (mh_counts.get(name, 0)
                                    if mh_record else None),
+            "router_launches": (router_counts.get(name, 0)
+                                if router_record else None),
             "max_abs_err": rec.get("max_abs_err"),
             "max_abs_err_f32": f32.get("max_abs_err"),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),

@@ -15,9 +15,11 @@ weights streamed stage-locally from one tiny safetensors checkpoint.
     single-process engine's.
   * (tests/test_torch_multihost_failover.py) a follower killed in the
     middle of a stream, and a restarted pair resuming the request.
-  * The refusals: control over the paged engine (JAX's message),
-    multi-process --sp and image serving (before any weight loads,
-    ROADMAP A13(3)), and `--mode worker` with rc 2.
+  * The refusals: control over the paged engine (JAX's message), JAX's
+    multi-process refusals of an sp mesh that leaves devices out, an
+    image --dp other than the total and a component topology with
+    multi-process image serving (before any weight loads), and
+    `--mode worker` with rc 2.
 
 JAX's references are computed once for the module. `cuda` cases (two
 processes on the card) hold a gloo hop of card tensors through the
@@ -353,8 +355,15 @@ def test_control_refuses_the_paged_engine_with_jaxs_message():
     assert "--kv-pages" in msgs[0]
 
 
-@pytest.mark.parametrize("case", ["sp", "image"])
-def test_multiprocess_sp_and_image_serving_are_refused(monkeypatch, case):
+@pytest.mark.parametrize("case", ["sp_span", "image_dp", "image_topology"])
+def test_multiprocess_sp_and_image_refusals_are_jaxs(monkeypatch, tmp_path,
+                                                     case):
+    """JAX's multi-process refusals, in its words and before any weight
+    loads: an sp mesh that leaves devices out (cake_tpu/context.py's span
+    check), an image --dp other than the total device count, and an SD
+    component topology with multi-process image serving."""
+    import torch
+
     import cake_tpu_torch.parallel.distributed as pdist
     from cake_tpu_torch.args import Args, ModelType, SDArgs
     from cake_tpu_torch.context import Context
@@ -364,20 +373,40 @@ def test_multiprocess_sp_and_image_serving_are_refused(monkeypatch, case):
     import cake_tpu_torch.models as models
     monkeypatch.setattr(models, "load_text_params",
                         lambda *a, **k: loaded.append(a))
-    if case == "sp":
-        ctx = Context.from_args(Args(cpu=True, sp=2, max_seq_len=256))
-        with pytest.raises(ValueError,
-                           match=r"multi-process --sp .*A13\(3\)"):
+    cpus = [torch.device("cpu")] * 2     # two devices a process: four
+    if case == "sp_span":
+        ctx = Context.from_args(Args(cpu=True, sp=2, max_seq_len=256),
+                                mesh_devices=cpus)
+        with pytest.raises(ValueError) as e:
             ctx.load_text_model()
+        assert str(e.value) == (
+            "multi-host --sp meshes must span every device: sp x tp "
+            "(x dp/stages) = 2 != 4 global devices")
     else:
         from cake_tpu_torch.models.sd import sd as sd_mod
         monkeypatch.setattr(sd_mod.SDGenerator, "load", classmethod(
             lambda cls, ctx: loaded.append(ctx)))
-        ctx = Context.from_args(Args(cpu=True,
-                                     model_type=ModelType.IMAGE), SDArgs())
-        with pytest.raises(ValueError,
-                           match=r"multi-process image serving .*A13\(3\)"):
+        if case == "image_dp":
+            ctx = Context.from_args(Args(cpu=True, dp=3,
+                                         model_type=ModelType.IMAGE),
+                                    SDArgs(), mesh_devices=cpus)
+            want = ("multi-host image serving meshes over ALL 4 devices; "
+                    "--dp 3 cannot be honored (drop the flag or set it to "
+                    "the total device count)")
+        else:
+            topo = tmp_path / "sd.yml"
+            topo.write_text("w0:\n  host: 10.0.0.1:1\n  layers:\n"
+                            "    - unet\n")
+            ctx = Context.from_args(Args(cpu=True, topology=str(topo),
+                                         model_type=ModelType.IMAGE),
+                                    SDArgs())
+            want = ("multi-host image serving (which meshes the whole "
+                    "pipeline) and an SD component topology are mutually "
+                    "exclusive: one SPMD program cannot mix mesh-sharded "
+                    "and committed-to-device components")
+        with pytest.raises(ValueError) as e:
             ctx.load_image_model()
+        assert str(e.value) == want
     assert loaded == []
 
 
