@@ -138,6 +138,10 @@ class ApiServer:
     """Wraps a Master and its engine: chat requests batch continuously.
     An image model's master is wrapped with engine=None."""
 
+    # cakelint guards discipline: the federation collector is optional
+    # (coordinator-with---telemetry-collect only)
+    OPTIONAL_PLANES = ("collector",)
+
     def __init__(self, master, model_name: str = "cake-tpu", engine=None,
                  collector=None, health=None, replica_id=None):
         import os
@@ -159,6 +163,9 @@ class ApiServer:
         # the generation lock): an image model's queue depth
         self._waiting = 0
         self._waiting_lock = threading.Lock()
+        # the paged pool's (page size, free, total), as last read
+        # (_pool_state)
+        self._pool_cache = None
         # parallel.health.ServingHealth: once it fails, POSTs 503 and
         # /api/v1/health reports the reason
         self.health_state = health
@@ -438,6 +445,27 @@ class ApiServer:
                 self._waiting -= 1
         return {"images": [base64.b64encode(p).decode() for p in images]}
 
+    def _pool_state(self, eng):
+        """(page size, free pages, total pages) of the paged engine's
+        pool, or None before a first read. The pager swaps wholesale
+        during a live reconfigure, under the engine's _admit_lock; its
+        declared lock pins one consistent pool. NON-blocking on purpose
+        (the refresh_page_gauges discipline): the health endpoint,
+        including the router's sub-second lite poll, must never stall
+        behind a switch holding the lock through its rebuild, or the
+        router would eject a healthy replica exactly when it is
+        switching. On contention the last-seen values serve one more
+        poll."""
+        if eng._admit_lock.acquire(blocking=False):
+            try:
+                # cakelint: skip[affinity] _admit_lock held via the non-blocking acquire above (the with-form would block the health path behind a switch)
+                pager = eng._pager
+                self._pool_cache = (pager.page_size, pager.free_pages,
+                                    pager.n_pages)
+            finally:
+                eng._admit_lock.release()
+        return self._pool_cache
+
     def health(self, lite: bool = False) -> dict:
         """/api/v1/health: engine occupancy, per-class queue depths (SLO
         scheduling on), pool pages, SLO accounting and throughput, and
@@ -479,8 +507,9 @@ class ApiServer:
         if eng._draining:
             out["draining"] = True
             out["drain"] = eng.drain_state()
-        if eng.paged:
-            out["page_size"] = eng._pager.page_size
+        pool = self._pool_state(eng) if eng.paged else None
+        if pool is not None:
+            out["page_size"] = pool[0]
         # the autotune epoch and the switch flag (a router redirects
         # fresh admissions while a fold-everything switch runs)
         out["config_epoch"] = eng.config_epoch
@@ -501,9 +530,9 @@ class ApiServer:
         if eng._journal is not None:
             out["journal"] = eng._journal.state()
         if eng.paged:
-            out.update(pages_free=eng._pager.free_pages,
-                       pages_total=eng._pager.n_pages,
-                       paged_attn=eng.paged_attn)
+            if pool is not None:
+                out.update(pages_free=pool[1], pages_total=pool[2])
+            out["paged_attn"] = eng.paged_attn
         st = eng.stats
         out.update(
             requests_completed=st.requests_completed,

@@ -211,14 +211,18 @@ class Context:
                 raise ValueError(
                     "--prefill-chunk is not supported with --draft-model "
                     "(speculative prefill is whole-prompt)")
-            return self._load_speculative(cfg, params, tokenizer, sampling,
-                                          max_seq, kv_dtype)
-        return LlamaGenerator(
-            cfg, params, tokenizer,
-            max_seq_len=max_seq,
-            batch_size=a.batch_size,
-            sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
-            prefill_chunk=a.prefill_chunk, device=self.device, **kwargs)
+            gen = self._load_speculative(cfg, params, tokenizer, sampling,
+                                         max_seq, kv_dtype)
+        else:
+            gen = LlamaGenerator(
+                cfg, params, tokenizer,
+                max_seq_len=max_seq,
+                batch_size=a.batch_size,
+                sampling=sampling, seed=a.seed, cache_dtype=kv_dtype,
+                prefill_chunk=a.prefill_chunk, device=self.device, **kwargs)
+        from cake_tpu_torch.utils.profiling import log_memory
+        log_memory("model loaded")  # reference llama.rs:233-236
+        return gen
 
     def _device_count(self) -> Optional[int]:
         """The devices a plan may take: the named mesh devices, else every

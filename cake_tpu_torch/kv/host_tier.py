@@ -172,6 +172,9 @@ class SpilledPages:
 class HostTier:
     """LRU store of spilled KV pages, capacity-bounded in pages."""
 
+    # cakelint guards discipline: the event bus is an optional plane
+    OPTIONAL_PLANES = ("_events",)
+
     def __init__(self, capacity_pages: int, page_bytes: int = 0,
                  events=None, dtype_name: str = "float32"):
         if capacity_pages < 1:

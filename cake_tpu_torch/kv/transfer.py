@@ -418,6 +418,13 @@ class DisaggPrefillPlane:
     _sendq from the engine thread)."""
 
     role = "prefill"
+    # every deref of the optional event bus sits behind `is not None`
+    # (the disabled-plane guard discipline, machine-checked)
+    OPTIONAL_PLANES = ("_events",)
+    # channel-thread single-writer state: handler-side entry points may
+    # only reach the pending-handle map under the ship lock
+    ENGINE_THREAD_ATTRS = {"_ship_pending": "_ship_lock"}
+    HANDLER_THREAD_METHODS = ("stop",)
 
     def __init__(self, engine, bind: Tuple[str, int], token: str,
                  events=None):
@@ -623,6 +630,11 @@ class DisaggDecodePlane:
     on the card)."""
 
     role = "decode"
+    OPTIONAL_PLANES = ("_events",)
+    # channel-thread single-writer state: the handler-side entry point
+    # may only reach the pending map under the transfer lock
+    ENGINE_THREAD_ATTRS = {"_xfer_pending": "_xfer_lock"}
+    HANDLER_THREAD_METHODS = ("request_prefill", "stop")
 
     def __init__(self, engine, peer: Tuple[str, int], token: str,
                  events=None, timeout_s: float = 30.0, pin: bool = False):

@@ -368,7 +368,11 @@ def load_params_sharded(model_dir: str, config: LlamaConfig, mesh, specs,
             needed.add(f"model.layers.{i}.{hf_suffix}")
     if config.tie_word_embeddings:
         needed.discard("lm_head.weight")
-    host = load_weights(model_dir, filter_fn=lambda n: n in needed)
+    # host tensors stay zero-copy mmap views; prefetch=False keeps the
+    # native reader from madvise(WILLNEED)ing the whole checkpoint (only
+    # shard slices are ever touched)
+    host = load_weights(model_dir, filter_fn=lambda n: n in needed,
+                        prefetch=False)
     missing = needed - set(host)
     if missing:
         raise KeyError(f"{model_dir}: missing tensors {sorted(missing)[:4]}"

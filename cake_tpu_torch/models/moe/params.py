@@ -215,7 +215,9 @@ def load_params_sharded(model_dir: str, config: MoEConfig, mesh, specs,
     c = config
     L, E = c.num_hidden_layers, c.num_local_experts
     moe = MOE_PREFIX
-    host = load_weights(model_dir)
+    # prefetch=False: only shard slices are touched (the dense loader's
+    # reason)
+    host = load_weights(model_dir, prefetch=False)
     params: Dict = {"blocks": {}}
     top = {"embed": ("model.embed_tokens.weight", False),
            "final_norm": ("model.norm.weight", False),

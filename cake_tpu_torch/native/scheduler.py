@@ -1,9 +1,12 @@
-"""Continuous-batching scheduler (FIFO), in Python.
+"""Continuous-batching scheduler (FIFO): native (C++) with a Python
+fallback.
 
-Counterpart of `cake_tpu/native/scheduler.py` (`PyScheduler`,
-`make_scheduler`); the C++ scheduler is not ported yet. Requests queue
-FCFS, are admitted into decode slots between engine iterations, and
-retire on EOS/max-tokens:
+Counterpart of `cake_tpu/native/scheduler.py`: `NativeScheduler` wraps
+csrc/scheduler.cpp through ctypes, `PyScheduler` is the same FIFO in
+Python, and `make_scheduler` takes the native one wherever the library
+builds (cake_tpu_torch/native/__init__.py). Requests queue FCFS, are
+admitted into decode slots between engine iterations, and retire on
+EOS/max-tokens. Both expose:
 
     submit(id, prompt_len, max_new_tokens) -> bool
     cancel(id) -> bool
@@ -14,13 +17,25 @@ retire on EOS/max-tokens:
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from collections import deque
 from typing import Dict, List, Tuple
 
+from cake_tpu_torch.native import get_library
+
 
 class PyScheduler:
-    """Pure-Python FIFO scheduler."""
+    """Pure-Python FIFO scheduler (and the toolchain-free fallback)."""
+
+    # cakelint lock discipline: the scheduler/shed/slo `_mu` leaf lock
+    # nests strictly inside the engine's locks (the engine calls
+    # scheduler methods while holding _admit_lock/_rid_lock, never the
+    # reverse), and nothing may block under it: it sits on every
+    # submit and every engine iteration
+    LOCK_ORDER = ("_switch_lock", "_admit_lock", "_rid_lock", "_ckpt_lock",
+                  "_mu")
+    NO_BLOCKING_UNDER = ("_rid_lock", "_mu")
 
     def __init__(self, max_slots: int, max_queue: int = 1024):
         if max_slots <= 0:
@@ -115,6 +130,72 @@ class PyScheduler:
             return self._completed
 
 
-def make_scheduler(max_slots: int, max_queue: int = 1024) -> PyScheduler:
-    """The FIFO scheduler (the port has no native one yet)."""
+class NativeScheduler:
+    """ctypes wrapper over csrc/scheduler.cpp: the plans and counters of
+    `PyScheduler`, under the C++ side's own mutex."""
+
+    def __init__(self, max_slots: int, max_queue: int = 1024):
+        lib = get_library()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self.max_slots = max_slots
+        self.max_queue = max_queue
+        self._h = lib.cake_sched_create(max_slots, max_queue)
+        if not self._h:
+            raise ValueError("cake_sched_create failed")
+        n = max_slots
+        self._pf_ids = (ctypes.c_uint64 * n)()
+        self._pf_slots = (ctypes.c_int32 * n)()
+        self._dc_ids = (ctypes.c_uint64 * n)()
+        self._dc_slots = (ctypes.c_int32 * n)()
+
+    def submit(self, rid: int, prompt_len: int, max_new_tokens: int) -> bool:
+        return self._lib.cake_sched_submit(
+            self._h, rid, prompt_len, max_new_tokens) == 0
+
+    def cancel(self, rid: int) -> bool:
+        return self._lib.cake_sched_cancel(self._h, rid) == 0
+
+    def plan(self) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
+        n_pf = ctypes.c_int32()
+        n_dc = ctypes.c_int32()
+        self._lib.cake_sched_plan(
+            self._h, self._pf_ids, self._pf_slots, ctypes.byref(n_pf),
+            self._dc_ids, self._dc_slots, ctypes.byref(n_dc))
+        prefill = [(self._pf_ids[i], self._pf_slots[i])
+                   for i in range(n_pf.value)]
+        decode = [(self._dc_ids[i], self._dc_slots[i])
+                  for i in range(n_dc.value)]
+        return prefill, decode
+
+    def report(self, rid: int, n_tokens: int, eos: bool) -> bool:
+        return self._lib.cake_sched_report(
+            self._h, rid, n_tokens, 1 if eos else 0) == 1
+
+    @property
+    def queue_depth(self) -> int:
+        return self._lib.cake_sched_queue_depth(self._h)
+
+    @property
+    def active(self) -> int:
+        return self._lib.cake_sched_active(self._h)
+
+    @property
+    def completed(self) -> int:
+        return self._lib.cake_sched_completed(self._h)
+
+    def __del__(self):
+        try:
+            if self._h:
+                self._lib.cake_sched_destroy(self._h)
+                self._h = None
+        except Exception:
+            pass
+
+
+def make_scheduler(max_slots: int, max_queue: int = 1024):
+    """The native FIFO where the library builds, else the Python one."""
+    if get_library() is not None:
+        return NativeScheduler(max_slots, max_queue)
     return PyScheduler(max_slots, max_queue)

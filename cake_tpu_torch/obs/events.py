@@ -126,6 +126,10 @@ class EventBus:
     (lazily opened, fsync on close, fail-open on OSError — a broken
     log file degrades to a logged warning, never a failed publish)."""
 
+    # cakelint guards discipline: the JSONL appender and the trace-id
+    # resolver are both optional attachments
+    OPTIONAL_PLANES = ("_log", "trace_of")
+
     def __init__(self, capacity: int = 1024,
                  log_path: Optional[str] = None,
                  observe_metrics: bool = True):

@@ -154,10 +154,24 @@ def refresh_page_gauges(engine) -> None:
     if not getattr(engine, "paged", False):
         return
     try:
-        _m.gauge("cake_engine_kv_pages_total",
-                 "KV pages in the pool").set(engine.cache.n_pages)
-        _m.gauge("cake_engine_kv_pages_free",
-                 "KV pages currently free").set(engine._pager.free_pages)
+        # the pager is engine-thread state swapped wholesale by a live
+        # reconfigure; its declared lock (_admit_lock) pins one
+        # consistent pool for this scrape. NON-blocking on purpose: the
+        # watchdog and /metrics run through here, and a switch holding
+        # the lock through its rebuild must never stall the stall
+        # detector (or observability): on contention the gauges keep
+        # their last values for one scrape.
+        if engine._admit_lock.acquire(blocking=False):
+            try:
+                n_total = engine.cache.n_pages
+                # cakelint: skip[affinity] _admit_lock held via the non-blocking acquire above (the with-form the checker recognizes would block behind a switch)
+                n_free = engine._pager.free_pages
+            finally:
+                engine._admit_lock.release()
+            _m.gauge("cake_engine_kv_pages_total",
+                     "KV pages in the pool").set(n_total)
+            _m.gauge("cake_engine_kv_pages_free",
+                     "KV pages currently free").set(n_free)
         _m.gauge("cake_prefix_pages_shared",
                  "Shared prefix pages currently mapped into admitted "
                  "slots' table rows (pool pages saved vs unshared "
@@ -356,6 +370,10 @@ class StepTelemetry:
     peak_flops/hbm_bps override them (tests pin them for exact MFU
     math). events: an obs/events.EventBus or None (a capture publishes
     a "recompile" event, as a new jit signature does in JAX)."""
+
+    # cakelint guards discipline: the JSONL appender and the event bus
+    # are optional planes
+    OPTIONAL_PLANES = ("_log", "_events")
 
     def __init__(self, *, impl: str = "paged", capacity: int = 512,
                  log_path: Optional[str] = None, kind: str = "",

@@ -189,6 +189,10 @@ class RequestTracer:
     on OSError; read it back with `obs.jsonl.read_jsonl`, which
     tolerates the torn tail a killed process leaves)."""
 
+    # cakelint guards discipline: SLO accounting and the event bus are
+    # optional attachments
+    OPTIONAL_PLANES = ("_slo", "_events")
+
     def __init__(self, capacity: int = 256,
                  events_path: Optional[str] = None,
                  observe_metrics: bool = True,

@@ -201,6 +201,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cake_tpu_torch.analysis import engine_thread_only
 from cake_tpu_torch.autotune.space import resolve_paged_attn
 from cake_tpu_torch.autotune.spec import SpecGammaTuner
 from cake_tpu_torch.faults import build_injector
@@ -532,6 +533,67 @@ def _decode_as_forward(decode_fn):
 
 class InferenceEngine:
     """Slot-based continuous batching over one shared paged KV pool."""
+
+    # -- cakelint vocabulary (python -m cake_tpu_torch.tools.cakelint) --
+    # The JAX engine's declarations (cake_tpu/serve/engine.py), over the
+    # port's locks: the live switch runs under _admit_lock (the lock
+    # submit() registers under), which therefore guards the pager swap;
+    # _switch_lock guards only the switch's in-flight flag.
+    # ENGINE_THREAD_ATTRS is single-writer engine-thread state: the
+    # mapped lock (if any) is the ONE lock whose holder may touch the
+    # attr from a handler thread; None means only _run_on_engine_thread
+    # reaches it. HANDLER_THREAD_METHODS are the entry points that run
+    # on HTTP handler / scrape / signal / health threads and are
+    # statically checked against that table.
+    ENGINE_THREAD_ATTRS = {
+        # paged pool + page-table row state (the pager swaps wholesale
+        # during a live reconfigure: admission reads its bounds under
+        # the same lock the switch holds)
+        "_pager": "_admit_lock",
+        # slot -> request mapping and the per-slot device mirrors:
+        # written only between device steps by the engine loop
+        "_slot_req": None,
+        "_mixed_pending": None,
+        "_implicated": None,
+        "_last_tok": None,
+        "_page_starved": None,
+        "_pending_page_preempt": None,
+        # decode-resident spill state (_spill_resident_stream): the
+        # admission-order stamp for LRU victim choice, the iteration's
+        # decode-resident candidate set, and the parked flag that
+        # forces the decode dispatch to re-validate its (stale) plan
+        "_admit_seq": None,
+        "_cur_decode": None,
+        "_resident_parked": None,
+        # handler<->engine mailboxes: strictly lock-guarded
+        "_cancel_q": "_rid_lock",
+        "_cmd_q": "_rid_lock",
+        # disaggregated serving: shipments staged by the decode plane's
+        # channel thread (disagg_complete) for the engine thread's
+        # adoption in _do_prefill/_mixed_admit
+        "_adopt_store": "_rid_lock",
+    }
+    HANDLER_THREAD_METHODS = (
+        "submit", "chat", "cancel", "stop", "begin_drain",
+        "drain_state", "_drain_eta_s", "register_prefix",
+        "unregister_prefix", "_auto_register_system",
+        "_attach_idempotent", "seed_finished_idempotent",
+        "reconfigure", "request_timeline", "recovery_state",
+        "autotune_state", "current_config", "_set_queue_gauges",
+        "shutdown_save", "_snapshot_before_fail", "_fail_all",
+        "disagg_complete",
+    )
+    # optional subsystems (None = disabled plane): every dotted use
+    # must sit under an `is not None` guard so a disabled plane costs
+    # exactly one attribute read per site
+    OPTIONAL_PLANES = ("_faults", "events", "_journal", "_shed",
+                       "_control", "_host_tier", "_autotuner",
+                       "telemetry", "sentinel", "_actions",
+                       "_postmortem", "_disagg", "_specp")
+    # the only legal nesting order; _rid_lock sits on the submit/emit
+    # hot path, so nothing may block under it
+    LOCK_ORDER = ("_switch_lock", "_admit_lock", "_rid_lock", "_ckpt_lock")
+    NO_BLOCKING_UNDER = ("_rid_lock",)
 
     def __init__(
         self,
@@ -1169,12 +1231,11 @@ class InferenceEngine:
             else:
                 policy = autotune_policy
             policy.validate(max_seq_len=self.max_seq_len)
-            self._autotuner = AutotuneController(
+            self._autotuner = tuner = AutotuneController(
                 policy, self.current_config(),
                 config=autotune_config or ControllerConfig())
             log.info("autotune: auto mode, %d policy regime(s), interval "
-                     "%.1fs", len(policy.regimes),
-                     self._autotuner.config.interval_s)
+                     "%.1fs", len(policy.regimes), tuner.config.interval_s)
         # the action plane (--sentinel-act): sentinel anomalies become
         # autotune signals with a typed, rate-bounded audit trail
         self._actions = None
@@ -1267,6 +1328,8 @@ class InferenceEngine:
 
     def start(self) -> "InferenceEngine":
         if self._thread is None:
+            from cake_tpu_torch.utils.profiling import log_memory
+            log_memory("engine start")
             self._thread = threading.Thread(target=self._run, daemon=True,
                                             name="cake-engine")
             self._thread.start()
@@ -1288,6 +1351,7 @@ class InferenceEngine:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+        # cakelint: skip[affinity] engine thread joined above: inline teardown is single-threaded; the runtime assert checks liveness
         self._drain_cancellations()
         self._fail_pending_commands()
         # flush and fsync the optional JSONL logs (a later start reopens
@@ -1530,12 +1594,16 @@ class InferenceEngine:
             # max_seq_len - prompt
             max_new = min(max_new, self.decode_budget)
         if self.paged:
-            need = self._pager.pages_for(len(ids) + max_new)
-            if need > self._pager.n_pages:
+            with self._admit_lock:
+                # a live reconfigure swaps the pager wholesale under
+                # this lock: it pins one consistent pool for the bound
+                need = self._pager.pages_for(len(ids) + max_new)
+                n_pages = self._pager.n_pages
+            if need > n_pages:
                 # can NEVER be admitted: fail fast instead of requeueing
                 raise ValueError(
                     f"request needs {need} kv pages; the pool has "
-                    f"{self._pager.n_pages} total (raise --kv-pages or "
+                    f"{n_pages} total (raise --kv-pages or "
                     "lower max_tokens)")
         d = self.defaults
         if self._spec:
@@ -1886,7 +1954,10 @@ class InferenceEngine:
             ids = encode_text(self.tokenizer, head)
             # page-granular sharing: a head shorter than one page has
             # nothing to share (register_prefix would refuse it)
-            min_len = max(8, self._pager.page_size) if self.paged else 8
+            min_len = 8
+            if self.paged:
+                with self._admit_lock:
+                    min_len = max(min_len, self._pager.page_size)
             if len(ids) < min_len or len(ids) >= self.max_seq_len - 1:
                 with self._rid_lock:
                     self._auto_pids[head] = -1
@@ -1910,8 +1981,10 @@ class InferenceEngine:
             self._cancel_q.append(handle._req.rid)
         self._wake.set()
         if self._stop.is_set() and self._thread is None:
+            # cakelint: skip[affinity] shutdown window: the engine thread has exited (checked above); runtime assert backstops
             self._drain_cancellations()
 
+    @engine_thread_only
     def _drain_cancellations(self) -> None:
         with self._rid_lock:
             rids, self._cancel_q = self._cancel_q, []
@@ -1973,13 +2046,18 @@ class InferenceEngine:
         if not self.paged:
             fn = (lambda: self._register_prefix_sync(ids))
         else:
-            P = self._pager.page_size
+            with self._admit_lock:
+                # a live reconfigure swaps the pager wholesale; the lock
+                # pins one consistent page size for this validation
+                # (submit's pool-bound discipline)
+                P = self._pager.page_size
             if len(ids) < P:
                 raise ValueError(
                     f"paged prefix sharing is page-granular: the prefix "
                     f"({len(ids)} tokens) is shorter than one kv page "
                     f"({P} tokens), so there is nothing to share "
                     "(lower --kv-page-size or skip registration)")
+            # cakelint: skip[affinity] routed through _run_on_engine_thread below while the engine thread is alive, inline only as a pre-start direct drive; the runtime assert enforces this
             fn = (lambda: self._register_prefix_paged(ids))
         # the device work runs on the engine thread when it is running
         # (the cache and the table have one writer)
@@ -2028,6 +2106,7 @@ class InferenceEngine:
                 self.config)
         return (tmp.k[:, :, :P].contiguous(), tmp.v[:, :, :P].contiguous())
 
+    @engine_thread_only
     def _register_prefix_paged(self, ids: List[int]) -> int:
         """Round the prefix down to a page, allocate its pages, prefill
         it into them (`prefill_prefix_pages`) and record the page list;
@@ -2086,6 +2165,7 @@ class InferenceEngine:
             self._run_on_engine_thread(
                 lambda: self._unregister_paged_sync(prefix_id))
             return
+        # cakelint: skip[affinity] reached only with the engine thread not running (checked above); runtime assert backstops
         self._unregister_paged_sync(prefix_id)
 
     def _unregister_dense(self, prefix_id: int) -> None:
@@ -2095,6 +2175,7 @@ class InferenceEngine:
         if entry is not None:
             self._publish({"op": "unregister_prefix", "pid": prefix_id})
 
+    @engine_thread_only
     def _unregister_paged_sync(self, prefix_id: int) -> None:
         with self._rid_lock:
             entry = self._prefixes.pop(prefix_id, None)
@@ -2172,6 +2253,7 @@ class InferenceEngine:
             raise box["error"]
         return box["result"]
 
+    @engine_thread_only
     def _drain_commands(self) -> None:
         with self._rid_lock:
             cmds, self._cmd_q = self._cmd_q, []
@@ -2290,6 +2372,7 @@ class InferenceEngine:
         """An empty draft pool: the target pool's pages and page size, the
         draft config's layers and heads, its own sink page, the pool's
         storage dtype (fp8 included)."""
+        assert self._specp is not None
         return PagedKVCache.create(
             self._specp.draft_config, self.max_slots, self._pager.n_pages,
             self._pager.page_size, self.max_seq_len,
@@ -2649,6 +2732,7 @@ class InferenceEngine:
             traceback.clear_frames(e.__traceback__)
         self._rebuild_after_error()
 
+    @engine_thread_only
     def _reset_in_place(self) -> None:
         """The reset at the same addresses, after a wait for the
         engine's stream (a chained --decode-scan burst or a chunk-only
@@ -2689,6 +2773,7 @@ class InferenceEngine:
             if r is not None:
                 r.reset_carry()
 
+    @engine_thread_only
     def _rebuild_after_error(self) -> None:
         """The fallback reset: wait for the stream, drop all three
         runners, their graphs' memory pool, the pending mixed records
@@ -3245,6 +3330,7 @@ class InferenceEngine:
         for c, d in depths().items():
             _QUEUE_DEPTH.labels(c).set(d)
 
+    @engine_thread_only
     def _maybe_preempt(self) -> None:
         """Reclaim at most one slot an iteration for a starved higher
         class: first for a page-starved admission noted last iteration
@@ -3316,6 +3402,7 @@ class InferenceEngine:
                 if self._slot_req[slot] is not None
                 and self._slot_req[slot].rid == rid]
 
+    @engine_thread_only
     def _spill_resident_stream(self, exclude_rid: int) -> bool:
         """Decode-resident spill, oversubscribing the pool like virtual
         memory: when an admission would be refused even after the cold
@@ -3402,6 +3489,7 @@ class InferenceEngine:
 
     # -- steps ----------------------------------------------------------------
 
+    @engine_thread_only
     def _do_mixed(self, prefill_plan, decode_plan) -> None:
         """One engine iteration of token-level continuous batching:
         admissions map their pages and join the very next device step as
@@ -3729,6 +3817,7 @@ class InferenceEngine:
 
     # -- the phase-split loop (--mixed-batch off) ---------------------------------
 
+    @engine_thread_only
     def _do_phases(self, prefill_plan, decode_plan) -> None:
         """One iteration of the phase-split loop: the admissions prefill
         (PREFILL_FLUSH a host round trip), then the rows planned to
@@ -3840,6 +3929,7 @@ class InferenceEngine:
     # first token after a few prefills instead of after the whole wave
     PREFILL_FLUSH = 4
 
+    @engine_thread_only
     def _do_prefill_batch(self, prefill_plan) -> None:
         """Admit a wave with one first-token fetch per PREFILL_FLUSH
         admissions."""
@@ -4083,6 +4173,7 @@ class InferenceEngine:
                 on_capture=self._captured("decode_scan"))
         return self._runner
 
+    @engine_thread_only
     def _dispatch_scan(self, rows, n: int, n_top: int, budget,
                        fresh: bool):
         """Dispatch n decode steps of the runner (no fetch). fresh: load
@@ -4113,6 +4204,7 @@ class InferenceEngine:
                         self._penalty)
         return runner.run(n, budget, n_top)
 
+    @engine_thread_only
     def _do_decode(self, decode_plan) -> None:
         """One decode step of every planned row (a burst of one)."""
         t0 = time.perf_counter()
@@ -4318,6 +4410,7 @@ class InferenceEngine:
                 on_capture=self._captured("spec_round_batched"))
         return self._spec_runner
 
+    @engine_thread_only
     def _do_decode_spec(self, decode_plan) -> None:
         """One propose-verify-accept round for ALL planned slots in one
         captured program (speculative.spec_round_batched): batched ragged
@@ -4440,6 +4533,7 @@ class InferenceEngine:
 
     # -- paged speculative decoding (spec/) ------------------------------------
 
+    @engine_thread_only
     def _do_spec_paged(self, decode_plan):
         """One batched draft+verify round over the paged pools for this
         iteration's spec-ready decode rows; returns the rows the round
@@ -4646,6 +4740,8 @@ class InferenceEngine:
         over the draft params and pool), leaving the draft pool with KV
         for positions 0..pos-1, the round's contract. Best-effort: a
         shortfall keeps the row plain (False)."""
+        if self._specp is None:
+            return False
         pos = int(self._pos[slot])
         ctx = (list(req.prompt_ids) + list(req.out_tokens))[:pos]
         if len(ctx) != pos:
@@ -4672,6 +4768,8 @@ class InferenceEngine:
         row (the admission's base row, untouched, plus the state's
         suffix pages). False = the pool cannot cover the round; what was
         extended stays until the truncation or the teardown."""
+        if self._specp is None:
+            return False
         st = self._specp.spec_streams[slot]
         ps = self.cache.page_size
         cover = int(self._pos[slot]) + g + 1
@@ -4701,6 +4799,8 @@ class InferenceEngine:
         the draft row shrinks to its context, the target row to what its
         base allocation does not already cover, and the shrunk rows are
         mapped again."""
+        if self._specp is None:
+            return
         st = self._specp.spec_streams.get(slot)
         if st is None:
             return
@@ -4721,6 +4821,8 @@ class InferenceEngine:
         """Degrade one stream to plain decode, never wedging it: every
         speculative page back to the pool, a disabled tombstone so the
         stream is not activated again, and the degrade published."""
+        if self._specp is None:
+            return
         st = self._specp.spec_streams.get(slot)
         if st is None or not st.enabled:
             return
@@ -4748,6 +4850,8 @@ class InferenceEngine:
         to every planned row (the controller sees collapse, not
         silence), their extensions truncated back, repeat offenders
         disabled; the rows finish on the plain path either way."""
+        if self._specp is None:
+            return
         log.warning("spec.verify fault (%s): %d rows decode plain this "
                     "iteration", exc, len(plan))
         for req, slot in plan:
@@ -4910,6 +5014,7 @@ class InferenceEngine:
             if self._host_tier is not None:
                 self._host_tier.drop(("victim", rid))
             if req.slot >= 0:
+                # cakelint: skip[affinity] fatal path: the engine thread is wedged or has exited; cross-thread teardown is deliberate
                 self._slot_req[req.slot] = None
                 self._release_slot_pages(req.slot)
             self._journal_retire(req, "error", error=str(err))
@@ -4980,11 +5085,13 @@ class InferenceEngine:
         if self.paged and (self.kv_quant
                            or self._pool_dtype != self._base_cache_dtype):
             kv_dtype = self._kv_dtype_name
+        # cakelint: skip[affinity] taking _admit_lock here would invert the declared order: checkpoint.snapshot calls this under _ckpt_lock (shutdown_save/_snapshot_before_fail); the unlocked read tolerates a torn value mid-switch (informational health/snapshot metadata only)
+        pager = self._pager if self.paged else None
         return EngineConfig(
             slots=self.max_slots,
             decode_scan=self._decode_scan,
-            kv_pages=self._pager.n_pages if self.paged else None,
-            kv_page_size=self._pager.page_size if self.paged else 128,
+            kv_pages=pager.n_pages if pager is not None else None,
+            kv_page_size=pager.page_size if pager is not None else 128,
             kv_dtype=kv_dtype,
             mixed_batch="on" if self._mixed else "off",
             paged_attn=self.paged_attn or "auto")
@@ -5021,6 +5128,7 @@ class InferenceEngine:
             finally:
                 with self._switch_lock:
                     self._switch_inflight = False
+        # cakelint: skip[affinity] engine thread not running, or this IS the engine thread (autotune tick); runtime assert distinguishes
         return self._reconfigure_sync(cfg, reason)
 
     def _config_key(self, cfg) -> tuple:
@@ -5031,6 +5139,7 @@ class InferenceEngine:
             cfg, default_kv_dtype=str(self._base_cache_dtype).replace(
                 "torch.", ""), device=self.device)
 
+    @engine_thread_only
     def _reconfigure_sync(self, new, reason: str) -> bool:
         """The engine-thread body of reconfigure(), between iterations."""
         from cake_tpu_torch.autotune import (
@@ -5413,6 +5522,7 @@ class InferenceEngine:
             attainment=self.slo.attainment_by_class("1m"),
             queue_pressure=pressure() if pressure is not None else 0.0)
 
+    @engine_thread_only
     def _autotune_tick(self) -> None:
         """The auto-mode controller's drive, from the engine loop between
         iterations: a signal sample every interval, and the controller's

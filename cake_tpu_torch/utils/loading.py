@@ -3,19 +3,23 @@
 Counterpart of `cake_tpu/utils/loading.py`: resolve the file set from
 `model.safetensors.index.json`'s weight_map, falling back to a single
 `model.safetensors`, then read tensors as zero-copy numpy views of an
-mmap. Needs neither the `safetensors` package nor `ml_dtypes`: bf16
-tensors come back as int16 views of their bits, which `to_torch`
-reinterprets as torch.bfloat16.
+mmap: the native reader's (native/safetensors.py), or numpy's where
+the native library does not build. Needs neither the `safetensors`
+package nor `ml_dtypes`: bf16 tensors come back as int16 views of their
+bits, which `to_torch` reinterprets as torch.bfloat16.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
 
 INDEX_FILE = "model.safetensors.index.json"
 SINGLE_FILE = "model.safetensors"
@@ -115,9 +119,20 @@ def _st_load_file(path: str,
 
 
 def load_weights(model_dir: str,
-                 filter_fn: Optional[Callable[[str], bool]] = None
-                 ) -> Dict[str, StTensor]:
-    """Model weights by name; filter_fn keeps only matching names."""
+                 filter_fn: Optional[Callable[[str], bool]] = None,
+                 prefetch: bool = True) -> Dict[str, StTensor]:
+    """Model weights by name, read through the native mmap reader
+    (native/safetensors.py) where its library builds, else through the
+    numpy memmap; the bytes are the same either way.
+
+    filter_fn:  keep only tensors for which filter_fn(name) is True.
+    prefetch:   madvise(WILLNEED) each tensor's pages up front (native
+                reader). Pass False when the caller will only touch
+                shard slices of each tensor (the sharded loaders):
+                prefetching would fault in the whole checkpoint.
+    """
+    from cake_tpu_torch.native.safetensors import read_file
+
     weight_map = load_weight_index(model_dir)
     base_dir = (os.path.dirname(model_dir) if os.path.isfile(model_dir)
                 else model_dir)
@@ -127,8 +142,14 @@ def load_weights(model_dir: str,
             continue
         by_file.setdefault(fname, []).append(name)
     out: Dict[str, StTensor] = {}
+    handle = None
     for fname, names in by_file.items():
-        out.update(_st_load_file(os.path.join(base_dir, fname), names))
+        tensors, handle = read_file(os.path.join(base_dir, fname), names,
+                                    prefetch=prefetch)
+        out.update(tensors)
+    log.info("%s: %d tensors from %d file(s) through the %s", model_dir,
+             len(out), len(by_file),
+             "native reader" if handle is not None else "numpy memmap")
     return out
 
 

@@ -1,12 +1,14 @@
 """What the port takes of `cake_tpu/utils/profiling.py`: the profiler
 trace around a one-shot generation (`trace`, a torch.profiler capture
 written as a Chrome / Perfetto trace file where JAX writes its
-jax.profiler trace), the windowed step counter (`StepStats`),
-`human_bytes`, the device memory stats behind the scrape-time HBM
-gauges (from `torch.cuda.memory_stats()`), and the live capture behind
-`POST /api/v1/profile` (`capture_trace`: a torch.profiler session over
-the next N seconds of whatever the process is doing). The JAX module's
-annotations are not ported."""
+jax.profiler trace), named spans in it (`annotate`, a
+torch.profiler.record_function where JAX opens a TraceAnnotation), the
+windowed step counter (`StepStats`), `human_bytes`, the device memory
+stats behind the scrape-time HBM gauges (from `torch.cuda.memory_stats()`)
+and the lifecycle memory log (`log_memory`, at "model loaded" and
+"engine start"), and the live capture behind `POST /api/v1/profile`
+(`capture_trace`: a torch.profiler session over the next N seconds of
+whatever the process is doing)."""
 
 from __future__ import annotations
 
@@ -45,6 +47,15 @@ def trace(log_dir: Optional[str]):
         yield
     prof.export_chrome_trace(path)
     log.info("profile written to %s", path)
+
+
+def annotate(name: str):
+    """Named span visible in the profile (the host's timeline, and the
+    card's kernels launched inside it): a torch.profiler
+    record_function, a context manager and decorator like JAX's
+    TraceAnnotation. Costs next to nothing while no profiler runs."""
+    import torch
+    return torch.profiler.record_function(name)
 
 
 def capture_trace(seconds: float, out_dir: Optional[str] = None,
@@ -136,6 +147,24 @@ def device_memory_stats() -> List[Dict[str, object]]:
             "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
         })
     return out
+
+
+def log_memory(tag: str) -> None:
+    """Log each card's allocated, reserved and peak allocated memory at a
+    lifecycle point (cake/mod.rs:65-71), from torch.cuda.memory_stats;
+    nothing without a card (the CPU has no such stats), and nothing in a
+    process that has not touched CUDA (a --cpu run on a machine with a
+    card: reading the stats would create a context on every card)."""
+    import torch
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        return
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        log.info("[%s] cuda:%d: %s allocated (peak %s), %s reserved",
+                 tag, i,
+                 human_bytes(stats.get("allocated_bytes.all.current", 0)),
+                 human_bytes(stats.get("allocated_bytes.all.peak", 0)),
+                 human_bytes(stats.get("reserved_bytes.all.current", 0)))
 
 
 @dataclass

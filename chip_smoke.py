@@ -553,6 +553,34 @@ Phases, in order (any failure exits non-zero):
             router's replica_departed precedes the process's exit. A
             `router` JSON line holds the record; each kernel row carries
             `router_launches` (the measured wave's).
+  native    the host runtime (ROADMAP A16). Right after device: (a)
+            libcake_native (csrc/scheduler.cpp, csrc/safetensors.cpp)
+            and libcake_embed (csrc/embed.cpp against libpython) built
+            with g++ into _build/, each build's seconds; the smoke fails
+            if the native library does not load (the Python fallbacks
+            would hide it). (b) NativeScheduler against PyScheduler over
+            one seeded sequence of NATIVE_OPS submits, duplicates,
+            cancels, plans and reports: the same plans and counters, and
+            microseconds a plan() each. After every other phase: (d) the
+            serve phase's engines and every _SchedServer without classes
+            (the sched FIFO drive among them) ran NativeScheduler; the
+            generate phase's checkpoint command line read through the
+            native reader (its log line); (e) a C host built from
+            examples/embed_host/main.c against libcake_embed generates 8
+            tokens from that checkpoint in a fresh process; (f) `python
+            -m cake_tpu_torch.tools.cakelint cake_tpu_torch/ --json`
+            exits 0 with sites in all four rules, and `python -m
+            cake_tpu_torch.tools.journal_check` reads the recovery
+            phase's journal (rc 0). Meanwhile a thread writes a 2-layer
+            Llama-3-8B-width bf16 checkpoint (~2.9 GB); then (c) it
+            loads through load_params_from_hf with the native reader and
+            with the numpy memmap (page cache warm for both), equal
+            tensors on the card, both load times. A `native` JSON line
+            holds the record. The whole smoke runs with
+            CAKE_THREAD_ASSERTS=1 (set before the port is imported, so
+            every child inherits it): a WrongThreadError in this process
+            (analysis.annotations.VIOLATIONS) or in a child's log fails
+            the run.
 
 The line before last is a JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or `cake_tpu`.
@@ -575,9 +603,10 @@ import urllib.request
 import weakref
 from collections import Counter
 
-PHASES = ("device", "kernels", "step", "generate", "serve", "prefix",
-          "sched", "tiers", "recovery", "spec", "control", "disagg",
-          "dense", "moe", "sd", "parallel", "sp", "multihost", "router")
+PHASES = ("device", "native", "kernels", "step", "generate", "serve",
+          "prefix", "sched", "tiers", "recovery", "spec", "control",
+          "disagg", "dense", "moe", "sd", "parallel", "sp", "multihost",
+          "router")
 # the depth the serve phase's pool runs, the prefix, tiers, recovery and
 # spec phases, the control phase's (1) and (3), the disagg phase's (b)
 # and the dense phase's (b)-(d) run the Llama-3-8B-width bf16 weights
@@ -2487,6 +2516,9 @@ def _checkpoint_cli_end(child, cmd, t0, trace_dir, d, ids, back) -> dict:
         f"{r.stdout.strip().splitlines()[-1:]!r}; trace files {traces}")
     if r.returncode != 0:
         fail(f"checkpoint: the command line failed:\n{r.stderr[-3000:]}")
+    reader = re.search(r"tensors from \d+ file\(s\) through the "
+                       r"(native reader|numpy memmap)", r.stderr)
+    _NATIVE.update(ckpt_dir=d, ckpt_reader=reader and reader.group(1))
     if len(traces) != 1:
         fail(f"checkpoint: --tracing {trace_dir} wrote {traces}")
     return dict(dir=d, ids=len(ids), round_trip=back == CKPT_ROUND_TRIP,
@@ -2766,6 +2798,7 @@ def phase_serve(torch, rpa, cfg, params, kv_dtype=None, i4=None,
                          cache_dtype=torch.bfloat16, device=dev)
     master = Master(args, text_generator=gen)
     engine = master.make_engine()
+    _note_fifo(engine, label)
     httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
     url = (f"http://127.0.0.1:{httpd.server_address[1]}"
            "/api/v1/chat/completions")
@@ -3177,6 +3210,7 @@ def _prefix_serve(torch, rpa, fa, cfg, params, kv_dtype, mixed: str,
                          cache_dtype=torch.bfloat16, device=DEV)
     master = Master(args, text_generator=gen)
     engine = master.make_engine()
+    _note_fifo(engine, "prefix serve")
     httpd = start(master, "127.0.0.1:0", block=False, engine=engine)
     url = (f"http://127.0.0.1:{httpd.server_address[1]}"
            "/api/v1/chat/completions")
@@ -3417,6 +3451,8 @@ class _SchedServer:
         kw = {"sched_config": sched_config} if sched_config else {}
         kw.update(engine_kw or {})
         self.engine = self.master.make_engine(**kw)
+        if not classes:
+            _note_fifo(self.engine, "a FIFO drive (_SchedServer)")
         self.httpd = start(self.master, "127.0.0.1:0", block=False,
                            engine=self.engine)
         self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
@@ -4649,6 +4685,8 @@ def _recovery_journal_children() -> dict:
     tmp = tempfile.mkdtemp(prefix="cake_smoke_journal_")
     jpath = os.path.join(tmp, "requests.journal")
     logp = os.path.join(tmp, "child.log")
+    _NATIVE.update(journal=jpath)
+    _NATIVE["child_logs"].append(logp)
     t0 = time.perf_counter()
     a, url = _spawn_child(jpath, RECOVERY_ABORT, logp)
     bodies = {k: {"messages": [{"role": "user",
@@ -8991,6 +9029,7 @@ class _MhPair:
                 f"127.0.0.1:{api}", *MH_EXTRA, *extra]
         port = _free_port()
         self.logs = [os.path.join(self.tmp, f"p{i}.log") for i in range(2)]
+        _NATIVE["child_logs"].extend(self.logs)
         self.procs = []
         for i in range(2):
             env = dict(os.environ, CAKE_COORDINATOR=f"127.0.0.1:{port}",
@@ -9392,6 +9431,7 @@ def _mh_image_start(tree) -> dict:
     tmp = tempfile.mkdtemp(prefix="cake_smoke_mh_sd_")
     port, api = _free_port(), _free_port()
     logs = [os.path.join(tmp, f"p{i}.log") for i in range(2)]
+    _NATIVE["child_logs"].extend(logs)
     procs = []
     for i in range(2):
         env = dict(os.environ, CAKE_COORDINATOR=f"127.0.0.1:{port}",
@@ -9837,6 +9877,7 @@ class _RtProc:
         self.tag = tag
         self.log = os.path.join(tempfile.mkdtemp(prefix=f"cake_rt_{tag}_"),
                                 "log")
+        _NATIVE["child_logs"].append(self.log)
         env = dict(os.environ, CAKE_ANNOUNCE_TOKEN=RT_TOKEN,
                    PYTHONPATH=tree)
         with open(self.log, "w") as f:
@@ -10299,6 +10340,364 @@ def phase_router(torch, card: str, tree: str):
     return rec["b"]["launches"], rec
 
 
+
+# -- phase: native (the host runtime, ROADMAP A16) ----------------------------
+
+# the scheduler drive's seeded ops; the reader's checkpoint: Llama-3-8B's
+# width at NATIVE_LAYERS blocks, bf16
+NATIVE_OPS = 10000
+NATIVE_LAYERS = 2
+# what the other phases leave for the native phase's end: the schedulers
+# their engines ran, the checkpoint command line's reader and directory,
+# the recovery phase's journal, the children's logs
+_NATIVE: dict = {"schedulers": Counter(), "child_logs": []}
+
+
+def _note_fifo(engine, where: str) -> None:
+    """A FIFO-scheduled engine of the served path must run the native
+    scheduler (a tree without one is let through: a parent's run)."""
+    import importlib
+    mod = importlib.import_module("cake_tpu_torch.native.scheduler")
+    kind = type(engine.scheduler).__name__
+    _NATIVE["schedulers"][kind] += 1
+    if hasattr(mod, "NativeScheduler") and kind != "NativeScheduler":
+        fail(f"{where}: the engine runs {kind}, not NativeScheduler")
+
+
+def _native_sched_ops(seed: int, n: int):
+    """A seeded op sequence over a 8-slot FIFO with a 64-deep queue:
+    submits (a duplicate now and then; a full queue comes on its own),
+    cancels of queued and active requests, plans, reports with EOS and
+    past max-tokens."""
+    import random
+    rng = random.Random(seed)
+    ops, next_rid, known = [], 1, []
+    for _ in range(n):
+        op = rng.choice(["submit", "submit", "plan", "plan", "report",
+                         "report", "report", "cancel"])
+        if op == "submit":
+            rid = next_rid if rng.random() < 0.9 or not known \
+                else rng.choice(known)
+            if rid == next_rid:
+                next_rid += 1
+                known.append(rid)
+            ops.append((op, (rid, rng.randint(1, 4000),
+                             rng.randint(1, 12))))
+        elif op == "cancel":
+            ops.append((op, (rng.choice(known) if known else 1,)))
+        elif op == "report":
+            ops.append((op, (None, rng.randint(1, 4), rng.random() < 0.1)))
+        else:
+            ops.append((op, ()))
+    return ops
+
+
+def _native_sched_drive(sched, ops) -> tuple:
+    """(the results and counters of each op, seconds inside plan(), the
+    plans); a report goes to a request of the last plan."""
+    out, plan_s, plans, active = [], 0.0, 0, []
+    for i, (op, args) in enumerate(ops):
+        if op == "plan":
+            t0 = time.perf_counter()
+            got = sched.plan()
+            plan_s += time.perf_counter() - t0
+            plans += 1
+            active = [rid for rid, _ in got[0] + got[1]]
+        elif op == "report":
+            rid = active[i % len(active)] if active else 10 ** 9
+            got = sched.report(rid, *args[1:])
+        else:
+            got = getattr(sched, op)(*args)
+        out.append((got, sched.queue_depth, sched.active, sched.completed))
+    return out, plan_s, plans
+
+
+def phase_native_start(torch, card: str) -> dict:
+    """(a) the two libraries built, (b) the schedulers against each
+    other. Returns the record the phase's end completes."""
+    import cake_tpu_torch.native as native
+    from cake_tpu_torch.native.embed import build_embed_library
+    from cake_tpu_torch.native.scheduler import NativeScheduler, PyScheduler
+
+    lib = native.get_library()
+    if lib is None:
+        fail("native: libcake_native did not build or load (the Python "
+             "fallbacks would serve instead)")
+    info = dict(native.BUILD_INFO)
+    if os.path.dirname(info["path"]) != native.BUILD_DIR:
+        fail(f"native: the library came from {info['path']}")
+    t0 = time.perf_counter()
+    embed_path = build_embed_library()
+    embed_s = time.perf_counter() - t0
+    log(f"native (a): libcake_native built and loaded in "
+        f"{info['seconds']:.2f} s ({os.path.basename(info['path'])}), "
+        f"libcake_embed in {embed_s:.2f} s "
+        f"({os.path.basename(embed_path)}) [{card}]")
+    ops = _native_sched_ops(26, NATIVE_OPS)
+    got, nat_s, n_plans = _native_sched_drive(NativeScheduler(8, 64), ops)
+    want, py_s, _ = _native_sched_drive(PyScheduler(8, 64), ops)
+    if got != want:
+        k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"native (b): op {k} ({ops[k]}) gives {got[k]} natively, "
+             f"{want[k]} in Python")
+    kinds = Counter(op for op, _ in ops)
+    refused = sum(1 for (op, _), r in zip(ops, want)
+                  if op == "submit" and r[0] is False)
+    retired = want[-1][3]
+    if not refused or not retired:
+        fail(f"native (b): the sequence refused {refused} submits and "
+             f"retired {retired} requests")
+    rec = dict(build_s=info["seconds"], embed_build_s=embed_s,
+               sched_ops=dict(kinds), sched_refused=refused,
+               sched_retired=retired, plans=n_plans,
+               plan_us_native=1e6 * nat_s / n_plans,
+               plan_us_python=1e6 * py_s / n_plans,
+               embed_lib=embed_path)
+    log(f"native (b): {NATIVE_OPS} ops ({dict(kinds)}), {refused} refused "
+        f"submits, {retired} retired: the same plans and counters; plan() "
+        f"{rec['plan_us_native']:.2f} us native, "
+        f"{rec['plan_us_python']:.2f} us Python [{card}]")
+    return rec
+
+
+def _native_checkpoint(torch, d: str):
+    """Write the reader's checkpoint: NATIVE_LAYERS blocks at Llama-3-8B
+    width, bf16, drawn on the card from seed 0 (config.json beside)."""
+    import dataclasses
+
+    from cake_tpu_torch.models.llama.config import LlamaConfig
+    from cake_tpu_torch.models.llama.params import hf_param_layout
+    from cake_tpu_torch.utils.loading import save_safetensors
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=NATIVE_LAYERS)
+    layout, per_layer, L = hf_param_layout(cfg)
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, \
+        cfg.head_dim
+    shapes = {"input_layernorm.weight": (D,),
+              "post_attention_layernorm.weight": (D,),
+              "self_attn.q_proj.weight": (H * hd, D),
+              "self_attn.k_proj.weight": (KV * hd, D),
+              "self_attn.v_proj.weight": (KV * hd, D),
+              "self_attn.o_proj.weight": (D, H * hd),
+              "mlp.gate_proj.weight": (F, D), "mlp.up_proj.weight": (F, D),
+              "mlp.down_proj.weight": (D, F),
+              "model.embed_tokens.weight": (V, D),
+              "model.norm.weight": (D,), "lm_head.weight": (V, D)}
+    names = [n for n, _ in layout.values()] + [
+        f"model.layers.{i}.{sfx}" for i in range(L)
+        for sfx, _ in per_layer.values()]
+    g = torch.Generator(device=DEV).manual_seed(0)
+    tensors = {}
+    for n in names:
+        key = n.split(".", 3)[-1] if n.startswith("model.layers.") else n
+        tensors[n] = (torch.randn(shapes[key], generator=g, device=DEV,
+                                  dtype=torch.bfloat16) * 0.02).cpu()
+    save_safetensors(os.path.join(d, "model.safetensors"), tensors)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"hidden_size": D, "intermediate_size": F,
+                   "num_hidden_layers": L, "num_attention_heads": H,
+                   "num_key_value_heads": KV, "vocab_size": V,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "rope_theta": cfg.rope_theta,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "bos_token_id": cfg.bos_token_id,
+                   "eos_token_id": list(cfg.eos_token_ids)}, f)
+    return cfg, sum(t.numel() * 2 for t in tensors.values())
+
+
+def _native_embed_host(rec: dict, tree: str, card: str) -> None:
+    """(e) examples/embed_host/main.c built against libcake_embed, run in
+    a fresh process: 8 tokens from the generate phase's checkpoint (one
+    written here when that phase did not run)."""
+    import shutil
+    import sysconfig
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="cake_smoke_embed_")
+    model = _NATIVE.get("ckpt_dir")
+    if model is None:
+        model = os.path.join(tmp, "ckpt")
+        os.makedirs(model)
+        _write_checkpoint(model)
+    base = os.path.join(tmp, "node")
+    os.makedirs(base)
+    os.symlink(model, os.path.join(base, "model"))
+    exe = os.path.join(tmp, "embed_host")
+    lib = rec["embed_lib"]
+    t0 = time.perf_counter()
+    cc = shutil.which("gcc") or "cc"
+    r = subprocess.run(
+        [cc, "-O2", "-o", exe,
+         os.path.join(tree, "examples", "embed_host", "main.c"), lib,
+         f"-Wl,-rpath,{os.path.dirname(lib)}",
+         f"-Wl,-rpath,{sysconfig.get_config_var('LIBDIR')}"],
+        capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"native (e): the embed host did not build:\n{r.stderr}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [tree] + [p for p in sys.path if p.endswith("-packages")]))
+    r = subprocess.run([exe, base, "--prompt", "Why is the sky blue?",
+                        "--n", "8"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or "embed_host: done" not in r.stdout:
+        fail(f"native (e): the embed host exited {r.returncode}:\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    rec.update(embed_host_s=wall, embed_host_text=out[-2] if len(out) > 1
+               else "")
+    log(f"native (e): the C embed host (examples/embed_host/main.c) "
+        f"generated {rec['embed_host_text']!r} from {model} in a fresh "
+        f"process, {wall:.1f} s with its build [{card}]")
+
+
+def _native_tools(rec: dict, tree: str, card: str) -> None:
+    """(f) the host-only tools, on a machine with no jax."""
+    r = subprocess.run([sys.executable, "-m", "cake_tpu_torch.tools.cakelint",
+                        "cake_tpu_torch/", "--json"], cwd=tree,
+                       capture_output=True, text=True, timeout=300)
+    try:
+        lint = json.loads(r.stdout)
+    except ValueError:
+        fail(f"native (f): cakelint printed no report:\n{r.stderr[-2000:]}")
+    if r.returncode != 0 or lint["findings"] or not all(
+            lint["sites"].get(k, 0) > 0 for k in (
+                "affinity", "guards", "locks", "capture-purity")):
+        fail(f"native (f): cakelint exit {r.returncode}, sites "
+             f"{lint['sites']}, findings {lint['findings'][:3]}")
+    rec.update(cakelint_sites=lint["sites"],
+               cakelint_suppressed=lint["suppressed"])
+    jpath = _NATIVE.get("journal")
+    if jpath is None:
+        log("native (f): no recovery journal (the recovery phase did not "
+            "run): journal_check not driven")
+    else:
+        r = subprocess.run([sys.executable, "-m",
+                            "cake_tpu_torch.tools.journal_check", jpath,
+                            "--json"], cwd=tree, capture_output=True,
+                           text=True, timeout=120)
+        try:
+            doc = json.loads(r.stdout)
+        except ValueError:
+            fail(f"native (f): journal_check printed no document "
+                 f"(exit {r.returncode}):\n{r.stderr[-2000:]}")
+        if r.returncode != 0 or doc["rc"] != 0 or not doc["requests"]:
+            fail(f"native (f): journal_check exit {r.returncode} on "
+                 f"{jpath}: findings {doc['findings'][:5]}")
+        rec.update(journal_records=doc["records"],
+                   journal_requests=len(doc["requests"]),
+                   journal_torn_tail=doc["torn_tail"])
+    journal = (f"exit 0, {rec['journal_requests']} requests in "
+               f"{rec['journal_records']} records" if jpath
+               else "not driven")
+    log(f"native (f): cakelint exit 0 on cake_tpu_torch/ (sites "
+        f"{lint['sites']}, {lint['suppressed']} suppressed); journal_check "
+        f"{journal} [{card}]")
+
+
+def _native_loads(torch, rec: dict, cfg, d: str, card: str) -> None:
+    """(c) the checkpoint through load_params_from_hf with the native
+    reader, then with the numpy memmap: equal tensors on the card."""
+    import cake_tpu_torch.native.safetensors as nst
+    from cake_tpu_torch.models.llama.params import load_params_from_hf
+
+    def load():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = load_params_from_hf(d, cfg, dtype=torch.bfloat16, device=DEV)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    opened = []
+    real_open = nst.StFile
+    nst.StFile = lambda path: opened.append(path) or real_open(path)
+    try:
+        native_p, native_s = load()
+    finally:
+        nst.StFile = real_open
+    if len(opened) != 1:
+        fail(f"native (c): the native reader opened {opened}")
+    real_lib = nst.get_library
+    nst.get_library = lambda: None
+    try:
+        memmap_p, memmap_s = load()
+    finally:
+        nst.get_library = real_lib
+    a = torch.utils._pytree.tree_flatten(native_p)[0]
+    b = torch.utils._pytree.tree_flatten(memmap_p)[0]
+    if len(a) != len(b) or not a or not all(
+            x.device.type == torch.device(DEV).type and torch.equal(x, y)
+            for x, y in zip(a, b)):
+        fail("native (c): the two readers' tensors differ on the card")
+    rec.update(load_native_s=native_s, load_memmap_s=memmap_s,
+               load_tensors=len(a))
+    log(f"native (c): load_params_from_hf of {rec['ckpt_gb']:.2f} GB "
+        f"({NATIVE_LAYERS} Llama-3-8B-width blocks, bf16; page cache warm) "
+        f"{native_s:.2f} s through the native reader, {memmap_s:.2f} s "
+        f"through the numpy memmap; {len(a)} equal tensors on the card "
+        f"[{card}]")
+    del native_p, memmap_p, a, b
+    torch.cuda.empty_cache()
+
+
+def phase_native_end(torch, rec: dict, card: str, tree: str) -> dict:
+    """(d)-(f), and (c) beside them: see the module docstring."""
+    import shutil
+    import tempfile
+
+    scheds = dict(_NATIVE["schedulers"])
+    if scheds and set(scheds) != {"NativeScheduler"}:
+        fail(f"native (d): the served FIFO engines ran {scheds}")
+    reader = _NATIVE.get("ckpt_reader")
+    if reader is not None and reader != "native reader":
+        fail(f"native (d): the checkpoint command line read through the "
+             f"{reader}")
+    rec.update(served_schedulers=scheds, checkpoint_cli_reader=reader)
+    log(f"native (d): served FIFO engines {scheds or 'none ran'}; the "
+        f"checkpoint command line read through the "
+        f"{reader or '(generate did not run)'} [{card}]")
+    d = tempfile.mkdtemp(prefix="cake_smoke_native_ckpt_")
+    box = {}
+
+    def write():
+        try:
+            box["out"] = _native_checkpoint(torch, d)
+        except BaseException as e:   # re-raised by the join below
+            box["error"] = e
+
+    writer = threading.Thread(target=write, daemon=True)
+    t0 = time.perf_counter()
+    writer.start()
+    _native_embed_host(rec, tree, card)
+    _native_tools(rec, tree, card)
+    writer.join()
+    if "error" in box:
+        raise box["error"]
+    cfg, nbytes = box["out"]
+    rec.update(ckpt_gb=nbytes / 1e9,
+               ckpt_write_s=time.perf_counter() - t0)
+    _native_loads(torch, rec, cfg, d, card)
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def _affinity_violations() -> list:
+    """WrongThreadErrors of this process and of every child's log (a
+    parent tree without the asserts has only the logs to read)."""
+    annotations = sys.modules.get("cake_tpu_torch.analysis.annotations")
+    bad = list(getattr(annotations, "VIOLATIONS", []))
+    for path in _NATIVE["child_logs"]:
+        try:
+            with open(path, errors="replace") as f:
+                if "WrongThreadError" in f.read():
+                    bad.append(f"WrongThreadError in {path}")
+        except OSError:
+            pass
+    return bad
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -10329,6 +10728,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs "
              "an NVIDIA card")
+    # the engine-thread asserts armed as in tier-1, before the port is
+    # imported (the decorator reads the flag once); children inherit it
+    os.environ["CAKE_THREAD_ASSERTS"] = "1"
     tree = os.path.abspath(a.tree) if a.tree else \
         os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, tree)
@@ -10357,6 +10759,11 @@ def main(argv=None) -> int:
 
     card = phase_device(torch, rpa, fa, i4)
     lap("device")
+    native_record = None
+    if "native" in phases and importlib.util.find_spec(
+            "cake_tpu_torch.native.embed"):
+        native_record = phase_native_start(torch, card)
+        lap("native (a)-(b)")
     only = set(a.kernels.split(",")) - {""} or None
     kern = (phase_kernels(torch, rpa, fa, i4, only) if "kernels" in phases
             else {})
@@ -10563,6 +10970,12 @@ def main(argv=None) -> int:
         # just before it), a kernels-line key of their own
         router_counts, router_record = phase_router(torch, card, tree)
         lap("router")
+    if native_record is not None:
+        phase_native_end(torch, native_record, card, tree)
+        lap("native (c)-(f)")
+    bad = _affinity_violations()
+    if bad:
+        fail(f"engine-thread asserts: {bad[:5]}")
     for r in serve_records:
         busy = "-" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
         log(f"serve summary: {r['label']:<52} {r['run']:<8} decode "
@@ -10610,6 +11023,9 @@ def main(argv=None) -> int:
                          default=str), flush=True)
     if router_record is not None:
         print(json.dumps({"router": router_record, "card": card},
+                         default=str), flush=True)
+    if native_record is not None:
+        print(json.dumps({"native": native_record, "card": card},
                          default=str), flush=True)
 
     rows = []

@@ -474,7 +474,9 @@ def test_auto_prefix_registers_again_after_a_reset(models):
         eng._auto_register_system(sysmsg)
         (head, pid), = eng._auto_pids.items()
         assert pid in eng._prefixes
-        eng._reset_after_error()
+        # the reset runs where a fault's recovery runs it: on the engine
+        # thread (its rebuild is engine-thread-only)
+        eng._run_on_engine_thread(eng._reset_after_error)
         assert not eng._prefixes and not eng._auto_pids
         eng._auto_pids[head] = pid       # a handler thread's late write
         h = eng.chat([sysmsg, Message.user("hi")], max_new_tokens=2)

@@ -178,8 +178,16 @@ def test_classes_and_errors_match_jax():
 
 
 def test_scheduler_seam_keeps_the_fifo_without_classes():
-    from cake_tpu_torch.native.scheduler import PyScheduler
-    assert isinstance(tsched.make_scheduler(2), PyScheduler)
+    """Without classes the seam gives the FIFO, as JAX's does
+    (tests/test_sched.py, tests/test_native.py): the native one wherever
+    the library builds, the Python one only where it cannot; with
+    classes, the SLOScheduler."""
+    from cake_tpu_torch.native import is_available
+    from cake_tpu_torch.native.scheduler import NativeScheduler, PyScheduler
+    fifo = tsched.make_scheduler(2)
+    assert not isinstance(fifo, tsched.SLOScheduler)
+    assert isinstance(fifo, NativeScheduler if is_available()
+                      else PyScheduler)
     assert isinstance(tsched.make_scheduler(2, priority_classes=True),
                       tsched.SLOScheduler)
 

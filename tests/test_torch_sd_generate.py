@@ -152,6 +152,7 @@ def _jax_images(cfg_t, params, args_dict, noise, version=None):
     from cake_tpu.args import ImageGenerationArgs as JArgs
     from cake_tpu.args import SDVersion as JV
     from cake_tpu.models.sd import config as jcfg
+    from cake_tpu.models.sd import sd as jsd
     from cake_tpu.models.sd.sd import SDGenerator as JGen
     from cake_tpu.models.sd.sd import SimpleClipTokenizer as JTok
 
@@ -161,14 +162,31 @@ def _jax_images(cfg_t, params, args_dict, noise, version=None):
         toks.append(JTok(jc.clip2.vocab_size))
     gen = JGen(jc, _jtree(params), toks)
     out = []
-    real = jax.random.normal
+    real, real_decode = jax.random.normal, jsd.vae_decode
     jax.random.normal = noise.jax_normal
+    # JAX's generator calls its VAE decode eagerly, op by op: jitted, the
+    # same function costs one compile a shape instead of a dispatch an op
+    # (the file's largest cost under the suite's six workers)
+    jsd.vae_decode = _jitted_vae_decode()
     try:
         gen.generate_image(JArgs(**args_dict), lambda pngs: out.append(
             [np.asarray(Image.open(io.BytesIO(p))) for p in pngs]))
     finally:
-        jax.random.normal = real
+        jax.random.normal, jsd.vae_decode = real, real_decode
     return out
+
+
+_JIT: dict = {}
+
+
+def _jitted_vae_decode():
+    """JAX's vae_decode under jax.jit (the VAE config static), one jitted
+    function for the whole file so each latent shape compiles once."""
+    if "vae_decode" not in _JIT:
+        import jax
+        from cake_tpu.models.sd import vae as jvae
+        _JIT["vae_decode"] = jax.jit(jvae.vae_decode, static_argnums=1)
+    return _JIT["vae_decode"]
 
 
 def _port_images(gen, args_dict, noise, monkeypatch):
@@ -192,6 +210,19 @@ def _within_one_level(got, want):
             assert b.std() > 5 and max((b == 0).mean(),
                                        (b == 255).mean()) < 0.5
             assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU side on one intra-op thread while this file runs:
+    the tiny UNet's ops are too small to share, and with every xdist
+    worker's torch spinning a thread per core the suite oversubscribes
+    the cores (one_seed's three generations took 50 s there, 0.5 s
+    alone). The previous count comes back after the file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
